@@ -1,0 +1,233 @@
+"""The port's ingest paths on the CPU — the plain versions of K1 (fused
+ingest), K2a/K2b (row histogram) and K3 (sparse triple scatter) — against
+the JAX package's oracles and, once each, its Pallas kernels in
+interpret mode (M <= 16, bucket_limit <= 64, N <= 4096).
+
+Int32 accumulators must be EQUAL.  The JAX codec is float32 and the
+port's float64 (see test_torch_codec.py), so samples on which the two
+codecs bucket differently are filtered out first and counted; the
+count must stay below 0.1% of the batch (it is 0 on most seeds).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from loghisto_tpu.ops.fused_ingest import fused_ingest_batch as jax_fused
+from loghisto_tpu.ops.ingest import bucket_indices as jax_bucket_indices
+from loghisto_tpu.ops.ingest import ingest_batch as jax_ingest_batch
+from loghisto_tpu.ops.pallas_kernels import (
+    pallas_row_ingest_batch as jax_row_ingest,
+)
+from loghisto_tpu.ops.sparse_ingest import (
+    pallas_sparse_ingest as jax_pallas_sparse,
+)
+from loghisto_tpu.ops.sparse_ingest import (
+    sparse_ingest_batch as jax_sparse_batch,
+)
+from loghisto_tpu_torch.ops import backend
+from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+from loghisto_tpu_torch.ops.fused_ingest import (
+    fused_ingest_batch,
+    make_fused_ingest_fn,
+)
+from loghisto_tpu_torch.ops.ingest import (
+    bucket_indices,
+    ingest_batch,
+    make_ingest_fn,
+    make_packed_ingest_fn,
+    make_weighted_ingest_fn,
+    merge_accumulators,
+)
+from loghisto_tpu_torch.ops.row_ingest import histogram_row, row_ingest_batch
+from loghisto_tpu_torch.ops.sparse_ingest import (
+    sparse_ingest,
+    sparse_ingest_batch,
+)
+
+F32 = np.finfo(np.float32)
+ADVERSARIAL = np.array(
+    [0.0, -0.0, F32.smallest_subnormal, -F32.smallest_subnormal, F32.tiny,
+     np.inf, -np.inf, np.nan, 3.4e38, -3.4e38, -1.0, -58.7, 1e-30],
+    dtype=np.float32,
+)
+
+
+def _batch(n, m, bl, seed, adversarial=True):
+    """Seeded (ids, values) with ids straddling [0, M) (-1, M, 2^30) and
+    the adversarial values, codec-disagreeing samples filtered out.
+    Returns (ids, values, departures)."""
+    rng = np.random.default_rng(seed)
+    values = (rng.lognormal(0.5, 1.5, n) * np.where(
+        rng.random(n) < 0.3, -1.0, 1.0)).astype(np.float32)
+    ids = rng.integers(-1, m + 1, n).astype(np.int32)
+    if adversarial:
+        k = len(ADVERSARIAL)
+        values[:k] = ADVERSARIAL
+        ids[:k] = rng.integers(0, m, k)
+        ids[k:k + 3] = [-1, m, 2**30]
+    jax_idx = np.asarray(jax_bucket_indices(jnp.asarray(values), bl))
+    port_idx = bucket_indices(torch.from_numpy(values), bl).numpy()
+    agree = jax_idx == port_idx
+    return ids[agree], values[agree], int((~agree).sum())
+
+
+def _zeros(m, bl):
+    return torch.zeros((m, 2 * bl + 1), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("m,bl,n,seed", [
+    (16, 64, 4096, 0), (5, 64, 3000, 1), (3, 4096, 20000, 2),
+    (16, 64, 0, 3),
+])
+def test_fused_plain_equals_jax_ingest_batch(m, bl, n, seed):
+    ids, values, departs = _batch(n, m, bl, seed, adversarial=n > 0)
+    assert departs <= max(1, n // 1000)
+    acc = _zeros(m, bl)
+    out = fused_ingest_batch(acc, torch.from_numpy(ids),
+                             torch.from_numpy(values), bl)
+    assert out is acc  # in place
+    want = jax_ingest_batch(jnp.zeros((m, 2 * bl + 1), jnp.int32),
+                            jnp.asarray(ids), jnp.asarray(values), bl)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+    valid = (ids >= 0) & (ids < m)
+    assert int(acc.sum()) == int(valid.sum())
+
+
+def test_fused_plain_equals_jax_pallas_kernel_interpret():
+    m, bl = 16, 64
+    ids, values, _ = _batch(4096, m, bl, seed=11)
+    acc = _zeros(m, bl)
+    acc[3, 7] = 5  # accumulates onto existing counts
+    fused_ingest_batch(acc, torch.from_numpy(ids), torch.from_numpy(values),
+                       bl)
+    start = np.zeros((m, 2 * bl + 1), np.int32)
+    start[3, 7] = 5
+    want = jax_fused(jnp.asarray(start), jnp.asarray(ids),
+                     jnp.asarray(values), bl, interpret=True)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+
+
+def test_fused_casts_float64_values_like_jax():
+    ids = np.zeros(4, np.int32)
+    v64 = np.array([58.7, 1e-300, 1e300, -2.5])
+    with np.errstate(over="ignore"):  # 1e300 -> inf, as JAX casts it
+        v32 = v64.astype(np.float32)
+    a = fused_ingest_batch(_zeros(1, 64), torch.from_numpy(ids),
+                           torch.from_numpy(v64), 64)
+    b = fused_ingest_batch(_zeros(1, 64), torch.from_numpy(ids),
+                           torch.from_numpy(v32), 64)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,pad", [(4096, False), (3001, True), (0, True)])
+def test_row_ingest_equals_jax(n, pad):
+    bl = 64
+    ids, values, _ = _batch(n, 1, bl, seed=n, adversarial=n > 0)
+    ids = np.where(np.arange(len(ids)) % 3 == 0, ids, 0).astype(np.int32)
+    acc = torch.zeros((1, 2 * bl + 1), dtype=torch.int32)
+    row_ingest_batch(acc, torch.from_numpy(ids), torch.from_numpy(values), bl)
+    want = jax_ingest_batch(jnp.zeros((1, 2 * bl + 1), jnp.int32),
+                            jnp.asarray(np.where(ids == 0, 0, -1)),
+                            jnp.asarray(values), bl)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+    if n == 3001:  # the Pallas K2b kernel itself, ragged N, interpret
+        pallas = jax_row_ingest(jnp.zeros((1, 2 * bl + 1), jnp.int32),
+                                jnp.asarray(ids), jnp.asarray(values), bl,
+                                interpret=True)
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(pallas))
+
+
+def test_histogram_row_equals_masked_path():
+    bl = 64
+    _, values, _ = _batch(6000, 1, bl, seed=5)
+    values = values[:4096]
+    row = torch.zeros(2 * bl + 1, dtype=torch.int32)
+    histogram_row(row, torch.from_numpy(values), bl)
+    want = jax_ingest_batch(jnp.zeros((1, 2 * bl + 1), jnp.int32),
+                            jnp.zeros(len(values), jnp.int32),
+                            jnp.asarray(values), bl)
+    np.testing.assert_array_equal(row.numpy(), np.asarray(want)[0])
+
+
+@pytest.mark.parametrize("m,bl,seed", [(16, 64, 0), (7, 4096, 1)])
+def test_sparse_equals_jax(m, bl, seed):
+    rng = np.random.default_rng(seed)
+    ids = (rng.zipf(1.3, 4000) - 1).astype(np.int32) % (m + 2) - 1
+    values = rng.lognormal(1.0, 2.0, 4000).astype(np.float32)
+    packed = fold_packed_numpy(ids, values, bl)
+    pad = np.zeros((37, 3), np.int32)
+    pad[:, 0] = -1  # pad rows drop
+    pad[:5, 2] = 99
+    extra = np.array([[0, 10 * bl, 3], [1, -10 * bl, 4], [m, 0, 9]],
+                     np.int32)  # clipped buckets, out-of-range id
+    packed = np.concatenate([packed, extra, pad])
+    acc = _zeros(m, bl)
+    sparse_ingest(acc, torch.from_numpy(packed), bl)
+    jacc = jnp.zeros((m, 2 * bl + 1), jnp.int32)
+    want = jax_sparse_batch(jacc, jnp.asarray(packed), bl)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+    plain = sparse_ingest_batch(_zeros(m, bl), torch.from_numpy(packed), bl)
+    assert torch.equal(plain, acc)
+    if bl == 64:  # the Pallas K3 kernel itself, interpret mode
+        pallas = jax_pallas_sparse(jacc, jnp.asarray(packed), bl)
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(pallas))
+
+
+def test_fold_matches_plain_ingest():
+    """The sparse route's host fold and the raw route bucket alike."""
+    m, bl = 9, 4096
+    ids, values, _ = _batch(20000, m, bl, seed=9)
+    raw = ingest_batch(_zeros(m, bl), torch.from_numpy(ids),
+                       torch.from_numpy(values), bl)
+    packed = fold_packed_numpy(ids, values, bl)
+    folded = sparse_ingest(_zeros(m, bl), torch.from_numpy(packed), bl)
+    assert torch.equal(raw, folded)
+
+
+def test_factories_and_merge_on_cpu():
+    m, bl = 4, 64
+    ids, values, _ = _batch(2000, m, bl, seed=4)
+    a = make_ingest_fn(bl, device="cpu")(_zeros(m, bl), ids, values)
+    b = make_fused_ingest_fn(bl, device="cpu")(_zeros(m, bl), ids, values)
+    assert torch.equal(a, b)
+    packed = fold_packed_numpy(ids, values, bl)
+    c = make_packed_ingest_fn(bl, device="cpu")(_zeros(m, bl), packed)
+    d = make_weighted_ingest_fn(bl, device="cpu")(
+        _zeros(m, bl), packed[:, 0], packed[:, 1], packed[:, 2])
+    assert torch.equal(a, c) and torch.equal(a, d)
+    merged = merge_accumulators(a.clone(), b)
+    assert torch.equal(merged, 2 * a)
+
+
+def test_wrappers_raise_where_the_reference_raises():
+    bl = 64
+    row = torch.zeros(2 * bl + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 2048"):
+        histogram_row(row, torch.zeros(100), bl)
+    with pytest.raises(ValueError, match="2\\^24"):
+        histogram_row(row, torch.zeros(1 << 24), bl)
+    with pytest.raises(ValueError, match="2\\^24"):
+        row_ingest_batch(row[None, :], torch.zeros((1 << 24) - 5,
+                         dtype=torch.int32), torch.zeros((1 << 24) - 5), bl)
+    with pytest.raises(ValueError, match="single-metric"):
+        row_ingest_batch(_zeros(2, bl), torch.zeros(4, dtype=torch.int32),
+                         torch.zeros(4), bl)
+    with pytest.raises(ValueError, match="buckets"):
+        fused_ingest_batch(_zeros(2, bl), torch.zeros(4, dtype=torch.int32),
+                           torch.zeros(4), bl + 1)
+    with pytest.raises(ValueError, match="\\[n, 3\\]"):
+        sparse_ingest(_zeros(2, bl), torch.zeros((4, 2), dtype=torch.int32),
+                      bl)
+    with pytest.raises(ValueError, match="int32"):
+        fused_ingest_batch(_zeros(2, bl), torch.zeros(4, dtype=torch.int64),
+                           torch.zeros(4), bl)
+
+
+def test_non_cpu_non_cuda_tensor_raises_instead_of_plain():
+    """The plain version is taken only for CPU tensors."""
+    acc = torch.zeros((2, 129), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="plain versions CPU"):
+        backend.is_plain(acc)
+    assert backend.is_plain(torch.zeros(1)) is True
