@@ -8,10 +8,12 @@ come from ``Tensor.data_ptr()``, the stream from
 ``cudaGetLastError()`` after its launch.
 
 Libraries go into ``build/loghisto_tpu_torch/`` beside the package (the
-directory is git-ignored).  A library's file name carries the hash of
-its sources and flags, so an edited source rebuilds at first use and a
-stale library is never loaded.  Only the sources in ``csrc/`` are
-built.  A failed build raises with nvcc's stderr.
+directory is git-ignored), one per source: kernels that share a source
+(K4 and K4f in ``paged_store.cu``) share its library.  A library's file
+name carries the hash of its sources and flags, so an edited source
+rebuilds at first use and a stale library is never loaded.  Only the
+sources in ``csrc/`` are built.  A failed build raises with nvcc's
+stderr.
 
 Nothing here runs at import time: ``entry`` builds (or finds) and loads
 a kernel at its first launch, and ``build_all`` builds every kernel at
@@ -60,6 +62,18 @@ KERNEL_SPECS = {
         # acc, packed, n, num_metrics, num_buckets, bucket_limit
         [_P, _P, _LL, _I, _I, _I],
     ),
+    "paged_scatter": (
+        "paged_store.cu", "lh_paged_scatter",
+        # pool, packed, n, pool_pages, page_size
+        [_P, _P, _LL, _I, _I],
+    ),
+    "fused_paged_ingest": (
+        "paged_store.cu", "lh_fused_paged_ingest",
+        # pool, ids, values, n, row_codec, enc_luts, page_table,
+        # num_metrics, num_codecs, pages_per_row, pool_pages, page_size,
+        # bucket_limit, precision
+        [_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    ),
 }
 _SHARED_HEADERS = ("codec.cuh",)
 
@@ -85,26 +99,25 @@ def nvcc_path() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
-    source = KERNEL_SPECS[name][0]
+def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
     for part in (source, *_SHARED_HEADERS):
         h.update((CSRC / part).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lh_{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lh_{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str):
-    """Start nvcc for one kernel; returns (Popen, tmp path, final path)
-    or None when the library is already built."""
-    out = _lib_path(name)
+def _start_build(source: str):
+    """Start nvcc for one source; returns (Popen, tmp path, final path)
+    or None when its library is already built."""
+    out = _lib_path(source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [
         nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC),
-        "-o", str(tmp), str(CSRC / KERNEL_SPECS[name][0]),
+        "-o", str(tmp), str(CSRC / source),
     ]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
@@ -112,58 +125,61 @@ def _start_build(name: str):
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> None:
+def _finish_build(source: str, started) -> None:
     proc, tmp, out = started
     stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed building kernel {name!r} (exit "
+            f"nvcc failed building {source!r} (exit "
             f"{proc.returncode}):\n{stderr}{stdout}"
         )
-    BUILD_LOGS[name] = stderr + stdout
+    BUILD_LOGS[source] = stderr + stdout
     os.replace(tmp, out)
 
 
 def build_all(names=None) -> dict:
     """Build every kernel (or ``names``) in parallel: one nvcc per
-    source, all started together.  Returns {name: seconds} of the
+    source, all started together.  Returns {source: seconds} of the
     builds that ran (0.0 for a library already built)."""
     names = list(KERNEL_SPECS if names is None else names)
+    sources = sorted({KERNEL_SPECS[n][0] for n in names})
     with _lock:
         t0 = time.perf_counter()
-        started = {name: _start_build(name) for name in names}
+        started = {src: _start_build(src) for src in sources}
         errors = []
-        for name, s in started.items():
+        for src, s in started.items():
             if s is None:
                 continue
             try:
-                _finish_build(name, s)
+                _finish_build(src, s)
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
         dt = time.perf_counter() - t0
-    return {n: (0.0 if started[n] is None else dt) for n in names}
+    return {src: (0.0 if started[src] is None else dt) for src in sources}
 
 
 def _load(name: str) -> ctypes.CDLL:
+    """The library holding kernel ``name``, built and loaded once per
+    source; binds the kernel's C entry point."""
+    source, symbol, argtypes = KERNEL_SPECS[name]
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        started = _start_build(name)
-        if started is not None:
-            _finish_build(name, started)
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _, symbol, argtypes = KERNEL_SPECS[name]
+        lib = _libs.get(source)
+        if lib is None:
+            started = _start_build(source)
+            if started is not None:
+                _finish_build(source, started)
+            lib = ctypes.CDLL(str(_lib_path(source)))
+            err = lib.lh_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[source] = lib
         fn = getattr(lib, symbol)
-        fn.argtypes = [*argtypes, _P]
-        fn.restype = ctypes.c_int
-        err = lib.lh_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
+        if fn.argtypes is None:
+            fn.argtypes = [*argtypes, _P]
+            fn.restype = ctypes.c_int
         return lib
 
 

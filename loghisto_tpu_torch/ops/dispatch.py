@@ -86,3 +86,200 @@ def choose_transport(density: float | None = None) -> str:
     if density is not None and density <= SPARSE_DENSITY_CROSSOVER:
         return "sparse"
     return "raw"
+
+
+# -- the storage axis: dense [M, B] accumulator or paged pool ----------- #
+#
+# Counterpart of the JAX table's ("storage", "paged") and
+# ("ingest", "fused_paged") rows.  The reason sentences are copied
+# verbatim, so an operator reads the same words from both packages.  One
+# planned departure: the platform edge admits "cuda" where the JAX
+# package admits "tpu" (the card is where K4f runs); on "cpu", "auto"
+# keeps the JAX package's CPU route — paged storage on the sparse
+# transport, no fused step — so the CPU tests walk the same route as the
+# reference on the CPU.
+
+# Metric-row crossover for storage="auto": at M = 2^16 x B = 8193 the
+# dense int32 accumulator is ~2.1 GiB and the page pool wins on sparse
+# occupancy; below it dense wins on simplicity (JAX table value).
+PAGED_MIN_METRICS = 1 << 16
+
+# Buckets per pool page (ops/paged_store.PAGE_SIZE).
+PAGE_SIZE = 256
+
+# Fixed paged-commit launch width (ops/paged_store.COMMIT_CHUNK).
+PAGED_COMMIT_CHUNK = 1 << 14
+
+# Smallest batch for which "auto" takes the direct-to-paged fused step
+# on "cuda".  The JAX value (2^17) is the batch its sort + layout
+# preprocess amortizes over; K4f has no preprocess — one thread per
+# sample — so the card's bound is launch overhead.  2^16 samples keep
+# the launch (~5 us) under the 8 B/sample bytes it moves at 3.35 TB/s
+# plus the host's staging of the batch; it also equals the port's
+# default batch_size, so a default-configured aggregator qualifies.
+# Reasoned, not swept: chip_smoke.py times K4f at batch 2^20 only.
+FUSED_MIN_BATCH_BY_PLATFORM = {"cuda": 1 << 16}
+FUSED_MIN_BATCH = 1 << 17
+
+
+def fused_min_batch_for(platform: str | None) -> int:
+    return FUSED_MIN_BATCH_BY_PLATFORM.get(platform, FUSED_MIN_BATCH)
+
+
+def _ck_fused_batch(platform, batch_size) -> str | None:
+    min_batch = fused_min_batch_for(platform)
+    if batch_size is None:
+        return (
+            "batch too small: batch size unknown, cannot prove the "
+            f"sort+layout preprocess amortizes (needs >= {min_batch} "
+            "samples/batch)"
+        )
+    if batch_size < min_batch:
+        return (
+            f"batch too small: {batch_size} samples/batch does not "
+            "amortize the fused kernel's sort+layout preprocess "
+            f"(measured crossover {min_batch})"
+        )
+    return None
+
+
+def _ck_paged_transport(transport, fused_ok) -> str | None:
+    allowed = ("sparse", "auto", "raw") if fused_ok else ("sparse", "auto")
+    if transport not in allowed:
+        return (
+            f"transport: paged storage commits through the packed "
+            f"[n,3] sparse-triple fold (transport='sparse'); "
+            f"transport={transport!r} ships whole batches with no host "
+            "fold, so there is no translate step to route cells through "
+            "the page table"
+        )
+    return None
+
+
+def _ck_paged_bucket_axis(num_buckets) -> str | None:
+    if num_buckets is not None and num_buckets < PAGE_SIZE:
+        return (
+            f"bucket axis: num_buckets={num_buckets} is smaller than "
+            f"one {PAGE_SIZE}-bucket page — the dense row is already "
+            "cheaper than any page table"
+        )
+    return None
+
+
+def _ck_paged_crossover(num_metrics) -> str | None:
+    if num_metrics < PAGED_MIN_METRICS:
+        return (
+            f"below crossover: {num_metrics} metric rows — the dense "
+            f"accumulator fits HBM trivially below {PAGED_MIN_METRICS} "
+            "rows and its donated in-place commit wins (PAGED_STORE_r14)"
+        )
+    return None
+
+
+def _ck_fused_paged_transport(transport) -> str | None:
+    if transport not in ("raw", "auto"):
+        return (
+            "transport: the direct-to-paged fused kernel ingests RAW "
+            "samples (compress, codec-encode, and page-translate all "
+            f"happen on device in one dispatch); transport="
+            f"{transport!r} folds cells on host first, leaving the "
+            "one-dispatch path nothing to fuse — the folded route keeps "
+            "the translate + packed pool commit"
+        )
+    return None
+
+
+def _ck_fused_paged_platform(platform) -> str | None:
+    # the departure: "cuda" where the JAX edge names "tpu"
+    if platform is not None and platform != "cuda":
+        return (
+            f"platform: {platform} — auto only picks the direct-to-"
+            "paged fused kernel on CUDA (the plain PyTorch tier is "
+            "parity-only; explicit selection remains the opt-in)"
+        )
+    return None
+
+
+def fused_paged_incapability(
+    num_metrics: int,
+    num_buckets: int | None = None,
+    batch_size: int | None = None,
+    transport: str = "auto",
+    platform: str | None = None,
+    crossover: bool = True,
+) -> str | None:
+    """Why a configuration cannot (or should not) take the direct-to-
+    paged fused ingest (K4f), or None.  ``crossover=False`` skips the
+    policy edges (platform preference, batch amortization), as an
+    explicit ``ingest_path="fused"`` does.  Edge order as in the JAX
+    row: bucket axis, transport, platform, batch (the mesh edges wait
+    for the mesh slice; the JAX threshold-table switch has no port)."""
+    del num_metrics  # no row-count edge on this row, as in the JAX table
+    reason = (
+        _ck_paged_bucket_axis(num_buckets)
+        or _ck_fused_paged_transport(transport)
+    )
+    if reason is None and crossover:
+        reason = (
+            _ck_fused_paged_platform(platform)
+            or _ck_fused_batch(platform, batch_size)
+        )
+    return reason
+
+
+def paged_storage_incapability(
+    num_metrics: int,
+    num_buckets: int | None = None,
+    transport: str = "sparse",
+    crossover: bool = True,
+    fused_ok: bool = False,
+) -> str | None:
+    """Why a configuration cannot (or should not) run paged storage, or
+    None.  ``crossover=False`` skips the metric-cardinality policy edge
+    (an explicit ``storage="paged"`` may page a small deployment);
+    ``fused_ok`` admits the raw transport (K4f ingests raw batches)."""
+    reason = (
+        _ck_paged_transport(transport, fused_ok)
+        or _ck_paged_bucket_axis(num_buckets)
+    )
+    if reason is None and crossover:
+        reason = _ck_paged_crossover(num_metrics)
+    return reason
+
+
+def resolve_storage_path(
+    storage: str,
+    num_metrics: int,
+    num_buckets: int,
+    platform: str,
+    transport: str = "sparse",
+    fused_ok: bool = False,
+) -> tuple[str, str | None]:
+    """Resolve the storage backend, "dense" or "paged".  Returns
+    ``(resolved, reason)``: "auto" degrades to dense with the reason; an
+    explicit "paged" that a capability blocker rules out raises it.
+
+    ``num_metrics`` counts registry rows: every distinct label set of a
+    base name is its own row, so label cardinality drives the
+    crossover."""
+    del platform  # both backends run on every device (plain tier on CPU)
+    if storage == "auto":
+        reason = paged_storage_incapability(
+            num_metrics, num_buckets, transport=transport, fused_ok=fused_ok,
+        )
+        if reason is not None:
+            return "dense", reason
+        return "paged", None
+    if storage not in ("dense", "paged"):
+        raise ValueError(
+            f"unknown storage {storage!r}: expected 'auto', 'dense', or "
+            "'paged'"
+        )
+    if storage == "paged":
+        reason = paged_storage_incapability(
+            num_metrics, num_buckets, transport=transport, crossover=False,
+            fused_ok=fused_ok,
+        )
+        if reason is not None:
+            raise ValueError(f"paged storage unavailable: {reason}")
+    return storage, None

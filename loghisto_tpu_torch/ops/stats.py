@@ -18,8 +18,10 @@ JAX finds the k*-th bucket by a two-level block search, a TPU layout
 device that avoids a full-width cumsum.  Here one int32 ``cumsum`` and
 ``searchsorted`` select the same buckets: both count the buckets whose
 cumulative count is below k*.  Sums are an float32 ``acc.float() @ reps``
-as in JAX; TF32 is switched off for it.  ``dense_cdf`` and the snapshot
-and group queries wait for the retention slice.
+as in JAX; TF32 is switched off for it.  ``snapshot_row_stats`` is that
+selection over given CDF rows (the paged query's tail);
+``sparse_cells_stats`` is the host tier of paged storage's collect().
+``dense_cdf`` and the group queries wait for the retention slice.
 """
 
 from __future__ import annotations
@@ -93,6 +95,76 @@ def dense_stats_np(
     return {"counts": counts, "sums": sums, "percentiles": pct}
 
 
+def sparse_cells_stats(
+    rows: np.ndarray,
+    dense_idx: np.ndarray,
+    counts: np.ndarray,
+    num_metrics: int,
+    ps: np.ndarray,
+    bucket_limit: int,
+    precision: int = PRECISION,
+) -> dict[str, np.ndarray]:
+    """``dense_stats_np`` over a sparse cell list (rows, dense-axis
+    bucket indices, int64 counts; duplicate cells fold): the collect()
+    tier of paged storage.  O(cells) host work, no [M, B] array.
+
+    The JAX function loops over every row in Python; this one is
+    vectorized: sort by (row, bucket), fold duplicates, one cumsum with
+    each row's exclusive prefix subtracted, then the float64 rule
+    ``float(cum)/float(total) >= p`` per cell.  Within a row the ratio
+    is nondecreasing, so the selected cell is the row's first cell plus
+    the number of its cells below p — what the JAX function's
+    ``searchsorted`` returns.  Counts and percentiles equal it bit for
+    bit; sums reduce each row in bucket order like its ``np.dot``, up
+    to the summation order (rtol 1e-12)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    dense_idx = np.asarray(dense_idx, dtype=np.int64)
+    cell_counts = np.asarray(counts, dtype=np.int64)
+    ps = np.asarray(ps, dtype=np.float64)
+    m, p_n = int(num_metrics), len(ps)
+    out_counts = np.zeros(m, dtype=np.int64)
+    out_sums = np.zeros(m, dtype=np.float64)
+    out_pct = np.zeros((m, p_n), dtype=np.float64)
+    if not len(rows):
+        return {"counts": out_counts, "sums": out_sums, "percentiles": out_pct}
+    keys = rows * (2 * bucket_limit + 2) + dense_idx
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    first = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    uniq = keys[first]
+    folded = np.add.reduceat(cell_counts[order], first)
+    u_rows = uniq // (2 * bucket_limit + 2)
+    u_idx = uniq - u_rows * (2 * bucket_limit + 2)
+    keep = (u_rows >= 0) & (u_rows < m)
+    u_rows, u_idx, folded = u_rows[keep], u_idx[keep], folded[keep]
+    if not len(u_rows):
+        return {"counts": out_counts, "sums": out_sums, "percentiles": out_pct}
+
+    # segments: one per occupied row, cells in bucket order
+    seg_start = np.flatnonzero(np.r_[True, u_rows[1:] != u_rows[:-1]])
+    seg_len = np.diff(np.r_[seg_start, len(u_rows)])
+    seg_rows = u_rows[seg_start]
+    cum = np.cumsum(folded)
+    before = np.r_[0, cum[seg_start[1:] - 1]]  # exclusive row prefix
+    cdf = cum - np.repeat(before, seg_len)
+    totals = cdf[seg_start + seg_len - 1]
+    out_counts[seg_rows] = totals
+
+    reps = decompress_np(u_idx - bucket_limit, precision)
+    out_sums[seg_rows] = np.add.reduceat(reps * folded.astype(np.float64),
+                                         seg_start)
+
+    cdfn = cdf.astype(np.float64) / np.repeat(totals, seg_len).astype(
+        np.float64)
+    below = cdfn[:, None] < ps[None, :]  # [cells, P]
+    n_below = np.add.reduceat(below.astype(np.int64), seg_start, axis=0)
+    pos = np.minimum(n_below, (seg_len - 1)[:, None])
+    pos = np.where(ps[None, :] <= 0, 0,
+                   np.where(ps[None, :] >= 1, (seg_len - 1)[:, None], pos))
+    out_pct[seg_rows] = reps[seg_start[:, None] + pos]
+    return {"counts": out_counts, "sums": out_sums, "percentiles": out_pct}
+
+
 def bucket_representatives(
     bucket_limit: int, precision: int = PRECISION, device=None,
     dtype=torch.float32,
@@ -118,7 +190,6 @@ def dense_stats(
     float32 and buckets [M, P] int64 (the selected dense-axis index of
     each percentile).  Empty metrics return 0 for every statistic.
     """
-    num_buckets = acc.shape[1]
     device = acc.device
     # state the matvec's precision: full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,7 +197,25 @@ def dense_stats(
     sums = acc.to(torch.float32) @ reps
     cdf = torch.cumsum(acc, dim=1, dtype=torch.int32)
     counts = cdf[:, -1].contiguous()
+    return snapshot_row_stats(cdf, counts, sums, ps, bucket_limit, precision)
 
+
+def snapshot_row_stats(
+    cdf_rows: torch.Tensor,
+    counts: torch.Tensor,
+    sums: torch.Tensor,
+    ps,
+    bucket_limit: int,
+    precision: int = PRECISION,
+) -> dict[str, torch.Tensor]:
+    """Statistics from exact int32 CDF rows [n, B] with their counts [n]
+    and float32 sums [n]: counts and sums pass through, percentiles
+    [n, P] and their selected buckets [n, P] are selected by the k* rule
+    of ``dense_stats`` (same float32 operation order as the JAX
+    ``snapshot_row_stats``)."""
+    num_buckets = cdf_rows.shape[1]
+    device = cdf_rows.device
+    reps = bucket_representatives(bucket_limit, precision, device)
     ps = torch.as_tensor(ps, dtype=torch.float32, device=device)
     total_i = torch.clamp(counts, min=1)[:, None]  # [M, 1]
     total_f = total_i.to(torch.float32)
@@ -147,7 +236,8 @@ def dense_stats(
         ps[None, :] <= 0, torch.ones_like(k_star),
         torch.where(ps[None, :] >= 1, total_i.expand_as(k_star), k_star),
     )
-    idx = torch.searchsorted(cdf, k.contiguous(), side="left")
+    idx = torch.searchsorted(cdf_rows.contiguous(), k.contiguous(),
+                             side="left")
     idx = torch.clamp(idx, max=num_buckets - 1)
     pct = reps[idx]
     nonempty = (counts > 0)[:, None]

@@ -1,0 +1,763 @@
+"""Host side of paged bucket storage: page table, on-demand allocation,
+variable-resolution codecs and the spill policy (counterpart of
+``loghisto_tpu/paging.py``; its own copy — nothing is imported from the
+JAX package).
+
+``PagedStore`` is the storage="paged" backend behind ``TorchAggregator``.
+It owns the device page pool (ops/paged_store.py), the host page table
+and the per-row codec choices, and keeps the dense accumulator's
+exactness contract: every count lands in a mapped page, the overflow
+row, or the exact host spill — never silently dropped.
+
+Codecs (dense, loglinear, polytail) are pairs of LUTs: encode maps a
+native dense bucket index to a storage index, decode maps a storage
+index back to its representative native index.  ``BucketCodec`` and the
+three constructors are copied; their LUTs equal the JAX package's array
+for array.
+
+What differs from the JAX store, and why:
+
+  * every per-row or per-pair Python loop of the JAX store is
+    vectorized, because at a million live rows they are the interval:
+    codec choice (``_assign_codecs``), page allocation (``_alloc_pairs``
+    pops the free list in the same order as the JAX ``_alloc`` loop),
+    the pool decode (``_decode_pool_cells``: one nonzero pass over the
+    pool on its device, owners from the inverted page table) and
+    ``sparse_cells_stats``;
+  * the device mirrors of (row_codec, enc LUTs, page table) are updated
+    in place for the rows and pages a batch newly assigned or mapped,
+    instead of re-uploading the whole table (138 MB at 2^20 rows);
+  * the free list is an int32 stack (``free_list()`` gives it as the
+    JAX list), and the pool is zeroed in place.
+
+``prepare_batch`` keeps the JAX store's +/-1-storage-bucket neighbour
+mapping.  The port's device codec is float64 and agrees with the host
+codec, so it does not need it for coverage; with it, the port's page
+table and ``allocated_pages`` equal the JAX store's for the same stream.
+
+Single device only.  Left for later slices: the mesh arenas and sharded
+commit (slice 11); ``fold_rows_into``, ``release_rows``, ``drop_rows``,
+``_extract_rows`` and ``apply_permutation`` (lifecycle, slice 9);
+``spill_triples`` (the committer, slice 7); ``codec_names`` /
+``restore_codecs`` of the v3 checkpoint (slice 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from loghisto_tpu_torch.config import PRECISION
+
+CODEC_DENSE = "dense"
+CODEC_LOGLINEAR = "loglinear"
+CODEC_POLYTAIL = "polytail"
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketCodec:
+    """One storage layout: a pair of LUTs plus its error bound.
+
+    enc_lut: int32 [B] — native dense index -> storage index.
+    dec_lut: int32 [S] — storage index -> representative native dense
+      index (injective, so decoding is an exact scatter).
+    max_halfwidth: worst-case distance (native buckets) between a
+      bucket and its chunk representative — 0 for the identity codec.
+    """
+
+    name: str
+    enc_lut: np.ndarray
+    dec_lut: np.ndarray
+    max_halfwidth: int
+
+    @property
+    def storage_buckets(self) -> int:
+        return len(self.dec_lut)
+
+    def max_rel_error(self, precision: int = PRECISION) -> float:
+        """|decode(encode(v)) - v| <= max_rel_error * (|v| + 1)."""
+        if self.max_halfwidth == 0:
+            return 0.0
+        return math.exp((self.max_halfwidth + 0.5) / precision) - 1.0
+
+
+def _codec_from_chunks(name: str, chunk_of: np.ndarray) -> BucketCodec:
+    """Build a codec from a per-native-bucket chunk id array [B]: each
+    chunk becomes one storage bucket represented by its center bucket."""
+    chunks, enc = np.unique(chunk_of, return_inverse=True)
+    enc = enc.astype(np.int32).reshape(-1)
+    dec = np.zeros(len(chunks), dtype=np.int32)
+    width = 0
+    for s in range(len(chunks)):
+        members = np.nonzero(enc == s)[0]
+        dec[s] = members[(len(members) - 1) // 2]
+        width = max(width, int(members[-1] - dec[s]), int(dec[s] - members[0]))
+    return BucketCodec(
+        name=name, enc_lut=enc, dec_lut=dec, max_halfwidth=width
+    )
+
+
+def dense_codec(num_buckets: int) -> BucketCodec:
+    idx = np.arange(num_buckets, dtype=np.int32)
+    return BucketCodec(
+        name=CODEC_DENSE, enc_lut=idx, dec_lut=idx.copy(), max_halfwidth=0
+    )
+
+
+def loglinear_codec(bucket_limit: int, factor: int) -> BucketCodec:
+    """Sign-mirrored coarsening: native bucket c chunks to
+    sign(c) * (|c| // factor)."""
+    if factor < 2:
+        raise ValueError(f"loglinear factor must be >= 2, got {factor}")
+    c = np.arange(-bucket_limit, bucket_limit + 1, dtype=np.int64)
+    chunk = np.sign(c) * (np.abs(c) // factor)
+    return _codec_from_chunks(CODEC_LOGLINEAR, chunk)
+
+
+def polytail_codec(
+    bucket_limit: int,
+    body_halfwidth: int,
+    tail_rel_error: float,
+    precision: int = PRECISION,
+) -> BucketCodec:
+    """Exact body, quadratically growing tail chunks capped so the tail
+    representative error stays <= tail_rel_error."""
+    if not 0 < body_halfwidth < bucket_limit:
+        raise ValueError(
+            f"body_halfwidth must be in (0, {bucket_limit}); "
+            f"got {body_halfwidth}"
+        )
+    if tail_rel_error <= 0:
+        raise ValueError(f"tail_rel_error must be > 0, got {tail_rel_error}")
+    cap = max(2, int(2 * (precision * math.log1p(tail_rel_error) - 0.5)))
+    c = np.arange(-bucket_limit, bucket_limit + 1, dtype=np.int64)
+    mag = np.abs(c)
+    bounds = [body_halfwidth]
+    k = 1
+    while bounds[-1] < bucket_limit:
+        bounds.append(bounds[-1] + min(cap, k * k))
+        k += 1
+    bounds = np.asarray(bounds, dtype=np.int64)
+    tail_band = np.searchsorted(bounds, mag, side="left")
+    chunk = np.where(
+        mag <= body_halfwidth, c, np.sign(c) * (bucket_limit + tail_band)
+    )
+    return _codec_from_chunks(CODEC_POLYTAIL, chunk)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedStoreConfig:
+    """Knobs of the paged backend (the JAX package's fields and
+    defaults).
+
+    pool_pages: pool capacity in pages (slot 0 is the zero page).
+    codec: "auto" picks per row by first-touch occupancy; naming one of
+      dense/loglinear/polytail pins every row.
+    dense_page_budget: auto keeps a row on the exact dense codec while
+      its occupied span fits this many pages.
+    tail_occupancy: auto prefers polytail when at least this fraction of
+      a row's first-touch buckets sit beyond body_halfwidth.
+    overflow_row: row that takes cells no page can hold (its pages are
+      reserved at construction); None sends them to the host spill.
+    """
+
+    page_size: int = 256
+    pool_pages: int = 4096
+    codec: str = "auto"
+    loglinear_factor: int = 4
+    body_halfwidth: int = 1024
+    tail_rel_error: float = 0.10
+    dense_page_budget: int = 4
+    tail_occupancy: float = 0.5
+    overflow_row: Optional[int] = None
+
+    def __post_init__(self):
+        if self.codec not in (
+            "auto", CODEC_DENSE, CODEC_LOGLINEAR, CODEC_POLYTAIL
+        ):
+            raise ValueError(f"unknown paged codec {self.codec!r}")
+        if self.dense_page_budget < 1:
+            raise ValueError(
+                f"dense_page_budget must be >= 1, got {self.dense_page_budget}"
+            )
+
+
+class PagedStore:
+    """Paged accumulator: device pool + host page table + codecs.
+
+    Every mutating call runs under the owner's device lock (the
+    aggregator's ``_dev_lock``); the internal lock guards the host spill
+    for concurrent readers.
+    """
+
+    def __init__(
+        self,
+        num_metrics: int,
+        bucket_limit: int,
+        precision: int = PRECISION,
+        config: PagedStoreConfig = PagedStoreConfig(),
+        device=None,
+    ):
+        from loghisto_tpu_torch.ops.backend import resolve_device
+        from loghisto_tpu_torch.ops.paged_store import validate_pool_shape
+
+        validate_pool_shape(config.pool_pages, config.page_size)
+        self.device = resolve_device(device)
+        self.config = config
+        self.bucket_limit = int(bucket_limit)
+        self.precision = int(precision)
+        self.num_buckets = 2 * self.bucket_limit + 1
+        self.num_metrics = int(num_metrics)
+        self._lock = threading.Lock()
+
+        self._codecs: List[BucketCodec] = [
+            dense_codec(self.num_buckets),
+            loglinear_codec(self.bucket_limit, config.loglinear_factor),
+            polytail_codec(
+                self.bucket_limit,
+                # the default suits the 4096-limit codec; clamp for
+                # narrow histograms (as the JAX store does)
+                min(config.body_halfwidth, max(1, self.bucket_limit // 2)),
+                config.tail_rel_error,
+                self.precision,
+            ),
+        ]
+        self._codec_ids = {c.name: i for i, c in enumerate(self._codecs)}
+        self._enc = np.stack([c.enc_lut for c in self._codecs])
+        self._storage_buckets = np.array(
+            [c.storage_buckets for c in self._codecs], dtype=np.int64
+        )
+        # decode LUTs padded to one [C, max S] table for mixed-codec
+        # gathers (entries past a codec's S are never read)
+        self._dec = np.zeros(
+            (len(self._codecs), int(self._storage_buckets.max())),
+            dtype=np.int64,
+        )
+        for i, c in enumerate(self._codecs):
+            self._dec[i, : c.storage_buckets] = c.dec_lut
+        self.row_codec = np.full(self.num_metrics, -1, dtype=np.int8)
+
+        page = config.page_size
+        self.pages_per_row = -(-self.num_buckets // page)
+        self.page_table = np.full(
+            (self.num_metrics, self.pages_per_row), -1, dtype=np.int32
+        )
+        self.total_pages = config.pool_pages
+        # free-slot stack: the top (index _free_n - 1) is popped first,
+        # so slots 1, 2, 3, ... are handed out in order, as the JAX
+        # store's list.pop() does
+        self._free = np.arange(self.total_pages - 1, 0, -1, dtype=np.int32)
+        self._free_n = len(self._free)
+
+        self._pool = torch.zeros(
+            (self.total_pages, page), dtype=torch.int32, device=self.device
+        )
+        # exact host spill: {(row, native dense idx): int count}
+        self._host_spill: Dict[Tuple[int, int], int] = {}
+
+        self.commits = 0
+        self.h2d_bytes = 0
+        self.allocated_pages = 0
+        self.overflowed_cells = 0
+        self.spilled_cells = 0
+        self.fused_dispatches = 0
+
+        # device mirrors for K4f; built at first use, then updated in
+        # place for the rows / (row, page) pairs marked dirty here
+        self._mirror = None
+        self._dirty_rows: List[np.ndarray] = []
+        self._dirty_pairs: List[Tuple[np.ndarray, np.ndarray]] = []
+
+        if config.overflow_row is not None:
+            self._reserve_overflow_pages(config.overflow_row)
+
+    # -- codec selection ------------------------------------------------ #
+
+    def _assign_codecs(self, rows: np.ndarray, dense_idx: np.ndarray) -> None:
+        """Give every codec-less row of the batch a codec from its
+        first-touch buckets (the JAX ``_choose_codec`` rule, per row):
+        exact dense while the occupied span fits the page budget, then
+        polytail for tail-heavy rows, loglinear otherwise."""
+        new = self.row_codec[rows] < 0
+        if not new.any():
+            return
+        r, d = rows[new], dense_idx[new]
+        cfg = self.config
+        urows, inv = np.unique(r, return_inverse=True)
+        inv = inv.reshape(-1)
+        if cfg.codec != "auto":
+            self.row_codec[urows] = self._codec_ids[cfg.codec]
+        else:
+            page = cfg.page_size
+            pair = np.unique(inv.astype(np.int64) * self.pages_per_row
+                             + d // page)
+            span = np.bincount(pair // self.pages_per_row,
+                               minlength=len(urows))
+            tail = np.abs(d - self.bucket_limit) > cfg.body_halfwidth
+            frac = (np.bincount(inv, weights=tail, minlength=len(urows))
+                    / np.bincount(inv, minlength=len(urows)))
+            codec = np.where(
+                span <= cfg.dense_page_budget,
+                self._codec_ids[CODEC_DENSE],
+                np.where(frac >= cfg.tail_occupancy,
+                         self._codec_ids[CODEC_POLYTAIL],
+                         self._codec_ids[CODEC_LOGLINEAR]),
+            )
+            self.row_codec[urows] = codec
+        self._mark_rows(urows)
+
+    # -- allocation ----------------------------------------------------- #
+
+    def _reserve_overflow_pages(self, row: int) -> None:
+        """Map the overflow row's (loglinear) pages eagerly: the
+        catch-all row must never itself fail to allocate."""
+        self.row_codec[row] = self._codec_ids[CODEC_LOGLINEAR]
+        codec = self._codecs[self.row_codec[row]]
+        n_pages = -(-codec.storage_buckets // self.config.page_size)
+        pages = np.array(
+            [p for p in range(n_pages) if self.page_table[row, p] < 0],
+            dtype=np.int64,
+        )
+        if len(pages) > self._free_n:
+            raise ValueError(
+                "pool too small to reserve the overflow row's "
+                f"{n_pages} pages; raise pool_pages"
+            )
+        self._alloc_pairs(np.full(len(pages), row, dtype=np.int64), pages)
+        self._mark_rows(np.array([row]))
+
+    def _alloc_pairs(self, rows: np.ndarray, pages: np.ndarray) -> int:
+        """Map unmapped (row, page) pairs, given in ascending (row, page)
+        order, to free slots: pair k takes the k-th pop of the free
+        stack, exactly as the JAX store's ``_alloc`` loop over the same
+        sorted pairs.  Pairs past the free list's end stay unmapped.
+        Returns the number mapped."""
+        take = min(len(rows), self._free_n)
+        if not take:
+            return 0
+        slots = self._free[self._free_n - take: self._free_n][::-1]
+        self._free_n -= take
+        self.page_table[rows[:take], pages[:take]] = slots
+        self.allocated_pages += take
+        self._mark_pairs(rows[:take], pages[:take])
+        return take
+
+    def _alloc_missing(self, pairs: np.ndarray) -> None:
+        """Allocate each unique unmapped (row, page) among the given flat
+        pair indices (row * pages_per_row + page) once, in ascending
+        order."""
+        missing = pairs[self.page_table.reshape(-1)[pairs] < 0]
+        if not len(missing):
+            return
+        keys = np.unique(missing)
+        self._alloc_pairs(keys // self.pages_per_row,
+                          keys % self.pages_per_row)
+
+    def free_list(self) -> List[int]:
+        """The free slots as the JAX store's list (its last entry is
+        popped next)."""
+        return self._free[: self._free_n].tolist()
+
+    @property
+    def free_pages(self) -> int:
+        return int(self._free_n)
+
+    @property
+    def occupied_pages(self) -> int:
+        return self.total_pages - 1 - self.free_pages
+
+    def pool_saturation(self) -> float:
+        """Occupied fraction of the pool (zero page excluded)."""
+        return 1.0 - self.free_pages / max(1, self.total_pages - 1)
+
+    def hbm_bytes(self) -> int:
+        """Device footprint: the pool plus the page table's mirror."""
+        pool = self.total_pages * self.config.page_size * 4
+        return pool + self.page_table.size * 4
+
+    def _encode(self, codec, dense_idx: np.ndarray) -> np.ndarray:
+        """Storage indices (int64) of native dense indices under the
+        given codec ids: one flat gather of the stacked encode LUTs."""
+        flat = np.asarray(codec, dtype=np.int64) * self.num_buckets + dense_idx
+        return self._enc.reshape(-1)[flat].astype(np.int64)
+
+    # -- device mirrors -------------------------------------------------- #
+
+    def _mark_rows(self, rows: np.ndarray) -> None:
+        if self._mirror is not None:
+            self._dirty_rows.append(np.asarray(rows, dtype=np.int64))
+
+    def _mark_pairs(self, rows: np.ndarray, pages: np.ndarray) -> None:
+        if self._mirror is not None:
+            self._dirty_pairs.append((np.asarray(rows, dtype=np.int64),
+                                      np.asarray(pages, dtype=np.int64)))
+
+    def _drop_mirror(self) -> None:
+        self._mirror = None
+        self._dirty_rows, self._dirty_pairs = [], []
+
+    def device_luts(self):
+        """(row_codec int32 [M], enc_luts int32 [C, B], page_table int32
+        [M, pages_per_row]) on the pool's device for K4f.  Built once;
+        later host changes are written into them for the dirty rows and
+        pages only."""
+        dev = self.device
+        if self._mirror is None:
+            self._mirror = (
+                torch.from_numpy(self.row_codec.astype(np.int32)).to(dev),
+                torch.from_numpy(self._enc.astype(np.int32)).to(dev),
+                torch.from_numpy(self.page_table).to(dev),
+            )
+            self._dirty_rows, self._dirty_pairs = [], []
+            return self._mirror
+        rc, _, tbl = self._mirror
+        if self._dirty_rows:
+            rows = np.unique(np.concatenate(self._dirty_rows))
+            rc[torch.from_numpy(rows).to(dev)] = torch.from_numpy(
+                self.row_codec[rows].astype(np.int32)).to(dev)
+            self._dirty_rows = []
+        if self._dirty_pairs:
+            rows = np.concatenate([r for r, _ in self._dirty_pairs])
+            pages = np.concatenate([p for _, p in self._dirty_pairs])
+            tbl[torch.from_numpy(rows).to(dev),
+                torch.from_numpy(pages).to(dev)] = torch.from_numpy(
+                    self.page_table[rows, pages]).to(dev)
+            self._dirty_pairs = []
+        return self._mirror
+
+    # -- commit (sparse route) ------------------------------------------ #
+
+    def _spill_add(self, rows, dense_idx, weights) -> None:
+        with self._lock:
+            for r, d, w in zip(rows.tolist(), dense_idx.tolist(),
+                               weights.tolist()):
+                key = (r, d)
+                self._host_spill[key] = self._host_spill.get(key, 0) + w
+
+    def translate(self, packed: np.ndarray) -> Tuple[np.ndarray, int, int]:
+        """Rewrite packed (row, codec_bucket, count) triples into
+        (slot, offset, count) triples against the page table, mapping
+        pages on demand and applying the spill policy.  Returns
+        (device_triples, applied_total, spilled_total); spilled counts
+        are already in the host spill."""
+        rows = packed[:, 0].astype(np.int64)
+        keep = (rows >= 0) & (rows < self.num_metrics)
+        rows = rows[keep]
+        if not len(rows):
+            return np.empty((0, 3), dtype=np.int32), 0, 0
+        L = self.bucket_limit
+        dense_idx = np.clip(packed[keep, 1].astype(np.int64), -L, L) + L
+        weights = packed[keep, 2].astype(np.int64)
+
+        self._assign_codecs(rows, dense_idx)
+        storage = self._encode(self.row_codec[rows], dense_idx)
+        page = self.config.page_size
+        page_idx = storage // page
+        offs = (storage % page).astype(np.int32)
+        pairs = rows * self.pages_per_row + page_idx
+        self._alloc_missing(pairs)
+        slots = self.page_table.reshape(-1)[pairs]
+
+        mapped = slots >= 0
+        out_slots, out_offs, out_w = slots, offs, weights
+        spilled_total = 0
+        if not mapped.all():
+            um_rows, um_idx, um_w = (rows[~mapped], dense_idx[~mapped],
+                                     weights[~mapped])
+            ov = self.config.overflow_row
+            if ov is not None:
+                self.overflowed_cells += len(um_rows)
+                ov_storage = self._encode(self.row_codec[ov], um_idx)
+                out_slots = np.concatenate(
+                    [slots[mapped], self.page_table[ov, ov_storage // page]])
+                out_offs = np.concatenate(
+                    [offs[mapped], (ov_storage % page).astype(np.int32)])
+                out_w = np.concatenate([weights[mapped], um_w])
+            else:
+                self.spilled_cells += len(um_rows)
+                spilled_total = int(um_w.sum())
+                self._spill_add(um_rows, um_idx, um_w)
+                out_slots, out_offs, out_w = (slots[mapped], offs[mapped],
+                                              weights[mapped])
+
+        dev = np.empty((len(out_slots), 3), dtype=np.int32)
+        dev[:, 0] = out_slots
+        dev[:, 1] = out_offs
+        dev[:, 2] = out_w  # the caller keeps each cell < 2^30
+        return dev, int(out_w.sum()), spilled_total
+
+    def commit(self, packed: np.ndarray) -> int:
+        """Translate and scatter one packed triple batch (K4).  Returns
+        the count applied (device + host spill).  Triples pad to
+        COMMIT_CHUNK multiples with slot -1, as in the JAX store."""
+        from loghisto_tpu_torch.ops.paged_store import (
+            COMMIT_CHUNK,
+            paged_scatter,
+        )
+
+        dev, applied, spilled = self.translate(
+            np.ascontiguousarray(packed, dtype=np.int32)
+        )
+        n = len(dev)
+        if n:
+            padded = -(-n // COMMIT_CHUNK) * COMMIT_CHUNK
+            if padded != n:
+                pad = np.zeros((padded - n, 3), dtype=np.int32)
+                pad[:, 0] = -1
+                dev = np.concatenate([dev, pad])
+            paged_scatter(self._pool, torch.from_numpy(dev).to(self.device))
+            self.commits += 1
+            self.h2d_bytes += dev.nbytes
+        return applied + spilled
+
+    # -- fused direct-to-paged ingest (raw route) ------------------------ #
+
+    def prepare_batch(
+        self, ids: np.ndarray, values: np.ndarray
+    ) -> Tuple[np.ndarray, int]:
+        """Host half of the raw route, before the upload: assign codecs
+        and map every page the batch needs (the storage bucket's page and
+        its +/-1 storage neighbours' pages), so K4f never consults the
+        host.  Returns (ids_rewritten, spilled_sample_count): samples
+        whose page cannot be mapped rewrite to the overflow row or, with
+        none, fold into the exact host spill and rewrite to -1."""
+        from loghisto_tpu_torch.ops.fold import compress_np_host
+
+        out = np.array(ids, dtype=np.int32, copy=True)
+        valid = (out >= 0) & (out < self.num_metrics)
+        if not valid.any():
+            return out, 0
+        rows = out[valid].astype(np.int64)
+        L = self.bucket_limit
+        dense_idx = np.clip(
+            compress_np_host(np.asarray(values)[valid], self.precision),
+            -L, L,
+        ).astype(np.int64) + L
+        self._assign_codecs(rows, dense_idx)
+        codec = self.row_codec[rows]
+        storage = self._encode(codec, dense_idx)
+        page = self.config.page_size
+        page_idx = storage // page
+        off = storage - page_idx * page
+        pairs = rows * self.pages_per_row + page_idx
+        # the -1 neighbour leaves the page only at offset 0, the +1
+        # neighbour only at the last offset below the codec's top bucket
+        down = (off == 0) & (storage > 0)
+        up = (off == page - 1) & (storage < self._storage_buckets[codec] - 1)
+        self._alloc_missing(np.concatenate([pairs, pairs[down] - 1,
+                                            pairs[up] + 1]))
+
+        spilled = 0
+        unmapped = self.page_table.reshape(-1)[pairs] < 0
+        if unmapped.any():
+            where = np.nonzero(valid)[0][unmapped]
+            ov = self.config.overflow_row
+            if ov is not None:
+                self.overflowed_cells += len(where)
+                out[where] = ov
+            else:
+                keys, counts = np.unique(
+                    rows[unmapped] * self.num_buckets + dense_idx[unmapped],
+                    return_counts=True,
+                )
+                self.spilled_cells += len(keys)
+                self._spill_add(keys // self.num_buckets,
+                                keys % self.num_buckets, counts)
+                out[where] = -1
+                spilled = len(where)
+        return out, spilled
+
+    def ingest_raw(self, ids_dev: torch.Tensor, values_dev: torch.Tensor) -> None:
+        """One K4f launch into the pool; the batch must have gone
+        through ``prepare_batch`` (ids it rewrote to -1 drop)."""
+        from loghisto_tpu_torch.ops.fused_ingest import fused_paged_ingest_batch
+
+        fused_paged_ingest_batch(
+            self._pool, ids_dev, values_dev, *self.device_luts(),
+            self.bucket_limit, self.precision,
+        )
+        self.fused_dispatches += 1
+
+    # -- spill / reset ---------------------------------------------------- #
+
+    def reset_pool(self) -> None:
+        """Zero the pool; page mappings survive."""
+        self._pool.zero_()
+
+    def spill_pool(self) -> None:
+        """Fold every pool count into the exact host spill and zero the
+        pool (when an interval's totals could overflow int32 cells)."""
+        rows, idx, counts = self._decode_pool_cells()
+        self._spill_add(rows, idx, counts)
+        self.reset_pool()
+
+    def spill_cells(self, rows, dense_idx, weights) -> None:
+        """Exact host-spill add of cells given by dense-axis index."""
+        self._spill_add(np.asarray(rows, dtype=np.int64),
+                        np.asarray(dense_idx, dtype=np.int64),
+                        np.asarray(weights, dtype=np.int64))
+
+    # -- decode / stats -------------------------------------------------- #
+
+    def _decode_pool_cells(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Every nonzero pool cell as (row, native dense index, int64
+        count), in slot order.  One nonzero pass over the pool on its
+        device and one copy of the cells to the host; each slot's owner
+        (row, page) comes from the inverted page table.  The same
+        multiset of cells as the JAX store's per-page loop."""
+        flat = torch.nonzero(self._pool.view(-1)).reshape(-1)
+        counts = self._pool.view(-1)[flat].cpu().numpy().astype(np.int64)
+        flat = flat.cpu().numpy()
+        page = self.config.page_size
+        slots, offs = flat // page, flat % page
+        owner_row = np.full(self.total_pages, -1, dtype=np.int64)
+        owner_page = np.zeros(self.total_pages, dtype=np.int64)
+        rows_of, pages_of = np.nonzero(self.page_table >= 0)
+        owned = self.page_table[rows_of, pages_of]
+        owner_row[owned] = rows_of
+        owner_page[owned] = pages_of
+        rows = owner_row[slots]
+        storage = owner_page[slots] * page + offs
+        codec = self.row_codec[np.maximum(rows, 0)].astype(np.int64)
+        # unowned slots hold nothing K4/K4f wrote; dense pages can
+        # overhang the storage axis, where translation never writes
+        keep = (rows >= 0) & (codec >= 0)
+        keep &= storage < self._storage_buckets[np.maximum(codec, 0)]
+        rows, storage, codec, counts = (rows[keep], storage[keep],
+                                        codec[keep], counts[keep])
+        return rows, self._dec[codec, storage], counts
+
+    def decode_cells(
+        self, include_spill: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows, native dense indices, int64 counts) across the pool
+        and the host spill."""
+        rows, idx, counts = self._decode_pool_cells()
+        if include_spill and self._host_spill:
+            with self._lock:
+                items = list(self._host_spill.items())
+            s_rows = np.array([k[0] for k, _ in items], dtype=np.int64)
+            s_idx = np.array([k[1] for k, _ in items], dtype=np.int64)
+            s_cnt = np.array([v for _, v in items], dtype=np.int64)
+            rows = np.concatenate([rows, s_rows])
+            idx = np.concatenate([idx, s_idx])
+            counts = np.concatenate([counts, s_cnt])
+        return rows, idx, counts
+
+    def decode_dense(self, include_spill: bool = True) -> np.ndarray:
+        """Dense [M, B] int64 reconstruction (O(M x B) host memory)."""
+        acc = np.zeros((self.num_metrics, self.num_buckets), dtype=np.int64)
+        rows, idx, counts = self.decode_cells(include_spill)
+        np.add.at(acc, (rows, idx), counts)
+        return acc
+
+    def stats(self, ps: np.ndarray, reset: bool = True):
+        """Per-row counts/sums/percentiles over every stored cell (pool
+        and spill), sparsely — ``sparse_cells_stats`` on the decoded
+        cells.  ``reset`` zeroes the pool and clears the spill."""
+        from loghisto_tpu_torch.ops.stats import sparse_cells_stats
+
+        rows, idx, counts = self.decode_cells(include_spill=True)
+        out = sparse_cells_stats(
+            rows, idx, counts, self.num_metrics, np.asarray(ps),
+            self.bucket_limit, self.precision,
+        )
+        if reset:
+            self.reset_pool()
+            with self._lock:
+                self._host_spill.clear()
+        return out
+
+    def query(self, ids: np.ndarray, ps: np.ndarray):
+        """Snapshot query over the pool on its device: rows group by
+        codec, each group gathers only its rows' pages and runs the
+        dense engine's ``snapshot_row_stats``.  Host-spill counts are not
+        visible here (as in the JAX store)."""
+        from loghisto_tpu_torch.ops.paged_store import paged_query
+
+        ids = np.asarray(ids, dtype=np.int64)
+        ps_f = np.asarray(ps, dtype=np.float32)
+        n, p_n = len(ids), len(ps_f)
+        counts = np.zeros(n, dtype=np.int64)
+        sums = np.zeros(n, dtype=np.float64)
+        pcts = np.zeros((n, p_n), dtype=np.float64)
+        codecs = self.row_codec[ids]
+        for cid in np.unique(codecs):
+            if cid < 0:
+                continue  # untouched rows: zeros
+            sel = np.nonzero(codecs == cid)[0]
+            out = paged_query(
+                self._pool,
+                torch.from_numpy(self.page_table[ids[sel]]),
+                torch.from_numpy(self._codecs[cid].dec_lut),
+                ps_f, self.bucket_limit, self.precision,
+            )
+            counts[sel] = out["counts"].cpu().numpy()
+            sums[sel] = out["sums"].cpu().numpy()
+            pcts[sel] = out["percentiles"].cpu().numpy()
+        return {"counts": counts, "sums": sums, "percentiles": pcts}
+
+    # -- growth and state ------------------------------------------------ #
+
+    def grow(self, new_m: int) -> None:
+        """Extend the row space: a host page-table extension, no device
+        data moves (the mirrors are rebuilt at the next K4f launch)."""
+        if new_m <= self.num_metrics:
+            return
+        extra = new_m - self.num_metrics
+        self.page_table = np.concatenate([
+            self.page_table,
+            np.full((extra, self.pages_per_row), -1, dtype=np.int32),
+        ])
+        self.row_codec = np.concatenate(
+            [self.row_codec, np.full(extra, -1, dtype=np.int8)]
+        )
+        self.num_metrics = new_m
+        self._drop_mirror()
+
+    def state(self) -> dict:
+        """Host copies of the store's state (``load_state`` reads it)."""
+        with self._lock:
+            spill = dict(self._host_spill)
+        return {
+            "pool": self._pool.cpu().numpy().copy(),
+            "page_table": self.page_table.copy(),
+            "row_codec": self.row_codec.copy(),
+            "host_spill": spill,
+            "free_list": self.free_list(),
+            "allocated_pages": int(self.allocated_pages),
+        }
+
+    def load_state(self, st: dict) -> None:
+        """Replace the store's contents with ``st`` (same pool shape and
+        page size; the row count is the table's)."""
+        pool = np.ascontiguousarray(st["pool"], dtype=np.int32)
+        if pool.shape != tuple(self._pool.shape):
+            raise ValueError(
+                f"state pool has shape {pool.shape}; this store's is "
+                f"{tuple(self._pool.shape)}"
+            )
+        table = np.array(st["page_table"], dtype=np.int32, copy=True)
+        if table.ndim != 2 or table.shape[1] != self.pages_per_row:
+            raise ValueError(f"state page_table has shape {table.shape}")
+        row_codec = np.array(st["row_codec"], dtype=np.int8, copy=True)
+        if row_codec.shape != (table.shape[0],):
+            raise ValueError(f"state row_codec has shape {row_codec.shape}")
+        free = np.asarray(st["free_list"], dtype=np.int32)
+        self.num_metrics = table.shape[0]
+        self.page_table, self.row_codec = table, row_codec
+        self._free = free.copy()
+        self._free_n = len(free)
+        self.allocated_pages = int(st["allocated_pages"])
+        self._pool.copy_(torch.from_numpy(pool))
+        with self._lock:
+            self._host_spill = {
+                (int(r), int(d)): int(v)
+                for (r, d), v in dict(st["host_spill"]).items()
+            }
+        self._drop_mirror()

@@ -1,11 +1,17 @@
-"""The dense, single-device aggregation engine (counterpart of
+"""The single-device aggregation engine (counterpart of
 ``loghisto_tpu/parallel/aggregator.py``: ``TPUAggregator`` as
 ``TorchAggregator``, and ``IngestStagingRing``).
 
 Samples enter through ``record_batch(ids, values)`` (or ``record``),
 buffer on the host and, every ``batch_size`` samples, ``flush`` hands
-them to ONE transfer worker thread (a FIFO).  The worker takes one of
-two routes into the int32 [M, B] accumulator, which it updates in place:
+them to ONE transfer worker thread (a FIFO).
+
+``storage`` picks what accumulates them (ops/dispatch.py
+``resolve_storage_path``, resolved before the transport as in the
+reference): "dense", the int32 [M, B] accumulator, or "paged", the page
+pool + page table + per-row codecs of paging.py.  "auto" pages at
+2^16 rows and above.  On dense storage the worker takes one of two
+routes, updating the accumulator in place:
 
   * raw: the batch is copied through a ring of pinned host buffers to
     the device (``non_blocking=True``) and each ``batch_size`` chunk is
@@ -13,6 +19,18 @@ two routes into the int32 [M, B] accumulator, which it updates in place:
     accumulator, K2 (row);
   * sparse: the batch is folded on the host into packed
     (id, bucket, count) triples (ops/fold.py) and merged by K3.
+
+On paged storage:
+
+  * raw (``fused_paged``; "auto" on cuda, explicit
+    ``ingest_path="fused"`` elsewhere): ``PagedStore.prepare_batch``
+    assigns codecs and maps pages on the worker, the batch goes through
+    the staging ring, and each chunk is one K4f launch into the pool;
+  * sparse (the CPU's "auto" route, and ``transport="sparse"``): the
+    host fold, ``PagedStore.commit`` (translate, pad, K4).
+
+``collect()`` on paged storage runs ``PagedStore.stats``
+(``sparse_cells_stats``) and names the results as the dense route does.
 
 ``transport="auto"`` starts raw and probes the first item of at least
 2^16 samples: when its unique-cell density is at or below the crossover
@@ -26,9 +44,9 @@ fold the accumulator into an exact int64 host spill and take
 ``dense_stats_np``.  ``on_registry_full="grow"`` doubles the row space
 up to ``max_metrics``; growth from one row swaps K2 for K1.
 
-Not in this slice: preagg and native staging, the mesh, paged storage,
-``attach``, retention, lifecycle, drift, observability, the fault
-injector and the supervisor.  A device error in the worker is not
+Not in these slices: preagg and native staging, the mesh, ``attach``,
+retention, lifecycle, drift, observability, the fault injector and the
+supervisor.  A device error in the worker is not
 retried: it is re-raised by the next ``flush``, ``wait_transfers`` or
 ``collect``.  When the transfer queue holds more than
 ``max_pending_samples``, ``flush`` waits for it instead of shedding.
@@ -37,6 +55,7 @@ retried: it is re-raised by the next ``flush``, ``wait_transfers`` or
 from __future__ import annotations
 
 import collections
+import dataclasses
 import datetime as _dt
 import logging
 import threading
@@ -55,6 +74,7 @@ from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
 from loghisto_tpu_torch.ops.row_ingest import row_ingest_batch
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
+from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
 
 logger = logging.getLogger("loghisto_tpu_torch")
@@ -137,7 +157,8 @@ class IngestStagingRing:
 
 class TorchAggregator:
     """Device-tier metric engine of the port: record_batch -> transfer
-    worker -> K1/K2/K3 into the int32 [M, B] accumulator -> collect()."""
+    worker -> K1/K2/K3 into the int32 [M, B] accumulator, or K4f/K4 into
+    the paged pool -> collect()."""
 
     def __init__(
         self,
@@ -151,12 +172,16 @@ class TorchAggregator:
         max_metrics: Optional[int] = None,
         spill_threshold: int = 1 << 30,
         transport: str = "auto",
+        storage: str = "auto",
+        paged_config: Optional[PagedStoreConfig] = None,
         device=None,
     ):
         """``device`` defaults to the card and raises when CUDA is
         absent; ``device="cpu"`` runs the plain versions.  The other
         arguments mean what they mean for ``TPUAggregator``;
-        ``ingest_path`` is "auto", "fused" or "row" (ops/dispatch.py)."""
+        ``ingest_path`` is "auto", "fused" or "row" (ops/dispatch.py),
+        ``storage`` "auto", "dense" or "paged", and ``paged_config`` a
+        ``paging.PagedStoreConfig``."""
         self.device = resolve_device(device)
         self.config = config
         self.num_metrics = num_metrics
@@ -212,14 +237,55 @@ class TorchAggregator:
                 f"transport={transport!r}: expected 'auto', 'raw' or "
                 "'sparse' (preagg comes in a later slice)"
             )
+        if ingest_path not in ("auto", "fused", "row"):
+            raise ValueError(
+                f"unknown ingest_path {ingest_path!r}: expected 'auto', "
+                "'fused' or 'row'"
+            )
+        # storage first: it pins the transport (paged with K4f ingests
+        # raw, paged without it rides the host fold)
+        platform = self.device.type
+        self.fused_paged_reason = dispatch.fused_paged_incapability(
+            num_metrics, config.num_buckets, batch_size=batch_size,
+            transport=transport, platform=platform,
+            crossover=(ingest_path == "auto"),
+        )
+        fused_paged_ok = (
+            self.fused_paged_reason is None
+            and ingest_path in ("auto", "fused")
+        )
+        self.storage, self.storage_reason = dispatch.resolve_storage_path(
+            storage, num_metrics, config.num_buckets, platform,
+            transport=transport, fused_ok=fused_paged_ok,
+        )
+        self.fused_paged = self.storage == "paged" and fused_paged_ok
+        if self.storage == "paged":
+            transport = "raw" if self.fused_paged else "sparse"
         self._transport_auto = transport == "auto"
         self.transport = "raw" if transport == "auto" else transport
         self.probe_density: Optional[float] = None
         self.kernel_tier = dispatch.kernel_tier(self.device.type)
-        self.ingest_path = dispatch.resolve_ingest_path(
-            ingest_path, num_metrics, batch_size
-        )
-        self._ingest = _STEPS[self.ingest_path]
+        self.paged_config = paged_config or PagedStoreConfig()
+        self.paged: Optional[PagedStore] = None
+        if self.storage == "paged":
+            if ingest_path == "row":
+                raise ValueError(
+                    "ingest_path='row' needs the dense single-row "
+                    "accumulator; paged storage keeps none"
+                )
+            if ingest_path == "fused" and not self.fused_paged:
+                raise ValueError(
+                    "ingest_path='fused' with paged storage needs the "
+                    f"direct-to-paged fused kernel: {self.fused_paged_reason}"
+                )
+            # the pool + page table ARE the accumulator
+            self.ingest_path = "fused_paged" if self.fused_paged else "packed"
+            self._ingest = None
+        else:
+            self.ingest_path = dispatch.resolve_ingest_path(
+                ingest_path, num_metrics, batch_size
+            )
+            self._ingest = _STEPS[self.ingest_path]
 
         # Two locks, never nested: _lock guards host staging, _dev_lock
         # the device state (_acc, _spill, _interval_ingested, growth).
@@ -239,10 +305,17 @@ class TorchAggregator:
         self._xfer_error: Optional[BaseException] = None
         self._staging_ring: Optional[IngestStagingRing] = None
 
-        self._acc = torch.zeros(
-            (num_metrics, config.num_buckets), dtype=torch.int32,
-            device=self.device,
-        )
+        if self.storage == "paged":
+            self.paged = PagedStore(
+                num_metrics, config.bucket_limit, config.precision,
+                config=self.paged_config, device=self.device,
+            )
+            self._acc = None
+        else:
+            self._acc = torch.zeros(
+                (num_metrics, config.num_buckets), dtype=torch.int32,
+                device=self.device,
+            )
         self._spill: Optional[np.ndarray] = None
         self._interval_ingested = 0
         self._spilled_samples = 0
@@ -298,6 +371,12 @@ class TorchAggregator:
         )
         if new_m <= old_m:
             return False
+        if self.paged is not None:
+            # a host page-table extension: no device data moves
+            self.paged.grow(new_m)
+            self.num_metrics = new_m
+            self.registry.grow(new_m)
+            return True
         path = self.ingest_path
         if dispatch.ingest_incapability(path, new_m, self.batch_size):
             path = dispatch.resolve_ingest_path(
@@ -320,7 +399,13 @@ class TorchAggregator:
 
     def _spill_fold_locked(self) -> None:
         """Fold the accumulator into the host int64 spill and zero it,
-        without closing the interval (caller holds _dev_lock)."""
+        without closing the interval (caller holds _dev_lock).  Paged
+        storage folds its pool into the store's exact host spill."""
+        if self.paged is not None:
+            self.paged.spill_pool()
+            self._spilled_samples += self._interval_ingested
+            self._interval_ingested = 0
+            return
         acc_np = self._acc.cpu().numpy().astype(np.int64)
         if self._spill is None:
             self._spill = acc_np
@@ -496,6 +581,11 @@ class TorchAggregator:
         chunk (the int32 overflow guarantee)."""
         bs = self.batch_size
         with self._dev_lock:
+            if self.paged is not None:
+                # K4f: assign codecs and map every page the batch touches
+                # BEFORE the upload; ids come back rewritten (pool
+                # saturated -> overflow row, or -1 after an exact spill)
+                ids, _ = self.paged.prepare_batch(ids, values)
             ring = self._staging_ring
             if ring is None or ring.slot_samples != bs:
                 ring = self._staging_ring = IngestStagingRing(bs, self.device)
@@ -504,14 +594,18 @@ class TorchAggregator:
                 ids_dev, values_dev = ring.stage(
                     ids[off:off + bs], values[off:off + bs]
                 )
-                self._ingest(self._acc, ids_dev, values_dev, bl, prec)
+                if self.paged is not None:
+                    self.paged.ingest_raw(ids_dev, values_dev)
+                else:
+                    self._ingest(self._acc, ids_dev, values_dev, bl, prec)
                 self._interval_ingested += min(bs, n - off)
                 if self._interval_ingested >= self.spill_threshold:
                     self._spill_fold_locked()
 
     def _ship_packed(self, packed: np.ndarray) -> None:
         """Merge packed (id, bucket, count) triples into the accumulator
-        through K3, or into the exact host spill when the int32 guarantee
+        through K3 (dense) or ``PagedStore.commit`` (paged: translate,
+        pad, K4), or into the exact host spill when the int32 guarantee
         requires it."""
         if not len(packed):
             return
@@ -535,6 +629,9 @@ class TorchAggregator:
                 self._spill_fold_locked()
                 self._spill_add_packed_locked(packed)
                 return
+            if self.paged is not None:
+                self._interval_ingested += self.paged.commit(packed)
+                return
             # one launch per item: there is no per-shape compile to
             # amortize with fixed-size chunks
             sparse_ingest(
@@ -544,7 +641,18 @@ class TorchAggregator:
 
     def _spill_add_packed_locked(self, packed: np.ndarray) -> None:
         """Add packed cells to the host int64 spill — exact at any
-        magnitude.  Caller holds _dev_lock."""
+        magnitude.  Caller holds _dev_lock.  Paged storage keeps its
+        spill as the store's sparse host dict."""
+        if self.paged is not None:
+            ids = packed[:, 0].astype(np.int64)
+            keep = (ids >= 0) & (ids < self.num_metrics)
+            bl = self.config.bucket_limit
+            weights = packed[keep, 2].astype(np.int64)
+            self.paged.spill_cells(
+                ids[keep], np.clip(packed[keep, 1], -bl, bl) + bl, weights
+            )
+            self._spilled_samples += int(weights.sum())
+            return
         if self._spill is None:
             self._spill = np.zeros(
                 (self.num_metrics, self.config.num_buckets), dtype=np.int64
@@ -559,6 +667,23 @@ class TorchAggregator:
 
     # -- collection ----------------------------------------------------- #
 
+    def _dense_stats(self, acc, spill, ps: list) -> dict:
+        """counts / sums / percentiles of a dense interval snapshot as
+        host arrays."""
+        bl, prec = self.config.bucket_limit, self.config.precision
+        if spill is not None:
+            # spill interval: counts may exceed int32, so the whole
+            # extraction runs in exact int64 on the host
+            return dense_stats_np(
+                spill + acc.cpu().numpy().astype(np.int64),
+                np.asarray(ps, dtype=np.float64), bl, prec,
+            )
+        return {
+            k: v.cpu().numpy() for k, v in dense_stats(
+                acc, np.asarray(ps, dtype=np.float32), bl, prec
+            ).items()
+        }
+
     def collect(self, reset: bool = True) -> ProcessedMetricSet:
         """Statistics of every registered metric with the reference's
         naming scheme; ``reset`` closes the interval."""
@@ -569,34 +694,34 @@ class TorchAggregator:
                 labels.append(label)
                 ps.append(p)
         with self._dev_lock:
-            acc, spill = self._acc, self._spill
-            if reset:
-                self._acc = torch.zeros_like(acc)
-                self._interval_ingested = 0
-                self._spill = None
-                self._spilled_samples = 0
+            if self.paged is not None:
+                # sparse statistics over the decoded pool + host spill;
+                # they read the pool, so they run under the lock
+                stats = self.paged.stats(
+                    np.asarray(ps, dtype=np.float64), reset=reset
+                )
             else:
-                acc = acc.clone()
-                spill = None if spill is None else spill.copy()
-        if spill is not None:
-            # spill interval: counts may exceed int32, so the whole
-            # extraction runs in exact int64 on the host
-            stats = dense_stats_np(
-                spill + acc.cpu().numpy().astype(np.int64),
-                np.asarray(ps, dtype=np.float64),
-                self.config.bucket_limit, self.config.precision,
-            )
-        else:
-            stats = {
-                k: v.cpu().numpy() for k, v in dense_stats(
-                    acc, np.asarray(ps, dtype=np.float32),
-                    self.config.bucket_limit, self.config.precision,
-                ).items()
-            }
-        counts, sums = stats["counts"], stats["sums"]
-        pcts = stats["percentiles"]
+                acc, spill = self._acc, self._spill
+                if reset:
+                    self._acc = torch.zeros_like(acc)
+                    self._spill = None
+                else:
+                    acc = acc.clone()
+                    spill = None if spill is None else spill.copy()
+            if reset:
+                self._interval_ingested = 0
+                self._spilled_samples = 0
+        if self.paged is None:
+            stats = self._dense_stats(acc, spill, ps)
+        # Python lists: the per-row naming loop below reads scalars, and
+        # list items are several times cheaper than NumPy scalars at a
+        # million rows
+        nonzero = np.nonzero(stats["counts"])[0]
+        counts = stats["counts"][nonzero].tolist()
+        sums = stats["sums"][nonzero].astype(np.float64).tolist()
+        pcts = stats["percentiles"][nonzero].astype(np.float64).tolist()
 
-        names = self.registry.names()[: len(counts)]
+        names = self.registry.names()[: len(stats["counts"])]
         metrics: Dict[str, float] = {}
         with self._agg_lock:
             if reset:
@@ -607,17 +732,17 @@ class TorchAggregator:
                 }
             # every nonzero row folds into the lifetime store, named or
             # not; reporting stays name-gated (as in the reference)
-            for mid in np.nonzero(counts)[0]:
-                mid = int(mid)
-                count = int(counts[mid])
-                total = float(sums[mid])
+            for mid, count, total, row_pcts in zip(
+                nonzero.tolist(), counts, sums, pcts
+            ):
+                count = int(count)
                 if mid < len(names) and names[mid] is not None:
                     name = names[mid]
                     metrics[f"{name}_count"] = float(count)
                     metrics[f"{name}_sum"] = total
                     metrics[f"{name}_avg"] = total / count
-                    for label, value in zip(labels, pcts[mid]):
-                        metrics[label % name] = float(value)
+                    for label, value in zip(labels, row_pcts):
+                        metrics[label % name] = value
                 entry = agg_view.setdefault(mid, [0, 0])
                 if self.config.go_compat:
                     entry[0] = (entry[0] + int(total)) & _UINT64_MASK
@@ -643,15 +768,19 @@ class TorchAggregator:
 
     def state_dict(self) -> dict:
         """The aggregator's state as host arrays (see state.py): the live
-        accumulator, the registry's names, the lifetime store and the
-        spill.  A full barrier first."""
+        accumulator (dense) or the store's pool, page table, codecs,
+        free list and host spill (paged), the registry's names, the
+        lifetime store and the dense spill.  A full barrier first."""
         self.flush(force=True)
         with self._dev_lock, self._agg_lock:
+            paged = self.paged is not None
             return {
                 "format": STATE_FORMAT,
+                "storage": self.storage,
                 "bucket_limit": self.config.bucket_limit,
                 "precision": self.config.precision,
-                "acc": self._acc.cpu().numpy().copy(),
+                "acc": None if paged else self._acc.cpu().numpy().copy(),
+                "paged": self.paged.state() if paged else None,
                 "names": self.registry.names(),
                 "agg": {mid: list(e) for mid, e in self._agg.items()},
                 "spill": None if self._spill is None else self._spill.copy(),
@@ -659,8 +788,10 @@ class TorchAggregator:
 
     def load_state_dict(self, state: dict) -> None:
         """Replace this aggregator's state with ``state`` (from
-        ``state_dict`` or ``state.state_from_jax``).  The row space takes
-        the state's row count; the ingest path re-resolves for it."""
+        ``state_dict``, ``state.state_from_jax`` or
+        ``state.paged_state_from_jax``).  The row space takes the state's
+        row count; the ingest path re-resolves for it.  The state's
+        storage must be this aggregator's."""
         if state.get("format") != STATE_FORMAT:
             raise ValueError(f"unknown state format {state.get('format')!r}")
         for key in ("bucket_limit", "precision"):
@@ -669,6 +800,15 @@ class TorchAggregator:
                     f"state {key}={state[key]} but this aggregator has "
                     f"{getattr(self.config, key)}"
                 )
+        storage = state.get("storage", "dense")
+        if storage != self.storage:
+            raise ValueError(
+                f"state holds {storage} storage; this aggregator's is "
+                f"{self.storage}"
+            )
+        if storage == "paged":
+            self._load_paged_state(state)
+            return
         acc = np.ascontiguousarray(state["acc"], dtype=np.int32)
         if acc.ndim != 2 or acc.shape[1] != self.config.num_buckets:
             raise ValueError(f"state acc has shape {acc.shape}")
@@ -694,6 +834,34 @@ class TorchAggregator:
             self._spilled_samples = (
                 0 if spill is None else int(self._spill.sum())
             )
+            self._agg = {
+                int(mid): [e[0], e[1]] for mid, e in state["agg"].items()
+            }
+
+    def _load_paged_state(self, state: dict) -> None:
+        """The paged half of ``load_state_dict``: a fresh store at the
+        state's pool shape, then its contents."""
+        pst = state["paged"]
+        pool_shape = np.shape(pst["pool"])
+        m = np.shape(pst["page_table"])[0]
+        config = dataclasses.replace(
+            self.paged_config, pool_pages=pool_shape[0],
+            page_size=pool_shape[1],
+        )
+        store = PagedStore(
+            m, self.config.bucket_limit, self.config.precision,
+            config=config, device=self.device,
+        )
+        store.load_state(pst)
+        self.flush(force=True)
+        with self._dev_lock, self._agg_lock:
+            self.paged, self.paged_config = store, config
+            self.registry = MetricRegistry.from_names(state["names"], m)
+            self.num_metrics = m
+            self.max_metrics = max(self.max_metrics, m)
+            self._spill = None
+            self._interval_ingested = int(pst["pool"].sum(dtype=np.int64))
+            self._spilled_samples = int(sum(pst["host_spill"].values()))
             self._agg = {
                 int(mid): [e[0], e[1]] for mid, e in state["agg"].items()
             }

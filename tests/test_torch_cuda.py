@@ -1,5 +1,7 @@
-"""The three Hopper kernels on the card, at small shapes, against their
-plain PyTorch versions on the same CUDA tensors (int32 outputs EQUAL).
+"""The Hopper kernels on the card, at small shapes, against their plain
+PyTorch versions on the same CUDA tensors (int32 outputs EQUAL): K1, K2,
+K3, and the paged pair K4 (triple scatter) and K4f (direct-to-paged
+fused ingest), plus one paged interval through ``TorchAggregator``.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -26,6 +28,15 @@ from loghisto_tpu_torch.ops.sparse_ingest import (
     sparse_ingest,
     sparse_ingest_batch,
 )
+from loghisto_tpu_torch.ops.fused_ingest import (
+    fused_paged_ingest_batch,
+    fused_paged_ingest_reference,
+)
+from loghisto_tpu_torch.ops.paged_store import (
+    paged_scatter,
+    paged_scatter_batch,
+)
+from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +114,59 @@ def test_sparse_kernel_equals_plain(dev):
     sparse_ingest_batch(p, packed_d, bl)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
+
+
+def test_paged_scatter_kernel_equals_plain(dev):
+    rng = np.random.default_rng(11)
+    pages, page, n = 300, 256, 200_000
+    packed = np.stack([
+        rng.integers(-3, pages + 3, n), rng.integers(-9, page + 9, n),
+        rng.integers(0, 50, n)], axis=1).astype(np.int32)
+    packed[::13, 0] = 0  # the zero page is never written
+    packed_d = torch.from_numpy(packed).to(dev)
+    k = torch.zeros((pages, page), dtype=torch.int32, device=dev)
+    p = torch.zeros_like(k)
+    before = kernel_launches()["paged_scatter"]
+    paged_scatter(k, packed_d)
+    paged_scatter_batch(p, packed_d)
+    torch.cuda.synchronize()
+    assert kernel_launches()["paged_scatter"] == before + 1
+    assert torch.equal(k, p) and not k[0].any()
+
+
+@pytest.mark.parametrize("codec", ["auto", "dense", "loglinear", "polytail"])
+def test_fused_paged_kernel_equals_plain(dev, codec):
+    m, bl = 200, 4096
+    ids, values = _batch(300_000, m, seed=21)
+    store = PagedStore(m, bl, config=PagedStoreConfig(
+        pool_pages=2048, codec=codec), device=dev)
+    out_ids, _ = store.prepare_batch(ids, values)
+    out_ids[:100] = -1
+    luts = store.device_luts()
+    ids_d = torch.from_numpy(out_ids).to(dev)
+    vals_d = torch.from_numpy(values).to(dev)
+    k = torch.zeros_like(store._pool)
+    p = torch.zeros_like(k)
+    before = kernel_launches()["fused_paged_ingest"]
+    fused_paged_ingest_batch(k, ids_d, vals_d, *luts, bl)
+    fused_paged_ingest_reference(p, ids_d, vals_d, *luts, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["fused_paged_ingest"] == before + 1
+    assert torch.equal(k, p)
+    assert int(k.sum()) == int((out_ids >= 0).sum() - (out_ids >= m).sum())
+
+
+def test_paged_aggregator_interval_on_the_card(dev):
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(num_metrics=1 << 16, batch_size=1 << 16)
+    assert agg.storage == "paged" and agg.fused_paged
+    ids, values = _batch(1 << 18, 1 << 16, seed=5)
+    ids = np.abs(ids) % (1 << 16)
+    for name in ("a", "b"):
+        agg.registry.id_for(name)
+    agg.record_batch(ids.astype(np.int32), values)
+    m = agg.collect().metrics
+    agg.close()
+    assert m["a_count"] == float((ids == 0).sum())
+    assert agg.paged.fused_dispatches >= 4

@@ -1,6 +1,7 @@
 """The port stands alone: ``loghisto_tpu_torch`` imports neither ``jax``
-nor any module of ``loghisto_tpu``, runs an interval on the CPU without
-either in ``sys.modules``, and never falls back to the CPU on its own."""
+nor any module of ``loghisto_tpu``, runs a dense and a paged interval on
+the CPU without either in ``sys.modules``, and never falls back to the
+CPU on its own."""
 
 import ast
 import subprocess
@@ -46,6 +47,15 @@ def test_interval_runs_without_jax_in_sys_modules():
         "m = agg.collect().metrics\n"
         "agg.close()\n"
         "assert m['x_count'] == 100.0, m\n"
+        "import loghisto_tpu_torch.paging, loghisto_tpu_torch.ops.paged_store\n"
+        "for tr, ip in (('sparse', 'auto'), ('raw', 'fused')):\n"
+        "    agg = TorchAggregator(num_metrics=4, batch_size=64, device='cpu',"
+        " storage='paged', transport=tr, ingest_path=ip)\n"
+        "    agg.record_batch(np.array([agg.registry.id_for('x')] * 100,"
+        " np.int32), np.linspace(1, 100, 100, dtype=np.float32))\n"
+        "    m = agg.collect().metrics\n"
+        "    agg.close()\n"
+        "    assert agg.storage == 'paged' and m['x_count'] == 100.0, m\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -62,6 +72,7 @@ def test_interval_runs_without_jax_in_sys_modules():
 def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.ops.fused_ingest import make_fused_ingest_fn
     from loghisto_tpu_torch.ops.row_ingest import make_row_ingest
+    from loghisto_tpu_torch.paging import PagedStore
     from loghisto_tpu_torch.ops.sparse_ingest import make_sparse_ingest_fn
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 
@@ -70,6 +81,8 @@ def test_entry_points_default_to_the_card():
         lambda: make_fused_ingest_fn(64),
         lambda: make_row_ingest(129, 64),
         lambda: make_sparse_ingest_fn(64),
+        lambda: PagedStore(4, 64),
+        lambda: TorchAggregator(num_metrics=1 << 20),
     ]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is real")
