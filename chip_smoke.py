@@ -12,7 +12,15 @@ against host oracles:
     (page pool of 2^21 pages), the reference's paged headline: K4f on
     the raw route, K4 on the sparse route, a snapshot query of 4096
     rows on each; plus the dense route on the same workload at 65,536
-    rows for contrast.
+    rows for contrast;
+  * retention (``retention_main_path``): ``TorchMetricSystem(interval=
+    1.0, num_metrics=1024, retention=True)`` at the reference's default
+    tiers (144 ring slots of [1024, 8193] int32, 4.83 GB): live
+    intervals through the reaper and both bridges, then 75 intervals of
+    2^20 samples through ``backfill_retention`` and ``merge_raw``; K3
+    scatters each interval into every tier's ring slot and K5 (phase
+    ``k5_window_merge`` at the 60 x 1024 x 8193 tier-0 ring) merges the
+    snapshot views and recomputes windows.
 
     python3 chip_smoke.py
 
@@ -32,6 +40,7 @@ inputs: a scatter moves only the cells it touches.
 from __future__ import annotations
 
 import collections
+import datetime as _dt
 import json
 import subprocess
 import sys
@@ -65,7 +74,16 @@ BUCKETS_PER_ROW = 4
 DENSE_CONTRAST_M = 1 << 16
 QUERY_IDS = 4096
 
+# retention: TorchMetricSystem(interval=1.0, num_metrics=1024,
+# retention=True) with the reference's DEFAULT_TIERS (60 x 1 s, 60 x 1 min,
+# 24 x 1 h) at bucket_limit 4096: 144 ring slots of [1024, 8193] int32
+RET_M = 1024
+RET_TIERS = ((60, 1), (60, 60), (24, 3600))
+RET_BACKFILL = 75
+RET_SAMPLES = 1 << 20
+
 RESULTS: dict = {}
+_ONE_SECOND = _dt.timedelta(seconds=1)
 
 
 def emit(obj) -> None:
@@ -922,6 +940,398 @@ def phase_paged_main(torch):
             "h2d_measured": h2d}
 
 
+def phase_k5(torch):
+    """K5 against its plain version at the default tier-0 ring, 60 x 1024
+    x 8193 int32 (2.01 GB) from a seeded generator: all slots, one slot,
+    a 5-slot trailing window wrapping past slot 0, a random mask, the
+    empty mask; then a 7 x 999 x 8193 ring (odd M*B, the scalar path) and
+    a ring built to wrap int32."""
+    from loghisto_tpu_torch.ops.window import window_merge, window_merge_kernel
+    from loghisto_tpu_torch.window.store import trailing_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    s = RET_TIERS[0][0]
+    ring = torch.randint(0, 1 << 16, (s, RET_M, B), dtype=torch.int32,
+                         device=dev, generator=gen)
+    rng = np.random.default_rng(SEED + 6)
+    # slot 2 open with nothing in it: the trailing walk goes 1, 0, 59, ...
+    written = np.ones(s, bool)
+    masks = {
+        "all": np.ones(s, bool),
+        "one": np.arange(s) == 17,
+        "trailing5": trailing_mask(written, np.ones(s), 2, 0, s, 5.0),
+        "random": rng.random(s) < 0.5,
+        "empty": np.zeros(s, bool),
+    }
+    assert masks["trailing5"].sum() == 5 and masks["trailing5"][[0, 59]].all()
+    equal, max_err = {}, 0
+
+    def check(name, r, mask):
+        nonlocal max_err
+        got = window_merge_kernel(r, mask)
+        want = window_merge(r, mask)
+        torch.cuda.synchronize()
+        equal[name] = bool(torch.equal(got, want))
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        return got
+
+    for name, mask in masks.items():
+        check(name, ring, mask)
+    odd = torch.randint(-(1 << 20), 1 << 20, (7, 999, B), dtype=torch.int32,
+                        device=dev, generator=gen)
+    check("odd_all", odd, np.ones(7, bool))
+    check("odd_random", odd, rng.random(7) < 0.5)
+    del odd
+    wrap = torch.zeros((3, 8, B), dtype=torch.int32, device=dev)
+    wrap[:2, 0, 5] = (1 << 30) + 5
+    wrap[:, 1, :] = 2**31 - 1
+    got = check("int32_wrap", wrap, np.ones(3, bool))
+    if int(got[0, 5]) != -(1 << 31) + 10:
+        raise AssertionError(f"K5 did not wrap int32: {int(got[0, 5])}")
+    if not all(equal.values()):
+        raise AssertionError(f"K5 differs from its plain version: {equal}")
+
+    timings = {}
+    for name in ("all", "trailing5"):
+        mask = masks[name]
+        k = int(mask.sum())
+        idx = torch.from_numpy(np.flatnonzero(mask)).to(dev)
+        if name == "all":
+            lib = lambda: ring.sum(0, dtype=torch.int32)  # noqa: E731
+            lib_call = "ring.sum(0, dtype=torch.int32)"
+        else:
+            lib = lambda: ring[idx].sum(0, dtype=torch.int32)  # noqa: E731
+            lib_call = "ring[idx].sum(0, dtype=torch.int32)"
+        b_ms, b_by = bound_ms((k + 1) * RET_M * B * 4)
+        timings[name] = {
+            "slots": k,
+            "ms": time_ms(torch, lambda: window_merge_kernel(ring, mask)),
+            "plain_ms": time_ms(torch, lambda: window_merge(ring, mask)),
+            "library_ms": time_ms(torch, lib), "library_call": lib_call,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    RESULTS["window_merge"] = {"max_abs_err": max_err,
+                               **{k: v for k, v in timings["all"].items()
+                                  if k not in ("slots", "library_call")}}
+    del ring
+    return {"ring": [s, RET_M, B], "ring_bytes": s * RET_M * B * 4,
+            "equal": equal, "max_abs_err": max_err, "timings": timings}
+
+
+def _raw_interval(rng, names, mu, sigma, t, seq, n):
+    """One seeded backfill interval: n samples over the metrics (uniform
+    ids, lognormal values with per-metric parameters) as a RawMetricSet
+    of compress_np buckets, plus its counter."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    ids = rng.integers(0, len(names), n)
+    values = rng.lognormal(mu[ids], sigma[ids])
+    keys = ids.astype(np.int64) * 65536 + compress_np(values).astype(
+        np.int64) + 32768
+    uniq, counts = np.unique(keys, return_counts=True)
+    rows = uniq >> 16
+    buckets = (uniq & 0xFFFF) - 32768
+    bounds = np.searchsorted(rows, np.arange(len(names) + 1))
+    hists = {}
+    for i, name in enumerate(names):
+        lo, hi = bounds[i], bounds[i + 1]
+        if hi > lo:
+            hists[name] = dict(zip(buckets[lo:hi].tolist(),
+                                   counts[lo:hi].tolist()))
+    rates = {"requests": int(rng.integers(900, 1100))}
+    return RawMetricSet(time=t, counters=dict(rates), rates=rates,
+                        histograms=hists, gauges={}, duration=1.0, seq=seq)
+
+
+def _cells(raw, registry):
+    """A RawMetricSet's cells as (flat [M, B] index, count) int64 arrays,
+    buckets clipped to +/-BL (the oracle's side of the codec)."""
+    flat, counts = [], []
+    for name, hist in raw.histograms.items():
+        mid = registry.lookup(name)
+        b = np.fromiter(hist.keys(), np.int64, len(hist))
+        flat.append(mid * B + np.clip(b, -BL, BL) + BL)
+        counts.append(np.fromiter(hist.values(), np.int64, len(hist)))
+    if not flat:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(flat), np.concatenate(counts)
+
+
+def _hist(cells_list, m):
+    """Oracle histogram: the intervals' cells summed in int64 [m, B]."""
+    flat = np.concatenate([c[0] for c in cells_list])
+    w = np.concatenate([c[1] for c in cells_list])
+    return np.bincount(flat, weights=w, minlength=m * B).astype(
+        np.int64).reshape(m, B)
+
+
+def _oracle_stats(hist):
+    """dense_stats_np of an oracle histogram, with each percentile's rank
+    taken by the float32 threshold rule the device keeps (the JAX
+    ``dense_stats`` rule: k0 = ceil(p * total), the first of k0 - 1, k0,
+    k0 + 1 with k / total >= p, all in float32) in place of the float64
+    ratio.  The two rules pick neighbouring ranks at rare ties (count
+    9,999 at p99.99: 9998/9999 equals float32(0.9999)); returns the stats
+    and the number of (row, p) ties."""
+    from loghisto_tpu_torch.ops.codec import decompress_np
+    from loghisto_tpu_torch.ops.stats import dense_stats_np
+
+    want = dense_stats_np(hist, PS, BL)
+    cdf = np.cumsum(hist, axis=1)
+    total = np.maximum(cdf[:, -1], 1)
+    p32 = PS.astype(np.float32)
+    tot_f = total.astype(np.float32)[:, None]
+    k0 = np.ceil(p32[None, :] * tot_f)
+    cands = k0[:, :, None] + np.array([-1, 0, 1], np.float32)
+    ok = (cands / tot_f[:, :, None] >= p32[None, :, None]) & (cands >= 1)
+    best = np.where(ok, cands, np.float32(np.inf)).min(axis=2)
+    k_f = np.clip(np.where(np.isfinite(best), best, k0), 1,
+                  np.float32(2**31 - 256))
+    k = np.minimum(k_f.astype(np.int64), total[:, None])
+    k = np.where(PS[None, :] <= 0, 1,
+                 np.where(PS[None, :] >= 1, total[:, None], k))
+    idx = np.stack([np.searchsorted(cdf[r], k[r], side="left")
+                    for r in range(len(cdf))])
+    reps = decompress_np(np.arange(-BL, BL + 1))
+    pct = reps[np.minimum(idx, B - 1)]
+    pct[cdf[:, -1] == 0] = 0.0
+    ties = int((pct != want["percentiles"]).sum())
+    want["percentiles"] = pct
+    return want, ties
+
+
+def _check_window(res, names, want):
+    """A query_window result against dense_stats_np of the oracle."""
+    from loghisto_tpu_torch.window.store import pct_key
+
+    keys = [pct_key(p) for p in PS]
+    checked = 0
+    for i, name in enumerate(names):
+        count = int(want["counts"][i])
+        if count == 0:
+            assert name not in res.metrics, name
+            continue
+        got = res.metrics[name]
+        assert got["count"] == count, name
+        for key, value in zip(keys, want["percentiles"][i]):
+            assert got[key] == float(np.float32(value)), (name, key)
+        np.testing.assert_allclose(got["sum"], want["sums"][i], rtol=1e-5,
+                                   atol=1e-3)
+        checked += 1
+    return checked
+
+
+def phase_retention(torch):
+    """The retention path through TorchMetricSystem(interval=1.0,
+    num_metrics=1024, retention=True) at the reference's defaults
+    (DEFAULT_TIERS, bucket_limit 4096, commit -> fanout): >= 4 live
+    intervals at the system's own 1 s interval (histogram_batch and
+    counter through the reaper and both bridges), then 75 seeded
+    intervals of 2^20 samples through backfill_retention and
+    aggregator.merge_raw (past tier 0's ring wrap, closing tier 1's first
+    slot); rings, queries, window_rate and device_metrics against a host
+    oracle (compress_np cells summed in int64, dense_stats_np with the
+    device's float32 rank rule, ``_oracle_stats``)."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.channel import Channel
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    names = [f"g{i // 64:02d}.m{i % 64:02d}" for i in range(RET_M)]
+    rng = np.random.default_rng(SEED + 30)
+    mu = rng.uniform(2.0, 8.0, RET_M)
+    sigma = rng.uniform(0.3, 1.5, RET_M)
+    ms = TorchMetricSystem(interval=1.0, num_metrics=RET_M, retention=True)
+    wheel = ms.retention
+    assert ms.commit_path == "fanout"
+    assert [tuple(t) for t in wheel.tiers] == [tuple(t) for t in RET_TIERS]
+    for name in names:
+        ms.metric_id(name)
+    windows = (1.0, 5.0, 30.0, 60.0, 3600.0)
+    for w in windows:
+        wheel.pin_window(w)
+    capture = Channel(256)
+    ms.subscribe_to_raw_metrics(capture)
+
+    split = collections.defaultdict(list)
+
+    def synced(key, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    wheel._cells_from_raw = synced("cells_ms", wheel._cells_from_raw)
+    wheel._tier_push_locked = synced("scatter_clear_ms",
+                                     wheel._tier_push_locked)
+    wheel._refresh_snapshot_locked = synced("snapshot_ms",
+                                            wheel._refresh_snapshot_locked)
+
+    reset_kernel_launches()
+    # -- live: the reaper at 1 s, both bridges ------------------------------
+    t_live = time.perf_counter()
+    ms.start()
+    deadline = time.monotonic() + 30.0
+    try:
+        while wheel.intervals_pushed < 5 or time.perf_counter() - t_live < 5.0:
+            if time.monotonic() > deadline:
+                raise AssertionError("live intervals did not arrive")
+            for i, name in enumerate(names):
+                ms.histogram_batch(name, rng.lognormal(mu[i], sigma[i], 16))
+            ms.counter("requests", 1000)
+            time.sleep(0.2)
+    finally:
+        ms.stop()
+    live_s = time.perf_counter() - t_live
+    live = []
+    while len(capture):
+        live.append(capture.get(block=False))
+    if len(live) != wheel.intervals_pushed or len(live) < 4:
+        raise AssertionError(
+            f"captured {len(live)} intervals, the wheel took "
+            f"{wheel.intervals_pushed}")
+    if ms.aggregator.bridge_error or wheel.bridge_error:
+        raise AssertionError("a bridge failed on the live intervals")
+    registry = ms.aggregator.registry
+    cells = [_cells(raw, registry) for raw in live]
+    live_metrics = ms.device_metrics().metrics
+    want, ties = _oracle_stats(_hist(cells, RET_M))
+    rank_ties = {"live": ties}
+    lifetime = {"count": np.zeros(RET_M, np.int64),
+                "sum": np.zeros(RET_M, np.float64)}
+    live_rows = _check_interval(live_metrics, names, want, lifetime,
+                                exact_pcts=False)
+    live_samples = int(sum(c[1].sum() for c in cells))
+    for key in split:
+        split[key].clear()
+
+    # -- backfill: 75 intervals of 2^20 samples ------------------------------
+    rates = [raw.rates.get("requests", 0) for raw in live]
+    t_base = live[-1].time
+    before = kernel_launches()
+    k3_wheel = k5_wheel = 0
+    merge_ms = []
+    for k in range(RET_BACKFILL):
+        raw = _raw_interval(rng, names, mu, sigma,
+                            t_base + (k + 1) * _ONE_SECOND,
+                            live[-1].seq + k + 1, RET_SAMPLES)
+        a = kernel_launches()
+        ms.backfill_retention([raw])
+        b = kernel_launches()
+        k3_wheel += b["sparse_ingest"] - a["sparse_ingest"]
+        k5_wheel += b["window_merge"] - a["window_merge"]
+        t0 = time.perf_counter()
+        ms.aggregator.merge_raw(raw)
+        torch.cuda.synchronize()
+        merge_ms.append((time.perf_counter() - t0) * 1e3)
+        cells.append(_cells(raw, registry))
+        rates.append(raw.rates["requests"])
+    n = len(cells)
+    backfill_metrics = ms.device_metrics().metrics
+    want, rank_ties["backfill"] = _oracle_stats(_hist(cells[len(live):],
+                                                      RET_M))
+    backfill_rows = _check_interval(backfill_metrics, names, want, lifetime,
+                                    exact_pcts=False)
+
+    # -- rings against the oracle -------------------------------------------
+    tiers = wheel._tiers
+    s0 = RET_TIERS[0][0]
+    for k in range(n - s0, n):
+        got = tiers[0].ring[k % s0].cpu().numpy()
+        if not np.array_equal(got, _hist([cells[k]], RET_M)):
+            raise AssertionError(f"tier-0 slot {k % s0} != interval {k}")
+    res1 = RET_TIERS[1][1]
+    if not np.array_equal(tiers[1].ring[0].cpu().numpy(),
+                          _hist(cells[:res1], RET_M)):
+        raise AssertionError("tier 1's closed slot != its 60 intervals")
+    if not np.array_equal(tiers[1].ring[1].cpu().numpy(),
+                          _hist(cells[res1:], RET_M)):
+        raise AssertionError("tier 1's open slot != its intervals")
+    if not np.array_equal(tiers[2].ring[0].cpu().numpy(), _hist(cells, RET_M)):
+        raise AssertionError("tier 2's open slot != every interval")
+
+    # -- query timings (a fresh epoch: each first call is a serve) -----------
+    ps = list(PS)
+    query_ms = {}
+    for rows, pattern in ((1, names[0]), (64, "g00.*"), (RET_M, "*")):
+        t0 = time.perf_counter()
+        res = ms.query_window(pattern, 60.0, percentiles=ps)
+        query_ms[f"rows_{rows}"] = (time.perf_counter() - t0) * 1e3
+        assert len(res.metrics) == rows
+    t0 = time.perf_counter()
+    again = ms.query_window("*", 60.0, percentiles=ps)
+    query_ms["result_cache_hit"] = (time.perf_counter() - t0) * 1e3
+    assert again is res
+    hits0, falls0 = wheel.query_snapshot_hits, wheel.query_fallbacks
+
+    # -- every window against the oracle; snapshot serve == recompute -------
+    per_window = {}
+    for w in (*windows, None):
+        res = ms.query_window("*", w, percentiles=ps)
+        span = n if w is None or w > s0 else int(w)
+        want, rank_ties[str(w)] = _oracle_stats(_hist(cells[n - span:],
+                                                      RET_M))
+        rows = _check_window(res, names, want)
+        t0 = time.perf_counter()
+        oracle = wheel._query_recompute("*", res.window_s, tuple(ps), res.tier)
+        recompute_ms = (time.perf_counter() - t0) * 1e3
+        if res.metrics != oracle.metrics:
+            raise AssertionError(f"window {w}: snapshot serve != recompute")
+        rate = ms.window_rate("requests", w or res.window_s)
+        if rate != sum(rates[n - span:]) / float(span):
+            raise AssertionError(f"window {w}: window_rate {rate} differs")
+        per_window[str(w)] = {"tier": res.tier, "slots": res.slots,
+                              "covered_s": res.covered_s,
+                              "rows_checked": rows, "rate": rate,
+                              "recompute_ms": recompute_ms}
+    if wheel.query_fallbacks != falls0 or wheel.query_snapshot_hits <= hits0:
+        raise AssertionError("a pinned window was not served from a snapshot")
+    launches = kernel_launches()
+    for kernel in ("sparse_ingest", "window_merge"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched on the "
+                                 "retention path")
+    if ms.aggregator.bridge_error or wheel.bridge_error:
+        raise AssertionError("a bridge error was kept")
+    RESULTS.setdefault("window_merge", {})["launches"] = launches[
+        "window_merge"]
+    hbm = wheel.hbm_bytes()
+    assert hbm == sum(s for s, _ in RET_TIERS) * RET_M * B * 4
+    # per push: one cell build, one scatter+clear per tier, one refresh
+    mean = {k: float(np.sum(v)) / RET_BACKFILL for k, v in split.items()}
+    out = {
+        "num_metrics": RET_M, "tiers": [list(t) for t in RET_TIERS],
+        "commit_path": ms.commit_path, "hbm_bytes": hbm,
+        "live": {"intervals": len(live), "wall_s": live_s,
+                 "samples": live_samples, "rows_checked": live_rows},
+        "backfill": {"intervals": RET_BACKFILL, "samples_each": RET_SAMPLES,
+                     "rows_checked": backfill_rows,
+                     "merge_raw_ms": float(np.mean(merge_ms))},
+        "intervals_pushed": wheel.intervals_pushed,
+        "push_ms": {**mean, "total_ms": sum(mean.values())},
+        "launches_per_push": {"sparse_ingest": k3_wheel / RET_BACKFILL,
+                              "window_merge": k5_wheel / RET_BACKFILL},
+        "views_per_tier": 1 + len(wheel.pinned_windows()),
+        "query_ms": query_ms, "windows": per_window,
+        "rank_ties_vs_float64_rule": rank_ties,
+        "launches": launches,
+        "bridge_errors": [repr(ms.aggregator.bridge_error),
+                          repr(wheel.bridge_error)],
+    }
+    del ms, wheel, tiers
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNEL_META = {
     "fused_ingest": ("loghisto_tpu_torch/csrc/fused_ingest.cu",
                      "loghisto_tpu/ops/fused_ingest.py:169", None),
@@ -934,6 +1344,8 @@ KERNEL_META = {
                       "loghisto_tpu/ops/paged_store.py:115", None),
     "fused_paged_ingest": ("loghisto_tpu_torch/csrc/paged_store.cu",
                            "loghisto_tpu/ops/fused_ingest.py:301", None),
+    "window_merge": ("loghisto_tpu_torch/csrc/window_merge.cu",
+                     "loghisto_tpu/ops/window.py:62", None),
 }
 
 
@@ -978,8 +1390,10 @@ def main() -> int:
                         ("k3_sparse_ingest", phase_k3),
                         ("k4_paged_scatter", phase_k4),
                         ("k4f_fused_paged_ingest", phase_k4f),
+                        ("k5_window_merge", phase_k5),
                         ("main_path", phase_main),
-                        ("paged_main_path", phase_paged_main)):
+                        ("paged_main_path", phase_paged_main),
+                        ("retention_main_path", phase_retention)):
         t0 = time.perf_counter()
         try:
             out = phase(torch)

@@ -45,18 +45,22 @@ class MetricConfig:
       bucket_limit: maximum absolute bucket index for the dense device-side
         accumulator.  The default +/-4096 covers |v| up to e^40.96 ~= 6.2e17
         at a dense cost of (2*4096+1) * 4 bytes = 32 KB per metric.
+      eviction_strikes: consecutive failed deliveries before a subscriber is
+        evicted.  The reference's docs say 3 (metrics.go:18-23) but its code
+        evicts on the 2nd (metrics.go:574,620); the default follows the code.
       go_compat: reproduce the reference's integer quirks bit-for-bit:
         lifetime histogram sums accumulated via uint64 truncation
         (metrics.go:374) and ``_agg_avg`` computed with integer division
         (metrics.go:601-602).
-
-    The reference's host-system fields (``eviction_strikes``,
-    ``ingest_buffer_cap``) come with the host-system slice.
+      ingest_buffer_cap: raw histogram samples per metric buffered in a
+        host shard before they are folded into sparse bucket counts.
     """
 
     precision: int = PRECISION
     bucket_limit: int = 4096
+    eviction_strikes: int = 2
     go_compat: bool = False
+    ingest_buffer_cap: int = 65536
 
     def __post_init__(self):
         if not 0 < self.bucket_limit <= 8192:
@@ -68,6 +72,16 @@ class MetricConfig:
             )
         if self.precision <= 0:
             raise ValueError(f"precision must be positive, got {self.precision}")
+        if self.ingest_buffer_cap < 64:
+            # below this the per-sample fold overhead dominates the hot path
+            raise ValueError(
+                "ingest_buffer_cap must be >= 64, got "
+                f"{self.ingest_buffer_cap}"
+            )
+        if self.eviction_strikes < 1:
+            raise ValueError(
+                f"eviction_strikes must be >= 1, got {self.eviction_strikes}"
+            )
 
     @property
     def num_buckets(self) -> int:

@@ -74,6 +74,11 @@ KERNEL_SPECS = {
         # bucket_limit, precision
         [_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     ),
+    "window_merge": (
+        "window_merge.cu", "lh_window_merge",
+        # out, ring, slot list (host int32), n, num_slots, M * B
+        [_P, _P, _P, _I, _I, _LL],
+    ),
 }
 _SHARED_HEADERS = ("codec.cuh",)
 

@@ -25,7 +25,7 @@ import threading
 import torch
 
 KERNELS = ("fused_ingest", "row_ingest", "sparse_ingest", "paged_scatter",
-           "fused_paged_ingest")
+           "fused_paged_ingest", "window_merge")
 
 KERNEL_LAUNCHES = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()

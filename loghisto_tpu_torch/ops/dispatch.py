@@ -14,6 +14,9 @@ re-resolves (the aggregator swaps K2 for K1).  On ``cpu`` every path is
 served by the wrappers' plain versions — the table still resolves, so
 the CPU runs the same control flow as the card.
 
+``resolve_commit_path`` resolves the interval commit: the fan-out path
+until the fused committer is ported (ROADMAP D3).
+
 Each decline reason is a sentence, as in the JAX table.
 """
 
@@ -283,3 +286,28 @@ def resolve_storage_path(
         if reason is not None:
             raise ValueError(f"paged storage unavailable: {reason}")
     return storage, None
+
+
+# -- the interval commit (ROADMAP D3) ----------------------------------- #
+
+FUSED_COMMIT_SLICE = (
+    "the fused IntervalCommitter (loghisto_tpu/commit.py, ops/commit.py) is "
+    "not ported yet: it comes with ROADMAP Queue 1 slice 7b, and until then "
+    "the port commits each interval through the fan-out path (the "
+    "aggregator's and the wheel's bridges), which the reference's fused "
+    "path equals bit for bit."
+)
+
+
+def resolve_commit_path(path: str) -> str:
+    """Resolve the interval-commit path.  "auto" and "fanout" give
+    "fanout" (decision D3: the reference's "auto" picks the fused
+    committer on a TPU, and the fused and fan-out paths compute the same
+    bits); "fused" raises until the committer is ported."""
+    if path in ("auto", "fanout"):
+        return "fanout"
+    if path == "fused":
+        raise ValueError(f"commit='fused' unavailable: {FUSED_COMMIT_SLICE}")
+    raise ValueError(
+        f"unknown commit path {path!r}: expected 'auto', 'fused', or 'fanout'"
+    )

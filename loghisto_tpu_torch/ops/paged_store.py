@@ -150,10 +150,7 @@ def paged_query(
     native bucket through the codec's decode LUT (an exact integer
     scatter — decode LUTs are injective), then the dense engine's
     ``snapshot_row_stats`` over the exact int32 CDF."""
-    from loghisto_tpu_torch.ops.stats import (
-        bucket_representatives,
-        snapshot_row_stats,
-    )
+    from loghisto_tpu_torch.ops.stats import row_sums, snapshot_row_stats
 
     device = pool.device
     num_buckets = 2 * bucket_limit + 1
@@ -167,9 +164,7 @@ def paged_query(
     native.index_add_(1, dec, storage)
     cdf = torch.cumsum(native, dim=1, dtype=torch.int32)
     counts = cdf[:, -1].contiguous()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    reps = bucket_representatives(bucket_limit, precision, device)
-    sums = native.to(torch.float32) @ reps
+    sums = row_sums(native, bucket_limit, precision)
     return snapshot_row_stats(
         cdf, counts, sums, np.asarray(ps, dtype=np.float32), bucket_limit,
         precision,

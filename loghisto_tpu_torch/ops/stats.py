@@ -21,10 +21,19 @@ cumulative count is below k*.  Sums are an float32 ``acc.float() @ reps``
 as in JAX; TF32 is switched off for it.  ``snapshot_row_stats`` is that
 selection over given CDF rows (the paged query's tail);
 ``sparse_cells_stats`` is the host tier of paged storage's collect().
-``dense_cdf`` and the group queries wait for the retention slice.
+
+The snapshot query engine of the retention wheel: ``dense_cdf`` is the
+commit-time payload (exact int32 CDF, counts, float32 sums) and
+``make_snapshot_query_fn`` the query (a row gather, then
+``snapshot_row_stats``).  ``dense_stats`` and ``dense_cdf`` take their
+sums from one helper (``row_sums``), so a snapshot serve and a
+recompute over the same window give the same bits.  The group queries
+wait for the labels slice.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -171,7 +180,14 @@ def bucket_representatives(
 ) -> torch.Tensor:
     """Representative value of every dense-axis bucket (index b maps to
     codec bucket b - bucket_limit), rounded once from the float64 host
-    codec so every device holds the same table."""
+    codec so every device holds the same table.  Built once per
+    (geometry, device, dtype) and shared: callers must not write it."""
+    return _representatives(bucket_limit, precision,
+                            torch.device(device or "cpu"), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _representatives(bucket_limit, precision, device, dtype):
     idx = np.arange(-bucket_limit, bucket_limit + 1, dtype=np.int64)
     reps = torch.from_numpy(decompress_np(idx, precision))
     return reps.to(device=device, dtype=dtype)
@@ -190,14 +206,52 @@ def dense_stats(
     float32 and buckets [M, P] int64 (the selected dense-axis index of
     each percentile).  Empty metrics return 0 for every statistic.
     """
-    device = acc.device
+    snap = dense_cdf(acc, bucket_limit, precision)
+    return snapshot_row_stats(
+        snap["cdf"], snap["counts"], snap["sums"], ps, bucket_limit, precision
+    )
+
+
+def row_sums(
+    acc: torch.Tensor, bucket_limit: int, precision: int = PRECISION
+) -> torch.Tensor:
+    """Per-row float32 sum of representative values: the float32 matvec
+    ``acc.float() @ reps`` every dense statistic shares."""
     # state the matvec's precision: full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    reps = bucket_representatives(bucket_limit, precision, device)
-    sums = acc.to(torch.float32) @ reps
+    reps = bucket_representatives(bucket_limit, precision, acc.device)
+    return acc.to(torch.float32) @ reps
+
+
+def dense_cdf(
+    acc: torch.Tensor, bucket_limit: int, precision: int = PRECISION
+) -> dict[str, torch.Tensor]:
+    """Commit-time snapshot payload of a dense int32 [M, B] count tensor:
+    ``cdf`` int32 [M, B] (exact per-row bucket prefix sums, the cumsum
+    kept in int32 — by default torch would promote it to int64),
+    ``counts`` int32 [M] (its last column) and ``sums`` float32 [M]
+    (``row_sums``)."""
     cdf = torch.cumsum(acc, dim=1, dtype=torch.int32)
-    counts = cdf[:, -1].contiguous()
-    return snapshot_row_stats(cdf, counts, sums, ps, bucket_limit, precision)
+    return {
+        "cdf": cdf,
+        "counts": cdf[:, -1].contiguous(),
+        "sums": row_sums(acc, bucket_limit, precision),
+    }
+
+
+def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):
+    """Sparse snapshot query ``f(cdf, counts, sums, ids, ps) -> stats of
+    rows ids``: one gather of the requested rows on the snapshot's
+    device, then ``snapshot_row_stats``; readback is O(len(ids) * P).
+    ``ids`` may be host ints; they are moved to the snapshot's device."""
+
+    def query(cdf, counts, sums, ids, ps):
+        idx = torch.as_tensor(ids, dtype=torch.long, device=cdf.device)
+        return snapshot_row_stats(
+            cdf[idx], counts[idx], sums[idx], ps, bucket_limit, precision
+        )
+
+    return query
 
 
 def snapshot_row_stats(

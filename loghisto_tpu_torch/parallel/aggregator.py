@@ -44,9 +44,15 @@ fold the accumulator into an exact int64 host spill and take
 ``dense_stats_np``.  ``on_registry_full="grow"`` doubles the row space
 up to ``max_metrics``; growth from one row swaps K2 for K1.
 
-Not in these slices: preagg and native staging, the mesh, ``attach``,
-retention, lifecycle, drift, observability, the fault injector and the
-supervisor.  A device error in the worker is not
+``attach(ms)`` subscribes to a host ``MetricSystem``'s raw broadcast:
+a bridge thread runs ``merge_raw`` on every interval (K3 on dense
+storage, ``PagedStore.commit`` on paged storage, the exact host spill
+past the int32 guard).  A failed merge is logged and kept as
+``bridge_error``, which ``collect()`` and ``detach()`` re-raise.
+
+Not in these slices: preagg and native staging, the mesh, lifecycle,
+drift, observability, the fault injector and the supervisor.  A device
+error in the transfer worker is not
 retried: it is re-raised by the next ``flush``, ``wait_transfers`` or
 ``collect``.  When the transfer queue holds more than
 ``max_pending_samples``, ``flush`` waits for it instead of shedding.
@@ -65,8 +71,13 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from loghisto_tpu_torch.channel import Channel, ChannelClosed
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
-from loghisto_tpu_torch.metrics import _UINT64_MASK, ProcessedMetricSet
+from loghisto_tpu_torch.metrics import (
+    _UINT64_MASK,
+    ProcessedMetricSet,
+    RawMetricSet,
+)
 from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import kernel_launches, resolve_device
 from loghisto_tpu_torch.ops.fold import compress_np_host, fold_packed_numpy
@@ -323,6 +334,14 @@ class TorchAggregator:
 
         self._agg_lock = threading.Lock()
         self._agg: Dict[int, list] = {}
+
+        # host-tier bridge (attach): (ms, thread, stop event) while attached
+        self._attached: Optional[tuple] = None
+        self._bridge_lock = threading.Lock()
+        self._bridge_ch: Optional[Channel] = None
+        self.bridge_evictions = 0
+        self.bridge_error: Optional[BaseException] = None
+        self._last_aggregation_us = 0.0
 
     @property
     def kernel_launches(self) -> dict:
@@ -627,7 +646,8 @@ class TorchAggregator:
                 or int(weights.max()) >= 1 << 30
             ):
                 self._spill_fold_locked()
-                self._spill_add_packed_locked(packed)
+                self._spill_add_cells_locked(
+                    packed[:, 0], packed[:, 1], packed[:, 2])
                 return
             if self.paged is not None:
                 self._interval_ingested += self.paged.commit(packed)
@@ -639,31 +659,145 @@ class TorchAggregator:
             )
             self._interval_ingested += total
 
-    def _spill_add_packed_locked(self, packed: np.ndarray) -> None:
-        """Add packed cells to the host int64 spill — exact at any
-        magnitude.  Caller holds _dev_lock.  Paged storage keeps its
-        spill as the store's sparse host dict."""
-        if self.paged is not None:
-            ids = packed[:, 0].astype(np.int64)
-            keep = (ids >= 0) & (ids < self.num_metrics)
-            bl = self.config.bucket_limit
-            weights = packed[keep, 2].astype(np.int64)
-            self.paged.spill_cells(
-                ids[keep], np.clip(packed[keep, 1], -bl, bl) + bl, weights
-            )
-            self._spilled_samples += int(weights.sum())
-            return
-        if self._spill is None:
-            self._spill = np.zeros(
-                (self.num_metrics, self.config.num_buckets), dtype=np.int64
-            )
-        ids = packed[:, 0].astype(np.int64)
+    def _spill_add_cells_locked(self, ids, buckets, weights) -> None:
+        """Add (id, codec bucket, count) cells to the host int64 spill —
+        exact at any magnitude.  Caller holds _dev_lock.  Paged storage
+        keeps its spill as the store's sparse host dict."""
+        ids = np.asarray(ids, dtype=np.int64)
         keep = (ids >= 0) & (ids < self.num_metrics)
         bl = self.config.bucket_limit
-        cols = np.clip(packed[keep, 1], -bl, bl).astype(np.int64) + bl
-        weights = packed[keep, 2].astype(np.int64)
-        np.add.at(self._spill, (ids[keep], cols), weights)
+        cols = np.clip(np.asarray(buckets, dtype=np.int64)[keep], -bl, bl) + bl
+        weights = np.asarray(weights, dtype=np.int64)[keep]
+        if self.paged is not None:
+            self.paged.spill_cells(ids[keep], cols, weights)
+        else:
+            if self._spill is None:
+                self._spill = np.zeros(
+                    (self.num_metrics, self.config.num_buckets),
+                    dtype=np.int64,
+                )
+            np.add.at(self._spill, (ids[keep], cols), weights)
         self._spilled_samples += int(weights.sum())
+
+    # -- host-tier bridge ----------------------------------------------- #
+
+    def merge_raw(self, raw: RawMetricSet) -> None:
+        """Merge one host-tier interval (sparse bucket maps) into the
+        device accumulator: the cells are repacked as int32
+        (id, codec bucket, count) triples and go through K3 on dense
+        storage, or ``PagedStore.commit`` on paged storage.  When the
+        interval total would reach ``spill_threshold``, or any weight is
+        >= 2^30, the cells go to the exact int64 host spill instead."""
+        ids, bidx, weights = [], [], []
+        for name, bucket_counts in raw.histograms.items():
+            n = len(bucket_counts)
+            if not n:
+                continue
+            counts = np.fromiter(bucket_counts.values(), np.int64, n)
+            mid = self._id_for(name, samples=int(counts.sum()))
+            if mid < 0:
+                continue  # shed (already counted, with its true weight)
+            ids.append(np.full(n, mid, dtype=np.int64))
+            bidx.append(np.fromiter(bucket_counts.keys(), np.int64, n))
+            weights.append(counts)
+        if not ids:
+            return
+        ids_np = np.concatenate(ids)
+        bidx_np = np.concatenate(bidx)
+        weights_np = np.concatenate(weights)
+        bl = self.config.bucket_limit
+        with self._dev_lock:
+            if (
+                self._interval_ingested + int(weights_np.sum())
+                >= self.spill_threshold
+                or int(weights_np.max()) >= 1 << 30
+            ):
+                self._spill_fold_locked()
+                self._spill_add_cells_locked(ids_np, bidx_np, weights_np)
+                return
+            # int32 is safe now: the guard bounds every weight below 2^30
+            packed = np.empty((len(ids_np), 3), dtype=np.int32)
+            packed[:, 0] = ids_np
+            packed[:, 1] = np.clip(bidx_np, -bl, bl)
+            packed[:, 2] = weights_np
+            if self.paged is not None:
+                self._interval_ingested += self.paged.commit(packed)
+                return
+            sparse_ingest(self._acc, torch.from_numpy(packed).to(self.device),
+                          bl)
+            self._interval_ingested += int(weights_np.sum())
+
+    def _raise_bridge_error(self, clear: bool = False) -> None:
+        err = self.bridge_error
+        if err is not None:
+            if clear:
+                self.bridge_error = None
+            raise RuntimeError(
+                "the aggregator's bridge failed to merge an interval"
+            ) from err
+
+    def attach(self, ms, channel_capacity: int = 8) -> None:
+        """Subscribe to a MetricSystem's raw broadcast: a bridge thread
+        merges every interval (``merge_raw``).  A strike-evicted channel
+        is re-subscribed (``bridge_evictions`` counts it).  A failed
+        merge is logged and kept in ``bridge_error`` (the first one),
+        which ``collect()`` and ``detach()`` re-raise."""
+        if self._attached is not None:
+            raise RuntimeError("already attached")
+        stop = threading.Event()
+        ch = Channel(channel_capacity)
+        ms.subscribe_to_raw_metrics(ch)
+        self._bridge_ch = ch
+
+        def bridge():
+            nonlocal ch
+            while True:
+                try:
+                    raw = ch.get()
+                except ChannelClosed:
+                    with self._bridge_lock:
+                        # detach() sets stop before taking this lock, so
+                        # a channel detach closed is never re-subscribed
+                        if stop.is_set():
+                            return
+                        self.bridge_evictions += 1
+                        ch = Channel(channel_capacity)
+                        ms.subscribe_to_raw_metrics(ch)
+                        self._bridge_ch = ch
+                    logger.warning(
+                        "bridge channel was strike-evicted; re-subscribed "
+                        "(eviction #%d)", self.bridge_evictions,
+                    )
+                    continue
+                try:
+                    self.merge_raw(raw)
+                except Exception as e:
+                    logger.exception(
+                        "device merge failed for interval %s", raw.time
+                    )
+                    if self.bridge_error is None:
+                        self.bridge_error = e
+
+        t = threading.Thread(
+            target=bridge, daemon=True, name="loghisto-torch-bridge"
+        )
+        t.start()
+        self._attached = (ms, t, stop)
+
+    def detach(self) -> None:
+        """Unsubscribe, let the bridge merge what its channel already
+        holds, join it, and re-raise (then clear) a bridge failure."""
+        if self._attached is not None:
+            ms, t, stop = self._attached
+            stop.set()
+            with self._bridge_lock:
+                ch, self._bridge_ch = self._bridge_ch, None
+            if ch is not None:
+                ms.unsubscribe_from_raw_metrics(ch)
+                ch.close()  # the bridge drains it, then returns
+            t.join(timeout=30.0)
+            self._attached = None
+        self._raise_bridge_error(clear=True)
 
     # -- collection ----------------------------------------------------- #
 
@@ -686,8 +820,11 @@ class TorchAggregator:
 
     def collect(self, reset: bool = True) -> ProcessedMetricSet:
         """Statistics of every registered metric with the reference's
-        naming scheme; ``reset`` closes the interval."""
+        naming scheme; ``reset`` closes the interval.  Re-raises a
+        failure of the attach bridge."""
+        self._raise_bridge_error()
         self.flush(force=True)
+        t0 = time.perf_counter()
         labels, ps = [], []
         for label, p in self.percentiles.items():
             if 0.0 <= p <= 1.0:
@@ -713,6 +850,7 @@ class TorchAggregator:
                 self._spilled_samples = 0
         if self.paged is None:
             stats = self._dense_stats(acc, spill, ps)
+        self._last_aggregation_us = (time.perf_counter() - t0) * 1e6
         # Python lists: the per-row naming loop below reads scalars, and
         # list items are several times cheaper than NumPy scalars at a
         # million rows
@@ -763,6 +901,41 @@ class TorchAggregator:
         return ProcessedMetricSet(
             time=_dt.datetime.now(tz=_dt.timezone.utc), metrics=metrics
         )
+
+    # -- gauges --------------------------------------------------------- #
+
+    def register_device_gauges(self, ms) -> None:
+        """Register the aggregator's gauges on a MetricSystem, under the
+        reference's ``tpu.*`` names so dashboards line up: device memory
+        in use (``torch.cuda.memory_allocated``; 0 on the CPU), the last
+        statistics time, sheds, bridge evictions, spills, and on paged
+        storage the pool's occupancy."""
+        device = self.device
+
+        def hbm_bytes() -> float:
+            if device.type != "cuda":
+                return 0.0
+            return float(torch.cuda.memory_allocated(device))
+
+        gauges = {
+            "tpu.HbmBytesInUse": hbm_bytes,
+            "tpu.LastAggregationUs": lambda: self._last_aggregation_us,
+            "tpu.BridgeEvictions": lambda: float(self.bridge_evictions),
+            "tpu.RegistryShedSamples":
+                lambda: float(self._registry_shed_samples),
+            "tpu.SpilledSamples": lambda: float(self._spilled_samples),
+        }
+        if self.paged is not None:
+            st = self.paged
+            gauges.update({
+                "tpu.PagedOccupiedPages": lambda: float(st.allocated_pages),
+                "tpu.PagedHbmBytes": lambda: float(st.hbm_bytes()),
+                "tpu.PagedSpilledCells": lambda: float(st.spilled_cells),
+                "paging.PoolSaturation": lambda: float(st.pool_saturation()),
+                "paging.AllocatedPages": lambda: float(st.allocated_pages),
+            })
+        for name, fn in gauges.items():
+            ms.register_gauge_func(name, fn)
 
     # -- state ---------------------------------------------------------- #
 

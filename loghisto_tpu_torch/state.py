@@ -24,6 +24,13 @@ reads off a JAX ``TPUAggregator(storage="paged").paged``:
 
 After the load, the port's ``collect()`` equals the JAX aggregator's
 ``collect()`` from the same state.
+
+``wheel_state_from_jax`` reads a JAX ``loghisto_tpu.window.TimeWheel``
+(duck-typed: its rings through ``np.asarray``, its tier metadata,
+counters, pinned windows and registry names) into the state dict that
+``TimeWheel.load_state_dict`` reads and ``TimeWheel.state_dict``
+writes.  The loaded wheel then answers every query as the JAX wheel
+does, and keeps doing so as both take the same intervals.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.parallel.aggregator import STATE_FORMAT
+from loghisto_tpu_torch.window.store import WHEEL_STATE_FORMAT
 
 
 def state_from_jax(
@@ -126,4 +134,35 @@ def paged_state_from_jax(
         "names": names,
         "agg": {int(mid): [e[0], e[1]] for mid, e in lifetime.items()},
         "spill": None,
+    }
+
+
+def wheel_state_from_jax(jax_wheel) -> dict:
+    """Build a ``TimeWheel`` state dict from a JAX ``TimeWheel``: per
+    tier the ring (int32 [S, M, B]), ``slot``, ``in_slot``, ``written``,
+    ``durations`` and ``rates``; the wheel's ``intervals_pushed``,
+    ``samples_retained``, ``shed_samples``, pinned windows, last interval
+    time and registry names."""
+    tiers = jax_wheel._tiers
+    return {
+        "format": WHEEL_STATE_FORMAT,
+        "bucket_limit": jax_wheel.config.bucket_limit,
+        "precision": jax_wheel.config.precision,
+        "interval": float(jax_wheel.interval),
+        "num_metrics": int(jax_wheel.num_metrics),
+        "tiers": [(int(t.spec.slots), int(t.spec.res)) for t in tiers],
+        "rings": [np.array(t.ring, dtype=np.int32, copy=True) for t in tiers],
+        "slot": [int(t.slot) for t in tiers],
+        "in_slot": [int(t.in_slot) for t in tiers],
+        "written": [np.array(t.written, dtype=bool, copy=True)
+                    for t in tiers],
+        "durations": [np.array(t.durations, dtype=np.float64, copy=True)
+                      for t in tiers],
+        "rates": [[dict(r) for r in t.rates] for t in tiers],
+        "intervals_pushed": int(jax_wheel.intervals_pushed),
+        "samples_retained": int(jax_wheel.samples_retained),
+        "shed_samples": int(jax_wheel.shed_samples),
+        "pinned": [float(w) for w in jax_wheel.pinned_windows()],
+        "names": list(jax_wheel.registry.names()),
+        "last_time": jax_wheel._last_time,
     }

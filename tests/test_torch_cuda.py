@@ -1,7 +1,8 @@
 """The Hopper kernels on the card, at small shapes, against their plain
 PyTorch versions on the same CUDA tensors (int32 outputs EQUAL): K1, K2,
-K3, and the paged pair K4 (triple scatter) and K4f (direct-to-paged
-fused ingest), plus one paged interval through ``TorchAggregator``.
+K3, the paged pair K4 (triple scatter) and K4f (direct-to-paged fused
+ingest), and K5 (the retention wheel's masked ring merge), plus one paged
+interval through ``TorchAggregator`` and a wheel on the card.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -170,3 +171,88 @@ def test_paged_aggregator_interval_on_the_card(dev):
     agg.close()
     assert m["a_count"] == float((ids == 0).sum())
     assert agg.paged.fused_dispatches >= 4
+
+
+# -- K5: the masked ring merge of the retention wheel -----------------------
+
+
+@pytest.mark.parametrize("shape", [(7, 64, 129), (5, 999, 129), (3, 1, 3)])
+@pytest.mark.parametrize("kind", ["all", "empty", "single", "wrapped",
+                                  "random"])
+def test_window_merge_kernel_equals_plain(dev, shape, kind):
+    from loghisto_tpu_torch.ops.window import (
+        window_merge,
+        window_merge_kernel,
+    )
+
+    s = shape[0]
+    rng = np.random.default_rng(11)
+    ring = torch.from_numpy(
+        rng.integers(-(1 << 20), 1 << 20, shape).astype(np.int32)).to(dev)
+    mask = {
+        "all": np.ones(s, bool), "empty": np.zeros(s, bool),
+        "single": np.eye(s, dtype=bool)[s // 2],
+        "wrapped": np.isin(np.arange(s), [s - 1, 0, 1]),
+        "random": rng.random(s) < 0.5,
+    }[kind]
+    before = kernel_launches()["window_merge"]
+    got = window_merge_kernel(ring, mask)
+    want = window_merge(ring, mask)
+    torch.cuda.synchronize()
+    assert kernel_launches()["window_merge"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_window_merge_kernel_wraps_int32(dev):
+    from loghisto_tpu_torch.ops.window import window_merge_kernel
+
+    ring = torch.zeros((3, 4, 129), dtype=torch.int32, device=dev)
+    ring[:2, 0, 5] = (1 << 30) + 5
+    ring[:, 1, 7] = 2**31 - 1
+    got = window_merge_kernel(ring, np.ones(3, bool)).cpu().numpy()
+    assert got[0, 5] == -(1 << 31) + 10
+    assert got[1, 7] == np.int32(np.int64(3 * (2**31 - 1)) % 2**32 - 2**32)
+
+
+def test_window_merge_kernel_refuses_what_it_cannot_take(dev):
+    from loghisto_tpu_torch.ops.window import (
+        MAX_WINDOW_SLOTS,
+        window_merge_kernel,
+    )
+
+    ring = torch.zeros((MAX_WINDOW_SLOTS + 1, 1, 3), dtype=torch.int32,
+                       device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        window_merge_kernel(ring, np.ones(MAX_WINDOW_SLOTS + 1, bool))
+    with pytest.raises(ValueError, match="host array"):
+        window_merge_kernel(ring[:2], torch.ones(2, dtype=torch.bool,
+                                                 device=dev))
+
+
+def test_wheel_on_the_card_serves_snapshots_through_k5(dev):
+    import datetime as dt
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    wheel = TimeWheel(num_metrics=8, config=MetricConfig(bucket_limit=64),
+                      tiers=((4, 1), (3, 2)))
+    wheel.pin_window(2.0)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    before = kernel_launches()
+    for i in range(7):
+        wheel.push(RawMetricSet(t0, {}, {"req": 3}, {
+            "a": {1: 2 + i, 40: 1}, "b": {-3: 5, 70: i}}, {}, 1.0))
+    after = kernel_launches()
+    # per push: one K3 per tier, one K5 per tier and view
+    assert after["sparse_ingest"] - before["sparse_ingest"] == 7 * 2
+    assert after["window_merge"] - before["window_merge"] == 7 * 2 * 2
+    for window in (2.0, None):
+        served = wheel.query("*", window)
+        oracle = wheel._query_recompute("*", served.window_s, (0.5, 0.9, 0.99,
+                                                               0.999),
+                                        served.tier)
+        assert served.metrics == oracle.metrics
+    assert wheel.query("a", 2.0).metrics["a"]["count"] == (2 + 5 + 1) + (
+        2 + 6 + 1)

@@ -1,7 +1,8 @@
 """The port stands alone: ``loghisto_tpu_torch`` imports neither ``jax``
-nor any module of ``loghisto_tpu``, runs a dense and a paged interval on
-the CPU without either in ``sys.modules``, and never falls back to the
-CPU on its own."""
+nor any module of ``loghisto_tpu``, runs a dense and a paged interval, a
+wheel push and query and a ``TorchMetricSystem`` interval on the CPU
+without either in ``sys.modules``, and never falls back to the CPU on its
+own."""
 
 import ast
 import subprocess
@@ -56,6 +57,27 @@ def test_interval_runs_without_jax_in_sys_modules():
         "    m = agg.collect().metrics\n"
         "    agg.close()\n"
         "    assert agg.storage == 'paged' and m['x_count'] == 100.0, m\n"
+        "from loghisto_tpu_torch import TimeWheel, TorchMetricSystem\n"
+        "from loghisto_tpu_torch.config import MetricConfig\n"
+        "from loghisto_tpu_torch.metrics import RawMetricSet\n"
+        "import datetime as dt\n"
+        "w = TimeWheel(num_metrics=4, config=MetricConfig(bucket_limit=64),"
+        " tiers=((3, 1), (2, 2)), device='cpu')\n"
+        "t = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)\n"
+        "for i in range(4):\n"
+        "    w.push(RawMetricSet(t, {}, {'req': 5}, {'x': {3: 2, 9: 1}}, {},"
+        " 1.0))\n"
+        "assert w.query('x', 2.0).metrics['x']['count'] == 6.0\n"
+        "assert w.window_rate('req', 3.0) == 5.0\n"
+        "ms = TorchMetricSystem(interval=1.0, num_metrics=4, device='cpu',"
+        " config=MetricConfig(bucket_limit=64), retention=((3, 1),))\n"
+        "ms.histogram('y', 0.5)\n"
+        "raw = ms.collect_raw_metrics()\n"
+        "ms.retention.push(raw)\n"
+        "ms.aggregator.merge_raw(raw)\n"
+        "assert ms.device_metrics().metrics['y_count'] == 1.0\n"
+        "assert ms.query_window('y', 1.0).metrics['y']['count'] == 1.0\n"
+        "ms.stop()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -74,9 +96,12 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.ops.row_ingest import make_row_ingest
     from loghisto_tpu_torch.paging import PagedStore
     from loghisto_tpu_torch.ops.sparse_ingest import make_sparse_ingest_fn
+    from loghisto_tpu_torch import TimeWheel, TorchMetricSystem
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 
     factories = [
+        lambda: TimeWheel(num_metrics=4),
+        lambda: TorchMetricSystem(num_metrics=4, retention=True),
         lambda: TorchAggregator(num_metrics=2),
         lambda: make_fused_ingest_fn(64),
         lambda: make_row_ingest(129, 64),
