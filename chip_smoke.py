@@ -82,6 +82,17 @@ RET_TIERS = ((60, 1), (60, 60), (24, 3600))
 RET_BACKFILL = 75
 RET_SAMPLES = 1 << 20
 
+# lifecycle and drift: the reference's churn workload
+# (benchmarks/cardinality_churn.py:6-13, :108-117) on the retention
+# system above, with 24 hourly baseline banks (anomaly/config.py:27-30)
+LD_STEADY = 512
+LD_FRESH = 96
+LD_LIVE = 5
+LD_BACKFILL = 75
+LD_SHIFT_AT = 40
+LD_COMPACT_EVERY = 8
+LD_BANKS = 24
+
 RESULTS: dict = {}
 _ONE_SECOND = _dt.timedelta(seconds=1)
 
@@ -724,6 +735,19 @@ class _Timers:
         return out
 
 
+def synced(torch, split, key, fn):
+    """``fn`` timed on the host clock between two device
+    synchronisations; each call's ms is appended to ``split[key]``."""
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        split[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
 def _h2d_ms(torch, nbytes, pinned):
     """Measured time of one host->device copy of nbytes."""
     host = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=pinned)
@@ -1126,8 +1150,8 @@ def _check_window(res, names, want):
 
 def phase_retention(torch):
     """The retention path through TorchMetricSystem(interval=1.0,
-    num_metrics=1024, retention=True) at the reference's defaults
-    (DEFAULT_TIERS, bucket_limit 4096, commit -> fanout): >= 4 live
+    num_metrics=1024, retention=True, commit="fanout") at the reference's
+    defaults (DEFAULT_TIERS, bucket_limit 4096): >= 4 live
     intervals at the system's own 1 s interval (histogram_batch and
     counter through the reaper and both bridges), then 75 seeded
     intervals of 2^20 samples through backfill_retention and
@@ -1146,7 +1170,8 @@ def phase_retention(torch):
     rng = np.random.default_rng(SEED + 30)
     mu = rng.uniform(2.0, 8.0, RET_M)
     sigma = rng.uniform(0.3, 1.5, RET_M)
-    ms = TorchMetricSystem(interval=1.0, num_metrics=RET_M, retention=True)
+    ms = TorchMetricSystem(interval=1.0, num_metrics=RET_M, retention=True,
+                           commit="fanout")
     wheel = ms.retention
     assert ms.commit_path == "fanout"
     assert [tuple(t) for t in wheel.tiers] == [tuple(t) for t in RET_TIERS]
@@ -1159,21 +1184,11 @@ def phase_retention(torch):
     ms.subscribe_to_raw_metrics(capture)
 
     split = collections.defaultdict(list)
-
-    def synced(key, fn):
-        def wrapped(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            split[key].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return wrapped
-
-    wheel._cells_from_raw = synced("cells_ms", wheel._cells_from_raw)
-    wheel._tier_push_locked = synced("scatter_clear_ms",
+    wheel._cells_from_raw = synced(torch, split, "cells_ms",
+                                   wheel._cells_from_raw)
+    wheel._tier_push_locked = synced(torch, split, "scatter_clear_ms",
                                      wheel._tier_push_locked)
-    wheel._refresh_snapshot_locked = synced("snapshot_ms",
+    wheel._refresh_snapshot_locked = synced(torch, split, "snapshot_ms",
                                             wheel._refresh_snapshot_locked)
 
     reset_kernel_launches()
@@ -1332,6 +1347,624 @@ def phase_retention(torch):
     return out
 
 
+# -- lifecycle and drift (K6, K7) --------------------------------------------
+
+
+def _holey_perm(rng, m):
+    """A shuffle of m rows with ~40% holes: -1, DROP_ID and out-of-range
+    entries mixed."""
+    from loghisto_tpu_torch.ops.commit import DROP_ID
+
+    perm = rng.permutation(m).astype(np.int64)
+    holes = rng.random(m) < 0.4
+    perm[holes] = rng.choice(np.array([-1, int(DROP_ID), m, m + 12345]),
+                             int(holes.sum()))
+    return perm.astype(np.int32)
+
+
+def phase_k6(torch):
+    """K6 against its plain version (torch.equal) on the accumulator
+    [1024, 8193], the tier-0 ring [60, 1024, 8193], a float32 bank
+    [24, 1024, 8193] and an odd [7, 999, 8193] ring, each through a
+    permutation with ~40% holes."""
+    from loghisto_tpu_torch.ops.lifecycle import (
+        compact_rows,
+        compact_rows_kernel,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    shapes = {
+        "acc": (RET_M, B), "tier0_ring": (RET_TIERS[0][0], RET_M, B),
+        "bank_f32": (LD_BANKS, RET_M, B), "odd_ring": (7, 999, B),
+    }
+    equal, timings, holes = {}, {}, {}
+    for name, shape in shapes.items():
+        if name == "bank_f32":
+            arr = torch.rand(shape, device=dev, generator=gen)
+        else:
+            arr = torch.randint(-(1 << 20), 1 << 20, shape, dtype=torch.int32,
+                                device=dev, generator=gen)
+        m = shape[-2]
+        perm = _holey_perm(rng, m)
+        holes[name] = float(1.0 - ((perm >= 0) & (perm < m)).mean())
+        got = compact_rows_kernel(arr, perm)
+        want = compact_rows(arr, perm)
+        torch.cuda.synchronize()
+        equal[name] = bool(torch.equal(got, want))
+        if not equal[name]:
+            raise AssertionError(
+                f"K6 differs from its plain version on {name}: "
+                f"{int((got != want).sum())} elements")
+        del got, want
+        if name in ("acc", "tier0_ring"):
+            perm_d = torch.from_numpy(perm).to(dev)
+            axis = arr.ndim - 2
+            live = int(((perm >= 0) & (perm < m)).sum())
+            slots = 1 if arr.ndim == 2 else shape[0]
+            padded = torch.cat([arr, torch.zeros_like(arr.narrow(axis, 0, 1))],
+                               dim=axis)
+            idx = torch.where((perm_d >= 0) & (perm_d < m), perm_d,
+                              m).long()
+            b_ms, b_by = bound_ms((m + live) * slots * B * 4 + m * 4)
+            timings[name] = {
+                "ms": time_ms(torch, lambda: compact_rows_kernel(arr, perm_d)),
+                "plain_ms": time_ms(torch, lambda: compact_rows(arr, perm_d),
+                                    reps=5, warmup=1),
+                "library_ms": time_ms(torch, lambda: padded.index_select(
+                    axis, idx)),
+                "bound_ms": b_ms, "bound_by": b_by, "live_rows": live,
+            }
+            del padded
+        del arr
+        torch.cuda.empty_cache()
+    t = timings["tier0_ring"]
+    RESULTS["compact_rows"] = {
+        "max_abs_err": 0,
+        **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}}
+    return {"shapes": {k: list(v) for k, v in shapes.items()},
+            "hole_share": holes, "equal": equal, "max_abs_err": 0,
+            "timings": timings,
+            "library_call": "x.index_select(row_axis, idx) on a copy with a "
+                            "zero row appended for the holes"}
+
+
+# K7's tolerance against its plain version (tests/test_torch_anomaly.py
+# states the reason of each): ks atol, jsd atol, emd rtol + B * 2^-23
+K7_TOL = {"ks": (0.0, 2e-6), "jsd": (0.0, 1e-5), "emd": (1e-4, B * 2.0**-23)}
+# the float64 oracle: float32 scores of 8193-bucket rows
+K7_ORACLE_TOL = {"ks": (0.0, 1e-5), "jsd": (0.0, 2e-5), "emd": (1e-4, 1e-2)}
+
+
+def _drift_inputs(torch, m, gen, min_samples):
+    """Seeded drift inputs on the card: each live row a Gaussian bump in
+    bucket space with Poisson counts, each baseline a shifted bump as a
+    pmf times its weight (bank 1 of 2); edge rows 0..3: count 0, weight
+    0, a one-hot live pmf, identical live and baseline shapes."""
+    dev = torch.device("cuda")
+    cols = torch.arange(B, device=dev, dtype=torch.float32)
+
+    def bumps(center, width):
+        g = torch.exp(-0.5 * ((cols - center[:, None]) / width[:, None]) ** 2)
+        g = torch.where(g < 1e-30, torch.zeros_like(g), g)  # no subnormals
+        return g / g.sum(dim=1, keepdim=True)
+
+    center = BL + 200 + torch.rand(m, device=dev, generator=gen) * 2500
+    width = 10 + torch.rand(m, device=dev, generator=gen) * 200
+    size = 50 + torch.rand(m, device=dev, generator=gen) * 2e5
+    bins = torch.poisson(bumps(center, width) * size[:, None],
+                         generator=gen).to(torch.int32)
+    base = bumps(center + torch.randn(m, device=dev, generator=gen) * 40,
+                 width * (0.8 + 0.4 * torch.rand(m, device=dev,
+                                                 generator=gen)))
+    w = 0.1 + 0.9 * torch.rand(m, device=dev, generator=gen)
+    bins[0] = 0
+    bins[2] = 0
+    bins[2, BL + 900] = 5000
+    bins[3] = torch.poisson(base[3] * 1e5, generator=gen).to(torch.int32)
+    base[3] = bins[3].float() / bins[3].sum()
+    w[1], w[3] = 0.0, 1.0
+    prof = torch.zeros((2, m, B), device=dev)
+    wsum = torch.zeros((2, m), device=dev)
+    prof[1] = base * w[:, None]
+    wsum[1] = w
+    cdf = torch.cumsum(bins, dim=1, dtype=torch.int32)
+    counts = cdf[:, -1].contiguous()
+    assert int(counts[4:].min()) >= min_samples
+    return cdf, counts, prof, wsum
+
+
+def _oracle_divergence(cdf, counts, prof, w, min_samples):
+    """KS / JSD / EMD in float64 NumPy, from the same inputs."""
+    tot = np.maximum(counts, 1).astype(np.float64)[:, None]
+    live_cdf = cdf / tot
+    bins = np.diff(cdf.astype(np.int64), axis=1, prepend=0)
+    live_pmf = bins / tot
+    base_pmf = prof.astype(np.float64) / np.maximum(
+        w.astype(np.float64), 1e-30)[:, None]
+    diff = np.abs(live_cdf - np.cumsum(base_pmf, axis=1))
+    mid = 0.5 * (live_pmf + base_pmf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kl = [np.where(p > 0, p * np.log2(p / mid), 0.0).sum(axis=1)
+              for p in (live_pmf, base_pmf)]
+    valid = (counts >= min_samples) & (w > 0)
+    out = {"ks": diff.max(axis=1), "jsd": 0.5 * (kl[0] + kl[1]),
+           "emd": diff.sum(axis=1)}
+    return {k: np.where(valid, v, 0.0) for k, v in out.items()}
+
+
+def _close(got, want, tol):
+    """Max error of each score and whether all lie within tol."""
+    out, ok = {}, True
+    for key, (rtol, atol) in tol.items():
+        g, w = np.asarray(got[key], np.float64), np.asarray(want[key],
+                                                            np.float64)
+        err = np.abs(g - w)
+        out[key] = float(err.max())
+        ok &= bool((err <= atol + rtol * np.abs(w)).all())
+    return out, ok
+
+
+def phase_k7(torch):
+    """K7 against its plain version within K7_TOL at 1024 x 8193 and
+    1000 x 8193 (edge rows: count 0, weight 0, one-hot pmf, identical
+    shapes; masked rows exactly 0), and 64 rows against a float64 NumPy
+    oracle."""
+    from loghisto_tpu_torch.ops.anomaly import (
+        divergence_kernel,
+        divergence_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    min_samples = 64
+    out, ok, timings = {}, True, {}
+    for m in (RET_M, 1000):
+        cdf, counts, prof, wsum = _drift_inputs(torch, m, gen, min_samples)
+        args = (cdf, counts, prof[1], wsum[1], min_samples)
+        got = divergence_kernel(*args)
+        want = divergence_plain(*args)
+        torch.cuda.synchronize()
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        errs, close = _close(got, want, K7_TOL)
+        masked_zero = all(got[k][i] == 0.0 and want[k][i] == 0.0
+                          for k in got for i in (0, 1))
+        out[str(m)] = {"max_err": errs, "within_tol": close,
+                       "masked_rows_zero": masked_zero,
+                       "identical_row_ks": float(got["ks"][3]),
+                       "one_hot_row": {k: float(got[k][2]) for k in got}}
+        ok &= close and masked_zero and got["ks"][3] < 1e-5
+        if m == RET_M:
+            rows = 64
+            oracle = _oracle_divergence(
+                cdf[:rows].cpu().numpy(), counts[:rows].cpu().numpy(),
+                prof[1, :rows].cpu().numpy(), wsum[1, :rows].cpu().numpy(),
+                min_samples)
+            oerr, oclose = _close({k: v[:rows] for k, v in got.items()},
+                                  oracle, K7_ORACLE_TOL)
+            out["oracle_64_rows"] = {"max_err": oerr, "within_tol": oclose}
+            ok &= oclose
+            unmasked = int(((counts >= min_samples) & (wsum[1] > 0)).sum())
+            b_ms, b_by = bound_ms(unmasked * B * 8 + m * 20)
+            timings = {
+                "ms": time_ms(torch, lambda: divergence_kernel(*args)),
+                "plain_ms": time_ms(torch, lambda: divergence_plain(*args)),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            }
+            RESULTS["divergence"] = {"max_abs_err": max(errs.values()),
+                                     **timings}
+        del cdf, counts, prof, wsum
+    if not ok:
+        raise AssertionError(f"K7 outside its tolerance: {out}")
+    return {"B": B, "tolerance": K7_TOL, "oracle_tolerance": K7_ORACLE_TOL,
+            "checks": out, **timings,
+            "library_call": "none: no single PyTorch call computes the "
+                            "three scores"}
+
+
+def _ld_interval(rng, names, mu, sigma, weight, bimodal, t, seq, n):
+    """One seeded interval of the churn workload: n lognormal samples
+    over ``names`` (ids drawn with ``weight``), 40% of the samples of
+    ``bimodal`` ids at 8x; returned as a RawMetricSet of compress_np
+    buckets and as per-name totals."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    ids = rng.choice(len(names), n, p=weight / weight.sum())
+    values = rng.lognormal(mu[ids], sigma[ids])
+    if len(bimodal):
+        hit = np.isin(ids, bimodal) & (rng.random(n) < 0.4)
+        values[hit] *= 8.0
+    keys = ids.astype(np.int64) * 65536 + compress_np(values).astype(
+        np.int64) + 32768
+    uniq, counts = np.unique(keys, return_counts=True)
+    rows = uniq >> 16
+    buckets = (uniq & 0xFFFF) - 32768
+    bounds = np.searchsorted(rows, np.arange(len(names) + 1))
+    hists = {}
+    for i, name in enumerate(names):
+        lo, hi = bounds[i], bounds[i + 1]
+        if hi > lo:
+            hists[name] = dict(zip(buckets[lo:hi].tolist(),
+                                   counts[lo:hi].tolist()))
+    return RawMetricSet(time=t, counters={}, rates={}, histograms=hists,
+                        gauges={}, duration=1.0, seq=seq)
+
+
+def _dense_hist(hist):
+    """A sparse bucket dict as a dense int64 [B] row (clipped)."""
+    row = np.zeros(B, np.int64)
+    if hist:
+        b = np.fromiter(hist.keys(), np.int64, len(hist))
+        np.add.at(row, np.clip(b, -BL, BL) + BL,
+                  np.fromiter(hist.values(), np.int64, len(hist)))
+    return row
+
+
+def _snapshot_rows(torch, ms, ids):
+    """Every carry's rows at ``ids`` (device copies)."""
+    idx = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    an, lc = ms.anomaly, ms.lifecycle
+    return {
+        "acc": ms.aggregator._acc.index_select(0, idx),
+        "rings": [t.ring.index_select(1, idx) for t in ms.retention._tiers],
+        "prof": an._prof.index_select(1, idx),
+        "wsum": an._wsum.index_select(1, idx),
+        "ihist": an._ihist.index_select(0, idx),
+        "la": lc._la.index_select(0, idx),
+    }
+
+
+def _compact_checked(torch, ms):
+    """One compaction, with every survivor's rows (accumulator, rings,
+    banks, interval histogram, activity) equal by name across it and
+    the freed rows zero.  Returns (rows moved, live rows)."""
+    reg = ms.aggregator.registry
+    if ms.aggregator.num_metrics != ms.retention.num_metrics:
+        raise AssertionError("the row space grew past the wheel's rows")
+    live = [(m, n) for m, n in enumerate(reg.names()) if n is not None]
+    before = _snapshot_rows(torch, ms, [m for m, _ in live])
+    moved = sum(1 for new, (old, _) in enumerate(live) if new != old)
+    if not ms.lifecycle.compact():
+        raise AssertionError("compaction did not run")
+    new_ids = [reg.lookup(n) for _, n in live]
+    if new_ids != list(range(len(live))):
+        raise AssertionError("survivors are not the dense prefix")
+    after = _snapshot_rows(torch, ms, new_ids)
+    for key in ("acc", "prof", "wsum", "ihist", "la"):
+        if not torch.equal(before[key], after[key]):
+            raise AssertionError(f"compaction changed survivors' {key} rows")
+    for a, b in zip(before["rings"], after["rings"]):
+        if not torch.equal(a, b):
+            raise AssertionError("compaction changed survivors' ring rows")
+    n = len(live)
+    agg, an = ms.aggregator, ms.anomaly
+    freed_zero = (not agg._acc[n:].any() and not an._prof[:, n:].any()
+                  and not an._wsum[:, n:].any() and not an._ihist[n:].any()
+                  and all(not t.ring[:, n:].any()
+                          for t in ms.retention._tiers))
+    if not freed_zero:
+        raise AssertionError("freed rows are not zero after compaction")
+    return moved, n
+
+
+def phase_lifecycle_drift(torch):
+    """The fused commit with lifecycle and drift scoring:
+    TorchMetricSystem(interval=1.0, num_metrics=1024, retention=True,
+    lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+    auto_compact_fragmentation=0.0), anomaly=AnomalyConfig(banks=24,
+    bank_of=hourly_bank, decay=0.97, min_samples=64, window=6.0)) under
+    the reference's churn workload (benchmarks/cardinality_churn.py):
+    512 steady svc.<k>.latency names and 96 fresh api.u<uid>.lat names
+    per interval, 2^20 lognormal samples per backfilled interval.  From
+    interval 40, 8 steady names turn bimodal (40% of samples at 8x) and
+    8 others take 4x the samples in the same shape.  5 live intervals
+    through the reaper and the committer, then 75 through
+    backfill_retention (the last 4 bring no fresh names, so the final
+    snapshot survives the last lifecycle tick); compaction every 8
+    intervals."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.anomaly import AnomalyConfig, hourly_bank
+    from loghisto_tpu_torch.channel import Channel
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.ops import anomaly as an_mod
+    from loghisto_tpu_torch.ops import lifecycle as lc_mod
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.ops.commit import COMMIT_CHUNK
+    from loghisto_tpu_torch.window import DistributionDriftRule
+
+    rng = np.random.default_rng(SEED + 40)
+    steady = [f"svc.{k}.latency" for k in range(LD_STEADY)]
+    mu_s = rng.uniform(2.0, 6.0, LD_STEADY)
+    sigma_s = rng.uniform(0.3, 1.0, LD_STEADY)
+    shift_ids = np.arange(100, 108)
+    surge_ids = np.arange(200, 208)
+    # the watched names get a typical service-latency spread
+    sigma_s[shift_ids] = sigma_s[surge_ids] = 0.4
+    ewma_ids = np.arange(64)
+    decay = np.float32(0.97)
+    min_samples = 64
+    ms = TorchMetricSystem(
+        interval=1.0, num_metrics=RET_M, retention=True,
+        lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        anomaly=AnomalyConfig(banks=LD_BANKS, bank_of=hourly_bank,
+                              decay=float(decay), min_samples=min_samples,
+                              window=6.0))
+    agg, wheel, com, lc, an = (ms.aggregator, ms.retention, ms.committer,
+                               ms.lifecycle, ms.anomaly)
+    if ms.commit_path != "fused":
+        raise AssertionError(f"commit path {ms.commit_path}")
+    for name in steady:
+        ms.metric_id(name)
+    wheel.pin_window(60.0)
+    rules = {
+        "bimodal": ms.add_rule(DistributionDriftRule(
+            "drift_bimodal", steady[shift_ids[0]], stat="jsd",
+            threshold=0.05, for_intervals=2)),
+        "surge": ms.add_rule(DistributionDriftRule(
+            "drift_surge", steady[surge_ids[0]], stat="jsd",
+            threshold=0.05, for_intervals=2)),
+    }
+    capture = Channel(256)
+    ms.subscribe_to_raw_metrics(capture)
+
+    # timers around the functions the path calls (each runs unchanged)
+    split = collections.defaultdict(list)
+    timers = _Timers(torch)
+    com._cells_from_raw = synced(torch, split, "cells_ms",
+                                 com._cells_from_raw)
+    com._fused_dispatch_locked = synced(torch, split, "device_ms",
+                                        com._fused_dispatch_locked)
+    lc.evict_ids = synced(torch, split, "evict_ms", lc.evict_ids)
+    lc.compact = synced(torch, split, "compact_ms", lc.compact)
+    an.score_now = synced(torch, split, "score_ms", an.score_now)
+    saved = (lc_mod.compact_rows_kernel, an_mod.compact_rows_kernel,
+             an_mod.divergence_kernel)
+    lc_mod.compact_rows_kernel = timers.dev_wrap("k6", saved[0])
+    an_mod.compact_rows_kernel = timers.dev_wrap("k6", saved[1])
+    an_mod.divergence_kernel = timers.dev_wrap("k7", saved[2])
+
+    # host oracle state
+    samples = collections.Counter()   # name -> samples committed
+    steady_cells = collections.deque(maxlen=60)  # per interval [512, B]
+    ewma = {}                         # bank -> (prof [64, B], w [64]) f64
+    gain = float(np.float32(1.0) - decay)
+
+    def account(raw):
+        for name, h in raw.histograms.items():
+            samples[name] += int(sum(h.values()))
+        dense = np.zeros((LD_STEADY, B), np.int32)
+        for i, name in enumerate(steady):
+            h = raw.histograms.get(name)
+            if h:
+                dense[i] = _dense_hist(h)
+        steady_cells.append(dense)
+        bank = raw.time.hour % LD_BANKS
+        prof, w = ewma.setdefault(bank, (np.zeros((len(ewma_ids), B)),
+                                         np.zeros(len(ewma_ids))))
+        rows = dense[ewma_ids]
+        cnt = rows.sum(axis=1)
+        upd = cnt >= min_samples
+        pmf = rows / np.maximum(cnt, 1)[:, None]
+        prof[upd] = float(decay) * prof[upd] + gain * pmf[upd]
+        w[upd] = float(decay) * w[upd] + gain
+
+    reset_kernel_launches()
+    rows_checked = {"num_metrics": []}
+    # -- live: the reaper at 1 s, the committer's bridge ----------------------
+    t_live = time.perf_counter()
+    ms.start()
+    deadline = time.monotonic() + 30.0
+    c = 0
+    try:
+        while com.intervals_committed < LD_LIVE or \
+                time.perf_counter() - t_live < 5.0:
+            if time.monotonic() > deadline:
+                raise AssertionError("live intervals did not arrive")
+            for i, name in enumerate(steady):
+                ms.histogram_batch(name, rng.lognormal(mu_s[i], sigma_s[i],
+                                                       16))
+            for _ in range(max(1, LD_FRESH // 6)):  # ~LD_FRESH a second
+                ms.histogram_batch(f"api.live{c}.lat",
+                                   rng.lognormal(3.0, 0.5, 16))
+                c += 1
+            time.sleep(0.2)
+    finally:
+        ms.stop()
+    live = []
+    while len(capture):
+        live.append(capture.get(block=False))
+    if len(live) != com.intervals_committed:
+        raise AssertionError(f"captured {len(live)} intervals, the committer "
+                             f"took {com.intervals_committed}")
+    for raw in live:
+        account(raw)
+    live_s = time.perf_counter() - t_live
+    n_live = len(live)
+
+    # -- backfill: the churn workload --------------------------------------------
+    hour = (live[-1].time + _dt.timedelta(hours=1)).replace(
+        minute=0, second=0, microsecond=0)
+    fired_at, early, surge_fired, dispatch_ok = None, [], False, True
+    jsd_seen = {key: [] for key in rules}  # each rule's value per interval
+    commit_ms, per_interval = [], []
+    compactions = []
+    uid = 0
+    for k in range(LD_BACKFILL):
+        g = n_live + k  # global interval index
+        fresh = [] if k >= LD_BACKFILL - 4 else [
+            f"api.u{uid + j}.lat" for j in range(LD_FRESH)]
+        uid += len(fresh)
+        names = steady + fresh
+        mu = np.concatenate([mu_s, rng.uniform(2.0, 6.0, len(fresh))])
+        sigma = np.concatenate([sigma_s, rng.uniform(0.3, 1.0, len(fresh))])
+        weight = np.ones(len(names))
+        bimodal = np.zeros(0, np.int64)
+        if g >= LD_SHIFT_AT:
+            weight[surge_ids] = 4.0
+            bimodal = shift_ids
+        raw = _ld_interval(rng, names, mu, sigma, weight, bimodal,
+                           hour + k * _ONE_SECOND, live[-1].seq + k + 1,
+                           RET_SAMPLES)
+        cells = sum(len(h) for h in raw.histograms.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms.backfill_retention([raw])
+        torch.cuda.synchronize()
+        commit_ms.append((time.perf_counter() - t0) * 1e3)
+        account(raw)
+        dispatch_ok &= com.last_dispatches == -(-cells // COMMIT_CHUNK)
+        rows_checked["num_metrics"].append(agg.num_metrics)
+        active = ms.rule_engine.active()
+        for key, rule in rules.items():
+            jsd_seen[key].append(rule.last_value)
+        if "drift_bimodal" in active:
+            if g < LD_SHIFT_AT:
+                early.append(g)
+            elif fired_at is None:
+                fired_at = g
+        surge_fired |= "drift_surge" in active
+        per_interval.append({"cells": cells, "live_rows":
+                             agg.registry.live_count(),
+                             "evicted_total": lc.evicted_series})
+        if (g + 1) % LD_COMPACT_EVERY == 0:
+            compactions.append(_compact_checked(torch, ms))
+    torch.cuda.synchronize()
+    lc_mod.compact_rows_kernel, an_mod.compact_rows_kernel, \
+        an_mod.divergence_kernel = saved
+    launches = kernel_launches()
+    committed = n_live + LD_BACKFILL
+
+    # -- checks ----------------------------------------------------------------
+    reg = agg.registry
+    if com.fused_intervals != committed or com.fanout_intervals:
+        raise AssertionError(f"fused {com.fused_intervals}, fanout "
+                             f"{com.fanout_intervals} of {committed}")
+    if not dispatch_ok:
+        raise AssertionError("last_dispatches != ceil(cells / COMMIT_CHUNK)")
+    if set(rows_checked["num_metrics"]) != {RET_M}:
+        raise AssertionError("the row space grew")
+    acc_rows = agg._acc.sum(dim=1, dtype=torch.int64).cpu().numpy()
+    if int(acc_rows.sum()) != sum(samples.values()):
+        raise AssertionError("accumulator total != samples committed")
+    names_now = reg.names()
+    evicted = [n for n in samples if reg.lookup(n) is None]
+    for m_id, name in enumerate(names_now):
+        if name is not None and not name.startswith("_overflow.") and \
+                int(acc_rows[m_id]) != samples[name]:
+            raise AssertionError(f"{name}: row total != samples committed")
+    overflow = {n: int(acc_rows[m]) for m, n in enumerate(names_now)
+                if n is not None and n.startswith("_overflow.")}
+    api_evicted = sum(samples[n] for n in evicted if n.startswith("api."))
+    if overflow.get("_overflow.api") != api_evicted:
+        raise AssertionError("_overflow.api != the evicted api samples")
+    if sum(overflow.values()) != lc.overflowed_samples:
+        raise AssertionError("overflow rows != lifecycle.overflowed_samples")
+    # windows over the steady names against the oracle; snapshot serve ==
+    # recompute; evicted names absent
+    windows = {}
+    for w in (6.0, 60.0):
+        hist = np.sum(list(steady_cells)[-int(w):], axis=0, dtype=np.int64)
+        want, ties = _oracle_stats(hist)
+        res = ms.query_window("svc.*", w, percentiles=list(PS))
+        rows = _check_window(res, steady, want)
+        full = ms.query_window("*", w, percentiles=list(PS))
+        oracle = wheel._query_recompute("*", full.window_s, tuple(PS),
+                                        full.tier)
+        if full.metrics != oracle.metrics:
+            raise AssertionError(f"window {w}: snapshot serve != recompute")
+        if set(full.metrics) & set(evicted):
+            raise AssertionError(f"window {w} serves evicted names")
+        windows[str(w)] = {"rows_checked": rows, "rank_ties": ties,
+                           "served_rows": len(full.metrics)}
+    # EWMA banks of 64 steady rows against the float64 host EWMA
+    ids = [reg.lookup(steady[i]) for i in ewma_ids]
+    ewma_err = 0.0
+    for bank, (prof, w) in ewma.items():
+        got_p = an._prof[bank, ids].double().cpu().numpy()
+        got_w = an._wsum[bank, ids].double().cpu().numpy()
+        np.testing.assert_allclose(got_p, prof, rtol=1e-5, atol=1e-9)
+        np.testing.assert_allclose(got_w, w, rtol=1e-5, atol=1e-9)
+        ewma_err = max(ewma_err, float(np.abs(got_p - prof).max()))
+    if fired_at is None or fired_at >= LD_SHIFT_AT + 8:
+        raise AssertionError(f"the bimodal drift rule fired at {fired_at}")
+    if surge_fired:
+        raise AssertionError("the rate-surge drift rule fired")
+    if an.scored_intervals != committed:
+        raise AssertionError(f"scored {an.scored_intervals} of {committed}")
+    for kernel in ("sparse_ingest", "window_merge", "compact_rows",
+                   "divergence"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched on the "
+                                 "lifecycle/drift path")
+    if com.bridge_error or agg.bridge_error or wheel.bridge_error:
+        raise AssertionError("a bridge error was kept")
+    for kernel in ("compact_rows", "divergence"):
+        RESULTS.setdefault(kernel, {})["launches"] = launches[kernel]
+
+    bf = LD_BACKFILL
+    k6_ms = [a.elapsed_time(b) for a, b in timers.events["k6"]]
+    k7_ms = [a.elapsed_time(b) for a, b in timers.events["k7"]]
+    out = {
+        "num_metrics": RET_M, "tiers": [list(t) for t in RET_TIERS],
+        "commit_path": ms.commit_path, "live_intervals": n_live,
+        "live_wall_s": live_s, "backfill_intervals": bf,
+        "samples_per_interval": RET_SAMPLES, "intervals_committed": committed,
+        "fused_intervals": com.fused_intervals,
+        "fanout_intervals": com.fanout_intervals,
+        "cells_per_interval": float(np.mean([p["cells"]
+                                             for p in per_interval])),
+        "live_rows_max": max(p["live_rows"] for p in per_interval),
+        "evicted_series": lc.evicted_series, "evictions": lc.evictions,
+        "overflowed_samples": lc.overflowed_samples, "overflow_rows": overflow,
+        "compactions": [{"moved_rows": a, "live_rows": b}
+                        for a, b in compactions],
+        "windows": windows, "ewma_max_abs_err": ewma_err,
+        "ewma_banks_checked": sorted(ewma), "drift_fired_at": fired_at,
+        "drift_firing_before_shift": early,
+        "shift_at": LD_SHIFT_AT,
+        "rule_jsd_from_shift": {k: v[LD_SHIFT_AT - n_live:]
+                                for k, v in jsd_seen.items()},
+        "rule_jsd_max_before_shift": {
+            k: max((x or 0.0) for x in v[:LD_SHIFT_AT - n_live])
+            for k, v in jsd_seen.items()},
+        "scored_intervals": an.scored_intervals,
+        "ms_per_interval": {
+            "commit_total": float(np.mean(commit_ms[-bf:])),
+            "host_cells": float(np.mean(split["cells_ms"][-bf:])),
+            "device_commit": float(np.mean(split["device_ms"][-bf:])),
+            "scoring": float(np.mean(split["score_ms"][-bf:])),
+            "k7_in_scoring": float(np.mean(k7_ms[-bf:])),
+            "eviction": float(np.sum(split["evict_ms"])) / committed,
+            "eviction_per_batch": float(np.mean(split["evict_ms"])),
+        },
+        "compaction_ms": split["compact_ms"],
+        "k6_ms_per_compaction": float(np.sum(k6_ms)) / max(1, len(
+            split["compact_ms"])),
+        "k6_launches_per_compaction": len(k6_ms) / max(1, len(
+            split["compact_ms"])),
+        "launches": launches,
+        "launches_per_interval": {k: v / committed
+                                  for k, v in launches.items() if v},
+        "hbm_bytes": {"rings": wheel.hbm_bytes(),
+                      "banks": an._prof.numel() * 4 + an._wsum.numel() * 4,
+                      "acc": agg._acc.numel() * 4,
+                      "ihist": an._ihist.numel() * 4,
+                      "max_allocated": torch.cuda.max_memory_allocated()},
+    }
+    del ms, agg, wheel, com, lc, an
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNEL_META = {
     "fused_ingest": ("loghisto_tpu_torch/csrc/fused_ingest.cu",
                      "loghisto_tpu/ops/fused_ingest.py:169", None),
@@ -1346,6 +1979,10 @@ KERNEL_META = {
                            "loghisto_tpu/ops/fused_ingest.py:301", None),
     "window_merge": ("loghisto_tpu_torch/csrc/window_merge.cu",
                      "loghisto_tpu/ops/window.py:62", None),
+    "compact_rows": ("loghisto_tpu_torch/csrc/compact_rows.cu",
+                     "loghisto_tpu/ops/lifecycle.py:166", None),
+    "divergence": ("loghisto_tpu_torch/csrc/divergence.cu",
+                   "loghisto_tpu/ops/anomaly.py:141", None),
 }
 
 
@@ -1393,7 +2030,11 @@ def main() -> int:
                         ("k5_window_merge", phase_k5),
                         ("main_path", phase_main),
                         ("paged_main_path", phase_paged_main),
-                        ("retention_main_path", phase_retention)):
+                        ("retention_main_path", phase_retention),
+                        ("k6_compact_rows", phase_k6),
+                        ("k7_divergence", phase_k7),
+                        ("lifecycle_drift_main_path",
+                         phase_lifecycle_drift)):
         t0 = time.perf_counter()
         try:
             out = phase(torch)

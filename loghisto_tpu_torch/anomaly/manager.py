@@ -1,0 +1,293 @@
+"""AnomalyManager: owns the EWMA baseline banks, runs one scoring pass
+per interval and serves drift scores to rules and exporters
+(counterpart of ``loghisto_tpu/anomaly/manager.py``).
+
+Like the LifecycleManager it rides the IntervalCommitter's bridge
+thread.  The committer threads the carries — the interval histogram
+``ihist`` and the banks ``(prof, wsum)`` — through its commit steps
+(``ensure_capacity_locked`` / ``store_carry_locked``, under the
+aggregator's ``_dev_lock``), then calls ``on_interval`` with no lock
+held BEFORE the wheel's hooks, so drift rules see the interval that
+just landed.  Scoring reads the published snapshot (immutable) and the
+banks and runs K7 once (``ops.anomaly.divergence_scores``).
+
+Scores are keyed on the registry's generation: ``scores_for(name)``
+returns None when the generation moved since the scores were computed
+(eviction, slot reuse, compaction), so a dead or reused id never serves
+another series' score.  The LifecycleManager calls
+``on_evicted_locked`` / ``apply_permutation_locked`` inside its device
+critical sections: bank rows are zeroed with their victims and follow
+their survivors.
+
+A scoring failure is not caught here: it leaves the committer's
+``commit`` and lands in ``bridge_error`` (ROADMAP D6).
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import threading
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from loghisto_tpu_torch.anomaly.config import AnomalyConfig
+from loghisto_tpu_torch.ops.anomaly import (
+    SCORE_KEYS,
+    make_bank_compact_fn,
+    make_bank_evict_fn,
+    make_divergence_fn,
+    resolve_divergence_path,
+)
+
+
+class AnomalyManager:
+    """Drift-engine runtime for a dense (TorchAggregator, TimeWheel)
+    pair.  ``TorchMetricSystem(anomaly=AnomalyConfig(...))`` builds one;
+    standalone construction serves tests."""
+
+    def __init__(self, aggregator, wheel, config: AnomalyConfig,
+                 metric_system=None):
+        if wheel is None:
+            raise ValueError(
+                "the drift engine needs a retention wheel: baselines "
+                "ride the fused interval commit and scoring consumes "
+                "the commit-time snapshot CDFs"
+            )
+        if not wheel.snapshots_enabled:
+            raise ValueError(
+                "the drift engine needs commit-time snapshots "
+                "(TimeWheel snapshots=True): scoring consumes the "
+                "published window CDF views"
+            )
+        if config.tier >= len(wheel._tiers):
+            raise ValueError(
+                f"anomaly tier {config.tier} out of range "
+                f"({len(wheel._tiers)} tiers)"
+            )
+        self.aggregator = aggregator
+        self.wheel = wheel
+        self.config = config
+        self.metric_system = metric_system
+        self.divergence_path = resolve_divergence_path(config.divergence_path)
+        self._div = make_divergence_fn(self.divergence_path)
+        self._evict = make_bank_evict_fn()
+        self._compact = make_bank_compact_fn()
+        if config.window is not None:
+            # materialize the scoring window as a snapshot view
+            wheel.pin_window(config.window)
+
+        # carries on the aggregator's device, guarded by _dev_lock
+        self._prof: Optional[torch.Tensor] = None   # f32 [K, M, B]
+        self._wsum: Optional[torch.Tensor] = None   # f32 [K, M]
+        self._ihist: Optional[torch.Tensor] = None  # int32 [M, B]
+
+        # latest host scores and the registry generation they belong to
+        self._scores_lock = threading.Lock()
+        self._scores: Optional[Dict[str, np.ndarray]] = None
+        self._scores_gen = -1
+
+        self._intervals_seen = 0
+        self.scored_intervals = 0
+        self.skipped_intervals = 0  # no snapshot / no baselines yet
+
+        # per-metric gauges anomaly.<name>.{ks,jsd,emd}, registered lazily
+        self._export_key = None  # (generation, registry high-water)
+        self._exported: set = set()
+
+    # -- host scalars of the commit's final step ------------------------- #
+
+    @property
+    def decay32(self) -> np.float32:
+        return np.float32(self.config.decay)
+
+    @property
+    def min_count32(self) -> np.int32:
+        return np.int32(self.config.min_samples)
+
+    def bank_for(self, t) -> int:
+        """Active bank for an interval timestamp (datetime or None),
+        taken mod ``banks``."""
+        cfg = self.config
+        if cfg.bank_of is None or t is None:
+            return 0
+        return int(cfg.bank_of(t)) % cfg.banks
+
+    # -- carry protocol (callers hold aggregator._dev_lock) -------------- #
+
+    def ensure_capacity_locked(self, m: int):
+        """The drift carries grown to ``m`` rows (new rows start cold:
+        zero profile, zero weight).  Returns ``(ihist, (prof, wsum))``."""
+        k = self.config.banks
+        b = self.wheel.config.num_buckets
+        dev = self.aggregator.device
+        if self._ihist is None:
+            self._ihist = torch.zeros((m, b), dtype=torch.int32, device=dev)
+        elif self._ihist.shape[0] < m:
+            self._ihist = torch.cat([self._ihist, torch.zeros(
+                (m - self._ihist.shape[0], b), dtype=torch.int32,
+                device=dev)])
+        if self._prof is None:
+            self._prof = torch.zeros((k, m, b), dtype=torch.float32,
+                                     device=dev)
+            self._wsum = torch.zeros((k, m), dtype=torch.float32, device=dev)
+        elif self._prof.shape[1] < m:
+            gap = m - self._prof.shape[1]
+            self._prof = torch.cat([self._prof, torch.zeros(
+                (k, gap, b), dtype=torch.float32, device=dev)], dim=1)
+            self._wsum = torch.cat([self._wsum, torch.zeros(
+                (k, gap), dtype=torch.float32, device=dev)], dim=1)
+        return self._ihist, (self._prof, self._wsum)
+
+    def store_carry_locked(self, ihist, banks) -> None:
+        self._ihist = ihist
+        self._prof, self._wsum = banks
+
+    # -- lifecycle integration (both device locks held) ------------------ #
+
+    def on_evicted_locked(self, victim_ids: np.ndarray) -> None:
+        """Zero the victims' bank rows (every bank) and interval
+        histogram rows; ``victim_ids`` may carry DROP_ID pads."""
+        if self._prof is None:
+            return
+        self._prof, self._wsum, self._ihist = self._evict(
+            self._prof, self._wsum, self._ihist, victim_ids)
+
+    def apply_permutation_locked(self, perm: np.ndarray) -> None:
+        """Repack the bank carries with the lifecycle's survivor
+        permutation (``perm[new] = old``)."""
+        if self._prof is None:
+            return
+        self._prof, self._wsum, self._ihist = self._compact(
+            self._prof, self._wsum, self._ihist, perm)
+
+    # -- scoring ---------------------------------------------------------- #
+
+    def on_interval(self, raw) -> None:
+        """After each committed interval (committer thread, no lock
+        held), before the wheel's hooks."""
+        self._intervals_seen += 1
+        if self._intervals_seen % self.config.check_every:
+            return
+        self.score_now(raw.time)
+
+    def _view(self, snap):
+        ts = snap.tiers[self.config.tier]
+        view = None
+        if self.config.window is not None:
+            view = ts.view_for(self.config.window)
+        # the full covered span is always views[0]
+        return view if view is not None else ts.views[0]
+
+    def score_now(self, now=None) -> Optional[Dict[str, np.ndarray]]:
+        """One scoring pass (K7 on the card): live view CDF against the
+        active bank.  Returns the host score arrays, or None when there
+        is nothing to score yet."""
+        snap = self.wheel.snapshot  # atomic read of an immutable handle
+        if snap is None:
+            self.skipped_intervals += 1
+            return None
+        with self.aggregator._dev_lock:
+            if self._prof is None:
+                self.skipped_intervals += 1
+                return None
+            prof, wsum = self._prof, self._wsum
+            gen = self.aggregator.registry.generation
+            view = self._view(snap)
+            scores = self._div(view.cdf, view.counts, prof, wsum,
+                               self.bank_for(now), self.config.min_samples)
+        host = {k: v.cpu().numpy() for k, v in scores.items()}
+        with self._scores_lock:
+            self._scores = host
+            self._scores_gen = gen
+            self.scored_intervals += 1
+        self._refresh_export()
+        return host
+
+    def scores_for(self, name: str) -> Optional[Dict[str, float]]:
+        """Latest drift scores of a metric, or None when it has no
+        scored row or the registry's generation moved since."""
+        reg = self.aggregator.registry
+        with self._scores_lock:
+            scores, gen = self._scores, self._scores_gen
+        if scores is None or reg.generation != gen:
+            return None
+        mid = reg.lookup(name)
+        if mid is None or mid >= len(scores["ks"]):
+            return None
+        return {k: float(scores[k][mid]) for k in SCORE_KEYS}
+
+    # -- state ------------------------------------------------------------ #
+
+    def state_dict(self) -> dict:
+        """Host bank state.  The interval histogram is in-flight state
+        and is not kept."""
+        k = self.config.banks
+        b = self.wheel.config.num_buckets
+        with self.aggregator._dev_lock:
+            prof = (self._prof.cpu().numpy().copy() if self._prof is not None
+                    else np.zeros((k, 0, b), dtype=np.float32))
+            wsum = (self._wsum.cpu().numpy().copy() if self._wsum is not None
+                    else np.zeros((k, 0), dtype=np.float32))
+        return {"prof": prof, "wsum": wsum,
+                "scored_intervals": self.scored_intervals}
+
+    def load_state(self, state: dict) -> None:
+        prof = np.asarray(state["prof"], dtype=np.float32)
+        wsum = np.asarray(state["wsum"], dtype=np.float32)
+        if prof.shape[0] != self.config.banks:
+            raise ValueError(
+                f"state has {prof.shape[0]} banks, config has "
+                f"{self.config.banks}"
+            )
+        dev = self.aggregator.device
+        with self.aggregator._dev_lock:
+            if prof.shape[1]:
+                self._prof = torch.from_numpy(prof.copy()).to(dev)
+                self._wsum = torch.from_numpy(wsum.copy()).to(dev)
+        self.scored_intervals = int(state.get("scored_intervals", 0))
+
+    # -- gauges ------------------------------------------------------------ #
+
+    def _gauge(self, name: str, key: str) -> Callable[[], float]:
+        def value() -> float:
+            s = self.scores_for(name)
+            return s[key] if s is not None else 0.0
+        return value
+
+    def _refresh_export(self) -> None:
+        """Register ``anomaly.<metric>.{ks,jsd,emd}`` gauges for names
+        matching ``export_glob`` (at most ``max_export``), rescanning
+        only when the registry's (generation, high-water) moved."""
+        ms = self.metric_system
+        cfg = self.config
+        if ms is None or cfg.export_glob is None:
+            return
+        reg = self.aggregator.registry
+        key = (reg.generation, len(reg))
+        if key == self._export_key:
+            return
+        self._export_key = key
+        for name in reg.names():
+            if name is None or name in self._exported:
+                continue
+            if len(self._exported) >= cfg.max_export:
+                break
+            if not fnmatch.fnmatch(name, cfg.export_glob):
+                continue
+            self._exported.add(name)
+            for k in SCORE_KEYS:
+                ms.register_gauge_func(f"anomaly.{name}.{k}",
+                                       self._gauge(name, k))
+
+    def register_gauges(self, ms) -> None:
+        """Export the ``anomaly.*`` self-metric family."""
+        gauges = {
+            "anomaly.ScoredIntervals": lambda: float(self.scored_intervals),
+            "anomaly.SkippedIntervals": lambda: float(self.skipped_intervals),
+            "anomaly.ExportedMetrics": lambda: float(len(self._exported)),
+            "anomaly.Banks": lambda: float(self.config.banks),
+        }
+        for name, fn in gauges.items():
+            ms.register_gauge_func(name, fn)

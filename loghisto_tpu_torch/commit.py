@@ -1,0 +1,497 @@
+"""IntervalCommitter: one subscription that lands every interval on the
+aggregator and on every retention tier (counterpart of
+``loghisto_tpu/commit.py``, for a dense single-device pair).
+
+The fan-out path resolves an interval's names twice and uploads its
+cells twice (the aggregator's bridge, ``merge_raw``, and the wheel's,
+``push``).  The committer replaces both bridges:
+
+  1. the interval's sparse histograms become ``(id, codec bucket,
+     count)`` cells ONCE, through the aggregator's registry policy (the
+     wheel shares the registry);
+  2. each chunk of at most ``chunk`` cells goes through the depth-2
+     pinned staging ring (``ops.commit.CellStagingRing``);
+  3. one commit step per chunk (``ops.commit.make_fused_commit_fn``)
+     adds it to the accumulator, to every tier's open slot and, with a
+     ``LifecycleManager`` / ``AnomalyManager``, stamps the activity
+     vector and folds the interval histogram; the last step builds the
+     snapshot payloads and updates the EWMA baseline bank
+     (``make_fused_commit_snapshot_fn``).
+
+``last_dispatches`` counts commit steps, ``ceil(cells / chunk)`` for a
+fused interval, as the reference counts its program calls; the kernel
+launches behind them are counted by ``ops.backend.kernel_launches()``.
+
+Overflow contract: an interval whose total would cross the aggregator's
+``spill_threshold``, or a cell of weight >= 2^30, takes the aggregator's
+exact host spill (``_merge_cells_locked``) and the wheel's own push.
+
+Lock order: the aggregator's ``_dev_lock``, then the wheel's lock.
+
+Failure (decision D6 in ROADMAP): a failed commit step is not recovered
+as the reference recovers donated buffers.  The exception leaves
+``commit``; on the bridge thread it is logged and kept as
+``bridge_error`` (also on the aggregator and the wheel), so the next
+query, ``device_metrics()`` and ``stop()`` re-raise it.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from loghisto_tpu_torch.channel import ChannelClosed, ResilientSubscription
+from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER, LatencyHistogram
+from loghisto_tpu_torch.ops.commit import (
+    COMMIT_CHUNK,
+    CellStagingRing,
+    make_fused_commit_fn,
+    make_fused_commit_snapshot_fn,
+)
+from loghisto_tpu_torch.ops.dispatch import PAGED_FUSED_COMMIT_SLICE
+from loghisto_tpu_torch.window.snapshot import AccSnapshot
+from loghisto_tpu_torch.window.store import trailing_mask
+
+logger = logging.getLogger("loghisto_tpu_torch")
+
+
+def commit_incompatibility(aggregator, wheel) -> Optional[str]:
+    """Why this (aggregator, wheel) pair cannot share one fused commit,
+    or None when it can: one cell array feeds both, so they must agree
+    on row ids (one registry), bucket geometry and device."""
+    if aggregator.registry is not wheel.registry:
+        return "aggregator and wheel use different registries"
+    if aggregator.config.bucket_limit != wheel.config.bucket_limit:
+        return (
+            f"bucket_limit mismatch (aggregator "
+            f"{aggregator.config.bucket_limit}, wheel "
+            f"{wheel.config.bucket_limit})"
+        )
+    if aggregator.config.precision != wheel.config.precision:
+        return (
+            f"precision mismatch (aggregator {aggregator.config.precision},"
+            f" wheel {wheel.config.precision})"
+        )
+    if aggregator.device != wheel.device:
+        return (
+            f"aggregator on {aggregator.device}, wheel on {wheel.device}"
+        )
+    return None
+
+
+class IntervalCommitter:
+    """One-subscription interval commit for a dense (TorchAggregator,
+    TimeWheel) pair.  ``chunk`` is the commit step's width in cells
+    (tests shrink it to force multi-step intervals); ``staging_depth``
+    sizes the upload ring."""
+
+    def __init__(
+        self,
+        aggregator,
+        wheel,
+        chunk: int = COMMIT_CHUNK,
+        staging_depth: int = 2,
+        lifecycle=None,
+        anomaly=None,
+    ):
+        reason = commit_incompatibility(aggregator, wheel)
+        if reason is not None:
+            raise ValueError(f"fused commit unavailable: {reason}")
+        if getattr(aggregator, "paged", None) is not None:
+            raise ValueError(
+                f"fused commit unavailable: {PAGED_FUSED_COMMIT_SLICE}")
+        if anomaly is not None and not wheel.snapshots_enabled:
+            raise ValueError(
+                "drift engine requires commit-time snapshots: the EWMA "
+                "bank update rides the final commit step and scoring "
+                "consumes the published window CDFs"
+            )
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1")
+        self.aggregator = aggregator
+        self.wheel = wheel
+        self.chunk = int(chunk)
+        self.lifecycle = lifecycle
+        self.anomaly = anomaly
+        tiers_n = len(wheel._tiers)
+        bl, prec = wheel.config.bucket_limit, wheel.config.precision
+        track, track_b = lifecycle is not None, anomaly is not None
+        self._fused = make_fused_commit_fn(tiers_n, bl, track, track_b)
+        self._fused_snap = make_fused_commit_snapshot_fn(
+            tiers_n, bl, prec, track_activity=track, track_baseline=track_b,
+        )
+        self._staging = CellStagingRing(depth=staging_depth,
+                                        width=self.chunk,
+                                        device=aggregator.device)
+
+        self._metrics_lock = threading.Lock()
+        self.intervals_committed = 0
+        self.fused_intervals = 0
+        self.fanout_intervals = 0  # spill fan-outs
+        self.last_dispatches = 0
+        self.last_h2d_bytes = 0
+        self.last_uploads = 0
+        self._latency_hist = LatencyHistogram(prec)
+        self.obs_recorder = NULL_RECORDER
+
+        self._ms: Optional[MetricSystem] = None
+        self._sub: Optional[ResilientSubscription] = None
+        self._thread: Optional[threading.Thread] = None
+        self.bridge_error: Optional[BaseException] = None
+
+    # -- cell construction ---------------------------------------------- #
+
+    def _cells_from_raw(self, raw: RawMetricSet):
+        """Sparse interval histograms -> (ids int32, codec bucket int64,
+        weight int64), resolved once through the aggregator's registry
+        policy (growth up to max_metrics, shed past it).  Shed samples
+        are mirrored into the wheel's shed counter."""
+        agg = self.aggregator
+        ids, bidx, weights = [], [], []
+        shed = 0
+        for name, bucket_counts in raw.histograms.items():
+            n = len(bucket_counts)
+            counts = np.fromiter(bucket_counts.values(), np.int64, n)
+            total = int(counts.sum())
+            mid = agg._id_for(name, samples=total)
+            if mid < 0:
+                shed += total
+                continue
+            if not n:
+                continue
+            ids.append(np.full(n, mid, dtype=np.int32))
+            bidx.append(np.fromiter(bucket_counts.keys(), np.int64, n))
+            weights.append(counts)
+        if shed:
+            with self.wheel._lock:
+                self.wheel.shed_samples += shed
+        if not ids:
+            return None
+        return np.concatenate(ids), np.concatenate(bidx), \
+            np.concatenate(weights)
+
+    def _dense_cells(self, cells):
+        """(ids, codec bucket, int64 weight) -> the wheel's dense int32
+        triplet (the same conversion as ``TimeWheel._cells_from_raw``:
+        buckets clip to the dense range, weights to int32)."""
+        ids, bidx64, w64 = cells
+        bl = self.wheel.config.bucket_limit
+        idx = (np.clip(bidx64, -bl, bl) + bl).astype(np.int32)
+        w32 = np.minimum(w64, np.int64(2**31 - 1)).astype(np.int32)
+        return ids, idx, w32
+
+    # -- the commit ----------------------------------------------------- #
+
+    def commit(self, raw: RawMetricSet, duration: Optional[float] = None):
+        """Land one interval on the aggregator AND every retention tier,
+        then score drift, run the wheel's hooks and the lifecycle tick.
+        Returns the path taken ("fused", "fanout" or "empty")."""
+        rec = self.obs_recorder
+        seq = rec.begin_interval(raw.seq)
+        t0 = time.perf_counter()
+        wheel = self.wheel
+        dur = (
+            float(duration) if duration is not None
+            else float(raw.duration) if raw.duration is not None
+            else wheel.interval
+        )
+        up0 = self._staging.uploads
+        b0 = self._staging.bytes_uploaded
+        with rec.span("commit.cells", seq):
+            cells = self._cells_from_raw(raw)
+        if cells is None:
+            # slot rotation and durations still advance
+            wheel.push_cells(None, raw, dur)
+            mode, dispatches = "empty", 0
+        else:
+            mode, dispatches = self._commit_cells(cells, raw, dur)
+        if self.anomaly is not None:
+            # score the snapshot just published BEFORE the hooks, so
+            # drift rules evaluate this interval's scores
+            self.anomaly.on_interval(raw)
+        wheel.run_hooks(raw)
+        if self.lifecycle is not None:
+            # the policy tick runs outside every lock, on this thread:
+            # no interval's cells are in flight while rows move
+            self.lifecycle.on_interval()
+        us = (time.perf_counter() - t0) * 1e6
+        with self._metrics_lock:
+            self.intervals_committed += 1
+            if mode == "fused":
+                self.fused_intervals += 1
+            elif mode == "fanout":
+                self.fanout_intervals += 1
+            self.last_dispatches = dispatches
+            self.last_uploads = self._staging.uploads - up0
+            self.last_h2d_bytes = self._staging.bytes_uploaded - b0
+        self._latency_hist.add(us)
+        if self._ms is not None:
+            # the commit latency rides the normal pipeline, like any
+            # other metric
+            self._ms.histogram("commit.LatencyUs", us)
+        return mode
+
+    def _commit_cells(self, cells, raw: RawMetricSet, dur: float):
+        """Commit one interval's cells.  Returns (mode, dispatches)."""
+        agg, wheel = self.aggregator, self.wheel
+        ids, bidx64, w64 = cells
+        total = int(w64.sum(dtype=np.int64))
+        with agg._dev_lock:
+            if (
+                agg._interval_ingested + total >= agg.spill_threshold
+                or int(w64.max()) >= 1 << 30
+            ):
+                # past the int32 envelope: the aggregator takes its exact
+                # host spill, the tiers their own push below
+                agg._merge_cells_locked(ids, bidx64, w64)
+                agg.stats_snapshot = None
+                if self.lifecycle is not None:
+                    self.lifecycle.touch_locked(ids)
+                dispatches = None
+            else:
+                with wheel._lock:
+                    dispatches = self._fused_dispatch_locked(cells, raw, dur)
+        if dispatches is not None:
+            return "fused", dispatches
+        wheel.push_cells(self._dense_cells(cells), raw, dur)
+        # the reference's estimate: per chunk, one scatter for the
+        # aggregator plus one per tier
+        nchunks = -(-len(ids) // self.chunk)
+        return "fanout", nchunks * (1 + len(wheel._tiers))
+
+    def _post_close_masks(self, t, slot: int, dur: float, windows):
+        """Snapshot view masks of one tier as they will read AFTER this
+        interval's close-out, computed before the commit steps run:
+        ``_tier_close_locked``'s metadata fold simulated on copies, then
+        the same ``trailing_mask`` walk as a query."""
+        written = t.written.copy()
+        durations = t.durations.copy()
+        written[slot] = True
+        durations[slot] += dur
+        in_slot = t.in_slot + 1
+        cur = slot
+        if in_slot >= t.spec.res:
+            cur = (slot + 1) % t.spec.slots
+            in_slot = 0
+        return np.stack([
+            trailing_mask(written, durations, cur, in_slot,
+                          t.spec.slots, w)
+            for w in windows
+        ])
+
+    def _fused_dispatch_locked(self, cells, raw: RawMetricSet,
+                               dur: float) -> int:
+        """The fused path (caller holds agg._dev_lock, then
+        wheel._lock): stage each chunk, run one commit step on it — the
+        first with the ring-wrap keep factors, the last the snapshot
+        variant — then close the tiers and publish the snapshots.
+        Returns the number of commit steps."""
+        agg, wheel = self.aggregator, self.wheel
+        ids, idx, w32 = self._dense_cells(cells)
+        buckets = idx - np.int32(wheel.config.bucket_limit)
+        w64 = cells[2]
+        tiers = wheel._tiers
+        slots = [t.slot for t in tiers]
+        keeps = [
+            0 if wheel._tier_open_locked(t, s) else 1
+            for t, s in zip(tiers, slots)
+        ]
+        ones = [1] * len(tiers)
+        wheel._note_interval_locked(raw.time, (ids, idx, w32))
+        lc, an = self.lifecycle, self.anomaly
+        if lc is not None:
+            la = lc.ensure_capacity_locked(agg.num_metrics)
+            epoch = wheel.intervals_pushed
+        if an is not None:
+            ihist, banks = an.ensure_capacity_locked(agg.num_metrics)
+            bank = an.bank_for(raw.time)
+        emit = wheel.snapshots_enabled
+        if emit:
+            windows = wheel._view_windows_locked()
+            masks = tuple(
+                self._post_close_masks(t, s, dur, windows)
+                for t, s in zip(tiers, slots)
+            )
+        n = len(ids)
+        dispatches = 0
+        payloads = acc_payload = None
+        for off in range(0, n, self.chunk):
+            take = min(self.chunk, n - off)
+            with self.obs_recorder.span("commit.upload"):
+                packed = self._staging.stage(
+                    ids[off:off + take], buckets[off:off + take],
+                    w32[off:off + take],
+                )
+            final = emit and off + take >= n
+            # operand order of make_fused_commit_fn / _snapshot_fn:
+            # carries, then the cells, then the host scalars
+            args = [agg._acc, [t.ring for t in tiers]]
+            if lc is not None:
+                args.append(la)
+            if an is not None:
+                args.append(ihist)
+                if final:
+                    args.append(banks)
+            args += [slots, keeps if dispatches == 0 else ones, packed]
+            if lc is not None:
+                args.append(epoch)
+            if final:
+                args.append(masks)
+            if an is not None:
+                args.append(0 if dispatches == 0 else 1)
+                if final:
+                    args += [bank, an.decay32, an.min_count32]
+            with self.obs_recorder.span("commit.dispatch"):
+                out = iter(
+                    (self._fused_snap if final else self._fused)(*args))
+            agg._acc = next(out)
+            for t, r in zip(tiers, next(out)):
+                t.ring = r
+            if lc is not None:
+                la = next(out)
+                lc.store_carry_locked(la)
+            if an is not None:
+                ihist = next(out)
+                if final:
+                    banks = next(out)
+                an.store_carry_locked(ihist, banks)
+            if final:
+                payloads = next(out)
+                acc_payload = next(out)
+            dispatches += 1
+            agg._interval_ingested += int(
+                w64[off:off + take].sum(dtype=np.int64))
+        for t, s in zip(tiers, slots):
+            wheel._tier_close_locked(t, s, raw.rates, dur)
+        if payloads is not None:
+            # tier metadata now matches the post-close state the masks
+            # encoded: publish the handles
+            with self.obs_recorder.span("commit.snapshot_publish"):
+                wheel.publish_snapshot_locked(tuple(
+                    wheel._tier_snapshot_locked(ti, windows, masks[ti],
+                                                payloads[ti])
+                    for ti in range(len(tiers))
+                ))
+                agg.stats_snapshot = AccSnapshot(
+                    epoch=wheel.intervals_pushed,
+                    cdf=acc_payload["cdf"],
+                    counts=acc_payload["counts"],
+                    sums=acc_payload["sums"],
+                )
+        return dispatches
+
+    # -- warmup / attach ------------------------------------------------ #
+
+    def kernel_names(self) -> tuple:
+        """The Hopper kernels this committer's interval launches."""
+        names = ["sparse_ingest", "window_merge"]
+        if self.lifecycle is not None:
+            names.append("compact_rows")
+        if self.anomaly is not None:
+            names.append("divergence")
+        return tuple(names)
+
+    def warmup(self) -> None:
+        """Size the lifecycle and drift carries to the accumulator and,
+        on the card, build every kernel the path launches, so the first
+        interval pays no ``nvcc``."""
+        agg = self.aggregator
+        with agg._dev_lock:
+            if self.lifecycle is not None:
+                self.lifecycle.ensure_capacity_locked(agg.num_metrics)
+            if self.anomaly is not None:
+                self.anomaly.ensure_capacity_locked(agg.num_metrics)
+        if agg.device.type == "cuda":
+            from loghisto_tpu_torch.ops import _build
+
+            _build.build_all(self.kernel_names())
+
+    def attach(self, ms: MetricSystem, channel_capacity: int = 64) -> None:
+        """Subscribe once behind the raw boundary for both consumers
+        (strike-eviction resilient).  The channel holds 64 intervals: an
+        interval shed here loses its samples, so the bridge may fall
+        behind through a stall and catch up.  A failed commit is logged
+        and kept in ``bridge_error`` (the first one), also on the
+        aggregator and the wheel."""
+        if self._thread is not None:
+            raise RuntimeError("already attached")
+        self.warmup()
+        self._ms = ms
+        self._sub = ResilientSubscription(
+            ms.subscribe_to_raw_metrics,
+            ms.unsubscribe_from_raw_metrics,
+            channel_capacity,
+        )
+        sub = self._sub
+
+        def bridge():
+            while True:
+                try:
+                    raw = sub.get()
+                except ChannelClosed:
+                    return
+                try:
+                    self.commit(raw)
+                except Exception as e:
+                    logger.exception(
+                        "fused interval commit failed for %s", raw.time
+                    )
+                    self._keep_error(e)
+
+        self._thread = threading.Thread(
+            target=bridge, daemon=True, name="loghisto-torch-commit"
+        )
+        self._thread.start()
+
+    def _keep_error(self, e: BaseException) -> None:
+        for part in (self, self.aggregator, self.wheel):
+            if part.bridge_error is None:
+                part.bridge_error = e
+
+    def detach(self) -> None:
+        """Unsubscribe, let the bridge commit what its channel already
+        holds, join it, and re-raise (then clear) a bridge failure."""
+        if self._sub is not None:
+            self._sub.close()
+            self._sub = None
+        if self._thread is not None:
+            self._thread.join(timeout=60.0)
+            self._thread = None
+        err, self.bridge_error = self.bridge_error, None
+        if err is not None:
+            for part in (self.aggregator, self.wheel):
+                if part.bridge_error is err:
+                    part.bridge_error = None
+            raise RuntimeError(
+                "the interval committer's bridge failed to commit an "
+                "interval"
+            ) from err
+
+    # -- gauges ---------------------------------------------------------- #
+
+    @property
+    def bridge_evictions(self) -> int:
+        return self._sub.evictions if self._sub is not None else 0
+
+    def register_gauges(self, ms: MetricSystem) -> None:
+        """Export the commit path's self-metrics: steps and H2D bytes per
+        interval, the fused/fan-out split and the commit latency."""
+        gauges = {
+            "commit.DispatchesPerInterval":
+                lambda: float(self.last_dispatches),
+            "commit.H2DBytesPerInterval": lambda: float(self.last_h2d_bytes),
+            "commit.CellUploadsPerInterval":
+                lambda: float(self.last_uploads),
+            "commit.FusedIntervals": lambda: float(self.fused_intervals),
+            "commit.FanoutIntervals": lambda: float(self.fanout_intervals),
+            "commit.LatencyP50Us": lambda: self._latency_hist.percentile(50.0),
+            "commit.LatencyP99Us": lambda: self._latency_hist.percentile(99.0),
+            "commit.BridgeEvictions": lambda: float(self.bridge_evictions),
+        }
+        for name, fn in gauges.items():
+            ms.register_gauge_func(name, fn)

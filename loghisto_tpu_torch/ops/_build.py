@@ -79,6 +79,16 @@ KERNEL_SPECS = {
         # out, ring, slot list (host int32), n, num_slots, M * B
         [_P, _P, _P, _I, _I, _LL],
     ),
+    "compact_rows": (
+        "compact_rows.cu", "lh_compact_rows",
+        # out, in, perm (device int32), n_out, m_src, width, slots
+        [_P, _P, _P, _I, _I, _I, _I],
+    ),
+    "divergence": (
+        "divergence.cu", "lh_divergence",
+        # cdf, counts, prof, w, out [3, M], M, Mb, B, min_samples
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I],
+    ),
 }
 _SHARED_HEADERS = ("codec.cuh",)
 

@@ -1,0 +1,248 @@
+"""The fused interval commit: one pass over an interval's cells for the
+aggregator's accumulator and every retention tier's open slot
+(counterpart of ``loghisto_tpu/ops/commit.py``: ``COMMIT_CHUNK``,
+``DROP_ID``, ``make_fused_commit_fn``, ``make_fused_commit_snapshot_fn``
+and ``CellStagingRing``; the paged and sharded families wait for their
+slices).
+
+The reference jits one donated-carry program per chunk of cells.  The
+port runs the same steps eagerly on PyTorch's current stream and updates
+the carries IN PLACE where the reference donates them:
+
+  * the accumulator, each tier's open slot and the drift engine's
+    interval histogram ``ihist`` take the chunk through K3
+    (``ops/sparse_ingest.sparse_ingest``) from one uploaded int32
+    ``(id, codec bucket, count)`` triple array; a tier gets the
+    contiguous view ``ring[slot]``, whose row count bounds the ids it
+    keeps (K3 drops ids outside ``[0, M)``, the reference's
+    ``mode="drop"``);
+  * the ring-wrap clear is ``ring[slot].mul_(keep)`` with keep 0 (a keep
+    of 1 is the identity and is skipped);
+  * the lifecycle's activity stamp is ``scatter_reduce_(..., "amax")``
+    of the epoch over the chunk's ids, with ids past the vector masked
+    to a neutral value first, so no pad indexes out of range;
+  * the final chunk of an interval also builds the snapshot payloads —
+    per tier ``ops/window.window_snapshot`` (K5 per view), and
+    ``ops/stats.dense_cdf`` of the accumulator — as fresh tensors that no
+    later commit writes, and runs the EWMA bank update
+    (``ops/anomaly.ewma_bank_update``, plain float32 tensor code).
+
+Integer scatter-adds are order-independent, so the fused commit equals
+the fan-out path (``merge_raw`` + ``TimeWheel.push``) bit for bit.
+``loghisto_tpu_torch.commit.IntervalCommitter`` owns locks, spill policy
+and tier metadata.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from loghisto_tpu_torch.config import PRECISION
+from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
+from loghisto_tpu_torch.ops.stats import dense_cdf
+from loghisto_tpu_torch.ops.window import window_snapshot
+
+# Cells per commit step, matching the aggregator bridge's merge chunk:
+# a typical interval is one step, a 10k-metric worst case a handful.
+COMMIT_CHUNK = 1 << 16
+
+# Drop sentinel for pad ids: past every row range, so every scatter
+# drops it (the lifecycle pads its victim lists with it).
+DROP_ID = np.int32(2**30)
+
+_INT32_MIN = -(2**31)
+
+
+def stamp_activity(last_active: torch.Tensor, ids: torch.Tensor,
+                   epoch: int) -> torch.Tensor:
+    """``last_active[ids] = max(last_active[ids], epoch)`` in place; ids
+    outside ``[0, len(last_active))`` change nothing."""
+    valid = (ids >= 0) & (ids < last_active.shape[0])
+    idx = torch.where(valid, ids, torch.zeros_like(ids)).long()
+    src = torch.full(ids.shape, int(epoch), dtype=torch.int32,
+                     device=ids.device)
+    src.masked_fill_(~valid, _INT32_MIN)
+    return last_active.scatter_reduce_(0, idx, src, "amax")
+
+
+def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
+                epoch, ifirst, bucket_limit):
+    """One chunk into every carry (in place)."""
+    sparse_ingest(acc, packed, bucket_limit)
+    for ring, slot, keep in zip(rings, slots, keeps):
+        view = ring[int(slot)]
+        if int(keep) != 1:
+            view.mul_(int(keep))  # ring wrap: clear the slot's old life
+        sparse_ingest(view, packed, bucket_limit)
+    if last_active is not None:
+        stamp_activity(last_active, packed[:, 0], epoch)
+    if ihist is not None:
+        if int(ifirst) == 0:
+            ihist.zero_()  # the interval's first chunk: x ifirst = 0
+        sparse_ingest(ihist, packed, bucket_limit)
+
+
+def make_fused_commit_fn(
+    num_tiers: int,
+    bucket_limit: int,
+    track_activity: bool = False,
+    track_baseline: bool = False,
+):
+    """The fused commit step for ``num_tiers`` tiers:
+    ``commit(acc, rings, [last_active], [ihist], slots, keeps, packed,
+    [epoch], [ifirst]) -> (acc, rings, [last_active], [ihist])``
+
+      acc          int32 [M, B]             accumulator (in place)
+      rings        sequence of int32 [S_t, M_t, B] tier rings (in place)
+      last_active  int32 [M]                activity epochs (in place)
+      ihist        int32 [M, B]             interval histogram (in place)
+      slots, keeps host ints per tier       open slot; 0 clears it first
+      packed       int32 [n, 3]             (id, codec bucket, count)
+      epoch        host int                 stamped on the touched rows
+      ifirst       host int                 0 on the interval's first
+                                            chunk (clears ihist), else 1
+    """
+
+    def commit(*args):
+        it = iter(args)
+        acc, rings = next(it), tuple(next(it))
+        la = next(it) if track_activity else None
+        ihist = next(it) if track_baseline else None
+        slots, keeps, packed = next(it), next(it), next(it)
+        epoch = next(it) if track_activity else None
+        ifirst = next(it) if track_baseline else None
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
+                    ifirst, bucket_limit)
+        out = [acc, rings]
+        if track_activity:
+            out.append(la)
+        if track_baseline:
+            out.append(ihist)
+        return tuple(out)
+
+    return commit
+
+
+def make_fused_commit_snapshot_fn(
+    num_tiers: int,
+    bucket_limit: int,
+    precision: int = PRECISION,
+    track_activity: bool = False,
+    track_baseline: bool = False,
+):
+    """The final-chunk variant: the same fold, then the snapshot
+    payloads.  ``commit(acc, rings, [last_active], [ihist], [banks],
+    slots, keeps, packed, [epoch], masks, [ifirst, bank, decay,
+    min_count]) -> (acc, rings, [last_active], [ihist], [banks],
+    tier_payloads, acc_payload)``
+
+    ``masks`` holds one host bool ``[V, S_t]`` array per tier (the
+    post-close trailing-window masks); each payload is
+    ``window_snapshot``'s cdf/counts/sums stacked over the V views, and
+    ``acc_payload`` is ``dense_cdf`` of the accumulator.  ``banks`` is
+    ``(prof f32 [K, M, B], wsum f32 [K, M])``, updated in place from the
+    completed ``ihist`` (``ewma_bank_update``)."""
+    if track_baseline:
+        # deferred: ops.anomaly imports ops.lifecycle, which imports this
+        from loghisto_tpu_torch.ops.anomaly import ewma_bank_update
+
+    def commit(*args):
+        it = iter(args)
+        acc, rings = next(it), tuple(next(it))
+        la = next(it) if track_activity else None
+        ihist = next(it) if track_baseline else None
+        banks = next(it) if track_baseline else None
+        slots, keeps, packed = next(it), next(it), next(it)
+        epoch = next(it) if track_activity else None
+        masks = next(it)
+        if track_baseline:
+            ifirst, bank, decay, min_count = (next(it), next(it), next(it),
+                                              next(it))
+        else:
+            ifirst = None
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
+                    ifirst, bucket_limit)
+        payloads = tuple(
+            window_snapshot(ring, masks[t], bucket_limit, precision)
+            for t, ring in enumerate(rings)
+        )
+        out = [acc, rings]
+        if track_activity:
+            out.append(la)
+        if track_baseline:
+            out.append(ihist)
+            out.append(ewma_bank_update(banks, ihist, bank, decay,
+                                        min_count))
+        out.extend((payloads, dense_cdf(acc, bucket_limit, precision)))
+        return tuple(out)
+
+    return commit
+
+
+class CellStagingRing:
+    """Depth-D reusable host staging for the commit's cell triples.
+
+    ``stage()`` writes one chunk into the next slot's int32 ``[width, 3]``
+    host buffer (pinned when the device is a card), issues its copy to
+    the device with ``non_blocking=True`` and records an event behind it.
+    A slot's buffer is rewritten only after its event has completed: at
+    depth 2 the copy of chunk k+1 overlaps the kernels of chunk k, and a
+    rewrite can never race a copy still reading the buffer.  Only the
+    chunk's rows travel (the port compiles no fixed shape, so there is
+    nothing to pad).  ``uploads`` and ``bytes_uploaded`` feed the
+    committer's H2D gauges."""
+
+    def __init__(self, depth: int = 2, width: int = COMMIT_CHUNK,
+                 device=None):
+        if depth < 2:
+            raise ValueError("staging ring depth must be >= 2 (the "
+                             "overlap contract needs one slot of slack)")
+        self.depth = depth
+        self.width = width
+        self.device = torch.device(device or "cpu")
+        pin = self.device.type == "cuda"
+        self._slots = [
+            torch.empty((width, 3), dtype=torch.int32, pin_memory=pin)
+            for _ in range(depth)
+        ]
+        self._events: list = [None] * depth
+        self._next = 0
+        self.uploads = 0          # lifetime stage() calls
+        self.bytes_uploaded = 0   # lifetime host->device bytes
+
+    def stage(self, ids, buckets, weights) -> torch.Tensor:
+        """Copy one chunk (ids, codec buckets, counts; len <= width) into
+        the next host slot and start its upload; returns the device
+        triples ``[n, 3]``."""
+        n = len(ids)
+        if n > self.width:
+            raise ValueError(f"chunk of {n} cells exceeds staging width "
+                             f"{self.width}")
+        i = self._next
+        self._next = (i + 1) % self.depth
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        host = self._slots[i][:n]
+        buf = host.numpy()
+        buf[:, 0] = ids
+        buf[:, 1] = buckets
+        buf[:, 2] = weights
+        if self.device.type == "cuda":
+            dev = host.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._events[i] = event
+        else:
+            # the CPU "upload" is a copy: the slot is rewritten while the
+            # caller may still hold the tensor
+            dev = host.clone()
+        self.uploads += 1
+        self.bytes_uploaded += n * 12
+        return dev
+

@@ -14,8 +14,9 @@ re-resolves (the aggregator swaps K2 for K1).  On ``cpu`` every path is
 served by the wrappers' plain versions — the table still resolves, so
 the CPU runs the same control flow as the card.
 
-``resolve_commit_path`` resolves the interval commit: the fan-out path
-until the fused committer is ported (ROADMAP D3).
+``resolve_commit_path`` resolves the interval commit: the fused
+committer on dense storage, the fan-out on paged storage until the
+paged fused commit is ported (ROADMAP D5).
 
 Each decline reason is a sentence, as in the JAX table.
 """
@@ -288,26 +289,34 @@ def resolve_storage_path(
     return storage, None
 
 
-# -- the interval commit (ROADMAP D3) ----------------------------------- #
+# -- the interval commit (ROADMAP D3, D5) ------------------------------ #
 
-FUSED_COMMIT_SLICE = (
-    "the fused IntervalCommitter (loghisto_tpu/commit.py, ops/commit.py) is "
-    "not ported yet: it comes with ROADMAP Queue 1 slice 7b, and until then "
-    "the port commits each interval through the fan-out path (the "
-    "aggregator's and the wheel's bridges), which the reference's fused "
-    "path equals bit for bit."
+PAGED_FUSED_COMMIT_SLICE = (
+    "the paged fused commit (loghisto_tpu/ops/commit.py "
+    "make_paged_fused_commit_fn) is not ported yet: it comes with the "
+    "paged lifecycle slice (ROADMAP Queue 1), and until then paged "
+    "storage commits each interval through the fan-out path"
 )
 
 
-def resolve_commit_path(path: str) -> str:
-    """Resolve the interval-commit path.  "auto" and "fanout" give
-    "fanout" (decision D3: the reference's "auto" picks the fused
-    committer on a TPU, and the fused and fan-out paths compute the same
-    bits); "fused" raises until the committer is ported."""
-    if path in ("auto", "fanout"):
-        return "fanout"
+def resolve_commit_path(path: str, paged: bool = False) -> str:
+    """Resolve the interval-commit path, "fused" (one
+    ``IntervalCommitter`` for the aggregator and every retention tier)
+    or "fanout" (the aggregator's and the wheel's bridges).  "auto"
+    gives "fused" on dense storage, as the reference's "auto" does, and
+    "fanout" on paged storage (decision D5); an explicit "fused" on
+    paged storage raises naming the slice that ports it.  A system
+    without retention has one consumer and commits through the fan-out
+    whatever this returns (``TorchMetricSystem``)."""
+    if path == "auto":
+        return "fanout" if paged else "fused"
+    if path == "fanout":
+        return path
     if path == "fused":
-        raise ValueError(f"commit='fused' unavailable: {FUSED_COMMIT_SLICE}")
+        if paged:
+            raise ValueError(
+                f"commit='fused' unavailable: {PAGED_FUSED_COMMIT_SLICE}")
+        return path
     raise ValueError(
         f"unknown commit path {path!r}: expected 'auto', 'fused', or 'fanout'"
     )

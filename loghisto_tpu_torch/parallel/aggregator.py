@@ -50,8 +50,13 @@ storage, ``PagedStore.commit`` on paged storage, the exact host spill
 past the int32 guard).  A failed merge is logged and kept as
 ``bridge_error``, which ``collect()`` and ``detach()`` re-raise.
 
-Not in these slices: preagg and native staging, the mesh, lifecycle,
-drift, observability, the fault injector and the supervisor.  A device
+With a fused ``IntervalCommitter`` (``commit.py``) the committer, not
+this bridge, lands each interval: it folds the cells into ``_acc`` and
+publishes ``stats_snapshot``; past the int32 guard it falls back to
+``_merge_cells_locked``.
+
+Not in these slices: preagg and native staging, the mesh,
+observability, the fault injector and the supervisor.  A device
 error in the transfer worker is not
 retried: it is re-raised by the next ``flush``, ``wait_transfers`` or
 ``collect``.  When the transfer queue holds more than
@@ -331,6 +336,10 @@ class TorchAggregator:
         self._interval_ingested = 0
         self._spilled_samples = 0
         self._registry_shed_samples = 0
+        # the fused committer's handle over the live accumulator
+        # (window/snapshot.AccSnapshot); None whenever the accumulator
+        # was reset, grown, spilled or replaced — None means "recompute"
+        self.stats_snapshot = None
 
         self._agg_lock = threading.Lock()
         self._agg: Dict[int, list] = {}
@@ -394,6 +403,7 @@ class TorchAggregator:
             # a host page-table extension: no device data moves
             self.paged.grow(new_m)
             self.num_metrics = new_m
+            self.stats_snapshot = None
             self.registry.grow(new_m)
             return True
         path = self.ingest_path
@@ -409,6 +419,7 @@ class TorchAggregator:
         self._acc = grown
         self.ingest_path, self._ingest = path, _STEPS[path]
         self.num_metrics = new_m
+        self.stats_snapshot = None  # row space changed; handle is stale
         self.registry.grow(new_m)
         if self._spill is not None:
             spill = np.zeros((new_m, self._spill.shape[1]), dtype=np.int64)
@@ -424,6 +435,7 @@ class TorchAggregator:
             self.paged.spill_pool()
             self._spilled_samples += self._interval_ingested
             self._interval_ingested = 0
+            self.stats_snapshot = None
             return
         acc_np = self._acc.cpu().numpy().astype(np.int64)
         if self._spill is None:
@@ -433,6 +445,7 @@ class TorchAggregator:
         self._acc.zero_()
         self._spilled_samples += self._interval_ingested
         self._interval_ingested = 0
+        self.stats_snapshot = None  # acc folded out; handle is stale
 
     def record_batch(self, ids: np.ndarray, values: np.ndarray) -> None:
         """Buffer a batch of (metric_id, value) samples; flushes when the
@@ -683,11 +696,7 @@ class TorchAggregator:
 
     def merge_raw(self, raw: RawMetricSet) -> None:
         """Merge one host-tier interval (sparse bucket maps) into the
-        device accumulator: the cells are repacked as int32
-        (id, codec bucket, count) triples and go through K3 on dense
-        storage, or ``PagedStore.commit`` on paged storage.  When the
-        interval total would reach ``spill_threshold``, or any weight is
-        >= 2^30, the cells go to the exact int64 host spill instead."""
+        device accumulator (``_merge_cells_locked``)."""
         ids, bidx, weights = [], [], []
         for name, bucket_counts in raw.histograms.items():
             n = len(bucket_counts)
@@ -702,30 +711,41 @@ class TorchAggregator:
             weights.append(counts)
         if not ids:
             return
-        ids_np = np.concatenate(ids)
-        bidx_np = np.concatenate(bidx)
-        weights_np = np.concatenate(weights)
-        bl = self.config.bucket_limit
         with self._dev_lock:
-            if (
-                self._interval_ingested + int(weights_np.sum())
-                >= self.spill_threshold
-                or int(weights_np.max()) >= 1 << 30
-            ):
-                self._spill_fold_locked()
-                self._spill_add_cells_locked(ids_np, bidx_np, weights_np)
-                return
-            # int32 is safe now: the guard bounds every weight below 2^30
-            packed = np.empty((len(ids_np), 3), dtype=np.int32)
-            packed[:, 0] = ids_np
-            packed[:, 1] = np.clip(bidx_np, -bl, bl)
-            packed[:, 2] = weights_np
-            if self.paged is not None:
-                self._interval_ingested += self.paged.commit(packed)
-                return
-            sparse_ingest(self._acc, torch.from_numpy(packed).to(self.device),
-                          bl)
-            self._interval_ingested += int(weights_np.sum())
+            self._merge_cells_locked(np.concatenate(ids),
+                                     np.concatenate(bidx),
+                                     np.concatenate(weights))
+
+    def _merge_cells_locked(self, ids_np: np.ndarray, bidx_np: np.ndarray,
+                            weights_np: np.ndarray) -> None:
+        """Merge weighted (id, codec bucket, count) cells: repacked as
+        int32 triples through K3 on dense storage, or
+        ``PagedStore.commit`` on paged storage.  When the interval total
+        would reach ``spill_threshold``, or any weight is >= 2^30, the
+        cells go to the exact int64 host spill instead.  Caller holds
+        _dev_lock (the fused committer's spill fallback enters here)."""
+        n = len(ids_np)
+        if not n:
+            return
+        total = int(weights_np.sum(dtype=np.int64))
+        bl = self.config.bucket_limit
+        if (
+            self._interval_ingested + total >= self.spill_threshold
+            or int(weights_np.max()) >= 1 << 30
+        ):
+            self._spill_fold_locked()
+            self._spill_add_cells_locked(ids_np, bidx_np, weights_np)
+            return
+        # int32 is safe now: the guard bounds every weight below 2^30
+        packed = np.empty((n, 3), dtype=np.int32)
+        packed[:, 0] = ids_np
+        packed[:, 1] = np.clip(bidx_np, -bl, bl)
+        packed[:, 2] = weights_np
+        if self.paged is not None:
+            self._interval_ingested += self.paged.commit(packed)
+            return
+        sparse_ingest(self._acc, torch.from_numpy(packed).to(self.device), bl)
+        self._interval_ingested += total
 
     def _raise_bridge_error(self, clear: bool = False) -> None:
         err = self.bridge_error
@@ -848,6 +868,7 @@ class TorchAggregator:
             if reset:
                 self._interval_ingested = 0
                 self._spilled_samples = 0
+                self.stats_snapshot = None
         if self.paged is None:
             stats = self._dense_stats(acc, spill, ps)
         self._last_aggregation_us = (time.perf_counter() - t0) * 1e6
@@ -999,6 +1020,7 @@ class TorchAggregator:
             self.max_metrics = max(self.max_metrics, m)
             self.ingest_path, self._ingest = path, _STEPS[path]
             self._acc = torch.from_numpy(acc).to(self.device)
+            self.stats_snapshot = None
             self._spill = (
                 None if spill is None
                 else np.array(spill, dtype=np.int64, copy=True)
@@ -1029,6 +1051,7 @@ class TorchAggregator:
         self.flush(force=True)
         with self._dev_lock, self._agg_lock:
             self.paged, self.paged_config = store, config
+            self.stats_snapshot = None
             self.registry = MetricRegistry.from_names(state["names"], m)
             self.num_metrics = m
             self.max_metrics = max(self.max_metrics, m)

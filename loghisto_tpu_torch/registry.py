@@ -5,15 +5,16 @@ The reference keys everything by string name in sparse maps
 (metrics.go:112-126).  The device tier stores bucket counts in a dense
 ``[num_metrics, num_buckets]`` tensor, so names map to stable integer
 rows.  The registry is thread-safe and bounded; the aggregator grows it
-together with the accumulator.  ``generation`` is kept for parity: this
-slice has no eviction, so it only moves when ``from_names`` installs a
-table with holes.
+together with the accumulator.  The lifecycle retires names
+(``evict``) and repacks the rows (``apply_permutation``); ``generation``
+bumps on every eviction, permutation and free-slot reuse, and keys every
+cache that maps ids to names (glob resolutions, drift scores).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 
 class RegistryFullError(RuntimeError):
@@ -94,10 +95,101 @@ class MetricRegistry:
             if new_capacity > self.capacity:
                 self.capacity = new_capacity
 
+    def evict(self, ids: Iterable[int]) -> List[str]:
+        """Release the given ids: their names unregister, the slots join
+        the free-list, and the generation bumps once.  Unknown / already
+        free ids are ignored.  Returns the evicted names."""
+        evicted: List[str] = []
+        with self._lock:
+            for mid in ids:
+                mid = int(mid)
+                if not 0 <= mid < len(self._names):
+                    continue
+                name = self._names[mid]
+                if name is None:
+                    continue
+                del self._name_to_id[name]
+                self._names[mid] = None
+                self._free.append(mid)
+                evicted.append(name)
+            if evicted:
+                self._generation += 1
+        return evicted
+
+    def apply_permutation(
+        self, perm: Sequence[int], new_capacity: Optional[int] = None
+    ) -> None:
+        """Remap every live id after a device compaction: ``perm[new]``
+        is the OLD id now living at row ``new`` (negative or past the
+        table = empty row).  Every old live id must appear exactly once
+        (validated); the free-list is rebuilt from the holes and the
+        generation bumps."""
+        with self._lock:
+            old_live = {
+                mid for mid, name in enumerate(self._names)
+                if name is not None
+            }
+            sources = [
+                int(p) for p in perm
+                if 0 <= int(p) < len(self._names)
+            ]
+            if len(sources) != len(set(sources)):
+                raise ValueError("compaction permutation duplicates a row")
+            live_sources = {s for s in sources if s in old_live}
+            if live_sources != old_live:
+                missing = sorted(old_live - live_sources)[:8]
+                raise ValueError(
+                    f"compaction permutation drops live ids {missing}"
+                )
+            cap = int(new_capacity) if new_capacity is not None \
+                else self.capacity
+            if cap < len(perm):
+                raise ValueError(
+                    f"new capacity {cap} below permutation length "
+                    f"{len(perm)}"
+                )
+            names: List[Optional[str]] = [None] * len(perm)
+            for new_id, old_id in enumerate(perm):
+                old_id = int(old_id)
+                if old_id < 0 or old_id >= len(self._names):
+                    continue
+                names[new_id] = self._names[old_id]
+            # trim trailing holes so append-path ids stay dense
+            while names and names[-1] is None:
+                names.pop()
+            self._names = names
+            self._name_to_id = {
+                name: mid for mid, name in enumerate(names)
+                if name is not None
+            }
+            self._free = [
+                mid for mid, name in enumerate(names) if name is None
+            ]
+            self.capacity = cap
+            self._generation += 1
+
     def lookup(self, name: str) -> Optional[int]:
         return self._name_to_id.get(name)
+
+    def name_for(self, metric_id: int) -> Optional[str]:
+        """Name at a row id, or None for a freed / never-used slot."""
+        if 0 <= metric_id < len(self._names):
+            return self._names[metric_id]
+        return None
 
     def names(self) -> List[Optional[str]]:
         """Dense id -> name table; freed slots hold None."""
         with self._lock:
             return list(self._names)
+
+    def free_count(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def live_count(self) -> int:
+        with self._lock:
+            return len(self._name_to_id)
+
+    def __len__(self) -> int:
+        """High-water row count (table length including freed holes)."""
+        return len(self._names)

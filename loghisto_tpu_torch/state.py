@@ -31,6 +31,13 @@ counters, pinned windows and registry names) into the state dict that
 ``TimeWheel.load_state_dict`` reads and ``TimeWheel.state_dict``
 writes.  The loaded wheel then answers every query as the JAX wheel
 does, and keeps doing so as both take the same intervals.
+
+``lifecycle_state_from_jax`` and ``anomaly_state_from_jax`` take a JAX
+``LifecycleManager.state_dict()`` / ``AnomalyManager.state_dict()``
+(host NumPy arrays and ints) and return the state that the port's
+``LifecycleManager.load_state`` / ``AnomalyManager.load_state`` read,
+so both packages continue from the same activity vector, counters and
+baseline banks.
 """
 
 from __future__ import annotations
@@ -166,3 +173,33 @@ def wheel_state_from_jax(jax_wheel) -> dict:
         "names": list(jax_wheel.registry.names()),
         "last_time": jax_wheel._last_time,
     }
+
+
+def lifecycle_state_from_jax(state: Mapping) -> dict:
+    """A port ``LifecycleManager`` state from a JAX
+    ``LifecycleManager.state_dict()``: the activity vector (int32 [M])
+    and the lifetime counters."""
+    la = np.array(state.get("last_active", []), dtype=np.int32, copy=True)
+    if la.ndim != 1:
+        raise ValueError(f"last_active must be int32 [M]; got {la.shape}")
+    return {
+        "last_active": la,
+        **{key: int(state.get(key, 0)) for key in (
+            "evicted_series", "overflowed_samples", "evictions",
+            "compactions")},
+    }
+
+
+def anomaly_state_from_jax(state: Mapping) -> dict:
+    """A port ``AnomalyManager`` state from a JAX
+    ``AnomalyManager.state_dict()``: the baseline banks (prof f32
+    [K, M, B], wsum f32 [K, M]) and the scored-interval count."""
+    prof = np.array(state["prof"], dtype=np.float32, copy=True)
+    wsum = np.array(state["wsum"], dtype=np.float32, copy=True)
+    if prof.ndim != 3 or wsum.shape != prof.shape[:2]:
+        raise ValueError(
+            f"prof must be f32 [K, M, B] and wsum f32 [K, M]; got "
+            f"{prof.shape} and {wsum.shape}"
+        )
+    return {"prof": prof, "wsum": wsum,
+            "scored_intervals": int(state.get("scored_intervals", 0))}

@@ -12,12 +12,25 @@ boundary, so callers keep using counter/histogram/start_timer.
     ms.query_window("rpc_latency", window=300)     # p99 over 5m, K5
     ms.device_metrics()                            # interval stats, K3
 
-The interval commit is the fan-out path: the aggregator's bridge
-(``merge_raw``, K3) and the wheel's bridge (tier scatter K3, snapshot
-K5).  ``commit="auto"`` resolves to it until the fused committer is
-ported (ROADMAP D3).  ``stop()`` stops the reaper first, lets both
-bridges take every interval already broadcast, then re-raises the first
-bridge failure, if any.
+With retention on dense storage, ``commit="auto"`` resolves to the
+fused ``IntervalCommitter`` (``commit.py``): one bridge lands each
+interval on the accumulator and every tier (K3), publishes the snapshot
+(K5) and carries the lifecycle and drift engines:
+
+    ms = TorchMetricSystem(retention=True,
+                           lifecycle=LifecycleConfig(ttl_intervals=60),
+                           anomaly=AnomalyConfig(banks=24,
+                                                 bank_of=hourly_bank))
+    ms.add_rule(DistributionDriftRule("lat_shape", "rpc_latency"))
+
+``lifecycle=`` evicts idle or over-budget series into count-exact
+overflow rows and repacks the rows (K6); ``anomaly=`` keeps EWMA
+baseline banks and scores every row's window against them (K7).  Both
+need the fused commit.  ``commit="fanout"``, paged storage (ROADMAP D5)
+and a system without retention commit through the aggregator's bridge
+(``merge_raw``) and the wheel's (``push``).  ``stop()`` stops the reaper
+first, lets the bridges take every interval already broadcast, then
+re-raises the first bridge failure, if any.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions.
@@ -29,8 +42,12 @@ from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from loghisto_tpu_torch.anomaly import AnomalyManager
 from loghisto_tpu_torch.channel import Channel
+from loghisto_tpu_torch.commit import IntervalCommitter, \
+    commit_incompatibility
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
+from loghisto_tpu_torch.lifecycle import LifecycleManager
 from loghisto_tpu_torch.metrics import MetricSystem, ProcessedMetricSet, \
     RawMetricSet
 from loghisto_tpu_torch.ops.backend import resolve_device
@@ -56,16 +73,18 @@ class TorchMetricSystem(MetricSystem):
         transport: str = "auto",
         storage: str = "auto",
         paged_config=None,
+        lifecycle=None,
+        anomaly=None,
         device=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
         60x1 / 60x60 / 24x3600 tiers, a sequence of ``(slots, res)``
         pairs one with those tiers, and a ``TimeWheel`` is attached as it
         is (it must share this system's registry).  ``commit``,
-        ``transport``, ``storage`` and ``paged_config`` mean what they
-        mean for ``TPUMetricSystem``; ``commit`` resolves to "fanout"."""
+        ``transport``, ``storage``, ``paged_config``, ``lifecycle`` (a
+        ``LifecycleConfig``) and ``anomaly`` (an ``AnomalyConfig``) mean
+        what they mean for ``TPUMetricSystem``."""
         self.device = resolve_device(device)
-        self.commit_path = resolve_commit_path(commit)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config)
         self.aggregator = TorchAggregator(
@@ -97,9 +116,67 @@ class TorchMetricSystem(MetricSystem):
             self.rule_engine = RuleEngine(self.retention)
             self.rule_engine.attach()
             self.retention.register_query_gauges(self)
+        self.commit_path = resolve_commit_path(
+            commit, paged=self.aggregator.storage == "paged")
+        self.committer: Optional[IntervalCommitter] = None
+        self.lifecycle = None
+        self.anomaly = None
+        for what, cfg in (("lifecycle", lifecycle), ("the drift engine",
+                                                     anomaly)):
+            if cfg is not None and self.retention is None:
+                raise ValueError(
+                    f"{what} needs retention: construct with "
+                    f"TorchMetricSystem(retention=True, ...)"
+                )
+        if self.commit_path == "fused" and self.retention is not None:
+            reason = commit_incompatibility(self.aggregator, self.retention)
+            if reason is None:
+                self._build_committer(lifecycle, anomaly)
+            elif commit == "fused":
+                raise ValueError(f"fused commit unavailable: {reason}")
+        if self.committer is None:
+            # one consumer without retention: the "fan-out" is the
+            # aggregator's bridge alone
+            self.commit_path = "fanout"
+            for what, cfg in (("lifecycle", lifecycle),
+                              ("the drift engine", anomaly)):
+                if cfg is not None:
+                    raise ValueError(
+                        f"{what} rides the fused interval commit; this "
+                        "configuration resolved commit='fanout' (the "
+                        "fan-out pipeline carries neither the activity "
+                        "vector nor the baseline banks)"
+                    )
         self._attach_bridges()
 
+    def _build_committer(self, lifecycle, anomaly) -> None:
+        if lifecycle is not None:
+            self.lifecycle = LifecycleManager(
+                self.aggregator, self.retention, lifecycle,
+                metric_system=self,
+            )
+            self.lifecycle.register_gauges(self)
+        if anomaly is not None:
+            self.anomaly = AnomalyManager(
+                self.aggregator, self.retention, anomaly,
+                metric_system=self,
+            )
+            self.anomaly.register_gauges(self)
+            if self.lifecycle is not None:
+                # evictions zero bank rows, compactions permute them
+                self.lifecycle.anomaly = self.anomaly
+        self.committer = IntervalCommitter(
+            self.aggregator, self.retention,
+            lifecycle=self.lifecycle, anomaly=self.anomaly,
+        )
+        self.committer.register_gauges(self)
+
     def _attach_bridges(self) -> None:
+        if self.committer is not None:
+            # the single bridge of the fused path
+            if self.committer._thread is None:
+                self.committer.attach(self)
+            return
         if self.aggregator._attached is None:
             self.aggregator.attach(self)
         if self.retention is not None and self.retention._thread is None:
@@ -148,8 +225,18 @@ class TorchMetricSystem(MetricSystem):
 
     def add_rule(self, rule):
         """Register an alerting rule (window.rules.*Rule), evaluated
-        after every interval; its state gauges join this system's."""
+        after every interval; its state gauges join this system's.  A
+        ``DistributionDriftRule`` is bound to this system's
+        AnomalyManager (needs ``anomaly=``)."""
         self._require_retention()
+        if getattr(rule, "kind", None) == "distribution_drift":
+            if self.anomaly is None:
+                raise ValueError(
+                    "distribution_drift rules need the drift engine: "
+                    "construct with TorchMetricSystem(retention=True, "
+                    "anomaly=AnomalyConfig(...))"
+                )
+            rule.bind(self.anomaly)
         self.rule_engine.add(rule)
         self.rule_engine.register_gauges(self)
         return rule
@@ -163,9 +250,18 @@ class TorchMetricSystem(MetricSystem):
             self.rule_engine.unsubscribe(ch)
 
     def backfill_retention(self, intervals: Iterable[RawMetricSet]) -> int:
-        """Replay recorded intervals into the retention wheel (offline
-        reconstruction of window state); returns the number pushed."""
-        return self._require_retention().backfill(intervals)
+        """Replay recorded intervals (offline reconstruction of window
+        state); returns the number pushed.  With a fused committer the
+        replay runs through it, so the aggregator, lifecycle activity and
+        drift baselines rebuild with the wheel."""
+        self._require_retention()
+        if self.committer is not None:
+            n = 0
+            for raw in intervals:
+                self.committer.commit(raw)
+                n += 1
+            return n
+        return self.retention.backfill(intervals)
 
     # ------------------------------------------------------------------ #
 
@@ -176,12 +272,14 @@ class TorchMetricSystem(MetricSystem):
         super().start()
 
     def stop(self) -> None:
-        """Stop the reaper, then detach both bridges (each takes every
+        """Stop the reaper, then detach the bridges (each takes every
         interval already broadcast), drain the transfer worker, and
         re-raise the first bridge failure."""
         super().stop()
         errors = []
-        for part in (self.aggregator, self.retention):
+        parts = ((self.committer,) if self.committer is not None
+                 else (self.aggregator, self.retention))
+        for part in parts:
             if part is None:
                 continue
             try:

@@ -5,6 +5,7 @@ handles, and the rule engine (rules.RuleEngine).  Wired into
 
 from loghisto_tpu_torch.window.rules import (
     Alert,
+    DistributionDriftRule,
     FIRING,
     RESOLVED,
     RateOfChangeRule,
@@ -14,6 +15,7 @@ from loghisto_tpu_torch.window.rules import (
     ThresholdRule,
 )
 from loghisto_tpu_torch.window.snapshot import (
+    AccSnapshot,
     QueryPlanCache,
     Snapshot,
     SnapshotView,
@@ -28,8 +30,10 @@ from loghisto_tpu_torch.window.store import (
 )
 
 __all__ = [
+    "AccSnapshot",
     "Alert",
     "DEFAULT_TIERS",
+    "DistributionDriftRule",
     "FIRING",
     "RESOLVED",
     "QueryPlanCache",

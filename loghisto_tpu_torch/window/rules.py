@@ -1,8 +1,8 @@
-"""Rule engine over the timewheel: threshold, rate-of-change, and
-multiwindow SLO burn-rate alerting (counterpart of
-``loghisto_tpu/window/rules.py``, host logic over ``TimeWheel.query`` and
-``window_rate``; ``DistributionDriftRule`` and ``FreshnessSloRule`` wait
-for the drift and federation slices).
+"""Rule engine over the timewheel: threshold, rate-of-change,
+multiwindow SLO burn-rate and distribution-drift alerting (counterpart
+of ``loghisto_tpu/window/rules.py``, host logic over ``TimeWheel.query``,
+``window_rate`` and the drift engine's scores; ``FreshnessSloRule`` waits
+for the federation slice).
 
 Rules are evaluated once per pushed interval against the wheel's
 windowed views — the wheel, not the live interval, is what makes them
@@ -279,6 +279,61 @@ class SloBurnRateRule(Rule):
             f"{self.error_counter}/{self.total_counter} burn rate > "
             f"{self.threshold:g}x over both {self.long_window:g}s and "
             f"{self.short_window:g}s (objective {self.objective})"
+        )
+
+
+class DistributionDriftRule(Rule):
+    """Fire when a metric's distribution SHAPE drifts from its EWMA
+    baseline — the drift engine's divergence scores
+    (``loghisto_tpu_torch.anomaly``), not a scalar statistic: a bimodal
+    latency regression pages while p50 sits flat, and a pure rate change
+    (same shape, more traffic) does not.
+
+    ``stat`` is "jsd" (Jensen-Shannon, [0, 1], the default), "ks" (max
+    CDF gap, [0, 1]) or "emd" (bucket-space earth-mover's, in bucket
+    steps); the threshold is in its units.  The rule reads
+    ``AnomalyManager.scores_for`` (generation-keyed: a dead or reused id
+    reads as no data); an unbound rule or an unscored metric observes
+    None and does not page.  ``TorchMetricSystem.add_rule`` binds the
+    system's manager; standalone use passes ``manager=``."""
+
+    kind = "distribution_drift"
+
+    def __init__(
+        self,
+        name: str,
+        metric: str,
+        stat: str = "jsd",
+        threshold: float = 0.1,
+        for_intervals: int = 1,
+        manager=None,
+    ):
+        super().__init__(name, threshold, for_intervals)
+        if stat not in ("ks", "jsd", "emd"):
+            raise ValueError(
+                f"stat must be 'ks', 'jsd', or 'emd', got {stat!r}"
+            )
+        self.metric = metric
+        self.stat = stat
+        self._manager = manager
+
+    def bind(self, manager) -> None:
+        """Attach the AnomalyManager serving this rule's scores."""
+        self._manager = manager
+
+    def observe(self, wheel: TimeWheel):
+        if self._manager is None:
+            return None, False
+        scores = self._manager.scores_for(self.metric)
+        if scores is None:
+            return None, False
+        value = scores[self.stat]
+        return value, value > self.threshold
+
+    def describe(self) -> str:
+        return (
+            f"{self.metric} distribution drift {self.stat} > "
+            f"{self.threshold:g}"
         )
 
 

@@ -16,9 +16,9 @@ on an exact window match, and otherwise falls back to the locked
 recompute, pinning the window for the next commit.
 
 ``QueryPlanCache`` pads the id operand to the next power of two and
-counts (tier, n_ids-bucket, P) plan keys for the self-metrics.  The
-aggregator-side ``AccSnapshot`` comes with the fused interval committer
-(ROADMAP Queue 1 slice 7b).
+counts (tier, n_ids-bucket, P) plan keys for the self-metrics.
+``AccSnapshot`` is the aggregator-side handle the fused interval
+committer publishes with each final commit step.
 """
 
 from __future__ import annotations
@@ -78,6 +78,19 @@ class Snapshot:
     time: Optional[_dt.datetime]
     interval: float
     tiers: Tuple[TierSnapshot, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class AccSnapshot:
+    """The aggregator-side handle: CDF/counts/sums of the live interval
+    accumulator at one commit epoch, built by the commit that landed the
+    interval.  The aggregator clears it (None) on any accumulator reset,
+    growth or spill — readers treat None as "recompute"."""
+
+    epoch: int
+    cdf: object
+    counts: object
+    sums: object
 
 
 class QueryPlanCache:

@@ -30,6 +30,11 @@ The bridge thread logs a failed push, keeps the first exception as
 ``bridge_error`` and re-raises it from ``detach()`` and from the next
 ``query``/``window_counter`` — a failed kernel launch never vanishes.
 
+With a fused ``IntervalCommitter`` (``commit.py``) the committer lands
+each interval on the rings and publishes the snapshot itself
+(``publish_snapshot_locked``); the lifecycle drops the snapshot and the
+caches after it moves rows (``lifecycle_invalidated_locked``).
+
 Not in this slice: ``query_group_by`` and label selectors (slice 7b; a
 selector pattern raises as the reference's wheel does without a
 ``LabelIndex``), the mesh, the supervisor and the fault injector.
@@ -167,13 +172,15 @@ class TimeWheel:
         percentiles: Sequence[float] = DEFAULT_QUERY_PERCENTILES,
         registry: Optional[MetricRegistry] = None,
         merge_path: str = "auto",
+        snapshots: bool = True,
         device=None,
     ):
         """``interval`` is the base interval in seconds (one push per
         interval); tier resolutions are in base intervals and strictly
         increasing.  ``device`` defaults to the card and raises without
         CUDA; ``device="cpu"`` runs the plain versions.  ``merge_path``
-        accepts only "auto" (ROADMAP D4)."""
+        accepts only "auto" (ROADMAP D4).  ``snapshots=False`` publishes
+        no snapshot: every query recomputes under the lock."""
         self.device = resolve_device(device)
         if interval <= 0:
             raise ValueError("interval must be positive seconds")
@@ -204,6 +211,7 @@ class TimeWheel:
         if any(not 0.0 <= p <= 1.0 for p in self.percentiles):
             raise ValueError("percentiles must be in [0, 1]")
         self.merge_path = resolve_merge_path(merge_path)
+        self.snapshots_enabled = bool(snapshots)
 
         # snapshot query engine: commit-time CDF views + sparse serving
         self._query_fn = make_snapshot_query_fn(
@@ -417,7 +425,11 @@ class TimeWheel:
 
     def _refresh_snapshot_locked(self) -> None:
         """Merge every tier's views from the live rings (K5 per view) and
-        publish a new handle."""
+        publish a new handle (the push path; the fused committer builds
+        the same payloads in its final step and publishes them through
+        ``publish_snapshot_locked``)."""
+        if not self.snapshots_enabled:
+            return
         windows = self._view_windows_locked()
         tiers = []
         for ti, t in enumerate(self._tiers):
@@ -426,12 +438,31 @@ class TimeWheel:
                 t.ring, masks, self.config.bucket_limit, self.config.precision
             )
             tiers.append(self._tier_snapshot_locked(ti, windows, masks, payload))
+        self.publish_snapshot_locked(tuple(tiers))
+
+    def publish_snapshot_locked(self, tiers: tuple) -> None:
+        """Publish a new epoch-versioned handle (caller holds the lock
+        and has already noted the interval)."""
         self._snapshot = Snapshot(
             epoch=self.intervals_pushed,
             time=self._last_time,
             interval=self.interval,
-            tiers=tuple(tiers),
+            tiers=tiers,
         )
+
+    def invalidate_snapshot_locked(self) -> None:
+        """Drop the published handle: queries recompute under the lock
+        until the next commit publishes."""
+        self._snapshot = None
+
+    def lifecycle_invalidated_locked(self) -> None:
+        """Called (lock held) after a lifecycle eviction or compaction
+        changed ring rows in place: the snapshot describes the old rows
+        and every cached glob resolution or result maps dead or moved
+        ids, so all three go; the next commit republishes."""
+        self._glob_cache.clear()
+        self._result_cache.clear()
+        self.invalidate_snapshot_locked()
 
     def _tier_snapshot_locked(
         self, ti: int, windows, masks: np.ndarray, payload

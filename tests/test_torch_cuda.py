@@ -1,8 +1,11 @@
 """The Hopper kernels on the card, at small shapes, against their plain
 PyTorch versions on the same CUDA tensors (int32 outputs EQUAL): K1, K2,
 K3, the paged pair K4 (triple scatter) and K4f (direct-to-paged fused
-ingest), and K5 (the retention wheel's masked ring merge), plus one paged
-interval through ``TorchAggregator`` and a wheel on the card.
+ingest), K5 (the retention wheel's masked ring merge), K6 (the
+lifecycle's row repack, EQUAL) and K7 (drift scores, within the float32
+tolerance of ``tests/test_torch_anomaly.py``), plus one paged interval
+through ``TorchAggregator``, a wheel, and a fused commit with lifecycle
+and drift on the card.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -256,3 +259,107 @@ def test_wheel_on_the_card_serves_snapshots_through_k5(dev):
         assert served.metrics == oracle.metrics
     assert wheel.query("a", 2.0).metrics["a"]["count"] == (2 + 5 + 1) + (
         2 + 6 + 1)
+
+
+# -- K6: the lifecycle's row repack ------------------------------------------
+
+
+@pytest.mark.parametrize("shape,dtype", [((64, 129), torch.int32),
+                                         ((5, 999, 129), torch.int32),
+                                         ((3, 40, 129), torch.float32),
+                                         ((2, 33, 1), torch.float32)])
+def test_compact_rows_kernel_equals_plain(dev, shape, dtype):
+    from loghisto_tpu_torch.ops.commit import DROP_ID
+    from loghisto_tpu_torch.ops.lifecycle import (
+        compact_rows,
+        compact_rows_kernel,
+    )
+
+    rng = np.random.default_rng(17)
+    arr = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, shape)).to(
+        dtype).to(dev)
+    m = shape[-2]
+    perm = rng.permutation(m).astype(np.int32)
+    holes = rng.random(m) < 0.4
+    perm[holes] = rng.choice([-1, int(DROP_ID), m, m + 7, -(2**31)],
+                             int(holes.sum()))
+    before = kernel_launches()["compact_rows"]
+    got = compact_rows_kernel(arr, perm)
+    want = compact_rows(arr, perm)
+    torch.cuda.synchronize()
+    assert kernel_launches()["compact_rows"] == before + 1
+    assert got.data_ptr() != arr.data_ptr()
+    assert torch.equal(got, want)
+
+
+# -- K7: drift scores ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,bl", [(37, 64), (8, 4096)])
+def test_divergence_kernel_equals_plain(dev, m, bl):
+    from loghisto_tpu_torch.ops.anomaly import (
+        divergence_kernel,
+        divergence_plain,
+    )
+
+    b = 2 * bl + 1
+    rng = np.random.default_rng(m)
+    bins = rng.integers(0, 50, (m, b)).astype(np.int32)
+    bins[3] = 0
+    bins[3, b // 2] = 99  # a one-hot live pmf
+    cdf = np.cumsum(bins, axis=1, dtype=np.int32)
+    counts = bins.sum(axis=1).astype(np.int32)
+    counts[0] = 0  # masked: count 0
+    w = rng.random(m - 2).astype(np.float32) + 0.1  # bank of m - 2 rows
+    pmf = rng.random((m - 2, b)) ** 4
+    prof = (pmf / pmf.sum(axis=1, keepdims=True) * w[:, None]).astype(
+        np.float32)
+    w[1] = 0.0  # masked: no baseline
+    prof[2] = bins[2] / bins[2].sum()
+    w[2] = 1.0  # identical shapes: ks ~ 0
+    t = [torch.from_numpy(x).to(dev) for x in (cdf, counts, prof, w)]
+    before = kernel_launches()["divergence"]
+    got = divergence_kernel(*t, 5)
+    want = divergence_plain(*t, 5)
+    torch.cuda.synchronize()
+    assert kernel_launches()["divergence"] == before + 1
+    tol = {"ks": (0, 2e-6), "jsd": (0, 1e-5), "emd": (1e-4, b * 2.0**-23)}
+    for key, (rtol, atol) in tol.items():
+        g, w_ = got[key].cpu().numpy(), want[key].cpu().numpy()
+        np.testing.assert_allclose(g, w_, rtol=rtol, atol=atol, err_msg=key)
+        assert g[0] == 0 and g[1] == 0 and (g[m - 2:] == 0).all()
+    assert got["ks"][2] < 2e-6
+
+
+def test_fused_commit_with_lifecycle_and_drift_on_the_card(dev):
+    import datetime as dt
+
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=16,
+        config=MetricConfig(bucket_limit=64), retention=((4, 1), (3, 2)),
+        lifecycle=LifecycleConfig(ttl_intervals=1, check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        anomaly=AnomalyConfig(min_samples=4, window=2.0))
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    before = kernel_launches()
+    total = 0
+    for i in range(6):
+        hists = {"a": {1: 5, 9: 3}, f"api.u{i}": {4: 2}}
+        total += 10
+        ms.backfill_retention([RawMetricSet(
+            t0 + dt.timedelta(seconds=i), {}, {}, hists, {}, 1.0)])
+    assert ms.lifecycle.compact()
+    after = kernel_launches()
+    ms.stop()
+    assert after["sparse_ingest"] > before["sparse_ingest"]
+    assert after["divergence"] - before["divergence"] == 6
+    assert after["compact_rows"] > before["compact_rows"]
+    assert ms.committer.fused_intervals == 6
+    assert int(ms.aggregator._acc.sum()) == total
+    assert ms.lifecycle.evicted_series > 0

@@ -1,8 +1,8 @@
 """The port stands alone: ``loghisto_tpu_torch`` imports neither ``jax``
 nor any module of ``loghisto_tpu``, runs a dense and a paged interval, a
-wheel push and query and a ``TorchMetricSystem`` interval on the CPU
-without either in ``sys.modules``, and never falls back to the CPU on its
-own."""
+wheel push and query, a ``TorchMetricSystem`` interval and a fused commit
+with lifecycle and drift on the CPU without either in ``sys.modules``,
+and never falls back to the CPU on its own."""
 
 import ast
 import subprocess
@@ -78,6 +78,21 @@ def test_interval_runs_without_jax_in_sys_modules():
         "assert ms.device_metrics().metrics['y_count'] == 1.0\n"
         "assert ms.query_window('y', 1.0).metrics['y']['count'] == 1.0\n"
         "ms.stop()\n"
+        "from loghisto_tpu_torch.lifecycle import LifecycleConfig\n"
+        "from loghisto_tpu_torch.anomaly import AnomalyConfig\n"
+        "from loghisto_tpu_torch.window import DistributionDriftRule\n"
+        "ms = TorchMetricSystem(interval=1.0, num_metrics=8, device='cpu',"
+        " config=MetricConfig(bucket_limit=64), retention=((3, 1),),"
+        " lifecycle=LifecycleConfig(ttl_intervals=1, check_every=1),"
+        " anomaly=AnomalyConfig(min_samples=1))\n"
+        "ms.add_rule(DistributionDriftRule('d', 'y'))\n"
+        "for i in range(3):\n"
+        "    ms.histogram('y', 0.5)\n"
+        "    ms.histogram(f'api.u{i}', 0.5)\n"
+        "    assert ms.committer.commit(ms.collect_raw_metrics()) == 'fused'\n"
+        "assert ms.lifecycle.evicted_series > 0\n"
+        "assert ms.anomaly.scored_intervals == 3\n"
+        "ms.stop()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -97,11 +112,16 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.paging import PagedStore
     from loghisto_tpu_torch.ops.sparse_ingest import make_sparse_ingest_fn
     from loghisto_tpu_torch import TimeWheel, TorchMetricSystem
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 
     factories = [
         lambda: TimeWheel(num_metrics=4),
         lambda: TorchMetricSystem(num_metrics=4, retention=True),
+        lambda: TorchMetricSystem(num_metrics=4, retention=True,
+                                  lifecycle=LifecycleConfig(),
+                                  anomaly=AnomalyConfig()),
         lambda: TorchAggregator(num_metrics=2),
         lambda: make_fused_ingest_fn(64),
         lambda: make_row_ingest(129, 64),

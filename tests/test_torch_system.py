@@ -265,14 +265,39 @@ def test_register_device_gauges():
 
 
 def test_commit_path_resolves_to_fanout():
-    assert resolve_commit_path("auto") == "fanout"
+    """"auto" is the fused committer on dense storage and the fan-out on
+    paged storage (D5); "fanout" always resolves, "fused" raises on
+    paged storage naming the paged lifecycle slice."""
+    assert resolve_commit_path("auto") == "fused"
+    assert resolve_commit_path("auto", paged=True) == "fanout"
     assert resolve_commit_path("fanout") == "fanout"
-    with pytest.raises(ValueError, match="slice 7b"):
-        resolve_commit_path("fused")
+    assert resolve_commit_path("fanout", paged=True) == "fanout"
+    assert resolve_commit_path("fused") == "fused"
+    with pytest.raises(ValueError, match="paged lifecycle slice"):
+        resolve_commit_path("fused", paged=True)
     with pytest.raises(ValueError, match="unknown commit path"):
         resolve_commit_path("eager")
-    with pytest.raises(ValueError, match="slice 7b"):
-        TorchMetricSystem(device="cpu", commit="fused")
+    with pytest.raises(ValueError, match="paged lifecycle slice"):
+        TorchMetricSystem(device="cpu", commit="fused", storage="paged",
+                          config=MetricConfig(bucket_limit=512),
+                          num_metrics=M, retention=TIERS, sys_stats=False)
+    paged = TorchMetricSystem(device="cpu", storage="paged", num_metrics=M,
+                              config=MetricConfig(bucket_limit=512),
+                              retention=TIERS, sys_stats=False)
+    assert paged.commit_path == "fanout" and paged.committer is None
+    paged.stop()
+    # without retention the aggregator is the only consumer
+    bare = TorchMetricSystem(device="cpu", commit="fused", num_metrics=4,
+                             sys_stats=False)
+    assert bare.commit_path == "fanout" and bare.committer is None
+    bare.stop()
+    dense = TorchMetricSystem(device="cpu", num_metrics=M, sys_stats=False,
+                              config=MetricConfig(bucket_limit=BL),
+                              retention=TIERS)
+    assert dense.commit_path == "fused" and dense.committer is not None
+    assert dense.aggregator._attached is None
+    assert dense.retention._thread is None
+    dense.stop()
 
 
 def _system_pair():
@@ -282,7 +307,7 @@ def _system_pair():
                              storage="dense")
     port = TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=M,
                              config=MetricConfig(bucket_limit=BL),
-                             retention=TIERS, device="cpu")
+                             retention=TIERS, commit="fanout", device="cpu")
     assert port.commit_path == jax_ms.commit_path == "fanout"
     assert port.retention.registry is port.aggregator.registry
     return jax_ms, port
@@ -364,19 +389,23 @@ def test_threaded_start_stop_carries_intervals():
             time.sleep(0.02)
     finally:
         port.stop()
+    assert port.commit_path == "fused"
+    assert port.committer.bridge_error is None
     assert port.aggregator.bridge_error is None
     assert port.retention.bridge_error is None
+    assert port.committer.fused_intervals == port.retention.intervals_pushed
     assert port.device_metrics().metrics["api.lat_count"] > 0
     assert port.query_window("api.lat").metrics["api.lat"]["count"] > 0
-    port.start()  # restartable: the bridges re-attach
-    assert port.aggregator._attached is not None
+    port.start()  # restartable: the committer's bridge re-attaches
+    assert port.committer._thread is not None
+    assert port.aggregator._attached is None
     port.stop()
 
 
 def test_bridge_failures_surface_on_query_and_stop():
     port = TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=M,
                              config=MetricConfig(bucket_limit=BL),
-                             retention=TIERS, device="cpu")
+                             retention=TIERS, commit="fanout", device="cpu")
     boom = RuntimeError("injected kernel launch failure")
 
     def fail(*a, **k):
@@ -399,3 +428,71 @@ def test_bridge_failures_surface_on_query_and_stop():
     with pytest.raises(RuntimeError, match="bridge failed"):
         port.stop()
     assert port.aggregator.bridge_error is None  # detach cleared it
+
+
+def test_committer_failure_surfaces_on_query_and_stop():
+    """D6: a failed fused commit is not recovered; its exception is kept
+    as bridge_error and re-raised by the next query, device_metrics()
+    and stop()."""
+    port = TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=M,
+                             config=MetricConfig(bucket_limit=BL),
+                             retention=TIERS, device="cpu")
+    boom = RuntimeError("injected kernel launch failure")
+
+    def fail(*a, **k):
+        raise boom
+
+    port.committer._fused_dispatch_locked = fail
+    port.histogram("api.lat", 0.5)
+    port._tick(queue.Queue(16))
+    deadline = time.monotonic() + 10.0
+    while port.committer.bridge_error is None:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    with pytest.raises(RuntimeError, match="bridge failed") as e:
+        port.query_window("*", 1.0)
+    assert e.value.__cause__ is boom
+    with pytest.raises(RuntimeError, match="bridge failed"):
+        port.device_metrics()
+    with pytest.raises(RuntimeError, match="committer's bridge failed"):
+        port.stop()
+    assert port.committer.bridge_error is None  # detach cleared it
+    assert port.aggregator.bridge_error is None
+    assert port.retention.bridge_error is None
+
+
+def test_threaded_fused_system_with_lifecycle_and_drift():
+    """The reaper feeds the committer's bridge; lifecycle and drift
+    gauges export through the same pipeline; stop/start re-attaches."""
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+
+    port = TorchMetricSystem(interval=0.1, sys_stats=False, num_metrics=M,
+                             config=MetricConfig(bucket_limit=BL),
+                             retention=TIERS, device="cpu",
+                             lifecycle=LifecycleConfig(ttl_intervals=1,
+                                                       check_every=1),
+                             anomaly=AnomalyConfig(min_samples=5))
+    port.start()
+    try:
+        deadline = time.monotonic() + 20.0
+        k = 0
+        while port.committer.intervals_committed < 4:
+            port.histogram_batch("api.lat", np.full(50, 0.25))
+            port.histogram(f"api.u{k}", 0.5)
+            k += 1
+            assert time.monotonic() < deadline, "no interval arrived"
+            time.sleep(0.02)
+    finally:
+        port.stop()
+    assert port.committer.bridge_error is None
+    assert port.committer.fused_intervals == port.retention.intervals_pushed
+    assert port.anomaly.scored_intervals == port.committer.intervals_committed
+    gauges = port.collect_raw_metrics().gauges
+    for g in ("commit.FusedIntervals", "lifecycle.ActiveSeries",
+              "lifecycle.EvictedSeries", "anomaly.ScoredIntervals"):
+        assert g in gauges, g
+    assert port.lifecycle.evicted_series > 0
+    port.start()
+    assert port.committer._thread is not None
+    port.stop()
