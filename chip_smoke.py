@@ -20,7 +20,18 @@ against host oracles:
     2^20 samples through ``backfill_retention`` and ``merge_raw``; K3
     scatters each interval into every tier's ring slot and K5 (phase
     ``k5_window_merge`` at the 60 x 1024 x 8193 tier-0 ring) merges the
-    snapshot views and recomputes windows.
+    snapshot views and recomputes windows;
+  * the fused commit with lifecycle and drift
+    (``lifecycle_drift_main_path``, K6 and K7);
+  * every dense ingest path (``ingest_paths_main_path``):
+    ``TorchAggregator(ingest_path=p)`` at M = 1, 16, 256 and 10,000 for
+    each path the dispatch table admits there — K1, K2b, K8 (phase
+    ``k8_multirow_ingest``) and the JAX package's XLA paths in PyTorch —
+    2 intervals of 2^22 Zipf(1.3) samples each against the host oracle;
+  * the firehose (``firehose_main_path``): samples made on the card and
+    accumulated by each path's step, conservation and path equality on
+    one generator seed, then ``run_firehose`` for 3 s per path with its
+    OpenTSDB export to an in-process TCP listener.
 
     python3 chip_smoke.py
 
@@ -1965,6 +1976,425 @@ def phase_lifecycle_drift(torch):
     return out
 
 
+# -- every dense ingest path, K8 and the firehose --------------------------
+
+# (M, paths) of ingest_paths_main_path: every path the dispatch table
+# admits at M, but matmul only where the JAX "auto" would consider it
+# (M * B <= MATMUL_MAX_CELLS = 2^21); at 10,000 rows its one-hot would be
+# 640k columns wide
+IP_SHAPES = (
+    (1, ("auto", "pallas", "scatter", "sort", "sortscan", "matmul",
+         "hybrid", "fused")),
+    (16, ("auto", "multirow", "scatter", "sort", "sortscan", "matmul",
+          "hybrid")),
+    (256, ("auto", "multirow", "scatter", "sort", "sortscan", "hybrid")),
+    (M, ("auto", "multirow", "scatter", "sort", "sortscan", "hybrid")),
+)
+IP_INTERVALS = 2
+IP_SAMPLES = 1 << 22
+# the kernel each path must launch on the main path (None: the JAX
+# package's XLA paths, plain PyTorch on the card)
+PATH_KERNEL = {"fused": "fused_ingest", "row": "row_ingest",
+               "pallas": "row_ingest", "multirow": "multirow_ingest"}
+FH_BATCH = 1 << 22
+FH_SHAPES = ((M, ("auto", "scatter", "sort", "sortscan", "hybrid")),
+             (1, ("auto", "matmul")))
+FH_SECONDS = 3.0
+# independent profiler readings of the firehose's steady loop per path
+PROFILE_READINGS = 3
+
+
+def _k8_batches(rng, m):
+    """Zipf(1.3), uniform and the adversarial inputs of K8 at M rows."""
+    out = {
+        "zipf": (zipf_ids(rng, BATCH, m), lognormal_values(rng, BATCH)),
+        "uniform": (rng.integers(0, m, BATCH).astype(np.int32),
+                    lognormal_values(rng, BATCH)),
+    }
+    ids, vals = out["uniform"][0].copy(), lognormal_values(rng, BATCH)
+    adv_ids, adv_vals = _adversarial_block(rng, m)
+    ids[:len(adv_ids)], vals[:len(adv_vals)] = adv_ids, adv_vals
+    ids[len(adv_ids):len(adv_ids) + 1000] = -5   # more ids < 0 ...
+    ids[len(adv_ids) + 1000:len(adv_ids) + 2000] = m + 3  # ... and >= M
+    out["adversarial"] = (ids, vals)
+    out["single"] = (np.array([m - 1], np.int32),
+                     np.array([1.0], np.float32))
+    # every sample in block 0: the M / 8 tail tiles are all filler
+    out["one_block"] = (rng.integers(0, 8, BATCH).astype(np.int32),
+                        lognormal_values(rng, BATCH))
+    return out
+
+
+def phase_k8(torch):
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
+    from loghisto_tpu_torch.ops.multirow_ingest import (
+        ROWS_TILE,
+        SAMPLE_TILE,
+        multirow_ingest,
+        multirow_ingest_reference,
+        preprocess,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 8)
+    per_m, max_err = {}, 0
+    for m in (16, 256, M):
+        equal = {}
+        for name, (ids, vals) in _k8_batches(rng, m).items():
+            ids_d = torch.from_numpy(ids).to(dev)
+            vals_d = torch.from_numpy(vals).to(dev)
+            rows, bidx, tb = preprocess(ids_d, vals_d, m, ROWS_TILE, BL)
+            acc_k = torch.zeros((m, B), dtype=torch.int32, device=dev)
+            acc_p, acc_1 = torch.zeros_like(acc_k), torch.zeros_like(acc_k)
+            multirow_ingest(acc_k, rows, bidx, tb)
+            multirow_ingest_reference(acc_p, rows, bidx, tb, ROWS_TILE)
+            fused_ingest_batch(acc_1, ids_d, vals_d, BL)
+            torch.cuda.synchronize()
+            equal[name] = (bool(torch.equal(acc_k, acc_p))
+                           and bool(torch.equal(acc_k, acc_1)))
+            max_err = max(max_err, int((acc_k - acc_p).abs().max()),
+                          int((acc_k - acc_1).abs().max()))
+            keep = (ids >= 0) & (ids < m)
+            if int(acc_k.sum()) != int(keep.sum()):
+                equal[name] = False
+        if not all(equal.values()):
+            raise AssertionError(f"K8 differs at M={m}: {equal}")
+
+        ids, vals = _k8_batches(np.random.default_rng(SEED + 80 + m),
+                                m)["zipf"]
+        ids_d = torch.from_numpy(ids).to(dev)
+        vals_d = torch.from_numpy(vals).to(dev)
+        rows, bidx, tb = preprocess(ids_d, vals_d, m, ROWS_TILE, BL)
+        g = tb.shape[0]
+        row = tb.long().repeat_interleave(SAMPLE_TILE) * ROWS_TILE + rows
+        real = rows < ROWS_TILE
+        flat = row[real] * B + bidx[real].long()
+        ones = torch.ones_like(flat, dtype=torch.int32)
+        acc = torch.zeros((m, B), dtype=torch.int32, device=dev)
+        k_ms = time_ms(torch, lambda: multirow_ingest(acc, rows, bidx, tb))
+        p_ms = time_ms(torch, lambda: multirow_ingest_reference(
+            acc, rows, bidx, tb, ROWS_TILE))
+        lib_ms = time_ms(torch, lambda: acc.view(-1).index_put_(
+            (flat,), ones, accumulate=True))
+        pre_ms = time_ms(torch, lambda: preprocess(
+            ids_d, vals_d, m, ROWS_TILE, BL))
+        cols = np.clip(compress_np(vals), -BL, BL).astype(np.int64) + BL
+        cells = touched_cells(ids, cols, m)
+        n_valid = int(((ids >= 0) & (ids < m)).sum())
+        # rows of every entry, bidx and the tile's block only of the real
+        # entries (the kernel skips filler), each touched cell's RMW
+        b_ms, b_by = bound_ms(4 * g * SAMPLE_TILE + 4 * n_valid + 4 * g
+                              + 8 * cells)
+        per_m[str(m)] = {
+            "equal": equal, "tiles": g, "layout_entries": g * SAMPLE_TILE,
+            "layout_over_batch": g * SAMPLE_TILE / BATCH,
+            "touched_cells": cells, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "preprocess_ms": pre_ms,
+        }
+        del acc, row, flat, ones
+    RESULTS["multirow_ingest"] = {
+        "max_abs_err": max_err,
+        **{k: per_m[str(M)][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+    }
+    return {"B": B, "batch": BATCH, "rows_tile": ROWS_TILE,
+            "max_abs_err": max_err, "per_M": per_m,
+            "library_call": "acc.view(-1).index_put_((flat,), 1, "
+                            "accumulate=True) on the layout's precomputed "
+                            "flat cells"}
+
+
+def _ip_stream(rng, m):
+    """IP_INTERVALS intervals of IP_SAMPLES samples: Zipf(1.3) ids (at
+    M = 1: id 0, 1% dropped as -1) and lognormal values, 5% negated;
+    each with its oracle statistics."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    out = []
+    for _ in range(IP_INTERVALS):
+        if m == 1:
+            ids = np.zeros(IP_SAMPLES, np.int32)
+            ids[rng.random(IP_SAMPLES) < 0.01] = -1
+        else:
+            ids = zipf_ids(rng, IP_SAMPLES, m)
+        values = lognormal_values(rng, IP_SAMPLES)
+        values[rng.random(IP_SAMPLES) < 0.05] *= -1
+        keep = ids >= 0
+        cols = np.clip(compress_np(values[keep]), -BL, BL).astype(
+            np.int64) + BL
+        hist = np.bincount(ids[keep].astype(np.int64) * B + cols,
+                           minlength=m * B).reshape(m, B)
+        out.append((ids, values, _oracle_stats(hist)[0]))
+    return out
+
+
+def _drive_path(torch, m, path, stream):
+    """One (M, path) run: IP_INTERVALS intervals through record_batch +
+    collect(), each checked against the host oracle; the launch counts
+    are reset just before and read just after."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(num_metrics=m, batch_size=BATCH, transport="raw",
+                          ingest_path=path)
+    names = [f"m{i}" for i in range(m)]
+    for name in names:
+        agg.registry.id_for(name)
+    lifetime = {"count": np.zeros(m, np.int64),
+                "sum": np.zeros(m, np.float64)}
+    ingest_s, collect_ms = [], []
+    reset_kernel_launches()
+    try:
+        for ids, values, want in stream:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for off in range(0, len(ids), BATCH):
+                agg.record_batch(ids[off:off + BATCH],
+                                 values[off:off + BATCH])
+            agg.flush(force=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = agg.collect().metrics
+            collect_ms.append((time.perf_counter() - t1) * 1e3)
+            ingest_s.append(t1 - t0)
+            _check_interval(metrics, names, want, lifetime, exact_pcts=False)
+    finally:
+        agg.close()
+    launches = kernel_launches()
+    kernel = PATH_KERNEL.get(agg.ingest_path)
+    if kernel is not None and launches[kernel] <= 0:
+        raise AssertionError(f"{kernel} was not launched on the {path} path")
+    if kernel is None and any(launches.values()):
+        raise AssertionError(f"the XLA path {path} launched {launches}")
+    total = sum(len(s[0]) for s in stream)
+    return {"ingest_path": agg.ingest_path,
+            "samples_per_s": total / sum(ingest_s),
+            # the last interval, after the first one's one-time costs
+            "warm_samples_per_s": len(stream[-1][0]) / ingest_s[-1],
+            "collect_ms": collect_ms,
+            "multirow_launches": launches["multirow_ingest"],
+            "fused_launches": launches["fused_ingest"],
+            "row_launches": launches["row_ingest"]}
+
+
+def phase_ingest_paths(torch):
+    rng = np.random.default_rng(SEED + 50)
+    columns = ("M", "path", "ingest_path", "samples_per_s",
+               "warm_samples_per_s", "collect_ms", "multirow_launches",
+               "fused_launches", "row_launches")
+    table, k8_launches = [], 0
+    for m, paths in IP_SHAPES:
+        stream = _ip_stream(rng, m)
+        for path in paths:
+            run = {"M": m, "path": path, **_drive_path(torch, m, path, stream)}
+            table.append([run[c] for c in columns])
+            k8_launches += run["multirow_launches"]
+        del stream
+    RESULTS.setdefault("multirow_ingest", {})["launches"] = k8_launches
+    return {"intervals": IP_INTERVALS, "samples_per_interval": IP_SAMPLES,
+            "batch_size": BATCH, "transport": "raw", "columns": columns,
+            "table": table}
+
+
+class _Sink:
+    """An in-process TCP listener that keeps every byte it is sent."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self._srv = socket.create_server(("127.0.0.1", 0))
+        self._srv.settimeout(0.2)
+        self.address = self._srv.getsockname()
+        self.data = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        import socket
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._srv.accept()
+            except socket.timeout:
+                continue
+            with conn:
+                chunks = []
+                while True:
+                    chunk = conn.recv(1 << 16)
+                    if not chunk:
+                        break
+                    chunks.append(chunk)
+                self.data.append(b"".join(chunks))
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self._srv.close()
+
+
+def _parse_opentsdb(payload: bytes) -> int:
+    """Lines of one export, each ``put <metric> <ts> <value> host=<h>``;
+    returns how many."""
+    import re
+
+    line_re = re.compile(r"put firehose_\d+_\S+ \d+ -?\d+\.\d{6} host=\S+\Z")
+    lines = payload.decode().splitlines()
+    bad = [ln for ln in lines if not line_re.match(ln)]
+    if not lines or bad:
+        raise AssertionError(f"malformed OpenTSDB export: {bad[:3]}")
+    return len(lines)
+
+
+def _device_busy(torch, fn):
+    """Device busy and idle share over one call of ``fn`` (which ends in
+    a synchronize): the summed time of the card's kernels in a
+    ``torch.profiler`` trace of one call against the host wall clock of
+    the call without the profiler (the median of 3; the profiler's own
+    host cost would inflate it), and the kernels that took most of it.
+    A first, unrecorded call takes the profiler's start-up out of the
+    trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[1]
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        fn()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    kernels = collections.Counter()
+    for e in traced:
+        # device-side events, but not the profiler's own step annotation
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not e.name.startswith("ProfilerStep")):
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3
+    if not kernels:
+        raise RuntimeError("the trace holds no kernel of the card")
+    busy_ms = sum(kernels.values())
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "top_kernels_ms": dict(kernels.most_common(5))}
+
+
+def phase_firehose(torch):
+    import io
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.firehose import (
+        _make_sample_generator,
+        make_firehose_step,
+        run_firehose,
+    )
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    dev = torch.device("cuda")
+    cfg = MetricConfig()
+    steps, out = 2, {}
+    for m, paths in FH_SHAPES:
+        accs = {}
+        generate = _make_sample_generator(m, 10.0, 2.0, dev)
+        gen = torch.Generator(device=dev)
+        gen_ms = time_ms(torch, lambda: generate(gen, FH_BATCH), reps=10)
+        out[f"{m}/generate"] = {"ms": gen_ms}
+        for path in paths:
+            step = make_firehose_step(m, FH_BATCH, cfg, ingest_path=path)
+            acc = torch.zeros((m, B), dtype=torch.int32, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            for _ in range(steps):
+                acc, gen = step(acc, gen)
+            torch.cuda.synchronize()
+            if int(acc.sum()) != steps * FH_BATCH:
+                raise AssertionError(
+                    f"firehose {m}/{path} lost samples: {int(acc.sum())}")
+            accs[path] = acc.clone()
+            step_ms = time_ms(torch, lambda: step(acc, gen), reps=5,
+                              warmup=1)
+            out[f"{m}/{path}"] = {"ingest_path": step.ingest_path,
+                                  "step_ms": step_ms,
+                                  "accumulate_ms": step_ms - gen_ms,
+                                  "device_samples_per_s":
+                                      FH_BATCH / step_ms * 1e3}
+            if path == "auto":
+                # run_firehose's steady loop: max_inflight (8) steps,
+                # then a synchronize
+                def interval():
+                    for _ in range(8):
+                        step(acc, gen)
+                    torch.cuda.synchronize()
+
+                runs = [_device_busy(torch, interval)
+                        for _ in range(PROFILE_READINGS)]
+                idle = [r["idle_share"] for r in runs]
+                out[f"{m}/{path}"]["profile"] = {
+                    "idle_share": idle, "idle_spread": max(idle) - min(idle),
+                    "readings": runs}
+        ref = "scatter" if "scatter" in accs else "auto"
+        for path, acc in accs.items():
+            if not torch.equal(acc, accs[ref]):
+                raise AssertionError(f"firehose {m}/{path} != {m}/{ref}")
+        del accs
+
+    sink = _Sink()
+    try:
+        for m, paths in FH_SHAPES:
+            for path in paths:
+                text = io.StringIO()
+                n_before = len(sink.data)
+                reset_kernel_launches()
+                summary = run_firehose(
+                    num_metrics=m, batch=FH_BATCH, seconds=FH_SECONDS,
+                    interval=1.0, sink=sink.address, ingest_path=path,
+                    out=text, seed=SEED)
+                launches = kernel_launches()
+                deadline = time.time() + 5.0
+                while (len(sink.data) < n_before + summary["intervals"]
+                       and time.time() < deadline):
+                    time.sleep(0.05)
+                payloads = sink.data[n_before:]
+                if len(payloads) != summary["intervals"] or (
+                        "error" in text.getvalue()):
+                    raise AssertionError(
+                        f"firehose {m}/{path}: {len(payloads)} exports for "
+                        f"{summary['intervals']} intervals: "
+                        f"{text.getvalue()}")
+                lines = [_parse_opentsdb(p) for p in payloads]
+                kernel = PATH_KERNEL.get(summary["ingest_path"])
+                if kernel is not None and launches[kernel] <= 0:
+                    raise AssertionError(
+                        f"{kernel} was not launched by the firehose")
+                out[f"{m}/{path}"].update({
+                    "run_samples_per_s": summary["samples_per_s"],
+                    "intervals": summary["intervals"],
+                    "total_samples": summary["total_samples"],
+                    "export_lines": lines, "launches": {
+                        k: v for k, v in launches.items() if v}})
+    finally:
+        sink.close()
+    return {"batch": FH_BATCH, "seconds": FH_SECONDS, "steps_checked": steps,
+            "runs": out}
+
+
 KERNEL_META = {
     "fused_ingest": ("loghisto_tpu_torch/csrc/fused_ingest.cu",
                      "loghisto_tpu/ops/fused_ingest.py:169", None),
@@ -1983,6 +2413,8 @@ KERNEL_META = {
                      "loghisto_tpu/ops/lifecycle.py:166", None),
     "divergence": ("loghisto_tpu_torch/csrc/divergence.cu",
                    "loghisto_tpu/ops/anomaly.py:141", None),
+    "multirow_ingest": ("loghisto_tpu_torch/csrc/multirow_ingest.cu",
+                        "loghisto_tpu/ops/pallas_multirow.py:106", None),
 }
 
 
@@ -2034,7 +2466,10 @@ def main() -> int:
                         ("k6_compact_rows", phase_k6),
                         ("k7_divergence", phase_k7),
                         ("lifecycle_drift_main_path",
-                         phase_lifecycle_drift)):
+                         phase_lifecycle_drift),
+                        ("k8_multirow_ingest", phase_k8),
+                        ("ingest_paths_main_path", phase_ingest_paths),
+                        ("firehose_main_path", phase_firehose)):
         t0 = time.perf_counter()
         try:
             out = phase(torch)

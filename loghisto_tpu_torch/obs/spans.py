@@ -7,8 +7,8 @@ codec into sparse (bucket, count) state and serves percentiles through
 the same CDF walk as every other host histogram (``percentiles_sparse``),
 so the ``commit.Latency*`` gauges keep the codec's error bound at any
 percentile.  ``NULL_RECORDER`` is what the committer's stage sites
-(``begin_interval``, ``span``) hold until the span ring is ported: each
-call is a no-op.
+(``begin_interval``, ``span``) and the firehose (``record``) hold until
+the span ring is ported: each call is a no-op.
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ class _NullRecorder:
 
     def span(self, stage: str, seq: Optional[int] = None):
         return _NULL_HANDLE
+
+    def record(self, stage: str, t0_ns: int, t1_ns: int,
+               seq: Optional[int] = None) -> None:
+        return None
 
 
 NULL_RECORDER = _NullRecorder()

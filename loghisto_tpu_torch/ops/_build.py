@@ -89,6 +89,11 @@ KERNEL_SPECS = {
         # cdf, counts, prof, w, out [3, M], M, Mb, B, min_samples
         [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     ),
+    "multirow_ingest": (
+        "multirow_ingest.cu", "lh_multirow_ingest",
+        # acc, rows, bidx, tile_block, n, tile, rows_tile, M, B
+        [_P, _P, _P, _P, _LL, _I, _I, _I, _I],
+    ),
 }
 _SHARED_HEADERS = ("codec.cuh",)
 

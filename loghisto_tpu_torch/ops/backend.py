@@ -25,7 +25,8 @@ import threading
 import torch
 
 KERNELS = ("fused_ingest", "row_ingest", "sparse_ingest", "paged_scatter",
-           "fused_paged_ingest", "window_merge", "compact_rows", "divergence")
+           "fused_paged_ingest", "window_merge", "compact_rows", "divergence",
+           "multirow_ingest")
 
 KERNEL_LAUNCHES = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()

@@ -1,24 +1,35 @@
 """Capability table of the port's ingest paths and transports
 (counterpart of ``loghisto_tpu/ops/dispatch.py``: ``resolve_ingest_path``,
-``choose_transport`` and ``SPARSE_DENSITY_CROSSOVER``).
+``ingest_step_fn``, ``choose_transport`` and ``SPARSE_DENSITY_CROSSOVER``).
 
 Dense ingest paths, all on the same int32 [M, B] accumulator:
 
-  * ``"fused"`` — K1 (ops/fused_ingest.py).  Global atomics serve any
+  * ``"fused"``    — K1 (ops/fused_ingest.py).  Global atomics serve any
     row count, so unlike the Pallas kernel there is no ``M % 8`` rule.
-  * ``"row"``   — K2 (ops/row_ingest.py), the single-metric row.
+  * ``"row"``      — K2 (ops/row_ingest.py), the single-metric row;
+    ``"pallas"`` is the JAX package's name for the same step.
+  * ``"multirow"`` — K8 (ops/multirow_ingest.py): preprocess + the
+    layout kernel; ``M % 8 == 0`` and dense storage.
+  * ``"scatter"``, ``"sort"``, ``"sortscan"``, ``"matmul"``, ``"hybrid"``
+    — the JAX package's XLA paths (ops/ingest.py, ops/sort_ingest.py,
+    ops/matmul_hist.py, ops/hybrid_hist.py).  They have no Pallas kernel,
+    so their PyTorch form runs on the card as well: that is the
+    reference's path, not a fallback.
 
 On ``cuda``, "auto" resolves to the row kernel when the accumulator has
 one row and to the fused kernel otherwise; registry growth past one row
-re-resolves (the aggregator swaps K2 for K1).  On ``cpu`` every path is
-served by the wrappers' plain versions — the table still resolves, so
+re-resolves (the aggregator swaps K2 for K1).  Like the JAX "auto", it
+never picks multirow, and it picks none of the XLA paths (whether one
+should win on the card is for a measured table).  On ``cpu`` every path
+is served by the wrappers' plain versions — the table still resolves, so
 the CPU runs the same control flow as the card.
 
 ``resolve_commit_path`` resolves the interval commit: the fused
 committer on dense storage, the fan-out on paged storage until the
 paged fused commit is ported (ROADMAP D5).
 
-Each decline reason is a sentence, as in the JAX table.
+Each decline reason is a sentence, as in the JAX table; the shape
+preconditions of the JAX paths keep the JAX package's sentences.
 """
 
 from __future__ import annotations
@@ -30,17 +41,28 @@ from __future__ import annotations
 # (8 B/sample); above it raw stays.  Copied from the JAX table.
 SPARSE_DENSITY_CROSSOVER = 0.5
 
-INGEST_PATHS = ("fused", "row")
+INGEST_PATHS = ("fused", "row", "scatter", "sort", "sortscan", "matmul",
+                "hybrid", "pallas", "multirow")
 
 # the row kernel's per-call bound, kept from the reference's contract
 ROW_MAX_BATCH = 1 << 24
 
+# the multirow step's row block, the JAX factory's default rows_tile
+MULTIROW_ROWS_TILE = 8
+
 
 def ingest_incapability(
-    path: str, num_metrics: int, batch_size: int | None = None
+    path: str,
+    num_metrics: int,
+    batch_size: int | None = None,
+    num_buckets: int | None = None,
+    guard_metrics: int | None = None,
 ) -> str | None:
-    """Why ``path`` cannot serve this shape, or None when it can."""
-    if path == "fused":
+    """Why ``path`` cannot serve this shape, or None when it can.
+    ``guard_metrics`` is the row count the flat-cell bound is held
+    against when it exceeds ``num_metrics`` (the aggregator's growth
+    cap), as in the JAX ``resolve_ingest_path``."""
+    if path in ("fused", "scatter"):
         return None
     if path == "row":
         if num_metrics != 1:
@@ -54,13 +76,45 @@ def ingest_incapability(
                 f"reference's row kernel keeps; batch_size is {batch_size}."
             )
         return None
+    if path in ("sort", "sortscan", "matmul"):
+        if num_buckets is None:
+            return None
+        from loghisto_tpu_torch.ops.sort_ingest import flat_cell_incapability
+
+        return flat_cell_incapability(
+            max(num_metrics, guard_metrics or 0), num_buckets, path)
+    if path in ("hybrid", "pallas"):
+        if batch_size is not None and batch_size >= ROW_MAX_BATCH:
+            return (
+                f"{path} ingest batches must stay < 2^24 samples (float32 "
+                f"accumulation exactness); got batch_size={batch_size}"
+            )
+        if path == "pallas" and num_metrics != 1:
+            return (
+                "ingest_path='pallas' is the single-metric row kernel; got "
+                f"num_metrics={num_metrics} (growth past 1 row swaps kernels "
+                "automatically, but the starting shape must be [1, B])"
+            )
+        return None
+    if path == "multirow":
+        if num_metrics % MULTIROW_ROWS_TILE:
+            return (
+                f"num_metrics={num_metrics} must divide by "
+                f"rows_tile={MULTIROW_ROWS_TILE}"
+            )
+        return None
     raise ValueError(
-        f"unknown ingest_path {path!r}: expected 'auto', 'fused' or 'row'"
+        f"unknown ingest_path {path!r}: expected 'auto' or one of "
+        f"{', '.join(repr(p) for p in INGEST_PATHS)}"
     )
 
 
 def resolve_ingest_path(
-    path: str, num_metrics: int, batch_size: int | None = None
+    path: str,
+    num_metrics: int,
+    batch_size: int | None = None,
+    num_buckets: int | None = None,
+    guard_metrics: int | None = None,
 ) -> str:
     """Resolve "auto"; an explicit path the shape cannot serve raises
     with its reason."""
@@ -68,10 +122,53 @@ def resolve_ingest_path(
         if ingest_incapability("row", num_metrics, batch_size) is None:
             return "row"
         return "fused"
-    reason = ingest_incapability(path, num_metrics, batch_size)
+    reason = ingest_incapability(path, num_metrics, batch_size, num_buckets,
+                                 guard_metrics)
     if reason is not None:
         raise ValueError(f"ingest_path={path!r} unavailable: {reason}")
     return path
+
+
+def ingest_step_fn(path: str):
+    """The per-batch accumulation function of a named path, with the
+    uniform ``f(acc, ids, values, bucket_limit, precision) -> acc``
+    contract (in place).  As in the JAX package there is no "multirow"
+    entry: its step takes a row tile and a layout
+    (ops/multirow_ingest.multirow_step); "row" and "pallas" need a
+    [1, B] accumulator."""
+    if path == "sort":
+        from loghisto_tpu_torch.ops.sort_ingest import sort_ingest_batch
+
+        return sort_ingest_batch
+    if path == "sortscan":
+        from loghisto_tpu_torch.ops.sort_ingest import sortscan_ingest_batch
+
+        return sortscan_ingest_batch
+    if path == "hybrid":
+        from loghisto_tpu_torch.ops.hybrid_hist import ingest_batch_hybrid
+
+        return ingest_batch_hybrid
+    if path == "matmul":
+        from loghisto_tpu_torch.ops.matmul_hist import ingest_batch_matmul
+
+        return ingest_batch_matmul
+    if path in ("pallas", "row"):
+        from loghisto_tpu_torch.ops.row_ingest import row_ingest_batch
+
+        return row_ingest_batch
+    if path == "fused":
+        from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
+
+        return fused_ingest_batch
+    if path != "scatter":
+        raise ValueError(
+            f"no pure step form for ingest_path {path!r}: expected "
+            "'scatter', 'sort', 'sortscan', 'hybrid', 'matmul', "
+            "'pallas', 'row', or 'fused'"
+        )
+    from loghisto_tpu_torch.ops.ingest import ingest_batch
+
+    return ingest_batch
 
 
 def kernel_tier(device_type: str) -> str:

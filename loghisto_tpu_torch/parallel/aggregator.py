@@ -15,8 +15,9 @@ routes, updating the accumulator in place:
 
   * raw: the batch is copied through a ring of pinned host buffers to
     the device (``non_blocking=True``) and each ``batch_size`` chunk is
-    one ingest-kernel launch — K1 (fused) or, for a single-row
-    accumulator, K2 (row);
+    one ingest step — K1 (fused) or, for a single-row accumulator, K2
+    (row), by default; K8 (multirow) or one of the JAX package's XLA
+    paths when ``ingest_path`` names it (ops/dispatch.py);
   * sparse: the batch is folded on the host into packed
     (id, bucket, count) triples (ops/fold.py) and merged by K3.
 
@@ -86,8 +87,7 @@ from loghisto_tpu_torch.metrics import (
 from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import kernel_launches, resolve_device
 from loghisto_tpu_torch.ops.fold import compress_np_host, fold_packed_numpy
-from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
-from loghisto_tpu_torch.ops.row_ingest import row_ingest_batch
+from loghisto_tpu_torch.ops.multirow_ingest import multirow_step
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
 from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
@@ -100,7 +100,13 @@ DEFAULT_GROWTH_FACTOR = 8
 # Minimum raw-item size the transport="auto" density probe runs on.
 _PROBE_SAMPLES = 1 << 16
 
-_STEPS = {"fused": fused_ingest_batch, "row": row_ingest_batch}
+
+def _step_for(path: str):
+    """The uniform per-chunk step of a resolved dense ingest path."""
+    if path == "multirow":
+        return multirow_step
+    return dispatch.ingest_step_fn(path)
+
 
 STATE_FORMAT = "loghisto_tpu_torch.aggregator/1"
 
@@ -195,9 +201,18 @@ class TorchAggregator:
         """``device`` defaults to the card and raises when CUDA is
         absent; ``device="cpu"`` runs the plain versions.  The other
         arguments mean what they mean for ``TPUAggregator``;
-        ``ingest_path`` is "auto", "fused" or "row" (ops/dispatch.py),
-        ``storage`` "auto", "dense" or "paged", and ``paged_config`` a
-        ``paging.PagedStoreConfig``."""
+        ``storage`` is "auto", "dense" or "paged", and ``paged_config`` a
+        ``paging.PagedStoreConfig``.
+
+        ``ingest_path`` is "auto" or one of ``dispatch.INGEST_PATHS``:
+        "fused" (K1), "row" or its JAX name "pallas" (K2b, one row),
+        "multirow" (preprocess + K8; M % 8 == 0, dense storage), or one
+        of the JAX package's XLA paths, "scatter", "sort", "sortscan",
+        "matmul", "hybrid".  Those have no Pallas kernel in the JAX
+        package, so their PyTorch form runs on the card as well: it is
+        the reference's path, not a fallback.  An explicit path checks
+        its shape before the accumulator is allocated, with the JAX
+        package's sentences."""
         self.device = resolve_device(device)
         self.config = config
         self.num_metrics = num_metrics
@@ -253,11 +268,13 @@ class TorchAggregator:
                 f"transport={transport!r}: expected 'auto', 'raw' or "
                 "'sparse' (preagg comes in a later slice)"
             )
-        if ingest_path not in ("auto", "fused", "row"):
-            raise ValueError(
-                f"unknown ingest_path {ingest_path!r}: expected 'auto', "
-                "'fused' or 'row'"
-            )
+        # the dense path resolves before any allocation, against the
+        # growth cap, as the JAX aggregator checks an explicit path
+        # (unknown names raise here too); paged storage replaces it below
+        dense_path = dispatch.resolve_ingest_path(
+            ingest_path, num_metrics, batch_size, config.num_buckets,
+            guard_metrics=self.max_metrics,
+        )
         # storage first: it pins the transport (paged with K4f ingests
         # raw, paged without it rides the host fold)
         platform = self.device.type
@@ -289,6 +306,12 @@ class TorchAggregator:
                     "ingest_path='row' needs the dense single-row "
                     "accumulator; paged storage keeps none"
                 )
+            if ingest_path == "multirow":
+                raise ValueError(
+                    "ingest_path='multirow' needs the dense accumulator; "
+                    "paged storage keeps none (every paged commit rides "
+                    "the packed sparse-triple scatter)"
+                )
             if ingest_path == "fused" and not self.fused_paged:
                 raise ValueError(
                     "ingest_path='fused' with paged storage needs the "
@@ -298,10 +321,8 @@ class TorchAggregator:
             self.ingest_path = "fused_paged" if self.fused_paged else "packed"
             self._ingest = None
         else:
-            self.ingest_path = dispatch.resolve_ingest_path(
-                ingest_path, num_metrics, batch_size
-            )
-            self._ingest = _STEPS[self.ingest_path]
+            self.ingest_path = dense_path
+            self._ingest = _step_for(self.ingest_path)
 
         # Two locks, never nested: _lock guards host staging, _dev_lock
         # the device state (_acc, _spill, _interval_ingested, growth).
@@ -389,14 +410,23 @@ class TorchAggregator:
             self._registry_shed_samples += samples
             return -1
 
+    def _grow_row_unit(self) -> int:
+        """Row-count granularity growth must keep: the multirow step's
+        row tile (K1 serves any row count)."""
+        if self.ingest_path == "multirow":
+            return dispatch.MULTIROW_ROWS_TILE
+        return 1
+
     def _grow_locked(self, target: Optional[int] = None) -> bool:
         """Grow the row space in place (caller holds _dev_lock): zero rows
         are appended to the accumulator and the spill, and a row kernel
-        that no longer fits is swapped for the fused kernel."""
+        that no longer fits is swapped for the fused kernel.  The new row
+        count rounds down to ``_grow_row_unit``."""
         old_m = self.num_metrics
         new_m = min(
             target if target is not None else old_m * 2, self.max_metrics
         )
+        new_m -= new_m % self._grow_row_unit()  # the clamp may land off-grid
         if new_m <= old_m:
             return False
         if self.paged is not None:
@@ -407,7 +437,8 @@ class TorchAggregator:
             self.registry.grow(new_m)
             return True
         path = self.ingest_path
-        if dispatch.ingest_incapability(path, new_m, self.batch_size):
+        if dispatch.ingest_incapability(path, new_m, self.batch_size,
+                                        self._acc.shape[1]):
             path = dispatch.resolve_ingest_path(
                 "auto", new_m, self.batch_size
             )
@@ -417,7 +448,7 @@ class TorchAggregator:
         )
         grown[:old_m] = self._acc
         self._acc = grown
-        self.ingest_path, self._ingest = path, _STEPS[path]
+        self.ingest_path, self._ingest = path, _step_for(path)
         self.num_metrics = new_m
         self.stats_snapshot = None  # row space changed; handle is stale
         self.registry.grow(new_m)
@@ -1013,12 +1044,13 @@ class TorchAggregator:
         self.flush(force=True)
         with self._dev_lock, self._agg_lock:
             path = self.ingest_path
-            if dispatch.ingest_incapability(path, m, self.batch_size):
+            if dispatch.ingest_incapability(path, m, self.batch_size,
+                                            acc.shape[1]):
                 path = dispatch.resolve_ingest_path("auto", m, self.batch_size)
             self.registry = MetricRegistry.from_names(state["names"], m)
             self.num_metrics = m
             self.max_metrics = max(self.max_metrics, m)
-            self.ingest_path, self._ingest = path, _STEPS[path]
+            self.ingest_path, self._ingest = path, _step_for(path)
             self._acc = torch.from_numpy(acc).to(self.device)
             self.stats_snapshot = None
             self._spill = (

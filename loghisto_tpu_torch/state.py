@@ -12,6 +12,11 @@ state dict that ``TorchAggregator.load_state_dict`` reads and
     lifetime = jax_agg._agg                      # id -> [sum, count]
     spill    = jax_agg._spill                    # int64 [M, B] or None
 
+A JAX ``TPUAggregator(ingest_path="multirow")`` keeps its accumulator
+lane-padded to [M, H * 128]; pass ``bucket_limit`` and the pad is
+stripped to the canonical [M, 2 * bucket_limit + 1] (ROADMAP D7, the
+layout the JAX checkpoint also treats as canonical).
+
 For paged storage, ``paged_state_from_jax`` takes what the caller
 reads off a JAX ``TPUAggregator(storage="paged").paged``:
 
@@ -57,13 +62,26 @@ def state_from_jax(
     lifetime: Mapping[int, Sequence],
     spill: Optional[np.ndarray] = None,
     precision: int = PRECISION,
+    bucket_limit: Optional[int] = None,
 ) -> dict:
     """Build a ``TorchAggregator`` state dict from a JAX aggregator's
-    accumulator, registry names, lifetime store and spill."""
+    accumulator, registry names, lifetime store and spill.  With
+    ``bucket_limit``, ``acc`` may be wider than 2 * bucket_limit + 1
+    columns (a multirow accumulator's lane pad), and the extra columns
+    are dropped."""
     acc = np.array(acc, dtype=np.int32, copy=True)
+    if bucket_limit is not None:
+        width = 2 * bucket_limit + 1
+        if acc.ndim != 2 or acc.shape[1] < width:
+            raise ValueError(
+                f"acc must be int32 [M, >= {width}] for bucket_limit="
+                f"{bucket_limit}; got {acc.shape}"
+            )
+        acc = np.ascontiguousarray(acc[:, :width])
     if acc.ndim != 2 or acc.shape[1] % 2 != 1:
         raise ValueError(
-            f"acc must be int32 [M, 2*bucket_limit+1]; got {acc.shape}"
+            f"acc must be int32 [M, 2*bucket_limit+1]; got {acc.shape} "
+            "(pass bucket_limit= to strip a multirow lane pad)"
         )
     names = list(names)
     if len(names) > acc.shape[0]:

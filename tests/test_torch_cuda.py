@@ -1,9 +1,11 @@
 """The Hopper kernels on the card, at small shapes, against their plain
 PyTorch versions on the same CUDA tensors (int32 outputs EQUAL): K1, K2,
-K3, the paged pair K4 (triple scatter) and K4f (direct-to-paged fused
-ingest), K5 (the retention wheel's masked ring merge), K6 (the
-lifecycle's row repack, EQUAL) and K7 (drift scores, within the float32
-tolerance of ``tests/test_torch_anomaly.py``), plus one paged interval
+K3, K8 (the multirow layout accumulation, with one aggregator
+interval on ``ingest_path="multirow"``), the paged pair K4 (triple
+scatter) and K4f (direct-to-paged fused ingest), K5 (the retention
+wheel's masked ring merge), K6 (the lifecycle's row repack, EQUAL) and
+K7 (drift scores, within the float32 tolerance of
+``tests/test_torch_anomaly.py``), plus one paged interval
 through ``TorchAggregator``, a wheel, and a fused commit with lifecycle
 and drift on the card.
 
@@ -23,6 +25,11 @@ from loghisto_tpu_torch.ops.codec import compress_np, edge_values
 from loghisto_tpu_torch.ops.fold import fold_packed_numpy
 from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
 from loghisto_tpu_torch.ops.ingest import ingest_batch
+from loghisto_tpu_torch.ops.multirow_ingest import (
+    multirow_ingest,
+    multirow_ingest_reference,
+    preprocess,
+)
 from loghisto_tpu_torch.ops.row_ingest import (
     histogram_row,
     histogram_row_reference,
@@ -58,7 +65,8 @@ def _batch(n, m, seed):
     ids = rng.integers(-2, m + 2, n).astype(np.int32)
     values = (rng.lognormal(2, 3, n) * np.where(
         rng.random(n) < 0.3, -1, 1)).astype(np.float32)
-    values[:6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 3.4e38]
+    edge = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 3.4e38], np.float32)
+    values[:6] = edge[:n]
     return ids, values
 
 
@@ -102,6 +110,46 @@ def test_row_kernel_equals_plain(dev, n):
         histogram_row_reference(p[0], vals_d, bl, 100)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("m,rows_tile,n", [(16, 8, 100_003), (64, 16, 5000),
+                                           (4000, 8, 1), (8, 8, 0)])
+def test_multirow_kernel_equals_plain(dev, m, rows_tile, n):
+    """K8 against its plain version on the same layout, and the whole
+    step against K1's plain version; one launch per non-empty layout."""
+    bl = 4096
+    ids, values = _batch(n, m, seed=n + m)
+    ids_d, vals_d = torch.from_numpy(ids).to(dev), torch.from_numpy(values).to(dev)
+    rows, bidx, tb = preprocess(ids_d, vals_d, m, rows_tile, bl)
+    k = torch.zeros((m, 2 * bl + 1), dtype=torch.int32, device=dev)
+    p, s = torch.zeros_like(k), torch.zeros_like(k)
+    before = kernel_launches()["multirow_ingest"]
+    multirow_ingest(k, rows, bidx, tb, rows_tile)
+    multirow_ingest_reference(p, rows, bidx, tb, rows_tile)
+    ingest_batch(s, ids_d, vals_d, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["multirow_ingest"] == before + 1
+    assert torch.equal(k, p)
+    assert torch.equal(k, s)
+
+
+def test_multirow_aggregator_interval_on_the_card(dev):
+    from loghisto_tpu_torch.ops.backend import reset_kernel_launches
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    reset_kernel_launches()
+    agg = TorchAggregator(num_metrics=16, ingest_path="multirow",
+                          transport="raw", batch_size=4096)
+    ids, values = _batch(20_000, 16, seed=5)
+    for i in range(16):
+        agg.registry.id_for(f"m{i}")
+    agg.record_batch(ids, values)
+    metrics = agg.collect().metrics
+    agg.close()
+    assert kernel_launches()["multirow_ingest"] == 5  # one per chunk
+    keep = (ids >= 0) & (ids < 16)
+    for i in range(16):
+        assert metrics.get(f"m{i}_count", 0.0) == float((ids[keep] == i).sum())
 
 
 def test_sparse_kernel_equals_plain(dev):

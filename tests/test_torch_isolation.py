@@ -1,8 +1,9 @@
 """The port stands alone: ``loghisto_tpu_torch`` imports neither ``jax``
 nor any module of ``loghisto_tpu``, runs a dense and a paged interval, a
-wheel push and query, a ``TorchMetricSystem`` interval and a fused commit
-with lifecycle and drift on the CPU without either in ``sys.modules``,
-and never falls back to the CPU on its own."""
+wheel push and query, a ``TorchMetricSystem`` interval, a fused commit
+with lifecycle and drift, a multirow interval and a firehose run with
+its OpenTSDB export on the CPU without either in ``sys.modules``, and
+never falls back to the CPU on its own."""
 
 import ast
 import subprocess
@@ -93,6 +94,19 @@ def test_interval_runs_without_jax_in_sys_modules():
         "assert ms.lifecycle.evicted_series > 0\n"
         "assert ms.anomaly.scored_intervals == 3\n"
         "ms.stop()\n"
+        "agg = TorchAggregator(num_metrics=8, batch_size=64, device='cpu',"
+        " ingest_path='multirow')\n"
+        "agg.record_batch(np.array([agg.registry.id_for('x')] * 100,"
+        " np.int32), np.linspace(1, 100, 100, dtype=np.float32))\n"
+        "assert agg.collect().metrics['x_count'] == 100.0\n"
+        "agg.close()\n"
+        "import io\n"
+        "import loghisto_tpu_torch.opentsdb, loghisto_tpu_torch.submitter\n"
+        "from loghisto_tpu_torch.firehose import run_firehose\n"
+        "s = run_firehose(num_metrics=16, batch=1024, seconds=0.2,"
+        " interval=0.1, config=MetricConfig(bucket_limit=64),"
+        " out=io.StringIO(), device='cpu')\n"
+        "assert s['total_samples'] > 0, s\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -114,6 +128,10 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch import TimeWheel, TorchMetricSystem
     from loghisto_tpu_torch.anomaly import AnomalyConfig
     from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.firehose import make_firehose_step, run_firehose
+    from loghisto_tpu_torch.ops.multirow_ingest import make_multirow_ingest
+    from loghisto_tpu_torch.ops.sort_ingest import make_sort_ingest_fn
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 
     factories = [
@@ -128,6 +146,11 @@ def test_entry_points_default_to_the_card():
         lambda: make_sparse_ingest_fn(64),
         lambda: PagedStore(4, 64),
         lambda: TorchAggregator(num_metrics=1 << 20),
+        lambda: TorchAggregator(num_metrics=8, ingest_path="multirow"),
+        lambda: make_multirow_ingest(8, 64),
+        lambda: make_sort_ingest_fn(64),
+        lambda: make_firehose_step(16, 1024, MetricConfig()),
+        lambda: run_firehose(num_metrics=16, batch=1024, seconds=0.1),
     ]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is real")
