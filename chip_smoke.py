@@ -7,7 +7,11 @@ transfer worker -> kernels -> ``collect()`` — and checks their output
 against host oracles:
 
   * dense storage (``main_path``) at 10,000 metrics x 8193 buckets: K1
-    on the raw route, K3 on the sparse route, K2 on the single row;
+    on the raw route, K3 on the sparse route, the default
+    transport="auto" (which the card's measured crossover keeps on raw),
+    K2 on the single row; ``transport_crossover`` measures that
+    crossover (raw and sparse at five cell densities) and sweeps the
+    batch size at which K4f beats the sparse route on paged storage;
   * paged storage (``paged_main_path``) at 2^20 live rows x 8193 buckets
     (page pool of 2^21 pages), the reference's paged headline: K4f on
     the raw route, K4 on the sparse route, a snapshot query of 4096
@@ -19,8 +23,9 @@ against host oracles:
     intervals through the reaper and both bridges, then 75 intervals of
     2^20 samples through ``backfill_retention`` and ``merge_raw``; K3
     scatters each interval into every tier's ring slot and K5 (phase
-    ``k5_window_merge`` at the 60 x 1024 x 8193 tier-0 ring) merges the
-    snapshot views and recomputes windows;
+    ``k5_window_merge`` at the 60 x 1024 x 8193 tier-0 ring, and at
+    1440 slots) merges every snapshot view of a tier in one launch and
+    recomputes windows;
   * the fused commit with lifecycle and drift
     (``lifecycle_drift_main_path``, K6 and K7);
   * every dense ingest path (``ingest_paths_main_path``):
@@ -33,8 +38,10 @@ against host oracles:
     one generator seed, then ``run_firehose`` for 3 s per path with its
     OpenTSDB export to an in-process TCP listener.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
+With phase names (``k5_window_merge main_path`` ...) it runs the card
+phase and those phases only, and prints no kernels line and no result.
 Needs a CUDA device (exits nonzero, printing no result, without one, or
 without the package beside it).  Imports nothing of JAX.  Each phase
 prints one JSON line; a failed phase makes the script exit 1.  The card
@@ -511,11 +518,14 @@ def _drive(torch, num_metrics, transport, interval_samples, kernel):
     finally:
         agg.close()
     launches = kernel_launches()
+    if kernel is None:  # "auto": the kernel of the transport it chose
+        kernel = TRANSPORT_KERNEL[agg.transport]
     if launches[kernel] <= 0:
         raise AssertionError(f"{kernel} was not launched on the main path")
     total = 3 * interval_samples
     return {
         "num_metrics": num_metrics, "transport": agg.transport,
+        "probe_density": agg.probe_density,
         "ingest_path": agg.ingest_path, "samples": total,
         "samples_per_s": total / sum(ingest_s),
         "ingest_s": ingest_s, "collect_ms": collect_ms,
@@ -523,18 +533,187 @@ def _drive(torch, num_metrics, transport, interval_samples, kernel):
     }
 
 
+TRANSPORT_KERNEL = {"raw": "fused_ingest", "sparse": "sparse_ingest"}
+
+
 def phase_main(torch):
+    """The dense main path at the headline shape: raw (K1), sparse (K3),
+    the default transport="auto" (its probe and the card's crossover
+    decide; the kernel of the transport it chose must run) and the
+    single row (K2b)."""
+    from loghisto_tpu_torch.ops import dispatch
+
     runs = {
         "raw": _drive(torch, M, "raw", 1 << 24, "fused_ingest"),
         "sparse": _drive(torch, M, "sparse", 1 << 24, "sparse_ingest"),
+        "auto": _drive(torch, M, "auto", 1 << 24, None),
         "single": _drive(torch, 1, "raw", 1 << 22, "row_ingest"),
     }
+    auto = runs["auto"]
+    # with the card's crossover at 0.0 no density can switch it, so the
+    # aggregator skips the host probe (probe_density stays None)
+    want = dispatch.choose_transport("cuda", auto["probe_density"])
+    if auto["transport"] != want:
+        raise AssertionError(
+            f"'auto' at density {auto['probe_density']} took "
+            f"{auto['transport']}; the card's crossover "
+            f"{dispatch.sparse_density_crossover('cuda')} picks {want}")
+    if want == "raw" and auto["launches"]["sparse_ingest"]:
+        raise AssertionError("'auto' stayed raw but launched K3")
     assert runs["single"]["ingest_path"] == "row"
     for kernel, run in (("fused_ingest", "raw"), ("sparse_ingest", "sparse"),
                         ("row_ingest", "single")):
         RESULTS.setdefault(kernel, {})["launches"] = runs[run]["launches"][
             kernel]
     return runs
+
+
+# transport crossover: the headline generator (Zipf(1.3) ids over M,
+# lognormal(4, 2) values) narrowed in id range or value spread, or with a
+# flatter Zipf, for cell densities (unique cells / samples of a 2^20-sample
+# item, the probe's measure) of about 0.02, 0.05, 0.19, 0.26 and 0.5
+XO_STREAMS = (("ids_over_20", {"m_ids": 20}), ("ids_over_60", {"m_ids": 60}),
+              ("sigma_0.5", {"sigma": 0.5}), ("headline", {}),
+              ("zipf_1.15", {"a": 1.15}))
+XO_SAMPLES = 1 << 24
+# FUSED_MIN_BATCH sweep: K4f vs the sparse route on paged storage at
+# 2^20 rows, per batch size, on the band workload
+FMB_BATCHES = tuple(1 << k for k in range(12, 21, 2))
+FMB_SAMPLES = 1 << 21
+
+
+def _xo_stream(rng, n, m_ids=M, sigma=2.0, a=1.3):
+    ids = ((rng.zipf(a, n) - 1) % m_ids).astype(np.int32)
+    return ids, rng.lognormal(4.0, sigma, n).astype(np.float32)
+
+
+def _cell_density(ids, values):
+    """The transport probe's measure: unique (id, bucket) / samples."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    keys = (ids.astype(np.int64) << 16) | (
+        compress_np(values).astype(np.int64) + 32768)
+    return len(np.unique(keys)) / len(ids)
+
+
+def _timed_ingest(torch, agg, ids, values, item):
+    """Host wall clock of record_batch in ``item``-sample pieces through
+    flush(force=True) and a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, len(ids), item):
+        agg.record_batch(ids[off:off + item], values[off:off + item])
+    agg.flush(force=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _xo_dense(torch, ids, values):
+    """Raw (staging + K1) and sparse (NumPy fold + K3) through
+    TorchAggregator at M = 10,000 on the same stream, fed twice: the
+    second pass is timed, and the two accumulators must be equal."""
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    out, accs = {}, {}
+    for transport in ("raw", "sparse"):
+        agg = TorchAggregator(num_metrics=M, batch_size=BATCH,
+                              transport=transport)
+        try:
+            _timed_ingest(torch, agg, ids, values, BATCH)
+            dt = _timed_ingest(torch, agg, ids, values, BATCH)
+            accs[transport] = agg._acc.clone()
+        finally:
+            agg.close()
+        out[transport] = len(ids) / dt
+    if not torch.equal(accs["raw"], accs["sparse"]):
+        raise AssertionError("raw and sparse accumulators differ")
+    if int(accs["raw"].sum(dtype=torch.int64)) != 2 * len(ids):
+        raise AssertionError("the accumulator lost samples")
+    return out
+
+
+def _fmb_paged(torch, batch, ids, values):
+    """K4f (transport="raw", ingest_path="fused") against the sparse
+    route (fold + translate + K4) on paged storage at 2^20 rows, with
+    aggregator batches and record_batch items of ``batch`` samples; the
+    stream is fed twice and the second pass timed.  Both stores must
+    hold every sample and answer a 1024-row query alike."""
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    out, answers = {}, {}
+    q_ids = np.random.default_rng(SEED + 41).choice(PAGED_M, 1024,
+                                                    replace=False)
+    for route, kw in (("k4f", {"transport": "raw", "ingest_path": "fused"}),
+                      ("sparse", {"transport": "sparse"})):
+        agg = TorchAggregator(
+            num_metrics=PAGED_M, batch_size=batch, storage="paged",
+            paged_config=PagedStoreConfig(pool_pages=PAGED_POOL), **kw)
+        try:
+            if agg.fused_paged != (route == "k4f"):
+                raise AssertionError(f"{route} at batch {batch}: fused_paged "
+                                     f"is {agg.fused_paged}")
+            _timed_ingest(torch, agg, ids, values, batch)
+            dt = _timed_ingest(torch, agg, ids, values, batch)
+            total = int(agg.paged._pool.sum(dtype=torch.int64))
+            answers[route] = agg.paged.query(q_ids, PS)
+        finally:
+            agg.close()
+            del agg
+            torch.cuda.empty_cache()
+        if total != 2 * len(ids):
+            raise AssertionError(f"{route} at batch {batch}: pool holds "
+                                 f"{total} of {2 * len(ids)} samples")
+        out[route] = len(ids) / dt
+    for key in ("counts", "percentiles"):
+        if not np.array_equal(answers["k4f"][key], answers["sparse"][key]):
+            raise AssertionError(f"batch {batch}: the routes' {key} differ")
+    return out
+
+
+def phase_transport_crossover(torch):
+    """F4's measurement: the dense raw and sparse transports through
+    TorchAggregator on the same streams at five cell densities (2^24
+    samples each, M = 10,000); the card's crossover is the highest
+    density at which sparse beats raw (0.0 if it wins nowhere) and must
+    be the one ops/dispatch.py states.  Then the FUSED_MIN_BATCH sweep:
+    K4f against the sparse route on paged storage (2^20 rows) at batch
+    sizes 2^12 ... 2^20."""
+    from loghisto_tpu_torch.ops import dispatch
+
+    rng = np.random.default_rng(SEED + 40)
+    points = []
+    for name, kw in XO_STREAMS:
+        ids, values = _xo_stream(rng, XO_SAMPLES, **kw)
+        density = _cell_density(ids[:BATCH], values[:BATCH])
+        rates = _xo_dense(torch, ids, values)
+        points.append({"stream": name, "density": density,
+                       "raw_samples_per_s": rates["raw"],
+                       "sparse_samples_per_s": rates["sparse"]})
+    wins = [p["density"] for p in points
+            if p["sparse_samples_per_s"] > p["raw_samples_per_s"]]
+    measured = max(wins) if wins else 0.0
+    stated = dispatch.sparse_density_crossover("cuda")
+    if (measured > 0.0) != (stated > 0.0) or measured > stated:
+        raise AssertionError(f"measured crossover {measured} on the card; "
+                             f"ops/dispatch.py states {stated}")
+
+    sweep = []
+    for batch in FMB_BATCHES:
+        ids, values = band_batch(rng, FMB_SAMPLES, PAGED_M)
+        rates = _fmb_paged(torch, batch, ids, values)
+        sweep.append({"batch": batch,
+                      "k4f_samples_per_s": rates["k4f"],
+                      "sparse_samples_per_s": rates["sparse"]})
+    k4f_from = next((p["batch"] for i, p in enumerate(sweep)
+                     if all(q["k4f_samples_per_s"] > q["sparse_samples_per_s"]
+                            for q in sweep[i:])), None)
+    return {"samples": XO_SAMPLES, "points": points,
+            "measured_crossover": measured, "stated_crossover": stated,
+            "fused_min_batch_sweep": {
+                "samples": FMB_SAMPLES, "rows": PAGED_M, "points": sweep,
+                "k4f_wins_from_batch": k4f_from,
+                "stated": dispatch.fused_min_batch_for("cuda")}}
 
 
 def _paged_store(torch, m):
@@ -632,11 +811,14 @@ def phase_k4f(torch):
     """K4f against its plain version at the headline shape: 2^20-sample
     batches through prepare_batch on a 2^20-row store (2^21-page pool):
     the band workload, a uniform workload, and an adversarial batch
-    (-1 ids, rows with no codec, unmapped pages, a hot cell)."""
+    (-1 ids, rows with no codec, unmapped pages, a hot cell).  Times on
+    the band and uniform batches, each beside K4 on the batch's own
+    translated (slot, offset, 1) cells: the scatter alone."""
     from loghisto_tpu_torch.ops.fused_ingest import (
         fused_paged_ingest_batch,
         fused_paged_ingest_reference,
     )
+    from loghisto_tpu_torch.ops.paged_store import paged_scatter
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 5)
@@ -678,32 +860,70 @@ def phase_k4f(torch):
     hot = int(pool_k.max())
     assert hot >= 1 << 16, hot
 
-    i_d = torch.from_numpy(batches["band"][0]).to(dev)
-    v_d = torch.from_numpy(band_vals).to(dev)
-    fresh = torch.zeros_like(pool_p)
-    fused_paged_ingest_reference(fresh, i_d, v_d, *luts, BL)
-    cells = int((fresh != 0).sum())
-    del fresh
-    k_ms = time_ms(torch, lambda: fused_paged_ingest_batch(
-        pool_k, i_d, v_d, *luts, BL))
-    p_ms = time_ms(torch, lambda: fused_paged_ingest_reference(
-        pool_p, i_d, v_d, *luts, BL))
-    # 8 B/sample in, 8 B of table gathers per sample (row codec + page
-    # table entry; the 98 KB of encode LUTs stay in L2), 8 B of
-    # read-modify-write per touched cell
-    b_ms, b_by = bound_ms(BATCH * 16 + cells * 8, BATCH * CODEC_OPS)
-    RESULTS["fused_paged_ingest"] = {"max_abs_err": max_err, "ms": k_ms,
-                                     "plain_ms": p_ms, "library_ms": None,
-                                     "bound_ms": b_ms, "bound_by": b_by}
+    timings = {}
+    for name in ("band", "uniform"):
+        ids, vals = batches[name]
+        i_d = torch.from_numpy(ids).to(dev)
+        v_d = torch.from_numpy(vals).to(dev)
+        # the batch's own cells, translated on the host from the store's
+        # tables: one (slot, offset, 1) triple per sample for K4
+        cells, need = _k4f_cells(store, ids, vals)
+        packed = np.ascontiguousarray(np.stack(
+            [cells // 256, cells % 256, np.ones_like(cells)],
+            axis=1).astype(np.int32))
+        packed_d = torch.from_numpy(packed).to(dev)
+        n_cells = len(np.unique(cells))
+        k_ms = time_ms(torch, lambda: fused_paged_ingest_batch(
+            pool_k, i_d, v_d, *luts, BL))
+        k4_ms = time_ms(torch, lambda: paged_scatter(pool_p, packed_d))
+        p_ms = time_ms(torch, lambda: fused_paged_ingest_reference(
+            pool_p, i_d, v_d, *luts, BL))
+        # the bytes the work needs: 8 B per sample in, the table entries
+        # the inputs need (row codec per distinct id, encode LUT per distinct
+        # (codec, col), page table per distinct (id, page)), 8 B of
+        # read-modify-write per touched cell
+        b_ms, b_by = bound_ms(len(ids) * 8 + need * 4 + n_cells * 8,
+                              len(ids) * CODEC_OPS)
+        k4_bound, _ = bound_ms(len(packed) * 12 + n_cells * 8)
+        timings[name] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "touched_cells": n_cells,
+            "table_entries": need, "k4_same_cells_ms": k4_ms,
+            "k4_same_cells_bound_ms": k4_bound, "k4_triples": len(packed),
+            "ratio_to_k4": k_ms / k4_ms,
+        }
+    RESULTS["fused_paged_ingest"] = {
+        "max_abs_err": max_err,
+        **{k: timings["band"][k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}}
     out = {"M": PAGED_M, "pool_pages": PAGED_POOL, "batch": BATCH,
-           "adversarial_samples": n_adv, "touched_cells": cells,
-           "hot_cell": hot, "equal": equal,
+           "adversarial_samples": n_adv, "hot_cell": hot, "equal": equal,
            "allocated_pages": int(store.allocated_pages),
-           **RESULTS["fused_paged_ingest"],
+           "max_abs_err": max_err, "timings": timings,
            "library_call": "none: no single PyTorch call computes codec, "
                            "encode, translate and scatter"}
     del store, pool_k, pool_p
     return out
+
+
+def _k4f_cells(store, ids, vals):
+    """The flat pool cells (slot * 256 + offset) of a prepared batch's
+    valid samples, and the number of distinct table entries the batch
+    needs (row codecs, encode LUT entries, page-table entries), from the
+    store's host tables."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    keep = ids >= 0
+    rows = ids[keep].astype(np.int64)
+    dense = np.clip(compress_np(vals[keep]), -BL, BL).astype(np.int64) + BL
+    codec = store.row_codec[rows].astype(np.int64)
+    storage = store._enc[codec, dense].astype(np.int64)
+    page = storage // 256
+    slot = store.page_table[rows, page].astype(np.int64)
+    ok = slot > 0
+    need = (len(np.unique(rows)) + len(np.unique(codec * B + dense))
+            + len(np.unique(rows * store.pages_per_row + page)))
+    return (slot * 256 + storage % 256)[ok], need
 
 
 class _Timers:
@@ -975,13 +1195,76 @@ def phase_paged_main(torch):
             "h2d_measured": h2d}
 
 
+# the retention phase's snapshot views of a tier: the full span, then its
+# five pinned windows
+RET_VIEW_WINDOWS = (np.inf, 1.0, 5.0, 30.0, 60.0, 3600.0)
+
+
+def _wheel_1440(torch):
+    """A small wheel with a 24 h tier at minute resolution (1440 slots,
+    past the 1000 slots the first K5 took) pushed past its ring wrap on the
+    card: every push refreshes the snapshot through one K5 per tier; the
+    served windows equal the recompute and a host count oracle."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    pushes, slots = 1500, 1440
+    wheel = TimeWheel(num_metrics=8, config=MetricConfig(bucket_limit=64),
+                      tiers=((slots, 1), (24, 60)))
+    for w in (60.0, 1440.0):
+        wheel.pin_window(w)
+    t0 = _dt.datetime(2026, 1, 1, tzinfo=_dt.timezone.utc)
+    counts = []
+    before = kernel_launches()["window_merge"]
+    t_push = time.perf_counter()
+    for i in range(pushes):
+        a = 1 + i % 7
+        counts.append(a + 1)
+        wheel.push(RawMetricSet(t0 + i * _ONE_SECOND, {}, {"req": 3}, {
+            "a": {1: a, 40: 1}, "b": {-3: 2, 60: i % 5}}, {}, 1.0))
+    torch.cuda.synchronize()
+    push_ms = (time.perf_counter() - t_push) * 1e3 / pushes
+    k5 = kernel_launches()["window_merge"] - before
+    if k5 != 2 * pushes:
+        raise AssertionError(f"{k5} K5 launches for {pushes} pushes of a "
+                             "2-tier wheel, not 1 per tier")
+    served = {}
+    for w in (60.0, 1440.0):
+        res = wheel.query("*", w)
+        oracle = wheel._query_recompute("*", res.window_s,
+                                        wheel.percentiles, res.tier)
+        if res.metrics != oracle.metrics:
+            raise AssertionError(f"1440-slot wheel, window {w}: snapshot "
+                                 "serve != recompute")
+        want = sum(counts[-int(w):])
+        if res.tier != 0 or res.metrics["a"]["count"] != want:
+            raise AssertionError(f"1440-slot wheel, window {w}: count "
+                                 f"{res.metrics['a']['count']} != {want}")
+        served[str(w)] = res.metrics["a"]["count"]
+    del wheel
+    return {"slots": slots, "pushes": pushes, "k5_launches": k5,
+            "push_ms": push_ms, "counts": served}
+
+
 def phase_k5(torch):
     """K5 against its plain version at the default tier-0 ring, 60 x 1024
-    x 8193 int32 (2.01 GB) from a seeded generator: all slots, one slot,
-    a 5-slot trailing window wrapping past slot 0, a random mask, the
-    empty mask; then a 7 x 999 x 8193 ring (odd M*B, the scalar path) and
-    a ring built to wrap int32."""
-    from loghisto_tpu_torch.ops.window import window_merge, window_merge_kernel
+    x 8193 int32 (2.01 GB) from a seeded generator: one view at a time
+    (all slots, one slot, a 5-slot trailing window wrapping past slot 0,
+    a random mask, the empty mask), the retention phase's six nested
+    views in one launch, six random (not nested) views; a 7 x 999 x 8193
+    ring (odd M*B, the scalar path), a ring built to wrap int32, a
+    1440-slot ring of a few rows, and a small wheel with a 1440-slot
+    tier.  Times: all 60 slots in turns with ``ring.sum(0)``; the six
+    views in one launch against their bound, their plain version and
+    one launch per view (the earlier call pattern)."""
+    from loghisto_tpu_torch.ops.window import (
+        merge_plan,
+        window_merge,
+        window_merge_kernel,
+        window_merge_views,
+    )
     from loghisto_tpu_torch.window.store import trailing_mask
 
     dev = torch.device("cuda")
@@ -1001,23 +1284,35 @@ def phase_k5(torch):
         "empty": np.zeros(s, bool),
     }
     assert masks["trailing5"].sum() == 5 and masks["trailing5"][[0, 59]].all()
+    views = np.stack([trailing_mask(written, np.ones(s), 2, 0, s, w)
+                      for w in RET_VIEW_WINDOWS])
+    order, table = merge_plan(views)
+    assert len(order) == s and set(table[:, 1].tolist()) == {0}
     equal, max_err = {}, 0
 
-    def check(name, r, mask):
+    def note(name, got, want):
         nonlocal max_err
-        got = window_merge_kernel(r, mask)
-        want = window_merge(r, mask)
         torch.cuda.synchronize()
         equal[name] = bool(torch.equal(got, want))
         max_err = max(max_err, int((got.long() - want.long()).abs().max()))
         return got
 
+    def check(name, r, mask):
+        return note(name, window_merge_kernel(r, mask), window_merge(r, mask))
+
+    def check_views(name, r, vmasks):
+        return note(name, window_merge_views(r, vmasks),
+                    torch.stack([window_merge(r, m) for m in vmasks]))
+
     for name, mask in masks.items():
         check(name, ring, mask)
+    check_views("views6_nested", ring, views)
+    check_views("views6_random", ring, rng.random((6, s)) < 0.5)
     odd = torch.randint(-(1 << 20), 1 << 20, (7, 999, B), dtype=torch.int32,
                         device=dev, generator=gen)
     check("odd_all", odd, np.ones(7, bool))
     check("odd_random", odd, rng.random(7) < 0.5)
+    check_views("odd_views", odd, np.tril(np.ones((7, 7), bool)))
     del odd
     wrap = torch.zeros((3, 8, B), dtype=torch.int32, device=dev)
     wrap[:2, 0, 5] = (1 << 30) + 5
@@ -1025,34 +1320,70 @@ def phase_k5(torch):
     got = check("int32_wrap", wrap, np.ones(3, bool))
     if int(got[0, 5]) != -(1 << 31) + 10:
         raise AssertionError(f"K5 did not wrap int32: {int(got[0, 5])}")
+    big = torch.randint(-(1 << 30), 1 << 30, (1440, 4, 129),
+                        dtype=torch.int32, device=dev, generator=gen)
+    big_written = rng.random(1440) < 0.97
+    big_written[700] = True
+    check_views("s1440_nested", big, np.stack([
+        trailing_mask(big_written, np.ones(1440), 700, 1, 1440, w)
+        for w in RET_VIEW_WINDOWS]))
+    check_views("s1440_random", big, rng.random((6, 1440)) < 0.4)
+    check("s1440_one_view", big[:, :3].contiguous(), big_written)
+    del big
     if not all(equal.values()):
         raise AssertionError(f"K5 differs from its plain version: {equal}")
+    wheel = _wheel_1440(torch)
 
-    timings = {}
-    for name in ("all", "trailing5"):
-        mask = masks[name]
-        k = int(mask.sum())
-        idx = torch.from_numpy(np.flatnonzero(mask)).to(dev)
-        if name == "all":
-            lib = lambda: ring.sum(0, dtype=torch.int32)  # noqa: E731
-            lib_call = "ring.sum(0, dtype=torch.int32)"
-        else:
-            lib = lambda: ring[idx].sum(0, dtype=torch.int32)  # noqa: E731
-            lib_call = "ring[idx].sum(0, dtype=torch.int32)"
-        b_ms, b_by = bound_ms((k + 1) * RET_M * B * 4)
-        timings[name] = {
-            "slots": k,
-            "ms": time_ms(torch, lambda: window_merge_kernel(ring, mask)),
-            "plain_ms": time_ms(torch, lambda: window_merge(ring, mask)),
-            "library_ms": time_ms(torch, lib), "library_call": lib_call,
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-    RESULTS["window_merge"] = {"max_abs_err": max_err,
-                               **{k: v for k, v in timings["all"].items()
-                                  if k not in ("slots", "library_call")}}
+    mb4 = RET_M * B * 4
+    all_mask = masks["all"]
+    k_ms = lambda: time_ms(torch, lambda: window_merge_kernel(  # noqa: E731
+        ring, all_mask))
+    lib_ms = lambda: time_ms(torch, lambda: ring.sum(  # noqa: E731
+        0, dtype=torch.int32))
+    # in turns: library, kernel, kernel, library
+    turns = [("library", lib_ms()), ("kernel", k_ms()), ("kernel", k_ms()),
+             ("library", lib_ms())]
+    k_all = [t for who, t in turns if who == "kernel"]
+    lib_all = [t for who, t in turns if who == "library"]
+    b_all, b_all_by = bound_ms((s + 1) * mb4)
+    one_view = {
+        "slots": s, "ms_turns": k_all, "library_ms_turns": lib_all,
+        "library_call": "ring.sum(0, dtype=torch.int32)",
+        "plain_ms": time_ms(torch, lambda: window_merge(ring, all_mask)),
+        "bound_ms": b_all, "bound_by": b_all_by,
+    }
+    trailing5 = masks["trailing5"]
+    idx = torch.from_numpy(np.flatnonzero(trailing5)).to(dev)
+    b5, _ = bound_ms(6 * mb4)
+    five = {"slots": 5,
+            "ms": time_ms(torch, lambda: window_merge_kernel(ring, trailing5)),
+            "library_ms": time_ms(torch, lambda: ring[idx].sum(
+                0, dtype=torch.int32)),
+            "library_call": "ring[idx].sum(0, dtype=torch.int32)",
+            "bound_ms": b5}
+    b6, b6_by = bound_ms((s + len(views)) * mb4)
+    six = {
+        "windows": [str(w) for w in RET_VIEW_WINDOWS],
+        "slots_per_view": views.sum(axis=1).tolist(),
+        "distinct_slots": int(views.any(axis=0).sum()),
+        "ms": time_ms(torch, lambda: window_merge_views(ring, views)),
+        "per_view_launches_ms": time_ms(torch, lambda: [
+            window_merge_kernel(ring, m) for m in views]),
+        "plain_ms": time_ms(torch, lambda: torch.stack([
+            window_merge(ring, m) for m in views]), reps=5, warmup=1),
+        "bound_ms": b6, "bound_by": b6_by,
+        "bytes": (s + len(views)) * mb4,
+    }
+    RESULTS["window_merge"] = {
+        "max_abs_err": max_err, "ms": float(np.mean(k_all)),
+        "plain_ms": one_view["plain_ms"],
+        "library_ms": float(np.mean(lib_all)), "bound_ms": b_all,
+        "bound_by": b_all_by,
+    }
     del ring
-    return {"ring": [s, RET_M, B], "ring_bytes": s * RET_M * B * 4,
-            "equal": equal, "max_abs_err": max_err, "timings": timings}
+    return {"ring": [s, RET_M, B], "ring_bytes": s * mb4, "equal": equal,
+            "max_abs_err": max_err, "all_slots": one_view,
+            "trailing5": five, "six_views": six, "wheel_1440": wheel}
 
 
 def _raw_interval(rng, names, mu, sigma, t, seq, n):
@@ -1188,7 +1519,7 @@ def phase_retention(torch):
     assert [tuple(t) for t in wheel.tiers] == [tuple(t) for t in RET_TIERS]
     for name in names:
         ms.metric_id(name)
-    windows = (1.0, 5.0, 30.0, 60.0, 3600.0)
+    windows = RET_VIEW_WINDOWS[1:]  # the full span is always a view
     for w in windows:
         wheel.pin_window(w)
     capture = Channel(256)
@@ -1262,6 +1593,10 @@ def phase_retention(torch):
         cells.append(_cells(raw, registry))
         rates.append(raw.rates["requests"])
     n = len(cells)
+    if k5_wheel != len(RET_TIERS) * RET_BACKFILL:
+        raise AssertionError(
+            f"{k5_wheel} K5 launches in {RET_BACKFILL} pushes: the snapshot "
+            "refresh should launch one per tier for all its views")
     backfill_metrics = ms.device_metrics().metrics
     want, rank_ties["backfill"] = _oracle_stats(_hist(cells[len(live):],
                                                       RET_M))
@@ -2259,7 +2594,10 @@ def _device_busy(torch, fn):
     the call without the profiler (the median of 3; the profiler's own
     host cost would inflate it), and the kernels that took most of it.
     A first, unrecorded call takes the profiler's start-up out of the
-    trace."""
+    trace.  CUPTI on the card's machine now and then hands back a trace
+    with no device activity at all; such a trace is taken again, up to
+    three times, and counted in ``empty_traces``; three empty traces
+    fail."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -2269,27 +2607,31 @@ def _device_busy(torch, fn):
         fn()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = sorted(walls)[1]
-    traced = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
-        fn()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-        prof.step()
-    kernels = collections.Counter()
-    for e in traced:
-        # device-side events, but not the profiler's own step annotation
-        if (str(getattr(e, "device_type", "")).endswith("CUDA")
-                and not e.name.startswith("ProfilerStep")):
-            kernels[e.name] += e.time_range.elapsed_us() / 1e3
-    if not kernels:
-        raise RuntimeError("the trace holds no kernel of the card")
+    for empty in range(3):
+        traced = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+            fn()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        kernels = collections.Counter()
+        for e in traced:
+            # device-side events, but not the profiler's own step annotation
+            if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and not e.name.startswith("ProfilerStep")):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+        if kernels:
+            break
+    else:
+        raise RuntimeError("three traces held no kernel of the card")
     busy_ms = sum(kernels.values())
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "empty_traces": empty,
             "top_kernels_ms": dict(kernels.most_common(5))}
 
 
@@ -2453,6 +2795,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     failed = []
+    only = set(sys.argv[1:])
     for name, phase in (("card", phase_card), ("codec", phase_codec),
                         ("k1_fused_ingest", phase_k1),
                         ("k2_row_ingest", phase_k2),
@@ -2461,6 +2804,7 @@ def main() -> int:
                         ("k4f_fused_paged_ingest", phase_k4f),
                         ("k5_window_merge", phase_k5),
                         ("main_path", phase_main),
+                        ("transport_crossover", phase_transport_crossover),
                         ("paged_main_path", phase_paged_main),
                         ("retention_main_path", phase_retention),
                         ("k6_compact_rows", phase_k6),
@@ -2470,6 +2814,8 @@ def main() -> int:
                         ("k8_multirow_ingest", phase_k8),
                         ("ingest_paths_main_path", phase_ingest_paths),
                         ("firehose_main_path", phase_firehose)):
+        if only and name != "card" and name not in only:
+            continue
         t0 = time.perf_counter()
         try:
             out = phase(torch)
@@ -2485,6 +2831,8 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    if only:  # a subset of phases: no kernels line, no result
+        return 0
     print(RESULTS["card"], flush=True)
     emit({"total_s": round(time.perf_counter() - t_start, 3)})
     emit(kernels_line())

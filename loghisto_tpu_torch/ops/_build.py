@@ -69,14 +69,15 @@ KERNEL_SPECS = {
     ),
     "fused_paged_ingest": (
         "paged_store.cu", "lh_fused_paged_ingest",
-        # pool, ids, values, n, row_codec, enc_luts, page_table,
-        # num_metrics, num_codecs, pages_per_row, pool_pages, page_size,
-        # bucket_limit, precision
+        # pool, ids, values, n, row_codec, enc_luts, page-major page
+        # table, num_metrics, num_codecs, pages_per_row, pool_pages,
+        # page_size, bucket_limit, precision
         [_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     ),
     "window_merge": (
         "window_merge.cu", "lh_window_merge",
-        # out, ring, slot list (host int32), n, num_slots, M * B
+        # out [V, M, B], ring, plan (device int32: slot order, then V
+        # (view, start, k) rows), n_order, V, M * B
         [_P, _P, _P, _I, _I, _LL],
     ),
     "compact_rows": (

@@ -22,7 +22,7 @@ the carries IN PLACE where the reference donates them:
     of the epoch over the chunk's ids, with ids past the vector masked
     to a neutral value first, so no pad indexes out of range;
   * the final chunk of an interval also builds the snapshot payloads —
-    per tier ``ops/window.window_snapshot`` (K5 per view), and
+    per tier ``ops/window.window_snapshot`` (one K5 for all its views), and
     ``ops/stats.dense_cdf`` of the accumulator — as fresh tensors that no
     later commit writes, and runs the EWMA bank update
     (``ops/anomaly.ewma_bank_update``, plain float32 tensor code).
@@ -141,7 +141,7 @@ def make_fused_commit_snapshot_fn(
 
     ``masks`` holds one host bool ``[V, S_t]`` array per tier (the
     post-close trailing-window masks); each payload is
-    ``window_snapshot``'s cdf/counts/sums stacked over the V views, and
+    ``window_snapshot``'s cdf/counts/sums over the V views, and
     ``acc_payload`` is ``dense_cdf`` of the accumulator.  ``banks`` is
     ``(prof f32 [K, M, B], wsum f32 [K, M])``, updated in place from the
     completed ``ihist`` (``ewma_bank_update``)."""

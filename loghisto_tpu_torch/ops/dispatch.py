@@ -38,8 +38,18 @@ from __future__ import annotations
 # large raw item on the host and measures cell density = unique cells /
 # samples.  At or below the crossover, shipping packed [n, 3] triples
 # (12 B/cell, transport="sparse") beats shipping every sample
-# (8 B/sample); above it raw stays.  Copied from the JAX table.
+# (8 B/sample); above it raw stays.  Copied from the JAX table, which
+# reasons it from wire bytes alone; the CPU keeps it, so the port's CPU
+# runs choose the JAX package's transport.
 SPARSE_DENSITY_CROSSOVER = 0.5
+# On the card the sparse route is held by the host's NumPy fold, not by
+# wire bytes.  chip_smoke.py's transport_crossover phase runs both
+# transports through TorchAggregator at cell densities 0.02-0.49 (2^24
+# samples per interval, 10,000 metrics): on NVIDIA H100 80GB HBM3,
+# 700.00 W, sparse (fold + K3, 14-35 M samples/s) never came near raw
+# (staging + K1, 372-967 M), so the crossover is 0.0 — raw always.  Measure it again once the native fold
+# (ROADMAP 6b) lands.
+SPARSE_DENSITY_CROSSOVER_BY_DEVICE = {"cuda": 0.0}
 
 INGEST_PATHS = ("fused", "row", "scatter", "sort", "sortscan", "matmul",
                 "hybrid", "pallas", "multirow")
@@ -181,10 +191,22 @@ def kernel_tier(device_type: str) -> str:
     raise ValueError(f"unsupported device type {device_type!r}")
 
 
-def choose_transport(density: float | None = None) -> str:
+def sparse_density_crossover(platform: str) -> float:
+    """The cell density at or below which "auto" takes the sparse
+    transport on this device type (0.0: never)."""
+    return SPARSE_DENSITY_CROSSOVER_BY_DEVICE.get(
+        platform, SPARSE_DENSITY_CROSSOVER)
+
+
+def choose_transport(platform: str, density: float | None = None) -> str:
     """transport="auto": start on "raw" and switch to "sparse" once a
-    probe shows the load is skewed (density <= the crossover)."""
-    if density is not None and density <= SPARSE_DENSITY_CROSSOVER:
+    probe shows the load is skewed (density <= the crossover of the
+    device type ``platform``; a crossover of 0.0 keeps raw for any
+    load).  The JAX signature, whose ``platform`` the JAX rule ignores;
+    its ``native_ok`` has no counterpart (the port always has its NumPy
+    fold)."""
+    crossover = sparse_density_crossover(platform)
+    if density is not None and crossover > 0.0 and density <= crossover:
         return "sparse"
     return "raw"
 
@@ -214,12 +236,12 @@ PAGED_COMMIT_CHUNK = 1 << 14
 # Smallest batch for which "auto" takes the direct-to-paged fused step
 # on "cuda".  The JAX value (2^17) is the batch its sort + layout
 # preprocess amortizes over; K4f has no preprocess — one thread per
-# sample — so the card's bound is launch overhead.  2^16 samples keep
-# the launch (~5 us) under the 8 B/sample bytes it moves at 3.35 TB/s
-# plus the host's staging of the batch; it also equals the port's
-# default batch_size, so a default-configured aggregator qualifies.
-# Reasoned, not swept: chip_smoke.py times K4f at batch 2^20 only.
-FUSED_MIN_BATCH_BY_PLATFORM = {"cuda": 1 << 16}
+# sample.  Swept on the card (chip_smoke.py transport_crossover, NVIDIA
+# H100 80GB HBM3, 700.00 W, 2^20 rows, band workload): the K4f route
+# (prepare_batch + K4f) beat the sparse route (fold + translate + K4) at
+# every batch from 2^12 to 2^20 in three runs, 1.22-2.11x, both held by
+# the host, so the edge sits at the smallest batch swept.
+FUSED_MIN_BATCH_BY_PLATFORM = {"cuda": 1 << 12}
 FUSED_MIN_BATCH = 1 << 17
 
 

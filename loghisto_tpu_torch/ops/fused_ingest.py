@@ -19,7 +19,10 @@ page-translate and scatter in one launch of ``csrc/paged_store.cu``'s
 ``lh_fused_paged_ingest``.  The JAX step sorts the batch and
 segment-sums duplicate cells before its Pallas scatter, because the TPU
 kernel's cost grows with unique cells; int32 atomics add duplicates
-exactly, so neither the kernel nor the plain version sorts.
+exactly, so neither the kernel nor the plain version sorts.  The page
+table comes page-major, ``[pages_per_row, M]`` (the transpose of the
+JAX step's ``[M, pages_per_row]``; ``PagedStore.device_luts`` keeps it),
+so that the kernel's page-table gathers fall in contiguous slabs.
 """
 
 from __future__ import annotations
@@ -114,7 +117,7 @@ def check_paged_operands(pool, ids, values, row_codec, enc_luts,
     ids, values = check_samples(pool, ids, values)
     if page_table.ndim != 2:
         raise ValueError(
-            f"page_table must be [M, pages_per_row]; got "
+            f"page_table must be page-major [pages_per_row, M]; got "
             f"{tuple(page_table.shape)}"
         )
     if enc_luts.ndim != 2 or enc_luts.shape[1] != 2 * bucket_limit + 1:
@@ -122,9 +125,9 @@ def check_paged_operands(pool, ids, values, row_codec, enc_luts,
             f"enc_luts must be [codecs, {2 * bucket_limit + 1}]; got "
             f"{tuple(enc_luts.shape)}"
         )
-    if row_codec.shape != (page_table.shape[0],):
+    if row_codec.shape != (page_table.shape[1],):
         raise ValueError(
-            f"row_codec must be [{page_table.shape[0]}]; got "
+            f"row_codec must be [{page_table.shape[1]}]; got "
             f"{tuple(row_codec.shape)}"
         )
     for name, t in (("row_codec", row_codec), ("enc_luts", enc_luts),
@@ -144,14 +147,15 @@ def fused_paged_ingest_reference(
     precision=PRECISION,
 ):
     """Plain version of K4f, in place: compress -> clip -> encode ->
-    translate -> scatter with torch ops.  Samples drop for an id outside
+    translate (``page_table`` page-major, [pages_per_row, M]) -> scatter
+    with torch ops.  Samples drop for an id outside
     [0, M), a row with no codec (-1), or a page that is unmapped (-1) or
     the zero page; ``index_put_(accumulate=True)`` adds duplicates."""
     from loghisto_tpu_torch.ops.ingest import bucket_indices
     from loghisto_tpu_torch.ops.paged_store import ZERO_SLOT
 
     pages, page_size = pool.shape
-    num_metrics, pages_per_row = page_table.shape
+    pages_per_row, num_metrics = page_table.shape
     dense = bucket_indices(values, bucket_limit, precision).long()
     valid = (ids >= 0) & (ids < num_metrics)
     row = torch.where(valid, ids, torch.zeros_like(ids)).long()
@@ -162,7 +166,7 @@ def fused_paged_ingest_reference(
     page_idx = torch.div(storage, page_size, rounding_mode="floor")
     valid &= (storage >= 0) & (page_idx < pages_per_row)
     page_idx = torch.clamp(page_idx, 0, pages_per_row - 1)
-    slot = page_table[row, page_idx].long()
+    slot = page_table[page_idx, row].long()
     valid &= (slot > ZERO_SLOT) & (slot < pages)
     flat = slot * page_size + (storage - page_idx * page_size)
     flat = flat[valid]
@@ -184,9 +188,9 @@ def fused_paged_ingest_batch(
 ) -> torch.Tensor:
     """K4f wrapper: pool int32 [P, page_size] += the raw batch, in
     place.  ``row_codec`` int32 [M], ``enc_luts`` int32 [C, B] and
-    ``page_table`` int32 [M, pages_per_row] are PagedStore's device
-    mirrors (``PagedStore.device_luts``).  One kernel launch on CUDA
-    tensors, the plain version on CPU tensors."""
+    ``page_table`` int32 [pages_per_row, M] (page-major) are PagedStore's
+    device mirrors (``PagedStore.device_luts``).  One kernel launch on
+    CUDA tensors, the plain version on CPU tensors."""
     ids, values, row_codec, enc_luts, page_table = check_paged_operands(
         pool, ids, values, row_codec, enc_luts, page_table, bucket_limit
     )
@@ -200,8 +204,8 @@ def fused_paged_ingest_batch(
         launch(
             "fused_paged_ingest", pool.data_ptr(), ids.data_ptr(),
             values.data_ptr(), n, row_codec.data_ptr(), enc_luts.data_ptr(),
-            page_table.data_ptr(), page_table.shape[0], enc_luts.shape[0],
-            page_table.shape[1], pool.shape[0], pool.shape[1], bucket_limit,
+            page_table.data_ptr(), page_table.shape[1], enc_luts.shape[0],
+            page_table.shape[0], pool.shape[0], pool.shape[1], bucket_limit,
             precision,
         )
     return pool

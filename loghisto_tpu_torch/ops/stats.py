@@ -226,17 +226,19 @@ def row_sums(
 def dense_cdf(
     acc: torch.Tensor, bucket_limit: int, precision: int = PRECISION
 ) -> dict[str, torch.Tensor]:
-    """Commit-time snapshot payload of a dense int32 [M, B] count tensor:
-    ``cdf`` int32 [M, B] (exact per-row bucket prefix sums, the cumsum
-    kept in int32 — by default torch would promote it to int64),
-    ``counts`` int32 [M] (its last column) and ``sums`` float32 [M]
-    (``row_sums``)."""
-    cdf = torch.cumsum(acc, dim=1, dtype=torch.int32)
-    return {
-        "cdf": cdf,
-        "counts": cdf[:, -1].contiguous(),
-        "sums": row_sums(acc, bucket_limit, precision),
-    }
+    """Commit-time snapshot payload of a dense int32 [M, B] count tensor,
+    or of V of them stacked [V, M, B]: ``cdf`` int32 of the same shape
+    (exact per-row bucket prefix sums, the cumsum kept in int32 — by
+    default torch would promote it to int64), ``counts`` int32 [M] or
+    [V, M] (its last column) and ``sums`` float32 [M] or [V, M]
+    (``row_sums`` of each [M, B] on its own, so each view's sums are the
+    bits ``window_stats`` computes for it)."""
+    cdf = torch.cumsum(acc, dim=-1, dtype=torch.int32)
+    if acc.ndim == 3:
+        sums = torch.stack([row_sums(a, bucket_limit, precision) for a in acc])
+    else:
+        sums = row_sums(acc, bucket_limit, precision)
+    return {"cdf": cdf, "counts": cdf[..., -1].contiguous(), "sums": sums}
 
 
 def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):

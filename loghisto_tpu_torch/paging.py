@@ -402,16 +402,20 @@ class PagedStore:
         self._dirty_rows, self._dirty_pairs = [], []
 
     def device_luts(self):
-        """(row_codec int32 [M], enc_luts int32 [C, B], page_table int32
-        [M, pages_per_row]) on the pool's device for K4f.  Built once;
-        later host changes are written into them for the dirty rows and
-        pages only."""
+        """(row_codec int32 [M], enc_luts int32 [C, B], page_major int32
+        [pages_per_row, M]) on the pool's device for K4f.  The page
+        table's device mirror is page-major — the transpose of the host
+        ``page_table`` — so that samples on the same page index of their
+        rows gather from one contiguous slab (``csrc/paged_store.cu``).
+        Built once; later host changes are written into them for the
+        dirty rows and pages only."""
         dev = self.device
         if self._mirror is None:
             self._mirror = (
                 torch.from_numpy(self.row_codec.astype(np.int32)).to(dev),
                 torch.from_numpy(self._enc.astype(np.int32)).to(dev),
-                torch.from_numpy(self.page_table).to(dev),
+                torch.from_numpy(np.ascontiguousarray(self.page_table.T)).to(
+                    dev),
             )
             self._dirty_rows, self._dirty_pairs = [], []
             return self._mirror
@@ -424,8 +428,8 @@ class PagedStore:
         if self._dirty_pairs:
             rows = np.concatenate([r for r, _ in self._dirty_pairs])
             pages = np.concatenate([p for _, p in self._dirty_pairs])
-            tbl[torch.from_numpy(rows).to(dev),
-                torch.from_numpy(pages).to(dev)] = torch.from_numpy(
+            tbl[torch.from_numpy(pages).to(dev),
+                torch.from_numpy(rows).to(dev)] = torch.from_numpy(
                     self.page_table[rows, pages]).to(dev)
             self._dirty_pairs = []
         return self._mirror

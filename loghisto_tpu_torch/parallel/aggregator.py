@@ -294,7 +294,13 @@ class TorchAggregator:
         self.fused_paged = self.storage == "paged" and fused_paged_ok
         if self.storage == "paged":
             transport = "raw" if self.fused_paged else "sparse"
-        self._transport_auto = transport == "auto"
+        # "auto" probes only where some density can switch it: on the card
+        # the measured crossover is 0.0 (raw always), so it stays raw
+        # without paying the host probe
+        self._transport_auto = (
+            transport == "auto"
+            and dispatch.sparse_density_crossover(self.device.type) > 0.0
+        )
         self.transport = "raw" if transport == "auto" else transport
         self.probe_density: Optional[float] = None
         self.kernel_tier = dispatch.kernel_tier(self.device.type)
@@ -627,12 +633,14 @@ class TorchAggregator:
         ).astype(np.int64)
         keys = (ids[keep].astype(np.int64) << 16) | (buckets + 32768)
         self.probe_density = len(np.unique(keys)) / kept
-        chosen = dispatch.choose_transport(self.probe_density)
+        device_type = self.device.type
+        chosen = dispatch.choose_transport(device_type, self.probe_density)
         if chosen != self.transport:
             logger.info(
                 "transport auto-probe: cell density %.3f <= crossover "
-                "%.3f; switching to the sparse packed-triple transport",
-                self.probe_density, dispatch.SPARSE_DENSITY_CROSSOVER,
+                "%.3f on %s; switching to the sparse packed-triple "
+                "transport", self.probe_density,
+                dispatch.sparse_density_crossover(device_type), device_type,
             )
             self.transport = chosen
         return self.transport == "sparse"

@@ -17,7 +17,8 @@ is a bucket-tensor add and totals are preserved exactly.  On the card:
     back to codec buckets (``idx - bucket_limit``), and rows at or past
     the ring's M drop, as the reference's ``mode="drop"`` does;
   * every push refreshes the snapshot through K5
-    (``ops/window.window_snapshot``, one launch per tier and view), and
+    (``ops/window.window_snapshot``, one launch per tier for all its
+    views), and
     ``query`` serves from it — one row gather and ``snapshot_row_stats``
     — or recomputes through K5 (``window_stats``) for a window no view
     covers.
@@ -424,10 +425,10 @@ class TimeWheel:
         return [np.inf] + list(self._pinned)
 
     def _refresh_snapshot_locked(self) -> None:
-        """Merge every tier's views from the live rings (K5 per view) and
-        publish a new handle (the push path; the fused committer builds
-        the same payloads in its final step and publishes them through
-        ``publish_snapshot_locked``)."""
+        """Merge every tier's views from the live rings (one K5 launch
+        per tier) and publish a new handle (the push path; the fused
+        committer builds the same payloads in its final step and
+        publishes them through ``publish_snapshot_locked``)."""
         if not self.snapshots_enabled:
             return
         windows = self._view_windows_locked()

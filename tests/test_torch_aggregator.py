@@ -24,10 +24,12 @@ import numpy as np
 import pytest
 
 from loghisto_tpu.config import MetricConfig as JaxConfig
+from loghisto_tpu.ops import dispatch as jax_dispatch
 from loghisto_tpu.ops.codec import compress_np
 from loghisto_tpu.ops.ingest import bucket_indices as jax_bucket_indices
 from loghisto_tpu.parallel.aggregator import TPUAggregator
 from loghisto_tpu_torch.config import MetricConfig
+from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import kernel_launches
 from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 from loghisto_tpu_torch.state import state_from_jax
@@ -124,6 +126,59 @@ def test_auto_transport_probe_switches_on_skew():
     assert metrics["hot_count"] == float((ids == 0).sum())
     assert metrics["hot_max"] == pytest.approx(42.0, rel=0.01)
     port.close()
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.18, 0.26, 0.49, 0.5,
+                                     0.51, 1.0, None])
+def test_choose_transport_per_device(density):
+    """On the CPU the JAX rule (crossover 0.5, the same choice as
+    ``loghisto_tpu``'s ``choose_transport``); on the card the crossover
+    measured by chip_smoke.py's transport_crossover phase: 0.0, raw for
+    any load."""
+    assert dispatch.sparse_density_crossover("cpu") == 0.5
+    assert dispatch.sparse_density_crossover("cuda") == 0.0
+    assert dispatch.choose_transport("cpu", density) == (
+        jax_dispatch.choose_transport("cpu", density))
+    assert dispatch.choose_transport("cuda", density) == "raw"
+
+
+def test_auto_probe_passes_its_device_type(monkeypatch):
+    seen = []
+    real = dispatch.choose_transport
+
+    def spy(platform, density=None):
+        seen.append((platform, density))
+        return real(platform, density)
+
+    monkeypatch.setattr(dispatch, "choose_transport", spy)
+    port = TorchAggregator(num_metrics=8, batch_size=1 << 16, device="cpu")
+    try:
+        rng = np.random.default_rng(6)
+        port.record_batch(rng.integers(0, 8, 1 << 16).astype(np.int32),
+                          np.full(1 << 16, 3.0, np.float32))
+        port.flush(force=True)
+    finally:
+        port.close()
+    assert seen == [("cpu", port.probe_density)]
+    assert port.transport == "sparse"  # 8 cells in 2^16 samples
+
+
+def test_auto_skips_the_probe_where_no_density_switches(monkeypatch):
+    """A crossover of 0.0 (the card's) keeps raw for any load, so the
+    aggregator does not pay the host probe: a skewed load stays raw and
+    ``probe_density`` stays None."""
+    monkeypatch.setitem(dispatch.SPARSE_DENSITY_CROSSOVER_BY_DEVICE, "cpu",
+                        0.0)
+    port = TorchAggregator(num_metrics=8, batch_size=1 << 16, device="cpu")
+    try:
+        assert port.registry.id_for("hot") == 0
+        port.record_batch(np.zeros(1 << 16, np.int32),
+                          np.full(1 << 16, 3.0, np.float32))
+        metrics = port.collect().metrics
+    finally:
+        port.close()
+    assert port.transport == "raw" and port.probe_density is None
+    assert metrics["hot_count"] == 1 << 16
 
 
 def test_growth_from_one_row_swaps_row_kernel_for_fused():

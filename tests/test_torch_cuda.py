@@ -208,6 +208,30 @@ def test_fused_paged_kernel_equals_plain(dev, codec):
     assert int(k.sum()) == int((out_ids >= 0).sum() - (out_ids >= m).sum())
 
 
+@pytest.mark.parametrize("offset", [0, 1])  # 16 B aligned: vector loads
+def test_fused_paged_kernel_folds_a_hot_cell(dev, offset):
+    """A warp of equal cells folds into one atomic per step; ids and
+    values that start off a 16 B boundary take the scalar loads."""
+    m, bl = 64, 4096
+    ids, values = _batch(1 << 16, m, seed=22)
+    ids = np.abs(ids) % m
+    ids[1000:1000 + 20_000] = 7
+    values[1000:1000 + 20_000] = 123.0
+    store = PagedStore(m, bl, config=PagedStoreConfig(pool_pages=4096),
+                       device=dev)
+    out_ids, _ = store.prepare_batch(ids.astype(np.int32), values)
+    luts = store.device_luts()
+    ids_d = torch.from_numpy(out_ids).to(dev)[offset:]
+    vals_d = torch.from_numpy(values).to(dev)[offset:]
+    k = torch.zeros_like(store._pool)
+    p = torch.zeros_like(k)
+    fused_paged_ingest_batch(k, ids_d, vals_d, *luts, bl)
+    fused_paged_ingest_reference(p, ids_d, vals_d, *luts, bl)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert int(k.max()) >= 20_000
+
+
 def test_paged_aggregator_interval_on_the_card(dev):
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
 
@@ -266,18 +290,74 @@ def test_window_merge_kernel_wraps_int32(dev):
 
 
 def test_window_merge_kernel_refuses_what_it_cannot_take(dev):
+    """A ring of more than 1000 slots is taken (the plan rides a device
+    buffer, not the launch arguments); a mask on the card is refused."""
     from loghisto_tpu_torch.ops.window import (
-        MAX_WINDOW_SLOTS,
+        window_merge,
         window_merge_kernel,
     )
 
-    ring = torch.zeros((MAX_WINDOW_SLOTS + 1, 1, 3), dtype=torch.int32,
-                       device=dev)
-    with pytest.raises(ValueError, match="at most"):
-        window_merge_kernel(ring, np.ones(MAX_WINDOW_SLOTS + 1, bool))
+    ring = torch.arange(1001 * 3, dtype=torch.int32, device=dev).reshape(
+        1001, 1, 3)
+    mask = np.ones(1001, bool)
+    assert torch.equal(window_merge_kernel(ring, mask),
+                       window_merge(ring, mask))
     with pytest.raises(ValueError, match="host array"):
         window_merge_kernel(ring[:2], torch.ones(2, dtype=torch.bool,
                                                  device=dev))
+
+
+def _views_1440(kind, s, rng):
+    from loghisto_tpu_torch.window.store import trailing_mask
+
+    if kind == "random":
+        return rng.random((6, s)) < 0.4
+    written = rng.random(s) < 0.97
+    slot = int(rng.integers(0, s))
+    written[slot] = True
+    return np.stack([
+        trailing_mask(written, np.ones(s), slot, 1, s, w)
+        for w in (np.inf, 1.0, 5.0, 30.0, 60.0, 3600.0)])
+
+
+@pytest.mark.parametrize("rows", [3, 4])  # M*B odd: scalar; % 4 == 0: bulk
+@pytest.mark.parametrize("kind", ["nested", "random"])
+def test_window_merge_views_equal_plain_at_1440_slots(dev, rows, kind):
+    from loghisto_tpu_torch.ops.window import (
+        window_merge,
+        window_merge_views,
+    )
+
+    s = 1440
+    rng = np.random.default_rng(12)
+    ring = torch.from_numpy(rng.integers(
+        -(1 << 30), 1 << 30, (s, rows, 129)).astype(np.int32)).to(dev)
+    masks = _views_1440(kind, s, rng)
+    before = kernel_launches()["window_merge"]
+    got = window_merge_views(ring, masks)
+    want = torch.stack([window_merge(ring, m) for m in masks])
+    torch.cuda.synchronize()
+    assert kernel_launches()["window_merge"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_window_merge_views_back_to_back_without_sync(dev):
+    """Forty launches queued with no synchronisation, each with its own
+    plan from pinned memory: no plan is overwritten before its copy."""
+    from loghisto_tpu_torch.ops.window import (
+        window_merge,
+        window_merge_views,
+    )
+
+    rng = np.random.default_rng(13)
+    ring = torch.from_numpy(rng.integers(
+        0, 1 << 16, (24, 256, 1025)).astype(np.int32)).to(dev)
+    plans = [rng.random((4, 24)) < 0.5 for _ in range(40)]
+    outs = [window_merge_views(ring, masks) for masks in plans]
+    torch.cuda.synchronize()
+    for masks, got in zip(plans, outs):
+        for v, mask in enumerate(masks):
+            assert torch.equal(got[v], window_merge(ring, mask))
 
 
 def test_wheel_on_the_card_serves_snapshots_through_k5(dev):
@@ -296,9 +376,9 @@ def test_wheel_on_the_card_serves_snapshots_through_k5(dev):
         wheel.push(RawMetricSet(t0, {}, {"req": 3}, {
             "a": {1: 2 + i, 40: 1}, "b": {-3: 5, 70: i}}, {}, 1.0))
     after = kernel_launches()
-    # per push: one K3 per tier, one K5 per tier and view
+    # per push: one K3 per tier, one K5 per tier for both its views
     assert after["sparse_ingest"] - before["sparse_ingest"] == 7 * 2
-    assert after["window_merge"] - before["window_merge"] == 7 * 2 * 2
+    assert after["window_merge"] - before["window_merge"] == 7 * 2
     for window in (2.0, None):
         served = wheel.query("*", window)
         oracle = wheel._query_recompute("*", served.window_s, (0.5, 0.9, 0.99,

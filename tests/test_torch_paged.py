@@ -207,10 +207,11 @@ def test_fused_paged_plain_equals_jax(codec):
         jnp.asarray(start), jnp.asarray(ids), jnp.asarray(vals), rc, enc,
         tbl, BL, kernel="jnp"))
     pool = torch.from_numpy(start.copy())
+    # the port's step takes the page table page-major: [pages_per_row, M]
     fused_paged_ingest_batch(
         pool, torch.from_numpy(ids), torch.from_numpy(vals),
-        torch.from_numpy(rc), torch.from_numpy(enc), torch.from_numpy(tbl),
-        BL,
+        torch.from_numpy(rc), torch.from_numpy(enc),
+        torch.from_numpy(np.ascontiguousarray(tbl.T)), BL,
     )
     np.testing.assert_array_equal(pool.numpy(), want)
     assert int(pool[0].abs().sum()) == 0
@@ -223,7 +224,7 @@ def test_fused_paged_hot_cell_and_empty_batch():
     row = int(np.nonzero(jst.row_codec >= 0)[0][0])
     value = np.float32(np.expm1(1.5))
     jst.prepare_batch(np.array([row], np.int32), np.array([value]))
-    tbl = torch.from_numpy(jst.page_table.copy())
+    tbl = torch.from_numpy(np.ascontiguousarray(jst.page_table.T))
     n = 1 << 16
     fused_paged_ingest_batch(
         pool, torch.full((n,), row, dtype=torch.int32),
@@ -382,9 +383,38 @@ def test_store_grow_and_device_luts_follow_host_changes():
     _raw_stream(pair, 2, 96, seed=12)
     _assert_same_store(jst, pst)
     rc, enc, tbl = pst.device_luts()
-    np.testing.assert_array_equal(tbl.numpy(), pst.page_table)
+    np.testing.assert_array_equal(tbl.numpy(), pst.page_table.T)
     np.testing.assert_array_equal(rc.numpy(), pst.row_codec)
     np.testing.assert_array_equal(enc.numpy(), np.asarray(jst.device_luts()[1]))
+
+
+def test_page_major_mirror_follows_the_host_table():
+    """K4f's page-major mirror, built on an empty table, equals the
+    transposed host table after each batch's allocations: new rows take
+    a codec (dirty rows), known rows map new pages (dirty pairs)."""
+    pair = _stores(m=96)
+    jst, pst = pair
+    rc, enc, tbl = pst.device_luts()
+    assert tbl.shape == (pst.pages_per_row, 96) and tbl.is_contiguous()
+    assert (tbl == -1).all() and (rc == -1).all()
+    rng = np.random.default_rng(41)
+    for k in range(3):
+        vals = _values(rng, 4000, -4.0 + k, 2.5 + 2 * k)
+        ids = rng.integers(0, 32 * (k + 1), len(vals)).astype(np.int32)
+        for st in pair:
+            p_ids, _ = st.prepare_batch(ids, vals)
+        before = int((tbl >= 0).sum())
+        pst.ingest_raw(torch.from_numpy(p_ids), torch.from_numpy(vals))
+        jst.ingest_raw(jnp.asarray(p_ids), jnp.asarray(vals))
+        # updated in place
+        assert all(a is b for a, b in zip(pst.device_luts(), (rc, enc, tbl)))
+        assert int((tbl >= 0).sum()) > before
+        np.testing.assert_array_equal(tbl.numpy(), pst.page_table.T)
+        np.testing.assert_array_equal(
+            tbl.numpy(), np.asarray(jst.device_luts()[2]).T)
+        np.testing.assert_array_equal(rc.numpy(), pst.row_codec)
+    _assert_same_store(jst, pst)
+    assert (pst.row_codec[:96] >= 0).sum() == 96
 
 
 # -- sparse_cells_stats --------------------------------------------------- #
@@ -463,7 +493,7 @@ def test_fused_paged_incapability_equals_jax(platform, jax_platform,
                         assert got.startswith(edge) and want.startswith(edge)
                         continue
                     if got is not None and platform == "cuda":
-                        # and the card's own batch crossover (2^16)
+                        # and the card's own, swept batch crossover
                         got = got.replace(
                             str(dispatch.fused_min_batch_for("cuda")),
                             str(jdispatch.fused_min_batch_for("tpu")))
@@ -471,11 +501,13 @@ def test_fused_paged_incapability_equals_jax(platform, jax_platform,
 
 
 def test_fused_min_batch_on_cuda():
+    """The swept card value: K4f's route won from the smallest batch
+    swept, 2^12 (chip_smoke.py transport_crossover)."""
     assert dispatch.fused_paged_incapability(
-        1 << 20, 8193, batch_size=1 << 16, platform="cuda") is None
+        1 << 20, 8193, batch_size=1 << 12, platform="cuda") is None
     reason = dispatch.fused_paged_incapability(
-        1 << 20, 8193, batch_size=(1 << 16) - 1, platform="cuda")
-    assert reason.startswith("batch too small:") and "65536" in reason
+        1 << 20, 8193, batch_size=(1 << 12) - 1, platform="cuda")
+    assert reason.startswith("batch too small:") and "4096" in reason
 
 
 def test_resolve_storage_path_equals_jax():

@@ -29,22 +29,24 @@ from loghisto_tpu.ops.window import (
 )
 from loghisto_tpu.window import rules as jax_rules
 from loghisto_tpu.window.store import TimeWheel as JaxWheel
+from loghisto_tpu.window.store import trailing_mask as jax_trailing_mask
 from loghisto_tpu_torch.config import MetricConfig
 from loghisto_tpu_torch.metrics import RawMetricSet
 from loghisto_tpu_torch.ops.backend import kernel_launches
 from loghisto_tpu_torch.ops.codec import compress_np
 from loghisto_tpu_torch.ops.stats import dense_cdf
 from loghisto_tpu_torch.ops.window import (
-    MAX_WINDOW_SLOTS,
+    merge_plan,
     resolve_merge_path,
     window_merge,
     window_merge_kernel,
+    window_merge_views,
     window_snapshot,
     window_stats,
 )
 from loghisto_tpu_torch.state import wheel_state_from_jax
 from loghisto_tpu_torch.window import rules
-from loghisto_tpu_torch.window.store import TimeWheel
+from loghisto_tpu_torch.window.store import TimeWheel, trailing_mask
 
 BL = 64
 B = 2 * BL + 1
@@ -138,7 +140,85 @@ def test_window_merge_rejects_bad_operands():
         window_merge_kernel(ring.to(torch.int64), np.ones(3, bool))
     with pytest.raises(ValueError, match=r"\[S, M, B\]"):
         window_merge_kernel(ring[0], np.ones(3, bool))
-    assert MAX_WINDOW_SLOTS >= max(s for s, _ in TIERS) * 10
+    # no cap on the ring's slots (a 24 h tier at minute resolution)
+    big = torch.ones((1440, 1, 3), dtype=torch.int32)
+    assert int(window_merge_kernel(big, np.ones(1440, bool))[0, 0]) == 1440
+
+
+def _view_masks(kind, s, seed):
+    """Six views of an S-slot ring: the nested trailing windows of one
+    wheel state (the full span first, as ``_view_windows_locked`` lists
+    them, from a random open slot with a few unwritten slots), or six
+    random masks that are not nested."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.random((6, s)) < 0.4
+    written = rng.random(s) < 0.97
+    durations = rng.choice([0.5, 1.0, 2.0], s)
+    slot, in_slot = int(rng.integers(0, s)), 1
+    written[slot] = True
+    windows = (np.inf, 1.0, 5.0, 30.0, 60.0, 3600.0)
+    masks = np.stack([trailing_mask(written, durations, slot, in_slot, s, w)
+                      for w in windows])
+    want = np.stack([jax_trailing_mask(written, durations, slot, in_slot, s, w)
+                     for w in windows])
+    np.testing.assert_array_equal(masks, want)
+    return masks
+
+
+@pytest.mark.parametrize("kind", ["nested", "random"])
+def test_window_merge_views_and_plan_equal_jax_at_1440_slots(kind):
+    """K5's one-pass contract at S = 1440 with a few rows: the plain
+    version of ``window_merge_views`` and the kernel's plan (slot order,
+    (view, start, k) prefixes) both give the JAX ``window_merge`` of
+    every view."""
+    s = 1440
+    ring = _ring(s, 3, seed=30, high=1 << 20)
+    masks = _view_masks(kind, s, seed=31)
+    want = np.stack([np.asarray(jax_window_merge(jnp.asarray(ring),
+                                                 jnp.asarray(m)))
+                     for m in masks])
+    got = window_merge_views(torch.from_numpy(ring), masks)
+    assert got.shape == (6, 3, B) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    order, views = merge_plan(masks)
+    assert views.shape == (6, 3)
+    assert sorted(views[:, 0].tolist()) == list(range(6))
+    keys = list(zip(views[:, 1].tolist(), views[:, 2].tolist()))
+    assert keys == sorted(keys)  # the kernel walks them in (start, k) order
+    ring64 = ring.astype(np.int64)
+    for v, start, k in views.tolist():
+        listed = order[start:start + k]
+        assert sorted(listed.tolist()) == np.flatnonzero(masks[v]).tolist()
+        summed = ring64[listed].sum(axis=0)
+        np.testing.assert_array_equal(
+            ((summed + 2**31) % 2**32 - 2**31).astype(np.int32), want[v])
+    if kind == "nested":
+        # one run: every written slot of the widest view listed once
+        assert len(order) == int(masks.sum(axis=1).max())
+        assert set(views[:, 1].tolist()) == {0}
+    else:
+        assert len(set(views[:, 1].tolist())) > 1
+
+
+def test_merge_plan_equal_and_empty_views():
+    """Equal masks end at the same prefix, empty masks at length 0, and a
+    view never taken by any mask gives zeros."""
+    masks = np.array([[1, 1, 0, 1], [0, 0, 0, 0], [1, 1, 0, 1],
+                      [0, 1, 0, 0], [0, 0, 1, 0]], bool)
+    order, views = merge_plan(masks)
+    by_view = {v: (start, k) for v, start, k in views.tolist()}
+    assert by_view[1][1] == 0 and by_view[0] == by_view[2]
+    assert by_view[3][0] == by_view[0][0] and by_view[3][1] == 1
+    assert by_view[4][0] != by_view[0][0]  # slot 2 is in no other mask
+    ring = torch.from_numpy(_ring(4, 2, seed=32))
+    got = window_merge_views(ring, masks)
+    for v, mask in enumerate(masks):
+        assert torch.equal(got[v], window_merge(ring, mask))
+    assert window_merge_views(ring, np.zeros((0, 4), bool)).shape == (0, 2, B)
+    with pytest.raises(ValueError, match=r"\[V, 4\]"):
+        window_merge_views(ring, np.ones((2, 5), bool))
 
 
 def _acc(m, seed):
