@@ -48,7 +48,9 @@ prints one JSON line; a failed phase makes the script exit 1.  The card
 line (``nvidia-smi`` name and power limit), the ``kernels`` line and, as
 the last line, ``{"ok": true, "device": {...}}`` close a passing run.
 
-Kernel times are CUDA-event means over repeated launches after a warm-up;
+Kernel times are CUDA-event means over repeated launches after a warm-up,
+queued behind a sleep kernel so that they time the card and not the
+host's launch pace (``time_ms``; ``hold=False`` is the earlier rule);
 ``bound_ms`` is the larger of the bytes the call must move over the
 card's memory rate and its operations over the peak rate for their type
 (H100 SXM data sheet).  Data-dependent work is counted from this run's
@@ -125,18 +127,61 @@ def bound_ms(nbytes: float, ops: float = 0.0, ops_rate: float = FP64_OPS_PER_S):
     return max(byte_ms, ops_ms), ("bytes" if byte_ms >= ops_ms else "operations")
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+# SM clock cycles a millisecond at the H100 SXM's boost clock, for the
+# sleep kernel that holds the stream while launches are queued
+SLEEP_CYCLES_PER_MS = 1_980_000
+
+
+def hold_stream(torch, ms: float) -> None:
+    """Queue a kernel that spins for about ``ms``: the launches queued
+    behind it then run back to back, whatever the host's pace."""
+    torch.cuda._sleep(int(ms * SLEEP_CYCLES_PER_MS))
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
+            hold: bool = True) -> float:
+    """Device time of ``fn``: CUDA events around ``reps`` calls, queued
+    behind a sleep kernel long enough for the host to queue them all, so
+    a kernel shorter than its wrapper's host time is timed on the card,
+    not at the host's launch pace.  ``hold=False`` is the earlier rule:
+    calls queued at the host's pace, the slower of the two sets the
+    time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        hold_stream(torch, 1.0 + 0.1 * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of ``fn`` with the 50 MB L2 flushed before each call
+    (a 256 MB write between launches); each call between its own pair
+    of events, queued behind a hold."""
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        hold_stream(torch, 0.2)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    del flush
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
 
 
 def zipf_ids(rng, n, m, a=1.3):
@@ -192,7 +237,8 @@ def phase_card(torch):
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln]
         for name, log in _build.BUILD_LOGS.items()
     }
     RESULTS["card"] = card
@@ -394,6 +440,72 @@ def phase_k2(torch):
             "k2a_unmasked": k2a}
 
 
+def _commit_chunk_cells(rng):
+    """One interval's cells of ``lifecycle_drift_main_path``'s churn
+    workload (512 steady and 96 fresh names, 2^20 lognormal samples,
+    per-name mu ~ U[2, 6), sigma ~ U[0.3, 1)) as folded (id, codec
+    bucket, count) triples over ids 0..607."""
+    from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+
+    n_names = LD_STEADY + LD_FRESH
+    mu = rng.uniform(2.0, 6.0, n_names)
+    sigma = rng.uniform(0.3, 1.0, n_names)
+    ids = rng.integers(0, n_names, RET_SAMPLES)
+    return fold_packed_numpy(ids, rng.lognormal(mu[ids], sigma[ids]), BL)
+
+
+def _k3_multi(torch, rng):
+    """K3 at the fused commit's shape: one interval's cells into acc, 3
+    tier slots and ihist (1024 x 8193 each) in one launch, against five
+    one-target launches and the plain version; EQUAL to the plain
+    version target by target."""
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.ops.sparse_ingest import (
+        sparse_ingest,
+        sparse_ingest_multi,
+        sparse_ingest_multi_batch,
+    )
+
+    dev = torch.device("cuda")
+    packed = _commit_chunk_cells(rng)
+    packed_d = torch.from_numpy(packed).to(dev)
+    acc = torch.zeros((RET_M, B), dtype=torch.int32, device=dev)
+    rings = torch.zeros((3, 2, RET_M, B), dtype=torch.int32, device=dev)
+    ihist = torch.zeros_like(acc)
+    targets = [acc, rings[0, 1], rings[1, 1], rings[2, 1], ihist]
+    plain = [torch.zeros_like(acc) for _ in targets]
+    before = kernel_launches()["sparse_ingest"]
+    sparse_ingest_multi(targets, packed_d, BL)
+    launches = kernel_launches()["sparse_ingest"] - before
+    sparse_ingest_multi_batch(plain, packed_d, BL)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(targets, plain))
+    if not equal or launches != 1 or int(rings[:, 0].abs().sum()):
+        raise AssertionError(f"multi-target K3: equal={equal}, "
+                             f"{launches} launches")
+
+    def five():
+        for t in targets:
+            sparse_ingest(t, packed_d, BL)
+
+    keep = (packed[:, 0] >= 0) & (packed[:, 0] < RET_M) & (packed[:, 2] != 0)
+    b_ms, b_by = bound_ms(len(packed) * 12 + len(targets) * int(keep.sum()) * 8)
+    out = {"triples": len(packed), "targets": len(targets),
+           "equal": equal, "launches": launches,
+           "ms": time_ms(torch, lambda: sparse_ingest_multi(
+               targets, packed_d, BL)),
+           "five_launches_ms": time_ms(torch, five),
+           "cold_ms": time_cold_ms(torch, lambda: sparse_ingest_multi(
+               targets, packed_d, BL)),
+           "paced_ms": time_ms(torch, lambda: sparse_ingest_multi(
+               targets, packed_d, BL), hold=False),
+           "plain_ms": time_ms(torch, lambda: sparse_ingest_multi_batch(
+               targets, packed_d, BL)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del acc, rings, ihist, targets, plain
+    return out
+
+
 def phase_k3(torch):
     from loghisto_tpu_torch.ops.fold import fold_packed_numpy
     from loghisto_tpu_torch.ops.sparse_ingest import (
@@ -419,15 +531,27 @@ def phase_k3(torch):
     torch.cuda.synchronize()
     equal = bool(torch.equal(acc_k, acc_p))
     max_err = int((acc_k - acc_p).abs().max())
-    if not equal or int(acc_k.sum()) != n + 7:
-        raise AssertionError(f"K3 differs: equal={equal}")
+    total_ok = int(acc_k.sum()) == n + 7
+    # the same triples from a view 12 bytes off a 16-byte boundary
+    acc_k.zero_()
+    acc_p.zero_()
+    sparse_ingest(acc_k, packed_d[1:], BL)
+    sparse_ingest_batch(acc_p, packed_d[1:], BL)
+    torch.cuda.synchronize()
+    equal_view = bool(torch.equal(acc_k, acc_p))
     keep = (packed[:, 0] >= 0) & (packed[:, 0] < M)
+    if not (equal and equal_view and total_ok) or int(acc_k.sum()) != int(
+            packed[1:, 2][keep[1:]].sum()):
+        raise AssertionError(f"K3 differs: equal={equal}, view={equal_view}")
     ids_l = torch.from_numpy(packed[keep, 0].astype(np.int64)).to(dev)
     cols_l = torch.from_numpy(
         np.clip(packed[keep, 1], -BL, BL).astype(np.int64) + BL).to(dev)
     w = torch.from_numpy(packed[keep, 2]).to(dev)
     acc = torch.zeros((M, B), dtype=torch.int32, device=dev)
     k_ms = time_ms(torch, lambda: sparse_ingest(acc, packed_d, BL))
+    cold_ms = time_cold_ms(torch, lambda: sparse_ingest(acc, packed_d, BL))
+    paced_ms = time_ms(torch, lambda: sparse_ingest(acc, packed_d, BL),
+                       hold=False)
     p_ms = time_ms(torch, lambda: sparse_ingest_batch(acc, packed_d, BL))
     lib_ms = time_ms(torch, lambda: acc.index_put_(
         (ids_l, cols_l), w, accumulate=True))
@@ -436,10 +560,15 @@ def phase_k3(torch):
     RESULTS["sparse_ingest"] = {"max_abs_err": max_err, "ms": k_ms,
                                 "plain_ms": p_ms, "library_ms": lib_ms,
                                 "bound_ms": b_ms, "bound_by": b_by}
+    del acc, acc_k, acc_p
+    multi = _k3_multi(torch, rng)
     return {"samples": n, "triples": rows, "equal": equal,
+            "equal_from_view_1": equal_view,
             "max_abs_err": max_err, **RESULTS["sparse_ingest"],
+            "cold_ms": cold_ms, "paced_ms": paced_ms,
             "library_call": "acc.index_put_((ids, cols), counts, "
-                            "accumulate=True) on pre-clipped columns"}
+                            "accumulate=True) on pre-clipped columns",
+            "multi_target": multi}
 
 
 def _drive(torch, num_metrics, transport, interval_samples, kernel):
@@ -1528,8 +1657,8 @@ def phase_retention(torch):
     split = collections.defaultdict(list)
     wheel._cells_from_raw = synced(torch, split, "cells_ms",
                                    wheel._cells_from_raw)
-    wheel._tier_push_locked = synced(torch, split, "scatter_clear_ms",
-                                     wheel._tier_push_locked)
+    wheel._tiers_push_locked = synced(torch, split, "scatter_clear_ms",
+                                      wheel._tiers_push_locked)
     wheel._refresh_snapshot_locked = synced(torch, split, "snapshot_ms",
                                             wheel._refresh_snapshot_locked)
 
@@ -1597,6 +1726,10 @@ def phase_retention(torch):
         raise AssertionError(
             f"{k5_wheel} K5 launches in {RET_BACKFILL} pushes: the snapshot "
             "refresh should launch one per tier for all its views")
+    if k3_wheel != RET_BACKFILL:
+        raise AssertionError(
+            f"{k3_wheel} K3 launches in {RET_BACKFILL} pushes: one launch "
+            "should scatter each push into every tier")
     backfill_metrics = ms.device_metrics().metrics
     want, rank_ties["backfill"] = _oracle_stats(_hist(cells[len(live):],
                                                       RET_M))
@@ -1667,7 +1800,8 @@ def phase_retention(torch):
         "window_merge"]
     hbm = wheel.hbm_bytes()
     assert hbm == sum(s for s, _ in RET_TIERS) * RET_M * B * 4
-    # per push: one cell build, one scatter+clear per tier, one refresh
+    # per push: one cell build, one scatter (every tier) with its clears,
+    # one refresh
     mean = {k: float(np.sum(v)) / RET_BACKFILL for k, v in split.items()}
     out = {
         "num_metrics": RET_M, "tiers": [list(t) for t in RET_TIERS],
@@ -1898,6 +2032,8 @@ def phase_k7(torch):
             b_ms, b_by = bound_ms(unmasked * B * 8 + m * 20)
             timings = {
                 "ms": time_ms(torch, lambda: divergence_kernel(*args)),
+                "paced_ms": time_ms(
+                    torch, lambda: divergence_kernel(*args), hold=False),
                 "plain_ms": time_ms(torch, lambda: divergence_plain(*args)),
                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             }
@@ -2142,6 +2278,7 @@ def phase_lifecycle_drift(torch):
     fired_at, early, surge_fired, dispatch_ok = None, [], False, True
     jsd_seen = {key: [] for key in rules}  # each rule's value per interval
     commit_ms, per_interval = [], []
+    k3_chunks = [0, 0]  # K3 launches, commit chunks of the backfill
     compactions = []
     uid = 0
     for k in range(LD_BACKFILL):
@@ -2162,10 +2299,13 @@ def phase_lifecycle_drift(torch):
                            RET_SAMPLES)
         cells = sum(len(h) for h in raw.histograms.values())
         torch.cuda.synchronize()
+        k3_before = kernel_launches()["sparse_ingest"]
         t0 = time.perf_counter()
         ms.backfill_retention([raw])
         torch.cuda.synchronize()
         commit_ms.append((time.perf_counter() - t0) * 1e3)
+        k3_chunks[0] += kernel_launches()["sparse_ingest"] - k3_before
+        k3_chunks[1] += com.last_dispatches
         account(raw)
         dispatch_ok &= com.last_dispatches == -(-cells // COMMIT_CHUNK)
         rows_checked["num_metrics"].append(agg.num_metrics)
@@ -2196,6 +2336,10 @@ def phase_lifecycle_drift(torch):
                              f"{com.fanout_intervals} of {committed}")
     if not dispatch_ok:
         raise AssertionError("last_dispatches != ceil(cells / COMMIT_CHUNK)")
+    if k3_chunks[0] != k3_chunks[1]:
+        raise AssertionError(f"{k3_chunks[0]} K3 launches for {k3_chunks[1]} "
+                             "commit chunks: one launch should take every "
+                             "target of a chunk")
     if set(rows_checked["num_metrics"]) != {RET_M}:
         raise AssertionError("the row space grew")
     acc_rows = agg._acc.sum(dim=1, dtype=torch.int64).cpu().numpy()
@@ -2300,6 +2444,7 @@ def phase_lifecycle_drift(torch):
         "launches": launches,
         "launches_per_interval": {k: v / committed
                                   for k, v in launches.items() if v},
+        "k3_launches_per_chunk": k3_chunks[0] / max(1, k3_chunks[1]),
         "hbm_bytes": {"rings": wheel.hbm_bytes(),
                       "banks": an._prof.numel() * 4 + an._wsum.numel() * 4,
                       "acc": agg._acc.numel() * 4,

@@ -1,46 +1,127 @@
-// K3: weighted scatter of packed (id, codec_bucket, count) triples.
+// K3: weighted scatter of packed (id, codec_bucket, count) triples into
+// one or more accumulators in one launch.
 //
 // Replaces loghisto_tpu/ops/sparse_ingest.py `_pallas_kernel`
-// (pallas_sparse_ingest): for every row of the int32 [n, 3] array with
-// 0 <= id < M, acc[id, clip(bucket, -bl, bl) + bl] += count, acc int32
-// [M, B] updated in place.  Pad rows carry id -1 and drop.
+// (pallas_sparse_ingest): for every row of the int32 [n, 3] array and
+// every target t with 0 <= id < M_t,
+//
+//     acc_t[id, clip(bucket, -bl, bl) + bl] += count
+//
+// each acc_t int32 [M_t, B] updated in place (up to 8 targets sharing B).
+// Pad rows carry id -1 (or an id past every M_t) and drop.  The JAX
+// package scatters one target per call; the fused commit and the
+// retention push hand the same triples to the accumulator, every tier's
+// open slot and the interval histogram, so here one launch reads each
+// triple once and adds it to every target.  Integer adds commute, so the
+// targets equal what one launch per target gives, bit for bit.
 //
 // The TPU kernel walks the cells serially and round-trips one bucket row
 // per cell through VMEM by DMA, because a serial grid is how a TPU adds
-// duplicate cells exactly.  Hopper adds them exactly with atomics: one
-// thread per triple (grid-stride) and one atomicAdd of its count.
+// duplicate cells exactly.  Hopper adds them exactly with atomics.  The
+// design:
 //
-// Bound on the card: the 12 B/triple read and the atomic
-// read-modify-write of each touched cell; triples are unique cells by
-// construction (the host fold), so atomics rarely collide.
+//   * A block of 128 threads takes 512 consecutive triples, 4 a thread:
+//     thread t takes triples t, t + 128, t + 256 and t + 384 of the block,
+//     so each of a warp's loads reads 32 neighbouring triples (384
+//     contiguous bytes) and each of its atomics lands on the neighbouring
+//     cells the host fold sorts next to each other.  A thread issues its
+//     12 loads, predicated on the end of the array, before any branch,
+//     then its atomics.  The grid is sized to the triples: no grid-stride
+//     pass and no ragged second loop.  The loads are 4-byte, so any view
+//     (packed[1:] starts 12 bytes in) takes the same path.  Measured
+//     against 16-byte loads of a thread's own 4 triples (3 int4; the
+//     atomics of a warp then spread over 4x the cells) and against int4
+//     loads transposed through shared memory, this layout was the
+//     fastest (PERF.md).
+//   * The target pointers and row counts ride the launch arguments; the
+//     kernel is compiled for each target count (1-8), so a one-target
+//     launch carries no per-target loop.
+//
+// Bound on the card: 12 B per triple read once, plus the atomic
+// read-modify-write of each touched cell of each target (8 B); equal
+// cells (the fold's split counts) stay exact through the atomics.
 #include "codec.cuh"
 
-__global__ void lh_sparse_ingest_kernel(int* __restrict__ acc,
-                                        const int* __restrict__ packed,
-                                        long long n, int num_metrics,
-                                        int num_buckets, int bucket_limit) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int id = packed[3 * i];
-    if (id < 0 || id >= num_metrics) continue;
-    const int count = packed[3 * i + 2];
-    if (count == 0) continue;
-    int b = packed[3 * i + 1];
-    b = b < -bucket_limit ? -bucket_limit : (b > bucket_limit ? bucket_limit : b);
-    atomicAdd(acc + static_cast<long long>(id) * num_buckets + b + bucket_limit, count);
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kPer = 4;                          // triples a thread
+constexpr int kBlockTriples = kThreads * kPer;   // 512
+constexpr int kMaxTargets = 8;
+
+struct LhTargets {
+  int* acc[kMaxTargets];
+  int rows[kMaxTargets];
+};
+
+// one triple into each of the NT targets
+template <int NT>
+__device__ __forceinline__ void lh_add(const LhTargets& t, int id, int bucket, int count,
+                                       int nb, int bl) {
+  if (count == 0 || id < 0) return;
+  const long long off =
+      static_cast<long long>(id) * nb + (bucket < -bl ? -bl : (bucket > bl ? bl : bucket)) + bl;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    if (id < t.rows[k]) atomicAdd(t.acc[k] + off, count);
   }
 }
 
-extern "C" int lh_sparse_ingest(void* acc, const void* packed, long long n,
-                                int num_metrics, int num_buckets,
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+lh_sparse_ingest_kernel(LhTargets t, const int* __restrict__ packed, long long n, int nb,
+                        int bl) {
+  const long long first = static_cast<long long>(blockIdx.x) * kBlockTriples + threadIdx.x;
+  int f[kPer][3];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const long long i = first + u * kThreads;
+    const bool in = i < n;  // past the end: count 0, dropped
+#pragma unroll
+    for (int c = 0; c < 3; ++c) f[u][c] = in ? __ldg(packed + 3 * i + c) : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) lh_add<NT>(t, f[u][0], f[u][1], f[u][2], nb, bl);
+}
+
+template <int NT>
+cudaError_t lh_launch(const LhTargets& t, const int* packed, long long n, int nb, int bl,
+                      cudaStream_t stream) {
+  const long long blocks = (n + kBlockTriples - 1) / kBlockTriples;
+  lh_sparse_ingest_kernel<NT>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(t, packed, n, nb, bl);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// accs: n_targets device pointers to int32 [rows[t], num_buckets]
+// accumulators; packed: int32 [n, 3] (any 4-byte aligned view).
+extern "C" int lh_sparse_ingest(void* const* accs, const int* rows, int n_targets,
+                                const void* packed, long long n, int num_buckets,
                                 int bucket_limit, void* stream) {
-  if (num_buckets != 2 * bucket_limit + 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  lh_sparse_ingest_kernel<<<lh_grid(n, threads, 16), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(acc), static_cast<const int*>(packed), n, num_metrics,
-      num_buckets, bucket_limit);
-  return static_cast<int>(cudaGetLastError());
+  if (num_buckets != 2 * bucket_limit + 1 || n_targets < 1 || n_targets > kMaxTargets ||
+      n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  LhTargets t = {};
+  for (int k = 0; k < n_targets; ++k) {
+    t.acc[k] = static_cast<int*>(accs[k]);
+    t.rows[k] = rows[k];
+  }
+  const int* p = static_cast<const int*>(packed);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (n_targets) {
+    case 1: err = lh_launch<1>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 2: err = lh_launch<2>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 3: err = lh_launch<3>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 4: err = lh_launch<4>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 5: err = lh_launch<5>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 6: err = lh_launch<6>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 7: err = lh_launch<7>(t, p, n, num_buckets, bucket_limit, st); break;
+    case 8: err = lh_launch<8>(t, p, n, num_buckets, bucket_limit, st); break;
+  }
+  return static_cast<int>(err);
 }

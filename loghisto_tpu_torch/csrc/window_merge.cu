@@ -44,6 +44,7 @@
 // or a pointer is not 16-byte aligned, a scalar grid-stride path walks the
 // same plan with one element per thread.  Slot and view offsets s*M*B pass
 // 2^31 at the default tier-0 ring (60 x 1024 x 8193), so they are 64-bit.
+#include "bulk_copy.cuh"
 #include "codec.cuh"
 
 namespace {
@@ -53,42 +54,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kVec = 8;
 constexpr int kStages = 3;
-
-__device__ __forceinline__ unsigned lh_smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void lh_mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(lh_smem(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void lh_mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(lh_smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one bulk copy of `bytes` from global `src` into shared `dst`, completing
-// on `bar`, which this thread arms for that many bytes
-__device__ __forceinline__ void lh_bulk_load(void* dst, const void* src, unsigned bytes,
-                                             unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(lh_smem(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(lh_smem(dst)),
-      "l"(src), "r"(bytes), "r"(lh_smem(bar))
-      : "memory");
-}
 
 // The plan walk shared by both paths: before position p of the slot order,
 // reset the running sum where a run starts and emit every view that ends
@@ -142,8 +107,7 @@ lh_window_merge_bulk(int* __restrict__ out, const int* __restrict__ ring,
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) lh_mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    lh_mbar_init_fence();
   }
   __syncthreads();
 

@@ -59,8 +59,9 @@ KERNEL_SPECS = {
     ),
     "sparse_ingest": (
         "sparse_ingest.cu", "lh_sparse_ingest",
-        # acc, packed, n, num_metrics, num_buckets, bucket_limit
-        [_P, _P, _LL, _I, _I, _I],
+        # host arrays of target pointers and row counts, n_targets,
+        # packed, n, num_buckets, bucket_limit
+        [_P, _P, _I, _P, _LL, _I, _I],
     ),
     "paged_scatter": (
         "paged_store.cu", "lh_paged_scatter",
@@ -96,7 +97,7 @@ KERNEL_SPECS = {
         [_P, _P, _P, _P, _LL, _I, _I, _I, _I],
     ),
 }
-_SHARED_HEADERS = ("codec.cuh",)
+_SHARED_HEADERS = ("codec.cuh", "bulk_copy.cuh")
 
 _lock = threading.Lock()
 _libs: dict = {}

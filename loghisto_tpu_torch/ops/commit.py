@@ -9,15 +9,16 @@ The reference jits one donated-carry program per chunk of cells.  The
 port runs the same steps eagerly on PyTorch's current stream and updates
 the carries IN PLACE where the reference donates them:
 
-  * the accumulator, each tier's open slot and the drift engine's
-    interval histogram ``ihist`` take the chunk through K3
-    (``ops/sparse_ingest.sparse_ingest``) from one uploaded int32
-    ``(id, codec bucket, count)`` triple array; a tier gets the
-    contiguous view ``ring[slot]``, whose row count bounds the ids it
-    keeps (K3 drops ids outside ``[0, M)``, the reference's
-    ``mode="drop"``);
   * the ring-wrap clear is ``ring[slot].mul_(keep)`` with keep 0 (a keep
-    of 1 is the identity and is skipped);
+    of 1 is the identity and is skipped), and the interval's first chunk
+    clears ``ihist``, both queued before the scatter;
+  * the accumulator, each tier's open slot and the drift engine's
+    interval histogram ``ihist`` take the chunk in ONE K3 launch
+    (``ops/sparse_ingest.sparse_ingest_multi``) from one uploaded int32
+    ``(id, codec bucket, count)`` triple array, read once; a tier gets
+    the contiguous view ``ring[slot]``, whose row count bounds the ids
+    it keeps (K3 drops ids outside each target's ``[0, M_t)``, the
+    reference's ``mode="drop"``);
   * the lifecycle's activity stamp is ``scatter_reduce_(..., "amax")``
     of the epoch over the chunk's ids, with ids past the vector masked
     to a neutral value first, so no pad indexes out of range;
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 
 from loghisto_tpu_torch.config import PRECISION
-from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
+from loghisto_tpu_torch.ops.backend import resolve_device
+from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
 from loghisto_tpu_torch.ops.stats import dense_cdf
 from loghisto_tpu_torch.ops.window import window_snapshot
 
@@ -68,19 +70,21 @@ def stamp_activity(last_active: torch.Tensor, ids: torch.Tensor,
 
 def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
                 epoch, ifirst, bucket_limit):
-    """One chunk into every carry (in place)."""
-    sparse_ingest(acc, packed, bucket_limit)
+    """One chunk into every carry (in place): the clears, then one K3
+    launch for every target."""
+    targets = [acc]
     for ring, slot, keep in zip(rings, slots, keeps):
         view = ring[int(slot)]
         if int(keep) != 1:
             view.mul_(int(keep))  # ring wrap: clear the slot's old life
-        sparse_ingest(view, packed, bucket_limit)
-    if last_active is not None:
-        stamp_activity(last_active, packed[:, 0], epoch)
+        targets.append(view)
     if ihist is not None:
         if int(ifirst) == 0:
             ihist.zero_()  # the interval's first chunk: x ifirst = 0
-        sparse_ingest(ihist, packed, bucket_limit)
+        targets.append(ihist)
+    sparse_ingest_multi(targets, packed, bucket_limit)
+    if last_active is not None:
+        stamp_activity(last_active, packed[:, 0], epoch)
 
 
 def make_fused_commit_fn(
@@ -204,7 +208,7 @@ class CellStagingRing:
                              "overlap contract needs one slot of slack)")
         self.depth = depth
         self.width = width
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         pin = self.device.type == "cuda"
         self._slots = [
             torch.empty((width, 3), dtype=torch.int32, pin_memory=pin)

@@ -12,10 +12,11 @@ Every interval's cells land in each tier's open slot, so tier promotion
 is a bucket-tensor add and totals are preserved exactly.  On the card:
 
   * the slot clear on ring wrap is ``ring[slot].zero_()``;
-  * the cell scatter is K3 (``ops/sparse_ingest.sparse_ingest``) on the
-    contiguous view ``ring[slot]``: the wheel's dense bucket indices go
-    back to codec buckets (``idx - bucket_limit``), and rows at or past
-    the ring's M drop, as the reference's ``mode="drop"`` does;
+  * the cell scatter is one K3 launch for every tier
+    (``ops/sparse_ingest.sparse_ingest_multi``) on the contiguous views
+    ``ring[slot]``, after their clears: the wheel's dense bucket indices
+    go back to codec buckets (``idx - bucket_limit``), and rows at or
+    past a ring's M drop, as the reference's ``mode="drop"`` does;
   * every push refreshes the snapshot through K5
     (``ops/window.window_snapshot``, one launch per tier for all its
     views), and
@@ -62,7 +63,7 @@ from loghisto_tpu_torch.channel import ChannelClosed, ResilientSubscription
 from loghisto_tpu_torch.config import MetricConfig
 from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
 from loghisto_tpu_torch.ops.backend import resolve_device
-from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
+from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
 from loghisto_tpu_torch.ops.stats import make_snapshot_query_fn
 from loghisto_tpu_torch.ops.window import (
     resolve_merge_path,
@@ -325,9 +326,8 @@ class TimeWheel:
         are not run (``push`` runs them)."""
         with self._lock:
             self._note_interval_locked(raw.time, cells)
-            packed = self._packed_cells(cells)
-            for tier in self._tiers:
-                self._tier_push_locked(tier, packed, raw.rates, dur)
+            self._tiers_push_locked(self._packed_cells(cells), raw.rates,
+                                    dur)
             self._refresh_snapshot_locked()
 
     def run_hooks(self, raw: RawMetricSet) -> None:
@@ -369,13 +369,20 @@ class TimeWheel:
             tier.slot = (slot + 1) % tier.spec.slots
             tier.in_slot = 0
 
-    def _tier_push_locked(self, tier: _Tier, packed, rates, dur: float):
-        slot = tier.slot
-        if self._tier_open_locked(tier, slot):
-            tier.ring[slot].zero_()  # ring wrap: clear the previous life
+    def _tiers_push_locked(self, packed, rates, dur: float):
+        """Open every tier's slot (clearing it on ring wrap), scatter the
+        interval's triples into all the open slots in one K3 launch,
+        close every tier."""
+        slots = [tier.slot for tier in self._tiers]
+        for tier, slot in zip(self._tiers, slots):
+            if self._tier_open_locked(tier, slot):
+                tier.ring[slot].zero_()  # ring wrap: clear the previous life
         if packed is not None:
-            sparse_ingest(tier.ring[slot], packed, self.config.bucket_limit)
-        self._tier_close_locked(tier, slot, rates, dur)
+            sparse_ingest_multi(
+                [tier.ring[slot] for tier, slot in zip(self._tiers, slots)],
+                packed, self.config.bucket_limit)
+        for tier, slot in zip(self._tiers, slots):
+            self._tier_close_locked(tier, slot, rates, dur)
 
     def backfill(self, intervals: Iterable[RawMetricSet]) -> int:
         """Replay intervals into the wheel (offline reconstruction); each

@@ -241,6 +241,64 @@ def test_scores_match_jax_jnp_and_pallas_interpret(seed, m, b):
     assert got["ks"][2] < 2e-6  # identical live and baseline shapes
 
 
+# K7 walks a row in tiles of 896 columns (csrc/divergence.cu): at the
+# card's width 8193 = 9 x 896 + 129, supports that straddle tile edges,
+# the ragged last tile and a lone last column
+K7_TILE = 896
+
+
+def _tile_edge_inputs(seed, m=14, b=8193):
+    """Rows whose live and baseline supports straddle K7's tile edges; a
+    bank of m - 3 rows (the last 3 rows have no baseline)."""
+    rng = np.random.default_rng(seed)
+    cols = np.arange(b)
+    bins = np.zeros((m, b), np.int64)
+    pmf = np.zeros((m - 3, b))
+    for r in range(m):
+        edge = K7_TILE * (1 + r % 9)
+        live = slice(max(edge - 1 - r, 0), edge + 2 + 3 * r)
+        bins[r, live] = rng.integers(1, 40, live.stop - live.start)
+        if r < m - 3:
+            pmf[r] = np.exp(-0.5 * ((cols - edge + 5 * r) / (3 + r)) ** 2)
+            pmf[r][pmf[r] < 1e-30] = 0.0
+    bins[2] = 0
+    bins[2, b - 1] = 50                        # a lone last column
+    pmf[3] = 0.0
+    pmf[3, [0, K7_TILE - 1, K7_TILE, b - 1]] = 1.0
+    bins[4] = 0
+    bins[4, :3] = 7                            # support in the first tile
+    pmf[4] = bins[4] / bins[4].sum()           # identical shapes: ks ~ 0
+    pmf[5, 2 * K7_TILE] = 1e-20
+    cdf = np.cumsum(bins, axis=1).astype(np.int32)
+    counts = bins.sum(axis=1).astype(np.int32)
+    counts[0] = 0                              # masked: count 0
+    w = rng.random(m - 3).astype(np.float32) + 0.1
+    w[4] = 1.0
+    prof = (pmf / pmf.sum(axis=1, keepdims=True) * w[:, None]).astype(
+        np.float32)
+    prof[5, 2 * K7_TILE] = np.finfo(np.float32).smallest_subnormal
+    w[1] = 0.0                                 # masked: no baseline
+    return cdf, counts, prof[None], w[None]
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_scores_match_jax_at_8193_buckets_across_tile_edges(seed):
+    cdf, counts, prof, w = _tile_edge_inputs(seed)
+    m, b = cdf.shape
+    got = divergence_scores(torch.from_numpy(cdf), torch.from_numpy(counts),
+                            torch.from_numpy(prof), torch.from_numpy(w), 0, 5)
+    got = {k: v.numpy() for k, v in got.items()}
+    args = (jnp.asarray(cdf), jnp.asarray(counts), jnp.asarray(prof),
+            jnp.asarray(w), np.int32(0), np.int32(5))
+    for path in ("jnp", "pallas"):
+        want = jax_div_fn(path)(*args)
+        _assert_scores_close(got, want, b)
+    for key in ("ks", "jsd", "emd"):
+        assert (got[key][[0, 1]] == 0).all() and (got[key][m - 3:] == 0).all()
+    assert got["ks"][4] < 2e-6  # identical live and baseline shapes
+    assert got["ks"][2] > 0.9   # the lone last column against its baseline
+
+
 def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
     cdf, counts, prof, w = _score_inputs(3, 9, 33)
     t = [torch.from_numpy(x) for x in (cdf, counts, prof[1], w[1])]

@@ -293,7 +293,7 @@ def test_stamp_activity_is_a_max_and_ignores_out_of_range_ids():
 def test_staging_ring_contracts():
     with pytest.raises(ValueError, match="depth"):
         CellStagingRing(depth=1)
-    ring = CellStagingRing(depth=2, width=4)
+    ring = CellStagingRing(depth=2, width=4, device="cpu")
     with pytest.raises(ValueError, match="exceeds staging width"):
         ring.stage(np.zeros(5), np.zeros(5), np.zeros(5))
     a = ring.stage(np.array([1, 2]), np.array([-3, 4]), np.array([7, 8]))

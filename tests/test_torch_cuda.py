@@ -22,7 +22,7 @@ import torch
 
 from loghisto_tpu_torch.ops.backend import kernel_launches
 from loghisto_tpu_torch.ops.codec import compress_np, edge_values
-from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+from loghisto_tpu_torch.ops.fold import fold_packed_numpy, pack_cells
 from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
 from loghisto_tpu_torch.ops.ingest import ingest_batch
 from loghisto_tpu_torch.ops.multirow_ingest import (
@@ -36,8 +36,11 @@ from loghisto_tpu_torch.ops.row_ingest import (
     row_ingest_batch,
 )
 from loghisto_tpu_torch.ops.sparse_ingest import (
+    MAX_TARGETS,
     sparse_ingest,
     sparse_ingest_batch,
+    sparse_ingest_multi,
+    sparse_ingest_multi_batch,
 )
 from loghisto_tpu_torch.ops.fused_ingest import (
     fused_paged_ingest_batch,
@@ -166,6 +169,90 @@ def test_sparse_kernel_equals_plain(dev):
     sparse_ingest_batch(p, packed_d, bl)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
+
+
+def _multi_triples(rng, n, bl, m_max):
+    """n triples with split-count duplicates (adjacent), count-0 rows,
+    ids -1, -7, at and past every target's rows and 2^30, buckets past
+    +/-bl."""
+    ids = rng.integers(-2, m_max + 3, n)
+    ids[5::11] = 2**30
+    buckets = rng.integers(-bl - 9, bl + 10, n)
+    counts = rng.integers(1, 20, n)
+    packed = pack_cells(ids, buckets, counts, cap=5)[:n].copy()
+    packed[3::7, 2] = 0
+    packed[6::13, 0] = -7
+    return packed
+
+
+def _multi_targets(rng, bl, dev):
+    """Four targets of 9, 5 (a ring-slot view), 12 and 1 rows with
+    nonzero contents; returns (targets, ring)."""
+    b = 2 * bl + 1
+    ring = torch.from_numpy(rng.integers(0, 9, (3, 5, b)).astype(
+        np.int32)).to(dev)
+    t = [torch.from_numpy(rng.integers(0, 9, (m, b)).astype(np.int32)).to(dev)
+         for m in (9, 12, 1)]
+    return [t[0], ring[1], t[1], t[2]], ring
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 511, 512, 513,
+                               1031, 300_007])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_sparse_multi_kernel_equals_plain(dev, n, offset):
+    """One launch into four targets of different row counts, from a view
+    0-3 triples into its buffer (4 to 12 bytes off a 16-byte boundary),
+    EQUAL to the plain version once per target."""
+    bl = 64
+    rng = np.random.default_rng(n + offset)
+    buf = torch.from_numpy(_multi_triples(rng, n + offset, bl, 12)).to(dev)
+    packed = buf[offset:]
+    targets, ring = _multi_targets(rng, bl, dev)
+    plain = [t.clone() for t in targets]
+    ring_before = ring.clone()
+    before = kernel_launches()["sparse_ingest"]
+    sparse_ingest_multi(targets, packed, bl)
+    sparse_ingest_multi_batch(plain, packed, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["sparse_ingest"] == before + 1
+    for got, want in zip(targets, plain):
+        assert torch.equal(got, want)
+    assert torch.equal(ring[0], ring_before[0])
+    assert torch.equal(ring[2], ring_before[2])
+
+
+def test_sparse_multi_kernel_past_one_launch_of_targets(dev):
+    bl = 64
+    rng = np.random.default_rng(3)
+    packed = torch.from_numpy(_multi_triples(rng, 50_000, bl, 12)).to(dev)
+    targets = [torch.zeros((m, 2 * bl + 1), dtype=torch.int32, device=dev)
+               for m in range(3, MAX_TARGETS + 5)]
+    before = kernel_launches()["sparse_ingest"]
+    sparse_ingest_multi(targets, packed, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["sparse_ingest"] == before + 2
+    for t in targets:
+        assert torch.equal(t, sparse_ingest_batch(torch.zeros_like(t),
+                                                  packed, bl))
+
+
+def test_sparse_multi_kernel_back_to_back_without_sync(dev):
+    """Forty launches queued with no synchronisation, each from its own
+    upload out of pinned memory: every target holds the forty scatters."""
+    bl = 256
+    rng = np.random.default_rng(14)
+    targets, _ = _multi_targets(rng, bl, dev)
+    plain = [t.clone() for t in targets]
+    uploads = []
+    for k in range(40):
+        host = torch.from_numpy(_multi_triples(rng, 20_000 + k, bl, 12))
+        uploads.append(host.pin_memory().to(dev, non_blocking=True))
+        sparse_ingest_multi(targets, uploads[-1][k % 4:], bl)
+    torch.cuda.synchronize()
+    for k, packed in enumerate(uploads):
+        sparse_ingest_multi_batch(plain, packed[k % 4:], bl)
+    for got, want in zip(targets, plain):
+        assert torch.equal(got, want)
 
 
 def test_paged_scatter_kernel_equals_plain(dev):
@@ -376,8 +463,8 @@ def test_wheel_on_the_card_serves_snapshots_through_k5(dev):
         wheel.push(RawMetricSet(t0, {}, {"req": 3}, {
             "a": {1: 2 + i, 40: 1}, "b": {-3: 5, 70: i}}, {}, 1.0))
     after = kernel_launches()
-    # per push: one K3 per tier, one K5 per tier for both its views
-    assert after["sparse_ingest"] - before["sparse_ingest"] == 7 * 2
+    # per push: one K3 for every tier, one K5 per tier for both its views
+    assert after["sparse_ingest"] - before["sparse_ingest"] == 7 * 1
     assert after["window_merge"] - before["window_merge"] == 7 * 2
     for window in (2.0, None):
         served = wheel.query("*", window)
@@ -459,6 +546,69 @@ def test_divergence_kernel_equals_plain(dev, m, bl):
     assert got["ks"][2] < 2e-6
 
 
+def _k7_edge_inputs(m, b, mb, seed):
+    """Rows whose live and baseline supports straddle K7's 896-column
+    tile edges, one-hot rows at the first and last column, a subnormal
+    baseline entry; a bank of mb rows, given as bank 1 of a 2-bank
+    array so that its rows start off 16-byte boundaries."""
+    tile = 896
+    rng = np.random.default_rng(seed)
+    cols = np.arange(b)
+    bins = rng.integers(0, 3, (m, b)) * (rng.random((m, b)) < 0.05)
+    pmf = rng.random((mb, b)) ** 8
+    for r in range(m):
+        edge = min(tile * (1 + r % 9), b - 1)
+        live = slice(max(edge - 2 - r, 0), min(edge + 3 + 2 * r, b))
+        bins[r, live] += rng.integers(1, 60, live.stop - live.start)
+        if r < mb:
+            pmf[r] += np.exp(-0.5 * ((cols - edge + 3 * r) / (2 + r)) ** 2)
+    bins[m - 1, :] = 0
+    bins[m - 1, b - 1] = 40  # a lone last column
+    if m > 2:
+        bins[m - 2, :] = 0
+        bins[m - 2, 0] = 40  # a lone first column
+    cdf = np.cumsum(bins, axis=1).astype(np.int32)
+    counts = bins.sum(axis=1).astype(np.int32)
+    w = rng.random(mb).astype(np.float32) + 0.1
+    prof = (pmf / pmf.sum(axis=1, keepdims=True) * w[:, None]).astype(
+        np.float32)
+    prof[0, b // 2] = np.finfo(np.float32).smallest_subnormal
+    if m > 3:
+        counts[1] = 0      # masked: count 0
+    if mb > 3:
+        w[2] = 0.0         # masked: no baseline
+    banks = np.zeros((2, mb, b), np.float32)
+    banks[1] = prof
+    return cdf, counts, banks, w
+
+
+@pytest.mark.parametrize("m,b,mb", [(1, 3, 1), (6, 3, 4), (1, 8193, 1),
+                                    (12, 129, 9), (11, 2049, 11),
+                                    (21, 8193, 17), (20, 8193, 20)])
+def test_divergence_kernel_across_tile_edges(dev, m, b, mb):
+    from loghisto_tpu_torch.ops.anomaly import (
+        divergence_kernel,
+        divergence_plain,
+    )
+
+    cdf, counts, banks, w = _k7_edge_inputs(m, b, mb, seed=m * b)
+    cdf_d, counts_d, w_d = (torch.from_numpy(x).to(dev)
+                            for x in (cdf, counts, w))
+    prof_d = torch.from_numpy(banks).to(dev)[1]
+    before = kernel_launches()["divergence"]
+    got = divergence_kernel(cdf_d, counts_d, prof_d, w_d, 5)
+    want = divergence_plain(cdf_d, counts_d, prof_d, w_d, 5)
+    torch.cuda.synchronize()
+    assert kernel_launches()["divergence"] == before + 1
+    tol = {"ks": (0, 2e-6), "jsd": (0, 1e-5), "emd": (1e-4, b * 2.0**-23)}
+    for key, (rtol, atol) in tol.items():
+        g, w_ = got[key].cpu().numpy(), want[key].cpu().numpy()
+        np.testing.assert_allclose(g, w_, rtol=rtol, atol=atol, err_msg=key)
+        masked = (counts < 5) | (np.pad(w, (0, m - min(m, mb)))[:m] <= 0)
+        assert (g[masked] == 0).all() and (w_[masked] == 0).all()
+        assert (g[mb:] == 0).all()
+
+
 def test_fused_commit_with_lifecycle_and_drift_on_the_card(dev):
     import datetime as dt
 
@@ -485,7 +635,8 @@ def test_fused_commit_with_lifecycle_and_drift_on_the_card(dev):
     assert ms.lifecycle.compact()
     after = kernel_launches()
     ms.stop()
-    assert after["sparse_ingest"] > before["sparse_ingest"]
+    # one chunk an interval: one K3 into acc, both tiers' slots and ihist
+    assert after["sparse_ingest"] - before["sparse_ingest"] == 6
     assert after["divergence"] - before["divergence"] == 6
     assert after["compact_rows"] > before["compact_rows"]
     assert ms.committer.fused_intervals == 6

@@ -27,7 +27,7 @@ from loghisto_tpu.ops.sparse_ingest import (
     sparse_ingest_batch as jax_sparse_batch,
 )
 from loghisto_tpu_torch.ops import backend
-from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+from loghisto_tpu_torch.ops.fold import fold_packed_numpy, pack_cells
 from loghisto_tpu_torch.ops.fused_ingest import (
     fused_ingest_batch,
     make_fused_ingest_fn,
@@ -42,8 +42,11 @@ from loghisto_tpu_torch.ops.ingest import (
 )
 from loghisto_tpu_torch.ops.row_ingest import histogram_row, row_ingest_batch
 from loghisto_tpu_torch.ops.sparse_ingest import (
+    MAX_TARGETS,
     sparse_ingest,
     sparse_ingest_batch,
+    sparse_ingest_multi,
+    sparse_ingest_multi_batch,
 )
 
 F32 = np.finfo(np.float32)
@@ -173,6 +176,100 @@ def test_sparse_equals_jax(m, bl, seed):
     if bl == 64:  # the Pallas K3 kernel itself, interpret mode
         pallas = jax_pallas_sparse(jacc, jnp.asarray(packed), bl)
         np.testing.assert_array_equal(acc.numpy(), np.asarray(pallas))
+
+
+def _multi_triples(rng, n, bl, m_max):
+    """n seeded triples with every edge K3 must keep exact: split-count
+    duplicates (pack_cells at cap 5, adjacent), count-0 rows, ids -1,
+    -7, at and past every target's row count and 2^30, buckets past
+    +/-bl."""
+    ids = rng.integers(-2, m_max + 3, n)
+    ids[5::11] = 2**30
+    buckets = rng.integers(-bl - 9, bl + 10, n)
+    counts = rng.integers(1, 20, n)
+    packed = pack_cells(ids, buckets, counts, cap=5)[:n].copy()
+    packed[3::7, 2] = 0
+    packed[6::13, 0] = -7
+    return packed
+
+
+def _multi_targets(rng, bl):
+    """Targets of different row counts with nonzero contents, one of
+    them a ring-slot view; returns (targets, ring)."""
+    b = 2 * bl + 1
+    ring = torch.from_numpy(rng.integers(0, 9, (3, 5, b)).astype(np.int32))
+    targets = [torch.from_numpy(rng.integers(0, 9, (m, b)).astype(np.int32))
+               for m in (9, 12, 1)]
+    return [targets[0], ring[1], targets[1], targets[2]], ring
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 2500])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_sparse_ingest_multi_equals_jax_per_target(n, offset):
+    """One triple array into four targets of 9, 5 (a ring slot), 12 and
+    1 rows, from a view at 0, 1 or 3 triples into its buffer: each
+    target equals the JAX scatter of the same triples into it alone."""
+    bl = 64
+    rng = np.random.default_rng(1000 * n + offset)
+    buf = _multi_triples(rng, n + offset, bl, 12)
+    packed = torch.from_numpy(buf)[offset:]
+    targets, ring = _multi_targets(rng, bl)
+    before = [t.clone() for t in targets]
+    ring_before = ring.clone()
+    want = [np.asarray(jax_sparse_batch(jnp.asarray(t.numpy()),
+                                        jnp.asarray(packed.numpy()), bl))
+            for t in before]
+    out = sparse_ingest_multi(targets, packed, bl)
+    assert out == targets
+    for got, w in zip(targets, want):
+        np.testing.assert_array_equal(got.numpy(), w)
+    # the ring's other slots are untouched
+    assert torch.equal(ring[0], ring_before[0])
+    assert torch.equal(ring[2], ring_before[2])
+    plain = [t.clone() for t in before]
+    sparse_ingest_multi_batch(plain, packed, bl)
+    assert all(torch.equal(a, b) for a, b in zip(plain, targets))
+
+
+def test_sparse_ingest_multi_takes_more_targets_than_one_launch():
+    bl = 16
+    rng = np.random.default_rng(5)
+    packed = torch.from_numpy(_multi_triples(rng, 400, bl, 6))
+    targets = [torch.zeros((m, 2 * bl + 1), dtype=torch.int32)
+               for m in range(1, MAX_TARGETS + 4)]
+    sparse_ingest_multi(targets, packed, bl)
+    for t in targets:
+        want = sparse_ingest_batch(torch.zeros_like(t), packed, bl)
+        assert torch.equal(t, want)
+
+
+def test_sparse_ingest_multi_checks_every_target():
+    bl = 8
+    b = 2 * bl + 1
+    packed = torch.zeros((4, 3), dtype=torch.int32)
+    good = torch.zeros((3, b), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at least one target"):
+        sparse_ingest_multi([], packed, bl)
+    with pytest.raises(ValueError, match="buckets"):
+        sparse_ingest_multi([good, torch.zeros((3, b + 2), dtype=torch.int32)],
+                            packed, bl)
+    with pytest.raises(ValueError, match="int32"):
+        sparse_ingest_multi([good, torch.zeros((3, b))], packed, bl)
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_ingest_multi([good, torch.zeros((b, 3), dtype=torch.int32).t()],
+                            packed, bl)
+    with pytest.raises(ValueError, match="\\[M, B\\]"):
+        sparse_ingest_multi([good, torch.zeros(b, dtype=torch.int32)],
+                            packed, bl)
+    with pytest.raises(ValueError, match="share one device"):
+        sparse_ingest_multi(
+            [good, torch.zeros((3, b), dtype=torch.int32, device="meta")],
+            packed, bl)
+    with pytest.raises(ValueError, match="\\[n, 3\\]"):
+        sparse_ingest_multi([good], packed[:, :2], bl)
+    with pytest.raises(ValueError, match="int32"):
+        sparse_ingest_multi([good], packed.long(), bl)
+    assert not good.any()  # nothing was written before a check failed
 
 
 def test_fold_matches_plain_ingest():
