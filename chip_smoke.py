@@ -305,7 +305,10 @@ def _adversarial_block(rng, m):
 def phase_k1(torch):
     from loghisto_tpu_torch.ops.backend import kernel_launches
     from loghisto_tpu_torch.ops.codec import compress_np
-    from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
+    from loghisto_tpu_torch.ops.fused_ingest import (
+        device_plan,
+        fused_ingest_batch,
+    )
     from loghisto_tpu_torch.ops.ingest import ingest_batch
 
     dev = torch.device("cuda")
@@ -320,6 +323,11 @@ def phase_k1(torch):
     ids, vals = ids.copy(), vals.copy()
     ids[:len(adv_ids)], vals[:len(adv_vals)] = adv_ids, adv_vals
     batches["adversarial"] = (ids, vals)
+    # the firehose's batch size, and every sample on one cell
+    batches["zipf_2^22"] = (zipf_ids(rng, FH_BATCH, M),
+                            lognormal_values(rng, FH_BATCH))
+    batches["one_cell"] = (np.full(BATCH, 7, np.int32),
+                           np.full(BATCH, 58.7, np.float32))
 
     acc_k = torch.zeros((M, B), dtype=torch.int32, device=dev)
     acc_p = torch.zeros_like(acc_k)
@@ -340,24 +348,29 @@ def phase_k1(torch):
     assert int(acc_k.sum()) == valid
 
     timings = {}
-    for name in ("zipf", "uniform"):
+    for name in ("zipf", "uniform", "zipf_2^22", "one_cell"):
         ids, vals = batches[name]
+        n = len(ids)
         ids_d = torch.from_numpy(ids).to(dev)
         vals_d = torch.from_numpy(vals).to(dev)
         cols = np.clip(compress_np(vals), -BL, BL).astype(np.int64) + BL
         cols_d = torch.from_numpy(cols).to(dev)
-        ones = torch.ones(BATCH, dtype=torch.int32, device=dev)
+        ones = torch.ones(n, dtype=torch.int32, device=dev)
         ids_l = ids_d.long()
         acc = torch.zeros((M, B), dtype=torch.int32, device=dev)
         k_ms = time_ms(torch, lambda: fused_ingest_batch(acc, ids_d, vals_d, BL))
-        p_ms = time_ms(torch, lambda: ingest_batch(acc, ids_d, vals_d, BL))
-        lib_ms = time_ms(torch, lambda: acc.index_put_(
-            (ids_l, cols_d), ones, accumulate=True))
+        p_ms = lib_ms = None  # one cell: the plain scatter serialises (~95 ms)
+        if name != "one_cell":
+            p_ms = time_ms(torch, lambda: ingest_batch(acc, ids_d, vals_d, BL))
+            lib_ms = time_ms(torch, lambda: acc.index_put_(
+                (ids_l, cols_d), ones, accumulate=True))
         cells = touched_cells(ids, cols, M)
-        b_ms, b_by = bound_ms(BATCH * 8 + cells * 8, BATCH * CODEC_OPS)
-        timings[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "touched_cells": cells}
+        b_ms, b_by = bound_ms(n * 8 + cells * 8, n * CODEC_OPS)
+        timings[name] = {"samples": n, "ms": k_ms, "plain_ms": p_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "touched_cells": cells,
+                         "plan": device_plan(
+                             n, M, B, torch.cuda.current_device())._asdict()}
         del acc
     compare_launches = kernel_launches()["fused_ingest"] - before
     RESULTS["fused_ingest"] = {"max_abs_err": max_err, **timings["zipf"]}
@@ -861,12 +874,46 @@ def _pad_chunk(triples):
     return np.ascontiguousarray(np.concatenate([triples, pad]))
 
 
+def row_grouped_triples(torch, rng):
+    """What ``merge_raw`` hands K4 at the paged threshold: one interval of
+    the band workload over 2^16 rows (64 samples a row), folded and
+    translated against a fresh 2^16-row store (a 2^21-page pool): about
+    262,144 triples grouped by row, several cells of a row on one page."""
+    from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+
+    store = _paged_store(torch, 1 << 16)
+    ids, vals = band_workload(rng, 1 << 16)
+    triples, _, _ = store.translate(fold_packed_numpy(ids, vals, BL))
+    del store
+    return _pad_chunk(triples)
+
+
+def k4_cells(triples, page_size=256):
+    """Flat pool cells of the triples K4 adds (0 < slot < the pool,
+    count != 0), in their order."""
+    keep = ((triples[:, 0] > 0) & (triples[:, 0] < PAGED_POOL)
+            & (triples[:, 2] != 0))
+    return (triples[keep, 0].astype(np.int64) * page_size
+            + np.clip(triples[keep, 1], 0, page_size - 1))
+
+
+def sector_floor_ms(cells):
+    """The DRAM traffic the cells' scatter cannot avoid when the pool is
+    far larger than the L2: each distinct 32-byte sector read and written
+    back once (64 B), over the card's memory rate."""
+    sectors = len(np.unique(cells // 8))
+    return sectors * 64 / HBM_BYTES_PER_S * 1e3, sectors
+
+
 def phase_k4(torch):
     """K4 against its plain version on the triples the paged sparse
     route gives it at the headline shape: one 2^20-sample batch of the
     band workload and of a uniform workload, folded and translated
-    against a 2^20-row store with a 2^21-page pool, and an adversarial
-    batch."""
+    against a 2^20-row store with a 2^21-page pool, the row-grouped
+    triples of one band interval at 2^16 rows (``row_grouped_triples``),
+    and an adversarial batch.  Times on the band batch (the kernel
+    table's row) and the row-grouped one, each beside its byte bound and
+    its sector floor."""
     from loghisto_tpu_torch.ops.fold import fold_packed_numpy
     from loghisto_tpu_torch.ops.paged_store import (
         paged_scatter,
@@ -885,6 +932,7 @@ def phase_k4(torch):
         dev_triples, _, _ = store.translate(
             fold_packed_numpy(ids, vals, BL))
         batches[name] = _pad_chunk(dev_triples)
+    batches["row_grouped"] = row_grouped_triples(torch, rng)
     band = batches["band"]
     live = band[band[:, 0] > 0]
     hot = np.repeat(live[:1], 1 << 16, axis=0)
@@ -910,26 +958,34 @@ def phase_k4(torch):
         dtype=np.int64)) for t in batches.values())
     assert int(pool_k.sum(dtype=torch.int64)) == want_total
 
-    d = torch.from_numpy(band).to(dev)
-    valid = (band[:, 0] > 0) & (band[:, 0] < PAGED_POOL)
-    flat = torch.from_numpy(band[valid, 0].astype(np.int64) * 256
-                            + np.clip(band[valid, 1], 0, 255)).to(dev)
-    w = torch.from_numpy(band[valid, 2]).to(dev)
-    k_ms = time_ms(torch, lambda: paged_scatter(pool_k, d))
-    p_ms = time_ms(torch, lambda: paged_scatter_batch(pool_p, d))
-    lib_ms = time_ms(torch, lambda: pool_p.view(-1).index_put_(
-        (flat,), w, accumulate=True))
-    cells = len(np.unique(band[valid & (band[:, 2] != 0), 0].astype(np.int64)
-                          * 256 + np.clip(band[valid & (band[:, 2] != 0), 1],
-                                          0, 255)))
-    b_ms, b_by = bound_ms(len(band) * 12 + cells * 8)
-    RESULTS["paged_scatter"] = {"max_abs_err": max_err, "ms": k_ms,
-                                "plain_ms": p_ms, "library_ms": lib_ms,
-                                "bound_ms": b_ms, "bound_by": b_by}
+    timings = {}
+    for name in ("band", "row_grouped"):
+        triples = batches[name]
+        d = torch.from_numpy(triples).to(dev)
+        valid = (triples[:, 0] > 0) & (triples[:, 0] < PAGED_POOL)
+        flat = torch.from_numpy(triples[valid, 0].astype(np.int64) * 256
+                                + np.clip(triples[valid, 1], 0, 255)).to(dev)
+        w = torch.from_numpy(triples[valid, 2]).to(dev)
+        k_ms = time_ms(torch, lambda: paged_scatter(pool_k, d))
+        cold_ms = time_cold_ms(torch, lambda: paged_scatter(pool_k, d))
+        p_ms = time_ms(torch, lambda: paged_scatter_batch(pool_p, d))
+        lib_ms = time_ms(torch, lambda: pool_p.view(-1).index_put_(
+            (flat,), w, accumulate=True))
+        cells = k4_cells(triples)
+        n_cells = len(np.unique(cells))
+        b_ms, b_by = bound_ms(len(triples) * 12 + n_cells * 8)
+        floor_ms, sectors = sector_floor_ms(cells)
+        timings[name] = {"triples": len(triples), "ms": k_ms,
+                         "l2_flushed_ms": cold_ms, "plain_ms": p_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "touched_cells": n_cells,
+                         "sectors": sectors, "sector_floor_ms": floor_ms}
+    RESULTS["paged_scatter"] = {"max_abs_err": max_err, **{
+        k: timings["band"][k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")}}
     out = {"M": PAGED_M, "pool_pages": PAGED_POOL, "batch_samples": BATCH,
            "triples": {k: len(v) for k, v in batches.items()},
-           "touched_cells": cells, "equal": equal,
-           **RESULTS["paged_scatter"],
+           "equal": equal, "max_abs_err": max_err, "timings": timings,
            "library_call": "pool.view(-1).index_put_((flat,), counts, "
                            "accumulate=True) on a precomputed flat index"}
     del store, pool_k, pool_p

@@ -6,9 +6,32 @@
 // translated (slot, offset, count) triples with 0 < slot < P:
 //     pool[slot, clip(offset, 0, page_size - 1)] += count,
 // pool int32 [P, page_size] updated in place.  Slot 0 is the reserved
-// zero page and is never written; pads carry slot -1.  Bound on the
-// card (bytes): 12 B per triple and the read-modify-write of each touched
-// pool cell (8 B).
+// zero page and is never written; pads carry slot -1.
+//
+// Bound on the card: the byte bound counts 12 B per triple read once and
+// the read-modify-write of each touched pool cell (8 B): 0.0056 ms for
+// phase k4's band batch (933,888 padded triples).  What holds K4 back is
+// random access to the pool: the paged sparse route hands it about one
+// cell a page of a 2 GiB pool (40x the L2), so each cell costs a sector
+// read and written back, 713,970 distinct 32-byte sectors, which would
+// take 0.0136 ms at 64 B a sector and the data sheet's 3.35 TB/s.
+// Measured (scripts/torch_kernel_ab.py k4 on NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md): the earlier kernel (fd1717c: one triple a thread in a
+// grid-stride loop) 0.054 ms; a plain store in place of the atomic
+// 0.055, the same triples with their slots renumbered into a pool of
+// only the touched pages 0.054, in a random order 0.064.  The time is
+// that of the random cells, whichever instruction writes them: K4 takes
+// what a plain store takes, 4x the computed sector time, a gap not yet
+// explained (PERF.md section 7).  The kernel is the triple loop of
+// csrc/triple_scatter.cuh with K4's cell map (0 < slot < P, offset
+// clipped to the page), one triple a thread in 512-thread blocks, the
+// grid sized to the triples.  Other layouts, timed with kernels since
+// taken out of the A/B script: 4, 2 or 1 triples a thread in blocks of
+// 64-512 threads took the band batch within 1% of each other and of the
+// earlier kernel (0.0539-0.0550), and this layout was no slower than any
+// on the row-grouped interval of the paged threshold (262,144 triples,
+// several cells a page: 0.0033-0.0035 against the earlier kernel's
+// 0.0034-0.0038).
 //
 // K4f, lh_fused_paged_ingest — replaces loghisto_tpu/ops/fused_ingest.py
 // `fused_paged_ingest_batch` (whose one pallas_call is K4, after XLA
@@ -24,8 +47,7 @@
 // serial grid — the only way it adds duplicate cells exactly — so the
 // JAX step folds duplicates first to bound that cost by unique cells.
 // Hopper's int32 atomicAdd adds duplicates exactly, so there is no sort
-// and no padding (D2).  K4 is one grid-stride loop and one atomic per
-// triple.
+// and no padding (D2).
 //
 // Bound on the card (bytes): 8 B per sample in (id, value), the table
 // entries the inputs need — 4 B of row_codec per distinct id, 4 B of
@@ -53,22 +75,21 @@
 // Flat indices are formed in 64 bits: page * M and slot * page_size reach
 // 2^25 and 2^29 at 2^20 rows and 2^21 slots.
 #include "codec.cuh"
+#include "triple_scatter.cuh"
 
-__global__ void lh_paged_scatter_kernel(int* __restrict__ pool,
-                                        const int* __restrict__ packed,
-                                        long long n, int pool_pages,
-                                        int page_size) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int slot = packed[3 * i];
-    if (slot <= 0 || slot >= pool_pages) continue;
-    const int count = packed[3 * i + 2];
-    if (count == 0) continue;
-    int off = packed[3 * i + 1];
+// K4's triple layout (csrc/triple_scatter.cuh): threads a block, triples
+// a thread
+constexpr int kK4Threads = 512;
+constexpr int kK4Per = 1;
+
+__global__ void __launch_bounds__(kK4Threads)
+lh_paged_scatter_kernel(int* __restrict__ pool, const int* __restrict__ packed, long long n,
+                        int pool_pages, int page_size) {
+  lh_scatter_triples<kK4Threads, kK4Per>(packed, n, [&](int slot, int off, int count) {
+    if (count == 0 || slot <= 0 || slot >= pool_pages) return;
     off = off < 0 ? 0 : (off >= page_size ? page_size - 1 : off);
     atomicAdd(pool + static_cast<long long>(slot) * page_size + off, count);
-  }
+  });
 }
 
 constexpr int kSamplesPerThread = 4;
@@ -143,8 +164,7 @@ extern "C" int lh_paged_scatter(void* pool, const void* packed, long long n,
                                 int pool_pages, int page_size, void* stream) {
   if (page_size <= 0 || pool_pages <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  lh_paged_scatter_kernel<<<lh_grid(n, threads, 16), threads, 0,
+  lh_paged_scatter_kernel<<<lh_triple_blocks<kK4Threads, kK4Per>(n), kK4Threads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(pool), static_cast<const int*>(packed), n, pool_pages,
       page_size);

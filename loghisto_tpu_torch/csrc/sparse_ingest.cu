@@ -20,19 +20,15 @@
 // duplicate cells exactly.  Hopper adds them exactly with atomics.  The
 // design:
 //
-//   * A block of 128 threads takes 512 consecutive triples, 4 a thread:
-//     thread t takes triples t, t + 128, t + 256 and t + 384 of the block,
-//     so each of a warp's loads reads 32 neighbouring triples (384
-//     contiguous bytes) and each of its atomics lands on the neighbouring
-//     cells the host fold sorts next to each other.  A thread issues its
-//     12 loads, predicated on the end of the array, before any branch,
-//     then its atomics.  The grid is sized to the triples: no grid-stride
-//     pass and no ragged second loop.  The loads are 4-byte, so any view
-//     (packed[1:] starts 12 bytes in) takes the same path.  Measured
-//     against 16-byte loads of a thread's own 4 triples (3 int4; the
-//     atomics of a warp then spread over 4x the cells) and against int4
-//     loads transposed through shared memory, this layout was the
-//     fastest (PERF.md).
+//   * The triple loop of csrc/triple_scatter.cuh, shared with K4: a block
+//     of 128 threads takes 512 consecutive triples, 4 a thread, strided
+//     by 128 so that a warp's loads are coalesced; a thread issues its 12
+//     loads, predicated on the end of the array, before any branch, then
+//     its atomics; the grid is sized to the triples.  Measured against
+//     16-byte loads of a thread's own 4 triples (3 int4; the atomics of a
+//     warp then spread over 4x the cells) and against int4 loads
+//     transposed through shared memory, this layout was the fastest
+//     (PERF.md).
 //   * The target pointers and row counts ride the launch arguments; the
 //     kernel is compiled for each target count (1-8), so a one-target
 //     launch carries no per-target loop.
@@ -41,12 +37,12 @@
 // read-modify-write of each touched cell of each target (8 B); equal
 // cells (the fold's split counts) stay exact through the atomics.
 #include "codec.cuh"
+#include "triple_scatter.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kPer = 4;                          // triples a thread
-constexpr int kBlockTriples = kThreads * kPer;   // 512
+constexpr int kPer = 4;  // triples a thread
 constexpr int kMaxTargets = 8;
 
 struct LhTargets {
@@ -71,25 +67,16 @@ template <int NT>
 __global__ void __launch_bounds__(kThreads)
 lh_sparse_ingest_kernel(LhTargets t, const int* __restrict__ packed, long long n, int nb,
                         int bl) {
-  const long long first = static_cast<long long>(blockIdx.x) * kBlockTriples + threadIdx.x;
-  int f[kPer][3];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const long long i = first + u * kThreads;
-    const bool in = i < n;  // past the end: count 0, dropped
-#pragma unroll
-    for (int c = 0; c < 3; ++c) f[u][c] = in ? __ldg(packed + 3 * i + c) : 0;
-  }
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) lh_add<NT>(t, f[u][0], f[u][1], f[u][2], nb, bl);
+  lh_scatter_triples<kThreads, kPer>(packed, n, [&](int id, int bucket, int count) {
+    lh_add<NT>(t, id, bucket, count, nb, bl);
+  });
 }
 
 template <int NT>
 cudaError_t lh_launch(const LhTargets& t, const int* packed, long long n, int nb, int bl,
                       cudaStream_t stream) {
-  const long long blocks = (n + kBlockTriples - 1) / kBlockTriples;
   lh_sparse_ingest_kernel<NT>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(t, packed, n, nb, bl);
+      <<<lh_triple_blocks<kThreads, kPer>(n), kThreads, 0, stream>>>(t, packed, n, nb, bl);
   return cudaGetLastError();
 }
 

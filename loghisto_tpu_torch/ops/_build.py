@@ -48,8 +48,10 @@ KERNEL_SPECS = {
     "fused_ingest": (
         "fused_ingest.cu", "lh_fused_ingest",
         # acc, ids, values, n, num_metrics, num_buckets, bucket_limit,
-        # precision
-        [_P, _P, _P, _LL, _I, _I, _I, _I],
+        # precision, then the launch plan (ops/fused_ingest.
+        # plan_fused_ingest): blocks, chunk, table_log2, key_bits,
+        # shared_bytes
+        [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _LL, _I, _I, _LL],
     ),
     "row_ingest": (
         "row_ingest.cu", "lh_row_ingest",
@@ -97,7 +99,7 @@ KERNEL_SPECS = {
         [_P, _P, _P, _P, _LL, _I, _I, _I, _I],
     ),
 }
-_SHARED_HEADERS = ("codec.cuh", "bulk_copy.cuh")
+_SHARED_HEADERS = ("codec.cuh", "bulk_copy.cuh", "triple_scatter.cuh")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -210,6 +212,17 @@ def entry(name: str):
     use."""
     lib = _load(name)
     return getattr(lib, KERNEL_SPECS[name][1])
+
+
+def helper(name: str, symbol: str, argtypes):
+    """Another C function of kernel ``name``'s library (a launch-planning
+    query, say), bound with ``argtypes`` and an int result."""
+    fn = getattr(_load(name), symbol)
+    with _lock:
+        if fn.argtypes is None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return fn
 
 
 def error_string(name: str, code: int) -> str:

@@ -4,9 +4,18 @@
 The Pallas kernel ``_kernel`` sorts and block-pads the raw batch
 (``preprocess_values``) and accumulates bf16 one-hot products on the
 MXU, because the TPU lacks fast scatter atomics.  The Hopper kernel
-(``csrc/fused_ingest.cu``) keeps only what the kernel computes: one
-thread per sample runs the float64 codec and ``atomicAdd``s 1 into the
-int32 accumulator.  No sort, no padding, no ``M % 8`` row tile.
+(``csrc/fused_ingest.cu``) keeps only what the kernel computes: the
+float64 codec and an int32 add per sample, no sort, no padding, no
+``M % 8`` row tile.  A persistent grid of blocks each takes one
+contiguous chunk of the batch.  Samples of a row that several lanes of
+a warp hold (the hot rows of skewed ids) go into a cell table shared by
+a cluster of blocks, which adds each filled slot to the accumulator
+with one global atomic at the end; the rest go straight to global
+atomics.  A hot cell then costs one global add per cluster instead of
+one per sample.  ``plan_fused_ingest`` sizes the grid, the chunk, the
+table, the shared memory and the key width; it is plain Python so that
+the CPU tests reach it (``device_plan`` adds the card's SM count and
+cluster occupancy).
 
 ``fused_ingest_batch`` launches that kernel on CUDA tensors and takes
 its plain version, ``ingest_batch`` (re-exported as
@@ -27,12 +36,118 @@ so that the kernel's page-table gathers fall in contiguous slabs.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.ops.backend import is_plain, launch, resolve_device
 from loghisto_tpu_torch.ops.ingest import ingest_batch
 from loghisto_tpu_torch.ops.ingest import ingest_batch as fused_ingest_reference  # noqa: F401
+
+
+# K1's launch plan.  csrc/fused_ingest.cu runs 512 threads a block, 4
+# samples a thread a pass, in clusters of 8 blocks whose cell tables
+# hold at most 2**12 slots each; 2 blocks an SM were chosen on the card
+# (PERF.md).
+K1_THREADS = 512
+K1_MIN_CHUNK = K1_THREADS * 4
+K1_CLUSTER = 8
+K1_BLOCKS_PER_SM = 2
+K1_MIN_TABLE_LOG2 = 8
+K1_MAX_TABLE_LOG2 = 12
+# 227 KB: the most dynamic shared memory a Hopper block can opt in to
+K1_MAX_SHARED_BYTES = 232_448
+
+
+class FusedIngestPlan(NamedTuple):
+    blocks: int       # one contiguous chunk of the batch each
+    chunk: int        # samples a block (the last block may take fewer)
+    table_log2: int   # the block's cell table has 2**table_log2 slots
+    key_bits: int     # 32 while M * B < 2**31, else 64
+    shared_bytes: int  # dynamic shared memory a block: at least its table
+    #                    (a key and an int32 count a slot) and the share of
+    #                    an SM that keeps it to K1_BLOCKS_PER_SM blocks
+
+
+def k1_key_bits(num_metrics: int, num_buckets: int) -> int:
+    """Width of K1's table keys (the flat cell ``id * B + col``): 32 bits
+    while every cell index and the empty key 2**32 - 1 fit, 64 from
+    M * B >= 2**31 on (an explicitly dense accumulator can be that
+    large)."""
+    return 64 if num_metrics * num_buckets >= 2**31 else 32
+
+
+def plan_fused_ingest(n: int, num_metrics: int, num_buckets: int,
+                      sm_count: int, resident_clusters: int | None = None,
+                      ) -> FusedIngestPlan:
+    """Grid, chunk and table of one K1 launch over ``n`` samples: at
+    most ``K1_BLOCKS_PER_SM`` blocks an SM and at least one pass of a
+    block (``K1_MIN_CHUNK`` samples) a block, the blocks whole clusters
+    and, given ``resident_clusters`` (the clusters the card holds at
+    once), no more than those: a cluster left for a second wave would
+    run its chunks after the rest.  The table holds twice the chunk,
+    between 2**K1_MIN_TABLE_LOG2 and 2**K1_MAX_TABLE_LOG2 slots (cells
+    that find no slot go to the global atomics)."""
+    if n < 0 or sm_count < 1 or (resident_clusters is not None
+                                 and resident_clusters < 1):
+        raise ValueError(
+            f"bad K1 plan input: n={n}, sm_count={sm_count}, "
+            f"resident_clusters={resident_clusters}"
+        )
+    key_bits = k1_key_bits(num_metrics, num_buckets)
+    blocks = min(sm_count * K1_BLOCKS_PER_SM, -(-n // K1_MIN_CHUNK))
+    if resident_clusters is not None:
+        blocks = min(blocks, resident_clusters * K1_CLUSTER)
+    blocks = max(K1_CLUSTER, blocks // K1_CLUSTER * K1_CLUSTER)
+    chunk = max(1, -(-n // blocks))
+    table_log2 = min(K1_MAX_TABLE_LOG2,
+                     max(K1_MIN_TABLE_LOG2, (2 * chunk - 1).bit_length()))
+    # more than a 1/(K1_BLOCKS_PER_SM + 1) share of the SM's shared
+    # memory: the card places no more blocks an SM than planned, and the
+    # occupancy query counts the clusters that fit so
+    shared = max((1 << table_log2) * (key_bits // 8 + 4),
+                 K1_MAX_SHARED_BYTES // (K1_BLOCKS_PER_SM + 1) + 1)
+    return FusedIngestPlan(blocks, chunk, table_log2, key_bits, shared)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device_index: int, key_bits: int,
+                      shared_bytes: int) -> int:
+    """Clusters of ``K1_CLUSTER`` K1 blocks of ``shared_bytes`` of
+    dynamic shared memory each that CUDA device ``device_index`` holds
+    at once (the CUDA occupancy query, built with the kernel)."""
+    from loghisto_tpu_torch.ops import _build
+
+    query = _build.helper("fused_ingest", "lh_fused_ingest_clusters",
+                          [ctypes.c_int, ctypes.c_longlong])
+    with torch.cuda.device(device_index):
+        got = query(key_bits, shared_bytes)
+    if got <= 0:
+        raise RuntimeError(
+            f"K1 cluster occupancy query failed: CUDA error {-got}"
+        )
+    return got
+
+
+def device_plan(n: int, num_metrics: int, num_buckets: int,
+                device_index: int) -> FusedIngestPlan:
+    """``plan_fused_ingest`` for CUDA device ``device_index``: its SM
+    count and the clusters it holds at once."""
+    sms = sm_count(device_index)
+    plan = plan_fused_ingest(n, num_metrics, num_buckets, sms)
+    return plan_fused_ingest(
+        n, num_metrics, num_buckets, sms,
+        resident_clusters=resident_clusters(
+            device_index, plan.key_bits, plan.shared_bytes))
 
 
 def check_acc(acc: torch.Tensor, bucket_limit: int) -> None:
@@ -100,9 +215,13 @@ def fused_ingest_batch(
         return ingest_batch(acc, ids, values, bucket_limit, precision)
     n = ids.shape[0]
     if n:
+        # a CUDA tensor's device always carries its index
+        plan = device_plan(n, acc.shape[0], acc.shape[1], acc.device.index)
         launch(
-            "fused_ingest", acc.data_ptr(), ids.data_ptr(), values.data_ptr(),
-            n, acc.shape[0], acc.shape[1], bucket_limit, precision,
+            "fused_ingest", acc.data_ptr(), ids.data_ptr(),
+            values.data_ptr(), n, acc.shape[0], acc.shape[1], bucket_limit,
+            precision, plan.blocks, plan.chunk, plan.table_log2,
+            plan.key_bits, plan.shared_bytes,
         )
     return acc
 

@@ -15,8 +15,9 @@ The host translates packed ``(row, codec_bucket, count)`` cells into
 ``(slot, offset, count)`` triples against the table; the device adds
 them into the pool.  ``paged_scatter_batch`` is the plain version (the
 JAX jnp tier's math); ``paged_scatter`` launches the Hopper kernel
-(``csrc/paged_store.cu``: one thread and one ``atomicAdd`` per triple)
-on CUDA tensors and takes the plain version on CPU tensors.  The TPU
+(``csrc/paged_store.cu``: K3's triple loop, one ``atomicAdd`` per
+triple; its time is the pool's DRAM sectors) on CUDA tensors and takes
+the plain version on CPU tensors.  The TPU
 kernel round-trips a whole page through VMEM by DMA per cell on a serial
 grid, because that is how a TPU adds duplicate cells exactly; int32
 atomics do that here, so neither the serial grid nor the padding to

@@ -4,19 +4,34 @@ kernels, in one process on one NVIDIA card, in turns (old, new, new,
 old), at the shapes of chip_smoke.py.
 
     git archive <rev> loghisto_tpu_torch/csrc | tar -x -C build/ab_parent
-    python3 scripts/torch_kernel_ab.py build/ab_parent [k7 k3 k4f k5]
+    python3 scripts/torch_kernel_ab.py build/ab_parent [k1 k4 k7 k3 k4f k5]
 
 The earlier sources are built with the same nvcc flags as the package's
 own (``ops/_build.py``) into ``build/ab/``.  Each comparison calls the
 earlier entry point with that revision's signature:
 
-  * ``k7`` and ``k3`` (the default) take the revision before K7's
-    streamed rows and K3's multi-target launch (98f588e): K7
-    ``lh_divergence`` staging a whole row in shared memory, K3
-    ``lh_sparse_ingest`` with one target and one thread a triple.  K3
-    is timed at phase k3's batch with the L2 as the table leaves it and
-    flushed before each launch, and at the fused commit's shape: one
-    launch into five targets against five earlier launches.
+  * ``k1`` and ``k4`` (the default) take the revision before K1's cell
+    table and K4's shared triple loop (fd1717c): K1 ``lh_fused_ingest``
+    and K4 ``lh_paged_scatter``, one thread an item in a grid-stride
+    loop.  K1 is timed on phase k1's Zipf and uniform 2^20 batches and
+    a Zipf 2^22 batch, warm and with the L2 flushed, and in the
+    firehose's step at 10,000 metrics and batch 2^22 (generation on the
+    card, then K1: the step with each revision's K1, in turns).  K4 is
+    timed on phase k4's band batch and the row-grouped interval
+    (``chip_smoke.row_grouped_triples``), warm and L2-flushed.
+    Diagnosis kernels that exist only here (``DIAG_SOURCE``) time K1's
+    atomics alone on precomputed cells and its codec alone, and K4 with
+    a store in place of the atomic and with a plain read-modify-write
+    (the random-access time of the same cells); K4 is also timed on its
+    triples in a random order and with their slots renumbered into a
+    pool of only the touched pages.
+  * ``k7`` and ``k3`` take the revision before K7's streamed rows and
+    K3's multi-target launch (98f588e): K7 ``lh_divergence`` staging a
+    whole row in shared memory, K3 ``lh_sparse_ingest`` with one target
+    and one thread a triple.  K3 is timed at phase k3's batch with the
+    L2 as the table leaves it and flushed before each launch, and at the
+    fused commit's shape: one launch into five targets against five
+    earlier launches.
   * ``k4f`` and ``k5`` take a revision before those kernels' redesign
     (7de23b8): K4f ``lh_fused_paged_ingest`` reading an
     ``[M, pages_per_row]`` page table, K5 ``lh_window_merge`` taking a
@@ -46,6 +61,9 @@ import chip_smoke as cs  # noqa: E402  (the smoke's shapes and helpers)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # comparison -> (earlier source, its entry point, its argtypes)
 OLD_ENTRIES = {
+    "k1": ("fused_ingest.cu", "lh_fused_ingest",
+           [_P, _P, _P, _LL, _I, _I, _I, _I, _P]),
+    "k4": ("paged_store.cu", "lh_paged_scatter", [_P, _P, _LL, _I, _I, _P]),
     "k7": ("divergence.cu", "lh_divergence",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "k3": ("sparse_ingest.cu", "lh_sparse_ingest",
@@ -57,29 +75,125 @@ OLD_ENTRIES = {
 }
 
 
+# Diagnosis kernels of K1 and K4: they exist only in this script, never
+# in the package.  K1 (a): one atomic a sample on precomputed flat cells
+# (int64, -1 drops), in the earlier kernel's grid-stride layout; K1 (b):
+# the codec alone, each sample's column written to a buffer.  K4 (c): a
+# store in place of the atomic; and a plain (not atomic) read-modify-
+# write of each cell; both in K4's own triple loop, with K4's filters
+# and clip.  The store and the plain add race on repeated
+# cells, so their pools are never compared.
+DIAG_SOURCE = r"""
+#include "codec.cuh"
+#include "triple_scatter.cuh"
+
+__global__ void diag_k1_atomics(int* acc, const long long* cells, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const long long c = cells[i];
+    if (c >= 0) atomicAdd(acc + c, 1);
+  }
+}
+
+__global__ void diag_k1_codec(int* out, const float* values, long long n, int bl,
+                              int precision) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    out[i] = lh_dense_col(values[i], bl, precision);
+  }
+}
+
+template <bool kStore>
+__global__ void __launch_bounds__(128)
+diag_k4(int* pool, const int* packed, long long n, int pool_pages, int page_size) {
+  lh_scatter_triples<128, 4>(packed, n, [&](int slot, int off, int count) {
+    if (count == 0 || slot <= 0 || slot >= pool_pages) return;
+    off = off < 0 ? 0 : (off >= page_size ? page_size - 1 : off);
+    int* cell = pool + static_cast<long long>(slot) * page_size + off;
+    if (kStore) {
+      *cell = count;
+    } else {
+      *cell += count;
+    }
+  });
+}
+
+extern "C" int diag_k1_atomics_launch(void* acc, const void* cells, long long n,
+                                      void* stream) {
+  diag_k1_atomics<<<lh_grid(n, 256, 16), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(acc), static_cast<const long long*>(cells), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int diag_k1_codec_launch(void* out, const void* values, long long n, int bl,
+                                    int precision, void* stream) {
+  diag_k1_codec<<<lh_grid(n, 256, 16), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(out), static_cast<const float*>(values), n, bl, precision);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int diag_k4_launch(void* pool, const void* packed, long long n, int pool_pages,
+                              int page_size, int store, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (store) {
+    diag_k4<true><<<lh_triple_blocks<128, 4>(n), 128, 0, st>>>(
+        static_cast<int*>(pool), static_cast<const int*>(packed), n, pool_pages, page_size);
+  } else {
+    diag_k4<false><<<lh_triple_blocks<128, 4>(n), 128, 0, st>>>(
+        static_cast<int*>(pool), static_cast<const int*>(packed), n, pool_pages, page_size);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+DIAG_ENTRIES = {
+    "diag_k1_atomics_launch": [_P, _P, _LL, _P],
+    "diag_k1_codec_launch": [_P, _P, _LL, _I, _I, _P],
+    "diag_k4_launch": [_P, _P, _LL, _I, _I, _I, _P],
+}
+
+
 def build_old(parent: Path, names) -> dict:
-    """The earlier entry points of ``names``, one nvcc per source, all
+    """The earlier entry points of ``names`` and, for ``k1`` or ``k4``,
+    the diagnosis kernels (``fns["diag"]``), one nvcc per source, all
     started together."""
     from loghisto_tpu_torch.ops import _build
 
     csrc = parent / "loghisto_tpu_torch" / "csrc"
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+
+    def nvcc(include, lib, source):
+        return subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(include),
+             "-o", str(lib), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
     procs = {}
     for name in names:
         source = OLD_ENTRIES[name][0]
-        lib = out_dir / f"old_{Path(source).stem}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-             str(lib), str(csrc / source)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        lib = out_dir / f"old_{name}_{Path(source).stem}.so"
+        procs[name] = (lib, nvcc(csrc, lib, csrc / source))
+    if {"k1", "k4"} & set(names):
+        diag_src = out_dir / "diag.cu"
+        diag_src.write_text(DIAG_SOURCE)
+        procs["diag"] = (out_dir / "diag.so",
+                         nvcc(_build.CSRC, out_dir / "diag.so", diag_src))
     fns = {}
     for name, (lib, proc) in procs.items():
         _, err = proc.communicate()
-        source, symbol, argtypes = OLD_ENTRIES[name]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the earlier {source}:\n{err}")
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+            raise RuntimeError(f"nvcc failed on {name}'s source:\n{err}")
+        cdll = ctypes.CDLL(str(lib))
+        if name == "diag":
+            for symbol, argtypes in DIAG_ENTRIES.items():
+                fn = getattr(cdll, symbol)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name] = cdll
+            continue
+        _, symbol, argtypes = OLD_ENTRIES[name]
+        fn = getattr(cdll, symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
@@ -98,6 +212,234 @@ def in_turns(torch, old, new, reps=20, timer=None):
     timer = timer or cs.time_ms
     t = [timer(torch, f, reps=reps) for f in (old, new, new, old)]
     return {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+
+
+def _k1_batches(rng):
+    """Phase k1's batches in its draw order: Zipf and uniform 2^20, then
+    (after the adversarial block's draws) Zipf 2^22."""
+    out = {"zipf": (cs.zipf_ids(rng, cs.BATCH, cs.M),
+                    cs.lognormal_values(rng, cs.BATCH)),
+           "uniform": (rng.integers(0, cs.M, cs.BATCH).astype(np.int32),
+                       cs.lognormal_values(rng, cs.BATCH))}
+    cs._adversarial_block(rng, cs.M)
+    out["zipf_2^22"] = (cs.zipf_ids(rng, cs.FH_BATCH, cs.M),
+                        cs.lognormal_values(rng, cs.FH_BATCH))
+    return out
+
+
+def ab_k1(torch, old_fn, diag):
+    """K1 at phase k1's batches: the revisions in turns (warm, L2
+    flushed), the diagnosis kernels, then the firehose's step at 10,000
+    metrics and batch 2^22 with each revision's K1."""
+    from loghisto_tpu_torch.firehose import _make_sample_generator
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.ops.fused_ingest import (
+        device_plan,
+        fused_ingest_batch,
+        sm_count,
+    )
+    from loghisto_tpu_torch.ops.ingest import ingest_batch
+
+    dev = torch.device("cuda")
+    sms = sm_count(torch.cuda.current_device())
+    rng = np.random.default_rng(cs.SEED + 1)
+    acc = torch.zeros((cs.M, cs.B), dtype=torch.int32, device=dev)
+    acc_old = torch.zeros_like(acc)
+    want = torch.zeros_like(acc)
+
+    def old(target, i_d, v_d):
+        _call(old_fn, target.data_ptr(), i_d.data_ptr(), v_d.data_ptr(),
+              i_d.shape[0], cs.M, cs.B, cs.BL, 100)
+
+    out = {"sms": sms}
+    for name, (ids, vals) in _k1_batches(rng).items():
+        n = len(ids)
+        i_d = torch.from_numpy(ids).to(dev)
+        v_d = torch.from_numpy(vals).to(dev)
+        for t in (acc, acc_old, want):
+            t.zero_()
+        fused_ingest_batch(acc, i_d, v_d, cs.BL)
+        old(acc_old, i_d, v_d)
+        ingest_batch(want, i_d, v_d, cs.BL)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, want) and torch.equal(acc_old, want)):
+            raise AssertionError(f"K1 {name}: the revisions differ")
+        res = {"samples": n, "plan": device_plan(
+                   n, cs.M, cs.B, torch.cuda.current_device())._asdict(),
+               "warm": in_turns(torch, lambda: old(acc_old, i_d, v_d),
+                                lambda: fused_ingest_batch(acc, i_d, v_d,
+                                                           cs.BL)),
+               "l2_flushed": in_turns(
+                   torch, lambda: old(acc_old, i_d, v_d),
+                   lambda: fused_ingest_batch(acc, i_d, v_d, cs.BL),
+                   timer=cs.time_cold_ms)}
+        res["speedup"] = float(np.mean(res["warm"]["old_ms"])) / float(
+            np.mean(res["warm"]["new_ms"]))
+        # (a) the atomics alone on precomputed cells, (b) the codec alone
+        cols = np.clip(compress_np(vals), -cs.BL, cs.BL).astype(np.int64) + cs.BL
+        keep = (ids >= 0) & (ids < cs.M)
+        cells = torch.from_numpy(np.where(keep, ids.astype(np.int64) * cs.B
+                                          + cols, -1)).to(dev)
+        cols_out = torch.empty(n, dtype=torch.int32, device=dev)
+        res["atomics_only_ms"] = [cs.time_ms(torch, lambda: _call(
+            diag.diag_k1_atomics_launch, acc.data_ptr(), cells.data_ptr(), n))
+            for _ in range(2)]
+        # the atomics alone without the two most frequent rows
+        top = np.bincount(ids[keep], minlength=cs.M).argsort()[-2:]
+        cold = torch.from_numpy(np.where(keep & ~np.isin(ids, top),
+                                         ids.astype(np.int64) * cs.B + cols,
+                                         -1)).to(dev)
+        res["atomics_only_without_top2_rows_ms"] = [cs.time_ms(
+            torch, lambda: _call(diag.diag_k1_atomics_launch, acc.data_ptr(),
+                                 cold.data_ptr(), n)) for _ in range(2)]
+        res["top2_rows_share"] = float(np.isin(ids[keep], top).mean())
+        res["codec_only_ms"] = [cs.time_ms(torch, lambda: _call(
+            diag.diag_k1_codec_launch, cols_out.data_ptr(), v_d.data_ptr(), n,
+            cs.BL, 100)) for _ in range(2)]
+        if not torch.equal(cols_out.cpu().long(), torch.from_numpy(cols)):
+            raise AssertionError(f"K1 {name}: the codec-only columns differ")
+        res["touched_cells"] = cs.touched_cells(ids, cols, cs.M)
+        res["bound_ms"] = cs.bound_ms(n * 8 + res["touched_cells"] * 8,
+                                      n * cs.CODEC_OPS)[0]
+        out[name] = res
+        del cells, cols_out, cold
+
+    # the firehose's step: generation on the card, then K1
+    generate = _make_sample_generator(cs.M, 10.0, 2.0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    ids_f, vals_f = generate(gen, cs.FH_BATCH)
+    for t in (acc, acc_old, want):
+        t.zero_()
+    fused_ingest_batch(acc, ids_f, vals_f, cs.BL)
+    old(acc_old, ids_f, vals_f)
+    ingest_batch(want, ids_f, vals_f, cs.BL)
+    torch.cuda.synchronize()
+    if not (torch.equal(acc, want) and torch.equal(acc_old, want)):
+        raise AssertionError("K1 on a firehose batch: the revisions differ")
+
+    def step_old():
+        i_d, v_d = generate(gen, cs.FH_BATCH)
+        old(acc_old, i_d, v_d)
+
+    def step_new():
+        i_d, v_d = generate(gen, cs.FH_BATCH)
+        fused_ingest_batch(acc, i_d, v_d, cs.BL)
+
+    fh = {"metrics": cs.M, "batch": cs.FH_BATCH,
+          "generate_ms": [cs.time_ms(torch, lambda: generate(gen, cs.FH_BATCH),
+                                     reps=10) for _ in range(2)],
+          "step": in_turns(torch, step_old, step_new, reps=10),
+          "k1": in_turns(torch, lambda: old(acc_old, ids_f, vals_f),
+                         lambda: fused_ingest_batch(acc, ids_f, vals_f,
+                                                    cs.BL))}
+    for rev in ("old", "new"):
+        step_ms = float(np.mean(fh["step"][f"{rev}_ms"]))
+        fh[f"{rev}_k1_share"] = float(np.mean(fh["k1"][f"{rev}_ms"])) / step_ms
+        fh[f"{rev}_samples_per_s"] = [cs.FH_BATCH / t * 1e3
+                                      for t in fh["step"][f"{rev}_ms"]]
+    out["firehose_step"] = fh
+    del acc, acc_old, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def ab_k4(torch, old_fn, diag):
+    """K4 on phase k4's band batch and the row-grouped interval: the
+    revisions in turns (warm, L2 flushed); then the diagnoses: (b) the
+    same triples in a random order, (a) their slots renumbered densely
+    into a pool of only the touched pages, (c) a store in place of the
+    atomic, and a plain read-modify-write of the same cells (the
+    random-access time of these cells), beside the computed sector
+    floor."""
+    from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+    from loghisto_tpu_torch.ops.paged_store import (
+        paged_scatter,
+        paged_scatter_batch,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(cs.SEED + 4)
+    store = cs._paged_store(torch, cs.PAGED_M)
+    ids, vals = cs.band_batch(rng, cs.BATCH, cs.PAGED_M)
+    shapes = {"band": cs._pad_chunk(store.translate(
+        fold_packed_numpy(ids, vals, cs.BL))[0])}
+    # phase k4's uniform batch, drawn so that the row-grouped interval
+    # below is the phase's own
+    rng.integers(0, cs.PAGED_M, cs.BATCH)
+    cs.lognormal_values(rng, cs.BATCH)
+    shapes["row_grouped"] = cs.row_grouped_triples(torch, rng)
+    pool = store._pool
+    pool_old = torch.zeros_like(pool)
+    pool_p = torch.zeros_like(pool)
+    page = pool.shape[1]
+
+    def old(target, d):
+        _call(old_fn, target.data_ptr(), d.data_ptr(), d.shape[0],
+              target.shape[0], target.shape[1])
+
+    def diag_k4(target, d, store_only):
+        _call(diag.diag_k4_launch, target.data_ptr(), d.data_ptr(),
+              d.shape[0], target.shape[0], target.shape[1], int(store_only))
+
+    out = {}
+    for name, triples in shapes.items():
+        d = torch.from_numpy(triples).to(dev)
+        for t in (pool, pool_old, pool_p):
+            t.zero_()
+        paged_scatter(pool, d)
+        old(pool_old, d)
+        paged_scatter_batch(pool_p, d)
+        torch.cuda.synchronize()
+        if not (torch.equal(pool, pool_p) and torch.equal(pool_old, pool_p)):
+            raise AssertionError(f"K4 {name}: the revisions differ")
+        cells = cs.k4_cells(triples, page)
+        floor_ms, sectors = cs.sector_floor_ms(cells)
+        res = {"triples": len(triples), "touched_cells": len(np.unique(cells)),
+               "sectors": sectors, "sector_floor_ms": floor_ms,
+               "bound_ms": cs.bound_ms(len(triples) * 12
+                                       + len(np.unique(cells)) * 8)[0],
+               "warm": in_turns(torch, lambda: old(pool_old, d),
+                                lambda: paged_scatter(pool, d)),
+               "l2_flushed": in_turns(torch, lambda: old(pool_old, d),
+                                      lambda: paged_scatter(pool, d),
+                                      timer=cs.time_cold_ms)}
+        res["speedup"] = float(np.mean(res["warm"]["old_ms"])) / float(
+            np.mean(res["warm"]["new_ms"]))
+        # (b) a random order
+        shuffled = torch.from_numpy(np.ascontiguousarray(
+            triples[rng.permutation(len(triples))])).to(dev)
+        res["random_order"] = in_turns(torch, lambda: old(pool_old, shuffled),
+                                       lambda: paged_scatter(pool, shuffled))
+        # (a) the touched pages renumbered densely: slot k of the sorted
+        # touched slots becomes k + 1 (pads keep slot -1)
+        live = (triples[:, 0] > 0) & (triples[:, 0] < cs.PAGED_POOL)
+        touched, rank = np.unique(triples[live, 0], return_inverse=True)
+        dense = triples.copy()
+        dense[live, 0] = rank + 1
+        dense_d = torch.from_numpy(dense).to(dev)
+        small = torch.zeros((len(touched) + 1, page), dtype=torch.int32,
+                            device=dev)
+        small_old = torch.zeros_like(small)
+        res["dense_pool_pages"] = len(touched) + 1
+        res["dense_pool"] = in_turns(torch, lambda: old(small_old, dense_d),
+                                     lambda: paged_scatter(small, dense_d))
+        res["dense_pool_l2_flushed"] = in_turns(
+            torch, lambda: old(small_old, dense_d),
+            lambda: paged_scatter(small, dense_d), timer=cs.time_cold_ms)
+        # (c) a store in place of the atomic; the plain read-modify-write
+        res["store_ms"] = [cs.time_ms(torch, lambda: diag_k4(pool_p, d, True))
+                           for _ in range(2)]
+        res["plain_rmw_ms"] = [cs.time_ms(torch, lambda: diag_k4(pool_p, d,
+                                                                 False))
+                               for _ in range(2)]
+        res["plain_rmw_l2_flushed_ms"] = [cs.time_cold_ms(
+            torch, lambda: diag_k4(pool_p, d, False)) for _ in range(2)]
+        out[name] = res
+        del small, small_old
+    del store, pool, pool_old, pool_p
+    torch.cuda.empty_cache()
+    return out
 
 
 def ab_k7(torch, old_fn):
@@ -313,7 +655,7 @@ def ab_k5(torch, old_fn):
 def main() -> int:
     import torch
 
-    names = sys.argv[2:] or ["k7", "k3"]
+    names = sys.argv[2:] or ["k1", "k4"]
     if (len(sys.argv) < 2 or not torch.cuda.is_available()
             or set(names) - set(OLD_ENTRIES)):
         print(__doc__, file=sys.stderr)
@@ -326,7 +668,14 @@ def main() -> int:
     print(card, flush=True)
     runs = {"k7": ab_k7, "k3": ab_k3, "k4f": ab_k4f, "k5": ab_k5}
     for name in names:
-        cs.emit({"ab": name, "card": card, **runs[name](torch, old[name])})
+        if name in ("k1", "k4"):
+            if name == "k1":
+                res = ab_k1(torch, old[name], old["diag"])
+            else:
+                res = ab_k4(torch, old[name], old["diag"])
+        else:
+            res = runs[name](torch, old[name])
+        cs.emit({"ab": name, "card": card, **res})
     return 0
 
 

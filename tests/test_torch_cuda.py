@@ -23,7 +23,11 @@ import torch
 from loghisto_tpu_torch.ops.backend import kernel_launches
 from loghisto_tpu_torch.ops.codec import compress_np, edge_values
 from loghisto_tpu_torch.ops.fold import fold_packed_numpy, pack_cells
-from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
+from loghisto_tpu_torch.ops.fused_ingest import (
+    K1_CLUSTER,
+    device_plan,
+    fused_ingest_batch,
+)
 from loghisto_tpu_torch.ops.ingest import ingest_batch
 from loghisto_tpu_torch.ops.multirow_ingest import (
     multirow_ingest,
@@ -73,7 +77,8 @@ def _batch(n, m, seed):
     return ids, values
 
 
-@pytest.mark.parametrize("m,bl", [(1, 64), (37, 64), (5, 4096)])
+@pytest.mark.parametrize("m,bl", [(1, 64), (2, 64), (37, 64), (2, 4096),
+                                  (5, 4096)])
 def test_fused_kernel_equals_plain(dev, m, bl):
     ids, values = _batch(100_003, m, seed=m)
     ids_d, vals_d = torch.from_numpy(ids).to(dev), torch.from_numpy(values).to(dev)
@@ -85,6 +90,80 @@ def test_fused_kernel_equals_plain(dev, m, bl):
     torch.cuda.synchronize()
     assert kernel_launches()["fused_ingest"] == before + 1
     assert torch.equal(k, p)
+
+
+def _k1_equal(dev, m, bl, ids, values, offset=0):
+    """K1 on ``ids[offset:]``, ``values[offset:]`` against the plain
+    version: EQUAL; returns the kernel's accumulator."""
+    ids_d = torch.from_numpy(ids).to(dev)[offset:]
+    vals_d = torch.from_numpy(values).to(dev)[offset:]
+    k = torch.zeros((m, 2 * bl + 1), dtype=torch.int32, device=dev)
+    before = kernel_launches()["fused_ingest"]
+    fused_ingest_batch(k, ids_d, vals_d, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["fused_ingest"] == before + 1
+    p = ingest_batch(torch.zeros_like(k), ids_d, vals_d, bl)
+    assert torch.equal(k, p)
+    return k
+
+
+@pytest.mark.parametrize("n,rows", [(1 << 22, 64), (1 << 22, 4096),
+                                    (1 << 23, 256)])
+def test_fused_kernel_overflows_its_table(dev, n, rows):
+    """Every warp holds 4 rows on 8 lanes each (all hot), the values
+    spread over the whole bucket range: a cluster's samples fall on more
+    than three times the distinct cells its 8 tables hold.  The cells that find no
+    slot go to the global atomics; none is lost."""
+    m, bl = 10_000, 4096
+    rng = np.random.default_rng(n + rows)
+    i = np.arange(n)
+    ids = (((i // 32) * 4 + i % 4) % rows).astype(np.int32)
+    values = (np.exp(rng.uniform(0.0, 40.0, n))
+              * np.where(rng.random(n) < 0.5, -1, 1)).astype(np.float32)
+    plan = device_plan(n, m, 2 * bl + 1, dev.index or 0)
+    span = K1_CLUSTER * plan.chunk
+    cols = np.clip(compress_np(values[:span]), -bl, bl).astype(np.int64)
+    cells = np.unique(ids[:span].astype(np.int64) * (2 * bl + 1) + cols)
+    assert len(cells) > 3 * K1_CLUSTER * (1 << plan.table_log2)
+    k = _k1_equal(dev, m, bl, ids, values)
+    assert int(k.sum()) == n
+
+
+def test_fused_kernel_one_cell(dev):
+    """2^20 samples on one cell: a warp folds them, each block's table
+    takes one slot, each block adds once."""
+    n, m, bl = 1 << 20, 9, 4096
+    ids = np.full(n, 3, np.int32)
+    values = np.full(n, 58.7, np.float32)
+    k = _k1_equal(dev, m, bl, ids, values)
+    assert int(k[3].max()) == n
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fused_kernel_on_views(dev, offset):
+    """``ids[offset:]`` and ``values[offset:]`` start off a 16-byte
+    boundary; Zipf ids on two rows, edge values among them."""
+    ids, values = _batch(200_003, 2, seed=40 + offset)
+    _k1_equal(dev, 2, 4096, ids, values, offset=offset)
+
+
+def test_fused_kernel_takes_64_bit_cells(dev):
+    """A dense accumulator of M * B >= 2^31 cells (262,200 x 8193 int32,
+    8.6 GB): the table keys are 64-bit and the rows past cell 2^31 are
+    reached."""
+    m, bl = 262_200, 4096
+    b = 2 * bl + 1
+    plan = device_plan(1 << 20, m, b, dev.index or 0)
+    assert plan.key_bits == 64 and m * b >= 2**31
+    rng = np.random.default_rng(62)
+    n = 1 << 20
+    ids = rng.integers(m - 300, m + 3, n).astype(np.int32)
+    ids[::5] = rng.integers(-3, 100, len(ids[::5]))
+    values = rng.lognormal(4.0, 2.0, n).astype(np.float32)
+    k = _k1_equal(dev, m, bl, ids, values)
+    assert int(k.view(-1)[2**31:].sum()) > 0
+    del k
+    torch.cuda.empty_cache()
 
 
 def test_codec_edges_on_the_card(dev):
@@ -253,6 +332,72 @@ def test_sparse_multi_kernel_back_to_back_without_sync(dev):
         sparse_ingest_multi_batch(plain, packed[k % 4:], bl)
     for got, want in zip(targets, plain):
         assert torch.equal(got, want)
+
+
+def _k4_triples(rng, n, pages, page=256):
+    """(slot, offset, count) triples with every pad K4 drops: slot -1,
+    the zero page, slots >= P, count 0; offsets outside the page clip."""
+    packed = np.stack([
+        rng.integers(1, pages, n), rng.integers(0, page, n),
+        rng.integers(1, 50, n)], axis=1).astype(np.int32)
+    kind = rng.integers(0, 8, n)
+    packed[kind == 0, 0] = -1
+    packed[kind == 1, 0] = 0
+    packed[kind == 2, 0] = pages + rng.integers(0, 3, (kind == 2).sum())
+    packed[kind == 3, 2] = 0
+    packed[kind == 4, 1] = rng.choice([-7, -1, page, page + 9],
+                                      (kind == 4).sum())
+    return packed
+
+
+def _k4_equal(dev, pool_k, packed_d):
+    p = pool_k.clone()
+    before = kernel_launches()["paged_scatter"]
+    paged_scatter(pool_k, packed_d)
+    paged_scatter_batch(p, packed_d)
+    torch.cuda.synchronize()
+    assert kernel_launches()["paged_scatter"] == before + 1
+    assert torch.equal(pool_k, p) and not pool_k[0].any()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 511, 512, 513])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paged_scatter_kernel_ragged_ends_and_views(dev, n, offset):
+    """Launches that end inside a thread's four triples and inside a
+    block's 512, from ``packed[offset:]`` (``packed[1:]`` starts 12
+    bytes in, off a 16-byte boundary)."""
+    rng = np.random.default_rng(100 * n + offset)
+    buf = torch.from_numpy(_k4_triples(rng, n + offset, 40)).to(dev)
+    pool = torch.zeros((40, 256), dtype=torch.int32, device=dev)
+    _k4_equal(dev, pool, buf[offset:])
+
+
+def test_paged_scatter_kernel_one_cell(dev):
+    """One cell 2^16 times among random triples."""
+    rng = np.random.default_rng(16)
+    packed = _k4_triples(rng, 50_000, 300)
+    hot = np.tile(np.array([[5, 17, 1]], np.int32), (1 << 16, 1))
+    packed = np.concatenate([packed[:20_000], hot, packed[20_000:]])
+    pool = torch.zeros((300, 256), dtype=torch.int32, device=dev)
+    _k4_equal(dev, pool, torch.from_numpy(packed).to(dev))
+    assert int(pool[5, 17]) >= 1 << 16
+
+
+def test_paged_scatter_kernel_back_to_back_without_sync(dev):
+    """Forty launches queued with no synchronisation, each from its own
+    upload out of pinned memory: the pool holds the forty scatters."""
+    rng = np.random.default_rng(41)
+    pool = torch.zeros((500, 256), dtype=torch.int32, device=dev)
+    plain = torch.zeros_like(pool)
+    uploads = []
+    for k in range(40):
+        host = torch.from_numpy(_k4_triples(rng, 20_000 + k, 500))
+        uploads.append(host.pin_memory().to(dev, non_blocking=True))
+        paged_scatter(pool, uploads[-1][k % 4:])
+    torch.cuda.synchronize()
+    for k, packed in enumerate(uploads):
+        paged_scatter_batch(plain, packed[k % 4:])
+    assert torch.equal(pool, plain) and not pool[0].any()
 
 
 def test_paged_scatter_kernel_equals_plain(dev):

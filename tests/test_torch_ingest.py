@@ -29,8 +29,15 @@ from loghisto_tpu.ops.sparse_ingest import (
 from loghisto_tpu_torch.ops import backend
 from loghisto_tpu_torch.ops.fold import fold_packed_numpy, pack_cells
 from loghisto_tpu_torch.ops.fused_ingest import (
+    K1_BLOCKS_PER_SM,
+    K1_CLUSTER,
+    K1_MAX_SHARED_BYTES,
+    K1_MAX_TABLE_LOG2,
+    K1_MIN_CHUNK,
     fused_ingest_batch,
+    k1_key_bits,
     make_fused_ingest_fn,
+    plan_fused_ingest,
 )
 from loghisto_tpu_torch.ops.ingest import (
     bucket_indices,
@@ -110,6 +117,108 @@ def test_fused_plain_equals_jax_pallas_kernel_interpret():
     want = jax_fused(jnp.asarray(start), jnp.asarray(ids),
                      jnp.asarray(values), bl, interpret=True)
     np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["zipf", "one_cell"])
+def test_fused_plain_equals_jax_pallas_interpret_on_skewed_batches(case):
+    """The skewed batches K1's cell table is for: Zipf(1.3) ids (row 0
+    takes about a quarter) and every sample on one cell, against the JAX
+    kernel in interpret mode."""
+    m, bl, n = 16, 64, 4096
+    rng = np.random.default_rng(31)
+    if case == "zipf":
+        ids = ((rng.zipf(1.3, n) - 1) % m).astype(np.int32)
+        values = rng.lognormal(-1.0, 0.8, n).astype(np.float32)
+        ids, values = ids[_codecs_agree(values, bl)], values[
+            _codecs_agree(values, bl)]
+    else:
+        ids = np.full(n, 5, np.int32)
+        values = np.full(n, 0.5, np.float32)
+    acc = _zeros(m, bl)
+    fused_ingest_batch(acc, torch.from_numpy(ids), torch.from_numpy(values),
+                       bl)
+    want = jax_fused(jnp.zeros((m, 2 * bl + 1), jnp.int32),
+                     jnp.asarray(ids), jnp.asarray(values), bl,
+                     interpret=True)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+    assert int(acc.max()) >= (n if case == "one_cell" else n // 40)
+
+
+def _codecs_agree(values, bl):
+    return (np.asarray(jax_bucket_indices(jnp.asarray(values), bl))
+            == bucket_indices(torch.from_numpy(values), bl).numpy())
+
+
+@pytest.mark.parametrize("n,sms,resident,blocks,chunk,table_log2", [
+    (0, 132, None, 8, 1, 8),
+    (1, 132, 30, 8, 1, 8),
+    (K1_MIN_CHUNK, 132, 30, 8, 256, 9),
+    (2400, 132, 30, 8, 300, 10),
+    (100_003, 132, 30, 48, 2084, 12),
+    (1 << 20, 132, None, 264, 3972, 12),
+    (1 << 20, 132, 30, 240, 4370, 12),
+    (1 << 22, 132, 30, 240, 17477, 12),
+    (1 << 20, 114, 30, 224, 4682, 12),
+])
+def test_k1_plan_sizes_grid_chunk_and_table(n, sms, resident, blocks,
+                                            chunk, table_log2):
+    """Whole clusters of K1_CLUSTER blocks, at most K1_BLOCKS_PER_SM an
+    SM and no more clusters than the card holds at once, one pass of a
+    block (2048 samples) a block at least; the table holds twice the
+    chunk within its bounds; every block gets samples and the blocks
+    cover the batch."""
+    plan = plan_fused_ingest(n, 10_000, 8193, sms,
+                             resident_clusters=resident)
+    assert (plan.blocks, plan.chunk, plan.table_log2) == (
+        blocks, chunk, table_log2)
+    assert plan.blocks % K1_CLUSTER == 0
+    assert plan.blocks <= max(K1_CLUSTER, sms * K1_BLOCKS_PER_SM)
+    assert plan.table_log2 <= K1_MAX_TABLE_LOG2
+    assert plan.blocks * plan.chunk >= n
+    assert n < blocks * K1_MIN_CHUNK or (plan.blocks - 1) * plan.chunk < n
+    assert plan.key_bits == 32
+
+
+@pytest.mark.parametrize("m", [10_000, 262_200])
+def test_k1_plan_pads_shared_memory_to_its_blocks_an_sm(m):
+    """The plan asks for more than a 1/(K1_BLOCKS_PER_SM + 1) share of
+    an SM's 228 KB (each block also holds 1 KB of the system's), so the
+    card places K1_BLOCKS_PER_SM blocks an SM and no more, with 32- or
+    64-bit keys."""
+    sm_bytes, reserved = 233_472, 1024
+    plan = plan_fused_ingest(1 << 20, m, 8193, 132)
+    per_block = plan.shared_bytes + reserved
+    assert K1_BLOCKS_PER_SM * per_block <= sm_bytes
+    assert (K1_BLOCKS_PER_SM + 1) * per_block > sm_bytes
+    assert plan.shared_bytes >= (1 << plan.table_log2) * (
+        plan.key_bits // 8 + 4)
+
+
+@pytest.mark.parametrize("m,b,bits", [
+    (262_111, 8193, 32), (262_112, 8193, 32), (262_113, 8193, 64),
+    (262_200, 8193, 64), ((1 << 30) - 1, 2, 32), (1 << 30, 2, 64),
+    (10_000, 8193, 32), (1, 65_537, 32),
+])
+def test_k1_key_width_around_2_31_cells(m, b, bits):
+    """64-bit table keys from M * B >= 2^31 on; the table then still
+    fits the card's shared memory at its largest size."""
+    assert k1_key_bits(m, b) == bits
+    assert (m * b >= 2**31) == (bits == 64)
+    plan = plan_fused_ingest(1 << 22, m, b, 132)
+    assert plan.key_bits == bits
+    assert plan.table_log2 == K1_MAX_TABLE_LOG2
+    assert plan.shared_bytes >= (1 << plan.table_log2) * (bits // 8 + 4)
+    assert plan.shared_bytes <= K1_MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("args,match", [
+    ((-1, 8, 129, 132), "n=-1"),
+    ((10, 8, 129, 0), "sm_count=0"),
+    ((10, 8, 129, 132, 0), "resident_clusters=0"),
+])
+def test_k1_plan_refuses_what_it_cannot_plan(args, match):
+    with pytest.raises(ValueError, match=match):
+        plan_fused_ingest(*args)
 
 
 def test_fused_casts_float64_values_like_jax():

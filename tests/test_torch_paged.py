@@ -164,6 +164,37 @@ def test_paged_scatter_plain_equals_jax_pallas_interpret():
     np.testing.assert_array_equal(pool.numpy(), want)
 
 
+@pytest.mark.parametrize("shape", ["row_grouped", "hot_cell"])
+def test_paged_scatter_plain_equals_jax_on_skewed_triples(shape):
+    """K4's new shapes: row-grouped triples (a store's translation of a
+    folded band interval, several cells of a row on one page) and one
+    cell repeated 2^12 times among them, against the JAX jnp scatter."""
+    rng = np.random.default_rng(17)
+    m = 64
+    store = paging.PagedStore(m, BL, config=paging.PagedStoreConfig(
+        pool_pages=POOL), device="cpu")
+    ids = np.repeat(np.arange(m, dtype=np.int32), 64)
+    buckets = rng.integers(0, 200, m).repeat(64) + rng.integers(0, 4, len(ids))
+    values = np.expm1(buckets / 100.0).astype(np.float32)
+    from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+
+    packed = store.translate(fold_packed_numpy(ids, values, BL))[0]
+    assert len(packed) >= 2 * m  # several cells a row
+    if shape == "hot_cell":
+        hot = np.tile(packed[:1], (1 << 12, 1))
+        hot[:, 2] = 1
+        packed = np.concatenate([packed[: len(packed) // 2], hot,
+                                 packed[len(packed) // 2:]])
+    start = rng.integers(0, 100, (POOL, 256)).astype(np.int32)
+    start[0] = 0
+    want = np.asarray(jpaged.paged_scatter_batch(
+        jnp.asarray(start), jnp.asarray(packed)))
+    pool = torch.from_numpy(start.copy())
+    paged_store.paged_scatter(pool, torch.from_numpy(packed))
+    np.testing.assert_array_equal(pool.numpy(), want)
+    assert int(pool.sum()) - int(start.sum()) == int(packed[:, 2].sum())
+
+
 def test_paged_scatter_refuses_bad_operands():
     pool = torch.zeros((8, 256), dtype=torch.int32)
     with pytest.raises(ValueError, match=r"\[n, 3\]"):
