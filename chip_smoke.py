@@ -251,7 +251,7 @@ def phase_card(torch):
 def phase_codec(torch):
     from loghisto_tpu_torch.ops.codec import compress, compress_np, edge_values
     from loghisto_tpu_torch.ops.fused_ingest import fused_ingest_batch
-    from loghisto_tpu_torch.ops.row_ingest import histogram_row
+    from loghisto_tpu_torch.ops.row_ingest import codec_check, histogram_row
 
     dev = torch.device("cuda")
     edges = edge_values(BL)
@@ -280,12 +280,24 @@ def phase_codec(torch):
     cols = np.clip(compress_np(values), -BL, BL).astype(np.int64) + BL
     k2_random_mismatch = int(
         np.abs(row.cpu().numpy() - np.bincount(cols, minlength=B)).sum())
+    # K2's table codec against the float64 codec on every float32 pattern
+    t0 = time.perf_counter()
+    table_mismatch = table_reads = 0
+    for start in range(0, 1 << 32, 1 << 30):
+        bad, reads = codec_check(start, 1 << 30, BL)
+        table_mismatch += bad
+        table_reads += reads
     out = {
         "edge_values": m, "k1_edge_mismatch": k1_edge_mismatch,
         "plain_edge_mismatch": plain_edge_mismatch,
         "random_values": n, "k2_random_mismatch": k2_random_mismatch,
+        "table_codec_patterns": 1 << 32,
+        "table_codec_mismatch": table_mismatch,
+        "table_codec_table_reads": table_reads,
+        "table_codec_check_s": time.perf_counter() - t0,
     }
-    if k1_edge_mismatch or plain_edge_mismatch or k2_random_mismatch:
+    if (k1_edge_mismatch or plain_edge_mismatch or k2_random_mismatch
+            or table_mismatch):
         raise AssertionError(f"codec mismatches on the card: {out}")
     return out
 
@@ -384,6 +396,7 @@ def phase_k1(torch):
 def phase_k2(torch):
     from loghisto_tpu_torch.ops.codec import compress_np
     from loghisto_tpu_torch.ops.row_ingest import (
+        device_blocks,
         histogram_row,
         histogram_row_reference,
         row_ingest_batch,
@@ -426,6 +439,8 @@ def phase_k2(torch):
     cols_masked = torch.from_numpy(cols[ids == 0]).to(dev)
     acc = torch.zeros((1, B), dtype=torch.int32, device=dev)
     k_ms = time_ms(torch, lambda: row_ingest_batch(acc, ids_d, vals_d, BL))
+    k_cold = time_cold_ms(torch, lambda: row_ingest_batch(acc, ids_d, vals_d,
+                                                          BL))
     p_ms = time_ms(torch, lambda: histogram_row_reference(
         acc[0], vals_d, BL, 100, ids_d))
     lib_ms = time_ms(torch, lambda: torch.bincount(cols_masked, minlength=B))
@@ -437,17 +452,21 @@ def phase_k2(torch):
     cols_all = torch.from_numpy(cols).to(dev)
     row = torch.zeros(B, dtype=torch.int32, device=dev)
     a_ms = time_ms(torch, lambda: histogram_row(row, vals_d, BL))
+    a_cold = time_cold_ms(torch, lambda: histogram_row(row, vals_d, BL))
     a_plain = time_ms(torch, lambda: histogram_row_reference(
         row, vals_d, BL, 100))
     a_lib = time_ms(torch, lambda: torch.bincount(cols_all, minlength=B))
     a_bound, a_by = bound_ms(n * 4 + B * 8, n * CODEC_OPS)
-    k2a = {"ms": a_ms, "plain_ms": a_plain, "library_ms": a_lib,
+    k2a = {"ms": a_ms, "time_cold_ms": a_cold, "plain_ms": a_plain,
+           "library_ms": a_lib,
            "bound_ms": a_bound, "bound_by": a_by,
            "library_call": "torch.bincount on precomputed bucket columns "
                            "(no codec)"}
     return {"N": n, "ragged_N": ragged, "equal_unmasked": eq_a,
             "equal_masked": eq_b, "equal_host": eq_host,
             "max_abs_err": max_err, **RESULTS["row_ingest"],
+            "time_cold_ms": k_cold, "blocks": device_blocks(n, B),
+            "cluster": 8, "table_codec": True,
             "library_call": "torch.bincount on precomputed bucket columns "
                             "of the id-0 samples (no codec)",
             "k2a_unmasked": k2a}
@@ -2567,6 +2586,8 @@ def phase_k8(torch):
     from loghisto_tpu_torch.ops.multirow_ingest import (
         ROWS_TILE,
         SAMPLE_TILE,
+        device_clusters,
+        histogram_runs,
         multirow_ingest,
         multirow_ingest_reference,
         preprocess,
@@ -2609,6 +2630,18 @@ def phase_k8(torch):
         ones = torch.ones_like(flat, dtype=torch.int32)
         acc = torch.zeros((m, B), dtype=torch.int32, device=dev)
         k_ms = time_ms(torch, lambda: multirow_ingest(acc, rows, bidx, tb))
+        k_cold = time_cold_ms(torch, lambda: multirow_ingest(acc, rows, bidx,
+                                                             tb))
+        # the route K8 chose: the runs that took the cluster histogram
+        tb_np = tb.cpu().numpy()
+        starts = np.flatnonzero(np.r_[True, tb_np[1:] != tb_np[:-1]])
+        lengths, runs_of = np.unique(np.diff(np.r_[starts, g]),
+                                     return_counts=True)
+        clusters, span, fits = device_clusters(g, ROWS_TILE, B)
+        hist_runs = histogram_runs(tb_np, clusters, span, ROWS_TILE, m, fits)
+        per_tile = real.view(g, SAMPLE_TILE).sum(1).cpu().numpy()
+        hist_share = float(sum(per_tile[a:e].sum() for a, e in hist_runs)
+                           / max(1, per_tile.sum()))
         p_ms = time_ms(torch, lambda: multirow_ingest_reference(
             acc, rows, bidx, tb, ROWS_TILE))
         lib_ms = time_ms(torch, lambda: acc.view(-1).index_put_(
@@ -2625,7 +2658,11 @@ def phase_k8(torch):
         per_m[str(m)] = {
             "equal": equal, "tiles": g, "layout_entries": g * SAMPLE_TILE,
             "layout_over_batch": g * SAMPLE_TILE / BATCH,
-            "touched_cells": cells, "ms": k_ms, "plain_ms": p_ms,
+            "touched_cells": cells, "ms": k_ms, "time_cold_ms": k_cold,
+            "run_lengths": {int(a): int(c) for a, c in zip(lengths, runs_of)},
+            "clusters": clusters, "tiles_a_cluster": span,
+            "histogram_runs": len(hist_runs),
+            "histogram_entry_share": hist_share, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "preprocess_ms": pre_ms,
         }

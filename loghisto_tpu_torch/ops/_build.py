@@ -55,9 +55,10 @@ KERNEL_SPECS = {
     ),
     "row_ingest": (
         "row_ingest.cu", "lh_row_ingest",
-        # acc_row, ids (NULL = no mask), values, n, num_buckets,
+        # acc_row, ids (NULL = no mask), values, the codec's threshold
+        # table (ops/codec.bucket_thresholds), n, num_buckets,
         # bucket_limit, precision
-        [_P, _P, _P, _LL, _I, _I, _I],
+        [_P, _P, _P, _P, _LL, _I, _I, _I],
     ),
     "sparse_ingest": (
         "sparse_ingest.cu", "lh_sparse_ingest",

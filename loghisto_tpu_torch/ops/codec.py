@@ -93,6 +93,47 @@ def edge_values(bucket_limit: int, precision: int = PRECISION) -> np.ndarray:
     ]).astype(np.float32)
 
 
+def bucket_thresholds(bucket_limit: int, precision: int = PRECISION) -> np.ndarray:
+    """The threshold table of K2's float32 codec: float32
+    [bucket_limit + 1] with t[0] = 0 and, for k = 1 .. bucket_limit, t[k]
+    the smallest non-negative float32 whose ``compress_np`` bucket is
+    >= k (+inf where no finite float32 reaches k).  Each is found by
+    stepping over the float32 neighbours of expm1((k - 0.5) /
+    precision).  Because ``compress_np`` is monotone in |v|, the
+    clipped bucket of v is the number of t[1:] at or below |v|
+    (``table_compress``)."""
+    if bucket_limit < 1:
+        raise ValueError(f"bucket_limit must be >= 1; got {bucket_limit}")
+    k = np.arange(1, bucket_limit + 1, dtype=np.int64)
+    with np.errstate(over="ignore"):
+        t = np.expm1((k - 0.5) / precision).astype(np.float32)
+    zero, inf = np.float32(0), np.float32(np.inf)
+    while True:  # up while t's bucket is below k
+        low = (compress_np(t, precision).astype(np.int64) < k) & (t < inf)
+        if not low.any():
+            break
+        t[low] = np.nextafter(t[low], inf)
+    while True:  # down while the float32 below t still reaches k
+        below = np.nextafter(t, zero)
+        down = (t > 0) & (compress_np(below, precision).astype(np.int64) >= k)
+        if not down.any():
+            break
+        t[down] = below[down]
+    return np.concatenate([np.zeros(1, np.float32), t])
+
+
+def table_compress(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """Plain form of K2's table codec -> int32 buckets clipped to
+    +/-bucket_limit (``thresholds`` from ``bucket_thresholds``): the
+    number of thresholds t[1:] at or below |v|, with v's sign; NaN is
+    bucket 0.  Equals ``clip(compress_np(v), -bucket_limit,
+    bucket_limit)`` on every float32."""
+    v = torch.as_tensor(values).to(torch.float32)
+    k = torch.searchsorted(thresholds[1:].to(v.device), v.abs(), right=True)
+    k = torch.where(torch.isnan(v), torch.zeros_like(k), k)
+    return torch.where(v < 0, -k, k).to(torch.int32)
+
+
 def compress(values: torch.Tensor, precision: int = PRECISION) -> torch.Tensor:
     """Vectorized compress on the tensor's device -> int32 buckets,
     computed in float64 (equal to ``compress_np`` on every input)."""

@@ -17,7 +17,13 @@ with rows[j] < rows_tile, acc[tile_block[t] * rows_tile + rows[j],
 bidx[j]] += 1.  The TPU kernel adds bf16 one-hot products on the MXU
 into a block kept resident across its serial grid, and guards against a
 stale aliased input block on a revisit; Hopper adds duplicates exactly
-with int32 atomics in place, so neither survives.
+with int32 atomics in place, so neither survives.  A persistent grid of
+clusters walks contiguous ranges of tiles: a cluster's longest piece of
+a run of one row block, when the whole run spans K8_RUN_MIN tiles (so
+many clusters add into the same rows), adds into a histogram held in
+the cluster's distributed shared memory and flushed with one global
+atomic a live cell; every other entry adds with its own global atomic.
+``histogram_runs`` is that choice in NumPy.
 
 Decision D7 (ROADMAP): the accumulator is the canonical int32 [M, B]
 and ``finalize`` is the identity.  The JAX [M, H * 128] lane pad exists
@@ -39,6 +45,9 @@ the committer, K6) reads [M, B].
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from loghisto_tpu_torch.config import PRECISION
@@ -126,6 +135,63 @@ def check_layout(acc, rows, bidx, tile_block):
     return rows.contiguous(), bidx.contiguous(), tile_block.contiguous()
 
 
+# csrc/multirow_ingest.cu's kRunMin: a cluster's longest piece of a run
+# takes the cluster histogram when the whole run of one row block holds
+# K8_RUN_MIN tiles or more
+K8_RUN_MIN = 32
+
+
+def device_clusters(tiles: int, rows_tile: int, num_buckets: int,
+                    device_index: int = 0):
+    """(clusters, tiles a cluster, histogram fits) of a K8 launch over
+    ``tiles`` tiles on CUDA device ``device_index``, from the kernel's own
+    launch plan (``lh_multirow_clusters``)."""
+    from loghisto_tpu_torch.ops import _build
+
+    fn = _build.helper("multirow_ingest", "lh_multirow_clusters", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)])
+    fits = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        clusters = fn(tiles, rows_tile, num_buckets, ctypes.byref(fits))
+    if clusters < 0:
+        raise RuntimeError(f"lh_multirow_clusters failed: CUDA error "
+                           f"{-clusters}")
+    return clusters, -(-tiles // clusters), bool(fits.value)
+
+
+def histogram_runs(tile_block: np.ndarray, clusters: int, span: int,
+                   rows_tile: int, num_metrics: int, hist_fits: bool = True):
+    """The tile runs [start, end) that K8 adds through its cluster
+    histogram: in each cluster's range of ``span`` tiles, the first
+    longest run of one tile_block value, where the whole run it belongs
+    to (across the range's ends) holds K8_RUN_MIN tiles or more, the
+    histogram fits and the run's row block lies inside acc (the kernel's
+    own choice, in plain NumPy)."""
+    tb = np.asarray(tile_block)
+    out = []
+    if not hist_fits:
+        return out
+    for c in range(clusters):
+        ts, te = c * span, min(len(tb), (c + 1) * span)
+        if ts >= te:
+            continue
+        part = tb[ts:te]
+        starts = np.flatnonzero(np.r_[True, part[1:] != part[:-1]])
+        lengths = np.diff(np.r_[starts, len(part)])
+        k = int(np.argmax(lengths))
+        a, e = ts + int(starts[k]), ts + int(starts[k] + lengths[k])
+        blk = int(tb[a])
+        left = tb[max(0, a - K8_RUN_MIN):a][::-1] != blk
+        right = tb[e:e + K8_RUN_MIN] != blk
+        whole = ((left.argmax() if left.any() else len(left)) + (e - a)
+                 + (right.argmax() if right.any() else len(right)))
+        if (whole >= K8_RUN_MIN and blk >= 0
+                and (blk + 1) * rows_tile <= num_metrics):
+            out.append((a, e))
+    return out
+
+
 def multirow_ingest_reference(acc, rows, bidx, tile_block, rows_tile):
     """Plain version of K8, in place: every entry with 0 <= rows < rows_tile
     adds 1 at (tile_block[tile] * rows_tile + rows, bidx); entries whose
@@ -161,6 +227,10 @@ def multirow_ingest(
     if is_plain(acc):
         return multirow_ingest_reference(acc, rows, bidx, tile_block,
                                          rows_tile)
+    # K8 reads 16 bytes at a time: a view that starts off a 16-byte line
+    # is copied to one that does not
+    rows, bidx = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (rows, bidx))
     n = rows.shape[0]
     if n:
         launch(

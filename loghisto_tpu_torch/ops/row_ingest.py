@@ -10,11 +10,15 @@ Two entry points share one Hopper kernel (``csrc/row_ingest.cu``):
     ``pallas_row_ingest_batch``: the [1, B] accumulator of the uniform
     ``f(acc, ids, values)`` contract; samples with id != 0 drop.
 
-Each block of the kernel builds a private shared-memory histogram and
-merges its nonzero bins into the row with global atomics; the bf16
-one-hot MXU tiles and the float32 VMEM scratch of the TPU kernels are
-not carried over.  The reference refuses N % 2048 != 0 (K2a) and
-N >= 2^24 per call (both) because of its tiles and its float32 scratch.
+The kernel buckets each value with an exact float32 codec (a float32
+estimate, corrected against ``ops/codec.bucket_thresholds`` near a
+bucket edge; the table is built once per ``(bucket_limit, precision)``
+and kept on the device), adds into one shared-memory histogram a block,
+and sums a cluster's histograms in distributed shared memory before one
+global atomic per live bin; the bf16 one-hot MXU tiles and the float32
+VMEM scratch of the TPU kernels are not carried over.  The reference
+refuses N % 2048 != 0 (K2a) and N >= 2^24 per call (both) because of
+its tiles and its float32 scratch.
 The CUDA kernel needs neither bound; the wrappers keep the same
 ``ValueError``s so that both packages refuse the same inputs.
 
@@ -24,10 +28,14 @@ version (``ingest_batch`` on the masked samples).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.ops.backend import is_plain, launch, resolve_device
+from loghisto_tpu_torch.ops.codec import bucket_thresholds
 from loghisto_tpu_torch.ops.fused_ingest import (
     check_acc,
     check_samples,
@@ -52,15 +60,66 @@ def histogram_row_reference(acc_row, values, bucket_limit, precision,
     return acc_row
 
 
+@functools.lru_cache(maxsize=None)
+def threshold_table(bucket_limit: int, precision: int,
+                    device: torch.device) -> torch.Tensor:
+    """``bucket_thresholds`` as a float32 tensor on ``device``, built
+    once per (bucket_limit, precision, device)."""
+    return torch.from_numpy(bucket_thresholds(bucket_limit, precision)).to(
+        device)
+
+
 def _launch_row(acc_row, ids, values, bucket_limit, precision):
     """Launch K2 on a [B] row or a [1, B] accumulator."""
     n = values.shape[0]
     if n:
+        table = threshold_table(bucket_limit, precision, acc_row.device)
         launch(
             "row_ingest", acc_row.data_ptr(),
             None if ids is None else ids.data_ptr(), values.data_ptr(),
-            n, acc_row.shape[-1], bucket_limit, precision,
+            table.data_ptr(), n, acc_row.shape[-1], bucket_limit, precision,
         )
+
+
+def device_blocks(n: int, num_buckets: int, device_index: int = 0) -> int:
+    """Blocks (whole clusters of 8) of a masked K2 launch over ``n``
+    samples on CUDA device ``device_index``, from the kernel's own launch
+    plan (``lh_row_ingest_blocks``)."""
+    from loghisto_tpu_torch.ops import _build
+
+    fn = _build.helper("row_ingest", "lh_row_ingest_blocks",
+                       [ctypes.c_longlong, ctypes.c_int])
+    with torch.cuda.device(device_index):
+        blocks = fn(n, num_buckets)
+    if blocks < 0:
+        raise RuntimeError(f"lh_row_ingest_blocks failed: CUDA error "
+                           f"{-blocks}")
+    return blocks
+
+
+def codec_check(start: int, count: int, bucket_limit: int,
+                precision: int = PRECISION, device=None):
+    """K2's table codec against the float64 codec of ``csrc/codec.cuh``
+    on the float32 bit patterns ``start .. start + count - 1``, on the
+    card: returns (patterns on which they differ, patterns that read
+    the table).  A check, not a kernel of any path: no launch count."""
+    from loghisto_tpu_torch.ops import _build
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("codec_check runs the card's codecs: needs CUDA")
+    table = threshold_table(bucket_limit, precision, dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = _build.helper("row_ingest", "lh_row_codec_check", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    rc = fn(table.data_ptr(), start, count, bucket_limit, precision,
+            counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lh_row_codec_check failed: CUDA error {rc} "
+                           f"({_build.error_string('row_ingest', rc)})")
+    mismatches, table_reads = counts.tolist()
+    return mismatches, table_reads
 
 
 def histogram_row(

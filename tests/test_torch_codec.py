@@ -110,3 +110,45 @@ def test_scalar_tier_matches_vector_tier():
         assert codec.decompress_scalar(b) == pytest.approx(
             float(codec.decompress_np(b)), rel=1e-15
         )
+
+
+@pytest.mark.parametrize("bl", [4096, 512])
+def test_bucket_thresholds_are_the_smallest_float32_of_each_bucket(bl):
+    """K2's table: t[k] reaches bucket k and the float32 below it does
+    not, for every k; t[0] = 0 and the table rises."""
+    t = codec.bucket_thresholds(bl)
+    assert t.dtype == np.float32 and t.shape == (bl + 1,) and t[0] == 0
+    k = np.arange(1, bl + 1)
+    tk = t[1:]
+    assert (codec.compress_np(tk).astype(np.int64) >= k).all()
+    below = np.nextafter(tk, np.float32(0))
+    assert (codec.compress_np(below).astype(np.int64) < k).all()
+    assert (np.diff(t) > 0).all()
+
+
+def _all_exponents(n, seed):
+    """n float32 bit patterns drawn uniformly: every exponent, both
+    signs, NaNs, infinities and subnormals among them."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("name", ["edges", "bit_patterns", "specials"])
+def test_table_codec_equals_compress_np(name):
+    """The plain form of K2's table codec (searchsorted on the
+    thresholds, sign, NaN to 0) equals the clipped host codec."""
+    f32 = np.finfo(np.float32)
+    values = {
+        "edges": lambda: codec.edge_values(BL),
+        "bit_patterns": lambda: _all_exponents(1 << 20, 9),
+        "specials": lambda: np.array(
+            [np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0,
+             f32.smallest_subnormal, -f32.smallest_subnormal, f32.max,
+             -f32.max], np.float32),
+    }[name]()
+    table = torch.from_numpy(codec.bucket_thresholds(BL))
+    got = codec.table_compress(torch.from_numpy(values), table).numpy()
+    with np.errstate(invalid="ignore"):
+        want = np.clip(codec.compress_np(values), -BL, BL)
+    np.testing.assert_array_equal(got, want)

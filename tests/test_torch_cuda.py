@@ -30,11 +30,15 @@ from loghisto_tpu_torch.ops.fused_ingest import (
 )
 from loghisto_tpu_torch.ops.ingest import ingest_batch
 from loghisto_tpu_torch.ops.multirow_ingest import (
+    SAMPLE_TILE,
+    device_clusters,
+    histogram_runs,
     multirow_ingest,
     multirow_ingest_reference,
     preprocess,
 )
 from loghisto_tpu_torch.ops.row_ingest import (
+    codec_check,
     histogram_row,
     histogram_row_reference,
     row_ingest_batch,
@@ -194,6 +198,87 @@ def test_row_kernel_equals_plain(dev, n):
     assert torch.equal(k, p)
 
 
+def _k2_equal(dev, ids, values, bl=4096, masked=True, offset=(0, 0)):
+    """K2 (K2b with ids, K2a without) against histogram_row_reference;
+    ``offset`` starts the ids and the values that many elements into
+    their buffers."""
+    ids_d = torch.from_numpy(ids).to(dev)[offset[0]:]
+    vals_d = torch.from_numpy(values).to(dev)[offset[1]:]
+    n = min(ids_d.shape[0], vals_d.shape[0])
+    ids_d, vals_d = ids_d[:n], vals_d[:n]
+    k = torch.zeros((1, 2 * bl + 1), dtype=torch.int32, device=dev)
+    p = torch.zeros_like(k)
+    before = kernel_launches()["row_ingest"]
+    if masked:
+        row_ingest_batch(k, ids_d, vals_d, bl)
+        histogram_row_reference(p[0], vals_d, bl, 100, ids_d)
+    else:
+        histogram_row(k[0], vals_d, bl)
+        histogram_row_reference(p[0], vals_d, bl, 100)
+    torch.cuda.synchronize()
+    assert kernel_launches()["row_ingest"] == before + 1
+    assert torch.equal(k, p)
+    return k
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_row_kernel_one_bin_for_every_sample(dev, masked):
+    n = 1 << 22
+    k = _k2_equal(dev, np.zeros(n, np.int32), np.full(n, 58.7, np.float32),
+                  masked=masked)
+    assert int(k.max()) == n
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_row_kernel_over_the_whole_float_range(dev, masked):
+    """Uniform float32 bit patterns: every exponent, both signs, NaN,
+    infinities, subnormals; ids 0 on about half."""
+    n = 1 << 21
+    rng = np.random.default_rng(21)
+    values = rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    ids = rng.integers(0, 2, n).astype(np.int32)
+    _k2_equal(dev, ids, values, masked=masked)
+
+
+@pytest.mark.parametrize("n,masked", [(1, True), (2047, True),
+                                      ((1 << 24) - 2049, True),
+                                      (2048, False),
+                                      ((1 << 24) - 2048, False)])
+def test_row_kernel_at_the_size_limits(dev, n, masked):
+    """The largest K2b batch is 2^24 - 2049: the reference pads N to a
+    multiple of 2048 and refuses 2^24 (so 2^24 - 1 raises, as there)."""
+    rng = np.random.default_rng(n)
+    ids = np.where(rng.random(n) < 0.2, -1, 0).astype(np.int32)
+    values = rng.lognormal(4, 2, n).astype(np.float32)
+    _k2_equal(dev, ids, values, masked=masked)
+    if n == (1 << 24) - 2049:
+        big = torch.zeros(1 << 24, dtype=torch.float32, device=dev)
+        acc = torch.zeros((1, 8193), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="2\\^24"):
+            row_ingest_batch(acc, big[:-1].int(), big[:-1], 4096)
+
+
+@pytest.mark.parametrize("offset", [(1, 1), (3, 3), (1, 2), (0, 3)])
+def test_row_kernel_on_views_off_a_16_byte_line(dev, offset):
+    """Ragged heads and tails; ids and values at different offsets of a
+    16-byte line take one sample a thread."""
+    n = 100_003
+    rng = np.random.default_rng(sum(offset))
+    ids = np.where(rng.random(n) < 0.2, 1, 0).astype(np.int32)
+    values = rng.lognormal(4, 2, n).astype(np.float32)
+    _k2_equal(dev, ids, values, offset=offset)
+
+
+def test_table_codec_on_a_slice_of_every_float32(dev):
+    """2^28 consecutive float32 bit patterns (every positive value from
+    2^-27 to 2^5, buckets 0 to 350) through K2's table codec and the
+    float64 codec: no mismatch."""
+    mismatches, table_reads = codec_check(0x32000000, 1 << 28, 4096)
+    assert mismatches == 0
+    assert table_reads > 0
+
+
 @pytest.mark.parametrize("m,rows_tile,n", [(16, 8, 100_003), (64, 16, 5000),
                                            (4000, 8, 1), (8, 8, 0)])
 def test_multirow_kernel_equals_plain(dev, m, rows_tile, n):
@@ -213,6 +298,96 @@ def test_multirow_kernel_equals_plain(dev, m, rows_tile, n):
     assert kernel_launches()["multirow_ingest"] == before + 1
     assert torch.equal(k, p)
     assert torch.equal(k, s)
+
+
+def _k8_three_ways(dev, m, rows_tile, bl, ids, values, layout=None):
+    """K8 on the layout of (ids, values) (or ``layout``) against its
+    plain version and against K1 on the samples: all EQUAL; returns the
+    layout's tile_block."""
+    ids_d = torch.from_numpy(ids).to(dev)
+    vals_d = torch.from_numpy(values).to(dev)
+    if layout is None:
+        layout = preprocess(ids_d, vals_d, m, rows_tile, bl)
+    rows, bidx, tb = (t.to(dev) for t in layout)
+    k = torch.zeros((m, 2 * bl + 1), dtype=torch.int32, device=dev)
+    p, s = torch.zeros_like(k), torch.zeros_like(k)
+    before = kernel_launches()["multirow_ingest"]
+    multirow_ingest(k, rows, bidx, tb, rows_tile)
+    multirow_ingest_reference(p, rows, bidx, tb, rows_tile)
+    fused_ingest_batch(s, ids_d, vals_d, bl)
+    torch.cuda.synchronize()
+    assert kernel_launches()["multirow_ingest"] == before + 1
+    assert torch.equal(k, p)
+    assert torch.equal(k, s)
+    return tb.cpu().numpy()
+
+
+@pytest.mark.parametrize("rows_tile", [4, 8, 16])
+def test_multirow_hot_run_crosses_the_cluster_ranges(dev, rows_tile):
+    """2^22 samples, 90% of them in row block 0: a run of ~1800 tiles
+    over many clusters' ranges, each of which adds its part through
+    its cluster histogram."""
+    m, bl, n = 64, 4096, 1 << 22
+    rng = np.random.default_rng(rows_tile)
+    ids = np.where(rng.random(n) < 0.9, rng.integers(0, rows_tile, n),
+                   rng.integers(-2, m + 2, n)).astype(np.int32)
+    values = rng.lognormal(4, 2, n).astype(np.float32)
+    tb = _k8_three_ways(dev, m, rows_tile, bl, ids, values)
+    clusters, span, fits = device_clusters(len(tb), rows_tile, 2 * bl + 1)
+    runs = histogram_runs(tb, clusters, span, rows_tile, m, fits)
+    assert fits and clusters > 1 and len(runs) >= 2
+
+
+def test_multirow_run_touches_every_cell_of_its_block(dev):
+    """One run over 8 rows x 8193 buckets, values over the whole bucket
+    range: 65,544 distinct cells, every one held by the cluster
+    histogram (no table to overflow)."""
+    m, bl, n = 16, 4096, 1 << 21
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 8, n).astype(np.int32)
+    values = (np.exp(rng.uniform(0, 90, n)) * np.where(
+        rng.random(n) < 0.5, -1, 1)).astype(np.float32)
+    _k8_three_ways(dev, m, 8, bl, ids, values)
+    cols = np.clip(compress_np(values), -bl, bl).astype(np.int64)
+    assert len(np.unique(ids.astype(np.int64) * (2 * bl + 1) + cols)) > 60_000
+
+
+def test_multirow_one_cell_repeated_in_one_run(dev):
+    n, m, bl = 1 << 22, 8, 4096
+    ids = np.full(n, 5, np.int32)
+    values = np.full(n, 58.7, np.float32)
+    _k8_three_ways(dev, m, 8, bl, ids, values)
+
+
+@pytest.mark.parametrize("rows_tile", [4, 8, 16])
+def test_multirow_filler_inside_tiles_and_revisited_blocks(dev, rows_tile):
+    """The layout's tiles in a random order (blocks revisited after
+    others, the hot block's run cut into pieces) and every tile's
+    entries shuffled (filler anywhere inside a tile)."""
+    m, bl, n = 64, 4096, 1 << 20
+    rng = np.random.default_rng(50 + rows_tile)
+    ids = np.where(rng.random(n) < 0.7, rng.integers(0, rows_tile, n),
+                   rng.integers(-2, m + 2, n)).astype(np.int32)
+    values = rng.lognormal(4, 2, n).astype(np.float32)
+    rows, bidx, tb = preprocess(torch.from_numpy(ids),
+                                torch.from_numpy(values), m, rows_tile, bl)
+    g = tb.shape[0]
+    # keep runs: pieces of 40 consecutive tiles move together, so the hot
+    # block's pieces still take the cluster histogram
+    order = torch.from_numpy(np.concatenate([
+        np.arange(a, min(a + 40, g)) for a in rng.permutation(
+            np.arange(0, g, 40))]))
+    rows = rows.view(g, SAMPLE_TILE)[order]
+    bidx = bidx.view(g, SAMPLE_TILE)[order]
+    shuffle = torch.from_numpy(np.argsort(rng.random((g, SAMPLE_TILE)), 1))
+    rows = torch.gather(rows, 1, shuffle).reshape(-1)
+    bidx = torch.gather(bidx, 1, shuffle).reshape(-1)
+    tb = tb[order]
+    assert (np.diff(tb.numpy()) < 0).any()
+    tb_np = _k8_three_ways(dev, m, rows_tile, bl, ids, values,
+                           (rows, bidx, tb))
+    clusters, span, fits = device_clusters(g, rows_tile, 2 * bl + 1)
+    assert histogram_runs(tb_np, clusters, span, rows_tile, m, fits)
 
 
 def test_multirow_aggregator_interval_on_the_card(dev):

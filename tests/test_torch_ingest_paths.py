@@ -39,8 +39,11 @@ from loghisto_tpu_torch.ops.hybrid_hist import (
 from loghisto_tpu_torch.ops.ingest import make_ingest_fn
 from loghisto_tpu_torch.ops.matmul_hist import make_matmul_ingest_fn
 from loghisto_tpu_torch.ops.multirow_ingest import (
+    K8_RUN_MIN,
     SAMPLE_TILE,
+    histogram_runs,
     make_multirow_ingest,
+    multirow_ingest,
     multirow_ingest_batch,
     preprocess,
 )
@@ -414,3 +417,102 @@ def test_state_from_jax_multirow_strips_the_lane_pad():
     _assert_same(port.collect().metrics, jax_agg.collect().metrics)
     port.close()
     jax_agg.close()
+
+
+def _scrambled_layout(seed, n, m, rows_tile, bl):
+    """A preprocess layout with its tiles in a random order (so blocks
+    are revisited after others) and each tile's entries shuffled (so
+    filler sits anywhere inside a tile), plus the numpy count of what it
+    adds: the same function K8 must compute on it."""
+    rng = np.random.default_rng(seed)
+    ids = np.where(rng.random(n) < 0.5, 0, rng.integers(-2, m + 2, n))
+    ids = ids.astype(np.int32)
+    values = rng.lognormal(2, 2, n).astype(np.float32)
+    rows, bidx, tb = (t.numpy() for t in preprocess(
+        torch.from_numpy(ids), torch.from_numpy(values), m, rows_tile, bl))
+    g = len(tb)
+    order = rng.permutation(g)
+    rows = rows.reshape(g, SAMPLE_TILE)[order]
+    bidx = bidx.reshape(g, SAMPLE_TILE)[order]
+    for t in range(g):
+        p = rng.permutation(SAMPLE_TILE)
+        rows[t], bidx[t] = rows[t][p], bidx[t][p]
+    tb = tb[order]
+    keep = (ids >= 0) & (ids < m)
+    cols = np.clip(compress_np(values[keep]), -bl, bl).astype(np.int64) + bl
+    want = np.bincount(ids[keep].astype(np.int64) * (2 * bl + 1) + cols,
+                       minlength=m * (2 * bl + 1)).reshape(m, -1)
+    return rows.reshape(-1), bidx.reshape(-1), tb, want
+
+
+@pytest.mark.parametrize("rows_tile", [4, 8, 16])
+def test_multirow_plain_on_a_scrambled_layout(rows_tile):
+    """K8's plain version (through its wrapper on CPU tensors) with
+    filler inside tiles and tile_block revisiting blocks, against a
+    numpy count of the samples."""
+    m, bl = 64, 512
+    rows, bidx, tb, want = _scrambled_layout(rows_tile, 20_000, m,
+                                             rows_tile, bl)
+    assert (np.diff(tb) < 0).any()  # a block comes back after another
+    acc = torch.zeros((m, 2 * bl + 1), dtype=torch.int32)
+    multirow_ingest(acc, torch.from_numpy(rows), torch.from_numpy(bidx),
+                    torch.from_numpy(tb), rows_tile)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", ["one_hot_block", "every_block_one_tile"])
+def test_preprocess_layout_equals_jax_at_the_kernels_run_lengths(shape):
+    """The run lengths K8's route reads: one row block over many tiles
+    (it takes the cluster histogram), and every block under one tile
+    (the direct route)."""
+    bl = 512
+    rng = np.random.default_rng(7)
+    if shape == "one_hot_block":
+        m, n = 32, 48 * SAMPLE_TILE
+        ids = np.where(rng.random(n) < 0.9, rng.integers(0, 8, n),
+                       rng.integers(-1, m + 1, n)).astype(np.int32)
+    else:
+        m, n = 4096, 3 * SAMPLE_TILE
+        ids = rng.integers(0, m, n).astype(np.int32)
+    values = agreeing(rng.lognormal(2, 1.5, 2 * n), bl)[:n]
+    ids = ids[:len(values)]
+    want = jax_preprocess(jnp.asarray(ids), jnp.asarray(values), m, 8, bl)
+    got = preprocess(torch.from_numpy(ids), torch.from_numpy(values), m, 8,
+                     bl)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    tb = got[2].numpy()
+    starts = np.flatnonzero(np.r_[True, tb[1:] != tb[:-1]])
+    longest = np.diff(np.r_[starts, len(tb)]).max()
+    runs = histogram_runs(tb, clusters=2, span=-(-len(tb) // 2),
+                          rows_tile=8, num_metrics=m)
+    if shape == "one_hot_block":
+        assert longest >= K8_RUN_MIN and runs
+        assert tb[runs[0][0]] == 0
+    else:
+        # every block fits one tile; only the parked tail repeats a block
+        per_block = np.bincount(tb, minlength=m // 8)[:-1]
+        assert per_block.max() == 1
+        assert all(tb[a] == m // 8 - 1 for a, _ in runs)
+
+
+def test_histogram_runs_picks_the_first_longest_run_of_each_range():
+    """In each range the first longest run; it takes the histogram when
+    the whole run (across the range's ends) holds K8_RUN_MIN tiles and
+    its block lies inside acc."""
+    r = K8_RUN_MIN
+    tb = np.array([0] * (r + 1) + [1] * 2 + [0] * 2 + [2] * r + [3] * r
+                  + [9] * 2)
+    span = r + 3
+    got = histogram_runs(tb, 4, span, rows_tile=8, num_metrics=32)
+    # range 2's piece of block 3 holds r - 1 tiles; its run holds r
+    assert got == [(0, r + 1), (r + 5, 2 * r + 5), (2 * r + 6, 3 * r + 5)]
+    # at 16 rows blocks 2 and 3 lie outside acc
+    assert histogram_runs(tb, 4, span, 8, 16) == got[:1]
+    assert histogram_runs(tb, 4, span, 8, 32, hist_fits=False) == []
+    # pieces of 10 tiles of one long run: every range takes it
+    assert histogram_runs(np.full(4 * 10, 5), 4, 10, 8, 48) == [
+        (0, 10), (10, 20), (20, 30), (30, 40)]
+    # runs one tile short of K8_RUN_MIN: none
+    short = np.array([0] * (r - 1) + [1] * (r - 1))
+    assert histogram_runs(short, 1, len(short), 8, 32) == []
