@@ -60,6 +60,7 @@ inputs: a scatter moves only the cells it touches.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import datetime as _dt
 import json
 import subprocess
@@ -112,6 +113,18 @@ LD_BACKFILL = 75
 LD_SHIFT_AT = 40
 LD_COMPACT_EVERY = 8
 LD_BANKS = 24
+
+# labels and group-by: the retention system above with 1024 labeled
+# series of rpc.latency, route x code x method
+LG_ROUTES = 32
+LG_CODES = ("200", "201", "204", "301", "404", "429", "500", "503")
+LG_METHODS = ("GET", "POST", "PUT", "DELETE")
+LG_LIVE = 4
+LG_BACKFILL = 70
+LG_SAMPLES = 1 << 20
+# at or past a tier's written span a window is served by its full view,
+# so an unpinned window must lie inside tier 0's 60 s
+LG_UNPINNED = 45
 
 RESULTS: dict = {}
 _ONE_SECOND = _dt.timedelta(seconds=1)
@@ -1638,21 +1651,22 @@ def _hist(cells_list, m):
         np.int64).reshape(m, B)
 
 
-def _oracle_stats(hist):
+def _oracle_stats(hist, ps=PS):
     """dense_stats_np of an oracle histogram, with each percentile's rank
     taken by the float32 threshold rule the device keeps (the JAX
     ``dense_stats`` rule: k0 = ceil(p * total), the first of k0 - 1, k0,
     k0 + 1 with k / total >= p, all in float32) in place of the float64
     ratio.  The two rules pick neighbouring ranks at rare ties (count
     9,999 at p99.99: 9998/9999 equals float32(0.9999)); returns the stats
-    and the number of (row, p) ties."""
+    and the number of (row, p) ties.  ``ps`` defaults to PS."""
     from loghisto_tpu_torch.ops.codec import decompress_np
     from loghisto_tpu_torch.ops.stats import dense_stats_np
 
-    want = dense_stats_np(hist, PS, BL)
+    want = dense_stats_np(hist, ps, BL)
     cdf = np.cumsum(hist, axis=1)
     total = np.maximum(cdf[:, -1], 1)
-    p32 = PS.astype(np.float32)
+    ps = np.asarray(ps, np.float64)
+    p32 = ps.astype(np.float32)
     tot_f = total.astype(np.float32)[:, None]
     k0 = np.ceil(p32[None, :] * tot_f)
     cands = k0[:, :, None] + np.array([-1, 0, 1], np.float32)
@@ -1661,8 +1675,8 @@ def _oracle_stats(hist):
     k_f = np.clip(np.where(np.isfinite(best), best, k0), 1,
                   np.float32(2**31 - 256))
     k = np.minimum(k_f.astype(np.int64), total[:, None])
-    k = np.where(PS[None, :] <= 0, 1,
-                 np.where(PS[None, :] >= 1, total[:, None], k))
+    k = np.where(ps[None, :] <= 0, 1,
+                 np.where(ps[None, :] >= 1, total[:, None], k))
     idx = np.stack([np.searchsorted(cdf[r], k[r], side="left")
                     for r in range(len(cdf))])
     reps = decompress_np(np.arange(-BL, BL + 1))
@@ -2531,6 +2545,335 @@ def phase_lifecycle_drift(torch):
     return out
 
 
+# -- labels and group-by ----------------------------------------------------
+
+
+def _lg_names():
+    """The 1024 labeled series of ``labels_group_by_main_path``:
+    rpc.latency over route (32) x code (8) x method (4), in registration
+    order."""
+    from loghisto_tpu_torch.labels import canonical_name
+
+    return [canonical_name("rpc.latency", {"route": f"/r{r:02d}",
+                                           "code": c, "method": m})
+            for r in range(LG_ROUTES) for c in LG_CODES
+            for m in LG_METHODS]
+
+
+def _lg_cells(raw, registry):
+    """``_cells`` of the labeled rows only (the committer's own
+    commit.LatencyUs row lies past the wheel's rows)."""
+    return _cells(dataclasses.replace(raw, histograms={
+        k: v for k, v in raw.histograms.items()
+        if k.startswith("rpc.latency;")}), registry)
+
+
+def _lg_group_oracle(hist, names, rows, by, ps, reps):
+    """Per group of ``rows`` (registry ids of ``names``) by the ``by``
+    keys: merge_groups_host with the float32 representative table (the
+    float64 rank rule) and the int64 group histogram's ``_oracle_stats``
+    (the device's float32 rank rule)."""
+    from loghisto_tpu_torch.config import PRECISION
+    from loghisto_tpu_torch.labels.groupby import (
+        assign_groups,
+        merge_groups_host,
+    )
+
+    keys, gids = assign_groups([(r, names[r]) for r in rows], by)
+    ghist = np.zeros((len(keys), B), np.int64)
+    np.add.at(ghist, np.asarray(gids), hist[rows])
+    sparse = {}
+    for r in rows:
+        nz = np.flatnonzero(hist[r])
+        sparse[names[r]] = dict(zip((nz - BL).tolist(),
+                                    hist[r][nz].tolist()))
+    merged = merge_groups_host(sparse, by, ps, PRECISION,
+                               value_of=lambda b: reps[np.asarray(b) + BL])
+    rule32, _ = _oracle_stats(ghist, ps)
+    return keys, gids, merged, rule32
+
+
+def _lg_check_groups(gs, oracle, ps, depth):
+    """A GroupStats against the oracle: keys, order and sizes equal,
+    counts exact, every percentile and edge bit-equal to the device's
+    float32 rank rule and to merge_groups_host wherever the two rules
+    pick the same rank, sums rtol 1e-5.  Returns (groups, percentile
+    values checked, float64-rule ties)."""
+    from loghisto_tpu_torch.labels.groupby import pct_key
+
+    keys, gids, merged, rule32 = oracle
+    assert list(gs.groups) == keys, "group order"
+    assert gs.sizes == {k: gids.count(i) for i, k in enumerate(keys)}
+    n_ps = len(ps) - (depth - 1 if depth else 0)
+    checked = ties = 0
+    for gi, gk in enumerate(keys):
+        got, ref = gs.groups[gk], merged[gk]
+        assert got["count"] == ref["count"] == rule32["counts"][gi], gk
+        np.testing.assert_allclose(got["sum"], ref["sum"], rtol=1e-5)
+        values = [got[pct_key(p)] for p in ps[:n_ps]] + list(
+            got.get("edges", ()))
+        assert len(values) == len(ps)
+        for j, p in enumerate(ps):
+            want32 = float(np.float32(rule32["percentiles"][gi, j]))
+            assert values[j] == want32, (gk, p, values[j], want32)
+            if values[j] != ref[pct_key(p)]:
+                ties += 1
+            checked += 1
+    return len(keys), checked, ties
+
+
+def phase_labels_group_by(torch):
+    """Labels, selectors and group-by on the card:
+    TorchMetricSystem(interval=1.0, num_metrics=1024, retention=True) at
+    the reference's defaults (DEFAULT_TIERS, bucket_limit 4096, the fused
+    commit) with 1024 labeled series of rpc.latency (route x code x
+    method).  >= 4 live intervals through recorder(labels=) and
+    histogram(labels=), the reaper and the committer, then 70 seeded
+    intervals of 2^20 samples through backfill_retention; group_by by
+    route, by (route, code) and over code=~5.. with depth=4, and a
+    selector query, at 60 s (tier 0's full view) and 300 s (tier 1's,
+    every interval), and a 45 s window nobody pinned (one K5 fallback,
+    then the snapshot after the next commit); the windowed Prometheus
+    exposition.  Held against a host oracle (the intervals' cells summed
+    in int64)."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.channel import Channel
+    from loghisto_tpu_torch.labels import LabelIndex, labels_of
+    from loghisto_tpu_torch.labels.groupby import equidepth_ranks
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.ops.stats import bucket_representatives
+    from loghisto_tpu_torch.prometheus import windowed_exposition
+    from loghisto_tpu_torch.window.store import pct_key
+
+    names = _lg_names()
+    m = len(names)
+    rng = np.random.default_rng(SEED + 50)
+    mu = rng.uniform(2.0, 8.0, m)
+    sigma = rng.uniform(0.3, 1.5, m)
+    ms = TorchMetricSystem(interval=1.0, num_metrics=m, retention=True)
+    wheel, com = ms.retention, ms.committer
+    assert ms.commit_path == "fused" and wheel.label_index is ms.label_index
+    assert [tuple(t) for t in wheel.tiers] == [tuple(t) for t in RET_TIERS]
+    for name in names:
+        ms.metric_id(name)
+    registry = ms.aggregator.registry
+    assert [registry.lookup(n) for n in names] == list(range(m))
+    capture = Channel(256)
+    ms.subscribe_to_raw_metrics(capture)
+    labels = [labels_of(n) for n in names]
+
+    reset_kernel_launches()
+    # -- live: recorder(labels=) and histogram(labels=), the reaper -------
+    t_live = time.perf_counter()
+    ms.start()
+    deadline = time.monotonic() + 30.0
+    try:
+        while (com.fused_intervals < LG_LIVE
+               or time.perf_counter() - t_live < LG_LIVE + 1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError("live intervals did not arrive")
+            for i in range(m):
+                v = float(rng.lognormal(mu[i], sigma[i]))
+                if i % 2:
+                    ms.histogram("rpc.latency", v, labels=labels[i])
+                else:
+                    ms.recorder("rpc.latency", labels=labels[i]).record(v)
+            time.sleep(0.1)
+    finally:
+        ms.stop()
+    live_s = time.perf_counter() - t_live
+    live = []
+    while len(capture):
+        live.append(capture.get(block=False))
+    if len(live) != com.fused_intervals or len(live) < LG_LIVE:
+        raise AssertionError(f"captured {len(live)} intervals, the "
+                             f"committer took {com.fused_intervals}")
+    if com.bridge_error is not None:
+        raise AssertionError(f"bridge failed: {com.bridge_error!r}")
+    cells = [_lg_cells(raw, registry) for raw in live]
+    live_samples = int(sum(c[1].sum() for c in cells))
+
+    # -- backfill: 70 intervals of 2^20 samples ------------------------------
+    t_base, seq = live[-1].time, live[-1].seq
+    commit_ms = []
+    for k in range(LG_BACKFILL):
+        raw = _raw_interval(rng, names, mu, sigma,
+                            t_base + (k + 1) * _ONE_SECOND, seq + k + 1,
+                            LG_SAMPLES)
+        t0 = time.perf_counter()
+        ms.backfill_retention([raw])
+        torch.cuda.synchronize()
+        commit_ms.append((time.perf_counter() - t0) * 1e3)
+        cells.append(_lg_cells(raw, registry))
+    n = len(cells)
+    path_launches = kernel_launches()
+    for kernel in ("sparse_ingest", "window_merge"):
+        if path_launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched on the labels "
+                                 "path")
+    if com.fanout_intervals or com.fused_intervals != n:
+        raise AssertionError(f"{com.fused_intervals} fused, "
+                             f"{com.fanout_intervals} fan-out of {n}")
+
+    # -- queries at this epoch ----------------------------------------------
+    reps = bucket_representatives(BL).numpy()
+    ps = tuple(float(p) for p in PS)
+    queries = (("by_route", "rpc.latency{}", ("route",), None, LG_ROUTES),
+               ("by_route_code", "rpc.latency{}", ("route", "code"), None,
+                LG_ROUTES * len(LG_CODES)),
+               ("5xx_depth4", "rpc.latency{code=~5..}", ("route",), 4,
+                LG_ROUTES))
+    windows = {60.0: n - RET_TIERS[0][0], 300.0: 0}
+    hists = {w: _hist(cells[lo:], m) for w, lo in windows.items()}
+    lat = collections.defaultdict(list)
+    checks, n_ties = {}, 0
+    for w, hist in hists.items():
+        for qname, sel, by, depth, n_groups in queries:
+            qps = ps + (equidepth_ranks(depth) if depth else ())
+            t0 = time.perf_counter()
+            _, matches = wheel._resolve_matches(sel)
+            lat["resolve_ms"].append((time.perf_counter() - t0) * 1e3)
+            before, hits = kernel_launches(), wheel.query_result_cache_hits
+            t0 = time.perf_counter()
+            gs = ms.query_group_by(sel, by=by, window=w, percentiles=ps,
+                                   depth=depth)
+            lat["cold_ms"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            again = ms.query_group_by(sel, by=by, window=w, percentiles=ps,
+                                      depth=depth)
+            lat["warm_ms"].append((time.perf_counter() - t0) * 1e3)
+            if (again is not gs or kernel_launches() != before
+                    or wheel.query_result_cache_hits != hits + 1):
+                raise AssertionError(f"{qname} {w}: a warm repeat did work")
+            rows = [mid for mid, _ in matches]
+            want_rows = [i for i, n_ in enumerate(names)
+                         if wheel._match_predicate(sel)(n_)]
+            assert rows == want_rows, (qname, "selector rows")
+            oracle = _lg_group_oracle(hist, names, rows, by, qps, reps)
+            groups, checked, ties = _lg_check_groups(gs, oracle, qps, depth)
+            if groups != n_groups:
+                raise AssertionError(f"{qname} {w}: {groups} groups")
+            n_ties += ties
+            checks[f"{qname}@{w:g}"] = {
+                "groups": groups, "rows": len(rows), "tier": gs.tier,
+                "slots": gs.slots, "values_checked": checked,
+                "float64_rule_ties": ties,
+                "max_group_count": max(e["count"]
+                                       for e in gs.groups.values())}
+        # the selector query against a Python filter and the oracle
+        sel = f"rpc.latency{{route=/r{7 % LG_ROUTES:02d},method!=GET}}"
+        res = ms.query(sel, w, percentiles=ps)
+        want_names = [n_ for n_, lab in zip(names, labels)
+                      if lab["route"] == f"/r{7 % LG_ROUTES:02d}"
+                      and lab["method"] != "GET"]
+        if sorted(res.metrics) != sorted(want_names):
+            raise AssertionError(f"selector {sel} rows differ")
+        want, ties = _oracle_stats(hist)
+        mask = np.zeros(m, bool)
+        mask[[names.index(n_) for n_ in want_names]] = True
+        sub = {k: v[mask] for k, v in want.items()}
+        _check_window(res, want_names, sub)
+        n_ties += ties
+        checks[f"selector@{w:g}"] = {"rows": len(res.metrics)}
+
+    # -- selector resolution on a fresh index ---------------------------------
+    idx = LabelIndex(registry)
+    t0 = time.perf_counter()
+    idx.select("rpc.latency{code=~5..}", max_id=m)
+    t1 = time.perf_counter()
+    idx.select("rpc.latency{route=/r01,method!=GET}", max_id=m)
+    t2 = time.perf_counter()
+    idx.select("rpc.latency{route=/r01,method!=GET}", max_id=m)
+    t3 = time.perf_counter()
+    resolve = {"index_build_and_miss_ms": (t1 - t0) * 1e3,
+               "miss_ms": (t2 - t1) * 1e3, "hit_ms": (t3 - t2) * 1e3,
+               "wheel_resolve_ms": lat.pop("resolve_ms")}
+
+    # -- the windowed Prometheus exposition -----------------------------------
+    t0 = time.perf_counter()
+    text = windowed_exposition(wheel, windows=(60.0, 300.0)).decode()
+    expo_ms = (time.perf_counter() - t0) * 1e3
+    types = [ln for ln in text.splitlines() if ln.startswith("# TYPE")]
+    if types != ["# TYPE rpc_latency_w1m summary",
+                 "# TYPE rpc_latency_w5m summary"]:
+        raise AssertionError(f"exposition families {types}")
+    for w, tag in ((60.0, "1m"), (300.0, "5m")):
+        res = ms.query("*", w, percentiles=(0.5, 0.9, 0.99))
+        counts = {}
+        for ln in text.splitlines():
+            head = f"rpc_latency_w{tag}_count{{"
+            if ln.startswith(head):
+                lstr, value = ln[len(head):].rsplit("} ", 1)
+                counts[lstr] = float(value)
+        want = {",".join(f'{k}="{v}"' for k, v in sorted(lab.items())):
+                res.metrics[n_]["count"] for n_, lab in zip(names, labels)}
+        if counts != want:
+            raise AssertionError(f"exposition {tag} counts differ")
+
+    # -- an unpinned window: one K5 fallback, then the snapshot ---------------
+    w = float(LG_UNPINNED)
+    assert w not in wheel.pinned_windows()
+    sel, by = "rpc.latency{}", ("route",)
+    before, falls = kernel_launches(), wheel.query_fallbacks
+    t0 = time.perf_counter()
+    gs = ms.query_group_by(sel, by=by, window=w, percentiles=ps)
+    fallback_ms = (time.perf_counter() - t0) * 1e3
+    after = kernel_launches()
+    k5_fallback = after["window_merge"] - before["window_merge"]
+    if wheel.query_fallbacks != falls + 1 or k5_fallback != 1:
+        raise AssertionError(f"the fallback ran {k5_fallback} K5 launches")
+    oracle = _lg_group_oracle(_hist(cells[n - int(w):], m), names,
+                              list(range(m)), by, ps, reps)
+    n_ties += _lg_check_groups(gs, oracle, ps, None)[2]
+    raw = _raw_interval(rng, names, mu, sigma,
+                        t_base + (LG_BACKFILL + 1) * _ONE_SECOND,
+                        seq + LG_BACKFILL + 1, LG_SAMPLES)
+    ms.backfill_retention([raw])
+    cells.append(_lg_cells(raw, registry))
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    gs = ms.query_group_by(sel, by=by, window=w, percentiles=ps)
+    pinned_cold_ms = (time.perf_counter() - t0) * 1e3
+    if (wheel.query_fallbacks != falls + 1
+            or kernel_launches()["window_merge"] != before["window_merge"]):
+        raise AssertionError("the pinned window was not served from the "
+                             "snapshot")
+    oracle = _lg_group_oracle(_hist(cells[len(cells) - int(w):], m), names,
+                              list(range(m)), by, ps, reps)
+    n_ties += _lg_check_groups(gs, oracle, ps, None)[2]
+    launches = kernel_launches()
+    gauges = ms.collect_raw_metrics().gauges
+    out = {
+        "card": RESULTS.get("card"), "num_metrics": m,
+        "tiers": [list(t) for t in RET_TIERS],
+        "commit_path": ms.commit_path,
+        "live": {"intervals": len(live), "wall_s": live_s,
+                 "samples": live_samples},
+        "backfill": {"intervals": LG_BACKFILL, "samples_each": LG_SAMPLES,
+                     "commit_ms": float(np.mean(commit_ms))},
+        "intervals_committed": com.fused_intervals,
+        "launches_on_path": {k: v for k, v in path_launches.items() if v},
+        "launches_per_interval": {k: v / n for k, v in path_launches.items()
+                                  if v},
+        "launches": {k: v for k, v in launches.items() if v},
+        "group_by_ms": {"cold": lat["cold_ms"], "warm": lat["warm_ms"],
+                        "fallback": fallback_ms,
+                        "after_pin_cold": pinned_cold_ms},
+        "selector_resolution": resolve, "exposition_ms": expo_ms,
+        "exposition_bytes": len(text), "k5_fallback_launches": k5_fallback,
+        "checks": checks, "float64_rule_ties": n_ties,
+        "gauges": {k: v for k, v in gauges.items()
+                   if k.startswith(("labels.", "commit.query_"))},
+        "hbm_bytes": wheel.hbm_bytes(),
+    }
+    del ms, wheel, com
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- every dense ingest path, K8 and the firehose --------------------------
 
 # (M, paths) of ingest_paths_main_path: every path the dispatch table
@@ -3049,6 +3392,8 @@ def main() -> int:
                         ("k7_divergence", phase_k7),
                         ("lifecycle_drift_main_path",
                          phase_lifecycle_drift),
+                        ("labels_group_by_main_path",
+                         phase_labels_group_by),
                         ("k8_multirow_ingest", phase_k8),
                         ("ingest_paths_main_path", phase_ingest_paths),
                         ("firehose_main_path", phase_firehose)):

@@ -19,12 +19,16 @@ Naming, eviction, interval flooring, percentile validation and
 happens once at collection, as in the reference's deliberate deviation
 from Go.
 
+``labels=`` on every recording call dimensions the series: the sample
+lands on the canonical row ``name;k1=v1;...`` (sorted keys, so every
+order of one label set is one series; ``labels/model.py``), and the
+handle factories cache one handle per label set.
+
 The statistics come from the port's own ``ops/stats`` host tier (NumPy,
 no device), so this layer loads neither ``jax`` nor the JAX package
-(ROADMAP F2).  Two options of the reference wait for later slices of the
-port and raise: ``fast_ingest=True`` (the C staging buffers of
-``loghisto_tpu/_native``) and ``labels=`` (the label data model).  The
-observability span ring is not ported.
+(ROADMAP F2).  ``fast_ingest=True`` (the C staging buffers of
+``loghisto_tpu/_native``) waits for a later slice of the port and
+raises.  The observability span ring is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import numpy as np
 
 from loghisto_tpu_torch.channel import Channel
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
+from loghisto_tpu_torch.labels.model import canonical_name
 from loghisto_tpu_torch.ops.codec import compress_np
 from loghisto_tpu_torch.ops.stats import percentiles_sparse, summarize_sparse
 from loghisto_tpu_torch.utils.sysstats import default_gauges
@@ -57,17 +62,6 @@ FAST_INGEST_SLICE = (
     "which the port takes up in ROADMAP Queue 1 slice 6b (native staging); "
     "use the Python path (fast_ingest=False)"
 )
-LABELS_SLICE = (
-    "labels= needs the label data model, which the port takes up in ROADMAP "
-    "Queue 1 slice 7b (labels and group_by); record under a flat name"
-)
-
-
-def _no_labels(labels) -> None:
-    if labels:
-        raise ValueError(LABELS_SLICE)
-
-
 @dataclasses.dataclass
 class RawMetricSet:
     """Per-interval raw collection output (reference metrics.go:54-60).
@@ -251,6 +245,10 @@ class MetricSystem:
         # threads take shards round-robin through a thread-local
         self._thread_local = threading.local()
         self._shard_counter = itertools.count()
+        # one handle per (kind, canonical labeled name), so hot loops pay
+        # the label sort and validation once per label set; a race builds
+        # a duplicate handle at worst
+        self._labeled_handles: Dict[tuple, object] = {}
 
         # lifetime stores
         self._store_lock = threading.Lock()
@@ -289,8 +287,10 @@ class MetricSystem:
         self, name: str, amount: int = 1,
         labels: Optional[Mapping[str, str]] = None,
     ) -> None:
-        """Record ``amount`` occurrences of an event (metrics.go:251-269)."""
-        _no_labels(labels)
+        """Record ``amount`` occurrences of an event (metrics.go:251-269).
+        ``labels`` dimension the counter (the canonical labeled row)."""
+        if labels:
+            name = canonical_name(name, labels)
         shard = self._shard()
         with shard.lock:
             shard.counters[name] = shard.counters.get(name, 0) + amount
@@ -300,8 +300,11 @@ class MetricSystem:
         labels: Optional[Mapping[str, str]] = None,
     ) -> None:
         """Record one continuous value (metrics.go:273-295); bucketed
-        vectorized at the buffer cap or at collection."""
-        _no_labels(labels)
+        vectorized at the buffer cap or at collection.  ``labels``
+        dimension the series (prefer ``recorder(name, labels=...)`` in hot
+        loops: it pays the canonicalization once)."""
+        if labels:
+            name = canonical_name(name, labels)
         shard = self._shard()
         with shard.lock:
             buf = shard.histograms.get(name)
@@ -318,7 +321,8 @@ class MetricSystem:
         """Record many values of one metric in a single call.  A NumPy
         array is appended as one float64 byte copy, not element by
         element."""
-        _no_labels(labels)
+        if labels:
+            name = canonical_name(name, labels)
         if isinstance(values, np.ndarray):
             raw = np.ascontiguousarray(values, dtype=np.float64).ravel()
         else:
@@ -344,32 +348,56 @@ class MetricSystem:
         _merge_counts(shard.bucket_counts.setdefault(name, {}), uniq, cnt)
         shard.histograms[name] = array("d")
 
+    def _labeled_handle(self, kind: str, name: str, labels, build):
+        """The cached handle of ``kind`` for the canonical labeled name
+        (built by ``build(canonical name)`` on first use)."""
+        cname = canonical_name(name, labels)
+        key = (kind, cname)
+        handle = self._labeled_handles.get(key)
+        if handle is None:
+            handle = build(cname)
+            if len(self._labeled_handles) >= 4096:
+                self._labeled_handles.clear()
+            self._labeled_handles[key] = handle
+        return handle
+
     def start_timer(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
     ) -> TimerToken:
         """Begin a named timing; stop() the returned token (metrics.go:232)."""
-        _no_labels(labels)
+        if labels:
+            name = canonical_name(name, labels)
         return TimerToken(name, self)
 
     def timer(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
     ) -> _PyTimer:
-        """Reusable per-name timer handle for hot loops."""
-        _no_labels(labels)
+        """Reusable per-name timer handle for hot loops; with ``labels``
+        one cached handle per label set."""
+        if labels:
+            return self._labeled_handle("timer", name, labels, self.timer)
         return _PyTimer(name, self)
 
     def recorder(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
     ) -> _PyRecorder:
-        """Reusable per-name histogram recorder for hot loops."""
-        _no_labels(labels)
+        """Reusable per-name histogram recorder for hot loops; with
+        ``labels`` one cached handle per label set, so a per-request
+        ``recorder("http.latency", labels={"route": r})`` costs one dict
+        probe after the first call for each route."""
+        if labels:
+            return self._labeled_handle("recorder", name, labels,
+                                        self.recorder)
         return _PyRecorder(name, self)
 
     def counter_handle(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
     ) -> _PyCounter:
-        """Reusable per-name counter handle for hot loops."""
-        _no_labels(labels)
+        """Reusable per-name counter handle for hot loops; with ``labels``
+        one cached handle per label set."""
+        if labels:
+            return self._labeled_handle("counter", name, labels,
+                                        self.counter_handle)
         return _PyCounter(name, self)
 
     def register_gauge_func(self, name: str, f: Callable[[], float]) -> None:

@@ -27,8 +27,10 @@ commit-time payload (exact int32 CDF, counts, float32 sums) and
 ``make_snapshot_query_fn`` the query (a row gather, then
 ``snapshot_row_stats``).  ``dense_stats`` and ``dense_cdf`` take their
 sums from one helper (``row_sums``), so a snapshot serve and a
-recompute over the same window give the same bits.  The group queries
-wait for the labels slice.
+recompute over the same window give the same bits.
+``make_group_query_fn`` is the group_by rollup over the same payload:
+the matched CDF rows summed per group (``index_select``, then int32
+``index_add_``), then ``snapshot_row_stats``.
 """
 
 from __future__ import annotations
@@ -254,6 +256,41 @@ def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):
         )
 
     return query
+
+
+def make_group_query_fn(bucket_limit: int, precision: int = PRECISION):
+    """Group_by rollup ``f(cdf, counts, sums, ids, gids, ps, *,
+    num_groups) -> stats per group``: gather the snapshot rows ``ids``,
+    sum them into ``num_groups`` merged rows by ``gids``, then
+    ``snapshot_row_stats``, all on the snapshot's device; readback is
+    O(num_groups * P).  ``ids`` and ``gids`` may be host ints.
+
+    The merge is exact: log-bucket histograms merge by bucket-count
+    addition, and a prefix sum is linear, so the sum of CDF rows is the
+    CDF of the merged histogram (int32 ``index_add_``, exact in any
+    order; a merged group's total must stay within int32, the contract
+    of one wheel slot).  The float32 sums add in the device's order,
+    which CUDA's ``index_add_`` does not fix from run to run.  Callers
+    pad ``ids`` with row 0 and send the pad rows to a dump group they
+    drop after readback (``TimeWheel._group_rollup``)."""
+
+    def group_query(cdf, counts, sums, ids, gids, ps, *, num_groups):
+        device = cdf.device
+        idx = torch.as_tensor(ids, dtype=torch.long, device=device)
+        seg = torch.as_tensor(gids, dtype=torch.long, device=device)
+        gcdf = torch.zeros((num_groups, cdf.shape[1]), dtype=cdf.dtype,
+                           device=device).index_add_(
+                               0, seg, cdf.index_select(0, idx))
+        gcounts = torch.zeros(num_groups, dtype=counts.dtype,
+                              device=device).index_add_(
+                                  0, seg, counts.index_select(0, idx))
+        gsums = torch.zeros(num_groups, dtype=sums.dtype,
+                            device=device).index_add_(
+                                0, seg, sums.index_select(0, idx))
+        return snapshot_row_stats(gcdf, gcounts, gsums, ps, bucket_limit,
+                                  precision)
+
+    return group_query
 
 
 def snapshot_row_stats(

@@ -12,6 +12,14 @@ boundary, so callers keep using counter/histogram/start_timer.
     ms.query_window("rpc_latency", window=300)     # p99 over 5m, K5
     ms.device_metrics()                            # interval stats, K3
 
+Labeled series (``labels=`` on every recording call) are registry rows
+named ``base;k=v;...``; one ``LabelIndex`` over the shared registry
+(``label_index``) resolves selectors for the wheel:
+
+    ms.recorder("rpc.latency", labels={"route": "/a", "code": "500"})
+    ms.query("rpc.latency{code=~5..}", window=60)
+    ms.query_group_by("rpc.latency{}", by=["route"], window=300, depth=4)
+
 With retention on dense storage, ``commit="auto"`` resolves to the
 fused ``IntervalCommitter`` (``commit.py``): one bridge lands each
 interval on the accumulator and every tier (K3), publishes the snapshot
@@ -47,6 +55,7 @@ from loghisto_tpu_torch.channel import Channel
 from loghisto_tpu_torch.commit import IntervalCommitter, \
     commit_incompatibility
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
+from loghisto_tpu_torch.labels import LabelIndex
 from loghisto_tpu_torch.lifecycle import LifecycleManager
 from loghisto_tpu_torch.metrics import MetricSystem, ProcessedMetricSet, \
     RawMetricSet
@@ -97,6 +106,10 @@ class TorchMetricSystem(MetricSystem):
             device=self.device,
         )
         self.aggregator.register_device_gauges(self)
+        # one inverted index over the shared registry: the wheel's
+        # selector queries and the labels.* gauges
+        self.label_index = LabelIndex(self.aggregator.registry)
+        self.label_index.register_gauges(self)
 
         self.retention: Optional[TimeWheel] = None
         self.rule_engine: Optional[RuleEngine] = None
@@ -113,6 +126,7 @@ class TorchMetricSystem(MetricSystem):
                     registry=self.aggregator.registry,
                     device=self.device,
                 )
+            self.retention.label_index = self.label_index
             self.rule_engine = RuleEngine(self.retention)
             self.rule_engine.attach()
             self.retention.register_query_gauges(self)
@@ -214,9 +228,41 @@ class TorchMetricSystem(MetricSystem):
         tier: Optional[int] = None,
     ):
         """Sliding-window statistics over the retention wheel (see
-        ``TimeWheel.query``)."""
+        ``TimeWheel.query``); ``pattern`` is a name glob or a label
+        selector."""
         return self._require_retention().query(
             pattern, window, percentiles, tier
+        )
+
+    def query(
+        self,
+        selector: str = "*",
+        window: Optional[float] = None,
+        percentiles: Optional[Sequence[float]] = None,
+        tier: Optional[int] = None,
+    ):
+        """Window query by label selector (``rpc.latency{route=/a,
+        code=~5..}``) or name glob; the same serve as ``query_window``."""
+        return self._require_retention().query(
+            selector, window, percentiles, tier
+        )
+
+    def query_group_by(
+        self,
+        selector: str,
+        by: Sequence[str],
+        window: Optional[float] = None,
+        percentiles: Optional[Sequence[float]] = None,
+        tier: Optional[int] = None,
+        depth: Optional[int] = None,
+    ):
+        """Merge the rows matching ``selector`` into one histogram per
+        value-tuple of the ``by`` label keys, on the card (see
+        ``TimeWheel.query_group_by``); ``depth=k`` adds each group's
+        equi-depth edges."""
+        return self._require_retention().query_group_by(
+            selector, by, window=window, percentiles=percentiles,
+            tier=tier, depth=depth,
         )
 
     def window_rate(self, name: str, window: float) -> float:

@@ -22,7 +22,15 @@ is a bucket-tensor add and totals are preserved exactly.  On the card:
     views), and
     ``query`` serves from it — one row gather and ``snapshot_row_stats``
     — or recomputes through K5 (``window_stats``) for a window no view
-    covers.
+    covers;
+  * ``query_group_by`` merges the matched rows of a snapshot view per
+    label group (``ops/stats.make_group_query_fn``: a row gather and an
+    int32 ``index_add_``), or of a one-off K5 view for an unpinned
+    window.
+
+A pattern is a name glob or, with a ``LabelIndex`` installed
+(``label_index``; ``TorchMetricSystem`` installs one), a label selector
+such as ``http.latency{route=/api,code=~5..}``.
 
 Everything runs on PyTorch's current stream.  A published snapshot
 holds fresh tensors that no later push writes, so a query reads it
@@ -37,9 +45,7 @@ each interval on the rings and publishes the snapshot itself
 (``publish_snapshot_locked``); the lifecycle drops the snapshot and the
 caches after it moves rows (``lifecycle_invalidated_locked``).
 
-Not in this slice: ``query_group_by`` and label selectors (slice 7b; a
-selector pattern raises as the reference's wheel does without a
-``LabelIndex``), the mesh, the supervisor and the fault injector.
+Not in this slice: the mesh, the supervisor and the fault injector.
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``
 (``hbm_bytes()``).
@@ -61,10 +67,20 @@ import torch
 
 from loghisto_tpu_torch.channel import ChannelClosed, ResilientSubscription
 from loghisto_tpu_torch.config import MetricConfig
+from loghisto_tpu_torch.labels import LabelIndex, is_selector, parse_selector
+from loghisto_tpu_torch.labels.groupby import (
+    GroupStats,
+    assign_groups,
+    equidepth_ranks,
+    pct_key,
+)
 from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
 from loghisto_tpu_torch.ops.backend import resolve_device
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
-from loghisto_tpu_torch.ops.stats import make_snapshot_query_fn
+from loghisto_tpu_torch.ops.stats import (
+    make_group_query_fn,
+    make_snapshot_query_fn,
+)
 from loghisto_tpu_torch.ops.window import (
     resolve_merge_path,
     window_snapshot,
@@ -98,12 +114,6 @@ DEFAULT_TIERS: tuple[TierSpec, ...] = (
 )
 
 DEFAULT_QUERY_PERCENTILES: tuple[float, ...] = (0.5, 0.9, 0.99, 0.999)
-
-
-def pct_key(q: float) -> str:
-    """0.99 -> "p99", 0.999 -> "p99.9", 0.5 -> "p50"."""
-    s = f"{q * 100:.4f}".rstrip("0").rstrip(".")
-    return f"p{s}"
 
 
 @dataclasses.dataclass
@@ -219,6 +229,13 @@ class TimeWheel:
         self._query_fn = make_snapshot_query_fn(
             config.bucket_limit, config.precision
         )
+        self._group_fn = make_group_query_fn(
+            config.bucket_limit, config.precision
+        )
+        # the label layer: a LabelIndex over this wheel's registry, set by
+        # the owner (TorchMetricSystem); None means selector patterns
+        # raise and name globs are the only pattern language
+        self.label_index: Optional[LabelIndex] = None
         self._snapshot: Optional[Snapshot] = None
         self._pinned: List[float] = []      # pinned window seconds
         self._max_pinned = 8
@@ -229,6 +246,7 @@ class TimeWheel:
         self.query_fallbacks = 0         # locked-recompute fallbacks
         self.query_result_cache_hits = 0  # zero-dispatch host-cache hits
         self.query_rows_fetched = 0      # sparse rows read back (padded)
+        self.query_group_serves = 0      # group_by rollups served
 
         self._tiers = [
             _Tier(t, num_metrics, config.num_buckets, self.device)
@@ -520,15 +538,28 @@ class TimeWheel:
         return gen, matches
 
     def _resolve_matches(self, pattern: str):
-        """Pattern -> (generation, ((mid, name), ...)).  Brace selectors
-        need the label index, which this slice does not port."""
-        if "{" in pattern:
-            raise ValueError(
-                f"selector query {pattern!r} needs a LabelIndex (the port's "
-                "label layer comes with ROADMAP Queue 1 slice 7b; query by "
-                "name glob)"
-            )
+        """Pattern -> (generation, ((mid, name), ...)), mids ascending: a
+        brace selector (``base{k=v,...}``) through the label index, any
+        other pattern through the glob cache.  Both return the same
+        shape, so the result cache keys on either alike."""
+        if is_selector(pattern):
+            if self.label_index is None:
+                raise ValueError(
+                    f"selector query {pattern!r} needs a LabelIndex "
+                    "(TorchMetricSystem installs one; a standalone wheel "
+                    "sets wheel.label_index = LabelIndex(wheel.registry))"
+                )
+            return self.label_index.select(pattern, max_id=self.num_metrics)
         return self._resolve_glob(pattern)
+
+    @staticmethod
+    def _match_predicate(pattern: str) -> Callable[[str], bool]:
+        """Name-level match test of the locked recompute (it agrees with
+        ``_resolve_matches`` row for row without reading its caches or
+        the index)."""
+        if is_selector(pattern):
+            return parse_selector(pattern).match_name
+        return lambda name: fnmatch.fnmatch(name, pattern)
 
     # -- queries -------------------------------------------------------- #
 
@@ -560,16 +591,28 @@ class TimeWheel:
         percentiles: Optional[Sequence[float]] = None,
         tier: Optional[int] = None,
     ) -> WindowStats:
-        """Sliding-window statistics for every metric matching the name
-        glob ``pattern`` over the trailing ``window`` seconds (default:
-        the coarsest tier's span).
+        """Sliding-window statistics for every metric matching
+        ``pattern`` (a name glob or a label selector) over the trailing
+        ``window`` seconds (default: the coarsest tier's span).
 
         Served from the latest snapshot when a view covers the window:
-        cached glob resolution, one gather of the matched rows and
+        cached resolution, one gather of the matched rows and
         ``snapshot_row_stats``, without the store lock; repeat queries at
         an unchanged epoch return the cached result.  Other windows fall
         back to the locked recompute through K5 and pin themselves for
         the next commit."""
+        ps, window, ti = self._query_args(percentiles, window, tier)
+        snap = self._snapshot  # atomic ref read; the handle is immutable
+        view = None if snap is None else snap.tiers[ti].view_for(window)
+        if view is None:
+            self.pin_window(window)
+            self.query_fallbacks += 1
+            return self._query_recompute(pattern, window, ps, ti)
+        return self._query_snapshot(pattern, window, ps, ti, snap, view)
+
+    def _query_args(self, percentiles, window, tier) -> tuple:
+        """Re-raise a bridge failure, then validate a query's arguments:
+        (percentiles tuple, window seconds, tier index)."""
         self._raise_bridge_error()
         ps = tuple(
             float(p) for p in (
@@ -585,14 +628,7 @@ class TimeWheel:
         ti = self._select_tier(needed) if tier is None else int(tier)
         if not 0 <= ti < len(self._tiers):
             raise ValueError(f"tier {ti} out of range")
-
-        snap = self._snapshot  # atomic ref read; the handle is immutable
-        view = None if snap is None else snap.tiers[ti].view_for(window)
-        if view is None:
-            self.pin_window(window)
-            self.query_fallbacks += 1
-            return self._query_recompute(pattern, window, ps, ti)
-        return self._query_snapshot(pattern, window, ps, ti, snap, view)
+        return ps, window, ti
 
     @staticmethod
     def _entries(matches, counts, sums, pcts, keys) -> Dict[str, dict]:
@@ -675,7 +711,11 @@ class TimeWheel:
             counts = stats["counts"].cpu().numpy()
             sums = stats["sums"].cpu().numpy()
             pcts = stats["percentiles"].cpu().numpy()
-        _, matches = self._resolve_matches(pattern)
+        match = self._match_predicate(pattern)
+        matches = [
+            (mid, name) for mid, name in enumerate(self.registry.names())
+            if name is not None and mid < self.num_metrics and match(name)
+        ]
         rows = [mid for mid, _ in matches]
         return WindowStats(
             time=ts,
@@ -685,6 +725,134 @@ class TimeWheel:
             slots=int(mask.sum()),
             metrics=self._entries(matches, counts[rows], sums[rows],
                                   pcts[rows], [pct_key(p) for p in ps]),
+        )
+
+    def query_group_by(
+        self,
+        selector: str,
+        by: Sequence[str],
+        window: Optional[float] = None,
+        percentiles: Optional[Sequence[float]] = None,
+        tier: Optional[int] = None,
+        depth: Optional[int] = None,
+    ) -> GroupStats:
+        """Merge every row matching ``selector`` (a label selector or a
+        name glob) into one histogram per distinct value-tuple of the
+        ``by`` label keys, and answer count/sum/avg/percentiles per group
+        on the wheel's device (``ops/stats.make_group_query_fn``).  Rows
+        missing a ``by`` label group under "".  The merge is exact:
+        grouping adds no sketch error.
+
+        ``depth=k`` also returns each group's equi-depth summary, its
+        k - 1 boundaries at ranks j/k, as ``edges`` (equi-depth edges
+        are quantiles, so they ride the same rollup).  Serving follows
+        ``query``: a repeat at an unchanged (epoch, generation) returns
+        the cached result with no device work; a window no snapshot view
+        covers takes a one-off K5 view built under the lock, and pins
+        itself for the next commit."""
+        by = tuple(str(k) for k in by)
+        if not by:
+            raise ValueError("group_by needs at least one label key")
+        ps, window, ti = self._query_args(percentiles, window, tier)
+        eps = equidepth_ranks(int(depth)) if depth is not None else ()
+        snap = self._snapshot  # atomic ref read; the handle is immutable
+        view = None if snap is None else snap.tiers[ti].view_for(window)
+        gen, matches = self._resolve_matches(selector)
+        if view is not None:
+            qkey = ("#group_by", selector, by, window, ps, ti, depth)
+            cached = self._result_cache.get(qkey)
+            if (
+                cached is not None
+                and cached[0] == snap.epoch and cached[1] == gen
+            ):
+                self.query_result_cache_hits += 1
+                return cached[2]
+            gs = self._group_rollup(
+                matches, by, ps, eps, ti, view.cdf, view.counts, view.sums,
+                time=snap.time, window=window, covered=view.covered_s,
+                slots=view.slots,
+            )
+            if len(self._result_cache) >= 128 \
+                    and qkey not in self._result_cache:
+                self._result_cache.clear()
+            self._result_cache[qkey] = (snap.epoch, gen, gs)
+            return gs
+        # no view: one K5 view of the window from the live ring under the
+        # lock (its payload is fresh tensors), the rollup outside it
+        self.pin_window(window)
+        self.query_fallbacks += 1
+        t = self._tiers[ti]
+        with self._lock:
+            mask = self._mask_locked(t, window)
+            covered = float(t.durations[mask].sum())
+            ts = self._last_time or _dt.datetime.now(tz=_dt.timezone.utc)
+            payload = window_snapshot(t.ring, mask[None],
+                                      self.config.bucket_limit,
+                                      self.config.precision)
+        return self._group_rollup(
+            matches, by, ps, eps, ti, payload["cdf"][0],
+            payload["counts"][0], payload["sums"][0], time=ts,
+            window=window, covered=covered, slots=int(mask.sum()),
+        )
+
+    def _group_rollup(
+        self, matches, by: tuple, ps: tuple, eps: tuple, ti: int,
+        cdf, counts, sums, *, time, window: float, covered: float,
+        slots: int,
+    ) -> GroupStats:
+        """The rollup over one CDF view: ids padded to the plan grid
+        (a power of two, pad rows into the dump group ``ng_real``), the
+        group count to a power of two above it, the dump group dropped
+        after readback."""
+        self.query_group_serves += 1
+        keys = [pct_key(p) for p in ps]
+        groups: Dict[tuple, Dict[str, object]] = {}
+        sizes: Dict[tuple, int] = {}
+        if matches:
+            gkeys, gids = assign_groups(matches, by)
+            ng_real = len(gkeys)
+            ids_np = np.fromiter(
+                (mid for mid, _ in matches), dtype=np.int32,
+                count=len(matches),
+            )
+            padded, nb = QueryPlanCache.pad_ids(ids_np)
+            ng = 1 << ng_real.bit_length()
+            gids_pad = np.full(nb, ng_real, dtype=np.int32)
+            gids_pad[: len(gids)] = gids
+            all_ps = np.asarray(ps + eps, dtype=np.float32)
+            self.plan_cache.note((ti, "group", ng), nb, len(all_ps))
+            out = self._group_fn(cdf, counts, sums, padded, gids_pad, all_ps,
+                                 num_groups=ng)
+            self.query_rows_fetched += nb
+            gcounts = out["counts"].cpu().numpy()
+            gsums = out["sums"].cpu().numpy()
+            gpcts = out["percentiles"].cpu().numpy()
+            gsizes = np.bincount(np.asarray(gids, dtype=np.int64),
+                                 minlength=ng_real)
+            for gi, gk in enumerate(gkeys):
+                count = int(gcounts[gi])
+                if count == 0:
+                    continue
+                entry: Dict[str, object] = {
+                    "count": float(count),
+                    "sum": float(gsums[gi]),
+                    "avg": float(gsums[gi]) / count,
+                }
+                for key, value in zip(keys, gpcts[gi][: len(ps)]):
+                    entry[key] = float(value)
+                if eps:
+                    entry["edges"] = [float(v) for v in gpcts[gi][len(ps):]]
+                groups[gk] = entry
+                sizes[gk] = int(gsizes[gi])
+        return GroupStats(
+            time=time or _dt.datetime.now(tz=_dt.timezone.utc),
+            window_s=window,
+            covered_s=covered,
+            tier=ti,
+            slots=slots,
+            by=by,
+            groups=groups,
+            sizes=sizes,
         )
 
     def window_counter(
@@ -732,6 +900,8 @@ class TimeWheel:
                 lambda: float(self.query_fallbacks),
             "commit.query_ResultCacheHits":
                 lambda: float(self.query_result_cache_hits),
+            "commit.query_GroupByServed":
+                lambda: float(self.query_group_serves),
         }
         for name, fn in gauges.items():
             ms.register_gauge_func(name, fn)
@@ -811,6 +981,8 @@ class TimeWheel:
                 state["names"], max(self.registry.capacity,
                                     len(state["names"]))
             )
+            if self.label_index is not None:
+                self.label_index = LabelIndex(self.registry)
             self._glob_cache.clear()
             self._result_cache.clear()
             self._snapshot = None

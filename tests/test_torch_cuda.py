@@ -962,3 +962,51 @@ def test_fused_commit_with_lifecycle_and_drift_on_the_card(dev):
     assert ms.committer.fused_intervals == 6
     assert int(ms.aggregator._acc.sum()) == total
     assert ms.lifecycle.evicted_series > 0
+
+
+def test_group_by_on_the_card_equals_the_cpu_wheel(dev):
+    import datetime as dt
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.labels import LabelIndex
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=64)
+    wheels = []
+    for device in (dev, "cpu"):
+        w = TimeWheel(num_metrics=32, config=cfg, tiers=((4, 1), (3, 2)),
+                      device=device)
+        w.label_index = LabelIndex(w.registry)
+        wheels.append(w)
+    rng = np.random.default_rng(5)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    for i in range(6):
+        hists = {f"rpc.lat;code={c};route=/r{r}": {
+            int(b): int(n) for b, n in zip(rng.integers(0, 70, 5),
+                                           rng.integers(1, 300, 5))}
+            for r in range(5) for c in (200, 500)}
+        for w in wheels:
+            w.push(RawMetricSet(t0 + dt.timedelta(seconds=i), {}, {}, hists,
+                                {}, 1.0))
+    card, cpu = wheels
+    for sel, by in (("rpc.lat{}", ["route"]), ("rpc.lat{code=~5..}",
+                                               ["route", "code"])):
+        got = card.query_group_by(sel, by=by, depth=4)
+        want = cpu.query_group_by(sel, by=by, depth=4)
+        assert list(got.groups) == list(want.groups)
+        assert got.sizes == want.sizes
+        for gk, entry in want.groups.items():
+            g = got.groups[gk]
+            for key, value in entry.items():
+                if key in ("sum", "avg"):
+                    np.testing.assert_allclose(g[key], value, rtol=1e-6)
+                else:
+                    assert g[key] == value, (gk, key)
+        before = kernel_launches()
+        assert card.query_group_by(sel, by=by, depth=4) is got
+        assert kernel_launches() == before  # a warm repeat launches nothing
+    before = kernel_launches()["window_merge"]
+    card.query_group_by("rpc.lat{}", by=["code"], window=2.0)  # unpinned
+    assert kernel_launches()["window_merge"] == before + 1
+    assert card.query_fallbacks == 1

@@ -1,9 +1,10 @@
 """The port stands alone: ``loghisto_tpu_torch`` imports neither ``jax``
 nor any module of ``loghisto_tpu``, runs a dense and a paged interval, a
 wheel push and query, a ``TorchMetricSystem`` interval, a fused commit
-with lifecycle and drift, a multirow interval and a firehose run with
-its OpenTSDB export on the CPU without either in ``sys.modules``, and
-never falls back to the CPU on its own."""
+with lifecycle and drift, a multirow interval, a firehose run with its
+OpenTSDB export, and a labeled interval with a group_by, a selector
+query and a windowed Prometheus exposition on the CPU without either in
+``sys.modules``, and never falls back to the CPU on its own."""
 
 import ast
 import subprocess
@@ -107,6 +108,25 @@ def test_interval_runs_without_jax_in_sys_modules():
         " interval=0.1, config=MetricConfig(bucket_limit=64),"
         " out=io.StringIO(), device='cpu')\n"
         "assert s['total_samples'] > 0, s\n"
+        "from loghisto_tpu_torch.prometheus import windowed_exposition\n"
+        "ms = TorchMetricSystem(interval=1.0, num_metrics=16, device='cpu',"
+        " config=MetricConfig(bucket_limit=64), retention=((3, 1),),"
+        " sys_stats=False)\n"
+        "for r in ('/a', '/b'):\n"
+        "    ms.histogram('rpc.lat', 0.5, labels={'route': r, 'code': '500'})\n"
+        "ms.recorder('rpc.lat', labels={'code': '200', 'route': '/a'})"
+        ".record(0.25)\n"
+        "ms.backfill_retention([ms.collect_raw_metrics()])\n"
+        "gs = ms.query_group_by('rpc.lat{}', by=['route'], window=1.0,"
+        " depth=2)\n"
+        "assert gs.sizes == {('/a',): 2, ('/b',): 1}, gs.sizes\n"
+        "assert gs.groups[('/a',)]['count'] == 2.0\n"
+        "assert set(ms.query('rpc.lat{code=500}', 1.0).metrics) == {"
+        "'rpc.lat;code=500;route=/a', 'rpc.lat;code=500;route=/b'}\n"
+        "text = windowed_exposition(ms.retention, windows=(1.0,)).decode()\n"
+        "assert 'rpc_lat_w1s_count{code=\"200\",route=\"/a\"} 1.0' in text,"
+        " text\n"
+        "ms.stop()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
