@@ -62,6 +62,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import datetime as _dt
+import gc
 import json
 import subprocess
 import sys
@@ -2545,6 +2546,514 @@ def phase_lifecycle_drift(torch):
     return out
 
 
+# -- paged lifecycle and the paged fused commit -------------------------------
+
+# TorchMetricSystem at PAGED_MIN_METRICS rows, where storage="auto" pages,
+# with the reference's tiers for the paged fused commit
+# (benchmarks/mesh_paged.py:68) and its churn lifecycle
+# (benchmarks/cardinality_churn.py:91-97, :108-117, :127-128)
+PL_M = 1 << 16
+PL_POOL = 1 << 20
+PL_TIERS = ((8, 1), (4, 8))
+# 2^15 - 1 steady names: while an interval commits, the row space holds
+# them, four fresh batches (ttl 2 keeps three past the tick; the fourth
+# registers before it) and _overflow.api, 2^16 rows exactly
+PL_STEADY = (1 << 15) - 1
+PL_FRESH = 1 << 13
+PL_SAMPLES = 1 << 20
+PL_INTERVALS = 24
+PL_COMPACT_EVERY = 4
+PL_K4F_AFTER = (0, 21, 23, 24)  # K4f batches after these intervals
+PL_PS = (0.5, 0.99, 0.9999)
+PL_SAMPLED = 256      # whole ring rows compared with the dense twin
+PL_QUERIED = 8192     # survivors queried across each compaction
+PL_KEY = 1 << 14      # oracle key: name index * PL_KEY + dense bucket
+
+
+def _pl_stream(k, mu, sigma, steady, fresh, samples, t0):
+    """Interval k of the churn stream, from its own seed: ``samples``
+    lognormal samples over the steady names api.s<i>.lat (mu, sigma per
+    row) and ``fresh`` new names api.u<uid>.lat with one uniform bucket
+    and a count of 1-7 each.  Returns the RawMetricSet and its cells as
+    (name index, dense bucket, count) oracle keys: steady name i is
+    index i, fresh uid u is steady + u."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    rng = np.random.default_rng((SEED, 60, k))
+    ids = rng.integers(0, steady, samples)
+    buckets = np.clip(compress_np(rng.lognormal(mu[ids], sigma[ids])),
+                      -BL, BL).astype(np.int64)
+    uniq, counts = np.unique(ids * PL_KEY + buckets + BL, return_counts=True)
+    rows, dense = uniq // PL_KEY, uniq % PL_KEY
+    bounds = np.searchsorted(rows, np.arange(steady + 1))
+    hists = {}
+    for i in range(steady):
+        lo, hi = bounds[i], bounds[i + 1]
+        if hi > lo:
+            hists[f"api.s{i}.lat"] = dict(zip(
+                (dense[lo:hi] - BL).tolist(), counts[lo:hi].tolist()))
+    f_b = rng.integers(-BL, BL, fresh)
+    f_c = rng.integers(1, 8, fresh)
+    uid0 = k * fresh
+    for j, (b, c) in enumerate(zip(f_b.tolist(), f_c.tolist())):
+        hists[f"api.u{uid0 + j}.lat"] = {b: c}
+    keys = np.concatenate([
+        uniq, (steady + uid0 + np.arange(fresh)) * PL_KEY + f_b + BL])
+    raw = RawMetricSet(time=t0 + k * _ONE_SECOND, counters={}, rates={},
+                       histograms=hists, gauges={}, duration=1.0, seq=k + 1)
+    return raw, keys, np.concatenate([counts, f_c]).astype(np.int64)
+
+
+def _pl_ring_digests(torch, rings, rows=4096):
+    """Per (slot, row) int64 count and sum of bucket x count of each
+    ring, computed on the ring's device a row block at a time."""
+    out = []
+    for ring in rings:
+        w = torch.arange(ring.shape[2], device=ring.device,
+                         dtype=torch.int64)
+        cnt, wsum = [], []
+        for m0 in range(0, ring.shape[1], rows):
+            sub = ring[:, m0:m0 + rows].to(torch.int64)
+            cnt.append(sub.sum(dim=2))
+            wsum.append((sub * w).sum(dim=2))
+            del sub
+        out.append((torch.cat(cnt, 1).cpu().numpy(),
+                    torch.cat(wsum, 1).cpu().numpy()))
+    return out
+
+
+def _pl_pool_cells(store, pool):
+    """The nonzero cells of ``pool`` (the store's pool or a difference of
+    it) under the store's page table and codecs, as sorted unique
+    (row * B + dense bucket) keys and int64 counts."""
+    rows, idx, counts = store._decode_pool_cells(pool)
+    return _pl_sum_keys(rows * B + idx, counts)
+
+
+def _pl_sum_keys(keys, counts):
+    uniq, inv = np.unique(keys, return_inverse=True)
+    return uniq, np.bincount(inv.reshape(-1), weights=counts,
+                             minlength=len(uniq)).astype(np.int64)
+
+
+def _pl_encoded(store, rows, dense, counts):
+    """Oracle cells under each row's codec (encode, then the decode
+    LUT's representative), summed per (row, bucket)."""
+    codec = store.row_codec[rows].astype(np.int64)
+    if (codec < 0).any():
+        raise AssertionError("an oracle row has no codec")
+    cell = store._dec[codec, store._enc[codec, dense]]
+    return _pl_sum_keys(rows * B + cell, counts)
+
+
+def _pl_same(got, want, what):
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"{what}: cells differ from the oracle")
+
+
+def _pl_run(torch, dev, storage, m, pool, steady, fresh, samples,
+            intervals, k4f_after):
+    """One run of the churn stream through TorchMetricSystem(storage=...,
+    retention=PL_TIERS, lifecycle=...): backfill_retention per interval
+    (the committer, then the lifecycle tick), compact() every
+    PL_COMPACT_EVERY intervals.  On paged storage it checks conservation
+    after every interval, the survivors across every compaction, the
+    pool against the host oracle at the end and a K4f batch after each
+    interval in ``k4f_after``; it returns what the dense twin is held
+    to."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.ops import lifecycle as lc_mod
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.window.store import pct_key
+
+    on_card = dev == "cuda"
+    rng = np.random.default_rng((SEED, 61))
+    mu = rng.uniform(2.0, 6.0, steady)
+    sigma = rng.uniform(0.3, 1.0, steady)
+    t0 = _dt.datetime(2026, 10, 17, tzinfo=_dt.timezone.utc)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=m, retention=PL_TIERS,
+        storage=storage, paged_config=PagedStoreConfig(pool_pages=pool,
+                                                       codec="auto"),
+        lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        device=dev)
+    agg, wheel, com, lc = (ms.aggregator, ms.retention, ms.committer,
+                           ms.lifecycle)
+    paged = agg.paged
+    if (storage == "dense") != (paged is None):
+        raise AssertionError(f"storage resolved to {agg.storage}")
+    if ms.commit_path != "fused" or com is None:
+        raise AssertionError(f"commit path {ms.commit_path}")
+    reg = agg.registry
+    steady_names = [f"api.s{i}.lat" for i in range(steady)]
+    for name in steady_names:
+        ms.metric_id(name)
+
+    split = collections.defaultdict(list)
+    timers = _Timers(torch)
+    in_dispatch = [False]
+    if paged is not None:
+        translate = paged.translate
+
+        def timed_translate(packed):
+            t1 = time.perf_counter()
+            try:
+                return translate(packed)
+            finally:
+                if in_dispatch[0]:
+                    split["translate_ms"][-1] += (
+                        time.perf_counter() - t1) * 1e3
+        paged.translate = timed_translate
+        paged.fold_rows_into = synced(torch, split, "fold_rows_into_ms",
+                                      paged.fold_rows_into)
+    dispatch = synced(torch, split, "dispatch_ms", com._fused_dispatch_locked)
+
+    def dispatch_marked(*a, **k):
+        split["translate_ms"].append(0.0)
+        in_dispatch[0] = True
+        try:
+            return dispatch(*a, **k)
+        finally:
+            in_dispatch[0] = False
+    com._fused_dispatch_locked = dispatch_marked
+    com._cells_from_raw = synced(torch, split, "cells_ms",
+                                 com._cells_from_raw)
+    lc.evict_ids = synced(torch, split, "evict_ms", lc.evict_ids)
+    lc._fold = synced(torch, split, "fold_rings_ms", lc._fold)
+    saved_k6 = lc_mod.compact_rows_kernel
+    lc_mod.compact_rows_kernel = timers.dev_wrap("k6", saved_k6)
+
+    oracle_keys, oracle_counts = [], []  # every sample the pool took
+    stream_cells = []                    # the stream's, per interval
+    total = 0
+    checks = {"conservation": 0, "compactions": [], "k4f": []}
+    survivors_rng = np.random.default_rng((SEED, 62))
+
+    def k4f_batch(tag):
+        """One raw batch through agg.record_batch on the paged raw route,
+        held to the oracle: the pool's difference decodes to exactly the
+        batch's cells under the current page table and codecs."""
+        nonlocal total
+        brng = np.random.default_rng((SEED, 63, tag))
+        names = brng.integers(0, steady, PL_SAMPLES)
+        values = brng.lognormal(mu[names], sigma[names]).astype(np.float32)
+        ids = np.array([reg.lookup(n) for n in steady_names],
+                       np.int32)[names]
+        mirror = ("none" if paged._mirror is None else
+                  f"{sum(len(r) for r, _ in paged._dirty_pairs)} dirty pairs")
+        before = paged._pool.clone()
+        k4f0 = kernel_launches()["fused_paged_ingest"]
+        d0 = paged.fused_dispatches
+        agg.record_batch(ids, values)
+        agg.flush(force=True)
+        agg.wait_transfers()
+        if on_card:
+            torch.cuda.synchronize()
+        dense = np.clip(compress_np(values), -BL, BL).astype(np.int64) + BL
+        _pl_same(_pl_pool_cells(paged, paged._pool - before),
+                 _pl_encoded(paged, ids.astype(np.int64), dense,
+                             np.ones(len(ids), np.int64)),
+                 f"K4f batch after interval {tag}")
+        del before
+        oracle_keys.append(names * PL_KEY + dense)
+        oracle_counts.append(np.ones(len(names), np.int64))
+        total += len(names)
+        launches = kernel_launches()["fused_paged_ingest"] - k4f0
+        if on_card and (not agg.fused_paged or launches <= 0
+                        or launches != paged.fused_dispatches - d0):
+            raise AssertionError(f"the K4f batch took {launches} K4f "
+                                 "launches")
+        checks["k4f"].append({"after_interval": tag, "samples": len(names),
+                              "launches": launches, "mirror_before": mirror})
+
+    reset_kernel_launches()
+    if paged is not None and 0 in k4f_after:
+        k4f_batch(0)
+    commit_ms, per_interval, chunks = [], [], 0
+    pool_commits0 = paged.commits if paged is not None else 0
+    for k in range(intervals):
+        raw, keys, counts = _pl_stream(k, mu, sigma, steady, fresh, samples,
+                                       t0)
+        oracle_keys.append(keys)
+        oracle_counts.append(counts)
+        stream_cells.append((keys, counts))
+        total += int(counts.sum())
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms.backfill_retention([raw])
+        if on_card:
+            torch.cuda.synchronize()
+        commit_ms.append((time.perf_counter() - t1) * 1e3)
+        chunks += com.last_dispatches
+        if agg.num_metrics != m or len(reg) > m:
+            raise AssertionError("the row space grew")
+        if paged is not None:
+            with paged._lock:
+                spilled = sum(paged._host_spill.values())
+            if int(paged._pool.sum(dtype=torch.int64)) + spilled != total:
+                raise AssertionError(f"interval {k + 1}: pool + spill != "
+                                     "samples committed")
+            checks["conservation"] += 1
+        per_interval.append({"cells": sum(len(h) for h in
+                                          raw.histograms.values()),
+                             "live_rows": reg.live_count(),
+                             "evicted_total": lc.evicted_series})
+        if (k + 1) % PL_COMPACT_EVERY == 0:
+            checks["compactions"].append(_pl_compact_checked(
+                torch, ms, split, survivors_rng))
+        if paged is not None and k + 1 in k4f_after:
+            k4f_batch(k + 1)
+    if on_card:
+        torch.cuda.synchronize()
+    lc_mod.compact_rows_kernel = saved_k6
+    launches = kernel_launches()
+    if com.fused_intervals != intervals or com.fanout_intervals:
+        raise AssertionError(f"fused {com.fused_intervals}, fanout "
+                             f"{com.fanout_intervals} of {intervals}")
+    out = {"storage": agg.storage, "num_metrics": m,
+           "commit_path": ms.commit_path, "intervals": intervals,
+           "evicted_series": lc.evicted_series, "evictions": lc.evictions,
+           "overflowed_samples": lc.overflowed_samples,
+           "compactions": lc.compactions, "checks": checks,
+           "live_rows_max": max(p["live_rows"] for p in per_interval),
+           "cells_per_interval": float(np.mean([p["cells"]
+                                                for p in per_interval])),
+           "commit_chunks": chunks,
+           "launches": {k: v for k, v in launches.items() if v}}
+    if on_card:
+        k6 = [a.elapsed_time(b) for a, b in timers.events["k6"]]
+        n_c = max(1, lc.compactions)
+        dev_ms = [d - t for d, t in zip(split["dispatch_ms"],
+                                        split["translate_ms"])]
+        out["ms_per_interval"] = {
+            "commit_total": commit_ms, "host_cells": split["cells_ms"],
+            "translate": split["translate_ms"], "device_commit": dev_ms,
+            "eviction": split["evict_ms"],
+            "eviction_pool_fold": split.get("fold_rows_into_ms", []),
+            "eviction_ring_fold": split["fold_rings_ms"]}
+        out["compaction_ms"] = split["compact_ms"]
+        out["k6_ms_per_compaction"] = float(np.sum(k6)) / n_c
+        out["k6_launches_per_compaction"] = len(k6) / n_c
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["ring_bytes"] = wheel.hbm_bytes()
+
+    # -- launches on the path ------------------------------------------------
+    if on_card:
+        expect = {"sparse_ingest": chunks,
+                  "window_merge": len(PL_TIERS) * intervals,
+                  "compact_rows": len(PL_TIERS) * lc.compactions,
+                  "divergence": 0}
+        if paged is not None:
+            expect["paged_scatter"] = chunks + paged.commits - pool_commits0
+            if paged.commits - pool_commits0 > lc.evictions:
+                raise AssertionError("more pool folds than eviction batches")
+        else:
+            expect["compact_rows"] += lc.compactions  # the accumulator
+        for kernel, n in expect.items():
+            if launches[kernel] != n:
+                raise AssertionError(f"{kernel}: {launches[kernel]} "
+                                     f"launches, expected {n}")
+
+    # -- the pool against the host oracle -----------------------------------
+    if paged is not None:
+        keys = np.concatenate(oracle_keys)
+        w = np.concatenate(oracle_counts)
+        names, dense = keys // PL_KEY, keys % PL_KEY
+        uniq_names = np.unique(names)
+        row_of = np.full(int(uniq_names.max()) + 1, -1, np.int64)
+        ov = reg.lookup("_overflow.api")
+        evicted = 0
+        for i in uniq_names.tolist():
+            name = (steady_names[i] if i < steady
+                    else f"api.u{i - steady}.lat")
+            rid = reg.lookup(name)
+            row_of[i] = ov if rid is None else rid
+        rows = row_of[names]
+        evicted = int(w[rows == ov].sum())
+        if ov is None or (rows < 0).any():
+            raise AssertionError("an oracle name has no row")
+        want = _pl_encoded(paged, rows, dense, w)
+        got = _pl_pool_cells(paged, paged._pool)
+        with paged._lock:
+            if paged._host_spill:
+                raise AssertionError("cells reached the host spill")
+        _pl_same(got, want, "the pool's lifetime histograms")
+        if int(got[1].sum()) != total:
+            raise AssertionError("pool decode != samples committed")
+        if evicted != lc.overflowed_samples:
+            raise AssertionError("_overflow.api != the evicted samples")
+        out["pool"] = {"cells": len(got[0]), "occupied_pages":
+                       paged.occupied_pages, "total_pages": paged.total_pages,
+                       "occupancy": paged.pool_saturation(),
+                       "allocated_pages": paged.allocated_pages,
+                       "released_pages": paged.released_pages,
+                       "pool_folds": paged.commits - pool_commits0,
+                       "overflow_row_samples": evicted}
+
+    # -- what the dense twin is held to ---------------------------------------
+    live = [i for i, n in enumerate(reg.names()) if n is not None]
+    srows = np.sort(np.random.default_rng((SEED, 64)).choice(
+        live, min(PL_SAMPLED, len(live)), replace=False))
+    sidx = torch.as_tensor(srows, device=dev)
+    res = ms.query_window("api.s*", 8.0, percentiles=list(PL_PS))
+    oracle_names = steady_names[:PL_SAMPLED]
+    wk = np.concatenate([c[0] for c in stream_cells[-8:]])
+    wc = np.concatenate([c[1] for c in stream_cells[-8:]])
+    sel = wk // PL_KEY < PL_SAMPLED
+    hist = np.bincount(wk[sel], weights=wc[sel],
+                       minlength=PL_SAMPLED * PL_KEY).astype(
+        np.int64).reshape(PL_SAMPLED, PL_KEY)[:, :B]
+    want_w, ties = _oracle_stats(hist, np.asarray(PL_PS))
+    keys_p = [pct_key(p) for p in PL_PS]
+    for i, name in enumerate(oracle_names):
+        got_w = res.metrics[name]
+        if got_w["count"] != int(want_w["counts"][i]):
+            raise AssertionError(f"window 8 s {name}: count")
+        for key, value in zip(keys_p, want_w["percentiles"][i]):
+            if got_w[key] != float(np.float32(value)):
+                raise AssertionError(f"window 8 s {name}: {key}")
+    out["window_8s"] = {"rows": len(res.metrics),
+                        "oracle_rows": len(oracle_names), "rank_ties": ties}
+    twin = {"names": reg.names(),
+            "digests": _pl_ring_digests(torch, [t.ring for t in
+                                                wheel._tiers]),
+            "rows": srows,
+            "sampled": [t.ring.index_select(1, sidx).cpu()
+                        for t in wheel._tiers],
+            "window": res.metrics,
+            "la": lc._la.cpu().numpy()}
+    ms.stop()
+    # the timers' wrappers tie the system into reference cycles: drop
+    # the device state by hand, so the twin finds the card empty
+    for t in wheel._tiers:
+        t.ring = None
+    if paged is not None:
+        paged._pool = None
+    agg._acc = lc._la = agg.stats_snapshot = None
+    wheel.invalidate_snapshot_locked()
+    del ms, agg, wheel, com, lc, paged, res
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out, twin
+
+
+def _pl_compact_checked(torch, ms, split, rng):
+    """One compaction on the paged or dense system: survivors' stats
+    equal by name across it (PagedStore.query on paged storage), the
+    pool untouched and no host->device bytes, ids a dense prefix."""
+    agg, reg, lc = ms.aggregator, ms.aggregator.registry, ms.lifecycle
+    paged = agg.paged
+    live = [(i, n) for i, n in enumerate(reg.names()) if n is not None]
+    pick = [live[j] for j in np.sort(rng.choice(
+        len(live), min(PL_QUERIED, len(live)), replace=False))]
+    ps = np.asarray(PL_PS)
+    if paged is not None:
+        before = paged.query(np.array([i for i, _ in pick]), ps)
+        pool_before = paged._pool.clone()
+        h2d = paged.h2d_bytes
+    t1 = time.perf_counter()
+    if not lc.compact():
+        raise AssertionError("compaction did not run")
+    split["compact_ms"].append((time.perf_counter() - t1) * 1e3)
+    n = reg.live_count()
+    names = reg.names()
+    if names[:n].count(None) or any(x is not None for x in names[n:]):
+        raise AssertionError("survivors are not the dense prefix")
+    out = {"live_rows": n, "moved_rows": sum(
+        1 for new, (old, _) in enumerate(live) if new != old)}
+    if paged is not None:
+        if paged.h2d_bytes != h2d:
+            raise AssertionError("the pool's permutation moved bytes")
+        if not torch.equal(paged._pool, pool_before):
+            raise AssertionError("compaction changed the pool")
+        del pool_before
+        after = paged.query(np.array([reg.lookup(nm) for _, nm in pick]),
+                            ps)
+        for key in ("counts", "sums", "percentiles"):
+            if not np.array_equal(before[key], after[key]):
+                raise AssertionError(f"compaction changed survivors' {key}")
+        out["queried_rows"] = len(pick)
+    return out
+
+
+def _pl_compare(paged, dense):
+    """The paged run's rings, registry, activity and window query
+    against the dense twin's."""
+    if paged["names"] != dense["names"]:
+        raise AssertionError("registries differ from the dense twin")
+    if not np.array_equal(paged["la"], dense["la"]):
+        raise AssertionError("activity vectors differ from the dense twin")
+    for ti, ((pc, pw), (dc, dw)) in enumerate(zip(paged["digests"],
+                                                   dense["digests"])):
+        if not (np.array_equal(pc, dc) and np.array_equal(pw, dw)):
+            bad = int(((pc != dc) | (pw != dw)).sum())
+            raise AssertionError(f"tier {ti}: {bad} (slot, row) digests "
+                                 "differ from the dense twin")
+    for ti, (a, b) in enumerate(zip(paged["sampled"], dense["sampled"])):
+        if not np.array_equal(a.numpy(), b.numpy()):
+            raise AssertionError(f"tier {ti}: sampled rows differ")
+    if paged["window"] != dense["window"]:
+        raise AssertionError("the 8 s window differs from the dense twin")
+    return {"digests": [list(d[0].shape) for d in paged["digests"]],
+            "sampled_rows": len(paged["rows"]),
+            "window_rows": len(paged["window"])}
+
+
+def phase_paged_lifecycle(torch):
+    """Paged storage with lifecycle and the paged fused commit:
+    TorchMetricSystem(num_metrics=2^16 (PAGED_MIN_METRICS, so
+    storage="auto" pages), bucket_limit 4096, PagedStoreConfig(
+    pool_pages=2^20, codec="auto"), retention ((8, 1), (4, 8)),
+    lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+    auto_compact_fragmentation=0.0)), 24 intervals through
+    backfill_retention: 2^20 lognormal samples over 2^15 - 1 steady
+    names and 2^13 fresh names of one bucket each (196,608 in all, three
+    times the row space), compact() every 4 intervals; K4f batches of 2^20
+    before the stream and after intervals 21, 23 and 24.  Then the same
+    stream through a storage="dense" twin (run after the paged system is
+    freed) whose rings, registry, activity and 8 s window must equal."""
+    from loghisto_tpu_torch.ops.dispatch import PAGED_MIN_METRICS
+
+    if PL_M != PAGED_MIN_METRICS:
+        raise AssertionError("the phase must sit at PAGED_MIN_METRICS")
+    args = ("cuda", PL_M, PL_POOL, PL_STEADY, PL_FRESH, PL_SAMPLES,
+            PL_INTERVALS)
+    t1 = time.perf_counter()
+    out, twin = _pl_run(torch, args[0], "auto", *args[1:],
+                        k4f_after=PL_K4F_AFTER)
+    paged_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dense_out, dense_twin = _pl_run(torch, args[0], "dense", *args[1:],
+                                    k4f_after=())
+    twin_s = time.perf_counter() - t1
+    out["dense_twin"] = {"equal": _pl_compare(twin, dense_twin),
+                         "launches": dense_out["launches"],
+                         "peak_device_bytes": dense_out["peak_device_bytes"],
+                         "ms_per_interval": {
+                             "commit_total": dense_out["ms_per_interval"][
+                                 "commit_total"]},
+                         "compaction_ms": dense_out["compaction_ms"]}
+    out["paged_s"], out["twin_s"] = paged_s, twin_s
+    out["tiers"] = [list(t) for t in PL_TIERS]
+    out["pool_pages"] = PL_POOL
+    out["samples_per_interval"] = PL_SAMPLES
+    out["fresh_per_interval"] = PL_FRESH
+    return out
+
+
 # -- labels and group-by ----------------------------------------------------
 
 
@@ -3392,6 +3901,8 @@ def main() -> int:
                         ("k7_divergence", phase_k7),
                         ("lifecycle_drift_main_path",
                          phase_lifecycle_drift),
+                        ("paged_lifecycle_main_path",
+                         phase_paged_lifecycle),
                         ("labels_group_by_main_path",
                          phase_labels_group_by),
                         ("k8_multirow_ingest", phase_k8),

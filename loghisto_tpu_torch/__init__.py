@@ -12,22 +12,53 @@ with no CUDA device and no explicit ``device=``, they raise.  On a CUDA
 tensor every kernel wrapper launches its hand-written Hopper kernel
 (``csrc/``) or raises; the plain PyTorch versions serve CPU tensors
 only.
+
+The package-level names are the reference's: the host tier
+(``MetricSystem``, ``Channel``, ``RawMetricSet`` ...), the default
+system ``Metrics`` (``MetricSystem(interval=60.0, sys_stats=True)``,
+built on first use and not started) and ``TorchMetricSystem`` in the
+place of ``TPUMetricSystem``.  Every name loads on first use (PEP 562),
+so importing one submodule does not import the whole system.  The
+reference's ``FastCounter``, ``FastRecorder``, ``FastTimer`` and
+``FastTimerToken`` wait for the host-system slice (ROADMAP Queue 1,
+6b).
 """
+
+import importlib
+import threading
 
 __version__ = "0.1.0"
 
-__all__ = ["TimeWheel", "TorchMetricSystem"]
+_LAZY = {
+    "Channel": "loghisto_tpu_torch.channel",
+    "ChannelClosed": "loghisto_tpu_torch.channel",
+    "DEFAULT_PERCENTILES": "loghisto_tpu_torch.config",
+    "MetricConfig": "loghisto_tpu_torch.config",
+    "MetricSystem": "loghisto_tpu_torch.metrics",
+    "ProcessedMetricSet": "loghisto_tpu_torch.metrics",
+    "RawMetricSet": "loghisto_tpu_torch.metrics",
+    "TimerToken": "loghisto_tpu_torch.metrics",
+    "merge_raw_metric_sets": "loghisto_tpu_torch.metrics",
+    "TimeWheel": "loghisto_tpu_torch.window.store",
+    "TorchMetricSystem": "loghisto_tpu_torch.system",
+}
+
+__all__ = sorted([*_LAZY, "Metrics"])
+
+_metrics_lock = threading.Lock()
 
 
 def __getattr__(name):
-    # PEP 562: the two entry points load on first use, so importing one
-    # submodule does not import the whole system
-    if name == "TorchMetricSystem":
-        from loghisto_tpu_torch.system import TorchMetricSystem
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    if name == "Metrics":
+        # the reference's `var Metrics = NewMetricSystem(60*time.Second,
+        # true)`: built once, then served from the module's globals
+        with _metrics_lock:
+            if "Metrics" not in globals():
+                from loghisto_tpu_torch.metrics import MetricSystem
 
-        return TorchMetricSystem
-    if name == "TimeWheel":
-        from loghisto_tpu_torch.window.store import TimeWheel
-
-        return TimeWheel
+                globals()["Metrics"] = MetricSystem(interval=60.0,
+                                                    sys_stats=True)
+        return globals()["Metrics"]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

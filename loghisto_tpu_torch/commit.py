@@ -1,6 +1,7 @@
 """IntervalCommitter: one subscription that lands every interval on the
 aggregator and on every retention tier (counterpart of
-``loghisto_tpu/commit.py``, for a dense single-device pair).
+``loghisto_tpu/commit.py``, for a single-device pair on dense or paged
+storage).
 
 The fan-out path resolves an interval's names twice and uploads its
 cells twice (the aggregator's bridge, ``merge_raw``, and the wheel's,
@@ -17,6 +18,16 @@ cells twice (the aggregator's bridge, ``merge_raw``, and the wheel's,
      vector and folds the interval histogram; the last step builds the
      snapshot payloads and updates the EWMA baseline bank
      (``make_fused_commit_snapshot_fn``).
+
+On paged storage the page pool is the accumulator: under both locks each
+chunk's cells are also translated against the page table on the host
+(``PagedStore.translate``: pages map on demand, cells no page can hold
+go to the exact host spill there) and staged through a
+``PagedTripleRing``; the step adds them into the pool with K4 before
+the tiers' K3.  The final step publishes the tier snapshots only —
+``agg.stats_snapshot`` stays unset, and ``PagedStore.query`` / ``stats``
+serve the pool.  The drift engine stays dense-only: its carries are
+dense ``[M, B]`` tensors.
 
 ``last_dispatches`` counts commit steps, ``ceil(cells / chunk)`` for a
 fused interval, as the reference counts its program calls; the kernel
@@ -50,10 +61,12 @@ from loghisto_tpu_torch.obs.spans import NULL_RECORDER, LatencyHistogram
 from loghisto_tpu_torch.ops.commit import (
     COMMIT_CHUNK,
     CellStagingRing,
+    PagedTripleRing,
     make_fused_commit_fn,
     make_fused_commit_snapshot_fn,
+    make_paged_fused_commit_fn,
+    make_paged_fused_commit_snapshot_fn,
 )
-from loghisto_tpu_torch.ops.dispatch import PAGED_FUSED_COMMIT_SLICE
 from loghisto_tpu_torch.window.snapshot import AccSnapshot
 from loghisto_tpu_torch.window.store import trailing_mask
 
@@ -85,10 +98,10 @@ def commit_incompatibility(aggregator, wheel) -> Optional[str]:
 
 
 class IntervalCommitter:
-    """One-subscription interval commit for a dense (TorchAggregator,
-    TimeWheel) pair.  ``chunk`` is the commit step's width in cells
-    (tests shrink it to force multi-step intervals); ``staging_depth``
-    sizes the upload ring."""
+    """One-subscription interval commit for a (TorchAggregator,
+    TimeWheel) pair, on dense or paged storage.  ``chunk`` is the commit
+    step's width in cells (tests shrink it to force multi-step
+    intervals); ``staging_depth`` sizes the upload ring."""
 
     def __init__(
         self,
@@ -102,14 +115,19 @@ class IntervalCommitter:
         reason = commit_incompatibility(aggregator, wheel)
         if reason is not None:
             raise ValueError(f"fused commit unavailable: {reason}")
-        if getattr(aggregator, "paged", None) is not None:
-            raise ValueError(
-                f"fused commit unavailable: {PAGED_FUSED_COMMIT_SLICE}")
         if anomaly is not None and not wheel.snapshots_enabled:
             raise ValueError(
                 "drift engine requires commit-time snapshots: the EWMA "
                 "bank update rides the final commit step and scoring "
                 "consumes the published window CDFs"
+            )
+        self.paged = getattr(aggregator, "paged", None)
+        if anomaly is not None and self.paged is not None:
+            raise ValueError(
+                "drift engine requires the dense accumulator: the "
+                "interval-histogram and EWMA baseline-bank carries are "
+                "dense [M, B] tensors, which paged storage exists to "
+                "avoid keeping"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -121,13 +139,24 @@ class IntervalCommitter:
         tiers_n = len(wheel._tiers)
         bl, prec = wheel.config.bucket_limit, wheel.config.precision
         track, track_b = lifecycle is not None, anomaly is not None
-        self._fused = make_fused_commit_fn(tiers_n, bl, track, track_b)
-        self._fused_snap = make_fused_commit_snapshot_fn(
-            tiers_n, bl, prec, track_activity=track, track_baseline=track_b,
-        )
+        if self.paged is not None:
+            self._fused = make_paged_fused_commit_fn(tiers_n, bl, track)
+            self._fused_snap = make_paged_fused_commit_snapshot_fn(
+                tiers_n, bl, prec, track_activity=track)
+        else:
+            self._fused = make_fused_commit_fn(tiers_n, bl, track, track_b)
+            self._fused_snap = make_fused_commit_snapshot_fn(
+                tiers_n, bl, prec, track_activity=track,
+                track_baseline=track_b,
+            )
         self._staging = CellStagingRing(depth=staging_depth,
                                         width=self.chunk,
                                         device=aggregator.device)
+        self._triples = (
+            PagedTripleRing(depth=staging_depth, width=self.chunk,
+                            device=aggregator.device)
+            if self.paged is not None else None
+        )
 
         self._metrics_lock = threading.Lock()
         self.intervals_committed = 0
@@ -287,10 +316,11 @@ class IntervalCommitter:
     def _fused_dispatch_locked(self, cells, raw: RawMetricSet,
                                dur: float) -> int:
         """The fused path (caller holds agg._dev_lock, then
-        wheel._lock): stage each chunk, run one commit step on it — the
-        first with the ring-wrap keep factors, the last the snapshot
-        variant — then close the tiers and publish the snapshots.
-        Returns the number of commit steps."""
+        wheel._lock): stage each chunk (on paged storage, translate it
+        against the page table and stage its triples too), run one commit
+        step on it — the first with the ring-wrap keep factors, the last
+        the snapshot variant — then close the tiers and publish the
+        snapshots.  Returns the number of commit steps."""
         agg, wheel = self.aggregator, self.wheel
         ids, idx, w32 = self._dense_cells(cells)
         buckets = idx - np.int32(wheel.config.bucket_limit)
@@ -320,6 +350,7 @@ class IntervalCommitter:
         n = len(ids)
         dispatches = 0
         payloads = acc_payload = None
+        paged = self.paged
         for off in range(0, n, self.chunk):
             take = min(self.chunk, n - off)
             with self.obs_recorder.span("commit.upload"):
@@ -327,10 +358,21 @@ class IntervalCommitter:
                     ids[off:off + take], buckets[off:off + take],
                     w32[off:off + take],
                 )
+                if paged is not None:
+                    # the host translate against the page table (both
+                    # locks held, so pages may be mapped); cells it
+                    # cannot place land in the exact host spill inside it
+                    pk = np.empty((take, 3), dtype=np.int32)
+                    pk[:, 0] = ids[off:off + take]
+                    pk[:, 1] = buckets[off:off + take]
+                    pk[:, 2] = w32[off:off + take]
+                    triples = self._triples.stage(paged.translate(pk)[0])
             final = emit and off + take >= n
-            # operand order of make_fused_commit_fn / _snapshot_fn:
-            # carries, then the cells, then the host scalars
-            args = [agg._acc, [t.ring for t in tiers]]
+            # operand order of make_fused_commit_fn / _snapshot_fn and
+            # their paged twins: carries, then the cells [and triples],
+            # then the host scalars
+            args = [agg._acc if paged is None else paged._pool,
+                    [t.ring for t in tiers]]
             if lc is not None:
                 args.append(la)
             if an is not None:
@@ -338,6 +380,8 @@ class IntervalCommitter:
                 if final:
                     args.append(banks)
             args += [slots, keeps if dispatches == 0 else ones, packed]
+            if paged is not None:
+                args.append(triples)
             if lc is not None:
                 args.append(epoch)
             if final:
@@ -349,7 +393,10 @@ class IntervalCommitter:
             with self.obs_recorder.span("commit.dispatch"):
                 out = iter(
                     (self._fused_snap if final else self._fused)(*args))
-            agg._acc = next(out)
+            if paged is None:
+                agg._acc = next(out)
+            else:
+                next(out)  # the pool, updated in place
             for t, r in zip(tiers, next(out)):
                 t.ring = r
             if lc is not None:
@@ -362,7 +409,8 @@ class IntervalCommitter:
                 an.store_carry_locked(ihist, banks)
             if final:
                 payloads = next(out)
-                acc_payload = next(out)
+                # the paged step emits no accumulator payload
+                acc_payload = next(out) if paged is None else None
             dispatches += 1
             agg._interval_ingested += int(
                 w64[off:off + take].sum(dtype=np.int64))
@@ -377,12 +425,13 @@ class IntervalCommitter:
                                                 payloads[ti])
                     for ti in range(len(tiers))
                 ))
-                agg.stats_snapshot = AccSnapshot(
-                    epoch=wheel.intervals_pushed,
-                    cdf=acc_payload["cdf"],
-                    counts=acc_payload["counts"],
-                    sums=acc_payload["sums"],
-                )
+                if acc_payload is not None:
+                    agg.stats_snapshot = AccSnapshot(
+                        epoch=wheel.intervals_pushed,
+                        cdf=acc_payload["cdf"],
+                        counts=acc_payload["counts"],
+                        sums=acc_payload["sums"],
+                    )
         return dispatches
 
     # -- warmup / attach ------------------------------------------------ #
@@ -390,6 +439,8 @@ class IntervalCommitter:
     def kernel_names(self) -> tuple:
         """The Hopper kernels this committer's interval launches."""
         names = ["sparse_ingest", "window_merge"]
+        if self.paged is not None:
+            names.append("paged_scatter")
         if self.lifecycle is not None:
             names.append("compact_rows")
         if self.anomaly is not None:

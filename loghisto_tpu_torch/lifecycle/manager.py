@@ -1,6 +1,6 @@
 """LifecycleManager: owns the activity vector, runs the eviction
 policies and drives the fold and repack steps (counterpart of
-``loghisto_tpu/lifecycle/manager.py``, dense storage).
+``loghisto_tpu/lifecycle/manager.py``).
 
 The manager rides the IntervalCommitter's bridge thread: ``on_interval``
 runs after each committed interval with no lock held, so an eviction
@@ -19,6 +19,14 @@ overflow row by integer addition and the host lifetime stores with
 Python ints, so the overflow row's total equals the evicted counts
 exactly.  A compaction is a pure row permutation (K6): survivors'
 histograms are bit-identical across it.
+
+On paged storage the pool is the accumulator, and ``PagedStore`` moves
+it on the host: an eviction folds each overflow target's victims with
+``fold_rows_into`` (a host translate plus a pool commit, K4) and drops
+shed targets' victims with ``drop_rows``, then folds the rings
+(``fold_paged``); a compaction permutes the page table's rows
+(``apply_permutation``, no device traffic) after the registry's commit
+point and before the rings' K6 repack (``compact_paged``).
 
 A failure inside a policy tick is not caught here: it leaves the
 committer's ``commit`` and lands in ``bridge_error`` (ROADMAP D6).
@@ -47,15 +55,10 @@ from loghisto_tpu_torch.ops.lifecycle import (
 
 logger = logging.getLogger("loghisto_tpu_torch")
 
-PAGED_LIFECYCLE_SLICE = (
-    "lifecycle on paged storage (PagedStore.fold_rows_into, release_rows, "
-    "drop_rows, apply_permutation and the paged fused commit) is not "
-    "ported yet: it comes with the paged lifecycle slice (ROADMAP Queue 1)"
-)
-
 
 class LifecycleManager:
-    """Lifecycle runtime for a dense (TorchAggregator, TimeWheel) pair.
+    """Lifecycle runtime for a (TorchAggregator, TimeWheel) pair, on
+    dense or paged storage.
     ``TorchMetricSystem(lifecycle=LifecycleConfig(...))`` builds one;
     standalone construction serves tests."""
 
@@ -66,15 +69,15 @@ class LifecycleManager:
                 "lifecycle needs a retention wheel: activity tracking and"
                 " eviction ride the fused interval commit"
             )
-        if getattr(aggregator, "paged", None) is not None:
-            raise ValueError(f"lifecycle unavailable: {PAGED_LIFECYCLE_SLICE}")
+        self._paged = getattr(aggregator, "paged", None) is not None
         self.aggregator = aggregator
         self.wheel = wheel
         self.config = config
         self.metric_system = metric_system
         num_tiers = len(wheel._tiers)
-        self._fold = make_fold_evict_fn(num_tiers)
-        self._compact = make_compact_fn(num_tiers, config.compact_path)
+        self._fold = make_fold_evict_fn(num_tiers, with_acc=not self._paged)
+        self._compact = make_compact_fn(num_tiers, config.compact_path,
+                                        with_acc=not self._paged)
         self._touch = make_touch_fn()
         # the drift engine's banks live and die with these rows; set by
         # TorchMetricSystem so bank rows are zeroed with their victims
@@ -188,15 +191,35 @@ class LifecycleManager:
         with agg._dev_lock:
             la = self.ensure_capacity_locked(agg.num_metrics)
             with wheel._lock:
-                acc, rings, la, vcounts = self._fold(
-                    agg._acc, [t.ring for t in wheel._tiers], la, vpad,
-                    tpad, self.epoch,
-                )
-                agg._acc = acc
+                rings = [t.ring for t in wheel._tiers]
+                if self._paged:
+                    # the pool first, grouped by overflow target: a host
+                    # translate plus a pool commit, count-exact, whose
+                    # moved totals stand for the dense path's vcounts;
+                    # shed targets' victims are dropped outright (their
+                    # lifetime totals survive in the host folds below)
+                    by_target: Dict[int, List[int]] = {}
+                    shed: List[int] = []
+                    for mid, _, omid, _ in pairs:
+                        if omid >= 0:
+                            by_target.setdefault(omid, []).append(mid)
+                        else:
+                            shed.append(mid)
+                    moved = sum(agg.paged.fold_rows_into(vlist, omid)
+                                for omid, vlist in by_target.items())
+                    if shed:
+                        agg.paged.drop_rows(shed)
+                    rings, la = self._fold(rings, la, vpad, tpad,
+                                           self.epoch)
+                else:
+                    acc, rings, la, vcounts = self._fold(
+                        agg._acc, rings, la, vpad, tpad, self.epoch,
+                    )
+                    agg._acc = acc
+                    moved = int(vcounts[:len(vids)].sum())
                 for t, r in zip(wheel._tiers, rings):
                     t.ring = r
                 self._la = la
-                vcounts = vcounts[:len(vids)].cpu().numpy()
                 if self.anomaly is not None:
                     # the freed rows' next tenants start cold
                     self.anomaly.on_evicted_locked(vpad)
@@ -239,13 +262,14 @@ class LifecycleManager:
         with self._metrics_lock:
             self.evictions += 1
             self.evicted_series += len(pairs)
-            self.overflowed_samples += int(vcounts.sum())
+            self.overflowed_samples += moved
         return [p[1] for p in pairs]
 
     # -- compaction ------------------------------------------------------- #
 
     def compact(self) -> bool:
-        """Repack live rows to a dense prefix (K6 over every structure),
+        """Repack live rows to a dense prefix (K6 over every structure;
+        on paged storage a page-table permutation and K6 over the rings),
         then remap the registry and the host aggregates.  Returns False
         when already dense or when a concurrent registration invalidated
         the permutation (the next tick retries)."""
@@ -274,12 +298,23 @@ class LifecycleManager:
                 for t in tiers:
                     t.ring = None  # the list holds the only reference
                 try:
-                    acc, rings, la = self._compact(agg._acc, rings, la, perm,
-                                                   self.epoch)
+                    if self._paged:
+                        # the pool's repack is a host permutation of the
+                        # page table's rows (DROP_ID pads become -1
+                        # holes), after the registry's commit point and
+                        # before the rings' repack
+                        agg.paged.apply_permutation(
+                            np.where((perm >= 0) & (perm < m_rows), perm,
+                                     -1), m_rows)
+                        rings, la = self._compact(rings, la, perm,
+                                                  self.epoch)
+                    else:
+                        acc, rings, la = self._compact(agg._acc, rings, la,
+                                                       perm, self.epoch)
+                        agg._acc = acc
                 finally:
                     for t, r in zip(tiers, rings):
                         t.ring = r
-                agg._acc = acc
                 self._la = la
                 if self.anomaly is not None:
                     # baselines follow their rows through the repack

@@ -1,4 +1,33 @@
 """Device ops of the port: codec, ingest, the paged store and the window
 merge (plain versions and the Hopper kernel wrappers), host fold,
-statistics and dispatch.  Nothing is imported eagerly: each module is
-imported where it is used."""
+statistics and dispatch.
+
+The package-level names are the reference's codec and statistics names
+(``ops/codec.py``, ``ops/stats.py``).  They load on first use (PEP 562),
+because both modules import torch; the frame names (``encode_frame``,
+``decode_frame``, ``iter_frames``, ``FrameError``, ``FrameTruncated``)
+wait for the federation slice (ROADMAP Queue 1, 14)."""
+
+import importlib
+
+_LAZY = {
+    "compress": "codec",
+    "compress_np": "codec",
+    "compress_scalar": "codec",
+    "decompress": "codec",
+    "decompress_np": "codec",
+    "decompress_scalar": "codec",
+    "bucket_representatives": "stats",
+    "dense_stats": "stats",
+    "percentiles_sparse": "stats",
+    "summarize_sparse": "stats",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,9 +1,10 @@
 """The fused interval commit: one pass over an interval's cells for the
 aggregator's accumulator and every retention tier's open slot
 (counterpart of ``loghisto_tpu/ops/commit.py``: ``COMMIT_CHUNK``,
-``DROP_ID``, ``make_fused_commit_fn``, ``make_fused_commit_snapshot_fn``
-and ``CellStagingRing``; the paged and sharded families wait for their
-slices).
+``DROP_ID``, ``make_fused_commit_fn``, ``make_fused_commit_snapshot_fn``,
+their paged twins ``make_paged_fused_commit_fn`` and
+``make_paged_fused_commit_snapshot_fn``, ``CellStagingRing`` and
+``PagedTripleRing``; the sharded family waits for the mesh slice).
 
 The reference jits one donated-carry program per chunk of cells.  The
 port runs the same steps eagerly on PyTorch's current stream and updates
@@ -28,6 +29,13 @@ the carries IN PLACE where the reference donates them:
     later commit writes, and runs the EWMA bank update
     (``ops/anomaly.ewma_bank_update``, plain float32 tensor code).
 
+On paged storage the page pool takes the accumulator's place: each chunk
+also arrives as host-translated ``(slot, offset, count)`` triples
+(``PagedStore.translate``), which K4 (``ops/paged_store.paged_scatter``)
+adds into the pool before the one K3 launch into every tier's open slot;
+the final step emits the tier payloads only, since the pool's counts sit
+behind per-row codecs and ``PagedStore.query`` / ``stats`` serve them.
+
 Integer scatter-adds are order-independent, so the fused commit equals
 the fan-out path (``merge_raw`` + ``TimeWheel.push``) bit for bit.
 ``loghisto_tpu_torch.commit.IntervalCommitter`` owns locks, spill policy
@@ -41,6 +49,7 @@ import torch
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.ops.backend import resolve_device
+from loghisto_tpu_torch.ops.paged_store import paged_scatter
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
 from loghisto_tpu_torch.ops.stats import dense_cdf
 from loghisto_tpu_torch.ops.window import window_snapshot
@@ -71,8 +80,9 @@ def stamp_activity(last_active: torch.Tensor, ids: torch.Tensor,
 def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
                 epoch, ifirst, bucket_limit):
     """One chunk into every carry (in place): the clears, then one K3
-    launch for every target."""
-    targets = [acc]
+    launch for every target (the accumulator, when there is one, and
+    each tier's open slot)."""
+    targets = [] if acc is None else [acc]
     for ring, slot, keep in zip(rings, slots, keeps):
         view = ring[int(slot)]
         if int(keep) != 1:
@@ -188,6 +198,63 @@ def make_fused_commit_snapshot_fn(
     return commit
 
 
+def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,
+                               track_activity: bool = False):
+    """The fused commit step for a paged aggregator:
+    ``commit(pool, rings, [last_active], slots, keeps, packed, triples,
+    [epoch]) -> (pool, rings, [last_active])``.  ``pool`` (int32 [P,
+    page_size]) takes the accumulator's place and the chunk's translated
+    ``triples`` (int32 [n, 3] ``(slot, offset, count)``, slots <= 0
+    drop) go into it with one K4 launch; ``packed`` then goes into every
+    tier's open slot with one K3 launch, and the activity stamp follows.
+    The other operands are ``make_fused_commit_fn``'s."""
+
+    def commit(*args):
+        it = iter(args)
+        pool, rings = next(it), tuple(next(it))
+        la = next(it) if track_activity else None
+        slots, keeps, packed, triples = next(it), next(it), next(it), next(it)
+        epoch = next(it) if track_activity else None
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        paged_scatter(pool, triples)
+        _fold_chunk(None, rings, la, None, slots, keeps, packed, epoch,
+                    None, bucket_limit)
+        out = [pool, rings]
+        if track_activity:
+            out.append(la)
+        return tuple(out)
+
+    return commit
+
+
+def make_paged_fused_commit_snapshot_fn(
+    num_tiers: int,
+    bucket_limit: int,
+    precision: int = PRECISION,
+    track_activity: bool = False,
+):
+    """The final-chunk variant of ``make_paged_fused_commit_fn``: the
+    same step, then every tier's window payload (one K5 a tier).  No
+    accumulator payload: the pool's counts are served by
+    ``PagedStore.query``.  ``commit(pool, rings, [last_active], slots,
+    keeps, packed, triples, [epoch], masks) -> (pool, rings,
+    [last_active], tier_payloads)``."""
+    step = make_paged_fused_commit_fn(num_tiers, bucket_limit,
+                                      track_activity)
+
+    def commit(*args):
+        *args, masks = args
+        out = step(*args)
+        payloads = tuple(
+            window_snapshot(ring, masks[t], bucket_limit, precision)
+            for t, ring in enumerate(out[1])
+        )
+        return (*out, payloads)
+
+    return commit
+
+
 class CellStagingRing:
     """Depth-D reusable host staging for the commit's cell triples.
 
@@ -219,11 +286,9 @@ class CellStagingRing:
         self.uploads = 0          # lifetime stage() calls
         self.bytes_uploaded = 0   # lifetime host->device bytes
 
-    def stage(self, ids, buckets, weights) -> torch.Tensor:
-        """Copy one chunk (ids, codec buckets, counts; len <= width) into
-        the next host slot and start its upload; returns the device
-        triples ``[n, 3]``."""
-        n = len(ids)
+    def _slot(self, n: int):
+        """The next host slot's index and first ``n`` rows, once no copy
+        reads it any more."""
         if n > self.width:
             raise ValueError(f"chunk of {n} cells exceeds staging width "
                              f"{self.width}")
@@ -232,11 +297,11 @@ class CellStagingRing:
         if self._events[i] is not None:
             self._events[i].synchronize()
             self._events[i] = None
-        host = self._slots[i][:n]
-        buf = host.numpy()
-        buf[:, 0] = ids
-        buf[:, 1] = buckets
-        buf[:, 2] = weights
+        return i, self._slots[i][:n]
+
+    def _send(self, i: int, host: torch.Tensor) -> torch.Tensor:
+        """Start the upload of slot ``i``'s rows ``host``; returns the
+        device rows."""
         if self.device.type == "cuda":
             dev = host.to(self.device, non_blocking=True)
             event = torch.cuda.Event()
@@ -247,6 +312,32 @@ class CellStagingRing:
             # caller may still hold the tensor
             dev = host.clone()
         self.uploads += 1
-        self.bytes_uploaded += n * 12
+        self.bytes_uploaded += host.shape[0] * 12
         return dev
 
+    def stage(self, ids, buckets, weights) -> torch.Tensor:
+        """Copy one chunk (ids, codec buckets, counts; len <= width) into
+        the next host slot and start its upload; returns the device
+        triples ``[n, 3]``."""
+        i, host = self._slot(len(ids))
+        buf = host.numpy()
+        buf[:, 0] = ids
+        buf[:, 1] = buckets
+        buf[:, 2] = weights
+        return self._send(i, host)
+
+
+class PagedTripleRing(CellStagingRing):
+    """``CellStagingRing``'s twin for the paged committer's translated
+    ``(slot, offset, count)`` triples: the same depth, width and
+    per-slot wait, since consecutive chunks' triples reuse its slots.
+    A chunk travels as its rows only, so the reference's pad rows (slot
+    -1, which K4 drops) are not needed."""
+
+    def stage(self, triples: np.ndarray) -> torch.Tensor:
+        """Copy one translated chunk (int32 [n, 3], n <= width) into the
+        next host slot and start its upload; returns the device
+        triples."""
+        i, host = self._slot(len(triples))
+        host.numpy()[:] = triples
+        return self._send(i, host)

@@ -25,8 +25,7 @@ is served by the wrappers' plain versions — the table still resolves, so
 the CPU runs the same control flow as the card.
 
 ``resolve_commit_path`` resolves the interval commit: the fused
-committer on dense storage, the fan-out on paged storage until the
-paged fused commit is ported (ROADMAP D5).
+committer on dense and on paged storage.
 
 Each decline reason is a sentence, as in the JAX table; the shape
 preconditions of the JAX paths keep the JAX package's sentences.
@@ -408,33 +407,21 @@ def resolve_storage_path(
     return storage, None
 
 
-# -- the interval commit (ROADMAP D3, D5) ------------------------------ #
-
-PAGED_FUSED_COMMIT_SLICE = (
-    "the paged fused commit (loghisto_tpu/ops/commit.py "
-    "make_paged_fused_commit_fn) is not ported yet: it comes with the "
-    "paged lifecycle slice (ROADMAP Queue 1), and until then paged "
-    "storage commits each interval through the fan-out path"
-)
+# -- the interval commit (ROADMAP D3) ---------------------------------- #
 
 
-def resolve_commit_path(path: str, paged: bool = False) -> str:
+def resolve_commit_path(path: str) -> str:
     """Resolve the interval-commit path, "fused" (one
     ``IntervalCommitter`` for the aggregator and every retention tier)
     or "fanout" (the aggregator's and the wheel's bridges).  "auto"
-    gives "fused" on dense storage, as the reference's "auto" does, and
-    "fanout" on paged storage (decision D5); an explicit "fused" on
-    paged storage raises naming the slice that ports it.  A system
-    without retention has one consumer and commits through the fan-out
-    whatever this returns (``TorchMetricSystem``)."""
+    gives "fused", as the reference's "auto" does, on dense and on
+    paged storage alike (the paged committer carries the pool in the
+    accumulator's place).  A system without retention has one consumer
+    and commits through the fan-out whatever this returns
+    (``TorchMetricSystem``)."""
     if path == "auto":
-        return "fanout" if paged else "fused"
-    if path == "fanout":
-        return path
-    if path == "fused":
-        if paged:
-            raise ValueError(
-                f"commit='fused' unavailable: {PAGED_FUSED_COMMIT_SLICE}")
+        return "fused"
+    if path in ("fused", "fanout"):
         return path
     raise ValueError(
         f"unknown commit path {path!r}: expected 'auto', 'fused', or 'fanout'"

@@ -1,6 +1,6 @@
 """Device steps of the metric lifecycle: the activity touch, the
 evict-fold and the row repack, K6 (counterpart of
-``loghisto_tpu/ops/lifecycle.py``, dense storage).
+``loghisto_tpu/ops/lifecycle.py``).
 
 An evicted row folds into its overflow row by integer addition
 (lossless: log-bucket histograms merge exactly), and a compaction
@@ -24,6 +24,11 @@ empty row):
   * ``make_compact_fn`` — the accumulator, each ring and
     ``last_active`` over one permutation, the rings one at a time so
     each old ring is released before the next is repacked.
+
+On paged storage (``with_acc=False``) the pool is folded and permuted by
+``PagedStore`` on the host, and the two steps take the rings and
+``last_active`` only, as the reference's ``fold_paged`` and
+``compact_paged`` do.
 
 JAX's ``take(mode="fill")`` wraps negative indices before its bounds
 check (the reason for the reference's ``_sanitize_perm``); here every
@@ -63,7 +68,25 @@ def make_touch_fn():
     return touch
 
 
-def make_fold_evict_fn(num_tiers: int):
+def _fold_rings(rings, last_active, v, t, epoch) -> None:
+    """The rings' half of the evict-fold (in place): each victim's ring
+    rows added to its target's, then zeroed; the victims'
+    ``last_active`` stamped ``epoch``.  Victims and targets are masked
+    per ring, since a ring may hold fewer rows than the row space."""
+    dev = last_active.device
+    for ring in rings:
+        m_t = ring.shape[1]
+        rv_ok = (v >= 0) & (v < m_t)
+        pair = rv_ok & (t >= 0) & (t < m_t)
+        if pair.any():
+            ring.index_add_(1, _index(t[pair], dev),
+                            ring.index_select(1, _index(v[pair], dev)))
+        ring.index_fill_(1, _index(v[rv_ok], dev), 0)
+    la_ok = (v >= 0) & (v < last_active.shape[0])
+    last_active.index_fill_(0, _index(v[la_ok], dev), int(epoch))
+
+
+def make_fold_evict_fn(num_tiers: int, with_acc: bool = True):
     """The evict-fold for ``num_tiers`` rings:
     ``fold(acc, rings, last_active, victims, targets, epoch) -> (acc,
     rings, last_active, victim_counts)``, with acc int32 [M, B], rings
@@ -75,11 +98,31 @@ def make_fold_evict_fn(num_tiers: int):
     Per structure: gather the victims' rows (a victim past the rows is
     an empty row), add each to its target (targets past the rows drop),
     zero the victims.  Targets are never victims (the policy protects
-    overflow names), so add-then-zero is safe."""
+    overflow names), so add-then-zero is safe.
 
-    def fold(acc, rings, last_active, victims, targets, epoch):
+    ``with_acc=False`` is the paged-storage variant: the lifetime counts
+    live in the page pool, which ``PagedStore.fold_rows_into`` folds on
+    the host, so the step folds the rings and stamps ``last_active``
+    only: ``fold_paged(rings, last_active, victims, targets, epoch) ->
+    (rings, last_active)``."""
+
+    def check(rings):
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+
+    if not with_acc:
+
+        def fold_paged(rings, last_active, victims, targets, epoch):
+            check(rings)
+            _fold_rings(rings, last_active,
+                        np.asarray(victims, dtype=np.int64),
+                        np.asarray(targets, dtype=np.int64), epoch)
+            return rings, last_active
+
+        return fold_paged
+
+    def fold(acc, rings, last_active, victims, targets, epoch):
+        check(rings)
         dev = acc.device
         v = np.asarray(victims, dtype=np.int64)
         t = np.asarray(targets, dtype=np.int64)
@@ -94,16 +137,7 @@ def make_fold_evict_fn(num_tiers: int):
         acc.index_add_(0, _index(t_sel[both], dev),
                        rows[_index(np.flatnonzero(both), dev)])
         acc.index_fill_(0, _index(v[v_ok], dev), 0)
-        for ring in rings:
-            m_t = ring.shape[1]
-            rv_ok = (v >= 0) & (v < m_t)
-            pair = rv_ok & (t >= 0) & (t < m_t)
-            if pair.any():
-                ring.index_add_(1, _index(t[pair], dev),
-                                ring.index_select(1, _index(v[pair], dev)))
-            ring.index_fill_(1, _index(v[rv_ok], dev), 0)
-        la_ok = (v >= 0) & (v < last_active.shape[0])
-        last_active.index_fill_(0, _index(v[la_ok], dev), int(epoch))
+        _fold_rings(rings, last_active, v, t, epoch)
         return acc, rings, last_active, counts
 
     return fold
@@ -175,7 +209,8 @@ def resolve_compact_path(path: str) -> str:
     return path
 
 
-def make_compact_fn(num_tiers: int, path: str = "auto"):
+def make_compact_fn(num_tiers: int, path: str = "auto",
+                    with_acc: bool = True):
     """The full repack: ``compact(acc, rings, last_active, perm, epoch)
     -> (acc, rings, last_active)`` with ``perm`` host int32 [M]
     (``perm[new] = old``).  ``rings`` is a list the caller owns: each
@@ -183,15 +218,18 @@ def make_compact_fn(num_tiers: int, path: str = "auto"):
     only one ring's copy is alive at a time.  Every output row is a copy
     of one input row or zeros, so survivor histograms — and every
     percentile of them — are bit-identical across the repack.  Freed
-    rows get ``last_active = epoch``."""
+    rows get ``last_active = epoch``.
+
+    ``with_acc=False`` is the paged-storage variant: the pool repacks on
+    the host (``PagedStore.apply_permutation`` permutes page-table rows,
+    no device traffic), so the step repacks the rings (K6 each) and
+    ``last_active`` only: ``compact_paged(rings, last_active, perm,
+    epoch) -> (rings, last_active)``."""
     resolve_compact_path(path)
 
-    def compact(acc, rings, last_active, perm, epoch):
+    def compact_rings(rings, last_active, perm_t, epoch):
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
-        perm_t = torch.as_tensor(np.asarray(perm, dtype=np.int32),
-                                 device=acc.device)
-        acc = compact_rows_kernel(acc, perm_t)
         for i in range(num_tiers):
             m_t = rings[i].shape[1]
             rings[i] = compact_rows_kernel(rings[i], perm_t[:m_t])
@@ -200,6 +238,24 @@ def make_compact_fn(num_tiers: int, path: str = "auto"):
         empty = (p < 0) | (p >= n)
         la = last_active[torch.where(empty, torch.zeros_like(p), p).long()]
         la = torch.where(empty, torch.full_like(la, int(epoch)), la)
+        return rings, la
+
+    def perm_on(perm, device):
+        return torch.as_tensor(np.asarray(perm, dtype=np.int32),
+                               device=device)
+
+    if not with_acc:
+
+        def compact_paged(rings, last_active, perm, epoch):
+            return compact_rings(rings, last_active,
+                                 perm_on(perm, last_active.device), epoch)
+
+        return compact_paged
+
+    def compact(acc, rings, last_active, perm, epoch):
+        perm_t = perm_on(perm, acc.device)
+        acc = compact_rows_kernel(acc, perm_t)
+        rings, la = compact_rings(rings, last_active, perm_t, epoch)
         return acc, rings, la
 
     return compact

@@ -35,10 +35,19 @@ mapping.  The port's device codec is float64 and agrees with the host
 codec, so it does not need it for coverage; with it, the port's page
 table and ``allocated_pages`` equal the JAX store's for the same stream.
 
+The lifecycle's half (``fold_rows_into``, ``release_rows``,
+``drop_rows``, ``apply_permutation``) keeps the JAX store's results: the
+same pool, page table, codecs and free list.  Freed slots go onto the
+top of the free stack in the JAX order (rows as given, pages
+ascending), so the next allocation pops what the JAX list pops.  An
+eviction gathers only the victims' pages on the device and decodes
+those, where the JAX store decodes the whole pool; the triples it
+re-commits are the same set.  Every table or codec change either marks
+the rows and (row, page) pairs it touched for the K4f mirrors or drops
+them (``apply_permutation``, ``_extract_rows``).
+
 Single device only.  Left for later slices: the mesh arenas and sharded
-commit (slice 11); ``fold_rows_into``, ``release_rows``, ``drop_rows``,
-``_extract_rows`` and ``apply_permutation`` (lifecycle, slice 9);
-``spill_triples`` (the committer, slice 7); ``codec_names`` /
+commit (slice 11, which wires ``_extract_rows`` in); ``codec_names`` /
 ``restore_codecs`` of the v3 checkpoint (slice 10).
 """
 
@@ -266,6 +275,7 @@ class PagedStore:
         self.overflowed_cells = 0
         self.spilled_cells = 0
         self.fused_dispatches = 0
+        self.released_pages = 0
 
         # device mirrors for K4f; built at first use, then updated in
         # place for the rows / (row, page) pairs marked dirty here
@@ -310,6 +320,19 @@ class PagedStore:
             )
             self.row_codec[urows] = codec
         self._mark_rows(urows)
+
+    def set_row_codec(self, row: int, name: str) -> None:
+        """Pin a row's codec explicitly (checkpoint restore, tests).
+        Only legal before the row holds data under a different codec."""
+        want = self._codec_ids[name]
+        if self.row_codec[row] >= 0 and self.row_codec[row] != want:
+            if np.any(self.page_table[row] >= 0):
+                raise ValueError(
+                    f"row {row} already holds data under codec "
+                    f"{self._codecs[self.row_codec[row]].name!r}"
+                )
+        self.row_codec[row] = want
+        self._mark_rows(np.array([row]))
 
     # -- allocation ----------------------------------------------------- #
 
@@ -357,6 +380,17 @@ class PagedStore:
         keys = np.unique(missing)
         self._alloc_pairs(keys // self.pages_per_row,
                           keys % self.pages_per_row)
+
+    def _push_free(self, slots: np.ndarray) -> None:
+        """Return slots to the free stack, the last one on top (popped
+        first), as the JAX store appends them to its list."""
+        k = len(slots)
+        if self._free_n + k > len(self._free):  # a loaded, shorter stack
+            grown = np.empty(self.total_pages - 1, dtype=np.int32)
+            grown[: self._free_n] = self._free[: self._free_n]
+            self._free = grown
+        self._free[self._free_n: self._free_n + k] = slots
+        self._free_n += k
 
     def free_list(self) -> List[int]:
         """The free slots as the JAX store's list (its last entry is
@@ -606,35 +640,93 @@ class PagedStore:
                         np.asarray(dense_idx, dtype=np.int64),
                         np.asarray(weights, dtype=np.int64))
 
+    def spill_triples(self, triples: np.ndarray) -> int:
+        """Fold translated ``(slot, offset, count)`` triples back into the
+        exact host spill through the page table's inverse (slot -> owning
+        row and page -> codec decode); returns the count folded.  The
+        reference's committer uses it for the one chunk whose translate
+        ran but whose dispatch failed.  The port's committer does not
+        recover a failed dispatch (ROADMAP D6), so nothing calls it yet:
+        its caller comes with recovery (ROADMAP Queue 1, 6c)."""
+        triples = np.asarray(triples)
+        triples = triples[triples[:, 0] > 0]
+        if not len(triples):
+            return 0
+        owner_row, owner_page = self._owners()
+        slots = triples[:, 0].astype(np.int64)
+        rows, idx, counts = self._decode_storage(
+            owner_row[slots],
+            owner_page[slots] * self.config.page_size + triples[:, 1],
+            triples[:, 2].astype(np.int64),
+        )
+        self._spill_add(rows, idx, counts)
+        return int(counts.sum())
+
     # -- decode / stats -------------------------------------------------- #
 
-    def _decode_pool_cells(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Every nonzero pool cell as (row, native dense index, int64
-        count), in slot order.  One nonzero pass over the pool on its
-        device and one copy of the cells to the host; each slot's owner
-        (row, page) comes from the inverted page table.  The same
-        multiset of cells as the JAX store's per-page loop."""
-        flat = torch.nonzero(self._pool.view(-1)).reshape(-1)
-        counts = self._pool.view(-1)[flat].cpu().numpy().astype(np.int64)
-        flat = flat.cpu().numpy()
-        page = self.config.page_size
-        slots, offs = flat // page, flat % page
+    def _owners(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Each pool slot's owning (row, page) from the inverted page
+        table; row -1 for a slot no row maps."""
         owner_row = np.full(self.total_pages, -1, dtype=np.int64)
         owner_page = np.zeros(self.total_pages, dtype=np.int64)
         rows_of, pages_of = np.nonzero(self.page_table >= 0)
         owned = self.page_table[rows_of, pages_of]
         owner_row[owned] = rows_of
         owner_page[owned] = pages_of
-        rows = owner_row[slots]
-        storage = owner_page[slots] * page + offs
+        return owner_row, owner_page
+
+    def _decode_storage(self, rows, storage, counts):
+        """Cells given by (row, storage index, count) as (row, native
+        dense index, count), under each row's codec.  Unowned slots hold
+        nothing K4/K4f wrote; dense pages can overhang the storage axis,
+        where translation never writes: both drop."""
         codec = self.row_codec[np.maximum(rows, 0)].astype(np.int64)
-        # unowned slots hold nothing K4/K4f wrote; dense pages can
-        # overhang the storage axis, where translation never writes
         keep = (rows >= 0) & (codec >= 0)
         keep &= storage < self._storage_buckets[np.maximum(codec, 0)]
         rows, storage, codec, counts = (rows[keep], storage[keep],
                                         codec[keep], counts[keep])
         return rows, self._dec[codec, storage], counts
+
+    def _decode_pool_cells(
+        self, pool: Optional[torch.Tensor] = None
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Every nonzero pool cell as (row, native dense index, int64
+        count), in slot order.  One nonzero pass over the pool on its
+        device and one copy of the cells to the host; each slot's owner
+        (row, page) comes from the inverted page table.  The same
+        multiset of cells as the JAX store's per-page loop.  ``pool``
+        decodes another tensor of the pool's shape (a difference of two
+        pool states) under this store's table and codecs."""
+        pool = self._pool if pool is None else pool
+        flat = torch.nonzero(pool.view(-1)).reshape(-1)
+        counts = pool.view(-1)[flat].cpu().numpy().astype(np.int64)
+        flat = flat.cpu().numpy()
+        page = self.config.page_size
+        slots, offs = flat // page, flat % page
+        owner_row, owner_page = self._owners()
+        return self._decode_storage(owner_row[slots],
+                                    owner_page[slots] * page + offs, counts)
+
+    def _row_cells(self, rows) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The nonzero pool cells of ``rows`` as (row, native dense index,
+        int64 count), in (row, page, offset) order — the JAX store's
+        whole-pool decode restricted to these rows.  Only the rows'
+        mapped pages are gathered on the device and copied back."""
+        rows = np.unique(np.asarray(rows, dtype=np.int64))
+        tbl = self.page_table[rows]
+        r_i, p_i = np.nonzero(tbl >= 0)
+        if not len(r_i):
+            empty = np.empty(0, dtype=np.int64)
+            return empty, empty.copy(), empty.copy()
+        slots = torch.from_numpy(tbl[r_i, p_i].astype(np.int64))
+        pages = self._pool.index_select(0, slots.to(self.device)).view(-1)
+        flat = torch.nonzero(pages).reshape(-1)
+        counts = pages[flat].cpu().numpy().astype(np.int64)
+        flat = flat.cpu().numpy()
+        page = self.config.page_size
+        k = flat // page
+        return self._decode_storage(rows[r_i[k]], p_i[k] * page + flat % page,
+                                    counts)
 
     def decode_cells(
         self, include_spill: bool = True
@@ -705,6 +797,128 @@ class PagedStore:
             sums[sel] = out["sums"].cpu().numpy()
             pcts[sel] = out["percentiles"].cpu().numpy()
         return {"counts": counts, "sums": sums, "percentiles": pcts}
+
+    # -- lifecycle composition ------------------------------------------ #
+
+    def fold_rows_into(self, victims, target: int) -> int:
+        """Count-exact eviction fold: each victim row's cells re-commit
+        under the TARGET row's codec and pages (the overflow row), its
+        host-spill cells move to the target, and its pages and codec are
+        released.  Returns the total count moved."""
+        victims = [int(v) for v in victims if v != target]
+        if not victims:
+            return 0
+        rows, idx, counts = self._row_cells(victims)
+        moved = int(counts.sum())
+        # zero the victim pages BEFORE recommitting, so the fold cannot
+        # double-count (commit touches only the target's pages)
+        self._zero_rows(victims)
+        if len(rows):
+            packed = np.empty((len(rows), 3), dtype=np.int32)
+            packed[:, 0] = target
+            packed[:, 1] = idx - self.bucket_limit
+            packed[:, 2] = counts
+            self.commit(packed)
+        dead = set(victims)
+        with self._lock:
+            for key in [k for k in self._host_spill if k[0] in dead]:
+                v = self._host_spill.pop(key)
+                tkey = (target, key[1])
+                self._host_spill[tkey] = self._host_spill.get(tkey, 0) + v
+                moved += v
+        self.release_rows(victims)
+        return moved
+
+    def _zero_rows(self, rows) -> None:
+        slots = self.page_table[np.asarray(rows, dtype=np.int64)].reshape(-1)
+        slots = slots[slots >= 0]
+        if len(slots):
+            self._pool.index_fill_(
+                0, torch.from_numpy(slots.astype(np.int64)).to(self.device), 0)
+
+    def _free_rows(self, rows) -> np.ndarray:
+        """Unmap every page of ``rows`` and push its slot onto the free
+        stack (rows in the given order, pages ascending, as the JAX
+        store's loops append them).  Returns the rows, deduplicated in
+        order."""
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        _, first = np.unique(rows, return_index=True)
+        rows = rows[np.sort(first)]
+        tbl = self.page_table[rows]
+        r_i, p_i = np.nonzero(tbl > 0)  # row-major: the loops' order
+        self._push_free(tbl[r_i, p_i])
+        self.page_table[rows[r_i], p_i] = -1
+        self.released_pages += len(r_i)
+        self._mark_pairs(rows[r_i], p_i)
+        return rows
+
+    def release_rows(self, rows) -> int:
+        """Return every page mapped by ``rows`` to the free pool (the
+        caller has folded or zeroed them) and unassign their codecs.
+        Returns the number of pages freed."""
+        before = self.released_pages
+        rows = self._free_rows(rows)
+        self.row_codec[rows] = -1
+        self._mark_rows(rows)
+        return self.released_pages - before
+
+    def drop_rows(self, rows) -> None:
+        """Discard rows entirely (eviction with a shed target): zero and
+        release their pages, clear their codecs and purge their
+        host-spill cells.  The caller accounts the shed counts."""
+        rows = [int(r) for r in rows]
+        if not rows:
+            return
+        self._zero_rows(rows)
+        self.release_rows(rows)
+        dead = set(rows)
+        with self._lock:
+            self._host_spill = {
+                k: v for k, v in self._host_spill.items() if k[0] not in dead
+            }
+
+    def _extract_rows(self, rows) -> np.ndarray:
+        """Pull the rows' pool cells out as packed (row, centred codec
+        bucket, count) int32 triples, zero and free their pages, and
+        clear their table entries — KEEPING their codecs, so a later
+        ``commit`` re-lands them under the same codec.  The mesh's
+        cross-shard move (ROADMAP Queue 1, 11) is its caller."""
+        rows = [int(r) for r in rows]
+        if not rows:
+            return np.empty((0, 3), dtype=np.int32)
+        r, idx, counts = self._row_cells(rows)
+        packed = np.empty((len(r), 3), dtype=np.int32)
+        packed[:, 0] = r
+        packed[:, 1] = idx - self.bucket_limit
+        packed[:, 2] = counts
+        self._zero_rows(rows)
+        self._free_rows(rows)
+        return packed
+
+    def apply_permutation(self, perm, m_rows: int) -> None:
+        """Survivor repack: row r of the new layout takes old row
+        ``perm[r]`` (None or -1 is a hole, left unmapped).  A host table
+        permutation: pool pages never move, so compaction costs no
+        device traffic.  The host spill follows its rows; the K4f
+        mirrors are rebuilt at the next raw batch."""
+        p = np.array([-1 if x is None else int(x) for x in perm[:m_rows]],
+                     dtype=np.int64)
+        new = np.nonzero(p >= 0)[0]
+        old = p[new]
+        table = np.full_like(self.page_table, -1)
+        codec = np.full_like(self.row_codec, -1)
+        table[new] = self.page_table[old]
+        codec[new] = self.row_codec[old]
+        self.page_table, self.row_codec = table, codec
+        self._drop_mirror()
+        remap = dict(zip(old.tolist(), new.tolist()))
+        with self._lock:
+            spill: Dict[Tuple[int, int], int] = {}
+            for (r, d), v in self._host_spill.items():
+                nr = remap.get(r)
+                if nr is not None:
+                    spill[(nr, d)] = spill.get((nr, d), 0) + v
+            self._host_spill = spill
 
     # -- growth and state ------------------------------------------------ #
 

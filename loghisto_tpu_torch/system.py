@@ -20,10 +20,11 @@ named ``base;k=v;...``; one ``LabelIndex`` over the shared registry
     ms.query("rpc.latency{code=~5..}", window=60)
     ms.query_group_by("rpc.latency{}", by=["route"], window=300, depth=4)
 
-With retention on dense storage, ``commit="auto"`` resolves to the
-fused ``IntervalCommitter`` (``commit.py``): one bridge lands each
-interval on the accumulator and every tier (K3), publishes the snapshot
-(K5) and carries the lifecycle and drift engines:
+With retention, ``commit="auto"`` resolves to the fused
+``IntervalCommitter`` (``commit.py``): one bridge lands each interval on
+the accumulator — on paged storage the page pool, K4 — and every tier
+(K3), publishes the snapshot (K5) and carries the lifecycle and drift
+engines:
 
     ms = TorchMetricSystem(retention=True,
                            lifecycle=LifecycleConfig(ttl_intervals=60),
@@ -34,11 +35,17 @@ interval on the accumulator and every tier (K3), publishes the snapshot
 ``lifecycle=`` evicts idle or over-budget series into count-exact
 overflow rows and repacks the rows (K6); ``anomaly=`` keeps EWMA
 baseline banks and scores every row's window against them (K7).  Both
-need the fused commit.  ``commit="fanout"``, paged storage (ROADMAP D5)
-and a system without retention commit through the aggregator's bridge
-(``merge_raw``) and the wheel's (``push``).  ``stop()`` stops the reaper
-first, lets the bridges take every interval already broadcast, then
-re-raises the first bridge failure, if any.
+need the fused commit, and the drift engine dense storage (its carries
+are dense ``[M, B]`` tensors).  On paged storage — "auto" at 2^16 rows
+and more — lifecycle folds and permutes the pool through ``PagedStore``:
+
+    ms = TorchMetricSystem(num_metrics=1 << 16, retention=((8, 1), (4, 8)),
+                           lifecycle=LifecycleConfig(ttl_intervals=2))
+
+``commit="fanout"`` and a system without retention commit through the
+aggregator's bridge (``merge_raw``) and the wheel's (``push``).
+``stop()`` stops the reaper first, lets the bridges take every interval
+already broadcast, then re-raises the first bridge failure, if any.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions.
@@ -130,8 +137,7 @@ class TorchMetricSystem(MetricSystem):
             self.rule_engine = RuleEngine(self.retention)
             self.rule_engine.attach()
             self.retention.register_query_gauges(self)
-        self.commit_path = resolve_commit_path(
-            commit, paged=self.aggregator.storage == "paged")
+        self.commit_path = resolve_commit_path(commit)
         self.committer: Optional[IntervalCommitter] = None
         self.lifecycle = None
         self.anomaly = None

@@ -331,8 +331,20 @@ def test_commit_incompatibility_and_refusals():
                             device="cpu")
     pw = TimeWheel(num_metrics=M, config=pcfg, tiers=TIERS,
                    registry=paged.registry, device="cpu")
-    with pytest.raises(ValueError, match="paged lifecycle slice"):
-        IntervalCommitter(paged, pw)
+    # paged storage joins the fused commit; only the drift engine, whose
+    # carries are dense [M, B] tensors, stays dense-only
+    assert commit_incompatibility(paged, pw) is None
+    com = IntervalCommitter(paged, pw)
+    assert com.paged is paged.paged
+    assert "paged_scatter" in com.kernel_names()
+    dense_wheel = TimeWheel(num_metrics=M, config=cfg, tiers=TIERS,
+                            registry=agg.registry, device="cpu")
+    assert "paged_scatter" not in IntervalCommitter(
+        agg, dense_wheel).kernel_names()
+    with pytest.raises(ValueError, match="drift engine requires the dense "
+                                         "accumulator"):
+        IntervalCommitter(paged, pw, anomaly=object())
+    paged.close()
 
 
 def test_snapshots_off_commits_without_publishing():

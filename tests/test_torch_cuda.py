@@ -6,8 +6,10 @@ scatter) and K4f (direct-to-paged fused ingest), K5 (the retention
 wheel's masked ring merge), K6 (the lifecycle's row repack, EQUAL) and
 K7 (drift scores, within the float32 tolerance of
 ``tests/test_torch_anomaly.py``), plus one paged interval
-through ``TorchAggregator``, a wheel, and a fused commit with lifecycle
-and drift on the card.
+through ``TorchAggregator``, a wheel, a fused commit with lifecycle
+and drift on the card, and on paged storage the fused commit with
+eviction and compaction against the same steps on the CPU, K4f after a
+fold and a permutation, and the rings-only repack (K6).
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -1010,3 +1012,154 @@ def test_group_by_on_the_card_equals_the_cpu_wheel(dev):
     card.query_group_by("rpc.lat{}", by=["code"], window=2.0)  # unpinned
     assert kernel_launches()["window_merge"] == before + 1
     assert card.query_fallbacks == 1
+
+
+# -- paged storage with lifecycle and the paged fused commit -----------------
+
+
+def _paged_lifecycle_stack(device, chunk=64):
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig, \
+        LifecycleManager
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=512)
+    agg = TorchAggregator(num_metrics=96, config=cfg, storage="paged",
+                          paged_config=PagedStoreConfig(pool_pages=1024),
+                          device=device)
+    wheel = TimeWheel(num_metrics=96, config=cfg, interval=1.0,
+                      tiers=((4, 1), (3, 2)), registry=agg.registry,
+                      device=device)
+    lc = LifecycleManager(agg, wheel, LifecycleConfig(
+        ttl_intervals=1, check_every=1, auto_compact_fragmentation=0.0))
+    return IntervalCommitter(agg, wheel, chunk=chunk, lifecycle=lc), agg, \
+        wheel, lc
+
+
+def _churn_intervals(n=8, seed=31):
+    import datetime as dt
+
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    rng = np.random.default_rng(seed)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    out = []
+    for i in range(n):
+        hists = {f"api.s{k}.lat": {int(b): int(c) for b, c in zip(
+            rng.integers(-40, 500, 30), rng.integers(1, 50, 30))}
+            for k in range(12)}
+        # the last three bring no fresh names, so the final snapshot
+        # outlives the last lifecycle tick (an eviction invalidates it)
+        for j in range(10 if i < n - 3 else 0):
+            hists[f"api.u{i}_{j}.lat"] = {int(rng.integers(0, 400)): 3}
+        out.append(RawMetricSet(t0 + dt.timedelta(seconds=i), {}, {}, hists,
+                                {}, 1.0))
+    return out
+
+
+def test_paged_fused_commit_on_the_card_equals_the_cpu(dev):
+    """The paged fused commit (K4 into the pool, one K3 into both tiers'
+    slots, K5 for the final chunk's views) with eviction and compaction
+    (K6 over each ring) on the card equals the same steps on the CPU:
+    pool, page table, free list, rings, activity vector and snapshot
+    CDFs bit for bit."""
+    card, cpu = _paged_lifecycle_stack(dev), _paged_lifecycle_stack("cpu")
+    before = kernel_launches()
+    chunks = 0
+    for i, raw in enumerate(_churn_intervals()):
+        for com, *_ in (card, cpu):
+            assert com.commit(raw) == "fused"
+        chunks += card[0].last_dispatches
+        if i % 4 == 1:
+            assert card[3].compact() == cpu[3].compact()
+    torch.cuda.synchronize()
+    after = {k: v - before[k] for k, v in kernel_launches().items()}
+    # K4: one launch a commit chunk, and one a pool fold of an eviction
+    assert after["sparse_ingest"] == chunks
+    assert after["paged_scatter"] == chunks + card[1].paged.commits > chunks
+    assert after["window_merge"] == 2 * 8
+    assert after["compact_rows"] == 2 * card[3].compactions
+    assert after["divergence"] == 0
+    (_, cagg, cwheel, clc), (_, pagg, pwheel, plc) = card, cpu
+    assert clc.evicted_series == plc.evicted_series > 0
+    assert torch.equal(cagg.paged._pool.cpu(), pagg.paged._pool)
+    np.testing.assert_array_equal(cagg.paged.page_table, pagg.paged.page_table)
+    assert cagg.paged.free_list() == pagg.paged.free_list()
+    for t, pt in zip(cwheel._tiers, pwheel._tiers):
+        assert torch.equal(t.ring.cpu(), pt.ring)
+    assert torch.equal(clc._la.cpu(), plc._la)
+    for tg, tw in zip(cwheel.snapshot.tiers, pwheel.snapshot.tiers):
+        for vg, vw in zip(tg.views, tw.views):
+            assert torch.equal(vg.cdf.cpu(), vw.cdf)
+            assert torch.equal(vg.counts.cpu(), vw.counts)
+            torch.testing.assert_close(vg.sums.cpu(), vw.sums, rtol=1e-6,
+                                       atol=1e-6)
+    for agg in (cagg, pagg):
+        agg.close()
+
+
+def test_fused_paged_ingest_after_fold_and_permutation_reads_fresh_luts(dev):
+    """The stale-mirror check: once K4f's device mirrors exist, an
+    eviction fold (pages released and re-mapped) and a compaction (the
+    page table's rows permuted) must reach them, or the next raw batch
+    scatters into pages that now belong to another row.  A K4f batch
+    after both equals the plain version run on mirrors built fresh from
+    the host tables."""
+    from loghisto_tpu_torch.ops.fused_ingest import (
+        fused_paged_ingest_batch,
+        fused_paged_ingest_reference,
+    )
+
+    m, bl = 256, 4096
+    store = PagedStore(m, bl, config=PagedStoreConfig(pool_pages=4096),
+                       device=dev)
+    ids, values = _batch(1 << 16, m, seed=41)
+    ids = np.abs(ids) % m
+    out, _ = store.prepare_batch(ids.astype(np.int32), values)
+    store.ingest_raw(torch.from_numpy(out).to(dev),
+                     torch.from_numpy(values).to(dev))
+    assert store._mirror is not None
+    store.fold_rows_into(list(range(0, 96)), target=200)
+    perm = [r for r in range(m) if store.row_codec[r] >= 0]
+    store.apply_permutation(perm + [-1] * (m - len(perm)), m)
+    ids2, values2 = _batch(1 << 16, len(perm), seed=42)
+    out2, _ = store.prepare_batch(np.abs(ids2).astype(np.int32) % len(perm),
+                                  values2)
+    ids_d = torch.from_numpy(out2).to(dev)
+    vals_d = torch.from_numpy(values2).to(dev)
+    fresh = (torch.from_numpy(store.row_codec.astype(np.int32)).to(dev),
+             torch.from_numpy(store._enc.astype(np.int32)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(store.page_table.T)).to(
+                 dev))
+    k = torch.zeros_like(store._pool)
+    p = torch.zeros_like(k)
+    fused_paged_ingest_batch(k, ids_d, vals_d, *store.device_luts(), bl)
+    fused_paged_ingest_reference(p, ids_d, vals_d, *fresh, bl)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert int(k.sum()) == int((out2 >= 0).sum())
+
+
+def test_compact_paged_kernel_equals_the_cpu(dev):
+    from loghisto_tpu_torch.ops.commit import DROP_ID
+    from loghisto_tpu_torch.ops.lifecycle import make_compact_fn
+
+    rng = np.random.default_rng(43)
+    rings = [rng.integers(0, 1 << 20, (s, 300, 129)).astype(np.int32)
+             for s in (5, 3)]
+    la = rng.integers(0, 9, 300).astype(np.int32)
+    perm = np.full(300, DROP_ID, dtype=np.int32)
+    perm[:170] = np.sort(rng.choice(300, 170, replace=False))
+    compact = make_compact_fn(2, with_acc=False)
+    before = kernel_launches()["compact_rows"]
+    got, got_la = compact([torch.from_numpy(r).to(dev) for r in rings],
+                          torch.from_numpy(la).to(dev), perm, 4)
+    want, want_la = compact([torch.from_numpy(r) for r in rings],
+                            torch.from_numpy(la), perm, 4)
+    torch.cuda.synchronize()
+    assert kernel_launches()["compact_rows"] == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_la.cpu(), want_la)

@@ -1,0 +1,85 @@
+"""The port's packages export the reference's package-level names
+(``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops`` and
+``loghisto_tpu.obs``): every name with a ported counterpart resolves on
+the matching package of ``loghisto_tpu_torch``, and the names still
+waiting for a slice are listed below with that slice."""
+
+import importlib
+
+import pytest
+
+import loghisto_tpu
+import loghisto_tpu.obs
+import loghisto_tpu.ops
+
+PACKAGES = ("", ".ops", ".obs")
+
+# reference name -> the port's counterpart where the names differ
+RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
+
+# names that wait, each with the ROADMAP Queue 1 slice that ports it
+WAITING = {
+    "": {
+        # the native fast-ingest tier
+        "FastCounter": "6b", "FastRecorder": "6b", "FastTimer": "6b",
+        "FastTimerToken": "6b",
+    },
+    ".ops": {
+        # the federation wire's frame codec
+        "encode_frame": "14", "decode_frame": "14", "iter_frames": "14",
+        "FrameError": "14", "FrameTruncated": "14",
+    },
+    ".obs": {
+        # the span ring, the watchdog and the trace export
+        "ObsConfig": "6c", "Span": "6c", "SpanRecorder": "6c",
+        "SelfObserver": "6c", "HealthReport": "6c", "HealthWatchdog": "6c",
+        "trace_events": "6c", "dump_perfetto": "6c",
+    },
+}
+
+
+@pytest.mark.parametrize("sub", PACKAGES)
+def test_every_ported_reference_name_resolves(sub):
+    ref = importlib.import_module("loghisto_tpu" + sub)
+    port = importlib.import_module("loghisto_tpu_torch" + sub)
+    waiting = WAITING[sub]
+    assert set(waiting) <= set(ref.__all__), "a waiting name left"
+    missing = []
+    for name in ref.__all__:
+        if name in waiting:
+            continue
+        ported = RENAMED.get(name, name)
+        if ported not in port.__all__ or getattr(port, ported, None) is None:
+            missing.append(name)
+    assert not missing, missing
+    for name in waiting:
+        assert not hasattr(port, name), f"{name} is ported: unlist it"
+
+
+def test_values_are_the_port_modules_own():
+    import loghisto_tpu_torch as lh
+    from loghisto_tpu_torch import channel, config, metrics, ops, obs
+    from loghisto_tpu_torch.obs import spans
+    from loghisto_tpu_torch.ops import codec, stats
+
+    assert lh.MetricSystem is metrics.MetricSystem
+    assert lh.Channel is channel.Channel
+    assert lh.DEFAULT_PERCENTILES is config.DEFAULT_PERCENTILES
+    assert lh.DEFAULT_PERCENTILES == loghisto_tpu.DEFAULT_PERCENTILES
+    assert ops.dense_stats is stats.dense_stats
+    assert ops.compress_np is codec.compress_np
+    assert obs.LatencyHistogram is spans.LatencyHistogram
+    assert obs.NULL_RECORDER is spans.NULL_RECORDER
+    with pytest.raises(AttributeError):
+        lh.no_such_name
+    with pytest.raises(AttributeError):
+        ops.no_such_name
+
+
+def test_package_default_system():
+    import loghisto_tpu_torch as lh
+    from loghisto_tpu_torch.metrics import MetricSystem
+
+    assert lh.Metrics is lh.Metrics
+    assert isinstance(lh.Metrics, MetricSystem)
+    assert lh.Metrics.interval == loghisto_tpu.Metrics.interval == 60.0

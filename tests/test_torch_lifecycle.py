@@ -541,15 +541,19 @@ def test_threaded_churn_register_evict_query():
 
 
 def test_paged_aggregator_raises_naming_the_slice():
+    """The paged lifecycle slice is ported: a paged aggregator takes a
+    LifecycleManager (its steps are the rings-only fold and repack), and
+    only a missing wheel still raises."""
     cfg = MetricConfig(bucket_limit=512)
     agg = TorchAggregator(num_metrics=M, config=cfg, storage="paged",
                           device="cpu")
     wheel = TimeWheel(num_metrics=M, config=cfg, tiers=TIERS,
                       registry=agg.registry, device="cpu")
-    with pytest.raises(ValueError, match="paged lifecycle slice"):
-        LifecycleManager(agg, wheel, LifecycleConfig())
+    lc = LifecycleManager(agg, wheel, LifecycleConfig())
+    assert lc._paged
     with pytest.raises(ValueError, match="retention wheel"):
         LifecycleManager(agg, None, LifecycleConfig())
+    agg.close()
 
 
 def test_system_wiring_gauges_and_requirements():

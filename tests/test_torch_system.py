@@ -265,27 +265,29 @@ def test_register_device_gauges():
 
 
 def test_commit_path_resolves_to_fanout():
-    """"auto" is the fused committer on dense storage and the fan-out on
-    paged storage (D5); "fanout" always resolves, "fused" raises on
-    paged storage naming the paged lifecycle slice."""
+    """"auto" is the fused committer on dense and on paged storage (the
+    paged lifecycle slice lifted ROADMAP D5); "fanout" and "fused"
+    resolve as asked, and only the fan-out goes without a committer."""
     assert resolve_commit_path("auto") == "fused"
-    assert resolve_commit_path("auto", paged=True) == "fanout"
     assert resolve_commit_path("fanout") == "fanout"
-    assert resolve_commit_path("fanout", paged=True) == "fanout"
     assert resolve_commit_path("fused") == "fused"
-    with pytest.raises(ValueError, match="paged lifecycle slice"):
-        resolve_commit_path("fused", paged=True)
     with pytest.raises(ValueError, match="unknown commit path"):
         resolve_commit_path("eager")
-    with pytest.raises(ValueError, match="paged lifecycle slice"):
-        TorchMetricSystem(device="cpu", commit="fused", storage="paged",
-                          config=MetricConfig(bucket_limit=512),
-                          num_metrics=M, retention=TIERS, sys_stats=False)
-    paged = TorchMetricSystem(device="cpu", storage="paged", num_metrics=M,
-                              config=MetricConfig(bucket_limit=512),
-                              retention=TIERS, sys_stats=False)
-    assert paged.commit_path == "fanout" and paged.committer is None
-    paged.stop()
+    for commit in ("auto", "fused"):
+        paged = TorchMetricSystem(device="cpu", commit=commit,
+                                  storage="paged", num_metrics=M,
+                                  config=MetricConfig(bucket_limit=512),
+                                  retention=TIERS, sys_stats=False)
+        assert paged.aggregator.storage == "paged"
+        assert paged.commit_path == "fused" and paged.committer is not None
+        assert paged.committer.paged is paged.aggregator.paged
+        assert paged.aggregator._attached is None
+        paged.stop()
+    fan = TorchMetricSystem(device="cpu", commit="fanout", storage="paged",
+                            num_metrics=M, retention=TIERS, sys_stats=False,
+                            config=MetricConfig(bucket_limit=512))
+    assert fan.commit_path == "fanout" and fan.committer is None
+    fan.stop()
     # without retention the aggregator is the only consumer
     bare = TorchMetricSystem(device="cpu", commit="fused", num_metrics=4,
                              sys_stats=False)
