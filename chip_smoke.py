@@ -33,6 +33,11 @@ against host oracles:
     each path the dispatch table admits there — K1, K2b, K8 (phase
     ``k8_multirow_ingest``) and the JAX package's XLA paths in PyTorch —
     2 intervals of 2^22 Zipf(1.3) samples each against the host oracle;
+  * checkpoints and journals (``checkpoint_journal_main_path``): a
+    dense restart at 10,000 rows into a dense target (remap by name) and
+    a paged one (K4), a paged restart at 2^16 rows after the churn
+    stream, and a journal and watermark restart of the retention system
+    with lifecycle and drift (replays through the fused commit);
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -64,6 +69,7 @@ import dataclasses
 import datetime as _dt
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2653,6 +2659,26 @@ def _pl_same(got, want, what):
         raise AssertionError(f"{what}: cells differ from the oracle")
 
 
+def _drop_system(torch, ms):
+    """Stop a TorchMetricSystem and free its device state by hand (the
+    timers' wrappers can hold it in reference cycles)."""
+    ms.stop()
+    wheel, agg = ms.retention, ms.aggregator
+    for t in wheel._tiers:
+        t.ring = None
+    if agg.paged is not None:
+        agg.paged._pool = None
+    agg._acc = agg.stats_snapshot = None
+    if ms.lifecycle is not None:
+        ms.lifecycle._la = None
+    if ms.anomaly is not None:
+        ms.anomaly._prof = ms.anomaly._wsum = None
+    wheel.invalidate_snapshot_locked()
+    gc.collect()
+    if agg.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _pl_run(torch, dev, storage, m, pool, steady, fresh, samples,
             intervals, k4f_after):
     """One run of the churn stream through TorchMetricSystem(storage=...,
@@ -2934,19 +2960,11 @@ def _pl_run(torch, dev, storage, m, pool, steady, fresh, samples,
                         for t in wheel._tiers],
             "window": res.metrics,
             "la": lc._la.cpu().numpy()}
-    ms.stop()
     # the timers' wrappers tie the system into reference cycles: drop
     # the device state by hand, so the twin finds the card empty
-    for t in wheel._tiers:
-        t.ring = None
-    if paged is not None:
-        paged._pool = None
-    agg._acc = lc._la = agg.stats_snapshot = None
-    wheel.invalidate_snapshot_locked()
+    _drop_system(torch, ms)
     del ms, agg, wheel, com, lc, paged, res
     gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
     return out, twin
 
 
@@ -3052,6 +3070,660 @@ def phase_paged_lifecycle(torch):
     out["samples_per_interval"] = PL_SAMPLES
     out["fresh_per_interval"] = PL_FRESH
     return out
+
+
+# -- checkpoints and journals -----------------------------------------------
+
+CJ_OTHER = 1000          # (a) names the dense target registers first
+CJ_BATCHES = 4           # (a) 2^20-sample batches before the save
+CJ_PAGED_POOL = 1 << 19  # (a) the paged target: 10,000 rows of dense pages
+CJ_INTERVALS = 8         # (b) the paged lifecycle churn stream, cut from 24
+CJ_LIVE = 16             # (c) live intervals under the journal
+CJ_WATERMARK = 8         # (c) the checkpoint's seq watermark
+CJ_COLLECT_AT = 4        # (c) the live interval report before it
+CJ_FRESH_SAMPLES = 8     # (c) samples of each fresh name
+
+
+def _peak_rss_gb():
+    """The process's peak resident host memory so far (GB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _paged_named(agg, acc):
+    """What a paged aggregator's ``collect()`` reports for the cells of a
+    dense [m, B] host array of its first m rows (its host statistics,
+    named as collect names them), without the lifetime keys."""
+    from loghisto_tpu_torch.ops.stats import sparse_cells_stats
+
+    labels = [lb for lb, p in agg.percentiles.items() if 0.0 <= p <= 1.0]
+    ps = [p for p in agg.percentiles.values() if 0.0 <= p <= 1.0]
+    rows, cols = np.nonzero(acc)
+    st = sparse_cells_stats(rows, cols, acc[rows, cols].astype(np.int64),
+                            acc.shape[0], np.asarray(ps),
+                            agg.config.bucket_limit, agg.config.precision)
+    names = agg.registry.names()
+    out = {}
+    for mid in np.nonzero(st["counts"])[0].tolist():
+        name, count = names[mid], int(st["counts"][mid])
+        total = float(st["sums"][mid])
+        out[f"{name}_count"] = float(count)
+        out[f"{name}_sum"] = total
+        out[f"{name}_avg"] = total / count
+        for label, v in zip(labels, st["percentiles"][mid].tolist()):
+            out[label % name] = v
+    return out
+
+
+def _cj_same_collect(got, want, what):
+    """Two collect() outputs EQUAL, key for key.  The float32 row sums
+    (``acc.float() @ reps``) follow the accumulator's shape on a CPU; on
+    the card they came out bit-equal for rows at other ids of a larger
+    accumulator, and are held to that."""
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise AssertionError(f"{what}: collect() differs in {len(bad)} "
+                             f"keys, e.g. {bad[:3]}")
+    return len(want)
+
+
+def _cj_compare_paged(got, src_out, want_named):
+    """A paged target's collect() against the dense source's: the
+    statistics keys equal the paged statistics of the source's cells
+    exactly, the lifetime counts equal the source's, the lifetime sums
+    within rtol 1e-6 (float32 device sums in the source, float64 host
+    sums in the paged target)."""
+    stat_keys = {k for k in got if "_agg_" not in k}
+    if stat_keys != set(want_named):
+        raise AssertionError("paged target: statistics keys differ")
+    bad = [k for k in stat_keys if got[k] != want_named[k]]
+    if bad:
+        raise AssertionError(f"paged target: {len(bad)} values differ "
+                             f"from the source cells' statistics")
+    agg_keys = {k for k in src_out if "_agg_" in k}
+    if agg_keys != {k for k in got if "_agg_" in k}:
+        raise AssertionError("paged target: lifetime keys differ")
+    for k in agg_keys:
+        if k.endswith("_agg_count"):
+            if got[k] != src_out[k]:
+                raise AssertionError(f"paged target: {k}")
+        elif abs(got[k] - src_out[k]) > 1e-6 * abs(src_out[k]) + 1e-9:
+            raise AssertionError(f"paged target: {k} past rtol 1e-6")
+    return len(stat_keys)
+
+
+def _cj_dense_restart(torch, tmp):
+    """(a) The README headline: M = 10,000 x 8193 on dense storage, four
+    2^20 Zipf(1.3) lognormal batches through record_batch (K1), saved,
+    then restored into a dense aggregator holding 1,000 other names
+    (remap by name, growth) and a paged aggregator of 2^16 rows
+    (translate + K4); their collect() against the source's, then once
+    more after one more batch into each (K1, K1, K4f)."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    cfg = MetricConfig(bucket_limit=BL)
+    names = [f"svc.{k}.latency" for k in range(M)]
+    rng = np.random.default_rng((SEED, 70))
+    k0 = kernel_launches()
+    src = TorchAggregator(num_metrics=M, config=cfg, batch_size=BATCH)
+    for name in names:
+        src.registry.id_for(name)
+    for _ in range(CJ_BATCHES):
+        src.record_batch(zipf_ids(rng, BATCH, M), lognormal_values(rng, BATCH))
+    src.flush(force=True)
+    torch.cuda.synchronize()
+    path = f"{tmp}/dense.npz"
+    t1 = time.perf_counter()
+    checkpoint.save(path, aggregator=src)
+    save_s = time.perf_counter() - t1
+
+    dense = TorchAggregator(num_metrics=M, config=cfg, batch_size=BATCH)
+    for k in range(CJ_OTHER):
+        dense.registry.id_for(f"other.{k}")
+    paged = TorchAggregator(num_metrics=PL_M, config=cfg, batch_size=BATCH,
+                            storage="paged", paged_config=PagedStoreConfig(
+                                pool_pages=CJ_PAGED_POOL, codec="dense"))
+    if paged.storage != "paged" or not paged.fused_paged:
+        raise AssertionError("the paged target is not on the K4f route")
+    restore_s = {}
+    for key, agg in (("dense", dense), ("paged", paged)):
+        k4 = kernel_launches()["paged_scatter"]
+        t1 = time.perf_counter()
+        if checkpoint.restore(path, aggregator=agg) is not None:
+            raise AssertionError("an unstamped save restored a watermark")
+        torch.cuda.synchronize()
+        restore_s[key] = time.perf_counter() - t1
+        k4 = kernel_launches()["paged_scatter"] - k4
+        if k4 != (1 if key == "paged" else 0):
+            raise AssertionError(f"{key} restore took {k4} K4 launches")
+    if dense.num_metrics <= M or dense.registry.lookup(names[0]) != CJ_OTHER:
+        raise AssertionError("the dense restore did not remap by name")
+    if paged.registry.names()[:M] != names:
+        raise AssertionError("the paged target's rows are not the source's")
+
+    checks = []
+    for rnd in range(2):
+        if rnd:  # one more batch into the source and both targets
+            ids = zipf_ids(rng, BATCH, M)
+            values = lognormal_values(rng, BATCH)
+            remap = np.array([dense.registry.lookup(n) for n in names],
+                             np.int32)
+            for agg, batch_ids in ((src, ids), (dense, remap[ids]),
+                                   (paged, ids)):
+                agg.record_batch(batch_ids, values)
+                agg.flush(force=True)
+            torch.cuda.synchronize()
+        src_acc = src._acc.cpu().numpy()
+        rows = torch.as_tensor([dense.registry.lookup(n) for n in names],
+                               device=dense._acc.device)
+        if not torch.equal(dense._acc.index_select(0, rows), src._acc):
+            raise AssertionError(f"round {rnd}: dense target rows differ")
+        got_cells = _pl_pool_cells(paged.paged, paged.paged._pool)
+        r_, c_ = np.nonzero(src_acc)
+        want_cells = (r_.astype(np.int64) * B + c_,
+                      src_acc[r_, c_].astype(np.int64))
+        _pl_same(got_cells, want_cells, f"round {rnd}: the paged pool")
+        want_named = _paged_named(paged, src_acc)
+        src_out = src.collect().metrics
+        dense_out = dense.collect().metrics
+        paged_out = paged.collect().metrics
+        _cj_same_collect(dense_out, src_out, f"round {rnd}: the dense "
+                         "target")
+        checks.append({"keys": len(src_out), "cells": len(want_cells[0]),
+                       "paged_stat_keys": _cj_compare_paged(
+                           paged_out, src_out, want_named)})
+    launches = {k: v - k0[k] for k, v in kernel_launches().items()}
+    # the source took CJ_BATCHES + 1 batches, the dense target 1
+    if launches["fused_ingest"] != CJ_BATCHES + 2:
+        raise AssertionError(f"K1 took {launches['fused_ingest']} launches")
+    if launches["fused_paged_ingest"] < 1:
+        raise AssertionError("the paged target's batch took no K4f launch")
+    out = {"m": M, "batches": CJ_BATCHES, "other_names": CJ_OTHER,
+           "file_bytes": os.path.getsize(path), "save_s": save_s,
+           "restore_s": restore_s, "dense_rows_after": dense.num_metrics,
+           "paged_pool_pages": CJ_PAGED_POOL, "checks": checks,
+           "launches": {k: v for k, v in launches.items() if v}}
+    for agg in (src, dense, paged):
+        agg.close()
+    del src, dense, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cj_system(torch, storage, m=PL_M):
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+
+    return TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=m, retention=PL_TIERS,
+        config=MetricConfig(bucket_limit=BL),
+        storage=storage, paged_config=PagedStoreConfig(pool_pages=PL_POOL,
+                                                       codec="auto"),
+        lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+                                  auto_compact_fragmentation=0.0))
+
+
+def _cj_paged_restart(torch, tmp):
+    """(b) The paged lifecycle phase's churn stream at 2^16 paged rows
+    (codec "auto", churn lifecycle) for CJ_INTERVALS intervals, saved
+    with its lifecycle and watermark, restored into a fresh paged system
+    and into a dense aggregator of 2^16 rows; the decoded cells, codecs,
+    activity, counters and generation against the source's by name, and
+    a K4f batch after the restore."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.ops import paged_store as ps_mod
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng((SEED, 61))
+    mu = rng.uniform(2.0, 6.0, PL_STEADY)
+    sigma = rng.uniform(0.3, 1.0, PL_STEADY)
+    t0 = _dt.datetime(2026, 10, 17, tzinfo=_dt.timezone.utc)
+    k0 = kernel_launches()
+    src = _cj_system(torch, "auto")
+    agg, lc = src.aggregator, src.lifecycle
+    if agg.paged is None:
+        raise AssertionError(f"storage resolved to {agg.storage}")
+    steady = [f"api.s{i}.lat" for i in range(PL_STEADY)]
+    for name in steady:
+        src.metric_id(name)
+    t1 = time.perf_counter()
+    for k in range(CJ_INTERVALS):
+        raw = _pl_stream(k, mu, sigma, PL_STEADY, PL_FRESH, PL_SAMPLES,
+                         t0)[0]
+        src.backfill_retention([raw])
+        if (k + 1) % PL_COMPACT_EVERY == 0:
+            lc.compact()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t1
+    run_launches = {k: v - k0[k] for k, v in kernel_launches().items()}
+
+    split = collections.defaultdict(list)
+    kept = {}
+    decode = agg.paged.decode_dense
+
+    def decode_kept(*a, **k):
+        kept["acc"] = synced(torch, split, "decode", decode)(*a, **k)
+        return kept["acc"]
+    agg.paged.decode_dense = decode_kept
+    path = f"{tmp}/paged.npz"
+    t1 = time.perf_counter()
+    checkpoint.save(path, aggregator=agg, lifecycle=lc,
+                    seq_watermark=CJ_INTERVALS)
+    save_s = time.perf_counter() - t1
+    rss_save = _peak_rss_gb()
+    want = kept.pop("acc")
+    src_names = agg.registry.names()
+    src_codecs = agg.paged.codec_names()
+    src_la = lc._la.cpu().numpy()
+    src_gen = agg.registry.generation
+    src_counters = (lc.evicted_series, lc.overflowed_samples, lc.evictions,
+                    lc.compactions)
+    if lc.evicted_series <= 0:
+        raise AssertionError("the churn stream evicted nothing")
+    _drop_system(torch, src)
+    del src, agg, lc
+
+    # -- restore into a fresh paged system --------------------------------
+    saved_ids = [i for i, n in enumerate(src_names) if n is not None]
+    tgt = _cj_system(torch, "auto")
+    tagg, tlc = tgt.aggregator, tgt.lifecycle
+    pg = tagg.paged
+    rsplit = collections.defaultdict(list)
+    remap_fn = checkpoint._remap_rows
+    delta_fn = checkpoint._restore_paged_delta
+    scatter_fn = ps_mod.paged_scatter
+    checkpoint._remap_rows = synced(torch, rsplit, "remap", remap_fn)
+    checkpoint._restore_paged_delta = synced(torch, rsplit, "delta",
+                                             delta_fn)
+    pg.translate = synced(torch, rsplit, "translate", pg.translate)
+    ps_mod.paged_scatter = synced(torch, rsplit, "k4", scatter_fn)
+    k4 = kernel_launches()["paged_scatter"]
+    try:
+        t1 = time.perf_counter()
+        wm = checkpoint.restore(path, aggregator=tagg, lifecycle=tlc)
+        torch.cuda.synchronize()
+        rtotal = time.perf_counter() - t1
+    finally:
+        checkpoint._remap_rows = remap_fn
+        checkpoint._restore_paged_delta = delta_fn
+        ps_mod.paged_scatter = scatter_fn
+        del pg.translate
+    k4 = kernel_launches()["paged_scatter"] - k4
+    if wm != CJ_INTERVALS or k4 != 1:
+        raise AssertionError(f"watermark {wm}, {k4} K4 launches")
+    treg = tagg.registry
+    tids = [treg.lookup(src_names[i]) for i in saved_ids]
+    if None in tids:
+        raise AssertionError("a saved name is missing from the target")
+    got = pg.decode_dense()
+    if not np.array_equal(got[tids], want[saved_ids]):
+        raise AssertionError("paged target: decoded cells differ")
+    if got.sum() != want.sum():
+        raise AssertionError("paged target: cells outside the saved rows")
+    del got
+    tcodecs = pg.codec_names()
+    if [tcodecs[t] for t in tids] != [src_codecs[i] for i in saved_ids]:
+        raise AssertionError("paged target: codec choices differ")
+    if not np.array_equal(tlc._la.cpu().numpy()[tids], src_la[saved_ids]):
+        raise AssertionError("paged target: activity not remapped by name")
+    if (tlc.evicted_series, tlc.overflowed_samples, tlc.evictions,
+            tlc.compactions) != src_counters:
+        raise AssertionError("paged target: churn counters differ")
+    if treg.generation < src_gen:
+        raise AssertionError("paged target: registry generation went back")
+    mirror_before = pg._mirror is None
+    brng = np.random.default_rng((SEED, 71))
+    pick = brng.integers(0, PL_STEADY, PL_SAMPLES)
+    values = brng.lognormal(mu[pick], sigma[pick]).astype(np.float32)
+    ids = np.array([treg.lookup(n) for n in steady], np.int32)[pick]
+    before = pg._pool.clone()
+    k4f = kernel_launches()["fused_paged_ingest"]
+    tagg.record_batch(ids, values)
+    tagg.flush(force=True)
+    torch.cuda.synchronize()
+    k4f = kernel_launches()["fused_paged_ingest"] - k4f
+    dense_idx = np.clip(compress_np(values), -BL, BL).astype(np.int64) + BL
+    _pl_same(_pl_pool_cells(pg, pg._pool - before),
+             _pl_encoded(pg, ids.astype(np.int64), dense_idx,
+                         np.ones(len(ids), np.int64)),
+             "K4f batch after the restore")
+    del before
+    if not mirror_before or pg._mirror is None or k4f < 1:
+        raise AssertionError("the K4f batch did not rebuild the mirror")
+    _drop_system(torch, tgt)
+    del tgt, tagg, tlc, pg
+
+    # -- restore into a dense aggregator of 2^16 rows ----------------------
+    dense = TorchAggregator(num_metrics=PL_M, config=MetricConfig(
+        bucket_limit=BL), storage="dense", batch_size=BATCH)
+    dsplit = collections.defaultdict(list)
+    dense_fn = checkpoint._restore_dense_delta
+    checkpoint._remap_rows = synced(torch, dsplit, "remap", remap_fn)
+    checkpoint._restore_dense_delta = synced(torch, dsplit, "merge",
+                                             dense_fn)
+    try:
+        t1 = time.perf_counter()
+        checkpoint.restore(path, aggregator=dense)
+        torch.cuda.synchronize()
+        dtotal = time.perf_counter() - t1
+    finally:
+        checkpoint._remap_rows = remap_fn
+        checkpoint._restore_dense_delta = dense_fn
+    if dense._spill is not None:
+        raise AssertionError("the dense restore took the host spill")
+    dids = [dense.registry.lookup(src_names[i]) for i in saved_ids]
+    dacc = dense._acc.cpu().numpy()
+    if not np.array_equal(dacc[dids], want[saved_ids]) or \
+            dacc.sum(dtype=np.int64) != want.sum():
+        raise AssertionError("dense target: cells differ")
+    del dacc, want
+    dense.close()
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: v - k0[k] for k, v in kernel_launches().items()}
+    def sec(d, key):
+        return sum(d[key]) / 1e3
+
+    return {
+        "rows": PL_M, "intervals": CJ_INTERVALS, "stream_s": stream_s,
+        "evicted_series": src_counters[0], "compactions": src_counters[3],
+        "saved_rows": len(saved_ids), "file_bytes": os.path.getsize(path),
+        "peak_rss_gb_after_save": rss_save, "peak_rss_gb": _peak_rss_gb(),
+        "save_s": {"total": save_s, "decode": sec(split, "decode"),
+                   "compress_write": save_s - sec(split, "decode")},
+        "restore_paged_s": {
+            "total": rtotal, "remap": sec(rsplit, "remap"),
+            "translate": sec(rsplit, "translate"), "k4": sec(rsplit, "k4"),
+            "cells_and_codecs": sec(rsplit, "delta")
+            - sec(rsplit, "translate") - sec(rsplit, "k4"),
+            "load": rtotal - sec(rsplit, "remap") - sec(rsplit, "delta")},
+        "restore_dense_s": {
+            "total": dtotal, "remap": sec(dsplit, "remap"),
+            "merge": sec(dsplit, "merge"),
+            "load": dtotal - sec(dsplit, "remap") - sec(dsplit, "merge")},
+        "k4f_after_restore": {"launches": k4f, "mirror_rebuilt": True},
+        "stream_launches": {k: v for k, v in run_launches.items() if v},
+        "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _cj_retention_system(torch):
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.anomaly import AnomalyConfig, hourly_bank
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=RET_M, retention=True,
+        config=MetricConfig(bucket_limit=BL), commit="auto",
+        lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+                                  auto_compact_fragmentation=0.1,
+                                  min_compact_rows=64),
+        anomaly=AnomalyConfig(banks=LD_BANKS, bank_of=hourly_bank,
+                              decay=0.97, min_samples=64, window=6.0))
+    if ms.commit_path != "fused":
+        raise AssertionError(f"commit path {ms.commit_path}")
+    evicted = []
+    evict = ms.lifecycle.evict_ids
+
+    def evict_logged(ids):
+        names = evict(ids)
+        evicted.append((ms.retention.intervals_pushed, list(names)))
+        return names
+    ms.lifecycle.evict_ids = evict_logged
+    return ms, evicted
+
+
+def _cj_record(ms, rng, k, names, mu, sigma):
+    """Interval k of the journaled stream into the host system: 2^20
+    lognormal samples over the steady names and CJ_FRESH_SAMPLES each for
+    LD_FRESH new api.u<uid>.lat names, one ``histogram_batch`` a name."""
+    n = RET_SAMPLES - LD_FRESH * CJ_FRESH_SAMPLES
+    ids = rng.integers(0, len(names), n)
+    values = rng.lognormal(mu[ids], sigma[ids])
+    order = np.argsort(ids, kind="stable")
+    bounds = np.searchsorted(ids[order], np.arange(len(names) + 1))
+    for i, name in enumerate(names):
+        ms.histogram_batch(name, values[order[bounds[i]:bounds[i + 1]]])
+    for u in range(LD_FRESH):
+        ms.histogram_batch(f"api.u{k * LD_FRESH + u}.lat",
+                           rng.lognormal(3.0, 0.5, CJ_FRESH_SAMPLES))
+
+
+def _cj_same_system(torch, got, want):
+    """Restart 1 against the live system: registry, accumulator,
+    activity, every ring and slot, the wheel's host state EQUAL; drift
+    banks within rtol 1e-6 (tests/test_torch_anomaly.py)."""
+    ga, wa = got.aggregator, want.aggregator
+    if ga.registry.names() != wa.registry.names():
+        raise AssertionError("restart 1: registries differ")
+    if not torch.equal(ga._acc, wa._acc):
+        raise AssertionError("restart 1: accumulators differ")
+    if not torch.equal(got.lifecycle._la, want.lifecycle._la):
+        raise AssertionError("restart 1: activity vectors differ")
+    for i, (gt, wt) in enumerate(zip(got.retention._tiers,
+                                     want.retention._tiers)):
+        if not torch.equal(gt.ring, wt.ring):
+            raise AssertionError(f"restart 1: tier {i} ring differs")
+        if (gt.slot, gt.in_slot) != (wt.slot, wt.in_slot) or not \
+                np.array_equal(gt.durations, wt.durations):
+            raise AssertionError(f"restart 1: tier {i} slot state differs")
+    ga_n, wa_n = got.anomaly, want.anomaly
+    torch.testing.assert_close(ga_n._prof, wa_n._prof, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ga_n._wsum, wa_n._wsum, rtol=1e-6, atol=0)
+    return {"banks_bit_equal": bool(torch.equal(ga_n._prof, wa_n._prof)
+                                    and torch.equal(ga_n._wsum, wa_n._wsum)),
+            "rings_bytes": sum(t.ring.numel() * 4
+                               for t in want.retention._tiers)}
+
+
+def _cj_compare_restart2(live_out, r2_out, held, overflow_prefix):
+    """Restart 2's collect() against the live one.  The lifecycle clock
+    is the wheel's interval count, which a restore does not carry (as in
+    the reference): names alive at the checkpoint outlive their TTL in
+    the restarted system, so the live system folds into its overflow row
+    names that restart 2 still ``held``.  Every other key is EQUAL; the
+    held names' counts plus restart 2's overflow counts equal the live
+    overflow counts exactly."""
+    def owner(key, names):
+        return next((n for n in names if key.startswith(n + "_")), None)
+
+    def rest(out):
+        return {k: v for k, v in out.items()
+                if not k.startswith(overflow_prefix) and not owner(k, held)}
+
+    _cj_same_collect(rest(r2_out), rest(live_out), "restart 2")
+    for suffix in ("_count", "_agg_count"):
+        held_total = sum(r2_out[f"{n}{suffix}"] for n in held)
+        if live_out[overflow_prefix + suffix] != \
+                r2_out.get(overflow_prefix + suffix, 0.0) + held_total:
+            raise AssertionError(f"restart 2: overflow{suffix} does not "
+                                 "account for the held names")
+    total = [sum(v for k, v in out.items() if k.endswith("_count")
+                 and not k.endswith("_agg_count"))
+             for out in (live_out, r2_out)]
+    if total[0] != total[1]:
+        raise AssertionError("restart 2: interval counts not conserved")
+    return {"keys": len(live_out), "held_names": len(held),
+            "interval_samples": total[0]}
+
+
+def _cj_journal_restart(torch, tmp):
+    """(c) The retention system with the fused commit, churn lifecycle
+    and 24 drift banks: CJ_LIVE live intervals through the reaper's tick
+    with a RawJournal attached, an interval report after interval
+    CJ_COLLECT_AT and a checkpoint stamped CJ_WATERMARK between two
+    commits; restart 1 replays the whole journal into a fresh system
+    (rings, accumulator, activity EQUAL, banks within tolerance), restart
+    2 restores the checkpoint into another and replays the lines past
+    the watermark (collect() EQUAL but for the names the restarted
+    lifecycle clock keeps, which are accounted exactly)."""
+    import itertools
+    import queue
+
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.utils import checkpoint, journal
+
+    rng = np.random.default_rng((SEED, 72))
+    steady = [f"svc.{k}.latency" for k in range(LD_STEADY)]
+    mu = rng.uniform(2.0, 6.0, LD_STEADY)
+    sigma = rng.uniform(0.3, 1.0, LD_STEADY)
+    jpath, cpath = f"{tmp}/raw.jsonl", f"{tmp}/ret.npz"
+    live, live_evicted = _cj_retention_system(torch)
+    com = live.committer
+    jr = journal.RawJournal(live, jpath)
+    jr.start()
+    tick_q = queue.Queue()  # the processed half is never drained here
+    saved_names = None
+    t1 = time.perf_counter()
+    for k in range(1, CJ_LIVE + 1):
+        _cj_record(live, rng, k, steady, mu, sigma)
+        live._tick(tick_q)
+        deadline = time.monotonic() + 60.0
+        while com.intervals_committed < k:
+            if com.bridge_error is not None:
+                raise RuntimeError("the live commit failed") from \
+                    com.bridge_error
+            if time.monotonic() > deadline:
+                raise AssertionError(f"interval {k} was not committed")
+            time.sleep(0.002)
+        if k == CJ_COLLECT_AT:
+            live.aggregator.collect()
+        if k == CJ_WATERMARK:
+            t2 = time.perf_counter()
+            checkpoint.save(cpath, aggregator=live.aggregator,
+                            lifecycle=live.lifecycle, anomaly=live.anomaly,
+                            seq_watermark=CJ_WATERMARK)
+            save_s = time.perf_counter() - t2
+            saved_names = set(n for n in live.aggregator.registry.names()
+                              if n is not None)
+    live_s = time.perf_counter() - t1
+    jr.stop()
+    if com.fused_intervals != CJ_LIVE:
+        raise AssertionError(f"{com.fused_intervals} fused live intervals")
+    lines = list(journal.replay(jpath))
+    if [r.seq for r in lines] != list(range(1, CJ_LIVE + 1)) or any(
+            r.duration != 1.0 for r in lines):
+        raise AssertionError("the journal's seqs or durations differ")
+    del lines
+
+    # restart 1: the whole journal from empty
+    r1, _ = _cj_retention_system(torch)
+    torch.cuda.synchronize()
+    k0 = kernel_launches()
+    t1 = time.perf_counter()
+    replayed = journal.replay(jpath)
+    n1 = r1.backfill_retention(itertools.islice(replayed, CJ_COLLECT_AT))
+    r1.aggregator.collect()
+    n1 += r1.backfill_retention(replayed)
+    torch.cuda.synchronize()
+    r1_s = time.perf_counter() - t1
+    r1_launches = {k: v - k0[k] for k, v in kernel_launches().items()}
+    if n1 != CJ_LIVE:
+        raise AssertionError(f"restart 1 replayed {n1} intervals")
+    for kernel in ("sparse_ingest", "window_merge", "compact_rows",
+                   "divergence"):
+        if r1_launches[kernel] <= 0:
+            raise AssertionError(f"the replay launched no {kernel}")
+    same = _cj_same_system(torch, r1, live)
+
+    # restart 2: the checkpoint, then the lines past its watermark
+    r2, r2_evicted = _cj_retention_system(torch)
+    t1 = time.perf_counter()
+    wm = checkpoint.restore(cpath, aggregator=r2.aggregator,
+                            lifecycle=r2.lifecycle, anomaly=r2.anomaly)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    if wm != CJ_WATERMARK:
+        raise AssertionError(f"watermark {wm}")
+    t1 = time.perf_counter()
+    n2 = r2.backfill_retention(r for r in journal.replay(jpath)
+                               if r.seq > wm)
+    torch.cuda.synchronize()
+    r2_s = time.perf_counter() - t1
+
+    live_out = live.aggregator.collect().metrics
+    if r1.aggregator.collect().metrics != live_out:
+        raise AssertionError("restart 1: collect() differs")
+    r2_out = r2.aggregator.collect().metrics
+    live_after = {n for e, names in live_evicted if e > wm for n in names}
+    r2_gone = {n for _, names in r2_evicted for n in names}
+    held = sorted(live_after - r2_gone)
+    if not set(held) <= saved_names:
+        raise AssertionError("restart 2 holds names the checkpoint lacks")
+    if r2_gone - live_after:
+        raise AssertionError("restart 2 evicted names the live run kept")
+    cmp2 = _cj_compare_restart2(live_out, r2_out, held, "_overflow.api")
+    journal_bytes = os.path.getsize(jpath)
+    for ms in (live, r1, r2):
+        _drop_system(torch, ms)
+    del live, r1, r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "metrics": RET_M, "tiers": [list(t) for t in RET_TIERS],
+        "samples_per_interval": RET_SAMPLES, "live_intervals": CJ_LIVE,
+        "watermark": CJ_WATERMARK, "live_s": live_s, "save_s": save_s,
+        "checkpoint_bytes": os.path.getsize(cpath),
+        "journal_bytes_per_interval": journal_bytes / CJ_LIVE,
+        "restart1": {"intervals": n1, "s": r1_s,
+                     "intervals_per_s": n1 / r1_s, **same,
+                     "launches": {k: v for k, v in r1_launches.items()
+                                  if v}},
+        "restart2": {"restore_s": restore_s, "intervals": n2, "s": r2_s,
+                     "intervals_per_s": n2 / r2_s, **cmp2,
+                     "evicted_live_after_watermark": len(live_after)}}
+
+
+def phase_checkpoint_journal(torch):
+    """Checkpoints and journals on the card: (a) a dense restart at the
+    README headline into a dense and a paged target, (b) a paged restart
+    at 2^16 rows after the paged lifecycle churn stream into a paged
+    system and a dense aggregator, (c) a journal and watermark restart
+    of the retention system with the fused commit, lifecycle and drift.
+    Each part prints its own line; the phase line carries every launch."""
+    import shutil
+    import tempfile
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="loghisto-cj-")
+    reset_kernel_launches()
+    parts = {}
+    try:
+        for key, fn in (("a_dense_restart", _cj_dense_restart),
+                        ("b_paged_restart", _cj_paged_restart),
+                        ("c_journal_restart", _cj_journal_restart)):
+            t1 = time.perf_counter()
+            out = fn(torch, tmp)
+            out["part_s"] = time.perf_counter() - t1
+            emit({"part": key, **out})
+            parts[key] = out["part_s"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernel_launches()
+    for kernel in ("fused_ingest", "sparse_ingest", "paged_scatter",
+                   "fused_paged_ingest", "window_merge", "compact_rows",
+                   "divergence"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"the phase launched no {kernel}")
+    return {"parts_s": parts, "peak_rss_gb": _peak_rss_gb(),
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 # -- labels and group-by ----------------------------------------------------
@@ -3903,6 +4575,8 @@ def main() -> int:
                          phase_lifecycle_drift),
                         ("paged_lifecycle_main_path",
                          phase_paged_lifecycle),
+                        ("checkpoint_journal_main_path",
+                         phase_checkpoint_journal),
                         ("labels_group_by_main_path",
                          phase_labels_group_by),
                         ("k8_multirow_ingest", phase_k8),

@@ -2,11 +2,9 @@
 merge (plain versions and the Hopper kernel wrappers), host fold,
 statistics and dispatch.
 
-The package-level names are the reference's codec and statistics names
-(``ops/codec.py``, ``ops/stats.py``).  They load on first use (PEP 562),
-because both modules import torch; the frame names (``encode_frame``,
-``decode_frame``, ``iter_frames``, ``FrameError``, ``FrameTruncated``)
-wait for the federation slice (ROADMAP Queue 1, 14)."""
+The package-level names are the reference's codec, frame and statistics
+names (``ops/codec.py``, ``ops/stats.py``).  They load on first use
+(PEP 562), because both modules import torch."""
 
 import importlib
 
@@ -17,6 +15,11 @@ _LAZY = {
     "decompress": "codec",
     "decompress_np": "codec",
     "decompress_scalar": "codec",
+    "FrameError": "codec",
+    "FrameTruncated": "codec",
+    "decode_frame": "codec",
+    "encode_frame": "codec",
+    "iter_frames": "codec",
     "bucket_representatives": "stats",
     "dense_stats": "stats",
     "percentiles_sparse": "stats",

@@ -26,13 +26,19 @@ The torch tier differs from the JAX device tier on purpose:
     of the 8193 default representatives; the float64 route gives the
     same float32 table on every device.
 
-NaN pins to bucket 0; out-of-range buckets saturate at +/-32767.  The
-byte-frame codec of the JAX module belongs to federation, a later slice.
+NaN pins to bucket 0; out-of-range buckets saturate at +/-32767.
+
+The byte-frame codec at the end of the module is the JAX module's,
+copied: ``utils/journal.FrameJournal`` writes it, and the federation
+wire will ship the same frames.  A frame written by either package
+decodes in the other.
 """
 
 from __future__ import annotations
 
 import math
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -150,3 +156,99 @@ def decompress(buckets: torch.Tensor, precision: int = PRECISION) -> torch.Tenso
     b = torch.as_tensor(buckets)
     mag = torch.exp(b.abs().to(torch.float64) / precision) - 1.0
     return torch.where(b < 0, -mag, mag).to(torch.float32)
+
+
+# -- byte-frame codec ------------------------------------------------------ #
+#
+# One frame on the wire / in the binary journal:
+#
+#     +----+---+----+-----------+----------+===================+
+#     | LH | v | k  | len (u32) | crc (u32)|  payload (len B)  |
+#     +----+---+----+-----------+----------+===================+
+#      2B   1B  1B      4B          4B       variable
+#
+# little-endian throughout; ``crc`` is CRC32 over (version, kind, payload)
+# so a bit flip anywhere (a flipped length changes which bytes the CRC
+# covers) fails closed with FrameError instead of mis-merging.  ``kind``
+# namespaces payload schemas; unknown kinds decode fine and are the
+# consumer's problem, unknown VERSIONS are this layer's.
+
+FRAME_MAGIC = b"LH"
+FRAME_VERSION = 1
+FRAME_HEADER = struct.Struct("<2sBBII")
+# corrupt length fields must fail the CRC, not allocate gigabytes first
+MAX_FRAME_PAYLOAD = 1 << 28
+
+
+class FrameError(ValueError):
+    """A frame that must not be applied: bad magic, unsupported version,
+    implausible length, or CRC mismatch."""
+
+
+class FrameTruncated(FrameError):
+    """The buffer ends mid-frame.  Streaming decoders treat this as
+    "need more bytes"; at end-of-input it is the torn tail of a crash
+    mid-write (tolerated by the journal)."""
+
+
+def _frame_crc(kind: int, payload: bytes) -> int:
+    return zlib.crc32(payload, zlib.crc32(bytes((FRAME_VERSION, kind))))
+
+
+def encode_frame(kind: int, payload: bytes) -> bytes:
+    """Wrap ``payload`` in one framed record (header diagram above)."""
+    if not 0 <= kind <= 0xFF:
+        raise ValueError(f"frame kind must be a u8, got {kind}")
+    if len(payload) > MAX_FRAME_PAYLOAD:
+        raise ValueError(
+            f"frame payload {len(payload)} B exceeds the "
+            f"{MAX_FRAME_PAYLOAD} B cap"
+        )
+    return FRAME_HEADER.pack(
+        FRAME_MAGIC, FRAME_VERSION, kind, len(payload),
+        _frame_crc(kind, payload),
+    ) + payload
+
+
+def decode_frame(buf, offset: int = 0) -> tuple[int, bytes, int]:
+    """Decode one frame at ``buf[offset:]``.  Returns
+    ``(kind, payload, next_offset)``.  Raises FrameTruncated when the
+    buffer ends mid-frame and FrameError for anything that must never be
+    applied."""
+    end = offset + FRAME_HEADER.size
+    if end > len(buf):
+        raise FrameTruncated(
+            f"{len(buf) - offset} B at offset {offset} is shorter than "
+            f"the {FRAME_HEADER.size} B frame header"
+        )
+    magic, version, kind, length, crc = FRAME_HEADER.unpack(
+        bytes(buf[offset:end])
+    )
+    if magic != FRAME_MAGIC:
+        raise FrameError(f"bad frame magic {magic!r} at offset {offset}")
+    if version != FRAME_VERSION:
+        raise FrameError(f"unsupported frame version {version}")
+    if length > MAX_FRAME_PAYLOAD:
+        raise FrameError(
+            f"frame length {length} exceeds the {MAX_FRAME_PAYLOAD} B cap"
+        )
+    if end + length > len(buf):
+        raise FrameTruncated(
+            f"frame at offset {offset} declares {length} B payload but "
+            f"only {len(buf) - end} B remain"
+        )
+    payload = bytes(buf[end:end + length])
+    if _frame_crc(kind, payload) != crc:
+        raise FrameError(f"frame CRC mismatch at offset {offset}")
+    return kind, payload, end + length
+
+
+def iter_frames(buf):
+    """Yield every ``(kind, payload)`` in a byte buffer of back-to-back
+    frames.  Strict: any corruption, a torn tail included, raises;
+    torn-tolerant consumers (the frame journal) decode by hand and catch
+    FrameTruncated at the end of the buffer."""
+    offset = 0
+    while offset < len(buf):
+        kind, payload, offset = decode_frame(buf, offset)
+        yield kind, payload

@@ -46,9 +46,11 @@ re-commits are the same set.  Every table or codec change either marks
 the rows and (row, page) pairs it touched for the K4f mirrors or drops
 them (``apply_permutation``, ``_extract_rows``).
 
-Single device only.  Left for later slices: the mesh arenas and sharded
-commit (slice 11, which wires ``_extract_rows`` in); ``codec_names`` /
-``restore_codecs`` of the v3 checkpoint (slice 10).
+``max_cell``, ``codec_names`` and ``restore_codecs`` are the v3
+checkpoint's surface (``utils/checkpoint.py``).
+
+Single device only.  Left for a later slice: the mesh arenas and sharded
+commit (slice 11, which wires ``_extract_rows`` in).
 """
 
 from __future__ import annotations
@@ -936,6 +938,28 @@ class PagedStore:
             [self.row_codec, np.full(extra, -1, dtype=np.int8)]
         )
         self.num_metrics = new_m
+        self._drop_mirror()
+
+    def max_cell(self) -> int:
+        """Largest single pool count (the restore's headroom check): one
+        reduction over the pool on its device, read back."""
+        return int(self._pool.max())
+
+    # -- checkpoint ------------------------------------------------------ #
+
+    def codec_names(self) -> List[Optional[str]]:
+        """Each row's codec name (None for a row without one), as a v3
+        checkpoint records it."""
+        return [
+            self._codecs[c].name if c >= 0 else None for c in self.row_codec
+        ]
+
+    def restore_codecs(self, names: List[Optional[str]]) -> None:
+        """Pin saved codec names onto rows that have none yet; the K4f
+        mirrors are rebuilt at the next raw batch."""
+        for row, name in enumerate(names[: self.num_metrics]):
+            if name is not None and self.row_codec[row] < 0:
+                self.row_codec[row] = self._codec_ids[name]
         self._drop_mirror()
 
     def state(self) -> dict:

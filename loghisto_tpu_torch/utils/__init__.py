@@ -1,1 +1,2 @@
-"""Host utilities of the port (process gauges)."""
+"""Host utilities of the port: process gauges, checkpoints and journals
+(``utils.checkpoint``, ``utils.journal``)."""

@@ -1,0 +1,422 @@
+"""Checkpoint / resume for metric state (counterpart of
+``loghisto_tpu/utils/checkpoint.py``, format version 3).
+
+The reference has no persistence: its lifetime stores die with the
+process (metrics.go:111-126).  The dense bucket tensor plus the lifetime
+scalars fully determine the statistics, and both serialize as arrays.
+
+Format: one ``.npz`` with JSON-encoded name tables, written atomically
+(temp file, fsync, rename) so a crash mid-write cannot corrupt the last
+good snapshot.  It is the JAX package's file, key for key and dtype for
+dtype, so a snapshot written by either package restores into the other:
+
+  * ``version`` (int64 3) and, when stamped, ``seq_watermark`` (int64):
+    the last committed interval seq folded into the state;
+  * the host ``MetricSystem``: ``ms_counter_names`` / ``ms_counter_values``
+    (uint64), ``ms_agg_names`` / ``ms_agg_sums`` (float64) /
+    ``ms_agg_counts`` (uint64), and ``ms_agg_sums_u64`` when every sum is
+    an int (``go_compat``);
+  * the aggregator: ``agg_acc``, the canonical dense ``[M, B]`` (int32
+    for an unspilled dense accumulator, int64 when spilled or paged: the
+    paged store's ``decode_dense(include_spill=True)``), ``agg_names``
+    (freed slots as JSON null), ``agg_registry_generation``, the
+    lifetime ``agg_ids`` / ``agg_sums`` / ``agg_counts``, and on paged
+    storage each row's codec, ``pg_codec_names``;
+  * ``lc_last_active`` / ``lc_counters`` (a ``LifecycleManager``) and
+    ``an_prof`` / ``an_wsum`` / ``an_counters`` (an ``AnomalyManager``).
+
+The port's multirow accumulator is already the canonical ``[M, B]``
+(ROADMAP D7), so a save strips no lane padding.  A restore remaps rows
+by NAME and merges into the live state on its device: a dense delta is
+one in-place add on the accumulator's device (the card, where the
+aggregator lives there), a paged delta one ``PagedStore.commit``
+(translate, then one K4 launch); deltas that could wrap an int32 cell
+take the exact host spill.  Interval caches are not persisted: the
+samples of a crashed interval are shed, as in the reference.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import tempfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("loghisto_tpu_torch")
+
+# v2: the interval-seq watermark rides the payload, so crash recovery
+# replays only journal intervals past the snapshotted state (v1 files
+# restore with watermark None).  v3: paged aggregators save the
+# canonical dense decode of pool + host spill, so any storage restores
+# any save, and ``pg_codec_names`` re-pins each row's codec on a paged
+# restore (v1/v2 files restore with codecs chosen from the delta).
+FORMAT_VERSION = 3
+
+
+def save(
+    path: str,
+    metric_system=None,
+    aggregator=None,
+    lifecycle=None,
+    anomaly=None,
+    seq_watermark: Optional[int] = None,
+    fault_injector=None,
+) -> None:
+    """Atomically snapshot lifetime state to ``path`` (.npz).
+
+    ``seq_watermark`` stamps the snapshot with the last committed
+    interval seq folded into this state.  ``fault_injector`` (any object
+    with ``check(site)``) sees the two crash windows: "checkpoint.write"
+    before the payload lands and "checkpoint.rename" after the fsync,
+    before the atomic rename.
+
+    ``lifecycle`` adds the activity vector and the churn counters (the
+    overflow rows are ordinary named rows of the accumulator);
+    ``anomaly`` adds the EWMA baseline banks.  The aggregator is read
+    after one full barrier (``flush(force=True)``), the one
+    ``state_dict`` takes."""
+    payload = {"version": np.int64(FORMAT_VERSION)}
+    if seq_watermark is not None:
+        payload["seq_watermark"] = np.int64(seq_watermark)
+
+    if metric_system is not None:
+        with metric_system._store_lock:
+            counters = dict(metric_system._counter_store)
+            agg = {
+                name: (entry[0], entry[1])
+                for name, entry in metric_system._histogram_agg_store.items()
+            }
+        payload["ms_counter_names"] = _names_arr(counters.keys())
+        payload["ms_counter_values"] = np.array(
+            list(counters.values()), dtype=np.uint64
+        )
+        payload["ms_agg_names"] = _names_arr(agg.keys())
+        payload["ms_agg_sums"] = np.array(
+            [v[0] for v in agg.values()], dtype=np.float64
+        )
+        payload["ms_agg_counts"] = np.array(
+            [v[1] for v in agg.values()], dtype=np.uint64
+        )
+        if agg and all(isinstance(v[0], int) for v in agg.values()):
+            # go_compat sums are exact uint64s that float64 would clip
+            # above 2^53; keep the exact form alongside
+            payload["ms_agg_sums_u64"] = np.array(
+                [v[0] & 0xFFFFFFFFFFFFFFFF for v in agg.values()],
+                dtype=np.uint64,
+            )
+
+    if aggregator is not None:
+        # the full barrier: every buffered and queued sample is in the
+        # accumulator (or the pool) before it is read
+        aggregator.flush(force=True)
+        with aggregator._dev_lock:
+            if aggregator.paged is not None:
+                acc = aggregator.paged.decode_dense(include_spill=True)
+                payload["pg_codec_names"] = _names_arr(
+                    aggregator.paged.codec_names()
+                )
+            else:
+                acc = aggregator._acc.to("cpu", copy=True).numpy()
+                # a spilled interval keeps part of its counts in the
+                # host int64 fold; the combined snapshot is int64
+                if aggregator._spill is not None:
+                    acc = acc.astype(np.int64) + aggregator._spill
+        with aggregator._agg_lock:
+            agg_items = sorted(aggregator._agg.items())
+        payload["agg_acc"] = acc
+        payload["agg_names"] = _names_arr(aggregator.registry.names())
+        payload["agg_registry_generation"] = np.int64(
+            getattr(aggregator.registry, "generation", 0)
+        )
+        payload["agg_ids"] = np.array(
+            [k for k, _ in agg_items], dtype=np.int64
+        )
+        payload["agg_sums"] = np.array(
+            [v[0] for _, v in agg_items], dtype=np.float64
+        )
+        payload["agg_counts"] = np.array(
+            [v[1] for _, v in agg_items], dtype=np.uint64
+        )
+
+    if lifecycle is not None:
+        st = lifecycle.state_dict()
+        payload["lc_last_active"] = st["last_active"]
+        payload["lc_counters"] = np.array(
+            [
+                st["evicted_series"],
+                st["overflowed_samples"],
+                st["evictions"],
+                st["compactions"],
+            ],
+            dtype=np.int64,
+        )
+
+    if anomaly is not None:
+        st = anomaly.state_dict()
+        payload["an_prof"] = st["prof"]
+        payload["an_wsum"] = st["wsum"]
+        payload["an_counters"] = np.array(
+            [st["scored_intervals"]], dtype=np.int64
+        )
+
+    directory = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        if fault_injector is not None:
+            fault_injector.check("checkpoint.write")
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())  # data durable before the rename
+        if fault_injector is not None:
+            fault_injector.check("checkpoint.rename")
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def restore(
+    path: str,
+    metric_system=None,
+    aggregator=None,
+    lifecycle=None,
+    anomaly=None,
+) -> Optional[int]:
+    """Restore lifetime state saved by ``save`` (either package's), merging
+    over the targets' current state.  Rows remap by name through the
+    aggregator's ``_id_for`` (its grow policy applies; a shed name warns
+    and drops; freed slots stay holes); unnamed rows keep their id only
+    where no named metric owns it.  ``lifecycle`` and ``anomaly`` take
+    the saved activity vector and banks through the same row map, and
+    the registry's generation advances to at least the saved one.
+
+    Returns the snapshot's seq watermark, or None for an unstamped or v1
+    file."""
+    with np.load(path, allow_pickle=False) as data:
+        version = int(data["version"])
+        if version > FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint version {version}")
+        seq_watermark = (
+            int(data["seq_watermark"]) if "seq_watermark" in data else None
+        )
+
+        if metric_system is not None and "ms_counter_names" in data:
+            _restore_metric_system(metric_system, data)
+
+        if aggregator is not None and "agg_acc" in data:
+            id_remap = _restore_aggregator(aggregator, data)
+            if lifecycle is not None and "lc_last_active" in data:
+                saved_la = np.asarray(data["lc_last_active"], dtype=np.int32)
+                la = np.zeros(aggregator.num_metrics, dtype=np.int32)
+                for saved_id, new_id in id_remap.items():
+                    if saved_id < len(saved_la) and new_id < len(la):
+                        la[new_id] = saved_la[saved_id]
+                counters = data["lc_counters"]
+                lifecycle.load_state({
+                    "last_active": la,
+                    "evicted_series": int(counters[0]),
+                    "overflowed_samples": int(counters[1]),
+                    "evictions": int(counters[2]),
+                    "compactions": int(counters[3]),
+                })
+            if anomaly is not None and "an_prof" in data:
+                # a baseline never lands on a row its name does not own
+                saved_prof = np.asarray(data["an_prof"], dtype=np.float32)
+                saved_wsum = np.asarray(data["an_wsum"], dtype=np.float32)
+                k, ms_rows, b = saved_prof.shape
+                m = aggregator.num_metrics
+                prof = np.zeros((k, m, b), dtype=np.float32)
+                wsum = np.zeros((k, m), dtype=np.float32)
+                for saved_id, new_id in id_remap.items():
+                    if saved_id < ms_rows and new_id < m:
+                        prof[:, new_id] = saved_prof[:, saved_id]
+                        wsum[:, new_id] = saved_wsum[:, saved_id]
+                anomaly.load_state({
+                    "prof": prof,
+                    "wsum": wsum,
+                    "scored_intervals": int(data["an_counters"][0]),
+                })
+    return seq_watermark
+
+
+def _restore_metric_system(metric_system, data) -> None:
+    names = _arr_names(data["ms_counter_names"])
+    values = data["ms_counter_values"]
+    agg_names = _arr_names(data["ms_agg_names"])
+    sums = data["ms_agg_sums"]
+    counts = data["ms_agg_counts"]
+    # go_compat stores need int sums (the uint64 mask would TypeError
+    # on floats); the exact u64 sidecar is preferred
+    go_compat = metric_system.config.go_compat
+    if go_compat and "ms_agg_sums_u64" in data:
+        sums = data["ms_agg_sums_u64"]
+    with metric_system._store_lock:
+        for name, value in zip(names, values):
+            metric_system._counter_store[name] = int(value)
+        for name, s, c in zip(agg_names, sums, counts):
+            metric_system._histogram_agg_store[name] = [
+                int(s) if go_compat else float(s), int(c)
+            ]
+
+
+def _remap_rows(aggregator, acc: np.ndarray, saved_names):
+    """The snapshot's rows moved to their target ids: (remapped [M, B]
+    of the target's row count, [(saved id, target id)]).  Named rows map
+    by name through ``_id_for`` (grow policy, shed with a warning, holes
+    skipped), then unnamed nonzero rows by identity where no named
+    metric owns the id."""
+    row_map = []
+    for saved_id, name in enumerate(saved_names):
+        if name is None:
+            continue  # a freed slot: folded and zeroed before the save
+        new_id = aggregator._id_for(name)
+        if new_id < 0:
+            logger.warning(
+                "restore: metric %r shed (registry at max_metrics)", name
+            )
+            continue
+        row_map.append((saved_id, new_id))
+    named_rows = {saved_id for saved_id, _ in row_map}
+    named_targets = {new_id for _, new_id in row_map}
+    target_named_rows = len(aggregator.registry)
+    live = np.nonzero(acc.any(axis=1))[0].tolist()
+    for saved_id in live:
+        if saved_id in named_rows:
+            continue
+        if saved_id in named_targets or saved_id < target_named_rows:
+            logger.warning(
+                "restore: dropping unnamed checkpoint row %d: its row id "
+                "is owned by a named metric in the target; register names "
+                "before saving to keep such rows", saved_id,
+            )
+            continue
+        row_map.append((saved_id, saved_id))
+    remapped = np.zeros(
+        (aggregator.num_metrics, acc.shape[1]), dtype=acc.dtype
+    )
+    for saved_id, new_id in row_map:
+        remapped[new_id] += acc[saved_id]
+    return remapped, row_map
+
+
+def _restore_aggregator(aggregator, data) -> dict:
+    """Merge the snapshot's accumulator and lifetime store into
+    ``aggregator``; returns the saved-id -> target-id map."""
+    acc = data["agg_acc"]
+    # the target may have MORE rows than the snapshot (growth)
+    if (
+        acc.ndim != 2
+        or acc.shape[1] != aggregator.config.num_buckets
+        or acc.shape[0] > aggregator.num_metrics
+    ):
+        raise ValueError(
+            f"checkpoint accumulator shape {acc.shape} does not fit the "
+            "aggregator's configuration "
+            f"({aggregator.num_metrics}, {aggregator.config.num_buckets})"
+        )
+    remapped, row_map = _remap_rows(aggregator, acc,
+                                    _arr_names(data["agg_names"]))
+    if aggregator.paged is not None:
+        codecs = (_arr_names(data["pg_codec_names"])
+                  if "pg_codec_names" in data else None)
+        with aggregator._dev_lock:
+            _restore_paged_delta(aggregator, remapped, row_map, codecs)
+    else:
+        with aggregator._dev_lock:
+            _restore_dense_delta(aggregator, remapped)
+    id_remap = dict(row_map)
+    with aggregator._agg_lock:
+        go_compat = aggregator.config.go_compat
+        for mid, s, c in zip(
+            data["agg_ids"], data["agg_sums"], data["agg_counts"]
+        ):
+            new_id = id_remap.get(int(mid))
+            if new_id is None:
+                continue
+            entry = aggregator._agg.setdefault(new_id, [0, 0])
+            # int sums under go_compat (collect's uint64 mask)
+            entry[0] += int(s) if go_compat else float(s)
+            entry[1] += int(c)
+    if "agg_registry_generation" in data:
+        saved_gen = int(data["agg_registry_generation"])
+        reg = aggregator.registry
+        with reg._lock:
+            reg._generation = max(reg._generation, saved_gen)
+    return id_remap
+
+
+def _headroom_exceeded(aggregator, delta_max: int, live_max: int) -> bool:
+    """Restored counts never increment ``_interval_ingested``, so the
+    live maximum joins the check: successive restores (several workers'
+    snapshots) would otherwise stack toward 2^31 unseen."""
+    return (
+        delta_max + live_max + aggregator.spill_threshold
+        + aggregator.batch_size
+    ) >= 2 ** 31
+
+
+def _restore_paged_delta(aggregator, remapped: np.ndarray, row_map,
+                         codecs) -> None:
+    """Merge a remapped canonical-dense delta into paged storage (caller
+    holds ``_dev_lock``): the saved codecs are re-pinned first, through
+    the by-name row map, then the nonzero cells commit as (row, bucket -
+    bucket_limit, count) triples through ``PagedStore.commit`` (translate,
+    one K4 launch), or into the store's exact host spill when the
+    headroom check fails."""
+    pg = aggregator.paged
+    if codecs is not None:
+        for saved_id, new_id in row_map:
+            if saved_id < len(codecs) and codecs[saved_id] is not None:
+                pg.set_row_codec(new_id, codecs[saved_id])
+    rows, cols = np.nonzero(remapped)
+    weights = remapped[rows, cols].astype(np.int64)
+    if _headroom_exceeded(aggregator, int(weights.max(initial=0)),
+                          pg.max_cell()):
+        pg.spill_cells(rows.astype(np.int64), cols.astype(np.int64), weights)
+    elif len(rows):
+        packed = np.empty((len(rows), 3), dtype=np.int32)
+        packed[:, 0] = rows
+        packed[:, 1] = cols.astype(np.int64) - aggregator.config.bucket_limit
+        packed[:, 2] = weights
+        pg.commit(packed)
+    aggregator.stats_snapshot = None
+
+
+def _restore_dense_delta(aggregator, remapped: np.ndarray) -> None:
+    """Merge a remapped canonical-dense delta into a dense aggregator
+    (caller holds ``_dev_lock``): in place on the accumulator's device.
+    A delta that fails the headroom check (an int64 snapshot taken
+    mid-spill, or counts that could wrap int32) merges into the host
+    spill instead; ``collect()`` folds spill + accumulator exactly.  As
+    in the reference, the check is on magnitude, so a small int64
+    snapshot (a paged save) lands on the device.  The live maximum is
+    one reduction on the accumulator's device."""
+    live_max = int(aggregator._acc.max())
+    if _headroom_exceeded(aggregator, int(remapped.max(initial=0)),
+                          live_max):
+        if aggregator._spill is None:
+            aggregator._spill = remapped.astype(np.int64)
+        else:
+            aggregator._spill += remapped.astype(np.int64)
+    else:
+        delta = torch.from_numpy(remapped.astype(np.int32, copy=False))
+        aggregator._acc.add_(delta.to(aggregator._acc.device))
+    aggregator.stats_snapshot = None
+
+
+def _names_arr(names) -> np.ndarray:
+    return np.frombuffer(
+        json.dumps(list(names)).encode(), dtype=np.uint8
+    ).copy()
+
+
+def _arr_names(arr: np.ndarray) -> list:
+    return json.loads(arr.tobytes().decode())

@@ -9,7 +9,9 @@ K7 (drift scores, within the float32 tolerance of
 through ``TorchAggregator``, a wheel, a fused commit with lifecycle
 and drift on the card, and on paged storage the fused commit with
 eviction and compaction against the same steps on the CPU, K4f after a
-fold and a permutation, and the rings-only repack (K6).
+fold and a permutation, the rings-only repack (K6), and checkpoint
+restores (dense in place, paged through K4) against the same restores
+on the CPU.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -1163,3 +1165,94 @@ def test_compact_paged_kernel_equals_the_cpu(dev):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert torch.equal(got_la.cpu(), want_la)
+
+
+def _checkpoint_source(bl, seed):
+    """A CPU aggregator holding seeded intervals of bucket maps over 12
+    names, and its checkpoint file's path."""
+    import datetime as dt
+    import tempfile
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng(seed)
+    src = TorchAggregator(num_metrics=16, config=MetricConfig(bucket_limit=bl),
+                          device="cpu")
+    for i in range(3):
+        hists = {f"m{k}": {int(b): int(c) for b, c in zip(
+            rng.integers(-bl, bl + 1, 20), rng.integers(1, 100, 20))}
+            for k in range(12)}
+        src.merge_raw(RawMetricSet(
+            time=dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+            + dt.timedelta(seconds=i), counters={}, rates={},
+            histograms=hists, gauges={}, duration=1.0, seq=i + 1))
+    path = tempfile.mkdtemp() + "/src.npz"
+    checkpoint.save(path, aggregator=src, seq_watermark=3)
+    return src, path
+
+
+def test_dense_restore_on_the_card_equals_the_cpu(dev):
+    """A dense restore merges on the card, in place, and equals the same
+    restore on the CPU; the card aggregator's save is the CPU's file."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    _, path = _checkpoint_source(64, 31)
+    aggs = [TorchAggregator(num_metrics=16, config=MetricConfig(
+        bucket_limit=64), device=d) for d in (dev, "cpu")]
+    for agg in aggs:
+        agg._id_for("other")
+        acc = agg._acc
+        assert checkpoint.restore(path, aggregator=agg) == 3
+        assert agg._acc is acc and agg._spill is None
+    card, cpu = aggs
+    assert card._acc.device.type == "cuda"
+    assert torch.equal(card._acc.cpu(), cpu._acc)
+    assert card.registry.names() == cpu.registry.names()
+    saved = []
+    for agg in aggs:
+        saved.append(path + f".{agg.device.type}.npz")
+        checkpoint.save(saved[-1], aggregator=agg)
+    with np.load(saved[0]) as a, np.load(saved[1]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for agg in aggs:
+        agg.close()
+
+
+def test_paged_restore_on_the_card_equals_the_cpu(dev):
+    """A paged restore on the card is translate plus one K4 launch, and
+    leaves the pool, page table, codecs and free list of the same
+    restore on the CPU; a second restore stacks exactly."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    src, path = _checkpoint_source(512, 32)
+    aggs = [TorchAggregator(num_metrics=16, config=MetricConfig(
+        bucket_limit=512), device=d, storage="paged",
+        paged_config=PagedStoreConfig(pool_pages=512, codec="auto"))
+        for d in (dev, "cpu")]
+    for rounds in (1, 2):
+        for agg in aggs:
+            before = kernel_launches()["paged_scatter"]
+            checkpoint.restore(path, aggregator=agg)
+            torch.cuda.synchronize()
+            launched = kernel_launches()["paged_scatter"] - before
+            assert launched == (1 if agg.device.type == "cuda" else 0)
+        card, cpu = (a.paged for a in aggs)
+        assert torch.equal(card._pool.cpu(), cpu._pool)
+        np.testing.assert_array_equal(card.page_table, cpu.page_table)
+        assert card.codec_names() == cpu.codec_names()
+        assert card.free_list() == cpu.free_list()
+        # "auto" may store a row lossily: its counts are conserved
+        want = src._acc.numpy().astype(np.int64).sum(axis=1) * rounds
+        np.testing.assert_array_equal(card.decode_dense().sum(axis=1), want)
+    for agg in aggs:
+        agg.close()

@@ -24,11 +24,7 @@ WAITING = {
         "FastCounter": "6b", "FastRecorder": "6b", "FastTimer": "6b",
         "FastTimerToken": "6b",
     },
-    ".ops": {
-        # the federation wire's frame codec
-        "encode_frame": "14", "decode_frame": "14", "iter_frames": "14",
-        "FrameError": "14", "FrameTruncated": "14",
-    },
+    ".ops": {},
     ".obs": {
         # the span ring, the watchdog and the trace export
         "ObsConfig": "6c", "Span": "6c", "SpanRecorder": "6c",
@@ -68,6 +64,8 @@ def test_values_are_the_port_modules_own():
     assert lh.DEFAULT_PERCENTILES == loghisto_tpu.DEFAULT_PERCENTILES
     assert ops.dense_stats is stats.dense_stats
     assert ops.compress_np is codec.compress_np
+    assert ops.encode_frame is codec.encode_frame
+    assert ops.FrameTruncated is codec.FrameTruncated
     assert obs.LatencyHistogram is spans.LatencyHistogram
     assert obs.NULL_RECORDER is spans.NULL_RECORDER
     with pytest.raises(AttributeError):
