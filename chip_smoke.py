@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``loghisto_tpu_torch``) on one
-NVIDIA card: builds the Hopper kernels from ``loghisto_tpu_torch/csrc``,
+NVIDIA card: builds the Hopper kernels from ``loghisto_tpu_torch/csrc``
+and the native host tier from ``loghisto_tpu_torch/_native`` (g++),
 holds each against its plain PyTorch version at the main paths' shapes,
 then drives the main paths through ``TorchAggregator`` — record_batch ->
 transfer worker -> kernels -> ``collect()`` — and checks their output
@@ -10,8 +11,17 @@ against host oracles:
     on the raw route, K3 on the sparse route, the default
     transport="auto" (which the card's measured crossover keeps on raw),
     K2 on the single row; ``transport_crossover`` measures that
-    crossover (raw and sparse at five cell densities) and sweeps the
-    batch size at which K4f beats the sparse route on paged storage;
+    crossover (raw and sparse, with the native fold, at five cell
+    densities) and sweeps the batch size at which K4f beats the sparse
+    route on paged storage;
+  * the native host tier (``native_host_main_path``) at the same width:
+    transport="preagg" from 4 recording threads (K3), the sparse route
+    through the native fold (K3), native staging on the raw route at
+    10,000 rows (K1) and at one (K2b), each beside a Python-staged raw
+    twin (accumulators equal), ``fast_ingest=True`` from 8 threads over
+    1,000 names (exact counts, percentiles within the codec's 1%), the
+    host fold's rate native against NumPy, and the crossover the native
+    fold implies; a route that takes the NumPy or Python tier fails it;
   * paged storage (``paged_main_path``) at 2^20 live rows x 8193 buckets
     (page pool of 2^21 pages), the reference's paged headline: K4f on
     the raw route, K4 on the sparse route, a snapshot query of 4096
@@ -65,6 +75,7 @@ inputs: a scatter moves only the cells it touches.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime as _dt
 import gc
@@ -256,6 +267,16 @@ def phase_card(torch):
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
+    # the native host tier (g++, host code): built here so its build time
+    # is reported; native_host_main_path fails if it did not build
+    from loghisto_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    native = {"ingest": _native.available(),
+              "fastpath": _native.fastpath_available()}
+    native["build_s"] = round(time.perf_counter() - t0, 3)
+    native["errors"] = [e for e in (_native.build_error(),
+                                    _native.fastpath_error()) if e]
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -265,7 +286,8 @@ def phase_card(torch):
     return {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "device": torch.cuda.get_device_name(0),
-            "build_s": round(build_s, 3), "built": built, "ptxas": ptxas}
+            "build_s": round(build_s, 3), "built": built, "ptxas": ptxas,
+            "native_host_tier": native}
 
 
 def phase_codec(torch):
@@ -789,8 +811,32 @@ def _timed_ingest(torch, agg, ids, values, item):
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def native_tiers_only():
+    """Fail any route that takes the NumPy fold tier while this holds:
+    the native host tier must have built and must serve the sparse fold
+    (ops/fold.fold_packed falls back to ``fold_packed_numpy`` only when it
+    cannot)."""
+    from loghisto_tpu_torch import _native
+    from loghisto_tpu_torch.ops import fold
+
+    if not _native.available():
+        raise AssertionError(
+            f"the native host tier did not build: {_native.build_error()}")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a route took the NumPy fold tier")
+
+    numpy_fold = fold.fold_packed_numpy
+    fold.fold_packed_numpy = refuse
+    try:
+        yield numpy_fold
+    finally:
+        fold.fold_packed_numpy = numpy_fold
+
+
 def _xo_dense(torch, ids, values):
-    """Raw (staging + K1) and sparse (NumPy fold + K3) through
+    """Raw (staging + K1) and sparse (native fold + K3) through
     TorchAggregator at M = 10,000 on the same stream, fed twice: the
     second pass is timed, and the two accumulators must be equal."""
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
@@ -852,32 +898,43 @@ def _fmb_paged(torch, batch, ids, values):
     return out
 
 
+def xo_points(torch, rng):
+    """The dense raw and sparse transports (the sparse fold held to the
+    native tier) through TorchAggregator on the five crossover streams;
+    returns the points and the crossover they imply: the highest density
+    at which sparse beats raw, 0.0 if it wins nowhere."""
+    points = []
+    with native_tiers_only():
+        for name, kw in XO_STREAMS:
+            ids, values = _xo_stream(rng, XO_SAMPLES, **kw)
+            density = _cell_density(ids[:BATCH], values[:BATCH])
+            rates = _xo_dense(torch, ids, values)
+            points.append({"stream": name, "density": density,
+                           "raw_samples_per_s": rates["raw"],
+                           "sparse_samples_per_s": rates["sparse"]})
+    wins = [p["density"] for p in points
+            if p["sparse_samples_per_s"] > p["raw_samples_per_s"]]
+    return points, (max(wins) if wins else 0.0)
+
+
 def phase_transport_crossover(torch):
-    """F4's measurement: the dense raw and sparse transports through
-    TorchAggregator on the same streams at five cell densities (2^24
-    samples each, M = 10,000); the card's crossover is the highest
-    density at which sparse beats raw (0.0 if it wins nowhere) and must
-    be the one ops/dispatch.py states.  Then the FUSED_MIN_BATCH sweep:
-    K4f against the sparse route on paged storage (2^20 rows) at batch
-    sizes 2^12 ... 2^20."""
+    """F4's measurement: the dense raw and sparse (native fold + K3)
+    transports through TorchAggregator on the same streams at five cell
+    densities (2^24 samples each, M = 10,000); the card's crossover is
+    the highest density at which sparse beats raw (0.0 if it wins
+    nowhere) and must be the one ops/dispatch.py states.  Then the
+    FUSED_MIN_BATCH sweep: K4f against the sparse route on paged storage
+    (2^20 rows) at batch sizes 2^12 ... 2^20."""
     from loghisto_tpu_torch.ops import dispatch
 
     rng = np.random.default_rng(SEED + 40)
-    points = []
-    for name, kw in XO_STREAMS:
-        ids, values = _xo_stream(rng, XO_SAMPLES, **kw)
-        density = _cell_density(ids[:BATCH], values[:BATCH])
-        rates = _xo_dense(torch, ids, values)
-        points.append({"stream": name, "density": density,
-                       "raw_samples_per_s": rates["raw"],
-                       "sparse_samples_per_s": rates["sparse"]})
-    wins = [p["density"] for p in points
-            if p["sparse_samples_per_s"] > p["raw_samples_per_s"]]
-    measured = max(wins) if wins else 0.0
+    points, measured = xo_points(torch, rng)
+    RESULTS["xo"] = {"points": points, "measured_crossover": measured}
     stated = dispatch.sparse_density_crossover("cuda")
     if (measured > 0.0) != (stated > 0.0) or measured > stated:
         raise AssertionError(f"measured crossover {measured} on the card; "
-                             f"ops/dispatch.py states {stated}")
+                             f"ops/dispatch.py states {stated}; points "
+                             f"{json.dumps(points)}")
 
     sweep = []
     for batch in FMB_BATCHES:
@@ -889,12 +946,370 @@ def phase_transport_crossover(torch):
     k4f_from = next((p["batch"] for i, p in enumerate(sweep)
                      if all(q["k4f_samples_per_s"] > q["sparse_samples_per_s"]
                             for q in sweep[i:])), None)
-    return {"samples": XO_SAMPLES, "points": points,
+    return {"samples": XO_SAMPLES, "fold_tier": "native", "points": points,
             "measured_crossover": measured, "stated_crossover": stated,
             "fused_min_batch_sweep": {
                 "samples": FMB_SAMPLES, "rows": PAGED_M, "points": sweep,
                 "k4f_wins_from_batch": k4f_from,
                 "stated": dispatch.fused_min_batch_for("cuda")}}
+
+
+# the native host tier at the main path's width: M = 10,000 rows x 8193
+# buckets, 2^24 Zipf(1.3) samples per interval, 3 intervals; the single
+# row at 2^22 samples; fast ingest over 1,000 names from 8 threads
+NH_SAMPLES = 1 << 24
+NH_INTERVALS = 3
+NH_ROW_SAMPLES = 1 << 22
+NH_WRITERS = 4
+FI_NAMES = 1000
+FI_THREADS = 8
+FI_INTERVALS = 2
+FI_RECORDS = 40_000  # per thread per interval, spread over 3 handle kinds
+FI_LABELS = ["min", "50", "75", "90", "95", "99", "99.9", "99.99", "max"]
+
+
+def _nh_stream(rng, n, m):
+    """One interval: Zipf(1.3) ids over m rows (1% dropped ids when m is
+    1), lognormal values with 5% negated."""
+    if m == 1:
+        ids = np.zeros(n, np.int32)
+        ids[rng.random(n) < 0.01] = -1
+    else:
+        ids = zipf_ids(rng, n, m)
+    values = lognormal_values(rng, n)
+    values[rng.random(n) < 0.05] *= -1
+    return ids, values
+
+
+def _cell_counts(packed):
+    """A packed [n, 3] array as sorted unique (id << 16 | bucket + 2^15)
+    keys and their total counts (rows split across threads summed)."""
+    keys = (packed[:, 0].astype(np.int64) << 16) | (
+        packed[:, 1].astype(np.int64) + 32768)
+    uk, inv = np.unique(keys, return_inverse=True)
+    return uk, np.bincount(inv, weights=packed[:, 2]).astype(np.int64)
+
+
+def _nh_feed(torch, agg, ids, values, writers=1):
+    """record_batch in BATCH pieces from ``writers`` threads, then
+    flush(force=True) and a synchronize; returns the wall seconds."""
+    import threading
+
+    pieces = [(off, off + BATCH) for off in range(0, len(ids), BATCH)]
+    errors = []
+
+    def write(k):
+        try:
+            for lo, hi in pieces[k::writers]:
+                agg.record_batch(ids[lo:hi], values[lo:hi])
+        except Exception as e:  # re-raised below, on the caller's thread
+            errors.append(e)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if writers == 1:
+        write(0)
+    else:
+        threads = [threading.Thread(target=write, args=(k,))
+                   for k in range(writers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("a recording thread did not finish")
+    if errors:
+        raise errors[0]
+    agg.flush(force=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _nh_routes(torch, m, samples, routes, rng):
+    """Every route of ``routes`` (name -> (TorchAggregator kwargs,
+    writers)) beside the Python-staged raw twin, NH_INTERVALS intervals
+    of the same stream: each route's accumulator torch.equal to the
+    twin's and its collect() equal to the twin's, the twin's counts to
+    the host oracle.  Returns samples/s per route."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    aggs = {"python_staged_raw": TorchAggregator(
+        num_metrics=m, batch_size=BATCH, transport="raw")}
+    for name, (kw, _) in routes.items():
+        aggs[name] = TorchAggregator(num_metrics=m, batch_size=BATCH, **kw)
+    for agg in aggs.values():
+        for i in range(m):
+            agg.registry.id_for(f"m{i}")
+    writers = {"python_staged_raw": 1,
+               **{n: w for n, (_, w) in routes.items()}}
+    seconds = collections.defaultdict(float)
+    out = {}
+    try:
+        for name, agg in aggs.items():
+            if name.startswith("native_staged") and agg._native_buf is None:
+                raise AssertionError(f"{name}: native staging fell back to "
+                                     "Python staging")
+            if name == "preagg" and agg._cell_store.backend != "native":
+                raise AssertionError("preagg took the NumPy cell store")
+        for _ in range(NH_INTERVALS):
+            ids, values = _nh_stream(rng, samples, m)
+            for name, agg in aggs.items():
+                seconds[name] += _nh_feed(torch, agg, ids, values,
+                                          writers[name])
+            twin = aggs["python_staged_raw"]._acc
+            for name, agg in aggs.items():
+                if not torch.equal(agg._acc, twin):
+                    raise AssertionError(f"{name}: accumulator differs from "
+                                         "the Python-staged raw twin's")
+            keep = ids >= 0
+            want = np.bincount(ids[keep], minlength=m)
+            got = {name: agg.collect().metrics for name, agg in aggs.items()}
+            ref = got["python_staged_raw"]
+            counts = np.array([ref.get(f"m{i}_count", 0.0)
+                               for i in range(m)])
+            if not np.array_equal(counts, want):
+                raise AssertionError("the twin's counts differ from the "
+                                     "host oracle's")
+            # spot-check the codec: the twin's max of row 0 is the largest
+            # value's bucket representative
+            top = float(np.max(values[ids == 0]))
+            if int(compress_np([ref["m0_max"]])[0]) != int(
+                    compress_np([top])[0]):
+                raise AssertionError("row 0's max is not its largest "
+                                     "value's bucket")
+            for name, metrics in got.items():
+                if metrics != ref:
+                    raise AssertionError(f"{name}: collect() differs from "
+                                         "the Python-staged raw twin's")
+        for name, agg in aggs.items():
+            out[name] = {"samples_per_s": NH_INTERVALS * samples
+                         / seconds[name],
+                         "transport": agg.transport,
+                         "ingest_path": agg.ingest_path,
+                         "transport_stats": agg.transport_stats()}
+            if agg._native_buf is not None:
+                out[name]["dropped"] = agg._native_buf.dropped
+    finally:
+        for agg in aggs.values():
+            agg.close()
+        del aggs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fold_rates(rng):
+    """The host fold at 2^24 samples of the headline stream: the native
+    fold (8 threads and 1) against fold_packed_numpy, their cell sets
+    equal; samples/s each."""
+    from loghisto_tpu_torch import _native
+
+    ids, values = _nh_stream(rng, NH_SAMPLES, M)
+    out, cells = {}, {}
+    for name, fn in (
+            ("native_8_threads", lambda: _native.fold_packed_native(
+                ids, values, BL, num_threads=8)),
+            ("native_1_thread", lambda: _native.fold_packed_native(
+                ids, values, BL, num_threads=1)),
+            ("numpy", lambda: _native.fold_packed_numpy(ids, values, BL))):
+        fn()  # warm: page-in and table growth
+        t0 = time.perf_counter()
+        packed = fn()
+        dt = time.perf_counter() - t0
+        cells[name] = _cell_counts(packed)
+        out[name] = {"samples_per_s": NH_SAMPLES / dt, "s": dt,
+                     "rows": len(packed)}
+    uk, cnt = cells["numpy"]
+    for name in ("native_8_threads", "native_1_thread"):
+        if not (np.array_equal(cells[name][0], uk)
+                and np.array_equal(cells[name][1], cnt)):
+            raise AssertionError(f"{name}: cell set differs from "
+                                 "fold_packed_numpy's")
+    if int(cnt.sum()) != int((ids >= 0).sum()):
+        raise AssertionError("the fold lost samples")
+    out["unique_cells"] = len(uk)
+    return out
+
+
+def _fast_ingest_run(torch):
+    """TorchMetricSystem(fast_ingest=True): 8 threads record through
+    FastRecorder, FastTimer and FastCounter handles over 1,000 names for
+    2 intervals; each interval's raw set lands on the card through
+    merge_raw (K3).  Counts and counters exact against the host oracle,
+    percentiles equal to the codec oracle's and within 1% of 1 + |v| of
+    the recorded sample at the same rank (the codec's bound)."""
+    import threading
+
+    from loghisto_tpu_torch.metrics import (
+        FastCounter,
+        FastRecorder,
+        FastTimer,
+    )
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    names = [f"fi{i}" for i in range(FI_NAMES)]
+    ms = TorchMetricSystem(interval=1.0, num_metrics=FI_NAMES + 8,
+                           sys_stats=False, fast_ingest=True)
+    if ms._fast_record is None:
+        raise AssertionError("fast_ingest fell back to the Python path")
+    rows, rates, ties = 0, [], 0
+    try:
+        for interval in range(FI_INTERVALS):
+            recorded = [[] for _ in range(FI_THREADS)]
+            counted = [collections.Counter() for _ in range(FI_THREADS)]
+            errors = []
+
+            def writer(k, interval=interval):
+                try:
+                    rng = np.random.default_rng(SEED + 60 + 8 * interval + k)
+                    pick = rng.integers(0, FI_NAMES, FI_RECORDS)
+                    vals = rng.lognormal(3.0, 1.5, FI_RECORDS)
+                    recs = {n: ms.recorder(n) for n in names}
+                    timers = {n: ms.timer(n) for n in names[:100]}
+                    ctrs = [ms.counter_handle(f"fi.count{j}")
+                            for j in range(8)]
+                    if not (isinstance(recs[names[0]], FastRecorder)
+                            and isinstance(timers[names[0]], FastTimer)
+                            and isinstance(ctrs[0], FastCounter)):
+                        raise AssertionError("a handle is not the fast one")
+                    out, cnt = recorded[k], counted[k]
+                    for i in range(FI_RECORDS):
+                        name = names[pick[i]]
+                        if i % 5 == 0 and pick[i] < 100:
+                            t = timers[name]
+                            out.append((name, float(t.stop(t.start()))))
+                        else:
+                            recs[name].record(float(vals[i]))
+                            out.append((name, float(vals[i])))
+                        ctrs[i % 8].add(1 + i % 3)
+                        cnt[f"fi.count{i % 8}"] += 1 + i % 3
+                except Exception as e:
+                    errors.append(e)
+
+            threads = [threading.Thread(target=writer, args=(k,))
+                       for k in range(FI_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                if t.is_alive():
+                    raise AssertionError("a fast-ingest writer hung")
+            rates.append(FI_THREADS * FI_RECORDS
+                         / (time.perf_counter() - t0))
+            if errors:
+                raise errors[0]
+            if any(sh.histograms or sh.counters or sh.bucket_counts
+                   for sh in ms._shards):
+                raise AssertionError("a sample took the Python path")
+            raw = ms.collect_raw_metrics()
+            ms.aggregator.merge_raw(raw)
+            metrics = ms.device_metrics().metrics
+            if ms._fast_dropped_total or ms._fast_counter_dropped_total:
+                raise AssertionError("the fast staging buffers shed")
+            want_ctr = sum(counted, collections.Counter())
+            if {k: raw.rates[k] for k in want_ctr} != dict(want_ctr):
+                raise AssertionError("fast counters are not exact")
+            by_name = collections.defaultdict(list)
+            for out in recorded:
+                for name, v in out:
+                    by_name[name].append(v)
+            hist = np.zeros((FI_NAMES, B), np.int64)
+            for i, name in enumerate(names):
+                v = np.asarray(by_name[name])
+                cols = np.clip(compress_np(v), -BL, BL).astype(np.int64) + BL
+                hist[i] = np.bincount(cols, minlength=B)
+            want, t = _oracle_stats(hist)
+            ties += t
+            for i, name in enumerate(names):
+                n = int(want["counts"][i])
+                if metrics.get(f"{name}_count", 0.0) != n:
+                    raise AssertionError(f"{name}: count differs")
+                if not n:
+                    continue
+                v = np.sort(np.asarray(by_name[name]))
+                for j, (label, p) in enumerate(zip(FI_LABELS, PS)):
+                    got = metrics[f"{name}_{label}"]
+                    if got != float(np.float32(want["percentiles"][i, j])):
+                        raise AssertionError(f"{name}_{label}: not the "
+                                             "codec oracle's value")
+                    # the float64 rank; at a float32 rank tie the device
+                    # takes a neighbouring one (_oracle_stats)
+                    k = min(n, max(1, int(np.ceil(p * n))))
+                    near = v[max(0, k - 2):k + 1]
+                    if np.min(np.abs(got - near)
+                              - 0.01 * (1.0 + np.abs(near))) > 0:
+                        raise AssertionError(
+                            f"{name}_{label}: {got} is not within 1% of "
+                            f"the rank-{k} sample {v[k - 1]}")
+                rows += 1
+    finally:
+        ms.stop()
+    return {"names": FI_NAMES, "threads": FI_THREADS,
+            "intervals": FI_INTERVALS, "rows_checked": rows,
+            "rank_ties": ties, "records_per_s": rates}
+
+
+def phase_native_host(torch):
+    """The native host tier on the card's host, at the main path's
+    width (M = 10,000, bucket_limit 4096, 2^24 Zipf(1.3) samples per
+    interval): (a) transport="preagg" fed by 4 recording threads, (b)
+    transport="sparse" through the native fold, (c) native staging on the
+    raw route at M = 10,000 (K1) and M = 1 (K2b), each beside the
+    Python-staged raw twin on the same stream (accumulators torch.equal,
+    collect() equal), (d) TorchMetricSystem(fast_ingest=True) from 8
+    threads over 1,000 names.  Then the host fold's rate (native against
+    NumPy at 2^24) and the transport crossover the native fold implies
+    (transport_crossover's points when that phase ran, else measured
+    here).  Any route that takes the NumPy or Python tier fails the
+    phase."""
+    from loghisto_tpu_torch import _native
+    from loghisto_tpu_torch.ops import dispatch
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    if not (_native.available() and _native.fastpath_available()):
+        raise AssertionError(
+            f"the native host tier did not build: {_native.build_error()} "
+            f"{_native.fastpath_error()}")
+    rng = np.random.default_rng(SEED + 50)
+    reset_kernel_launches()
+    with native_tiers_only():
+        wide = _nh_routes(torch, M, NH_SAMPLES, {
+            "preagg": ({"transport": "preagg"}, NH_WRITERS),
+            "sparse_native_fold": ({"transport": "sparse"}, 1),
+            "native_staged_raw": ({"transport": "raw",
+                                   "native_staging": True}, 1),
+        }, rng)
+        row = _nh_routes(torch, 1, NH_ROW_SAMPLES, {
+            "native_staged_row": ({"transport": "raw",
+                                   "native_staging": True}, 1),
+        }, rng)
+        fast = _fast_ingest_run(torch)
+    launches = kernel_launches()
+    for kernel in ("fused_ingest", "row_ingest", "sparse_ingest"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched on the native "
+                                 "routes")
+        RESULTS.setdefault(kernel, {})["launches"] = (
+            RESULTS.get(kernel, {}).get("launches", 0) + launches[kernel])
+    if row["native_staged_row"]["ingest_path"] != "row":
+        raise AssertionError("the single row did not take K2b")
+    fold = _fold_rates(rng)
+    xo = RESULTS.get("xo")
+    if xo is None:
+        points, measured = xo_points(torch, np.random.default_rng(SEED + 40))
+        xo = {"points": points, "measured_crossover": measured}
+    return {"samples_per_interval": NH_SAMPLES, "intervals": NH_INTERVALS,
+            "num_metrics": M, "routes": wide, "single_row": row,
+            "fast_ingest": fast, "host_fold_2p24": fold,
+            "crossover": {**xo, "stated": dispatch.sparse_density_crossover(
+                "cuda")},
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def _paged_store(torch, m):
@@ -1305,12 +1720,12 @@ def _drive_paged(torch, transport, intervals, m, storage="auto"):
     )
     timers = _Timers(torch)
     saved = (fused_mod.fused_paged_ingest_batch, paged_mod.paged_scatter,
-             agg_mod.fold_packed_numpy)
+             agg_mod.fold_packed)
     if agg.paged is not None:
         fused_mod.fused_paged_ingest_batch = timers.dev_wrap(
             "k4f", saved[0])
         paged_mod.paged_scatter = timers.dev_wrap("k4", saved[1])
-        agg_mod.fold_packed_numpy = timers.host_wrap("fold", saved[2])
+        agg_mod.fold_packed = timers.host_wrap("fold", saved[2])
         agg.paged.prepare_batch = timers.host_wrap(
             "prepare_batch", agg.paged.prepare_batch)
         agg.paged.translate = timers.host_wrap(
@@ -1362,7 +1777,7 @@ def _drive_paged(torch, transport, intervals, m, storage="auto"):
     finally:
         agg.close()
         (fused_mod.fused_paged_ingest_batch, paged_mod.paged_scatter,
-         agg_mod.fold_packed_numpy) = saved
+         agg_mod.fold_packed) = saved
     launches = kernel_launches()
     out = {"num_metrics": m, "storage": agg.storage,
            "transport": agg.transport, "ingest_path": agg.ingest_path,
@@ -4567,6 +4982,7 @@ def main() -> int:
                         ("k5_window_merge", phase_k5),
                         ("main_path", phase_main),
                         ("transport_crossover", phase_transport_crossover),
+                        ("native_host_main_path", phase_native_host),
                         ("paged_main_path", phase_paged_main),
                         ("retention_main_path", phase_retention),
                         ("k6_compact_rows", phase_k6),

@@ -17,11 +17,11 @@ The package-level names are the reference's: the host tier
 (``MetricSystem``, ``Channel``, ``RawMetricSet`` ...), the default
 system ``Metrics`` (``MetricSystem(interval=60.0, sys_stats=True)``,
 built on first use and not started) and ``TorchMetricSystem`` in the
-place of ``TPUMetricSystem``.  Every name loads on first use (PEP 562),
-so importing one submodule does not import the whole system.  The
-reference's ``FastCounter``, ``FastRecorder``, ``FastTimer`` and
-``FastTimerToken`` wait for the host-system slice (ROADMAP Queue 1,
-6b).
+place of ``TPUMetricSystem``, and the fast-ingest handles
+(``FastCounter``, ``FastRecorder``, ``FastTimer``, ``FastTimerToken``)
+that ``MetricSystem(fast_ingest=True)`` hands out.  Every name loads on
+first use (PEP 562), so importing one submodule does not import the
+whole system.
 """
 
 import importlib
@@ -33,6 +33,10 @@ _LAZY = {
     "Channel": "loghisto_tpu_torch.channel",
     "ChannelClosed": "loghisto_tpu_torch.channel",
     "DEFAULT_PERCENTILES": "loghisto_tpu_torch.config",
+    "FastCounter": "loghisto_tpu_torch.metrics",
+    "FastRecorder": "loghisto_tpu_torch.metrics",
+    "FastTimer": "loghisto_tpu_torch.metrics",
+    "FastTimerToken": "loghisto_tpu_torch.metrics",
     "MetricConfig": "loghisto_tpu_torch.config",
     "MetricSystem": "loghisto_tpu_torch.metrics",
     "ProcessedMetricSet": "loghisto_tpu_torch.metrics",

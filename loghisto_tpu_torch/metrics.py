@@ -24,17 +24,22 @@ lands on the canonical row ``name;k1=v1;...`` (sorted keys, so every
 order of one label set is one series; ``labels/model.py``), and the
 handle factories cache one handle per label set.
 
+``fast_ingest=True`` routes per-call histogram samples and integer
+counter increments through the C staging buffers of the port's
+``_native/fastpath.cpp`` (``FastRecorder``, ``FastCounter``,
+``FastTimer``, ``FastTimerToken``); without a compiler it logs the build
+error and keeps the Python path.
+
 The statistics come from the port's own ``ops/stats`` host tier (NumPy,
 no device), so this layer loads neither ``jax`` nor the JAX package
-(ROADMAP F2).  ``fast_ingest=True`` (the C staging buffers of
-``loghisto_tpu/_native``) waits for a later slice of the port and
-raises.  The observability span ring is not ported.
+(ROADMAP F2).  The observability span ring is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
+import functools
 import itertools
 import logging
 import os
@@ -57,11 +62,13 @@ logger = logging.getLogger("loghisto_tpu_torch")
 
 _UINT64_MASK = 0xFFFFFFFFFFFFFFFF
 
-FAST_INGEST_SLICE = (
-    "fast_ingest=True needs the C staging buffers of loghisto_tpu/_native, "
-    "which the port takes up in ROADMAP Queue 1 slice 6b (native staging); "
-    "use the Python path (fast_ingest=False)"
-)
+# The integer-exactness window of the fast counter path: 2^21 records a
+# fold x 2^31 stays under float64's 2^53; larger or non-int amounts take
+# the Python path
+_I32_LO = -(1 << 31)
+_I32_HI = 1 << 31
+
+
 @dataclasses.dataclass
 class RawMetricSet:
     """Per-interval raw collection output (reference metrics.go:54-60).
@@ -121,7 +128,8 @@ def merge_raw_metric_sets(a: RawMetricSet, b: RawMetricSet) -> RawMetricSet:
 
 
 def _record_duration(system: "MetricSystem", name: str, duration_ns: int) -> int:
-    """Shared clock-sample routing for TimerToken and _PyTimer."""
+    """Shared clock-sample routing for TimerToken and _PyTimer (the Fast*
+    twins stage in C instead)."""
     system.histogram(name, float(duration_ns))
     return duration_ns
 
@@ -167,6 +175,115 @@ class _PyTimer:
     def stop(self, start_ns: int) -> int:
         duration_ns = time.perf_counter_ns() - start_ns
         return _record_duration(self._system, self.name, duration_ns)
+
+
+class FastTimerToken:
+    """The C-extension timer token: the extension reads the clock itself
+    (the last thing ``timer_start`` does, the first thing ``timer_stop``
+    does), so the measured gap carries only the Python call plumbing
+    between the two calls; the sample is staged in C and the fold check
+    is one compare on the staged size the call returns.  The surface of
+    TimerToken (reference metrics.go:62-67)."""
+
+    __slots__ = ("name", "start_ns", "_stop_p", "_threshold", "_system")
+
+    def __init__(self, name: str, system: "MetricSystem", stop_p):
+        self.name = name
+        self._system = system
+        # the name's cached partial(timer_stop, buf, fid)
+        self._stop_p = stop_p
+        self._threshold = system._fast_fold_threshold
+        self.start_ns = system._fastpath.timer_start()
+
+    def stop(self) -> int:
+        duration_ns, size = self._stop_p(self.start_ns)
+        if size >= self._threshold:
+            self._system._fast_fold()
+        return duration_ns
+
+    def __enter__(self) -> "FastTimerToken":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    Stop = stop
+
+
+class FastTimer:
+    """Reusable per-name timer handle: the name resolves once, then
+    ``start()`` / ``stop(stamp)`` are one C call each.
+
+        timer = system.timer("op_latency")
+        t = timer.start()
+        ...
+        dur_ns = timer.stop(t)
+    """
+
+    __slots__ = ("name", "_start_fn", "_stop_p", "_threshold", "_system")
+
+    def __init__(self, name: str, system: "MetricSystem", stop_p):
+        self.name = name
+        self._system = system
+        self._start_fn = system._fastpath.timer_start
+        self._stop_p = stop_p
+        self._threshold = system._fast_fold_threshold
+
+    def start(self) -> int:
+        return self._start_fn()
+
+    def stop(self, start_ns: int) -> int:
+        duration_ns, size = self._stop_p(start_ns)
+        if size >= self._threshold:
+            self._system._fast_fold()
+        return duration_ns
+
+
+class FastRecorder:
+    """Reusable per-name histogram recorder: ``record(value)`` is ONE C
+    staging call (``record_sized``, which returns the staged size) and a
+    compare against the fold threshold.
+
+        rec = system.recorder("payload_bytes")
+        rec.record(len(payload))
+    """
+
+    __slots__ = ("name", "_rec_p", "_threshold", "_system")
+
+    def __init__(self, name: str, system: "MetricSystem", rec_p):
+        self.name = name
+        self._system = system
+        self._rec_p = rec_p
+        self._threshold = system._fast_fold_threshold
+
+    def record(self, value: float) -> None:
+        if self._rec_p(value) >= self._threshold:
+            self._system._fast_fold()
+
+
+class FastCounter:
+    """Reusable per-name counter handle: ``add(amount)`` is one C staging
+    call and a compare; amounts outside the integer-exact window
+    (non-int, or |amount| > 2^31) take ``counter()``'s Python path.
+
+        reqs = system.counter_handle("requests")
+        reqs.add(1)
+    """
+
+    __slots__ = ("name", "_add_p", "_threshold", "_system")
+
+    def __init__(self, name: str, system: "MetricSystem", add_p):
+        self.name = name
+        self._system = system
+        self._add_p = add_p
+        self._threshold = system._fast_fold_threshold
+
+    def add(self, amount: int = 1) -> None:
+        if type(amount) is int and _I32_LO <= amount <= _I32_HI:
+            if self._add_p(amount) >= self._threshold:
+                self._system._fast_fold()
+        else:
+            self._system.counter(self.name, amount)
 
 
 class _PyRecorder:
@@ -233,13 +350,48 @@ class MetricSystem:
         num_shards: Optional[int] = None,
         fast_ingest: bool = False,
     ):
+        """``fast_ingest=True`` routes per-call histogram samples and
+        integer counter increments through the C staging buffers of
+        ``_native/fastpath.cpp``; without the extension it logs why and
+        keeps the Python path.  The lifetime counter store stays
+        integer-exact: amounts beyond 2^31 (and non-int amounts) take the
+        Python path."""
         if interval <= 0:
             raise ValueError("interval must be positive seconds")
-        if fast_ingest:
-            raise ValueError(FAST_INGEST_SLICE)
         self.interval = float(interval)
         self.config = config
         self._percentiles: Dict[str, float] = dict(DEFAULT_PERCENTILES)
+
+        self._fast_record = None
+        if fast_ingest:
+            from loghisto_tpu_torch import _native
+
+            if _native.fastpath_available():
+                mod = _native.fastpath_module()
+                self._fastpath = mod
+                # the counter buffer is made on first use, so histogram-
+                # only workloads do not pay for it
+                self._fast_buf = mod.create(1 << 22)
+                self._fast_counter_buf = None
+                self._fast_record = mod.record
+                self._fast_lock = threading.Lock()
+                self._fast_name_ids: Dict[str, int] = {}
+                self._fast_names: list = []
+                # folded sparse counts: memory stays O(buckets), as on
+                # the Python path
+                self._fast_folded: Dict[str, Dict[int, int]] = {}
+                self._fast_counter_folded: Dict[str, int] = {}
+                self._fast_fold_threshold = 1 << 21  # half the buffer
+                # lifetime-cumulative drop counts the extension reports
+                self._fast_dropped_total = 0
+                self._fast_counter_dropped_total = 0
+                self._fast_stop_partials: Dict[str, tuple] = {}
+                self._fast_rec_partials: Dict[str, tuple] = {}
+                self._fast_add_partials: Dict[str, tuple] = {}
+            else:
+                logger.warning(
+                    "fast_ingest requested but the extension is "
+                    "unavailable; using the Python path")
 
         self._shards = [_Shard() for _ in range(num_shards or _num_default_shards())]
         # threads take shards round-robin through a thread-local
@@ -283,6 +435,106 @@ class MetricSystem:
             self._thread_local.shard_idx = idx
         return self._shards[idx]
 
+    def _fast_put(self, buf, name: str, value: float) -> None:
+        """Fast-path staging of one sample or increment, then the fold
+        poll.  Folding at half of the (equal-sized) buffers keeps
+        steady-state loss at zero whatever the traffic mix."""
+        fid = self._fast_name_ids.get(name)
+        if fid is None:
+            fid = self._fast_id(name)
+        self._fast_record(buf, fid, value)
+        self._fast_tick(buf)
+
+    def _fast_tick(self, buf) -> None:
+        """Fold-threshold poll after a ``histogram()`` / ``counter()``
+        record: a THREAD-LOCAL stride counter, then the extension's own
+        ``size(buf)`` (a shared Python counter would lose increments
+        under concurrent writers and let the buffer overflow before a
+        fold)."""
+        tl = self._thread_local
+        n = getattr(tl, "fast_n", 0) + 1
+        # the stride shrinks with the threshold, so small buffers still
+        # poll often enough
+        stride = min(4096, self._fast_fold_threshold >> 3) or 1
+        if n >= stride:
+            n = 0
+            if self._fastpath.size(buf) >= self._fast_fold_threshold:
+                self._fast_fold()
+        tl.fast_n = n
+
+    def _fast_ensure_counter_buf(self):
+        """The counter staging buffer, made on first use (double-checked
+        under the lock)."""
+        buf = self._fast_counter_buf
+        if buf is None:
+            with self._fast_lock:
+                if self._fast_counter_buf is None:
+                    self._fast_counter_buf = self._fastpath.create(1 << 22)
+                buf = self._fast_counter_buf
+        return buf
+
+    def _fast_id(self, name: str) -> int:
+        with self._fast_lock:
+            fid = self._fast_name_ids.get(name)
+            if fid is None:
+                fid = len(self._fast_names)
+                self._fast_names.append(name)
+                self._fast_name_ids[name] = fid
+            return fid
+
+    def _fast_fold(self) -> None:
+        """Drain the C staging buffers and fold them into sparse bucket
+        counts and counter sums (the fast path's ``_fold_shard_buffer``),
+        logging any samples the full buffers shed."""
+        with self._fast_lock:
+            # drain and drop accounting under one lock: concurrent folds
+            # would otherwise move the lifetime watermark backward
+            ids_b, vals_b, dropped = self._fastpath.drain(self._fast_buf)
+            new_dropped = int(dropped) - self._fast_dropped_total
+            self._fast_dropped_total = int(dropped)
+            if self._fast_counter_buf is not None:
+                cids_b, camounts_b, cdropped = self._fastpath.drain(
+                    self._fast_counter_buf)
+                new_cdropped = int(cdropped) - self._fast_counter_dropped_total
+                self._fast_counter_dropped_total = int(cdropped)
+            else:
+                cids_b, camounts_b, new_cdropped = b"", b"", 0
+            names = list(self._fast_names)
+        if new_dropped > 0:
+            logger.error("fast-ingest buffer overflowed; %d histogram "
+                         "samples shed", new_dropped)
+        if new_cdropped > 0:
+            logger.error("fast-ingest COUNTER buffer overflowed; %d "
+                         "increments shed — lifetime totals now "
+                         "under-report", new_cdropped)
+        if cids_b:
+            cids = np.frombuffer(cids_b, dtype=np.int32)
+            camounts = np.frombuffer(camounts_b, dtype=np.float64)
+            sums = np.bincount(cids, weights=camounts)
+            with self._fast_lock:
+                # every id recorded, not every nonzero sum: counter(name,
+                # 0) still makes its rate entry, as in the reference
+                for fid in np.unique(cids):
+                    name = names[fid]
+                    self._fast_counter_folded[name] = (
+                        self._fast_counter_folded.get(name, 0)
+                        + int(sums[fid]))
+        if not ids_b:
+            return
+        fids = np.frombuffer(ids_b, dtype=np.int32)
+        fvals = np.frombuffer(vals_b, dtype=np.float64)
+        order = np.argsort(fids, kind="stable")
+        fids_s, fvals_s = fids[order], fvals[order]
+        uniq, starts = np.unique(fids_s, return_index=True)
+        bounds = np.append(starts, len(fids_s))
+        for k, fid in enumerate(uniq):
+            buckets = compress_np(fvals_s[bounds[k]:bounds[k + 1]],
+                                  self.config.precision)
+            ub, cnt = np.unique(buckets, return_counts=True)
+            with self._fast_lock:
+                _merge_counts(
+                    self._fast_folded.setdefault(names[fid], {}), ub, cnt)
+
     def counter(
         self, name: str, amount: int = 1,
         labels: Optional[Mapping[str, str]] = None,
@@ -291,6 +543,10 @@ class MetricSystem:
         ``labels`` dimension the counter (the canonical labeled row)."""
         if labels:
             name = canonical_name(name, labels)
+        if (self._fast_record is not None and type(amount) is int
+                and _I32_LO <= amount <= _I32_HI):
+            self._fast_put(self._fast_ensure_counter_buf(), name, amount)
+            return
         shard = self._shard()
         with shard.lock:
             shard.counters[name] = shard.counters.get(name, 0) + amount
@@ -305,6 +561,9 @@ class MetricSystem:
         loops: it pays the canonicalization once)."""
         if labels:
             name = canonical_name(name, labels)
+        if self._fast_record is not None:
+            self._fast_put(self._fast_buf, name, value)
+            return
         shard = self._shard()
         with shard.lock:
             buf = shard.histograms.get(name)
@@ -363,42 +622,81 @@ class MetricSystem:
 
     def start_timer(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
-    ) -> TimerToken:
-        """Begin a named timing; stop() the returned token (metrics.go:232)."""
+    ) -> "TimerToken | FastTimerToken":
+        """Begin a named timing; stop() the returned token (metrics.go:232).
+        With fast_ingest the token's clock reads happen in C
+        (``FastTimerToken``, the same surface)."""
         if labels:
             name = canonical_name(name, labels)
+        if self._fast_record is not None:
+            return FastTimerToken(name, self, self._fast_stop_partial(name))
         return TimerToken(name, self)
 
     def timer(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
-    ) -> _PyTimer:
-        """Reusable per-name timer handle for hot loops; with ``labels``
-        one cached handle per label set."""
+    ) -> "FastTimer | _PyTimer":
+        """Reusable per-name timer handle for hot loops (``FastTimer``
+        with fast_ingest); with ``labels`` one cached handle per label
+        set."""
         if labels:
             return self._labeled_handle("timer", name, labels, self.timer)
+        if self._fast_record is not None:
+            return FastTimer(name, self, self._fast_stop_partial(name))
         return _PyTimer(name, self)
 
     def recorder(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
-    ) -> _PyRecorder:
-        """Reusable per-name histogram recorder for hot loops; with
-        ``labels`` one cached handle per label set, so a per-request
-        ``recorder("http.latency", labels={"route": r})`` costs one dict
-        probe after the first call for each route."""
+    ) -> "FastRecorder | _PyRecorder":
+        """Reusable per-name histogram recorder for hot loops
+        (``FastRecorder`` with fast_ingest); with ``labels`` one cached
+        handle per label set, so a per-request ``recorder("http.latency",
+        labels={"route": r})`` costs one dict probe after the first call
+        for each route."""
         if labels:
             return self._labeled_handle("recorder", name, labels,
                                         self.recorder)
+        if self._fast_record is not None:
+            return FastRecorder(name, self, self._fast_record_partial(name))
         return _PyRecorder(name, self)
 
     def counter_handle(
         self, name: str, labels: Optional[Mapping[str, str]] = None,
-    ) -> _PyCounter:
-        """Reusable per-name counter handle for hot loops; with ``labels``
-        one cached handle per label set."""
+    ) -> "FastCounter | _PyCounter":
+        """Reusable per-name counter handle for hot loops (``FastCounter``
+        with fast_ingest); with ``labels`` one cached handle per label
+        set."""
         if labels:
             return self._labeled_handle("counter", name, labels,
                                         self.counter_handle)
+        if self._fast_record is not None:
+            return FastCounter(name, self, self._fast_add_partial(name))
         return _PyCounter(name, self)
+
+    def _fast_partial(self, cache: dict, fn, buf, name: str):
+        """The name's ``functools.partial(fn, buf, fid)``, cached with the
+        buffer it binds: a swapped staging buffer gets a fresh binding at
+        the next handle (handles made before a swap keep the old one)."""
+        entry = cache.get(name)
+        if entry is not None and entry[0] is buf:
+            return entry[1]
+        p = functools.partial(fn, buf, self._fast_id(name))
+        cache[name] = (buf, p)
+        return p
+
+    def _fast_record_partial(self, name: str):
+        return self._fast_partial(self._fast_rec_partials,
+                                  self._fastpath.record_sized,
+                                  self._fast_buf, name)
+
+    def _fast_add_partial(self, name: str):
+        return self._fast_partial(self._fast_add_partials,
+                                  self._fastpath.record_sized,
+                                  self._fast_ensure_counter_buf(), name)
+
+    def _fast_stop_partial(self, name: str):
+        return self._fast_partial(self._fast_stop_partials,
+                                  self._fastpath.timer_stop,
+                                  self._fast_buf, name)
 
     def register_gauge_func(self, name: str, f: Callable[[], float]) -> None:
         with self._gauge_lock:
@@ -504,6 +802,17 @@ class MetricSystem:
         fresh_counters: Dict[str, int] = {}
         hist_buffers: Dict[str, list] = {}
         folded_counts: Dict[str, Dict[int, int]] = {}
+        if self._fast_record is not None:
+            self._fast_fold()
+            with self._fast_lock:
+                fast_folded, self._fast_folded = self._fast_folded, {}
+                fast_counters, self._fast_counter_folded = (
+                    self._fast_counter_folded, {})
+            for name, counts in fast_folded.items():
+                _merge_counts(folded_counts.setdefault(name, {}),
+                              counts.keys(), counts.values())
+            for name, amount in fast_counters.items():
+                fresh_counters[name] = fresh_counters.get(name, 0) + amount
         for shard in self._shards:
             with shard.lock:
                 counters, shard.counters = shard.counters, {}

@@ -41,13 +41,14 @@ from __future__ import annotations
 # reasons it from wire bytes alone; the CPU keeps it, so the port's CPU
 # runs choose the JAX package's transport.
 SPARSE_DENSITY_CROSSOVER = 0.5
-# On the card the sparse route is held by the host's NumPy fold, not by
-# wire bytes.  chip_smoke.py's transport_crossover phase runs both
-# transports through TorchAggregator at cell densities 0.02-0.49 (2^24
-# samples per interval, 10,000 metrics): on NVIDIA H100 80GB HBM3,
-# 700.00 W, sparse (fold + K3, 14-35 M samples/s) never came near raw
-# (staging + K1, 372-967 M), so the crossover is 0.0 — raw always.  Measure it again once the native fold
-# (ROADMAP 6b) lands.
+# On the card the sparse route is held by the host fold, not by wire
+# bytes.  chip_smoke.py's transport_crossover phase runs both transports
+# through TorchAggregator at cell densities 0.02-0.49 (2^24 samples per
+# interval, 10,000 metrics).  On NVIDIA H100 80GB HBM3, 700.00 W, with
+# the native fold on 8 host threads (ops/fold.fold_packed), sparse (fold +
+# K3) ran 28.7-64.2 M samples/s and raw (staging + K1) 468-766 M, so
+# sparse wins at no density and the crossover stays 0.0: raw always.
+# (The NumPy fold before it: sparse 14-35 M against raw 372-967 M.)
 SPARSE_DENSITY_CROSSOVER_BY_DEVICE = {"cuda": 0.0}
 
 INGEST_PATHS = ("fused", "row", "scatter", "sort", "sortscan", "matmul",
@@ -197,13 +198,19 @@ def sparse_density_crossover(platform: str) -> float:
         platform, SPARSE_DENSITY_CROSSOVER)
 
 
-def choose_transport(platform: str, density: float | None = None) -> str:
+def choose_transport(
+    platform: str, density: float | None = None, native_ok: bool = True
+) -> str:
     """transport="auto": start on "raw" and switch to "sparse" once a
     probe shows the load is skewed (density <= the crossover of the
     device type ``platform``; a crossover of 0.0 keeps raw for any
-    load).  The JAX signature, whose ``platform`` the JAX rule ignores;
-    its ``native_ok`` has no counterpart (the port always has its NumPy
-    fold)."""
+    load).  "preagg" is never picked: its record-time fold pays only
+    when the recording threads are the bottleneck, which no flush-side
+    probe sees.  ``native_ok=False`` (no host fold tier at all; the
+    NumPy tier always exists, so never today) pins raw, as in the JAX
+    rule."""
+    if not native_ok:
+        return "raw"
     crossover = sparse_density_crossover(platform)
     if density is not None and crossover > 0.0 and density <= crossover:
         return "sparse"

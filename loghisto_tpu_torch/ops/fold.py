@@ -1,13 +1,16 @@
 """Host fold of raw samples into packed triples — the sparse transport's
-host half (counterpart of the NumPy tier of
+host half (counterpart of the fold tiers of
 ``loghisto_tpu/_native/__init__.py``: ``compress_np_host``,
-``pack_cells``, ``fold_packed_numpy``, ``unpack_cells``; copied).
+``pack_cells``, ``fold_packed_numpy``, ``unpack_cells`` and
+``fold_packed``).
 
 A raw ``(ids, values)`` batch folds into an int32 ``[n, 3]`` array of
 ``(id, codec_bucket, count)`` rows with the float64 codec — the same
 buckets ``compress_np`` and the device kernels give.  A count above
-``PACKED_COUNT_CAP`` splits across rows.  The parallel C++ tier of the
-JAX package is not ported in this slice.
+``PACKED_COUNT_CAP`` splits across rows.  ``fold_packed`` takes the
+parallel C++ fold (``loghisto_tpu_torch._native.fold_packed_native``)
+when the native library builds and this NumPy tier otherwise; both run
+the same codec, so their cells are equal.
 """
 
 from __future__ import annotations
@@ -70,6 +73,25 @@ def fold_packed_numpy(
     keys = (ids.astype(np.int64) << 16) | (b.astype(np.int64) + 32768)
     ukeys, counts = np.unique(keys, return_counts=True)
     return pack_cells(ukeys >> 16, (ukeys & 0xFFFF) - 32768, counts)
+
+
+def fold_packed(
+    ids: np.ndarray, values: np.ndarray, bucket_limit: int,
+    precision: int = 100, num_threads: int | None = None,
+) -> np.ndarray:
+    """Fold a raw batch into packed triples through the fastest tier
+    there is: the parallel native fold when the library built (and could
+    allocate its tables), ``fold_packed_numpy`` otherwise, so the sparse
+    transport never needs a compiler."""
+    from loghisto_tpu_torch import _native
+
+    if _native.available():
+        try:
+            return _native.fold_packed_native(
+                ids, values, bucket_limit, precision, num_threads)
+        except MemoryError:
+            pass  # table or output allocation failed: the NumPy tier
+    return fold_packed_numpy(ids, values, bucket_limit, precision)
 
 
 def unpack_cells(packed: np.ndarray):

@@ -4,7 +4,10 @@
 
 Samples enter through ``record_batch(ids, values)`` (or ``record``),
 buffer on the host and, every ``batch_size`` samples, ``flush`` hands
-them to ONE transfer worker thread (a FIFO).
+them to ONE transfer worker thread (a FIFO).  With
+``native_staging=True`` they buffer in the native lock-striped staging
+buffer (``_native.NativeIngestBuffer``: the writer's C call releases the
+GIL, a full shard sheds and counts) instead of Python lists.
 
 ``storage`` picks what accumulates them (ops/dispatch.py
 ``resolve_storage_path``, resolved before the transport as in the
@@ -19,7 +22,13 @@ routes, updating the accumulator in place:
     (row), by default; K8 (multirow) or one of the JAX package's XLA
     paths when ``ingest_path`` names it (ops/dispatch.py);
   * sparse: the batch is folded on the host into packed
-    (id, bucket, count) triples (ops/fold.py) and merged by K3.
+    (id, bucket, count) triples (``ops/fold.fold_packed``: the parallel
+    native fold, or NumPy without a compiler) and merged by K3;
+  * preagg (explicit opt-in): every ``record_batch`` folds into the
+    calling thread's shard of a ``_native.ShardedCellStore`` at record
+    time; a forced flush (``collect``, ``close``) or a store past
+    ``max_host_cells`` ships the drained cells to K3.  The wire carries
+    each interval's unique cells once.
 
 On paged storage:
 
@@ -45,6 +54,11 @@ fold the accumulator into an exact int64 host spill and take
 ``dense_stats_np``.  ``on_registry_full="grow"`` doubles the row space
 up to ``max_metrics``; growth from one row swaps K2 for K1.
 
+``merge_packed(packed)`` merges int32 ``[n, 3]`` cells already in this
+aggregator's row space through the same packed route (the federation
+receiver's drain); ``pending_samples`` and ``transport_stats()`` are the
+reference's monitoring surface.
+
 ``attach(ms)`` subscribes to a host ``MetricSystem``'s raw broadcast:
 a bridge thread runs ``merge_raw`` on every interval (K3 on dense
 storage, ``PagedStore.commit`` on paged storage, the exact host spill
@@ -56,10 +70,9 @@ this bridge, lands each interval: it folds the cells into ``_acc`` and
 publishes ``stats_snapshot``; past the int32 guard it falls back to
 ``_merge_cells_locked``.
 
-Not in these slices: preagg and native staging, the mesh,
-observability, the fault injector and the supervisor.  A device
-error in the transfer worker is not
-retried: it is re-raised by the next ``flush``, ``wait_transfers`` or
+Not in these slices: the mesh, observability, the fault injector and
+the supervisor.  A device error in the transfer worker is not retried:
+it is re-raised by the next ``flush``, ``wait_transfers`` or
 ``collect``.  When the transfer queue holds more than
 ``max_pending_samples``, ``flush`` waits for it instead of shedding.
 """
@@ -86,7 +99,7 @@ from loghisto_tpu_torch.metrics import (
 )
 from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import kernel_launches, resolve_device
-from loghisto_tpu_torch.ops.fold import compress_np_host, fold_packed_numpy
+from loghisto_tpu_torch.ops.fold import compress_np_host, fold_packed
 from loghisto_tpu_torch.ops.multirow_ingest import multirow_step
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
@@ -142,6 +155,8 @@ class IngestStagingRing:
         ]
         self._events: list = [None] * depth
         self._next = 0
+        self.uploads = 0
+        self.bytes_uploaded = 0
 
     def stage(self, ids: np.ndarray, values: np.ndarray):
         """Copy one chunk (<= slot_samples) into the next slot and start
@@ -157,6 +172,9 @@ class IngestStagingRing:
         host_ids, host_values = self._ids[i][:n], self._values[i][:n]
         host_ids.numpy()[:] = ids
         host_values.numpy()[:] = values
+        self.uploads += 1
+        self.bytes_uploaded += n * (host_ids.element_size()
+                                    + host_values.element_size())
         if self.device.type == "cuda":
             ids_dev = host_ids.to(self.device, non_blocking=True)
             values_dev = host_values.to(self.device, non_blocking=True)
@@ -197,6 +215,7 @@ class TorchAggregator:
         storage: str = "auto",
         paged_config: Optional[PagedStoreConfig] = None,
         device=None,
+        native_staging: bool = False,
     ):
         """``device`` defaults to the card and raises when CUDA is
         absent; ``device="cpu"`` runs the plain versions.  The other
@@ -212,7 +231,14 @@ class TorchAggregator:
         package, so their PyTorch form runs on the card as well: it is
         the reference's path, not a fallback.  An explicit path checks
         its shape before the accumulator is allocated, with the JAX
-        package's sentences."""
+        package's sentences.
+
+        ``transport`` is "auto", "raw", "sparse" or "preagg" (an explicit
+        opt-in: its record-time fold trades the writers' CPU for flush
+        latency, which no flush-side probe can see).  ``native_staging``
+        stages raw samples in the native buffer; without a compiler it
+        logs the build error and stages in Python, and with preagg the
+        buffer is unused (samples fold at record time)."""
         self.device = resolve_device(device)
         self.config = config
         self.num_metrics = num_metrics
@@ -263,10 +289,10 @@ class TorchAggregator:
                 "checks could wrap an int32 cell"
             )
         self.spill_threshold = int(spill_threshold)
-        if transport not in ("auto", "raw", "sparse"):
+        if transport not in ("auto", "raw", "preagg", "sparse"):
             raise ValueError(
-                f"transport={transport!r}: expected 'auto', 'raw' or "
-                "'sparse' (preagg comes in a later slice)"
+                f"transport={transport!r}: expected 'auto', 'raw', "
+                "'preagg', or 'sparse'"
             )
         # the dense path resolves before any allocation, against the
         # growth cap, as the JAX aggregator checks an explicit path
@@ -338,6 +364,46 @@ class TorchAggregator:
         self._pending_values: list = []
         self._pending_count = 0
         self.max_pending_samples = 32 * batch_size
+        # samples accepted by the native buffer since its last drain
+        # (under _lock); the auto-flush counts them
+        self._native_staged = 0
+        self._native_buf = None
+        # samples the preagg store could not take (its table could not
+        # grow even after a drain), under _lock
+        self._shed_samples = 0
+        # wire accounting of the packed routes (transport_stats); the
+        # staging ring counts the raw route's uploads
+        self._xfer_uploads = 0
+        self._xfer_bytes = 0
+        self._xfer_samples_shipped = 0
+        # ship cells mid-interval once the host store holds this many
+        # (bounds host memory at ~16 B a cell)
+        self.max_host_cells = 1 << 22
+        self._cell_store = None
+        if self.transport == "preagg":
+            from loghisto_tpu_torch import _native
+
+            # one shard per writer thread, double-buffered; "auto" takes
+            # the NumPy store when no compiler built the library
+            self._cell_store = _native.ShardedCellStore(
+                config.bucket_limit, config.precision, backend="auto")
+            if native_staging:
+                logger.info(
+                    "preagg transport folds samples into the cell store at "
+                    "record time; the native staging buffer is unused")
+        elif native_staging:
+            from loghisto_tpu_torch import _native
+
+            if _native.available():
+                # 16 shards of 4 batches each (12 B a sample)
+                self._native_buf = _native.NativeIngestBuffer(
+                    num_shards=16,
+                    capacity_per_shard=max(batch_size * 4, 1 << 16),
+                )
+            else:
+                logger.warning(
+                    "native staging requested but unavailable (%s); using "
+                    "Python staging", _native.build_error())
 
         self._xfer_cv = threading.Condition()
         self._xfer_queue: collections.deque = collections.deque()
@@ -486,11 +552,25 @@ class TorchAggregator:
 
     def record_batch(self, ids: np.ndarray, values: np.ndarray) -> None:
         """Buffer a batch of (metric_id, value) samples; flushes when the
-        buffered count reaches batch_size."""
+        buffered count reaches batch_size.  On preagg the batch folds
+        into the cell store here instead."""
         ids = np.asarray(ids, dtype=np.int32)
         values = np.asarray(values, dtype=np.float32)
         if ids.shape != values.shape:
             raise ValueError("ids and values must have the same shape")
+        if self._cell_store is not None:
+            self._preagg_record(ids, values)
+            return
+        if self._native_buf is not None:
+            accepted = self._native_buf.record_batch(
+                ids, values.astype(np.float64))
+            # counted under the lock: a racy += could lose a flush
+            with self._lock:
+                self._native_staged += accepted
+                should_flush = self._native_staged >= self.batch_size
+            if should_flush:
+                self.flush()
+            return
         with self._lock:
             self._pending_ids.append(ids)
             self._pending_values.append(values)
@@ -499,11 +579,54 @@ class TorchAggregator:
         if should_flush:
             self.flush()
 
+    @property
+    def pending_samples(self) -> int:
+        """Samples buffered on the host awaiting the transfer worker (a
+        racy read: exact whenever the worker is idle)."""
+        return self._pending_count
+
+    def _preagg_record(self, ids: np.ndarray, values: np.ndarray) -> None:
+        """Fold one batch into the calling thread's cell shard.  The card
+        sees the cells at a forced flush or past ``max_host_cells``."""
+        consumed = self._cell_store.add(ids, values)
+        if consumed < len(ids):
+            # the shard's table could not grow: the consumed prefix is
+            # folded exactly once, so ship everything held and retry only
+            # the rest
+            self._ship_packed(self._cell_store.drain_packed_all())
+            rest = self._cell_store.add(ids[consumed:], values[consumed:])
+            if consumed + rest < len(ids):
+                dropped = len(ids) - consumed - rest
+                with self._lock:
+                    self._shed_samples += dropped
+                logger.error("cell store cannot grow even after draining; "
+                             "shed %d samples", dropped)
+        if len(self._cell_store) >= self.max_host_cells:
+            self.flush()
+
     def flush(self, force: bool = False) -> None:
         """Hand buffered samples to the transfer worker.  Enqueue-only,
         unless ``force`` (collect, close): then it waits until every
-        enqueued item has reached the device."""
+        enqueued item has reached the device.  On preagg it ships the
+        store's cells when forced or past ``max_host_cells``."""
         self._raise_worker_error()
+        if self._cell_store is not None:
+            if force or len(self._cell_store) >= self.max_host_cells:
+                packed = self._cell_store.drain_packed_all()
+                if len(packed):
+                    self._enqueue_xfer(("packed", packed, None, 0))
+            if force:
+                self.wait_transfers()
+            return
+        if self._native_buf is not None:
+            with self._lock:
+                self._native_staged = 0
+            nids, nvalues = self._native_buf.drain()
+            if len(nids):
+                with self._lock:
+                    self._pending_ids.append(nids)
+                    self._pending_values.append(nvalues.astype(np.float32))
+                    self._pending_count += len(nids)
         with self._lock:
             if self._pending_count:
                 ids = np.concatenate(self._pending_ids)
@@ -607,14 +730,56 @@ class TorchAggregator:
                     self._xfer_active = False
                     self._xfer_cv.notify_all()
 
+    def merge_packed(self, packed: np.ndarray, wait: bool = False) -> None:
+        """Merge an int32 ``[n, 3]`` (row_id, codec_bucket, count) cell
+        array, already in THIS aggregator's row space, through the
+        transfer worker's packed route (K3 or the paged commit, the same
+        spill guarantees and wire accounting as the sparse transport).
+        Scatter-adds are order-free, so interleaving with local ingest
+        cannot change the aggregate.  ``wait`` blocks until the queue
+        drains."""
+        packed = np.ascontiguousarray(packed, dtype=np.int32)
+        if packed.ndim != 2 or packed.shape[1] != 3:
+            raise ValueError(
+                f"packed cell array must be [n, 3] (id, bucket, count); "
+                f"got shape {packed.shape}"
+            )
+        if len(packed):
+            self._enqueue_xfer(("packed", packed, None, 0))
+        if wait:
+            self.wait_transfers()
+
+    def transport_stats(self) -> dict:
+        """Wire accounting of the active transport: uploads, the bytes
+        moved host->device and the samples they carried."""
+        ring = self._staging_ring
+        return {
+            "transport": self.transport,
+            "probe_density": self.probe_density,
+            "uploads": self._xfer_uploads + (ring.uploads if ring else 0),
+            "bytes_uploaded": self._xfer_bytes
+            + (ring.bytes_uploaded if ring else 0),
+            "samples_shipped": self._xfer_samples_shipped,
+        }
+
     def _process_xfer_item(self, item: tuple) -> None:
-        kind, ids, values, n = item
-        if kind == "fold" or self._maybe_switch_sparse(ids, values, n):
-            self._ship_packed(fold_packed_numpy(
-                ids, values, self.config.bucket_limit, self.config.precision
-            ))
+        kind, a, b, n = item
+        if kind == "packed":
+            self._xfer_uploads += 1
+            self._xfer_bytes += a.nbytes
+            self._xfer_samples_shipped += int(a[:, 2].sum(dtype=np.int64))
+            self._ship_packed(a)
             return
-        self._process_raw(ids, values, n)
+        if kind == "fold" or self._maybe_switch_sparse(a, b, n):
+            packed = fold_packed(
+                a, b, self.config.bucket_limit, self.config.precision)
+            self._xfer_uploads += 1
+            self._xfer_bytes += packed.nbytes
+            self._xfer_samples_shipped += n
+            self._ship_packed(packed)
+            return
+        self._process_raw(a, b, n)
+        self._xfer_samples_shipped += n
 
     def _maybe_switch_sparse(self, ids, values, n) -> bool:
         """transport="auto" density probe: runs once, on the first raw
@@ -984,7 +1149,11 @@ class TorchAggregator:
             "tpu.RegistryShedSamples":
                 lambda: float(self._registry_shed_samples),
             "tpu.SpilledSamples": lambda: float(self._spilled_samples),
+            "tpu.SamplesShed": lambda: float(self._shed_samples),
         }
+        if self._native_buf is not None:
+            buf = self._native_buf
+            gauges["tpu.StagingDropped"] = lambda: float(buf.dropped)
         if self.paged is not None:
             st = self.paged
             gauges.update({

@@ -91,6 +91,8 @@ class TorchMetricSystem(MetricSystem):
         paged_config=None,
         lifecycle=None,
         anomaly=None,
+        native_staging: bool = False,
+        fast_ingest: bool = False,
         device=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
@@ -98,11 +100,13 @@ class TorchMetricSystem(MetricSystem):
         pairs one with those tiers, and a ``TimeWheel`` is attached as it
         is (it must share this system's registry).  ``commit``,
         ``transport``, ``storage``, ``paged_config``, ``lifecycle`` (a
-        ``LifecycleConfig``) and ``anomaly`` (an ``AnomalyConfig``) mean
-        what they mean for ``TPUMetricSystem``."""
+        ``LifecycleConfig``), ``anomaly`` (an ``AnomalyConfig``),
+        ``native_staging`` (the aggregator's native staging buffer) and
+        ``fast_ingest`` (the host tier's C staging buffers) mean what
+        they mean for ``TPUMetricSystem``."""
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
-                         config=config)
+                         config=config, fast_ingest=fast_ingest)
         self.aggregator = TorchAggregator(
             num_metrics=num_metrics,
             config=config,
@@ -111,6 +115,7 @@ class TorchMetricSystem(MetricSystem):
             storage=storage,
             paged_config=paged_config,
             device=self.device,
+            native_staging=native_staging,
         )
         self.aggregator.register_device_gauges(self)
         # one inverted index over the shared registry: the wheel's

@@ -11,7 +11,7 @@ and drift on the card, and on paged storage the fused commit with
 eviction and compaction against the same steps on the CPU, K4f after a
 fold and a permutation, the rings-only repack (K6), and checkpoint
 restores (dense in place, paged through K4) against the same restores
-on the CPU.
+on the CPU, and a preagg interval through the native cell store and K3.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -657,6 +657,39 @@ def test_paged_aggregator_interval_on_the_card(dev):
     agg.close()
     assert m["a_count"] == float((ids == 0).sum())
     assert agg.paged.fused_dispatches >= 4
+
+
+def test_preagg_interval_lands_through_k3_on_the_card(dev):
+    """transport="preagg": the native cell store folds at record time and
+    a forced flush ships its cells to the card's accumulator through K3,
+    equal to the same interval on the CPU and to the host oracle."""
+    from loghisto_tpu_torch import _native
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    assert _native.available(), _native.build_error()
+    m, bl = 64, 4096
+    card = TorchAggregator(num_metrics=m, batch_size=1 << 14,
+                           transport="preagg")
+    cpu = TorchAggregator(num_metrics=m, batch_size=1 << 14,
+                          transport="preagg", device="cpu")
+    assert card._cell_store.backend == "native"
+    ids, values = _batch(1 << 17, m, seed=21)
+    before = kernel_launches()["sparse_ingest"]
+    for agg in (card, cpu):
+        for off in range(0, len(ids), 1 << 15):
+            agg.record_batch(ids[off:off + (1 << 15)],
+                             values[off:off + (1 << 15)])
+        agg.flush(force=True)
+    torch.cuda.synchronize()
+    assert kernel_launches()["sparse_ingest"] > before
+    keep = (ids >= 0) & (ids < m)
+    want = np.zeros((m, 2 * bl + 1), np.int64)
+    np.add.at(want, (ids[keep], np.clip(compress_np(values[keep]), -bl, bl)
+                     + bl), 1)
+    assert torch.equal(card._acc.cpu(), cpu._acc)
+    np.testing.assert_array_equal(cpu._acc.numpy(), want)
+    card.close()
+    cpu.close()
 
 
 # -- K5: the masked ring merge of the retention wheel -----------------------

@@ -19,11 +19,7 @@ RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
 
 # names that wait, each with the ROADMAP Queue 1 slice that ports it
 WAITING = {
-    "": {
-        # the native fast-ingest tier
-        "FastCounter": "6b", "FastRecorder": "6b", "FastTimer": "6b",
-        "FastTimerToken": "6b",
-    },
+    "": {},
     ".ops": {},
     ".obs": {
         # the span ring, the watchdog and the trace export
@@ -59,6 +55,9 @@ def test_values_are_the_port_modules_own():
     from loghisto_tpu_torch.ops import codec, stats
 
     assert lh.MetricSystem is metrics.MetricSystem
+    for name in ("FastCounter", "FastRecorder", "FastTimer",
+                 "FastTimerToken"):
+        assert getattr(lh, name) is getattr(metrics, name)
     assert lh.Channel is channel.Channel
     assert lh.DEFAULT_PERCENTILES is config.DEFAULT_PERCENTILES
     assert lh.DEFAULT_PERCENTILES == loghisto_tpu.DEFAULT_PERCENTILES

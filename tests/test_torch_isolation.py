@@ -2,9 +2,11 @@
 nor any module of ``loghisto_tpu``, runs a dense and a paged interval, a
 wheel push and query, a ``TorchMetricSystem`` interval, a fused commit
 with lifecycle and drift, a multirow interval, a firehose run with its
-OpenTSDB export, and a labeled interval with a group_by, a selector
-query and a windowed Prometheus exposition on the CPU without either in
-``sys.modules``, and never falls back to the CPU on its own."""
+OpenTSDB export, a labeled interval with a group_by, a selector query
+and a windowed Prometheus exposition, a preagg interval through the
+native cell store and a fast-ingest interval through the C staging
+buffers on the CPU without either in ``sys.modules``, and never falls
+back to the CPU on its own."""
 
 import ast
 import subprocess
@@ -127,6 +129,25 @@ def test_interval_runs_without_jax_in_sys_modules():
         "assert 'rpc_lat_w1s_count{code=\"200\",route=\"/a\"} 1.0' in text,"
         " text\n"
         "ms.stop()\n"
+        "from loghisto_tpu_torch import _native\n"
+        "from loghisto_tpu_torch.metrics import MetricSystem\n"
+        "agg = TorchAggregator(num_metrics=4, batch_size=64, device='cpu',"
+        " transport='preagg')\n"
+        "assert agg._cell_store.backend == ('native' if _native.available()"
+        " else 'numpy')\n"
+        "agg.record_batch(np.array([agg.registry.id_for('x')] * 100,"
+        " np.int32), np.linspace(1, 100, 100, dtype=np.float32))\n"
+        "assert agg.collect().metrics['x_count'] == 100.0\n"
+        "assert agg.transport_stats()['samples_shipped'] == 100\n"
+        "agg.close()\n"
+        "ms = MetricSystem(interval=1.0, sys_stats=False, fast_ingest=True)\n"
+        "assert (ms._fast_record is not None) =="
+        " _native.fastpath_available()\n"
+        "ms.recorder('f').record(2.0)\n"
+        "ms.counter_handle('c').add(3)\n"
+        "raw = ms.collect_raw_metrics()\n"
+        "assert sum(raw.histograms['f'].values()) == 1, raw\n"
+        "assert raw.counters['c'] == 3, raw\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
