@@ -48,6 +48,15 @@ against host oracles:
     a paged one (K4), a paged restart at 2^16 rows after the churn
     stream, and a journal and watermark restart of the retention system
     with lifecycle and drift (replays through the fused commit);
+  * observability (``observability_main_path``): the retention system
+    with ``observability=True`` through the reaper (every commit's nested
+    spans, the dogfooded rows, ``/healthz`` across an induced stall, the
+    Perfetto dump, ``debug_dump``, the commit's p50/p99 beside the same
+    system without observability), ``paged_lifecycle_main_path``'s
+    system with a pool past 90% (the watchdog's ``pool_saturation``), a
+    ``LOGHISTO_TRACE_DIR``
+    capture of the headline ``collect()`` holding K1, PrintBenchmark on
+    the card and the Submitter across a listener outage;
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -1806,7 +1815,7 @@ def _drive_paged(torch, transport, intervals, m, storage="auto"):
 
 
 def phase_paged_main(torch):
-    raw = _drive_paged(torch, "auto", 2, PAGED_M)
+    raw = _drive_paged(torch, "auto", 1, PAGED_M)
     if not (raw["storage"] == "paged" and raw["fused_paged"]
             and raw["transport"] == "raw"):
         raise AssertionError(f"2^20 rows did not resolve to paged + K4f: {raw}")
@@ -4714,13 +4723,14 @@ def phase_ingest_paths(torch):
 
 
 class _Sink:
-    """An in-process TCP listener that keeps every byte it is sent."""
+    """An in-process TCP listener that keeps every byte it is sent, one
+    entry per connection; ``port`` rebinds a port a closed sink held."""
 
-    def __init__(self):
+    def __init__(self, port=0):
         import socket
         import threading
 
-        self._srv = socket.create_server(("127.0.0.1", 0))
+        self._srv = socket.create_server(("127.0.0.1", port))
         self._srv.settimeout(0.2)
         self.address = self._srv.getsockname()
         self.data = []
@@ -4914,6 +4924,552 @@ def phase_firehose(torch):
             "runs": out}
 
 
+# -- observability, PrintBenchmark and the Submitter ------------------------
+
+# (a) the retention system of retention_main_path with observability=True:
+# live intervals of 2^20 lognormal samples through the reaper, each fed
+# half an interval after its boundary; (e) its processed intervals shipped
+# by the Submitter, the listener down for OB_DOWN intervals; (b) the paged
+# lifecycle phase's system (2^16 rows, PL_TIERS, the churn stream, no
+# lifecycle) in two passes, the second with a pool that its live pages
+# fill to OB_PAGED_FILL; (c) one collect() of the headline aggregator
+# under LOGHISTO_TRACE_DIR; (d) PrintBenchmark
+# on the card in token and handle modes
+OB_INTERVALS = 8
+OB_SAMPLES = 1 << 20
+OB_DOWN = 3
+OB_PAGED_INTERVALS = 4
+OB_PAGED_FILL = 0.95
+OB_PRINT_S = 10.0
+OB_CONCURRENCY = 8
+OB_STAGES = ("commit.cells", "commit.upload", "commit.dispatch",
+             "commit.device_sync", "commit.snapshot_publish")
+OB_DUMP_KEYS = {"commit_path", "commit_path_reason", "mesh", "registry",
+                "rings", "transport", "query", "labels", "commit", "obs",
+                "health"}
+
+
+def _ob_wait(cond, what, limit=60.0):
+    deadline = time.monotonic() + limit
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} did not happen within {limit} s")
+        time.sleep(0.02)
+
+
+class _ObFeeder:
+    """Feeds OB_SAMPLES lognormal samples over the names through
+    histogram_batch once an interval: the first batch at start, then one
+    half an interval past each boundary, so that it neither races the
+    reaper's collection nor shares the host with the commit that
+    follows it."""
+
+    def __init__(self, ms, names, seed):
+        import threading
+
+        self.ms, self.names = ms, names
+        self.rng = np.random.default_rng(seed)
+        self.mu = self.rng.uniform(2.0, 8.0, len(names))
+        self.sigma = self.rng.uniform(0.3, 1.5, len(names))
+        self.batches = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ob-feeder")
+
+    def feed(self):
+        per = OB_SAMPLES // len(self.names)
+        for i, name in enumerate(self.names):
+            self.ms.histogram_batch(
+                name, self.rng.lognormal(self.mu[i], self.sigma[i], per))
+        self.batches += 1
+
+    def _run(self):
+        # the reaper's intervals, not the commits: a stalled commit must
+        # not starve the intervals of samples
+        while not self._stop.is_set():
+            interval = self.ms.interval
+            self._stop.wait((0.5 * interval - time.time()) % interval)
+            if not self._stop.is_set():
+                self.feed()
+
+    def start(self):
+        self.feed()
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+
+
+def _ob_graphite_ts(payload: bytes) -> int:
+    """The one timestamp of a Graphite payload (one interval's lines)."""
+    stamps = {ln.rsplit(" ", 1)[1] for ln in payload.decode().splitlines()}
+    if len(stamps) != 1:
+        raise AssertionError(f"a payload holds {len(stamps)} timestamps")
+    return int(stamps.pop())
+
+
+def _ob_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _ob_percentiles(hist):
+    return {"p50_us": hist.percentile(50.0), "p99_us": hist.percentile(99.0),
+            "count": hist.count}
+
+
+def _ob_retention(torch, observed):
+    """(a), and (e) when observed; returns the phase's report of it."""
+    import tempfile
+
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.channel import Channel
+    from loghisto_tpu_torch.graphite import graphite_protocol
+    from loghisto_tpu_torch.obs import dump_perfetto
+    from loghisto_tpu_torch.prometheus import PrometheusEndpoint
+    from loghisto_tpu_torch.submitter import new_submitter
+
+    names = [f"g{i // 64:02d}.m{i % 64:02d}" for i in range(RET_M)]
+    ms = TorchMetricSystem(interval=1.0, num_metrics=RET_M, retention=True,
+                           observability=True if observed else None)
+    com = ms.committer
+    if ms.commit_path != "fused" or com is None:
+        raise AssertionError(f"commit path {ms.commit_path}")
+    if [tuple(t) for t in ms.retention.tiers] != [tuple(t)
+                                                  for t in RET_TIERS]:
+        raise AssertionError("not the reference's default tiers")
+    for name in names:
+        ms.metric_id(name)
+    feeder = _ObFeeder(ms, names, SEED + 70)
+    if not observed:
+        ms.start()
+        feeder.start()
+        try:
+            _ob_wait(lambda: com.intervals_committed >= OB_INTERVALS,
+                     "the unobserved commits")
+        finally:
+            feeder.stop()
+            ms.stop()
+        out = {"commit": _ob_percentiles(com._latency_hist),
+               "intervals": com.intervals_committed}
+        del ms, com
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    processed = Channel(512)
+    ms.subscribe_to_processed_metrics(processed)
+    serialized = []  # (interval timestamp, listener up?) in send order
+    sink = [_Sink()]
+    addr = sink[0].address
+    up = [True]
+
+    def serializer(pms):
+        payload = graphite_protocol(pms)
+        serialized.append((_ob_graphite_ts(payload), up[0]))
+        return payload
+
+    sub = new_submitter(ms, serializer, "tcp", addr)
+    sub.register_gauges()
+    ep = PrometheusEndpoint(ms, port=0, host="127.0.0.1")
+    url = None
+    depth_max = 0
+    try:
+        ep.start()
+        url = f"http://127.0.0.1:{ep.port}/healthz"
+        ms.start()
+        sub.start()
+        feeder.start()
+
+        def committed(n):
+            _ob_wait(lambda: com.intervals_committed >= n,
+                     f"{n} committed intervals")
+
+        committed(2)
+        _ob_wait(lambda: len(sink[0].data) >= 1, "a delivery")
+        # (e) the listener goes down for OB_DOWN intervals
+        sink[0].close()
+        up[0] = False
+        n_down = com.intervals_committed
+        while com.intervals_committed < n_down + OB_DOWN:
+            depth_max = max(depth_max, sub.backlog_depth())
+            time.sleep(0.05)
+        depth_max = max(depth_max, sub.backlog_depth())
+        failures_down = sub.send_failures
+        sink.append(_Sink(port=addr[1]))
+        up[0] = True
+        committed(OB_INTERVALS)
+        report_ok = ms.health.report()
+        if not report_ok.ok:
+            raise AssertionError(f"health not ok: {report_ok.as_dict()}")
+        status_ok, doc_ok = _ob_get(url)
+        # (a) a stall: the bridge takes intervals and commits none
+        real_commit = com.commit
+        com.commit = lambda raw: None
+        t_stall = time.perf_counter()
+        _ob_wait(lambda: ms.health.report().status == "stalled",
+                 "the stall report", limit=30.0)
+        stall_s = time.perf_counter() - t_stall
+        status_stall, doc_stall = _ob_get(url)
+        com.commit = real_commit
+        n_resume = com.intervals_committed
+        committed(n_resume + 2)
+        status_back, doc_back = _ob_get(url)
+        # (e) the backlog drains: its gauge returns to 0
+        depth_gauge = ms._gauge_funcs["export.BacklogDepth"]
+        _ob_wait(lambda: depth_gauge() == 0.0, "the backlog drain")
+        committed(com.intervals_committed + 2)
+        _ob_wait(lambda: sub.backlog_depth() == 0, "the last sends")
+    finally:
+        feeder.stop()
+        sub.shutdown()
+        ep.stop()
+        ms.stop()
+        for s in sink:
+            s.close()
+    spans = ms.obs.spans()
+    by_seq = collections.defaultdict(list)
+    for s in spans:
+        by_seq[s.seq].append(s)
+    e2e = [s for s in spans if s.stage == "commit.e2e"]
+    if len(e2e) != com.intervals_committed:
+        raise AssertionError(f"{len(e2e)} e2e spans for "
+                             f"{com.intervals_committed} commits")
+    seqs = [s.seq for s in e2e]
+    if any(b <= a for a, b in zip(seqs, seqs[1:])) or seqs[0] < 1:
+        raise AssertionError(f"e2e seqs not strictly increasing: {seqs}")
+    stage_us = collections.defaultdict(list)
+    for parent in e2e:
+        kids = [s for s in by_seq[parent.seq] if s is not parent
+                and s.stage.startswith("commit.")]
+        missing = set(OB_STAGES) - {s.stage for s in kids}
+        if missing:
+            raise AssertionError(f"seq {parent.seq} lacks {missing}")
+        for s in kids:
+            if s.thread != parent.thread or not (
+                    parent.start_ns <= s.start_ns <= s.end_ns
+                    <= parent.end_ns):
+                raise AssertionError(f"{s.stage} of seq {parent.seq} is "
+                                     "not inside its commit.e2e")
+            stage_us[s.stage].append(s.duration_us)
+        stage_us["commit.e2e"].append(parent.duration_us)
+    # what the self-observer was handed: each seq's spans closed by the
+    # end of its commit.e2e (the hand-over follows it)
+    handed = sum(1 for parent in e2e for s in by_seq[parent.seq]
+                 if s.end_ns <= parent.end_ns)
+    if ms.self_observer.reingested != handed or not handed:
+        raise AssertionError(f"reingested {ms.self_observer.reingested} "
+                             f"of {handed} spans")
+    if ms.obs.dropped:
+        raise AssertionError(f"{ms.obs.dropped} spans dropped")
+    sets = []
+    while len(processed):
+        sets.append(processed.get(block=False).metrics)
+    e2e_rows = [m.get("obs.commit.e2e.LatencyUs_count", 0.0) for m in sets]
+    if not any(e2e_rows):
+        raise AssertionError("obs.commit.e2e.LatencyUs reached no "
+                             "processed set")
+    # the gauge as the intervals read it: it rose while the listener was
+    # down (one payload a boundary in flight is normal, so >= 2)
+    depths = [m.get("export.BacklogDepth", 0.0) for m in sets]
+    if max(depths) < 2.0:
+        raise AssertionError(f"export.BacklogDepth {depths}")
+    if any(m.get("obs.SpansDropped") for m in sets):
+        raise AssertionError("obs.SpansDropped is not 0")
+    # /healthz across the stall
+    if (status_ok, status_stall, status_back) != (200, 503, 200):
+        raise AssertionError(f"/healthz {status_ok} {status_stall} "
+                             f"{status_back}")
+    if doc_stall["reasons"][0]["code"] != "no_commit" or \
+            doc_back["status"] != "ok":
+        raise AssertionError(f"/healthz documents {doc_stall} {doc_back}")
+    # (e) every interval serialized, delivered exactly once and in order;
+    # those serialized while the listener was down arrive after it returns
+    got = [_ob_graphite_ts(p) for s in sink for p in s.data]
+    sent = [ts for ts, _ in serialized]
+    # at most the payload serialized after the last send is undelivered
+    if got != sent[:len(got)] or len(sent) - len(got) > 1:
+        raise AssertionError(f"delivered {got} != serialized {sent}")
+    while_down = [ts for ts, was_up in serialized if not was_up]
+    after = {_ob_graphite_ts(p) for p in sink[1].data}
+    if not while_down or not set(while_down) <= after:
+        raise AssertionError(f"intervals sent while down {while_down} did "
+                             "not arrive after the return")
+    if not 0 < depth_max < 60:
+        raise AssertionError(f"backlog depth {depth_max} while down")
+    # Perfetto: one event per span
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "obs_trace.json")
+        n_events = dump_perfetto(ms.obs, path)
+        with open(path) as f:
+            doc = json.load(f)
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    if len(xs) != len(spans) or n_events != len(doc["traceEvents"]):
+        raise AssertionError(f"{len(xs)} trace events for {len(spans)} "
+                             "spans")
+    dump = ms.debug_dump()
+    if set(dump) != OB_DUMP_KEYS or not dump["obs"]["enabled"]:
+        raise AssertionError(f"debug_dump keys {sorted(dump)}")
+    out = {
+        "intervals_committed": com.intervals_committed,
+        "batches_fed": feeder.batches, "samples_per_batch": OB_SAMPLES,
+        "seqs": seqs, "spans": len(spans),
+        "reingested": ms.self_observer.reingested,
+        "spans_dropped": ms.obs.dropped,
+        "stage_us_median": {k: float(np.median(v))
+                            for k, v in stage_us.items()},
+        "stage_us_max": {k: float(np.max(v)) for k, v in stage_us.items()},
+        "commit": _ob_percentiles(com._latency_hist),
+        "e2e_self_observed": _ob_percentiles(
+            ms.self_observer.commit_latency),
+        "healthz": {"ok": status_ok, "stalled": status_stall,
+                    "resumed": status_back, "stall_detected_s": stall_s,
+                    "stall_reason": doc_stall["reasons"][0]},
+        "submitter": {"serialized": len(sent), "delivered": len(got),
+                      "backlog_gauge": depths,
+                      "while_down": len(while_down),
+                      "backlog_depth_max": depth_max,
+                      "send_failures": sub.send_failures,
+                      "failures_while_down": failures_down,
+                      "bytes_sent": sub.bytes_sent},
+        "perfetto_events": n_events,
+        "debug_dump": {"commit": dump["commit"], "obs": dump["obs"],
+                       "health": dump["health"]["status"]},
+    }
+    del ms, com
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ob_paged_pass(torch, pool):
+    """The churn stream's first OB_PAGED_INTERVALS intervals through
+    paged_lifecycle_main_path's system with observability; returns its
+    pool state and the watchdog's report."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+
+    rng = np.random.default_rng((SEED, 61))
+    mu = rng.uniform(2.0, 6.0, PL_STEADY)
+    sigma = rng.uniform(0.3, 1.0, PL_STEADY)
+    t0 = _dt.datetime(2026, 10, 17, tzinfo=_dt.timezone.utc)
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=PL_M, retention=PL_TIERS,
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=pool,
+                                                       codec="auto"),
+        observability=True)
+    paged = ms.aggregator.paged
+    if paged is None or ms.commit_path != "fused":
+        raise AssertionError("not the paged fused commit")
+    for name in (f"api.s{i}.lat" for i in range(PL_STEADY)):
+        ms.metric_id(name)
+    t1 = time.perf_counter()
+    for k in range(OB_PAGED_INTERVALS):
+        raw, _, _ = _pl_stream(k, mu, sigma, PL_STEADY, PL_FRESH, PL_SAMPLES,
+                               t0)
+        ms.backfill_retention([raw])
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t1
+    if paged._host_spill or paged.spilled_cells or paged.overflowed_cells:
+        raise AssertionError("cells left the pool")
+    rep = ms.health.report()
+    out = {"pool_pages": pool, "occupied_pages": paged.occupied_pages,
+           "saturation": paged.pool_saturation(),
+           "shard_occupancy": paged.shard_occupancy(),
+           "live_rows": len(ms.aggregator.registry),
+           "report": rep.as_dict(), "commit_s": commit_s}
+    ms.stop()
+    del ms, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ob_trace(torch):
+    """(c): one collect() of the headline aggregator under
+    LOGHISTO_TRACE_DIR; the buffered batch ships inside the capture.
+    CUPTI on the card's machine now and then hands back a trace with no
+    device activity at all (``_device_busy``); such a capture is taken
+    again with a fresh batch, up to three times, and counted in
+    ``empty_traces``; three empty traces fail."""
+    import glob
+    import tempfile
+
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    rng = np.random.default_rng(SEED + 71)
+    # a batch_size past the batch: record_batch only buffers it
+    agg = TorchAggregator(num_metrics=M, batch_size=2 * BATCH)
+    for i in range(M):
+        agg.registry.id_for(f"m{i}")
+    old = os.environ.get("LOGHISTO_TRACE_DIR")
+    try:
+        for empty in range(3):
+            agg.record_batch(zipf_ids(rng, BATCH, M),
+                             lognormal_values(rng, BATCH))
+            with tempfile.TemporaryDirectory() as tmp:
+                os.environ["LOGHISTO_TRACE_DIR"] = tmp
+                t0 = time.perf_counter()
+                metrics = agg.collect().metrics
+                collect_s = time.perf_counter() - t0
+                paths = glob.glob(os.path.join(tmp, "loghisto_collect",
+                                               "*.json"))
+                if len(paths) != 1:
+                    raise AssertionError(f"{len(paths)} trace files written")
+                size = os.path.getsize(paths[0])
+                with open(paths[0]) as f:
+                    events = json.load(f)["traceEvents"]
+            total = sum(metrics.get(f"m{i}_count", 0.0) for i in range(M))
+            if total != BATCH:
+                raise AssertionError(f"collect counted {total} of {BATCH}")
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if kernels:
+                break
+        else:
+            raise AssertionError("three traces held no kernel of the card")
+    finally:
+        if old is None:
+            os.environ.pop("LOGHISTO_TRACE_DIR", None)
+        else:
+            os.environ["LOGHISTO_TRACE_DIR"] = old
+        agg.close()
+    names = [e.get("name", "") for e in events]
+    k1 = [e for e in kernels if "lh_fused_ingest_kernel" in e["name"]]
+    if "loghisto_collect" not in names:
+        raise AssertionError("the trace lacks the loghisto_collect region")
+    if not k1:
+        seen = sorted({e["name"][:60] for e in kernels})
+        raise AssertionError(f"the trace lacks K1's kernel: {seen}")
+    return {"events": len(events), "bytes": size,
+            "kernel_events": len(kernels), "empty_traces": empty,
+            "k1_events": len(k1), "k1_device_us": sum(e.get("dur", 0.0)
+                                                      for e in k1),
+            "kernel_names": sorted({e["name"][:60] for e in kernels}),
+            "collect_s_with_capture": collect_s}
+
+
+def _ob_print_benchmark(handles):
+    """(d): print_benchmark(device=True) for OB_PRINT_S seconds."""
+    import io
+
+    from loghisto_tpu_torch.print_benchmark import (
+        _interesting_metrics,
+        print_benchmark,
+    )
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    print_benchmark("bench_op", concurrency=OB_CONCURRENCY, op=lambda: None,
+                    duration=OB_PRINT_S, interval=1.0, out=out, device=True,
+                    handles=handles)
+    wall_s = time.perf_counter() - t0
+    want = _interesting_metrics("bench_op")
+    text = out.getvalue()
+    if not text.endswith("\n\n"):
+        raise AssertionError("a block was cut")
+    counts, lifetime = [], 0.0
+    blocks = [b.split("\n") for b in text.split("\n\n") if b]
+    for block in blocks:
+        if [ln.split(":")[0] for ln in block[1:]] != want:
+            raise AssertionError(f"a block is not the 19 lines: {block}")
+        v = {k.strip().rstrip(":"): float(x)
+             for k, x in (ln.split("\t") for ln in block[1:])}
+        if v["bench_op_count"]:
+            if not (v["bench_op_min"] <= v["bench_op_50"]
+                    <= v["bench_op_99"] <= v["bench_op_max"]):
+                raise AssertionError(f"percentiles out of order: {v}")
+            counts.append(v["bench_op_count"])
+        lifetime = max(lifetime, v["bench_op_agg_count"])
+    if len(counts) < 3:
+        raise AssertionError(f"{len(counts)} blocks with samples")
+    # a block holds what the card merged since the last one (none, one or
+    # two intervals, and the host's count when none): the rate is the
+    # largest lifetime count printed over the run's wall time, a lower
+    # bound (the last interval is never printed)
+    return {"blocks": len(blocks), "nonzero_blocks": len(counts),
+            "ops_per_block": counts, "ops_per_s": lifetime / wall_s,
+            "wall_s": wall_s}
+
+
+def phase_observability(torch):
+    """Observability on the card: (a) TorchMetricSystem(interval=1.0,
+    num_metrics=1024, retention=True, observability=True) at the
+    reference's default tiers, OB_INTERVALS live intervals of 2^20
+    lognormal samples through the reaper and the fused commit (K3, K5):
+    every committed interval's complete nested span set, the dogfooded
+    obs.commit.e2e rows, the watchdog ok, a stall (a no-op commit)
+    answered 503 no_commit on /healthz and 200 once commits resume, the
+    Perfetto dump, debug_dump, no span dropped, and the commit's p50/p99
+    beside an identical system without observability; (b) the paged
+    system with a pool that its live pages fill past 90% (K4): the
+    watchdog's pool_saturation equals the store's; (c) a
+    LOGHISTO_TRACE_DIR capture of collect() holding the region and K1;
+    (d) print_benchmark(device=True) in both modes; (e) the Submitter
+    ships (a)'s intervals, the listener down OB_DOWN intervals, every one
+    delivered once and in order."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    observed = _ob_retention(torch, observed=True)
+    plain = _ob_retention(torch, observed=False)
+    retention_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    first = _ob_paged_pass(torch, PL_POOL)
+    pool = int(first["occupied_pages"] / OB_PAGED_FILL) + 1
+    second = _ob_paged_pass(torch, pool)
+    if second["occupied_pages"] != first["occupied_pages"]:
+        raise AssertionError("the second pass mapped other pages")
+    rep = second["report"]
+    sat = [r for r in rep["reasons"] if r["code"] == "pool_saturation"]
+    if not sat or sat[0]["value"] != second["saturation"] \
+            or second["saturation"] < 0.9 or rep["status"] != "degraded":
+        raise AssertionError(f"pool_saturation not reported: {rep}")
+    if first["report"]["status"] != "ok":
+        raise AssertionError(f"the roomy pool is not ok: {first['report']}")
+    paged_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    traced = _ob_trace(torch)
+    trace_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bench = {mode: _ob_print_benchmark(handles)
+             for mode, handles in (("tokens", False), ("handles", True))}
+    bench_s = time.perf_counter() - t0
+
+    launches = kernel_launches()
+    for kernel in ("fused_ingest", "sparse_ingest", "paged_scatter",
+                   "window_merge"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched")
+        RESULTS.setdefault(kernel, {})["launches"] = (
+            RESULTS.get(kernel, {}).get("launches", 0) + launches[kernel])
+    return {
+        "retention": {"observed": observed, "unobserved": plain,
+                      "s": retention_s},
+        "paged": {"roomy": {k: v for k, v in first.items()
+                            if k != "report"},
+                  "saturated": second, "s": paged_s},
+        "trace": {**traced, "s": trace_s},
+        "print_benchmark": {**bench, "s": bench_s},
+        "launches": {k: launches[k] for k in (
+            "fused_ingest", "sparse_ingest", "paged_scatter",
+            "window_merge")},
+    }
+
+
 KERNEL_META = {
     "fused_ingest": ("loghisto_tpu_torch/csrc/fused_ingest.cu",
                      "loghisto_tpu/ops/fused_ingest.py:169", None),
@@ -4997,6 +5553,12 @@ def main() -> int:
                          phase_labels_group_by),
                         ("k8_multirow_ingest", phase_k8),
                         ("ingest_paths_main_path", phase_ingest_paths),
+                        # before the firehose: after its profiled
+                        # intervals, later torch.profiler captures in the
+                        # process lose the hand-built kernels' records
+                        # (PERF.md §7)
+                        ("observability_main_path",
+                         phase_observability),
                         ("firehose_main_path", phase_firehose)):
         if only and name != "card" and name not in only:
             continue

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from loghisto_tpu_torch.anomaly.config import AnomalyConfig
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.anomaly import (
     SCORE_KEYS,
     make_bank_compact_fn,
@@ -89,6 +90,9 @@ class AnomalyManager:
         self._scores_gen = -1
 
         self._intervals_seen = 0
+        # the scoring pass's span; TorchMetricSystem(observability=...)
+        # installs a real ring
+        self.obs_recorder = NULL_RECORDER
         self.scored_intervals = 0
         self.skipped_intervals = 0  # no snapshot / no baselines yet
 
@@ -170,7 +174,8 @@ class AnomalyManager:
         self._intervals_seen += 1
         if self._intervals_seen % self.config.check_every:
             return
-        self.score_now(raw.time)
+        with self.obs_recorder.span("anomaly.score", raw.seq):
+            self.score_now(raw.time)
 
     def _view(self, snap):
         ts = snap.tiers[self.config.tier]

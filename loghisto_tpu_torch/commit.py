@@ -39,6 +39,14 @@ exact host spill (``_merge_cells_locked``) and the wheel's own push.
 
 Lock order: the aggregator's ``_dev_lock``, then the wheel's lock.
 
+Observability: with a span ring installed (``obs_recorder``) a commit
+adopts the interval's seq and records ``commit.cells``,
+``commit.upload``, ``commit.dispatch``, ``commit.device_sync`` (the
+wait on the commit's queued CUDA work, ``device_sync``) and
+``commit.snapshot_publish``, all inside its ``commit.e2e`` span; then
+the watchdog notes the commit and the self-observer re-ingests the
+interval's spans.
+
 Failure (decision D6 in ROADMAP): a failed commit step is not recovered
 as the reference recovers donated buffers.  The exception leaves
 ``commit``; on the bridge thread it is logged and kept as
@@ -54,6 +62,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from loghisto_tpu_torch.channel import ChannelClosed, ResilientSubscription
 from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
@@ -95,6 +104,16 @@ def commit_incompatibility(aggregator, wheel) -> Optional[str]:
             f"aggregator on {aggregator.device}, wheel on {wheel.device}"
         )
     return None
+
+
+def device_sync(device: torch.device) -> None:
+    """Wait for the work this thread queued on the card: an event
+    recorded on the current stream, then its host-side wait.  On the CPU
+    every step already ran when it returned."""
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        event.synchronize()
 
 
 class IntervalCommitter:
@@ -166,7 +185,12 @@ class IntervalCommitter:
         self.last_h2d_bytes = 0
         self.last_uploads = 0
         self._latency_hist = LatencyHistogram(prec)
+        # observability: the span ring, the self-observer and the
+        # watchdog, installed by TorchMetricSystem(observability=...);
+        # the defaults cost a no-op call per site
         self.obs_recorder = NULL_RECORDER
+        self.self_observer = None
+        self.watchdog = None
 
         self._ms: Optional[MetricSystem] = None
         self._sub: Optional[ResilientSubscription] = None
@@ -221,7 +245,10 @@ class IntervalCommitter:
         then score drift, run the wheel's hooks and the lifecycle tick.
         Returns the path taken ("fused", "fanout" or "empty")."""
         rec = self.obs_recorder
+        # adopt the reaper-minted interval seq: every span recorded until
+        # the next commit attributes to this interval
         seq = rec.begin_interval(raw.seq)
+        t0_ns = time.perf_counter_ns()
         t0 = time.perf_counter()
         wheel = self.wheel
         dur = (
@@ -249,6 +276,8 @@ class IntervalCommitter:
             # no interval's cells are in flight while rows move
             self.lifecycle.on_interval()
         us = (time.perf_counter() - t0) * 1e6
+        # the end-to-end span every stage span above nests inside
+        rec.record("commit.e2e", t0_ns, time.perf_counter_ns(), seq)
         with self._metrics_lock:
             self.intervals_committed += 1
             if mode == "fused":
@@ -263,6 +292,12 @@ class IntervalCommitter:
             # the commit latency rides the normal pipeline, like any
             # other metric
             self._ms.histogram("commit.LatencyUs", us)
+        if self.watchdog is not None:
+            self.watchdog.note_commit(seq)
+        if self.self_observer is not None:
+            # this interval's closed spans re-enter through histogram()
+            # as obs.<stage>.LatencyUs
+            self.self_observer.on_interval(seq)
         return mode
 
     def _commit_cells(self, cells, raw: RawMetricSet, dur: float):
@@ -414,6 +449,12 @@ class IntervalCommitter:
             dispatches += 1
             agg._interval_ingested += int(
                 w64[off:off + take].sum(dtype=np.int64))
+        if self.obs_recorder.enabled and dispatches:
+            # only when observing: wait out the queued commit steps, so
+            # the span carries the card's time instead of leaking it into
+            # whoever touches the carries next
+            with self.obs_recorder.span("commit.device_sync"):
+                device_sync(agg.device)
         for t, s in zip(tiers, slots):
             wheel._tier_close_locked(t, s, raw.rates, dur)
         if payloads is not None:

@@ -45,6 +45,7 @@ import torch
 
 from loghisto_tpu_torch.lifecycle.policy import LifecycleConfig, \
     decide_victims
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.commit import DROP_ID
 from loghisto_tpu_torch.ops.lifecycle import (
     make_compact_fn,
@@ -86,6 +87,9 @@ class LifecycleManager:
         self._la: Optional[torch.Tensor] = None  # int32 [M], _dev_lock
 
         self._intervals_seen = 0
+        # the tick's span; TorchMetricSystem(observability=...) installs
+        # a real ring
+        self.obs_recorder = NULL_RECORDER
         self.evicted_series = 0       # lifetime victims
         self.overflowed_samples = 0   # device counts folded to overflow
         self.evictions = 0            # eviction batches
@@ -135,7 +139,8 @@ class LifecycleManager:
         self._intervals_seen += 1
         if self._intervals_seen % self.config.check_every:
             return
-        self.check()
+        with self.obs_recorder.span("lifecycle.tick"):
+            self.check()
 
     def check(self) -> List[str]:
         """One policy pass.  Returns the evicted names."""

@@ -32,7 +32,12 @@ error and keeps the Python path.
 
 The statistics come from the port's own ``ops/stats`` host tier (NumPy,
 no device), so this layer loads neither ``jax`` nor the JAX package
-(ROADMAP F2).  The observability span ring is not ported.
+(ROADMAP F2).
+
+The reaper mints one sequence number per interval
+(``RawMetricSet.seq``), and with a span ring installed
+(``obs_recorder``, by ``TorchMetricSystem(observability=...)``) records
+the raw broadcast as ``obs.broadcast`` under that seq.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import numpy as np
 from loghisto_tpu_torch.channel import Channel
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
 from loghisto_tpu_torch.labels.model import canonical_name
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.codec import compress_np
 from loghisto_tpu_torch.ops.stats import percentiles_sparse, summarize_sparse
 from loghisto_tpu_torch.utils.sysstats import default_gauges
@@ -422,7 +428,10 @@ class MetricSystem:
         self._lifecycle_lock = threading.Lock()
         self._shutdown = threading.Event()
         self._reaper_thread: Optional[threading.Thread] = None
+        # one sequence number per collected interval: every span
+        # downstream of the RawMetricSet attributes to it
         self._interval_seq = itertools.count(1)
+        self.obs_recorder = NULL_RECORDER
 
     # ------------------------------------------------------------------ #
     # ingest hot path (reference layer L2)
@@ -989,8 +998,9 @@ class MetricSystem:
     def _tick(self, process_queue: "queue.Queue") -> None:
         raw = self.collect_raw_metrics()
         self._update_subscribers()
-        with self._subscribers_lock:
-            self._broadcast(self._raw_subscribers, raw)
+        with self.obs_recorder.span("obs.broadcast", raw.seq):
+            with self._subscribers_lock:
+                self._broadcast(self._raw_subscribers, raw)
 
         def send_processed(raw=raw):
             processed = self.process_metrics(raw)

@@ -259,6 +259,9 @@ class PagedStore:
             (self.num_metrics, self.pages_per_row), -1, dtype=np.int32
         )
         self.total_pages = config.pool_pages
+        # one arena on one card: the reference's one-shard layout, whose
+        # shard arena is the whole pool (slot 0 its zero page)
+        self.shard_pages = config.pool_pages
         # free-slot stack: the top (index _free_n - 1) is popped first,
         # so slots 1, 2, 3, ... are handed out in order, as the JAX
         # store's list.pop() does
@@ -407,9 +410,15 @@ class PagedStore:
     def occupied_pages(self) -> int:
         return self.total_pages - 1 - self.free_pages
 
+    def shard_occupancy(self) -> List[float]:
+        """Occupied fraction of each shard arena (zero page excluded): a
+        list of one, the whole pool."""
+        return [1.0 - self.free_pages / max(1, self.shard_pages - 1)]
+
     def pool_saturation(self) -> float:
-        """Occupied fraction of the pool (zero page excluded)."""
-        return 1.0 - self.free_pages / max(1, self.total_pages - 1)
+        """Worst shard-arena occupancy in [0, 1]; the watchdog's
+        ``pool_saturation`` invariant reads it."""
+        return max(self.shard_occupancy())
 
     def hbm_bytes(self) -> int:
         """Device footprint: the pool plus the page table's mirror."""

@@ -70,11 +70,19 @@ this bridge, lands each interval: it folds the cells into ``_acc`` and
 publishes ``stats_snapshot``; past the int32 guard it falls back to
 ``_merge_cells_locked``.
 
-Not in these slices: the mesh, observability, the fault injector and
-the supervisor.  A device error in the transfer worker is not retried:
-it is re-raised by the next ``flush``, ``wait_transfers`` or
-``collect``.  When the transfer queue holds more than
-``max_pending_samples``, ``flush`` waits for it instead of shedding.
+With a span ring installed (``obs_recorder``, by
+``TorchMetricSystem(observability=...)``) ``flush`` records
+``ingest.flush``, the transfer worker ``ingest.drain`` per item and, on
+the raw route, ``ingest.upload`` / ``ingest.dispatch`` per chunk.
+``collect()`` runs inside ``utils.trace.maybe_capture("loghisto_collect")``:
+a ``torch.profiler`` capture of its flush and statistics when
+``LOGHISTO_TRACE_DIR`` is set, a named region otherwise.
+
+Not in these slices: the mesh, the fault injector and the supervisor.
+A device error in the transfer worker is not retried: it is re-raised
+by the next ``flush``, ``wait_transfers`` or ``collect``.  When the
+transfer queue holds more than ``max_pending_samples``, ``flush`` waits
+for it instead of shedding.
 """
 
 from __future__ import annotations
@@ -97,6 +105,7 @@ from loghisto_tpu_torch.metrics import (
     ProcessedMetricSet,
     RawMetricSet,
 )
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import kernel_launches, resolve_device
 from loghisto_tpu_torch.ops.fold import compress_np_host, fold_packed
@@ -105,6 +114,7 @@ from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
 from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
+from loghisto_tpu_torch.utils.trace import maybe_capture
 
 logger = logging.getLogger("loghisto_tpu_torch")
 
@@ -413,6 +423,10 @@ class TorchAggregator:
         self._xfer_stop = False
         self._xfer_error: Optional[BaseException] = None
         self._staging_ring: Optional[IngestStagingRing] = None
+        self.staging_depth = 3
+        # ingest.* spans; TorchMetricSystem(observability=...) installs a
+        # real ring
+        self.obs_recorder = NULL_RECORDER
 
         if self.storage == "paged":
             self.paged = PagedStore(
@@ -609,6 +623,10 @@ class TorchAggregator:
         unless ``force`` (collect, close): then it waits until every
         enqueued item has reached the device.  On preagg it ships the
         store's cells when forced or past ``max_host_cells``."""
+        with self.obs_recorder.span("ingest.flush"):
+            self._flush_impl(force)
+
+    def _flush_impl(self, force: bool) -> None:
         self._raise_worker_error()
         if self._cell_store is not None:
             if force or len(self._cell_store) >= self.max_host_cells:
@@ -719,7 +737,8 @@ class TorchAggregator:
                 item = self._xfer_queue.popleft()
                 self._xfer_active = True
             try:
-                self._process_xfer_item(item)
+                with self.obs_recorder.span("ingest.drain"):
+                    self._process_xfer_item(item)
             except Exception as e:  # surfaced by the next flush/collect
                 logger.exception("transfer worker failed on a %s item",
                                  item[0])
@@ -824,16 +843,21 @@ class TorchAggregator:
                 ids, _ = self.paged.prepare_batch(ids, values)
             ring = self._staging_ring
             if ring is None or ring.slot_samples != bs:
-                ring = self._staging_ring = IngestStagingRing(bs, self.device)
+                ring = self._staging_ring = IngestStagingRing(
+                    bs, self.device, depth=self.staging_depth)
             bl, prec = self.config.bucket_limit, self.config.precision
+            rec = self.obs_recorder
             for off in range(0, n, bs):
-                ids_dev, values_dev = ring.stage(
-                    ids[off:off + bs], values[off:off + bs]
-                )
-                if self.paged is not None:
-                    self.paged.ingest_raw(ids_dev, values_dev)
-                else:
-                    self._ingest(self._acc, ids_dev, values_dev, bl, prec)
+                with rec.span("ingest.upload"):
+                    ids_dev, values_dev = ring.stage(
+                        ids[off:off + bs], values[off:off + bs]
+                    )
+                with rec.span("ingest.dispatch"):
+                    if self.paged is not None:
+                        self.paged.ingest_raw(ids_dev, values_dev)
+                    else:
+                        self._ingest(self._acc, ids_dev, values_dev, bl,
+                                     prec)
                 self._interval_ingested += min(bs, n - off)
                 if self._interval_ingested >= self.spill_threshold:
                     self._spill_fold_locked()
@@ -1047,7 +1071,14 @@ class TorchAggregator:
         naming scheme; ``reset`` closes the interval.  Re-raises a
         failure of the attach bridge."""
         self._raise_bridge_error()
-        self.flush(force=True)
+        with maybe_capture("loghisto_collect"):
+            self.flush(force=True)
+            labels, stats = self._interval_stats(reset)
+        return self._named(labels, stats, reset)
+
+    def _interval_stats(self, reset: bool):
+        """(percentile labels, host statistics arrays) of the interval;
+        ``reset`` closes it."""
         t0 = time.perf_counter()
         labels, ps = [], []
         for label, p in self.percentiles.items():
@@ -1076,6 +1107,11 @@ class TorchAggregator:
         if self.paged is None:
             stats = self._dense_stats(acc, spill, ps)
         self._last_aggregation_us = (time.perf_counter() - t0) * 1e6
+        return labels, stats
+
+    def _named(self, labels, stats, reset: bool) -> ProcessedMetricSet:
+        """The statistics under the reference's names, folded into the
+        lifetime ``_agg_*`` store."""
         # Python lists: the per-row naming loop below reads scalars, and
         # list items are several times cheaper than NumPy scalars at a
         # million rows

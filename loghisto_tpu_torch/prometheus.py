@@ -24,9 +24,14 @@ re-serves the cached bytes):
 
 Labeled rows (``base;k=v``) are written as native exposition labels,
 ``http_latency{code="500",route="/api",quantile="0.99"}``, with one
-``# TYPE`` line per family.  ``/healthz`` and ``/fleetz`` answer as the
-reference's endpoint answers a system without a watchdog or federation
-tier (the port has neither yet: ROADMAP Queue 1 slices 6c and 14).
+``# TYPE`` line per family.
+
+``/healthz`` serves the system's ``HealthWatchdog`` report as JSON
+(``TorchMetricSystem(observability=...)``): 200 when ok or degraded,
+503 when stalled, with its ``{"code", "detail", "value"}`` reasons.  A
+system without a watchdog gets 200 and the reference's ``no_watchdog``
+document.  ``/fleetz`` answers 404, as the reference's endpoint answers
+a system without a federation tier (ROADMAP Queue 1 slice 14).
 """
 
 from __future__ import annotations
@@ -45,14 +50,18 @@ from loghisto_tpu_torch.metrics import MetricSystem, ProcessedMetricSet
 
 logger = logging.getLogger("loghisto_tpu_torch")
 
-# /healthz of a system without a watchdog: serving, status unknown
+# /healthz of a system without a watchdog: serving, status unknown (the
+# reference's document, word for word)
 NO_WATCHDOG = {
     "status": "unknown",
     "ok": True,
     "reasons": [{
         "code": "no_watchdog",
-        "detail": ("this system has no health watchdog (the port's "
-                   "observability slice, ROADMAP Queue 1 slice 6c)"),
+        "detail": (
+            "observability is not enabled on this "
+            "system (TPUMetricSystem(observability"
+            "=ObsConfig(...)))"
+        ),
         "value": 0.0,
     }],
 }
@@ -310,10 +319,18 @@ class PrometheusEndpoint:
                 self.wfile.write(payload)
 
             def _serve_healthz(self):
-                """Pipeline health as JSON; without a watchdog, 200 and
-                the ``no_watchdog`` reason."""
-                payload = json.dumps(NO_WATCHDOG).encode()
-                self.send_response(200)
+                """The watchdog's HealthReport as JSON: 503 when stalled,
+                so liveness probes fail without parsing; degraded stays
+                200.  Without a watchdog, 200 and ``no_watchdog``."""
+                watchdog = getattr(endpoint._ms, "health", None)
+                if watchdog is None:
+                    doc, status = NO_WATCHDOG, 200
+                else:
+                    report = watchdog.report()
+                    doc = report.as_dict()
+                    status = 503 if report.status == "stalled" else 200
+                payload = json.dumps(doc).encode()
+                self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(payload)))
                 self.end_headers()

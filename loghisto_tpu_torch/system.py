@@ -47,6 +47,18 @@ aggregator's bridge (``merge_raw``) and the wheel's (``push``).
 ``stop()`` stops the reaper first, lets the bridges take every interval
 already broadcast, then re-raises the first bridge failure, if any.
 
+``observability=True`` (or an ``ObsConfig``) hands one span ring to
+every stage (the reaper's broadcast, the aggregator's flush, drain,
+upload and dispatch, the committer's stages, the wheel's pushes, hooks
+and serves, the lifecycle tick and drift scoring), re-ingests the spans
+as ``obs.<stage>.LatencyUs`` histograms, and attaches the
+``HealthWatchdog`` that ``/healthz`` serves:
+
+    ms = TorchMetricSystem(retention=True, observability=True)
+    ms.health.report()                      # ok / degraded / stalled
+    dump_perfetto(ms.obs, "trace.json")     # the span ring, for Perfetto
+    ms.debug_dump()                         # one introspection snapshot
+
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions.
 """
@@ -66,6 +78,12 @@ from loghisto_tpu_torch.labels import LabelIndex
 from loghisto_tpu_torch.lifecycle import LifecycleManager
 from loghisto_tpu_torch.metrics import MetricSystem, ProcessedMetricSet, \
     RawMetricSet
+from loghisto_tpu_torch.obs import (
+    HealthWatchdog,
+    ObsConfig,
+    SelfObserver,
+    SpanRecorder,
+)
 from loghisto_tpu_torch.ops.backend import resolve_device
 from loghisto_tpu_torch.ops.dispatch import resolve_commit_path
 from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
@@ -93,6 +111,7 @@ class TorchMetricSystem(MetricSystem):
         anomaly=None,
         native_staging: bool = False,
         fast_ingest: bool = False,
+        observability=None,
         device=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
@@ -101,9 +120,11 @@ class TorchMetricSystem(MetricSystem):
         is (it must share this system's registry).  ``commit``,
         ``transport``, ``storage``, ``paged_config``, ``lifecycle`` (a
         ``LifecycleConfig``), ``anomaly`` (an ``AnomalyConfig``),
-        ``native_staging`` (the aggregator's native staging buffer) and
-        ``fast_ingest`` (the host tier's C staging buffers) mean what
-        they mean for ``TPUMetricSystem``."""
+        ``native_staging`` (the aggregator's native staging buffer),
+        ``fast_ingest`` (the host tier's C staging buffers) and
+        ``observability`` (``True`` or an ``ObsConfig``: the span ring,
+        the self-observer and the watchdog) mean what they mean for
+        ``TPUMetricSystem``."""
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
@@ -172,7 +193,117 @@ class TorchMetricSystem(MetricSystem):
                         "fan-out pipeline carries neither the activity "
                         "vector nor the baseline banks)"
                     )
+        # the commit path's degradation reason: the reference's comes
+        # from the mesh, which the port does not have yet
+        self.commit_path_reason: Optional[str] = None
+        self.obs = None            # the SpanRecorder (None when off)
+        self.obs_config = None
+        self.health = None         # the HealthWatchdog (None when off)
+        self.self_observer = None
+        if observability is not None and observability is not False:
+            self._build_observability(observability)
         self._attach_bridges()
+
+    def _build_observability(self, observability) -> None:
+        """One span ring for every site, the ``obs.SpansDropped`` gauge,
+        and with ``dogfood`` the self-observer, with ``health`` the
+        watchdog and its ``health.*`` gauges."""
+        cfg = ObsConfig() if observability is True else observability
+        self.obs_config = cfg
+        rec = SpanRecorder(cfg.capacity)
+        self.obs = rec
+        # the ring wrapped faster than exporters drained it
+        self.register_gauge_func("obs.SpansDropped",
+                                 lambda: float(rec.dropped))
+        self.obs_recorder = rec          # the reaper's broadcast span
+        for part in (self.aggregator, self.retention, self.lifecycle,
+                     self.anomaly, self.committer):
+            if part is not None:
+                part.obs_recorder = rec
+        if self.committer is not None and cfg.dogfood:
+            self.self_observer = SelfObserver(self, rec)
+            self.committer.self_observer = self.self_observer
+        if cfg.health:
+            # the resilience and federation inputs stay None until those
+            # subsystems are ported, as the reference passes them off
+            self.health = HealthWatchdog(
+                self.committer, self.aggregator,
+                interval=self.interval,
+                stall_intervals=cfg.stall_intervals,
+                backpressure_fraction=cfg.backpressure_fraction,
+                commit_path=self.commit_path,
+                commit_path_reason=self.commit_path_reason,
+                wheel=self.retention,
+            )
+            if self.committer is not None:
+                self.committer.watchdog = self.health
+            self.health.register_gauges(self)
+
+    def debug_dump(self) -> dict:
+        """One introspection snapshot of the pipeline: registry occupancy
+        and free-list depth, the resolved commit path, query and cache
+        counters, transfer and staging depths, the span ring's state and
+        the current health report (the reference's keys; ``mesh`` is
+        None, and the resilience and federation sections appear once
+        those subsystems exist).  Pure reads, safe from any thread."""
+        agg = self.aggregator
+        reg = agg.registry
+        dump: dict = {
+            "commit_path": self.commit_path,
+            "commit_path_reason": self.commit_path_reason,
+            "mesh": None,
+            "registry": {
+                "capacity": reg.capacity,
+                "occupancy": len(reg),
+                "free_count": reg.free_count(),
+                "generation": reg.generation,
+            },
+            "rings": {
+                "xfer_queued_samples": agg._xfer_queued_samples,
+                "pending_samples": agg.pending_samples,
+                "max_pending_samples": agg.max_pending_samples,
+                "staging_depth": agg.staging_depth,
+            },
+            "transport": agg.transport_stats(),
+        }
+        wheel = self.retention
+        if wheel is not None:
+            dump["query"] = {
+                "snapshot_hits": wheel.query_snapshot_hits,
+                "fallbacks": wheel.query_fallbacks,
+                "result_cache_hits": wheel.query_result_cache_hits,
+                "rows_fetched": wheel.query_rows_fetched,
+                "group_by_serves": wheel.query_group_serves,
+                "plan_cache_hits": wheel.plan_cache.hits,
+                "plan_cache_misses": wheel.plan_cache.misses,
+                "snapshot_age_intervals": wheel.snapshot_age_intervals(),
+            }
+        labels_dump = self.label_index.stats()
+        labels_dump["cardinality_by_prefix"] = (
+            self.label_index.cardinality_by_prefix())
+        dump["labels"] = labels_dump
+        if self.committer is not None:
+            dump["commit"] = {
+                "intervals_committed": self.committer.intervals_committed,
+                "fused_intervals": self.committer.fused_intervals,
+                "fanout_intervals": self.committer.fanout_intervals,
+                "staging_depth": self.committer._staging.depth,
+            }
+        rec = self.obs
+        dump["obs"] = {
+            "enabled": rec is not None,
+            "capacity": rec.capacity if rec else 0,
+            "recorded": rec.recorded if rec else 0,
+            "dropped": rec.dropped if rec else 0,
+            "current_seq": rec.current_seq if rec else 0,
+            "saturated": (
+                bool(rec.recorded >= rec.capacity) if rec else False
+            ),
+        }
+        dump["health"] = (
+            self.health.report().as_dict() if self.health else None
+        )
+        return dump
 
     def _build_committer(self, lifecycle, anomaly) -> None:
         if lifecycle is not None:

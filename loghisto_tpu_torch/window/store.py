@@ -45,6 +45,10 @@ each interval on the rings and publishes the snapshot itself
 (``publish_snapshot_locked``); the lifecycle drops the snapshot and the
 caches after it moves rows (``lifecycle_invalidated_locked``).
 
+With a span ring installed (``obs_recorder``) a push records
+``window.tier_push``, the interval's hooks ``window.hooks`` and every
+query or group-by serve ``query.serve``.
+
 Not in this slice: the mesh, the supervisor and the fault injector.
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``
@@ -75,6 +79,7 @@ from loghisto_tpu_torch.labels.groupby import (
     pct_key,
 )
 from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
+from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.backend import resolve_device
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
 from loghisto_tpu_torch.ops.stats import (
@@ -262,6 +267,9 @@ class TimeWheel:
 
         self._sub: Optional[ResilientSubscription] = None
         self._thread: Optional[threading.Thread] = None
+        # tier-push, hook and query-serve spans; TorchMetricSystem(
+        # observability=...) installs a real ring
+        self.obs_recorder = NULL_RECORDER
         self.bridge_error: Optional[BaseException] = None
 
     # -- sizing --------------------------------------------------------- #
@@ -342,20 +350,22 @@ class TimeWheel:
         """Land pre-built interval cells (the ``_cells_from_raw``
         triplet, or None) on every tier and publish a new snapshot; hooks
         are not run (``push`` runs them)."""
-        with self._lock:
-            self._note_interval_locked(raw.time, cells)
-            self._tiers_push_locked(self._packed_cells(cells), raw.rates,
-                                    dur)
-            self._refresh_snapshot_locked()
+        with self.obs_recorder.span("window.tier_push", raw.seq):
+            with self._lock:
+                self._note_interval_locked(raw.time, cells)
+                self._tiers_push_locked(self._packed_cells(cells),
+                                        raw.rates, dur)
+                self._refresh_snapshot_locked()
 
     def run_hooks(self, raw: RawMetricSet) -> None:
         """Fire the per-interval hooks (the rule engine) for ``raw``; a
         raising hook is logged and skipped."""
-        for hook in list(self._hooks):
-            try:
-                hook(raw)
-            except Exception:
-                logger.exception("timewheel interval hook failed")
+        with self.obs_recorder.span("window.hooks", raw.seq):
+            for hook in list(self._hooks):
+                try:
+                    hook(raw)
+                except Exception:
+                    logger.exception("timewheel interval hook failed")
 
     def _note_interval_locked(self, time, cells) -> None:
         self._last_time = time
@@ -602,13 +612,16 @@ class TimeWheel:
         back to the locked recompute through K5 and pin themselves for
         the next commit."""
         ps, window, ti = self._query_args(percentiles, window, tier)
-        snap = self._snapshot  # atomic ref read; the handle is immutable
-        view = None if snap is None else snap.tiers[ti].view_for(window)
-        if view is None:
-            self.pin_window(window)
-            self.query_fallbacks += 1
-            return self._query_recompute(pattern, window, ps, ti)
-        return self._query_snapshot(pattern, window, ps, ti, snap, view)
+        # a serve attributes to the latest landed interval (the snapshot
+        # it reads is that commit's handle)
+        with self.obs_recorder.span("query.serve"):
+            snap = self._snapshot  # atomic ref read; immutable handle
+            view = None if snap is None else snap.tiers[ti].view_for(window)
+            if view is None:
+                self.pin_window(window)
+                self.query_fallbacks += 1
+                return self._query_recompute(pattern, window, ps, ti)
+            return self._query_snapshot(pattern, window, ps, ti, snap, view)
 
     def _query_args(self, percentiles, window, tier) -> tuple:
         """Re-raise a bridge failure, then validate a query's arguments:
@@ -755,45 +768,47 @@ class TimeWheel:
             raise ValueError("group_by needs at least one label key")
         ps, window, ti = self._query_args(percentiles, window, tier)
         eps = equidepth_ranks(int(depth)) if depth is not None else ()
-        snap = self._snapshot  # atomic ref read; the handle is immutable
-        view = None if snap is None else snap.tiers[ti].view_for(window)
-        gen, matches = self._resolve_matches(selector)
-        if view is not None:
-            qkey = ("#group_by", selector, by, window, ps, ti, depth)
-            cached = self._result_cache.get(qkey)
-            if (
-                cached is not None
-                and cached[0] == snap.epoch and cached[1] == gen
-            ):
-                self.query_result_cache_hits += 1
-                return cached[2]
-            gs = self._group_rollup(
-                matches, by, ps, eps, ti, view.cdf, view.counts, view.sums,
-                time=snap.time, window=window, covered=view.covered_s,
-                slots=view.slots,
+        with self.obs_recorder.span("query.serve"):
+            snap = self._snapshot  # atomic ref read; immutable handle
+            view = None if snap is None else snap.tiers[ti].view_for(window)
+            gen, matches = self._resolve_matches(selector)
+            if view is not None:
+                qkey = ("#group_by", selector, by, window, ps, ti, depth)
+                cached = self._result_cache.get(qkey)
+                if (
+                    cached is not None
+                    and cached[0] == snap.epoch and cached[1] == gen
+                ):
+                    self.query_result_cache_hits += 1
+                    return cached[2]
+                gs = self._group_rollup(
+                    matches, by, ps, eps, ti, view.cdf, view.counts,
+                    view.sums, time=snap.time, window=window,
+                    covered=view.covered_s, slots=view.slots,
+                )
+                if len(self._result_cache) >= 128 \
+                        and qkey not in self._result_cache:
+                    self._result_cache.clear()
+                self._result_cache[qkey] = (snap.epoch, gen, gs)
+                return gs
+            # no view: one K5 view of the window from the live ring under
+            # the lock (its payload is fresh tensors), the rollup outside
+            self.pin_window(window)
+            self.query_fallbacks += 1
+            t = self._tiers[ti]
+            with self._lock:
+                mask = self._mask_locked(t, window)
+                covered = float(t.durations[mask].sum())
+                ts = self._last_time or _dt.datetime.now(
+                    tz=_dt.timezone.utc)
+                payload = window_snapshot(t.ring, mask[None],
+                                          self.config.bucket_limit,
+                                          self.config.precision)
+            return self._group_rollup(
+                matches, by, ps, eps, ti, payload["cdf"][0],
+                payload["counts"][0], payload["sums"][0], time=ts,
+                window=window, covered=covered, slots=int(mask.sum()),
             )
-            if len(self._result_cache) >= 128 \
-                    and qkey not in self._result_cache:
-                self._result_cache.clear()
-            self._result_cache[qkey] = (snap.epoch, gen, gs)
-            return gs
-        # no view: one K5 view of the window from the live ring under the
-        # lock (its payload is fresh tensors), the rollup outside it
-        self.pin_window(window)
-        self.query_fallbacks += 1
-        t = self._tiers[ti]
-        with self._lock:
-            mask = self._mask_locked(t, window)
-            covered = float(t.durations[mask].sum())
-            ts = self._last_time or _dt.datetime.now(tz=_dt.timezone.utc)
-            payload = window_snapshot(t.ring, mask[None],
-                                      self.config.bucket_limit,
-                                      self.config.precision)
-        return self._group_rollup(
-            matches, by, ps, eps, ti, payload["cdf"][0],
-            payload["counts"][0], payload["sums"][0], time=ts,
-            window=window, covered=covered, slots=int(mask.sum()),
-        )
 
     def _group_rollup(
         self, matches, by: tuple, ps: tuple, eps: tuple, ti: int,

@@ -1289,3 +1289,109 @@ def test_paged_restore_on_the_card_equals_the_cpu(dev):
         np.testing.assert_array_equal(card.decode_dense().sum(axis=1), want)
     for agg in aggs:
         agg.close()
+
+
+# -- observability on the card ---------------------------------------------- #
+
+
+def _obs_raws(n, seed):
+    import datetime as dt
+
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    rng = np.random.default_rng(seed)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    raws = []
+    for k in range(n):
+        hists = {}
+        for i in range(6):
+            b, c = np.unique(compress_np(rng.lognormal(1.0 + i, 0.7, 500)),
+                             return_counts=True)
+            hists[f"m{i}"] = dict(zip(b.tolist(), c.tolist()))
+        raws.append(RawMetricSet(time=t0 + dt.timedelta(seconds=k),
+                                 counters={}, rates={}, histograms=hists,
+                                 gauges={}, duration=1.0, seq=k + 1))
+    return raws
+
+
+def test_observed_commit_on_the_card_nests_every_stage(dev):
+    """A fused commit on the card with observability: every interval has
+    its complete nested span set (commit.device_sync waits on the CUDA
+    event of the commit's launches), the same stage sets as the CPU twin,
+    the self-observer re-ingests, and the watchdog is ok."""
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    systems = [TorchMetricSystem(interval=1.0, sys_stats=False,
+                                 num_metrics=16, retention=((4, 1),),
+                                 observability=True, device=d)
+               for d in (dev, "cpu")]
+    sets = []
+    for ms in systems:
+        before = kernel_launches()
+        ms.backfill_retention(_obs_raws(4, 61))
+        launched = {k: kernel_launches()[k] - before[k]
+                    for k in ("sparse_ingest", "window_merge")}
+        if ms.device.type == "cuda":
+            assert launched == {"sparse_ingest": 4, "window_merge": 4}
+        by = {}
+        for s in ms.obs.spans():
+            by.setdefault(s.seq, []).append(s)
+        e2e = [s for s in ms.obs.spans() if s.stage == "commit.e2e"]
+        assert [s.seq for s in e2e] == [1, 2, 3, 4]
+        for parent in e2e:
+            for s in by[parent.seq]:
+                if s.stage.startswith("commit."):
+                    assert parent.start_ns <= s.start_ns <= s.end_ns \
+                        <= parent.end_ns
+        sets.append({q: sorted({s.stage for s in g}) for q, g in by.items()})
+        assert ms.self_observer.reingested > 0
+        assert ms.health.report().ok
+        ms.stop()
+    assert sets[0] == sets[1]
+    assert "commit.device_sync" in sets[0][1]
+
+
+def test_collect_trace_on_the_card_holds_the_k1_launch(dev, monkeypatch,
+                                                       tmp_path):
+    """collect() under LOGHISTO_TRACE_DIR writes a Chrome trace with the
+    loghisto_collect region and K1's CUDA kernel by name."""
+    import glob
+    import json
+
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    monkeypatch.setenv("LOGHISTO_TRACE_DIR", str(tmp_path))
+    # a batch_size past the batch: record_batch only buffers, and the
+    # launch happens in collect()'s flush, inside the capture
+    agg = TorchAggregator(num_metrics=64, batch_size=1 << 15, device=dev)
+    rng = np.random.default_rng(62)
+    agg.record_batch(rng.integers(0, 64, 1 << 14).astype(np.int32),
+                     rng.lognormal(2.0, 1.0, 1 << 14).astype(np.float32))
+    agg.collect()
+    agg.close()
+    (path,) = glob.glob(str(tmp_path / "loghisto_collect" / "*.json"))
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert "loghisto_collect" in names
+    assert any("lh_fused_ingest_kernel" in n for n in names)
+
+
+def test_print_benchmark_on_the_card(dev):
+    import io
+
+    from loghisto_tpu_torch.print_benchmark import (
+        _interesting_metrics,
+        print_benchmark,
+    )
+
+    out = io.StringIO()
+    print_benchmark("card_op", concurrency=2, op=lambda: None, duration=3.0,
+                    interval=0.5, out=out, device=True)
+    want = _interesting_metrics("card_op")
+    blocks = [b.split("\n") for b in out.getvalue().split("\n\n") if b]
+    assert blocks
+    counts = []
+    for block in blocks:
+        assert [ln.split(":")[0] for ln in block[1:]] == want
+        counts.append(float(block[1].split("\t")[-1]))
+    assert any(counts)

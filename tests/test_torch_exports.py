@@ -21,12 +21,7 @@ RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
 WAITING = {
     "": {},
     ".ops": {},
-    ".obs": {
-        # the span ring, the watchdog and the trace export
-        "ObsConfig": "6c", "Span": "6c", "SpanRecorder": "6c",
-        "SelfObserver": "6c", "HealthReport": "6c", "HealthWatchdog": "6c",
-        "trace_events": "6c", "dump_perfetto": "6c",
-    },
+    ".obs": {},
 }
 
 
@@ -51,7 +46,7 @@ def test_every_ported_reference_name_resolves(sub):
 def test_values_are_the_port_modules_own():
     import loghisto_tpu_torch as lh
     from loghisto_tpu_torch import channel, config, metrics, ops, obs
-    from loghisto_tpu_torch.obs import spans
+    from loghisto_tpu_torch.obs import health, perfetto, spans
     from loghisto_tpu_torch.ops import codec, stats
 
     assert lh.MetricSystem is metrics.MetricSystem
@@ -67,6 +62,9 @@ def test_values_are_the_port_modules_own():
     assert ops.FrameTruncated is codec.FrameTruncated
     assert obs.LatencyHistogram is spans.LatencyHistogram
     assert obs.NULL_RECORDER is spans.NULL_RECORDER
+    assert obs.SpanRecorder is spans.SpanRecorder
+    assert obs.HealthWatchdog is health.HealthWatchdog
+    assert obs.dump_perfetto is perfetto.dump_perfetto
     with pytest.raises(AttributeError):
         lh.no_such_name
     with pytest.raises(AttributeError):

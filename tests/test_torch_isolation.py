@@ -4,9 +4,10 @@ wheel push and query, a ``TorchMetricSystem`` interval, a fused commit
 with lifecycle and drift, a multirow interval, a firehose run with its
 OpenTSDB export, a labeled interval with a group_by, a selector query
 and a windowed Prometheus exposition, a preagg interval through the
-native cell store and a fast-ingest interval through the C staging
-buffers on the CPU without either in ``sys.modules``, and never falls
-back to the CPU on its own."""
+native cell store, a fast-ingest interval through the C staging
+buffers and an observed commit with its watchdog, trace dump and debug
+dump on the CPU without either in ``sys.modules``, and never falls back
+to the CPU on its own."""
 
 import ast
 import subprocess
@@ -148,6 +149,21 @@ def test_interval_runs_without_jax_in_sys_modules():
         "raw = ms.collect_raw_metrics()\n"
         "assert sum(raw.histograms['f'].values()) == 1, raw\n"
         "assert raw.counters['c'] == 3, raw\n"
+        "import json, tempfile\n"
+        "from loghisto_tpu_torch.obs import dump_perfetto\n"
+        "import loghisto_tpu_torch.print_benchmark\n"
+        "import loghisto_tpu_torch.utils.trace\n"
+        "ms = TorchMetricSystem(interval=1.0, num_metrics=4, device='cpu',"
+        " config=MetricConfig(bucket_limit=64), retention=((3, 1),),"
+        " sys_stats=False, observability=True)\n"
+        "ms.histogram('y', 0.5)\n"
+        "ms.backfill_retention([ms.collect_raw_metrics()])\n"
+        "assert ms.health.report().ok and ms.self_observer.reingested > 0\n"
+        "f = tempfile.NamedTemporaryFile(suffix='.json')\n"
+        "assert dump_perfetto(ms.obs, f.name) > 0\n"
+        "assert json.load(open(f.name))['traceEvents']\n"
+        "assert ms.debug_dump()['obs']['enabled']\n"
+        "ms.stop()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -174,6 +190,7 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.ops.multirow_ingest import make_multirow_ingest
     from loghisto_tpu_torch.ops.sort_ingest import make_sort_ingest_fn
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.print_benchmark import print_benchmark
 
     factories = [
         lambda: TimeWheel(num_metrics=4),
@@ -192,6 +209,10 @@ def test_entry_points_default_to_the_card():
         lambda: make_sort_ingest_fn(64),
         lambda: make_firehose_step(16, 1024, MetricConfig()),
         lambda: run_firehose(num_metrics=16, batch=1024, seconds=0.1),
+        lambda: TorchMetricSystem(num_metrics=4, retention=True,
+                                  observability=True),
+        lambda: print_benchmark("x", 1, lambda: None, duration=0.1,
+                                device=True),
     ]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is real")
