@@ -885,6 +885,11 @@ def _fmb_paged(torch, batch, ids, values):
         agg = TorchAggregator(
             num_metrics=PAGED_M, batch_size=batch, storage="paged",
             paged_config=PagedStoreConfig(pool_pages=PAGED_POOL), **kw)
+        # the rate is read with every sample kept: past max_pending_samples
+        # (32 batches) the aggregator sheds its oldest samples, as the
+        # reference does, and small batches reach it while the worker
+        # prepares K4f's pages on the host
+        agg.max_pending_samples = 2 * len(ids)
         try:
             if agg.fused_paged != (route == "k4f"):
                 raise AssertionError(f"{route} at batch {batch}: fused_paged "
@@ -3883,7 +3888,10 @@ def _cj_paged_restart(torch, tmp):
         "launches": {k: v for k, v in launches.items() if v}}
 
 
-def _cj_retention_system(torch):
+def _cj_retention_system(torch, **kw):
+    """The retention system with the fused commit, churn lifecycle and 24
+    drift banks; ``kw`` goes to TorchMetricSystem (``resilience=``,
+    ``observability=``)."""
     from loghisto_tpu_torch import TorchMetricSystem
     from loghisto_tpu_torch.anomaly import AnomalyConfig, hourly_bank
     from loghisto_tpu_torch.config import MetricConfig
@@ -3896,7 +3904,8 @@ def _cj_retention_system(torch):
                                   auto_compact_fragmentation=0.1,
                                   min_compact_rows=64),
         anomaly=AnomalyConfig(banks=LD_BANKS, bank_of=hourly_bank,
-                              decay=0.97, min_samples=64, window=6.0))
+                              decay=0.97, min_samples=64, window=6.0),
+        **kw)
     if ms.commit_path != "fused":
         raise AssertionError(f"commit path {ms.commit_path}")
     evicted = []
@@ -5493,6 +5502,613 @@ KERNEL_META = {
 }
 
 
+# -- resilience ----------------------------------------------------------------
+
+# (a) the retention system of checkpoint_journal_main_path (c) with
+# resilience= (checkpoint every RS_CKPT_EVERY intervals, the journal): a
+# spawned child fed by hand is SIGKILLed once its journal holds seq
+# RS_KILL_AT, and a fresh system recovers its files; (b) a chaos drill on
+# the same system through the reaper's tick, RS_DRILL_SAMPLES samples an
+# interval; (c) D6: a fused commit failing before chunk RS_D6_CHUNK of an
+# interval, on the default-tier system without lifecycle; (d) an
+# agg.ingest failure in the middle of an RS_REQUEUE_SAMPLES interval at
+# the headline width (K1); (e) a wedged transfer worker past
+# max_pending_samples; (f) the commit's p50 / p99 with resilience= and no
+# injector against the same system without it, RS_COST_INTERVALS
+# intervals each, then RS_COST_SPLIT intervals split by span (48: over
+# 8-12 intervals one system's p50 stood 2.5-8 ms off two identical ones,
+# over 48 none did; scripts/torch_resilience_cost.py)
+RS_KILL_AT = 7
+RS_CHILD_MAX = 20
+RS_CKPT_EVERY = 2
+RS_DRILL_NAMES = 64
+RS_DRILL_SAMPLES = 1 << 16
+RS_BREAKER = 3
+RS_OPEN_S = 1.0
+RS_D6_CHUNK = 1
+RS_REQUEUE_SAMPLES = 1 << 24
+RS_COOLDOWN_S = 2.0
+RS_WEDGE_SAMPLES = 1 << 23
+RS_COST_INTERVALS = 48
+RS_COST_SPLIT = 6
+
+
+def _rs_stream():
+    rng = np.random.default_rng((SEED, 91))
+    steady = [f"svc.{k}.latency" for k in range(LD_STEADY)]
+    return (rng, steady, rng.uniform(2.0, 6.0, LD_STEADY),
+            rng.uniform(0.3, 1.0, LD_STEADY))
+
+
+def _rs_child(tmp, ticked):
+    """(a)'s child: the resilient retention system, one 2^20-sample
+    interval after another through the reaper's tick, until it is
+    killed.  ``ticked`` holds the seq of the last interval it minted."""
+    import queue
+
+    import torch
+
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+
+    ms, _ = _cj_retention_system(torch, resilience=ResilienceConfig(
+        checkpoint_path=f"{tmp}/state.npz", journal_path=f"{tmp}/raw.jsonl",
+        checkpoint_every_intervals=RS_CKPT_EVERY, recover_on_start=False))
+    ms.recovery.start()  # the journal's subscriber
+    rng, steady, mu, sigma = _rs_stream()
+    q, com = queue.Queue(), ms.committer
+    for k in range(1, RS_CHILD_MAX + 1):
+        _cj_record(ms, rng, k, steady, mu, sigma)
+        ticked.value = k
+        ms._tick(q)
+        deadline = time.monotonic() + 60.0
+        while com.intervals_committed < k and time.monotonic() < deadline:
+            time.sleep(0.002)
+    while True:  # wait for the kill
+        time.sleep(1.0)
+
+
+def _rs_journal_lines(path):
+    try:
+        with open(path, "rb") as f:
+            return f.read().count(b"\n")
+    except FileNotFoundError:
+        return 0
+
+
+def _rs_crash(torch, tmp):
+    """(a): the SIGKILLed child's files recovered in this process against
+    an oracle that commits exactly the journal's surviving lines."""
+    import multiprocessing
+    import signal
+
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.utils import journal
+
+    jpath, cpath = f"{tmp}/raw.jsonl", f"{tmp}/state.npz"
+    ctx = multiprocessing.get_context("spawn")  # CUDA cannot fork
+    ticked = ctx.Value("i", 0)
+    child = ctx.Process(target=_rs_child, args=(tmp, ticked), daemon=True)
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        deadline = time.monotonic() + 300.0
+        while _rs_journal_lines(jpath) < RS_KILL_AT:
+            if not child.is_alive():
+                raise AssertionError(f"the child exited {child.exitcode}")
+            if time.monotonic() > deadline:
+                raise AssertionError("the child's journal never reached "
+                                     f"seq {RS_KILL_AT}")
+            time.sleep(0.02)
+        os.kill(child.pid, signal.SIGKILL)
+        child.join(60.0)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(60.0)
+    child_s = time.perf_counter() - t0
+    if child.exitcode != -signal.SIGKILL:
+        raise AssertionError(f"the child exited {child.exitcode}")
+    minted = ticked.value
+    lines = list(journal.replay(jpath))
+    seqs = [r.seq for r in lines]
+    if seqs != list(range(1, len(seqs) + 1)) or len(seqs) < RS_KILL_AT:
+        raise AssertionError(f"the journal's seqs: {seqs}")
+    lost = minted - seqs[-1]
+    if not 0 <= lost <= 1:
+        raise AssertionError(f"{lost} intervals lost ({minted} minted)")
+
+    rms, rec_evicted = _cj_retention_system(
+        torch, resilience=ResilienceConfig(
+            checkpoint_path=cpath, journal_path=jpath,
+            checkpoint_every_intervals=RS_CKPT_EVERY,
+            recover_on_start=False))
+    torch.cuda.synchronize()
+    k0 = kernel_launches()
+    t1 = time.perf_counter()
+    report = rms.recover()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t1
+    launches = {k: v - k0[k] for k, v in kernel_launches().items()}
+    if not (report.checkpoint_found and report.journal_found
+            and report.watermark is not None):
+        raise AssertionError(f"recovery report {report}")
+    if report.skipped_intervals != report.watermark or \
+            report.replayed_intervals != len(lines) - report.watermark:
+        raise AssertionError(f"recovery report {report}")
+    if rms.retention.intervals_pushed != report.replayed_intervals:
+        raise AssertionError("the wheel's pushes differ from the replay")
+    if report.replayed_intervals and (launches["sparse_ingest"] <= 0
+                                      or launches["window_merge"] <= 0):
+        raise AssertionError(f"the replay's launches {launches}")
+    if next(rms._interval_seq) != seqs[-1] + 1:
+        raise AssertionError("the seq counter did not move past the replay")
+
+    ora, ora_evicted = _cj_retention_system(torch)
+    ora.backfill_retention(lines)
+    rec_out = rms.aggregator.collect(reset=False).metrics
+    ora_out = ora.aggregator.collect(reset=False).metrics
+    wm = report.watermark
+    after = {n for e, names in ora_evicted if e > wm for n in names}
+    gone = {n for _, names in rec_evicted for n in names}
+    if gone - after:
+        raise AssertionError("the recovery evicted names the oracle kept")
+    # EQUAL key for key (percentiles too) but for the names the recovered
+    # lifecycle clock still holds, accounted exactly
+    cmp = _cj_compare_restart2(ora_out, rec_out, sorted(after - gone),
+                               "_overflow.api")
+    rms.recovery.checkpoint_path = None  # no final checkpoint at the drop
+    for ms in (rms, ora):
+        _drop_system(torch, ms)
+    return {"child_s": child_s, "minted": minted, "journal_lines": len(seqs),
+            "lost": lost, "watermark": wm,
+            "replayed": report.replayed_intervals,
+            "skipped": report.skipped_intervals,
+            "corrupt_lines": report.corrupt_lines,
+            "recover_s": recover_s, "report_wall_s": report.wall_time_s,
+            "checkpoint_bytes": os.path.getsize(cpath),
+            "launches": {k: v for k, v in launches.items() if v}, **cmp}
+
+
+def _rs_record(ms, rng, names):
+    """One drill interval: RS_DRILL_SAMPLES lognormal samples over the
+    drill's names; returns the count of each."""
+    ids = rng.integers(0, len(names), RS_DRILL_SAMPLES)
+    values = rng.lognormal(3.0, 0.8, RS_DRILL_SAMPLES)
+    per = np.bincount(ids, minlength=len(names))
+    order = np.argsort(ids, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(per)])
+    for i, name in enumerate(names):
+        ms.histogram_batch(name, values[order[bounds[i]:bounds[i + 1]]])
+    return per
+
+
+def _rs_chaos(torch):
+    """(b): a bridge crash the supervisor restarts, RS_BREAKER failed
+    commits that open the breaker (/healthz degraded with breaker_open),
+    a pinned fan-out commit on K3, a half-open trial that closes it; the
+    debug dump and the resilience.* gauges against these events, and
+    every sample of every committed interval in collect()."""
+    import queue
+
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.prometheus import PrometheusEndpoint
+    from loghisto_tpu_torch.resilience import FaultInjector, ResilienceConfig
+
+    inj = FaultInjector(seed=SEED)
+    inj.plan("commit.bridge", "raise", on_call=2)
+    ms, _ = _cj_retention_system(
+        torch, observability=True, resilience=ResilienceConfig(
+            restart_backoff_s=0.01, restart_backoff_cap_s=0.05,
+            breaker_threshold=RS_BREAKER, breaker_window_s=600.0,
+            breaker_open_s=RS_OPEN_S, fault_injector=inj))
+    ms.aggregator.retry_cooldown = 0.0
+    names = [f"drill.{k}.lat" for k in range(RS_DRILL_NAMES)]
+    rng = np.random.default_rng((SEED, 92))
+    want = np.zeros(len(names), np.int64)
+    com, br, sup = ms.committer, ms.device_breaker, ms.supervisor
+    q = queue.Queue()
+    ep = PrometheusEndpoint(ms, port=0, host="127.0.0.1")
+    ep.start()
+    url = f"http://127.0.0.1:{ep.port}/healthz"
+    steps = {}
+    try:
+        def tick(lost=False):
+            per = _rs_record(ms, rng, names)
+            before = com.intervals_committed
+            ms._tick(q)
+            if lost:
+                _ob_wait(lambda: sup.total_restarts >= 1, "the restart")
+            else:
+                _ob_wait(lambda: com.intervals_committed > before,
+                         "a commit")
+                want[:] += per
+
+        tick()
+        tick(lost=True)   # commit.bridge: the interval dies with the bridge
+        tick()            # the restarted bridge commits
+        steps["restart"] = {
+            "restarts": dict(sup.restarts_by_name),
+            "health": ms.health.report().reason_codes()}
+        if sup.restarts_by_name != {"loghisto-torch-commit": 1} or \
+                "thread_restarted" not in steps["restart"]["health"]:
+            raise AssertionError(f"restart step {steps['restart']}")
+        inj.plan("commit.dispatch", "raise", every=1, times=RS_BREAKER)
+        for _ in range(RS_BREAKER):
+            tick()
+        code, body = _ob_get(url)
+        codes = [r["code"] for r in body["reasons"]]
+        steps["open"] = {"state": br.state, "failures": br.failures_total,
+                         "healthz": code, "status": body["status"],
+                         "reasons": codes}
+        if br.state != "open" or "breaker_open" not in codes:
+            raise AssertionError(f"open step {steps['open']}")
+        fan0, k0 = com.fanout_intervals, kernel_launches()
+        tick()            # pinned: the fan-out path
+        k3 = kernel_launches()["sparse_ingest"] - k0["sparse_ingest"]
+        steps["pinned"] = {"fanout": com.fanout_intervals - fan0,
+                           "k3_launches": k3,
+                           "dispatch_fires": inj.fires_at("commit.dispatch")}
+        if steps["pinned"]["fanout"] != 1 or k3 <= 0 or \
+                steps["pinned"]["dispatch_fires"] != RS_BREAKER:
+            raise AssertionError(f"pinned step {steps['pinned']}")
+        time.sleep(RS_OPEN_S + 0.05)
+        fused0 = com.fused_intervals
+        tick()            # the half-open trial, a real fused commit
+        code, body = _ob_get(url)
+        codes = [r["code"] for r in body["reasons"]]
+        steps["closed"] = {"state": br.state,
+                           "fused": com.fused_intervals - fused0,
+                           "healthz": code, "reasons": codes}
+        if br.state != "closed" or "breaker_open" in codes or \
+                steps["closed"]["fused"] != 1:
+            raise AssertionError(f"closed step {steps['closed']}")
+        dump = ms.debug_dump()["resilience"]
+        expect = {"thread_restarts": {"loghisto-torch-commit": 1},
+                  "breaker_state": "closed", "breaker_opened_total": 1,
+                  "checkpoints_taken": 0, "checkpoint_errors": 0,
+                  "last_checkpoint_seq": None,
+                  "recovery_in_progress": False,
+                  "faults_injected": 1 + RS_BREAKER}
+        if dump != expect:
+            raise AssertionError(f"debug_dump resilience {dump}")
+        gauges = {k: f() for k, f in ms._gauge_funcs.items()
+                  if k.startswith("resilience.")}
+        if (gauges["resilience.ThreadRestarts"], gauges[
+                "resilience.BreakerOpen"], gauges[
+                "resilience.BreakerOpenedTotal"], gauges[
+                "resilience.BreakerFailures"], gauges[
+                "resilience.FaultsInjected"]) != (1.0, 0.0, 1.0,
+                                                  float(RS_BREAKER),
+                                                  float(1 + RS_BREAKER)):
+            raise AssertionError(f"resilience gauges {gauges}")
+        # the failed commits stamped no activity (their first chunk never
+        # ran), so the lifecycle may have folded drill names into their
+        # overflow row, as the reference's does: conservation is over
+        # the names and that row
+        out = ms.aggregator.collect(reset=False).metrics
+        got = sum(out.get(f"{n}_count", 0.0) for n in names) + out.get(
+            "_overflow.drill_count", 0.0)
+        if got != want.sum():
+            raise AssertionError(f"collect() holds {got} drill samples of "
+                                 f"{int(want.sum())}")
+    finally:
+        ep.stop()
+        _drop_system(torch, ms)
+    return {"steps": steps, "gauges": gauges,
+            "samples_checked": int(want.sum()),
+            "overflowed": out.get("_overflow.drill_count", 0.0)}
+
+
+def _rs_d6(torch):
+    """(c): commit.dispatch fires before chunk RS_D6_CHUNK of the second
+    interval: the accumulator plus the host spill hold every sample of
+    both intervals, each tier's open slot the chunks that landed (the
+    reference's rule), nothing twice; the next commit publishes again."""
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.resilience import FaultInjector, ResilienceConfig
+
+    inj = FaultInjector()
+    ms = TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=RET_M,
+                           retention=True, config=MetricConfig(bucket_limit=BL),
+                           resilience=ResilienceConfig(fault_injector=inj))
+    com, agg, wheel = ms.committer, ms.aggregator, ms.retention
+    rng = np.random.default_rng((SEED, 93))
+    names = [f"d6.{k}" for k in range(RET_M)]
+    mu = rng.uniform(1.0, 7.0, RET_M)
+    sigma = rng.uniform(0.3, 1.5, RET_M)
+    t0 = _dt.datetime(2026, 1, 1, tzinfo=_dt.timezone.utc)
+    raws = [_raw_interval(rng, names, mu, sigma, t0 + k * _ONE_SECOND, k + 1,
+                          RET_SAMPLES) for k in range(3)]
+    k0 = kernel_launches()
+    try:
+        ms.backfill_retention(raws[:1])
+        cells = com._cells_from_raw(raws[1])
+        ids, idx, w32 = com._dense_cells(cells)
+        chunks = -(-len(ids) // com.chunk)
+        k = min(RS_D6_CHUNK, chunks - 1)
+        if k < 1:
+            raise AssertionError(f"interval 2 has {chunks} commit chunk(s)")
+        # the rule counts the calls after it is planned
+        inj.plan("commit.dispatch", "raise", on_call=k + 1)
+        nb = agg.config.num_buckets
+        torch.cuda.synchronize()
+        acc0 = agg._acc.cpu().numpy().astype(np.int64)
+        slots0 = [(t.slot, t.ring[t.slot].cpu().numpy().astype(np.int64))
+                  for t in wheel._tiers]
+        mode = com.commit(raws[1])
+        torch.cuda.synchronize()
+        if mode != "fused" or inj.fires_at("commit.dispatch") != 1:
+            raise AssertionError(f"the failed commit: {mode}, {inj.fired}")
+        full = np.zeros((RET_M, nb), np.int64)
+        np.add.at(full, (ids, idx), cells[2])
+        landed = np.zeros((RET_M, nb), np.int64)
+        cut = k * com.chunk
+        np.add.at(landed, (ids[:cut], idx[:cut]), w32[:cut])
+        spill = agg._spill if agg._spill is not None else 0
+        total = agg._acc.cpu().numpy().astype(np.int64) + spill
+        if not np.array_equal(total, acc0 + full):
+            raise AssertionError("accumulator + spill != the host oracle")
+        for (slot, before), t in zip(slots0, wheel._tiers):
+            after = t.ring[slot].cpu().numpy().astype(np.int64)
+            if not np.array_equal(after, before + landed):
+                raise AssertionError("a tier slot != its landed chunks")
+        if wheel.snapshot is not None or agg.stats_snapshot is not None:
+            raise AssertionError("the failed commit left a snapshot")
+        spilled = int(np.asarray(spill).sum())
+        if com.commit(raws[2]) != "fused" or wheel.snapshot is None:
+            raise AssertionError("the next commit did not publish")
+        hist = np.zeros((RET_M, nb), np.int64)
+        for raw in raws:
+            c = com._cells_from_raw(raw)
+            i2, x2, _ = com._dense_cells(c)
+            np.add.at(hist, (i2, x2), c[2])
+        spill = agg._spill if agg._spill is not None else 0
+        if not np.array_equal(agg._acc.cpu().numpy().astype(np.int64) + spill,
+                              hist):
+            raise AssertionError("three intervals: acc + spill != oracle")
+        launches = {key: v - k0[key] for key, v in kernel_launches().items()}
+    finally:
+        _drop_system(torch, ms)
+    return {"cells": len(ids), "chunks": chunks, "failed_chunk": k,
+            "spilled_samples": spilled, "launches":
+                {key: v for key, v in launches.items() if v}}
+
+
+def _rs_oracle_check(metrics, ids, values, m, what):
+    """collect() of one interval against the host compress_np /
+    dense_stats_np oracle (counts EQUAL, percentiles the float32 of the
+    oracle's, sums within 1e-5)."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.ops.stats import dense_stats_np
+
+    labels = ["min", "50", "75", "90", "95", "99", "99.9", "99.99", "max"]
+    cols = np.clip(compress_np(values), -BL, BL).astype(np.int64) + BL
+    oracle = np.bincount(ids.astype(np.int64) * B + cols,
+                         minlength=m * B).reshape(m, B)
+    want = dense_stats_np(oracle, PS, BL)
+    for i in np.nonzero(want["counts"])[0].tolist():
+        name = f"m{i}"
+        if metrics[f"{name}_count"] != int(want["counts"][i]):
+            raise AssertionError(f"{what}: {name} count")
+        for label, value in zip(labels, want["percentiles"][i]):
+            if metrics[f"{name}_{label}"] != float(np.float32(value)):
+                raise AssertionError(f"{what}: {name}_{label}")
+        s = metrics[f"{name}_sum"]
+        if abs(s - want["sums"][i]) > 1e-5 * abs(want["sums"][i]) + 1e-3:
+            raise AssertionError(f"{what}: {name} sum")
+    return int(want["counts"].sum())
+
+
+def _rs_requeue(torch):
+    """(d): agg.ingest fires on the middle chunk of one interval at the
+    headline width: the first half lands through K1, the rest is
+    requeued; once the cooldown passes a flush lands it, and collect()
+    equals the host oracle."""
+    from loghisto_tpu_torch.ops.backend import kernel_launches
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import FaultInjector
+
+    rng = np.random.default_rng((SEED, 94))
+    agg = TorchAggregator(num_metrics=M, batch_size=1 << 16, transport="raw")
+    for i in range(M):
+        agg.registry.id_for(f"m{i}")
+    inj = FaultInjector()
+    chunks = RS_REQUEUE_SAMPLES // agg.batch_size
+    inj.plan("agg.ingest", "raise", on_call=chunks // 2 + 1)
+    agg.fault_injector = inj
+    agg.retry_cooldown = RS_COOLDOWN_S
+    agg.max_pending_samples = RS_REQUEUE_SAMPLES  # no shed in this check
+    ids = zipf_ids(rng, RS_REQUEUE_SAMPLES, M)
+    values = lognormal_values(rng, RS_REQUEUE_SAMPLES)
+    k0 = kernel_launches()
+    try:
+        agg.record_batch(ids, values)
+        agg.wait_transfers()
+        requeued = agg.pending_samples
+        if requeued != RS_REQUEUE_SAMPLES - (chunks // 2) * agg.batch_size:
+            raise AssertionError(f"{requeued} samples requeued")
+        if time.monotonic() >= agg._device_down_until:
+            raise AssertionError("the cooldown was not armed")
+        agg.flush()  # inside the cooldown: the samples stay buffered
+        if agg.pending_samples != requeued:
+            raise AssertionError("a flush inside the cooldown shipped")
+        time.sleep(max(0.0, agg._device_down_until - time.monotonic()) + 0.01)
+        agg.flush()
+        agg.wait_transfers()
+        if agg.pending_samples or agg._shed_samples:
+            raise AssertionError("the requeue did not land")
+        metrics = agg.collect().metrics
+        k1 = kernel_launches()["fused_ingest"] - k0["fused_ingest"]
+        checked = _rs_oracle_check(metrics, ids, values, M, "requeue")
+    finally:
+        agg.close()
+    if checked != RS_REQUEUE_SAMPLES or k1 != chunks:
+        raise AssertionError(f"{checked} samples, {k1} K1 launches")
+    return {"samples": checked, "requeued": requeued, "k1_launches": k1,
+            "fires": inj.fires_at("agg.ingest")}
+
+
+def _rs_wedge(torch):
+    """(e): agg.xfer_worker wedges the worker; the queue fills to
+    max_pending_samples, later flushes return at once and the host buffer
+    sheds its oldest samples: shed + counted = recorded, and the counted
+    ones are the first queued and the last buffered."""
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import FaultInjector
+
+    rng = np.random.default_rng((SEED, 95))
+    agg = TorchAggregator(num_metrics=M, batch_size=1 << 16, transport="raw")
+    for i in range(M):
+        agg.registry.id_for(f"m{i}")
+    inj = FaultInjector(wedge_timeout_s=300.0)
+    inj.plan("agg.xfer_worker", "wedge", on_call=1)
+    agg.fault_injector = inj
+    ids = zipf_ids(rng, RS_WEDGE_SAMPLES, M)
+    values = lognormal_values(rng, RS_WEDGE_SAMPLES)
+    bs = agg.batch_size
+    try:
+        t0 = time.perf_counter()
+        for off in range(0, RS_WEDGE_SAMPLES, bs):
+            agg.record_batch(ids[off:off + bs], values[off:off + bs])
+        record_s = time.perf_counter() - t0
+        _ob_wait(lambda: inj.wedged_now == 1, "the wedge")
+        queued, pending = agg._xfer_queued_samples, agg.pending_samples
+        shed = agg._shed_samples
+        cap = agg.max_pending_samples
+        if (queued, pending, shed) != (cap, cap,
+                                       RS_WEDGE_SAMPLES - 2 * cap):
+            raise AssertionError(f"queued {queued}, pending {pending}, "
+                                 f"shed {shed}")
+        inj.release_wedges()
+        metrics = agg.collect().metrics
+        keep = np.r_[0:queued, RS_WEDGE_SAMPLES - pending:RS_WEDGE_SAMPLES]
+        counted = _rs_oracle_check(metrics, ids[keep], values[keep], M,
+                                   "wedge")
+    finally:
+        inj.release_wedges()
+        agg.close()
+    if counted + shed != RS_WEDGE_SAMPLES:
+        raise AssertionError(f"{counted} + {shed} != {RS_WEDGE_SAMPLES}")
+    return {"recorded": RS_WEDGE_SAMPLES, "queued": queued,
+            "pending": pending, "shed": shed, "counted": counted,
+            "record_s": record_s}
+
+
+def _rs_cost(torch):
+    """(f): the commit's p50 / p99 with resilience= and no injector
+    against the same retention system without it.  The three systems
+    (plain, resilience, plain again) live at once and each interval is
+    committed to all three in a rotating order, so build order, the
+    allocator's cache and the host's drift fall on each alike; the
+    host's noise is the spread of the two plain systems.  Then
+    RS_COST_SPLIT more intervals with a span recorder on each system
+    give every commit stage's p50 per system, and the breaker's own
+    calls on the commit path (is_open, record_success) are timed
+    alone."""
+    from loghisto_tpu_torch.obs.spans import SpanRecorder
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+
+    rng, steady, mu, sigma = _rs_stream()
+    t0 = _dt.datetime(2026, 1, 1, tzinfo=_dt.timezone.utc)
+    raws = [_raw_interval(rng, steady, mu, sigma, t0 + k * _ONE_SECOND,
+                          k + 1, RET_SAMPLES)
+            for k in range(RS_COST_INTERVALS + RS_COST_SPLIT)]
+    labels = ("plain", "resilience", "plain_again")
+    systems = {}
+    times = {label: [] for label in labels}
+    try:
+        for label in labels:
+            kw = ({"resilience": ResilienceConfig()}
+                  if label == "resilience" else {})
+            systems[label] = _cj_retention_system(torch, **kw)[0]
+        recs = {}
+        for k, raw in enumerate(raws):
+            if k == RS_COST_INTERVALS:
+                for label, ms in systems.items():
+                    rec = recs[label] = SpanRecorder(1 << 14)
+                    for part in (ms.aggregator, ms.retention, ms.lifecycle,
+                                 ms.anomaly, ms.committer):
+                        part.obs_recorder = rec
+            for j in range(len(labels)):
+                label = labels[(k + j) % len(labels)]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                systems[label].committer.commit(raw)
+                torch.cuda.synchronize()
+                if k < RS_COST_INTERVALS:
+                    times[label].append((time.perf_counter() - t1) * 1e3)
+        br = systems["resilience"].device_breaker
+        t1 = time.perf_counter()
+        for _ in range(100_000):
+            br.is_open()
+            br.record_success()
+        breaker_us = (time.perf_counter() - t1) * 10.0
+        modes = {label: [ms.committer.fused_intervals,
+                         ms.committer.fanout_intervals]
+                 for label, ms in systems.items()}
+        stages = {}
+        for label, rec in recs.items():
+            by = {}
+            for sp in rec.spans():
+                by.setdefault(sp.stage, []).append(
+                    (sp.end_ns - sp.start_ns) / 1e6)
+            stages[label] = {st: float(np.median(v))
+                             for st, v in sorted(by.items())}
+    finally:
+        for ms in systems.values():
+            _drop_system(torch, ms)
+    if any(fanout for _, fanout in modes.values()):
+        raise AssertionError(f"a cost system left the fused path: {modes}")
+    out = {label: {"p50_ms": float(np.percentile(ts, 50)),
+                   "p99_ms": float(np.percentile(ts, 99)), "ms": ts}
+           for label, ts in times.items()}
+    out["host_noise_p50_ms"] = abs(out["plain"]["p50_ms"]
+                                   - out["plain_again"]["p50_ms"])
+    out["order"] = "interleaved, rotating"
+    out["stage_p50_ms"] = stages
+    out["breaker_us_per_commit"] = breaker_us
+    out["fused_fanout"] = modes
+    return out
+
+
+def phase_resilience(torch):
+    """Resilience on the card, (a) to (f); each part prints its own line,
+    the phase line carries every launch."""
+    import shutil
+    import tempfile
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="loghisto-rs-")
+    reset_kernel_launches()
+    parts = {}
+    try:
+        for key, fn in (("a_crash", lambda t: _rs_crash(t, tmp)),
+                        ("b_chaos", _rs_chaos), ("c_d6", _rs_d6),
+                        ("d_requeue", _rs_requeue), ("e_wedge", _rs_wedge),
+                        ("f_cost", _rs_cost)):
+            t1 = time.perf_counter()
+            out = fn(torch)
+            out["part_s"] = time.perf_counter() - t1
+            emit({"part": key, **out})
+            parts[key] = out["part_s"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernel_launches()
+    for kernel in ("fused_ingest", "sparse_ingest", "window_merge",
+                   "divergence"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"the phase launched no {kernel}")
+    return {"parts_s": parts,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
 def kernels_line():
     out = []
     for name, (source, replaces, also) in KERNEL_META.items():
@@ -5559,6 +6175,7 @@ def main() -> int:
                         # (PERF.md §7)
                         ("observability_main_path",
                          phase_observability),
+                        ("resilience_main_path", phase_resilience),
                         ("firehose_main_path", phase_firehose)):
         if only and name != "card" and name not in only:
             continue

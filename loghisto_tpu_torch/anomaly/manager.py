@@ -148,6 +148,12 @@ class AnomalyManager:
         self._ihist = ihist
         self._prof, self._wsum = banks
 
+    def on_device_failure_locked(self) -> None:
+        """A fused commit step failed.  The reference rebuilds cold
+        (zeros) the carries its donated dispatch consumed; the port's
+        steps update the interval histogram and the banks in place, so
+        they survive the failure and nothing is rebuilt."""
+
     # -- lifecycle integration (both device locks held) ------------------ #
 
     def on_evicted_locked(self, victim_ids: np.ndarray) -> None:

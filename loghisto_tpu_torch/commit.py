@@ -47,11 +47,33 @@ wait on the commit's queued CUDA work, ``device_sync``) and
 the watchdog notes the commit and the self-observer re-ingests the
 interval's spans.
 
-Failure (decision D6 in ROADMAP): a failed commit step is not recovered
-as the reference recovers donated buffers.  The exception leaves
+Failure (D6, closed): a failed commit step is recovered as the
+reference recovers it (``_on_fused_failure_locked``).  The aggregator's
+handler arms the retry cooldown, drops ``stats_snapshot`` and counts
+the failure on the breaker; the lifecycle and drift engines' handlers
+run; the wheel's snapshot is invalidated (queries recompute until the
+next commit publishes); the cells of the chunks not applied fold into
+the aggregator's exact host spill, and on paged storage the chunk
+whose translate ran but whose step failed re-lands through
+``PagedStore.spill_triples``.  The tiers keep the chunks that landed
+and close their slots, as in the reference.  The reference rebuilds
+the carries its donated dispatch consumed; the port's steps update in
+place, so a failure consumes nothing and no ring is reset.  What fails
+outside the commit steps' net (a hook, the lifecycle tick) still leaves
 ``commit``; on the bridge thread it is logged and kept as
 ``bridge_error`` (also on the aggregator and the wheel), so the next
 query, ``device_metrics()`` and ``stop()`` re-raise it.
+
+Resilience, installed by ``TorchMetricSystem(resilience=...)``: an open
+``breaker`` pins the fan-out path (the aggregator's ``_merge_cells_locked``
+and the wheel's push, K3 on the card) until a half-open trial commit
+succeeds; ``fault_injector`` fires ``commit.dispatch`` inside the
+steps' net, before a chunk, and ``commit.bridge`` in the bridge loop,
+outside the per-commit net, so a bridge crash reaches ``supervisor``,
+which restarts the bridge (the same closure, on the same staging rings
+and events, and on the thread's default stream, which
+``device_sync`` waits on); ``recovery.on_commit`` ends every commit
+(the watermark and the cadenced checkpoint).
 """
 
 from __future__ import annotations
@@ -76,6 +98,7 @@ from loghisto_tpu_torch.ops.commit import (
     make_paged_fused_commit_fn,
     make_paged_fused_commit_snapshot_fn,
 )
+from loghisto_tpu_torch.resilience.supervise import spawn_thread
 from loghisto_tpu_torch.window.snapshot import AccSnapshot
 from loghisto_tpu_torch.window.store import trailing_mask
 
@@ -192,6 +215,15 @@ class IntervalCommitter:
         self.self_observer = None
         self.watchdog = None
 
+        # resilience, installed by TorchMetricSystem(resilience=...)
+        self.supervisor = None
+        self.breaker = None
+        self.fault_injector = None
+        self.recovery = None
+        # the paged chunk whose translate ran but whose step has not
+        # returned: (triples, cells) for the failure recovery
+        self._trip_inflight = None
+
         self._ms: Optional[MetricSystem] = None
         self._sub: Optional[ResilientSubscription] = None
         self._thread: Optional[threading.Thread] = None
@@ -298,6 +330,10 @@ class IntervalCommitter:
             # this interval's closed spans re-enter through histogram()
             # as obs.<stage>.LatencyUs
             self.self_observer.on_interval(seq)
+        if self.recovery is not None:
+            # the watermark and the cadenced checkpoint ride the bridge
+            # thread, never the ingest path
+            self.recovery.on_commit(raw)
         return mode
 
     def _commit_cells(self, cells, raw: RawMetricSet, dur: float):
@@ -305,13 +341,19 @@ class IntervalCommitter:
         agg, wheel = self.aggregator, self.wheel
         ids, bidx64, w64 = cells
         total = int(w64.sum(dtype=np.int64))
+        # an open breaker pins the fan-out path: after repeated device
+        # failures, stop attempting the fused commit until the open
+        # window passes and a half-open trial succeeds
+        pinned = self.breaker is not None and self.breaker.is_open()
         with agg._dev_lock:
             if (
-                agg._interval_ingested + total >= agg.spill_threshold
+                pinned
+                or agg._interval_ingested + total >= agg.spill_threshold
                 or int(w64.max()) >= 1 << 30
             ):
-                # past the int32 envelope: the aggregator takes its exact
-                # host spill, the tiers their own push below
+                # pinned, or past the int32 envelope: the aggregator
+                # merges the cells itself (K3, or its exact host spill
+                # past the envelope), the tiers take their own push below
                 agg._merge_cells_locked(ids, bidx64, w64)
                 agg.stats_snapshot = None
                 if self.lifecycle is not None:
@@ -384,77 +426,106 @@ class IntervalCommitter:
             )
         n = len(ids)
         dispatches = 0
+        applied = 0
         payloads = acc_payload = None
         paged = self.paged
-        for off in range(0, n, self.chunk):
-            take = min(self.chunk, n - off)
-            with self.obs_recorder.span("commit.upload"):
-                packed = self._staging.stage(
-                    ids[off:off + take], buckets[off:off + take],
-                    w32[off:off + take],
-                )
-                if paged is not None:
-                    # the host translate against the page table (both
-                    # locks held, so pages may be mapped); cells it
-                    # cannot place land in the exact host spill inside it
-                    pk = np.empty((take, 3), dtype=np.int32)
-                    pk[:, 0] = ids[off:off + take]
-                    pk[:, 1] = buckets[off:off + take]
-                    pk[:, 2] = w32[off:off + take]
-                    triples = self._triples.stage(paged.translate(pk)[0])
-            final = emit and off + take >= n
-            # operand order of make_fused_commit_fn / _snapshot_fn and
-            # their paged twins: carries, then the cells [and triples],
-            # then the host scalars
-            args = [agg._acc if paged is None else paged._pool,
-                    [t.ring for t in tiers]]
-            if lc is not None:
-                args.append(la)
-            if an is not None:
-                args.append(ihist)
-                if final:
-                    args.append(banks)
-            args += [slots, keeps if dispatches == 0 else ones, packed]
-            if paged is not None:
-                args.append(triples)
-            if lc is not None:
-                args.append(epoch)
-            if final:
-                args.append(masks)
-            if an is not None:
-                args.append(0 if dispatches == 0 else 1)
-                if final:
-                    args += [bank, an.decay32, an.min_count32]
-            with self.obs_recorder.span("commit.dispatch"):
-                out = iter(
-                    (self._fused_snap if final else self._fused)(*args))
-            if paged is None:
-                agg._acc = next(out)
-            else:
-                next(out)  # the pool, updated in place
-            for t, r in zip(tiers, next(out)):
-                t.ring = r
-            if lc is not None:
-                la = next(out)
-                lc.store_carry_locked(la)
-            if an is not None:
-                ihist = next(out)
-                if final:
-                    banks = next(out)
-                an.store_carry_locked(ihist, banks)
-            if final:
-                payloads = next(out)
-                # the paged step emits no accumulator payload
-                acc_payload = next(out) if paged is None else None
-            dispatches += 1
+
+        def landed():
+            # the chunk is in the accumulator (K3) or the pool (K4): the
+            # step's later launches may still fail, but from here the
+            # recovery must not spill or re-land it again
+            nonlocal applied
+            applied = off + take
+            self._trip_inflight = None
+            agg._device_down_until = 0.0
             agg._interval_ingested += int(
                 w64[off:off + take].sum(dtype=np.int64))
-        if self.obs_recorder.enabled and dispatches:
-            # only when observing: wait out the queued commit steps, so
-            # the span carries the card's time instead of leaking it into
-            # whoever touches the carries next
-            with self.obs_recorder.span("commit.device_sync"):
-                device_sync(agg.device)
+
+        try:
+            inj = self.fault_injector
+            for off in range(0, n, self.chunk):
+                if inj is not None:
+                    # inside the net: an injected failure is recovered
+                    # as an organic one is
+                    inj.check("commit.dispatch")
+                take = min(self.chunk, n - off)
+                with self.obs_recorder.span("commit.upload"):
+                    packed = self._staging.stage(
+                        ids[off:off + take], buckets[off:off + take],
+                        w32[off:off + take],
+                    )
+                    if paged is not None:
+                        # the host translate against the page table
+                        # (both locks held, so pages may be mapped);
+                        # cells it cannot place land in the exact host
+                        # spill inside it, and the in-flight record keeps
+                        # the failure recovery from spilling them again
+                        pk = np.empty((take, 3), dtype=np.int32)
+                        pk[:, 0] = ids[off:off + take]
+                        pk[:, 1] = buckets[off:off + take]
+                        pk[:, 2] = w32[off:off + take]
+                        trip = paged.translate(pk)[0]
+                        self._trip_inflight = (trip, take)
+                        triples = self._triples.stage(trip)
+                final = emit and off + take >= n
+                # operand order of make_fused_commit_fn / _snapshot_fn and
+                # their paged twins: carries, then the cells [and
+                # triples], then the host scalars
+                args = [agg._acc if paged is None else paged._pool,
+                        [t.ring for t in tiers]]
+                if lc is not None:
+                    args.append(la)
+                if an is not None:
+                    args.append(ihist)
+                    if final:
+                        args.append(banks)
+                args += [slots, keeps if dispatches == 0 else ones, packed]
+                if paged is not None:
+                    args.append(triples)
+                if lc is not None:
+                    args.append(epoch)
+                if final:
+                    args.append(masks)
+                if an is not None:
+                    args.append(0 if dispatches == 0 else 1)
+                    if final:
+                        args += [bank, an.decay32, an.min_count32]
+                with self.obs_recorder.span("commit.dispatch"):
+                    out = iter((self._fused_snap if final else self._fused)(
+                        *args, landed=landed))
+                if paged is None:
+                    agg._acc = next(out)
+                else:
+                    next(out)  # the pool, updated in place
+                for t, r in zip(tiers, next(out)):
+                    t.ring = r
+                if lc is not None:
+                    la = next(out)
+                    lc.store_carry_locked(la)
+                if an is not None:
+                    ihist = next(out)
+                    if final:
+                        banks = next(out)
+                    an.store_carry_locked(ihist, banks)
+                if final:
+                    payloads = next(out)
+                    # the paged step emits no accumulator payload
+                    acc_payload = next(out) if paged is None else None
+                dispatches += 1
+            if self.obs_recorder.enabled and dispatches:
+                # only when observing: wait out the queued commit steps,
+                # so the span carries the card's time instead of leaking
+                # it into whoever touches the carries next (a failure
+                # here takes the recovery below)
+                with self.obs_recorder.span("commit.device_sync"):
+                    device_sync(agg.device)
+            if self.breaker is not None:
+                # closes a half-open breaker after a successful trial;
+                # failures count in one place (the aggregator's handler)
+                self.breaker.record_success()
+        except Exception:
+            payloads = acc_payload = None
+            self._on_fused_failure_locked(cells, applied)
         for t, s in zip(tiers, slots):
             wheel._tier_close_locked(t, s, raw.rates, dur)
         if payloads is not None:
@@ -474,6 +545,42 @@ class IntervalCommitter:
                         sums=acc_payload["sums"],
                     )
         return dispatches
+
+    def _on_fused_failure_locked(self, cells, applied: int) -> None:
+        """Recovery of a failed fused commit (both locks held, called
+        from inside the except handler): the aggregator's handler (the
+        cooldown, the snapshot handle, the breaker's count), the
+        lifecycle and drift engines' handlers, the wheel's snapshot
+        invalidated, and the cells not applied into the aggregator's
+        exact host spill, so no sample is lost or counted twice on the
+        aggregator's side.  On paged storage the failed chunk's
+        translated triples re-land through the page table's inverse
+        (its translate already spilled what it could not place).  The
+        reference also rebuilds the tier rings a donated dispatch
+        consumed; the port's steps write the rings in place, so none is
+        consumed and the tiers keep the chunks that landed.  A port step
+        is several launches, not one program: ``applied`` already counts
+        a chunk whose K3 (or, paged, K4) launch returned before a later
+        launch of its step failed, so that chunk is not spilled again."""
+        agg, wheel = self.aggregator, self.wheel
+        ids, bidx64, w64 = cells
+        agg._on_device_failure_locked()
+        if self.lifecycle is not None:
+            self.lifecycle.on_device_failure_locked(ids[:applied])
+        if self.anomaly is not None:
+            self.anomaly.on_device_failure_locked()
+        # the published handle may describe rings the failed commit
+        # half-wrote: queries recompute until the next commit publishes
+        wheel.invalidate_snapshot_locked()
+        start = applied
+        inflight, self._trip_inflight = self._trip_inflight, None
+        if self.paged is not None and inflight is not None:
+            trip, take = inflight
+            self.paged.spill_triples(trip)
+            start = applied + take
+        if start < len(ids):
+            agg._spill_add_cells_locked(ids[start:], bidx64[start:],
+                                        w64[start:])
 
     # -- warmup / attach ------------------------------------------------ #
 
@@ -509,7 +616,8 @@ class IntervalCommitter:
         interval shed here loses its samples, so the bridge may fall
         behind through a stall and catch up.  A failed commit is logged
         and kept in ``bridge_error`` (the first one), also on the
-        aggregator and the wheel."""
+        aggregator and the wheel; a device failure inside the commit
+        steps is recovered in ``commit`` and raises nothing."""
         if self._thread is not None:
             raise RuntimeError("already attached")
         self.warmup()
@@ -527,6 +635,11 @@ class IntervalCommitter:
                     raw = sub.get()
                 except ChannelClosed:
                     return
+                inj = self.fault_injector
+                if inj is not None:
+                    # outside the per-commit net: a scripted bridge crash
+                    # reaches the supervisor's restart loop
+                    inj.check("commit.bridge")
                 try:
                     self.commit(raw)
                 except Exception as e:
@@ -535,10 +648,10 @@ class IntervalCommitter:
                     )
                     self._keep_error(e)
 
-        self._thread = threading.Thread(
-            target=bridge, daemon=True, name="loghisto-torch-commit"
-        )
-        self._thread.start()
+        # supervised, a crashed bridge restarts with capped backoff on the
+        # same subscription; a clean ChannelClosed return (detach) ends it
+        self._thread = spawn_thread(self.supervisor, bridge,
+                                    "loghisto-torch-commit")
 
     def _keep_error(self, e: BaseException) -> None:
         for part in (self, self.aggregator, self.wheel):
@@ -552,6 +665,9 @@ class IntervalCommitter:
             self._sub.close()
             self._sub = None
         if self._thread is not None:
+            # a supervised handle's restart loop stops too, so no backoff
+            # nap outlives the join
+            self._thread.stop()
             self._thread.join(timeout=60.0)
             self._thread = None
         err, self.bridge_error = self.bridge_error, None

@@ -130,6 +130,19 @@ class LifecycleManager:
         la = self.ensure_capacity_locked(self.aggregator.num_metrics)
         self._la = self._touch(la, pad_pow2_ids(ids), self.epoch)
 
+    def on_device_failure_locked(self, landed_ids=None) -> None:
+        """A fused commit step failed.  The reference rebuilds a carry
+        its donated dispatch consumed, stamped at the current epoch; the
+        port's steps update the activity vector in place, so it survives
+        the failure (what the chunks before it stamped stays stamped)
+        and nothing is rebuilt.  A port step is several launches, and
+        one that failed after its chunk landed may not have stamped it:
+        ``landed_ids``, the ids of every chunk that landed, are stamped
+        again (a no-op for a row already stamped), so no active row
+        reads as idle."""
+        if landed_ids is not None:
+            self.touch_locked(landed_ids)
+
     # -- the policy tick -------------------------------------------------- #
 
     def on_interval(self) -> None:

@@ -1042,11 +1042,16 @@ class MetricSystem:
             if self._reaper_thread is not None and self._reaper_thread.is_alive():
                 return
             self._shutdown = threading.Event()
-            self._reaper_thread = threading.Thread(
-                target=self._reaper, args=(self._shutdown,),
-                daemon=True, name="loghisto-reaper",
-            )
-            self._reaper_thread.start()
+            shutdown = self._shutdown
+            # deferred: the resilience package imports the submitter,
+            # which imports this module
+            from loghisto_tpu_torch.resilience.supervise import spawn_thread
+
+            # with resilience, a crashed reaper restarts with capped
+            # backoff on the same shutdown event
+            self._reaper_thread = spawn_thread(
+                getattr(self, "supervisor", None),
+                lambda: self._reaper(shutdown), "loghisto-reaper")
 
     def stop(self) -> None:
         """Shut the reaper down and join it (metrics.go:651-653)."""
@@ -1054,6 +1059,9 @@ class MetricSystem:
             self._shutdown.set()
             t = self._reaper_thread
         if t is not None and t is not threading.current_thread():
+            # a supervised handle's restart loop stops too, so no
+            # backoff nap outlives the join
+            t.stop()
             t.join(timeout=5.0)
 
     # Go-style aliases for drop-in familiarity with the reference API.

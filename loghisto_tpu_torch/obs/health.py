@@ -62,14 +62,13 @@ latch for one stall window so a scrape can't straddle the instant and
 miss them.
 
 In the port the watchdog reads one card's pipeline: a paged store has
-one arena (``PagedStore.shard_occupancy()`` is a list of one).  The
-supervisor, breaker, recovery manager and federation receiver are
-``None`` until those subsystems are ported (ROADMAP Queue 1, 6c-2 and
-14), as the reference's system passes them when they are off, so their
-invariants never fire.  ``device_cooldown`` reads the aggregator's
-``_device_down_until``, which the port's aggregator sets only once the
-device-failure requeue and cooldown land (6c-2); until then it reads 0
-and the invariant stays quiet.
+one arena (``PagedStore.shard_occupancy()`` is a list of one).
+``TorchMetricSystem(resilience=...)`` passes its supervisor, breaker and
+recovery manager, and ``device_cooldown`` reads the aggregator's
+``_device_down_until``, which its device-failure handler arms.  The
+federation receiver is ``None`` until federation is ported (ROADMAP
+Queue 1 slice 14), as the reference's system passes it when it is off,
+so the federation invariants never fire.
 """
 
 from __future__ import annotations

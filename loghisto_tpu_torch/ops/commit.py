@@ -78,10 +78,11 @@ def stamp_activity(last_active: torch.Tensor, ids: torch.Tensor,
 
 
 def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
-                epoch, ifirst, bucket_limit):
+                epoch, ifirst, bucket_limit, landed=None):
     """One chunk into every carry (in place): the clears, then one K3
     launch for every target (the accumulator, when there is one, and
-    each tier's open slot)."""
+    each tier's open slot); ``landed()`` runs right after that launch,
+    before the activity stamp."""
     targets = [] if acc is None else [acc]
     for ring, slot, keep in zip(rings, slots, keeps):
         view = ring[int(slot)]
@@ -93,6 +94,8 @@ def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
             ihist.zero_()  # the interval's first chunk: x ifirst = 0
         targets.append(ihist)
     sparse_ingest_multi(targets, packed, bucket_limit)
+    if landed is not None:
+        landed()
     if last_active is not None:
         stamp_activity(last_active, packed[:, 0], epoch)
 
@@ -116,9 +119,15 @@ def make_fused_commit_fn(
       epoch        host int                 stamped on the touched rows
       ifirst       host int                 0 on the interval's first
                                             chunk (clears ihist), else 1
+
+    The reference's step is one program that lands whole or not at all;
+    this one is a sequence of launches.  ``landed``, when given, is
+    called once the chunk sits in the accumulator (right after the K3
+    launch, before the activity stamp and any snapshot work), so a
+    caller can tell a failure after that point from one before it.
     """
 
-    def commit(*args):
+    def commit(*args, landed=None):
         it = iter(args)
         acc, rings = next(it), tuple(next(it))
         la = next(it) if track_activity else None
@@ -129,7 +138,7 @@ def make_fused_commit_fn(
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
         _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
-                    ifirst, bucket_limit)
+                    ifirst, bucket_limit, landed)
         out = [acc, rings]
         if track_activity:
             out.append(la)
@@ -158,12 +167,13 @@ def make_fused_commit_snapshot_fn(
     ``window_snapshot``'s cdf/counts/sums over the V views, and
     ``acc_payload`` is ``dense_cdf`` of the accumulator.  ``banks`` is
     ``(prof f32 [K, M, B], wsum f32 [K, M])``, updated in place from the
-    completed ``ihist`` (``ewma_bank_update``)."""
+    completed ``ihist`` (``ewma_bank_update``).  ``landed`` is
+    ``make_fused_commit_fn``'s."""
     if track_baseline:
         # deferred: ops.anomaly imports ops.lifecycle, which imports this
         from loghisto_tpu_torch.ops.anomaly import ewma_bank_update
 
-    def commit(*args):
+    def commit(*args, landed=None):
         it = iter(args)
         acc, rings = next(it), tuple(next(it))
         la = next(it) if track_activity else None
@@ -180,7 +190,7 @@ def make_fused_commit_snapshot_fn(
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
         _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
-                    ifirst, bucket_limit)
+                    ifirst, bucket_limit, landed)
         payloads = tuple(
             window_snapshot(ring, masks[t], bucket_limit, precision)
             for t, ring in enumerate(rings)
@@ -207,9 +217,10 @@ def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,
     ``triples`` (int32 [n, 3] ``(slot, offset, count)``, slots <= 0
     drop) go into it with one K4 launch; ``packed`` then goes into every
     tier's open slot with one K3 launch, and the activity stamp follows.
-    The other operands are ``make_fused_commit_fn``'s."""
+    The other operands are ``make_fused_commit_fn``'s; ``landed`` runs
+    right after the K4 launch, once the chunk sits in the pool."""
 
-    def commit(*args):
+    def commit(*args, landed=None):
         it = iter(args)
         pool, rings = next(it), tuple(next(it))
         la = next(it) if track_activity else None
@@ -218,6 +229,8 @@ def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
         paged_scatter(pool, triples)
+        if landed is not None:
+            landed()
         _fold_chunk(None, rings, la, None, slots, keeps, packed, epoch,
                     None, bucket_limit)
         out = [pool, rings]
@@ -243,9 +256,9 @@ def make_paged_fused_commit_snapshot_fn(
     step = make_paged_fused_commit_fn(num_tiers, bucket_limit,
                                       track_activity)
 
-    def commit(*args):
+    def commit(*args, landed=None):
         *args, masks = args
-        out = step(*args)
+        out = step(*args, landed=landed)
         payloads = tuple(
             window_snapshot(ring, masks[t], bucket_limit, precision)
             for t, ring in enumerate(out[1])

@@ -634,8 +634,16 @@ class PagedStore:
 
     # -- spill / reset ---------------------------------------------------- #
 
+    def pool_deleted(self) -> bool:
+        """Whether a failed launch consumed the pool: never in the port.
+        The reference donates its JAX pool into each dispatch, and a
+        failure may leave it deleted; K4 and K4f update the pool in
+        place, so it survives a failed launch."""
+        return False
+
     def reset_pool(self) -> None:
-        """Zero the pool; page mappings survive."""
+        """Zero the pool; page mappings survive (the device-failure
+        recovery's rebuild, and ``spill_pool``'s reset)."""
         self._pool.zero_()
 
     def spill_pool(self) -> None:
@@ -655,10 +663,10 @@ class PagedStore:
         """Fold translated ``(slot, offset, count)`` triples back into the
         exact host spill through the page table's inverse (slot -> owning
         row and page -> codec decode); returns the count folded.  The
-        reference's committer uses it for the one chunk whose translate
-        ran but whose dispatch failed.  The port's committer does not
-        recover a failed dispatch (ROADMAP D6), so nothing calls it yet:
-        its caller comes with recovery (ROADMAP Queue 1, 6c)."""
+        committer's failure recovery calls it for the one chunk whose
+        translate ran but whose commit step failed: spilling that
+        chunk's cells would count twice the ones translate already
+        spilled."""
         triples = np.asarray(triples)
         triples = triples[triples[:, 0] > 0]
         if not len(triples):

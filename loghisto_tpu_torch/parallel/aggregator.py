@@ -78,11 +78,33 @@ the raw route, ``ingest.upload`` / ``ingest.dispatch`` per chunk.
 a ``torch.profiler`` capture of its flush and statistics when
 ``LOGHISTO_TRACE_DIR`` is set, a named region otherwise.
 
-Not in these slices: the mesh, the fault injector and the supervisor.
-A device error in the transfer worker is not retried: it is re-raised
-by the next ``flush``, ``wait_transfers`` or ``collect``.  When the
-transfer queue holds more than ``max_pending_samples``, ``flush`` waits
-for it instead of shedding.
+Shed, don't block (the reference's rule, with or without resilience):
+``flush`` never waits for the card.  While the transfer queue holds
+``max_pending_samples`` or more, or the device is inside its retry
+cooldown, a non-forced ``flush`` returns and leaves the samples in the
+bounded host buffer, where ``_bound_pending_locked`` drops the OLDEST
+first (the requeue before the pending lists) and counts them in
+``tpu.SamplesShed``.  The default bound is 32 batches: a producer of
+small batches that outruns the worker (the paged raw route, whose
+worker prepares pages on the host) sheds most of its stream, so raise
+``max_pending_samples`` to the backlog the host may hold.  A device failure in the transfer worker (a chunk
+that raises, an ``agg.ingest`` fault) arms ``retry_cooldown``, puts the
+unapplied rest of the batch back into the requeue buffer
+(``_requeue_raw``) and, on the packed routes, lands the cells in the
+exact host spill; ``_on_device_failure_locked`` is also the breaker's
+single count point.  The port's kernels update the accumulator and the
+page pool in place, so a failure consumes neither (``_acc_deleted`` and
+``PagedStore.pool_deleted`` read False, where the reference's donated
+JAX arrays may be deleted).  An error outside those nets (a malformed
+item) is still re-raised by the next ``flush``, ``wait_transfers`` or
+``collect``.
+
+With resilience (``TorchMetricSystem(resilience=...)``) the system
+installs ``supervisor`` (the bridge runs supervised; a worker killed by
+an ``agg.xfer_worker`` fault is respawned by the next enqueue and
+counted with ``note_external_restart``), ``device_breaker`` and
+``fault_injector`` (the ``agg.ingest`` and ``agg.xfer_worker`` sites).
+The mesh comes with ROADMAP Queue 1 slice 11.
 """
 
 from __future__ import annotations
@@ -114,6 +136,7 @@ from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
 from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
+from loghisto_tpu_torch.resilience.supervise import spawn_thread
 from loghisto_tpu_torch.utils.trace import maybe_capture
 
 logger = logging.getLogger("loghisto_tpu_torch")
@@ -373,14 +396,34 @@ class TorchAggregator:
         self._pending_ids: list = []
         self._pending_values: list = []
         self._pending_count = 0
+        # the worker's re-buffer for batches a device failure (or the
+        # retry cooldown) bounced back: appended in order by the single
+        # FIFO worker, so all of it is OLDER than _pending_* (flush drains
+        # it first, and the oldest-first shed stays honest); under _lock
+        self._requeue_ids: list = []
+        self._requeue_values: list = []
+        self._requeue_count = 0
+        # the host buffer's bound while the device is slow or down
         self.max_pending_samples = 32 * batch_size
+        self.retry_cooldown = 1.0  # seconds between device retries
+        self._device_down_until = 0.0
         # samples accepted by the native buffer since its last drain
         # (under _lock); the auto-flush counts them
         self._native_staged = 0
         self._native_buf = None
-        # samples the preagg store could not take (its table could not
-        # grow even after a drain), under _lock
+        # samples dropped by the host buffer's bound and those the
+        # preagg store could not take; written from the staging side and
+        # the worker, under _shed_lock
         self._shed_samples = 0
+        self._shed_lock = threading.Lock()
+        # resilience, installed by TorchMetricSystem(resilience=...): the
+        # supervisor ledgers bridge and worker restarts, the breaker
+        # counts device failures (one count point:
+        # _on_device_failure_locked), the injector scripts faults (None:
+        # one attribute test a site)
+        self.supervisor = None
+        self.device_breaker = None
+        self.fault_injector = None
         # wire accounting of the packed routes (transport_stats); the
         # staging ring counts the raw route's uploads
         self._xfer_uploads = 0
@@ -589,15 +632,45 @@ class TorchAggregator:
             self._pending_ids.append(ids)
             self._pending_values.append(values)
             self._pending_count += len(ids)
+            # bounded while the device is down or slow (flush is gated)
+            self._bound_pending_locked()
             should_flush = self._pending_count >= self.batch_size
         if should_flush:
             self.flush()
 
     @property
     def pending_samples(self) -> int:
-        """Samples buffered on the host awaiting the transfer worker (a
-        racy read: exact whenever the worker is idle)."""
-        return self._pending_count
+        """Samples buffered on the host awaiting a device attempt, the
+        requeued and the fresh (a racy read: exact whenever the worker
+        is idle); the watchdog compares it with
+        ``max_pending_samples``."""
+        return self._requeue_count + self._pending_count
+
+    def _bound_pending_locked(self) -> None:
+        """Hold the whole host buffer (requeue + pending) to
+        ``max_pending_samples`` by shedding the OLDEST samples: the
+        requeue first (strictly older, one FIFO worker), a partial array
+        sliced so no more than the overflow goes.  Caller holds
+        _lock."""
+        overflow = (self._requeue_count + self._pending_count
+                    - self.max_pending_samples)
+        for ids_list, values_list, count_attr in (
+            (self._requeue_ids, self._requeue_values, "_requeue_count"),
+            (self._pending_ids, self._pending_values, "_pending_count"),
+        ):
+            while overflow > 0 and ids_list:
+                head = ids_list[0]
+                take = min(len(head), overflow)
+                if take == len(head):
+                    ids_list.pop(0)
+                    values_list.pop(0)
+                else:
+                    ids_list[0] = head[take:]
+                    values_list[0] = values_list[0][take:]
+                setattr(self, count_attr, getattr(self, count_attr) - take)
+                with self._shed_lock:
+                    self._shed_samples += take
+                overflow -= take
 
     def _preagg_record(self, ids: np.ndarray, values: np.ndarray) -> None:
         """Fold one batch into the calling thread's cell shard.  The card
@@ -611,7 +684,7 @@ class TorchAggregator:
             rest = self._cell_store.add(ids[consumed:], values[consumed:])
             if consumed + rest < len(ids):
                 dropped = len(ids) - consumed - rest
-                with self._lock:
+                with self._shed_lock:
                     self._shed_samples += dropped
                 logger.error("cell store cannot grow even after draining; "
                              "shed %d samples", dropped)
@@ -621,10 +694,24 @@ class TorchAggregator:
     def flush(self, force: bool = False) -> None:
         """Hand buffered samples to the transfer worker.  Enqueue-only,
         unless ``force`` (collect, close): then it waits until every
-        enqueued item has reached the device.  On preagg it ships the
-        store's cells when forced or past ``max_host_cells``."""
+        enqueued item has reached the device, the spill or the requeue
+        buffer.  On preagg it ships the store's cells when forced or
+        past ``max_host_cells``.  A non-forced flush never waits: while
+        the device cools down or the queue holds ``max_pending_samples``
+        it leaves the samples in the bounded host buffer."""
         with self.obs_recorder.span("ingest.flush"):
             self._flush_impl(force)
+
+    def _drain_host_locked(self):
+        """Take the whole host buffer, requeue first (older); caller
+        holds _lock."""
+        ids = np.concatenate(self._requeue_ids + self._pending_ids)
+        values = np.concatenate(self._requeue_values + self._pending_values)
+        self._requeue_ids, self._requeue_values = [], []
+        self._requeue_count = 0
+        self._pending_ids, self._pending_values = [], []
+        self._pending_count = 0
+        return ids, values
 
     def _flush_impl(self, force: bool) -> None:
         self._raise_worker_error()
@@ -632,7 +719,7 @@ class TorchAggregator:
             if force or len(self._cell_store) >= self.max_host_cells:
                 packed = self._cell_store.drain_packed_all()
                 if len(packed):
-                    self._enqueue_xfer(("packed", packed, None, 0))
+                    self._enqueue_xfer(("packed", packed, None, 0, force))
             if force:
                 self.wait_transfers()
             return
@@ -645,37 +732,54 @@ class TorchAggregator:
                     self._pending_ids.append(nids)
                     self._pending_values.append(nvalues.astype(np.float32))
                     self._pending_count += len(nids)
+                    self._bound_pending_locked()
         with self._lock:
-            if self._pending_count:
-                ids = np.concatenate(self._pending_ids)
-                values = np.concatenate(self._pending_values)
-                self._pending_ids, self._pending_values = [], []
-                self._pending_count = 0
-            else:
+            if not self._requeue_count and not self._pending_count:
                 ids = values = None
+            elif not force and time.monotonic() < self._device_down_until:
+                # cooling down after a device failure: keep buffering
+                # (_device_down_until is written under _dev_lock; a racy
+                # read of a heuristic)
+                return
+            elif (not force
+                  and self._xfer_queued_samples >= self.max_pending_samples):
+                # the queue is saturated (the device is slower than the
+                # producers): the samples stay in the bounded host
+                # buffer, where the oldest-first shed applies
+                return
+            else:
+                ids, values = self._drain_host_locked()
+        kind = "fold" if self.transport == "sparse" else "raw"
         if ids is not None:
-            kind = "fold" if self.transport == "sparse" else "raw"
-            self._enqueue_xfer((kind, ids, values, len(ids)))
-        if force:
-            self.wait_transfers()
-        elif self._xfer_queued_samples > self.max_pending_samples:
-            # device slower than producers: wait here (backpressure)
-            # rather than let the queue grow without bound
-            with self._xfer_cv:
-                while (
-                    self._xfer_queued_samples > self.max_pending_samples
-                    and self._xfer_error is None
-                ):
-                    self._xfer_cv.wait()
-            self._raise_worker_error()
+            self._enqueue_xfer((kind, ids, values, len(ids), force))
+        if not force:
+            return
+        self.wait_transfers()
+        # an item in flight when we drained may have failed during the
+        # wait and requeued its samples: they were recorded before this
+        # flush, so the barrier owes them one forced attempt (one only:
+        # if it fails too, the device is down and they stay buffered)
+        with self._lock:
+            if not self._requeue_count and not self._pending_count:
+                return
+            ids, values = self._drain_host_locked()
+        self._enqueue_xfer((kind, ids, values, len(ids), True))
+        self.wait_transfers()
 
     # -- transfer pipeline ---------------------------------------------- #
 
     def _enqueue_xfer(self, item: tuple) -> None:
-        """Append one (kind, ids, values, n_samples) item to the FIFO,
-        lazily (re)spawning the worker thread."""
+        """Append one (kind, ids, values, n_samples, force) item to the
+        FIFO, lazily (re)spawning the worker thread."""
         with self._xfer_cv:
             if self._xfer_thread is None or not self._xfer_thread.is_alive():
+                if (self._xfer_thread is not None and not self._xfer_stop
+                        and self.supervisor is not None):
+                    # the worker died abnormally (close() sets _xfer_stop
+                    # first): this respawn is its restart, on the shared
+                    # ledger the thread_restarted invariant reads
+                    self.supervisor.note_external_restart(
+                        "loghisto-torch-xfer")
                 self._xfer_stop = False
                 self._xfer_thread = threading.Thread(
                     target=self._xfer_worker, daemon=True,
@@ -727,6 +831,13 @@ class TorchAggregator:
 
     def _xfer_worker(self) -> None:
         while True:
+            inj = self.fault_injector
+            if inj is not None:
+                # between items (no queue bookkeeping in flight): a
+                # scripted crash kills the worker (the next enqueue
+                # respawns it), a wedge backs the queue up into the
+                # max_pending_samples shed
+                inj.check("agg.xfer_worker")
             with self._xfer_cv:
                 while not self._xfer_queue and not self._xfer_stop:
                     self._xfer_cv.wait()
@@ -740,6 +851,8 @@ class TorchAggregator:
                 with self.obs_recorder.span("ingest.drain"):
                     self._process_xfer_item(item)
             except Exception as e:  # surfaced by the next flush/collect
+                # device failures are handled inside the item's nets;
+                # what reaches here is not a device failure
                 logger.exception("transfer worker failed on a %s item",
                                  item[0])
                 self._xfer_error = e
@@ -764,7 +877,7 @@ class TorchAggregator:
                 f"got shape {packed.shape}"
             )
         if len(packed):
-            self._enqueue_xfer(("packed", packed, None, 0))
+            self._enqueue_xfer(("packed", packed, None, 0, False))
         if wait:
             self.wait_transfers()
 
@@ -782,12 +895,18 @@ class TorchAggregator:
         }
 
     def _process_xfer_item(self, item: tuple) -> None:
-        kind, a, b, n = item
+        kind, a, b, n, force = item
         if kind == "packed":
             self._xfer_uploads += 1
             self._xfer_bytes += a.nbytes
             self._xfer_samples_shipped += int(a[:, 2].sum(dtype=np.int64))
             self._ship_packed(a)
+            return
+        # the cooldown gate, per item: after a failure arms it, queued
+        # non-forced items go straight back to the requeue buffer, so a
+        # down device costs one attempt a cooldown, in arrival order
+        if not force and time.monotonic() < self._device_down_until:
+            self._requeue_raw(a, b)
             return
         if kind == "fold" or self._maybe_switch_sparse(a, b, n):
             packed = fold_packed(
@@ -798,7 +917,15 @@ class TorchAggregator:
             self._ship_packed(packed)
             return
         self._process_raw(a, b, n)
-        self._xfer_samples_shipped += n
+
+    def _requeue_raw(self, ids: np.ndarray, values: np.ndarray) -> None:
+        if not len(ids):
+            return
+        with self._lock:
+            self._requeue_ids.append(ids)
+            self._requeue_values.append(values)
+            self._requeue_count += len(ids)
+            self._bound_pending_locked()
 
     def _maybe_switch_sparse(self, ids, values, n) -> bool:
         """transport="auto" density probe: runs once, on the first raw
@@ -833,13 +960,17 @@ class TorchAggregator:
                      n: int) -> None:
         """Raw route: stage each batch_size chunk through the pinned ring
         and launch one ingest step on it, with the spill check per
-        chunk (the int32 overflow guarantee)."""
+        chunk (the int32 overflow guarantee).  A failing chunk keeps
+        the samples exact: everything before it was applied, everything
+        from it on is requeued from the host arrays."""
         bs = self.batch_size
+        retry_off = None
         with self._dev_lock:
             if self.paged is not None:
                 # K4f: assign codecs and map every page the batch touches
                 # BEFORE the upload; ids come back rewritten (pool
-                # saturated -> overflow row, or -1 after an exact spill)
+                # saturated -> overflow row, or -1 after an exact spill),
+                # so a requeue of these arrays stays count-exact
                 ids, _ = self.paged.prepare_batch(ids, values)
             ring = self._staging_ring
             if ring is None or ring.slot_samples != bs:
@@ -848,19 +979,36 @@ class TorchAggregator:
             bl, prec = self.config.bucket_limit, self.config.precision
             rec = self.obs_recorder
             for off in range(0, n, bs):
-                with rec.span("ingest.upload"):
-                    ids_dev, values_dev = ring.stage(
-                        ids[off:off + bs], values[off:off + bs]
-                    )
-                with rec.span("ingest.dispatch"):
-                    if self.paged is not None:
-                        self.paged.ingest_raw(ids_dev, values_dev)
-                    else:
-                        self._ingest(self._acc, ids_dev, values_dev, bl,
-                                     prec)
+                try:
+                    inj = self.fault_injector
+                    if inj is not None:
+                        # inside the per-chunk net: an injected failure
+                        # takes the organic recovery
+                        inj.check("agg.ingest")
+                    with rec.span("ingest.upload"):
+                        ids_dev, values_dev = ring.stage(
+                            ids[off:off + bs], values[off:off + bs]
+                        )
+                    with rec.span("ingest.dispatch"):
+                        if self.paged is not None:
+                            self.paged.ingest_raw(ids_dev, values_dev)
+                        else:
+                            self._ingest(self._acc, ids_dev, values_dev,
+                                         bl, prec)
+                except Exception:
+                    self._on_device_failure_locked()
+                    retry_off = off
+                    break
+                self._device_down_until = 0.0
                 self._interval_ingested += min(bs, n - off)
                 if self._interval_ingested >= self.spill_threshold:
                     self._spill_fold_locked()
+        self._xfer_samples_shipped += n if retry_off is None else retry_off
+        if retry_off is not None:
+            # the traceback was logged by _on_device_failure_locked
+            logger.warning("buffering %d samples for retry (cooldown %.1fs)",
+                           n - retry_off, self.retry_cooldown)
+            self._requeue_raw(ids[retry_off:n], values[retry_off:n])
 
     def _ship_packed(self, packed: np.ndarray) -> None:
         """Merge packed (id, bucket, count) triples into the accumulator
@@ -890,15 +1038,24 @@ class TorchAggregator:
                 self._spill_add_cells_locked(
                     packed[:, 0], packed[:, 1], packed[:, 2])
                 return
-            if self.paged is not None:
-                self._interval_ingested += self.paged.commit(packed)
+            try:
+                if self.paged is not None:
+                    self._interval_ingested += self.paged.commit(packed)
+                else:
+                    # one launch per item: there is no per-shape compile
+                    # to amortize with fixed-size chunks
+                    sparse_ingest(self._acc,
+                                  torch.from_numpy(packed).to(self.device),
+                                  bl)
+                    self._interval_ingested += total
+            except Exception:
+                # the cells are finished aggregates: the exact host
+                # spill takes them, no retry queue needed
+                self._on_device_failure_locked()
+                self._spill_add_cells_locked(
+                    packed[:, 0], packed[:, 1], packed[:, 2])
                 return
-            # one launch per item: there is no per-shape compile to
-            # amortize with fixed-size chunks
-            sparse_ingest(
-                self._acc, torch.from_numpy(packed).to(self.device), bl
-            )
-            self._interval_ingested += total
+            self._device_down_until = 0.0
 
     def _spill_add_cells_locked(self, ids, buckets, weights) -> None:
         """Add (id, codec bucket, count) cells to the host int64 spill —
@@ -969,11 +1126,58 @@ class TorchAggregator:
         packed[:, 0] = ids_np
         packed[:, 1] = np.clip(bidx_np, -bl, bl)
         packed[:, 2] = weights_np
-        if self.paged is not None:
-            self._interval_ingested += self.paged.commit(packed)
+        try:
+            if self.paged is not None:
+                self._interval_ingested += self.paged.commit(packed)
+            else:
+                sparse_ingest(self._acc,
+                              torch.from_numpy(packed).to(self.device), bl)
+                self._interval_ingested += total
+        except Exception:
+            # nothing of this one launch applied: the exact host spill
+            # takes every cell, no sample lost or counted twice
+            self._on_device_failure_locked()
+            self._spill_add_cells_locked(ids_np, bidx_np, weights_np)
             return
-        sparse_ingest(self._acc, torch.from_numpy(packed).to(self.device), bl)
-        self._interval_ingested += total
+        # success only: a failed chunk's cooldown must survive a merge
+        # that returns normally
+        self._device_down_until = 0.0
+
+    def _acc_deleted(self) -> bool:
+        """Whether a failed launch consumed the accumulator: never in
+        the port.  The reference donates its JAX accumulator into each
+        dispatch, and a failure may leave it deleted; the port's kernels
+        update the tensor in place, so it survives every failure (a
+        sticky CUDA error poisons the whole context instead, which only
+        ``recover()`` in a new process answers)."""
+        return False
+
+    def _on_device_failure_locked(self) -> None:
+        """Device-failure bookkeeping (caller holds _dev_lock and calls
+        from inside the except handler, so the traceback is live): log
+        it, arm the retry cooldown, recover a consumed accumulator or
+        pool (never, in the port: ``_acc_deleted``), drop the snapshot
+        handle and count the failure on the breaker, its single count
+        point: the committer's recovery, the bridge merge and the
+        transfer worker all come through here."""
+        logger.exception("device ingest dispatch failed")
+        self._device_down_until = time.monotonic() + self.retry_cooldown
+        lost = self._acc_deleted() or (
+            self.paged is not None and self.paged.pool_deleted())
+        if lost:
+            logger.error("device failure consumed the accumulator; %d "
+                         "already-ingested samples of this interval are "
+                         "lost", self._interval_ingested)
+            with self._shed_lock:
+                self._shed_samples += self._interval_ingested
+            self._interval_ingested = 0
+            if self.paged is not None:
+                self.paged.reset_pool()
+            else:
+                self._acc.zero_()
+        self.stats_snapshot = None
+        if self.device_breaker is not None:
+            self.device_breaker.record_failure("aggregator")
 
     def _raise_bridge_error(self, clear: bool = False) -> None:
         err = self.bridge_error
@@ -1026,10 +1230,9 @@ class TorchAggregator:
                     if self.bridge_error is None:
                         self.bridge_error = e
 
-        t = threading.Thread(
-            target=bridge, daemon=True, name="loghisto-torch-bridge"
-        )
-        t.start()
+        # supervised, a crashed bridge restarts with capped backoff; the
+        # clean stop-event return ends it for good
+        t = spawn_thread(self.supervisor, bridge, "loghisto-torch-bridge")
         self._attached = (ms, t, stop)
 
     def detach(self) -> None:
@@ -1043,6 +1246,9 @@ class TorchAggregator:
             if ch is not None:
                 ms.unsubscribe_from_raw_metrics(ch)
                 ch.close()  # the bridge drains it, then returns
+            # a supervised handle's restart loop stops too, so no backoff
+            # nap outlives the join
+            t.stop()
             t.join(timeout=30.0)
             self._attached = None
         self._raise_bridge_error(clear=True)

@@ -1,0 +1,437 @@
+"""Crash-safe recovery (counterpart of
+``loghisto_tpu/resilience/recovery.py``, copied over the port's
+``utils/checkpoint.py`` and ``utils/journal.py``).
+
+The guarantee: **at most one interval is lost across a process crash.**
+Two durable artifacts deliver it:
+
+  * periodic checkpoints, taken on the committer's bridge thread every
+    ``checkpoint_every_intervals`` committed intervals, atomic (temp +
+    fsync + rename) and stamped with the seq watermark of the last
+    interval folded into the state;
+  * the raw journal: every broadcast interval appends one JSONL line
+    carrying its ``seq``.
+
+``recover()`` restores the newest checkpoint, reads its watermark, then
+replays only the journal's intervals with ``seq > watermark`` through
+the fused committer, so the recovered statistics equal a pre-crash
+oracle's bit for bit.  The only interval that can be missing is the
+one in flight at the kill: its journal line is torn (skipped and
+counted) or never reached the journal.  Both files are the JAX
+package's formats, so either package recovers the other's crash.
+Neither carries the wheel's interval count (the lifecycle clock), as
+in the reference: a recovered lifecycle restarts its clock.
+
+A CUDA error that poisons the context (an illegal address) cannot be
+recovered inside the process; ``recover()`` in a new process is the
+answer, and crash-only shutdown is the design's assumption.
+
+``CircuitBreaker`` guards the fused commit: repeated device failures
+inside ``breaker_window_s`` open it and the committer pins the
+fan-out/spill path (on the card: K3 into the accumulator and the
+tiers) until ``breaker_open_s`` passes and a half-open trial succeeds.
+No breaker state moves work to the CPU.
+
+Everything surfaces as ``resilience.*`` gauges and three watchdog
+invariants (``thread_restarted``, ``breaker_open``,
+``recovery_in_progress``) in ``/healthz``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Optional
+
+from loghisto_tpu_torch.resilience.faults import FaultInjector
+
+logger = logging.getLogger("loghisto_tpu_torch")
+
+
+@dataclass
+class ResilienceConfig:
+    """Knobs for the resilience subsystem (TorchMetricSystem(resilience=...)).
+
+    With ``checkpoint_path`` set, the committer bridge checkpoints every
+    ``checkpoint_every_intervals`` committed intervals; with
+    ``journal_path`` set, a RawJournal subscriber appends every interval
+    and ``recover()`` replays past the checkpoint watermark.  Leave both
+    None for supervision + breaker only (no durability)."""
+
+    checkpoint_path: Optional[str] = None
+    journal_path: Optional[str] = None
+    checkpoint_every_intervals: int = 10
+    recover_on_start: bool = True
+    supervise: bool = True
+    restart_backoff_s: float = 0.05
+    restart_backoff_cap_s: float = 2.0
+    breaker_threshold: int = 3
+    breaker_window_s: float = 30.0
+    breaker_open_s: float = 10.0
+    fault_injector: Optional[FaultInjector] = None
+
+
+class CircuitBreaker:
+    """Count-over-window breaker for the device dispatch path.
+
+    closed -> open when ``threshold`` failures land inside ``window_s``;
+    open -> half-open after ``open_s`` (is_open() starts returning False
+    so ONE trial dispatch goes through); half-open -> closed on success,
+    half-open -> open on failure.  While open the committer routes every
+    interval down the fan-out/spill path — the same path a single device
+    failure already takes, just pinned, so a flapping device costs no
+    failed commit per interval."""
+
+    def __init__(
+        self,
+        threshold: int = 3,
+        window_s: float = 30.0,
+        open_s: float = 10.0,
+    ):
+        self.threshold = threshold
+        self.window_s = window_s
+        self.open_s = open_s
+        self._lock = threading.Lock()
+        self._failures: deque = deque()
+        self._state = "closed"
+        self._opened_at = 0.0
+        self.opened_total = 0
+        self.failures_total = 0
+
+    def record_failure(self, source: str = "") -> bool:
+        """Note one device failure; returns True if this opened the
+        breaker.  Called from exactly ONE place per physical failure
+        (the aggregator's _on_device_failure_locked) so consumer hooks
+        fanning out from a failure can't multi-count it."""
+        now = time.monotonic()
+        with self._lock:
+            self.failures_total += 1
+            self._failures.append(now)
+            while self._failures and \
+                    now - self._failures[0] > self.window_s:
+                self._failures.popleft()
+            if self._state == "half-open":
+                self._state = "open"
+                self._opened_at = now
+                self.opened_total += 1
+                logger.warning(
+                    "circuit breaker re-opened (half-open trial failed%s)",
+                    f"; source={source}" if source else "",
+                )
+                return True
+            if self._state == "closed" \
+                    and len(self._failures) >= self.threshold:
+                self._state = "open"
+                self._opened_at = now
+                self.opened_total += 1
+                logger.warning(
+                    "circuit breaker OPEN: %d device failures in %.1fs%s — "
+                    "pinning the fan-out/spill commit path for %.1fs",
+                    len(self._failures), self.window_s,
+                    f" ({source})" if source else "", self.open_s,
+                )
+                return True
+        return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self._state == "half-open":
+                self._state = "closed"
+                self._failures.clear()
+                logger.info("circuit breaker closed (trial succeeded)")
+
+    def is_open(self) -> bool:
+        with self._lock:
+            if self._state == "open":
+                if time.monotonic() - self._opened_at >= self.open_s:
+                    self._state = "half-open"
+                    return False
+                return True
+            return False
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+
+@dataclass
+class RecoveryReport:
+    watermark: Optional[int]
+    replayed_intervals: int
+    skipped_intervals: int
+    corrupt_lines: int
+    wall_time_s: float
+    checkpoint_found: bool
+    journal_found: bool
+
+
+class RecoveryManager:
+    """Owns the durability pair (checkpoint cadence + journal) and the
+    restart-time replay.  ``on_commit`` rides the committer bridge: one
+    watermark store per interval plus a cadenced checkpoint — the async
+    checkpoint never blocks ingest, only the bridge's commit loop, and
+    the staging rings absorb that hiccup like any other slow interval."""
+
+    def __init__(
+        self,
+        metric_system,
+        aggregator=None,
+        committer=None,
+        lifecycle=None,
+        anomaly=None,
+        *,
+        checkpoint_path: Optional[str] = None,
+        journal_path: Optional[str] = None,
+        checkpoint_every_intervals: int = 10,
+        fault_injector: Optional[FaultInjector] = None,
+    ):
+        self._ms = metric_system
+        self._agg = aggregator
+        self._committer = committer
+        self._lifecycle = lifecycle
+        self._anomaly = anomaly
+        self.checkpoint_path = checkpoint_path
+        self.journal_path = journal_path
+        self.checkpoint_every_intervals = max(
+            int(checkpoint_every_intervals), 1
+        )
+        self.fault_injector = fault_injector
+        self._lock = threading.Lock()
+        self._journal = None
+        self.in_progress = False
+        self.last_seq: Optional[int] = None
+        self.last_checkpoint_seq: Optional[int] = None
+        self.checkpoints_taken = 0
+        self.checkpoint_errors = 0
+        self.checkpoint_last_ms = 0.0
+        self.replayed_intervals = 0
+        self.recoveries = 0
+        self._since_checkpoint = 0
+
+    # -- bridge-side cadence -------------------------------------------- #
+
+    def on_commit(self, raw) -> None:
+        """Committer tail hook (bridge thread).  Always advances the
+        watermark; takes a checkpoint every N intervals unless a
+        recovery replay is driving the commits."""
+        if raw.seq is not None:
+            self.last_seq = int(raw.seq)
+        if self.in_progress or self.checkpoint_path is None:
+            return
+        self._since_checkpoint += 1
+        inj = self.fault_injector
+        if inj is not None:
+            inj.check("recovery.tick")
+        if self._since_checkpoint >= self.checkpoint_every_intervals:
+            self.checkpoint_now()
+
+    def checkpoint_now(self) -> bool:
+        """Atomic snapshot stamped with the current watermark.  A failed
+        write (disk full, injected crash) leaves the previous checkpoint
+        intact — counted, logged, never fatal to the bridge."""
+        if self.checkpoint_path is None:
+            return False
+        from loghisto_tpu_torch.utils import checkpoint
+
+        t0 = time.perf_counter()
+        try:
+            with self._lock:
+                checkpoint.save(
+                    self.checkpoint_path,
+                    self._ms,
+                    self._agg,
+                    self._lifecycle,
+                    self._anomaly,
+                    seq_watermark=self.last_seq,
+                    fault_injector=self.fault_injector,
+                )
+        except Exception as e:
+            self.checkpoint_errors += 1
+            logger.warning(
+                "checkpoint to %s failed (%s); previous snapshot intact",
+                self.checkpoint_path, e,
+            )
+            self._since_checkpoint = 0
+            return False
+        self.checkpoint_last_ms = (time.perf_counter() - t0) * 1000.0
+        self.checkpoints_taken += 1
+        self.last_checkpoint_seq = self.last_seq
+        self._since_checkpoint = 0
+        return True
+
+    # -- restart-time replay -------------------------------------------- #
+
+    def recover(self) -> RecoveryReport:
+        """Restore checkpoint + replay journal past the watermark.  Safe
+        on a cold start (neither file exists -> empty report).  Sets
+        ``in_progress`` for the HealthWatchdog invariant and to suppress
+        cadence checkpoints while replayed intervals flow through the
+        committer."""
+        from loghisto_tpu_torch.utils import checkpoint, journal
+
+        t0 = time.perf_counter()
+        watermark: Optional[int] = None
+        replayed = skipped = 0
+        max_seq = 0
+        ckpt_found = (
+            self.checkpoint_path is not None
+            and os.path.exists(self.checkpoint_path)
+        )
+        jrnl_found = (
+            self.journal_path is not None
+            and os.path.exists(self.journal_path)
+        )
+        corrupt_before = journal.corrupt_lines_total()
+        self.in_progress = True
+        try:
+            if ckpt_found:
+                watermark = checkpoint.restore(
+                    self.checkpoint_path,
+                    self._ms,
+                    self._agg,
+                    self._lifecycle,
+                    self._anomaly,
+                )
+                if watermark is not None:
+                    max_seq = watermark
+                    self.last_seq = watermark
+            if jrnl_found:
+                for raw in journal.replay(self.journal_path):
+                    if (
+                        watermark is not None
+                        and raw.seq is not None
+                        and raw.seq <= watermark
+                    ):
+                        skipped += 1
+                        continue
+                    if self._committer is not None:
+                        self._committer.commit(raw)
+                    else:
+                        # fan-out path: feed both consumers the bridges
+                        # would have fed live
+                        if self._agg is not None:
+                            self._agg.merge_raw(raw)
+                        wheel = getattr(self._ms, "retention", None)
+                        if wheel is not None:
+                            wheel.push(raw)
+                    if raw.seq is not None:
+                        max_seq = max(max_seq, int(raw.seq))
+                        self.last_seq = max_seq
+                    replayed += 1
+            # the reaper must mint seqs PAST everything recovered, or
+            # the next journal lines would collide with replayed ones
+            if max_seq and hasattr(self._ms, "_interval_seq"):
+                self._ms._interval_seq = itertools.count(max_seq + 1)
+        finally:
+            self.in_progress = False
+        self.replayed_intervals += replayed
+        self.recoveries += 1
+        report = RecoveryReport(
+            watermark=watermark,
+            replayed_intervals=replayed,
+            skipped_intervals=skipped,
+            corrupt_lines=journal.corrupt_lines_total() - corrupt_before,
+            wall_time_s=time.perf_counter() - t0,
+            checkpoint_found=ckpt_found,
+            journal_found=jrnl_found,
+        )
+        logger.info(
+            "recovery: watermark=%s replayed=%d skipped=%d corrupt=%d "
+            "in %.1fms",
+            report.watermark, report.replayed_intervals,
+            report.skipped_intervals, report.corrupt_lines,
+            report.wall_time_s * 1000.0,
+        )
+        return report
+
+    # -- lifecycle ------------------------------------------------------ #
+
+    def start(self) -> None:
+        """Start the journal subscriber (idempotent)."""
+        if self.journal_path is None or self._journal is not None:
+            return
+        from loghisto_tpu_torch.utils.journal import RawJournal
+
+        self._journal = RawJournal(self._ms, self.journal_path)
+        self._journal.fault_injector = self.fault_injector
+        self._journal.start()
+
+    def stop(self, final_checkpoint: bool = True) -> None:
+        """Stop the journal; a clean shutdown checkpoint makes restart
+        lossless (the journal covers the crash case)."""
+        if self._journal is not None:
+            self._journal.stop()
+            self._journal = None
+        if final_checkpoint and self.checkpoint_path is not None:
+            self.checkpoint_now()
+
+
+def register_resilience_gauges(
+    ms,
+    supervisor=None,
+    breaker=None,
+    recovery=None,
+    injector=None,
+) -> None:
+    """Surface the resilience subsystem on the ordinary gauge pipeline
+    (scrapes/exports see ``resilience.*`` next to everything else)."""
+    from loghisto_tpu_torch.utils import journal
+
+    if supervisor is not None:
+        ms.register_gauge_func(
+            "resilience.ThreadRestarts",
+            lambda: float(supervisor.total_restarts),
+        )
+        ms.register_gauge_func(
+            "resilience.RestartBackoffMs",
+            lambda: float(supervisor.current_backoff_ms()),
+        )
+    if breaker is not None:
+        ms.register_gauge_func(
+            "resilience.BreakerOpen",
+            lambda: 1.0 if breaker.state != "closed" else 0.0,
+        )
+        ms.register_gauge_func(
+            "resilience.BreakerOpenedTotal",
+            lambda: float(breaker.opened_total),
+        )
+        ms.register_gauge_func(
+            "resilience.BreakerFailures",
+            lambda: float(breaker.failures_total),
+        )
+    if recovery is not None:
+        ms.register_gauge_func(
+            "resilience.CheckpointsTaken",
+            lambda: float(recovery.checkpoints_taken),
+        )
+        ms.register_gauge_func(
+            "resilience.CheckpointErrors",
+            lambda: float(recovery.checkpoint_errors),
+        )
+        ms.register_gauge_func(
+            "resilience.CheckpointLastMs",
+            lambda: float(recovery.checkpoint_last_ms),
+        )
+        ms.register_gauge_func(
+            "resilience.ReplayedIntervals",
+            lambda: float(recovery.replayed_intervals),
+        )
+        ms.register_gauge_func(
+            "resilience.RecoveryInProgress",
+            lambda: 1.0 if recovery.in_progress else 0.0,
+        )
+    if injector is not None:
+        ms.register_gauge_func(
+            "resilience.FaultsInjected",
+            lambda: float(injector.faults_injected),
+        )
+    ms.register_gauge_func(
+        "journal.CorruptLines",
+        lambda: float(journal.corrupt_lines_total()),
+    )

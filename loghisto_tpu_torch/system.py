@@ -59,6 +59,16 @@ as ``obs.<stage>.LatencyUs`` histograms, and attaches the
     dump_perfetto(ms.obs, "trace.json")     # the span ring, for Perfetto
     ms.debug_dump()                         # one introspection snapshot
 
+``resilience=True`` (or a ``ResilienceConfig``) supervises the reaper
+and the bridges, guards the fused commit with a circuit breaker, and
+with a checkpoint and a journal path makes a crash lose at most one
+interval:
+
+    ms = TorchMetricSystem(retention=True, resilience=ResilienceConfig(
+        checkpoint_path="state.npz", journal_path="intervals.jsonl"))
+    ms.start()        # recovers first (recover_on_start)
+    ms.recover()      # or by hand: restore + replay past the watermark
+
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions.
 """
@@ -87,6 +97,13 @@ from loghisto_tpu_torch.obs import (
 from loghisto_tpu_torch.ops.backend import resolve_device
 from loghisto_tpu_torch.ops.dispatch import resolve_commit_path
 from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+from loghisto_tpu_torch.resilience import (
+    CircuitBreaker,
+    RecoveryManager,
+    ResilienceConfig,
+    ThreadSupervisor,
+    register_resilience_gauges,
+)
 from loghisto_tpu_torch.window import (
     DEFAULT_TIERS,
     RuleEngine,
@@ -112,6 +129,7 @@ class TorchMetricSystem(MetricSystem):
         native_staging: bool = False,
         fast_ingest: bool = False,
         observability=None,
+        resilience=None,
         device=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
@@ -123,11 +141,34 @@ class TorchMetricSystem(MetricSystem):
         ``native_staging`` (the aggregator's native staging buffer),
         ``fast_ingest`` (the host tier's C staging buffers) and
         ``observability`` (``True`` or an ``ObsConfig``: the span ring,
-        the self-observer and the watchdog) mean what they mean for
+        the self-observer and the watchdog) and ``resilience`` (``True``
+        or a ``ResilienceConfig``: supervision, the breaker, fault
+        injection, checkpoints and the journal) mean what they mean for
         ``TPUMetricSystem``."""
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
+        # resilience first, so every component below is built wired
+        self.resilience: Optional[ResilienceConfig] = None
+        self.fault_injector = None
+        self.supervisor = None     # the reaper's start() reads it
+        self.device_breaker = None
+        self.recovery: Optional[RecoveryManager] = None
+        self._recovered = False
+        if resilience is not None and resilience is not False:
+            rcfg = ResilienceConfig() if resilience is True else resilience
+            self.resilience = rcfg
+            self.fault_injector = rcfg.fault_injector
+            if rcfg.supervise:
+                self.supervisor = ThreadSupervisor(
+                    base_backoff_s=rcfg.restart_backoff_s,
+                    max_backoff_s=rcfg.restart_backoff_cap_s,
+                )
+            self.device_breaker = CircuitBreaker(
+                threshold=rcfg.breaker_threshold,
+                window_s=rcfg.breaker_window_s,
+                open_s=rcfg.breaker_open_s,
+            )
         self.aggregator = TorchAggregator(
             num_metrics=num_metrics,
             config=config,
@@ -139,6 +180,11 @@ class TorchMetricSystem(MetricSystem):
             native_staging=native_staging,
         )
         self.aggregator.register_device_gauges(self)
+        if self.resilience is not None:
+            # before any attach: the bridges spawn supervised
+            self.aggregator.supervisor = self.supervisor
+            self.aggregator.device_breaker = self.device_breaker
+            self.aggregator.fault_injector = self.fault_injector
         # one inverted index over the shared registry: the wheel's
         # selector queries and the labels.* gauges
         self.label_index = LabelIndex(self.aggregator.registry)
@@ -160,6 +206,9 @@ class TorchMetricSystem(MetricSystem):
                     device=self.device,
                 )
             self.retention.label_index = self.label_index
+            if self.resilience is not None:
+                self.retention.supervisor = self.supervisor
+                self.retention.fault_injector = self.fault_injector
             self.rule_engine = RuleEngine(self.retention)
             self.rule_engine.attach()
             self.retention.register_query_gauges(self)
@@ -193,6 +242,8 @@ class TorchMetricSystem(MetricSystem):
                         "fan-out pipeline carries neither the activity "
                         "vector nor the baseline banks)"
                     )
+        if self.resilience is not None:
+            self._build_recovery()
         # the commit path's degradation reason: the reference's comes
         # from the mesh, which the port does not have yet
         self.commit_path_reason: Optional[str] = None
@@ -224,8 +275,8 @@ class TorchMetricSystem(MetricSystem):
             self.self_observer = SelfObserver(self, rec)
             self.committer.self_observer = self.self_observer
         if cfg.health:
-            # the resilience and federation inputs stay None until those
-            # subsystems are ported, as the reference passes them off
+            # the federation input stays None until federation is ported
+            # (ROADMAP Queue 1 slice 14), as the reference passes it off
             self.health = HealthWatchdog(
                 self.committer, self.aggregator,
                 interval=self.interval,
@@ -234,18 +285,58 @@ class TorchMetricSystem(MetricSystem):
                 commit_path=self.commit_path,
                 commit_path_reason=self.commit_path_reason,
                 wheel=self.retention,
+                supervisor=self.supervisor,
+                breaker=self.device_breaker,
+                recovery=self.recovery,
             )
             if self.committer is not None:
                 self.committer.watchdog = self.health
             self.health.register_gauges(self)
 
+    def _build_recovery(self) -> None:
+        """The committer's breaker, injector and supervisor; with a
+        checkpoint or journal path the ``RecoveryManager`` (the
+        committer's tail hook, or the wheel's interval hook on the
+        fan-out path, drives its cadence); the ``resilience.*`` and
+        ``journal.CorruptLines`` gauges."""
+        rcfg = self.resilience
+        if self.committer is not None:
+            self.committer.supervisor = self.supervisor
+            self.committer.breaker = self.device_breaker
+            self.committer.fault_injector = self.fault_injector
+        if rcfg.checkpoint_path is not None or rcfg.journal_path is not None:
+            self.recovery = RecoveryManager(
+                self,
+                aggregator=self.aggregator,
+                committer=self.committer,
+                lifecycle=self.lifecycle,
+                anomaly=self.anomaly,
+                checkpoint_path=rcfg.checkpoint_path,
+                journal_path=rcfg.journal_path,
+                checkpoint_every_intervals=rcfg.checkpoint_every_intervals,
+                fault_injector=self.fault_injector,
+            )
+            if self.committer is not None:
+                self.committer.recovery = self.recovery
+            elif self.retention is not None:
+                self.retention.add_interval_hook(
+                    lambda raw, _rec=self.recovery: _rec.on_commit(raw))
+        register_resilience_gauges(
+            self,
+            supervisor=self.supervisor,
+            breaker=self.device_breaker,
+            recovery=self.recovery,
+            injector=self.fault_injector,
+        )
+
     def debug_dump(self) -> dict:
         """One introspection snapshot of the pipeline: registry occupancy
         and free-list depth, the resolved commit path, query and cache
-        counters, transfer and staging depths, the span ring's state and
-        the current health report (the reference's keys; ``mesh`` is
-        None, and the resilience and federation sections appear once
-        those subsystems exist).  Pure reads, safe from any thread."""
+        counters, transfer and staging depths, the span ring's state,
+        the resilience ledger (with ``resilience=``) and the current
+        health report (the reference's keys; ``mesh`` is None, and the
+        federation section appears once federation is ported).  Pure
+        reads, safe from any thread."""
         agg = self.aggregator
         reg = agg.registry
         dump: dict = {
@@ -300,6 +391,26 @@ class TorchMetricSystem(MetricSystem):
                 bool(rec.recorded >= rec.capacity) if rec else False
             ),
         }
+        if self.resilience is not None:
+            sup, br = self.supervisor, self.device_breaker
+            rec, inj = self.recovery, self.fault_injector
+            dump["resilience"] = {
+                "thread_restarts": (dict(sup.restarts_by_name)
+                                    if sup is not None else {}),
+                "breaker_state": br.state if br is not None else None,
+                "breaker_opened_total": (br.opened_total
+                                         if br is not None else 0),
+                "checkpoints_taken": (rec.checkpoints_taken
+                                      if rec is not None else 0),
+                "checkpoint_errors": (rec.checkpoint_errors
+                                      if rec is not None else 0),
+                "last_checkpoint_seq": (rec.last_checkpoint_seq
+                                        if rec is not None else None),
+                "recovery_in_progress": (rec.in_progress
+                                         if rec is not None else False),
+                "faults_injected": (inj.faults_injected
+                                    if inj is not None else 0),
+            }
         dump["health"] = (
             self.health.report().as_dict() if self.health else None
         )
@@ -453,16 +564,40 @@ class TorchMetricSystem(MetricSystem):
 
     # ------------------------------------------------------------------ #
 
+    def recover(self):
+        """Restore the latest checkpoint and replay the journal's
+        intervals past its seq watermark (``RecoveryManager.recover``):
+        at most the interval in flight at a crash is lost.  Returns the
+        ``RecoveryReport``.  Runs on the first ``start()`` when
+        ``ResilienceConfig.recover_on_start`` is set."""
+        if self.recovery is None:
+            raise RuntimeError(
+                "crash recovery needs a checkpoint/journal path: "
+                "construct with TorchMetricSystem(resilience="
+                "ResilienceConfig(checkpoint_path=..., journal_path=...))"
+            )
+        self._recovered = True
+        return self.recovery.recover()
+
     def start(self) -> None:
-        """Re-attach the bridges a previous stop() detached, then start
-        the reaper."""
+        """Re-attach the bridges a previous stop() detached, recover
+        (the first time, with ``recover_on_start``) and start the
+        journal, then start the reaper."""
         self._attach_bridges()
+        if self.recovery is not None:
+            # before the reaper mints intervals: the replay runs through
+            # the commit path, then the seq counter moves past it
+            if self.resilience.recover_on_start and not self._recovered:
+                self._recovered = True
+                self.recovery.recover()
+            self.recovery.start()
         super().start()
 
     def stop(self) -> None:
         """Stop the reaper, then detach the bridges (each takes every
-        interval already broadcast), drain the transfer worker, and
-        re-raise the first bridge failure."""
+        interval already broadcast), drain the transfer worker, take the
+        final checkpoint (with ``resilience=``), and re-raise the first
+        bridge failure."""
         super().stop()
         errors = []
         parts = ((self.committer,) if self.committer is not None
@@ -475,5 +610,9 @@ class TorchMetricSystem(MetricSystem):
             except RuntimeError as e:
                 errors.append(e)
         self.aggregator.close()
+        if self.recovery is not None:
+            # after the bridges drained: the final checkpoint holds every
+            # committed interval, so a clean stop/start replays nothing
+            self.recovery.stop(final_checkpoint=True)
         if errors:
             raise errors[0]

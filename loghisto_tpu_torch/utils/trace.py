@@ -12,6 +12,14 @@
     captures itself: one Chrome trace per call under
     ``$LOGHISTO_TRACE_DIR/loghisto_collect/``, holding the region, the
     flush's ingest kernels and the statistics' launches.
+
+The fresh-process rule (ROADMAP F7): in a process that has run the
+firehose's profiled sequence (``chip_smoke.phase_firehose``), later
+captures keep the cluster kernels' launch records
+(``cudaLaunchKernelExC``: K1, K2b) but lose their kernel records, while
+``<<<>>>`` kernels (K3) and PyTorch's own stay; a synchronize before
+``stop()`` does not bring them back (``scripts/torch_profiler_split.py``).
+A trace that must hold the cluster kernels is taken in a fresh process.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ def capture(path: str) -> Iterator[None]:
 def maybe_capture(region: str) -> Iterator[None]:
     """Capture a trace of the region when LOGHISTO_TRACE_DIR is set (one
     file per call, ``<dir>/<region>/<pid>.<time_ns>.pt.trace.json``);
-    otherwise just annotate it."""
+    otherwise just annotate it.  Take a trace that must hold K1 or K2b in
+    a fresh process (the module docstring's F7 rule)."""
     trace_dir = os.environ.get("LOGHISTO_TRACE_DIR")
     if trace_dir:
         region_dir = os.path.join(trace_dir, region)

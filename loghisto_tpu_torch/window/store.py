@@ -49,7 +49,10 @@ With a span ring installed (``obs_recorder``) a push records
 ``window.tier_push``, the interval's hooks ``window.hooks`` and every
 query or group-by serve ``query.serve``.
 
-Not in this slice: the mesh, the supervisor and the fault injector.
+With resilience (``TorchMetricSystem(resilience=...)``) the bridge
+runs under the system's ``supervisor`` and ``fault_injector`` fires the
+``wheel.push`` site before each tier push.  The mesh comes with ROADMAP
+Queue 1 slice 11.
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``
 (``hbm_bytes()``).
@@ -92,6 +95,7 @@ from loghisto_tpu_torch.ops.window import (
     window_stats,
 )
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
+from loghisto_tpu_torch.resilience.supervise import spawn_thread
 from loghisto_tpu_torch.window.snapshot import (
     QueryPlanCache,
     Snapshot,
@@ -271,6 +275,9 @@ class TimeWheel:
         # observability=...) installs a real ring
         self.obs_recorder = NULL_RECORDER
         self.bridge_error: Optional[BaseException] = None
+        # resilience, installed by TorchMetricSystem(resilience=...)
+        self.supervisor = None
+        self.fault_injector = None
 
     # -- sizing --------------------------------------------------------- #
 
@@ -350,6 +357,10 @@ class TimeWheel:
         """Land pre-built interval cells (the ``_cells_from_raw``
         triplet, or None) on every tier and publish a new snapshot; hooks
         are not run (``push`` runs them)."""
+        inj = self.fault_injector
+        if inj is not None:
+            # a scripted tier-push failure exercises the bridge's net
+            inj.check("wheel.push")
         with self.obs_recorder.span("window.tier_push", raw.seq):
             with self._lock:
                 self._note_interval_locked(raw.time, cells)
@@ -1039,10 +1050,10 @@ class TimeWheel:
                     if self.bridge_error is None:
                         self.bridge_error = e
 
-        self._thread = threading.Thread(
-            target=bridge, daemon=True, name="loghisto-timewheel"
-        )
-        self._thread.start()
+        # supervised, a crashed bridge restarts with capped backoff; the
+        # clean ChannelClosed return (detach) ends it for good
+        self._thread = spawn_thread(self.supervisor, bridge,
+                                    "loghisto-timewheel")
 
     def detach(self) -> None:
         """Unsubscribe, let the bridge push what it already holds, join
@@ -1051,6 +1062,7 @@ class TimeWheel:
             self._sub.close()
             self._sub = None
         if self._thread is not None:
+            self._thread.stop()  # a supervised handle's restart loop
             self._thread.join(timeout=30.0)
             self._thread = None
         self._raise_bridge_error(clear=True)

@@ -263,13 +263,30 @@ def test_state_from_jax_then_collect_equals_jax_collect():
 
 
 def test_worker_failure_surfaces_at_the_next_flush():
+    """A device failure in the worker is retried, as in the reference:
+    it surfaces as the armed cooldown and the requeued samples (the
+    forced flush of collect() gives them one more attempt, which fails
+    too), never as a lost or re-raised batch; once the device is back,
+    the next collect() lands them."""
+    jax_agg = TPUAggregator(num_metrics=2, config=JaxConfig(),
+                            storage="dense", batch_size=8)
     port = TorchAggregator(num_metrics=2, batch_size=8, device="cpu")
+    try:
+        for agg in (jax_agg, port):
+            agg.registry.id_for("m")
+            real = agg._ingest
 
-    def boom(*_):
-        raise RuntimeError("injected device failure")
+            def boom(*_):
+                raise RuntimeError("injected device failure")
 
-    port._ingest = boom
-    port.record_batch(np.zeros(8, np.int32), np.ones(8, np.float32))
-    with pytest.raises(RuntimeError, match="transfer worker"):
-        port.collect()
-    port.close()
+            agg._ingest = boom
+            agg.record_batch(np.zeros(8, np.int32), np.ones(8, np.float32))
+            assert "m_count" not in agg.collect().metrics
+            assert agg.pending_samples == 8
+            assert agg._device_down_until > 0.0
+            agg._ingest = real
+            assert agg.collect().metrics["m_count"] == 8.0
+            assert agg.pending_samples == 0
+    finally:
+        jax_agg.close()
+        port.close()

@@ -738,3 +738,34 @@ def test_injected_crash_leaves_the_previous_snapshot(tmp_path, site):
                             device="cpu")
     assert checkpoint.restore(path, aggregator=fresh) == 7
     assert fresh.collect().metrics["m_count"] == 1
+
+
+def test_multirow_device_failure_rebuilds_right_layout():
+    """Port copy of the JAX test that waited for the device-failure
+    requeue: a multirow ingest step that fails once is retried, and the
+    accumulator keeps its layout (the port's is the canonical [M, B],
+    D7, and in-place kernels consume nothing)."""
+    outs = []
+    for agg in _aggs(m=8, ingest_path="multirow", transport="raw"):
+        agg.retry_cooldown = 0.0
+        agg.registry.id_for("m")
+        real = agg._ingest
+        calls = [0]
+
+        def flaky(*a, _real=real, _calls=calls):
+            _calls[0] += 1
+            if _calls[0] == 1:
+                raise RuntimeError("device gone")
+            return _real(*a)
+
+        agg._ingest = flaky
+        shape = tuple(agg._acc.shape)
+        agg.record_batch(np.zeros(10, dtype=np.int32),
+                         np.full(10, 5.0, dtype=np.float32))
+        agg.flush()  # fails; the samples are requeued, not lost
+        out = agg.collect().metrics
+        assert out["m_count"] == 10
+        assert tuple(agg._acc.shape) == shape
+        outs.append(out)
+        agg.close()
+    assert outs[0]["m_count"] == outs[1]["m_count"]

@@ -1395,3 +1395,291 @@ def test_print_benchmark_on_the_card(dev):
         assert [ln.split(":")[0] for ln in block[1:]] == want
         counts.append(float(block[1].split("\t")[-1]))
     assert any(counts)
+
+
+# -- resilience on the card (6c-2) and F7 -------------------------------------
+
+
+def _profiler_split(mode):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    script = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_profiler_split.py")
+    proc = subprocess.run([sys.executable, script, mode],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_profiler_captures_after_scheduled_sessions_and_the_firehose(dev):
+    """F7, each sequence in a fresh process (scripts/torch_profiler_split.py):
+    a capture of K1, K2b (cluster launches through cudaLaunchKernelEx),
+    K3 (<<<>>>) and a PyTorch kernel, then six scheduled ``profile``
+    sessions as ``chip_smoke._device_busy`` opens them, each followed by
+    another capture: every probe capture keeps every kernel.  After
+    ``chip_smoke.phase_firehose`` whole, K3 and PyTorch's kernel stay in
+    the capture; whether the cluster launches do is printed (F7: on
+    torch 2.11.0+cu128 they were gone, with their launch records kept)."""
+    out = _profiler_split("scheduled")
+    for entry in [out["before"]] + out["after"]:
+        for how in ("as_is", "synced"):
+            assert entry[how]["kernels"] == ["K1", "K2b", "K3",
+                                             "torch_sum"], how
+    out = _profiler_split("firehose_phase")
+    assert "K1" in out["before"]["as_is"]["kernels"]
+    after = out["after"][0]["as_is"]
+    assert {"K3", "torch_sum"} <= set(after["kernels"])
+    assert "cudaLaunchKernelExC" in after["launch_records"]
+    print("F7 after the firehose phase:", out["first_capture_without"])
+
+
+def _capture_raws(ms):
+    from loghisto_tpu_torch.channel import Channel
+
+    ch = Channel(64)
+    ms.subscribe_to_raw_metrics(ch)
+    return ch
+
+
+def test_commit_bridge_restart_on_the_card(dev, monkeypatch):
+    """commit.bridge kills the committer's bridge once: the supervisor
+    restarts it, the commits that follow equal the host oracle of every
+    interval but the one that died with the bridge, and
+    ``commit.device_sync`` on the restarted thread still waits on the
+    card's stream (the default stream of the system's device)."""
+    import queue
+    import threading
+
+    import loghisto_tpu_torch.commit as commit_mod
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.resilience import FaultInjector, ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    syncs = []
+    real_sync = commit_mod.device_sync
+
+    def watched(device):
+        real_sync(device)
+        stream = torch.cuda.current_stream(device)
+        syncs.append((threading.current_thread().name, stream.stream_id,
+                      torch.cuda.default_stream(device).stream_id,
+                      stream.query()))
+
+    monkeypatch.setattr(commit_mod, "device_sync", watched)
+    inj = FaultInjector().plan("commit.bridge", "raise", on_call=2)
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=16,
+        config=MetricConfig(bucket_limit=64), retention=((4, 1),),
+        observability=True, device=dev,
+        resilience=ResilienceConfig(fault_injector=inj,
+                                    restart_backoff_s=0.01))
+    ch = _capture_raws(ms)
+    q = queue.Queue()
+    com = ms.committer
+    rng = np.random.default_rng(71)
+    deadline_s = 30.0
+    import time
+
+    try:
+        for k in range(1, 5):
+            ms.histogram_batch("lat", rng.lognormal(-1.0, 0.5, 500))
+            before = com.intervals_committed
+            ms._tick(q)
+            deadline = time.monotonic() + deadline_s
+            if k == 2:
+                while ms.supervisor.total_restarts < 1:
+                    assert time.monotonic() < deadline
+                    time.sleep(0.005)
+            else:
+                while com.intervals_committed <= before:
+                    assert time.monotonic() < deadline
+                    time.sleep(0.005)
+        raws = [ch.get() for _ in range(4)]
+        want = np.zeros(129, np.int64)
+        for raw in raws:
+            if raw.seq == 2:
+                continue
+            for name, h in raw.histograms.items():
+                if name == "lat":
+                    for b, c in h.items():
+                        want[int(np.clip(b, -64, 64)) + 64] += c
+        row = ms.aggregator.registry.lookup("lat")
+        got = ms.aggregator._acc[row].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert ms.supervisor.restarts_by_name == {"loghisto-torch-commit": 1}
+        after = [s for s in syncs if s[0] == "loghisto-torch-commit"]
+        assert len(after) >= 3
+        for name, stream, default, done in after:
+            assert stream == default and done
+    finally:
+        ms.stop()
+
+
+def test_failed_fused_commit_on_the_card_equals_the_cpu(dev):
+    """D6 on the card: commit.dispatch fires before chunk 2 of the second
+    interval; accumulator, host spill and every ring equal the CPU twin's
+    (which tests/test_torch_chaos.py holds to the JAX committer)."""
+    import datetime as dt
+
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import FaultInjector
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=64)
+    rng = np.random.default_rng(72)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    raws = []
+    for i in range(3):
+        hists = {}
+        for k in range(8):
+            h = hists.setdefault(f"svc.m{k}", {})
+            for b in rng.integers(-4, 96, 12).tolist():
+                h[b] = h.get(b, 0) + int(rng.integers(1, 200))
+        raws.append(RawMetricSet(t0 + dt.timedelta(seconds=i), {}, {},
+                                 hists, {}, 1.0, seq=i + 1))
+    sides = []
+    for d in (dev, "cpu"):
+        agg = TorchAggregator(num_metrics=32, config=cfg, device=d)
+        wheel = TimeWheel(num_metrics=32, config=cfg, interval=1.0,
+                          tiers=((4, 1), (3, 2)), registry=agg.registry,
+                          device=d)
+        com = IntervalCommitter(agg, wheel, chunk=16)
+        inj = FaultInjector()
+        com.fault_injector = agg.fault_injector = inj
+        agg.retry_cooldown = 0.0
+        com.commit(raws[0])
+        inj.plan("commit.dispatch", "raise", on_call=3)
+        for raw in raws[1:]:
+            assert com.commit(raw) == "fused"
+        assert inj.fires_at("commit.dispatch") == 1
+        sides.append((agg, wheel))
+    (gagg, gwheel), (cagg, cwheel) = sides
+    np.testing.assert_array_equal(gagg._acc.cpu().numpy(),
+                                  cagg._acc.numpy())
+    np.testing.assert_array_equal(gagg._spill, cagg._spill)
+    for t, c in zip(gwheel._tiers, cwheel._tiers):
+        np.testing.assert_array_equal(t.ring.cpu().numpy(), c.ring.numpy())
+    total = sum(sum(h.values()) for raw in raws
+                for h in raw.histograms.values())
+    assert int(gagg._acc.sum()) + int(gagg._spill.sum()) == total
+    for agg, _ in sides:
+        agg.close()
+
+
+@pytest.mark.parametrize("storage", ["dense", "paged"])
+def test_step_failing_after_its_fold_on_the_card_counts_once(
+        dev, storage, monkeypatch):
+    """A launch after the chunk landed raises in the second interval:
+    dense_cdf of the final step (after K3 into the accumulator), or, on
+    paged storage, chunk 2's K3 into the tiers (after K4 into the pool).
+    The landed chunk is not spilled or re-landed: accumulator (or pool)
+    plus spill, and every ring, equal the CPU twin's (which
+    tests/test_torch_chaos.py holds to the JAX committer), and they hold
+    every sample once."""
+    import datetime as dt
+    import itertools
+
+    import loghisto_tpu_torch.ops.commit as step
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=64 if storage == "dense" else 128)
+    rng = np.random.default_rng(74)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    raws = []
+    for i in range(3):
+        hists = {}
+        for k in range(8):
+            h = hists.setdefault(f"svc.m{k}", {})
+            for b in rng.integers(-4, 96, 12).tolist():
+                h[b] = h.get(b, 0) + int(rng.integers(1, 200))
+        raws.append(RawMetricSet(t0 + dt.timedelta(seconds=i), {}, {},
+                                 hists, {}, 1.0, seq=i + 1))
+    name = "dense_cdf" if storage == "dense" else "sparse_ingest_multi"
+    real = getattr(step, name)
+    sides = []
+    for d in (dev, "cpu"):
+        calls = itertools.count(1)
+
+        def boom(*a, **kw):
+            if next(calls) == on_call:
+                raise torch.cuda.OutOfMemoryError(f"{name}: injected")
+            return real(*a, **kw)
+
+        on_call = 0
+        monkeypatch.setattr(step, name, boom)
+        kw = {}
+        if storage == "paged":
+            kw = dict(storage="paged",
+                      paged_config=PagedStoreConfig(pool_pages=512))
+        agg = TorchAggregator(num_metrics=32, config=cfg, device=d, **kw)
+        wheel = TimeWheel(num_metrics=32, config=cfg, interval=1.0,
+                          tiers=((4, 1), (3, 2)), registry=agg.registry,
+                          device=d)
+        com = IntervalCommitter(agg, wheel, chunk=16)
+        agg.retry_cooldown = 0.0
+        com.commit(raws[0])
+        first = com.last_dispatches
+        on_call = 2 if storage == "dense" else first + 3
+        for raw in raws[1:]:
+            assert com.commit(raw) == "fused"
+        assert next(calls) > on_call
+        sides.append((agg, wheel))
+    (gagg, gwheel), (cagg, cwheel) = sides
+    total = sum(sum(h.values()) for raw in raws
+                for h in raw.histograms.values())
+    if storage == "dense":
+        np.testing.assert_array_equal(gagg._acc.cpu().numpy(),
+                                      cagg._acc.numpy())
+        assert (gagg._spill is None) == (cagg._spill is None)
+        spilled = 0 if gagg._spill is None else int(gagg._spill.sum())
+        assert int(gagg._acc.sum()) + spilled == total
+    else:
+        gst, cst = gagg.paged, cagg.paged
+        np.testing.assert_array_equal(gst.page_table, cst.page_table)
+        assert gst._host_spill == cst._host_spill
+        np.testing.assert_array_equal(gst._pool.cpu().numpy(),
+                                      cst._pool.numpy())
+        assert int(gst.decode_cells()[2].sum()) == total
+    for t, c in zip(gwheel._tiers, cwheel._tiers):
+        np.testing.assert_array_equal(t.ring.cpu().numpy(), c.ring.numpy())
+    for agg, _ in sides:
+        agg.close()
+
+
+def test_device_failure_requeue_on_the_card_equals_the_cpu(dev):
+    """agg.ingest fires on the third chunk of a raw flush: the rest is
+    requeued and the forced barrier lands it through K1; the card's
+    accumulator equals the CPU twin's."""
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import FaultInjector
+
+    rng = np.random.default_rng(73)
+    ids = rng.integers(0, 64, 1 << 16).astype(np.int32)
+    values = rng.lognormal(2.0, 1.0, 1 << 16).astype(np.float32)
+    accs = []
+    for d in (dev, "cpu"):
+        agg = TorchAggregator(num_metrics=64, batch_size=1 << 12,
+                              transport="raw", device=d)
+        inj = FaultInjector().plan("agg.ingest", "raise", on_call=3)
+        agg.fault_injector = inj
+        agg.retry_cooldown = 0.0
+        before = kernel_launches()["fused_ingest"]
+        agg.record_batch(ids, values)
+        agg.flush(force=True)
+        assert inj.fires_at("agg.ingest") == 1 and agg.pending_samples == 0
+        if d != "cpu":
+            assert kernel_launches()["fused_ingest"] - before == 16
+        accs.append(agg._acc.cpu().numpy().copy())
+        agg.close()
+    np.testing.assert_array_equal(accs[0], accs[1])
+    assert int(accs[0].sum()) == len(ids)

@@ -1,6 +1,6 @@
 """The port's packages export the reference's package-level names
 (``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops`` and
-``loghisto_tpu.obs``): every name with a ported counterpart resolves on
+``loghisto_tpu.obs`` and ``loghisto_tpu.resilience``): every name with a ported counterpart resolves on
 the matching package of ``loghisto_tpu_torch``, and the names still
 waiting for a slice are listed below with that slice."""
 
@@ -11,8 +11,9 @@ import pytest
 import loghisto_tpu
 import loghisto_tpu.obs
 import loghisto_tpu.ops
+import loghisto_tpu.resilience
 
-PACKAGES = ("", ".ops", ".obs")
+PACKAGES = ("", ".ops", ".obs", ".resilience")
 
 # reference name -> the port's counterpart where the names differ
 RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
@@ -22,6 +23,7 @@ WAITING = {
     "": {},
     ".ops": {},
     ".obs": {},
+    ".resilience": {},
 }
 
 
@@ -41,6 +43,15 @@ def test_every_ported_reference_name_resolves(sub):
     assert not missing, missing
     for name in waiting:
         assert not hasattr(port, name), f"{name} is ported: unlist it"
+
+
+def test_resilience_all_equals_the_reference():
+    import loghisto_tpu_torch.resilience as port
+
+    assert port.__all__ == loghisto_tpu.resilience.__all__
+    for name in port.__all__:
+        assert getattr(port, name).__module__.startswith(
+            "loghisto_tpu_torch.resilience.")
 
 
 def test_values_are_the_port_modules_own():

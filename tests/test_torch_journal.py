@@ -450,3 +450,22 @@ def test_frame_journal_torn_and_corrupt_replay(tmp_path, damage):
             assert got == items[:keep]
         else:
             assert got == "corrupt"
+
+
+def test_journal_corrupt_lines_gauge_registered():
+    """Port copy of the JAX test that waited for resilience: the
+    process-wide corrupt-line ledger rides register_resilience_gauges as
+    ``journal.CorruptLines``, in both packages."""
+    from loghisto_tpu.resilience import register_resilience_gauges as jreg
+    from loghisto_tpu_torch.resilience import register_resilience_gauges
+
+    for ms, reg, ledger in (
+            (MetricSystem(interval=1e-6, sys_stats=False),
+             register_resilience_gauges, journal.corrupt_lines_total),
+            (JaxMetricSystem(interval=1e-6, sys_stats=False), jreg,
+             jjournal.corrupt_lines_total)):
+        reg(ms)
+        raw = ms.collect_raw_metrics()
+        assert "journal.CorruptLines" in raw.gauges
+        assert raw.gauges["journal.CorruptLines"] >= 0.0
+        assert raw.gauges["journal.CorruptLines"] <= ledger()

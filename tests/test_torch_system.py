@@ -443,9 +443,10 @@ def test_bridge_failures_surface_on_query_and_stop():
 
 
 def test_committer_failure_surfaces_on_query_and_stop():
-    """D6: a failed fused commit is not recovered; its exception is kept
-    as bridge_error and re-raised by the next query, device_metrics()
-    and stop()."""
+    """A failure outside the commit steps' net (here the whole dispatch
+    function; a failed commit step is recovered, D6) is kept as
+    bridge_error and re-raised by the next query, device_metrics() and
+    stop()."""
     port = TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=M,
                              config=MetricConfig(bucket_limit=BL),
                              retention=TIERS, device="cpu")
@@ -485,6 +486,9 @@ def test_threaded_fused_system_with_lifecycle_and_drift():
                              lifecycle=LifecycleConfig(ttl_intervals=1,
                                                        check_every=1),
                              anomaly=AnomalyConfig(min_samples=5))
+    # the first interval holds a sample however late this thread runs
+    # after start(): an empty interval is pushed without a fused commit
+    port.histogram_batch("api.lat", np.full(50, 0.25))
     port.start()
     try:
         deadline = time.monotonic() + 20.0
