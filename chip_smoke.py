@@ -6109,6 +6109,392 @@ def phase_resilience(torch):
             "launches": {k: v for k, v in launches.items() if v}}
 
 
+# -- federation: emitter processes -> receiver -> K3 / K4 ------------------
+#
+# 8 torch-free emitter processes (seven on wire v2, one on v1) each
+# record 4 intervals of 2^20 lognormal samples over a Zipf draw of 10,000
+# shared names and 1,000 names of their own, and ship a frame an
+# interval to a FederationReceiver over a dense TorchAggregator at the
+# full width (10,000 rows that grow to hold the 18,000 names).
+
+FED_CHILDREN = 8
+FED_INTERVALS = 4
+FED_SAMPLES = 1 << 20
+FED_SHARED = 10_000
+FED_OWN = 1_000
+FED_OWN_SHARE = 0.1      # of each child's samples, on its own names
+FED_EMITTER0 = 0xFED0000
+FED_PARENT = 0xFED0FFF   # the parent's own frames: the re-send, the flip
+FED_PAGED_M = 1 << 16
+FED_PAGED_POOL = 1 << 18
+FED_DEADLINE_S = 30.0
+FED_FOREIGN = ("torch", "jax", "jaxlib", "loghisto_tpu")
+
+
+def _fed_names(idx):
+    """Child ``idx``'s names in local-id order: the shared ones, then
+    its own."""
+    return ([f"fed.shared.{k}" for k in range(FED_SHARED)]
+            + [f"fed.e{idx}.own.{k}" for k in range(FED_OWN)])
+
+
+def _fed_samples(idx, interval):
+    """Child ``idx``'s samples of one interval, as (local ids, values):
+    the parent regenerates them for its oracle."""
+    rng = np.random.default_rng([SEED, 18, idx, interval])
+    own = rng.random(FED_SAMPLES) < FED_OWN_SHARE
+    ids = np.where(own, FED_SHARED + rng.integers(0, FED_OWN, FED_SAMPLES),
+                   zipf_ids(rng, FED_SAMPLES, FED_SHARED))
+    return ids.astype(np.int32), lognormal_values(rng, FED_SAMPLES)
+
+
+def _fed_child(argv):
+    """One emitter process (``python -c``, no torch): asserts that
+    nothing of torch, JAX or the JAX package is loaded, then records and
+    ships its 4 intervals and prints one JSON line."""
+    port, idx, version = (int(a) for a in argv)
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation.emitter import FederationEmitter
+
+    def foreign():
+        return sorted(k for k in sys.modules
+                      if k.split(".")[0] in FED_FOREIGN)
+
+    if foreign():
+        print(json.dumps({"child": idx, "foreign": foreign()}), flush=True)
+        return 3
+    e = FederationEmitter(("127.0.0.1", port),
+                          config=MetricConfig(bucket_limit=BL),
+                          emitter_id=FED_EMITTER0 + idx,
+                          wire_version=version)
+    for name in _fed_names(idx):
+        e.local_id(name)
+    batches = [_fed_samples(idx, k) for k in range(FED_INTERVALS)]
+    t_first = time.monotonic()
+    for ids, values in batches:
+        e.record_batch(ids, values)
+        e.flush()
+        e._sender.retry_backlog()  # ship now, not at the next boundary
+    ok = e.close(drain_timeout=60.0)
+    print(json.dumps({
+        "child": idx, "ok": ok, "foreign": foreign(), "wire": version,
+        "samples": e.samples_shipped, "frames": e.frames_shipped,
+        "bytes": e.bytes_sent, "send_failures": e.send_failures,
+        "t_first": t_first}), flush=True)
+    return 0 if ok and not foreign() else 1
+
+
+def _fed_send(port, data):
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.sendall(data)
+
+
+def _fed_parent_frames():
+    """The parent's three frames (v2): P1 (sent twice), P2 with the name
+    P3's rows need, P3 (sent before P2); and a copy of P1 with one bit
+    flipped.  Returns (p1, p2, p3, flipped, [(name, values), ...])."""
+    from loghisto_tpu_torch.federation import wire
+    from loghisto_tpu_torch.ops.codec import encode_frame
+    from loghisto_tpu_torch.ops.fold import fold_packed_numpy
+
+    rng = np.random.default_rng([SEED, 18, 99])
+    names = ["fed.shared.0", "fed.parent.only", "fed.parent.late"]
+    sent = []
+
+    def frame(seq, dict_ids, lids):
+        ids = rng.choice(np.asarray(lids, np.int32), 4096).astype(np.int32)
+        values = lognormal_values(rng, len(ids))
+        for lid in lids:
+            sent.append((names[lid], values[ids == lid]))
+        packed = fold_packed_numpy(ids, values, BL)
+        return encode_frame(wire.KIND_DELTA2, wire.encode_delta2(
+            FED_PARENT, seq, [(i, names[i]) for i in dict_ids], packed,
+            time.monotonic_ns(), time.time_ns()))
+
+    p1 = frame(1, (0, 1), (0, 1))
+    p2 = frame(2, (2,), (0,))
+    p3 = frame(3, (), (0, 1, 2))
+    flipped = bytearray(p1)
+    flipped[len(flipped) // 2] ^= 0x04
+    return p1, p2, p3, bytes(flipped), sent
+
+
+def _fed_oracle_keys(registry, parent_sent, intervals):
+    """Host oracle: the flat cell (row * B + dense bucket) of every
+    sample of every child in ``intervals``, regenerated from its seed,
+    and of the parent's, through compress_np, in the aggregator's rows
+    (by name)."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    keys = []
+    for idx in range(FED_CHILDREN):
+        rows = np.array([registry.id_for(n) for n in _fed_names(idx)],
+                        dtype=np.int64)
+        for k in intervals:
+            ids, values = _fed_samples(idx, k)
+            keys.append(rows[ids] * B + np.clip(
+                compress_np(values), -BL, BL).astype(np.int64) + BL)
+    for name, values in parent_sent:
+        keys.append(registry.id_for(name) * B + np.clip(
+            compress_np(values), -BL, BL).astype(np.int64) + BL)
+    return np.concatenate(keys)
+
+
+def _fed_paged(torch, journal, parent_sent):
+    """The first interval's frames of every child from the live
+    journal, through a receiver over a paged TorchAggregator at 2^16
+    rows: K4 launches, and the pool's cells, mapped through each row's
+    codec, equal the oracle's."""
+    import struct
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationReceiver
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.ops.codec import encode_frame
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils.journal import FrameJournal
+
+    t0 = time.perf_counter()
+    agg = TorchAggregator(num_metrics=FED_PAGED_M,
+                          config=MetricConfig(bucket_limit=BL),
+                          storage="paged",
+                          paged_config=PagedStoreConfig(
+                              pool_pages=FED_PAGED_POOL))
+    if agg.paged is None or agg.paged._pool.device.type != "cuda":
+        raise AssertionError("the paged aggregator is not on cuda")
+    children = {FED_EMITTER0 + i for i in range(FED_CHILDREN)}
+    rx = FederationReceiver(agg)
+    try:
+        frames = [encode_frame(kind, payload)
+                  for kind, payload in FrameJournal.replay(journal)
+                  if struct.unpack_from("<QQ", payload) in
+                  {(eid, 1) for eid in children}]
+        if len(frames) != FED_CHILDREN:
+            raise AssertionError(f"{len(frames)} first-interval frames")
+        reset_kernel_launches()
+        for f in frames:
+            if not rx._drain_buffer(bytearray(f)):
+                raise AssertionError("a journaled frame did not decode")
+        if not agg.wait_transfers(60.0):
+            raise AssertionError("the paged merges did not drain")
+        torch.cuda.synchronize()
+        k4 = kernel_launches()["paged_scatter"]
+        if k4 <= 0:
+            raise AssertionError("the paged merges launched no K4")
+        store = agg.paged
+        keys, counts = np.unique(_fed_oracle_keys(agg.registry, [], (0,)),
+                                 return_counts=True)
+        rows, cell = keys // B, keys % B
+        codec = store.row_codec[rows].astype(np.int64)
+        if (codec < 0).any():
+            raise AssertionError("a sampled row holds no codec")
+        mapped = rows * B + store._dec[codec, store._enc[codec, cell]]
+        want_keys, inv = np.unique(mapped, return_inverse=True)
+        want_counts = np.bincount(inv, weights=counts).astype(np.int64)
+        g_rows, g_idx, g_counts = store.decode_cells()
+        got_keys, ginv = np.unique(g_rows * B + g_idx, return_inverse=True)
+        got_counts = np.bincount(ginv, weights=g_counts).astype(np.int64)
+        if not (np.array_equal(got_keys, want_keys)
+                and np.array_equal(got_counts, want_counts)):
+            raise AssertionError("the paged pool differs from the oracle")
+        st = rx.stats()
+        if st["samples_merged"] != FED_CHILDREN * FED_SAMPLES:
+            raise AssertionError(f"paged merged {st['samples_merged']}")
+        return {"k4_launches": k4, "frames": len(frames),
+                "cells": int(len(got_keys)),
+                "spilled_cells": store.spilled_cells,
+                "s": time.perf_counter() - t0}
+    finally:
+        rx.stop()
+        agg.close()
+
+
+def phase_federation(torch):
+    """The federation transport on the card: 8 emitter processes ->
+    FederationReceiver -> TorchAggregator.merge_packed -> K3, against a
+    host oracle, then the journal's replay and the paged route (K4)."""
+    import shutil
+    import tempfile
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationReceiver
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    card = RESULTS["card"]  # nvidia-smi's name and power limit
+    print(card, flush=True)
+    tmp = tempfile.mkdtemp(prefix="loghisto-fed-")
+    journal = os.path.join(tmp, "fed.journal")
+    agg = TorchAggregator(num_metrics=M, config=MetricConfig(bucket_limit=BL),
+                          storage="dense")
+    if agg.device.type != "cuda" or agg._acc.device.type != "cuda":
+        raise AssertionError("the aggregator is not on cuda")
+    rx = FederationReceiver(agg, journal_path=journal)
+    procs = []
+    out = {"card": card}
+    try:
+        rx.start()
+        p1, p2, p3, flipped, parent_sent = _fed_parent_frames()
+        root = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; "
+                "sys.exit(chip_smoke._fed_child(sys.argv[2:]))")
+        reset_kernel_launches()
+        t_spawn = time.monotonic()
+        for idx in range(FED_CHILDREN):
+            version = 1 if idx == FED_CHILDREN - 1 else 2
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, root, str(rx.port), str(idx),
+                 str(version)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        # the parent's frames, among the children's: a re-send, a
+        # flipped bit, and rows whose name comes in a later frame
+        for data in (p1, p1, flipped, p3):
+            _fed_send(rx.port, data)
+        _ob_wait(lambda: rx.samples_parked > 0, "the parked rows",
+                 FED_DEADLINE_S)
+        _fed_send(rx.port, p2)
+        children = []
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=120)
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(
+                    f"emitter child failed ({p.returncode}): "
+                    f"{stdout[-2000:]} {stderr[-2000:]}")
+            children.append(json.loads(lines[-1]))
+        if any(c["foreign"] for c in children):
+            raise AssertionError(f"an emitter child loaded "
+                                 f"{[c['foreign'] for c in children]}")
+        sent = sum(c["samples"] for c in children) + sum(
+            len(v) for _, v in parent_sent)
+        t_children = time.monotonic()
+        for what, cond in (
+                ("every sample merged", lambda: rx.samples_merged >= sent),
+                ("the duplicate", lambda: rx.duplicate_frames >= 1),
+                ("the decode error", lambda: rx.decode_errors >= 1)):
+            _ob_wait(cond, what, FED_DEADLINE_S)
+        t_applied = time.monotonic()
+        if not agg.wait_transfers(60.0):
+            raise AssertionError("the merges did not drain")
+        agg.flush(force=True)
+        torch.cuda.synchronize()
+        t_drained = time.monotonic()
+        k3 = kernel_launches()["sparse_ingest"]
+        acc = agg._acc.cpu().numpy()
+        t_collect = time.monotonic()
+        metrics = agg.collect().metrics
+        t_end = time.monotonic()
+        st = rx.stats()
+        t_first = min(c["t_first"] for c in children)
+        frames = FED_CHILDREN * FED_INTERVALS + 3
+        checks = {
+            "samples_merged": (st["samples_merged"], sent),
+            "frames_received": (st["frames_received"], frames),
+            "duplicate_frames": (st["duplicate_frames"], 1),
+            "decode_errors": (st["decode_errors"], 1),
+            "seq_gaps": (st["seq_gaps"], 0),
+            "samples_shed": (st["samples_shed"], 0),
+            "samples_parked": (st["samples_parked"], 0),
+            "frames_v1": (st["frames_v1"], FED_INTERVALS),
+            "tpu.SamplesShed": (agg._shed_samples, 0),
+            "registry_shed": (agg._registry_shed_samples, 0),
+        }
+        bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+        if bad:
+            raise AssertionError(f"receiver counters (got, want): {bad}")
+        if k3 <= 0:
+            raise AssertionError("the receiver's merges launched no K3")
+        if agg._spill is not None and agg._spill.any():
+            raise AssertionError("the merges spilled to the host")
+        m_rows = agg.num_metrics
+        want = np.bincount(
+            _fed_oracle_keys(agg.registry, parent_sent, range(FED_INTERVALS)),
+            minlength=m_rows * B)
+        if not np.array_equal(acc.reshape(-1), want):
+            diff = np.flatnonzero(acc.reshape(-1) != want)
+            raise AssertionError(f"{len(diff)} cells differ from the "
+                                 f"oracle, first rows {diff[:5] // B}")
+        names = sorted({n for i in range(FED_CHILDREN)
+                        for n in _fed_names(i)}
+                       | {n for n, _ in parent_sent})
+        row_sums = want.reshape(m_rows, B).sum(axis=1)
+        for name in names:
+            got = metrics.get(f"{name}_count", 0.0)
+            if got != float(row_sums[agg.registry.id_for(name)]):
+                raise AssertionError(f"collect() count of {name}: {got}")
+        out.update({
+            "children": len(children), "names": len(names),
+            "rows": m_rows, "samples_merged": st["samples_merged"],
+            "frames": st["frames_received"],
+            "bytes_received": st["bytes_received"],
+            "frames_per_s": st["frames_received"] / (t_end - t_first),
+            "samples_merged_per_s": st["samples_merged"] / (t_end - t_first),
+            "first_send_to_collect_s": t_end - t_first,
+            # the window's parts: the children's first sends (spread),
+            # their exits, every frame applied, the merges landed, collect
+            "spawn_to_first_send_s": t_first - t_spawn,
+            "first_send_spread_s": max(c["t_first"] for c in children)
+            - t_first,
+            "first_send_to_children_done_s": t_children - t_first,
+            "children_done_to_applied_s": t_applied - t_children,
+            "applied_to_drained_s": t_drained - t_applied,
+            "collect_s": t_end - t_collect,
+            "k3_launches": k3,
+            "child_bytes_sent": sum(c["bytes"] for c in children),
+            "child_send_failures": sum(c["send_failures"] for c in children),
+        })
+        rx.stop()
+
+        # the journal replays into a fresh aggregator on the card: EQUAL
+        # to the live state, row by name
+        t0 = time.perf_counter()
+        fresh = TorchAggregator(num_metrics=M,
+                                config=MetricConfig(bucket_limit=BL),
+                                storage="dense")
+        rx2 = FederationReceiver(fresh)
+        try:
+            replayed = rx2.replay_journal(journal)
+            rx2.stop()
+            if not fresh.wait_transfers(60.0):
+                raise AssertionError("the replay's merges did not drain")
+            fresh.flush(force=True)
+            live_ids = np.array([agg.registry.id_for(n) for n in names])
+            rep_ids = np.array([fresh.registry.id_for(n) for n in names])
+            rep = fresh._acc.cpu().numpy()
+            if not np.array_equal(rep[rep_ids], acc[live_ids]):
+                raise AssertionError("the journal replay differs from the "
+                                     "live state")
+            if (rx2.samples_merged, rx2.duplicate_frames) != (sent, 1):
+                raise AssertionError(f"replay counters "
+                                     f"{rx2.samples_merged}, "
+                                     f"{rx2.duplicate_frames}")
+        finally:
+            fresh.close()
+        out["replay"] = {"frames": replayed, "s": time.perf_counter() - t0}
+        del acc, want, rep
+        out["paged"] = _fed_paged(torch, journal, parent_sent)
+        out["k4_launches"] = out["paged"]["k4_launches"]
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        rx.stop()
+        agg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernels_line():
     out = []
     for name, (source, replaces, also) in KERNEL_META.items():
@@ -6176,6 +6562,7 @@ def main() -> int:
                         ("observability_main_path",
                          phase_observability),
                         ("resilience_main_path", phase_resilience),
+                        ("federation_main_path", phase_federation),
                         ("firehose_main_path", phase_firehose)):
         if only and name != "card" and name not in only:
             continue

@@ -4,7 +4,7 @@ statistics and dispatch.
 
 The package-level names are the reference's codec, frame and statistics
 names (``ops/codec.py``, ``ops/stats.py``).  They load on first use
-(PEP 562), because both modules import torch."""
+(PEP 562), so importing one op module does not import the others."""
 
 import importlib
 

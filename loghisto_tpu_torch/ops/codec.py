@@ -28,10 +28,16 @@ The torch tier differs from the JAX device tier on purpose:
 
 NaN pins to bucket 0; out-of-range buckets saturate at +/-32767.
 
+Only ``table_compress``, ``compress`` and ``decompress`` need torch, and
+they import it when called, as the JAX module imports jax inside its
+device functions: the host tier and the frame codec load without it, so
+the torch-free emitter tier (``federation.emitter``, ``metrics``,
+``obs.spans``, ``submitter``) can use them.
+
 The byte-frame codec at the end of the module is the JAX module's,
 copied: ``utils/journal.FrameJournal`` writes it, and the federation
-wire will ship the same frames.  A frame written by either package
-decodes in the other.
+wire (``federation/wire.py``) ships the same frames.  A frame written
+by either package decodes in the other.
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ import struct
 import zlib
 
 import numpy as np
-import torch
 
 from loghisto_tpu_torch.config import INT16_BUCKET_LIMIT, PRECISION
 
@@ -134,6 +139,8 @@ def table_compress(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tens
     number of thresholds t[1:] at or below |v|, with v's sign; NaN is
     bucket 0.  Equals ``clip(compress_np(v), -bucket_limit,
     bucket_limit)`` on every float32."""
+    import torch
+
     v = torch.as_tensor(values).to(torch.float32)
     k = torch.searchsorted(thresholds[1:].to(v.device), v.abs(), right=True)
     k = torch.where(torch.isnan(v), torch.zeros_like(k), k)
@@ -143,6 +150,8 @@ def table_compress(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tens
 def compress(values: torch.Tensor, precision: int = PRECISION) -> torch.Tensor:
     """Vectorized compress on the tensor's device -> int32 buckets,
     computed in float64 (equal to ``compress_np`` on every input)."""
+    import torch
+
     v = torch.as_tensor(values).to(torch.float64)
     v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
     mag = torch.floor(precision * torch.log1p(v.abs()) + 0.5)
@@ -153,6 +162,8 @@ def compress(values: torch.Tensor, precision: int = PRECISION) -> torch.Tensor:
 def decompress(buckets: torch.Tensor, precision: int = PRECISION) -> torch.Tensor:
     """Vectorized decompress -> float32 representatives, rounded once
     from float64."""
+    import torch
+
     b = torch.as_tensor(buckets)
     mag = torch.exp(b.abs().to(torch.float64) / precision) - 1.0
     return torch.where(b < 0, -mag, mag).to(torch.float32)

@@ -31,6 +31,10 @@ recompute over the same window give the same bits.
 ``make_group_query_fn`` is the group_by rollup over the same payload:
 the matched CDF rows summed per group (``index_select``, then int32
 ``index_add_``), then ``snapshot_row_stats``.
+
+The torch tier imports torch when called, so the host tier loads
+without it (the torch-free emitter tier reads ``percentiles_sparse``
+and ``summarize_sparse``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.ops.codec import decompress_np
@@ -178,18 +181,24 @@ def sparse_cells_stats(
 
 def bucket_representatives(
     bucket_limit: int, precision: int = PRECISION, device=None,
-    dtype=torch.float32,
+    dtype=None,
 ) -> torch.Tensor:
     """Representative value of every dense-axis bucket (index b maps to
     codec bucket b - bucket_limit), rounded once from the float64 host
-    codec so every device holds the same table.  Built once per
-    (geometry, device, dtype) and shared: callers must not write it."""
+    codec so every device holds the same table; ``dtype`` None means
+    ``torch.float32``.  Built once per (geometry, device, dtype) and
+    shared: callers must not write it."""
+    import torch
+
     return _representatives(bucket_limit, precision,
-                            torch.device(device or "cpu"), dtype)
+                            torch.device(device or "cpu"),
+                            torch.float32 if dtype is None else dtype)
 
 
 @functools.lru_cache(maxsize=64)
 def _representatives(bucket_limit, precision, device, dtype):
+    import torch
+
     idx = np.arange(-bucket_limit, bucket_limit + 1, dtype=np.int64)
     reps = torch.from_numpy(decompress_np(idx, precision))
     return reps.to(device=device, dtype=dtype)
@@ -219,6 +228,8 @@ def row_sums(
 ) -> torch.Tensor:
     """Per-row float32 sum of representative values: the float32 matvec
     ``acc.float() @ reps`` every dense statistic shares."""
+    import torch
+
     # state the matvec's precision: full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     reps = bucket_representatives(bucket_limit, precision, acc.device)
@@ -235,6 +246,8 @@ def dense_cdf(
     [V, M] (its last column) and ``sums`` float32 [M] or [V, M]
     (``row_sums`` of each [M, B] on its own, so each view's sums are the
     bits ``window_stats`` computes for it)."""
+    import torch
+
     cdf = torch.cumsum(acc, dim=-1, dtype=torch.int32)
     if acc.ndim == 3:
         sums = torch.stack([row_sums(a, bucket_limit, precision) for a in acc])
@@ -248,6 +261,7 @@ def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):
     rows ids``: one gather of the requested rows on the snapshot's
     device, then ``snapshot_row_stats``; readback is O(len(ids) * P).
     ``ids`` may be host ints; they are moved to the snapshot's device."""
+    import torch
 
     def query(cdf, counts, sums, ids, ps):
         idx = torch.as_tensor(ids, dtype=torch.long, device=cdf.device)
@@ -273,6 +287,7 @@ def make_group_query_fn(bucket_limit: int, precision: int = PRECISION):
     which CUDA's ``index_add_`` does not fix from run to run.  Callers
     pad ``ids`` with row 0 and send the pad rows to a dump group they
     drop after readback (``TimeWheel._group_rollup``)."""
+    import torch
 
     def group_query(cdf, counts, sums, ids, gids, ps, *, num_groups):
         device = cdf.device
@@ -306,6 +321,8 @@ def snapshot_row_stats(
     [n, P] and their selected buckets [n, P] are selected by the k* rule
     of ``dense_stats`` (same float32 operation order as the JAX
     ``snapshot_row_stats``)."""
+    import torch
+
     num_buckets = cdf_rows.shape[1]
     device = cdf_rows.device
     reps = bucket_representatives(bucket_limit, precision, device)

@@ -1683,3 +1683,86 @@ def test_device_failure_requeue_on_the_card_equals_the_cpu(dev):
         agg.close()
     np.testing.assert_array_equal(accs[0], accs[1])
     assert int(accs[0].sum()) == len(ids)
+
+
+# -- federation: the receiver's merges land through K3 and K4 -------------
+
+
+def _federation_frames(seed, bl):
+    """A seeded frame sequence from three emitters, one buffer per
+    connection: a dictionary split over two frames, a duplicate, a gap
+    filled late, a v1 frame and rows that arrive before their names."""
+    from loghisto_tpu_torch.federation import wire
+    from loghisto_tpu_torch.ops.codec import encode_frame
+
+    rng = np.random.default_rng(seed)
+
+    def rows(lids, n):
+        return np.stack([rng.choice(np.asarray(lids), n),
+                         rng.integers(-bl // 4, bl + 1, n),
+                         rng.integers(1, 100, n)], axis=1).astype(np.int32)
+
+    def v2(eid, seq, names, packed):
+        return encode_frame(wire.KIND_DELTA2, wire.encode_delta2(
+            eid, seq, names, packed, 10**12 + seq, 2 * 10**18 + seq))
+
+    names = [(i, f"fed.n{i}") for i in range(40)]
+    a1 = v2(1, 1, names[:20], rows(range(20), 3000))
+    a2 = v2(1, 2, names[20:], rows(range(40), 3000))
+    a3 = v2(1, 3, [], rows(range(40), 3000))
+    b1 = encode_frame(wire.KIND_DELTA, wire.encode_delta(
+        2, 1, [(0, "fed.b")], rows([0], 100)))
+    c2 = v2(3, 2, [], rows([0, 1], 500))
+    c1 = v2(3, 1, [(0, "fed.c0"), (1, "fed.c1")], rows([0], 10))
+    return [a1, a3, a2, a3, b1, c2, c1]
+
+
+@pytest.mark.parametrize("storage", ["dense", "paged"])
+def test_federation_receiver_on_the_card_equals_the_cpu(dev, storage):
+    """One frame sequence through a ``FederationReceiver`` over a card
+    ``TorchAggregator`` and over a CPU one: the receiver's merges launch
+    K3 (dense) or K4 (paged), and the storage, the counters and
+    ``collect()``'s counts and percentiles are EQUAL."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationReceiver
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    bl = 4096
+    frames = _federation_frames(31, bl)
+    kw = {"num_metrics": 64, "config": MetricConfig(bucket_limit=bl),
+          "storage": storage}
+    if storage == "paged":
+        kw["paged_config"] = PagedStoreConfig(pool_pages=4096)
+    kernel = "sparse_ingest" if storage == "dense" else "paged_scatter"
+    out = []
+    for d in (dev, "cpu"):
+        agg = TorchAggregator(device=d, **kw)
+        rx = FederationReceiver(agg)
+        before = kernel_launches()[kernel]
+        try:
+            assert all(rx._drain_buffer(bytearray(f)) for f in frames)
+            rx.stop()
+            assert agg.wait_transfers(30.0)
+            torch.cuda.synchronize()
+            if d != "cpu":
+                assert kernel_launches()[kernel] > before
+            store = agg._acc if storage == "dense" else agg.paged._pool
+            stats = rx.stats()
+            out.append((store.cpu().numpy().copy(), stats,
+                        agg.collect().metrics))
+        finally:
+            agg.close()
+    (card, card_stats, card_m), (cpu, cpu_stats, cpu_m) = out
+    np.testing.assert_array_equal(card, cpu)
+    for key in ("frames_received", "duplicate_frames", "seq_gaps",
+                "samples_merged", "samples_shed", "frames_v1"):
+        assert card_stats[key] == cpu_stats[key], key
+    assert card_stats["duplicate_frames"] == 1
+    assert card_stats["seq_gaps"] == 0 and card_stats["samples_shed"] == 0
+    assert set(card_m) == set(cpu_m)
+    for key, want in cpu_m.items():
+        if key.endswith(("_sum", "_avg")):
+            assert card_m[key] == pytest.approx(want, rel=1e-5), key
+        else:
+            assert card_m[key] == want, key

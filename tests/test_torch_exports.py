@@ -1,19 +1,23 @@
 """The port's packages export the reference's package-level names
-(``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops`` and
-``loghisto_tpu.obs`` and ``loghisto_tpu.resilience``): every name with a ported counterpart resolves on
+(``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops``,
+``loghisto_tpu.obs``, ``loghisto_tpu.resilience`` and
+``loghisto_tpu.federation``): every name with a ported counterpart
+resolves on
 the matching package of ``loghisto_tpu_torch``, and the names still
 waiting for a slice are listed below with that slice."""
 
 import importlib
+from pathlib import Path
 
 import pytest
 
 import loghisto_tpu
+import loghisto_tpu.federation
 import loghisto_tpu.obs
 import loghisto_tpu.ops
 import loghisto_tpu.resilience
 
-PACKAGES = ("", ".ops", ".obs", ".resilience")
+PACKAGES = ("", ".ops", ".obs", ".resilience", ".federation")
 
 # reference name -> the port's counterpart where the names differ
 RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
@@ -24,6 +28,7 @@ WAITING = {
     ".ops": {},
     ".obs": {},
     ".resilience": {},
+    ".federation": {},
 }
 
 
@@ -89,3 +94,36 @@ def test_package_default_system():
     assert lh.Metrics is lh.Metrics
     assert isinstance(lh.Metrics, MetricSystem)
     assert lh.Metrics.interval == loghisto_tpu.Metrics.interval == 60.0
+
+
+def test_federation_all_equals_the_reference_and_stays_lazy():
+    """The federation package exports the reference's ``__all__``; its
+    config imports without the receiver or torch (PEP 562), and the
+    config's fields and defaults are the reference's."""
+    import dataclasses
+    import subprocess
+    import sys
+
+    import loghisto_tpu_torch.federation as port
+    from loghisto_tpu_torch.federation import emitter, receiver
+
+    assert port.__all__ == loghisto_tpu.federation.__all__
+    assert port.FederationEmitter is emitter.FederationEmitter
+    assert port.FederationReceiver is receiver.FederationReceiver
+    with pytest.raises(AttributeError):
+        port.no_such_name
+    fields = [(f.name, f.default)
+              for f in dataclasses.fields(port.FederationConfig)]
+    assert fields == [
+        (f.name, f.default) for f in dataclasses.fields(
+            loghisto_tpu.federation.FederationConfig)]
+    code = ("import sys\n"
+            "from loghisto_tpu_torch.federation import FederationConfig\n"
+            "FederationConfig(port=9)\n"
+            "bad = [k for k in sys.modules if k == 'torch' or"
+            " k.endswith('federation.receiver')]\n"
+            "assert not bad, bad\n")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

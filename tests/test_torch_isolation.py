@@ -5,13 +5,20 @@ with lifecycle and drift, a multirow interval, a firehose run with its
 OpenTSDB export, a labeled interval with a group_by, a selector query
 and a windowed Prometheus exposition, a preagg interval through the
 native cell store, a fast-ingest interval through the C staging
-buffers and an observed commit with its watchdog, trace dump and debug
-dump on the CPU without either in ``sys.modules``, and never falls back
-to the CPU on its own."""
+buffers, an observed commit with its watchdog, trace dump and debug
+dump, and a federation receiver on the CPU without either in
+``sys.modules``, and never falls back to the CPU on its own.
+
+The torch-free frontier: the modules a frontend process imports to
+record and federate (the reference's four, ``federation.emitter``,
+``labels.model``, ``obs.spans`` and ``metrics``, and ``submitter``,
+which the emitter ships through) load without torch, and an emitter in
+such a process ships a frame to a receiver in this one."""
 
 import ast
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -20,6 +27,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "loghisto_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "loghisto_tpu")
+TORCH_FREE_FRONTIER = (
+    "loghisto_tpu_torch.federation.emitter",
+    "loghisto_tpu_torch.labels.model",
+    "loghisto_tpu_torch.obs.spans",
+    "loghisto_tpu_torch.metrics",
+    "loghisto_tpu_torch.submitter",
+)
 
 
 def _imported_modules(path):
@@ -164,6 +178,16 @@ def test_interval_runs_without_jax_in_sys_modules():
         "assert json.load(open(f.name))['traceEvents']\n"
         "assert ms.debug_dump()['obs']['enabled']\n"
         "ms.stop()\n"
+        "from loghisto_tpu_torch.federation import FederationReceiver, wire\n"
+        "from loghisto_tpu_torch.ops.codec import encode_frame\n"
+        "agg = TorchAggregator(num_metrics=4, batch_size=64, device='cpu')\n"
+        "rx = FederationReceiver(agg)\n"
+        "rx._drain_buffer(bytearray(encode_frame(wire.KIND_DELTA,"
+        " wire.encode_delta(1, 1, [(0, 'f')], np.array([[0, 3, 2]],"
+        " np.int32)))))\n"
+        "rx.stop()\n"
+        "assert agg.collect().metrics['f_count'] == 2.0\n"
+        "agg.close()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -219,3 +243,51 @@ def test_entry_points_default_to_the_card():
     for make in factories:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_torch_free_frontier_ships_a_frame():
+    """In a fresh process the frontier modules import without torch,
+    jax or the JAX package, and an emitter there ships one frame that a
+    receiver over a ``TorchAggregator`` in this process merges."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationReceiver
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(num_metrics=4, batch_size=64, device="cpu",
+                          config=MetricConfig(bucket_limit=64))
+    rx = FederationReceiver(agg)
+    rx.start()
+    try:
+        code = (
+            "import sys\n"
+            f"import {', '.join(TORCH_FREE_FRONTIER)}\n"
+            "from loghisto_tpu_torch.config import MetricConfig\n"
+            "from loghisto_tpu_torch.federation import FederationEmitter\n"
+            f"e = FederationEmitter(('127.0.0.1', {rx.port}), emitter_id=7,"
+            " config=MetricConfig(bucket_limit=64))\n"
+            "e.record('frontier.lat', 1.5)\n"
+            "e.record('frontier.lat', 0.5, labels={'zone': 'a'})\n"
+            "e.flush()\n"
+            "assert e.close(drain_timeout=30.0)\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in"
+            " ('torch', 'jax', 'jaxlib', 'loghisto_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n"
+        )
+        out = subprocess.run(
+            [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+            text=True, timeout=120,
+        )
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "ok"
+        deadline = time.monotonic() + 30.0
+        while rx.samples_merged < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert rx.samples_merged == 2 and rx.decode_errors == 0
+        assert agg.wait_transfers(30.0)
+        m = agg.collect().metrics
+        assert m["frontier.lat_count"] == 1.0
+        assert m["frontier.lat;zone=a_count"] == 1.0
+    finally:
+        rx.stop()
+        agg.close()
