@@ -57,6 +57,17 @@ against host oracles:
     ``LOGHISTO_TRACE_DIR``
     capture of the headline ``collect()`` holding K1, PrintBenchmark on
     the card and the Submitter across a listener outage;
+  * federation (``federation_main_path``): 8 torch-free emitter
+    processes into a FederationReceiver over the dense aggregator (K3),
+    the journal's replay and a paged interval (K4); then
+    ``federation_system_main_path``: TorchMetricSystem(retention=True,
+    observability=, federation=) with its reaper running, 32 paced
+    emitter processes, one falling silent (/fleetz, /healthz), the
+    served fed.FreshnessUs p99 against the host oracle, a
+    FreshnessSloRule, the merged Perfetto trace (K3, K5);
+  * the sketches (``sketches_main_path``): LogHistogram through K2a and
+    K2b, t-digest, HLL, moments and 10,000 stacked sketches under
+    torch.func.vmap, against the CPU and numpy;
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -6495,6 +6506,566 @@ def phase_federation(torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- federation wired into the system ------------------------------------------
+
+# The reference's fleet drill (tests/test_fleet_obs.py:511, and
+# examples/federation_demo.py) at the retention smoke width: FS_EMITTERS
+# torch-free emitter processes, paced by their FS_FLUSH_S ticker, each
+# ship FS_PHASES phases of FS_SAMPLES Zipf(1.3)/lognormal samples over
+# FS_NAMES shared names (2^20 samples a phase, the retention default an
+# interval) into TorchMetricSystem(retention=True, observability=,
+# federation=) running its reaper at 1 s; emitter FS_SILENT goes silent
+# after phase 0 and the first FS_TRACED dump their span rings.
+FS_EMITTERS = 32
+FS_PHASES = 3
+FS_SAMPLES = 1 << 15
+FS_NAMES = 1024
+FS_SILENT = 31
+FS_TRACED = 4
+FS_EMITTER0 = 0xF5000
+FS_FLUSH_S = 0.5
+FS_BUDGET_US = 1000.0     # a freshness budget below any paced p99
+FS_LAX_US = 60e6          # one no frame misses
+FS_DEADLINE_S = 120.0
+
+
+def _fs_names():
+    return [f"fed.sys.{k}" for k in range(FS_NAMES)]
+
+
+def _fs_samples(idx, phase):
+    """Emitter ``idx``'s samples of ``phase`` as (name index, value): the
+    parent regenerates them for its oracle."""
+    rng = np.random.default_rng([SEED, 19, idx, phase])
+    return zipf_ids(rng, FS_SAMPLES, FS_NAMES), lognormal_values(
+        rng, FS_SAMPLES)
+
+
+def _fs_child(argv):
+    """One paced emitter process (``python -c``, no torch): its ticker
+    flushes every FS_FLUSH_S (a heartbeat frame when idle); per phase it
+    records and ships its samples, prints one JSON line and waits for a
+    line on stdin.  Emitter FS_SILENT stops its ticker and records
+    nothing after phase 0.  With a trace path it dumps its span ring."""
+    port, idx = int(argv[0]), int(argv[1])
+    trace = argv[2] if len(argv) > 2 and argv[2] != "-" else None
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation.emitter import FederationEmitter
+
+    def foreign():
+        return sorted(k for k in sys.modules
+                      if k.split(".")[0] in FED_FOREIGN)
+
+    if foreign():
+        print(json.dumps({"child": idx, "foreign": foreign()}), flush=True)
+        return 3
+    e = FederationEmitter(("127.0.0.1", port), interval=FS_FLUSH_S,
+                          config=MetricConfig(bucket_limit=BL),
+                          emitter_id=FS_EMITTER0 + idx)
+    e.start()
+    lids = np.array([e.local_id(n) for n in _fs_names()], dtype=np.int32)
+    ok = True
+    for phase in range(FS_PHASES):
+        t_send = time.monotonic()
+        if idx == FS_SILENT and phase > 0:
+            e._stop.set()  # silent: no records, no flushes, no heartbeats
+        else:
+            ids, values = _fs_samples(idx, phase)
+            e.record_batch(lids[ids], values)
+            e.flush()
+            ok = e.drain(60.0) and ok
+        print(json.dumps({"child": idx, "phase": phase, "t_send": t_send}),
+              flush=True)
+        if phase + 1 < FS_PHASES and not sys.stdin.readline():
+            return 1  # the parent is gone
+    if trace:
+        from loghisto_tpu_torch.obs.perfetto import dump_perfetto
+
+        dump_perfetto(e.obs, trace, process_name=f"emitter-{idx}")
+    ok = e.close(drain_timeout=60.0) and ok
+    print(json.dumps({
+        "child": idx, "ok": ok, "foreign": foreign(),
+        "samples": e.samples_shipped, "frames": e.frames_shipped,
+        "bytes": e.bytes_sent, "send_failures": e.send_failures}),
+        flush=True)
+    return 0 if ok and not foreign() else 1
+
+
+def _fs_oracle(registry):
+    """The federated rows the fleet's samples make, regenerated from
+    their seeds through compress_np: int64 [FS_NAMES, B], and the rows'
+    ids in the system's registry."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    keys = []
+    for idx in range(FS_EMITTERS):
+        for phase in range(1 if idx == FS_SILENT else FS_PHASES):
+            ids, values = _fs_samples(idx, phase)
+            keys.append(ids.astype(np.int64) * B + np.clip(
+                compress_np(values), -BL, BL).astype(np.int64) + BL)
+    want = np.bincount(np.concatenate(keys), minlength=FS_NAMES * B)
+    rows = np.array([registry.id_for(n) for n in _fs_names()])
+    return want.reshape(FS_NAMES, B), rows
+
+
+def _fs_freshness_oracle(values):
+    """The reference drill's oracle of the served p99: the ledger folded
+    through compress_np (float64), the p99 bucket by the float64 cumsum
+    rule, decoded through the float32 representatives the query
+    serves."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+    from loghisto_tpu_torch.ops.stats import bucket_representatives
+
+    folded = np.clip(compress_np(np.asarray(values, np.float64)), -BL, BL)
+    buckets, counts = np.unique(folded, return_counts=True)
+    cdf = np.cumsum(counts.astype(np.uint64))
+    sel = int(np.searchsorted(cdf.astype(np.float64) / float(cdf[-1]), 0.99,
+                              side="left"))
+    bucket = int(buckets[min(sel, len(buckets) - 1)])
+    return float(bucket_representatives(BL).numpy()[bucket + BL])
+
+
+def phase_federation_system(torch):
+    """TorchMetricSystem(federation=FederationConfig(expected_emitters=
+    32)) on the card with its reaper running: the fleet's frames merge
+    through K3, each 1 s commit publishes through K3 and K5 and
+    completes the frames' freshness; every sample merged once and every
+    federated cell equal to the host oracle, /fleetz naming the silent
+    emitter, /healthz reporting emitter_starvation once the fleet is
+    gone, the served fed.FreshnessUs p99 equal to the host oracle over
+    the receiver's ledger, a FreshnessSloRule firing on a budget below
+    it, and fed flows crossing processes in the merged trace."""
+    import shutil
+    import tempfile
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationConfig
+    from loghisto_tpu_torch.obs import ObsConfig
+    from loghisto_tpu_torch.obs.perfetto import dump_perfetto, merge_traces
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.prometheus import PrometheusEndpoint
+    from loghisto_tpu_torch.system import TorchMetricSystem
+    from loghisto_tpu_torch.window.rules import FreshnessSloRule
+
+    card = RESULTS["card"]  # nvidia-smi's name and power limit
+    print(card, flush=True)
+    tmp = tempfile.mkdtemp(prefix="loghisto-fs-")
+    ms = TorchMetricSystem(
+        interval=1.0, num_metrics=RET_M, config=MetricConfig(bucket_limit=BL),
+        retention=True, observability=ObsConfig(capacity=16384),
+        federation=FederationConfig(expected_emitters=FS_EMITTERS))
+    if (ms.device.type != "cuda" or ms.commit_path != "fused"
+            or ms.committer.freshness_hook != ms.federation.note_publish):
+        raise AssertionError("the federated system is not wired on cuda")
+    # the wheel keeps the first RET_M rows, and the fleet's names and the
+    # system's own outnumber them: register the freshness row first so
+    # that the window serves it
+    ms.metric_id("fed.FreshnessUs")
+    tight = ms.add_rule(FreshnessSloRule("fed.fresh.tight", FS_BUDGET_US))
+    lax = ms.add_rule(FreshnessSloRule("fed.fresh.lax", FS_LAX_US))
+    rx = ms.federation
+    procs, ep, out, stopped = [], None, {"card": card}, False
+    try:
+        reset_kernel_launches()
+        t_start = time.monotonic()
+        ms.start()
+        ep = PrometheusEndpoint(ms, port=0, host="127.0.0.1")
+        ep.start()
+        url = f"http://127.0.0.1:{ep.port}"
+        root = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; "
+                "sys.exit(chip_smoke._fs_child(sys.argv[2:]))")
+        for idx in range(FS_EMITTERS):
+            trace = (os.path.join(tmp, f"em{idx}.json")
+                     if idx < FS_TRACED else "-")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, root, str(rx.port), str(idx),
+                 trace], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        live = FS_EMITTERS - 1
+        want_merged = [FS_SAMPLES * (FS_EMITTERS + live * p)
+                       for p in range(FS_PHASES)]
+        t_fan = []
+        silent = f"{FS_EMITTER0 + FS_SILENT:016x}"
+        for phase in range(FS_PHASES):
+            t_go = time.monotonic()
+            _ob_wait(lambda: rx.samples_merged >= want_merged[phase],
+                     f"phase {phase}'s fan-in", FS_DEADLINE_S)
+            t_fan.append((t_go, time.monotonic()))
+            if phase == 1:
+                # the fleet heartbeats while the silent emitter ages
+                # past starvation_intervals x interval
+                _ob_wait(lambda: silent in _ob_get(
+                    f"{url}/fleetz")[1]["flags"]["starved"],
+                    "the silent emitter in /fleetz", 30.0)
+                status, fleet = _ob_get(f"{url}/fleetz")
+                live_rows = [r for e, r in fleet["emitters"].items()
+                             if e != silent]
+                if (status != 200 or fleet["flags"]["starved"] != [silent]
+                        or fleet["fleet"]["emitters"] != FS_EMITTERS
+                        or any(r["stalled"] for r in live_rows)):
+                    raise AssertionError(f"/fleetz: {status} "
+                                         f"{fleet['flags']}")
+                out["fleetz"] = {"status": status, "flags": fleet["flags"],
+                                 "top": fleet["top"]}
+            if phase + 1 < FS_PHASES:
+                for p in procs:
+                    p.stdin.write("go\n")
+                    p.stdin.flush()
+        children = []
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=120)
+            lines = [json.loads(ln) for ln in stdout.splitlines()
+                     if ln.startswith("{")]
+            if p.returncode != 0 or not lines or "ok" not in lines[-1]:
+                raise AssertionError(f"emitter child failed ({p.returncode})"
+                                     f": {stdout[-2000:]} {stderr[-2000:]}")
+            children.append(lines)
+        t_done = time.monotonic()
+        if any(c[-1]["foreign"] for c in children):
+            raise AssertionError("an emitter child loaded torch or JAX")
+        t_first = min(c[0]["t_send"] for c in children)
+        t_fan[0] = (t_first, t_fan[0][1])
+        # the fleet is gone: pending frames publish, the watchdog sees
+        # the silence, the last freshness samples land in the window
+        _ob_wait(lambda: rx.stats()["freshness_pending"] == 0,
+                 "every frame published", 30.0)
+
+        def served():
+            res = ms.query_window("fed.FreshnessUs", 3600.0,
+                                  percentiles=(0.99,))
+            return res.metrics.get("fed.FreshnessUs") or {}
+
+        _ob_wait(lambda: served().get("count") == len(rx.freshness_values),
+                 "the freshness samples in the window", 30.0)
+        _ob_wait(lambda: "emitter_starvation" in [
+            r["code"] for r in _ob_get(f"{url}/healthz")[1]["reasons"]],
+            "emitter_starvation in /healthz", 30.0)
+        health_status, health = _ob_get(f"{url}/healthz")
+        fresh = np.asarray(rx.freshness_values, dtype=np.float64)
+        p99 = served()["p99"]
+        oracle = _fs_freshness_oracle(fresh)
+        active = set(ms.rule_engine.active())
+        st = rx.stats()
+        dump = ms.debug_dump()
+        k = kernel_launches()
+        rx_trace = os.path.join(tmp, "rx.json")
+        dump_perfetto(ms.obs, rx_trace, process_name="aggregator")
+        commit_p50 = ms.committer._latency_hist.percentile(50.0)
+        fanout = ms.committer.fanout_intervals
+        ep.stop()
+        ep, stopped = None, True
+        ms.stop()
+        torch.cuda.synchronize()
+        total = want_merged[-1]
+        checks = {
+            "samples_merged": (st["samples_merged"], total),
+            "child samples": (sum(c[-1]["samples"] for c in children),
+                              total),
+            "decode_errors": (st["decode_errors"], 0),
+            "samples_shed": (st["samples_shed"], 0),
+            "freshness_dropped": (st["freshness_dropped"], 0),
+            "freshness_samples": (st["freshness_samples"], len(fresh)),
+            "fanout_intervals": (fanout, 0),
+            "served p99": (p99, oracle),
+            "debug_dump federation merged": (
+                dump.get("federation", {}).get("samples_merged"), total),
+        }
+        bad = {k_: v for k_, v in checks.items() if v[0] != v[1]}
+        if bad:
+            raise AssertionError(f"(got, want): {bad}")
+        if k["sparse_ingest"] <= 0 or k["window_merge"] <= 0:
+            raise AssertionError(f"launches {k}")
+        measured_p99 = float(np.percentile(fresh, 99))
+        if not (FS_BUDGET_US < measured_p99 and tight.name in active
+                and lax.name not in active):
+            raise AssertionError(f"rules {sorted(active)} at p99 "
+                                 f"{measured_p99} us")
+        want, rows = _fs_oracle(ms.aggregator.registry)
+        acc = ms.aggregator._acc[torch.from_numpy(rows).to(
+            ms.aggregator._acc.device)].cpu().numpy()
+        if ms.aggregator._spill is not None and \
+                ms.aggregator._spill[rows].any():
+            raise AssertionError("federated rows spilled to the host")
+        if not np.array_equal(acc, want):
+            diff = np.flatnonzero((acc != want).any(axis=1))
+            raise AssertionError(f"{len(diff)} federated rows differ from "
+                                 f"the oracle, first {diff[:5]}")
+        traces = sorted(os.path.join(tmp, f) for f in os.listdir(tmp)
+                        if f.startswith("em"))
+        merged = merge_traces(traces + [rx_trace])
+        by_flow = collections.defaultdict(set)
+        for ev in merged["traceEvents"]:
+            if ev.get("cat") == "fed":
+                by_flow[ev["id"]].add(ev["pid"])
+        crossing = sum(1 for pids in by_flow.values() if len(pids) > 1)
+        if len(traces) != FS_TRACED or crossing == 0:
+            raise AssertionError(f"{len(traces)} emitter traces, {crossing} "
+                                 "flows across processes")
+        fan_s = sum(b - a for a, b in t_fan)
+        out.update({
+            "emitters": FS_EMITTERS, "names": FS_NAMES,
+            "rows": ms.aggregator.num_metrics,
+            "samples_merged": st["samples_merged"],
+            "frames": st["frames_received"],
+            # a frame sent twice (the sender thread's retry racing the
+            # emitter's drain) merges once: deduplicated by seq
+            "duplicate_frames": st["duplicate_frames"],
+            "bytes_received": st["bytes_received"],
+            "fan_in_s": [round(b - a, 4) for a, b in t_fan],
+            "samples_merged_per_s": total / fan_s,
+            "frames_per_s": st["frames_received"] / (t_done - t_first),
+            "spawn_to_first_send_s": t_first - t_start,
+            "freshness_us": {"count": len(fresh),
+                             "p50": float(np.percentile(fresh, 50)),
+                             "p99": measured_p99,
+                             "served_p99": p99},
+            "commit_p50_us": commit_p50,
+            "rules_firing": sorted(active),
+            "healthz": {"status": health_status,
+                        "reasons": [r["code"] for r in health["reasons"]]},
+            "flows_across_processes": crossing,
+            "k3_launches": k["sparse_ingest"],
+            "k5_launches": k["window_merge"],
+            "launches": {n: v for n, v in k.items() if v},
+        })
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if ep is not None:
+            ep.stop()
+        if not stopped:
+            ms.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- the sketches -----------------------------------------------------------------
+
+# LogHistogram at the headline's bucket_limit fed SK_VALUES lognormal
+# values through K2a and K2b; a t-digest (capacity 512) fed them in
+# SK_TD_BATCHES batches; HLL p=14 over SK_HLL_DISTINCT distinct values
+# (each twice); moments over SK_VALUES normal values; SK_STACK stacked
+# t-digests (capacity 64) and HLLs fed SK_STACK_VALUES values each in one
+# torch.func.vmap call, SK_CHECKED of them held against single CPU calls.
+SK_VALUES = 1 << 22
+SK_TD_BATCHES = 64
+SK_HLL_DISTINCT = 10 ** 6
+SK_STACK = 10_000
+SK_STACK_VALUES = 4096
+SK_CHECKED = 64
+SK_QS = (0.0, 0.001, 0.01, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999, 0.9999, 1.0)
+
+
+def _sk_digest_close(got, want, span, what):
+    """t-digest quantiles within the CPU tests' tolerance: rtol 1e-4 plus
+    1e-6 of the data's range."""
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-6 * span):
+        raise AssertionError(f"{what}: {got} against {want}")
+
+
+def phase_sketches(torch):
+    """The sketches on the card (``loghisto_tpu_torch.models``): each
+    result against the same port function on the CPU (integers EQUAL,
+    floats within the tolerances tests/test_torch_sketches.py states)
+    and against numpy truth within the JAX tests' accuracy bounds; the
+    LogHistogram's counts EQUAL to compress_np's histogram and its
+    inserts launching K2a, then K2b."""
+    from torch.func import vmap
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.models import LogHistogram, hll, moments, tdigest
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    card = RESULTS["card"]  # nvidia-smi's name and power limit
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([SEED, 19, 12])
+    op_ms = {}
+
+    def timed(name, fn):
+        """fn's ms on its first call (a first use builds PyTorch's
+        kernels: jiterator, NVRTC) and on a second, warm one."""
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        op_ms[name] = {"first": round(times[0], 3), "warm": round(times[1], 3)}
+        return result
+
+    # LogHistogram: a multiple of 2048 samples through K2a, then two
+    # ragged pieces through K2b
+    cfg = MetricConfig(bucket_limit=BL)
+    values = lognormal_values(rng, SK_VALUES)
+    v = torch.from_numpy(values).to(dev)
+    cut, tail = SK_VALUES // 2, SK_VALUES - 1000
+    reset_kernel_launches()
+    h = LogHistogram.empty(cfg, device=dev)
+    h = timed("loghist_insert_k2a", lambda: h.insert(v[:cut]))
+    k2a = kernel_launches()["row_ingest"]
+    h = timed("loghist_insert_k2b", lambda: h.insert(v[cut:tail]))
+    h = h.insert(v[tail:])
+    k2 = kernel_launches()["row_ingest"]
+    if (k2a, k2) != (2, 5):  # each timed insert runs twice
+        raise AssertionError(f"K2 launches {k2a}, {k2}: want 2, then 5")
+    want = np.bincount(np.clip(compress_np(values), -BL, BL).astype(np.int64)
+                       + BL, minlength=B)
+    cpu_h = LogHistogram.empty(cfg, device="cpu").insert(values)
+    got = h.counts.cpu().numpy()
+    if not (np.array_equal(got, want)
+            and np.array_equal(cpu_h.counts.numpy(), want)
+            and h.count == SK_VALUES):
+        raise AssertionError("LogHistogram counts differ from compress_np's")
+    stats = timed("loghist_statistics", lambda: h.statistics(list(PS)))
+    cpu_stats = cpu_h.statistics(list(PS))
+    if not (stats["count"] == cpu_stats["count"] == SK_VALUES
+            and np.array_equal(stats["percentiles"], cpu_stats["percentiles"])
+            and np.isclose(stats["sum"], cpu_stats["sum"], rtol=1e-5)):
+        raise AssertionError(f"statistics {stats} against {cpu_stats}")
+    rel = np.abs(stats["percentiles"][[1, 5]]
+                 / np.quantile(values, PS[[1, 5]]) - 1)
+    if rel.max() >= 0.011:  # p50 and p99 within the codec's 1%
+        raise AssertionError(f"LogHistogram percentiles off by {rel}")
+
+    # t-digest (capacity 512): the same values in 64 batches
+    tcfg = tdigest.TDigestConfig(capacity=512)
+    qs = np.asarray(SK_QS, dtype=np.float32)
+
+    def digest(batches, device):
+        m, w = tdigest.empty(tcfg, device=device)
+        for b in batches:
+            m, w = tdigest.insert(m, w, b, config=tcfg)
+        return m, w
+
+    span = float(values.max() - values.min())
+    td = timed("tdigest_64_inserts", lambda: digest(
+        v.view(SK_TD_BATCHES, -1), dev))
+    td_q = timed("tdigest_quantile", lambda: tdigest.quantile(
+        *td, torch.from_numpy(qs).to(dev))).cpu().numpy()
+    cpu_td = digest(torch.from_numpy(values).view(SK_TD_BATCHES, -1), "cpu")
+    w, cpu_w = td[1].cpu().numpy(), cpu_td[1].numpy()
+    pop = td[0].cpu().numpy()[w > 0]
+    if not (w.sum() == cpu_w.sum() == SK_VALUES
+            and pop.min() == values.min() and pop.max() == values.max()):
+        raise AssertionError("t-digest total weight or range")
+    _sk_digest_close(td_q, tdigest.quantile(*cpu_td, qs).numpy(), span,
+                     "t-digest on the card against the CPU")
+    truth = np.quantile(values, qs)
+    td_err = np.abs(td_q / truth - 1)
+    if td_err[qs == np.float32(0.999)][0] >= 0.05 or \
+            td_err[qs == np.float32(0.9999)][0] >= 0.10:
+        raise AssertionError(f"t-digest tail errors {td_err}")
+
+    # HyperLogLog p=14 over 10^6 distinct values, each twice
+    distinct = rng.permutation(SK_HLL_DISTINCT).astype(np.float32)
+    stream = np.concatenate([distinct, rng.permutation(distinct)])
+    hv = torch.from_numpy(stream).to(dev)
+    regs = timed("hll_insert", lambda: hll.insert(hll.empty(device=dev), hv))
+    est = float(timed("hll_estimate", lambda: hll.estimate(regs)))
+    cpu_regs = hll.insert(hll.empty(device="cpu"), stream)
+    if not torch.equal(regs.cpu(), cpu_regs):
+        raise AssertionError("HLL registers differ from the CPU's")
+    if not (np.isclose(est, float(hll.estimate(cpu_regs)), rtol=1e-6)
+            and abs(est / SK_HLL_DISTINCT - 1) < 0.05):
+        raise AssertionError(f"HLL estimate {est}")
+
+    # moments over 2^22 normal values
+    mv = rng.normal(100.0, 15.0, SK_VALUES).astype(np.float32)
+    st = timed("moments_insert", lambda: moments.insert(
+        moments.empty(device=dev), torch.from_numpy(mv).to(dev)))
+    mq = timed("moments_quantile", lambda: moments.quantile(
+        st, [0.5, 0.9, 0.99])).cpu().numpy()
+    cpu_st = moments.insert(moments.empty(device="cpu"), mv)
+    n = SK_VALUES
+    sigma = (float(cpu_st.m2) / n) ** 0.5
+    if not int(st.count) == int(cpu_st.count) == n or any(
+            float(getattr(st, f)) != float(getattr(cpu_st, f))
+            for f in ("scale", "min", "max")):
+        raise AssertionError("moments count, scale or range")
+    # rtol 1e-5, or within 1e-5 of n * sigma^k: at 2^22 samples the batch
+    # mean's float32 sum rounds by ~1e-7 of the mean on either device,
+    # which moves M3 by 3 * dmean * M2, 1e-6-1e-5 of n * sigma^3
+    for field, atol in (("mean", 1e-6 * sigma),
+                        ("m2", 1e-5 * n * sigma ** 2),
+                        ("m3", 1e-5 * n * sigma ** 3),
+                        ("m4", 1e-5 * n * sigma ** 4)):
+        got_f, want_f = float(getattr(st, field)), float(getattr(cpu_st,
+                                                                 field))
+        if not np.isclose(got_f, want_f, rtol=1e-5, atol=atol):
+            raise AssertionError(f"moments {field}: {got_f} against "
+                                 f"{want_f} (atol {atol})")
+    mean, std, skew, kurt = (float(x)
+                             for x in moments.standardized_moments(st))
+    if not (abs(mean - mv.mean(dtype=np.float64)) < 0.5
+            and abs(std - mv.std(dtype=np.float64)) < 0.5
+            and abs(skew) < 0.1 and abs(kurt - 3.0) < 0.1
+            and np.abs(mq - np.quantile(mv, [0.5, 0.9, 0.99])).max() < 1.0):
+        raise AssertionError(f"moments {mean} {std} {skew} {kurt} {mq}")
+
+    # SK_STACK t-digests (capacity 64) and HLLs, one vmap call each
+    sv = rng.lognormal(3.0, 1.0, (SK_STACK, SK_STACK_VALUES)).astype(
+        np.float32)
+    sx = torch.from_numpy(sv).to(dev)
+    small = tdigest.TDigestConfig(capacity=64)
+    m0, w0 = tdigest.empty(small, device=dev)
+    vq = torch.tensor([0.5, 0.99], device=dev)
+    ms2, ws2 = timed("tdigest_vmap_insert", lambda: vmap(
+        lambda m, w, x: tdigest.insert(m, w, x, config=small))(
+        m0.expand(SK_STACK, -1).clone(), w0.expand(SK_STACK, -1).clone(),
+        sx))
+    vq_out = timed("tdigest_vmap_quantile", lambda: vmap(
+        lambda m, w: tdigest.quantile(m, w, vq))(ms2, ws2)).cpu().numpy()
+    regs2 = timed("hll_vmap_insert", lambda: vmap(hll.insert)(
+        hll.empty(device=dev).expand(SK_STACK, -1).clone(), sx))
+    est2 = timed("hll_vmap_estimate", lambda: vmap(hll.estimate)(
+        regs2)).cpu().numpy()
+    checked = rng.choice(SK_STACK, SK_CHECKED, replace=False)
+    cpu_m0, cpu_w0 = tdigest.empty(small, device="cpu")
+    for i in checked:
+        x = torch.from_numpy(sv[i])
+        cm, cw = tdigest.insert(cpu_m0, cpu_w0, x, config=small)
+        if not float(ws2[i].sum()) == float(cw.sum()) == SK_STACK_VALUES:
+            raise AssertionError(f"stacked t-digest {i}: total weight")
+        _sk_digest_close(vq_out[i], tdigest.quantile(cm, cw, vq.cpu()).numpy(),
+                         float(sv[i].max() - sv[i].min()),
+                         f"stacked t-digest {i}")
+        cregs = hll.insert(hll.empty(device="cpu"), x)
+        if not torch.equal(regs2[i].cpu(), cregs):
+            raise AssertionError(f"stacked HLL {i}: registers")
+        if not np.isclose(est2[i], float(hll.estimate(cregs)), rtol=1e-6):
+            raise AssertionError(f"stacked HLL {i}: estimate")
+    srt = np.sort(sv, axis=1)
+    distinct_rows = 1 + (np.diff(srt, axis=1) != 0).sum(axis=1)
+    hll_err = np.abs(est2 / distinct_rows - 1)
+    td_rel = np.abs(vq_out[:, 0] / np.quantile(sv, 0.5, axis=1) - 1)
+    if hll_err.max() >= 0.1 or td_rel.max() >= 0.05:
+        raise AssertionError(f"stacked sketches: HLL {hll_err.max()}, "
+                             f"t-digest p50 {td_rel.max()}")
+    return {
+        "card": card, "ms": op_ms,
+        "k2_launches": k2, "loghist_count": h.count,
+        "tdigest_q_err": {f"{q:g}": float(e) for q, e in zip(SK_QS, td_err)},
+        "hll_estimate": est, "moments": [mean, std, skew, kurt],
+        "stacked": {"sketches": SK_STACK, "checked": SK_CHECKED,
+                    "hll_err_max": float(hll_err.max()),
+                    "tdigest_p50_err_max": float(td_rel.max())},
+        "launches": {k: v for k, v in kernel_launches().items() if v},
+    }
+
+
 def kernels_line():
     out = []
     for name, (source, replaces, also) in KERNEL_META.items():
@@ -6563,6 +7134,9 @@ def main() -> int:
                          phase_observability),
                         ("resilience_main_path", phase_resilience),
                         ("federation_main_path", phase_federation),
+                        ("federation_system_main_path",
+                         phase_federation_system),
+                        ("sketches_main_path", phase_sketches),
                         ("firehose_main_path", phase_firehose)):
         if only and name != "card" and name not in only:
             continue

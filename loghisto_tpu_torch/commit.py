@@ -44,8 +44,9 @@ adopts the interval's seq and records ``commit.cells``,
 ``commit.upload``, ``commit.dispatch``, ``commit.device_sync`` (the
 wait on the commit's queued CUDA work, ``device_sync``) and
 ``commit.snapshot_publish``, all inside its ``commit.e2e`` span; then
-the watchdog notes the commit and the self-observer re-ingests the
-interval's spans.
+the watchdog notes the commit, the freshness hook (the federation
+receiver's ``note_publish``) completes the frames applied before it,
+and the self-observer re-ingests the interval's spans.
 
 Failure (D6, closed): a failed commit step is recovered as the
 reference recovers it (``_on_fused_failure_locked``).  The aggregator's
@@ -214,6 +215,10 @@ class IntervalCommitter:
         self.obs_recorder = NULL_RECORDER
         self.self_observer = None
         self.watchdog = None
+        # the federation receiver's note_publish, installed by
+        # TorchMetricSystem(federation=...): frames applied before this
+        # commit complete their freshness once the interval is queryable
+        self.freshness_hook = None
 
         # resilience, installed by TorchMetricSystem(resilience=...)
         self.supervisor = None
@@ -326,6 +331,12 @@ class IntervalCommitter:
             self._ms.histogram("commit.LatencyUs", us)
         if self.watchdog is not None:
             self.watchdog.note_commit(seq)
+        if self.freshness_hook is not None:
+            # a publisher's failure must not fail the commit that landed
+            try:
+                self.freshness_hook(seq)
+            except Exception:  # noqa: BLE001 - the reference's swallow
+                logger.exception("freshness hook failed")
         if self.self_observer is not None:
             # this interval's closed spans re-enter through histogram()
             # as obs.<stage>.LatencyUs

@@ -18,10 +18,11 @@ interned into aggregator rows, and the decoded triples drained through
 and K4 on paged storage.  int32 scatter-adds are order-free, so the
 aggregate equals a single-process oracle whatever the arrival order.
 
-Fault sites ``fed.accept``, ``fed.decode`` and ``fed.send``.  The
-system wiring (``TorchMetricSystem(federation=FederationConfig(...))``,
-the committer's freshness hook, the watchdog's federation input,
-``FreshnessSloRule`` and ``/fleetz``) is ROADMAP Queue 1 slice 14b.
+Fault sites ``fed.accept``, ``fed.decode`` and ``fed.send``.
+``TorchMetricSystem(federation=FederationConfig(...))`` runs a receiver
+over the system's aggregator: the committer's freshness hook completes
+frames at publish, the watchdog reads the fleet invariants,
+``FreshnessSloRule`` binds to it and ``/fleetz`` serves its report.
 """
 
 from __future__ import annotations

@@ -46,9 +46,9 @@ Fault sites: ``fed.accept`` (accept loop, per connection) and
 ``fed.decode`` (per frame, before apply); the emitter holds
 ``fed.send``.  Spans: ``fed.decode``, ``fed.apply``, ``fed.merge`` and
 the instant ``fed.park``.  A standalone receiver completes each v2
-frame's freshness sample at apply; ``note_publish`` completes them at
-snapshot publish once a committer calls it (ROADMAP slice 14b wires
-it into ``TorchMetricSystem``).
+frame's freshness sample at apply; in ``TorchMetricSystem(federation=
+...)`` the committer's freshness hook (``note_publish``) completes them
+at snapshot publish.
 """
 
 from __future__ import annotations
@@ -757,7 +757,7 @@ class FederationReceiver:
         slowest / laggiest / flappiest lists, and starvation / skew flag
         lists.  Percentiles run through the host rule of
         ``obs/spans.py``, so a bare receiver serves this without device
-        code.  (``/fleetz`` serves it in slice 14b.)"""
+        code; ``/fleetz`` serves it."""
         now_ns = time.monotonic_ns()
         now = time.monotonic()
         with self._lock:

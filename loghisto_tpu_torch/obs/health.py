@@ -65,10 +65,13 @@ In the port the watchdog reads one card's pipeline: a paged store has
 one arena (``PagedStore.shard_occupancy()`` is a list of one).
 ``TorchMetricSystem(resilience=...)`` passes its supervisor, breaker and
 recovery manager, and ``device_cooldown`` reads the aggregator's
-``_device_down_until``, which its device-failure handler arms.  The
-federation receiver is ``None`` until federation is ported (ROADMAP
-Queue 1 slice 14), as the reference's system passes it when it is off,
-so the federation invariants never fire.
+``_device_down_until``, which its device-failure handler arms.
+``TorchMetricSystem(federation=...)`` passes its receiver with the
+config's starvation intervals and skew tolerance, so the four fleet
+invariants (``emitter_starvation``, ``fed_decode_errors``,
+``fleet_freshness_stall``, ``emitter_clock_skew``) fire through the
+system; without a federation tier the receiver is ``None`` and they
+never do.
 """
 
 from __future__ import annotations

@@ -30,8 +30,9 @@ Labeled rows (``base;k=v``) are written as native exposition labels,
 (``TorchMetricSystem(observability=...)``): 200 when ok or degraded,
 503 when stalled, with its ``{"code", "detail", "value"}`` reasons.  A
 system without a watchdog gets 200 and the reference's ``no_watchdog``
-document.  ``/fleetz`` answers 404, as the reference's endpoint answers
-a system without a federation tier (ROADMAP Queue 1 slice 14).
+document.  ``/fleetz`` serves the federation receiver's fleet report
+(``TorchMetricSystem(federation=...)``) as JSON, and 404 ``no federation
+tier`` for a system without one.
 """
 
 from __future__ import annotations
@@ -337,8 +338,20 @@ class PrometheusEndpoint:
                 self.wfile.write(payload)
 
             def _serve_fleetz(self):
-                """The fleet rollup of a federation tier; none here."""
-                self.send_error(404, "no federation tier")
+                """The federation receiver's fleet report as JSON:
+                per-emitter rows, the top-K slowest / laggiest /
+                flappiest emitters, starvation and clock-skew flags.
+                404 when the system has no federation tier."""
+                fed = getattr(endpoint._ms, "federation", None)
+                if fed is None:
+                    self.send_error(404, "no federation tier")
+                    return
+                payload = json.dumps(fed.fleet_report()).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
 
             def log_message(self, *args):  # quiet
                 pass

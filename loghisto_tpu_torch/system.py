@@ -69,6 +69,19 @@ interval:
     ms.start()        # recovers first (recover_on_start)
     ms.recover()      # or by hand: restore + replay past the watermark
 
+``federation=FederationConfig(...)`` (or ``True``) makes the system the
+aggregator host of a federation tier: a ``FederationReceiver`` over the
+system's aggregator takes frames from ``FederationEmitter``s in other
+processes (merges: K3, on paged storage K4), frames' freshness completes
+when the commit publishes their interval, ``/fleetz`` serves the fleet
+report, the watchdog gains the fleet invariants, and
+``FreshnessSloRule``s bind to the receiver:
+
+    ms = TorchMetricSystem(retention=True, observability=True,
+                           federation=FederationConfig(expected_emitters=8))
+    ms.start()                               # ms.federation.port
+    ms.add_rule(FreshnessSloRule("fresh", budget_us=2e6))
+
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions.
 """
@@ -84,6 +97,8 @@ from loghisto_tpu_torch.channel import Channel
 from loghisto_tpu_torch.commit import IntervalCommitter, \
     commit_incompatibility
 from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
+from loghisto_tpu_torch.federation import FederationConfig
+from loghisto_tpu_torch.federation.receiver import FederationReceiver
 from loghisto_tpu_torch.labels import LabelIndex
 from loghisto_tpu_torch.lifecycle import LifecycleManager
 from loghisto_tpu_torch.metrics import MetricSystem, ProcessedMetricSet, \
@@ -130,6 +145,7 @@ class TorchMetricSystem(MetricSystem):
         fast_ingest: bool = False,
         observability=None,
         resilience=None,
+        federation=None,
         device=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
@@ -144,7 +160,25 @@ class TorchMetricSystem(MetricSystem):
         the self-observer and the watchdog) and ``resilience`` (``True``
         or a ``ResilienceConfig``: supervision, the breaker, fault
         injection, checkpoints and the journal) mean what they mean for
-        ``TPUMetricSystem``."""
+        ``TPUMetricSystem``.
+
+        ``federation`` takes a ``federation.FederationConfig`` (or
+        ``True`` for the defaults) and turns this system into the
+        aggregator host of a federation tier: a TCP
+        ``FederationReceiver`` listens on ``(host, port)`` (port 0 binds
+        an ephemeral one, read back from ``ms.federation.port``) for
+        framed packed-triple deltas from ``FederationEmitter``s running
+        in other processes, interns their metric names through this
+        system's registry, deduplicates frames by per-emitter sequence
+        number, and drains the triples into the aggregator
+        (``merge_packed``) — so the federated aggregate equals a single
+        process recording everything.  The accept/decode threads run
+        supervised when ``resilience`` is on, ``federation.*`` gauges
+        ride every exporter, frames' freshness completes when the
+        commit publishes their interval, and with ``observability`` the
+        health report gains the ``emitter_starvation`` /
+        ``fed_decode_errors`` / ``fleet_freshness_stall`` /
+        ``emitter_clock_skew`` invariants."""
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
@@ -244,6 +278,13 @@ class TorchMetricSystem(MetricSystem):
                     )
         if self.resilience is not None:
             self._build_recovery()
+        # after resilience (the receiver's threads run under the
+        # supervisor, its fault sites on the injector), before
+        # observability (the span ring and the watchdog take it)
+        self.federation: Optional[FederationReceiver] = None
+        self.federation_config: Optional[FederationConfig] = None
+        if federation is not None and federation is not False:
+            self._build_federation(federation)
         # the commit path's degradation reason: the reference's comes
         # from the mesh, which the port does not have yet
         self.commit_path_reason: Optional[str] = None
@@ -268,15 +309,14 @@ class TorchMetricSystem(MetricSystem):
                                  lambda: float(rec.dropped))
         self.obs_recorder = rec          # the reaper's broadcast span
         for part in (self.aggregator, self.retention, self.lifecycle,
-                     self.anomaly, self.committer):
+                     self.anomaly, self.federation, self.committer):
             if part is not None:
                 part.obs_recorder = rec
         if self.committer is not None and cfg.dogfood:
             self.self_observer = SelfObserver(self, rec)
             self.committer.self_observer = self.self_observer
         if cfg.health:
-            # the federation input stays None until federation is ported
-            # (ROADMAP Queue 1 slice 14), as the reference passes it off
+            fcfg = self.federation_config
             self.health = HealthWatchdog(
                 self.committer, self.aggregator,
                 interval=self.interval,
@@ -288,10 +328,44 @@ class TorchMetricSystem(MetricSystem):
                 supervisor=self.supervisor,
                 breaker=self.device_breaker,
                 recovery=self.recovery,
+                federation=self.federation,
+                federation_starvation_intervals=(
+                    fcfg.starvation_intervals if fcfg is not None else 3.0),
+                federation_skew_tolerance_s=(
+                    fcfg.skew_tolerance_s if fcfg is not None else 1.0),
             )
             if self.committer is not None:
                 self.committer.watchdog = self.health
             self.health.register_gauges(self)
+
+    def _build_federation(self, federation) -> None:
+        """The receiver over the system's aggregator, its gauges and
+        thresholds, and its freshness publisher: the committer's hook,
+        or the wheel's interval hook where retention has no committer
+        (otherwise frames complete at apply)."""
+        fcfg = FederationConfig() if federation is True else federation
+        self.federation_config = fcfg
+        fed = FederationReceiver(
+            self.aggregator,
+            host=fcfg.host,
+            port=fcfg.port,
+            journal_path=fcfg.journal_path,
+            replay_on_start=fcfg.replay_on_start,
+            expected_emitters=fcfg.expected_emitters,
+            supervisor=self.supervisor,
+            fault_injector=self.fault_injector,
+        )
+        self.federation = fed
+        fed.register_gauges(self)
+        fed.starvation_s = fcfg.starvation_intervals * self.interval
+        fed.skew_tolerance_s = fcfg.skew_tolerance_s
+        if self.committer is not None:
+            self.committer.freshness_hook = fed.note_publish
+            fed.has_publisher = True
+        elif self.retention is not None:
+            self.retention.add_interval_hook(
+                lambda raw: fed.note_publish(getattr(raw, "seq", None)))
+            fed.has_publisher = True
 
     def _build_recovery(self) -> None:
         """The committer's breaker, injector and supervisor; with a
@@ -333,10 +407,10 @@ class TorchMetricSystem(MetricSystem):
         """One introspection snapshot of the pipeline: registry occupancy
         and free-list depth, the resolved commit path, query and cache
         counters, transfer and staging depths, the span ring's state,
-        the resilience ledger (with ``resilience=``) and the current
-        health report (the reference's keys; ``mesh`` is None, and the
-        federation section appears once federation is ported).  Pure
-        reads, safe from any thread."""
+        the resilience ledger (with ``resilience=``), the receiver's
+        stats (with ``federation=``) and the current health report (the
+        reference's keys; ``mesh`` is None).  Pure reads, safe from any
+        thread."""
         agg = self.aggregator
         reg = agg.registry
         dump: dict = {
@@ -411,6 +485,8 @@ class TorchMetricSystem(MetricSystem):
                 "faults_injected": (inj.faults_injected
                                     if inj is not None else 0),
             }
+        if self.federation is not None:
+            dump["federation"] = self.federation.stats()
         dump["health"] = (
             self.health.report().as_dict() if self.health else None
         )
@@ -526,7 +602,8 @@ class TorchMetricSystem(MetricSystem):
         """Register an alerting rule (window.rules.*Rule), evaluated
         after every interval; its state gauges join this system's.  A
         ``DistributionDriftRule`` is bound to this system's
-        AnomalyManager (needs ``anomaly=``)."""
+        AnomalyManager (needs ``anomaly=``), a ``FreshnessSloRule`` to
+        the federation receiver (needs ``federation=``)."""
         self._require_retention()
         if getattr(rule, "kind", None) == "distribution_drift":
             if self.anomaly is None:
@@ -536,6 +613,14 @@ class TorchMetricSystem(MetricSystem):
                     "anomaly=AnomalyConfig(...))"
                 )
             rule.bind(self.anomaly)
+        elif getattr(rule, "kind", None) == "freshness":
+            if self.federation is None:
+                raise ValueError(
+                    "freshness rules read the federation receiver's "
+                    "end-to-end latency ledger: construct with "
+                    "TorchMetricSystem(federation=FederationConfig(...))"
+                )
+            rule.bind(self.federation)
         self.rule_engine.add(rule)
         self.rule_engine.register_gauges(self)
         return rule
@@ -582,7 +667,8 @@ class TorchMetricSystem(MetricSystem):
     def start(self) -> None:
         """Re-attach the bridges a previous stop() detached, recover
         (the first time, with ``recover_on_start``) and start the
-        journal, then start the reaper."""
+        journal, start the federation receiver, then start the
+        reaper."""
         self._attach_bridges()
         if self.recovery is not None:
             # before the reaper mints intervals: the replay runs through
@@ -591,13 +677,20 @@ class TorchMetricSystem(MetricSystem):
                 self._recovered = True
                 self.recovery.recover()
             self.recovery.start()
+        if self.federation is not None:
+            # after recovery (a journal replay lands on restored state),
+            # before the reaper: federated deltas are ordinary ingest
+            self.federation.start()
         super().start()
 
     def stop(self) -> None:
-        """Stop the reaper, then detach the bridges (each takes every
-        interval already broadcast), drain the transfer worker, take the
-        final checkpoint (with ``resilience=``), and re-raise the first
-        bridge failure."""
+        """Stop the federation receiver (no new deltas), stop the
+        reaper, then detach the bridges (each takes every interval
+        already broadcast), drain the transfer worker, take the final
+        checkpoint (with ``resilience=``), and re-raise the first bridge
+        failure."""
+        if self.federation is not None:
+            self.federation.stop()
         super().stop()
         errors = []
         parts = ((self.committer,) if self.committer is not None

@@ -1,8 +1,8 @@
 """Rule engine over the timewheel: threshold, rate-of-change,
 multiwindow SLO burn-rate and distribution-drift alerting (counterpart
 of ``loghisto_tpu/window/rules.py``, host logic over ``TimeWheel.query``,
-``window_rate`` and the drift engine's scores; ``FreshnessSloRule`` waits
-for the federation slice).
+``window_rate``, the drift engine's scores and the federation receiver's
+freshness totals).
 
 Rules are evaluated once per pushed interval against the wheel's
 windowed views — the wheel, not the live interval, is what makes them
@@ -33,6 +33,7 @@ import dataclasses
 import datetime as _dt
 import logging
 import threading
+import time
 from typing import Callable, Deque, Dict, List, Optional
 
 from loghisto_tpu_torch.channel import Channel
@@ -335,6 +336,119 @@ class DistributionDriftRule(Rule):
             f"{self.metric} distribution drift {self.stat} > "
             f"{self.threshold:g}"
         )
+
+
+class FreshnessSloRule(Rule):
+    """Multiwindow SLO-burn rule over federation END-TO-END FRESHNESS
+    (record → queryable latency) instead of an error counter.
+
+    An "error" is a freshness sample whose log-bucket lies above
+    ``budget_us``; burn(w) = (errors/total over w) / (1 - objective).
+    Totals come from the receiver's freshness histograms
+    (``FederationReceiver.freshness_totals`` — fleet-wide, or one
+    emitter with ``emitter_id``), which only ever grow, so trailing
+    windows are computed by differencing snapshots the rule takes at
+    each evaluation — no wheel queries, no device work.  Fires when
+    burn exceeds ``threshold`` over BOTH ``long_window`` (sustained)
+    and ``short_window`` (still happening), like ``SloBurnRateRule``.
+
+    ``TorchMetricSystem.add_rule`` binds the system's federation receiver
+    automatically; standalone use passes ``receiver=`` directly.
+    Unbound rules (or ones whose windows have seen no new samples)
+    observe None — no data must not page."""
+
+    kind = "freshness"
+
+    def __init__(
+        self,
+        name: str,
+        budget_us: float,
+        objective: float = 0.99,
+        long_window: float = 300.0,
+        short_window: float = 60.0,
+        threshold: float = 2.0,
+        emitter_id: Optional[int] = None,
+        for_intervals: int = 1,
+        receiver=None,
+    ):
+        super().__init__(name, threshold, for_intervals)
+        if budget_us <= 0:
+            raise ValueError("budget_us must be > 0")
+        if not 0.0 < objective < 1.0:
+            raise ValueError("objective must be in (0, 1), e.g. 0.99")
+        if short_window >= long_window:
+            raise ValueError("short_window must be < long_window")
+        self.budget_us = float(budget_us)
+        self.objective = float(objective)
+        self.long_window = float(long_window)
+        self.short_window = float(short_window)
+        self.emitter_id = emitter_id
+        self._receiver = receiver
+        # (monotonic t, total, over-budget) snapshots, oldest first; one
+        # snapshot older than long_window is kept as the baseline
+        self._snaps: collections.deque = collections.deque()
+        self.long_burn: Optional[float] = None
+        self.short_burn: Optional[float] = None
+
+    def bind(self, receiver) -> None:
+        """Attach the FederationReceiver serving this rule's totals."""
+        self._receiver = receiver
+
+    def _burn(self, now: float, window: float) -> Optional[float]:
+        base = None
+        for t, tot, ab in self._snaps:
+            if now - t >= window:
+                base = (tot, ab)
+            else:
+                break
+        if base is None:
+            if len(self._snaps) < 2:
+                return None  # no history to difference against yet
+            _, tot, ab = self._snaps[0]
+            base = (tot, ab)
+        _, cur_total, cur_above = self._snaps[-1]
+        d_total = cur_total - base[0]
+        if d_total <= 0:
+            return None
+        frac = (cur_above - base[1]) / d_total
+        return frac / (1.0 - self.objective)
+
+    def observe(self, wheel: TimeWheel):
+        if self._receiver is None:
+            return None, False
+        total, above = self._receiver.freshness_totals(
+            self.budget_us, self.emitter_id
+        )
+        now = time.monotonic()
+        self._snaps.append((now, total, above))
+        while (len(self._snaps) >= 2
+               and now - self._snaps[1][0] >= self.long_window):
+            self._snaps.popleft()
+        self.long_burn = self._burn(now, self.long_window)
+        self.short_burn = self._burn(now, self.short_window)
+        if self.long_burn is None or self.short_burn is None:
+            return self.long_burn, False
+        breach = (
+            self.long_burn > self.threshold
+            and self.short_burn > self.threshold
+        )
+        return self.long_burn, breach
+
+    def describe(self) -> str:
+        scope = (
+            f"emitter {self.emitter_id:016x}" if self.emitter_id is not None
+            else "fleet"
+        )
+        return (
+            f"{scope} freshness > {self.budget_us:g}us burn rate > "
+            f"{self.threshold:g}x over both {self.long_window:g}s and "
+            f"{self.short_window:g}s (objective {self.objective})"
+        )
+
+    def device_windows(self) -> tuple:
+        # totals come from the receiver's host-side histograms; the
+        # rule queries nothing on device
+        return ()
 
 
 class RuleEngine:

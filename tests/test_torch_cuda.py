@@ -11,7 +11,10 @@ and drift on the card, and on paged storage the fused commit with
 eviction and compaction against the same steps on the CPU, K4f after a
 fold and a permutation, the rings-only repack (K6), and checkpoint
 restores (dense in place, paged through K4) against the same restores
-on the CPU, and a preagg interval through the native cell store and K3.
+on the CPU, a preagg interval through the native cell store and K3, the
+sketches (``LogHistogram`` through K2a and K2b, HLL, t-digest, moments,
+``torch.func.vmap``) and a federated ``TorchMetricSystem`` against the
+same on the CPU.
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -1766,3 +1769,133 @@ def test_federation_receiver_on_the_card_equals_the_cpu(dev, storage):
             assert card_m[key] == pytest.approx(want, rel=1e-5), key
         else:
             assert card_m[key] == want, key
+
+
+@pytest.mark.parametrize("n,kernel_path", [(1 << 16, "K2a"),
+                                           ((1 << 16) + 5, "K2b")])
+def test_loghistogram_on_the_card_launches_k2(dev, n, kernel_path):
+    """``LogHistogram.insert`` on the card: a multiple of 2048 samples
+    through K2a, any other length through K2b; one launch each, counts
+    EQUAL to the CPU histogram's, statistics within float32 rounding."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.models import LogHistogram
+
+    rng = np.random.default_rng(n)
+    values = np.concatenate([rng.lognormal(0, 2, n - 64),
+                             edge_values(4096)[:64]]).astype(np.float32)
+    cfg = MetricConfig()
+    before = kernel_launches()["row_ingest"]
+    card = LogHistogram.empty(cfg, device=dev).insert(values)
+    torch.cuda.synchronize()
+    assert kernel_launches()["row_ingest"] == before + 1, kernel_path
+    cpu = LogHistogram.empty(cfg, device="cpu").insert(values)
+    assert card.counts.device.type == "cuda"
+    np.testing.assert_array_equal(card.counts.cpu().numpy(),
+                                  cpu.counts.numpy())
+    ps = [0.0, 0.5, 0.99, 1.0]
+    got, want = card.statistics(ps), cpu.statistics(ps)
+    assert got["count"] == want["count"] == n
+    assert got["sum"] == pytest.approx(want["sum"], rel=1e-5)
+    np.testing.assert_array_equal(got["percentiles"], want["percentiles"])
+
+
+def test_sketches_on_the_card_equal_the_cpu(dev):
+    """HLL registers EQUAL, a t-digest below capacity EQUAL and above it
+    within the CPU tests' tolerance, moments counts EQUAL and floats
+    within rtol 1e-5, and ``torch.func.vmap`` over stacked sketches on
+    the card EQUAL to single calls."""
+    from torch.func import vmap
+
+    from loghisto_tpu_torch.models import hll, moments, tdigest
+
+    rng = np.random.default_rng(12)
+    values = rng.lognormal(3, 1.5, 200_000).astype(np.float32)
+    x = torch.from_numpy(values)
+    regs = hll.insert(hll.empty(device=dev), x.to(dev))
+    assert torch.equal(regs.cpu(), hll.insert(hll.empty(device="cpu"), x))
+    cfg = tdigest.TDigestConfig(capacity=512)
+    for n in (300, 200_000):
+        card = tdigest.insert(*tdigest.empty(cfg, device=dev), x[:n].to(dev),
+                              config=cfg)
+        cpu = tdigest.insert(*tdigest.empty(cfg, device="cpu"), x[:n],
+                             config=cfg)
+        if n <= cfg.capacity:
+            assert torch.equal(card[0].cpu(), cpu[0])
+            assert torch.equal(card[1].cpu(), cpu[1])
+        assert float(card[1].sum()) == float(cpu[1].sum()) == n
+        qs = torch.tensor([0.0, 0.5, 0.99, 0.999, 1.0])
+        np.testing.assert_allclose(
+            tdigest.quantile(*card, qs.to(dev)).cpu().numpy(),
+            tdigest.quantile(*cpu, qs).numpy(), rtol=1e-4)
+    st = moments.insert(moments.empty(device=dev), x.to(dev))
+    st_cpu = moments.insert(moments.empty(device="cpu"), x)
+    assert int(st.count) == int(st_cpu.count) == len(values)
+    for field in ("scale", "min", "max"):
+        assert float(getattr(st, field)) == float(getattr(st_cpu, field))
+    np.testing.assert_allclose(
+        moments.quantile(st, [0.5, 0.99]).cpu().numpy(),
+        moments.quantile(st_cpu, [0.5, 0.99]).numpy(), rtol=1e-5)
+    batch = x[:8 * 4096].reshape(8, 4096).to(dev)
+    small = tdigest.TDigestConfig(capacity=64)
+    m0, w0 = tdigest.empty(small, device=dev)
+    ms2, ws2 = vmap(lambda m, w, v: tdigest.insert(m, w, v, config=small))(
+        m0.expand(8, -1).clone(), w0.expand(8, -1).clone(), batch)
+    regs2 = vmap(hll.insert)(hll.empty(device=dev).expand(8, -1).clone(),
+                             batch)
+    for i in range(8):
+        m1, w1 = tdigest.insert(m0, w0, batch[i], config=small)
+        assert torch.equal(ms2[i], m1) and torch.equal(ws2[i], w1)
+        assert torch.equal(regs2[i], hll.insert(hll.empty(device=dev),
+                                                batch[i]))
+
+
+def test_federated_system_on_the_card_equals_the_cpu(dev):
+    """``TorchMetricSystem(federation=...)`` on the card and on the CPU
+    take the same frames through ``_drain_buffer`` and commit by hand:
+    the merges launch K3, each commit K3 and K5, freshness completes at
+    publish, and the federated rows are EQUAL."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.federation import FederationConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    bl = 4096
+    frames = _federation_frames(32, bl)
+    out = []
+    for d in (dev, "cpu"):
+        ms = TorchMetricSystem(interval=1.0, sys_stats=False,
+                               num_metrics=64,
+                               config=MetricConfig(bucket_limit=bl),
+                               retention=((8, 1),), observability=True,
+                               federation=FederationConfig(
+                                   expected_emitters=3),
+                               device=d)
+        try:
+            before = kernel_launches()
+            assert all(ms.federation._drain_buffer(bytearray(f))
+                       for f in frames)
+            assert ms.aggregator.wait_transfers(30.0)
+            pending = ms.federation.stats()["freshness_pending"]
+            for _ in range(2):
+                ms.backfill_retention([ms.collect_raw_metrics()])
+            if d != "cpu":
+                torch.cuda.synchronize()
+                after = kernel_launches()
+                assert after["sparse_ingest"] > before["sparse_ingest"]
+                assert after["window_merge"] > before["window_merge"]
+            st = ms.debug_dump()["federation"]
+            metrics = ms.device_metrics(reset=False).metrics
+            out.append((pending, st, {k: v for k, v in metrics.items()
+                                      if k.startswith("fed.")}))
+        finally:
+            ms.stop()
+    (pend, st, card_m), (cpu_pend, cpu_st, cpu_m) = out
+    assert pend == cpu_pend > 0
+    assert st["freshness_pending"] == cpu_st["freshness_pending"] == 0
+    assert st["freshness_samples"] == cpu_st["freshness_samples"] == pend
+    assert st["samples_merged"] == cpu_st["samples_merged"] > 0
+    assert set(card_m) == set(cpu_m)
+    for key, want in cpu_m.items():
+        if key.endswith("_count"):
+            assert card_m[key] == want, key
+        elif "FreshnessUs" not in key:  # freshness reads the host clock
+            assert card_m[key] == pytest.approx(want, rel=1e-5), key

@@ -1,8 +1,8 @@
 """The port's packages export the reference's package-level names
 (``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops``,
-``loghisto_tpu.obs``, ``loghisto_tpu.resilience`` and
-``loghisto_tpu.federation``): every name with a ported counterpart
-resolves on
+``loghisto_tpu.obs``, ``loghisto_tpu.resilience``,
+``loghisto_tpu.federation`` and ``loghisto_tpu.models``): every name
+with a ported counterpart resolves on
 the matching package of ``loghisto_tpu_torch``, and the names still
 waiting for a slice are listed below with that slice."""
 
@@ -13,11 +13,12 @@ import pytest
 
 import loghisto_tpu
 import loghisto_tpu.federation
+import loghisto_tpu.models
 import loghisto_tpu.obs
 import loghisto_tpu.ops
 import loghisto_tpu.resilience
 
-PACKAGES = ("", ".ops", ".obs", ".resilience", ".federation")
+PACKAGES = ("", ".ops", ".obs", ".resilience", ".federation", ".models")
 
 # reference name -> the port's counterpart where the names differ
 RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
@@ -29,6 +30,7 @@ WAITING = {
     ".obs": {},
     ".resilience": {},
     ".federation": {},
+    ".models": {},
 }
 
 
@@ -122,6 +124,34 @@ def test_federation_all_equals_the_reference_and_stays_lazy():
             "FederationConfig(port=9)\n"
             "bad = [k for k in sys.modules if k == 'torch' or"
             " k.endswith('federation.receiver')]\n"
+            "assert not bad, bad\n")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_models_all_equals_the_reference_and_loads_lazily():
+    """The sketches export the reference's ``__all__``: ``LogHistogram``
+    and the ``hll``, ``moments`` and ``tdigest`` modules, each the
+    port's own, loaded on first use."""
+    import subprocess
+    import sys
+
+    import loghisto_tpu_torch.models as port
+    from loghisto_tpu_torch.models import hll, loghist, moments, tdigest
+
+    assert port.__all__ == loghisto_tpu.models.__all__
+    assert port.LogHistogram is loghist.LogHistogram
+    assert (port.hll, port.moments, port.tdigest) == (hll, moments, tdigest)
+    for mod in (hll, moments, tdigest):
+        assert mod.__name__.startswith("loghisto_tpu_torch.models.")
+    with pytest.raises(AttributeError):
+        port.no_such_name
+    code = ("import sys\n"
+            "import loghisto_tpu_torch.models\n"
+            "bad = [k for k in sys.modules"
+            " if k.startswith('loghisto_tpu_torch.models.')]\n"
             "assert not bad, bad\n")
     root = Path(__file__).resolve().parent.parent
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

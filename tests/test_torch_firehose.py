@@ -33,6 +33,7 @@ from loghisto_tpu.ops.codec import compress_np
 from loghisto_tpu.ops.dispatch import ingest_step_fn as jax_ingest_step_fn
 from loghisto_tpu.ops.ingest import bucket_indices as jax_bucket_indices
 from loghisto_tpu.opentsdb import opentsdb_protocol as jax_opentsdb_protocol
+from loghisto_tpu_torch import firehose
 from loghisto_tpu_torch.config import MetricConfig
 from loghisto_tpu_torch.firehose import (
     _make_sample_generator,
@@ -151,7 +152,27 @@ def test_run_firehose_end_to_end():
     assert "samples" in report and "bytes serialized" in report
 
 
-def test_firehose_int32_budget_closes_interval_early():
+class _StepClock:
+    """A stand-in for ``firehose.time``: every ``perf_counter()`` read
+    (one a step of the interval loop) moves the clock ``tick`` seconds,
+    so the loop's shape does not depend on how fast the host runs."""
+
+    def __init__(self, tick):
+        self.t = 0.0
+        self.tick = tick
+
+    def perf_counter(self):
+        self.t += self.tick
+        return self.t
+
+    def perf_counter_ns(self):
+        return int(self.t * 1e9)
+
+
+def test_firehose_int32_budget_closes_interval_early(monkeypatch):
+    # a 0.6 s interval spans about 5 reads of a 0.1 s step clock, room
+    # for 4-5 steps of 4096: the 8192-sample budget closes it after 2
+    monkeypatch.setattr(firehose, "time", _StepClock(0.1))
     out = io.StringIO()
     summary = run_firehose(
         num_metrics=16, batch=4096, seconds=1.2, interval=0.6,

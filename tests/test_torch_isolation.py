@@ -6,8 +6,9 @@ OpenTSDB export, a labeled interval with a group_by, a selector query
 and a windowed Prometheus exposition, a preagg interval through the
 native cell store, a fast-ingest interval through the C staging
 buffers, an observed commit with its watchdog, trace dump and debug
-dump, and a federation receiver on the CPU without either in
-``sys.modules``, and never falls back to the CPU on its own.
+dump, a federation receiver, a federated system with a freshness rule,
+and the four sketches on the CPU without either in ``sys.modules``, and
+never falls back to the CPU on its own.
 
 The torch-free frontier: the modules a frontend process imports to
 record and federate (the reference's four, ``federation.emitter``,
@@ -188,6 +189,33 @@ def test_interval_runs_without_jax_in_sys_modules():
         "rx.stop()\n"
         "assert agg.collect().metrics['f_count'] == 2.0\n"
         "agg.close()\n"
+        "from loghisto_tpu_torch.federation import FederationConfig\n"
+        "from loghisto_tpu_torch.window.rules import FreshnessSloRule\n"
+        "ms = TorchMetricSystem(interval=1.0, num_metrics=4, device='cpu',"
+        " config=MetricConfig(bucket_limit=64), retention=((3, 1),),"
+        " sys_stats=False, observability=True,"
+        " federation=FederationConfig(expected_emitters=1))\n"
+        "ms.add_rule(FreshnessSloRule('fresh', budget_us=1e6))\n"
+        "ms.federation._drain_buffer(bytearray(encode_frame(wire.KIND_DELTA2,"
+        " wire.encode_delta2(1, 1, [(0, 'g')], np.array([[0, 3, 2]],"
+        " np.int32), 10**9, 10**9))))\n"
+        "assert ms.aggregator.wait_transfers(30.0)\n"
+        "ms.backfill_retention([ms.collect_raw_metrics()])\n"
+        "assert ms.debug_dump()['federation']['freshness_samples'] == 1\n"
+        "assert ms.device_metrics().metrics['g_count'] == 2.0\n"
+        "ms.stop()\n"
+        "from loghisto_tpu_torch.models import LogHistogram, hll, moments,"
+        " tdigest\n"
+        "v = np.linspace(0.5, 50.0, 3000, dtype=np.float32)\n"
+        "h = LogHistogram.empty(MetricConfig(bucket_limit=64),"
+        " device='cpu').insert(v)\n"
+        "assert h.count == 3000 and h.statistics([0.5])['count'] == 3000\n"
+        "assert abs(float(hll.estimate(hll.insert(hll.empty(device='cpu'),"
+        " v))) / 3000 - 1) < 0.05\n"
+        "m, w = tdigest.insert(*tdigest.empty(device='cpu'), v)\n"
+        "assert float(tdigest.count(w)) == 3000.0\n"
+        "assert int(moments.insert(moments.empty(device='cpu'), v).count)"
+        " == 3000\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -215,6 +243,9 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.ops.sort_ingest import make_sort_ingest_fn
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
     from loghisto_tpu_torch.print_benchmark import print_benchmark
+    from loghisto_tpu_torch.federation import FederationConfig
+    from loghisto_tpu_torch.models import LogHistogram, hll, moments, \
+        tdigest
 
     factories = [
         lambda: TimeWheel(num_metrics=4),
@@ -237,6 +268,12 @@ def test_entry_points_default_to_the_card():
                                   observability=True),
         lambda: print_benchmark("x", 1, lambda: None, duration=0.1,
                                 device=True),
+        lambda: TorchMetricSystem(num_metrics=4, retention=True,
+                                  federation=FederationConfig()),
+        lambda: LogHistogram.empty(),
+        lambda: hll.empty(),
+        lambda: moments.empty(),
+        lambda: tdigest.empty(),
     ]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is real")

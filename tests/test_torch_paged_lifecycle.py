@@ -16,6 +16,8 @@ The JAX store runs its jnp tier (``kernel="jnp"``), which the JAX
 package pins bit-identical to its Pallas tier.
 """
 
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,7 +103,7 @@ def test_store_lifecycle_script_equals_jax(codec, pool):
     host spills, pools, decoded cells, statistics and counters are
     equal, and so are the moved totals.  The 40-page pool saturates, so
     translate spills and the fold's recommit spills as well."""
-    rng = np.random.default_rng(hash((codec, pool)) % 2**32)
+    rng = np.random.default_rng(zlib.crc32(f"{codec}-{pool}".encode()))
     jst, pst = _stores(pool=pool, codec=codec)
     both = (jst, pst)
 
