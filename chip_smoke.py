@@ -68,6 +68,13 @@ against host oracles:
   * the sketches (``sketches_main_path``): LogHistogram through K2a and
     K2b, t-digest, HLL, moments and 10,000 stacked sketches under
     torch.func.vmap, against the CPU and numpy;
+  * the mesh over torch.distributed (``mesh_main_path``): world size 1
+    under NCCL (TorchAggregator(mesh=make_mesh(1, 1)), the per-batch and
+    interval steps, 16 batches of 2^20 at the headline width), two
+    child ranks on the one card under gloo on meshes (2, 1) and (1, 2)
+    (raw and sparse), every block and collected set against the
+    single-device oracle, and run_firehose(mesh=) with its counts
+    conserved;
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -7066,6 +7073,343 @@ def phase_sketches(torch):
     }
 
 
+# -- the mesh over torch.distributed (ROADMAP D8, item 11a) ---------------
+
+# (a) world size 1 under NCCL at the headline width: MS_BATCHES batches of
+# BATCH Zipf(1.3) samples through TorchAggregator(mesh=make_mesh(1, 1))
+# beside the single-device oracle, and the per-batch and interval steps
+# (collect.start in flight while the next batch folds); (b) two ranks on
+# the one card under gloo (NCCL refuses two ranks on one GPU), meshes
+# (2, 1) and (1, 2), MS_ROW_BATCHES batches for each stream row (row s
+# takes batches s * MS_ROW_BATCHES ...), raw (K1) and sparse (K3)
+# transports, every rank's reduced block and collected set against the
+# oracle; (c) run_firehose(mesh=make_mesh(1, 1)) under NCCL.  One card:
+# no figure here is a scaling figure, the ranks share its SMs.
+MS_BATCHES = 16
+MS_ROW_BATCHES = 8
+MS_SHAPES = ((2, 1), (1, 2))
+MS_DEADLINE_S = 240.0
+MS_FH_SECONDS = 1.0
+
+
+def _ms_batch(k):
+    """Batch k of the mesh phase's stream (the parent and the ranks
+    regenerate it from its seed)."""
+    rng = np.random.default_rng([SEED, 20, k])
+    return zipf_ids(rng, BATCH, M), lognormal_values(rng, BATCH)
+
+
+def _ms_aggregator(mesh=None, transport="raw"):
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(num_metrics=M, batch_size=BATCH,
+                          transport=transport, mesh=mesh, max_metrics=M)
+    for i in range(M):
+        agg.registry.id_for(f"m{i}")
+    return agg
+
+
+def _ms_digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def _ms_child(argv):
+    """One rank of part (b): both meshes of two ranks, raw and sparse;
+    prints one JSON line of digests, times and launches, and writes each
+    collected set to ``<tmp>/<shape>-<transport>-<rank>.json``."""
+    rank, tmp = int(argv[0]), argv[1]
+    import torch
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_group,
+        axis_index,
+        make_mesh,
+    )
+
+    multihost.initialize(f"file://{tmp}/rdzv", 2, rank, device="cuda",
+                         backend="gloo", timeout_s=120.0)
+    out = {"rank": rank}
+    try:
+        for shape in MS_SHAPES:
+            mesh = make_mesh(*shape)
+            s = axis_index(mesh, STREAM_AXIS)
+            batches = [_ms_batch(s * MS_ROW_BATCHES + k)
+                       for k in range(MS_ROW_BATCHES)]
+            for transport in ("raw", "sparse"):
+                key = f"{shape[0]}x{shape[1]}-{transport}"
+                agg = _ms_aggregator(mesh, transport)
+                try:
+                    reset_kernel_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for ids, values in batches:
+                        agg.record_batch(ids, values)
+                    agg.flush(force=True)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    launches = kernel_launches()
+                    reduced = agg._acc.clone()
+                    dist.all_reduce(reduced,
+                                    group=axis_group(mesh, STREAM_AXIS))
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    digest = _ms_digest(reduced)
+                    del reduced
+                    t3 = time.perf_counter()
+                    metrics = agg.collect().metrics
+                    t4 = time.perf_counter()
+                finally:
+                    agg.close()
+                with open(os.path.join(tmp, f"{key}-{rank}.json"), "w") as f:
+                    json.dump(metrics, f)
+                out[key] = {
+                    "coord": list(mesh.get_coordinate()),
+                    "digest": digest, "ingest_s": t1 - t0,
+                    "gloo_reduce_ms": (t2 - t1) * 1e3,
+                    "collect_ms": (t4 - t3) * 1e3,
+                    "transport": agg.transport, "ingest_path":
+                        agg.ingest_path,
+                    "launches": {k: v for k, v in launches.items() if v}}
+    finally:
+        multihost.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _ms_same(got, want, what):
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+        raise AssertionError(f"{what}: {len(diff)} keys differ, first "
+                             f"{[(k, got.get(k), want.get(k)) for k in diff[:3]]}")
+
+
+def _ms_world1(torch, batches, acc16, want16):
+    """Part (a): the mesh aggregator and the steps at world size 1 under
+    NCCL against the oracle; returns the phase's figures."""
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.aggregator import (
+        make_distributed_step,
+        make_interval_distributed_step,
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_group,
+        make_mesh,
+    )
+
+    mesh = make_mesh(1, 1)
+    out = {"backend": dist.get_backend()}
+    agg = _ms_aggregator(mesh)
+    try:
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for ids, values in batches:
+            agg.record_batch(ids, values)
+        agg.flush(force=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = kernel_launches()
+        if launches["fused_ingest"] <= 0:
+            raise AssertionError("K1 was not launched on the mesh path")
+        if not torch.equal(agg._acc, acc16):
+            raise AssertionError("the 1x1 block differs from the oracle")
+        # the stream all_reduce of the 328 MB partial, alone
+        part = agg._acc.clone()
+        group = axis_group(mesh, STREAM_AXIS)
+        reduce_ms = time_ms(torch, lambda: dist.all_reduce(part, group=group),
+                            reps=5, warmup=1, hold=False)
+        del part
+        t2 = time.perf_counter()
+        metrics = agg.collect().metrics
+        t3 = time.perf_counter()
+    finally:
+        agg.close()
+    _ms_same(metrics, want16, "world 1 collect")
+    out["aggregator"] = {
+        "samples": len(batches) * BATCH, "ingest_s": t1 - t0,
+        "samples_per_s": len(batches) * BATCH / (t1 - t0),
+        "collect_ms": (t3 - t2) * 1e3, "all_reduce_ms": reduce_ms,
+        "all_reduce_bytes": M * B * 4,
+        "launches": {k: v for k, v in launches.items() if v}}
+
+    dev = torch.device("cuda")
+    steps = [(torch.from_numpy(i).to(dev), torch.from_numpy(v).to(dev))
+             for i, v in batches]
+    reset_kernel_launches()
+    step = make_distributed_step(mesh, M, BL, PS, batch_size=BATCH)
+    acc = make_sharded_accumulator(mesh, M, B)
+    for ids, values in steps:
+        acc, _ = step(acc, ids, values)
+    ingest, collect, make_partial = make_interval_distributed_step(
+        mesh, M, BL, PS, batch_size=BATCH)
+    acc2 = make_sharded_accumulator(mesh, M, B)
+    partial = make_partial()
+    half = len(steps) // 2
+    for ids, values in steps[:half]:
+        partial = ingest(partial, ids, values)
+    pending = collect.start(acc2, partial)
+    fresh = make_partial()  # the second half folds while it is in flight
+    for ids, values in steps[half:]:
+        fresh = ingest(fresh, ids, values)
+    acc2, _ = pending.wait()
+    acc2, _, stats = collect(acc2, fresh)
+    torch.cuda.synchronize()
+    for name, got in (("per-batch step", acc), ("interval step", acc2)):
+        if not torch.equal(got, acc16):
+            raise AssertionError(f"the {name}'s block differs from the oracle")
+    if int(stats["counts"].sum()) != len(batches) * BATCH:
+        raise AssertionError("the interval step lost samples")
+    out["steps"] = {"ingest_path": step.ingest_path, "launches": {
+        k: v for k, v in kernel_launches().items() if v}}
+    return mesh, out
+
+
+def _ms_firehose(torch, mesh):
+    """Part (c): run_firehose over the 1x1 mesh, counts conserved, and
+    the mesh step's device rate beside the single-device step's."""
+    import io
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.firehose import (
+        make_firehose_step,
+        make_mesh_firehose_interval_step,
+        run_firehose,
+        stream_generator,
+    )
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    cfg = MetricConfig()
+    ingest, _, make_partial = make_mesh_firehose_interval_step(
+        mesh, M, FH_BATCH, cfg)
+    partial, gen = make_partial(), stream_generator(mesh, SEED)
+    mesh_ms = time_ms(torch, lambda: ingest(partial, gen), reps=5, warmup=1)
+    step = make_firehose_step(M, FH_BATCH, cfg)
+    acc = torch.zeros((M, B), dtype=torch.int32, device="cuda")
+    gen1 = torch.Generator(device="cuda")
+    single_ms = time_ms(torch, lambda: step(acc, gen1), reps=5, warmup=1)
+    del partial, acc
+    reset_kernel_launches()
+    summary = run_firehose(num_metrics=M, batch=FH_BATCH,
+                           seconds=MS_FH_SECONDS, interval=0.5, mesh=mesh,
+                           out=io.StringIO(), seed=SEED)
+    launches = kernel_launches()
+    if summary["collected_samples"] != summary["total_samples"]:
+        raise AssertionError(f"the mesh firehose lost samples: {summary}")
+    if launches["fused_ingest"] <= 0:
+        raise AssertionError("K1 was not launched by the mesh firehose")
+    return {**summary, "device_samples_per_s": FH_BATCH / mesh_ms * 1e3,
+            "single_device_samples_per_s": FH_BATCH / single_ms * 1e3,
+            "step_ms": mesh_ms, "single_step_ms": single_ms,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_mesh(torch):
+    """The mesh over torch.distributed on the one card: (a) world size 1
+    under NCCL, (b) two ranks under gloo, (c) the mesh firehose."""
+    import shutil
+    import tempfile
+
+    from loghisto_tpu_torch.parallel import multihost
+
+    card = RESULTS["card"]  # nvidia-smi's name and power limit
+    tmp = tempfile.mkdtemp(prefix="loghisto-mesh-")
+    batches = [_ms_batch(k) for k in range(MS_BATCHES)]
+    single = _ms_aggregator()
+    try:
+        for k, (ids, values) in enumerate(batches):
+            single.record_batch(ids, values)
+            if k + 1 == MS_ROW_BATCHES:
+                single.flush(force=True)
+                acc8 = single._acc.clone()
+                want8 = single.collect(reset=False).metrics
+        single.flush(force=True)
+        acc16 = single._acc.clone()
+        want16 = single.collect().metrics
+    finally:
+        single.close()
+    rows = M // 2
+    want = {  # (shape, transport) -> per rank (digest, collected set)
+        "2x1": ([_ms_digest(acc16)] * 2, want16),
+        "1x2": ([_ms_digest(acc8[:rows]), _ms_digest(acc8[rows:])], want8),
+    }
+    out = {"card": card, "batches": MS_BATCHES, "batch": BATCH}
+    procs = []
+    try:
+        multihost.initialize(f"file://{tmp}/rdzv1", 1, 0, timeout_s=120.0)
+        try:
+            mesh, out["world1"] = _ms_world1(torch, batches, acc16, want16)
+            out["firehose"] = _ms_firehose(torch, mesh)
+        finally:
+            multihost.shutdown()
+        del acc8, acc16, batches
+        torch.cuda.empty_cache()
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; "
+                "sys.exit(chip_smoke._ms_child(sys.argv[2:]))")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, root, str(r), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        ranks = []
+        for p in procs:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, MS_DEADLINE_S - (time.perf_counter() - t0)))
+            if p.returncode != 0:
+                raise AssertionError(f"a rank failed ({p.returncode}): "
+                                     f"{stderr[-3000:]}")
+            ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+        out["ranks_s"] = time.perf_counter() - t0
+        for key, (digests, want_set) in want.items():
+            for transport in ("raw", "sparse"):
+                for r in ranks:
+                    got = r[f"{key}-{transport}"]
+                    if got["digest"] != digests[r["rank"]]:
+                        raise AssertionError(
+                            f"{key} {transport}: rank {r['rank']}'s block "
+                            "differs from the oracle's rows")
+                    kernel = TRANSPORT_KERNEL[transport]
+                    if got["launches"].get(kernel, 0) <= 0:
+                        raise AssertionError(
+                            f"{key} {transport}: {kernel} not launched")
+                    with open(os.path.join(
+                            tmp, f"{key}-{transport}-{r['rank']}.json")) as f:
+                        _ms_same(json.load(f), want_set,
+                                 f"{key} {transport} rank {r['rank']}")
+        out["two_ranks"] = {
+            f"{key}-{transport}": [r[f"{key}-{transport}"] for r in ranks]
+            for key in want for transport in ("raw", "sparse")}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernels_line():
     out = []
     for name, (source, replaces, also) in KERNEL_META.items():
@@ -7137,6 +7481,7 @@ def main() -> int:
                         ("federation_system_main_path",
                          phase_federation_system),
                         ("sketches_main_path", phase_sketches),
+                        ("mesh_main_path", phase_mesh),
                         ("firehose_main_path", phase_firehose)):
         if only and name != "card" and name not in only:
             continue

@@ -127,6 +127,11 @@ def commit_incompatibility(aggregator, wheel) -> Optional[str]:
         return (
             f"aggregator on {aggregator.device}, wheel on {wheel.device}"
         )
+    if getattr(aggregator, "mesh", None) is not None:
+        return (
+            "the aggregator holds one rank's block of a mesh; the sharded "
+            "fused commit waits for ROADMAP Queue 1 item 11b"
+        )
     return None
 
 

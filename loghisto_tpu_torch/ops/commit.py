@@ -4,7 +4,8 @@ aggregator's accumulator and every retention tier's open slot
 ``DROP_ID``, ``make_fused_commit_fn``, ``make_fused_commit_snapshot_fn``,
 their paged twins ``make_paged_fused_commit_fn`` and
 ``make_paged_fused_commit_snapshot_fn``, ``CellStagingRing`` and
-``PagedTripleRing``; the sharded family waits for the mesh slice).
+``PagedTripleRing``; the sharded family waits for ROADMAP Queue 1 item
+11b, its paged form for 11c).
 
 The reference jits one donated-carry program per chunk of cells.  The
 port runs the same steps eagerly on PyTorch's current stream and updates

@@ -27,6 +27,18 @@ the CPU runs the same control flow as the card.
 ``resolve_commit_path`` resolves the interval commit: the fused
 committer on dense and on paged storage.
 
+On a ("stream", "metric") mesh (ROADMAP D8) a rank's fold is an ordinary
+launch on its own card, so the paths resolve on the rank's block of
+``num_metrics / n_metric`` rows: "auto" takes K2b for a one-row block
+and K1 otherwise.  The reference's fused-kernel mesh edge declines K1
+"inside a shard_map-embedded step"; the port has no ``shard_map``, and
+its edge admits K1 per rank and declines only a mesh whose axes are not
+("stream", "metric").  Explicit "scatter", "sort" and "hybrid" run on a
+mesh as in the reference.  Paged storage on a mesh waits for ROADMAP
+Queue 1 item 11c: an explicit "paged", or an "auto" that the
+reference's table (its mesh edges included) resolves to paged on that
+mesh, raises ``PAGED_MESH_SLICE``; it never quietly becomes dense.
+
 Each decline reason is a sentence, as in the JAX table; the shape
 preconditions of the JAX paths keep the JAX package's sentences.
 """
@@ -119,15 +131,36 @@ def ingest_incapability(
     )
 
 
+def _ck_fused_mesh(mesh) -> str | None:
+    # the departure (D8): K1 runs per rank, so only the axis layout
+    # declines, in the reference's words of its mesh-shape edges
+    from loghisto_tpu_torch.parallel.mesh import axes_incapability
+
+    return axes_incapability(mesh)
+
+
 def resolve_ingest_path(
     path: str,
     num_metrics: int,
     batch_size: int | None = None,
     num_buckets: int | None = None,
     guard_metrics: int | None = None,
+    mesh=None,
 ) -> str:
     """Resolve "auto"; an explicit path the shape cannot serve raises
-    with its reason."""
+    with its reason.  With ``mesh`` the path serves this rank's block of
+    ``num_metrics / n_metric`` rows (divisibility is the caller's
+    check)."""
+    if mesh is not None:
+        from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_size
+
+        reason = _ck_fused_mesh(mesh)
+        if reason is not None:
+            raise ValueError(f"ingest_path={path!r} unavailable: {reason}")
+        n_metric = axis_size(mesh, METRIC_AXIS)
+        num_metrics //= n_metric
+        if guard_metrics is not None:
+            guard_metrics //= n_metric
     if path == "auto":
         if ingest_incapability("row", num_metrics, batch_size) is None:
             return "row"
@@ -272,6 +305,65 @@ def _ck_fused_batch(platform, batch_size) -> str | None:
     return None
 
 
+PAGED_MESH_SLICE = (
+    "paged storage on a mesh (per-shard page arenas, the sharded fused "
+    "paged ingest and the paged commit) waits for ROADMAP Queue 1 item "
+    "11c; pass storage='dense'"
+)
+
+
+def _ck_paged_mesh(mesh, num_metrics) -> str | None:
+    # the reference's edge and sentences: the mesh SHAPES per-shard
+    # arenas cannot take
+    if mesh is None:
+        return None
+    from loghisto_tpu_torch.parallel.mesh import (
+        AXES,
+        METRIC_AXIS,
+        STREAM_AXIS,
+        axis_size,
+    )
+
+    axes = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axes != AXES:
+        return (
+            f"mesh shape: mesh axes {axes!r} are not the "
+            f"('{STREAM_AXIS}', '{METRIC_AXIS}') layout the per-shard "
+            "page arenas partition over"
+        )
+    n_metric = axis_size(mesh, METRIC_AXIS)
+    if num_metrics and num_metrics % n_metric:
+        return (
+            f"mesh shape: num_metrics={num_metrics} rows don't "
+            f"shard evenly over the {n_metric}-way metric axis, so the "
+            "page arenas cannot split per shard"
+        )
+    n_stream = axis_size(mesh, STREAM_AXIS)
+    if PAGED_COMMIT_CHUNK % n_stream:
+        return (
+            f"mesh shape: the {PAGED_COMMIT_CHUNK}-triple paged commit "
+            f"chunk does not split over the {n_stream}-way stream axis"
+        )
+    return None
+
+
+def _ck_fused_paged_mesh(mesh, batch_size) -> str | None:
+    if mesh is None:
+        return None
+    from loghisto_tpu_torch.parallel.mesh import AXES, STREAM_AXIS, axis_size
+
+    if tuple(getattr(mesh, "mesh_dim_names", None) or ()) != AXES:
+        return None  # the pool-mesh edge names the axis-layout reason
+    n_stream = axis_size(mesh, STREAM_AXIS)
+    if batch_size is not None and batch_size % n_stream:
+        return (
+            f"mesh shape: batch_size={batch_size} samples don't "
+            f"split over the {n_stream}-way stream axis for the "
+            "shard_map-embedded direct-to-paged step"
+        )
+    return None
+
+
 def _ck_paged_transport(transport, fused_ok) -> str | None:
     allowed = ("sparse", "auto", "raw") if fused_ok else ("sparse", "auto")
     if transport not in allowed:
@@ -336,16 +428,18 @@ def fused_paged_incapability(
     transport: str = "auto",
     platform: str | None = None,
     crossover: bool = True,
+    mesh=None,
 ) -> str | None:
     """Why a configuration cannot (or should not) take the direct-to-
     paged fused ingest (K4f), or None.  ``crossover=False`` skips the
     policy edges (platform preference, batch amortization), as an
     explicit ``ingest_path="fused"`` does.  Edge order as in the JAX
-    row: bucket axis, transport, platform, batch (the mesh edges wait
-    for the mesh slice; the JAX threshold-table switch has no port)."""
-    del num_metrics  # no row-count edge on this row, as in the JAX table
+    row: mesh, pool mesh, bucket axis, transport, platform, batch (the
+    JAX threshold-table switch has no port)."""
     reason = (
-        _ck_paged_bucket_axis(num_buckets)
+        _ck_fused_paged_mesh(mesh, batch_size)
+        or _ck_paged_mesh(mesh, num_metrics)
+        or _ck_paged_bucket_axis(num_buckets)
         or _ck_fused_paged_transport(transport)
     )
     if reason is None and crossover:
@@ -362,13 +456,16 @@ def paged_storage_incapability(
     transport: str = "sparse",
     crossover: bool = True,
     fused_ok: bool = False,
+    mesh=None,
 ) -> str | None:
     """Why a configuration cannot (or should not) run paged storage, or
     None.  ``crossover=False`` skips the metric-cardinality policy edge
     (an explicit ``storage="paged"`` may page a small deployment);
-    ``fused_ok`` admits the raw transport (K4f ingests raw batches)."""
+    ``fused_ok`` admits the raw transport (K4f ingests raw batches);
+    ``mesh`` adds the reference's mesh-shape edge."""
     reason = (
-        _ck_paged_transport(transport, fused_ok)
+        _ck_paged_mesh(mesh, num_metrics)
+        or _ck_paged_transport(transport, fused_ok)
         or _ck_paged_bucket_axis(num_buckets)
     )
     if reason is None and crossover:
@@ -383,10 +480,13 @@ def resolve_storage_path(
     platform: str,
     transport: str = "sparse",
     fused_ok: bool = False,
+    mesh=None,
 ) -> tuple[str, str | None]:
     """Resolve the storage backend, "dense" or "paged".  Returns
     ``(resolved, reason)``: "auto" degrades to dense with the reason; an
     explicit "paged" that a capability blocker rules out raises it.
+    With ``mesh``, paged storage raises ``PAGED_MESH_SLICE`` (explicit,
+    or what "auto" would resolve on that mesh).
 
     ``num_metrics`` counts registry rows: every distinct label set of a
     base name is its own row, so label cardinality drives the
@@ -395,15 +495,23 @@ def resolve_storage_path(
     if storage == "auto":
         reason = paged_storage_incapability(
             num_metrics, num_buckets, transport=transport, fused_ok=fused_ok,
+            mesh=mesh,
         )
         if reason is not None:
             return "dense", reason
+        if mesh is not None:
+            raise ValueError(
+                f"storage='auto' resolves to paged storage at "
+                f"num_metrics={num_metrics} on this mesh: {PAGED_MESH_SLICE}"
+            )
         return "paged", None
     if storage not in ("dense", "paged"):
         raise ValueError(
             f"unknown storage {storage!r}: expected 'auto', 'dense', or "
             "'paged'"
         )
+    if storage == "paged" and mesh is not None:
+        raise ValueError(f"paged storage unavailable: {PAGED_MESH_SLICE}")
     if storage == "paged":
         reason = paged_storage_incapability(
             num_metrics, num_buckets, transport=transport, crossover=False,

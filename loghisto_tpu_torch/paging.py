@@ -50,7 +50,7 @@ them (``apply_permutation``, ``_extract_rows``).
 checkpoint's surface (``utils/checkpoint.py``).
 
 Single device only.  Left for a later slice: the mesh arenas and sharded
-commit (slice 11, which wires ``_extract_rows`` in).
+commit (ROADMAP Queue 1 item 11c, which wires ``_extract_rows`` in).
 """
 
 from __future__ import annotations

@@ -104,7 +104,17 @@ installs ``supervisor`` (the bridge runs supervised; a worker killed by
 an ``agg.xfer_worker`` fault is respawned by the next enqueue and
 counted with ``note_external_restart``), ``device_breaker`` and
 ``fault_injector`` (the ``agg.ingest`` and ``agg.xfer_worker`` sites).
-The mesh comes with ROADMAP Queue 1 slice 11.
+The mesh (ROADMAP D8, first half of Queue 1 item 11): one process per
+device over ``torch.distributed``.  ``make_distributed_step`` (an int32
+stream ``all_reduce`` per batch), ``make_sharded_accumulator`` and
+``make_interval_distributed_step`` (collective-free folds, one
+``all_reduce`` per collect, ``collect.start`` overlapping the next
+fold) are the reference's factories rank by rank, and
+``TorchAggregator(mesh=)`` runs the raw and sparse transports on each
+rank's block of dense storage, with ``collect()`` as the collective
+point.  Still waiting: the mesh fused commit, the wheel's sharded rings,
+growth and checkpoints on a mesh (item 11b), and paged storage on a mesh
+(item 11c).
 """
 
 from __future__ import annotations
@@ -121,7 +131,11 @@ import numpy as np
 import torch
 
 from loghisto_tpu_torch.channel import Channel, ChannelClosed
-from loghisto_tpu_torch.config import DEFAULT_PERCENTILES, MetricConfig
+from loghisto_tpu_torch.config import (
+    DEFAULT_PERCENTILES,
+    PRECISION,
+    MetricConfig,
+)
 from loghisto_tpu_torch.metrics import (
     _UINT64_MASK,
     ProcessedMetricSet,
@@ -135,6 +149,21 @@ from loghisto_tpu_torch.ops.multirow_ingest import multirow_step
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest
 from loghisto_tpu_torch.ops.stats import dense_stats, dense_stats_np
 from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    STREAM_AXIS,
+    acc_sharding,
+    axis_group,
+    axis_index,
+    axis_size,
+    block_ids,
+    block_rows,
+    check_mesh,
+    collective_device,
+    gather_parts,
+    mesh_device,
+    mesh_reduce,
+)
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
 from loghisto_tpu_torch.resilience.supervise import spawn_thread
 from loghisto_tpu_torch.utils.trace import maybe_capture
@@ -155,6 +184,10 @@ def _step_for(path: str):
 
 
 STATE_FORMAT = "loghisto_tpu_torch.aggregator/1"
+
+MESH_STATE = (
+    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b"
+)
 
 
 class IngestStagingRing:
@@ -228,6 +261,196 @@ class IngestStagingRing:
                 self._events[i] = None
 
 
+# -- the mesh steps (ROADMAP D8: one process per device) ------------------- #
+
+
+def _mesh_block(mesh, num_metrics: int) -> tuple[int, int]:
+    """Check the mesh and the row split: (first row, rows) of this
+    rank's block."""
+    check_mesh(mesh)
+    n_metric = axis_size(mesh, METRIC_AXIS)
+    if num_metrics % n_metric:
+        raise ValueError(
+            f"num_metrics={num_metrics} not divisible by metric axis "
+            f"size {n_metric}"
+        )
+    return block_rows(mesh, num_metrics)
+
+
+def _mesh_plan(mesh, num_metrics: int, ingest_path: str, batch_size,
+               num_buckets: int):
+    """The block and the resolved per-rank path: (device, first row,
+    rows, stream group, path)."""
+    lo, rows = _mesh_block(mesh, num_metrics)
+    path = dispatch.resolve_ingest_path(
+        ingest_path, num_metrics, batch_size, num_buckets, mesh=mesh)
+    return mesh_device(mesh), lo, rows, axis_group(mesh, STREAM_AXIS), path
+
+
+def local_histogram_fold(
+    acc_local: torch.Tensor,
+    ids: torch.Tensor,
+    values: torch.Tensor,
+    rows_per_shard: int,
+    bucket_limit: int,
+    precision: int = PRECISION,
+    ingest_path: str = "fused",
+    *,
+    mesh,
+) -> torch.Tensor:
+    """The sharded-ingest core of the per-batch step: shift ids into this
+    rank's block (ids outside it become -1, which every step drops),
+    bucket the stream row's samples into a fresh local histogram with
+    the resolved step (``ingest_path`` is concrete: K1, K2b for a
+    one-row block, or a named XLA path), ``all_reduce`` it in int32 over
+    the stream axis and fold it into ``acc_local`` in place.  A
+    collective: every rank of the mesh calls it."""
+    import torch.distributed as dist
+
+    lo = axis_index(mesh, METRIC_AXIS) * rows_per_shard
+    hist = torch.zeros_like(acc_local)
+    _step_for(ingest_path)(hist, block_ids(ids, lo, rows_per_shard), values,
+                           bucket_limit, precision)
+    dist.all_reduce(hist, group=axis_group(mesh, STREAM_AXIS))
+    acc_local += hist
+    return acc_local
+
+
+def make_distributed_step(
+    mesh,
+    num_metrics: int,
+    bucket_limit: int,
+    percentile_values,
+    precision: int = PRECISION,
+    ingest_path: str = "auto",
+    batch_size: Optional[int] = None,
+):
+    """The full per-batch aggregation step over a ("stream", "metric")
+    mesh, run by every rank.
+
+    Returns f(acc, ids, values) -> (acc, stats) where
+      acc    int32 [num_metrics / n_metric, B], this rank's block
+             (``make_sharded_accumulator``), updated in place
+      ids    int32 [N], this rank's stream row's samples
+      values float32 [N]
+      stats  ``dense_stats`` of the block: counts [rows], sums [rows],
+             percentiles [rows, P] (the reference's metric-sharded stats,
+             this rank's part)
+
+    Per rank: bucket the stream row's samples into a local histogram
+    (ids outside the block drop), ``all_reduce`` it over the stream axis,
+    fold it into the block, then the block's statistics.  "auto" resolves
+    on the block's rows (ROADMAP D8): K2b for one row, K1 otherwise."""
+    dev, _, rows, _, path = _mesh_plan(
+        mesh, num_metrics, ingest_path, batch_size, 2 * bucket_limit + 1)
+    ps = np.asarray(percentile_values, dtype=np.float32)
+
+    def step(acc, ids, values):
+        acc = local_histogram_fold(
+            acc, torch.as_tensor(ids, device=dev),
+            torch.as_tensor(values, device=dev), rows, bucket_limit,
+            precision, ingest_path=path, mesh=mesh)
+        return acc, dense_stats(acc, ps, bucket_limit, precision)
+
+    step.ingest_path = path
+    return step
+
+
+def make_sharded_accumulator(mesh, num_metrics: int,
+                             num_buckets: int) -> torch.Tensor:
+    """This rank's zero block of the metric-sharded accumulator
+    (``mesh.acc_sharding``: rows ``[m * M / n_metric, (m + 1) * M /
+    n_metric)``), on its device.  Placing zeros takes no collective."""
+    _, rows = _mesh_block(mesh, num_metrics)
+    return torch.zeros((rows, num_buckets), dtype=torch.int32,
+                       device=acc_sharding(mesh).device)
+
+
+class PendingCollect:
+    """An interval collect in flight (``collect.start``): the stream
+    ``all_reduce`` of the partial runs while the caller folds the next
+    batch into a fresh partial; ``wait()`` completes it, folds the
+    reduced partial into the block and returns ``(acc, stats)``."""
+
+    def __init__(self, work, acc, partial, finish):
+        self._work, self._acc, self._partial = work, acc, partial
+        self._finish = finish
+
+    def wait(self):
+        self._work.wait()
+        self._acc += self._partial
+        return self._acc, self._finish(self._acc)
+
+
+def make_interval_distributed_step(
+    mesh,
+    num_metrics: int,
+    bucket_limit: int,
+    percentile_values,
+    precision: int = PRECISION,
+    ingest_path: str = "auto",
+    batch_size: Optional[int] = None,
+):
+    """Interval-amortized distributed aggregation: each rank folds
+    batches into its own (stream, metric) partial block with ZERO
+    collectives, and the stream-axis ``all_reduce`` runs once per
+    ``collect``.
+
+    Returns (ingest, collect, make_partial):
+
+      make_partial() -> int32 [num_metrics / n_metric, B]: this rank's
+          zero partial block (the reference's [1, rows, B] device block).
+      ingest(partial, ids, values) -> partial
+          Collective-free fold of this rank's stream row's samples, in
+          place.
+      collect(acc, partial) -> (acc, fresh_partial, stats)
+          One int32 ``all_reduce`` over the stream axis, folded into the
+          block, statistics on the merged rows, and a fresh zero
+          partial.  ``collect.start(acc, partial)`` starts the reduction
+          with ``async_op=True`` and returns a ``PendingCollect``: fold
+          the next batch into a fresh ``make_partial()`` while it is in
+          flight, then ``.wait() -> (acc, stats)`` (the counterpart of
+          the reference's r13 overlap; JAX hands back futures, PyTorch a
+          work handle).
+
+    Overflow contract: the partials and the block are int32 and the
+    worst case puts every sample in one cell, so callers collect before
+    an interval ingests 2^31 samples over all stream rows.
+    ``TorchAggregator`` enforces it with its host int64 spill; step
+    callers own the bound, as ``run_firehose`` does."""
+    import torch.distributed as dist
+
+    dev, lo, rows, stream_group, path = _mesh_plan(
+        mesh, num_metrics, ingest_path, batch_size, 2 * bucket_limit + 1)
+    ps = np.asarray(percentile_values, dtype=np.float32)
+    fold = _step_for(path)
+
+    def make_partial() -> torch.Tensor:
+        return torch.zeros((rows, 2 * bucket_limit + 1), dtype=torch.int32,
+                           device=dev)
+
+    def ingest(partial, ids, values):
+        ids = torch.as_tensor(ids, device=dev)
+        fold(partial, block_ids(ids, lo, rows),
+             torch.as_tensor(values, device=dev), bucket_limit, precision)
+        return partial
+
+    def stats(acc):
+        return dense_stats(acc, ps, bucket_limit, precision)
+
+    def collect_start(acc, partial) -> PendingCollect:
+        work = dist.all_reduce(partial, group=stream_group, async_op=True)
+        return PendingCollect(work, acc, partial, stats)
+
+    def collect(acc, partial):
+        acc, st = collect_start(acc, partial).wait()
+        return acc, make_partial(), st
+
+    collect.start = collect_start
+    ingest.ingest_path = path
+    return ingest, collect, make_partial
+
+
 class TorchAggregator:
     """Device-tier metric engine of the port: record_batch -> transfer
     worker -> K1/K2/K3 into the int32 [M, B] accumulator, or K4f/K4 into
@@ -249,6 +472,7 @@ class TorchAggregator:
         paged_config: Optional[PagedStoreConfig] = None,
         device=None,
         native_staging: bool = False,
+        mesh=None,
     ):
         """``device`` defaults to the card and raises when CUDA is
         absent; ``device="cpu"`` runs the plain versions.  The other
@@ -271,7 +495,27 @@ class TorchAggregator:
         latency, which no flush-side probe can see).  ``native_staging``
         stages raw samples in the native buffer; without a compiler it
         logs the build error and stages in Python, and with preagg the
-        buffer is unused (samples fold at record time)."""
+        buffer is unused (samples fold at record time).
+
+        ``mesh`` (a ("stream", "metric") mesh from ``parallel.mesh.
+        make_mesh``; ROADMAP D8) makes this aggregator one rank's part:
+        it holds the rows ``[m * M / n_metric, (m + 1) * M / n_metric)``
+        of the accumulator on the mesh's device, and every rank of
+        stream row s receives that row's samples (``record_batch``,
+        ``merge_raw``, ``merge_packed``) and keeps its block.  The
+        transfer worker runs no collective; ``collect()`` is the
+        collective point: every rank calls it, in the same order, and
+        every rank returns the global set.  The registries must be
+        identical on every rank (intern names in the same order), as
+        the reference's multihost design requires.  Each rank spills at
+        ``spill_threshold / n_stream``, so the reduced interval stays
+        under the int32 bound.  Growth moves rows between ranks, so it
+        happens at the collective point: the registry grows at once, the
+        new rows' samples and cells wait on the host, and ``collect()``
+        lays the blocks out anew before its statistics
+        (``_mesh_regrow``).  Dense storage only (paged waits for 11c)."""
+        if mesh is not None and device is None:
+            device = mesh.device_type  # a rank aggregates on its mesh device
         self.device = resolve_device(device)
         self.config = config
         self.num_metrics = num_metrics
@@ -322,6 +566,11 @@ class TorchAggregator:
                 "checks could wrap an int32 cell"
             )
         self.spill_threshold = int(spill_threshold)
+        self.mesh = mesh
+        self._n_stream = self._n_metric = 1
+        self._metric_index = 0
+        if mesh is not None:
+            self._check_mesh(mesh, ingest_path)
         if transport not in ("auto", "raw", "preagg", "sparse"):
             raise ValueError(
                 f"transport={transport!r}: expected 'auto', 'raw', "
@@ -332,7 +581,7 @@ class TorchAggregator:
         # (unknown names raise here too); paged storage replaces it below
         dense_path = dispatch.resolve_ingest_path(
             ingest_path, num_metrics, batch_size, config.num_buckets,
-            guard_metrics=self.max_metrics,
+            guard_metrics=self.max_metrics, mesh=mesh,
         )
         # storage first: it pins the transport (paged with K4f ingests
         # raw, paged without it rides the host fold)
@@ -340,7 +589,7 @@ class TorchAggregator:
         self.fused_paged_reason = dispatch.fused_paged_incapability(
             num_metrics, config.num_buckets, batch_size=batch_size,
             transport=transport, platform=platform,
-            crossover=(ingest_path == "auto"),
+            crossover=(ingest_path == "auto"), mesh=mesh,
         )
         fused_paged_ok = (
             self.fused_paged_reason is None
@@ -348,7 +597,7 @@ class TorchAggregator:
         )
         self.storage, self.storage_reason = dispatch.resolve_storage_path(
             storage, num_metrics, config.num_buckets, platform,
-            transport=transport, fused_ok=fused_paged_ok,
+            transport=transport, fused_ok=fused_paged_ok, mesh=mesh,
         )
         self.fused_paged = self.storage == "paged" and fused_paged_ok
         if self.storage == "paged":
@@ -479,10 +728,15 @@ class TorchAggregator:
             self._acc = None
         else:
             self._acc = torch.zeros(
-                (num_metrics, config.num_buckets), dtype=torch.int32,
+                (self._rows, config.num_buckets), dtype=torch.int32,
                 device=self.device,
             )
         self._spill: Optional[np.ndarray] = None
+        # a mesh rank's samples and cells of rows the registry grew but
+        # the blocks do not hold yet: folded in by _mesh_regrow (under
+        # _dev_lock)
+        self._late_raw: list = []
+        self._late_cells: list = []
         self._interval_ingested = 0
         self._spilled_samples = 0
         self._registry_shed_samples = 0
@@ -501,6 +755,48 @@ class TorchAggregator:
         self.bridge_evictions = 0
         self.bridge_error: Optional[BaseException] = None
         self._last_aggregation_us = 0.0
+
+    def _check_mesh(self, mesh, ingest_path) -> None:
+        """The mesh's refusals, before anything is allocated; sets the
+        rank's coordinates and its device."""
+        check_mesh(mesh)
+        n_metric = axis_size(mesh, METRIC_AXIS)
+        if self.num_metrics % n_metric:
+            raise ValueError(
+                f"num_metrics={self.num_metrics} not divisible by the mesh "
+                f"metric axis ({n_metric})"
+            )
+        if self.device.type != mesh.device_type:
+            raise ValueError(
+                f"device={device!r} but the mesh's devices are "
+                f"{mesh.device_type!r}: a rank aggregates on its mesh device"
+            )
+        self.device = mesh_device(mesh)
+        if ingest_path == "multirow":
+            raise ValueError(
+                "ingest_path='multirow' is single-device (its dense "
+                "layout is lane-padded); use scatter with a mesh"
+            )
+        self._n_stream = axis_size(mesh, STREAM_AXIS)
+        self._n_metric = n_metric
+        self._metric_index = axis_index(mesh, METRIC_AXIS)
+
+    @property
+    def _rows(self) -> int:
+        """Rows of this rank's block (all of them without a mesh)."""
+        return self.num_metrics // self._n_metric
+
+    @property
+    def _row0(self) -> int:
+        """The block's first row."""
+        return self._metric_index * self._rows
+
+    @property
+    def _spill_at(self) -> int:
+        """This rank's spill point: the stream ``all_reduce`` sums
+        ``n_stream`` partials, so each stays under its share of
+        ``spill_threshold``."""
+        return max(1, self.spill_threshold // self._n_stream)
 
     @property
     def kernel_launches(self) -> dict:
@@ -540,8 +836,11 @@ class TorchAggregator:
             return -1
 
     def _grow_row_unit(self) -> int:
-        """Row-count granularity growth must keep: the multirow step's
-        row tile (K1 serves any row count)."""
+        """Row-count granularity growth must keep: the mesh's metric axis
+        (every block the same rows), the multirow step's row tile (K1
+        serves any row count)."""
+        if self.mesh is not None:
+            return self._n_metric
         if self.ingest_path == "multirow":
             return dispatch.MULTIROW_ROWS_TILE
         return 1
@@ -550,14 +849,19 @@ class TorchAggregator:
         """Grow the row space in place (caller holds _dev_lock): zero rows
         are appended to the accumulator and the spill, and a row kernel
         that no longer fits is swapped for the fused kernel.  The new row
-        count rounds down to ``_grow_row_unit``."""
-        old_m = self.num_metrics
+        count rounds down to ``_grow_row_unit``.  On a mesh only the
+        registry grows here; the blocks follow at the next collect
+        (``_mesh_regrow``)."""
+        old_m = self.registry.capacity if self.mesh else self.num_metrics
         new_m = min(
             target if target is not None else old_m * 2, self.max_metrics
         )
         new_m -= new_m % self._grow_row_unit()  # the clamp may land off-grid
         if new_m <= old_m:
             return False
+        if self.mesh is not None:
+            self.registry.grow(new_m)
+            return True
         if self.paged is not None:
             # a host page-table extension: no device data moves
             self.paged.grow(new_m)
@@ -972,6 +1276,17 @@ class TorchAggregator:
                 # saturated -> overflow row, or -1 after an exact spill),
                 # so a requeue of these arrays stays count-exact
                 ids, _ = self.paged.prepare_batch(ids, values)
+            # a mesh rank stages its block's ids; a requeue keeps the
+            # row-space ids
+            staged = ids
+            if self.mesh is not None:
+                late = ((ids >= self.num_metrics)
+                        & (ids < self.registry.capacity))
+                if late.any():
+                    self._late_raw.append((ids[late], values[late]))
+                    ids, values = ids[~late], values[~late]
+                    n = len(ids)
+                staged = block_ids(ids, self._row0, self._rows)
             ring = self._staging_ring
             if ring is None or ring.slot_samples != bs:
                 ring = self._staging_ring = IngestStagingRing(
@@ -987,7 +1302,7 @@ class TorchAggregator:
                         inj.check("agg.ingest")
                     with rec.span("ingest.upload"):
                         ids_dev, values_dev = ring.stage(
-                            ids[off:off + bs], values[off:off + bs]
+                            staged[off:off + bs], values[off:off + bs]
                         )
                     with rec.span("ingest.dispatch"):
                         if self.paged is not None:
@@ -1001,7 +1316,7 @@ class TorchAggregator:
                     break
                 self._device_down_until = 0.0
                 self._interval_ingested += min(bs, n - off)
-                if self._interval_ingested >= self.spill_threshold:
+                if self._interval_ingested >= self._spill_at:
                     self._spill_fold_locked()
         self._xfer_samples_shipped += n if retry_off is None else retry_off
         if retry_off is not None:
@@ -1026,12 +1341,23 @@ class TorchAggregator:
             raise ValueError(
                 f"packed cell array must be int32; got {packed.dtype}"
             )
-        weights = packed[:, 2]
-        total = int(weights.sum(dtype=np.int64))
         bl = self.config.bucket_limit
         with self._dev_lock:
+            if self.mesh is not None:
+                # under the lock: a regrow between the stash and the
+                # block's cut would count the late cells twice
+                self._stash_late_cells_locked(
+                    packed[:, 0], packed[:, 1], packed[:, 2])
+                lo = self._row0
+                packed = packed[(packed[:, 0] >= lo)
+                                & (packed[:, 0] < lo + self._rows)]
+                if not len(packed):
+                    return
+                packed[:, 0] -= lo
+            weights = packed[:, 2]
+            total = int(weights.sum(dtype=np.int64))
             if (
-                self._interval_ingested + total >= self.spill_threshold
+                self._interval_ingested + total >= self._spill_at
                 or int(weights.max()) >= 1 << 30
             ):
                 self._spill_fold_locked()
@@ -1062,7 +1388,7 @@ class TorchAggregator:
         exact at any magnitude.  Caller holds _dev_lock.  Paged storage
         keeps its spill as the store's sparse host dict."""
         ids = np.asarray(ids, dtype=np.int64)
-        keep = (ids >= 0) & (ids < self.num_metrics)
+        keep = (ids >= 0) & (ids < self._rows)
         bl = self.config.bucket_limit
         cols = np.clip(np.asarray(buckets, dtype=np.int64)[keep], -bl, bl) + bl
         weights = np.asarray(weights, dtype=np.int64)[keep]
@@ -1071,7 +1397,7 @@ class TorchAggregator:
         else:
             if self._spill is None:
                 self._spill = np.zeros(
-                    (self.num_metrics, self.config.num_buckets),
+                    (self._rows, self.config.num_buckets),
                     dtype=np.int64,
                 )
             np.add.at(self._spill, (ids[keep], cols), weights)
@@ -1108,14 +1434,21 @@ class TorchAggregator:
         ``PagedStore.commit`` on paged storage.  When the interval total
         would reach ``spill_threshold``, or any weight is >= 2^30, the
         cells go to the exact int64 host spill instead.  Caller holds
-        _dev_lock (the fused committer's spill fallback enters here)."""
+        _dev_lock (the fused committer's spill fallback enters here).  A
+        mesh rank keeps the cells of its block."""
+        if self.mesh is not None:
+            self._stash_late_cells_locked(ids_np, bidx_np, weights_np)
+            lo = self._row0
+            keep = (ids_np >= lo) & (ids_np < lo + self._rows)
+            ids_np = ids_np[keep] - lo
+            bidx_np, weights_np = bidx_np[keep], weights_np[keep]
         n = len(ids_np)
         if not n:
             return
         total = int(weights_np.sum(dtype=np.int64))
         bl = self.config.bucket_limit
         if (
-            self._interval_ingested + total >= self.spill_threshold
+            self._interval_ingested + total >= self._spill_at
             or int(weights_np.max()) >= 1 << 30
         ):
             self._spill_fold_locked()
@@ -1272,13 +1605,108 @@ class TorchAggregator:
             ).items()
         }
 
+    def _stash_late_cells_locked(self, ids, buckets, weights) -> None:
+        """Keep the cells of rows the registry grew but the blocks do not
+        hold yet, for ``_mesh_regrow`` (caller holds _dev_lock)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        late = (ids >= self.num_metrics) & (ids < self.registry.capacity)
+        if late.any():
+            self._late_cells.append((
+                ids[late], np.asarray(buckets, dtype=np.int64)[late],
+                np.asarray(weights, dtype=np.int64)[late]))
+
+    def _mesh_regrow(self) -> None:
+        """Growth on a mesh, at the collective point: the ranks agree on
+        the row count (their registries grow in the same order), each
+        stream row's old blocks are gathered over the metric axis and
+        every rank keeps its new block (doubling M moves rows between
+        ranks), then the samples and cells that waited on the host for
+        the new rows are folded in.  Collectives, in this order on every
+        rank: the row count (MAX over stream, then metric); when it grew,
+        the spill flag (MAX over metric) and the gathers of the blocks
+        and, if any rank of the row spilled, of the spills."""
+        import torch.distributed as dist
+
+        max_ = dist.ReduceOp.MAX
+        new_m = mesh_reduce(self.mesh, [self.registry.capacity], max_)[0]
+        if new_m == self.num_metrics:
+            return
+
+        def regrown(part: torch.Tensor) -> torch.Tensor:
+            """This rank's new block of its stream row's rows."""
+            whole = gather_parts(self.mesh, part)
+            grown = torch.zeros((new_m, whole.shape[1]), dtype=whole.dtype,
+                                device=whole.device)
+            grown[:self.num_metrics] = whole
+            rows = new_m // self._n_metric
+            lo = self._metric_index * rows
+            return grown[lo:lo + rows].clone()
+
+        with self._dev_lock:
+            self.registry.grow(new_m)
+            acc = regrown(self._acc).to(self.device)
+            if mesh_reduce(self.mesh, [self._spill is not None], max_,
+                           (METRIC_AXIS,))[0]:
+                spill = (self._spill if self._spill is not None
+                         else np.zeros(tuple(self._acc.shape), np.int64))
+                self._spill = regrown(torch.from_numpy(spill)).cpu().numpy()
+            self._acc = acc
+            self.num_metrics = new_m
+            if dispatch.ingest_incapability(self.ingest_path, self._rows,
+                                            self.batch_size, acc.shape[1]):
+                self.ingest_path = dispatch.resolve_ingest_path(
+                    "auto", self._rows, self.batch_size)
+                self._ingest = _step_for(self.ingest_path)
+            self.stats_snapshot = None
+            late_raw, self._late_raw = self._late_raw, []
+            late_cells, self._late_cells = self._late_cells, []
+        for ids, values in late_raw:
+            self._process_raw(ids, values, len(ids))
+        with self._dev_lock:
+            for cells in late_cells:
+                self._merge_cells_locked(*cells)
+
+    def _mesh_stats(self, acc, spill, ps: list) -> dict:
+        """The global statistics of a mesh interval, on every rank: the
+        interval's partial (the block, plus its int64 spill) summed over
+        the stream axis, its rows' statistics, gathered over the metric
+        axis.  Collectives, in this order on every rank: the spill flag
+        (MAX over stream, then metric: any spill anywhere makes every
+        block take the exact int64 host route, as one spill does in the
+        reference), the block's ``all_reduce`` and three gathers."""
+        import torch.distributed as dist
+
+        stream = axis_group(self.mesh, STREAM_AXIS)
+        bl, prec = self.config.bucket_limit, self.config.precision
+        if mesh_reduce(self.mesh, [spill is not None],
+                       dist.ReduceOp.MAX)[0]:
+            total = acc.to(torch.int64)
+            if spill is not None:
+                total += torch.from_numpy(spill).to(total.device)
+            total = total.to(collective_device(stream, self.device))
+            dist.all_reduce(total, group=stream)
+            block = dense_stats_np(total.cpu().numpy(),
+                                   np.asarray(ps, dtype=np.float64), bl, prec)
+        else:
+            # int32 is exact: every rank's partial stays under its share
+            # of spill_threshold (_spill_at)
+            dist.all_reduce(acc, group=stream)
+            block = dense_stats(acc, np.asarray(ps, dtype=np.float32), bl,
+                                prec)
+        return {key: gather_parts(self.mesh, torch.as_tensor(block[key]))
+                .cpu().numpy() for key in ("counts", "sums", "percentiles")}
+
     def collect(self, reset: bool = True) -> ProcessedMetricSet:
         """Statistics of every registered metric with the reference's
         naming scheme; ``reset`` closes the interval.  Re-raises a
-        failure of the attach bridge."""
+        failure of the attach bridge.  On a mesh it is a collective
+        call: every rank calls it, in the same order, and each returns
+        the global set."""
         self._raise_bridge_error()
         with maybe_capture("loghisto_collect"):
             self.flush(force=True)
+            if self.mesh is not None:
+                self._mesh_regrow()
             labels, stats = self._interval_stats(reset)
         return self._named(labels, stats, reset)
 
@@ -1310,7 +1738,9 @@ class TorchAggregator:
                 self._interval_ingested = 0
                 self._spilled_samples = 0
                 self.stats_snapshot = None
-        if self.paged is None:
+        if self.mesh is not None:
+            stats = self._mesh_stats(acc, spill, ps)
+        elif self.paged is None:
             stats = self._dense_stats(acc, spill, ps)
         self._last_aggregation_us = (time.perf_counter() - t0) * 1e6
         return labels, stats
@@ -1415,6 +1845,8 @@ class TorchAggregator:
         accumulator (dense) or the store's pool, page table, codecs,
         free list and host spill (paged), the registry's names, the
         lifetime store and the dense spill.  A full barrier first."""
+        if self.mesh is not None:
+            raise ValueError(f"state_dict with a mesh: {MESH_STATE}")
         self.flush(force=True)
         with self._dev_lock, self._agg_lock:
             paged = self.paged is not None
@@ -1436,6 +1868,8 @@ class TorchAggregator:
         ``state.paged_state_from_jax``).  The row space takes the state's
         row count; the ingest path re-resolves for it.  The state's
         storage must be this aggregator's."""
+        if self.mesh is not None:
+            raise ValueError(f"load_state_dict with a mesh: {MESH_STATE}")
         if state.get("format") != STATE_FORMAT:
             raise ValueError(f"unknown state format {state.get('format')!r}")
         for key in ("bucket_limit", "precision"):

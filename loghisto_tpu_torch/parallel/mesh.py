@@ -1,0 +1,262 @@
+"""The ("stream", "metric") mesh over ``torch.distributed`` (counterpart
+of ``loghisto_tpu/parallel/mesh.py``).
+
+The *stream* axis shards the sample firehose: each stream row buckets
+its own samples, valid because histograms are order-free and mergeable.
+The *metric* axis shards the dense ``[num_metrics, num_buckets]``
+accumulator rows.  Merges ride an int32 ``all_reduce`` over the stream
+axis; percentile extraction runs row-parallel on the metric axis.
+
+ROADMAP decision D8, the per-rank mesh.  JAX runs a mesh as ONE process
+that drives many devices (SPMD under ``shard_map``); PyTorch's idiom is
+one process per device.  So here every rank of the world is one device,
+and the reference's names keep their contracts rank by rank:
+
+  * ``make_mesh`` returns a ``DeviceMesh`` (``init_device_mesh`` with
+    ``mesh_dim_names=("stream", "metric")``) over the ranks of the
+    initialised process group (``parallel.multihost.initialize``); rank
+    r sits at ``(r // metric, r % metric)``, row-major, and ranks past
+    ``stream * metric`` stay outside the mesh, as the reference uses the
+    first ``stream * metric`` devices.  Its device type is "cuda" unless
+    the caller asks for "cpu".
+  * The canonical shardings become ``RankPart``s: this rank's part of a
+    carry.  Each sharded dimension splits into contiguous blocks, as
+    ``NamedSharding`` lays them out, so rank (s, m) holds rows
+    ``[m * M / n_metric, (m + 1) * M / n_metric)`` of ``acc_sharding``,
+    bit for bit the rows JAX puts on the device at that position.
+  * Sample arrays are "sharded over stream, replicated over metric": the
+    ranks of stream row s all receive that row's samples and each keeps
+    the ids of its own block (``block_ids``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+STREAM_AXIS = "stream"
+METRIC_AXIS = "metric"
+AXES = (STREAM_AXIS, METRIC_AXIS)
+
+
+def axes_incapability(mesh) -> Optional[str]:
+    """Why ``mesh`` is not a ("stream", "metric") mesh, or None (the
+    reference's sentence of its mesh-shape edges)."""
+    axes = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axes != AXES:
+        return (
+            f"mesh shape: mesh axes {axes!r} are not the "
+            f"('{STREAM_AXIS}', '{METRIC_AXIS}') layout"
+        )
+    return None
+
+
+def check_mesh(mesh) -> None:
+    """Raise ValueError unless ``mesh`` is a ("stream", "metric") mesh
+    that holds this rank."""
+    reason = axes_incapability(mesh)
+    if reason is not None:
+        raise ValueError(reason)
+    if mesh.get_coordinate() is None:
+        import torch.distributed as dist
+
+        raise ValueError(
+            f"rank {dist.get_rank()} is not in the {axis_size(mesh, STREAM_AXIS)}"
+            f"x{axis_size(mesh, METRIC_AXIS)} mesh"
+        )
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The mesh's extent along ``axis`` (JAX: ``mesh.shape[axis]``)."""
+    return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (JAX:
+    ``jax.lax.axis_index``)."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)])
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's line along ``axis``: the ranks
+    an ``all_reduce`` over that axis spans."""
+    return mesh.get_group(axis)
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device: the current card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def collective_device(group, device: torch.device) -> torch.device:
+    """Where a collective's tensors must lie: NCCL takes card tensors,
+    gloo reduces card tensors but gathers host ones, so anything but
+    NCCL gets the host."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl":
+        return device
+    return torch.device("cpu")
+
+
+def block_rows(mesh, num_metrics: int) -> tuple[int, int]:
+    """(first row, row count) of this rank's block of ``num_metrics``
+    rows (``num_metrics`` divisible by the metric axis)."""
+    rows = num_metrics // axis_size(mesh, METRIC_AXIS)
+    return axis_index(mesh, METRIC_AXIS) * rows, rows
+
+
+def block_ids(ids, lo: int, rows: int):
+    """Ids in the block ``[lo, lo + rows)`` shifted to ``[0, rows)``,
+    every other id -1, as the reference's ``sanitize_ids`` after the
+    shard offset.  The first block (``lo == 0``) takes the ids as they
+    are: every ingest step drops ids outside ``[0, rows)`` itself, so a
+    1x1 mesh pays nothing.  Works on int32 tensors and NumPy arrays."""
+    if lo == 0:
+        return ids
+    keep = (ids >= lo) & (ids < lo + rows)
+    if isinstance(ids, np.ndarray):
+        return np.where(keep, ids - lo, -1).astype(np.int32)
+    return torch.where(keep, ids - lo, torch.full_like(ids, -1))
+
+
+def mesh_reduce(mesh, values, op, axes=AXES) -> list:
+    """Small int64 ``values`` reduced with ``op`` (a ``ReduceOp``) over
+    ``axes`` in turn: over both, the whole mesh (and no rank outside a
+    smaller one).  A collective of every rank of the mesh."""
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.int64)
+    for axis in axes:
+        group = axis_group(mesh, axis)
+        t = t.to(collective_device(group, mesh_device(mesh)))
+        dist.all_reduce(t, op=op, group=group)
+    return t.cpu().tolist()
+
+
+def gather_parts(mesh, part: torch.Tensor, axis: str = METRIC_AXIS,
+                 dim: int = 0) -> torch.Tensor:
+    """The parts of every rank of this rank's line along ``axis`` (equal
+    shapes), concatenated on ``dim`` in coordinate order, on the
+    collective's device.  A collective of that line."""
+    import torch.distributed as dist
+
+    group = axis_group(mesh, axis)
+    part = part.to(collective_device(group, part.device)).contiguous()
+    parts = [torch.empty_like(part) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, part, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankPart:
+    """This rank's part of a carry laid out over ``mesh``: ``spec`` names,
+    per dimension, the mesh axis it splits over in contiguous blocks, or
+    None (whole), as a ``PartitionSpec``."""
+
+    mesh: object
+    spec: tuple
+
+    def index(self, shape) -> tuple:
+        """The slices of this rank's part of an array of ``shape``."""
+        out = []
+        for dim, axis in enumerate(self.spec):
+            if axis is None:
+                out.append(slice(None))
+                continue
+            n = axis_size(self.mesh, axis)
+            if shape[dim] % n:
+                raise ValueError(
+                    f"dimension {dim} ({shape[dim]}) does not split over "
+                    f"the {n}-way {axis} axis"
+                )
+            size = shape[dim] // n
+            k = axis_index(self.mesh, axis)
+            out.append(slice(k * size, (k + 1) * size))
+        return tuple(out)
+
+    @property
+    def device(self) -> torch.device:
+        return mesh_device(self.mesh)
+
+
+# -- canonical carry shardings ---------------------------------------------- #
+# The reference's four (and its two paged) layouts, as this rank's part.
+
+def row_vector_sharding(mesh) -> RankPart:
+    """int32 [M] carries (the lifecycle activity vector)."""
+    return RankPart(mesh, (METRIC_AXIS,))
+
+
+def acc_sharding(mesh) -> RankPart:
+    """[M, B] carries (accumulator, interval histogram)."""
+    return RankPart(mesh, (METRIC_AXIS, None))
+
+
+def ring_sharding(mesh) -> RankPart:
+    """[S, M, B] / [K, M, B] carries (tier rings, baseline profiles)."""
+    return RankPart(mesh, (None, METRIC_AXIS, None))
+
+
+def bank_weight_sharding(mesh) -> RankPart:
+    """f32 [K, M] carries (baseline bank weight mass)."""
+    return RankPart(mesh, (None, METRIC_AXIS))
+
+
+def cell_sharding(mesh) -> RankPart:
+    """Staged interval cell chunks [N]: split over the stream axis."""
+    return RankPart(mesh, (STREAM_AXIS,))
+
+
+def pool_sharding(mesh) -> RankPart:
+    """int32 [total_pages, page_size] page pools: one arena per metric
+    shard."""
+    return RankPart(mesh, (METRIC_AXIS, None))
+
+
+def triple_sharding(mesh) -> RankPart:
+    """Translated commit triples [N, 3]: split over the stream axis."""
+    return RankPart(mesh, (STREAM_AXIS, None))
+
+
+def make_mesh(
+    stream: Optional[int] = None,
+    metric: int = 1,
+    device=None,
+):
+    """Build a ("stream", "metric") mesh over the ranks of the
+    initialised process group (``parallel.multihost.initialize``), one
+    device per rank.
+
+    Defaults to every rank on the stream axis.  ``device`` is "cuda"
+    (the default) or "cpu"; the card is never swapped for the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from loghisto_tpu_torch.ops.backend import resolve_device
+
+    device_type = resolve_device(device).type
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs an initialised process group: call "
+            "loghisto_tpu_torch.parallel.multihost.initialize first"
+        )
+    world = dist.get_world_size()
+    if stream is None:
+        if world % metric:
+            raise ValueError(
+                f"{world} devices not divisible by metric={metric}"
+            )
+        stream = world // metric
+    n = stream * metric
+    if n > world:
+        raise ValueError(
+            f"mesh {stream}x{metric} needs {n} devices, have {world}"
+        )
+    return init_device_mesh(device_type, (stream, metric),
+                            mesh_dim_names=AXES)

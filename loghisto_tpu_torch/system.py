@@ -286,7 +286,8 @@ class TorchMetricSystem(MetricSystem):
         if federation is not None and federation is not False:
             self._build_federation(federation)
         # the commit path's degradation reason: the reference's comes
-        # from the mesh, which the port does not have yet
+        # from the mesh, which the system takes with ROADMAP Queue 1
+        # item 11b
         self.commit_path_reason: Optional[str] = None
         self.obs = None            # the SpanRecorder (None when off)
         self.obs_config = None
@@ -409,7 +410,8 @@ class TorchMetricSystem(MetricSystem):
         counters, transfer and staging depths, the span ring's state,
         the resilience ledger (with ``resilience=``), the receiver's
         stats (with ``federation=``) and the current health report (the
-        reference's keys; ``mesh`` is None).  Pure reads, safe from any
+        reference's keys; ``mesh`` is None until the system takes a mesh,
+        ROADMAP Queue 1 item 11b).  Pure reads, safe from any
         thread."""
         agg = self.aggregator
         reg = agg.registry

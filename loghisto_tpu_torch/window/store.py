@@ -51,8 +51,8 @@ query or group-by serve ``query.serve``.
 
 With resilience (``TorchMetricSystem(resilience=...)``) the bridge
 runs under the system's ``supervisor`` and ``fault_injector`` fires the
-``wheel.push`` site before each tier push.  The mesh comes with ROADMAP
-Queue 1 slice 11.
+``wheel.push`` site before each tier push.  The wheel's sharded rings
+on a mesh wait for ROADMAP Queue 1 item 11b.
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``
 (``hbm_bytes()``).

@@ -14,7 +14,9 @@ restores (dense in place, paged through K4) against the same restores
 on the CPU, a preagg interval through the native cell store and K3, the
 sketches (``LogHistogram`` through K2a and K2b, HLL, t-digest, moments,
 ``torch.func.vmap``) and a federated ``TorchMetricSystem`` against the
-same on the CPU.
+same on the CPU, and the mesh (world size 1 under NCCL against one
+device; two ranks on the one card under gloo, launched by
+``tests/test_torch_ranks.py``).
 
 These need an NVIDIA card and the CUDA toolkit (the kernels are built
 with nvcc at first use), so they carry the ``cuda`` marker and skip
@@ -1899,3 +1901,216 @@ def test_federated_system_on_the_card_equals_the_cpu(dev):
             assert card_m[key] == want, key
         elif "FreshnessUs" not in key:  # freshness reads the host clock
             assert card_m[key] == pytest.approx(want, rel=1e-5), key
+
+
+def _mesh_card_inputs():
+    """The mesh module's stream (``test_torch_ranks``) without the JAX
+    codec filter: these tests hold the mesh against one device of the
+    port, on any values."""
+    import test_torch_ranks as R
+
+    rng = np.random.default_rng(21)
+    d = {"step.ids": ((rng.zipf(1.5, (R.STEPS, R.STEP_N)) - 1)
+                      % R.MESH_M).astype(np.int32),
+         "step.values": rng.lognormal(0.5, 1.2, (R.STEPS, R.STEP_N))
+         .astype(np.float32)}
+    for i in range(R.AGG_INTERVALS):
+        for s in range(2):
+            n = R.agg_rows(s, i)
+            d[f"agg.{i}.{s}.ids"] = rng.integers(
+                -1, R.MESH_M + 1, n).astype(np.int32)
+            d[f"agg.{i}.{s}.values"] = rng.lognormal(0.5, 1.2, n).astype(
+                np.float32)
+    for s in range(2):
+        cells = np.stack([rng.integers(0, len(R.MESH_NAMES), 40),
+                          rng.integers(-R.MESH_BL, R.MESH_BL + 1, 40),
+                          rng.integers(1, 50, 40)], axis=1)
+        d[f"cells.{s}"] = cells.astype(np.int64)
+        d[f"packed.{s}"] = np.stack([
+            rng.integers(0, R.MESH_M, 30),
+            rng.integers(-R.MESH_BL, R.MESH_BL + 1, 30),
+            rng.integers(1, 20, 30)], axis=1).astype(np.int32)
+    d["grow.probe"] = rng.lognormal(0.5, 1.2, len(R.GROW_NAMES)).astype(
+        np.float32)
+    for i, seen in enumerate(R.GROW_SEEN):
+        for s in range(2):
+            n = R.agg_rows(s, i)
+            d[f"grow.{i}.{s}.ids"] = rng.integers(0, seen, n).astype(
+                np.int32)
+            d[f"grow.{i}.{s}.values"] = rng.lognormal(0.5, 1.2, n).astype(
+                np.float32)
+    for s in range(2):
+        d[f"grow.cells.{s}"] = np.stack([
+            rng.integers(0, len(R.GROW_NAMES), 30),
+            rng.integers(-R.MESH_BL, R.MESH_BL + 1, 30),
+            rng.integers(1, 50, 30)], axis=1).astype(np.int64)
+    return d
+
+
+def _mesh_one_device(dev, inputs, n_stream, transport):
+    """One device of the port fed every stream row: per interval (acc as
+    int64, collected metrics)."""
+    import test_torch_ranks as R
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(num_metrics=R.MESH_M, transport=transport,
+                          config=MetricConfig(bucket_limit=R.MESH_BL),
+                          batch_size=R.AGG_BATCH, device=dev)
+    out = []
+
+    def close_interval():
+        agg.flush(force=True)
+        out.append((agg._acc.cpu().numpy().astype(np.int64),
+                    agg.collect().metrics))
+
+    try:
+        for name in R.MESH_NAMES:
+            agg.registry.id_for(name)
+        for i in range(R.AGG_INTERVALS):
+            for s in range(n_stream):
+                agg.record_batch(inputs[f"agg.{i}.{s}.ids"],
+                                 inputs[f"agg.{i}.{s}.values"])
+            close_interval()
+        if transport == "sparse":
+            for s in range(n_stream):
+                agg.merge_raw(R.raw_from_cells(inputs[f"cells.{s}"],
+                                               RawMetricSet))
+                agg.merge_packed(inputs[f"packed.{s}"], wait=True)
+            close_interval()
+    finally:
+        agg.close()
+    return out
+
+
+def test_mesh_world_one_under_nccl_equals_one_device(dev, tmp_path):
+    """World size 1 under NCCL: TorchAggregator(mesh=make_mesh(1, 1))
+    launches K1 and its block and collected set EQUAL one device's; the
+    per-batch step (an NCCL all_reduce a batch) and the interval step
+    (collect.start in flight while the next batch folds) EQUAL the same
+    accumulator."""
+    import test_torch_ranks as R
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.aggregator import (
+        TorchAggregator,
+        make_distributed_step,
+        make_interval_distributed_step,
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
+
+    inputs = _mesh_card_inputs()
+    want = _mesh_one_device(dev, inputs, 1, "raw")
+    multihost.initialize(f"file://{tmp_path}/rdzv", 1, 0)
+    try:
+        import torch.distributed as dist
+
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        agg = TorchAggregator(num_metrics=R.MESH_M, transport="raw",
+                              config=MetricConfig(bucket_limit=R.MESH_BL),
+                              batch_size=R.AGG_BATCH, mesh=mesh,
+                              max_metrics=R.MESH_M)
+        try:
+            assert agg.device.type == "cuda"
+            for name in R.MESH_NAMES:
+                agg.registry.id_for(name)
+            for i, (acc, metrics) in enumerate(want):
+                before = kernel_launches()["fused_ingest"]
+                agg.record_batch(inputs[f"agg.{i}.0.ids"],
+                                 inputs[f"agg.{i}.0.values"])
+                agg.flush(force=True)
+                assert kernel_launches()["fused_ingest"] > before
+                np.testing.assert_array_equal(agg._acc.cpu().numpy(), acc)
+                assert agg.collect().metrics == metrics
+        finally:
+            agg.close()
+        ids = torch.from_numpy(inputs["step.ids"]).to(dev)
+        values = torch.from_numpy(inputs["step.values"]).to(dev)
+        one = torch.zeros((R.MESH_M, R.MESH_B), dtype=torch.int32,
+                          device=dev)
+        step = make_distributed_step(mesh, R.MESH_M, R.MESH_BL, R.MESH_PS)
+        acc = make_sharded_accumulator(mesh, R.MESH_M, R.MESH_B)
+        ingest, collect, make_partial = make_interval_distributed_step(
+            mesh, R.MESH_M, R.MESH_BL, R.MESH_PS)
+        acc2 = make_sharded_accumulator(mesh, R.MESH_M, R.MESH_B)
+        for k in range(R.STEPS):
+            fused_ingest_batch(one, ids[k], values[k], R.MESH_BL)
+            acc, _ = step(acc, ids[k], values[k])
+        pending = collect.start(acc2, ingest(make_partial(), ids[0],
+                                             values[0]))
+        fresh = ingest(make_partial(), ids[1], values[1])
+        acc2, _ = pending.wait()
+        acc2, _, _ = collect(acc2, fresh)
+        assert torch.equal(acc, one) and torch.equal(acc2, one)
+    finally:
+        multihost.shutdown()
+
+
+def test_mesh_two_ranks_under_gloo_on_the_card(dev, tmp_path):
+    """Two ranks on the one card under gloo (NCCL refuses a GPU twice),
+    meshes (2, 1) and (1, 2): every rank's set EQUALS one device's fed
+    every stream row, the partials of each metric column sum to its
+    rows, each rank launched K1 (raw) and K3 (sparse), the per-batch
+    step's blocks EQUAL one device's rows, and growth (8 -> 16 -> 32
+    rows, laid out anew at each collect) EQUALS one device growing."""
+    import test_torch_ranks as R
+
+    inputs = _mesh_card_inputs()
+    res = R.launch(tmp_path, 2, f"card:{dev.type}", inputs,
+                   device=dev.type)
+    for shape in ((2, 1), (1, 2)):
+        s_n, m_n = shape
+        tag = f"{s_n}x{m_n}"
+        rows = R.MESH_M // m_n
+        by = {tuple(r[f"{tag}.coord"].tolist()): r for r in res}
+        for transport in ("raw", "sparse"):
+            want = _mesh_one_device(dev, inputs, s_n, transport)
+            keys = list(range(R.AGG_INTERVALS)) + (
+                ["cells"] if transport == "sparse" else [])
+            for key, (acc, metrics) in zip(keys, want):
+                for r in res:
+                    got = R.get_metrics(r, f"{tag}.{transport}.{key}")
+                    assert got == metrics, (tag, transport, key)
+                for m in range(m_n):
+                    summed = sum(by[(s, m)][f"{tag}.{transport}.{key}.partial"]
+                                 for s in range(s_n))
+                    np.testing.assert_array_equal(
+                        summed, acc[m * rows:(m + 1) * rows])
+            kernel = "k1" if transport == "raw" else "k3"
+            for r in res:
+                assert int(r[f"{tag}.{transport}.{kernel}"]) > 0
+        one = torch.zeros((R.MESH_M, R.MESH_B), dtype=torch.int32,
+                          device=dev)
+        for k in range(R.STEPS):
+            fused_ingest_batch(
+                one, torch.from_numpy(inputs["step.ids"][k]).to(dev),
+                torch.from_numpy(inputs["step.values"][k]).to(dev),
+                R.MESH_BL)
+        one = one.cpu().numpy()
+        for (s, m), r in by.items():
+            assert str(r[f"{tag}.step.device"]).startswith(dev.type)
+            np.testing.assert_array_equal(r[f"{tag}.step.acc"],
+                                          one[m * rows:(m + 1) * rows])
+        # growth: the blocks laid out anew at collect equal one device
+        # growing at once
+        from loghisto_tpu_torch.config import MetricConfig
+        from loghisto_tpu_torch.metrics import RawMetricSet
+        from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+        agg = TorchAggregator(num_metrics=R.GROW_M0, transport="raw",
+                              config=MetricConfig(bucket_limit=R.MESH_BL),
+                              batch_size=R.AGG_BATCH,
+                              max_metrics=R.GROW_MAX, device=dev)
+        try:
+            for i in range(len(R.GROW_SEEN)):
+                for s in range(s_n):
+                    R.grow_feed(agg, inputs, s, i, RawMetricSet)
+                want = agg.collect().metrics
+                for r in res:
+                    assert R.get_metrics(r, f"{tag}.grow.{i}") == want
+                    assert int(r[f"{tag}.grow.{i}.m"]) == agg.num_metrics
+        finally:
+            agg.close()

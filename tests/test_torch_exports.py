@@ -1,7 +1,8 @@
 """The port's packages export the reference's package-level names
 (``__all__`` of ``loghisto_tpu``, ``loghisto_tpu.ops``,
 ``loghisto_tpu.obs``, ``loghisto_tpu.resilience``,
-``loghisto_tpu.federation`` and ``loghisto_tpu.models``): every name
+``loghisto_tpu.federation``, ``loghisto_tpu.models`` and
+``loghisto_tpu.parallel``): every name
 with a ported counterpart resolves on
 the matching package of ``loghisto_tpu_torch``, and the names still
 waiting for a slice are listed below with that slice."""
@@ -16,12 +17,15 @@ import loghisto_tpu.federation
 import loghisto_tpu.models
 import loghisto_tpu.obs
 import loghisto_tpu.ops
+import loghisto_tpu.parallel
 import loghisto_tpu.resilience
 
-PACKAGES = ("", ".ops", ".obs", ".resilience", ".federation", ".models")
+PACKAGES = ("", ".ops", ".obs", ".resilience", ".federation", ".models",
+            ".parallel")
 
 # reference name -> the port's counterpart where the names differ
-RENAMED = {"TPUMetricSystem": "TorchMetricSystem"}
+RENAMED = {"TPUMetricSystem": "TorchMetricSystem",
+           "TPUAggregator": "TorchAggregator"}
 
 # names that wait, each with the ROADMAP Queue 1 slice that ports it
 WAITING = {
@@ -31,6 +35,7 @@ WAITING = {
     ".resilience": {},
     ".federation": {},
     ".models": {},
+    ".parallel": {},
 }
 
 
@@ -152,6 +157,38 @@ def test_models_all_equals_the_reference_and_loads_lazily():
             "import loghisto_tpu_torch.models\n"
             "bad = [k for k in sys.modules"
             " if k.startswith('loghisto_tpu_torch.models.')]\n"
+            "assert not bad, bad\n")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_parallel_all_is_the_reference_s_and_loads_lazily():
+    """``parallel`` exports the reference's ``__all__`` (the aggregator
+    under its port name), each the port's own, loaded on first use: a
+    bare import of the package loads neither its submodules nor
+    ``torch.distributed``."""
+    import subprocess
+    import sys
+
+    import loghisto_tpu_torch.parallel as port
+    from loghisto_tpu_torch.parallel import aggregator, mesh
+
+    assert port.__all__ == sorted(
+        RENAMED.get(n, n) for n in loghisto_tpu.parallel.__all__)
+    assert port.TorchAggregator is aggregator.TorchAggregator
+    assert port.make_mesh is mesh.make_mesh
+    assert (port.STREAM_AXIS, port.METRIC_AXIS) == ("stream", "metric")
+    for name in ("make_distributed_step", "make_interval_distributed_step",
+                 "make_sharded_accumulator"):
+        assert getattr(port, name) is getattr(aggregator, name)
+    with pytest.raises(AttributeError):
+        port.no_such_name
+    code = ("import sys\n"
+            "import loghisto_tpu_torch.parallel\n"
+            "bad = [k for k in sys.modules if k.startswith("
+            "('loghisto_tpu_torch.parallel.', 'torch.distributed'))]\n"
             "assert not bad, bad\n")
     root = Path(__file__).resolve().parent.parent
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -12,6 +12,12 @@ the JAX package.
     parameters (tolerances stated at each check).
   * ``opentsdb_protocol``: the same BYTES as the JAX package's on the same
     metrics, timestamp and hostname, with and without ``labeled_tags``.
+  * The mesh firehose (ROADMAP D8) on a (2, 2) mesh of four gloo ranks
+    (``test_torch_ranks.launch``, one launch for the module): the ranks
+    of a stream row draw the same samples and the rows different ones;
+    the blocks of every dispatched path are EQUAL to "scatter"'s and
+    conserve the two batches; ``run_firehose(mesh=)`` runs end to end
+    with every interval's counts conserved, and only rank 0 sends.
 """
 
 import datetime as dt
@@ -19,6 +25,7 @@ import io
 import re
 import socket
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -135,9 +142,14 @@ def test_firehose_refuses_multirow_and_a_mesh():
     with pytest.raises(ValueError, match="multirow"):
         make_firehose_step(16, 2048, cfg, ingest_path="multirow",
                            device="cpu")
-    with pytest.raises(ValueError, match="mesh slice"):
+    # a mesh whose axes are not ("stream", "metric"), in the reference's
+    # words of its mesh-shape edges
+    wrong = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    with pytest.raises(ValueError, match=re.escape(
+            "mesh shape: mesh axes ('data', 'model') are not the "
+            "('stream', 'metric') layout")):
         run_firehose(num_metrics=16, batch=1024, seconds=0.1, config=cfg,
-                     mesh=object(), device="cpu")
+                     mesh=wrong, device="cpu")
 
 
 def test_run_firehose_end_to_end():
@@ -278,4 +290,59 @@ def test_cli_runs_on_the_card_by_default():
         pytest.skip("a CUDA device is present: the default device is real")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--metrics", "16", "--seconds", "0.1", "--batch", "1024"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # NCCL's card
+        main(["--metrics", "16", "--seconds", "0.1", "--mesh"])
     assert jax.devices()[0].platform == "cpu"
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    import test_torch_ranks as R
+
+    sink = _Listener()
+    try:
+        res = R.launch(tmp_path_factory.mktemp("firehose"),
+                       R.FH_SHAPE[0] * R.FH_SHAPE[1], "firehose",
+                       {"sink_port": np.array(sink.address[1])})
+    finally:
+        sink.close()
+    return res, sink.payloads
+
+
+def test_mesh_ranks_of_a_stream_row_draw_the_same_samples(mesh_ranks):
+    res, _ = mesh_ranks
+    draws = {tuple(r["coord"].tolist()): r["first_draw"] for r in res}
+    np.testing.assert_array_equal(draws[(0, 0)], draws[(0, 1)])
+    np.testing.assert_array_equal(draws[(1, 0)], draws[(1, 1)])
+    assert not np.array_equal(draws[(0, 0)], draws[(1, 0)])
+
+
+def test_mesh_firehose_dispatched_path_matches_scatter(mesh_ranks):
+    import test_torch_ranks as R
+
+    res, _ = mesh_ranks
+    blocks = {}
+    for r in res:
+        s, m = r["coord"].tolist()
+        for path in R.FH_PATHS:
+            np.testing.assert_array_equal(r[f"{path}.acc"],
+                                          r["scatter.acc"])
+            assert int(r[f"{path}.fresh_sum"]) == 0
+        assert str(r["auto.path"]) == "fused"
+        blocks.setdefault(m, r["scatter.acc"])
+        np.testing.assert_array_equal(blocks[m], r["scatter.acc"])
+    # two batches over the whole mesh, every sample in one block
+    assert sum(int(b.sum()) for b in blocks.values()) == 2 * R.FH_BATCH
+
+
+def test_run_firehose_over_a_mesh_end_to_end(mesh_ranks):
+    res, payloads = mesh_ranks
+    for r in res:
+        assert int(r["run.intervals"]) >= 1
+        assert int(r["run.total_samples"]) > 0
+        assert int(r["run.collected_samples"]) == int(r["run.total_samples"])
+        assert str(r["run.platform"]) == "cpu"
+        for key in ("run.intervals", "run.total_samples"):
+            assert int(r[key]) == int(res[0][key])  # the mesh's summary
+    assert len(payloads) == int(res[0]["run.intervals"])  # rank 0 only
+    assert all(p.startswith(b"put firehose_") for p in payloads)

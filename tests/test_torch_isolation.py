@@ -7,8 +7,9 @@ and a windowed Prometheus exposition, a preagg interval through the
 native cell store, a fast-ingest interval through the C staging
 buffers, an observed commit with its watchdog, trace dump and debug
 dump, a federation receiver, a federated system with a freshness rule,
-and the four sketches on the CPU without either in ``sys.modules``, and
-never falls back to the CPU on its own.
+the four sketches, and a one-rank mesh (an aggregator interval and the
+mesh firehose) on the CPU without either in ``sys.modules``, and never
+falls back to the CPU on its own.
 
 The torch-free frontier: the modules a frontend process imports to
 record and federate (the reference's four, ``federation.emitter``,
@@ -216,6 +217,22 @@ def test_interval_runs_without_jax_in_sys_modules():
         "assert float(tdigest.count(w)) == 3000.0\n"
         "assert int(moments.insert(moments.empty(device='cpu'), v).count)"
         " == 3000\n"
+        "from loghisto_tpu_torch.parallel import multihost\n"
+        "from loghisto_tpu_torch.parallel.mesh import make_mesh\n"
+        "rdzv = tempfile.mkdtemp()\n"
+        "multihost.initialize(f'file://{rdzv}/rdzv', 1, 0, device='cpu')\n"
+        "mesh = make_mesh(1, 1, device='cpu')\n"
+        "agg = TorchAggregator(num_metrics=4, batch_size=64, mesh=mesh,"
+        " max_metrics=4)\n"
+        "agg.record_batch(np.array([agg.registry.id_for('x')] * 100,"
+        " np.int32), np.linspace(1, 100, 100, dtype=np.float32))\n"
+        "assert agg.collect().metrics['x_count'] == 100.0\n"
+        "agg.close()\n"
+        "s = run_firehose(num_metrics=16, batch=1024, seconds=0.2,"
+        " interval=0.1, config=MetricConfig(bucket_limit=64),"
+        " out=io.StringIO(), mesh=mesh)\n"
+        "assert s['collected_samples'] == s['total_samples'] > 0, s\n"
+        "multihost.shutdown()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'loghisto_tpu')]\n"
         "assert not bad, bad\n"
@@ -246,6 +263,8 @@ def test_entry_points_default_to_the_card():
     from loghisto_tpu_torch.federation import FederationConfig
     from loghisto_tpu_torch.models import LogHistogram, hll, moments, \
         tdigest
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
 
     factories = [
         lambda: TimeWheel(num_metrics=4),
@@ -274,6 +293,8 @@ def test_entry_points_default_to_the_card():
         lambda: hll.empty(),
         lambda: moments.empty(),
         lambda: tdigest.empty(),
+        lambda: make_mesh(1, 1),
+        lambda: multihost.initialize("tcp://127.0.0.1:1", 1, 0),
     ]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is real")

@@ -1,0 +1,667 @@
+"""The multi-rank launcher of the port's mesh tests and the scenarios each
+rank runs (``tests/test_torch_mesh.py``, ``test_torch_multihost.py``,
+``test_torch_firehose.py`` and ``test_torch_sketches.py`` hold the
+results against the JAX package in the test process).
+
+``launch(tmp, world, job, inputs)`` starts ``world`` fresh interpreters
+that rendezvous through a ``FileStore`` in ``tmp`` (gloo on the CPU,
+``parallel.multihost.initialize(f"file://...")``), read their inputs from
+``tmp/inputs.npz``, run every scenario of ``job`` and write their
+results to ``tmp/rank<r>.npz``.  Each rank runs one torch thread, loads
+no JAX (checked at its end) and runs collectives only on its main thread
+(a guard wraps them, so a transfer worker that made one fails the
+launch instead of hanging it).  A rank that fails ends the launch: the
+others get 5 s to exit, then are killed, and every failed rank's output
+(its traceback) goes into the failure.  At the deadline (120 s) every
+rank is killed.
+
+This file imports no JAX (and pytest only inside its tests): the ranks
+import it.  Its own tests hold the launcher to that contract."""
+
+import io
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+TESTS = Path(__file__).resolve().parent
+DEADLINE_S = 120.0
+FOREIGN = ("jax", "jaxlib", "loghisto_tpu")
+
+_RANK_CODE = (
+    "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+    "import test_torch_ranks as t; sys.exit(t._rank_main(sys.argv[3:]))"
+)
+
+
+def launch(tmp, world: int, job: str, inputs=None,
+           deadline: float = DEADLINE_S, device: str = "cpu") -> list:
+    """Run ``job`` on ``world`` ranks; each rank's results as a dict of
+    arrays, in rank order.  ``device="cuda"`` puts every rank on the card
+    (gloo still: NCCL refuses two ranks on one GPU)."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    if inputs is not None:
+        np.savez(tmp / "inputs.npz", **inputs)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(tmp / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_CODE, str(TESTS), str(ROOT),
+                 str(r), str(world), str(tmp), job, device],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT,
+                env=env))
+        end = time.monotonic() + deadline
+        while time.monotonic() < end:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes):
+                break
+            if any(codes):  # one failed: the rest cannot finish, but
+                # give them a moment to exit with their own tracebacks
+                end = min(end, time.monotonic() + 5.0)
+            time.sleep(0.02)
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        msg = [f"job {job!r} on {world} ranks failed"]
+        for r in failed:
+            why = ("killed at the deadline" if r in hung
+                   else f"exit {procs[r].returncode}")
+            text = (tmp / f"rank{r}.log").read_text()[-4000:]
+            msg.append(f"--- rank {r} ({why}):\n{text}")
+        if hung:
+            msg.append(f"ranks killed: {hung}")
+        raise AssertionError("\n".join(msg))
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+def _guard_collectives() -> None:
+    """Collectives run only on the main thread: the entry points that
+    make them are the caller's (collect(), a step's collect)."""
+    import threading
+
+    import torch.distributed as dist
+
+    main = threading.main_thread()
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier",
+                 "all_gather_object", "reduce_scatter"):
+        fn = getattr(dist, name)
+
+        def guarded(*a, _fn=fn, _name=name, **kw):
+            if threading.current_thread() is not main:
+                raise AssertionError(
+                    f"{_name} on thread {threading.current_thread().name}")
+            return _fn(*a, **kw)
+
+        setattr(dist, name, guarded)
+
+
+def _rank_main(argv) -> int:
+    rank, world, tmp, job = int(argv[0]), int(argv[1]), Path(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    _guard_collectives()
+    from loghisto_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"file://{tmp / 'rdzv'}", world, rank,
+                         device=argv[4], backend="gloo", timeout_s=60.0)
+    try:
+        path = tmp / "inputs.npz"
+        inputs = dict(np.load(path)) if path.exists() else {}
+        kind, _, arg = job.partition(":")
+        out = {}
+        JOBS[kind](out, rank, arg, inputs)
+        bad = [k for k in sys.modules if k.split(".")[0] in FOREIGN]
+        if bad:
+            raise AssertionError(f"rank {rank} loaded {sorted(bad)[:5]}")
+        np.savez(tmp / f"rank{rank}.npz", **out)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+# -- result helpers ------------------------------------------------------------
+
+def put_metrics(out, key, metrics) -> None:
+    names = sorted(metrics)
+    out[key + ".keys"] = np.array(names, dtype=str)
+    out[key + ".values"] = np.array([metrics[n] for n in names],
+                                    dtype=np.float64)
+
+
+def get_metrics(res, key) -> dict:
+    return dict(zip(res[key + ".keys"].tolist(),
+                    res[key + ".values"].tolist()))
+
+
+def _raises(fn) -> np.ndarray:
+    """The message of the ValueError ``fn`` raises ('' if none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return np.array(str(e))
+    return np.array("")
+
+
+# -- the mesh module (tests/test_torch_mesh.py) --------------------------------
+
+SHAPES = ((2, 1), (1, 2), (2, 2), (4, 1), (1, 4))
+MESH_M = 16
+MESH_BL = 256
+MESH_B = 2 * MESH_BL + 1
+MESH_PS = np.array([0.0, 0.5, 0.99, 1.0], dtype=np.float32)
+MESH_NAMES = [f"m{i}" for i in range(MESH_M - 1)]  # the last row unnamed
+STEP_N = 4096
+STEPS = 2
+STEP_PATHS = ("auto", "scatter", "sort", "hybrid")
+AGG_INTERVALS = 2
+AGG_BATCH = 1024
+SPILL_THRESHOLD = 1500
+GROW_M0 = 8
+GROW_MAX = 32
+GROW_NAMES = [f"g{i}" for i in range(20)]
+GROW_SEEN = (12, 20)  # names by the end of each interval: 8 -> 16 -> 32
+
+
+def grow_feed(agg, inputs, s, i, raw_cls):
+    """Interval i of the growth scenario for stream row s: one sample of
+    every name so far through ``record`` (the names interned in the same
+    order on every rank, growing the registry), the row's samples, and
+    in the second interval a ``merge_raw`` of cells on the grown rows."""
+    probe = inputs["grow.probe"]
+    for k, name in enumerate(GROW_NAMES[:GROW_SEEN[i]]):
+        agg.record(name, float(probe[k]))
+    ids, values = inputs[f"grow.{i}.{s}.ids"], inputs[f"grow.{i}.{s}.values"]
+    for off in range(0, len(ids), feed_chunk(s)):
+        agg.record_batch(ids[off:off + feed_chunk(s)],
+                         values[off:off + feed_chunk(s)])
+    if i:
+        agg.merge_raw(raw_from_cells(inputs[f"grow.cells.{s}"], raw_cls,
+                                     GROW_NAMES))
+
+
+def agg_rows(s: int, i: int) -> int:
+    """Samples of stream row s in interval i: uneven across rows."""
+    return 2000 + 900 * s + 300 * i
+
+
+def feed_chunk(s: int) -> int:
+    """record_batch piece size of stream row s: uneven across rows."""
+    return 700 + 250 * s
+
+
+def raw_from_cells(cells, raw_cls, names=MESH_NAMES):
+    """A RawMetricSet of ``cells`` (name index, codec bucket, count)."""
+    import datetime as dt
+
+    hists = {}
+    for k, b, c in cells.tolist():
+        row = hists.setdefault(names[k], {})
+        row[b] = row.get(b, 0) + c
+    return raw_cls(dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc), {}, {},
+                   hists, {}, 1.0)
+
+
+def _mesh_steps(out, mesh, inputs):
+    from loghisto_tpu_torch.parallel.aggregator import (
+        make_distributed_step,
+        make_interval_distributed_step,
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_size
+    from loghisto_tpu_torch.parallel.multihost import local_sample_shard
+
+    start, size = local_sample_shard(STEP_N, mesh)
+    ids = torch.from_numpy(inputs["step.ids"][:, start:start + size].copy())
+    values = torch.from_numpy(
+        inputs["step.values"][:, start:start + size].copy())
+    for path in STEP_PATHS:
+        step = make_distributed_step(mesh, MESH_M, MESH_BL, MESH_PS,
+                                     ingest_path=path, batch_size=size)
+        acc = make_sharded_accumulator(mesh, MESH_M, MESH_B)
+        for k in range(STEPS):
+            acc, st = step(acc, ids[k], values[k])
+            out[f"step.{path}.acc.{k}"] = acc.cpu().numpy().copy()
+            out[f"step.{path}.counts.{k}"] = st["counts"].numpy()
+            out[f"step.{path}.pcts.{k}"] = st["percentiles"].numpy()
+        out[f"step.{path}.path"] = np.array(step.ingest_path)
+
+    # a block of one row: "auto" takes the row kernel (K2b) per rank
+    one = axis_size(mesh, METRIC_AXIS)
+    step = make_distributed_step(mesh, one, MESH_BL, MESH_PS,
+                                 batch_size=size)
+    acc = make_sharded_accumulator(mesh, one, MESH_B)
+    acc, _ = step(acc, ids[0] % one, values[0])
+    out["step.row.acc"] = acc.numpy().copy()
+    out["step.row.path"] = np.array(step.ingest_path)
+
+    ingest, collect, make_partial = make_interval_distributed_step(
+        mesh, MESH_M, MESH_BL, MESH_PS, batch_size=size)
+    acc = make_sharded_accumulator(mesh, MESH_M, MESH_B)
+    partial = ingest(make_partial(), ids[0], values[0])
+    pending = collect.start(acc, partial)
+    # the next batch folds into a fresh partial while the reduction is
+    # in flight
+    fresh = ingest(make_partial(), ids[1], values[1])
+    acc, st = pending.wait()
+    out["interval.acc.0"] = acc.numpy().copy()
+    acc, partial, st = collect(acc, fresh)
+    out["interval.acc.1"] = acc.numpy().copy()
+    out["interval.counts"] = st["counts"].numpy()
+    out["interval.fresh_sum"] = np.array(int(partial.sum()))
+    acc, partial, st = collect(acc, partial)  # nothing carries over
+    out["interval.acc.2"] = acc.numpy().copy()
+
+
+def _mesh_aggregator(out, mesh, inputs, tag, transport, **kw):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_index
+
+    s = axis_index(mesh, STREAM_AXIS)
+    agg = TorchAggregator(
+        num_metrics=MESH_M, config=MetricConfig(bucket_limit=MESH_BL),
+        transport=transport, batch_size=AGG_BATCH, mesh=mesh,
+        max_metrics=MESH_M, **kw)
+
+    def close_interval(key):
+        agg.flush(force=True)
+        partial = agg._acc.cpu().numpy().astype(np.int64)
+        if agg._spill is not None:
+            partial = partial + agg._spill
+        out[f"{key}.partial"] = partial
+        out[f"{key}.spilled"] = np.array(agg._spill is not None)
+        put_metrics(out, key, agg.collect().metrics)
+
+    try:
+        for name in MESH_NAMES:
+            agg.registry.id_for(name)
+        chunk = feed_chunk(s)
+        for i in range(AGG_INTERVALS):
+            ids = inputs[f"agg.{i}.{s}.ids"]
+            values = inputs[f"agg.{i}.{s}.values"]
+            for off in range(0, len(ids), chunk):
+                agg.record_batch(ids[off:off + chunk],
+                                 values[off:off + chunk])
+            close_interval(f"{tag}.{i}")
+        if transport == "sparse":
+            agg.merge_raw(raw_from_cells(inputs[f"cells.{s}"], RawMetricSet))
+            agg.merge_packed(inputs[f"packed.{s}"])
+            close_interval(f"{tag}.cells")
+        out[f"{tag}.path"] = np.array(agg.ingest_path)
+        out[f"{tag}.transport"] = np.array(agg.transport)
+    finally:
+        agg.close()
+
+
+def _mesh_growth(out, mesh, inputs):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_index
+
+    s = axis_index(mesh, STREAM_AXIS)
+    agg = TorchAggregator(
+        num_metrics=GROW_M0, config=MetricConfig(bucket_limit=MESH_BL),
+        transport="raw", batch_size=AGG_BATCH, mesh=mesh,
+        max_metrics=GROW_MAX)
+    try:
+        for i in range(len(GROW_SEEN)):
+            grow_feed(agg, inputs, s, i, RawMetricSet)
+            out[f"grow.{i}.capacity"] = np.array(agg.registry.capacity)
+            put_metrics(out, f"grow.{i}", agg.collect().metrics)
+            out[f"grow.{i}.rows"] = np.array(agg._acc.shape[0])
+            out[f"grow.{i}.m"] = np.array(agg.num_metrics)
+    finally:
+        agg.close()
+
+
+def _mesh_refusals(out, mesh):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.parallel.aggregator import (
+        TorchAggregator,
+        make_distributed_step,
+        make_interval_distributed_step,
+    )
+    from loghisto_tpu_torch.parallel.mesh import (
+        METRIC_AXIS,
+        axis_size,
+        make_mesh,
+    )
+
+    cfg = MetricConfig(bucket_limit=MESH_BL)
+    odd = 2 * axis_size(mesh, METRIC_AXIS) + 1
+    out["refuse.mesh"] = _raises(lambda: make_mesh(stream=7, metric=3,
+                                                   device="cpu"))
+    out["refuse.step_rows"] = _raises(
+        lambda: make_distributed_step(mesh, odd, MESH_BL, MESH_PS))
+    out["refuse.interval_rows"] = _raises(
+        lambda: make_interval_distributed_step(mesh, odd, MESH_BL, MESH_PS))
+    out["refuse.agg_rows"] = _raises(lambda: TorchAggregator(
+        num_metrics=odd, config=cfg, device="cpu", mesh=mesh,
+        max_metrics=odd))
+    out["refuse.paged"] = _raises(lambda: TorchAggregator(
+        num_metrics=MESH_M, config=cfg, device="cpu", mesh=mesh,
+        max_metrics=MESH_M, storage="paged"))
+    big = 1 << 16
+    out["refuse.auto_paged"] = _raises(lambda: TorchAggregator(
+        num_metrics=big, config=cfg, device="cpu", mesh=mesh,
+        max_metrics=big, transport="sparse"))
+    out["refuse.multirow"] = _raises(lambda: TorchAggregator(
+        num_metrics=MESH_M, config=cfg, device="cpu", mesh=mesh,
+        max_metrics=MESH_M, ingest_path="multirow"))
+    agg = TorchAggregator(num_metrics=MESH_M, config=cfg, device="cpu",
+                          mesh=mesh, on_registry_full="error")
+    out["refuse.state"] = _raises(agg.state_dict)
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    wheel = TimeWheel(num_metrics=MESH_M, config=cfg, tiers=((2, 1),),
+                      registry=agg.registry, device="cpu")
+    out["refuse.commit"] = _raises(lambda: IntervalCommitter(agg, wheel))
+    agg.close()
+
+
+def _card_job(out, rank, arg, inputs):
+    """Two ranks on the one card (``tests/test_torch_cuda.py``): both
+    meshes of two ranks, the raw and sparse aggregators, the steps and
+    growth, each rank's blocks, sets and launches."""
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.aggregator import (
+        make_distributed_step,
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_group,
+        make_mesh,
+    )
+    from loghisto_tpu_torch.parallel.multihost import local_sample_shard
+
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(*shape, device=arg)
+        tag = f"{shape[0]}x{shape[1]}"
+        out[f"{tag}.coord"] = np.array(mesh.get_coordinate())
+        for transport in ("raw", "sparse"):
+            reset_kernel_launches()
+            _mesh_aggregator(out, mesh, inputs, f"{tag}.{transport}",
+                             transport)
+            launched = kernel_launches()
+            out[f"{tag}.{transport}.k1"] = np.array(launched["fused_ingest"])
+            out[f"{tag}.{transport}.k3"] = np.array(
+                launched["sparse_ingest"])
+        start, size = local_sample_shard(STEP_N, mesh)
+        step = make_distributed_step(mesh, MESH_M, MESH_BL, MESH_PS,
+                                     batch_size=size)
+        acc = make_sharded_accumulator(mesh, MESH_M, MESH_B)
+        dev = acc.device
+        for k in range(STEPS):
+            acc, _ = step(acc, torch.from_numpy(
+                inputs["step.ids"][k, start:start + size].copy()).to(dev),
+                torch.from_numpy(inputs["step.values"][
+                    k, start:start + size].copy()).to(dev))
+        out[f"{tag}.step.acc"] = acc.cpu().numpy()
+        out[f"{tag}.step.device"] = np.array(str(dev))
+        grown = {}
+        _mesh_growth(grown, mesh, inputs)
+        out.update({f"{tag}.{k}": v for k, v in grown.items()})
+        dist.barrier(group=axis_group(mesh, STREAM_AXIS))
+
+
+def _mesh_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
+
+    stream, metric = map(int, arg.split("x"))
+    mesh = make_mesh(stream, metric, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    _mesh_steps(out, mesh, inputs)
+    _mesh_aggregator(out, mesh, inputs, "raw", "raw")
+    _mesh_aggregator(out, mesh, inputs, "sparse", "sparse")
+    _mesh_aggregator(out, mesh, inputs, "spill", "raw",
+                     spill_threshold=SPILL_THRESHOLD)
+    _mesh_growth(out, mesh, inputs)
+    _mesh_refusals(out, mesh)
+
+
+# -- the multihost module (tests/test_torch_multihost.py) ----------------------
+
+MH_WORLD = 2
+MH_M = 8
+MH_BL = 128
+MH_BATCH = 4096
+
+
+def _multihost_job(out, rank, arg, inputs):
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.aggregator import (
+        make_distributed_step,
+        make_interval_distributed_step,
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import (
+        acc_sharding,
+        axis_size,
+        row_vector_sharding,
+    )
+
+    out["shard"] = np.array(multihost.local_sample_shard(800))
+    out["refuse.shard"] = _raises(lambda: multihost.local_sample_shard(801))
+    ps = np.array([0.5, 1.0], dtype=np.float32)
+    ids_all, values_all = inputs["mh.ids"], inputs["mh.values"]
+    for metric in (1, 2):
+        mesh = multihost.global_mesh(metric=metric, device="cpu")
+        tag = f"mh{metric}"
+        out[f"{tag}.shape"] = np.array([axis_size(mesh, "stream"),
+                                        axis_size(mesh, "metric")])
+        start, size = multihost.local_sample_shard(MH_BATCH, mesh)
+        out[f"{tag}.slice"] = np.array([start, size])
+        gids, gvalues = multihost.make_global_arrays(
+            mesh, ids_all[start:start + size], values_all[start:start + size])
+        step = make_distributed_step(mesh, MH_M, MH_BL, ps)
+        acc = make_sharded_accumulator(mesh, MH_M, 2 * MH_BL + 1)
+        acc, stats = step(acc, gids, gvalues)
+        out[f"{tag}.counts"] = multihost.host_gather(
+            stats["counts"], row_vector_sharding(mesh))
+        out[f"{tag}.acc"] = multihost.host_gather(acc, acc_sharding(mesh))
+        ingest, collect, make_partial = make_interval_distributed_step(
+            mesh, MH_M, MH_BL, ps)
+        partial = ingest(make_partial(), gids, gvalues)
+        partial = ingest(partial, gids, gvalues)
+        acc2 = make_sharded_accumulator(mesh, MH_M, 2 * MH_BL + 1)
+        acc2, partial, stats2 = collect(acc2, partial)
+        out[f"{tag}.counts2"] = multihost.host_gather(
+            stats2["counts"], row_vector_sharding(mesh))
+        table = np.arange(MH_M * 3, dtype=np.int64).reshape(MH_M, 3)
+        part = multihost.global_put(table, acc_sharding(mesh))
+        out[f"{tag}.put"] = part.numpy()
+        out[f"{tag}.gather"] = multihost.host_gather(part, acc_sharding(mesh))
+    mesh = multihost.global_mesh(device="cpu")
+    n = 10 + 2 * dist.get_rank()
+    out["refuse.global"] = _raises(lambda: multihost.make_global_arrays(
+        mesh, np.zeros(n, np.int32), np.zeros(n, np.float32)))
+
+
+# -- the firehose module (tests/test_torch_firehose.py) ------------------------
+
+FH_SHAPE = (2, 2)
+FH_M = 16
+FH_BL = 128
+FH_BATCH = 1024
+FH_SEED = 5
+FH_PATHS = ("auto", "scatter", "sort")
+
+
+def _firehose_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.firehose import (
+        make_mesh_firehose_interval_step,
+        run_firehose,
+        stream_generator,
+    )
+    from loghisto_tpu_torch.parallel.aggregator import (
+        make_sharded_accumulator,
+    )
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = MetricConfig(bucket_limit=FH_BL)
+    mesh = make_mesh(*FH_SHAPE, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    gen = stream_generator(mesh, FH_SEED)
+    out["first_draw"] = torch.rand(8, generator=gen).numpy()
+    for path in FH_PATHS:
+        ingest, collect, make_partial = make_mesh_firehose_interval_step(
+            mesh, FH_M, FH_BATCH, cfg, ingest_path=path)
+        gen = stream_generator(mesh, FH_SEED)
+        partial, gen = ingest(make_partial(), gen)
+        partial, gen = ingest(partial, gen)
+        acc = make_sharded_accumulator(mesh, FH_M, cfg.num_buckets)
+        acc, partial = collect(acc, partial)
+        out[f"{path}.acc"] = acc.numpy().copy()
+        out[f"{path}.fresh_sum"] = np.array(int(partial.sum()))
+        out[f"{path}.path"] = np.array(ingest.ingest_path)
+    sink = ("127.0.0.1", int(inputs["sink_port"]))
+    summary = run_firehose(num_metrics=FH_M, batch=FH_BATCH, seconds=0.6,
+                           interval=0.2, config=cfg, mesh=mesh, sink=sink,
+                           out=io.StringIO(), seed=FH_SEED)
+    for key in ("total_samples", "collected_samples", "intervals"):
+        out[f"run.{key}"] = np.array(summary[key])
+    out["run.platform"] = np.array(summary["platform"])
+
+
+# -- the sketches module (tests/test_torch_sketches.py) ------------------------
+
+SK_STREAM = 4
+
+
+def _sketches_job(out, rank, arg, inputs):
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.models import LogHistogram, hll, moments
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_group,
+        make_mesh,
+    )
+    from loghisto_tpu_torch.parallel.multihost import local_sample_shard
+
+    mesh = make_mesh(SK_STREAM, 1, device="cpu")
+    group = axis_group(mesh, STREAM_AXIS)
+
+    def mine(key):
+        values = inputs[key]
+        start, size = local_sample_shard(len(values), mesh)
+        return torch.from_numpy(values[start:start + size].copy())
+
+    regs = hll.insert(hll.empty(device="cpu"), mine("hll"))
+    dist.all_reduce(regs, op=dist.ReduceOp.MAX, group=group)
+    out["hll"] = regs.numpy()
+
+    state = moments.insert(moments.empty(device="cpu"), mine("moments"))
+    fields = [f.name for f in moments.MomentsState.__dataclass_fields__
+              .values()]
+    gathered = {}
+    for name in fields:
+        mine_t = getattr(state, name).reshape(1)
+        parts = [torch.empty_like(mine_t) for _ in range(SK_STREAM)]
+        dist.all_gather(parts, mine_t, group=group)
+        gathered[name] = parts
+    states = [moments.MomentsState(**{n: gathered[n][r][0] for n in fields})
+              for r in range(SK_STREAM)]
+    while len(states) > 1:  # a tree in rank order: (0 1) (2 3), then up
+        states = [moments.merge(states[i], states[i + 1])
+                  for i in range(0, len(states), 2)]
+    for name in fields:
+        out[f"moments.{name}"] = getattr(states[0], name).numpy()
+
+    cfg = MetricConfig(bucket_limit=256)
+    h = LogHistogram.empty(cfg, device="cpu").insert(mine("loghist"))
+    dist.all_reduce(h.counts, group=group)
+    out["loghist"] = h.counts.numpy()
+
+
+# -- the launcher's own contract -----------------------------------------------
+
+def _selftest_job(out, rank, arg, inputs):
+    import threading
+
+    import torch.distributed as dist
+
+    if arg == "raise" and rank == 1:
+        raise ValueError("boom from rank 1")
+    if arg == "worker":  # a collective off the main thread must fail
+        err = []
+
+        def run():
+            try:
+                dist.barrier()
+            except AssertionError as e:
+                err.append(str(e))
+
+        t = threading.Thread(target=run, name="not-main")
+        t.start()
+        t.join(30.0)
+        out["err"] = np.array(err[0] if err else "")
+    if arg == "hang":
+        time.sleep(600)
+    dist.barrier()
+    out["rank"] = np.array(rank)
+
+
+JOBS = {
+    "card": _card_job,
+    "mesh": _mesh_job,
+    "multihost": _multihost_job,
+    "firehose": _firehose_job,
+    "sketches": _sketches_job,
+    "selftest": _selftest_job,
+}
+
+
+
+
+def test_a_failed_rank_ends_the_launch_with_its_traceback(tmp_path):
+    import pytest
+
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError, match="boom from rank 1") as info:
+        launch(tmp_path, 2, "selftest:raise")
+    assert "Traceback" in str(info.value)
+    assert time.monotonic() - t0 < 60.0  # rank 0's barrier was not awaited
+
+
+def test_the_deadline_kills_every_rank(tmp_path):
+    import pytest
+
+    with pytest.raises(AssertionError, match="killed at the deadline"):
+        launch(tmp_path, 2, "selftest:hang", deadline=3.0)
+
+
+def test_ranks_return_in_order_and_collectives_stay_on_the_main_thread(
+        tmp_path):
+    res = launch(tmp_path, 2, "selftest:worker")
+    assert [int(r["rank"]) for r in res] == [0, 1]
+    for r in res:
+        assert "barrier on thread not-main" in str(r["err"])

@@ -24,8 +24,16 @@ numpy from a seed.
     engine's (percentile values rtol 4e-6, XLA's float32 ``exp``);
   * ``torch.func.vmap`` over 8 stacked sketches equals 8 single calls
     EQUAL, and the reference's ``jax.vmap``;
-  * the ports of the accuracy tests of ``tests/test_sketches.py`` (the
-    mesh merges wait for the port's mesh, ROADMAP Queue 1 item 11).
+  * the ports of the accuracy tests of ``tests/test_sketches.py``, and its
+    mesh merges (``:428``, ``:459``) under collectives on four gloo ranks
+    of a (4, 1) mesh (``test_torch_ranks.launch``, one launch for the
+    module; the mesh of ROADMAP Queue 1 item 11a): HLL registers unioned
+    by ``all_reduce(MAX)`` over the stream axis EQUAL a single sketch and
+    JAX's ``pmax`` under ``shard_map``; moments states gathered and
+    merged as a tree in rank order against a single pass (quantiles rtol
+    5e-3, as the reference) and against JAX's same tree; a
+    ``LogHistogram`` row summed in int32 EQUAL to one sketch of the whole
+    stream.
 """
 
 import jax
@@ -641,3 +649,80 @@ def test_sketches_vmap_over_eight_sketches():
         assert torch.equal(regs2[i], hll.insert(regs[i], x[i]))
         assert torch.equal(est[i], hll.estimate(regs2[i]))
     assert np.all(np.abs(est.numpy() / 4096 - 1) < 0.1)
+
+
+# ------------------------- mesh merges (11a) ------------------------- #
+
+
+@pytest.fixture(scope="module")
+def sketch_ranks(tmp_path_factory):
+    import test_torch_ranks as R
+
+    rng = np.random.default_rng(6)
+    inputs = {
+        "hll": rng.integers(0, 5000, 1 << 15).astype(np.float32),
+        "moments": rng.normal(100.0, 15.0, 1 << 14).astype(np.float32),
+        "loghist": rng.lognormal(0.0, 1.0, 1 << 14).astype(np.float32),
+    }
+    return inputs, R.launch(tmp_path_factory.mktemp("sketches"),
+                            R.SK_STREAM, "sketches", inputs)
+
+
+def test_hll_merges_over_mesh_with_all_reduce_max(sketch_ranks):
+    from jax.sharding import PartitionSpec as P
+
+    from loghisto_tpu.parallel.mesh import STREAM_AXIS, make_mesh, shard_map
+
+    import test_torch_ranks as R
+
+    inputs, res = sketch_ranks
+    values = inputs["hll"]
+    single = hll.insert(hll.empty(device=CPU), values).numpy()
+
+    def local(vals):
+        return jax.lax.pmax(jhll.insert(jhll.empty(), vals), STREAM_AXIS)
+
+    pmax = jax.jit(shard_map(
+        local, mesh=make_mesh(stream=R.SK_STREAM, metric=1),
+        in_specs=P(STREAM_AXIS), out_specs=P()))(values)
+    for r in res:
+        np.testing.assert_array_equal(r["hll"], single)
+        np.testing.assert_array_equal(r["hll"], np.asarray(pmax))
+    est = float(hll.estimate(torch.from_numpy(res[0]["hll"])))
+    distinct = len(np.unique(values))
+    assert abs(est / distinct - 1) < 0.05, (est, distinct)
+
+
+def test_moments_merge_over_mesh_matches_single_pass(sketch_ranks):
+    import test_torch_ranks as R
+
+    inputs, res = sketch_ranks
+    values = inputs["moments"]
+    fields = ("count", "mean", "m2", "m3", "m4", "scale", "min", "max")
+    merged = [moments.MomentsState(**{f: torch.from_numpy(r[f"moments.{f}"])
+                                      for f in fields}) for r in res]
+    for m in merged[1:]:  # every rank holds the same state
+        for f in fields:
+            assert torch.equal(getattr(m, f), getattr(merged[0], f)), f
+    merged = merged[0]
+    jstates = [jmoments.insert(jmoments.empty(), c)
+               for c in np.split(values, R.SK_STREAM)]
+    while len(jstates) > 1:  # the same tree, in rank order
+        jstates = [jmoments.merge(jstates[i], jstates[i + 1])
+                   for i in range(0, len(jstates), 2)]
+    _assert_moments_equal(merged, jstates[0])
+    single = moments.insert(moments.empty(device=CPU), values)
+    assert int(moments.count(merged)) == len(values)
+    qs = np.array([0.5, 0.99])
+    np.testing.assert_allclose(moments.quantile(merged, qs).numpy(),
+                               moments.quantile(single, qs).numpy(),
+                               rtol=5e-3)
+
+
+def test_loghistogram_rows_merge_over_mesh_with_an_int32_sum(sketch_ranks):
+    inputs, res = sketch_ranks
+    cfg = MetricConfig(bucket_limit=256)
+    single = LogHistogram.empty(cfg, device=CPU).insert(inputs["loghist"])
+    for r in res:
+        assert r["loghist"].dtype == np.int32
+        np.testing.assert_array_equal(r["loghist"], single.counts.numpy())
