@@ -73,8 +73,11 @@ against host oracles:
     interval steps, 16 batches of 2^20 at the headline width), two
     child ranks on the one card under gloo on meshes (2, 1) and (1, 2)
     (raw and sparse), every block and collected set against the
-    single-device oracle, and run_firehose(mesh=) with its counts
-    conserved;
+    single-device oracle, run_firehose(mesh=) with its counts
+    conserved, and the mesh's fused commit: TorchMetricSystem(mesh=,
+    retention=True) at 1024 rows and the default tiers on (1, 1), (2, 1)
+    and (1, 2), every rank's ring blocks and served query against a
+    single-device system on the card, K3 and K5 on every rank;
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -7083,13 +7086,29 @@ def phase_sketches(torch):
 # (2, 1) and (1, 2), MS_ROW_BATCHES batches for each stream row (row s
 # takes batches s * MS_ROW_BATCHES ...), raw (K1) and sparse (K3)
 # transports, every rank's reduced block and collected set against the
-# oracle; (c) run_firehose(mesh=make_mesh(1, 1)) under NCCL.  One card:
-# no figure here is a scaling figure, the ranks share its SMs.
+# oracle; (c) run_firehose(mesh=make_mesh(1, 1)) under NCCL; (d) the
+# mesh's fused commit (ROADMAP D9, item 11b-1): TorchMetricSystem(mesh=,
+# retention=True, commit="auto") at the system's defaults (MC_M rows, the
+# 60x1 / 60x60 / 24x3600 tiers, bucket_limit 4096) on (1, 1) under NCCL and
+# on (2, 1) and (1, 2) in the two gloo ranks, MC_INTERVALS intervals of each
+# rank's stream row, the first MC_LIVE broadcast through the committer's
+# bridge (queued, D9) and committed by a query, the rest through
+# backfill_retention; every rank's written ring
+# slots (sha256 of its block) and its served query against a single-device
+# TorchMetricSystem on the card fed the merged intervals, K3 and K5
+# launched on every rank.  One card: no figure here is a scaling figure,
+# the ranks share its SMs.
 MS_BATCHES = 16
 MS_ROW_BATCHES = 8
 MS_SHAPES = ((2, 1), (1, 2))
-MS_DEADLINE_S = 240.0
+MS_DEADLINE_S = 300.0
 MS_FH_SECONDS = 1.0
+MC_M = 1024
+MC_INTERVALS = 8
+MC_LIVE = 3  # of them broadcast through the bridge, committed by a query
+MC_CELLS = 16  # cells of each name in each stream row's interval
+MC_PS = (0.5, 0.99, 1.0)
+MC_GATHER_REPS = 5
 
 
 def _ms_batch(k):
@@ -7113,6 +7132,209 @@ def _ms_digest(t):
     import hashlib
 
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def _mc_raw(k, rows):
+    """Interval k of the mesh commit holding the merged cells of the
+    stream rows ``rows``: every name, in order (the ranks' registries
+    intern them alike), and the rows' ``req`` counter."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    hists = {f"m{i}": {} for i in range(MC_M)}
+    for s in rows:
+        rng = np.random.default_rng([SEED, 21, k, s])
+        buckets = np.clip(np.round(rng.normal(800.0, 600.0,
+                                              (MC_M, MC_CELLS))), -BL, BL)
+        counts = rng.integers(1, 100, (MC_M, MC_CELLS))
+        for i, (bs, cs) in enumerate(zip(buckets.astype(np.int64).tolist(),
+                                         counts.tolist())):
+            h = hists[f"m{i}"]
+            for b, c in zip(bs, cs):
+                h[b] = h.get(b, 0) + c
+    return RawMetricSet(
+        _dt.datetime(2026, 1, 1, tzinfo=_dt.timezone.utc)
+        + k * _ONE_SECOND, {}, {"req": k + sum(rows)}, hists, {}, 1.0)
+
+
+def _mc_system(mesh=None):
+    from loghisto_tpu_torch import TorchMetricSystem
+
+    return TorchMetricSystem(interval=1.0, sys_stats=False, num_metrics=MC_M,
+                             retention=True, commit="auto", mesh=mesh)
+
+
+def _mc_digests(torch, wheel, blocks=1):
+    """Per tier, per block of ``blocks`` equal row blocks: sha256 of the
+    written slots; the unwritten slots must be zero."""
+    import hashlib
+
+    out = []
+    for t in wheel._tiers:
+        written = np.nonzero(t.written)[0]
+        slots = t.ring[torch.from_numpy(written).to(t.ring.device)]
+        nonzero = int(torch.count_nonzero(t.ring))
+        if nonzero != int(torch.count_nonzero(slots)):
+            raise AssertionError("an unwritten ring slot holds counts")
+        rows = slots.shape[1] // blocks
+        out.append([hashlib.sha256(
+            slots[:, b * rows:(b + 1) * rows].contiguous().cpu().numpy()
+            .tobytes()).hexdigest() for b in range(blocks)])
+        del slots
+    return out
+
+
+def _mc_served(ms):
+    """The served full-span query of every name."""
+    return {name: entry for name, entry in sorted(
+        ms.query("*", percentiles=MC_PS).metrics.items())}
+
+
+def _mc_same_served(got, want, what):
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: served names differ")
+    for name, w in want.items():
+        g = got[name]
+        for key, value in w.items():
+            if key in ("sum", "avg"):
+                ok = abs(g[key] - value) <= 1e-5 * abs(value) + 1e-6
+            else:  # counts and percentiles (bucket representatives)
+                ok = g[key] == value
+            if not ok:
+                raise AssertionError(f"{what}: {name} {key} {g[key]} != "
+                                     f"{value}")
+
+
+def _mc_oracles(torch):
+    """The single-device committer on the card fed the merged intervals:
+    for (2, 1) stream rows 0 and 1, for (1, 1) and (1, 2) row 0 alone.
+    Returns {rows: (digests per tier for 1 and 2 row blocks, served)}."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    out = {}
+    for rows in ((0, 1), (0,)):
+        ms = _mc_system()
+        try:
+            reset_kernel_launches()
+            ms.backfill_retention([_mc_raw(k, rows)
+                                   for k in range(MC_INTERVALS)])
+            if ms.committer.fused_intervals != MC_INTERVALS:
+                raise AssertionError("the oracle did not commit fused")
+            launched = kernel_launches()
+            out[rows] = ({1: _mc_digests(torch, ms.retention),
+                          2: _mc_digests(torch, ms.retention, 2)},
+                         _mc_served(ms),
+                         {k: v for k, v in launched.items() if v})
+        finally:
+            ms.stop()
+            del ms
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mc_run(torch, mesh, rows):
+    """Part (d) on one rank: MC_INTERVALS intervals of this rank's stream
+    row, the first MC_LIVE of them broadcast through the committer's
+    subscription (the live path: the bridge queues them, D9, and the
+    first query commits them), the rest through backfill_retention, one
+    at a time; the live drain's time, per-interval commit times, the
+    stream gather's time, the launches, the digests of the rank's ring
+    blocks and the served query."""
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_size,
+        gather_triples,
+        pad_triples,
+    )
+
+    ms = _mc_system(mesh)
+    try:
+        if ms.commit_path != "fused" or ms.debug_dump()["mesh"] is None:
+            raise AssertionError(f"the mesh resolved {ms.commit_path}")
+        raws = [_mc_raw(k, rows) for k in range(MC_INTERVALS)]
+        reset_kernel_launches()
+        ms._update_subscribers()  # the committer's subscription
+        for raw in raws[:MC_LIVE]:
+            with ms._subscribers_lock:
+                ms._broadcast(ms._raw_subscribers, raw)
+        end = time.monotonic() + 60.0
+        while ms.committer.queued_intervals < MC_LIVE:
+            if time.monotonic() > end:
+                raise AssertionError("the bridge did not queue the "
+                                     "broadcast intervals")
+            time.sleep(0.01)
+        if ms.committer.intervals_committed:
+            raise AssertionError("the bridge committed off the main thread")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms.query("m0")  # commits the queued intervals, then serves
+        torch.cuda.synchronize()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        if (ms.committer.intervals_committed != MC_LIVE
+                or ms.debug_dump()["queued_intervals"]):
+            raise AssertionError("the query did not commit the queued "
+                                 "intervals")
+        commit_ms = []
+        for raw in raws[MC_LIVE:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms.backfill_retention([raw])
+            torch.cuda.synchronize()
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        for kernel in ("sparse_ingest", "window_merge"):
+            if launched.get(kernel, 0) <= 0:
+                raise AssertionError(f"{kernel} not launched on the mesh "
+                                     "commit")
+        if ms.aggregator.stats_snapshot is not None:
+            raise AssertionError("a mesh rank published an acc snapshot")
+        # the stream gather of one chunk's shares, alone
+        width = ms.committer._staging.width
+        share = torch.from_numpy(pad_triples(np.zeros((0, 3), np.int32),
+                                             width)).cuda()
+        gather_ms = []
+        for _ in range(MC_GATHER_REPS + 1):
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.get_group(STREAM_AXIS))
+            t0 = time.perf_counter()
+            gather_triples(mesh, share)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return {
+            "commit_path": ms.commit_path,
+            "mesh": ms.debug_dump()["mesh"],
+            "live_drain_ms": drain_ms,
+            "commit_ms": commit_ms, "gather_ms": gather_ms[1:],
+            "gather_cells": width * axis_size(mesh, STREAM_AXIS),
+            "steps": ms.committer.last_dispatches,
+            "ring_gb": ms.retention.hbm_bytes() / 1e9,
+            "launches": launched,
+            "digests": _mc_digests(torch, ms.retention),
+            "served": _mc_served(ms),
+        }
+    finally:
+        ms.stop()
+        del ms
+        torch.cuda.empty_cache()
+
+
+def _mc_check(got, oracle, block, blocks, what):
+    """One rank's part (d) against the oracle of its stream rows."""
+    digests, served, _ = oracle
+    want = [tier[block] for tier in digests[blocks]]
+    if [tier[0] for tier in got["digests"]] != want:
+        raise AssertionError(f"{what}: the ring blocks differ from the "
+                             "single-device committer's")
+    _mc_same_served(got["served"], served, what)
+    return {k: v for k, v in got.items() if k not in ("digests", "served")}
 
 
 def _ms_child(argv):
@@ -7179,6 +7401,11 @@ def _ms_child(argv):
                     "transport": agg.transport, "ingest_path":
                         agg.ingest_path,
                     "launches": {k: v for k, v in launches.items() if v}}
+            commit = _mc_run(torch, mesh, (s,))
+            with open(os.path.join(
+                    tmp, f"{shape[0]}x{shape[1]}-commit-{rank}.json"),
+                    "w") as f:
+                json.dump(commit, f)
     finally:
         multihost.shutdown()
     print(json.dumps(out), flush=True)
@@ -7355,10 +7582,23 @@ def phase_mesh(torch):
     out = {"card": card, "batches": MS_BATCHES, "batch": BATCH}
     procs = []
     try:
+        t_oracle = time.perf_counter()
+        oracles = _mc_oracles(torch)
+        out["commit_oracle"] = {
+            "s": time.perf_counter() - t_oracle,
+            "launches": {str(k): v[2] for k, v in oracles.items()}}
         multihost.initialize(f"file://{tmp}/rdzv1", 1, 0, timeout_s=120.0)
         try:
             mesh, out["world1"] = _ms_world1(torch, batches, acc16, want16)
             out["firehose"] = _ms_firehose(torch, mesh)
+            t_commit = time.perf_counter()
+            one = _mc_check(_mc_run(torch, mesh, (0,)), oracles[(0,)], 0, 1,
+                            "1x1 commit")
+            out["commit_1x1"] = {**one, "s": time.perf_counter() - t_commit}
+            for kernel in ("sparse_ingest", "window_merge"):
+                RESULTS.setdefault(kernel, {})["launches"] = (
+                    RESULTS.get(kernel, {}).get("launches", 0)
+                    + one["launches"][kernel])
         finally:
             multihost.shutdown()
         del acc8, acc16, batches
@@ -7401,6 +7641,19 @@ def phase_mesh(torch):
         out["two_ranks"] = {
             f"{key}-{transport}": [r[f"{key}-{transport}"] for r in ranks]
             for key in want for transport in ("raw", "sparse")}
+        for shape in MS_SHAPES:
+            key = f"{shape[0]}x{shape[1]}"
+            stream_rows = (0, 1) if shape[0] == 2 else (0,)
+            checked = []
+            for r in ranks:
+                with open(os.path.join(tmp, f"{key}-commit-{r['rank']}.json")
+                          ) as f:
+                    got = json.load(f)
+                block = r["rank"] if shape[1] == 2 else 0
+                checked.append(_mc_check(
+                    got, oracles[stream_rows], block, shape[1],
+                    f"{key} commit rank {r['rank']}"))
+            out[f"commit_{key}"] = checked
     finally:
         for p in procs:
             if p.poll() is None:

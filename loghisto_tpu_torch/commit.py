@@ -1,7 +1,7 @@
 """IntervalCommitter: one subscription that lands every interval on the
 aggregator and on every retention tier (counterpart of
 ``loghisto_tpu/commit.py``, for a single-device pair on dense or paged
-storage).
+storage, and for one rank of a mesh on dense storage).
 
 The fan-out path resolves an interval's names twice and uploads its
 cells twice (the aggregator's bridge, ``merge_raw``, and the wheel's,
@@ -65,6 +65,32 @@ outside the commit steps' net (a hook, the lifecycle tick) still leaves
 ``bridge_error`` (also on the aggregator and the wheel), so the next
 query, ``device_metrics()`` and ``stop()`` re-raise it.
 
+On a ("stream", "metric") mesh (ROADMAP D8, D9) the aggregator and the
+wheel hold this rank's blocks and the rank commits its stream row's
+intervals; the global interval is the union over the stream rows.  The
+ranks first agree, in one reduction over the mesh, on the interval's
+chunk count (the most any stream row needs at ``chunk / n_stream``
+cells a rank) and on the path: any rank past its share of the int32
+envelope (``spill_threshold / n_stream``) or with an open breaker takes
+every rank to the fan-out, which lands the row's cells in the
+accumulator and gathers them for the wheel's push.  On the fused path
+each chunk is one step of ``make_sharded_fused_commit_fn``: the stream
+rows' shares gathered, the rank's own share into its accumulator block
+(which stays the stream row's partial until ``collect()`` reduces it;
+cells of rows the registry grew past the blocks wait on the host for
+``collect()``'s re-layout), the gathered chunk into its block of every
+tier's open slot.  A rank whose step fails recovers as above and still
+sends its later chunks, so its peers' rings miss nothing.  No
+accumulator snapshot is published: ``agg.stats_snapshot`` stays None.
+D9's thread rule: every collective runs at a collective entry point on
+the rank's main thread.  ``commit()`` is one, so every rank calls it
+for the same intervals in the same order; an attached bridge only
+queues the broadcast intervals, and ``commit()`` and ``drain()`` (the
+system's ``device_metrics()``, ``backfill_retention`` and window
+queries call it) commit the queued ones first, in seq order, as many as
+every rank holds.  The lifecycle and drift engines on a mesh wait for
+ROADMAP Queue 1 item 11b-2.
+
 Resilience, installed by ``TorchMetricSystem(resilience=...)``: an open
 ``breaker`` pins the fan-out path (the aggregator's ``_merge_cells_locked``
 and the wheel's push, K3 on the card) until a half-open trial commit
@@ -88,16 +114,31 @@ import numpy as np
 import torch
 
 from loghisto_tpu_torch.channel import ChannelClosed, ResilientSubscription
-from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
+from loghisto_tpu_torch.metrics import (
+    MetricSystem,
+    RawMetricSet,
+    empty_interval,
+)
 from loghisto_tpu_torch.obs.spans import NULL_RECORDER, LatencyHistogram
 from loghisto_tpu_torch.ops.commit import (
     COMMIT_CHUNK,
+    MESH_TRACKING,
     CellStagingRing,
     PagedTripleRing,
     make_fused_commit_fn,
     make_fused_commit_snapshot_fn,
     make_paged_fused_commit_fn,
     make_paged_fused_commit_snapshot_fn,
+    make_sharded_fused_commit_fn,
+    make_sharded_fused_commit_snapshot_fn,
+)
+from loghisto_tpu_torch.parallel.mesh import (
+    STREAM_AXIS,
+    IntervalQueue,
+    axis_size,
+    gather_triples,
+    mesh_reduce,
+    pad_triples,
 )
 from loghisto_tpu_torch.resilience.supervise import spawn_thread
 from loghisto_tpu_torch.window.snapshot import AccSnapshot
@@ -109,7 +150,7 @@ logger = logging.getLogger("loghisto_tpu_torch")
 def commit_incompatibility(aggregator, wheel) -> Optional[str]:
     """Why this (aggregator, wheel) pair cannot share one fused commit,
     or None when it can: one cell array feeds both, so they must agree
-    on row ids (one registry), bucket geometry and device."""
+    on row ids (one registry), bucket geometry, device and mesh."""
     if aggregator.registry is not wheel.registry:
         return "aggregator and wheel use different registries"
     if aggregator.config.bucket_limit != wheel.config.bucket_limit:
@@ -127,10 +168,10 @@ def commit_incompatibility(aggregator, wheel) -> Optional[str]:
         return (
             f"aggregator on {aggregator.device}, wheel on {wheel.device}"
         )
-    if getattr(aggregator, "mesh", None) is not None:
+    if getattr(aggregator, "mesh", None) is not getattr(wheel, "mesh", None):
         return (
-            "the aggregator holds one rank's block of a mesh; the sharded "
-            "fused commit waits for ROADMAP Queue 1 item 11b"
+            "aggregator and wheel are sharded over different meshes (the "
+            "fused program's carries must share one row sharding)"
         )
     return None
 
@@ -187,7 +228,24 @@ class IntervalCommitter:
         tiers_n = len(wheel._tiers)
         bl, prec = wheel.config.bucket_limit, wheel.config.precision
         track, track_b = lifecycle is not None, anomaly is not None
-        if self.paged is not None:
+        self.mesh = getattr(aggregator, "mesh", None)
+        width = self.chunk
+        if self.mesh is not None:
+            n_stream = axis_size(self.mesh, STREAM_AXIS)
+            if self.chunk % n_stream:
+                raise ValueError(
+                    f"commit chunk {self.chunk} not divisible by the mesh "
+                    f"stream axis ({n_stream}): staged cell chunks always "
+                    "pad to the full width, which must split evenly"
+                )
+            if track or track_b:
+                raise ValueError(f"fused commit on a mesh: {MESH_TRACKING}")
+            # a rank stages its stream row's share of each chunk
+            width = self.chunk // n_stream
+            self._fused = make_sharded_fused_commit_fn(self.mesh, tiers_n, bl)
+            self._fused_snap = make_sharded_fused_commit_snapshot_fn(
+                self.mesh, tiers_n, bl, prec)
+        elif self.paged is not None:
             self._fused = make_paged_fused_commit_fn(tiers_n, bl, track)
             self._fused_snap = make_paged_fused_commit_snapshot_fn(
                 tiers_n, bl, prec, track_activity=track)
@@ -197,8 +255,7 @@ class IntervalCommitter:
                 tiers_n, bl, prec, track_activity=track,
                 track_baseline=track_b,
             )
-        self._staging = CellStagingRing(depth=staging_depth,
-                                        width=self.chunk,
+        self._staging = CellStagingRing(depth=staging_depth, width=width,
                                         device=aggregator.device)
         self._triples = (
             PagedTripleRing(depth=staging_depth, width=self.chunk,
@@ -238,6 +295,8 @@ class IntervalCommitter:
         self._sub: Optional[ResilientSubscription] = None
         self._thread: Optional[threading.Thread] = None
         self.bridge_error: Optional[BaseException] = None
+        # on a mesh, the attached bridge's queue (D9)
+        self._queue = None
 
     # -- cell construction ---------------------------------------------- #
 
@@ -285,7 +344,30 @@ class IntervalCommitter:
     def commit(self, raw: RawMetricSet, duration: Optional[float] = None):
         """Land one interval on the aggregator AND every retention tier,
         then score drift, run the wheel's hooks and the lifecycle tick.
-        Returns the path taken ("fused", "fanout" or "empty")."""
+        Returns the path taken ("fused", "fanout" or "empty").  On a mesh
+        ``raw`` is this rank's stream row's interval, and the call is a
+        collective that commits the queued intervals first."""
+        self.drain()
+        return self._commit_one(raw, duration)
+
+    def drain(self, final: bool = False) -> int:
+        """Commit the intervals an attached bridge queued on a mesh, as
+        many as every rank holds (with ``final``, as the last drain at
+        ``stop()``, the most any rank holds, a rank short of it an empty
+        interval for each it lacks); a collective of the mesh.  0 and no
+        collective off a mesh or before ``attach``."""
+        if self._queue is None:
+            return 0
+        return self._queue.drain(final)
+
+    @property
+    def queued_intervals(self) -> int:
+        """Intervals the bridge queued on a mesh that no collective call
+        has committed yet (D9): on the host, not yet queryable."""
+        return 0 if self._queue is None else len(self._queue)
+
+    def _commit_one(self, raw: RawMetricSet,
+                    duration: Optional[float] = None):
         rec = self.obs_recorder
         # adopt the reaper-minted interval seq: every span recorded until
         # the next commit attributes to this interval
@@ -302,7 +384,9 @@ class IntervalCommitter:
         b0 = self._staging.bytes_uploaded
         with rec.span("commit.cells", seq):
             cells = self._cells_from_raw(raw)
-        if cells is None:
+        if self.mesh is not None:
+            mode, dispatches = self._commit_cells_mesh(cells, raw, dur)
+        elif cells is None:
             # slot rotation and durations still advance
             wheel.push_cells(None, raw, dur)
             mode, dispatches = "empty", 0
@@ -419,13 +503,9 @@ class IntervalCommitter:
         buckets = idx - np.int32(wheel.config.bucket_limit)
         w64 = cells[2]
         tiers = wheel._tiers
-        slots = [t.slot for t in tiers]
-        keeps = [
-            0 if wheel._tier_open_locked(t, s) else 1
-            for t, s in zip(tiers, slots)
-        ]
+        slots, keeps, windows, masks = self._open_tiers_locked(
+            raw, dur, (ids, idx, w32))
         ones = [1] * len(tiers)
-        wheel._note_interval_locked(raw.time, (ids, idx, w32))
         lc, an = self.lifecycle, self.anomaly
         if lc is not None:
             la = lc.ensure_capacity_locked(agg.num_metrics)
@@ -433,13 +513,7 @@ class IntervalCommitter:
         if an is not None:
             ihist, banks = an.ensure_capacity_locked(agg.num_metrics)
             bank = an.bank_for(raw.time)
-        emit = wheel.snapshots_enabled
-        if emit:
-            windows = wheel._view_windows_locked()
-            masks = tuple(
-                self._post_close_masks(t, s, dur, windows)
-                for t, s in zip(tiers, slots)
-            )
+        emit = masks is not None
         n = len(ids)
         dispatches = 0
         applied = 0
@@ -542,24 +616,176 @@ class IntervalCommitter:
         except Exception:
             payloads = acc_payload = None
             self._on_fused_failure_locked(cells, applied)
+        self._close_tiers_locked(slots, raw, dur, windows, masks, payloads,
+                                 acc_payload)
+        return dispatches
+
+    def _open_tiers_locked(self, raw: RawMetricSet, dur: float, dense):
+        """Open every tier's slot and note the interval (its dense cells,
+        or None): (slots, keep factors, view windows, post-close masks),
+        the last two None without snapshots."""
+        wheel = self.wheel
+        tiers = wheel._tiers
+        slots = [t.slot for t in tiers]
+        keeps = [0 if wheel._tier_open_locked(t, s) else 1
+                 for t, s in zip(tiers, slots)]
+        wheel._note_interval_locked(raw.time, dense)
+        if not wheel.snapshots_enabled:
+            return slots, keeps, None, None
+        windows = wheel._view_windows_locked()
+        return slots, keeps, windows, tuple(
+            self._post_close_masks(t, s, dur, windows)
+            for t, s in zip(tiers, slots))
+
+    def _close_tiers_locked(self, slots, raw: RawMetricSet, dur: float,
+                            windows, masks, payloads, acc_payload) -> None:
+        """Close every tier's slot, then publish the final step's
+        payloads (None after a failure, or without snapshots): tier
+        metadata now matches the post-close state the masks encoded."""
+        agg, wheel = self.aggregator, self.wheel
+        tiers = wheel._tiers
         for t, s in zip(tiers, slots):
             wheel._tier_close_locked(t, s, raw.rates, dur)
-        if payloads is not None:
-            # tier metadata now matches the post-close state the masks
-            # encoded: publish the handles
-            with self.obs_recorder.span("commit.snapshot_publish"):
-                wheel.publish_snapshot_locked(tuple(
-                    wheel._tier_snapshot_locked(ti, windows, masks[ti],
-                                                payloads[ti])
-                    for ti in range(len(tiers))
-                ))
-                if acc_payload is not None:
-                    agg.stats_snapshot = AccSnapshot(
-                        epoch=wheel.intervals_pushed,
-                        cdf=acc_payload["cdf"],
-                        counts=acc_payload["counts"],
-                        sums=acc_payload["sums"],
-                    )
+        if payloads is None:
+            return
+        with self.obs_recorder.span("commit.snapshot_publish"):
+            wheel.publish_snapshot_locked(tuple(
+                wheel._tier_snapshot_locked(ti, windows, masks[ti],
+                                            payloads[ti])
+                for ti in range(len(tiers))
+            ))
+            if acc_payload is not None:
+                agg.stats_snapshot = AccSnapshot(
+                    epoch=wheel.intervals_pushed,
+                    cdf=acc_payload["cdf"],
+                    counts=acc_payload["counts"],
+                    sums=acc_payload["sums"],
+                )
+
+    # -- the commit on a mesh (D9) -------------------------------------- #
+
+    def _commit_cells_mesh(self, cells, raw: RawMetricSet, dur: float):
+        """Commit this rank's stream row's cells (or None).  Returns
+        (mode, dispatches).  The ranks agree first (one reduction over
+        the mesh, every rank, every interval): the chunk count, the most
+        any rank needs, and the fan-out if any rank needs it."""
+        import torch.distributed as dist
+
+        agg, wheel = self.aggregator, self.wheel
+        width = self._staging.width
+        n = 0 if cells is None else len(cells[0])
+        spill = self.breaker is not None and self.breaker.is_open()
+        if cells is not None:
+            ids, _, w64 = cells
+            lo = agg._row0
+            block = (ids >= lo) & (ids < lo + agg._rows)
+            spill = (spill or int(w64.max()) >= 1 << 30
+                     or agg._interval_ingested + int(
+                         w64[block].sum(dtype=np.int64)) >= agg._spill_at)
+        nchunks, spill = mesh_reduce(self.mesh, [-(-n // width), int(spill)],
+                                     dist.ReduceOp.MAX)
+        if nchunks == 0:
+            # no stream row has a cell: slot rotation and durations still
+            # advance (the push's own agreement finds nothing to gather)
+            wheel.push_cells(None, raw, dur)
+            return "empty", 0
+        if spill:
+            # the aggregator keeps its block of the row's cells (K3, or
+            # its exact host spill past the envelope), the wheel's push
+            # gathers them
+            with agg._dev_lock:
+                if cells is not None:
+                    agg._merge_cells_locked(*cells)
+                agg.stats_snapshot = None
+            wheel.push_cells(None if cells is None
+                             else self._dense_cells(cells), raw, dur)
+            return "fanout", nchunks * (1 + len(wheel._tiers))
+        with agg._dev_lock:
+            with wheel._lock:
+                return "fused", self._mesh_dispatch_locked(cells, raw, dur,
+                                                           nchunks)
+
+    def _mesh_dispatch_locked(self, cells, raw: RawMetricSet, dur: float,
+                              nchunks: int) -> int:
+        """The fused path of a mesh rank (caller holds agg._dev_lock,
+        then wheel._lock): ``nchunks`` steps of the sharded step, each
+        on this rank's share of the chunk (padded to the staging width),
+        the last the snapshot variant; then the tiers close and the
+        snapshot is published.  Returns the number of steps."""
+        agg, wheel = self.aggregator, self.wheel
+        width = self._staging.width
+        bl = wheel.config.bucket_limit
+        if cells is None:
+            dense = None
+            local = np.empty((0, 3), dtype=np.int32)
+            w_block = np.empty(0, dtype=np.int64)
+        else:
+            dense = self._dense_cells(cells)
+            ids, idx, w32 = dense
+            local = np.stack([ids, idx - np.int32(bl), w32], axis=1)
+            # rows the registry grew past the blocks: they wait on the
+            # host for collect()'s re-layout (the accumulator's share;
+            # the wheel's rows never grow)
+            agg._stash_late_cells_locked(*cells)
+            lo = agg._row0
+            w_block = np.where((ids >= lo) & (ids < lo + agg._rows),
+                               cells[2], 0)
+        tiers = wheel._tiers
+        slots, keeps, windows, masks = self._open_tiers_locked(raw, dur,
+                                                               dense)
+        ones = [1] * len(tiers)
+        emit = masks is not None
+        dispatches = applied = gathered = 0
+        payloads = None
+
+        def share(k: int) -> np.ndarray:
+            return pad_triples(local[k * width:(k + 1) * width], width)
+
+        def landed():
+            nonlocal applied
+            applied = min(len(local), (dispatches + 1) * width)
+            agg._device_down_until = 0.0
+            agg._interval_ingested += int(
+                w_block[dispatches * width:applied].sum(dtype=np.int64))
+
+        def on_gather():
+            nonlocal gathered
+            gathered = dispatches + 1
+
+        try:
+            inj = self.fault_injector
+            for k in range(nchunks):
+                if inj is not None:
+                    inj.check("commit.dispatch")
+                part = share(k)
+                with self.obs_recorder.span("commit.upload"):
+                    packed = self._staging.stage(part[:, 0], part[:, 1],
+                                                 part[:, 2])
+                final = emit and k == nchunks - 1
+                args = [agg._acc, [t.ring for t in tiers], slots,
+                        keeps if k == 0 else ones, packed]
+                if final:
+                    args.append(masks)
+                with self.obs_recorder.span("commit.dispatch"):
+                    out = (self._fused_snap if final else self._fused)(
+                        *args, landed=landed, gathered=on_gather)
+                if final:
+                    payloads = out[2]  # out[3], the acc payload, is None
+                dispatches += 1
+            if self.obs_recorder.enabled:
+                with self.obs_recorder.span("commit.device_sync"):
+                    device_sync(agg.device)
+            if self.breaker is not None:
+                self.breaker.record_success()
+        except Exception:
+            payloads = None
+            self._on_fused_failure_locked(cells, applied)
+            # the peers' rings still need this rank's later shares: send
+            # them, in order, so every rank's gathers stay in step
+            for k in range(gathered, nchunks):
+                gather_triples(self.mesh, torch.from_numpy(share(k)))
+        self._close_tiers_locked(slots, raw, dur, windows, masks, payloads,
+                                 None)
         return dispatches
 
     def _on_fused_failure_locked(self, cells, applied: int) -> None:
@@ -579,8 +805,11 @@ class IntervalCommitter:
         a chunk whose K3 (or, paged, K4) launch returned before a later
         launch of its step failed, so that chunk is not spilled again."""
         agg, wheel = self.aggregator, self.wheel
-        ids, bidx64, w64 = cells
         agg._on_device_failure_locked()
+        if cells is None:  # a mesh rank without cells of its own
+            wheel.invalidate_snapshot_locked()
+            return
+        ids, bidx64, w64 = cells
         if self.lifecycle is not None:
             self.lifecycle.on_device_failure_locked(ids[:applied])
         if self.anomaly is not None:
@@ -595,8 +824,14 @@ class IntervalCommitter:
             self.paged.spill_triples(trip)
             start = applied + take
         if start < len(ids):
-            agg._spill_add_cells_locked(ids[start:], bidx64[start:],
-                                        w64[start:])
+            rest = ids[start:]
+            if self.mesh is not None:
+                # the spill holds this rank's block (late rows wait on
+                # the host already)
+                lo, rows = agg._row0, agg._rows
+                rest = np.where((rest >= lo) & (rest < lo + rows),
+                                rest - lo, -1)
+            agg._spill_add_cells_locked(rest, bidx64[start:], w64[start:])
 
     # -- warmup / attach ------------------------------------------------ #
 
@@ -637,6 +872,10 @@ class IntervalCommitter:
         if self._thread is not None:
             raise RuntimeError("already attached")
         self.warmup()
+        if self.mesh is not None and self._queue is None:
+            self._queue = IntervalQueue(self.mesh, self._commit_one,
+                                        empty_interval)
+        queue = self._queue
         self._ms = ms
         self._sub = ResilientSubscription(
             ms.subscribe_to_raw_metrics,
@@ -656,6 +895,11 @@ class IntervalCommitter:
                     # outside the per-commit net: a scripted bridge crash
                     # reaches the supervisor's restart loop
                     inj.check("commit.bridge")
+                if queue is not None:
+                    # D9: a commit is a collective; the entry points on
+                    # the main thread commit it
+                    queue.put(raw)
+                    continue
                 try:
                     self.commit(raw)
                 except Exception as e:

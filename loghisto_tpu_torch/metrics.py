@@ -102,6 +102,13 @@ class ProcessedMetricSet:
     metrics: Dict[str, float]
 
 
+def empty_interval() -> RawMetricSet:
+    """An interval with nothing in it, stamped now: on a mesh, what a
+    rank commits at ``stop()`` in place of an interval a peer holds and
+    it does not (``parallel.mesh.IntervalQueue``)."""
+    return RawMetricSet(_dt.datetime.now(_dt.timezone.utc), {}, {}, {}, {})
+
+
 def merge_raw_metric_sets(a: RawMetricSet, b: RawMetricSet) -> RawMetricSet:
     """Merge two RawMetricSets (the same interval collected by two
     processes).  Counters/rates add, histograms merge bucket-wise, gauges

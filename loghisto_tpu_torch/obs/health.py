@@ -72,6 +72,17 @@ invariants (``emitter_starvation``, ``fed_decode_errors``,
 ``fleet_freshness_stall``, ``emitter_clock_skew``) fire through the
 system; without a federation tier the receiver is ``None`` and they
 never do.
+
+One invariant is the port's own, as its cause is (ROADMAP D9: on a mesh
+the bridge queues each interval for the rank's next collective call):
+
+  * ``commit_backlog``       — at least ``stall_intervals`` intervals
+    wait in the mesh bridge's queue (the committer's, or the wheel's on
+    the fan-out path): their samples sit on the host, not yet queryable,
+    until the rank calls ``query``, ``device_metrics`` or
+    ``backfill_retention``.  Off a mesh the queue does not exist and the
+    reason never fires; it has no gauge, so the gauge family stays the
+    reference's.
 """
 
 from __future__ import annotations
@@ -432,6 +443,19 @@ class HealthWatchdog:
                     ),
                     "value": sat,
                 })
+
+        backlog = sum(int(getattr(part, "queued_intervals", 0) or 0)
+                      for part in (com, self._wheel) if part is not None)
+        if backlog >= self.stall_intervals:
+            reasons.append({
+                "code": "commit_backlog",
+                "detail": (
+                    f"{backlog} intervals queued on the host for the "
+                    "next collective call (query, device_metrics, "
+                    "backfill_retention); not yet queryable"
+                ),
+                "value": float(backlog),
+            })
 
         down_until = float(getattr(agg, "_device_down_until", 0.0) or 0.0)
         if down_until > now:

@@ -3,9 +3,11 @@ aggregator's accumulator and every retention tier's open slot
 (counterpart of ``loghisto_tpu/ops/commit.py``: ``COMMIT_CHUNK``,
 ``DROP_ID``, ``make_fused_commit_fn``, ``make_fused_commit_snapshot_fn``,
 their paged twins ``make_paged_fused_commit_fn`` and
-``make_paged_fused_commit_snapshot_fn``, ``CellStagingRing`` and
-``PagedTripleRing``; the sharded family waits for ROADMAP Queue 1 item
-11b, its paged form for 11c).
+``make_paged_fused_commit_snapshot_fn``, ``CellStagingRing``,
+``PagedTripleRing``, and the sharded dense pair
+``make_sharded_fused_commit_fn`` and
+``make_sharded_fused_commit_snapshot_fn``; the sharded paged pair waits
+for ROADMAP Queue 1 item 11c).
 
 The reference jits one donated-carry program per chunk of cells.  The
 port runs the same steps eagerly on PyTorch's current stream and updates
@@ -37,6 +39,20 @@ adds into the pool before the one K3 launch into every tier's open slot;
 the final step emits the tier payloads only, since the pool's counts sit
 behind per-row codecs and ``PagedStore.query`` / ``stats`` serve them.
 
+On a ("stream", "metric") mesh (ROADMAP D8, D9) a rank's step takes its
+stream row's share of the chunk, int32 triples of global ids padded to
+``chunk / n_stream`` rows.  It gathers the shares of every stream row
+(``parallel/mesh.gather_triples``, one ``all_gather`` over the stream
+axis), adds its own share into its block of the accumulator (one K3:
+the accumulator stays the stream row's partial, which ``collect()``
+reduces) and the gathered chunk into its block of every tier's open
+slot (one K3 for every tier; one K3 for all of them on a one-row
+stream axis, where the share is the chunk), each keeping the ids of
+its block; the final step's payloads are K5 over the rank's ring
+blocks, row-sharded like the reference's.  The JAX program psums dense
+shard-local deltas instead; int32 adds commute, so the rings are the
+same bits.
+
 Integer scatter-adds are order-independent, so the fused commit equals
 the fan-out path (``merge_raw`` + ``TimeWheel.push``) bit for bit.
 ``loghisto_tpu_torch.commit.IntervalCommitter`` owns locks, spill policy
@@ -54,6 +70,14 @@ from loghisto_tpu_torch.ops.paged_store import paged_scatter
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
 from loghisto_tpu_torch.ops.stats import dense_cdf
 from loghisto_tpu_torch.ops.window import window_snapshot
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    STREAM_AXIS,
+    axis_index,
+    axis_size,
+    block_triples,
+    gather_triples,
+)
 
 # Cells per commit step, matching the aggregator bridge's merge chunk:
 # a typical interval is one step, a 10k-metric worst case a handful.
@@ -205,6 +229,117 @@ def make_fused_commit_snapshot_fn(
                                         min_count))
         out.extend((payloads, dense_cdf(acc, bucket_limit, precision)))
         return tuple(out)
+
+    return commit
+
+
+MESH_TRACKING = (
+    "the lifecycle's activity carry and the drift engine's banks on a "
+    "mesh wait for ROADMAP Queue 1 item 11b-2"
+)
+
+
+def _sharded_fold(mesh, acc, rings, slots, keeps, packed, bucket_limit,
+                  landed, gathered):
+    """One chunk of a mesh rank (in place): the stream row shares
+    gathered, the ring-wrap clears, then the rank's own share into its
+    accumulator block and the gathered chunk into its block of every
+    tier's open slot.  Those are two K3 launches, or one where the
+    stream axis is 1 (the gathered chunk is the share) and the blocks
+    cover the same rows.  ``landed()`` runs once the share sits in the
+    accumulator."""
+    whole = gather_triples(mesh, packed)
+    if gathered is not None:
+        gathered()
+    m = axis_index(mesh, METRIC_AXIS)
+    views = []
+    for ring, slot, keep in zip(rings, slots, keeps):
+        view = ring[int(slot)]
+        if int(keep) != 1:
+            view.mul_(int(keep))  # ring wrap: clear the slot's old life
+        views.append(view)
+    rows = acc.shape[0]
+    # the wheel's tiers all have its rows; the accumulator may have more
+    ring_rows = views[0].shape[0] if views else rows
+    if axis_size(mesh, STREAM_AXIS) == 1 and ring_rows == rows:
+        sparse_ingest_multi([acc] + views,
+                            block_triples(whole, m * rows, rows),
+                            bucket_limit)
+        if landed is not None:
+            landed()
+        return
+    sparse_ingest_multi([acc], block_triples(packed, m * rows, rows),
+                        bucket_limit)
+    if landed is not None:
+        landed()
+    if views:
+        sparse_ingest_multi(views,
+                            block_triples(whole, m * ring_rows, ring_rows),
+                            bucket_limit)
+
+
+def make_sharded_fused_commit_fn(
+    mesh,
+    num_tiers: int,
+    bucket_limit: int,
+    track_activity: bool = False,
+    track_baseline: bool = False,
+):
+    """``make_fused_commit_fn`` for one rank of a ("stream", "metric")
+    mesh: ``commit(acc, rings, slots, keeps, packed) -> (acc, rings)``
+    with the single-device operands, where ``acc`` is the rank's
+    ``[M / n_metric, B]`` block (its stream row's partial), each ring
+    its ``[S_t, M_t / n_metric, B]`` block, and ``packed`` its stream
+    row's share of the chunk (int32 ``[chunk / n_stream, 3]``, global
+    ids, pad rows id -1).  A collective of the rank's stream line: every
+    rank of it calls the step once per chunk, in the same order.
+    ``landed`` runs once the share sits in the accumulator, ``gathered``
+    once the chunk's ``all_gather`` returned (a failing rank still owes
+    its peers the later chunks' gathers).  The lifecycle and drift
+    carries wait for 11b-2 (``MESH_TRACKING``)."""
+    if track_activity or track_baseline:
+        raise ValueError(f"sharded fused commit: {MESH_TRACKING}")
+
+    def commit(acc, rings, slots, keeps, packed, *, landed=None,
+               gathered=None):
+        rings = tuple(rings)
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        _sharded_fold(mesh, acc, rings, slots, keeps, packed, bucket_limit,
+                      landed, gathered)
+        return acc, rings
+
+    return commit
+
+
+def make_sharded_fused_commit_snapshot_fn(
+    mesh,
+    num_tiers: int,
+    bucket_limit: int,
+    precision: int = PRECISION,
+    track_activity: bool = False,
+    track_baseline: bool = False,
+):
+    """The final-chunk variant of ``make_sharded_fused_commit_fn``:
+    ``commit(acc, rings, slots, keeps, packed, masks) -> (acc, rings,
+    tier_payloads, acc_payload)``.  Each tier payload is
+    ``window_snapshot`` (one K5) over the rank's ring block, row-sharded
+    as the reference's.  ``acc_payload`` is None: the rank's accumulator
+    is its stream row's partial, whose CDF is not the interval's
+    (``collect()`` reduces it), so no accumulator snapshot is
+    published on a mesh."""
+    step = make_sharded_fused_commit_fn(mesh, num_tiers, bucket_limit,
+                                        track_activity, track_baseline)
+
+    def commit(acc, rings, slots, keeps, packed, masks, *, landed=None,
+               gathered=None):
+        acc, rings = step(acc, rings, slots, keeps, packed, landed=landed,
+                          gathered=gathered)
+        payloads = tuple(
+            window_snapshot(ring, masks[t], bucket_limit, precision)
+            for t, ring in enumerate(rings)
+        )
+        return acc, rings, payloads, None
 
     return commit
 

@@ -25,7 +25,8 @@ is served by the wrappers' plain versions — the table still resolves, so
 the CPU runs the same control flow as the card.
 
 ``resolve_commit_path`` resolves the interval commit: the fused
-committer on dense and on paged storage.
+committer on dense and on paged storage, and on a mesh (ROADMAP D9)
+unless ``mesh_commit_incapability`` names the reference's reason.
 
 On a ("stream", "metric") mesh (ROADMAP D8) a rank's fold is an ordinary
 launch on its own card, so the paths resolve on the rank's block of
@@ -522,22 +523,67 @@ def resolve_storage_path(
     return storage, None
 
 
-# -- the interval commit (ROADMAP D3) ---------------------------------- #
+# -- the interval commit (ROADMAP D3, D9) ------------------------------ #
 
 
-def resolve_commit_path(path: str) -> str:
+def _ck_commit_axes(mesh) -> str | None:
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, STREAM_AXIS
+
+    axes = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if STREAM_AXIS not in axes or METRIC_AXIS not in axes:
+        return (
+            f"mesh axes {axes!r} are not the ('{STREAM_AXIS}', "
+            f"'{METRIC_AXIS}') commit layout"
+        )
+    return None
+
+
+def _ck_commit_rows(mesh, num_metrics) -> str | None:
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_size
+
+    n_metric = axis_size(mesh, METRIC_AXIS)
+    if num_metrics and num_metrics % n_metric:
+        return (
+            f"num_metrics={num_metrics} rows don't shard evenly over "
+            f"the {n_metric}-way metric axis"
+        )
+    return None
+
+
+def mesh_commit_incapability(mesh, num_metrics=None) -> str | None:
+    """Why a mesh cannot run the sharded fused commit, as the
+    reference's sentence, or None when it can (``mesh=None`` always
+    can).  The reference's two edges: the mesh must carry the
+    ("stream", "metric") commit layout (the cells merge over stream,
+    every carry splits over metric), and ``num_metrics``, when known,
+    must split evenly over the metric axis."""
+    if mesh is None:
+        return None
+    return _ck_commit_axes(mesh) or _ck_commit_rows(mesh, num_metrics)
+
+
+def resolve_commit_path(path: str, *, mesh=None,
+                        num_metrics: int | None = None) -> str:
     """Resolve the interval-commit path, "fused" (one
     ``IntervalCommitter`` for the aggregator and every retention tier)
     or "fanout" (the aggregator's and the wheel's bridges).  "auto"
     gives "fused", as the reference's "auto" does, on dense and on
     paged storage alike (the paged committer carries the pool in the
-    accumulator's place).  A system without retention has one consumer
-    and commits through the fan-out whatever this returns
-    (``TorchMetricSystem``)."""
+    accumulator's place) and on every device.  With ``mesh`` (a
+    ("stream", "metric") mesh) "auto" degrades to "fanout" where
+    ``mesh_commit_incapability`` gives a reason, and an explicit
+    "fused" raises with it.  A system without retention has one
+    consumer and commits through the fan-out whatever this returns
+    (``TorchMetricSystem``).  The reference's ``platform`` argument has
+    no role here and is not taken."""
+    reason = mesh_commit_incapability(mesh, num_metrics)
     if path == "auto":
-        return "fused"
-    if path in ("fused", "fanout"):
-        return path
-    raise ValueError(
-        f"unknown commit path {path!r}: expected 'auto', 'fused', or 'fanout'"
-    )
+        return "fanout" if reason is not None else "fused"
+    if path not in ("fused", "fanout"):
+        raise ValueError(
+            f"unknown commit path {path!r}: expected 'auto', 'fused', or "
+            "'fanout'"
+        )
+    if path == "fused" and reason is not None:
+        raise ValueError(f"fused commit unavailable on this mesh: {reason}")
+    return path

@@ -30,7 +30,9 @@ sums from one helper (``row_sums``), so a snapshot serve and a
 recompute over the same window give the same bits.
 ``make_group_query_fn`` is the group_by rollup over the same payload:
 the matched CDF rows summed per group (``index_select``, then int32
-``index_add_``), then ``snapshot_row_stats``.
+``index_add_``), then ``snapshot_row_stats``.  On a ("stream",
+"metric") mesh (ROADMAP D9) both take ``mesh=`` and serve a rank's row
+block of the payload: collective calls of the rank's metric line.
 
 The torch tier imports torch when called, so the host tier loads
 without it (the torch-free emitter tier reads ``percentiles_sparse``
@@ -256,11 +258,30 @@ def dense_cdf(
     return {"cdf": cdf, "counts": cdf[..., -1].contiguous(), "sums": sums}
 
 
-def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):
+def _owned(mesh, rows: int, ids, device):
+    """On a mesh: (global row ids as a long tensor, this rank's block
+    index of each, whether this rank's block holds it)."""
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_index
+    import torch
+
+    idx = torch.as_tensor(ids, dtype=torch.long, device=device)
+    lo = axis_index(mesh, METRIC_AXIS) * rows
+    own = (idx >= lo) & (idx < lo + rows)
+    return idx, torch.where(own, idx - lo, torch.zeros_like(idx)), own
+
+
+def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION,
+                           mesh=None):
     """Sparse snapshot query ``f(cdf, counts, sums, ids, ps) -> stats of
     rows ids``: one gather of the requested rows on the snapshot's
     device, then ``snapshot_row_stats``; readback is O(len(ids) * P).
-    ``ids`` may be host ints; they are moved to the snapshot's device."""
+    ``ids`` may be host ints; they are moved to the snapshot's device.
+
+    With ``mesh`` the payload is this rank's row block and ``ids`` are
+    global: each rank computes the stats of the rows its block holds,
+    and one ``all_gather`` over the metric axis (a collective of the
+    rank's metric line) brings every rank each row's stats from its
+    owner, the same ``[n, P]`` results on every rank, bit for bit."""
     import torch
 
     def query(cdf, counts, sums, ids, ps):
@@ -269,10 +290,37 @@ def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION):
             cdf[idx], counts[idx], sums[idx], ps, bucket_limit, precision
         )
 
-    return query
+    if mesh is None:
+        return query
+
+    def sharded_query(cdf, counts, sums, ids, ps):
+        from loghisto_tpu_torch.parallel.mesh import gather_parts
+
+        rows = cdf.shape[0]
+        idx, local, _ = _owned(mesh, rows, ids, cdf.device)
+        out = query(cdf, counts, sums, local, ps)
+        # float64 holds every int32 count and bucket and every float32
+        # sum and percentile exactly
+        mine = torch.cat([
+            out["counts"].double()[:, None], out["sums"].double()[:, None],
+            out["buckets"].double(), out["percentiles"].double(),
+        ], dim=1)
+        every = gather_parts(mesh, mine[None]).to(cdf.device)
+        pick = every[torch.clamp(idx // rows, max=every.shape[0] - 1),
+                     torch.arange(len(idx), device=cdf.device)]
+        n_ps = out["percentiles"].shape[1]
+        return {
+            "counts": pick[:, 0].to(torch.int32),
+            "sums": pick[:, 1].to(torch.float32),
+            "buckets": pick[:, 2:2 + n_ps].to(out["buckets"].dtype),
+            "percentiles": pick[:, 2 + n_ps:].to(torch.float32),
+        }
+
+    return sharded_query
 
 
-def make_group_query_fn(bucket_limit: int, precision: int = PRECISION):
+def make_group_query_fn(bucket_limit: int, precision: int = PRECISION,
+                        mesh=None):
     """Group_by rollup ``f(cdf, counts, sums, ids, gids, ps, *,
     num_groups) -> stats per group``: gather the snapshot rows ``ids``,
     sum them into ``num_groups`` merged rows by ``gids``, then
@@ -286,22 +334,55 @@ def make_group_query_fn(bucket_limit: int, precision: int = PRECISION):
     of one wheel slot).  The float32 sums add in the device's order,
     which CUDA's ``index_add_`` does not fix from run to run.  Callers
     pad ``ids`` with row 0 and send the pad rows to a dump group they
-    drop after readback (``TimeWheel._group_rollup``)."""
+    drop after readback (``TimeWheel._group_rollup``).
+
+    With ``mesh`` the payload is this rank's row block: each rank sums
+    the rows its block holds into partial group rows, one int32
+    ``all_reduce`` over the metric axis sums the partial CDFs and counts
+    (exact, by the same linearity) and a float32 one the partial sums,
+    then every rank runs the same row statistics.  A collective of the
+    rank's metric line."""
     import torch
+
+    def partial(cdf, counts, sums, rows_of, seg, num_groups, own=None):
+        """The rows ``rows_of`` summed per group (rows not ``own``
+        count as zero)."""
+        device = cdf.device
+        picked = cdf.index_select(0, rows_of)
+        picked_counts = counts.index_select(0, rows_of)
+        picked_sums = sums.index_select(0, rows_of)
+        if own is not None:
+            picked = picked.masked_fill(~own[:, None], 0)
+            picked_counts = picked_counts.masked_fill(~own, 0)
+            picked_sums = picked_sums.masked_fill(~own, 0)
+        gcdf = torch.zeros((num_groups, cdf.shape[1]), dtype=cdf.dtype,
+                           device=device).index_add_(0, seg, picked)
+        gcounts = torch.zeros(num_groups, dtype=counts.dtype,
+                              device=device).index_add_(0, seg,
+                                                        picked_counts)
+        gsums = torch.zeros(num_groups, dtype=sums.dtype,
+                            device=device).index_add_(0, seg, picked_sums)
+        return gcdf, gcounts, gsums
 
     def group_query(cdf, counts, sums, ids, gids, ps, *, num_groups):
         device = cdf.device
-        idx = torch.as_tensor(ids, dtype=torch.long, device=device)
         seg = torch.as_tensor(gids, dtype=torch.long, device=device)
-        gcdf = torch.zeros((num_groups, cdf.shape[1]), dtype=cdf.dtype,
-                           device=device).index_add_(
-                               0, seg, cdf.index_select(0, idx))
-        gcounts = torch.zeros(num_groups, dtype=counts.dtype,
-                              device=device).index_add_(
-                                  0, seg, counts.index_select(0, idx))
-        gsums = torch.zeros(num_groups, dtype=sums.dtype,
-                            device=device).index_add_(
-                                0, seg, sums.index_select(0, idx))
+        if mesh is None:
+            idx = torch.as_tensor(ids, dtype=torch.long, device=device)
+            gcdf, gcounts, gsums = partial(cdf, counts, sums, idx, seg,
+                                           num_groups)
+        else:
+            from loghisto_tpu_torch.parallel.mesh import reduce_parts
+
+            _, local, own = _owned(mesh, cdf.shape[0], ids, device)
+            gcdf, gcounts, gsums = partial(cdf, counts, sums, local, seg,
+                                           num_groups, own)
+            # one int32 reduce for the CDFs and counts, one float32 for
+            # the sums
+            whole = reduce_parts(mesh, torch.cat([gcdf, gcounts[:, None]],
+                                                 dim=1))
+            gcdf, gcounts = whole[:, :-1], whole[:, -1].contiguous()
+            gsums = reduce_parts(mesh, gsums)
         return snapshot_row_stats(gcdf, gcounts, gsums, ps, bucket_limit,
                                   precision)
 

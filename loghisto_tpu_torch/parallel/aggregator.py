@@ -112,9 +112,12 @@ stream ``all_reduce`` per batch), ``make_sharded_accumulator`` and
 fold) are the reference's factories rank by rank, and
 ``TorchAggregator(mesh=)`` runs the raw and sparse transports on each
 rank's block of dense storage, with ``collect()`` as the collective
-point.  Still waiting: the mesh fused commit, the wheel's sharded rings,
-growth and checkpoints on a mesh (item 11b), and paged storage on a mesh
-(item 11c).
+point.  The mesh's fused commit (item 11b-1, ROADMAP D9) adds the rank's
+stream row's cells to its block through ``IntervalCommitter``, which on
+the fan-out path merges them here (``_merge_cells_locked``, spilling at
+the rank's share); the block stays the row's partial, so no accumulator
+snapshot is published on a mesh.  Still waiting: checkpoints on a mesh
+(item 11b-2) and paged storage on a mesh (item 11c).
 """
 
 from __future__ import annotations
@@ -186,7 +189,7 @@ def _step_for(path: str):
 STATE_FORMAT = "loghisto_tpu_torch.aggregator/1"
 
 MESH_STATE = (
-    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b"
+    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b-2"
 )
 
 

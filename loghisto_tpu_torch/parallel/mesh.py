@@ -27,12 +27,30 @@ and the reference's names keep their contracts rank by rank:
   * Sample arrays are "sharded over stream, replicated over metric": the
     ranks of stream row s all receive that row's samples and each keeps
     the ids of its own block (``block_ids``).
+
+ROADMAP decision D9, the mesh's commit (Queue 1 item 11b-1).  Each stream
+row has its own host interval: the ranks of row s commit the raw sets of
+that row's samples, and the global interval is the union over the rows.
+The reference's sharded commit sums dense shard-local deltas with one
+``psum`` per chunk; a rank here ships the chunk's int32 triples instead
+(``gather_triples``, an ``all_gather`` over the stream axis of equal
+widths, padded with dropped rows), O(cells) rather than O(rows x B), and
+keeps the ids of its block (``block_triples``).  Collectives run only at
+collective entry points on a rank's main thread, never on a bridge: on a
+mesh a bridge queues its intervals (``IntervalQueue``) and the entry
+points (``IntervalCommitter.commit``, the system's ``backfill_retention``
+and ``device_metrics()``, the wheel's queries) commit the queued
+intervals first, in seq order, as many as every rank holds; ``stop()``
+commits the most any rank holds, a rank short of it an empty interval
+for each it lacks.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -151,6 +169,126 @@ def gather_parts(mesh, part: torch.Tensor, axis: str = METRIC_AXIS,
     parts = [torch.empty_like(part) for _ in range(axis_size(mesh, axis))]
     dist.all_gather(parts, part, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_parts(mesh, part: torch.Tensor,
+                 axis: str = METRIC_AXIS) -> torch.Tensor:
+    """The elementwise sum of ``part`` over the ranks of this rank's line
+    along ``axis`` (equal shapes), on ``part``'s device.  A collective of
+    that line."""
+    import torch.distributed as dist
+
+    group = axis_group(mesh, axis)
+    out = part.to(collective_device(group, part.device)).contiguous()
+    if out is part:
+        out = out.clone()
+    dist.all_reduce(out, group=group)
+    return out.to(part.device)
+
+
+def pad_triples(packed: np.ndarray, rows: int) -> np.ndarray:
+    """int32 ``packed`` [n, 3] (n <= rows) padded to ``rows`` rows with
+    (-1, 0, 0), a row every scatter drops: the equal widths an
+    ``all_gather`` needs."""
+    out = np.zeros((rows, 3), dtype=np.int32)
+    out[len(packed):, 0] = -1
+    out[:len(packed)] = packed
+    return out
+
+
+def gather_triples(mesh, packed: torch.Tensor,
+                   axis: str = STREAM_AXIS) -> torch.Tensor:
+    """The int32 [W, 3] triples of every rank of this rank's line along
+    ``axis`` (equal W), concatenated in coordinate order on this rank's
+    device: on the card under NCCL, through the host under gloo.  A
+    collective of that line."""
+    return gather_parts(mesh, packed.to(mesh_device(mesh)), axis).to(
+        mesh_device(mesh))
+
+
+def ragged_gather_triples(mesh, packed: Optional[np.ndarray],
+                          axis: str = STREAM_AXIS) -> Optional[torch.Tensor]:
+    """``gather_triples`` of host triples of any length (None is none):
+    the ranks agree on the longest (MAX over the line), each pads to it,
+    and the gathered triples come back on this rank's device, or None
+    when every rank had none.  Two collectives of that line."""
+    import torch.distributed as dist
+
+    n = 0 if packed is None else len(packed)
+    width = mesh_reduce(mesh, [n], dist.ReduceOp.MAX, (axis,))[0]
+    if width == 0:
+        return None
+    part = pad_triples(np.empty((0, 3), np.int32) if packed is None
+                       else packed, width)
+    return gather_triples(mesh, torch.from_numpy(part), axis)
+
+
+def block_triples(packed: torch.Tensor, lo: int, rows: int) -> torch.Tensor:
+    """Triples with their ids moved into the block ``[lo, lo + rows)``
+    (``block_ids``: ids outside it become -1, which K3 drops); the first
+    block takes them as they are, since K3 drops ids past a target's
+    rows itself."""
+    if lo == 0:
+        return packed
+    out = packed.clone()
+    out[:, 0] = block_ids(packed[:, 0], lo, rows)
+    return out
+
+
+class IntervalQueue:
+    """D9's bridge side on a mesh: the bridge thread ``put``s each
+    broadcast interval, and ``drain()``, run at a collective entry point
+    on the main thread, applies the queued intervals in order.  The
+    ranks first agree on how many (MIN over the mesh), so every rank
+    commits the same intervals in the same order and a later drain takes
+    the rest.  The last drain (``final=True``, at ``stop()``) takes the
+    MOST any rank holds instead: a rank with fewer applies ``pad()`` (an
+    empty interval) in place of each missing one, so no rank's queued
+    interval is left behind and every rank makes the same collectives;
+    ``padded`` counts them.  A drain started while one runs (a rule's
+    query inside an interval's hooks) returns at once.  The queue has no
+    bound: an interval waits here, on the host and not yet queryable,
+    until the rank's next collective call (``len()`` is its depth)."""
+
+    def __init__(self, mesh, apply: Callable, pad: Callable):
+        self.mesh = mesh
+        self._apply = apply
+        self._pad = pad
+        self._queue: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._draining = False
+        self.padded = 0
+
+    def put(self, item) -> None:
+        with self._lock:
+            self._queue.append(item)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def drain(self, final: bool = False) -> int:
+        """Apply the intervals every rank holds (with ``final``, the most
+        any rank holds, padded); returns how many.  A collective of every
+        rank of the mesh."""
+        import torch.distributed as dist
+
+        if self._draining:
+            return 0
+        op = dist.ReduceOp.MAX if final else dist.ReduceOp.MIN
+        n = mesh_reduce(self.mesh, [len(self)], op)[0]
+        self._draining = True
+        try:
+            for _ in range(n):
+                with self._lock:
+                    item = self._queue.popleft() if self._queue else None
+                if item is None:
+                    item = self._pad()
+                    self.padded += 1
+                self._apply(item)
+        finally:
+            self._draining = False
+        return n
 
 
 @dataclasses.dataclass(frozen=True)

@@ -82,8 +82,27 @@ report, the watchdog gains the fleet invariants, and
     ms.start()                               # ms.federation.port
     ms.add_rule(FreshnessSloRule("fresh", budget_us=2e6))
 
+``mesh=make_mesh(stream, metric)`` (``parallel/mesh.py``, ROADMAP D8
+and D9) makes the system one rank of a mesh, one process per device:
+the aggregator and the wheel hold the rank's metric-row blocks, the
+rank records its stream row's samples, and "auto" resolves the sharded
+fused commit (or the fan-out, with the reference's reason in
+``commit_path_reason``, where ``mesh_commit_incapability`` names one):
+
+    multihost.initialize("tcp://host:port", world, rank)
+    ms = TorchMetricSystem(mesh=make_mesh(2, 1), retention=True)
+    ms.query("rpc_latency", window=300)     # collective: every rank calls
+
+On a mesh ``device_metrics()``, ``backfill_retention`` and the window
+queries (``query``, ``query_window``, ``query_group_by``,
+``window_rate``) are collective calls that every rank makes in the same
+order; each first commits the intervals the bridge queued.  Lifecycle,
+drift and checkpoints on a mesh wait for ROADMAP Queue 1 item 11b-2,
+paged storage for 11c.
+
 Entry point rule: ``device`` defaults to the card and raises without
-CUDA; ``device="cpu"`` runs the plain versions.
+CUDA; ``device="cpu"`` runs the plain versions (a mesh's device type is
+its ranks' device).
 """
 
 from __future__ import annotations
@@ -109,9 +128,10 @@ from loghisto_tpu_torch.obs import (
     SelfObserver,
     SpanRecorder,
 )
+from loghisto_tpu_torch.ops import dispatch
 from loghisto_tpu_torch.ops.backend import resolve_device
-from loghisto_tpu_torch.ops.dispatch import resolve_commit_path
 from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+from loghisto_tpu_torch.parallel.mesh import axis_size
 from loghisto_tpu_torch.resilience import (
     CircuitBreaker,
     RecoveryManager,
@@ -124,6 +144,35 @@ from loghisto_tpu_torch.window import (
     RuleEngine,
     TimeWheel,
 )
+
+
+MESH_SYSTEM = (
+    "{what} on a mesh waits for ROADMAP Queue 1 item 11b-2"
+)
+
+
+def _refuse_on_mesh(lifecycle, anomaly, resilience) -> None:
+    """The parts of the system a mesh does not carry yet (11b-2)."""
+    if lifecycle is not None:
+        raise ValueError(MESH_SYSTEM.format(
+            what="lifecycle (the row-sharded activity carry)"))
+    if anomaly is not None:
+        raise ValueError(MESH_SYSTEM.format(
+            what="the drift engine (the row-sharded baseline banks)"))
+    if (resilience is not None and resilience is not False
+            and resilience is not True
+            and (resilience.checkpoint_path is not None
+                 or resilience.journal_path is not None)):
+        raise ValueError(MESH_SYSTEM.format(
+            what="crash recovery (checkpoints across mesh shapes)"))
+
+
+def _mesh_shape(mesh) -> Optional[dict]:
+    """``{"stream": s, "metric": m}`` of a mesh (the reference's
+    ``debug_dump()["mesh"]``), or None."""
+    if mesh is None:
+        return None
+    return {axis: axis_size(mesh, axis) for axis in mesh.mesh_dim_names}
 
 
 class TorchMetricSystem(MetricSystem):
@@ -147,6 +196,7 @@ class TorchMetricSystem(MetricSystem):
         resilience=None,
         federation=None,
         device=None,
+        mesh=None,
     ):
         """``retention``: ``True`` builds a TimeWheel with the default
         60x1 / 60x60 / 24x3600 tiers, a sequence of ``(slots, res)``
@@ -178,7 +228,16 @@ class TorchMetricSystem(MetricSystem):
         commit publishes their interval, and with ``observability`` the
         health report gains the ``emitter_starvation`` /
         ``fed_decode_errors`` / ``fleet_freshness_stall`` /
-        ``emitter_clock_skew`` invariants."""
+        ``emitter_clock_skew`` invariants.
+
+        ``mesh`` (a ("stream", "metric") mesh from
+        ``parallel.mesh.make_mesh``) goes to the aggregator and the wheel,
+        as in the reference; see the module docstring for the collective
+        calls."""
+        if mesh is not None:
+            _refuse_on_mesh(lifecycle, anomaly, resilience)
+            if device is None:
+                device = mesh.device_type
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
@@ -212,6 +271,7 @@ class TorchMetricSystem(MetricSystem):
             paged_config=paged_config,
             device=self.device,
             native_staging=native_staging,
+            mesh=mesh,
         )
         self.aggregator.register_device_gauges(self)
         if self.resilience is not None:
@@ -238,6 +298,7 @@ class TorchMetricSystem(MetricSystem):
                     tiers=tiers,
                     registry=self.aggregator.registry,
                     device=self.device,
+                    mesh=mesh,
                 )
             self.retention.label_index = self.label_index
             if self.resilience is not None:
@@ -246,7 +307,10 @@ class TorchMetricSystem(MetricSystem):
             self.rule_engine = RuleEngine(self.retention)
             self.rule_engine.attach()
             self.retention.register_query_gauges(self)
-        self.commit_path = resolve_commit_path(commit)
+        self.commit_path = dispatch.resolve_commit_path(
+            commit, mesh=mesh,
+            num_metrics=self.aggregator.num_metrics,
+        )
         self.committer: Optional[IntervalCommitter] = None
         self.lifecycle = None
         self.anomaly = None
@@ -285,10 +349,12 @@ class TorchMetricSystem(MetricSystem):
         self.federation_config: Optional[FederationConfig] = None
         if federation is not None and federation is not False:
             self._build_federation(federation)
-        # the commit path's degradation reason: the reference's comes
-        # from the mesh, which the system takes with ROADMAP Queue 1
-        # item 11b
-        self.commit_path_reason: Optional[str] = None
+        # the commit path's degradation reason, from the mesh
+        self.commit_path_reason: Optional[str] = (
+            dispatch.mesh_commit_incapability(
+                mesh, num_metrics=self.aggregator.num_metrics)
+            if mesh is not None and self.commit_path != "fused" else None
+        )
         self.obs = None            # the SpanRecorder (None when off)
         self.obs_config = None
         self.health = None         # the HealthWatchdog (None when off)
@@ -410,15 +476,15 @@ class TorchMetricSystem(MetricSystem):
         counters, transfer and staging depths, the span ring's state,
         the resilience ledger (with ``resilience=``), the receiver's
         stats (with ``federation=``) and the current health report (the
-        reference's keys; ``mesh`` is None until the system takes a mesh,
-        ROADMAP Queue 1 item 11b).  Pure reads, safe from any
-        thread."""
+        reference's keys; ``mesh`` is ``{"stream": s, "metric": m}`` on a
+        mesh, else None; on a mesh also ``queued_intervals``, the depth of
+        the bridge's queue).  Pure reads, safe from any thread."""
         agg = self.aggregator
         reg = agg.registry
         dump: dict = {
             "commit_path": self.commit_path,
             "commit_path_reason": self.commit_path_reason,
-            "mesh": None,
+            "mesh": _mesh_shape(agg.mesh),
             "registry": {
                 "capacity": reg.capacity,
                 "occupancy": len(reg),
@@ -433,6 +499,14 @@ class TorchMetricSystem(MetricSystem):
             },
             "transport": agg.transport_stats(),
         }
+        if agg.mesh is not None:
+            # the port's own key, on a mesh alone: the intervals the
+            # bridge queued for the next collective call (D9), on the
+            # host and not yet queryable
+            part = self.committer if self.committer is not None \
+                else self.retention
+            dump["queued_intervals"] = (0 if part is None
+                                        else part.queued_intervals)
         wheel = self.retention
         if wheel is not None:
             dump["query"] = {
@@ -538,8 +612,17 @@ class TorchMetricSystem(MetricSystem):
 
     def device_metrics(self, reset: bool = True) -> ProcessedMetricSet:
         """Device-side statistics of everything aggregated so far;
-        re-raises a failure of the aggregator's bridge."""
+        re-raises a failure of the aggregator's bridge.  On a mesh a
+        collective call (the queued intervals commit first)."""
+        self._drain()
         return self.aggregator.collect(reset=reset)
+
+    def _drain(self) -> None:
+        """On a mesh, commit the intervals the committer's bridge queued,
+        as many as every rank holds (D9; on the fan-out path the wheel's
+        queries push its own queue); nothing off a mesh."""
+        if self.committer is not None:
+            self.committer.drain()
 
     # -- windowed retention and rules (requires retention=) -------------- #
 
@@ -561,9 +644,9 @@ class TorchMetricSystem(MetricSystem):
         """Sliding-window statistics over the retention wheel (see
         ``TimeWheel.query``); ``pattern`` is a name glob or a label
         selector."""
-        return self._require_retention().query(
-            pattern, window, percentiles, tier
-        )
+        wheel = self._require_retention()
+        self._drain()
+        return wheel.query(pattern, window, percentiles, tier)
 
     def query(
         self,
@@ -574,9 +657,9 @@ class TorchMetricSystem(MetricSystem):
     ):
         """Window query by label selector (``rpc.latency{route=/a,
         code=~5..}``) or name glob; the same serve as ``query_window``."""
-        return self._require_retention().query(
-            selector, window, percentiles, tier
-        )
+        wheel = self._require_retention()
+        self._drain()
+        return wheel.query(selector, window, percentiles, tier)
 
     def query_group_by(
         self,
@@ -591,14 +674,18 @@ class TorchMetricSystem(MetricSystem):
         value-tuple of the ``by`` label keys, on the card (see
         ``TimeWheel.query_group_by``); ``depth=k`` adds each group's
         equi-depth edges."""
-        return self._require_retention().query_group_by(
+        wheel = self._require_retention()
+        self._drain()
+        return wheel.query_group_by(
             selector, by, window=window, percentiles=percentiles,
             tier=tier, depth=depth,
         )
 
     def window_rate(self, name: str, window: float) -> float:
         """Counter rate (events/s) over the trailing window."""
-        return self._require_retention().window_rate(name, window)
+        wheel = self._require_retention()
+        self._drain()
+        return wheel.window_rate(name, window)
 
     def add_rule(self, rule):
         """Register an alerting rule (window.rules.*Rule), evaluated
@@ -639,7 +726,8 @@ class TorchMetricSystem(MetricSystem):
         """Replay recorded intervals (offline reconstruction of window
         state); returns the number pushed.  With a fused committer the
         replay runs through it, so the aggregator, lifecycle activity and
-        drift baselines rebuild with the wheel."""
+        drift baselines rebuild with the wheel.  On a mesh a collective
+        call: each rank replays its stream row's intervals."""
         self._require_retention()
         if self.committer is not None:
             n = 0
@@ -688,7 +776,9 @@ class TorchMetricSystem(MetricSystem):
     def stop(self) -> None:
         """Stop the federation receiver (no new deltas), stop the
         reaper, then detach the bridges (each takes every interval
-        already broadcast), drain the transfer worker, take the final
+        already broadcast), on a mesh commit every queued interval (a
+        collective: the most any rank holds, D9), drain the transfer
+        worker, take the final
         checkpoint (with ``resilience=``), and re-raise the first bridge
         failure."""
         if self.federation is not None:
@@ -704,6 +794,13 @@ class TorchMetricSystem(MetricSystem):
                 part.detach()
             except RuntimeError as e:
                 errors.append(e)
+        if self.aggregator.mesh is not None:
+            # the bridges queued, the ranks commit together (D9): the most
+            # any rank holds, so no rank's last intervals are left behind
+            if self.committer is not None:
+                self.committer.drain(final=True)
+            elif self.retention is not None:
+                self.retention.drain(final=True)
         self.aggregator.close()
         if self.recovery is not None:
             # after the bridges drained: the final checkpoint holds every

@@ -51,11 +51,30 @@ query or group-by serve ``query.serve``.
 
 With resilience (``TorchMetricSystem(resilience=...)``) the bridge
 runs under the system's ``supervisor`` and ``fault_injector`` fires the
-``wheel.push`` site before each tier push.  The wheel's sharded rings
-on a mesh wait for ROADMAP Queue 1 item 11b.
+``wheel.push`` site before each tier push.
 
-Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``
-(``hbm_bytes()``).
+On a ("stream", "metric") mesh (``mesh=``, ROADMAP D8 and D9) each rank
+holds the block ``[S, M / n_metric, B]`` of every ring (the reference's
+``P(None, "metric", None)``) and its stream row's intervals.  A push
+gathers the stream rows' cells over the stream axis
+(``parallel/mesh.ragged_gather_triples``), so every rank's rings hold the
+global interval, and keeps its block; the snapshot views stay
+row-sharded.  ``query``, ``query_group_by``, ``window_counter`` and
+``window_rate`` are then collective calls, which every rank makes in the
+same order: a query computes the matched rows of its block and one
+``all_gather`` over the metric axis brings every rank the ``[n, P]``
+results; a group-by sums its block's partial group histograms (exact:
+CDFs are linear) and reduces them over the metric axis before the row
+statistics; a counter sums its stream row's deltas over the stream
+axis.  The ranks of a metric line first agree on the serve path (a MIN
+over it): a snapshot view, or a cached result, serves only where every
+rank of the line has it, so a rank whose commit failed (no snapshot)
+keeps its line's collectives in step.  ``attach`` on a mesh queues the broadcast intervals, and those
+calls push the queued ones first (``IntervalQueue``).  The wheel's
+state on a mesh waits for ROADMAP Queue 1 item 11b-2.
+
+Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``, a
+rank's block of it on a mesh (``hbm_bytes()``).
 """
 
 from __future__ import annotations
@@ -81,7 +100,11 @@ from loghisto_tpu_torch.labels.groupby import (
     equidepth_ranks,
     pct_key,
 )
-from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
+from loghisto_tpu_torch.metrics import (
+    MetricSystem,
+    RawMetricSet,
+    empty_interval,
+)
 from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.backend import resolve_device
 from loghisto_tpu_torch.ops.sparse_ingest import sparse_ingest_multi
@@ -93,6 +116,19 @@ from loghisto_tpu_torch.ops.window import (
     resolve_merge_path,
     window_snapshot,
     window_stats,
+)
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    STREAM_AXIS,
+    IntervalQueue,
+    axis_size,
+    block_rows,
+    block_triples,
+    check_mesh,
+    gather_parts,
+    mesh_device,
+    mesh_reduce,
+    ragged_gather_triples,
 )
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
 from loghisto_tpu_torch.resilience.supervise import spawn_thread
@@ -106,6 +142,11 @@ from loghisto_tpu_torch.window.snapshot import (
 logger = logging.getLogger("loghisto_tpu_torch")
 
 WHEEL_STATE_FORMAT = "loghisto_tpu_torch.timewheel/1"
+
+MESH_WHEEL_STATE = (
+    "the wheel's state on a mesh (rings laid out per mesh shape) waits "
+    "for ROADMAP Queue 1 item 11b-2"
+)
 
 
 class TierSpec(NamedTuple):
@@ -142,10 +183,10 @@ class _Tier:
     """One resolution tier: the ring on the wheel's device and the host
     per-slot metadata.  All mutation happens under the wheel's lock."""
 
-    def __init__(self, spec: TierSpec, num_metrics: int, num_buckets: int,
+    def __init__(self, spec: TierSpec, rows: int, num_buckets: int,
                  device: torch.device):
         self.spec = spec
-        self.ring = torch.zeros((spec.slots, num_metrics, num_buckets),
+        self.ring = torch.zeros((spec.slots, rows, num_buckets),
                                 dtype=torch.int32, device=device)
         self.slot = 0            # open slot index
         self.in_slot = 0         # intervals landed in the open slot
@@ -195,13 +236,18 @@ class TimeWheel:
         merge_path: str = "auto",
         snapshots: bool = True,
         device=None,
+        mesh=None,
     ):
         """``interval`` is the base interval in seconds (one push per
         interval); tier resolutions are in base intervals and strictly
         increasing.  ``device`` defaults to the card and raises without
         CUDA; ``device="cpu"`` runs the plain versions.  ``merge_path``
         accepts only "auto" (ROADMAP D4).  ``snapshots=False`` publishes
-        no snapshot: every query recomputes under the lock."""
+        no snapshot: every query recomputes under the lock.  ``mesh`` (the
+        aggregator's ("stream", "metric") mesh) makes the rings this
+        rank's metric-row blocks, on the mesh's device."""
+        if mesh is not None and device is None:
+            device = mesh.device_type  # a rank retains on its mesh device
         self.device = resolve_device(device)
         if interval <= 0:
             raise ValueError("interval must be positive seconds")
@@ -231,15 +277,20 @@ class TimeWheel:
         self.percentiles = tuple(float(p) for p in percentiles)
         if any(not 0.0 <= p <= 1.0 for p in self.percentiles):
             raise ValueError("percentiles must be in [0, 1]")
+        self.mesh = mesh
+        self._rows, self._row0 = num_metrics, 0
+        if mesh is not None:
+            self._check_mesh(mesh, num_metrics)
         self.merge_path = resolve_merge_path(merge_path)
         self.snapshots_enabled = bool(snapshots)
 
-        # snapshot query engine: commit-time CDF views + sparse serving
+        # snapshot query engine: commit-time CDF views + sparse serving;
+        # on a mesh the views are row blocks and a serve is collective
         self._query_fn = make_snapshot_query_fn(
-            config.bucket_limit, config.precision
+            config.bucket_limit, config.precision, mesh
         )
         self._group_fn = make_group_query_fn(
-            config.bucket_limit, config.precision
+            config.bucket_limit, config.precision, mesh
         )
         # the label layer: a LabelIndex over this wheel's registry, set by
         # the owner (TorchMetricSystem); None means selector patterns
@@ -258,7 +309,7 @@ class TimeWheel:
         self.query_group_serves = 0      # group_by rollups served
 
         self._tiers = [
-            _Tier(t, num_metrics, config.num_buckets, self.device)
+            _Tier(t, self._rows, config.num_buckets, self.device)
             for t in tiers
         ]
         # covers ring contents, tier metadata and the snapshot refresh
@@ -278,13 +329,34 @@ class TimeWheel:
         # resilience, installed by TorchMetricSystem(resilience=...)
         self.supervisor = None
         self.fault_injector = None
+        # on a mesh, the attached bridge's queue (D9)
+        self._queue = None
+
+    def _check_mesh(self, mesh, num_metrics: int) -> None:
+        """The mesh's refusals (the reference's sentence) and this
+        rank's block of the rows; the rings live on the mesh's device."""
+        check_mesh(mesh)
+        n_metric = axis_size(mesh, METRIC_AXIS)
+        if num_metrics % n_metric:
+            raise ValueError(
+                f"num_metrics={num_metrics} not divisible by the mesh "
+                f"metric axis ({n_metric})"
+            )
+        if self.device.type != mesh.device_type:
+            raise ValueError(
+                f"device={self.device.type!r} but the mesh's devices are "
+                f"{mesh.device_type!r}: a rank retains on its mesh device"
+            )
+        self.device = mesh_device(mesh)
+        self._row0, self._rows = block_rows(mesh, num_metrics)
 
     # -- sizing --------------------------------------------------------- #
 
     def hbm_bytes(self) -> int:
-        """Device bytes the rings occupy."""
+        """Device bytes the rings occupy (this rank's blocks on a
+        mesh)."""
         return sum(
-            t.spec.slots * self.num_metrics * self.config.num_buckets * 4
+            t.spec.slots * self._rows * self.config.num_buckets * 4
             for t in self._tiers
         )
 
@@ -331,20 +403,31 @@ class TimeWheel:
 
     def _packed_cells(self, cells) -> Optional[torch.Tensor]:
         """The interval's cells as K3's int32 (id, codec bucket, count)
-        triples on the wheel's device, uploaded once for every tier."""
-        if cells is None:
+        triples on the wheel's device, uploaded once for every tier.  On
+        a mesh the stream rows' cells are gathered first (a collective
+        of the stream line, even where this rank has none) and the ids
+        move into this rank's block."""
+        packed = None
+        if cells is not None:
+            ids_np, idx_np, weights_np = cells
+            packed = np.empty((len(ids_np), 3), dtype=np.int32)
+            packed[:, 0] = ids_np
+            packed[:, 1] = idx_np - self.config.bucket_limit
+            packed[:, 2] = weights_np
+        if self.mesh is not None:
+            whole = ragged_gather_triples(self.mesh, packed)
+            if whole is None:
+                return None
+            return block_triples(whole, self._row0, self._rows)
+        if packed is None:
             return None
-        ids_np, idx_np, weights_np = cells
-        packed = np.empty((len(ids_np), 3), dtype=np.int32)
-        packed[:, 0] = ids_np
-        packed[:, 1] = idx_np - self.config.bucket_limit
-        packed[:, 2] = weights_np
         return torch.from_numpy(packed).to(self.device)
 
     def push(self, raw: RawMetricSet, duration: Optional[float] = None) -> None:
         """Land one interval on every tier.  ``duration`` (seconds)
         defaults to the RawMetricSet's recorded duration, then to the
-        wheel's interval."""
+        wheel's interval.  On a mesh ``raw`` is this rank's stream row's
+        interval and the push is a collective call."""
         dur = (
             float(duration) if duration is not None
             else float(raw.duration) if raw.duration is not None
@@ -356,16 +439,17 @@ class TimeWheel:
     def push_cells(self, cells, raw: RawMetricSet, dur: float) -> None:
         """Land pre-built interval cells (the ``_cells_from_raw``
         triplet, or None) on every tier and publish a new snapshot; hooks
-        are not run (``push`` runs them)."""
+        are not run (``push`` runs them).  On a mesh the cells are this
+        rank's stream row's, and the call is a collective."""
         inj = self.fault_injector
         if inj is not None:
             # a scripted tier-push failure exercises the bridge's net
             inj.check("wheel.push")
         with self.obs_recorder.span("window.tier_push", raw.seq):
+            packed = self._packed_cells(cells)
             with self._lock:
                 self._note_interval_locked(raw.time, cells)
-                self._tiers_push_locked(self._packed_cells(cells),
-                                        raw.rates, dur)
+                self._tiers_push_locked(packed, raw.rates, dur)
                 self._refresh_snapshot_locked()
 
     def run_hooks(self, raw: RawMetricSet) -> None:
@@ -426,7 +510,9 @@ class TimeWheel:
     def backfill(self, intervals: Iterable[RawMetricSet]) -> int:
         """Replay intervals into the wheel (offline reconstruction); each
         interval's recorded duration drives the rate math.  Returns the
-        number of intervals pushed."""
+        number of intervals pushed.  On a mesh a collective call, after
+        the queued intervals."""
+        self.drain()
         n = 0
         for raw in intervals:
             self.push(raw)
@@ -621,23 +707,39 @@ class TimeWheel:
         ``snapshot_row_stats``, without the store lock; repeat queries at
         an unchanged epoch return the cached result.  Other windows fall
         back to the locked recompute through K5 and pin themselves for
-        the next commit."""
+        the next commit.  On a mesh a collective call: every rank makes
+        it, in the same order, and gets the global result."""
         ps, window, ti = self._query_args(percentiles, window, tier)
         # a serve attributes to the latest landed interval (the snapshot
         # it reads is that commit's handle)
         with self.obs_recorder.span("query.serve"):
             snap = self._snapshot  # atomic ref read; immutable handle
             view = None if snap is None else snap.tiers[ti].view_for(window)
-            if view is None:
+            if not self._every_rank(view is not None):
                 self.pin_window(window)
                 self.query_fallbacks += 1
                 return self._query_recompute(pattern, window, ps, ti)
             return self._query_snapshot(pattern, window, ps, ti, snap, view)
 
+    def _every_rank(self, flag: bool) -> bool:
+        """``flag`` off a mesh; on a mesh whether it holds on every rank
+        of this rank's metric line (a MIN over it), so the line's ranks
+        take the same serve path and make the same collectives, even
+        after one of them dropped its snapshot (a failed commit) or its
+        cached results."""
+        if self.mesh is None:
+            return flag
+        import torch.distributed as dist
+
+        return bool(mesh_reduce(self.mesh, [int(flag)], dist.ReduceOp.MIN,
+                                (METRIC_AXIS,))[0])
+
     def _query_args(self, percentiles, window, tier) -> tuple:
-        """Re-raise a bridge failure, then validate a query's arguments:
-        (percentiles tuple, window seconds, tier index)."""
+        """Re-raise a bridge failure, push the queued intervals (on a
+        mesh), then validate a query's arguments: (percentiles tuple,
+        window seconds, tier index)."""
         self._raise_bridge_error()
+        self.drain()
         ps = tuple(
             float(p) for p in (
                 percentiles if percentiles is not None else self.percentiles
@@ -682,7 +784,7 @@ class TimeWheel:
         gen, matches = self._resolve_matches(pattern)
         qkey = (pattern, window, ps, ti)
         cached = self._result_cache.get(qkey)
-        if (
+        if self._every_rank(
             cached is not None
             and cached[0] == snap.epoch and cached[1] == gen
         ):
@@ -732,6 +834,11 @@ class TimeWheel:
                 t.ring, mask, np.asarray(ps, dtype=np.float32),
                 self.config.bucket_limit, self.config.precision,
             )
+            if self.mesh is not None:
+                # every rank's block, in row order (three gathers over
+                # the metric axis)
+                stats = {k: gather_parts(self.mesh, stats[k])
+                         for k in ("counts", "sums", "percentiles")}
             counts = stats["counts"].cpu().numpy()
             sums = stats["sums"].cpu().numpy()
             pcts = stats["percentiles"].cpu().numpy()
@@ -773,7 +880,8 @@ class TimeWheel:
         ``query``: a repeat at an unchanged (epoch, generation) returns
         the cached result with no device work; a window no snapshot view
         covers takes a one-off K5 view built under the lock, and pins
-        itself for the next commit."""
+        itself for the next commit.  On a mesh a collective call, as
+        ``query``."""
         by = tuple(str(k) for k in by)
         if not by:
             raise ValueError("group_by needs at least one label key")
@@ -783,10 +891,10 @@ class TimeWheel:
             snap = self._snapshot  # atomic ref read; immutable handle
             view = None if snap is None else snap.tiers[ti].view_for(window)
             gen, matches = self._resolve_matches(selector)
-            if view is not None:
+            if self._every_rank(view is not None):
                 qkey = ("#group_by", selector, by, window, ps, ti, depth)
                 cached = self._result_cache.get(qkey)
-                if (
+                if self._every_rank(
                     cached is not None
                     and cached[0] == snap.epoch and cached[1] == gen
                 ):
@@ -886,8 +994,10 @@ class TimeWheel:
     ) -> tuple[int, float]:
         """(sum of counter deltas, covered seconds) for ``name`` over the
         trailing window — the burn-rate primitive, from the host per-slot
-        vectors and the recorded durations."""
+        vectors and the recorded durations.  On a mesh a collective call:
+        the stream rows' deltas are summed over the stream axis."""
         self._raise_bridge_error()
+        self.drain()
         needed = max(1, math.ceil(window / self.interval))
         ti = self._select_tier(needed) if tier is None else int(tier)
         t = self._tiers[ti]
@@ -898,11 +1008,16 @@ class TimeWheel:
                 for i in np.nonzero(mask)[0]
             )
             covered = float(t.durations[mask].sum())
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            total = mesh_reduce(self.mesh, [int(total)], dist.ReduceOp.SUM,
+                                (STREAM_AXIS,))[0]
         return int(total), covered
 
     def window_rate(self, name: str, window: float) -> float:
         """Counter rate (events/s) over the trailing window; 0 without
-        covered history."""
+        covered history.  On a mesh a collective call."""
         total, covered = self.window_counter(name, window)
         return total / covered if covered > 0 else 0.0
 
@@ -938,6 +1053,8 @@ class TimeWheel:
         """The wheel's state as host values (see state.py): every tier's
         ring and metadata, the counters, the pinned windows and the
         registry's names."""
+        if self.mesh is not None:
+            raise ValueError(f"state_dict with a mesh: {MESH_WHEEL_STATE}")
         with self._lock:
             return {
                 "format": WHEEL_STATE_FORMAT,
@@ -964,6 +1081,9 @@ class TimeWheel:
         """Replace the wheel's state with ``state`` (from ``state_dict``
         or ``state.wheel_state_from_jax``) and publish its snapshot.  The
         wheel's registry is replaced by one holding the state's names."""
+        if self.mesh is not None:
+            raise ValueError(
+                f"load_state_dict with a mesh: {MESH_WHEEL_STATE}")
         if state.get("format") != WHEEL_STATE_FORMAT:
             raise ValueError(f"unknown state format {state.get('format')!r}")
         for key, have in (
@@ -1025,9 +1145,14 @@ class TimeWheel:
     def attach(self, ms: MetricSystem, channel_capacity: int = 16) -> None:
         """Subscribe behind the raw boundary: a bridge thread pushes every
         broadcast interval (strike-eviction resilient).  A failed push is
-        logged and kept in ``bridge_error`` (the first one)."""
+        logged and kept in ``bridge_error`` (the first one).  On a mesh
+        the bridge only queues the intervals (a push is a collective, D9):
+        the collective calls push them (``drain``)."""
         if self._thread is not None:
             raise RuntimeError("already attached")
+        if self.mesh is not None and self._queue is None:
+            self._queue = IntervalQueue(self.mesh, self.push, empty_interval)
+        queue = self._queue
         self._sub = ResilientSubscription(
             ms.subscribe_to_raw_metrics,
             ms.unsubscribe_from_raw_metrics,
@@ -1041,6 +1166,9 @@ class TimeWheel:
                     raw = sub.get()
                 except ChannelClosed:
                     return
+                if queue is not None:
+                    queue.put(raw)
+                    continue
                 try:
                     self.push(raw)
                 except Exception as e:
@@ -1066,3 +1194,19 @@ class TimeWheel:
             self._thread.join(timeout=30.0)
             self._thread = None
         self._raise_bridge_error(clear=True)
+
+    def drain(self, final: bool = False) -> int:
+        """Push the intervals an attached bridge queued on a mesh, as
+        many as every rank holds (with ``final``, the most any rank
+        holds, padded with empty intervals, as ``IntervalCommitter.drain``);
+        a collective of the mesh.  0 and no collective off a mesh or
+        before ``attach``."""
+        if self._queue is None:
+            return 0
+        return self._queue.drain(final)
+
+    @property
+    def queued_intervals(self) -> int:
+        """Intervals the bridge queued on a mesh that no collective call
+        has pushed yet (D9)."""
+        return 0 if self._queue is None else len(self._queue)

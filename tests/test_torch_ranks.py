@@ -371,9 +371,14 @@ def _mesh_refusals(out, mesh):
     from loghisto_tpu_torch.commit import IntervalCommitter
     from loghisto_tpu_torch.window.store import TimeWheel
 
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    # the mesh's fused commit (11b-1): the pair on one mesh commits
     wheel = TimeWheel(num_metrics=MESH_M, config=cfg, tiers=((2, 1),),
-                      registry=agg.registry, device="cpu")
-    out["refuse.commit"] = _raises(lambda: IntervalCommitter(agg, wheel))
+                      registry=agg.registry, mesh=mesh)
+    cells = np.array([[0, 3, 5], [MESH_M // 2, -4, 2]], np.int64)
+    out["commit.mode"] = np.array(IntervalCommitter(agg, wheel).commit(
+        raw_from_cells(cells, RawMetricSet)))
     agg.close()
 
 
@@ -630,12 +635,449 @@ def _selftest_job(out, rank, arg, inputs):
     out["rank"] = np.array(rank)
 
 
+# -- the mesh's fused commit (tests/test_torch_mesh_commit.py) ------------------
+
+MC_SHAPES = ((2, 1), (1, 2), (2, 2))
+MC_M = 16
+MC_BL = 256
+MC_TIERS = ((3, 1), (2, 3))
+MC_CHUNK = 8
+MC_INTERVALS = 7
+MC_BROADCAST = 3  # the system scenario's first intervals ride the bridge
+MC_STOP = 2  # rank (s, m) queues MC_STOP + s + m intervals before stop()
+MC_PS = (0.0, 0.5, 0.9, 0.99, 1.0)
+# (pattern, window): the full span (a snapshot view), a window no view
+# covers (the locked recompute, which pins it), a selector, a glob
+MC_QUERIES = (("*", None), ("svc.*", 2.5), ("api.lat{code=500}", None),
+              ("svc.m1", 2.0))
+MC_GROW_M0 = 8
+MC_GROW_MAX = 32
+MC_GROW_INTERVALS = 6
+MC_STREAM_ROWS = 2  # inputs are made for up to two stream rows
+
+
+def mc_names() -> list:
+    """The main scenario's 14 names, in registration order: six labeled
+    series (rows 0-5) and eight plain ones, so both blocks of a two-way
+    metric axis hold rows."""
+    from loghisto_tpu_torch.labels.model import canonical_name
+
+    labeled = [canonical_name("api.lat", {"route": f"/r{k % 3}",
+                                          "code": str(200 + 300 * (k // 3))})
+               for k in range(6)]
+    return labeled + [f"svc.m{k}" for k in range(8)]
+
+
+def mc_grow_names(i: int) -> list:
+    return [f"grow{j}" for j in range(i + 4)]
+
+
+def mc_raw(raw_cls, rows, names, i):
+    """Interval i as one RawMetricSet: every name, in order (so each
+    registry interns them alike), holding the merged cells (name index,
+    codec bucket, count) of the stream rows ``rows`` ((s, cells) pairs),
+    and the rows' ``req`` counter."""
+    import datetime as dt
+
+    hists = {name: {} for name in names}
+    rate = 0
+    for s, cells in rows:
+        for k, b, c in cells.tolist():
+            h = hists[names[k]]
+            h[b] = h.get(b, 0) + c
+        rate += i + s
+    return raw_cls(
+        dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+        + dt.timedelta(seconds=i), {}, {"req": rate}, hists, {}, 1.0)
+
+
+def _put_window(out, key, ws) -> None:
+    """A WindowStats (or GroupStats) as flat arrays."""
+    flat = {}
+    entries = ws.metrics if hasattr(ws, "metrics") else {
+        "|".join(k): v for k, v in ws.groups.items()}
+    for name, entry in entries.items():
+        for stat, value in entry.items():
+            if stat == "edges":
+                for j, v in enumerate(value):
+                    flat[f"{name}.edge{j}"] = v
+            else:
+                flat[f"{name}.{stat}"] = value
+    put_metrics(out, key, flat)
+    out[key + ".meta"] = np.array([ws.covered_s, ws.tier, ws.slots])
+
+
+def _put_wheel(out, key, wheel) -> None:
+    for t, tier in enumerate(wheel._tiers):
+        out[f"{key}.ring{t}"] = tier.ring.cpu().numpy().copy()
+        out[f"{key}.state{t}"] = np.array(
+            [tier.slot, tier.in_slot, *tier.written.astype(int)])
+        out[f"{key}.durations{t}"] = tier.durations.copy()
+
+
+def _mc_serve(out, key, query, group_by, rate) -> None:
+    """The served results the test holds against JAX: every query of
+    MC_QUERIES, a group-by with equi-depth edges, a counter rate."""
+    for q, (pattern, window) in enumerate(MC_QUERIES):
+        _put_window(out, f"{key}.q{q}", query(pattern, window, MC_PS))
+    _put_window(out, f"{key}.group", group_by(
+        "api.lat{}", ["route"], window=None, percentiles=MC_PS, depth=4))
+    out[f"{key}.rate"] = np.array(rate("req", 3.0))
+
+
+def _mc_fused(out, mesh, inputs, s) -> None:
+    """The committer by hand on the aggregator and the wheel."""
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.labels import LabelIndex
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=MC_BL)
+    agg = TorchAggregator(num_metrics=MC_M, config=cfg, mesh=mesh,
+                          max_metrics=MC_M)
+    wheel = TimeWheel(num_metrics=MC_M, config=cfg, interval=1.0,
+                      tiers=MC_TIERS, registry=agg.registry, mesh=mesh)
+    wheel.label_index = LabelIndex(wheel.registry)
+    com = IntervalCommitter(agg, wheel, chunk=MC_CHUNK)
+    names = mc_names()
+    try:
+        modes, steps = [], []
+        for i in range(MC_INTERVALS):
+            raw = mc_raw(RawMetricSet, [(s, inputs[f"mc.{i}.{s}"])], names, i)
+            modes.append(com.commit(raw))
+            steps.append(com.last_dispatches)
+        out["fused.modes"] = np.array(modes)
+        out["fused.steps"] = np.array(steps)
+        out["fused.snapshot_none"] = np.array(agg.stats_snapshot is None)
+        out["fused.hbm"] = np.array(wheel.hbm_bytes())
+        _put_wheel(out, "fused", wheel)
+        _mc_serve(out, "fused", wheel.query, wheel.query_group_by,
+                  wheel.window_rate)
+        put_metrics(out, "fused.collect", agg.collect(reset=False).metrics)
+        out["fused.acc"] = agg._acc.cpu().numpy().copy()
+    finally:
+        agg.close()
+
+
+def _mc_failure(out, mesh, inputs, s, rank) -> None:
+    """Rank 0's commit fails before its first step (the fault injector's
+    ``commit.dispatch``): it spills the cells not applied and still
+    sends every share; a query right after it (rank 0 has no
+    snapshot, its peers do) takes one serve path on every rank."""
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import FaultInjector
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=MC_BL)
+    agg = TorchAggregator(num_metrics=MC_M, config=cfg, mesh=mesh,
+                          max_metrics=MC_M)
+    wheel = TimeWheel(num_metrics=MC_M, config=cfg, interval=1.0,
+                      tiers=MC_TIERS, registry=agg.registry, mesh=mesh)
+    com = IntervalCommitter(agg, wheel, chunk=MC_CHUNK)
+    if rank == 0:
+        com.fault_injector = FaultInjector().plan("commit.dispatch",
+                                                  on_call=1)
+    names = mc_names()
+    try:
+        for i in range(MC_INTERVALS):
+            com.commit(mc_raw(RawMetricSet, [(s, inputs[f"mc.{i}.{s}"])],
+                              names, i))
+            if i == 0:
+                out["failure.snapshot"] = np.array(wheel.snapshot is not None)
+                out["failure.total0"] = np.array(
+                    sum(int(t.ring.sum()) for t in wheel._tiers))
+                _put_window(out, "failure.q", wheel.query("*", None, MC_PS))
+        out["failure.spilled"] = np.array(agg._spill is not None)
+        _put_wheel(out, "failure", wheel)
+        put_metrics(out, "failure.collect", agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+
+
+def _mc_growth(out, mesh, inputs, s) -> None:
+    """Registry growth past the wheel's rows: the accumulator's blocks
+    grow at collect(), the rings keep their rows."""
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=MC_BL)
+    agg = TorchAggregator(num_metrics=MC_GROW_M0, config=cfg, mesh=mesh,
+                          max_metrics=MC_GROW_MAX)
+    wheel = TimeWheel(num_metrics=MC_GROW_M0, config=cfg, interval=1.0,
+                      tiers=MC_TIERS, registry=agg.registry, mesh=mesh)
+    com = IntervalCommitter(agg, wheel, chunk=MC_CHUNK)
+    try:
+        for i in range(MC_GROW_INTERVALS):
+            com.commit(mc_raw(RawMetricSet, [(s, inputs[f"mcg.{i}.{s}"])],
+                              mc_grow_names(i), i))
+        out["grow.capacity"] = np.array(agg.registry.capacity)
+        _put_wheel(out, "grow", wheel)
+        put_metrics(out, "grow.collect", agg.collect(reset=False).metrics)
+        out["grow.acc"] = agg._acc.cpu().numpy().copy()
+        out["grow.m"] = np.array(agg.num_metrics)
+    finally:
+        agg.close()
+
+
+def _mc_system(out, mesh, inputs, s) -> None:
+    """TorchMetricSystem(mesh=, commit="auto"): the first intervals ride
+    the committer's bridge (queued, D9) and the first query commits them;
+    the rest replay through backfill_retention."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MC_M,
+        config=MetricConfig(bucket_limit=MC_BL), retention=MC_TIERS,
+        mesh=mesh, observability=True)
+    names = mc_names()
+    raws = [mc_raw(RawMetricSet, [(s, inputs[f"mc.{i}.{s}"])], names, i)
+            for i in range(MC_INTERVALS)]
+    try:
+        out["system.path"] = np.array(
+            [ms.commit_path, str(ms.commit_path_reason)])
+        dump = ms.debug_dump()["mesh"]
+        out["system.mesh"] = np.array([dump["stream"], dump["metric"]])
+        ms._update_subscribers()  # the committer's subscription
+        for raw in raws[:MC_BROADCAST]:
+            with ms._subscribers_lock:
+                ms._broadcast(ms._raw_subscribers, raw)
+        end = time.monotonic() + 30.0
+        while len(ms.committer._queue) < MC_BROADCAST:
+            if time.monotonic() > end:
+                raise AssertionError("the bridge did not queue the intervals")
+            time.sleep(0.01)
+        out["system.queued"] = np.array(ms.committer.intervals_committed)
+        ms.query("*")  # commits the queued intervals, then serves
+        out["system.drained"] = np.array(ms.committer.intervals_committed)
+        out["system.backfilled"] = np.array(
+            ms.backfill_retention(raws[MC_BROADCAST:]))
+        _put_wheel(out, "system", ms.retention)
+        _mc_serve(out, "system", ms.query, ms.query_group_by, ms.window_rate)
+        put_metrics(out, "system.collect",
+                    ms.device_metrics(reset=False).metrics)
+        out["system.acc"] = ms.aggregator._acc.cpu().numpy().copy()
+        out["system.health"] = np.array(
+            ms.health.report().reason_codes(), dtype=str)
+    finally:
+        ms.stop()
+
+
+def _mc_fanout(out, mesh, inputs, s) -> None:
+    """commit="fanout" on the mesh: the wheel's push gathers the stream
+    rows' cells, the aggregator merges its row's."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MC_M,
+        config=MetricConfig(bucket_limit=MC_BL), retention=MC_TIERS,
+        mesh=mesh, commit="fanout")
+    names = mc_names()
+    raws = [mc_raw(RawMetricSet, [(s, inputs[f"mc.{i}.{s}"])], names, i)
+            for i in range(MC_INTERVALS)]
+    try:
+        out["fanout.path"] = np.array([ms.commit_path,
+                                       str(ms.committer is None)])
+        ms.backfill_retention(raws)
+        for raw in raws:
+            ms.aggregator.merge_raw(raw)
+        _put_wheel(out, "fanout", ms.retention)
+        _mc_serve(out, "fanout", ms.query, ms.query_group_by, ms.window_rate)
+        put_metrics(out, "fanout.collect",
+                    ms.device_metrics(reset=False).metrics)
+        out["fanout.acc"] = ms.aggregator._acc.cpu().numpy().copy()
+    finally:
+        ms.stop()
+
+
+def mc_stop_count(s: int, m: int) -> int:
+    return MC_STOP + s + m
+
+
+def _mc_stop(out, mesh, inputs, s, commit) -> None:
+    """stop() with unequal queues: rank (s, m) broadcasts
+    ``mc_stop_count(s, m)`` intervals of its stream row through the
+    bridge (the committer's, or the wheel's on the fan-out path) and
+    stops; the last drain commits the most any rank holds, a rank short
+    of it an empty interval for each it lacks.  Then the rings and the
+    collected accumulator, read after stop()."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_index
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    key = f"stop_{commit}"
+    n = mc_stop_count(s, axis_index(mesh, METRIC_AXIS))
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MC_M,
+        config=MetricConfig(bucket_limit=MC_BL), retention=MC_TIERS,
+        mesh=mesh, commit=commit, observability=True)
+    part = ms.committer if ms.committer is not None else ms.retention
+    names = mc_names()
+    for name in names:
+        # the two bridges of the fan-out path race to intern a raw set's
+        # names: registered up front, every rank's registry is the same
+        ms.metric_id(name)
+    try:
+        ms._update_subscribers()
+        for i in range(n):
+            with ms._subscribers_lock:
+                ms._broadcast(ms._raw_subscribers, mc_raw(
+                    RawMetricSet, [(s, inputs[f"mc.{i}.{s}"])], names, i))
+        end = time.monotonic() + 30.0
+        while part.queued_intervals < n:
+            if time.monotonic() > end:
+                raise AssertionError("the bridge did not queue the intervals")
+            time.sleep(0.01)
+        out[f"{key}.queued"] = np.array(ms.debug_dump()["queued_intervals"])
+        out[f"{key}.health"] = np.array(
+            ms.health.report().reason_codes(), dtype=str)
+    finally:
+        ms.stop()
+    out[f"{key}.padded"] = np.array(part._queue.padded)
+    out[f"{key}.pushed"] = np.array(ms.retention.intervals_pushed)
+    _put_wheel(out, key, ms.retention)
+    ms.device_metrics(reset=False)
+    out[f"{key}.acc"] = ms.aggregator._acc.cpu().numpy().copy()
+
+
+def mc_incapable(orig):
+    """A ``mesh_commit_incapability`` that counts one row more than the
+    system has: the reference's reason for an indivisible row count, on
+    a mesh whose aggregator must divide its rows (both packages' tests
+    patch their own the same way)."""
+    return lambda mesh, num_metrics=None: orig(mesh, (num_metrics or 0) + 1)
+
+
+def _mc_degraded(out, mesh) -> None:
+    """An incapable mesh: "auto" degrades with the reason (also the
+    watchdog's), an explicit "fused" raises it."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.ops import dispatch
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    orig = dispatch.mesh_commit_incapability
+    dispatch.mesh_commit_incapability = mc_incapable(orig)
+    kw = dict(interval=1.0, sys_stats=False, num_metrics=MC_M,
+              config=MetricConfig(bucket_limit=MC_BL), retention=MC_TIERS,
+              mesh=mesh)
+    try:
+        ms = TorchMetricSystem(observability=True, **kw)
+        try:
+            out["degraded.path"] = np.array(
+                [ms.commit_path, str(ms.commit_path_reason)])
+            details = [r["detail"] for r in ms.health.report().reasons
+                       if r["code"] == "fused_degraded"]
+            out["degraded.health"] = np.array(details, dtype=str)
+        finally:
+            ms.stop()
+        out["degraded.explicit"] = _raises(
+            lambda: TorchMetricSystem(commit="fused", **kw).stop())
+    finally:
+        dispatch.mesh_commit_incapability = orig
+
+
+def _mc_refusals(out, mesh) -> None:
+    from loghisto_tpu_torch.anomaly import AnomalyConfig, AnomalyManager
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig, LifecycleManager
+    from loghisto_tpu_torch.ops import dispatch
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_size
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=MC_BL)
+    agg = TorchAggregator(num_metrics=MC_M, config=cfg, mesh=mesh,
+                          max_metrics=MC_M)
+    wheel = TimeWheel(num_metrics=MC_M, config=cfg, tiers=MC_TIERS,
+                      registry=agg.registry, mesh=mesh)
+    plain = TimeWheel(num_metrics=MC_M, config=cfg, tiers=MC_TIERS,
+                      registry=agg.registry, device="cpu")
+    try:
+        out["refuse.chunk"] = _raises(
+            lambda: IntervalCommitter(agg, wheel, chunk=MC_CHUNK - 1))
+        out["refuse.meshes"] = _raises(lambda: IntervalCommitter(agg, plain))
+        out["refuse.lifecycle"] = _raises(lambda: IntervalCommitter(
+            agg, wheel, lifecycle=LifecycleManager(agg, wheel,
+                                                   LifecycleConfig())))
+        out["refuse.anomaly"] = _raises(lambda: IntervalCommitter(
+            agg, wheel, anomaly=AnomalyManager(agg, wheel, AnomalyConfig())))
+        out["refuse.agg_state"] = _raises(agg.state_dict)
+        out["refuse.wheel_state"] = _raises(wheel.state_dict)
+        out["refuse.wheel_rows"] = _raises(lambda: TimeWheel(
+            num_metrics=2 * axis_size(mesh, METRIC_AXIS) + 1, config=cfg,
+            tiers=MC_TIERS, mesh=mesh))
+    finally:
+        agg.close()
+    kw = dict(interval=1.0, sys_stats=False, num_metrics=MC_M, config=cfg,
+              retention=MC_TIERS, mesh=mesh)
+    out["refuse.sys_lifecycle"] = _raises(lambda: TorchMetricSystem(
+        lifecycle=LifecycleConfig(), **kw))
+    out["refuse.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
+        anomaly=AnomalyConfig(), **kw))
+    out["refuse.sys_recovery"] = _raises(lambda: TorchMetricSystem(
+        resilience=ResilienceConfig(checkpoint_path="never-written.npz"),
+        **kw))
+    out["refuse.sys_paged"] = _raises(lambda: TorchMetricSystem(
+        storage="paged", **kw))
+    odd = 2 * axis_size(mesh, METRIC_AXIS) + 1
+    out["dispatch.reasons"] = np.array([
+        str(dispatch.mesh_commit_incapability(mesh, MC_M)),
+        str(dispatch.mesh_commit_incapability(mesh, odd)),
+        dispatch.resolve_commit_path("auto", mesh=mesh,
+                                     num_metrics=MC_M),
+        dispatch.resolve_commit_path("auto", mesh=mesh,
+                                     num_metrics=odd),
+        dispatch.resolve_commit_path("fanout", mesh=mesh,
+                                     num_metrics=odd),
+    ])
+    out["dispatch.explicit"] = _raises(lambda: dispatch.resolve_commit_path(
+        "fused", mesh=mesh, num_metrics=odd))
+
+
+def _mesh_commit_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    stream, metric = map(int, arg.split("x"))
+    mesh = make_mesh(stream, metric, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    s = axis_index(mesh, STREAM_AXIS)
+    _mc_fused(out, mesh, inputs, s)
+    _mc_failure(out, mesh, inputs, s, rank)
+    _mc_growth(out, mesh, inputs, s)
+    _mc_system(out, mesh, inputs, s)
+    _mc_fanout(out, mesh, inputs, s)
+    for commit in ("auto", "fanout"):
+        _mc_stop(out, mesh, inputs, s, commit)
+    _mc_degraded(out, mesh)
+    _mc_refusals(out, mesh)
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
     "multihost": _multihost_job,
     "firehose": _firehose_job,
     "sketches": _sketches_job,
+    "mesh_commit": _mesh_commit_job,
     "selftest": _selftest_job,
 }
 
