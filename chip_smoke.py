@@ -108,6 +108,7 @@ import collections
 import contextlib
 import dataclasses
 import datetime as _dt
+import functools
 import gc
 import json
 import os
@@ -7096,8 +7097,18 @@ def phase_sketches(torch):
 # backfill_retention; every rank's written ring
 # slots (sha256 of its block) and its served query against a single-device
 # TorchMetricSystem on the card fed the merged intervals, K3 and K5
-# launched on every rank.  One card: no figure here is a scaling figure,
-# the ranks share its SMs.
+# launched on every rank; (e) lifecycle and drift on the mesh (ROADMAP D10,
+# item 11b-2): lifecycle_drift_main_path's system (ttl 2, 24 hourly banks,
+# decay 0.97, min_samples 64) with mesh= at MC_M rows and the default tiers,
+# on the same three meshes, ML_INTERVALS churn intervals (ML_STEADY steady
+# names, ML_FRESH fresh ones an interval, the shape shift at ML_SHIFT_AT,
+# one explicit compaction after ML_COMPACT_AT); "_overflow.api" is
+# registered first (block 0), so on (1, 2) the fresh victims (block 1)
+# fold across ranks, which the phase checks; every rank's activity block,
+# bank blocks, interval histogram block, ring blocks (sha256) and served
+# scores against a single-device system on the card, K6 and K7 launched
+# on every rank.  One card: no figure here is a scaling figure, the ranks
+# share its SMs.
 MS_BATCHES = 16
 MS_ROW_BATCHES = 8
 MS_SHAPES = ((2, 1), (1, 2))
@@ -7109,6 +7120,13 @@ MC_LIVE = 3  # of them broadcast through the bridge, committed by a query
 MC_CELLS = 16  # cells of each name in each stream row's interval
 MC_PS = (0.5, 0.99, 1.0)
 MC_GATHER_REPS = 5
+ML_STEADY = 384
+ML_FRESH = 96
+ML_INTERVALS = 16
+ML_SHIFT_AT = 8
+ML_COMPACT_AT = 12
+ML_SAMPLES = 1 << 17  # a stream row's samples an interval
+ML_HOUR = _dt.datetime(2026, 1, 1, 9, tzinfo=_dt.timezone.utc)
 
 
 def _ms_batch(k):
@@ -7337,6 +7355,230 @@ def _mc_check(got, oracle, block, blocks, what):
     return {k: v for k, v in got.items() if k not in ("digests", "served")}
 
 
+@functools.lru_cache(maxsize=None)
+def _ml_cells(k, s):
+    """Stream row s's cells of churn interval k: int64 [n, 3] (name
+    index, codec bucket, count) over ``_ml_names(k)``, ML_SAMPLES
+    lognormal samples, 40% of the samples of names 100-107 at 8x from
+    ML_SHIFT_AT."""
+    from loghisto_tpu_torch.ops.codec import compress_np
+
+    base = np.random.default_rng([SEED, 22])
+    mu = base.uniform(2.0, 6.0, ML_STEADY + ML_FRESH)
+    sigma = base.uniform(0.3, 1.0, ML_STEADY + ML_FRESH)
+    rng = np.random.default_rng([SEED, 22, k, s])
+    ids = rng.integers(0, ML_STEADY + ML_FRESH, ML_SAMPLES)
+    values = rng.lognormal(mu[ids], sigma[ids])
+    if k >= ML_SHIFT_AT:
+        hit = (ids >= 100) & (ids < 108) & (rng.random(ML_SAMPLES) < 0.4)
+        values[hit] *= 8.0
+    keys = ids.astype(np.int64) * 65536 + compress_np(values).astype(
+        np.int64) + 32768
+    uniq, counts = np.unique(keys, return_counts=True)
+    return np.stack([uniq >> 16, (uniq & 0xFFFF) - 32768, counts], axis=1)
+
+
+def _ml_names(k):
+    return ([f"svc.{i}.latency" for i in range(ML_STEADY)]
+            + [f"api.u{k * ML_FRESH + j}.lat" for j in range(ML_FRESH)])
+
+
+def _ml_raw(k, rows):
+    """Interval k of part (e) holding the merged cells of the stream rows
+    ``rows``: every name of the interval, in order (the ranks'
+    registries intern them alike)."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    names = _ml_names(k)
+    cells = np.concatenate([_ml_cells(k, s) for s in rows])
+    keys = cells[:, 0] * 65536 + cells[:, 1] + 32768
+    uniq, inv = np.unique(keys, return_inverse=True)
+    counts = np.bincount(inv.reshape(-1), weights=cells[:, 2]).astype(
+        np.int64)
+    rows_of = uniq >> 16
+    bounds = np.searchsorted(rows_of, np.arange(len(names) + 1))
+    buckets = ((uniq & 0xFFFF) - 32768).tolist()
+    counts = counts.tolist()
+    hists = {name: dict(zip(buckets[bounds[i]:bounds[i + 1]],
+                            counts[bounds[i]:bounds[i + 1]]))
+             for i, name in enumerate(names)}
+    return RawMetricSet(time=ML_HOUR + k * _ONE_SECOND, counters={},
+                        rates={}, histograms=hists, gauges={}, duration=1.0)
+
+
+def _ml_system(mesh=None):
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.anomaly import AnomalyConfig, hourly_bank
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MC_M, retention=True,
+        commit="auto", mesh=mesh,
+        lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        anomaly=AnomalyConfig(banks=LD_BANKS, bank_of=hourly_bank,
+                              decay=0.97, min_samples=64, window=6.0))
+    # the overflow row in block 0, the fresh names (and so the victims)
+    # past the steady ones
+    ms.metric_id("_overflow.api")
+    for i in range(ML_STEADY):
+        ms.metric_id(f"svc.{i}.latency")
+    return ms
+
+
+def _ml_state(torch, ms, blocks=1):
+    """Digests of every carry per block of ``blocks`` equal row blocks
+    (the activity vector, the active bank's profile and weight, the
+    interval histogram, the rings' written slots), the other banks'
+    emptiness, the registry's digest, the counters and the scores."""
+    import hashlib
+
+    lc, an = ms.lifecycle, ms.anomaly
+    bank = ML_HOUR.hour % LD_BANKS
+    others = torch.ones(LD_BANKS, dtype=torch.bool)
+    others[bank] = False
+    if int(torch.count_nonzero(an._prof[others.to(an._prof.device)])):
+        raise AssertionError("a bank other than the active one holds mass")
+
+    def per_block(t, dim=0):
+        rows = t.shape[dim] // blocks
+        return [_ms_digest(t.narrow(dim, b * rows, rows))
+                for b in range(blocks)]
+
+    names = "\n".join("" if n is None else n
+                       for n in ms.aggregator.registry.names())
+    return {
+        "la": per_block(lc._la), "prof": per_block(an._prof[bank]),
+        "wsum": per_block(an._wsum[bank]), "ihist": per_block(an._ihist),
+        "rings": _mc_digests(torch, ms.retention, blocks),
+        "names": hashlib.sha256(names.encode()).hexdigest(),
+        "counters": [lc.evicted_series, lc.overflowed_samples,
+                     lc.evictions, lc.compactions],
+        "scores": {k: v.tolist() for k, v in an._scores.items()},
+    }
+
+
+def _ml_feed(torch, ms, rows):
+    """Part (e)'s intervals through backfill_retention, one at a time,
+    an explicit compaction after ML_COMPACT_AT; per-call times."""
+    lc, an = ms.lifecycle, ms.anomaly
+    times = collections.defaultdict(list)
+    sent = {"evict": [], "compact": []}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    evict = timed("evict_ms", lc.evict_ids)
+
+    def evict_ids(victims):
+        out = evict(victims)
+        sent["evict"].append(lc.last_evict_bytes)
+        return out
+
+    lc.evict_ids = evict_ids
+    an.score_now = timed("score_ms", an.score_now)
+    commit = timed("commit_ms", ms.backfill_retention)
+    for k in range(ML_INTERVALS):
+        commit([_ml_raw(k, rows)])
+        if k == ML_COMPACT_AT:
+            if not timed("compact_ms", lc.compact)():
+                raise AssertionError("the compaction did not run")
+            sent["compact"].append(lc.last_compaction_bytes)
+    return dict(times), sent
+
+
+def _ml_oracles(torch):
+    """The single-device system on the card fed part (e)'s merged
+    intervals, for stream rows (0, 1) and (0,): digests per 1 and 2
+    blocks and the scores."""
+    out = {}
+    for rows in ((0, 1), (0,)):
+        ms = _ml_system()
+        try:
+            _ml_feed(torch, ms, rows)
+            if ms.committer.fused_intervals != ML_INTERVALS:
+                raise AssertionError("the oracle did not commit fused")
+            out[rows] = {b: _ml_state(torch, ms, b) for b in (1, 2)}
+        finally:
+            ms.stop()
+            del ms
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ml_run(torch, mesh, rows):
+    """Part (e) on one rank: the intervals of this rank's stream row
+    through the mesh system; its digests, scores, the launches of the
+    path and the eviction, compaction and scoring figures."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_size
+
+    ms = _ml_system(mesh)
+    try:
+        if ms.commit_path != "fused":
+            raise AssertionError(f"the mesh resolved {ms.commit_path}")
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        times, sent = _ml_feed(torch, ms, rows)
+        feed_s = time.perf_counter() - t0
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        for kernel in ("sparse_ingest", "window_merge", "compact_rows",
+                       "divergence"):
+            if launched.get(kernel, 0) <= 0:
+                raise AssertionError(f"{kernel} not launched on the mesh "
+                                     "lifecycle path")
+        if ms.committer.fused_intervals != ML_INTERVALS:
+            raise AssertionError("the mesh did not commit fused")
+        if ms.anomaly.scored_intervals < ML_INTERVALS - 1:
+            raise AssertionError("the mesh skipped scoring passes")
+        state = _ml_state(torch, ms, 1)
+        return {"feed_s": feed_s, **times, "evict_bytes": sent["evict"],
+                "compact_bytes": sent["compact"], "launches": launched,
+                "n_metric": axis_size(mesh, METRIC_AXIS),
+                "scored": ms.anomaly.scored_intervals, "state": state}
+    finally:
+        ms.stop()
+        del ms
+        torch.cuda.empty_cache()
+
+
+def _ml_check(got, oracle, block, blocks, what):
+    """One rank's part (e) against the oracle of its stream rows: the
+    digests of its blocks equal, the scores within rel 1e-6, abs 1e-7
+    (the CPU tests' mesh-against-single-device tolerance)."""
+    state, want = got["state"], oracle[blocks]
+    for key in ("la", "prof", "wsum", "ihist"):
+        if state[key][0] != want[key][block]:
+            raise AssertionError(f"{what}: the {key} block differs from "
+                                 "the single-device system's")
+    if [tier[0] for tier in state["rings"]] != [
+            tier[block] for tier in want["rings"]]:
+        raise AssertionError(f"{what}: the ring blocks differ")
+    for key in ("names", "counters"):
+        if state[key] != want[key]:
+            raise AssertionError(f"{what}: {key} differ")
+    for key, w in want["scores"].items():
+        g = np.asarray(state["scores"][key])
+        if not np.allclose(g, w, rtol=1e-6, atol=1e-7):
+            raise AssertionError(f"{what}: {key} scores differ by "
+                                 f"{float(np.abs(g - w).max())}")
+    if state["counters"][0] <= 0:
+        raise AssertionError(f"{what}: nothing was evicted")
+    return {k: v for k, v in got.items() if k != "state"} | {
+        "evicted_series": state["counters"][0],
+        "overflowed_samples": state["counters"][1]}
+
+
 def _ms_child(argv):
     """One rank of part (b): both meshes of two ranks, raw and sparse;
     prints one JSON line of digests, times and launches, and writes each
@@ -7406,6 +7648,11 @@ def _ms_child(argv):
                     tmp, f"{shape[0]}x{shape[1]}-commit-{rank}.json"),
                     "w") as f:
                 json.dump(commit, f)
+            life = _ml_run(torch, mesh, (s,))
+            with open(os.path.join(
+                    tmp, f"{shape[0]}x{shape[1]}-lifecycle-{rank}.json"),
+                    "w") as f:
+                json.dump(life, f)
     finally:
         multihost.shutdown()
     print(json.dumps(out), flush=True)
@@ -7587,6 +7834,9 @@ def phase_mesh(torch):
         out["commit_oracle"] = {
             "s": time.perf_counter() - t_oracle,
             "launches": {str(k): v[2] for k, v in oracles.items()}}
+        t_oracle = time.perf_counter()
+        ml_oracles = _ml_oracles(torch)
+        out["lifecycle_oracle_s"] = time.perf_counter() - t_oracle
         multihost.initialize(f"file://{tmp}/rdzv1", 1, 0, timeout_s=120.0)
         try:
             mesh, out["world1"] = _ms_world1(torch, batches, acc16, want16)
@@ -7599,6 +7849,16 @@ def phase_mesh(torch):
                 RESULTS.setdefault(kernel, {})["launches"] = (
                     RESULTS.get(kernel, {}).get("launches", 0)
                     + one["launches"][kernel])
+            t_life = time.perf_counter()
+            life = _ml_check(_ml_run(torch, mesh, (0,)), ml_oracles[(0,)], 0,
+                             1, "1x1 lifecycle")
+            out["lifecycle_1x1"] = {**life, "s": time.perf_counter() - t_life}
+            for kernel in ("compact_rows", "divergence"):
+                entry = RESULTS.setdefault(kernel, {})
+                entry["launches"] = (entry.get("launches", 0)
+                                     + life["launches"][kernel])
+                entry.setdefault("mesh_launches_per_rank", {})["1x1"] = [
+                    life["launches"][kernel]]
         finally:
             multihost.shutdown()
         del acc8, acc16, batches
@@ -7654,6 +7914,23 @@ def phase_mesh(torch):
                     got, oracles[stream_rows], block, shape[1],
                     f"{key} commit rank {r['rank']}"))
             out[f"commit_{key}"] = checked
+            checked = []
+            for r in ranks:
+                with open(os.path.join(
+                        tmp, f"{key}-lifecycle-{r['rank']}.json")) as f:
+                    got = json.load(f)
+                block = r["rank"] if shape[1] == 2 else 0
+                checked.append(_ml_check(
+                    got, ml_oracles[stream_rows], block, shape[1],
+                    f"{key} lifecycle rank {r['rank']}"))
+            if shape[1] == 2 and not any(sum(c["evict_bytes"])
+                                         for c in checked):
+                raise AssertionError(f"{key}: no victim folded across "
+                                     "ranks")
+            for kernel in ("compact_rows", "divergence"):
+                RESULTS[kernel]["mesh_launches_per_rank"][key] = [
+                    c["launches"][kernel] for c in checked]
+            out[f"lifecycle_{key}"] = checked
     finally:
         for p in procs:
             if p.poll() is None:
@@ -7676,6 +7953,9 @@ def kernels_line():
         }
         if also:
             entry["also_replaces"] = also
+        if "mesh_launches_per_rank" in r:
+            # mesh_main_path's part (e): launches of each rank, by mesh
+            entry["mesh_launches_per_rank"] = r["mesh_launches_per_rank"]
         out.append(entry)
     return {"kernels": out}
 

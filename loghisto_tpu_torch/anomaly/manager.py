@@ -19,6 +19,19 @@ another series' score.  The LifecycleManager calls
 critical sections: bank rows are zeroed with their victims and follow
 their survivors.
 
+On a ("stream", "metric") mesh (ROADMAP D10, dense storage) the
+carries are the rank's blocks of the accumulator's rows: ``prof`` f32
+``[K, M / n_metric, B]``, ``wsum`` f32 ``[K, M / n_metric]``, ``ihist``
+int32 ``[M / n_metric, B]``, the same on every rank of a metric column.
+Eviction zeroes the victims the rank holds, a compaction moves the bank
+rows that cross ranks before K6 repacks each block, growth re-lays them
+with the accumulator (``TorchAggregator._mesh_regrow``), and
+``score_now`` is a collective: the ranks agree that every one of them
+can score (a MIN over the mesh), K7 runs on each rank's view block and
+one ``all_gather`` over the metric axis gives every rank the same
+scores, so ``scores_for``, the ``anomaly.<name>.*`` gauges and drift
+rules read the same numbers everywhere.
+
 A scoring failure is not caught here: it leaves the committer's
 ``commit`` and lands in ``bridge_error`` (ROADMAP D6).
 """
@@ -39,8 +52,11 @@ from loghisto_tpu_torch.ops.anomaly import (
     make_bank_compact_fn,
     make_bank_evict_fn,
     make_divergence_fn,
+    make_sharded_bank_compact_fn,
+    make_sharded_divergence_fn,
     resolve_divergence_path,
 )
+from loghisto_tpu_torch.parallel.mesh import block_ids, mesh_reduce
 
 
 class AnomalyManager:
@@ -72,9 +88,17 @@ class AnomalyManager:
         self.config = config
         self.metric_system = metric_system
         self.divergence_path = resolve_divergence_path(config.divergence_path)
-        self._div = make_divergence_fn(self.divergence_path)
+        self._mesh = getattr(aggregator, "mesh", None)
         self._evict = make_bank_evict_fn()
-        self._compact = make_bank_compact_fn()
+        if self._mesh is not None:
+            self._div = make_sharded_divergence_fn(self._mesh,
+                                                   self.divergence_path)
+            self._compact = make_sharded_bank_compact_fn(self._mesh)
+            # growth re-lays the bank blocks with the accumulator
+            aggregator._mesh_carries.append(self._relayout_locked)
+        else:
+            self._div = make_divergence_fn(self.divergence_path)
+            self._compact = make_bank_compact_fn()
         if config.window is not None:
             # materialize the scoring window as a snapshot view
             wheel.pin_window(config.window)
@@ -122,10 +146,17 @@ class AnomalyManager:
 
     def ensure_capacity_locked(self, m: int):
         """The drift carries grown to ``m`` rows (new rows start cold:
-        zero profile, zero weight).  Returns ``(ihist, (prof, wsum))``."""
+        zero profile, zero weight).  Returns ``(ihist, (prof, wsum))``.
+        On a mesh the rank's blocks of ``m`` rows, which only growth's
+        re-layout resizes."""
         k = self.config.banks
         b = self.wheel.config.num_buckets
         dev = self.aggregator.device
+        if self._mesh is not None:
+            m //= self.aggregator._n_metric
+            if self._prof is not None and self._prof.shape[1] != m:
+                raise RuntimeError(f"bank block of {self._prof.shape[1]} "
+                                   f"rows, the accumulator's has {m}")
         if self._ihist is None:
             self._ihist = torch.zeros((m, b), dtype=torch.int32, device=dev)
         elif self._ihist.shape[0] < m:
@@ -148,6 +179,17 @@ class AnomalyManager:
         self._ihist = ihist
         self._prof, self._wsum = banks
 
+    def _relayout_locked(self, regrown) -> None:
+        """Growth on a mesh (``TorchAggregator._mesh_regrow``, under its
+        lock): the rank's new blocks of the gathered carries, new rows
+        cold."""
+        dev = self.aggregator.device
+        if self._ihist is not None:
+            self._ihist = regrown(self._ihist).to(dev)
+        if self._prof is not None:
+            self._prof = regrown(self._prof, dim=1).to(dev)
+            self._wsum = regrown(self._wsum, dim=1).to(dev)
+
     def on_device_failure_locked(self) -> None:
         """A fused commit step failed.  The reference rebuilds cold
         (zeros) the carries its donated dispatch consumed; the port's
@@ -158,30 +200,42 @@ class AnomalyManager:
 
     def on_evicted_locked(self, victim_ids: np.ndarray) -> None:
         """Zero the victims' bank rows (every bank) and interval
-        histogram rows; ``victim_ids`` may carry DROP_ID pads."""
+        histogram rows; ``victim_ids`` may carry DROP_ID pads.  On a
+        mesh (global ids) the victims of the rank's block."""
         if self._prof is None:
             return
+        if self._mesh is not None:
+            agg = self.aggregator
+            victim_ids = block_ids(np.asarray(victim_ids, dtype=np.int64),
+                                   agg._row0, agg._rows)
         self._prof, self._wsum, self._ihist = self._evict(
             self._prof, self._wsum, self._ihist, victim_ids)
 
-    def apply_permutation_locked(self, perm: np.ndarray) -> None:
+    def apply_permutation_locked(self, perm: np.ndarray) -> int:
         """Repack the bank carries with the lifecycle's survivor
-        permutation (``perm[new] = old``)."""
+        permutation (``perm[new] = old``); returns the bytes this rank
+        sent (on a mesh, the bank rows that crossed ranks; else 0)."""
         if self._prof is None:
-            return
-        self._prof, self._wsum, self._ihist = self._compact(
+            return 0
+        if self._mesh is None:
+            self._prof, self._wsum, self._ihist = self._compact(
+                self._prof, self._wsum, self._ihist, perm)
+            return 0
+        self._prof, self._wsum, self._ihist, sent = self._compact(
             self._prof, self._wsum, self._ihist, perm)
+        return sent
 
     # -- scoring ---------------------------------------------------------- #
 
-    def on_interval(self, raw) -> None:
+    def on_interval(self, raw, when=None) -> None:
         """After each committed interval (committer thread, no lock
-        held), before the wheel's hooks."""
+        held), before the wheel's hooks.  ``when`` picks the bank (the
+        mesh's agreed interval time; default ``raw.time``)."""
         self._intervals_seen += 1
         if self._intervals_seen % self.config.check_every:
             return
         with self.obs_recorder.span("anomaly.score", raw.seq):
-            self.score_now(raw.time)
+            self.score_now(raw.time if when is None else when)
 
     def _view(self, snap):
         ts = snap.tiers[self.config.tier]
@@ -196,11 +250,15 @@ class AnomalyManager:
         active bank.  Returns the host score arrays, or None when there
         is nothing to score yet."""
         snap = self.wheel.snapshot  # atomic read of an immutable handle
-        if snap is None:
-            self.skipped_intervals += 1
-            return None
         with self.aggregator._dev_lock:
-            if self._prof is None:
+            ready = snap is not None and self._prof is not None
+            if self._mesh is not None:
+                import torch.distributed as dist
+
+                # every rank scores, or none: the pass is a collective
+                ready = bool(mesh_reduce(self._mesh, [int(ready)],
+                                         dist.ReduceOp.MIN)[0])
+            if not ready:
                 self.skipped_intervals += 1
                 return None
             prof, wsum = self._prof, self._wsum

@@ -79,8 +79,14 @@ rows' shares gathered, the rank's own share into its accumulator block
 (which stays the stream row's partial until ``collect()`` reduces it;
 cells of rows the registry grew past the blocks wait on the host for
 ``collect()``'s re-layout), the gathered chunk into its block of every
-tier's open slot.  A rank whose step fails recovers as above and still
-sends its later chunks, so its peers' rings miss nothing.  No
+tier's open slot.  With a ``LifecycleManager`` / ``AnomalyManager``
+(ROADMAP D10, item 11b-2) the step also stamps the activity block and
+folds the interval histogram block from the gathered chunk, and the
+last one updates the rank's bank block; the commit lays out the
+registry's growth first, carries and accumulator together.  A rank
+whose step fails recovers as above and still sends its later chunks,
+so its peers' rings miss nothing, and stamps every gathered chunk's
+ids, so its activity block stays its peers'.  No
 accumulator snapshot is published: ``agg.stats_snapshot`` stays None.
 D9's thread rule: every collective runs at a collective entry point on
 the rank's main thread.  ``commit()`` is one, so every rank calls it
@@ -88,8 +94,10 @@ for the same intervals in the same order; an attached bridge only
 queues the broadcast intervals, and ``commit()`` and ``drain()`` (the
 system's ``device_metrics()``, ``backfill_retention`` and window
 queries call it) commit the queued ones first, in seq order, as many as
-every rank holds.  The lifecycle and drift engines on a mesh wait for
-ROADMAP Queue 1 item 11b-2.
+every rank holds.  The scoring pass and the lifecycle tick that follow
+a commit are collectives too (``AnomalyManager.score_now``,
+``LifecycleManager.check``, ``evict_ids`` and ``compact``), run on the
+same thread in the same order on every rank.
 
 Resilience, installed by ``TorchMetricSystem(resilience=...)``: an open
 ``breaker`` pins the fan-out path (the aggregator's ``_merge_cells_locked``
@@ -105,6 +113,7 @@ and events, and on the thread's default stream, which
 
 from __future__ import annotations
 
+import datetime as _dt
 import logging
 import threading
 import time
@@ -122,7 +131,6 @@ from loghisto_tpu_torch.metrics import (
 from loghisto_tpu_torch.obs.spans import NULL_RECORDER, LatencyHistogram
 from loghisto_tpu_torch.ops.commit import (
     COMMIT_CHUNK,
-    MESH_TRACKING,
     CellStagingRing,
     PagedTripleRing,
     make_fused_commit_fn,
@@ -174,6 +182,26 @@ def commit_incompatibility(aggregator, wheel) -> Optional[str]:
             "fused program's carries must share one row sharding)"
         )
     return None
+
+
+def _time_us(t) -> int:
+    """An interval's time as POSIX microseconds (-1 for None), for the
+    mesh's agreement on it."""
+    if t is None:
+        return -1
+    return int(round(t.timestamp() * 1e6))
+
+
+def _from_time_us(us: int, t):
+    """The agreed time: ``t`` when it is the agreed one, else the
+    datetime of ``us`` (UTC unless ``t`` names a zone; None for -1)."""
+    if us < 0:
+        return None
+    if t is not None and _time_us(t) == us:
+        return t
+    tz = _dt.timezone.utc if t is None else t.tzinfo
+    return (_dt.datetime.fromtimestamp(us // 1_000_000, tz)
+            + _dt.timedelta(microseconds=us % 1_000_000))
 
 
 def device_sync(device: torch.device) -> None:
@@ -238,13 +266,13 @@ class IntervalCommitter:
                     f"stream axis ({n_stream}): staged cell chunks always "
                     "pad to the full width, which must split evenly"
                 )
-            if track or track_b:
-                raise ValueError(f"fused commit on a mesh: {MESH_TRACKING}")
             # a rank stages its stream row's share of each chunk
             width = self.chunk // n_stream
-            self._fused = make_sharded_fused_commit_fn(self.mesh, tiers_n, bl)
+            self._fused = make_sharded_fused_commit_fn(
+                self.mesh, tiers_n, bl, track, track_b)
             self._fused_snap = make_sharded_fused_commit_snapshot_fn(
-                self.mesh, tiers_n, bl, prec)
+                self.mesh, tiers_n, bl, prec, track_activity=track,
+                track_baseline=track_b)
         elif self.paged is not None:
             self._fused = make_paged_fused_commit_fn(tiers_n, bl, track)
             self._fused_snap = make_paged_fused_commit_snapshot_fn(
@@ -384,8 +412,9 @@ class IntervalCommitter:
         b0 = self._staging.bytes_uploaded
         with rec.span("commit.cells", seq):
             cells = self._cells_from_raw(raw)
+        when = raw.time
         if self.mesh is not None:
-            mode, dispatches = self._commit_cells_mesh(cells, raw, dur)
+            mode, dispatches, when = self._commit_cells_mesh(cells, raw, dur)
         elif cells is None:
             # slot rotation and durations still advance
             wheel.push_cells(None, raw, dur)
@@ -395,7 +424,7 @@ class IntervalCommitter:
         if self.anomaly is not None:
             # score the snapshot just published BEFORE the hooks, so
             # drift rules evaluate this interval's scores
-            self.anomaly.on_interval(raw)
+            self.anomaly.on_interval(raw, when)
         wheel.run_hooks(raw)
         if self.lifecycle is not None:
             # the policy tick runs outside every lock, on this thread:
@@ -666,12 +695,20 @@ class IntervalCommitter:
 
     def _commit_cells_mesh(self, cells, raw: RawMetricSet, dur: float):
         """Commit this rank's stream row's cells (or None).  Returns
-        (mode, dispatches).  The ranks agree first (one reduction over
-        the mesh, every rank, every interval): the chunk count, the most
-        any rank needs, and the fan-out if any rank needs it."""
+        (mode, dispatches, the interval's time).  With lifecycle or drift
+        carries the registry's growth is laid out first
+        (``_mesh_regrow``, the carries with the accumulator), so the
+        interval's new rows take their cells, stamps and bank rows in
+        it, as the reference's grow-then-commit does.  The ranks then
+        agree (one reduction over the mesh, every rank, every interval):
+        the chunk count, the most any rank needs; the fan-out if any rank
+        needs it; and the interval's time (the latest), which picks the
+        drift engine's bank on every rank alike."""
         import torch.distributed as dist
 
-        agg, wheel = self.aggregator, self.wheel
+        agg, wheel, lc = self.aggregator, self.wheel, self.lifecycle
+        if lc is not None or self.anomaly is not None:
+            agg._mesh_regrow()
         width = self._staging.width
         n = 0 if cells is None else len(cells[0])
         spill = self.breaker is not None and self.breaker.is_open()
@@ -682,31 +719,40 @@ class IntervalCommitter:
             spill = (spill or int(w64.max()) >= 1 << 30
                      or agg._interval_ingested + int(
                          w64[block].sum(dtype=np.int64)) >= agg._spill_at)
-        nchunks, spill = mesh_reduce(self.mesh, [-(-n // width), int(spill)],
-                                     dist.ReduceOp.MAX)
+        nchunks, spill, t_us = mesh_reduce(
+            self.mesh, [-(-n // width), int(spill), _time_us(raw.time)],
+            dist.ReduceOp.MAX)
+        when = _from_time_us(t_us, raw.time)
         if nchunks == 0:
             # no stream row has a cell: slot rotation and durations still
             # advance (the push's own agreement finds nothing to gather)
             wheel.push_cells(None, raw, dur)
-            return "empty", 0
+            return "empty", 0, when
         if spill:
             # the aggregator keeps its block of the row's cells (K3, or
             # its exact host spill past the envelope), the wheel's push
-            # gathers them
+            # gathers them, and the activity stamp takes the whole
+            # interval's ids from that gather
             with agg._dev_lock:
                 if cells is not None:
                     agg._merge_cells_locked(*cells)
                 agg.stats_snapshot = None
+
+            def touch(whole):
+                with agg._dev_lock:
+                    lc.touch_locked(whole[:, 0])
+
             wheel.push_cells(None if cells is None
-                             else self._dense_cells(cells), raw, dur)
-            return "fanout", nchunks * (1 + len(wheel._tiers))
+                             else self._dense_cells(cells), raw, dur,
+                             gathered=None if lc is None else touch)
+            return "fanout", nchunks * (1 + len(wheel._tiers)), when
         with agg._dev_lock:
             with wheel._lock:
-                return "fused", self._mesh_dispatch_locked(cells, raw, dur,
-                                                           nchunks)
+                return "fused", self._mesh_dispatch_locked(
+                    cells, raw, dur, nchunks, when), when
 
     def _mesh_dispatch_locked(self, cells, raw: RawMetricSet, dur: float,
-                              nchunks: int) -> int:
+                              nchunks: int, when) -> int:
         """The fused path of a mesh rank (caller holds agg._dev_lock,
         then wheel._lock): ``nchunks`` steps of the sharded step, each
         on this rank's share of the chunk (padded to the staging width),
@@ -724,8 +770,8 @@ class IntervalCommitter:
             ids, idx, w32 = dense
             local = np.stack([ids, idx - np.int32(bl), w32], axis=1)
             # rows the registry grew past the blocks: they wait on the
-            # host for collect()'s re-layout (the accumulator's share;
-            # the wheel's rows never grow)
+            # host for the next re-layout (the accumulator's share; the
+            # wheel's rows never grow)
             agg._stash_late_cells_locked(*cells)
             lo = agg._row0
             w_block = np.where((ids >= lo) & (ids < lo + agg._rows),
@@ -734,9 +780,17 @@ class IntervalCommitter:
         slots, keeps, windows, masks = self._open_tiers_locked(raw, dur,
                                                                dense)
         ones = [1] * len(tiers)
+        lc, an = self.lifecycle, self.anomaly
+        if lc is not None:
+            la = lc.ensure_capacity_locked(agg.num_metrics)
+            epoch = wheel.intervals_pushed
+        if an is not None:
+            ihist, banks = an.ensure_capacity_locked(agg.num_metrics)
+            bank = an.bank_for(when)
         emit = masks is not None
         dispatches = applied = gathered = 0
         payloads = None
+        seen = []  # every gathered chunk's ids, for a failure's stamps
 
         def share(k: int) -> np.ndarray:
             return pad_triples(local[k * width:(k + 1) * width], width)
@@ -748,9 +802,11 @@ class IntervalCommitter:
             agg._interval_ingested += int(
                 w_block[dispatches * width:applied].sum(dtype=np.int64))
 
-        def on_gather():
+        def on_gather(whole):
             nonlocal gathered
             gathered = dispatches + 1
+            if lc is not None:
+                seen.append(whole[:, 0])
 
         try:
             inj = self.fault_injector
@@ -762,15 +818,38 @@ class IntervalCommitter:
                     packed = self._staging.stage(part[:, 0], part[:, 1],
                                                  part[:, 2])
                 final = emit and k == nchunks - 1
-                args = [agg._acc, [t.ring for t in tiers], slots,
-                        keeps if k == 0 else ones, packed]
+                # the single-device operand order: carries, the cells,
+                # then the host scalars
+                args = [agg._acc, [t.ring for t in tiers]]
+                if lc is not None:
+                    args.append(la)
+                if an is not None:
+                    args.append(ihist)
+                    if final:
+                        args.append(banks)
+                args += [slots, keeps if k == 0 else ones, packed]
+                if lc is not None:
+                    args.append(epoch)
                 if final:
                     args.append(masks)
+                if an is not None:
+                    args.append(0 if k == 0 else 1)
+                    if final:
+                        args += [bank, an.decay32, an.min_count32]
                 with self.obs_recorder.span("commit.dispatch"):
-                    out = (self._fused_snap if final else self._fused)(
-                        *args, landed=landed, gathered=on_gather)
+                    out = iter((self._fused_snap if final else self._fused)(
+                        *args, landed=landed, gathered=on_gather))
+                next(out)
+                next(out)  # the accumulator and rings, in place
+                if lc is not None:
+                    lc.store_carry_locked(next(out))
+                if an is not None:
+                    ihist = next(out)
+                    if final:
+                        banks = next(out)
+                    an.store_carry_locked(ihist, banks)
                 if final:
-                    payloads = out[2]  # out[3], the acc payload, is None
+                    payloads = next(out)  # then the acc payload, None
                 dispatches += 1
             if self.obs_recorder.enabled:
                 with self.obs_recorder.span("commit.device_sync"):
@@ -783,7 +862,14 @@ class IntervalCommitter:
             # the peers' rings still need this rank's later shares: send
             # them, in order, so every rank's gathers stay in step
             for k in range(gathered, nchunks):
-                gather_triples(self.mesh, torch.from_numpy(share(k)))
+                whole = gather_triples(self.mesh, torch.from_numpy(share(k)))
+                if lc is not None:
+                    seen.append(whole[:, 0])
+            if lc is not None and seen:
+                # D6 on a mesh: every gathered chunk's ids, as the peers
+                # stamped them, so the carry stays the same on every
+                # rank of the metric column (and the policy ticks agree)
+                lc.on_device_failure_locked(torch.cat(seen))
         self._close_tiers_locked(slots, raw, dur, windows, masks, payloads,
                                  None)
         return dispatches
@@ -810,7 +896,8 @@ class IntervalCommitter:
             wheel.invalidate_snapshot_locked()
             return
         ids, bidx64, w64 = cells
-        if self.lifecycle is not None:
+        if self.lifecycle is not None and self.mesh is None:
+            # (a mesh rank stamps every gathered chunk's ids itself)
             self.lifecycle.on_device_failure_locked(ids[:applied])
         if self.anomaly is not None:
             self.anomaly.on_device_failure_locked()

@@ -28,6 +28,19 @@ shed targets' victims with ``drop_rows``, then folds the rings
 (``apply_permutation``, no device traffic) after the registry's commit
 point and before the rings' K6 repack (``compact_paged``).
 
+On a ("stream", "metric") mesh (ROADMAP D10, dense storage) the
+activity vector is the rank's block ``[M / n_metric]`` of it, the same
+on every rank of a metric column (the fused step stamps the gathered
+chunk's ids).  ``check()`` gathers it over the metric axis and runs the
+policies on identical inputs on every rank; ``evict_ids`` folds the
+victims across the metric line (``ops/lifecycle.
+make_sharded_fold_evict_fn``) and ``compact`` moves the rows that cross
+ranks before K6 repacks each block (``make_sharded_compact_fn``).  All
+three are collectives that every rank calls in the same order (D9's
+entry points); each first lays out the registry's growth
+(``TorchAggregator._mesh_regrow``, which also re-lays the activity
+block).
+
 A failure inside a policy tick is not caught here: it leaves the
 committer's ``commit`` and lands in ``bridge_error`` (ROADMAP D6).
 """
@@ -47,14 +60,31 @@ from loghisto_tpu_torch.lifecycle.policy import LifecycleConfig, \
     decide_victims
 from loghisto_tpu_torch.obs.spans import NULL_RECORDER
 from loghisto_tpu_torch.ops.commit import DROP_ID
+from loghisto_tpu_torch.ops.commit import stamp_activity
 from loghisto_tpu_torch.ops.lifecycle import (
     make_compact_fn,
     make_fold_evict_fn,
+    make_sharded_compact_fn,
+    make_sharded_fold_evict_fn,
     make_touch_fn,
     pad_pow2_ids,
+    resolve_compact_path,
+    take_rows,
+)
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    RowMove,
+    block_ids,
+    fold_rows,
+    gather_parts,
+    mesh_reduce,
 )
 
 logger = logging.getLogger("loghisto_tpu_torch")
+
+# a mesh's grown activity rows before their first use: the reference pads
+# its carry when it next needs it, stamping the epoch of that moment
+_UNSET = -(2**31)
 
 
 class LifecycleManager:
@@ -76,15 +106,25 @@ class LifecycleManager:
         self.config = config
         self.metric_system = metric_system
         num_tiers = len(wheel._tiers)
-        self._fold = make_fold_evict_fn(num_tiers, with_acc=not self._paged)
-        self._compact = make_compact_fn(num_tiers, config.compact_path,
-                                        with_acc=not self._paged)
+        self._mesh = getattr(aggregator, "mesh", None)
+        if self._mesh is not None:
+            resolve_compact_path(config.compact_path)
+            self._fold = make_sharded_fold_evict_fn(self._mesh, num_tiers)
+            self._compact = make_sharded_compact_fn(self._mesh, num_tiers)
+            # growth re-lays the activity block with the accumulator
+            aggregator._mesh_carries.append(self._relayout_locked)
+        else:
+            self._fold = make_fold_evict_fn(num_tiers,
+                                            with_acc=not self._paged)
+            self._compact = make_compact_fn(num_tiers, config.compact_path,
+                                            with_acc=not self._paged)
         self._touch = make_touch_fn()
         # the drift engine's banks live and die with these rows; set by
         # TorchMetricSystem so bank rows are zeroed with their victims
         # and permuted with their survivors
         self.anomaly = None
         self._la: Optional[torch.Tensor] = None  # int32 [M], _dev_lock
+        self._unset = False  # a mesh's grown rows still read _UNSET
 
         self._intervals_seen = 0
         # the tick's span; TorchMetricSystem(observability=...) installs
@@ -97,6 +137,10 @@ class LifecycleManager:
         self.last_compaction_us = 0.0
         self._compaction_us: deque = deque(maxlen=256)
         self._metrics_lock = threading.Lock()
+        # on a mesh, the bytes this rank sent in its last eviction and
+        # its last compaction (the rows that crossed ranks)
+        self.last_evict_bytes = 0
+        self.last_compaction_bytes = 0
 
     # -- epoch / activity carry (callers hold agg._dev_lock) ------------- #
 
@@ -108,9 +152,19 @@ class LifecycleManager:
 
     def ensure_capacity_locked(self, m: int) -> torch.Tensor:
         """The activity carry, grown to ``m`` rows (new rows stamp the
-        current epoch: a fresh row is as alive as a fresh name)."""
+        current epoch: a fresh row is as alive as a fresh name).  On a
+        mesh the rank's block of ``m`` rows, which only growth's
+        re-layout resizes."""
         la = self._la
         dev = self.aggregator.device
+        if self._mesh is not None:
+            m //= self.aggregator._n_metric
+            if la is not None and la.shape[0] != m:
+                raise RuntimeError(f"activity block of {la.shape[0]} rows, "
+                                   f"the accumulator's has {m}")
+            if self._unset:
+                la.masked_fill_(la == _UNSET, self.epoch)
+                self._unset = False
         if la is None:
             la = torch.full((m,), self.epoch, dtype=torch.int32, device=dev)
         elif la.shape[0] < m:
@@ -122,12 +176,30 @@ class LifecycleManager:
     def store_carry_locked(self, la: torch.Tensor) -> None:
         self._la = la
 
-    def touch_locked(self, ids: np.ndarray) -> None:
+    def _relayout_locked(self, regrown) -> None:
+        """Growth on a mesh (``TorchAggregator._mesh_regrow``, under its
+        lock): the rank's new block of the gathered carry, the new rows
+        ``_UNSET`` until ``ensure_capacity_locked`` stamps them with the
+        epoch of that call, when the reference pads its carry."""
+        if self._la is not None:
+            self._la = regrown(self._la, fill=_UNSET).to(
+                self.aggregator.device)
+            self._unset = True
+
+    def touch_locked(self, ids) -> None:
         """Activity stamp of the spill fan-out (the fused commit stamps
-        inside its own step)."""
+        inside its own step); on a mesh ``ids`` are the whole interval's
+        (global, a host array or a tensor) and the rank stamps those of
+        its block."""
         if len(ids) == 0:
             return
         la = self.ensure_capacity_locked(self.aggregator.num_metrics)
+        if self._mesh is not None:
+            agg = self.aggregator
+            ids = torch.as_tensor(ids).to(la.device, torch.int32)
+            stamp_activity(la, block_ids(ids, agg._row0, agg._rows),
+                           self.epoch)
+            return
         self._la = self._touch(la, pad_pow2_ids(ids), self.epoch)
 
     def on_device_failure_locked(self, landed_ids=None) -> None:
@@ -139,7 +211,8 @@ class LifecycleManager:
         one that failed after its chunk landed may not have stamped it:
         ``landed_ids``, the ids of every chunk that landed, are stamped
         again (a no-op for a row already stamped), so no active row
-        reads as idle."""
+        reads as idle.  On a mesh they are the ids of every chunk the
+        rank gathered, as its peers stamped them."""
         if landed_ids is not None:
             self.touch_locked(landed_ids)
 
@@ -160,7 +233,13 @@ class LifecycleManager:
         with self.aggregator._dev_lock:
             if self._la is None:
                 return []
-            last_active = self._la.cpu().numpy()
+            la = self._la
+            if self._mesh is not None:
+                # the same [M] vector on every rank, so the same victims;
+                # grown rows not stamped yet are past it (no row yet)
+                la = gather_parts(self._mesh, la, METRIC_AXIS)
+                la = la[:int((la != _UNSET).sum())]
+            last_active = la.cpu().numpy()
         victims = decide_victims(
             self.aggregator.registry.names(), last_active, self.epoch,
             self.config,
@@ -205,6 +284,11 @@ class LifecycleManager:
         vpad = pad_pow2_ids(vids)
         tpad = np.full(len(vpad), DROP_ID, dtype=np.int32)
         tpad[:len(tids)] = tids
+        mesh = self._mesh
+        if mesh is not None:
+            # an overflow name may have grown the registry: its row must
+            # exist before the fold (a collective, as every step below)
+            agg._mesh_regrow()
 
         with agg._dev_lock:
             la = self.ensure_capacity_locked(agg.num_metrics)
@@ -229,6 +313,11 @@ class LifecycleManager:
                         agg.paged.drop_rows(shed)
                     rings, la = self._fold(rings, la, vpad, tpad,
                                            self.epoch)
+                elif mesh is not None:
+                    acc, rings, la, moved, sent = self._fold(
+                        agg._acc, rings, la, vpad, tpad, self.epoch)
+                    agg._acc = acc
+                    self.last_evict_bytes = sent
                 else:
                     acc, rings, la, vcounts = self._fold(
                         agg._acc, rings, la, vpad, tpad, self.epoch,
@@ -241,7 +330,9 @@ class LifecycleManager:
                 if self.anomaly is not None:
                     # the freed rows' next tenants start cold
                     self.anomaly.on_evicted_locked(vpad)
-                if agg._spill is not None:
+                if mesh is not None:
+                    self._fold_spill_mesh_locked(vpad, tpad)
+                elif agg._spill is not None:
                     for mid, _, omid, _ in pairs:
                         if mid < len(agg._spill):
                             if 0 <= omid < len(agg._spill):
@@ -283,6 +374,28 @@ class LifecycleManager:
             self.overflowed_samples += moved
         return [p[1] for p in pairs]
 
+    def _mesh_spill_locked(self):
+        """On a mesh: the rank's host spill block as a tensor (zeros if
+        it had none) when any rank of its metric line holds one, else
+        None; a collective of the line."""
+        import torch.distributed as dist
+
+        agg = self.aggregator
+        if not mesh_reduce(self._mesh, [agg._spill is not None],
+                           dist.ReduceOp.MAX, (METRIC_AXIS,))[0]:
+            return None
+        if agg._spill is None:
+            agg._spill = np.zeros(tuple(agg._acc.shape), dtype=np.int64)
+        return torch.from_numpy(agg._spill)
+
+    def _fold_spill_mesh_locked(self, victims, targets) -> None:
+        """The eviction fold of the host spill blocks across the metric
+        line, as the accumulator's."""
+        spill = self._mesh_spill_locked()
+        if spill is not None:
+            fold_rows(self._mesh, spill, 0, victims, targets,
+                      self.aggregator._rows)
+
     # -- compaction ------------------------------------------------------- #
 
     def compact(self) -> bool:
@@ -293,6 +406,10 @@ class LifecycleManager:
         the permutation (the next tick retries)."""
         agg, wheel, reg = self.aggregator, self.wheel, self.aggregator.registry
         t0 = time.perf_counter()
+        mesh = self._mesh
+        if mesh is not None:
+            # the permutation covers the grown rows: lay them out first
+            agg._mesh_regrow()
         with agg._dev_lock:
             names = reg.names()
             live = [m for m, n in enumerate(names) if n is not None]
@@ -326,6 +443,12 @@ class LifecycleManager:
                                      -1), m_rows)
                         rings, la = self._compact(rings, la, perm,
                                                   self.epoch)
+                    elif mesh is not None:
+                        acc, rings, la, sent = self._compact(
+                            agg._acc, rings, la, perm, self.epoch,
+                            [np.flatnonzero(t.written) for t in tiers])
+                        agg._acc = acc
+                        self.last_compaction_bytes = sent
                     else:
                         acc, rings, la = self._compact(agg._acc, rings, la,
                                                        perm, self.epoch)
@@ -336,8 +459,16 @@ class LifecycleManager:
                 self._la = la
                 if self.anomaly is not None:
                     # baselines follow their rows through the repack
-                    self.anomaly.apply_permutation_locked(perm)
-                if agg._spill is not None:
+                    self.last_compaction_bytes += (
+                        self.anomaly.apply_permutation_locked(perm))
+                if mesh is not None:
+                    spill = self._mesh_spill_locked()
+                    if spill is not None:
+                        move = RowMove(mesh, perm, agg._rows, agg._rows)
+                        agg._spill = move.apply(spill, 0,
+                                                take_rows).numpy()
+                        self.last_compaction_bytes += move.bytes_sent
+                elif agg._spill is not None:
                     spill = np.zeros_like(agg._spill)
                     nsrc = [s for s in live if s < len(agg._spill)]
                     spill[:len(nsrc)] = agg._spill[nsrc]

@@ -20,6 +20,17 @@ banks and the per-row drift scores, K7 (counterpart of
     rows zeroed in place; the survivor permutation applied to every bank
     carry through K6 (the same row gather over 4-byte elements).
 
+On a ("stream", "metric") mesh (ROADMAP D10) a rank holds the bank
+block of its accumulator rows (``[K, M / n_metric, B]``) and scores its
+view block (the ring rows, ``[M_w / n_metric, B]``):
+``make_sharded_bank_compact_fn`` moves crossing bank rows like the
+rings (``parallel/mesh.RowMove``, K6 on each block), and
+``make_sharded_divergence_fn`` runs K7 on the rank's view block against
+the bank rows of the same global rows (fetched from their ranks when
+growth made the accumulator's blocks larger than the wheel's), then one
+``all_gather`` over the metric axis gives every rank the ``[M_w]``
+scores.
+
 Definitions, in dense bucket space:
 
   ks  = max_b |F_live(b) - F_base(b)|            in [0, 1]
@@ -34,6 +45,12 @@ import torch
 
 from loghisto_tpu_torch.ops.backend import is_plain, launch
 from loghisto_tpu_torch.ops.lifecycle import compact_rows_kernel
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    RowMove,
+    axis_size,
+    gather_parts,
+)
 
 DIVERGENCE_PATH_RULE = (
     "the drift scores follow the tensors' device, as every kernel wrapper "
@@ -165,6 +182,36 @@ def divergence_scores(cdf, counts, prof, wsum, bank, min_samples):
                              wsum[int(bank)], min_samples)
 
 
+def make_sharded_divergence_fn(mesh, path: str = "auto"):
+    """``make_divergence_fn`` for one rank of a ("stream", "metric")
+    mesh: ``div(cdf, counts, prof, wsum, bank, min_samples)`` with the
+    rank's view block (cdf int32 ``[M_w / n_metric, B]``, counts) and
+    bank block (prof f32 ``[K, M / n_metric, B]``, wsum), returning
+    every rank the scores of all ``M_w`` rows.  Where the blocks differ
+    (the accumulator grew past the wheel's rows) the bank rows of the
+    view block's global rows come from their ranks first (a
+    ``RowMove``, K6 on the rows kept).  K7 on the rank's block, then one
+    ``all_gather`` over the metric axis: a collective of the metric
+    line."""
+    resolve_divergence_path(path)
+
+    def div(cdf, counts, prof, wsum, bank, min_samples):
+        p, w = prof[int(bank)], wsum[int(bank)]
+        rows = cdf.shape[0]
+        if p.shape[0] != rows:
+            move = RowMove(mesh, np.arange(axis_size(mesh, METRIC_AXIS)
+                                           * rows), p.shape[0], rows)
+            p = move.apply(p, 0, compact_rows_kernel)
+            w = move.apply(w[:, None], 0, compact_rows_kernel)[:, 0]
+        scores = divergence_kernel(cdf, counts, p, w, min_samples)
+        whole = gather_parts(mesh, torch.stack([scores[k]
+                                                for k in SCORE_KEYS]),
+                             METRIC_AXIS, dim=1)
+        return dict(zip(SCORE_KEYS, whole.to(cdf.device)))
+
+    return div
+
+
 def make_divergence_fn(path: str = "auto"):
     """``div(cdf, counts, prof, wsum, bank, min_samples) -> {"ks",
     "jsd", "emd"}`` — the drift engine's one scoring pass per interval.
@@ -211,5 +258,24 @@ def make_bank_compact_fn():
         wsum = compact_rows_kernel(wsum[:, :, None], perm_t[:mb])[:, :, 0]
         ihist = compact_rows_kernel(ihist, perm_t[:mi])
         return prof, wsum, ihist
+
+    return compact
+
+
+def make_sharded_bank_compact_fn(mesh):
+    """``make_bank_compact_fn`` for one rank of a ("stream", "metric")
+    mesh: ``compact(prof, wsum, ihist, perm) -> (prof, wsum, ihist,
+    bytes_sent)`` on the rank's bank blocks (the accumulator's rows)
+    with the global ``perm``: K6 on each block with the rows it keeps,
+    the crossing rows from their ranks (``RowMove``).  A collective of
+    the metric line."""
+
+    def compact(prof, wsum, ihist, perm):
+        rows = prof.shape[1]
+        move = RowMove(mesh, perm, rows, rows)
+        prof = move.apply(prof, 1, compact_rows_kernel)
+        wsum = move.apply(wsum[:, :, None], 1, compact_rows_kernel)[:, :, 0]
+        ihist = move.apply(ihist, 0, compact_rows_kernel)
+        return prof, wsum, ihist, move.bytes_sent
 
     return compact

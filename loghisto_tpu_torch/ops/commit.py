@@ -125,6 +125,87 @@ def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
         stamp_activity(last_active, packed[:, 0], epoch)
 
 
+def _step_fn(fold, num_tiers: int, track_activity: bool,
+             track_baseline: bool):
+    """A commit step over ``fold(acc, rings, last_active, ihist, slots,
+    keeps, packed, epoch, ifirst, **kw)``, which updates the carries in
+    place: ``commit(acc, rings, [last_active], [ihist], slots, keeps,
+    packed, [epoch], [ifirst], **kw) -> (acc, rings, [last_active],
+    [ihist])``."""
+
+    def commit(*args, **kw):
+        it = iter(args)
+        acc, rings = next(it), tuple(next(it))
+        la = next(it) if track_activity else None
+        ihist = next(it) if track_baseline else None
+        slots, keeps, packed = next(it), next(it), next(it)
+        epoch = next(it) if track_activity else None
+        ifirst = next(it) if track_baseline else None
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        fold(acc, rings, la, ihist, slots, keeps, packed, epoch, ifirst,
+             **kw)
+        out = [acc, rings]
+        if track_activity:
+            out.append(la)
+        if track_baseline:
+            out.append(ihist)
+        return tuple(out)
+
+    return commit
+
+
+def _snapshot_step_fn(fold, num_tiers: int, bucket_limit: int,
+                      precision: int, track_activity: bool,
+                      track_baseline: bool, acc_payload: bool):
+    """The final-chunk step over ``fold`` (``_step_fn``'s): the fold,
+    then each tier's ``window_snapshot`` (one K5) and, when
+    ``acc_payload``, ``dense_cdf`` of the accumulator (else None), and
+    the EWMA bank update from the completed ``ihist``:
+    ``commit(acc, rings, [last_active], [ihist], [banks], slots, keeps,
+    packed, [epoch], masks, [ifirst, bank, decay, min_count], **kw) ->
+    (acc, rings, [last_active], [ihist], [banks], tier_payloads,
+    acc_payload)``."""
+    if track_baseline:
+        # deferred: ops.anomaly imports ops.lifecycle, which imports this
+        from loghisto_tpu_torch.ops.anomaly import ewma_bank_update
+
+    def commit(*args, **kw):
+        it = iter(args)
+        acc, rings = next(it), tuple(next(it))
+        la = next(it) if track_activity else None
+        ihist = next(it) if track_baseline else None
+        banks = next(it) if track_baseline else None
+        slots, keeps, packed = next(it), next(it), next(it)
+        epoch = next(it) if track_activity else None
+        masks = next(it)
+        if track_baseline:
+            ifirst, bank, decay, min_count = (next(it), next(it), next(it),
+                                              next(it))
+        else:
+            ifirst = None
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        fold(acc, rings, la, ihist, slots, keeps, packed, epoch, ifirst,
+             **kw)
+        payloads = tuple(
+            window_snapshot(ring, masks[t], bucket_limit, precision)
+            for t, ring in enumerate(rings)
+        )
+        out = [acc, rings]
+        if track_activity:
+            out.append(la)
+        if track_baseline:
+            out.append(ihist)
+            out.append(ewma_bank_update(banks, ihist, bank, decay,
+                                        min_count))
+        out.extend((payloads, dense_cdf(acc, bucket_limit, precision)
+                    if acc_payload else None))
+        return tuple(out)
+
+    return commit
+
+
 def make_fused_commit_fn(
     num_tiers: int,
     bucket_limit: int,
@@ -152,26 +233,10 @@ def make_fused_commit_fn(
     caller can tell a failure after that point from one before it.
     """
 
-    def commit(*args, landed=None):
-        it = iter(args)
-        acc, rings = next(it), tuple(next(it))
-        la = next(it) if track_activity else None
-        ihist = next(it) if track_baseline else None
-        slots, keeps, packed = next(it), next(it), next(it)
-        epoch = next(it) if track_activity else None
-        ifirst = next(it) if track_baseline else None
-        if len(rings) != num_tiers:
-            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
-        _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
-                    ifirst, bucket_limit, landed)
-        out = [acc, rings]
-        if track_activity:
-            out.append(la)
-        if track_baseline:
-            out.append(ihist)
-        return tuple(out)
+    def fold(*carries, landed=None):
+        _fold_chunk(*carries, bucket_limit, landed)
 
-    return commit
+    return _step_fn(fold, num_tiers, track_activity, track_baseline)
 
 
 def make_fused_commit_snapshot_fn(
@@ -194,63 +259,30 @@ def make_fused_commit_snapshot_fn(
     ``(prof f32 [K, M, B], wsum f32 [K, M])``, updated in place from the
     completed ``ihist`` (``ewma_bank_update``).  ``landed`` is
     ``make_fused_commit_fn``'s."""
-    if track_baseline:
-        # deferred: ops.anomaly imports ops.lifecycle, which imports this
-        from loghisto_tpu_torch.ops.anomaly import ewma_bank_update
 
-    def commit(*args, landed=None):
-        it = iter(args)
-        acc, rings = next(it), tuple(next(it))
-        la = next(it) if track_activity else None
-        ihist = next(it) if track_baseline else None
-        banks = next(it) if track_baseline else None
-        slots, keeps, packed = next(it), next(it), next(it)
-        epoch = next(it) if track_activity else None
-        masks = next(it)
-        if track_baseline:
-            ifirst, bank, decay, min_count = (next(it), next(it), next(it),
-                                              next(it))
-        else:
-            ifirst = None
-        if len(rings) != num_tiers:
-            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
-        _fold_chunk(acc, rings, la, ihist, slots, keeps, packed, epoch,
-                    ifirst, bucket_limit, landed)
-        payloads = tuple(
-            window_snapshot(ring, masks[t], bucket_limit, precision)
-            for t, ring in enumerate(rings)
-        )
-        out = [acc, rings]
-        if track_activity:
-            out.append(la)
-        if track_baseline:
-            out.append(ihist)
-            out.append(ewma_bank_update(banks, ihist, bank, decay,
-                                        min_count))
-        out.extend((payloads, dense_cdf(acc, bucket_limit, precision)))
-        return tuple(out)
+    def fold(*carries, landed=None):
+        _fold_chunk(*carries, bucket_limit, landed)
 
-    return commit
+    return _snapshot_step_fn(fold, num_tiers, bucket_limit, precision,
+                             track_activity, track_baseline, True)
 
 
-MESH_TRACKING = (
-    "the lifecycle's activity carry and the drift engine's banks on a "
-    "mesh wait for ROADMAP Queue 1 item 11b-2"
-)
-
-
-def _sharded_fold(mesh, acc, rings, slots, keeps, packed, bucket_limit,
-                  landed, gathered):
+def _sharded_fold(mesh, acc, rings, last_active, ihist, slots, keeps,
+                  packed, epoch, ifirst, bucket_limit, landed, gathered):
     """One chunk of a mesh rank (in place): the stream row shares
-    gathered, the ring-wrap clears, then the rank's own share into its
-    accumulator block and the gathered chunk into its block of every
-    tier's open slot.  Those are two K3 launches, or one where the
-    stream axis is 1 (the gathered chunk is the share) and the blocks
-    cover the same rows.  ``landed()`` runs once the share sits in the
-    accumulator."""
+    gathered, the ring-wrap clears (and, on the interval's first chunk,
+    ``ihist``'s), then the rank's own share into its accumulator block,
+    the gathered chunk into its block of every tier's open slot and of
+    ``ihist`` (acc layout, as the reference's psum'd delta), and the
+    activity stamp.  K3 takes every target that shares one triple array
+    in one launch: the accumulator and ``ihist`` share the gathered
+    chunk where the stream axis is 1 (the share is the chunk), and the
+    ring blocks join them where they cover the same rows.  ``landed()``
+    runs once the share sits in the accumulator; ``gathered(whole)``
+    once the chunk's ``all_gather`` returned."""
     whole = gather_triples(mesh, packed)
     if gathered is not None:
-        gathered()
+        gathered(whole)
     m = axis_index(mesh, METRIC_AXIS)
     views = []
     for ring, slot, keep in zip(rings, slots, keeps):
@@ -258,24 +290,37 @@ def _sharded_fold(mesh, acc, rings, slots, keeps, packed, bucket_limit,
         if int(keep) != 1:
             view.mul_(int(keep))  # ring wrap: clear the slot's old life
         views.append(view)
+    if ihist is not None and int(ifirst) == 0:
+        ihist.zero_()  # the interval's first chunk: x ifirst = 0
     rows = acc.shape[0]
     # the wheel's tiers all have its rows; the accumulator may have more
     ring_rows = views[0].shape[0] if views else rows
-    if axis_size(mesh, STREAM_AXIS) == 1 and ring_rows == rows:
-        sparse_ingest_multi([acc] + views,
-                            block_triples(whole, m * rows, rows),
-                            bucket_limit)
-        if landed is not None:
+    acc_block = block_triples(whole, m * rows, rows)
+    # (targets, triples), the accumulator's first; ``gathered`` is the
+    # launch on the gathered chunk in the accumulator's layout
+    if axis_size(mesh, STREAM_AXIS) == 1:
+        gathered_launch = ([acc], acc_block)
+        launches = [gathered_launch]
+    else:
+        gathered_launch = ([], acc_block)
+        launches = [([acc], block_triples(packed, m * rows, rows)),
+                    gathered_launch]
+    if ihist is not None:
+        gathered_launch[0].append(ihist)
+    if ring_rows == rows:
+        gathered_launch[0].extend(views)
+    elif views:
+        launches.append((views, block_triples(whole, m * ring_rows,
+                                              ring_rows)))
+    for k, (targets, triples) in enumerate(launches):
+        if targets:
+            sparse_ingest_multi(targets, triples, bucket_limit)
+        if k == 0 and landed is not None:
             landed()
-        return
-    sparse_ingest_multi([acc], block_triples(packed, m * rows, rows),
-                        bucket_limit)
-    if landed is not None:
-        landed()
-    if views:
-        sparse_ingest_multi(views,
-                            block_triples(whole, m * ring_rows, ring_rows),
-                            bucket_limit)
+    if last_active is not None:
+        # the ids of the gathered chunk in the accumulator block's rows,
+        # at any weight (the reference's psum'd touch markers)
+        stamp_activity(last_active, acc_block[:, 0], epoch)
 
 
 def make_sharded_fused_commit_fn(
@@ -286,30 +331,23 @@ def make_sharded_fused_commit_fn(
     track_baseline: bool = False,
 ):
     """``make_fused_commit_fn`` for one rank of a ("stream", "metric")
-    mesh: ``commit(acc, rings, slots, keeps, packed) -> (acc, rings)``
-    with the single-device operands, where ``acc`` is the rank's
-    ``[M / n_metric, B]`` block (its stream row's partial), each ring
-    its ``[S_t, M_t / n_metric, B]`` block, and ``packed`` its stream
-    row's share of the chunk (int32 ``[chunk / n_stream, 3]``, global
-    ids, pad rows id -1).  A collective of the rank's stream line: every
-    rank of it calls the step once per chunk, in the same order.
-    ``landed`` runs once the share sits in the accumulator, ``gathered``
-    once the chunk's ``all_gather`` returned (a failing rank still owes
-    its peers the later chunks' gathers).  The lifecycle and drift
-    carries wait for 11b-2 (``MESH_TRACKING``)."""
-    if track_activity or track_baseline:
-        raise ValueError(f"sharded fused commit: {MESH_TRACKING}")
+    mesh, with its operands: ``acc`` is the rank's ``[M / n_metric, B]``
+    block (its stream row's partial), each ring its ``[S_t, M_t /
+    n_metric, B]`` block, ``last_active`` its ``[M / n_metric]`` block
+    and ``ihist`` its ``[M / n_metric, B]`` block (both the same on
+    every rank of a metric column: they take the gathered chunk), and
+    ``packed`` its stream row's share of the chunk (int32 ``[chunk /
+    n_stream, 3]``, global ids, pad rows id -1).  A collective of the
+    rank's stream line: every rank of it calls the step once per chunk,
+    in the same order.  ``landed`` runs once the share sits in the
+    accumulator, ``gathered(whole)`` once the chunk's ``all_gather``
+    returned (a failing rank still owes its peers the later chunks'
+    gathers)."""
 
-    def commit(acc, rings, slots, keeps, packed, *, landed=None,
-               gathered=None):
-        rings = tuple(rings)
-        if len(rings) != num_tiers:
-            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
-        _sharded_fold(mesh, acc, rings, slots, keeps, packed, bucket_limit,
-                      landed, gathered)
-        return acc, rings
+    def fold(*carries, landed=None, gathered=None):
+        _sharded_fold(mesh, *carries, bucket_limit, landed, gathered)
 
-    return commit
+    return _step_fn(fold, num_tiers, track_activity, track_baseline)
 
 
 def make_sharded_fused_commit_snapshot_fn(
@@ -320,28 +358,20 @@ def make_sharded_fused_commit_snapshot_fn(
     track_activity: bool = False,
     track_baseline: bool = False,
 ):
-    """The final-chunk variant of ``make_sharded_fused_commit_fn``:
-    ``commit(acc, rings, slots, keeps, packed, masks) -> (acc, rings,
-    tier_payloads, acc_payload)``.  Each tier payload is
-    ``window_snapshot`` (one K5) over the rank's ring block, row-sharded
-    as the reference's.  ``acc_payload`` is None: the rank's accumulator
-    is its stream row's partial, whose CDF is not the interval's
-    (``collect()`` reduces it), so no accumulator snapshot is
-    published on a mesh."""
-    step = make_sharded_fused_commit_fn(mesh, num_tiers, bucket_limit,
-                                        track_activity, track_baseline)
+    """The final-chunk variant of ``make_sharded_fused_commit_fn``, with
+    ``make_fused_commit_snapshot_fn``'s operands and results: each tier
+    payload is ``window_snapshot`` (one K5) over the rank's ring block,
+    row-sharded as the reference's, and ``banks`` is the rank's block
+    ``(prof f32 [K, M / n_metric, B], wsum f32 [K, M / n_metric])``.
+    ``acc_payload`` is None: the rank's accumulator is its stream row's
+    partial, whose CDF is not the interval's (``collect()`` reduces it),
+    so no accumulator snapshot is published on a mesh."""
 
-    def commit(acc, rings, slots, keeps, packed, masks, *, landed=None,
-               gathered=None):
-        acc, rings = step(acc, rings, slots, keeps, packed, landed=landed,
-                          gathered=gathered)
-        payloads = tuple(
-            window_snapshot(ring, masks[t], bucket_limit, precision)
-            for t, ring in enumerate(rings)
-        )
-        return acc, rings, payloads, None
+    def fold(*carries, landed=None, gathered=None):
+        _sharded_fold(mesh, *carries, bucket_limit, landed, gathered)
 
-    return commit
+    return _snapshot_step_fn(fold, num_tiers, bucket_limit, precision,
+                             track_activity, track_baseline, False)
 
 
 def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,

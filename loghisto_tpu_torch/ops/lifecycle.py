@@ -30,6 +30,22 @@ On paged storage (``with_acc=False``) the pool is folded and permuted by
 ``last_active`` only, as the reference's ``fold_paged`` and
 ``compact_paged`` do.
 
+On a ("stream", "metric") mesh (ROADMAP D10) each rank holds row blocks
+of every structure, and a victim, its overflow target, or a survivor and
+its new position may lie on different ranks of the metric line:
+
+  * ``make_sharded_fold_evict_fn`` — each rank sums its victims' rows
+    per target, sends each sum whose target another rank holds to that
+    rank and adds what it holds (``parallel/mesh.fold_rows``: one
+    ``all_to_all`` of the line, when a pair crosses), then zeroes its
+    victims; for the accumulator block and every ring block;
+  * ``make_sharded_compact_fn`` — the survivor permutation is global:
+    each rank runs K6 on its block with the rows it keeps and receives
+    the rows whose new position it holds from their ranks
+    (``parallel/mesh.RowMove``: one ``all_to_all`` of the line, when a
+    row crosses); for the accumulator block, ``last_active`` (a gather,
+    not K6) and every ring block, whose unwritten slots stay home.
+
 JAX's ``take(mode="fill")`` wraps negative indices before its bounds
 check (the reason for the reference's ``_sanitize_perm``); here every
 hole is masked to a zero row explicitly.
@@ -42,6 +58,13 @@ import torch
 
 from loghisto_tpu_torch.ops.backend import is_plain, launch
 from loghisto_tpu_torch.ops.commit import DROP_ID, stamp_activity
+from loghisto_tpu_torch.parallel.mesh import (
+    METRIC_AXIS,
+    RowMove,
+    axis_index,
+    fold_rows,
+    mesh_reduce,
+)
 
 COMPACT_PATH_RULE = (
     "the row repack follows the array's device, as every kernel wrapper "
@@ -235,10 +258,7 @@ def make_compact_fn(num_tiers: int, path: str = "auto",
             rings[i] = compact_rows_kernel(rings[i], perm_t[:m_t])
         n = last_active.shape[0]
         p = perm_t[:n] if perm_t.shape[0] >= n else perm_t
-        empty = (p < 0) | (p >= n)
-        la = last_active[torch.where(empty, torch.zeros_like(p), p).long()]
-        la = torch.where(empty, torch.full_like(la, int(epoch)), la)
-        return rings, la
+        return rings, _activity_rows(epoch)(last_active, p)
 
     def perm_on(perm, device):
         return torch.as_tensor(np.asarray(perm, dtype=np.int32),
@@ -257,6 +277,100 @@ def make_compact_fn(num_tiers: int, path: str = "auto",
         acc = compact_rows_kernel(acc, perm_t)
         rings, la = compact_rings(rings, last_active, perm_t, epoch)
         return acc, rings, la
+
+    return compact
+
+
+def take_rows(arr: torch.Tensor, perm) -> torch.Tensor:
+    """``out[new] = arr[perm[new]]`` on dim 0, zero rows where
+    ``perm[new]`` is out of range: the plain row gather for carries K6
+    does not take (any element type, e.g. an int64 host spill)."""
+    perm = torch.as_tensor(perm, device=arr.device).long()
+    valid = (perm >= 0) & (perm < arr.shape[0])
+    out = torch.zeros((len(perm), *arr.shape[1:]), dtype=arr.dtype,
+                      device=arr.device)
+    out[valid] = arr[perm[valid]]
+    return out
+
+
+def _activity_rows(epoch):
+    """The activity carry's repack: a gather (``last_active[p]``), the
+    empty rows stamped ``epoch``."""
+
+    def repack(la, p):
+        empty = (p < 0) | (p >= la.shape[0])
+        out = la[torch.where(empty, torch.zeros_like(p), p).long()]
+        return torch.where(empty, torch.full_like(out, int(epoch)), out)
+
+    return repack
+
+
+def make_sharded_fold_evict_fn(mesh, num_tiers: int):
+    """The evict-fold of one rank of a ("stream", "metric") mesh:
+    ``fold(acc, rings, last_active, victims, targets, epoch) -> (acc,
+    rings, last_active, moved, bytes_sent)`` on the rank's blocks (acc
+    ``[M / n_metric, B]``, its stream row's partial; rings ``[S, M_t /
+    n_metric, B]``; last_active ``[M / n_metric]``), in place, with
+    global victim and target ids (DROP_ID pads).  ``moved`` is the
+    victims' accumulator total summed over the whole mesh (int64, exact;
+    the reference's ``vcounts`` summed), ``bytes_sent`` what this rank
+    sent.  A collective of the mesh: every rank calls it with the same
+    ids; each structure's exchange runs over the metric line, then one
+    SUM over the mesh."""
+
+    def fold(acc, rings, last_active, victims, targets, epoch):
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        import torch.distributed as dist
+
+        v = np.asarray(victims, dtype=np.int64)
+        t = np.asarray(targets, dtype=np.int64)
+        rows = acc.shape[0]
+        lo = axis_index(mesh, METRIC_AXIS) * rows
+        own = v[(v >= lo) & (v < lo + rows)] - lo
+        own_t = _index(own, acc.device)
+        total = int(acc.index_select(0, own_t).sum(dtype=torch.int64))
+        sent = fold_rows(mesh, acc, 0, v, t, rows)
+        for ring in rings:
+            sent += fold_rows(mesh, ring, 1, v, t, ring.shape[1])
+        last_active.index_fill_(0, _index(own, last_active.device),
+                                int(epoch))
+        moved = mesh_reduce(mesh, [total], dist.ReduceOp.SUM)[0]
+        return acc, rings, last_active, moved, sent
+
+    return fold
+
+
+def make_sharded_compact_fn(mesh, num_tiers: int):
+    """The repack of one rank of a ("stream", "metric") mesh:
+    ``compact(acc, rings, last_active, perm, epoch, written) -> (acc,
+    rings, last_active, bytes_sent)`` on the rank's blocks, with the
+    global ``perm`` (host int32 [M], ``perm[new] = old``).  K6 repacks
+    the accumulator block and each ring block with the rows the rank
+    keeps, the crossing rows arrive from their ranks (``RowMove``), and
+    ``last_active`` moves the same way through a gather (freed rows
+    stamped ``epoch``).  ``written[t]`` lists tier t's written slots:
+    only they hold counts, so only their crossing rows travel.
+    ``rings`` is a list the caller owns, its entries replaced one at a
+    time.  A collective of the metric line."""
+
+    def compact(acc, rings, last_active, perm, epoch, written):
+        if len(rings) != num_tiers:
+            raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        rows = acc.shape[0]
+        move = RowMove(mesh, perm, rows, rows)
+        acc = move.apply(acc, 0, compact_rows_kernel)
+        la = move.apply(last_active, 0, _activity_rows(epoch))
+        sent = move.bytes_sent
+        for i in range(num_tiers):
+            ring_rows = rings[i].shape[1]
+            rmove = move if ring_rows == rows else RowMove(
+                mesh, perm, ring_rows, ring_rows)
+            before = rmove.bytes_sent
+            rings[i] = rmove.apply(rings[i], 1, compact_rows_kernel,
+                                   lead=written[i])
+            sent += rmove.bytes_sent - before
+        return acc, rings, la, sent
 
     return compact
 

@@ -116,8 +116,10 @@ point.  The mesh's fused commit (item 11b-1, ROADMAP D9) adds the rank's
 stream row's cells to its block through ``IntervalCommitter``, which on
 the fan-out path merges them here (``_merge_cells_locked``, spilling at
 the rank's share); the block stays the row's partial, so no accumulator
-snapshot is published on a mesh.  Still waiting: checkpoints on a mesh
-(item 11b-2) and paged storage on a mesh (item 11c).
+snapshot is published on a mesh.  The lifecycle and drift carries
+(item 11b-2, ROADMAP D10) register with ``_mesh_regrow`` so growth lays
+them out anew with the accumulator.  Still waiting: checkpoints on a
+mesh (item 11b-3) and paged storage on a mesh (item 11c).
 """
 
 from __future__ import annotations
@@ -189,7 +191,7 @@ def _step_for(path: str):
 STATE_FORMAT = "loghisto_tpu_torch.aggregator/1"
 
 MESH_STATE = (
-    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b-2"
+    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b-3"
 )
 
 
@@ -740,6 +742,10 @@ class TorchAggregator:
         # _dev_lock)
         self._late_raw: list = []
         self._late_cells: list = []
+        # a mesh rank's other row-block carries (the lifecycle's activity
+        # block, the drift engine's banks): each a callable that
+        # _mesh_regrow hands its ``regrown``, in registration order
+        self._mesh_carries: list = []
         self._interval_ingested = 0
         self._spilled_samples = 0
         self._registry_shed_samples = 0
@@ -1627,23 +1633,30 @@ class TorchAggregator:
         the new rows are folded in.  Collectives, in this order on every
         rank: the row count (MAX over stream, then metric); when it grew,
         the spill flag (MAX over metric) and the gathers of the blocks
-        and, if any rank of the row spilled, of the spills."""
+        and, if any rank of the row spilled, of the spills; then each
+        registered carry (``_mesh_carries``: the lifecycle's activity
+        block, the drift engine's banks), which lays itself out anew
+        through the same ``regrown``."""
         import torch.distributed as dist
 
         max_ = dist.ReduceOp.MAX
         new_m = mesh_reduce(self.mesh, [self.registry.capacity], max_)[0]
         if new_m == self.num_metrics:
             return
+        old_m = self.num_metrics
 
-        def regrown(part: torch.Tensor) -> torch.Tensor:
-            """This rank's new block of its stream row's rows."""
-            whole = gather_parts(self.mesh, part)
-            grown = torch.zeros((new_m, whole.shape[1]), dtype=whole.dtype,
-                                device=whole.device)
-            grown[:self.num_metrics] = whole
+        def regrown(part: torch.Tensor, dim: int = 0,
+                    fill=0) -> torch.Tensor:
+            """This rank's new block of its line's rows (on dim ``dim``),
+            the new rows ``fill``, on the collective's device."""
+            whole = gather_parts(self.mesh, part, dim=dim)
+            shape = list(whole.shape)
+            shape[dim] = new_m
+            grown = torch.full(shape, fill, dtype=whole.dtype,
+                               device=whole.device)
+            grown.narrow(dim, 0, old_m).copy_(whole)
             rows = new_m // self._n_metric
-            lo = self._metric_index * rows
-            return grown[lo:lo + rows].clone()
+            return grown.narrow(dim, self._metric_index * rows, rows).clone()
 
         with self._dev_lock:
             self.registry.grow(new_m)
@@ -1655,6 +1668,8 @@ class TorchAggregator:
                 self._spill = regrown(torch.from_numpy(spill)).cpu().numpy()
             self._acc = acc
             self.num_metrics = new_m
+            for relayout in self._mesh_carries:
+                relayout(regrown)
             if dispatch.ingest_incapability(self.ingest_path, self._rows,
                                             self.batch_size, acc.shape[1]):
                 self.ingest_path = dispatch.resolve_ingest_path(

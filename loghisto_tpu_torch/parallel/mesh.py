@@ -43,6 +43,15 @@ and ``device_metrics()``, the wheel's queries) commit the queued
 intervals first, in seq order, as many as every rank holds; ``stop()``
 commits the most any rank holds, a rank short of it an empty interval
 for each it lacks.
+
+ROADMAP decision D10, lifecycle and drift on a mesh (item 11b-2).  The
+reference moves sharded rows inside one program; here rows move between
+the ranks of a metric line only where an eviction's victim and its
+overflow target, or a survivor and its new position, lie in different
+blocks: ``fold_rows`` sends one summed row per (rank, target) pair,
+``RowMove`` the rows of a permutation that cross ranks, each in one
+``all_to_all`` of the line, and each rank then runs the kernels (K6,
+K7, K5) on its own blocks, as D8 runs K1.
 """
 
 from __future__ import annotations
@@ -289,6 +298,151 @@ class IntervalQueue:
         finally:
             self._draining = False
         return n
+
+
+def _all_to_all_rows(mesh, rows: torch.Tensor, send_counts, recv_counts,
+                     device: torch.device) -> torch.Tensor:
+    """Rows (dim 0) of ``rows`` sent to the ranks of this rank's metric
+    line in ``send_counts`` (coordinate order), ``recv_counts`` received
+    from each; the received rows, on ``device``.  One ``all_to_all`` of
+    the line (through the host under gloo)."""
+    import torch.distributed as dist
+
+    group = axis_group(mesh, METRIC_AXIS)
+    cdev = collective_device(group, device)
+    rows = rows.to(cdev).contiguous()
+    out = torch.empty((int(sum(recv_counts)), *rows.shape[1:]),
+                      dtype=rows.dtype, device=cdev)
+    dist.all_to_all_single(out, rows, [int(c) for c in recv_counts],
+                           [int(c) for c in send_counts], group=group)
+    return out.to(device)
+
+
+class RowMove:
+    """A row permutation of a carry laid out in row blocks over this
+    rank's metric line (ROADMAP D10): ``perm[new] = old`` over global
+    rows, the old rows in blocks of ``src_rows`` a rank, the new ones in
+    blocks of ``dst_rows`` (an entry outside the old rows is an empty
+    row).  Every rank of the line builds the same plan from the same
+    ``perm``.  ``apply`` repacks the rank's block with the rows it keeps
+    (``local``, the repack's permutation, where a row that comes from a
+    peer is a hole), sends each row whose new position lies on another
+    rank to that rank and writes the rows it receives into place: one
+    ``all_to_all`` of the line with split sizes, made only when some row
+    of the line crosses ranks, so only crossing rows travel."""
+
+    def __init__(self, mesh, perm, src_rows: int, dst_rows: int):
+        self.mesh = mesh
+        n = axis_size(mesh, METRIC_AXIS)
+        me = axis_index(mesh, METRIC_AXIS)
+        full = np.full(n * dst_rows, -1, dtype=np.int64)
+        perm = np.asarray(perm, dtype=np.int64)[:n * dst_rows]
+        full[:len(perm)] = perm
+        g = np.arange(n * dst_rows)
+        ok = (full >= 0) & (full < n * src_rows)
+        src = np.where(ok, full // src_rows, -1)
+        dst = g // dst_rows
+        lo_s, lo_d = me * src_rows, me * dst_rows
+        keep = ok & (dst == me) & (src == me)
+        self.local = np.full(dst_rows, -1, dtype=np.int32)
+        self.local[g[keep] - lo_d] = full[keep] - lo_s
+        # in order of new position, so grouped by destination rank
+        send = ok & (src == me) & (dst != me)
+        self.send_idx = full[send] - lo_s
+        self.send_counts = np.bincount(dst[send], minlength=n)
+        # grouped by source rank, each group in order of new position
+        recv = ok & (dst == me) & (src != me)
+        order = np.lexsort((g[recv], src[recv]))
+        self.recv_pos = (g[recv] - lo_d)[order]
+        self.recv_counts = np.bincount(src[recv], minlength=n)
+        self.crossing = int((ok & (src != dst)).sum())  # the whole line's
+        self.bytes_sent = 0
+
+    def apply(self, block: torch.Tensor, dim: int, repack,
+              lead=None) -> torch.Tensor:
+        """``block``'s new block: ``repack(block, local)`` (a fresh
+        tensor of ``dst_rows`` rows on ``dim``), then the rows from the
+        peers written in.  ``lead``, for a ``dim`` of 1, names the
+        entries of dim 0 whose crossing rows travel (every other entry
+        is zero on every rank of the line, as an unwritten ring slot
+        is).  A collective of the line when ``crossing``."""
+        dev = block.device
+        out = repack(block, torch.from_numpy(self.local).to(dev))
+        if not self.crossing or (lead is not None and not len(lead)):
+            return out
+        src = block
+        if lead is not None:
+            src = block.index_select(0, torch.as_tensor(
+                np.asarray(lead, dtype=np.int64), device=dev))
+        rows = src.index_select(dim, torch.from_numpy(self.send_idx)
+                                .to(dev)).movedim(dim, 0)
+        got = _all_to_all_rows(self.mesh, rows, self.send_counts,
+                               self.recv_counts, dev).movedim(0, dim)
+        self.bytes_sent += rows.numel() * rows.element_size()
+        pos = torch.from_numpy(self.recv_pos).to(dev)
+        if lead is None:
+            out.index_copy_(dim, pos, got)
+        else:
+            for j, s in enumerate(np.asarray(lead, dtype=np.int64).tolist()):
+                out[s].index_copy_(dim - 1, pos, got[j])
+        return out
+
+
+def fold_rows(mesh, block: torch.Tensor, dim: int, victims, targets,
+              rows: int) -> int:
+    """The eviction fold of a carry laid out in blocks of ``rows`` rows
+    over this rank's metric line, in place on the rank's ``block``: each
+    victim's row added into its target's row, then zeroed (global ids;
+    a victim or target outside the rows drops, targets are never
+    victims).  A rank sums the rows of its victims per target first, so
+    one row per (rank, target) pair crosses: one ``all_to_all`` of the
+    line, made only when a pair does.  Returns the bytes this rank
+    sent."""
+    n = axis_size(mesh, METRIC_AXIS)
+    me = axis_index(mesh, METRIC_AXIS)
+    lo, dev = me * rows, block.device
+    v = np.asarray(victims, dtype=np.int64)
+    t = np.asarray(targets, dtype=np.int64)
+    v_ok = (v >= 0) & (v < n * rows)
+    pair = v_ok & (t >= 0) & (t < n * rows)
+    vq, tq = v // rows, t // rows
+    mine = pair & (vq == me)
+    tg, inv = np.unique(t[mine], return_inverse=True)
+    sums = None
+    if len(tg):
+        shape = list(block.shape)
+        shape[dim] = len(tg)
+        sums = torch.zeros(shape, dtype=block.dtype, device=dev)
+        sums.index_add_(dim, torch.from_numpy(inv.reshape(-1)).to(dev),
+                        block.index_select(dim, torch.from_numpy(
+                            v[mine] - lo).to(dev)))
+        here = tg // rows == me
+        block.index_add_(dim, torch.from_numpy(tg[here] - lo).to(dev),
+                         sums.index_select(dim, torch.from_numpy(
+                             np.flatnonzero(here)).to(dev)))
+    sent = 0
+    if (pair & (vq != tq)).any():  # the same answer on every rank
+        there = np.flatnonzero(tg // rows != me)  # by target: by rank
+        if sums is None:
+            shape = list(block.shape)
+            shape[dim] = 0
+            sums = torch.zeros(shape, dtype=block.dtype, device=dev)
+        out = sums.index_select(dim, torch.from_numpy(there).to(dev)
+                                ).movedim(dim, 0)
+        send_counts = np.bincount(tg[there] // rows, minlength=n)
+        recv_pos, recv_counts = [], np.zeros(n, dtype=np.int64)
+        for q in range(n):
+            if q != me:
+                got = np.unique(t[pair & (vq == q) & (tq == me)])
+                recv_pos.append(got - lo)
+                recv_counts[q] = len(got)
+        got = _all_to_all_rows(mesh, out, send_counts, recv_counts, dev)
+        block.index_add_(dim, torch.from_numpy(np.concatenate(recv_pos))
+                         .to(dev), got.movedim(0, dim))
+        sent = out.numel() * out.element_size()
+    own = v_ok & (vq == me)
+    block.index_fill_(dim, torch.from_numpy(v[own] - lo).to(dev), 0)
+    return sent
 
 
 @dataclasses.dataclass(frozen=True)

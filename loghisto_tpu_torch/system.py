@@ -96,9 +96,13 @@ fused commit (or the fan-out, with the reference's reason in
 On a mesh ``device_metrics()``, ``backfill_retention`` and the window
 queries (``query``, ``query_window``, ``query_group_by``,
 ``window_rate``) are collective calls that every rank makes in the same
-order; each first commits the intervals the bridge queued.  Lifecycle,
-drift and checkpoints on a mesh wait for ROADMAP Queue 1 item 11b-2,
-paged storage for 11c.
+order; each first commits the intervals the bridge queued.  With
+``lifecycle=`` and ``anomaly=`` (ROADMAP D10, item 11b-2) the drift
+scoring and the lifecycle tick after each commit are collectives too,
+and so are ``lifecycle.check()``, ``evict_ids``, ``compact()`` and
+``anomaly.score_now()`` when called by hand.  Checkpoints, journals and
+crash recovery on a mesh wait for ROADMAP Queue 1 item 11b-3, paged
+storage for 11c.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions (a mesh's device type is
@@ -147,18 +151,12 @@ from loghisto_tpu_torch.window import (
 
 
 MESH_SYSTEM = (
-    "{what} on a mesh waits for ROADMAP Queue 1 item 11b-2"
+    "{what} on a mesh waits for ROADMAP Queue 1 item 11b-3"
 )
 
 
-def _refuse_on_mesh(lifecycle, anomaly, resilience) -> None:
-    """The parts of the system a mesh does not carry yet (11b-2)."""
-    if lifecycle is not None:
-        raise ValueError(MESH_SYSTEM.format(
-            what="lifecycle (the row-sharded activity carry)"))
-    if anomaly is not None:
-        raise ValueError(MESH_SYSTEM.format(
-            what="the drift engine (the row-sharded baseline banks)"))
+def _refuse_on_mesh(resilience) -> None:
+    """The part of the system a mesh does not carry yet (11b-3)."""
     if (resilience is not None and resilience is not False
             and resilience is not True
             and (resilience.checkpoint_path is not None
@@ -235,7 +233,7 @@ class TorchMetricSystem(MetricSystem):
         as in the reference; see the module docstring for the collective
         calls."""
         if mesh is not None:
-            _refuse_on_mesh(lifecycle, anomaly, resilience)
+            _refuse_on_mesh(resilience)
             if device is None:
                 device = mesh.device_type
         self.device = resolve_device(device)

@@ -70,8 +70,11 @@ axis.  The ranks of a metric line first agree on the serve path (a MIN
 over it): a snapshot view, or a cached result, serves only where every
 rank of the line has it, so a rank whose commit failed (no snapshot)
 keeps its line's collectives in step.  ``attach`` on a mesh queues the broadcast intervals, and those
-calls push the queued ones first (``IntervalQueue``).  The wheel's
-state on a mesh waits for ROADMAP Queue 1 item 11b-2.
+calls push the queued ones first (``IntervalQueue``).  A lifecycle
+eviction or compaction moves ring rows on every rank together (ROADMAP
+D10) and drops every rank's snapshot and caches
+(``lifecycle_invalidated_locked``).  The wheel's state on a mesh waits
+for ROADMAP Queue 1 item 11b-3.
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``, a
 rank's block of it on a mesh (``hbm_bytes()``).
@@ -145,7 +148,7 @@ WHEEL_STATE_FORMAT = "loghisto_tpu_torch.timewheel/1"
 
 MESH_WHEEL_STATE = (
     "the wheel's state on a mesh (rings laid out per mesh shape) waits "
-    "for ROADMAP Queue 1 item 11b-2"
+    "for ROADMAP Queue 1 item 11b-3"
 )
 
 
@@ -401,12 +404,13 @@ class TimeWheel:
         ).astype(np.int32)
         return np.concatenate(ids), idx_np, weights_np
 
-    def _packed_cells(self, cells) -> Optional[torch.Tensor]:
+    def _packed_cells(self, cells, gathered=None) -> Optional[torch.Tensor]:
         """The interval's cells as K3's int32 (id, codec bucket, count)
         triples on the wheel's device, uploaded once for every tier.  On
         a mesh the stream rows' cells are gathered first (a collective
-        of the stream line, even where this rank has none) and the ids
-        move into this rank's block."""
+        of the stream line, even where this rank has none; ``gathered``
+        is called with them, global ids) and the ids move into this
+        rank's block."""
         packed = None
         if cells is not None:
             ids_np, idx_np, weights_np = cells
@@ -418,6 +422,8 @@ class TimeWheel:
             whole = ragged_gather_triples(self.mesh, packed)
             if whole is None:
                 return None
+            if gathered is not None:
+                gathered(whole)
             return block_triples(whole, self._row0, self._rows)
         if packed is None:
             return None
@@ -436,17 +442,21 @@ class TimeWheel:
         self.push_cells(self._cells_from_raw(raw), raw, dur)
         self.run_hooks(raw)
 
-    def push_cells(self, cells, raw: RawMetricSet, dur: float) -> None:
+    def push_cells(self, cells, raw: RawMetricSet, dur: float,
+                   gathered=None) -> None:
         """Land pre-built interval cells (the ``_cells_from_raw``
         triplet, or None) on every tier and publish a new snapshot; hooks
         are not run (``push`` runs them).  On a mesh the cells are this
-        rank's stream row's, and the call is a collective."""
+        rank's stream row's, the call is a collective, and ``gathered``
+        (if given) sees the stream rows' gathered triples before the
+        interval is noted (the committer's fan-out stamps activity from
+        them)."""
         inj = self.fault_injector
         if inj is not None:
             # a scripted tier-push failure exercises the bridge's net
             inj.check("wheel.push")
         with self.obs_recorder.span("window.tier_push", raw.seq):
-            packed = self._packed_cells(cells)
+            packed = self._packed_cells(cells, gathered)
             with self._lock:
                 self._note_interval_locked(raw.time, cells)
                 self._tiers_push_locked(packed, raw.rates, dur)

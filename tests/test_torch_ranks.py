@@ -99,7 +99,7 @@ def _guard_collectives() -> None:
 
     main = threading.main_thread()
     for name in ("all_reduce", "all_gather", "broadcast", "barrier",
-                 "all_gather_object", "reduce_scatter"):
+                 "all_gather_object", "reduce_scatter", "all_to_all_single"):
         fn = getattr(dist, name)
 
         def guarded(*a, _fn=fn, _name=name, **kw):
@@ -1025,10 +1025,11 @@ def _mc_refusals(out, mesh) -> None:
         agg.close()
     kw = dict(interval=1.0, sys_stats=False, num_metrics=MC_M, config=cfg,
               retention=MC_TIERS, mesh=mesh)
+    # lifecycle and drift on a mesh construct since item 11b-2
     out["refuse.sys_lifecycle"] = _raises(lambda: TorchMetricSystem(
-        lifecycle=LifecycleConfig(), **kw))
+        lifecycle=LifecycleConfig(), **kw).stop())
     out["refuse.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
-        anomaly=AnomalyConfig(), **kw))
+        anomaly=AnomalyConfig(), **kw).stop())
     out["refuse.sys_recovery"] = _raises(lambda: TorchMetricSystem(
         resilience=ResilienceConfig(checkpoint_path="never-written.npz"),
         **kw))
@@ -1071,6 +1072,273 @@ def _mesh_commit_job(out, rank, arg, inputs):
     _mc_refusals(out, mesh)
 
 
+# -- lifecycle and drift on a mesh (tests/test_torch_mesh_lifecycle.py) --------
+
+ML_M = 32
+ML_BL = 256
+ML_TIERS = ((4, 2), (2, 3))
+ML_CHUNK = 8
+ML_INTERVALS = 10
+ML_FRESH = 6  # fresh names an interval: ids spread over both blocks
+ML_COMPACT_AT = 5  # an explicit compaction after this interval, and last
+ML_DRIFT_M = 16
+ML_DRIFT_NAMES = 12  # rows in both blocks of a two-way metric axis
+ML_DRIFT_INTERVALS = 6
+ML_SHIFT_AT = 4
+ML_DRIFT_TIERS = ((4, 1),)
+ML_GROW_M0 = 8
+ML_GROW_MAX = 32
+ML_GROW_INTERVALS = 6
+
+
+def ml_names(i: int) -> list:
+    """Interval i's names of the churn scenario, in order: ML_FRESH fresh
+    ones, then the steady name."""
+    return [f"api.u{i}_{j}.lat" for j in range(ML_FRESH)] + ["api.steady"]
+
+
+def ml_drift_names(i: int = 0) -> list:
+    return [f"lat{k}" for k in range(ML_DRIFT_NAMES)]
+
+
+def ml_lifecycle_config(cls, ttl: int = 2):
+    return cls(ttl_intervals=ttl, check_every=1,
+               auto_compact_fragmentation=0.0)
+
+
+def ml_anomaly_config(cls):
+    return cls(decay=0.8, min_samples=16)
+
+
+def _ml_pipeline(mesh, m0, tiers, max_metrics=None, lifecycle=None,
+                 anomaly=None, **agg_kw):
+    """The committer by hand on a mesh rank's aggregator and wheel, with
+    the lifecycle and drift managers."""
+    from loghisto_tpu_torch.anomaly import AnomalyManager
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleManager
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=ML_BL)
+    agg = TorchAggregator(num_metrics=m0, config=cfg, mesh=mesh,
+                          max_metrics=max_metrics or m0, **agg_kw)
+    wheel = TimeWheel(num_metrics=m0, config=cfg, interval=1.0, tiers=tiers,
+                      registry=agg.registry, mesh=mesh)
+    lc = LifecycleManager(agg, wheel, lifecycle) if lifecycle else None
+    an = AnomalyManager(agg, wheel, anomaly) if anomaly else None
+    if lc is not None and an is not None:
+        lc.anomaly = an
+    com = IntervalCommitter(agg, wheel, chunk=ML_CHUNK, lifecycle=lc,
+                            anomaly=an)
+    return com, agg, wheel, lc, an
+
+
+def _put_carries(out, key, agg, wheel, lc=None, an=None) -> None:
+    """A rank's blocks of every carry and the lifecycle's counters."""
+    _put_wheel(out, key, wheel)
+    out[f"{key}.acc"] = agg._acc.cpu().numpy().astype(np.int64) + (
+        0 if agg._spill is None else agg._spill)
+    out[f"{key}.names"] = np.array(
+        ["" if n is None else n for n in agg.registry.names()], dtype=str)
+    out[f"{key}.m"] = np.array(agg.num_metrics)
+    if lc is not None:
+        out[f"{key}.la"] = lc._la.cpu().numpy().copy()
+        out[f"{key}.counters"] = np.array(
+            [lc.evicted_series, lc.overflowed_samples, lc.evictions,
+             lc.compactions])
+    if an is not None:
+        out[f"{key}.prof"] = an._prof.cpu().numpy().copy()
+        out[f"{key}.wsum"] = an._wsum.cpu().numpy().copy()
+        out[f"{key}.ihist"] = an._ihist.cpu().numpy().copy()
+        out[f"{key}.scored"] = np.array([an.scored_intervals,
+                                         an.skipped_intervals])
+        if an._scores is not None:
+            for k, v in an._scores.items():
+                out[f"{key}.scores.{k}"] = v.copy()
+
+
+def _ml_churn(out, mesh, inputs, s, key, compact=True, fail_rank=None,
+              **agg_kw) -> None:
+    """The churn scenario: ML_FRESH fresh names an interval under a TTL
+    of 2, an explicit compaction after interval ML_COMPACT_AT and after
+    the last; the carries before and after the last compaction, the
+    bytes each eviction and compaction sent."""
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.resilience import FaultInjector
+
+    com, agg, wheel, lc, _ = _ml_pipeline(
+        mesh, ML_M, ML_TIERS, lifecycle=ml_lifecycle_config(LifecycleConfig),
+        **agg_kw)
+    if fail_rank is not None and dist.get_rank() == fail_rank:
+        com.fault_injector = FaultInjector().plan("commit.dispatch",
+                                                  on_call=1)
+    evict_bytes, compact_bytes, modes = [], [], []
+    real_evict = lc.evict_ids
+
+    def evict_ids(victims):
+        names = real_evict(victims)
+        evict_bytes.append(lc.last_evict_bytes)
+        return names
+
+    lc.evict_ids = evict_ids
+    try:
+        for i in range(ML_INTERVALS):
+            modes.append(com.commit(mc_raw(
+                RawMetricSet, [(s, inputs[f"ml.{i}.{s}"])], ml_names(i), i)))
+            if i == ML_COMPACT_AT and compact:
+                lc.compact()
+                compact_bytes.append(lc.last_compaction_bytes)
+        _put_carries(out, f"{key}.pre", agg, wheel, lc)
+        if compact:
+            out[f"{key}.compacted"] = np.array(lc.compact())
+            compact_bytes.append(lc.last_compaction_bytes)
+            _put_carries(out, f"{key}.post", agg, wheel, lc)
+        out[f"{key}.modes"] = np.array(modes)
+        out[f"{key}.evict_bytes"] = np.array(evict_bytes, dtype=np.int64)
+        out[f"{key}.compact_bytes"] = np.array(compact_bytes, dtype=np.int64)
+        put_metrics(out, f"{key}.collect", agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+
+
+def _ml_drift(out, mesh, inputs, s) -> None:
+    """Drift scoring after a shape change: ML_DRIFT_NAMES names over both
+    blocks, unimodal until ML_SHIFT_AT, then half of them bimodal."""
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    com, agg, wheel, _, an = _ml_pipeline(
+        mesh, ML_DRIFT_M, ML_DRIFT_TIERS,
+        anomaly=ml_anomaly_config(AnomalyConfig))
+    try:
+        for i in range(ML_DRIFT_INTERVALS):
+            com.commit(mc_raw(RawMetricSet, [(s, inputs[f"mld.{i}.{s}"])],
+                              ml_drift_names(), i))
+        _put_carries(out, "drift", agg, wheel, an=an)
+        got = [an.scores_for(n) for n in ml_drift_names()]
+        out["drift.served"] = np.array(
+            [[g[k] for k in ("ks", "jsd", "emd")] if g else [-1.0] * 3
+             for g in got])
+    finally:
+        agg.close()
+
+
+def _ml_grow(out, mesh, inputs, s) -> None:
+    """Growth past the wheel's rows with lifecycle and drift on: the
+    accumulator's blocks, the activity block and the banks grow
+    together; K7 scores each view block against the bank rows of the
+    same global rows."""
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    com, agg, wheel, lc, an = _ml_pipeline(
+        mesh, ML_GROW_M0, ML_DRIFT_TIERS, max_metrics=ML_GROW_MAX,
+        lifecycle=ml_lifecycle_config(LifecycleConfig, ttl=3),
+        anomaly=ml_anomaly_config(AnomalyConfig))
+    try:
+        for i in range(ML_GROW_INTERVALS):
+            com.commit(mc_raw(RawMetricSet, [(s, inputs[f"mlg.{i}.{s}"])],
+                              mc_grow_names(i), i))
+        _put_carries(out, "grow", agg, wheel, lc, an)
+        out["grow.wheel_m"] = np.array(wheel.num_metrics)
+    finally:
+        agg.close()
+
+
+def _ml_system(out, mesh, inputs, s) -> None:
+    """TorchMetricSystem(mesh=, retention=, lifecycle=, anomaly=): "auto"
+    resolves the fused commit; the intervals replay through
+    backfill_retention, then an explicit compaction."""
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=ML_M,
+        config=MetricConfig(bucket_limit=ML_BL), retention=ML_TIERS,
+        mesh=mesh, lifecycle=ml_lifecycle_config(LifecycleConfig),
+        anomaly=AnomalyConfig(decay=0.8, min_samples=4))
+    try:
+        out["system.path"] = np.array(
+            [ms.commit_path, str(ms.commit_path_reason)])
+        out["system.wired"] = np.array(ms.lifecycle.anomaly is ms.anomaly)
+        out["system.backfilled"] = np.array(ms.backfill_retention(
+            [mc_raw(RawMetricSet, [(s, inputs[f"ml.{i}.{s}"])], ml_names(i),
+                    i) for i in range(ML_INTERVALS)]))
+        out["system.compacted"] = np.array(ms.lifecycle.compact())
+        _put_carries(out, "system", ms.aggregator, ms.retention,
+                     ms.lifecycle, ms.anomaly)
+        _put_window(out, "system.q", ms.query("*", None, MC_PS))
+        gauges = ms.collect_raw_metrics().gauges
+        put_metrics(out, "system.gauges", {
+            k: v for k, v in gauges.items()
+            if k.startswith(("lifecycle.", "anomaly."))
+            and "Compaction" not in k})
+        out["system.dump_keys"] = np.array(sorted(ms.debug_dump()),
+                                           dtype=str)
+    finally:
+        ms.stop()
+
+
+def _ml_refusals(out, mesh) -> None:
+    """The mesh's remaining refusals (checkpoints, journals and crash
+    recovery: item 11b-3)."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=ML_BL)
+    agg = TorchAggregator(num_metrics=ML_M, config=cfg, mesh=mesh,
+                          max_metrics=ML_M)
+    wheel = TimeWheel(num_metrics=ML_M, config=cfg, tiers=ML_TIERS,
+                      registry=agg.registry, mesh=mesh)
+    try:
+        out["refuse.agg_state"] = _raises(agg.state_dict)
+        out["refuse.agg_load"] = _raises(lambda: agg.load_state_dict({}))
+        out["refuse.wheel_state"] = _raises(wheel.state_dict)
+        out["refuse.wheel_load"] = _raises(lambda: wheel.load_state_dict({}))
+    finally:
+        agg.close()
+    kw = dict(interval=1.0, sys_stats=False, num_metrics=ML_M, config=cfg,
+              retention=ML_TIERS, mesh=mesh)
+    out["refuse.sys_checkpoint"] = _raises(lambda: TorchMetricSystem(
+        resilience=ResilienceConfig(checkpoint_path="never-written.npz"),
+        **kw))
+    out["refuse.sys_journal"] = _raises(lambda: TorchMetricSystem(
+        resilience=ResilienceConfig(journal_path="never-written.log"), **kw))
+
+
+def _mesh_lifecycle_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    stream, metric = map(int, arg.split("x"))
+    mesh = make_mesh(stream, metric, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    s = axis_index(mesh, STREAM_AXIS)
+    _ml_churn(out, mesh, inputs, s, "churn")
+    # every interval takes the fan-out (the exact host spill)
+    _ml_churn(out, mesh, inputs, s, "fanout", spill_threshold=1)
+    _ml_churn(out, mesh, inputs, s, "failure", compact=False, fail_rank=0)
+    _ml_drift(out, mesh, inputs, s)
+    _ml_grow(out, mesh, inputs, s)
+    _ml_system(out, mesh, inputs, s)
+    _ml_refusals(out, mesh)
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
@@ -1078,6 +1346,7 @@ JOBS = {
     "firehose": _firehose_job,
     "sketches": _sketches_job,
     "mesh_commit": _mesh_commit_job,
+    "mesh_lifecycle": _mesh_lifecycle_job,
     "selftest": _selftest_job,
 }
 
