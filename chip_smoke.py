@@ -7406,14 +7406,14 @@ def _ml_raw(k, rows):
                         rates={}, histograms=hists, gauges={}, duration=1.0)
 
 
-def _ml_system(mesh=None):
+def _ml_system(mesh=None, resilience=None):
     from loghisto_tpu_torch import TorchMetricSystem
     from loghisto_tpu_torch.anomaly import AnomalyConfig, hourly_bank
     from loghisto_tpu_torch.lifecycle import LifecycleConfig
 
     ms = TorchMetricSystem(
         interval=1.0, sys_stats=False, num_metrics=MC_M, retention=True,
-        commit="auto", mesh=mesh,
+        commit="auto", mesh=mesh, resilience=resilience,
         lifecycle=LifecycleConfig(ttl_intervals=2, check_every=1,
                                   auto_compact_fragmentation=0.0),
         anomaly=AnomalyConfig(banks=LD_BANKS, bank_of=hourly_bank,
@@ -7577,6 +7577,387 @@ def _ml_check(got, oracle, block, blocks, what):
     return {k: v for k, v in got.items() if k != "state"} | {
         "evicted_series": state["counters"][0],
         "overflowed_samples": state["counters"][1]}
+
+
+# Part (f) of mesh_main_path: checkpoints, the journal and crash recovery
+# across mesh shapes (ROADMAP D11, item 11b-3).  Part (e)'s system with
+# resilience=ResilienceConfig(checkpoint_every_intervals=MF_EVERY): two gloo
+# ranks on (2, 1) drive MF_CRASH of part (e)'s intervals by hand (each
+# broadcast to its row's journal and the committer's queue, one collective
+# drain commits them, the checkpoint lands at MF_EVERY), then the parent
+# SIGKILLs both; two fresh gloo ranks on (1, 2) recover from the
+# checkpoint and both rows' journals and take MF_AFTER intervals more; a
+# (1, 1) rank under NCCL crashes and recovers the same way in the parent;
+# one device with no mesh recovers from the (2, 1) files.  Every recovered
+# rank's blocks against the single-device system that crashed and
+# recovered on the merged intervals, the collected counts against the
+# cells' host sums (the uncrashed oracle).
+MF_CRASH = 12
+MF_EVERY = 8
+MF_AFTER = 4
+MF_ROWS = (0, 1)  # the crash's stream rows: every target replays both
+MF_DEADLINE_S = 300.0
+
+
+def _mf_raw(k, rows):
+    """Part (e)'s interval k of the stream rows ``rows``, seq k + 1."""
+    return dataclasses.replace(_ml_raw(k, rows), seq=k + 1)
+
+
+def _mf_system(d, mesh=None):
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+
+    return _ml_system(mesh, resilience=ResilienceConfig(
+        checkpoint_path=os.path.join(d, "ck.npz"),
+        journal_path=os.path.join(d, "jl.log"),
+        checkpoint_every_intervals=MF_EVERY, recover_on_start=False))
+
+
+def _mf_counted(module, name, sink, key):
+    """``module.name`` wrapped so that each call adds its seconds (the
+    card synchronised around it) and the bytes this rank hands to the
+    mesh's collectives during it (``collective_bytes``, counted at each
+    collective) to ``sink[key + "_s"]`` / ``sink[key + "_bytes"]``;
+    returns the original, to put back."""
+    import torch
+
+    from loghisto_tpu_torch.parallel.mesh import collective_bytes
+
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        torch.cuda.synchronize()
+        sent, t0 = collective_bytes(), time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            sink[key + "_s"] = time.perf_counter() - t0
+            sink[key + "_bytes"] = collective_bytes() - sent
+
+    setattr(module, name, counted)
+    return orig
+
+
+def _mf_lines(path):
+    try:
+        with open(path, "rb") as f:
+            return f.read().count(b"\n")
+    except OSError:
+        return 0
+
+
+def _mf_crash(torch, d, mesh=None, rows=MF_ROWS, crash=True):
+    """MF_CRASH intervals of ``rows`` driven by hand through the system's
+    subscribers (the row's journal, the committer); its figures.  With
+    ``crash`` the system is then left as a killed process leaves it: its
+    journal closed, no stop(), no final checkpoint."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    from loghisto_tpu_torch.utils import checkpoint
+
+    ms = _mf_system(d, mesh)
+    if ms.commit_path != "fused":
+        raise AssertionError(f"part (f) resolved {ms.commit_path}")
+    figures = {}
+    save = _mf_counted(checkpoint, "save", figures, "save")
+    try:
+        ms.recovery.start()
+        journal = ms.recovery._journal
+        ms._update_subscribers()
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(MF_CRASH):
+            with ms._subscribers_lock:
+                ms._broadcast(ms._raw_subscribers, _mf_raw(k, rows))
+        end = time.monotonic() + 120.0
+        # the journal's lines are counted only once the commits are in,
+        # so the poll does not hold the interpreter from the bridge thread
+        while ((ms.committer.intervals_committed if mesh is None
+                else ms.committer.queued_intervals) < MF_CRASH
+               or (journal is not None
+                   and _mf_lines(journal.path) < MF_CRASH)):
+            if time.monotonic() > end:
+                raise AssertionError("part (f): the intervals were not "
+                                     "committed or queued, and journaled")
+            time.sleep(0.05)
+        if mesh is not None:
+            ms.committer.drain()  # D9: the collective commit
+        torch.cuda.synchronize()
+    finally:
+        checkpoint.save = save
+    drive_s = time.perf_counter() - t0
+    rec = ms.recovery
+    if (ms.committer.intervals_committed, rec.checkpoints_taken,
+            rec.last_checkpoint_seq) != (MF_CRASH, 1, MF_EVERY):
+        raise AssertionError(
+            f"part (f): {ms.committer.intervals_committed} committed, "
+            f"{rec.checkpoints_taken} checkpoints at "
+            f"{rec.last_checkpoint_seq}")
+    figures |= {
+        "drive_s": drive_s, "save_ms": rec.checkpoint_last_ms,
+        "checkpoint_file_bytes": os.path.getsize(rec.checkpoint_path),
+        "journal": None if journal is None
+        else os.path.basename(journal.path),
+        "journal_bytes": 0 if journal is None
+        else os.path.getsize(journal.path),
+        "launches": {k: v for k, v in kernel_launches().items() if v}}
+    if crash:
+        if journal is not None:
+            journal.stop()
+        ms.committer.detach()
+        ms.aggregator.close()
+        del ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
+
+
+def _mf_counts():
+    """The uncrashed oracle's collected counts, from the merged intervals'
+    cells on the host: per steady name, and in all."""
+    per = np.zeros(ML_STEADY, np.int64)
+    total = 0
+    for k in range(MF_CRASH + MF_AFTER):
+        for s in MF_ROWS:
+            c = _ml_cells(k, s)
+            steady = c[:, 0] < ML_STEADY
+            per += np.bincount(c[steady, 0], weights=c[steady, 2],
+                               minlength=ML_STEADY).astype(np.int64)
+            total += int(c[:, 2].sum())
+    return per, total
+
+
+def _mf_recover(torch, d, mesh=None, rows=MF_ROWS, blocks=(1,),
+                final=False):
+    """A fresh system recovers from ``d``'s files (``recover()`` and the
+    restore inside it timed, the replay's launches counted), takes
+    MF_AFTER intervals of ``rows``, and reports part (e)'s state per
+    ``blocks``, its collected counts and, with ``final``, its stop()'s
+    checkpoint (a collective on a mesh)."""
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.utils import checkpoint
+
+    ms = _mf_system(d, mesh)
+    times = {}
+    restore = _mf_counted(checkpoint, "restore", times, "restore")
+    save = _mf_counted(checkpoint, "save", times, "final_save")
+    try:
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ms.recover()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        replay = {k: v for k, v in kernel_launches().items() if v}
+        if (rep.watermark, rep.replayed_intervals) != (
+                MF_EVERY, MF_CRASH - MF_EVERY):
+            raise AssertionError(f"part (f): recovered {rep}")
+        for kernel in ("sparse_ingest", "window_merge", "divergence"):
+            if replay.get(kernel, 0) <= 0:
+                raise AssertionError(f"{kernel} not launched in the replay")
+        ms.backfill_retention([_mf_raw(k, rows) for k in range(
+            MF_CRASH, MF_CRASH + MF_AFTER)])
+        states = {b: _ml_state(torch, ms, b) for b in blocks}
+        counts = {k: v for k, v in ms.device_metrics(
+            reset=False).metrics.items()
+            if k.endswith("_count") and not k.endswith("_agg_count")}
+        out = {"recover_s": recover_s, **times,
+               "replayed": rep.replayed_intervals,
+               "skipped_lines": rep.skipped_intervals,
+               "replay_launches": replay, "states": states,
+               "counts": counts}
+        if not final:
+            ms.recovery.checkpoint_path = None  # no stop() checkpoint
+    finally:
+        checkpoint.restore = restore
+        try:
+            ms.stop()
+        finally:
+            checkpoint.save = save
+    if final:
+        out["final_save_s"] = times["final_save_s"]
+        out["final_save_bytes"] = times["final_save_bytes"]
+        if ms.recovery.checkpoints_taken != 1:
+            raise AssertionError("part (f): stop() took no checkpoint")
+    del ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mf_check(got, oracle, counts, block, blocks, what):
+    """One recovered rank against the single-device recovered oracle
+    (part (e)'s digests and score tolerance) and its collected counts
+    against the uncrashed oracle's."""
+    states = {int(b): v for b, v in oracle["states"].items()}
+    mine = {int(b): v for b, v in got["states"].items()}
+    _ml_check({"state": mine[1]}, states, block, blocks, what)
+    per, total = counts
+    got_counts = got["counts"]
+    for i in range(ML_STEADY):
+        if got_counts.get(f"svc.{i}.latency_count") != per[i]:
+            raise AssertionError(f"{what}: svc.{i}.latency's count differs "
+                                 "from the uncrashed oracle's")
+    if int(sum(got_counts.values())) != total:
+        raise AssertionError(f"{what}: {int(sum(got_counts.values()))} "
+                             f"samples collected, the oracle's {total}")
+    return {k: v for k, v in got.items() if k not in ("states", "counts")}
+
+
+def _mf_child(argv):
+    """One gloo rank of part (f): ``crash`` on (2, 1) (drive, report, then
+    wait for the parent's SIGKILL) or ``recover`` on (1, 2).  It starts
+    early and waits for the parent's go file, so its start overlaps the
+    parent's earlier work."""
+    mode, rank, d = argv[0], int(argv[1]), argv[2]
+    import torch
+
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    torch.zeros(1, device="cuda")  # the context, before the gate
+    go, end = os.path.join(d, f"go-{mode}"), time.monotonic() + MF_DEADLINE_S
+    while not os.path.exists(go):  # the parent releases the ranks
+        if time.monotonic() > end:
+            return 3
+        time.sleep(0.02)
+    multihost.initialize(f"file://{d}/rdzv-{mode}", 2, rank, device="cuda",
+                         backend="gloo", timeout_s=120.0)
+    if mode == "crash":
+        mesh = make_mesh(2, 1)
+        out = _mf_crash(torch, d, mesh, rows=(axis_index(mesh, STREAM_AXIS),),
+                        crash=False)
+    else:
+        out = _mf_recover(torch, d, make_mesh(1, 2), blocks=(1,),
+                          final=True)
+    path = os.path.join(d, f"{mode}-{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    if mode == "crash":
+        while True:  # the state a crash finds: the parent SIGKILLs us
+            time.sleep(1.0)
+    multihost.shutdown()
+    return 0
+
+
+def _mf_spawn(mode, d, root):
+    """Part (f)'s two gloo ranks of ``mode``, started; they wait for
+    ``_mf_reports``."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke._mf_child(sys.argv[2:]))")
+    return [subprocess.Popen(
+        [sys.executable, "-c", code, root, mode, str(r), d],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+
+
+def _mf_reports(procs, mode, d):
+    """Release the ranks of ``mode`` and wait for their reports; a
+    crash's ranks are SIGKILLed once both reported."""
+    import signal
+
+    open(os.path.join(d, f"go-{mode}"), "w").close()
+    paths = [os.path.join(d, f"{mode}-{r}.json") for r in range(2)]
+    end = time.monotonic() + MF_DEADLINE_S
+    while not all(os.path.exists(p) for p in paths):
+        failed = [p for p in procs if p.poll() not in (None, 0)]
+        if failed or time.monotonic() > end:
+            err = failed[0].communicate()[1] if failed else "deadline"
+            raise AssertionError(f"part (f) {mode} rank failed: "
+                                 f"{err[-3000:]}")
+        time.sleep(0.05)
+    if mode == "crash":
+        for p in procs:
+            p.send_signal(signal.SIGKILL)
+    for p in procs:
+        p.communicate(timeout=60.0)
+        if mode != "crash" and p.returncode != 0:
+            raise AssertionError(f"part (f) {mode} rank exit "
+                                 f"{p.returncode}")
+    reports = []
+    for p in paths:
+        with open(p) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _mf_part(torch, tmp, root):
+    """Part (f) of mesh_main_path (the parent is outside any process
+    group on entry and on return)."""
+    import shutil
+
+    from loghisto_tpu_torch.parallel import multihost
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
+
+    out, t = {}, time.perf_counter()
+    counts = _mf_counts()
+    dirs = {k: os.path.join(tmp, f"f-{k}") for k in ("oracle", "mesh",
+                                                     "1x1")}
+    for path in dirs.values():
+        os.makedirs(path)
+    procs = _mf_spawn("crash", dirs["mesh"], root)
+    try:
+        out["oracle_crash"] = _mf_crash(torch, dirs["oracle"])
+        oracle = _mf_recover(torch, dirs["oracle"], blocks=(1, 2))
+        out["oracle_recover"] = _mf_check(oracle, oracle, counts, 0, 1,
+                                          "the oracle")
+        out["oracle_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        crash, procs = procs, procs + _mf_spawn("recover", dirs["mesh"],
+                                                root)
+        out["crash_2x1"] = _mf_reports(crash, "crash", dirs["mesh"])
+        keep = os.path.join(dirs["mesh"], "crash")
+        os.makedirs(keep)
+        for name in ("ck.npz", "jl.log.row0of2", "jl.log.row1of2"):
+            shutil.copy(os.path.join(dirs["mesh"], name), keep)
+        recovered = _mf_reports(procs[2:], "recover", dirs["mesh"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["recover_1x2"] = [
+        _mf_check(r, oracle, counts, rank, 2, f"1x2 recovery rank {rank}")
+        for rank, r in enumerate(recovered)]
+    out["gloo_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    multihost.initialize(f"file://{tmp}/rdzv-f", 1, 0, timeout_s=120.0)
+    try:
+        mesh = make_mesh(1, 1)
+        out["crash_1x1"] = _mf_crash(torch, dirs["1x1"], mesh)
+        one = _mf_recover(torch, dirs["1x1"], mesh)
+        out["recover_1x1"] = _mf_check(one, oracle, counts, 0, 1,
+                                       "1x1 recovery")
+    finally:
+        multihost.shutdown()
+    single = _mf_recover(torch, keep)
+    out["recover_single_from_2x1"] = _mf_check(
+        single, oracle, counts, 0, 1, "one device from the 2x1 files")
+    out["nccl_and_single_s"] = time.perf_counter() - t
+    for kernel in ("sparse_ingest", "window_merge", "divergence",
+                   "compact_rows"):
+        entry = RESULTS.setdefault(kernel, {})
+        entry["launches"] = (entry.get("launches", 0)
+                             + one["replay_launches"].get(kernel, 0))
+        entry["recovery_launches_per_rank"] = {
+            "1x1": [one["replay_launches"].get(kernel, 0)],
+            "1x2": [r["replay_launches"].get(kernel, 0)
+                    for r in recovered]}
+    return out
 
 
 def _ms_child(argv):
@@ -7931,6 +8312,9 @@ def phase_mesh(torch):
                 RESULTS[kernel]["mesh_launches_per_rank"][key] = [
                     c["launches"][kernel] for c in checked]
             out[f"lifecycle_{key}"] = checked
+        t_f = time.perf_counter()
+        out["recovery"] = _mf_part(torch, tmp, root)
+        out["recovery"]["s"] = time.perf_counter() - t_f
     finally:
         for p in procs:
             if p.poll() is None:
@@ -7956,6 +8340,10 @@ def kernels_line():
         if "mesh_launches_per_rank" in r:
             # mesh_main_path's part (e): launches of each rank, by mesh
             entry["mesh_launches_per_rank"] = r["mesh_launches_per_rank"]
+        if "recovery_launches_per_rank" in r:
+            # part (f): each recovered rank's launches in its replay
+            entry["recovery_launches_per_rank"] = r[
+                "recovery_launches_per_rank"]
         out.append(entry)
     return {"kernels": out}
 

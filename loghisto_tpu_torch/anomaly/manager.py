@@ -56,7 +56,15 @@ from loghisto_tpu_torch.ops.anomaly import (
     make_sharded_divergence_fn,
     resolve_divergence_path,
 )
-from loghisto_tpu_torch.parallel.mesh import block_ids, mesh_reduce
+from loghisto_tpu_torch.parallel.mesh import (
+    bank_weight_sharding,
+    block_ids,
+    global_put,
+    host_gather,
+    is_first_rank,
+    mesh_reduce,
+    ring_sharding,
+)
 
 
 class AnomalyManager:
@@ -289,20 +297,38 @@ class AnomalyManager:
 
     # -- state ------------------------------------------------------------ #
 
-    def state_dict(self) -> dict:
+    def state_dict(self, *, first_only: bool = False) -> Optional[dict]:
         """Host bank state.  The interval histogram is in-flight state
-        and is not kept."""
+        and is not kept.  On a mesh (ROADMAP D11) a collective call that
+        every rank makes: the bank blocks gathered over the metric axis,
+        every rank returning the same banks.  With ``first_only`` (a
+        checkpoint's save) rank (0, 0) alone gathers and returns the
+        state, and every other rank returns None."""
         k = self.config.banks
         b = self.wheel.config.num_buckets
+        mesh = self._mesh
         with self.aggregator._dev_lock:
-            prof = (self._prof.cpu().numpy().copy() if self._prof is not None
-                    else np.zeros((k, 0, b), dtype=np.float32))
-            wsum = (self._wsum.cpu().numpy().copy() if self._wsum is not None
-                    else np.zeros((k, 0), dtype=np.float32))
+            if self._prof is None:
+                prof = np.zeros((k, 0, b), dtype=np.float32)
+                wsum = np.zeros((k, 0), dtype=np.float32)
+            elif mesh is not None:
+                prof = host_gather(self._prof, ring_sharding(mesh),
+                                   first_only)
+                wsum = host_gather(self._wsum, bank_weight_sharding(mesh),
+                                   first_only)
+            else:
+                prof = self._prof.cpu().numpy().copy()
+                wsum = self._wsum.cpu().numpy().copy()
+        if first_only and mesh is not None and not is_first_rank(mesh):
+            return None
         return {"prof": prof, "wsum": wsum,
                 "scored_intervals": self.scored_intervals}
 
     def load_state(self, state: dict) -> None:
+        """Replace the banks and the scored-interval count.  On a mesh
+        every rank loads the same banks and keeps its block of the
+        accumulator's rows (no collective); rows past shorter banks
+        start cold."""
         prof = np.asarray(state["prof"], dtype=np.float32)
         wsum = np.asarray(state["wsum"], dtype=np.float32)
         if prof.shape[0] != self.config.banks:
@@ -312,7 +338,20 @@ class AnomalyManager:
             )
         dev = self.aggregator.device
         with self.aggregator._dev_lock:
-            if prof.shape[1]:
+            if prof.shape[1] and self._mesh is not None:
+                m = self.aggregator.num_metrics
+                if prof.shape[1] > m:
+                    raise ValueError(f"banks of {prof.shape[1]} rows for "
+                                     f"an accumulator of {m}")
+                k, rows, b = prof.shape
+                whole = np.zeros((k, m, b), dtype=np.float32)
+                whole[:, :rows] = prof
+                self._prof = global_put(whole, ring_sharding(self._mesh))
+                whole = np.zeros((k, m), dtype=np.float32)
+                whole[:, :rows] = wsum
+                self._wsum = global_put(whole,
+                                        bank_weight_sharding(self._mesh))
+            elif prof.shape[1]:
                 self._prof = torch.from_numpy(prof.copy()).to(dev)
                 self._wsum = torch.from_numpy(wsum.copy()).to(dev)
         self.scored_intervals = int(state.get("scored_intervals", 0))

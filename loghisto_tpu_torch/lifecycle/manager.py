@@ -77,7 +77,11 @@ from loghisto_tpu_torch.parallel.mesh import (
     block_ids,
     fold_rows,
     gather_parts,
+    global_put,
+    host_gather,
+    is_first_rank,
     mesh_reduce,
+    row_vector_sharding,
 )
 
 logger = logging.getLogger("loghisto_tpu_torch")
@@ -492,12 +496,28 @@ class LifecycleManager:
 
     # -- state ------------------------------------------------------------ #
 
-    def state_dict(self) -> dict:
+    def state_dict(self, *, first_only: bool = False) -> Optional[dict]:
         """Host state: the activity vector and the lifetime counters (the
-        registry and the overflow rows ride the aggregator's state)."""
+        registry and the overflow rows ride the aggregator's state).  On
+        a mesh (ROADMAP D11) a collective call that every rank makes: the
+        activity blocks gathered over the metric axis, every rank
+        returning the same vector, cut where the reference's carry ends
+        (grown rows not stamped yet are past it, as in ``check``).  With
+        ``first_only`` (a checkpoint's save) rank (0, 0) alone gathers
+        and returns the state, and every other rank returns None."""
+        mesh = self._mesh
         with self.aggregator._dev_lock:
-            la = (self._la.cpu().numpy().copy() if self._la is not None
-                  else np.zeros(0, dtype=np.int32))
+            if self._la is None:
+                la = np.zeros(0, dtype=np.int32)
+            elif mesh is not None:
+                la = host_gather(self._la, row_vector_sharding(mesh),
+                                 first_only)
+                if la is not None:
+                    la = la[:int((la != _UNSET).sum())].copy()
+            else:
+                la = self._la.cpu().numpy().copy()
+        if first_only and mesh is not None and not is_first_rank(mesh):
+            return None
         with self._metrics_lock:
             return {
                 "last_active": la,
@@ -508,9 +528,16 @@ class LifecycleManager:
             }
 
     def load_state(self, state: dict) -> None:
+        """Replace the activity vector and the counters.  On a mesh every
+        rank loads the same vector and keeps its block of the
+        accumulator's rows (no collective); rows past a shorter vector
+        wait unset, as grown rows do, until the next commit stamps
+        them."""
         la = np.asarray(state.get("last_active", []), dtype=np.int32)
         with self.aggregator._dev_lock:
-            if len(la):
+            if len(la) and self._mesh is not None:
+                self._la = self._block_of(la)
+            elif len(la):
                 self._la = torch.from_numpy(la.copy()).to(
                     self.aggregator.device)
         with self._metrics_lock:
@@ -518,6 +545,19 @@ class LifecycleManager:
             self.overflowed_samples = int(state.get("overflowed_samples", 0))
             self.evictions = int(state.get("evictions", 0))
             self.compactions = int(state.get("compactions", 0))
+
+    def _block_of(self, la: np.ndarray) -> torch.Tensor:
+        """This rank's block of a whole activity vector (caller holds
+        ``_dev_lock``), padded with ``_UNSET`` to the accumulator's
+        rows."""
+        m = self.aggregator.num_metrics
+        if len(la) > m:
+            raise ValueError(f"activity vector of {len(la)} rows for an "
+                             f"accumulator of {m}")
+        whole = np.full(m, _UNSET, dtype=np.int32)
+        whole[:len(la)] = la
+        self._unset = self._unset or len(la) < m
+        return global_put(whole, row_vector_sharding(self._mesh))
 
     # -- gauges ----------------------------------------------------------- #
 

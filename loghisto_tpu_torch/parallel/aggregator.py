@@ -118,8 +118,12 @@ the fan-out path merges them here (``_merge_cells_locked``, spilling at
 the rank's share); the block stays the row's partial, so no accumulator
 snapshot is published on a mesh.  The lifecycle and drift carries
 (item 11b-2, ROADMAP D10) register with ``_mesh_regrow`` so growth lays
-them out anew with the accumulator.  Still waiting: checkpoints on a
-mesh (item 11b-3) and paged storage on a mesh (item 11c).
+them out anew with the accumulator.  The state on a mesh (item 11b-3,
+ROADMAP D11): ``state_dict`` sums the stream partials with their spills
+in int64 and gathers the rows over the metric axis, so it returns the
+single-device state on every rank; ``load_state_dict`` and a checkpoint
+restore put the accumulator's rows on stream index 0 alone.  Still
+waiting: paged storage on a mesh (item 11c).
 """
 
 from __future__ import annotations
@@ -166,8 +170,11 @@ from loghisto_tpu_torch.parallel.mesh import (
     check_mesh,
     collective_device,
     gather_parts,
+    host_gather,
+    is_stream_lead,
     mesh_device,
     mesh_reduce,
+    reduce_parts,
 )
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
 from loghisto_tpu_torch.resilience.supervise import spawn_thread
@@ -189,11 +196,6 @@ def _step_for(path: str):
 
 
 STATE_FORMAT = "loghisto_tpu_torch.aggregator/1"
-
-MESH_STATE = (
-    "checkpoints across mesh shapes wait for ROADMAP Queue 1 item 11b-3"
-)
-
 
 class IngestStagingRing:
     """Depth-K reusable host staging slots for the raw route.
@@ -1858,14 +1860,24 @@ class TorchAggregator:
 
     # -- state ---------------------------------------------------------- #
 
-    def state_dict(self) -> dict:
+    def state_dict(self, *, first_only: bool = False) -> Optional[dict]:
         """The aggregator's state as host arrays (see state.py): the live
         accumulator (dense) or the store's pool, page table, codecs,
         free list and host spill (paged), the registry's names, the
-        lifetime store and the dense spill.  A full barrier first."""
-        if self.mesh is not None:
-            raise ValueError(f"state_dict with a mesh: {MESH_STATE}")
+        lifetime store and the dense spill.  A full barrier first.
+
+        On a mesh (ROADMAP D11) a collective call that every rank makes:
+        the registry's growth is laid out (``_mesh_regrow``), each rank's
+        stream partial with its host spill is summed over the stream
+        axis in int64 and the sums are gathered over the metric axis, so
+        every rank returns the same single-device state: ``acc`` the
+        whole int32 ``[M, B]``, or zeros with the sum in ``spill`` where
+        any rank spilled or a cell passes int32.  With ``first_only``
+        (a checkpoint's save) the sum and the gather go to rank (0, 0)
+        alone, and every other rank returns None."""
         self.flush(force=True)
+        if self.mesh is not None:
+            return self._mesh_state_dict(first_only)
         with self._dev_lock, self._agg_lock:
             paged = self.paged is not None
             return {
@@ -1880,14 +1892,54 @@ class TorchAggregator:
                 "spill": None if self._spill is None else self._spill.copy(),
             }
 
+    def _mesh_state_dict(self, first_only: bool) -> Optional[dict]:
+        """``state_dict`` on a mesh (after the barrier)."""
+        import torch.distributed as dist
+
+        self._mesh_regrow()
+        with self._dev_lock:
+            spilled = mesh_reduce(self.mesh, [self._spill is not None],
+                                  dist.ReduceOp.MAX)[0]
+            part = self._acc.to(torch.int64)
+            if self._spill is not None:
+                part += torch.from_numpy(self._spill).to(part.device)
+            total = reduce_parts(self.mesh, part, STREAM_AXIS, first_only)
+            if total is not None:
+                total = host_gather(total, acc_sharding(self.mesh),
+                                    first_only)
+            if total is None:
+                return None
+            names = self.registry.names()
+        with self._agg_lock:
+            agg = {mid: list(e) for mid, e in self._agg.items()}
+        exact = not spilled and int(total.max(initial=0)) < 2 ** 31
+        return {
+            "format": STATE_FORMAT,
+            "storage": self.storage,
+            "bucket_limit": self.config.bucket_limit,
+            "precision": self.config.precision,
+            "acc": (total.astype(np.int32) if exact
+                    else np.zeros(total.shape, np.int32)),
+            "paged": None,
+            "names": names,
+            "agg": agg,
+            "spill": None if exact else total,
+        }
+
     def load_state_dict(self, state: dict) -> None:
         """Replace this aggregator's state with ``state`` (from
         ``state_dict``, ``state.state_from_jax`` or
         ``state.paged_state_from_jax``).  The row space takes the state's
         row count; the ingest path re-resolves for it.  The state's
-        storage must be this aggregator's."""
-        if self.mesh is not None:
-            raise ValueError(f"load_state_dict with a mesh: {MESH_STATE}")
+        storage must be this aggregator's.
+
+        On a mesh (ROADMAP D11) every rank loads the same state, with no
+        collective: the registry and the lifetime store on every rank,
+        the accumulator's rows on each rank's block of stream index 0
+        (the other stream rows' partials start empty, so the sum over
+        the stream axis is the state's), in the host spill where the
+        block's counts reach the rank's share of ``spill_threshold``.
+        The state's rows must split over the metric axis."""
         if state.get("format") != STATE_FORMAT:
             raise ValueError(f"unknown state format {state.get('format')!r}")
         for key in ("bucket_limit", "precision"):
@@ -1912,12 +1964,20 @@ class TorchAggregator:
         spill = state.get("spill")
         if spill is not None and np.shape(spill) != acc.shape:
             raise ValueError(f"state spill has shape {np.shape(spill)}")
+        if self.mesh is not None:
+            if m % self._n_metric:
+                raise ValueError(
+                    f"state of {m} rows does not split over the mesh "
+                    f"metric axis ({self._n_metric})")
+            acc, spill = self._stream_lead_share(acc, spill)
         self.flush(force=True)
+        rows = m // self._n_metric
         with self._dev_lock, self._agg_lock:
             path = self.ingest_path
-            if dispatch.ingest_incapability(path, m, self.batch_size,
+            if dispatch.ingest_incapability(path, rows, self.batch_size,
                                             acc.shape[1]):
-                path = dispatch.resolve_ingest_path("auto", m, self.batch_size)
+                path = dispatch.resolve_ingest_path("auto", rows,
+                                                    self.batch_size)
             self.registry = MetricRegistry.from_names(state["names"], m)
             self.num_metrics = m
             self.max_metrics = max(self.max_metrics, m)
@@ -1935,6 +1995,23 @@ class TorchAggregator:
             self._agg = {
                 int(mid): [e[0], e[1]] for mid, e in state["agg"].items()
             }
+
+    def _stream_lead_share(self, acc: np.ndarray, spill):
+        """This rank's part of a whole (int32 acc, int64 spill or None)
+        on a mesh: the rows of its block at stream index 0, in the host
+        spill where their counts reach the rank's share of the int32
+        envelope (``_spill_at``); empty elsewhere."""
+        part = acc_sharding(self.mesh)
+        index = part.index(acc.shape)
+        if not is_stream_lead(self.mesh):
+            return np.zeros(acc[index].shape, np.int32), None
+        block = np.ascontiguousarray(acc[index])
+        if spill is None and int(block.sum(dtype=np.int64)) < self._spill_at:
+            return block, None
+        total = block.astype(np.int64)
+        if spill is not None:
+            total += np.asarray(spill, dtype=np.int64)[index]
+        return np.zeros(block.shape, np.int32), total
 
     def _load_paged_state(self, state: dict) -> None:
         """The paged half of ``load_state_dict``: a fresh store at the

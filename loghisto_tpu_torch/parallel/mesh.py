@@ -52,6 +52,23 @@ blocks: ``fold_rows`` sends one summed row per (rank, target) pair,
 ``RowMove`` the rows of a permutation that cross ranks, each in one
 ``all_to_all`` of the line, and each rank then runs the kernels (K6,
 K7, K5) on its own blocks, as D8 runs K1.
+
+ROADMAP decision D11, checkpoints and crash recovery on a mesh (item
+11b-3).  A save gathers every carry to whole host arrays
+(``host_gather`` by its ``RankPart``; the accumulator's stream partials
+summed first), rank (0, 0) writes it, and one agreed status
+(``agreed``) leaves every rank in the same state; a restore lays each
+whole array out again as the rank's part (``global_put``), the
+accumulator's rows on stream index 0 alone (``is_stream_lead``).  A
+checkpoint's save gathers to rank (0, 0) alone (``first_only``): the
+other ranks send their parts and receive nothing.
+
+``collective_bytes`` counts the bytes of the inputs this rank hands to
+the collectives of this module over lines of more than one rank, once a
+call (what the backend's algorithm moves in all may differ); the rank
+that receives a ``first_only`` gather or reduce counts nothing for it,
+its part staying where it is.  ``reset_collective_bytes`` sets the
+count to 0.
 """
 
 from __future__ import annotations
@@ -67,6 +84,40 @@ import torch
 STREAM_AXIS = "stream"
 METRIC_AXIS = "metric"
 AXES = (STREAM_AXIS, METRIC_AXIS)
+
+_sent = [0]
+_sent_lock = threading.Lock()
+
+
+def collective_bytes() -> int:
+    with _sent_lock:
+        return _sent[0]
+
+
+def reset_collective_bytes() -> None:
+    with _sent_lock:
+        _sent[0] = 0
+
+
+def _count_sent(group, nbytes: int) -> None:
+    import torch.distributed as dist
+
+    if dist.get_world_size(group) > 1:
+        with _sent_lock:
+            _sent[0] += int(nbytes)
+
+
+def _first_of(group) -> int:
+    """The global rank at coordinate 0 of a line's group."""
+    import torch.distributed as dist
+
+    return dist.get_global_rank(group, 0)
+
+
+def _off_first_lines(mesh, axes) -> bool:
+    """Whether this rank is off index 0 of any axis not in ``axes``: it
+    is on none of the lines through rank (0, 0) along ``axes``."""
+    return any(axis_index(mesh, a) for a in AXES if a not in axes)
 
 
 def axes_incapability(mesh) -> Optional[str]:
@@ -162,37 +213,126 @@ def mesh_reduce(mesh, values, op, axes=AXES) -> list:
     for axis in axes:
         group = axis_group(mesh, axis)
         t = t.to(collective_device(group, mesh_device(mesh)))
+        _count_sent(group, t.numel() * t.element_size())
         dist.all_reduce(t, op=op, group=group)
     return t.cpu().tolist()
 
 
 def gather_parts(mesh, part: torch.Tensor, axis: str = METRIC_AXIS,
-                 dim: int = 0) -> torch.Tensor:
+                 dim: int = 0, first_only: bool = False):
     """The parts of every rank of this rank's line along ``axis`` (equal
     shapes), concatenated on ``dim`` in coordinate order, on the
-    collective's device.  A collective of that line."""
+    collective's device.  A collective of that line.  With
+    ``first_only`` one ``gather`` to the line's rank at index 0, which
+    alone returns the parts; the others return None."""
     import torch.distributed as dist
 
     group = axis_group(mesh, axis)
     part = part.to(collective_device(group, part.device)).contiguous()
-    parts = [torch.empty_like(part) for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(parts, part, group=group)
-    return torch.cat(parts, dim=dim)
+    n = axis_size(mesh, axis)
+    first = axis_index(mesh, axis) == 0
+    if not (first_only and first):
+        _count_sent(group, part.numel() * part.element_size())
+    if not first_only:
+        parts = [torch.empty_like(part) for _ in range(n)]
+        dist.all_gather(parts, part, group=group)
+        return torch.cat(parts, dim=dim)
+    parts = [torch.empty_like(part) for _ in range(n)] if first else None
+    dist.gather(part, parts, dst=_first_of(group), group=group)
+    return torch.cat(parts, dim=dim) if first else None
 
 
-def reduce_parts(mesh, part: torch.Tensor,
-                 axis: str = METRIC_AXIS) -> torch.Tensor:
+def reduce_parts(mesh, part: torch.Tensor, axis: str = METRIC_AXIS,
+                 first_only: bool = False):
     """The elementwise sum of ``part`` over the ranks of this rank's line
     along ``axis`` (equal shapes), on ``part``'s device.  A collective of
-    that line."""
+    that line.  With ``first_only`` one ``reduce`` to the line's rank at
+    index 0, which alone returns the sum; the others return None."""
     import torch.distributed as dist
 
     group = axis_group(mesh, axis)
     out = part.to(collective_device(group, part.device)).contiguous()
     if out is part:
         out = out.clone()
-    dist.all_reduce(out, group=group)
-    return out.to(part.device)
+    first = axis_index(mesh, axis) == 0
+    if not (first_only and first):
+        _count_sent(group, out.numel() * out.element_size())
+    if not first_only:
+        dist.all_reduce(out, group=group)
+        return out.to(part.device)
+    dist.reduce(out, dst=_first_of(group), group=group)
+    return out.to(part.device) if first else None
+
+
+def host_gather(part: torch.Tensor, sharding: "RankPart",
+                first_only: bool = False):
+    """The whole array as a host NumPy copy, from every rank's part: one
+    ``all_gather`` per sharded dimension, over its axis.  A collective:
+    every rank of the mesh calls it.  With ``first_only`` rank (0, 0)
+    alone receives it and the others return None: one ``gather`` per
+    sharded dimension along the lines through rank (0, 0), which the
+    ranks off those lines skip."""
+    mesh = sharding.mesh
+    if first_only and _off_first_lines(mesh, sharding.spec):
+        return None
+    arr = part
+    for dim, axis in enumerate(sharding.spec):
+        if axis is not None:
+            arr = gather_parts(mesh, arr, axis, dim, first_only)
+            if arr is None:
+                return None
+    return arr.cpu().numpy()
+
+
+def global_put(host, sharding: "RankPart") -> torch.Tensor:
+    """This rank's part of a host array, on its device.  Every rank
+    passes the SAME host value (identical host tables, no
+    coordination), so placing it takes no collective."""
+    host = np.asarray(host)
+    part = np.ascontiguousarray(host[sharding.index(host.shape)])
+    return torch.from_numpy(part).to(sharding.device)
+
+
+def is_stream_lead(mesh) -> bool:
+    """Whether this rank is at stream index 0: the rank of its metric
+    column that takes a whole restored stream partial (ROADMAP D11), so
+    the sum over the stream axis counts it once."""
+    return axis_index(mesh, STREAM_AXIS) == 0
+
+
+def is_first_rank(mesh) -> bool:
+    """Whether this rank is rank (0, 0), the one that writes a
+    checkpoint (ROADMAP D11)."""
+    return not any(axis_index(mesh, axis) for axis in AXES)
+
+
+def agreed(mesh, ok: bool) -> bool:
+    """True on every rank when ``ok`` is True on every rank: one MIN over
+    the mesh, so one rank's failure leaves every rank in the same state.
+    A collective of every rank of the mesh."""
+    import torch.distributed as dist
+
+    return bool(mesh_reduce(mesh, [int(bool(ok))], dist.ReduceOp.MIN)[0])
+
+
+def gather_objects(mesh, obj, axis: str = STREAM_AXIS):
+    """``obj`` (any picklable host value) of every rank of the line along
+    ``axis`` through rank (0, 0), in coordinate order, on rank (0, 0);
+    every other rank returns None, and the ranks off that line make no
+    call.  One ``gather_object``, a collective of that line."""
+    import pickle
+
+    import torch.distributed as dist
+
+    if _off_first_lines(mesh, (axis,)):
+        return None
+    group = axis_group(mesh, axis)
+    first = axis_index(mesh, axis) == 0
+    if not first:
+        _count_sent(group, len(pickle.dumps(obj)))
+    out = [None] * axis_size(mesh, axis) if first else None
+    dist.gather_object(obj, out, dst=_first_of(group), group=group)
+    return out
 
 
 def pad_triples(packed: np.ndarray, rows: int) -> np.ndarray:
@@ -254,7 +394,9 @@ class IntervalQueue:
     MOST any rank holds instead: a rank with fewer applies ``pad()`` (an
     empty interval) in place of each missing one, so no rank's queued
     interval is left behind and every rank makes the same collectives;
-    ``padded`` counts them.  A drain started while one runs (a rule's
+    ``padded`` counts them, and each pad carries the seq its peers
+    commit in its place (one more MAX over the mesh), so the ranks'
+    checkpoint watermarks stay one seq (ROADMAP D11).  A drain started while one runs (a rule's
     query inside an interval's hooks) returns at once.  The queue has no
     bound: an interval waits here, on the host and not yet queryable,
     until the rank's next collective call (``len()`` is its depth)."""
@@ -286,13 +428,24 @@ class IntervalQueue:
             return 0
         op = dist.ReduceOp.MAX if final else dist.ReduceOp.MIN
         n = mesh_reduce(self.mesh, [len(self)], op)[0]
+        seqs = None
+        if final and n:
+            # a pad carries the seq its peers commit (their latest), so
+            # every rank's watermark names the same interval (D11)
+            with self._lock:
+                mine = [getattr(item, "seq", None) for item in self._queue]
+            mine = [-1 if q is None else int(q) for q in mine[:n]]
+            seqs = mesh_reduce(self.mesh, mine + [-1] * (n - len(mine)),
+                               dist.ReduceOp.MAX)
         self._draining = True
         try:
-            for _ in range(n):
+            for i in range(n):
                 with self._lock:
                     item = self._queue.popleft() if self._queue else None
                 if item is None:
                     item = self._pad()
+                    if seqs is not None and seqs[i] >= 0:
+                        item.seq = seqs[i]
                     self.padded += 1
                 self._apply(item)
         finally:
@@ -311,6 +464,7 @@ def _all_to_all_rows(mesh, rows: torch.Tensor, send_counts, recv_counts,
     group = axis_group(mesh, METRIC_AXIS)
     cdev = collective_device(group, device)
     rows = rows.to(cdev).contiguous()
+    _count_sent(group, rows.numel() * rows.element_size())
     out = torch.empty((int(sum(recv_counts)), *rows.shape[1:]),
                       dtype=rows.dtype, device=cdev)
     dist.all_to_all_single(out, rows, [int(c) for c in recv_counts],

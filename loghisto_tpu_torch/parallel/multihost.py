@@ -31,13 +31,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from loghisto_tpu_torch.parallel.mesh import (
+from loghisto_tpu_torch.parallel.mesh import (  # noqa: F401 - re-exported
     STREAM_AXIS,
     RankPart,
     axis_index,
     axis_size,
     check_mesh,
-    gather_parts,
+    global_put,
+    host_gather,
     make_mesh,
     mesh_device,
     mesh_reduce,
@@ -121,26 +122,6 @@ def local_sample_shard(global_batch: int, mesh=None) -> tuple[int, int]:
         )
     size = global_batch // n_stream
     return row * size, size
-
-
-def global_put(host, sharding: RankPart) -> torch.Tensor:
-    """This rank's part of a host array, on its device.  Every rank
-    passes the SAME host value (identical host tables, no
-    coordination), so placing it takes no collective."""
-    host = np.asarray(host)
-    part = np.ascontiguousarray(host[sharding.index(host.shape)])
-    return torch.from_numpy(part).to(sharding.device)
-
-
-def host_gather(part: torch.Tensor, sharding: RankPart) -> np.ndarray:
-    """The whole array as a host NumPy copy, from every rank's part: one
-    ``all_gather`` per sharded dimension, over its axis.  A collective:
-    every rank of the mesh calls it."""
-    arr = part
-    for dim, axis in enumerate(sharding.spec):
-        if axis is not None:
-            arr = gather_parts(sharding.mesh, arr, axis, dim)
-    return arr.cpu().numpy()
 
 
 def make_global_arrays(mesh, ids_local, values_local):

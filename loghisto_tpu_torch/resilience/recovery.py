@@ -35,6 +35,26 @@ No breaker state moves work to the CPU.
 Everything surfaces as ``resilience.*`` gauges and three watchdog
 invariants (``thread_restarted``, ``breaker_open``,
 ``recovery_in_progress``) in ``/healthz``.
+
+On a ("stream", "metric") mesh (ROADMAP D11) the manager follows D9's
+thread rule: ``on_commit`` runs where the commit runs, at a collective
+entry point on the rank's main thread, so the cadenced
+``checkpoint_now`` is a collective there (``utils/checkpoint.save`` on
+a mesh).  The watermark is the seq of the interval committed last; the
+ranks check it is one seq (one MIN and one MAX over the mesh) and
+refuse, as a counted checkpoint error, to stamp one that some rank has
+not committed.  Each stream row keeps its own journal
+(``utils/journal.row_journal_path``, written by the row's rank at
+metric index 0).  ``recover()`` is a collective: every rank restores
+the checkpoint, reads every saved row's journal past the watermark and,
+seq by seq, commits the merged raw sets of the saved rows j with
+``j % n_stream == s`` as its row s's interval (every name of that seq
+in one order on every rank, so the registries stay alike); a row with
+nothing for a seq commits an empty interval of that seq, so every rank
+makes the same collectives.  Int32 adds commute, so any target shape
+holds the sums of the merged intervals; a JAX journal (one file) is
+row 0 of 1, and one device recovers a mesh's crash as row 0 of 1.  The
+seq counter then moves past the most any rank replayed.
 """
 
 from __future__ import annotations
@@ -213,6 +233,7 @@ class RecoveryManager:
         self.replayed_intervals = 0
         self.recoveries = 0
         self._since_checkpoint = 0
+        self._mesh = getattr(aggregator, "mesh", None)
 
     # -- bridge-side cadence -------------------------------------------- #
 
@@ -242,6 +263,8 @@ class RecoveryManager:
         t0 = time.perf_counter()
         try:
             with self._lock:
+                if self._mesh is not None:
+                    self._check_watermark()
                 checkpoint.save(
                     self.checkpoint_path,
                     self._ms,
@@ -265,71 +288,108 @@ class RecoveryManager:
         self._since_checkpoint = 0
         return True
 
+    def _check_watermark(self) -> None:
+        """On a mesh: raise unless every rank's watermark is one seq (a
+        MIN and a MAX over the mesh, in one reduction)."""
+        import torch.distributed as dist
+
+        from loghisto_tpu_torch.parallel.mesh import mesh_reduce
+
+        seq = -1 if self.last_seq is None else int(self.last_seq)
+        hi, neg_lo = mesh_reduce(self._mesh, [seq, -seq],
+                                 dist.ReduceOp.MAX)
+        if hi != -neg_lo:
+            raise ValueError(
+                f"the ranks' watermarks differ ({-neg_lo} to {hi}): a "
+                "checkpoint names only an interval every rank committed")
+
     # -- restart-time replay -------------------------------------------- #
+
+    def _replay_one(self, raw) -> None:
+        """One journal interval through the commit path the bridges run
+        live."""
+        if self._committer is not None:
+            self._committer.commit(raw)
+            return
+        # fan-out path: feed both consumers the bridges would have fed
+        if self._agg is not None:
+            self._agg.merge_raw(raw)
+        wheel = getattr(self._ms, "retention", None)
+        if wheel is not None:
+            wheel.push(raw)
 
     def recover(self) -> RecoveryReport:
         """Restore checkpoint + replay journal past the watermark.  Safe
         on a cold start (neither file exists -> empty report).  Sets
         ``in_progress`` for the HealthWatchdog invariant and to suppress
         cadence checkpoints while replayed intervals flow through the
-        committer."""
+        committer.  The journal is every file ``journal.row_journals``
+        lists: the plain path, which replays line by line as the
+        reference's does, and the rows' files of any mesh, merged by seq
+        (``_row_intervals``); one device is row 0 of 1.  On a mesh a
+        collective call (the module docstring has the rules)."""
+        import torch.distributed as dist
+
+        from loghisto_tpu_torch.parallel.mesh import (
+            STREAM_AXIS,
+            agreed,
+            axis_index,
+            axis_size,
+            mesh_reduce,
+        )
         from loghisto_tpu_torch.utils import checkpoint, journal
 
+        mesh = self._mesh
         t0 = time.perf_counter()
         watermark: Optional[int] = None
-        replayed = skipped = 0
-        max_seq = 0
-        ckpt_found = (
-            self.checkpoint_path is not None
-            and os.path.exists(self.checkpoint_path)
-        )
-        jrnl_found = (
-            self.journal_path is not None
-            and os.path.exists(self.journal_path)
-        )
+        ckpt_found = (self.checkpoint_path is not None
+                      and os.path.exists(self.checkpoint_path))
+        if mesh is not None:
+            # one answer on every rank, so every rank takes the same path
+            ckpt_found = agreed(mesh, ckpt_found)
+        files = ([] if self.journal_path is None
+                 else journal.row_journals(self.journal_path))
         corrupt_before = journal.corrupt_lines_total()
         self.in_progress = True
         try:
             if ckpt_found:
                 watermark = checkpoint.restore(
-                    self.checkpoint_path,
-                    self._ms,
-                    self._agg,
-                    self._lifecycle,
-                    self._anomaly,
-                )
+                    self.checkpoint_path, self._ms, self._agg,
+                    self._lifecycle, self._anomaly)
                 if watermark is not None:
-                    max_seq = watermark
                     self.last_seq = watermark
-            if jrnl_found:
-                for raw in journal.replay(self.journal_path):
-                    if (
-                        watermark is not None
-                        and raw.seq is not None
-                        and raw.seq <= watermark
-                    ):
-                        skipped += 1
-                        continue
-                    if self._committer is not None:
-                        self._committer.commit(raw)
-                    else:
-                        # fan-out path: feed both consumers the bridges
-                        # would have fed live
-                        if self._agg is not None:
-                            self._agg.merge_raw(raw)
-                        wheel = getattr(self._ms, "retention", None)
-                        if wheel is not None:
-                            wheel.push(raw)
-                    if raw.seq is not None:
-                        max_seq = max(max_seq, int(raw.seq))
-                        self.last_seq = max_seq
-                    replayed += 1
-            # the reaper must mint seqs PAST everything recovered, or
-            # the next journal lines would collide with replayed ones
+            row, rows = ((0, 1) if mesh is None else
+                         (axis_index(mesh, STREAM_AXIS),
+                          axis_size(mesh, STREAM_AXIS)))
+            raws, skipped = _row_intervals(files, watermark, row, rows)
+            top = max((r.seq for r in raws if r.seq is not None),
+                      default=watermark or 0)
+            most, neg_least, max_seq = (
+                [len(raws), -len(raws), top] if mesh is None else
+                mesh_reduce(mesh, [len(raws), -len(raws), top],
+                            dist.ReduceOp.MAX))
+            if most != -neg_least:
+                raise RuntimeError(
+                    f"the ranks read {-neg_least} to {most} journal "
+                    "intervals: every rank must see every row's journal")
+            for raw in raws:
+                self._replay_one(raw)
+            if top:
+                self.last_seq = top
+            # the reapers mint seqs past everything any rank recovered,
+            # so the rows' new intervals line up again and the next
+            # journal lines do not collide with replayed ones
             if max_seq and hasattr(self._ms, "_interval_seq"):
                 self._ms._interval_seq = itertools.count(max_seq + 1)
         finally:
             self.in_progress = False
+        return self._report(t0, watermark, len(raws), skipped,
+                            corrupt_before, ckpt_found, bool(files))
+
+    def _report(self, t0, watermark, replayed, skipped, corrupt_before,
+                ckpt_found, jrnl_found) -> RecoveryReport:
+        from loghisto_tpu_torch.utils import journal
+
         self.replayed_intervals += replayed
         self.recoveries += 1
         report = RecoveryReport(
@@ -353,12 +413,30 @@ class RecoveryManager:
     # -- lifecycle ------------------------------------------------------ #
 
     def start(self) -> None:
-        """Start the journal subscriber (idempotent)."""
+        """Start the journal subscriber (idempotent).  On a mesh the
+        rank at metric index 0 of each stream row journals the row's
+        intervals to ``row_journal_path``; the row's other ranks, whose
+        raw sets are the same, journal nothing."""
         if self.journal_path is None or self._journal is not None:
             return
         from loghisto_tpu_torch.utils.journal import RawJournal
 
-        self._journal = RawJournal(self._ms, self.journal_path)
+        path = self.journal_path
+        if self._mesh is not None:
+            from loghisto_tpu_torch.parallel.mesh import (
+                METRIC_AXIS,
+                STREAM_AXIS,
+                axis_index,
+                axis_size,
+            )
+            from loghisto_tpu_torch.utils.journal import row_journal_path
+
+            if axis_index(self._mesh, METRIC_AXIS) != 0:
+                return
+            path = row_journal_path(
+                path, axis_index(self._mesh, STREAM_AXIS),
+                axis_size(self._mesh, STREAM_AXIS))
+        self._journal = RawJournal(self._ms, path)
         self._journal.fault_injector = self.fault_injector
         self._journal.start()
 
@@ -370,6 +448,62 @@ class RecoveryManager:
             self._journal = None
         if final_checkpoint and self.checkpoint_path is not None:
             self.checkpoint_now()
+
+
+def _row_intervals(files, watermark, row: int, rows: int):
+    """Stream row ``row`` of ``rows``'s intervals past ``watermark`` from
+    every saved row's journal (``journal.row_journals``).  The lines of
+    one interval are the n-th line of a seq in each file (a journal
+    appended to by a restart that did not recover holds a seq twice),
+    or the n-th seq-less line of each file; their merged raw sets of the
+    saved rows j with ``j % rows == row``, or an empty interval where
+    this row has none, each holding every name of the interval's lines
+    in file order, so each rank registers the same names in the same
+    order.  The intervals run in the order of a merge of the files by
+    (n, seq), a seq-less line where it stands in its file: one file
+    replays line by line in file order, as the reference replays its
+    journal, and the rows' files in seq order.  Returns (intervals,
+    skipped lines)."""
+    import dataclasses
+    import functools
+    import heapq
+
+    from loghisto_tpu_torch.metrics import RawMetricSet, \
+        merge_raw_metric_sets
+    from loghisto_tpu_torch.utils import journal
+
+    walks = []
+    skipped = 0
+    for j, _, path in files:
+        walk, seen, at = [], {}, (0, -1)
+        for raw in journal.replay(path):
+            if (watermark is not None and raw.seq is not None
+                    and raw.seq <= watermark):
+                skipped += 1
+                continue
+            seq = raw.seq
+            n = seen[seq] = seen.get(seq, -1) + 1
+            if seq is not None:
+                at = (n, seq)
+            walk.append((at, (n, seq), j % rows == row, raw))
+        walks.append(walk)
+    by_key: dict = {}
+    for _, key, own, raw in heapq.merge(*walks, key=lambda w: w[0]):
+        by_key.setdefault(key, []).append((own, raw))
+    out = []
+    for (_, seq), entries in by_key.items():
+        names = dict.fromkeys(n for _, raw in entries for n in raw.histograms)
+        mine = [raw for own, raw in entries if own]
+        if mine:
+            merged = functools.reduce(merge_raw_metric_sets, mine)
+        else:
+            first = entries[0][1]
+            merged = RawMetricSet(min(raw.time for _, raw in entries), {},
+                                  {}, {}, {}, duration=first.duration)
+        out.append(dataclasses.replace(
+            merged, histograms={n: merged.histograms.get(n, {})
+                                for n in names}, seq=seq))
+    return out, skipped
 
 
 def register_resilience_gauges(

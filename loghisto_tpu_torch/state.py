@@ -43,6 +43,11 @@ does, and keeps doing so as both take the same intervals.
 ``LifecycleManager.load_state`` / ``AnomalyManager.load_state`` read,
 so both packages continue from the same activity vector, counters and
 baseline banks.
+
+A JAX aggregator, wheel or manager on a mesh is read the same way:
+``np.asarray`` of a sharded JAX array gathers it to the host, so these
+states are whole, and each load on a port mesh of any shape keeps its
+rank's blocks (the accumulator's rows on stream index 0, ROADMAP D11).
 """
 
 from __future__ import annotations

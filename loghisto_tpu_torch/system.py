@@ -100,9 +100,15 @@ order; each first commits the intervals the bridge queued.  With
 ``lifecycle=`` and ``anomaly=`` (ROADMAP D10, item 11b-2) the drift
 scoring and the lifecycle tick after each commit are collectives too,
 and so are ``lifecycle.check()``, ``evict_ids``, ``compact()`` and
-``anomaly.score_now()`` when called by hand.  Checkpoints, journals and
-crash recovery on a mesh wait for ROADMAP Queue 1 item 11b-3, paged
-storage for 11c.
+``anomaly.score_now()`` when called by hand.  With ``resilience=
+ResilienceConfig(checkpoint_path=, journal_path=)`` (ROADMAP D11, item
+11b-3) the cadenced checkpoint after a commit, ``recover()`` (and so
+``start()`` with ``recover_on_start``) and ``stop()``'s final
+checkpoint are collectives too; rank (0, 0) writes the checkpoint, each
+stream row's rank at metric index 0 its row's journal
+(``<journal_path>.row<s>of<n>``), and a crash on one mesh shape
+recovers onto any other, or onto one device, with no option.  Paged
+storage on a mesh waits for ROADMAP Queue 1 item 11c.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions (a mesh's device type is
@@ -148,21 +154,6 @@ from loghisto_tpu_torch.window import (
     RuleEngine,
     TimeWheel,
 )
-
-
-MESH_SYSTEM = (
-    "{what} on a mesh waits for ROADMAP Queue 1 item 11b-3"
-)
-
-
-def _refuse_on_mesh(resilience) -> None:
-    """The part of the system a mesh does not carry yet (11b-3)."""
-    if (resilience is not None and resilience is not False
-            and resilience is not True
-            and (resilience.checkpoint_path is not None
-                 or resilience.journal_path is not None)):
-        raise ValueError(MESH_SYSTEM.format(
-            what="crash recovery (checkpoints across mesh shapes)"))
 
 
 def _mesh_shape(mesh) -> Optional[dict]:
@@ -232,10 +223,8 @@ class TorchMetricSystem(MetricSystem):
         ``parallel.mesh.make_mesh``) goes to the aggregator and the wheel,
         as in the reference; see the module docstring for the collective
         calls."""
-        if mesh is not None:
-            _refuse_on_mesh(resilience)
-            if device is None:
-                device = mesh.device_type
+        if mesh is not None and device is None:
+            device = mesh.device_type
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)

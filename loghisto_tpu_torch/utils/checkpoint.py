@@ -33,6 +33,27 @@ aggregator lives there), a paged delta one ``PagedStore.commit``
 (translate, then one K4 launch); deltas that could wrap an int32 cell
 take the exact host spill.  Interval caches are not persisted: the
 samples of a crashed interval are shed, as in the reference.
+
+On a ("stream", "metric") mesh (ROADMAP D11) ``save`` and ``restore``
+are collective calls: every rank makes them, in the same order, on its
+main thread.  A save holds the gathered state, never a rank's block:
+the host stores and the accumulator's stream partials (with their
+spills, in int64) summed over the stream axis, the accumulator, activity
+and bank blocks gathered over the metric axis, each to rank (0, 0)
+alone (a ``reduce`` and ``gather``s, not their all-rank forms); rank
+(0, 0) alone writes the file, then one agreed status (a MIN over the mesh) makes a failed
+write raise on every rank.  The optional key ``mesh_shape`` (int64
+``[stream, metric]``) records the saving mesh; a file without it (the
+JAX package's, or a single device's) reads as one stream row.  Every
+rank reads the same file on a restore: the names register in the same
+order on every rank, the registry's growth is laid out
+(``TorchAggregator._mesh_regrow``), and only then do the rows land: the
+accumulator's on stream index 0's blocks alone (each rank's share of
+the int32 envelope decides between its block and its host spill), the
+lifetime store, the activity vector and the banks on every rank's
+blocks, the host stores on stream index 0's ranks.  A save on any mesh
+shape restores onto any other, onto one device and into the JAX
+package, and the JAX package's saves restore onto any mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +66,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from loghisto_tpu_torch.parallel.mesh import (
+    AXES,
+    acc_sharding,
+    agreed,
+    axis_size,
+    gather_objects,
+    is_first_rank,
+    is_stream_lead,
+)
 
 logger = logging.getLogger("loghisto_tpu_torch")
 
@@ -79,35 +110,17 @@ def save(
     ``anomaly`` adds the EWMA baseline banks.  The aggregator is read
     after one full barrier (``flush(force=True)``), the one
     ``state_dict`` takes."""
+    mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
+    if mesh is not None:
+        return _mesh_save(path, mesh, metric_system, aggregator, lifecycle,
+                          anomaly, seq_watermark, fault_injector)
     payload = {"version": np.int64(FORMAT_VERSION)}
     if seq_watermark is not None:
         payload["seq_watermark"] = np.int64(seq_watermark)
 
     if metric_system is not None:
-        with metric_system._store_lock:
-            counters = dict(metric_system._counter_store)
-            agg = {
-                name: (entry[0], entry[1])
-                for name, entry in metric_system._histogram_agg_store.items()
-            }
-        payload["ms_counter_names"] = _names_arr(counters.keys())
-        payload["ms_counter_values"] = np.array(
-            list(counters.values()), dtype=np.uint64
-        )
-        payload["ms_agg_names"] = _names_arr(agg.keys())
-        payload["ms_agg_sums"] = np.array(
-            [v[0] for v in agg.values()], dtype=np.float64
-        )
-        payload["ms_agg_counts"] = np.array(
-            [v[1] for v in agg.values()], dtype=np.uint64
-        )
-        if agg and all(isinstance(v[0], int) for v in agg.values()):
-            # go_compat sums are exact uint64s that float64 would clip
-            # above 2^53; keep the exact form alongside
-            payload["ms_agg_sums_u64"] = np.array(
-                [v[0] & 0xFFFFFFFFFFFFFFFF for v in agg.values()],
-                dtype=np.uint64,
-            )
+        counters, agg = _host_stores(metric_system)
+        _put_host_stores(payload, counters, agg)
 
     if aggregator is not None:
         # the full barrier: every buffered and queued sample is in the
@@ -127,42 +140,134 @@ def save(
                     acc = acc.astype(np.int64) + aggregator._spill
         with aggregator._agg_lock:
             agg_items = sorted(aggregator._agg.items())
-        payload["agg_acc"] = acc
-        payload["agg_names"] = _names_arr(aggregator.registry.names())
-        payload["agg_registry_generation"] = np.int64(
-            getattr(aggregator.registry, "generation", 0)
-        )
-        payload["agg_ids"] = np.array(
-            [k for k, _ in agg_items], dtype=np.int64
-        )
-        payload["agg_sums"] = np.array(
-            [v[0] for _, v in agg_items], dtype=np.float64
-        )
-        payload["agg_counts"] = np.array(
-            [v[1] for _, v in agg_items], dtype=np.uint64
-        )
-
+        _put_aggregator(payload, aggregator, acc,
+                        aggregator.registry.names(), agg_items)
     if lifecycle is not None:
-        st = lifecycle.state_dict()
-        payload["lc_last_active"] = st["last_active"]
-        payload["lc_counters"] = np.array(
-            [
-                st["evicted_series"],
-                st["overflowed_samples"],
-                st["evictions"],
-                st["compactions"],
-            ],
-            dtype=np.int64,
-        )
-
+        _put_lifecycle(payload, lifecycle.state_dict())
     if anomaly is not None:
-        st = anomaly.state_dict()
-        payload["an_prof"] = st["prof"]
-        payload["an_wsum"] = st["wsum"]
-        payload["an_counters"] = np.array(
-            [st["scored_intervals"]], dtype=np.int64
+        _put_anomaly(payload, anomaly.state_dict())
+    _write(path, payload, fault_injector)
+
+
+def _mesh_save(path, mesh, metric_system, aggregator, lifecycle, anomaly,
+               seq_watermark, fault_injector) -> None:
+    """``save`` on a mesh: every rank makes the same collectives, which
+    deliver the gathered state to rank (0, 0) alone; it writes the file,
+    then one agreed status."""
+    first = is_first_rank(mesh)
+    payload = {"version": np.int64(FORMAT_VERSION),
+               "mesh_shape": np.array([axis_size(mesh, axis)
+                                       for axis in AXES], dtype=np.int64)}
+    if seq_watermark is not None:
+        payload["seq_watermark"] = np.int64(seq_watermark)
+    if metric_system is not None:
+        sums = _stream_sums(mesh, *_host_stores(metric_system),
+                            metric_system.config.go_compat)
+        if first:
+            _put_host_stores(payload, *sums)
+    if aggregator is not None:
+        # the barrier, growth's layout, the stream sum, the metric gather
+        st = aggregator.state_dict(first_only=True)
+        if first:
+            acc = (st["acc"] if st["spill"] is None
+                   else st["acc"].astype(np.int64) + st["spill"])
+            _put_aggregator(payload, aggregator, acc, st["names"],
+                            sorted(st["agg"].items()))
+    if lifecycle is not None:
+        st = lifecycle.state_dict(first_only=True)
+        if first:
+            _put_lifecycle(payload, st)
+    if anomaly is not None:
+        st = anomaly.state_dict(first_only=True)
+        if first:
+            _put_anomaly(payload, st)
+    err = None
+    if first:
+        try:
+            _write(path, payload, fault_injector)
+        except Exception as e:  # noqa: BLE001 - re-raised after the vote
+            err = e
+    if not agreed(mesh, err is None):
+        if err is not None:
+            raise err
+        raise RuntimeError(f"checkpoint to {path} failed on rank (0, 0); "
+                           "previous snapshot intact")
+
+
+def _host_stores(metric_system) -> tuple:
+    """(counters, {name: (sum, count)}) of a host ``MetricSystem``."""
+    with metric_system._store_lock:
+        counters = dict(metric_system._counter_store)
+        agg = {
+            name: (entry[0], entry[1])
+            for name, entry in metric_system._histogram_agg_store.items()
+        }
+    return counters, agg
+
+
+def _put_host_stores(payload: dict, counters: dict, agg: dict) -> None:
+    payload["ms_counter_names"] = _names_arr(counters.keys())
+    payload["ms_counter_values"] = np.array(
+        list(counters.values()), dtype=np.uint64
+    )
+    payload["ms_agg_names"] = _names_arr(agg.keys())
+    payload["ms_agg_sums"] = np.array(
+        [v[0] for v in agg.values()], dtype=np.float64
+    )
+    payload["ms_agg_counts"] = np.array(
+        [v[1] for v in agg.values()], dtype=np.uint64
+    )
+    if agg and all(isinstance(v[0], int) for v in agg.values()):
+        # go_compat sums are exact uint64s that float64 would clip
+        # above 2^53; keep the exact form alongside
+        payload["ms_agg_sums_u64"] = np.array(
+            [v[0] & 0xFFFFFFFFFFFFFFFF for v in agg.values()],
+            dtype=np.uint64,
         )
 
+
+def _put_aggregator(payload: dict, aggregator, acc, names,
+                    agg_items) -> None:
+    payload["agg_acc"] = acc
+    payload["agg_names"] = _names_arr(names)
+    payload["agg_registry_generation"] = np.int64(
+        getattr(aggregator.registry, "generation", 0)
+    )
+    payload["agg_ids"] = np.array(
+        [k for k, _ in agg_items], dtype=np.int64
+    )
+    payload["agg_sums"] = np.array(
+        [v[0] for _, v in agg_items], dtype=np.float64
+    )
+    payload["agg_counts"] = np.array(
+        [v[1] for _, v in agg_items], dtype=np.uint64
+    )
+
+
+def _put_lifecycle(payload: dict, st: dict) -> None:
+    payload["lc_last_active"] = st["last_active"]
+    payload["lc_counters"] = np.array(
+        [
+            st["evicted_series"],
+            st["overflowed_samples"],
+            st["evictions"],
+            st["compactions"],
+        ],
+        dtype=np.int64,
+    )
+
+
+def _put_anomaly(payload: dict, st: dict) -> None:
+    payload["an_prof"] = st["prof"]
+    payload["an_wsum"] = st["wsum"]
+    payload["an_counters"] = np.array(
+        [st["scored_intervals"]], dtype=np.int64
+    )
+
+
+def _write(path: str, payload: dict, fault_injector) -> None:
+    """The payload to ``path``: temp file, fsync, atomic rename, with the
+    fault injector's two sites."""
     directory = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
@@ -183,6 +288,39 @@ def save(
         raise
 
 
+def _mesh_of(*parts):
+    """The mesh of the first part (a system, an aggregator or a manager)
+    that runs on one, else None."""
+    for part in parts:
+        agg = getattr(part, "aggregator", part)
+        mesh = getattr(agg, "mesh", None)
+        if mesh is not None:
+            return mesh
+    return None
+
+
+def _stream_sums(mesh, counters: dict, agg: dict, go_compat: bool):
+    """The host stores summed over the stream axis (each stream row's
+    ranks hold that row's samples; a counter sums over stream, D9), on
+    rank (0, 0); None on every other rank.  A collective of the stream
+    line through rank (0, 0)."""
+    parts = gather_objects(mesh, (counters, agg))
+    if parts is None:
+        return None
+    total_c: dict = {}
+    total_a: dict = {}
+    for c, a in parts:
+        for name, v in c.items():
+            total_c[name] = total_c.get(name, 0) + v
+        for name, (s, n) in a.items():
+            entry = total_a.setdefault(name, [0, 0])
+            entry[0] += s
+            if go_compat:
+                entry[0] &= 0xFFFFFFFFFFFFFFFF
+            entry[1] += n
+    return total_c, {name: tuple(e) for name, e in total_a.items()}
+
+
 def restore(
     path: str,
     metric_system=None,
@@ -199,7 +337,9 @@ def restore(
     the registry's generation advances to at least the saved one.
 
     Returns the snapshot's seq watermark, or None for an unstamped or v1
-    file."""
+    file.  On a mesh a collective call (the module docstring has the
+    rules)."""
+    mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
     with np.load(path, allow_pickle=False) as data:
         version = int(data["version"])
         if version > FORMAT_VERSION:
@@ -208,7 +348,8 @@ def restore(
             int(data["seq_watermark"]) if "seq_watermark" in data else None
         )
 
-        if metric_system is not None and "ms_counter_names" in data:
+        if (metric_system is not None and "ms_counter_names" in data
+                and (mesh is None or is_stream_lead(mesh))):
             _restore_metric_system(metric_system, data)
 
         if aggregator is not None and "agg_acc" in data:
@@ -272,7 +413,8 @@ def _remap_rows(aggregator, acc: np.ndarray, saved_names):
     of the target's row count, [(saved id, target id)]).  Named rows map
     by name through ``_id_for`` (grow policy, shed with a warning, holes
     skipped), then unnamed nonzero rows by identity where no named
-    metric owns the id."""
+    metric owns the id.  On a mesh the registry's growth is laid out
+    after the names register and before the rows are placed."""
     row_map = []
     for saved_id, name in enumerate(saved_names):
         if name is None:
@@ -299,6 +441,8 @@ def _remap_rows(aggregator, acc: np.ndarray, saved_names):
             )
             continue
         row_map.append((saved_id, saved_id))
+    if aggregator.mesh is not None:
+        aggregator._mesh_regrow()
     remapped = np.zeros(
         (aggregator.num_metrics, acc.shape[1]), dtype=acc.dtype
     )
@@ -329,6 +473,9 @@ def _restore_aggregator(aggregator, data) -> dict:
                   if "pg_codec_names" in data else None)
         with aggregator._dev_lock:
             _restore_paged_delta(aggregator, remapped, row_map, codecs)
+    elif aggregator.mesh is not None:
+        with aggregator._dev_lock:
+            _restore_mesh_delta(aggregator, remapped)
     else:
         with aggregator._dev_lock:
             _restore_dense_delta(aggregator, remapped)
@@ -388,6 +535,33 @@ def _restore_paged_delta(aggregator, remapped: np.ndarray, row_map,
         packed[:, 2] = weights
         pg.commit(packed)
     aggregator.stats_snapshot = None
+
+
+def _restore_mesh_delta(aggregator, remapped: np.ndarray) -> None:
+    """``_restore_dense_delta`` on a mesh rank (caller holds
+    ``_dev_lock``): the block's rows of the remapped delta land on stream
+    index 0 alone, so the sum over the stream axis counts them once.
+    Restored device counts join the rank's ``_interval_ingested``, so
+    the partial stays under its share of the int32 envelope
+    (``_spill_at``, ROADMAP D8); a delta that would pass it, or fail the
+    magnitude check, merges into the rank's host spill."""
+    aggregator.stats_snapshot = None
+    if not is_stream_lead(aggregator.mesh):
+        return
+    block = remapped[acc_sharding(aggregator.mesh).index(remapped.shape)]
+    total = int(block.sum(dtype=np.int64))
+    live_max = int(aggregator._acc.max())
+    if (_headroom_exceeded(aggregator, int(block.max(initial=0)), live_max)
+            or aggregator._interval_ingested + total
+            >= aggregator._spill_at):
+        if aggregator._spill is None:
+            aggregator._spill = block.astype(np.int64)
+        else:
+            aggregator._spill += block.astype(np.int64)
+        return
+    delta = torch.from_numpy(np.ascontiguousarray(block, dtype=np.int32))
+    aggregator._acc.add_(delta.to(aggregator._acc.device))
+    aggregator._interval_ingested += total
 
 
 def _restore_dense_delta(aggregator, remapped: np.ndarray) -> None:

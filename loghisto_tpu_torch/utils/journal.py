@@ -15,7 +15,15 @@ The format is line-delimited JSON, one interval per line, append-only:
 ``dump_line`` writes the same string as the JAX package's for the same
 interval, so a journal written by either package replays in the other.
 A torn final line (a crash mid-append) is skipped on replay with a
-warning.  ``FrameJournal`` is the binary journal of ``(kind, payload)``
+warning.
+
+On a ("stream", "metric") mesh each stream row has its own host interval
+(ROADMAP D9), so each row keeps its own journal (D11): rank (s, 0)
+writes ``row_journal_path(path, s, n)``, ``<path>.row<s>of<n>``, and the
+other ranks of the row, whose raw sets are the same, journal nothing.
+``row_journals(path)`` finds every row's file (the plain ``path``, the
+JAX package's or a single device's, reads as row 0 of 1); the line
+format is unchanged, so each file replays in either package.  ``FrameJournal`` is the binary journal of ``(kind, payload)``
 records in the byte-frame format of ``ops/codec.py``.
 """
 
@@ -24,6 +32,8 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
+import os
+import re
 import threading
 from typing import Iterator, Optional
 
@@ -65,6 +75,33 @@ class JournalCorruptError(Exception):
 class JournalVersionError(Exception):
     """The journal was written by an incompatible format version; raised
     by replay rather than silently skipping every line."""
+
+
+def row_journal_path(path: str, row: int, rows: int) -> str:
+    """The journal of stream row ``row`` of ``rows`` on a mesh."""
+    return f"{path}.row{row}of{rows}"
+
+
+def row_journals(path: str) -> list:
+    """``(row, rows, file)`` of every journal under ``path``: the rows'
+    files of any mesh (``row_journal_path``), sorted, and ``path`` itself
+    as row 0 of 1 where it exists."""
+    out = []
+    if os.path.exists(path):
+        out.append((0, 1, path))
+    directory = os.path.dirname(os.path.abspath(path))
+    pattern = re.compile(re.escape(os.path.basename(path))
+                         + r"\.row(\d+)of(\d+)$")
+    try:
+        entries = os.listdir(directory)
+    except OSError:
+        entries = []
+    for entry in sorted(entries):
+        m = pattern.match(entry)
+        if m and int(m.group(1)) < int(m.group(2)):
+            out.append((int(m.group(1)), int(m.group(2)),
+                        os.path.join(directory, entry)))
+    return sorted(out, key=lambda t: (t[1], t[0]))
 
 
 def dump_line(raw: RawMetricSet) -> str:

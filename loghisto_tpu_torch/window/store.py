@@ -73,8 +73,10 @@ keeps its line's collectives in step.  ``attach`` on a mesh queues the broadcast
 calls push the queued ones first (``IntervalQueue``).  A lifecycle
 eviction or compaction moves ring rows on every rank together (ROADMAP
 D10) and drops every rank's snapshot and caches
-(``lifecycle_invalidated_locked``).  The wheel's state on a mesh waits
-for ROADMAP Queue 1 item 11b-3.
+(``lifecycle_invalidated_locked``).  ``state_dict`` on a mesh gathers
+the ring blocks over the metric axis, and ``load_state_dict`` keeps each
+rank's block, so a wheel's state moves between mesh shapes (ROADMAP
+D11).
 
 Device bytes: ``sum(tier.slots) * num_metrics * num_buckets * 4``, a
 rank's block of it on a mesh (``hbm_bytes()``).
@@ -129,9 +131,11 @@ from loghisto_tpu_torch.parallel.mesh import (
     block_triples,
     check_mesh,
     gather_parts,
+    host_gather,
     mesh_device,
     mesh_reduce,
     ragged_gather_triples,
+    ring_sharding,
 )
 from loghisto_tpu_torch.registry import MetricRegistry, RegistryFullError
 from loghisto_tpu_torch.resilience.supervise import spawn_thread
@@ -145,12 +149,6 @@ from loghisto_tpu_torch.window.snapshot import (
 logger = logging.getLogger("loghisto_tpu_torch")
 
 WHEEL_STATE_FORMAT = "loghisto_tpu_torch.timewheel/1"
-
-MESH_WHEEL_STATE = (
-    "the wheel's state on a mesh (rings laid out per mesh shape) waits "
-    "for ROADMAP Queue 1 item 11b-3"
-)
-
 
 class TierSpec(NamedTuple):
     """One retention tier: ``slots`` ring entries of ``res`` base
@@ -1062,9 +1060,16 @@ class TimeWheel:
     def state_dict(self) -> dict:
         """The wheel's state as host values (see state.py): every tier's
         ring and metadata, the counters, the pinned windows and the
-        registry's names."""
+        registry's names.  On a mesh (ROADMAP D11) a collective call that
+        every rank makes: each tier's ring blocks are gathered over the
+        metric axis (the whole ``[S, M, B]`` through the host under
+        gloo), the metadata is every rank's own (the same on each), so
+        every rank returns the same single-device state."""
+        rings = None
         if self.mesh is not None:
-            raise ValueError(f"state_dict with a mesh: {MESH_WHEEL_STATE}")
+            with self._lock:
+                rings = [host_gather(t.ring, ring_sharding(self.mesh))
+                         for t in self._tiers]
         with self._lock:
             return {
                 "format": WHEEL_STATE_FORMAT,
@@ -1073,7 +1078,8 @@ class TimeWheel:
                 "interval": self.interval,
                 "num_metrics": self.num_metrics,
                 "tiers": [tuple(t.spec) for t in self._tiers],
-                "rings": [t.ring.cpu().numpy().copy() for t in self._tiers],
+                "rings": rings if rings is not None else [
+                    t.ring.cpu().numpy().copy() for t in self._tiers],
                 "slot": [t.slot for t in self._tiers],
                 "in_slot": [t.in_slot for t in self._tiers],
                 "written": [t.written.copy() for t in self._tiers],
@@ -1090,10 +1096,9 @@ class TimeWheel:
     def load_state_dict(self, state: dict) -> None:
         """Replace the wheel's state with ``state`` (from ``state_dict``
         or ``state.wheel_state_from_jax``) and publish its snapshot.  The
-        wheel's registry is replaced by one holding the state's names."""
-        if self.mesh is not None:
-            raise ValueError(
-                f"load_state_dict with a mesh: {MESH_WHEEL_STATE}")
+        wheel's registry is replaced by one holding the state's names.
+        On a mesh every rank loads the same state and keeps its block of
+        each ring, with no collective."""
         if state.get("format") != WHEEL_STATE_FORMAT:
             raise ValueError(f"unknown state format {state.get('format')!r}")
         for key, have in (
@@ -1113,11 +1118,15 @@ class TimeWheel:
         rings = []
         for t, ring in zip(self._tiers, state["rings"]):
             ring = np.ascontiguousarray(ring, dtype=np.int32)
-            if ring.shape != tuple(t.ring.shape):
+            want = (t.spec.slots, self.num_metrics, self.config.num_buckets)
+            if ring.shape != want:
                 raise ValueError(
                     f"state ring of shape {ring.shape} for a tier of "
-                    f"{tuple(t.ring.shape)}"
+                    f"{want}"
                 )
+            if self.mesh is not None:
+                ring = np.ascontiguousarray(
+                    ring[ring_sharding(self.mesh).index(ring.shape)])
             rings.append(ring)
         with self._lock:
             for i, t in enumerate(self._tiers):

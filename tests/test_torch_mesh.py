@@ -33,8 +33,9 @@ stream.  Rank (s, m) receives stream row s's slice of each batch:
     between ranks), equal to the JAX mesh aggregator's growth;
   * the refusals: an M the metric axis does not divide, a mesh larger
     than the world, paged storage explicit or resolved by "auto" (11c),
-    multirow and state on a mesh (11b-3); the fused commit of a pair on
-    one mesh lands an interval (11b-1).
+    multirow; the state on a mesh round-trips since 11b-3 (ROADMAP
+    D11); the fused commit of a pair on one mesh lands an interval
+    (11b-1).
 """
 
 import jax.numpy as jnp
@@ -331,7 +332,9 @@ def test_refusals_in_the_reference_words(shape, ranks):
         assert "storage='auto' resolves to paged" in str(
             r["refuse.auto_paged"])
         assert "single-device" in str(r["refuse.multirow"])
-        assert "11b-3" in str(r["refuse.state"])
+        # the state on a mesh round-trips since 11b-3 (ROADMAP D11)
+        assert str(r["refuse.state"]) == ""
+        assert bool(r["state.same"])
         # the sharded fused commit is in (11b-1): the pair commits
         assert str(r["commit.mode"]) == "fused"
 

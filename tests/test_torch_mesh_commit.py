@@ -511,6 +511,8 @@ def test_refusals_in_the_reference_words(shape, ranks):
         # lifecycle and drift on a mesh construct since item 11b-2
         for key in ("lifecycle", "anomaly", "sys_lifecycle", "sys_anomaly"):
             assert str(r[f"refuse.{key}"]) == "", key
+        # the state and crash recovery on a mesh since 11b-3 (D11)
         for key in ("agg_state", "wheel_state", "sys_recovery"):
-            assert "11b-3" in str(r[f"refuse.{key}"]), key
+            assert str(r[f"refuse.{key}"]) == "", key
+        assert int(r["sys_recovery.checkpoints"]) == 1
         assert "11c" in str(r["refuse.sys_paged"])

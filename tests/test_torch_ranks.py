@@ -22,6 +22,7 @@ import io
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -367,7 +368,11 @@ def _mesh_refusals(out, mesh):
         max_metrics=MESH_M, ingest_path="multirow"))
     agg = TorchAggregator(num_metrics=MESH_M, config=cfg, device="cpu",
                           mesh=mesh, on_registry_full="error")
-    out["refuse.state"] = _raises(agg.state_dict)
+    # the state round-trips on a mesh since 11b-3 (ROADMAP D11)
+    out["refuse.state"] = _raises(
+        lambda: agg.load_state_dict(agg.state_dict()))
+    out["state.same"] = np.array(_same_state(agg.state_dict(),
+                                             agg.state_dict()))
     from loghisto_tpu_torch.commit import IntervalCommitter
     from loghisto_tpu_torch.window.store import TimeWheel
 
@@ -1016,6 +1021,7 @@ def _mc_refusals(out, mesh) -> None:
                                                    LifecycleConfig())))
         out["refuse.anomaly"] = _raises(lambda: IntervalCommitter(
             agg, wheel, anomaly=AnomalyManager(agg, wheel, AnomalyConfig())))
+        # the state on a mesh since 11b-3 (ROADMAP D11)
         out["refuse.agg_state"] = _raises(agg.state_dict)
         out["refuse.wheel_state"] = _raises(wheel.state_dict)
         out["refuse.wheel_rows"] = _raises(lambda: TimeWheel(
@@ -1030,9 +1036,19 @@ def _mc_refusals(out, mesh) -> None:
         lifecycle=LifecycleConfig(), **kw).stop())
     out["refuse.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
         anomaly=AnomalyConfig(), **kw).stop())
-    out["refuse.sys_recovery"] = _raises(lambda: TorchMetricSystem(
-        resilience=ResilienceConfig(checkpoint_path="never-written.npz"),
-        **kw))
+    with tempfile.TemporaryDirectory() as d:
+        # crash recovery on a mesh since 11b-3: stop() checkpoints
+        ms = None
+
+        def recovering():
+            nonlocal ms
+            ms = TorchMetricSystem(resilience=ResilienceConfig(
+                checkpoint_path=os.path.join(d, "ck.npz")), **kw)
+            ms.stop()
+
+        out["refuse.sys_recovery"] = _raises(recovering)
+        out["sys_recovery.checkpoints"] = np.array(
+            ms.recovery.checkpoints_taken)
     out["refuse.sys_paged"] = _raises(lambda: TorchMetricSystem(
         storage="paged", **kw))
     odd = 2 * axis_size(mesh, METRIC_AXIS) + 1
@@ -1151,7 +1167,8 @@ def _put_carries(out, key, agg, wheel, lc=None, an=None) -> None:
     if an is not None:
         out[f"{key}.prof"] = an._prof.cpu().numpy().copy()
         out[f"{key}.wsum"] = an._wsum.cpu().numpy().copy()
-        out[f"{key}.ihist"] = an._ihist.cpu().numpy().copy()
+        if an._ihist is not None:  # none after a restore, as in JAX
+            out[f"{key}.ihist"] = an._ihist.cpu().numpy().copy()
         out[f"{key}.scored"] = np.array([an.scored_intervals,
                                          an.skipped_intervals])
         if an._scores is not None:
@@ -1288,9 +1305,27 @@ def _ml_system(out, mesh, inputs, s) -> None:
         ms.stop()
 
 
+def _same_state(a: dict, b: dict) -> bool:
+    """Two aggregator or wheel states hold the same values."""
+    if a.keys() != b.keys():
+        return False
+    for key, v in a.items():
+        w = b[key]
+        if isinstance(v, np.ndarray) or isinstance(w, np.ndarray):
+            if not np.array_equal(v, w):
+                return False
+        elif isinstance(v, list) and v and isinstance(v[0], np.ndarray):
+            if not all(np.array_equal(x, y) for x, y in zip(v, w)):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
 def _ml_refusals(out, mesh) -> None:
-    """The mesh's remaining refusals (checkpoints, journals and crash
-    recovery: item 11b-3)."""
+    """What item 11b-3 lifted on a mesh (ROADMAP D11): the aggregator's
+    and the wheel's state round trip, a system with a checkpoint path
+    and one with a journal path."""
     from loghisto_tpu_torch.config import MetricConfig
     from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
     from loghisto_tpu_torch.resilience import ResilienceConfig
@@ -1303,19 +1338,42 @@ def _ml_refusals(out, mesh) -> None:
     wheel = TimeWheel(num_metrics=ML_M, config=cfg, tiers=ML_TIERS,
                       registry=agg.registry, mesh=mesh)
     try:
-        out["refuse.agg_state"] = _raises(agg.state_dict)
-        out["refuse.agg_load"] = _raises(lambda: agg.load_state_dict({}))
-        out["refuse.wheel_state"] = _raises(wheel.state_dict)
-        out["refuse.wheel_load"] = _raises(lambda: wheel.load_state_dict({}))
+        states = []
+        out["refuse.agg_state"] = _raises(
+            lambda: states.append(agg.state_dict()))
+        out["refuse.agg_load"] = _raises(
+            lambda: agg.load_state_dict(states[0]))
+        out["refuse.wheel_state"] = _raises(
+            lambda: states.append(wheel.state_dict()))
+        out["refuse.wheel_load"] = _raises(
+            lambda: wheel.load_state_dict(states[1]))
+        out["state.same"] = np.array(
+            _same_state(states[0], agg.state_dict())
+            and _same_state(states[1], wheel.state_dict()))
     finally:
         agg.close()
     kw = dict(interval=1.0, sys_stats=False, num_metrics=ML_M, config=cfg,
               retention=ML_TIERS, mesh=mesh)
-    out["refuse.sys_checkpoint"] = _raises(lambda: TorchMetricSystem(
-        resilience=ResilienceConfig(checkpoint_path="never-written.npz"),
-        **kw))
-    out["refuse.sys_journal"] = _raises(lambda: TorchMetricSystem(
-        resilience=ResilienceConfig(journal_path="never-written.log"), **kw))
+    with tempfile.TemporaryDirectory() as d:
+        systems = []
+
+        def system(**res):
+            systems.append(TorchMetricSystem(
+                resilience=ResilienceConfig(**res), **kw))
+            if res.get("journal_path"):
+                systems[-1].recovery.start()
+                journal = systems[-1].recovery._journal
+                out["sys_journal.path"] = np.array(
+                    [] if journal is None else
+                    [os.path.basename(journal.path)], dtype=str)
+            systems[-1].stop()
+
+        out["refuse.sys_checkpoint"] = _raises(lambda: system(
+            checkpoint_path=os.path.join(d, "ck.npz")))
+        out["sys_checkpoint.taken"] = np.array(
+            systems[0].recovery.checkpoints_taken)
+        out["refuse.sys_journal"] = _raises(lambda: system(
+            journal_path=os.path.join(d, "j.log")))
 
 
 def _mesh_lifecycle_job(out, rank, arg, inputs):
@@ -1339,6 +1397,384 @@ def _mesh_lifecycle_job(out, rank, arg, inputs):
     _ml_refusals(out, mesh)
 
 
+# -- checkpoints and crash recovery across mesh shapes
+#    (tests/test_torch_mesh_recovery.py) ----------------------------------------
+MR_LAUNCHES = ("2x1,1x2", "2x2,4x1")  # (save mesh, target mesh) a launch
+MR_M = 16
+MR_BL = 256
+MR_TIERS = ((4, 1),)
+MR_NAMES = 12  # rows in both blocks of a two-way metric axis
+MR_SAVED = 6  # intervals committed before the save
+MR_OTHERS = 10  # names the growth target holds before its restore
+MR_GROW_MAX = 64
+MR_CRASH = 12  # intervals the crashed system drives by hand
+MR_EVERY = 8  # its checkpoint cadence: the watermark stands at 8
+MR_AFTER = 4  # intervals after the recovery
+MR_STREAM_ROWS = 4
+
+
+def mr_names(i: int = 0) -> list:
+    return [f"lat{k}" for k in range(MR_NAMES)]
+
+
+def mr_raw(raw_cls, inputs, rows, i):
+    """Interval i (seq i + 1) holding the merged cells of stream rows
+    ``rows``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        mc_raw(raw_cls, [(s, inputs[f"mr.{i}.{s}"]) for s in rows],
+               mr_names(), i), seq=i + 1)
+
+
+def mr_shapes(arg: str) -> list:
+    return [tuple(map(int, part.split("x"))) for part in arg.split(",")]
+
+
+def _mr_pipeline(mesh, m0=MR_M, max_metrics=None):
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+
+    return _ml_pipeline(mesh, m0, MR_TIERS, max_metrics=max_metrics,
+                        lifecycle=ml_lifecycle_config(LifecycleConfig),
+                        anomaly=ml_anomaly_config(AnomalyConfig))
+
+
+def _put_states(out, key, agg, wheel, lc, an) -> tuple:
+    """The gathered states (collectives; every rank returns the same),
+    recorded and returned."""
+    st, ws, lst, ast = (agg.state_dict(), wheel.state_dict(),
+                        lc.state_dict(), an.state_dict())
+    out[f"{key}.acc"] = st["acc"]
+    out[f"{key}.spill"] = (np.zeros(0, np.int64) if st["spill"] is None
+                           else st["spill"])
+    for t, ring in enumerate(ws["rings"]):
+        out[f"{key}.ring{t}"] = ring
+    out[f"{key}.la"] = lst["last_active"]
+    out[f"{key}.prof"], out[f"{key}.wsum"] = ast["prof"], ast["wsum"]
+    return st, ws, lst, ast
+
+
+def _mr_save(out, mesh, inputs, s, path):
+    """The lifecycle-drift pipeline on the saving mesh: MR_SAVED
+    intervals of row s, then ``checkpoint.save`` (a collective) and the
+    gathered states."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.utils import checkpoint
+
+    from loghisto_tpu_torch.parallel.mesh import (
+        collective_bytes,
+        reset_collective_bytes,
+    )
+
+    com, agg, wheel, lc, an = _mr_pipeline(mesh)
+    try:
+        for i in range(MR_SAVED):
+            com.commit(mr_raw(RawMetricSet, inputs, (s,), i))
+        reset_collective_bytes()
+        checkpoint.save(path, metric_system=_mr_host(s), aggregator=agg,
+                        lifecycle=lc, anomaly=an, seq_watermark=MR_SAVED)
+        out["save.sent"] = np.array(collective_bytes())
+        _put_carries(out, "save", agg, wheel, lc, an)
+        states = _put_states(out, "save.state", agg, wheel, lc, an)
+        # the save's gathers: to rank (0, 0) alone, the same state there
+        firsts = [part.state_dict(first_only=True) for part in (agg, lc, an)]
+        out["save.first_only"] = np.array([st is not None for st in firsts])
+        if firsts[0] is not None:
+            out["save.first_same"] = np.array([
+                np.array_equal(firsts[0]["acc"], states[0]["acc"]),
+                firsts[0]["names"] == states[0]["names"],
+                np.array_equal(firsts[1]["last_active"],
+                               states[2]["last_active"]),
+                np.array_equal(firsts[2]["prof"], states[3]["prof"]),
+                np.array_equal(firsts[2]["wsum"], states[3]["wsum"])])
+        put_metrics(out, "save.collect", agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+    return states
+
+
+def _mr_host(s):
+    """A host MetricSystem holding stream row s's lifetime stores: a
+    counter and a histogram recorded and folded (one collection)."""
+    from loghisto_tpu_torch.metrics import MetricSystem
+
+    ms = MetricSystem(interval=1.0, sys_stats=False)
+    ms.counter("req", 3 + s)
+    ms.counter(f"row{s}", 1)
+    for v in (1.0 + s, 10.0, 250.0):
+        ms.histogram("lat", v)
+    ms.collect_raw_metrics()
+    return ms
+
+
+def _put_host(out, key, ms) -> None:
+    with ms._store_lock:
+        put_metrics(out, f"{key}.counters", {
+            k: float(v) for k, v in ms._counter_store.items()})
+        put_metrics(out, f"{key}.hist", {
+            f"{k}.{i}": float(x) for k, e in ms._histogram_agg_store.items()
+            for i, x in enumerate(e)})
+
+
+def _mr_restore(out, mesh, inputs, s, key, path, grow=False):
+    """A fresh pipeline on ``mesh`` and a fresh host MetricSystem restore
+    ``path`` (a collective), then commit one more interval; with
+    ``grow`` it holds MR_OTHERS names first and may grow to MR_GROW_MAX
+    rows."""
+    from loghisto_tpu_torch.metrics import MetricSystem, RawMetricSet
+    from loghisto_tpu_torch.utils import checkpoint
+
+    com, agg, wheel, lc, an = _mr_pipeline(
+        mesh, max_metrics=MR_GROW_MAX if grow else None)
+    host = MetricSystem(interval=1.0, sys_stats=False)
+    try:
+        if grow:
+            for k in range(MR_OTHERS):
+                agg._id_for(f"other{k}")
+        out[f"{key}.watermark"] = np.array(checkpoint.restore(
+            path, metric_system=host, aggregator=agg, lifecycle=lc,
+            anomaly=an))
+        _put_host(out, key, host)
+        _put_carries(out, key, agg, wheel, lc, an)
+        put_metrics(out, f"{key}.collect", agg.collect(reset=False).metrics)
+        out[f"{key}.mode"] = np.array(com.commit(mr_raw(
+            RawMetricSet, inputs, (s,), MR_SAVED)))
+    finally:
+        agg.close()
+
+
+def _mr_load(out, mesh, states) -> None:
+    """The saving mesh's gathered states loaded onto ``mesh``: every
+    rank's blocks."""
+    st, ws, lst, ast = states
+    com, agg, wheel, lc, an = _mr_pipeline(mesh)
+    try:
+        agg.load_state_dict(st)
+        wheel.load_state_dict(ws)
+        lc.load_state(lst)
+        an.load_state(ast)
+        _put_carries(out, "load", agg, wheel, lc, an)
+        put_metrics(out, "load.collect", agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+
+
+def _mr_load_jax(out, mesh, path) -> None:
+    """The JAX 2x4 pipeline's states, carried across by ``state.py``
+    (``state_from_jax``, ``wheel_state_from_jax``,
+    ``lifecycle_state_from_jax``, ``anomaly_state_from_jax``; pickled by
+    the test process), loaded onto ``mesh``."""
+    import pickle
+
+    with open(path, "rb") as f:
+        st, ws, lst, ast = pickle.load(f)
+    com, agg, wheel, lc, an = _mr_pipeline(mesh)
+    try:
+        agg.load_state_dict(st)
+        wheel.load_state_dict(ws)
+        lc.load_state(lst)
+        an.load_state(ast)
+        _put_carries(out, "jaxstate", agg, wheel, lc, an)
+        put_metrics(out, "jaxstate.collect",
+                    agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+
+
+def _mr_faults(out, mesh, rank, path) -> None:
+    """``checkpoint_now`` with a fault at "checkpoint.write", then at
+    "checkpoint.rename", planned on rank (0, 0) alone: every rank
+    reports the failure, counts it and keeps making the same
+    collectives; the previous file stays; the next checkpoint lands."""
+    from loghisto_tpu_torch.resilience import FaultInjector, RecoveryManager
+
+    com, agg, wheel, lc, an = _mr_pipeline(mesh)
+    inj = FaultInjector()
+    if rank == 0:
+        inj.plan("checkpoint.write", on_call=2)
+        inj.plan("checkpoint.rename", on_call=2)
+    rec = RecoveryManager(None, aggregator=agg, committer=com, lifecycle=lc,
+                          anomaly=an, checkpoint_path=path,
+                          fault_injector=inj)
+    try:
+        got, sizes = [], []
+        for k in range(4):
+            rec.last_seq = k + 1
+            got.append(rec.checkpoint_now())
+            with open(path, "rb") as f:
+                sizes.append(len(f.read()))
+            if k == 0:
+                with open(path, "rb") as f:
+                    first = f.read()
+            if k == 2:
+                with open(path, "rb") as f:
+                    out["faults.kept"] = np.array(f.read() == first)
+        out["faults.ok"] = np.array(got)
+        out["faults.counts"] = np.array([rec.checkpoints_taken,
+                                         rec.checkpoint_errors,
+                                         rec.last_checkpoint_seq])
+        # a watermark one rank has not committed is refused everywhere
+        rec.last_seq = 9 + rank
+        out["faults.split_watermark"] = np.array(rec.checkpoint_now())
+        out["faults.errors"] = np.array(rec.checkpoint_errors)
+    finally:
+        agg.close()
+
+
+def _mr_system(mesh, path_ck, path_jl, recover_on_start=False):
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    return TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MR_M,
+        config=MetricConfig(bucket_limit=MR_BL), retention=MR_TIERS,
+        mesh=mesh, lifecycle=ml_lifecycle_config(LifecycleConfig),
+        anomaly=ml_anomaly_config(AnomalyConfig),
+        resilience=ResilienceConfig(
+            checkpoint_path=path_ck, journal_path=path_jl,
+            checkpoint_every_intervals=MR_EVERY,
+            recover_on_start=recover_on_start))
+
+
+def _mr_crash(out, mesh, inputs, s, path_ck, path_jl,
+              key: str = "crash") -> None:
+    """TorchMetricSystem(mesh=, lifecycle=, anomaly=, resilience=) drives
+    MR_CRASH intervals of row s by hand (broadcast to its subscribers:
+    the row's journal and the committer's queue; one collective drain
+    commits them, the cadence checkpointing at MR_EVERY), then crashes:
+    no stop(), no final checkpoint, its journal closed as a killed
+    process closes it."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import (
+        METRIC_AXIS,
+        agreed,
+        axis_index,
+    )
+    from loghisto_tpu_torch.utils.journal import row_journals
+
+    ms = _mr_system(mesh, path_ck, path_jl)
+    ms.recovery.start()  # the row's journal, without the reaper
+    ms._update_subscribers()
+    for i in range(MR_CRASH):
+        with ms._subscribers_lock:
+            ms._broadcast(ms._raw_subscribers,
+                          mr_raw(RawMetricSet, inputs, (s,), i))
+    end = time.monotonic() + 30.0
+    journal = ms.recovery._journal
+    while ms.committer.queued_intervals < MR_CRASH or (
+            journal is not None and _lines(journal.path) < MR_CRASH):
+        if time.monotonic() > end:
+            raise AssertionError("the intervals were not queued and "
+                                 "journaled")
+        time.sleep(0.01)
+    out[f"{key}.committed"] = np.array(ms.committer.drain())
+    out[f"{key}.checkpoints"] = np.array(
+        [ms.recovery.checkpoints_taken, ms.recovery.last_checkpoint_seq,
+         ms.recovery.last_seq])
+    out[f"{key}.journal"] = np.array(
+        [] if journal is None else [journal.path], dtype=str)
+    out[f"{key}.metric_index"] = np.array(axis_index(mesh, METRIC_AXIS))
+    journal.stop() if journal is not None else None
+    ms.committer.detach()
+    ms.aggregator.close()
+    agreed(mesh, True)  # every row's journal is whole
+    files = row_journals(path_jl)
+    out[f"{key}.files"] = np.array([os.path.basename(f) for _, _, f in files],
+                                  dtype=str)
+    if dist.get_rank() == 0:  # the files as the crash left them
+        keep = os.path.join(os.path.dirname(path_ck), "crash")
+        os.makedirs(keep)
+        for f in [path_ck] + [f for _, _, f in files]:
+            shutil.copy(f, keep)
+
+
+def _lines(path) -> int:
+    try:
+        with open(path) as f:
+            return sum(1 for line in f if line.strip())
+    except OSError:
+        return 0
+
+
+def _mr_recover(out, mesh, inputs, s, path_ck, path_jl, saved_rows) -> None:
+    """A fresh system on another mesh recovers (a collective), then takes
+    MR_AFTER intervals through backfill_retention: row s those of the
+    saved rows j with j % rows == s, as the replay merges them."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_size
+
+    n = axis_size(mesh, STREAM_AXIS)
+    mine = [j for j in range(saved_rows) if j % n == s]
+    ms = _mr_system(mesh, path_ck, path_jl)
+    try:
+        rep = ms.recover()
+        out["recover.report"] = np.array(
+            [-1 if rep.watermark is None else rep.watermark,
+             rep.replayed_intervals, rep.skipped_intervals,
+             int(rep.checkpoint_found), int(rep.journal_found)])
+        out["recover.seq_next"] = np.array(next(ms._interval_seq))
+        ms.backfill_retention([mr_raw(RawMetricSet, inputs, mine, i)
+                               for i in range(MR_CRASH,
+                                              MR_CRASH + MR_AFTER)])
+        _put_carries(out, "recover", ms.aggregator, ms.retention,
+                     ms.lifecycle, ms.anomaly)
+        put_metrics(out, "recover.collect",
+                    ms.aggregator.collect(reset=False).metrics)
+        dump = ms.debug_dump()
+        out["recover.dump"] = np.array(sorted(dump["resilience"]), dtype=str)
+    finally:
+        ms.stop()
+    out["recover.final"] = np.array([ms.recovery.checkpoints_taken,
+                                     ms.recovery.checkpoint_errors])
+
+
+def _mesh_recovery_job(out, rank, arg, inputs):
+    """Every scenario of one launch: the save on the first mesh of
+    ``arg``, its restore onto the second and onto the first, the JAX
+    mesh save onto both, the gathered states loaded onto the second, a
+    restore that grows the registry, the faults, the crash on the first
+    mesh and its recovery onto the second, and where the second has one
+    stream row a crash on it."""
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_index
+    from loghisto_tpu_torch.parallel.mesh import make_mesh
+
+    d = str(inputs["mr.dir"])
+    (s0, m0), (s1, m1) = mr_shapes(arg)
+    src = make_mesh(s0, m0, device="cpu")
+    dst = make_mesh(s1, m1, device="cpu")
+    a, b = axis_index(src, STREAM_AXIS), axis_index(dst, STREAM_AXIS)
+    out["coord.src"] = np.array(src.get_coordinate())
+    out["coord.dst"] = np.array(dst.get_coordinate())
+    port = os.path.join(d, "port.npz")
+    states = _mr_save(out, src, inputs, a, port)
+    _mr_restore(out, dst, inputs, b, "restore", port)
+    _mr_restore(out, src, inputs, a, "same", port)
+    jax_file = os.path.join(d, "jax.npz")
+    _mr_restore(out, dst, inputs, b, "jax", jax_file)
+    _mr_restore(out, src, inputs, a, "jax_src", jax_file)
+    _mr_load(out, dst, states)
+    _mr_load_jax(out, dst, os.path.join(d, "jax_state.pkl"))
+    _mr_restore(out, dst, inputs, b, "grow", port, grow=True)
+    _mr_faults(out, dst, rank, os.path.join(d, "faults.npz"))
+    path_ck, path_jl = os.path.join(d, "ck.npz"), os.path.join(d, "jl.log")
+    _mr_crash(out, src, inputs, a, path_ck, path_jl)
+    _mr_recover(out, dst, inputs, b, path_ck, path_jl, s0)
+    if s1 == 1:
+        # a crash on a mesh of one stream row, for one device to recover
+        one = os.path.join(d, "onerow")
+        os.makedirs(one, exist_ok=True)
+        _mr_crash(out, dst, inputs, b, os.path.join(one, "ck.npz"),
+                  os.path.join(one, "jl.log"), key="onerow")
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
@@ -1347,6 +1783,7 @@ JOBS = {
     "sketches": _sketches_job,
     "mesh_commit": _mesh_commit_job,
     "mesh_lifecycle": _mesh_lifecycle_job,
+    "mesh_recovery": _mesh_recovery_job,
     "selftest": _selftest_job,
 }
 
