@@ -7960,6 +7960,370 @@ def _mf_part(torch, tmp, root):
     return out
 
 
+# (g) paged storage on the mesh (ROADMAP D12, item 11c-1): paged_lifecycle_
+# main_path's sizes (PL_M rows, a PL_POOL-page arena a shard, 1 GiB a rank,
+# PL_TIERS) through TorchMetricSystem(mesh=, storage="paged"), MP_INTERVALS
+# intervals of PL_SAMPLES Zipf(1.3) / lognormal samples a stream row, and
+# TorchAggregator(mesh=, storage="paged") on the raw (K4f) and sparse (K4)
+# transports, MP_AGG_BATCHES batches of MP_AGG_BATCH samples a row; on the
+# (1, 1) world and on both meshes of the two gloo ranks, against the
+# single-device store fed the merged intervals and the global batches.
+MP_INTERVALS = 3
+MP_AGG_BATCH = 1 << 16
+MP_AGG_BATCHES = PL_SAMPLES // MP_AGG_BATCH
+MP_QUERIES = ("mp12*", "mp3")
+MP_SAMPLED = np.unique(np.concatenate([
+    np.arange(PL_SAMPLED // 2),
+    np.linspace(0, PL_M - 1, PL_SAMPLED // 2).astype(np.int64)]))
+MP_KERNELS = ("paged_scatter", "fused_paged_ingest", "sparse_ingest",
+              "window_merge")
+
+
+def _mp_names():
+    return [f"mp{i}" for i in range(PL_M)]
+
+
+def _mp_raw(k, rows):
+    """Interval k of the stream rows ``rows``: each row's PL_SAMPLES
+    samples (its own seed), as the rows' intervals merged in row order
+    (``merge_raw_metric_sets``), seq k + 1."""
+    from loghisto_tpu_torch.metrics import RawMetricSet, merge_raw_metric_sets
+    from loghisto_tpu_torch.ops.fold import compress_np_host
+
+    merged = None
+    for s in rows:
+        rng = np.random.default_rng([SEED, 80, k, s])
+        ids = zipf_ids(rng, PL_SAMPLES, PL_M).astype(np.int64)
+        buckets = np.clip(compress_np_host(lognormal_values(
+            rng, PL_SAMPLES)), -BL, BL).astype(np.int64)
+        uniq, first, counts = np.unique(ids * PL_KEY + buckets + BL,
+                                        return_index=True,
+                                        return_counts=True)
+        # in order of first appearance, as a host MetricSystem's dicts
+        order = np.argsort(first, kind="stable")
+        uniq, counts = uniq[order], counts[order]
+        hists = {}
+        for key, c in zip(uniq.tolist(), counts.tolist()):
+            hists.setdefault(f"mp{key // PL_KEY}", {})[
+                key % PL_KEY - BL] = c
+        raw = RawMetricSet(time=_dt.datetime(2026, 1, 1,
+                                             tzinfo=_dt.timezone.utc)
+                           + k * _ONE_SECOND, counters={}, rates={},
+                           histograms=hists, gauges={}, duration=1.0,
+                           seq=k + 1)
+        merged = raw if merged is None else merge_raw_metric_sets(merged,
+                                                                  raw)
+    return merged
+
+
+def _mp_batch(k, s):
+    """Row s's aggregator batch k."""
+    rng = np.random.default_rng([SEED, 81, k, s])
+    return (zipf_ids(rng, MP_AGG_BATCH, PL_M),
+            lognormal_values(rng, MP_AGG_BATCH))
+
+
+def _mp_system(mesh=None):
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=PL_M, storage="paged",
+        paged_config=PagedStoreConfig(pool_pages=PL_POOL),
+        retention=PL_TIERS, mesh=mesh)
+    for name in _mp_names():
+        ms.metric_id(name)
+    return ms
+
+
+def _mp_aggregator(transport, batch, mesh=None):
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(
+        num_metrics=PL_M, storage="paged", transport=transport,
+        paged_config=PagedStoreConfig(pool_pages=PL_POOL), batch_size=batch,
+        max_metrics=PL_M, mesh=mesh)
+    for name in _mp_names():
+        agg.registry.id_for(name)
+    return agg
+
+
+def _mp_host_digest(store):
+    """sha256 of the host half: page table, codecs, every free list."""
+    import hashlib
+
+    h = hashlib.sha256(store.page_table.tobytes())
+    h.update(store.row_codec.tobytes())
+    for f in store.free_lists():
+        h.update(np.asarray(f, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def _mp_store_figures(torch, store):
+    """The store's digests and its block's sampled rows' decoded cells
+    (sorted row * B + dense bucket keys and counts)."""
+    rows = MP_SAMPLED[store._in_block(MP_SAMPLED)]
+    r, idx, counts = store._row_cells(rows)
+    keys, cnt = _pl_sum_keys(r * B + idx, counts)
+    return {"host": _mp_host_digest(store), "arena": _ms_digest(store._pool),
+            "sampled_keys": keys.tolist(), "sampled_counts": cnt.tolist(),
+            "occupancy": store.shard_occupancy(),
+            "allocated": int(store.allocated_pages),
+            "block": [store._row0, store.rows_per_shard]}
+
+
+def _mp_served(ms):
+    return {q: {n: e for n, e in sorted(
+        ms.query(q, percentiles=PL_PS).metrics.items())} for q in MP_QUERIES}
+
+
+def _mp_kernels_equal_plain(torch, store, rng):
+    """K4 and K4f on the rank's arena against their plain versions on
+    the same inputs (clones of the arena): translated triples over its
+    mapped pages, and a Zipf batch of its block's rows.  Returns the
+    largest absolute difference (0 required)."""
+    from loghisto_tpu_torch.ops.fused_ingest import (
+        fused_paged_ingest_batch,
+        fused_paged_ingest_reference,
+    )
+    from loghisto_tpu_torch.ops.paged_store import (
+        paged_scatter,
+        paged_scatter_batch,
+    )
+
+    dev = store.device
+    block = store.page_table[store._row0:store._row0 + store.rows_per_shard]
+    # the block's rows map pages of the rank's arena: its slots
+    slots = block[block >= 0] - store._shard * store.shard_pages
+    n = 1 << 20
+    trip = np.empty((n, 3), np.int32)
+    trip[:, 0] = rng.choice(slots, n)
+    trip[:, 1] = rng.integers(0, 256, n)
+    trip[:, 2] = rng.integers(1, 100, n)
+    trip = torch.from_numpy(trip).to(dev)
+    err = 0
+    a, p = store._pool.clone(), store._pool.clone()
+    paged_scatter(a, trip)
+    paged_scatter_batch(p, trip)
+    err = max(err, int((a - p).abs().max()))
+    del a, p
+    # the block's local ids (what ingest_raw hands K4f on a mesh)
+    ids = torch.from_numpy(zipf_ids(rng, n, store.rows_per_shard)).to(dev)
+    vals = torch.from_numpy(lognormal_values(rng, n)).to(dev)
+    luts = store.device_luts()
+    a, p = store._pool.clone(), store._pool.clone()
+    fused_paged_ingest_batch(a, ids, vals, *luts, BL)
+    fused_paged_ingest_reference(p, ids, vals, *luts, BL)
+    err = max(err, int((a - p).abs().max()))
+    del a, p
+    torch.cuda.synchronize()
+    return err
+
+
+def _mp_timed(module, name, sink, key):
+    """``module.name`` wrapped so that each call ADDS its seconds (the
+    card synchronised around it) to ``sink[key]``; returns the original,
+    to put back."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            sink[key] = sink.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    return orig
+
+
+def _mp_run(torch, mesh, rows):
+    """Part (g) on one rank (or one device, ``mesh`` None, ``rows`` the
+    stream rows it takes merged): the system's MP_INTERVALS intervals
+    and the aggregator's raw and sparse runs, with the kernel counts set
+    to 0 before and read after; each store's figures, the served
+    queries, the collected sets' digests, the seconds of the gathers and
+    the translates, the bytes this rank sent and K4 / K4f against their
+    plain versions."""
+    import hashlib
+
+    from loghisto_tpu_torch import commit as commit_mod
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.paging import PagedStore
+    from loghisto_tpu_torch.parallel import aggregator as agg_mod
+    from loghisto_tpu_torch.parallel import mesh as mesh_mod
+    from loghisto_tpu_torch.parallel.mesh import (
+        collective_bytes,
+        reset_collective_bytes,
+    )
+
+    times: dict = {}
+    wrapped = [(mod, name, _mp_timed(mod, name, times, key))
+               for mod, name, key in (
+                   (commit_mod, "all_gather_objects", "gather_s"),
+                   (mesh_mod, "gather_rows", "gather_s"),
+                   (agg_mod, "gather_parts", "gather_s"),
+                   (PagedStore, "translate", "translate_s"),
+                   (PagedStore, "prepare_batch", "translate_s"))]
+    # a failed commit step or aggregator launch recovers (D6, the exact
+    # host spill) and would hide here: count every call of either handler
+    failures = []
+    for cls, name in ((commit_mod.IntervalCommitter,
+                       "_on_fused_failure_locked"),
+                      (agg_mod.TorchAggregator, "_on_device_failure_locked")):
+        def failed(self, *a, _orig=getattr(cls, name), _name=name, **kw):
+            failures.append(f"{_name}: {sys.exc_info()[1]!r}")
+            return _orig(self, *a, **kw)
+
+        wrapped.append((cls, name, getattr(cls, name)))
+        setattr(cls, name, failed)
+    # the card is shared with the other rank: give back what earlier parts
+    # left in this process's cache first
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rows": list(rows),
+           "free_gb_at_start": torch.cuda.mem_get_info()[0] / 2**30}
+    launched = collections.Counter()
+    try:
+        reset_collective_bytes()
+        ms = _mp_system(mesh)
+        try:
+            raws = [_mp_raw(k, rows) for k in range(MP_INTERVALS)] \
+                if mesh is None else \
+                [_mp_raw(k, (mesh.get_coordinate()[0],))
+                 for k in range(MP_INTERVALS)]
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            ms.backfill_retention(raws)
+            served = _mp_served(ms)
+            torch.cuda.synchronize()
+            out["system_s"] = time.perf_counter() - t0
+            launched.update(kernel_launches())
+            if ms.committer.fused_intervals != MP_INTERVALS:
+                raise AssertionError("part (g) did not commit fused")
+            out["system"] = _mp_store_figures(torch, ms.aggregator.paged)
+            out["served"] = served
+            out["query_fallbacks"] = ms.retention.query_fallbacks
+            out["max_abs_err"] = _mp_kernels_equal_plain(
+                torch, ms.aggregator.paged,
+                np.random.default_rng([SEED, 82]))
+        finally:
+            _drop_system(torch, ms)
+        batch = MP_AGG_BATCH * (len(rows) if mesh is None else 1)
+        for transport in ("raw", "sparse"):
+            agg = _mp_aggregator(transport, batch, mesh)
+            try:
+                torch.cuda.synchronize()
+                reset_kernel_launches()
+                t0 = time.perf_counter()
+                for k in range(MP_AGG_BATCHES):
+                    if mesh is None:
+                        parts = [_mp_batch(k, s) for s in rows]
+                        agg.record_batch(np.concatenate([i for i, _ in parts]),
+                                         np.concatenate([v for _, v in parts]))
+                        agg.flush(force=True)
+                    else:
+                        agg.record_batch(*_mp_batch(
+                            k, mesh.get_coordinate()[0]))
+                metrics = agg.collect().metrics
+                torch.cuda.synchronize()
+                out[f"{transport}_s"] = time.perf_counter() - t0
+                launched.update(kernel_launches())
+                out[transport] = hashlib.sha256(json.dumps(
+                    metrics, sort_keys=True).encode()).hexdigest()
+                out[f"{transport}_path"] = agg.ingest_path
+                out[f"{transport}_host"] = _mp_host_digest(agg.paged)
+                if agg.paged._n_shards == 1:  # compared with one device's
+                    out[f"{transport}_arena"] = _ms_digest(agg.paged._pool)
+            finally:
+                agg.close()
+                agg.paged._pool = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        out["sent_bytes"] = collective_bytes()
+    finally:
+        for mod, name, orig in wrapped:
+            setattr(mod, name, orig)
+    out.update(times)
+    out["failures"] = failures
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = {k: launched[k] for k in MP_KERNELS}
+    return out
+
+
+def _mp_oracles(torch):
+    """Part (g)'s single-device runs on the card: for (2, 1) stream rows
+    0 and 1 merged, for (1, 1) and (1, 2) row 0."""
+    return {rows: _mp_run(torch, None, rows) for rows in ((0, 1), (0,))}
+
+
+def _mp_check(got, oracle, n_metric, what):
+    """A rank's part (g) against the single-device oracle: the sampled
+    rows of its block, the served queries and the collected sets always;
+    the arenas and the host halves (the system's, the raw and the sparse
+    aggregator's) where the mesh has one metric shard (its arena is then
+    the single-device pool); K4 and K4f equal their plain versions; no
+    failure handler called; the path's four kernels launched."""
+    sys_got, sys_want = got["system"], oracle["system"]
+    keys = np.asarray(sys_got["sampled_keys"], np.int64)
+    mine = np.isin(keys // B, MP_SAMPLED)
+    want_keys = np.asarray(sys_want["sampled_keys"], np.int64)
+    if n_metric == 1:
+        for key in ("host", "arena"):
+            if sys_got[key] != sys_want[key]:
+                raise AssertionError(f"{what}: the {key} digest differs "
+                                     "from one device's")
+        for transport in ("raw", "sparse"):
+            for key in ("host", "arena"):
+                if (got[f"{transport}_{key}"]
+                        != oracle[f"{transport}_{key}"]):
+                    raise AssertionError(f"{what}: {transport} {key} "
+                                         "digest differs from one "
+                                         "device's")
+    lo, n = sys_got["block"]
+    sel = (want_keys // B >= lo) & (want_keys // B < lo + n)
+    if not (mine.all() and len(keys) and
+            np.array_equal(keys, want_keys[sel]) and
+            sys_got["sampled_counts"] == np.asarray(
+                sys_want["sampled_counts"])[sel].tolist()):
+        raise AssertionError(f"{what}: the sampled rows differ")
+    for q in MP_QUERIES:
+        _mc_same_served(got["served"][q], oracle["served"][q],
+                        f"{what} query {q}")
+    for transport in ("raw", "sparse"):
+        if got[transport] != oracle[transport]:
+            raise AssertionError(f"{what}: the {transport} collected set "
+                                 "differs from one device's")
+    if got["max_abs_err"] != 0:
+        raise AssertionError(f"{what}: K4 or K4f differs from its plain "
+                             "version")
+    if got["failures"] or got["query_fallbacks"]:
+        raise AssertionError(f"{what}: failed steps or launches "
+                             f"{got['failures'][:2]}, query fallbacks "
+                             f"{got['query_fallbacks']}")
+    for kernel in MP_KERNELS:
+        if got["launches"][kernel] <= 0:
+            raise AssertionError(f"{what}: {kernel} was not launched")
+    if got["raw_path"] != "fused_paged" or got["sparse_path"] != "packed":
+        raise AssertionError(f"{what}: paths {got['raw_path']}, "
+                             f"{got['sparse_path']}")
+    return {k: got[k] for k in ("launches", "system_s", "raw_s", "sparse_s",
+                                "sent_bytes", "gather_s", "translate_s",
+                                "max_abs_err", "peak_gb", "free_gb_at_start")
+            if k in got} | {
+        "occupancy": sys_got["occupancy"]}
+
+
 def _ms_child(argv):
     """One rank of part (b): both meshes of two ranks, raw and sparse;
     prints one JSON line of digests, times and launches, and writes each
@@ -8034,6 +8398,11 @@ def _ms_child(argv):
                     tmp, f"{shape[0]}x{shape[1]}-lifecycle-{rank}.json"),
                     "w") as f:
                 json.dump(life, f)
+            paged = _mp_run(torch, mesh, (s,))
+            with open(os.path.join(
+                    tmp, f"{shape[0]}x{shape[1]}-paged-{rank}.json"),
+                    "w") as f:
+                json.dump(paged, f)
     finally:
         multihost.shutdown()
     print(json.dumps(out), flush=True)
@@ -8218,6 +8587,11 @@ def phase_mesh(torch):
         t_oracle = time.perf_counter()
         ml_oracles = _ml_oracles(torch)
         out["lifecycle_oracle_s"] = time.perf_counter() - t_oracle
+        t_oracle = time.perf_counter()
+        mp_oracles = _mp_oracles(torch)
+        out["paged_oracle"] = {
+            "s": time.perf_counter() - t_oracle,
+            "launches": {str(k): v["launches"] for k, v in mp_oracles.items()}}
         multihost.initialize(f"file://{tmp}/rdzv1", 1, 0, timeout_s=120.0)
         try:
             mesh, out["world1"] = _ms_world1(torch, batches, acc16, want16)
@@ -8240,6 +8614,15 @@ def phase_mesh(torch):
                                      + life["launches"][kernel])
                 entry.setdefault("mesh_launches_per_rank", {})["1x1"] = [
                     life["launches"][kernel]]
+            t_paged = time.perf_counter()
+            paged = _mp_check(_mp_run(torch, mesh, (0,)), mp_oracles[(0,)],
+                              1, "1x1 paged")
+            out["paged_1x1"] = {**paged, "s": time.perf_counter() - t_paged}
+            # K4 / K4f's "launches" stay paged_main_path's own count
+            for kernel in MP_KERNELS:
+                entry = RESULTS.setdefault(kernel, {})
+                entry.setdefault("mesh_launches_per_rank", {})[
+                    "paged 1x1"] = [paged["launches"][kernel]]
         finally:
             multihost.shutdown()
         del acc8, acc16, batches
@@ -8312,6 +8695,23 @@ def phase_mesh(torch):
                 RESULTS[kernel]["mesh_launches_per_rank"][key] = [
                     c["launches"][kernel] for c in checked]
             out[f"lifecycle_{key}"] = checked
+            checked, hosts = [], set()
+            for r in ranks:
+                with open(os.path.join(
+                        tmp, f"{key}-paged-{r['rank']}.json")) as f:
+                    got = json.load(f)
+                hosts.add((got["system"]["host"], got["raw_host"],
+                           got["sparse_host"]))
+                checked.append(_mp_check(
+                    got, mp_oracles[stream_rows], shape[1],
+                    f"{key} paged rank {r['rank']}"))
+            if len(hosts) != 1:
+                raise AssertionError(f"{key} paged: the ranks' host halves "
+                                     "differ")
+            for kernel in MP_KERNELS:
+                RESULTS[kernel]["mesh_launches_per_rank"][f"paged {key}"] = [
+                    c["launches"][kernel] for c in checked]
+            out[f"paged_{key}"] = checked
         t_f = time.perf_counter()
         out["recovery"] = _mf_part(torch, tmp, root)
         out["recovery"]["s"] = time.perf_counter() - t_f
@@ -8338,7 +8738,8 @@ def kernels_line():
         if also:
             entry["also_replaces"] = also
         if "mesh_launches_per_rank" in r:
-            # mesh_main_path's part (e): launches of each rank, by mesh
+            # mesh_main_path's parts (e) and (g): launches of each rank,
+            # by mesh
             entry["mesh_launches_per_rank"] = r["mesh_launches_per_rank"]
         if "recovery_launches_per_rank" in r:
             # part (f): each recovered rank's launches in its replay

@@ -1,7 +1,7 @@
 """IntervalCommitter: one subscription that lands every interval on the
 aggregator and on every retention tier (counterpart of
 ``loghisto_tpu/commit.py``, for a single-device pair on dense or paged
-storage, and for one rank of a mesh on dense storage).
+storage, and for one rank of a mesh on dense or paged storage).
 
 The fan-out path resolves an interval's names twice and uploads its
 cells twice (the aggregator's bridge, ``merge_raw``, and the wheel's,
@@ -99,6 +99,21 @@ a commit are collectives too (``AnomalyManager.score_now``,
 ``LifecycleManager.check``, ``evict_ids`` and ``compact``), run on the
 same thread in the same order on every rank.
 
+On paged storage on a mesh (ROADMAP D12, item 11c-1) a translate
+chooses codecs and maps pages from the cells it is given, so every rank
+commits the MERGED interval: the stream rows' histograms are gathered
+once an interval (one ``all_gather_object`` of the stream line) and
+merged in stream order as ``merge_raw_metric_sets`` merges them, the
+registry's growth is laid out, the aggregator's staged batches land,
+and then every rank chunks and translates the same cells, as the
+reference's one controller does, and runs one step of
+``make_paged_fused_commit_fn`` a chunk on its arena's triples (arena
+slots) and its ring blocks' cells (block ids): K4, one K3, K5 views
+last.  The steps make no collective.  A failed step spills the rank's own arena's triples;
+the fan-out (an open breaker on any rank, or the int32 envelope, which
+every rank counts alike) merges the cells on every rank and pushes them
+to the wheel from stream index 0 alone.
+
 Resilience, installed by ``TorchMetricSystem(resilience=...)``: an open
 ``breaker`` pins the fan-out path (the aggregator's ``_merge_cells_locked``
 and the wheel's push, K3 on the card) until a half-open trial commit
@@ -127,6 +142,7 @@ from loghisto_tpu_torch.metrics import (
     MetricSystem,
     RawMetricSet,
     empty_interval,
+    merge_raw_metric_sets,
 )
 from loghisto_tpu_torch.obs.spans import NULL_RECORDER, LatencyHistogram
 from loghisto_tpu_torch.ops.commit import (
@@ -143,8 +159,10 @@ from loghisto_tpu_torch.ops.commit import (
 from loghisto_tpu_torch.parallel.mesh import (
     STREAM_AXIS,
     IntervalQueue,
+    all_gather_objects,
     axis_size,
     gather_triples,
+    is_stream_lead,
     mesh_reduce,
     pad_triples,
 )
@@ -266,6 +284,7 @@ class IntervalCommitter:
                     f"stream axis ({n_stream}): staged cell chunks always "
                     "pad to the full width, which must split evenly"
                 )
+        if self.mesh is not None and self.paged is None:
             # a rank stages its stream row's share of each chunk
             width = self.chunk // n_stream
             self._fused = make_sharded_fused_commit_fn(
@@ -274,6 +293,8 @@ class IntervalCommitter:
                 self.mesh, tiers_n, bl, prec, track_activity=track,
                 track_baseline=track_b)
         elif self.paged is not None:
+            # on a mesh too (D12): every rank commits the merged
+            # interval's chunks, cut to its arena and its ring blocks
             self._fused = make_paged_fused_commit_fn(tiers_n, bl, track)
             self._fused_snap = make_paged_fused_commit_snapshot_fn(
                 tiers_n, bl, prec, track_activity=track)
@@ -357,6 +378,21 @@ class IntervalCommitter:
         return np.concatenate(ids), np.concatenate(bidx), \
             np.concatenate(weights)
 
+    def _merged_interval(self, raw: RawMetricSet) -> RawMetricSet:
+        """D12, on a paged mesh: the global interval's histograms, the
+        stream rows' intervals merged in stream order as
+        ``merge_raw_metric_sets(row 0, row 1, ...)`` merges them (names
+        and buckets in order of first appearance), so every rank chunks
+        and translates the same cells in the reference's order.  One
+        ``all_gather_object`` of the stream line."""
+        merged = None
+        for hists in all_gather_objects(self.mesh, raw.histograms):
+            part = RawMetricSet(time=raw.time, counters={}, rates={},
+                                histograms=hists, gauges={})
+            merged = part if merged is None else merge_raw_metric_sets(
+                merged, part)
+        return merged
+
     def _dense_cells(self, cells):
         """(ids, codec bucket, int64 weight) -> the wheel's dense int32
         triplet (the same conversion as ``TimeWheel._cells_from_raw``:
@@ -411,7 +447,10 @@ class IntervalCommitter:
         up0 = self._staging.uploads
         b0 = self._staging.bytes_uploaded
         with rec.span("commit.cells", seq):
-            cells = self._cells_from_raw(raw)
+            if self.mesh is not None and self.paged is not None:
+                cells = self._cells_from_raw(self._merged_interval(raw))
+            else:
+                cells = self._cells_from_raw(raw)
         when = raw.time
         if self.mesh is not None:
             mode, dispatches, when = self._commit_cells_mesh(cells, raw, dur)
@@ -520,20 +559,24 @@ class IntervalCommitter:
         ])
 
     def _fused_dispatch_locked(self, cells, raw: RawMetricSet,
-                               dur: float) -> int:
+                               dur: float, note: bool = True) -> int:
         """The fused path (caller holds agg._dev_lock, then
         wheel._lock): stage each chunk (on paged storage, translate it
-        against the page table and stage its triples too), run one commit
-        step on it — the first with the ring-wrap keep factors, the last
-        the snapshot variant — then close the tiers and publish the
-        snapshots.  Returns the number of commit steps."""
+        against the page table and stage its triples too — on a mesh the
+        triples of the rank's arena and the cells of its ring blocks),
+        run one commit step on it — the
+        first with the ring-wrap keep factors, the last the snapshot
+        variant — then close the tiers and publish the snapshots.
+        ``note`` False notes the interval without its samples (a paged
+        mesh rank off stream index 0: the merged cells are counted
+        once).  Returns the number of commit steps."""
         agg, wheel = self.aggregator, self.wheel
         ids, idx, w32 = self._dense_cells(cells)
         buckets = idx - np.int32(wheel.config.bucket_limit)
         w64 = cells[2]
         tiers = wheel._tiers
         slots, keeps, windows, masks = self._open_tiers_locked(
-            raw, dur, (ids, idx, w32))
+            raw, dur, (ids, idx, w32) if note else None)
         ones = [1] * len(tiers)
         lc, an = self.lifecycle, self.anomaly
         if lc is not None:
@@ -569,10 +612,16 @@ class IntervalCommitter:
                     inj.check("commit.dispatch")
                 take = min(self.chunk, n - off)
                 with self.obs_recorder.span("commit.upload"):
-                    packed = self._staging.stage(
-                        ids[off:off + take], buckets[off:off + take],
-                        w32[off:off + take],
-                    )
+                    cut = (ids[off:off + take], buckets[off:off + take],
+                           w32[off:off + take])
+                    if paged is not None and self.mesh is not None:
+                        # D12: the chunk's cells of the rank's ring
+                        # blocks, block-local (the translate below takes
+                        # the whole chunk)
+                        lo, rows = wheel._row0, wheel._rows
+                        own = (cut[0] >= lo) & (cut[0] < lo + rows)
+                        cut = (cut[0][own] - lo, cut[1][own], cut[2][own])
+                    packed = self._staging.stage(*cut)
                     if paged is not None:
                         # the host translate against the page table
                         # (both locks held, so pages may be mapped);
@@ -585,7 +634,8 @@ class IntervalCommitter:
                         pk[:, 2] = w32[off:off + take]
                         trip = paged.translate(pk)[0]
                         self._trip_inflight = (trip, take)
-                        triples = self._triples.stage(trip)
+                        triples = self._triples.stage(
+                            paged._arena_triples(trip))
                 final = emit and off + take >= n
                 # operand order of make_fused_commit_fn / _snapshot_fn and
                 # their paged twins: carries, then the cells [and
@@ -707,6 +757,8 @@ class IntervalCommitter:
         import torch.distributed as dist
 
         agg, wheel, lc = self.aggregator, self.wheel, self.lifecycle
+        if self.paged is not None:
+            return self._commit_cells_paged_mesh(cells, raw, dur)
         if lc is not None or self.anomaly is not None:
             agg._mesh_regrow()
         width = self._staging.width
@@ -750,6 +802,52 @@ class IntervalCommitter:
             with wheel._lock:
                 return "fused", self._mesh_dispatch_locked(
                     cells, raw, dur, nchunks, when), when
+
+    def _commit_cells_paged_mesh(self, cells, raw: RawMetricSet,
+                                 dur: float):
+        """Commit the MERGED interval's cells (the same on every rank,
+        D12) on a paged mesh rank.  Returns (mode, dispatches, the
+        interval's time).  The registry's growth is laid out first
+        (``_mesh_regrow``: the store's shard blocks), and the
+        aggregator's staged batches land (``land_staged``).  The ranks
+        then agree (one reduction over the mesh) on the path, the
+        fan-out if any rank's breaker is open, and on the interval's
+        time.  The fused path is the single-device paged path on every
+        rank (translate each chunk, one paged step on the rank's cut of
+        it); the fan-out
+        merges the cells on every rank and hands them to the wheel's
+        push on stream index 0 alone, whose gather over the stream axis
+        then counts them once."""
+        import torch.distributed as dist
+
+        agg, wheel = self.aggregator, self.wheel
+        agg.land_staged()  # the registry's growth laid out first
+        n = 0 if cells is None else len(cells[0])
+        spill = self.breaker is not None and self.breaker.is_open()
+        if cells is not None:
+            w64 = cells[2]
+            spill = (spill or int(w64.max()) >= 1 << 30
+                     or agg._interval_ingested + int(
+                         w64.sum(dtype=np.int64)) >= agg._spill_at)
+        spill, t_us = mesh_reduce(
+            self.mesh, [int(spill), _time_us(raw.time)], dist.ReduceOp.MAX)
+        when = _from_time_us(t_us, raw.time)
+        if n == 0:
+            wheel.push_cells(None, raw, dur)
+            return "empty", 0, when
+        lead = is_stream_lead(self.mesh)
+        if spill:
+            with agg._dev_lock:
+                agg._merge_cells_locked(*cells)
+                agg.stats_snapshot = None
+            wheel.push_cells(self._dense_cells(cells) if lead else None,
+                             raw, dur)
+            nchunks = -(-n // self.chunk)
+            return "fanout", nchunks * (1 + len(wheel._tiers)), when
+        with agg._dev_lock:
+            with wheel._lock:
+                return "fused", self._fused_dispatch_locked(
+                    cells, raw, dur, note=lead), when
 
     def _mesh_dispatch_locked(self, cells, raw: RawMetricSet, dur: float,
                               nchunks: int, when) -> int:
@@ -912,7 +1010,7 @@ class IntervalCommitter:
             start = applied + take
         if start < len(ids):
             rest = ids[start:]
-            if self.mesh is not None:
+            if self.mesh is not None and self.paged is None:
                 # the spill holds this rank's block (late rows wait on
                 # the host already)
                 lo, rows = agg._row0, agg._rows

@@ -105,6 +105,10 @@ class LifecycleManager:
                 " eviction ride the fused interval commit"
             )
         self._paged = getattr(aggregator, "paged", None) is not None
+        if self._paged and getattr(aggregator, "mesh", None) is not None:
+            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+
+            raise ValueError(f"lifecycle unavailable: {PAGED_MESH_SLICE}")
         self.aggregator = aggregator
         self.wheel = wheel
         self.config = config

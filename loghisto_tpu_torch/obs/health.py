@@ -61,8 +61,11 @@ DEGRADED; otherwise OK.  Event-shaped invariants (fan-outs, evictions)
 latch for one stall window so a scrape can't straddle the instant and
 miss them.
 
-In the port the watchdog reads one card's pipeline: a paged store has
-one arena (``PagedStore.shard_occupancy()`` is a list of one).
+In the port the watchdog reads one rank's pipeline.  A paged store has
+one arena a metric shard (``PagedStore.shard_occupancy()`` is a list of
+one on one card, of ``n_metric`` on a mesh, ROADMAP D12); the free
+stacks are host state, the same on every rank, so every rank's
+``pool_saturation`` names the same hottest shard.
 ``TorchMetricSystem(resilience=...)`` passes its supervisor, breaker and
 recovery manager, and ``device_cooldown`` reads the aggregator's
 ``_device_down_until``, which its device-failure handler arms.
@@ -73,8 +76,9 @@ invariants (``emitter_starvation``, ``fed_decode_errors``,
 system; without a federation tier the receiver is ``None`` and they
 never do.
 
-One invariant is the port's own, as its cause is (ROADMAP D9: on a mesh
-the bridge queues each interval for the rank's next collective call):
+Two invariants are the port's own, as their causes are (ROADMAP D9: on
+a mesh the bridge queues each interval for the rank's next collective
+call; D12: a paged mesh rank stages its input for the same call):
 
   * ``commit_backlog``       — at least ``stall_intervals`` intervals
     wait in the mesh bridge's queue (the committer's, or the wheel's on
@@ -83,6 +87,12 @@ the bridge queues each interval for the rank's next collective call):
     ``backfill_retention``.  Off a mesh the queue does not exist and the
     reason never fires; it has no gauge, so the gauge family stays the
     reference's.
+  * ``stage_backlog``        — a paged mesh rank's host stage (its
+    stream row's samples and cells, ``staged_samples``) is at
+    ``backpressure_fraction`` or more of ``max_staged_samples``, past
+    which ``record_batch`` refuses batches until a collective call lands
+    the stage.  Off a paged mesh the stage does not exist and the reason
+    never fires; its gauge is ``tpu.MeshStagedSamples``.
 """
 
 from __future__ import annotations
@@ -443,6 +453,21 @@ class HealthWatchdog:
                     ),
                     "value": sat,
                 })
+
+        stage_cap = float(getattr(agg, "max_staged_samples", 0) or 0)
+        staged = float(getattr(agg, "staged_samples", 0) or 0)
+        if stage_cap and staged >= self.backpressure_fraction * stage_cap:
+            reasons.append({
+                "code": "stage_backlog",
+                "detail": (
+                    f"{int(staged)} samples staged on the host for the "
+                    "next collective call (collect, a commit, a query) "
+                    f"at >= {self.backpressure_fraction:g} of the "
+                    f"{int(stage_cap)}-sample stage cap; record_batch "
+                    "refuses past it"
+                ),
+                "value": staged,
+            })
 
         backlog = sum(int(getattr(part, "queued_intervals", 0) or 0)
                       for part in (com, self._wheel) if part is not None)

@@ -6,8 +6,8 @@ their paged twins ``make_paged_fused_commit_fn`` and
 ``make_paged_fused_commit_snapshot_fn``, ``CellStagingRing``,
 ``PagedTripleRing``, and the sharded dense pair
 ``make_sharded_fused_commit_fn`` and
-``make_sharded_fused_commit_snapshot_fn``; the sharded paged pair waits
-for ROADMAP Queue 1 item 11c).
+``make_sharded_fused_commit_snapshot_fn``; a paged mesh rank runs the
+paged pair).
 
 The reference jits one donated-carry program per chunk of cells.  The
 port runs the same steps eagerly on PyTorch's current stream and updates
@@ -52,6 +52,16 @@ its block; the final step's payloads are K5 over the rank's ring
 blocks, row-sharded like the reference's.  The JAX program psums dense
 shard-local deltas instead; int32 adds commute, so the rings are the
 same bits.
+
+On paged storage on a mesh (ROADMAP D12) every rank commits the merged
+interval's chunk itself, the same cells on every rank, so a step makes
+no collective and is the paged pair's: the caller hands it the chunk's
+translated triples of the rank's arena (arena-local slots) and the
+chunk's cells of the rank's ring blocks (block-local ids), so K4 adds
+into the arena, one K3 into every tier's open slot of the ring blocks,
+and the final step's payloads are K5 over the ring blocks.  The
+reference's program psums the stream shares' deltas instead; the arena
+and the rings are the same bits.
 
 Integer scatter-adds are order-independent, so the fused commit equals
 the fan-out path (``merge_raw`` + ``TimeWheel.push``) bit for bit.

@@ -27,6 +27,8 @@ the CPU runs the same control flow as the card.
 ``resolve_commit_path`` resolves the interval commit: the fused
 committer on dense and on paged storage, and on a mesh (ROADMAP D9)
 unless ``mesh_commit_incapability`` names the reference's reason.
+``resolve_full_path`` walks all four axes together (transport, ingest,
+storage, commit), as the reference's composed resolver does.
 
 On a ("stream", "metric") mesh (ROADMAP D8) a rank's fold is an ordinary
 launch on its own card, so the paths resolve on the rank's block of
@@ -35,16 +37,20 @@ and K1 otherwise.  The reference's fused-kernel mesh edge declines K1
 "inside a shard_map-embedded step"; the port has no ``shard_map``, and
 its edge admits K1 per rank and declines only a mesh whose axes are not
 ("stream", "metric").  Explicit "scatter", "sort" and "hybrid" run on a
-mesh as in the reference.  Paged storage on a mesh waits for ROADMAP
-Queue 1 item 11c: an explicit "paged", or an "auto" that the
-reference's table (its mesh edges included) resolves to paged on that
-mesh, raises ``PAGED_MESH_SLICE``; it never quietly becomes dense.
+mesh as in the reference.  Paged storage resolves on a mesh by the
+reference's table, its mesh-shape edges included (ROADMAP D12: per-shard
+arenas, K4 and K4f per rank).  What the second half of that slice has
+not ported raises ``PAGED_MESH_SLICE``, which names ROADMAP Queue 1 item
+11c-2: lifecycle, checkpoints and ``resilience=`` on paged storage on a
+mesh.
 
 Each decline reason is a sentence, as in the JAX table; the shape
 preconditions of the JAX paths keep the JAX package's sentences.
 """
 
 from __future__ import annotations
+
+from typing import Dict, NamedTuple
 
 # Host->device transport crossover: "auto" transport folds the first
 # large raw item on the host and measures cell density = unique cells /
@@ -307,9 +313,10 @@ def _ck_fused_batch(platform, batch_size) -> str | None:
 
 
 PAGED_MESH_SLICE = (
-    "paged storage on a mesh (per-shard page arenas, the sharded fused "
-    "paged ingest and the paged commit) waits for ROADMAP Queue 1 item "
-    "11c; pass storage='dense'"
+    "lifecycle, checkpoints and resilience= on paged storage on a mesh "
+    "(eviction and compaction across the ranks' page arenas, saves and "
+    "restores of the arenas) wait for ROADMAP Queue 1 item 11c-2; pass "
+    "storage='dense'"
 )
 
 
@@ -486,8 +493,7 @@ def resolve_storage_path(
     """Resolve the storage backend, "dense" or "paged".  Returns
     ``(resolved, reason)``: "auto" degrades to dense with the reason; an
     explicit "paged" that a capability blocker rules out raises it.
-    With ``mesh``, paged storage raises ``PAGED_MESH_SLICE`` (explicit,
-    or what "auto" would resolve on that mesh).
+    With ``mesh`` the reference's mesh-shape edge joins the table.
 
     ``num_metrics`` counts registry rows: every distinct label set of a
     base name is its own row, so label cardinality drives the
@@ -500,23 +506,16 @@ def resolve_storage_path(
         )
         if reason is not None:
             return "dense", reason
-        if mesh is not None:
-            raise ValueError(
-                f"storage='auto' resolves to paged storage at "
-                f"num_metrics={num_metrics} on this mesh: {PAGED_MESH_SLICE}"
-            )
         return "paged", None
     if storage not in ("dense", "paged"):
         raise ValueError(
             f"unknown storage {storage!r}: expected 'auto', 'dense', or "
             "'paged'"
         )
-    if storage == "paged" and mesh is not None:
-        raise ValueError(f"paged storage unavailable: {PAGED_MESH_SLICE}")
     if storage == "paged":
         reason = paged_storage_incapability(
             num_metrics, num_buckets, transport=transport, crossover=False,
-            fused_ok=fused_ok,
+            fused_ok=fused_ok, mesh=mesh,
         )
         if reason is not None:
             raise ValueError(f"paged storage unavailable: {reason}")
@@ -587,3 +586,73 @@ def resolve_commit_path(path: str, *, mesh=None,
     if path == "fused" and reason is not None:
         raise ValueError(f"fused commit unavailable on this mesh: {reason}")
     return path
+
+
+class FullPath(NamedTuple):
+    """One resolved end-to-end dispatch: the wire the samples ride
+    (transport), the kernel that consumes them (ingest), the layout that
+    accumulates them (storage) and the program that closes the interval
+    (commit), with every reason the walk declined a more capable
+    contender, keyed "axis:contender"."""
+
+    transport: str
+    ingest: str
+    storage: str
+    commit: str
+    reasons: Dict[str, str]
+
+
+def resolve_full_path(
+    num_metrics: int,
+    num_buckets: int,
+    platform: str,
+    ingest: str = "auto",
+    storage: str = "auto",
+    transport: str = "auto",
+    commit: str = "auto",
+    batch_size: int | None = None,
+    mesh=None,
+    guard_metrics: int | None = None,
+    density: float | None = None,
+) -> FullPath:
+    """The reference's composed resolver: one walk of the four axes,
+    which depend on each other (paged storage without K4f pins the
+    sparse transport, a capable K4f takes raw samples straight into the
+    pool).  ``platform`` is the device type ("cuda" where the reference
+    names "tpu", the one departure of the fused paged edge); ``mesh`` a
+    ("stream", "metric") mesh or None."""
+    reasons: Dict[str, str] = {}
+    fp_reason = fused_paged_incapability(
+        num_metrics, num_buckets, batch_size=batch_size,
+        transport=transport, platform=platform,
+        crossover=(ingest == "auto"), mesh=mesh,
+    )
+    fused_ok = fp_reason is None and ingest in ("auto", "fused")
+    if fp_reason is not None:
+        reasons["ingest:fused_paged"] = fp_reason
+    storage_res, s_reason = resolve_storage_path(
+        storage, num_metrics, num_buckets, platform, transport=transport,
+        fused_ok=fused_ok, mesh=mesh,
+    )
+    if s_reason is not None:
+        reasons["storage:paged"] = s_reason
+    if storage_res == "paged":
+        if ingest == "fused" and fp_reason is not None:
+            raise ValueError(f"fused paged ingest unavailable: {fp_reason}")
+        # K4f takes the raw batch; without it the host fold feeds K4
+        ingest_res, transport_res = (("fused_paged", "raw") if fused_ok
+                                     else ("packed", "sparse"))
+    else:
+        ingest_res = resolve_ingest_path(
+            ingest, num_metrics, batch_size, num_buckets,
+            guard_metrics=guard_metrics, mesh=mesh,
+        )
+        transport_res = (choose_transport(platform, density=density)
+                         if transport == "auto" else transport)
+    commit_reason = mesh_commit_incapability(mesh, num_metrics)
+    if commit_reason is not None:
+        reasons["commit:fused"] = commit_reason
+    commit_res = resolve_commit_path(commit, mesh=mesh,
+                                     num_metrics=num_metrics)
+    return FullPath(transport_res, ingest_res, storage_res, commit_res,
+                    reasons)

@@ -32,6 +32,11 @@ exactly, so neither the kernel nor the plain version sorts.  The page
 table comes page-major, ``[pages_per_row, M]`` (the transpose of the
 JAX step's ``[M, pages_per_row]``; ``PagedStore.device_luts`` keeps it),
 so that the kernel's page-table gathers fall in contiguous slabs.
+
+On a ("stream", "metric") mesh (ROADMAP D12) K4f runs per rank:
+``PagedStore.ingest_raw`` keeps the ids of the rank's row block and
+launches K4f on its metric shard's arena with the block's mirrors, an
+ordinary launch on the rank's own card (D8).
 """
 
 from __future__ import annotations

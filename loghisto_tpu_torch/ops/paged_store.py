@@ -26,6 +26,11 @@ the Pallas triple tile is carried over.
 The pool is updated IN PLACE (the JAX step donates it) and returned.
 Slots <= 0 (the zero page, pads) and >= P drop; offsets clip to
 [0, page_size - 1].
+
+On a ("stream", "metric") mesh (ROADMAP D12) a rank's pool is its
+metric shard's arena: ``PagedStore`` keeps the triples of that arena,
+re-based to its slots, and runs K4 on it, an ordinary launch on the
+rank's own card (D8).
 """
 
 from __future__ import annotations

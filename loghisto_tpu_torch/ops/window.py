@@ -35,7 +35,7 @@ import torch
 
 from loghisto_tpu_torch.config import PRECISION
 from loghisto_tpu_torch.ops.backend import is_plain, launch
-from loghisto_tpu_torch.ops.stats import dense_cdf, dense_stats
+from loghisto_tpu_torch.ops.stats import dense_stats, row_sums
 
 MERGE_PATH_RULE = (
     "the window merge follows the ring's device, as every kernel wrapper "
@@ -202,10 +202,15 @@ def window_snapshot(
 ) -> dict[str, torch.Tensor]:
     """Commit-time snapshot payload of a tier: the V views (rows of
     ``masks``, host bool [V, S]) merged in one ``window_merge_views``
-    pass, then ``dense_cdf`` over them.  Returns cdf int32 [V, M, B],
-    counts int32 [V, M] and sums float32 [V, M] — fresh tensors that no
-    later push writes."""
+    pass, then ``dense_cdf``'s payload over them.  Returns cdf int32
+    [V, M, B], counts int32 [V, M] and sums float32 [V, M] — fresh
+    tensors that no later push writes.  The merged views are this
+    call's own, so their prefix sums are taken in place, after the sums:
+    one [V, M, B] tensor fewer at the peak (2 GiB a view at 2^16 rows)."""
     masks = np.asarray(masks).astype(bool)
     if masks.ndim != 2:
         raise ValueError(f"masks must be [V, S]; got {masks.shape}")
-    return dense_cdf(window_merge_views(ring, masks), bucket_limit, precision)
+    merged = window_merge_views(ring, masks)
+    sums = torch.stack([row_sums(a, bucket_limit, precision) for a in merged])
+    cdf = merged.cumsum_(dim=-1)
+    return {"cdf": cdf, "counts": cdf[..., -1].contiguous(), "sums": sums}

@@ -49,8 +49,32 @@ them (``apply_permutation``, ``_extract_rows``).
 ``max_cell``, ``codec_names`` and ``restore_codecs`` are the v3
 checkpoint's surface (``utils/checkpoint.py``).
 
-Single device only.  Left for a later slice: the mesh arenas and sharded
-commit (ROADMAP Queue 1 item 11c, which wires ``_extract_rows`` in).
+On a ("stream", "metric") mesh (``mesh=``, ROADMAP D12) the store is one
+rank's part of the reference's one-controller store.  Metric shard k
+owns the rows ``[k * rows_per_shard, (k + 1) * rows_per_shard)`` and the
+global slots ``[k * shard_pages, (k + 1) * shard_pages)``, slot
+``k * shard_pages`` its zero page, with one free stack per shard in the
+JAX order; ``total_pages`` is ``n_metric * shard_pages`` and a row maps
+pages from its own shard's arena only.  The host half is the reference
+controller's, the same on every rank: the whole page table, ``row_codec``
+and every shard's free stack, and every rank makes the same calls with
+the same (global) arguments.  The pool tensor is the rank's arena,
+``[shard_pages, page_size]`` with its zero page at local slot 0, the same
+on every rank of a metric column and bit for bit the JAX pool's block of
+that shard: ``commit`` translates the whole batch and lands the triples
+of its arena, re-based to its slots (``_arena_triples``, one K4),
+``ingest_raw`` the samples of its block (``block_ids``, one K4f; the K4f
+mirrors hold the rank's block of ``row_codec`` and of the table, with
+arena-local slots).  The kernels' wrappers are the single-device ones.
+The host spill is kept per block: a rank holds the spilled cells of its
+block's rows (its arena's fold at the int32 envelope, a failed launch's
+triples and the translate spills of its rows), so what it reports is its
+block.  Rows that change shard (``apply_permutation``, ``grow``) migrate:
+the owning ranks extract their cells and spilled cells
+(``_extract_rows``), one gather over the metric axis hands every rank
+all of them, every rank makes the same host ``commit`` and lands its
+arena's share.  Those, ``decode_cells`` and ``query`` are collectives of
+the rank's metric line; everything else needs no collective.
 """
 
 from __future__ import annotations
@@ -213,11 +237,51 @@ class PagedStore:
         precision: int = PRECISION,
         config: PagedStoreConfig = PagedStoreConfig(),
         device=None,
+        mesh=None,
     ):
         from loghisto_tpu_torch.ops.backend import resolve_device
-        from loghisto_tpu_torch.ops.paged_store import validate_pool_shape
+        from loghisto_tpu_torch.ops.paged_store import (
+            COMMIT_CHUNK,
+            validate_pool_shape,
+        )
 
         validate_pool_shape(config.pool_pages, config.page_size)
+        self.mesh = mesh
+        self._n_shards = self._n_stream = 1
+        self._shard = 0
+        if mesh is not None:
+            from loghisto_tpu_torch.parallel.mesh import (
+                METRIC_AXIS,
+                STREAM_AXIS,
+                axis_index,
+                axis_size,
+                check_mesh,
+                mesh_device,
+            )
+
+            check_mesh(mesh)
+            if device is None:
+                device = mesh.device_type
+            if resolve_device(device).type != mesh.device_type:
+                raise ValueError(
+                    f"device={device!r} but the mesh's devices are "
+                    f"{mesh.device_type!r}: a rank's arena lives on its "
+                    "mesh device"
+                )
+            device = mesh_device(mesh)
+            self._n_shards = axis_size(mesh, METRIC_AXIS)
+            self._n_stream = axis_size(mesh, STREAM_AXIS)
+            self._shard = axis_index(mesh, METRIC_AXIS)
+            if num_metrics % self._n_shards:
+                raise ValueError(
+                    f"num_metrics={num_metrics} not divisible by the "
+                    f"{self._n_shards}-way metric axis"
+                )
+            if COMMIT_CHUNK % self._n_stream:
+                raise ValueError(
+                    f"COMMIT_CHUNK={COMMIT_CHUNK} not divisible by the "
+                    f"{self._n_stream}-way stream axis"
+                )
         self.device = resolve_device(device)
         self.config = config
         self.bucket_limit = int(bucket_limit)
@@ -258,24 +322,35 @@ class PagedStore:
         self.page_table = np.full(
             (self.num_metrics, self.pages_per_row), -1, dtype=np.int32
         )
-        self.total_pages = config.pool_pages
-        # one arena on one card: the reference's one-shard layout, whose
-        # shard arena is the whole pool (slot 0 its zero page)
+        # shard k's arena: global slots [k * shard_pages, (k + 1) *
+        # shard_pages), its base slot the shard's zero page; one card is
+        # the one-shard case, whose arena is the whole pool
+        self.rows_per_shard = self.num_metrics // self._n_shards
         self.shard_pages = config.pool_pages
-        # free-slot stack: the top (index _free_n - 1) is popped first,
-        # so slots 1, 2, 3, ... are handed out in order, as the JAX
-        # store's list.pop() does
-        self._free = np.arange(self.total_pages - 1, 0, -1, dtype=np.int32)
-        self._free_n = len(self._free)
+        self.total_pages = self._n_shards * config.pool_pages
+        validate_pool_shape(self.total_pages, page)
+        # one free-slot stack per arena: the top (index _free_n[k] - 1)
+        # is popped first, so slots base + 1, base + 2, ... are handed
+        # out in order, as the JAX store's list.pop() does
+        sp = self.shard_pages
+        self._free = [
+            np.arange((k + 1) * sp - 1, k * sp, -1, dtype=np.int32)
+            for k in range(self._n_shards)
+        ]
+        self._free_n = [len(f) for f in self._free]
 
+        # this rank's arena (the whole pool on one card)
         self._pool = torch.zeros(
-            (self.total_pages, page), dtype=torch.int32, device=self.device
+            (self.shard_pages, page), dtype=torch.int32, device=self.device
         )
         # exact host spill: {(row, native dense idx): int count}
         self._host_spill: Dict[Tuple[int, int], int] = {}
+        # a mesh migration's spilled cells on their way to their new block
+        self._carried = None
 
         self.commits = 0
         self.h2d_bytes = 0
+        self.last_h2d_bytes = 0
         self.allocated_pages = 0
         self.overflowed_cells = 0
         self.spilled_cells = 0
@@ -351,7 +426,7 @@ class PagedStore:
             [p for p in range(n_pages) if self.page_table[row, p] < 0],
             dtype=np.int64,
         )
-        if len(pages) > self._free_n:
+        if len(pages) > self._free_n[self._shard_of_row(row)]:
             raise ValueError(
                 "pool too small to reserve the overflow row's "
                 f"{n_pages} pages; raise pool_pages"
@@ -359,21 +434,37 @@ class PagedStore:
         self._alloc_pairs(np.full(len(pages), row, dtype=np.int64), pages)
         self._mark_rows(np.array([row]))
 
+    def _shard_of_row(self, row):
+        """The metric shard (arena) that owns ``row`` (ints or arrays)."""
+        return row // self.rows_per_shard
+
     def _alloc_pairs(self, rows: np.ndarray, pages: np.ndarray) -> int:
         """Map unmapped (row, page) pairs, given in ascending (row, page)
-        order, to free slots: pair k takes the k-th pop of the free
-        stack, exactly as the JAX store's ``_alloc`` loop over the same
-        sorted pairs.  Pairs past the free list's end stay unmapped.
-        Returns the number mapped."""
-        take = min(len(rows), self._free_n)
-        if not take:
+        order, to free slots of each row's own shard arena: the pairs of
+        shard k take the successive pops of its free stack, exactly as
+        the JAX store's ``_alloc`` loop over the same sorted pairs.  A
+        shard's pairs past its free stack's end stay unmapped.  Returns
+        the number mapped."""
+        if not len(rows):
             return 0
-        slots = self._free[self._free_n - take: self._free_n][::-1]
-        self._free_n -= take
-        self.page_table[rows[:take], pages[:take]] = slots
-        self.allocated_pages += take
-        self._mark_pairs(rows[:take], pages[:take])
-        return take
+        shard = self._shard_of_row(rows)
+        # sorted rows: each shard's pairs are one contiguous run
+        bounds = np.searchsorted(shard, np.arange(self._n_shards + 1))
+        mapped = 0
+        for k in range(self._n_shards):
+            lo, hi = int(bounds[k]), int(bounds[k + 1])
+            take = min(hi - lo, self._free_n[k])
+            if not take:
+                continue
+            n = self._free_n[k]
+            slots = self._free[k][n - take: n][::-1]
+            self._free_n[k] = n - take
+            r, p = rows[lo:lo + take], pages[lo:lo + take]
+            self.page_table[r, p] = slots
+            self._mark_pairs(r, p)
+            mapped += take
+        self.allocated_pages += mapped
+        return mapped
 
     def _alloc_missing(self, pairs: np.ndarray) -> None:
         """Allocate each unique unmapped (row, page) among the given flat
@@ -387,33 +478,50 @@ class PagedStore:
                           keys % self.pages_per_row)
 
     def _push_free(self, slots: np.ndarray) -> None:
-        """Return slots to the free stack, the last one on top (popped
-        first), as the JAX store appends them to its list."""
-        k = len(slots)
-        if self._free_n + k > len(self._free):  # a loaded, shorter stack
-            grown = np.empty(self.total_pages - 1, dtype=np.int32)
-            grown[: self._free_n] = self._free[: self._free_n]
-            self._free = grown
-        self._free[self._free_n: self._free_n + k] = slots
-        self._free_n += k
+        """Return slots to the free stack of the arena each came from
+        (the row's shard, by the allocation invariant), the last one on
+        top (popped first), as the JAX store appends them to its
+        lists."""
+        slots = np.asarray(slots, dtype=np.int32)
+        shard = slots // self.shard_pages
+        for k in np.unique(shard).tolist():
+            mine = slots[shard == k]
+            n, m = self._free_n[k], len(mine)
+            if n + m > len(self._free[k]):  # a loaded, shorter stack
+                grown = np.empty(self.shard_pages - 1, dtype=np.int32)
+                grown[:n] = self._free[k][:n]
+                self._free[k] = grown
+            self._free[k][n:n + m] = mine
+            self._free_n[k] = n + m
 
     def free_list(self) -> List[int]:
-        """The free slots as the JAX store's list (its last entry is
-        popped next)."""
-        return self._free[: self._free_n].tolist()
+        """The first arena's free slots as the JAX store's list (its
+        last entry is popped next): on one card, the whole pool's."""
+        return self.free_lists()[0]
+
+    def free_lists(self) -> List[List[int]]:
+        """Every arena's free slots, as the JAX store's ``_free_lists``."""
+        return [f[:n].tolist() for f, n in zip(self._free, self._free_n)]
 
     @property
     def free_pages(self) -> int:
-        return int(self._free_n)
+        return int(sum(self._free_n))
 
     @property
     def occupied_pages(self) -> int:
-        return self.total_pages - 1 - self.free_pages
+        return self._n_shards * (self.shard_pages - 1) - self.free_pages
+
+    def shard_free_pages(self) -> List[int]:
+        """Free pages left in each metric shard's arena (host state: the
+        same on every rank, no collective)."""
+        return [int(n) for n in self._free_n]
 
     def shard_occupancy(self) -> List[float]:
-        """Occupied fraction of each shard arena (zero page excluded): a
-        list of one, the whole pool."""
-        return [1.0 - self.free_pages / max(1, self.shard_pages - 1)]
+        """Occupied fraction of each shard arena (zero page excluded):
+        saturation is per arena, so one hot shard spills while the
+        average still looks roomy."""
+        cap = max(1, self.shard_pages - 1)
+        return [1.0 - n / cap for n in self._free_n]
 
     def pool_saturation(self) -> float:
         """Worst shard-arena occupancy in [0, 1]; the watchdog's
@@ -421,9 +529,10 @@ class PagedStore:
         return max(self.shard_occupancy())
 
     def hbm_bytes(self) -> int:
-        """Device footprint: the pool plus the page table's mirror."""
-        pool = self.total_pages * self.config.page_size * 4
-        return pool + self.page_table.size * 4
+        """This rank's device footprint: its arena plus its block of the
+        page table's mirror (the whole pool and table on one card)."""
+        pool = self.shard_pages * self.config.page_size * 4
+        return pool + self.rows_per_shard * self.pages_per_row * 4
 
     def _encode(self, codec, dense_idx: np.ndarray) -> np.ndarray:
         """Storage indices (int64) of native dense indices under the
@@ -446,42 +555,84 @@ class PagedStore:
         self._mirror = None
         self._dirty_rows, self._dirty_pairs = [], []
 
+    @property
+    def _row0(self) -> int:
+        """The first row of this rank's block (0 on one card)."""
+        return self._shard * self.rows_per_shard
+
+    def _in_block(self, rows: np.ndarray) -> np.ndarray:
+        return (rows >= self._row0) & (rows < self._row0 + self.rows_per_shard)
+
+    def _local_slots(self, slots: np.ndarray) -> np.ndarray:
+        """Global slots as slots of this rank's arena; -1 for an unmapped
+        entry, the arena's zero page and every other arena's slot."""
+        local = slots - self._shard * self.shard_pages
+        own = (slots >= 0) & (local > 0) & (local < self.shard_pages)
+        return np.where(own, local, -1).astype(np.int32)
+
+    def _arena_triples(self, dev: np.ndarray) -> np.ndarray:
+        """The translated (global slot, offset, count) triples that land
+        in this rank's arena, as (arena slot, offset, count): all of
+        them, unchanged, on one card."""
+        if self.mesh is None:
+            return dev
+        local = self._local_slots(dev[:, 0])
+        own = local > 0
+        out = dev[own]
+        out[:, 0] = local[own]
+        return out
+
     def device_luts(self):
         """(row_codec int32 [M], enc_luts int32 [C, B], page_major int32
         [pages_per_row, M]) on the pool's device for K4f.  The page
         table's device mirror is page-major — the transpose of the host
         ``page_table`` — so that samples on the same page index of their
         rows gather from one contiguous slab (``csrc/paged_store.cu``).
-        Built once; later host changes are written into them for the
-        dirty rows and pages only."""
+        On a mesh they hold the rank's block: ``row_codec[lo:lo + rows]``
+        and the table's rows of the block with arena-local slots (every
+        other entry -1), so K4f indexes the rank's arena directly.  Built
+        once; later host changes are written into them for the dirty
+        rows and pages of the block only."""
         dev = self.device
+        lo, n = self._row0, self.rows_per_shard
         if self._mirror is None:
+            block = self.page_table[lo:lo + n]
             self._mirror = (
-                torch.from_numpy(self.row_codec.astype(np.int32)).to(dev),
+                torch.from_numpy(
+                    self.row_codec[lo:lo + n].astype(np.int32)).to(dev),
                 torch.from_numpy(self._enc.astype(np.int32)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(self.page_table.T)).to(
-                    dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    self._local_slots(block).T)).to(dev),
             )
             self._dirty_rows, self._dirty_pairs = [], []
             return self._mirror
         rc, _, tbl = self._mirror
         if self._dirty_rows:
             rows = np.unique(np.concatenate(self._dirty_rows))
-            rc[torch.from_numpy(rows).to(dev)] = torch.from_numpy(
+            rows = rows[self._in_block(rows)]
+            rc[torch.from_numpy(rows - lo).to(dev)] = torch.from_numpy(
                 self.row_codec[rows].astype(np.int32)).to(dev)
             self._dirty_rows = []
         if self._dirty_pairs:
             rows = np.concatenate([r for r, _ in self._dirty_pairs])
             pages = np.concatenate([p for _, p in self._dirty_pairs])
+            keep = self._in_block(rows)
+            rows, pages = rows[keep], pages[keep]
             tbl[torch.from_numpy(pages).to(dev),
-                torch.from_numpy(rows).to(dev)] = torch.from_numpy(
-                    self.page_table[rows, pages]).to(dev)
+                torch.from_numpy(rows - lo).to(dev)] = torch.from_numpy(
+                    self._local_slots(self.page_table[rows, pages])).to(dev)
             self._dirty_pairs = []
         return self._mirror
 
     # -- commit (sparse route) ------------------------------------------ #
 
     def _spill_add(self, rows, dense_idx, weights) -> None:
+        """Exact host-spill add; on a mesh of the block's rows alone (the
+        rank reports its block, and a migration carries the rest)."""
+        if self.mesh is not None:
+            keep = self._in_block(rows)
+            rows, dense_idx, weights = (rows[keep], dense_idx[keep],
+                                        weights[keep])
         with self._lock:
             for r, d, w in zip(rows.tolist(), dense_idx.tolist(),
                                weights.tolist()):
@@ -543,7 +694,10 @@ class PagedStore:
     def commit(self, packed: np.ndarray) -> int:
         """Translate and scatter one packed triple batch (K4).  Returns
         the count applied (device + host spill).  Triples pad to
-        COMMIT_CHUNK multiples with slot -1, as in the JAX store."""
+        COMMIT_CHUNK multiples with slot -1, as in the JAX store.  On a
+        mesh ``packed`` is the whole batch (the same on every rank): the
+        host half translates all of it, and the rank ships and lands the
+        triples of its arena."""
         from loghisto_tpu_torch.ops.paged_store import (
             COMMIT_CHUNK,
             paged_scatter,
@@ -552,6 +706,7 @@ class PagedStore:
         dev, applied, spilled = self.translate(
             np.ascontiguousarray(packed, dtype=np.int32)
         )
+        dev = self._arena_triples(dev)
         n = len(dev)
         if n:
             padded = -(-n // COMMIT_CHUNK) * COMMIT_CHUNK
@@ -562,6 +717,7 @@ class PagedStore:
             paged_scatter(self._pool, torch.from_numpy(dev).to(self.device))
             self.commits += 1
             self.h2d_bytes += dev.nbytes
+        self.last_h2d_bytes = dev.nbytes if n else 0
         return applied + spilled
 
     # -- fused direct-to-paged ingest (raw route) ------------------------ #
@@ -623,13 +779,23 @@ class PagedStore:
 
     def ingest_raw(self, ids_dev: torch.Tensor, values_dev: torch.Tensor) -> None:
         """One K4f launch into the pool; the batch must have gone
-        through ``prepare_batch`` (ids it rewrote to -1 drop)."""
-        from loghisto_tpu_torch.ops.fused_ingest import fused_paged_ingest_batch
-
-        fused_paged_ingest_batch(
-            self._pool, ids_dev, values_dev, *self.device_luts(),
-            self.bucket_limit, self.precision,
+        through ``prepare_batch`` (ids it rewrote to -1 drop).  On a mesh
+        the ids are global and the rank lands the samples of its block
+        (``block_ids``: re-based, every other id -1, which K4f drops).
+        The reference's step splits the batch over the stream axis and
+        psums the stream deltas; here every rank of a metric column
+        ingests the whole batch (ROADMAP D12), so there is no
+        collective."""
+        from loghisto_tpu_torch.ops.fused_ingest import (
+            fused_paged_ingest_batch,
         )
+        from loghisto_tpu_torch.parallel.mesh import block_ids
+
+        if self.mesh is not None:
+            ids_dev = block_ids(ids_dev, self._row0, self.rows_per_shard)
+        fused_paged_ingest_batch(self._pool, ids_dev, values_dev,
+                                 *self.device_luts(), self.bucket_limit,
+                                 self.precision)
         self.fused_dispatches += 1
 
     # -- spill / reset ---------------------------------------------------- #
@@ -666,13 +832,16 @@ class PagedStore:
         committer's failure recovery calls it for the one chunk whose
         translate ran but whose commit step failed: spilling that
         chunk's cells would count twice the ones translate already
-        spilled."""
-        triples = np.asarray(triples)
+        spilled.  On a mesh the rank folds the triples of its own arena,
+        the ones its failed launch did not land."""
+        triples = self._arena_triples(np.asarray(triples))
         triples = triples[triples[:, 0] > 0]
         if not len(triples):
             return 0
         owner_row, owner_page = self._owners()
-        slots = triples[:, 0].astype(np.int64)
+        # arena slots back to global ones, the owners' index
+        slots = (triples[:, 0].astype(np.int64)
+                 + self._shard * self.shard_pages)
         rows, idx, counts = self._decode_storage(
             owner_row[slots],
             owner_page[slots] * self.config.page_size + triples[:, 1],
@@ -721,7 +890,9 @@ class PagedStore:
         counts = pool.view(-1)[flat].cpu().numpy().astype(np.int64)
         flat = flat.cpu().numpy()
         page = self.config.page_size
-        slots, offs = flat // page, flat % page
+        # the arena's local slots as global ones
+        slots = flat // page + self._shard * self.shard_pages
+        offs = flat % page
         owner_row, owner_page = self._owners()
         return self._decode_storage(owner_row[slots],
                                     owner_page[slots] * page + offs, counts)
@@ -730,14 +901,19 @@ class PagedStore:
         """The nonzero pool cells of ``rows`` as (row, native dense index,
         int64 count), in (row, page, offset) order — the JAX store's
         whole-pool decode restricted to these rows.  Only the rows'
-        mapped pages are gathered on the device and copied back."""
+        mapped pages are gathered on the device and copied back.  On a
+        mesh, the rows of this rank's block (the pages its arena
+        holds)."""
         rows = np.unique(np.asarray(rows, dtype=np.int64))
+        if self.mesh is not None:
+            rows = rows[self._in_block(rows)]
         tbl = self.page_table[rows]
         r_i, p_i = np.nonzero(tbl >= 0)
         if not len(r_i):
             empty = np.empty(0, dtype=np.int64)
             return empty, empty.copy(), empty.copy()
-        slots = torch.from_numpy(tbl[r_i, p_i].astype(np.int64))
+        slots = torch.from_numpy(self._local_slots(tbl[r_i, p_i]).astype(
+            np.int64))
         pages = self._pool.index_select(0, slots.to(self.device)).view(-1)
         flat = torch.nonzero(pages).reshape(-1)
         counts = pages[flat].cpu().numpy().astype(np.int64)
@@ -747,25 +923,44 @@ class PagedStore:
         return self._decode_storage(rows[r_i[k]], p_i[k] * page + flat % page,
                                     counts)
 
-    def decode_cells(
+    def _spill_cells(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The host spill as (rows, native dense indices, int64 counts)."""
+        with self._lock:
+            items = list(self._host_spill.items())
+        return (np.array([k[0] for k, _ in items], dtype=np.int64),
+                np.array([k[1] for k, _ in items], dtype=np.int64),
+                np.array([v for _, v in items], dtype=np.int64))
+
+    def _block_cells(
         self, include_spill: bool = True
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(rows, native dense indices, int64 counts) across the pool
-        and the host spill."""
+        """This rank's cells: its arena's and, with ``include_spill``,
+        its host spill's (on one card, the whole store's)."""
         rows, idx, counts = self._decode_pool_cells()
         if include_spill and self._host_spill:
-            with self._lock:
-                items = list(self._host_spill.items())
-            s_rows = np.array([k[0] for k, _ in items], dtype=np.int64)
-            s_idx = np.array([k[1] for k, _ in items], dtype=np.int64)
-            s_cnt = np.array([v for _, v in items], dtype=np.int64)
+            s_rows, s_idx, s_cnt = self._spill_cells()
             rows = np.concatenate([rows, s_rows])
             idx = np.concatenate([idx, s_idx])
             counts = np.concatenate([counts, s_cnt])
         return rows, idx, counts
 
+    def decode_cells(
+        self, include_spill: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows, native dense indices, int64 counts) across the pool
+        and the host spill.  On a mesh a collective of the rank's metric
+        line: every block's cells, gathered in block order."""
+        cells = self._block_cells(include_spill)
+        if self.mesh is None:
+            return cells
+        from loghisto_tpu_torch.parallel.mesh import gather_rows
+
+        whole = gather_rows(self.mesh, np.stack(cells, axis=1))
+        return whole[:, 0], whole[:, 1], whole[:, 2]
+
     def decode_dense(self, include_spill: bool = True) -> np.ndarray:
-        """Dense [M, B] int64 reconstruction (O(M x B) host memory)."""
+        """Dense [M, B] int64 reconstruction (O(M x B) host memory); on a
+        mesh a collective (``decode_cells``)."""
         acc = np.zeros((self.num_metrics, self.num_buckets), dtype=np.int64)
         rows, idx, counts = self.decode_cells(include_spill)
         np.add.at(acc, (rows, idx), counts)
@@ -774,13 +969,15 @@ class PagedStore:
     def stats(self, ps: np.ndarray, reset: bool = True):
         """Per-row counts/sums/percentiles over every stored cell (pool
         and spill), sparsely — ``sparse_cells_stats`` on the decoded
-        cells.  ``reset`` zeroes the pool and clears the spill."""
+        cells.  ``reset`` zeroes the pool and clears the spill.  On a
+        mesh, the rows of this rank's block (``[rows_per_shard]``
+        arrays), from its arena and its spill; no collective."""
         from loghisto_tpu_torch.ops.stats import sparse_cells_stats
 
-        rows, idx, counts = self.decode_cells(include_spill=True)
+        rows, idx, counts = self._block_cells(include_spill=True)
         out = sparse_cells_stats(
-            rows, idx, counts, self.num_metrics, np.asarray(ps),
-            self.bucket_limit, self.precision,
+            rows - self._row0, idx, counts, self.rows_per_shard,
+            np.asarray(ps), self.bucket_limit, self.precision,
         )
         if reset:
             self.reset_pool()
@@ -792,7 +989,10 @@ class PagedStore:
         """Snapshot query over the pool on its device: rows group by
         codec, each group gathers only its rows' pages and runs the
         dense engine's ``snapshot_row_stats``.  Host-spill counts are not
-        visible here (as in the JAX store)."""
+        visible here (as in the JAX store).  On a mesh a collective of
+        the rank's metric line: each rank serves the ids of its block
+        from its arena, and one sum over the line (every other rank adds
+        zeros) gives every rank every answer."""
         from loghisto_tpu_torch.ops.paged_store import paged_query
 
         ids = np.asarray(ids, dtype=np.int64)
@@ -802,19 +1002,27 @@ class PagedStore:
         sums = np.zeros(n, dtype=np.float64)
         pcts = np.zeros((n, p_n), dtype=np.float64)
         codecs = self.row_codec[ids]
-        for cid in np.unique(codecs):
+        mine = (np.ones(n, dtype=bool) if self.mesh is None
+                else self._in_block(ids))
+        for cid in np.unique(codecs[mine]):
             if cid < 0:
                 continue  # untouched rows: zeros
-            sel = np.nonzero(codecs == cid)[0]
+            sel = np.nonzero(mine & (codecs == cid))[0]
             out = paged_query(
                 self._pool,
-                torch.from_numpy(self.page_table[ids[sel]]),
+                torch.from_numpy(self._local_slots(self.page_table[ids[sel]])),
                 torch.from_numpy(self._codecs[cid].dec_lut),
                 ps_f, self.bucket_limit, self.precision,
             )
             counts[sel] = out["counts"].cpu().numpy()
             sums[sel] = out["sums"].cpu().numpy()
             pcts[sel] = out["percentiles"].cpu().numpy()
+        if self.mesh is not None:
+            from loghisto_tpu_torch.parallel.mesh import reduce_parts
+
+            counts, sums, pcts = (
+                reduce_parts(self.mesh, torch.from_numpy(a).to(self.device))
+                .cpu().numpy() for a in (counts, sums, pcts))
         return {"counts": counts, "sums": sums, "percentiles": pcts}
 
     # -- lifecycle composition ------------------------------------------ #
@@ -824,6 +1032,10 @@ class PagedStore:
         under the TARGET row's codec and pages (the overflow row), its
         host-spill cells move to the target, and its pages and codec are
         released.  Returns the total count moved."""
+        if self.mesh is not None:
+            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+
+            raise ValueError(f"fold_rows_into unavailable: {PAGED_MESH_SLICE}")
         victims = [int(v) for v in victims if v != target]
         if not victims:
             return 0
@@ -849,8 +1061,11 @@ class PagedStore:
         return moved
 
     def _zero_rows(self, rows) -> None:
+        """Zero the rows' pages in this rank's arena (the whole pool on
+        one card)."""
         slots = self.page_table[np.asarray(rows, dtype=np.int64)].reshape(-1)
-        slots = slots[slots >= 0]
+        slots = self._local_slots(slots)
+        slots = slots[slots > 0]
         if len(slots):
             self._pool.index_fill_(
                 0, torch.from_numpy(slots.astype(np.int64)).to(self.device), 0)
@@ -896,34 +1111,90 @@ class PagedStore:
                 k: v for k, v in self._host_spill.items() if k[0] not in dead
             }
 
-    def _extract_rows(self, rows) -> np.ndarray:
+    def _extract_rows(self, rows, carry=None) -> np.ndarray:
         """Pull the rows' pool cells out as packed (row, centred codec
         bucket, count) int32 triples, zero and free their pages, and
         clear their table entries — KEEPING their codecs, so a later
-        ``commit`` re-lands them under the same codec.  The mesh's
-        cross-shard move (ROADMAP Queue 1, 11) is its caller."""
+        ``commit`` re-lands them under the same codec (the cross-shard
+        migration of ``apply_permutation`` and ``grow``).
+
+        On a mesh a collective of the rank's metric line: each rank
+        extracts the rows of its block from its arena and pops the
+        spilled cells of ``carry`` (rows whose shard changes) from its
+        host spill, and one gather over the metric axis hands every rank
+        all of both, in block order.  The spilled cells wait in
+        ``_carried`` for the caller to re-home."""
         rows = [int(r) for r in rows]
-        if not rows:
-            return np.empty((0, 3), dtype=np.int32)
         r, idx, counts = self._row_cells(rows)
+        self._zero_rows(rows)
+        self._free_rows(rows)
+        if self.mesh is not None:
+            from loghisto_tpu_torch.parallel.mesh import gather_rows
+
+            s_rows, s_idx, s_cnt = self._pop_spill(
+                [] if carry is None else carry)
+            part = np.concatenate([
+                np.stack([np.zeros_like(r), r, idx, counts], axis=1),
+                np.stack([np.ones_like(s_rows), s_rows, s_idx, s_cnt],
+                         axis=1)])
+            whole = gather_rows(self.mesh, part)
+            pool, spill = whole[whole[:, 0] == 0], whole[whole[:, 0] == 1]
+            r, idx, counts = pool[:, 1], pool[:, 2], pool[:, 3]
+            self._carried = (spill[:, 1], spill[:, 2], spill[:, 3])
         packed = np.empty((len(r), 3), dtype=np.int32)
         packed[:, 0] = r
         packed[:, 1] = idx - self.bucket_limit
         packed[:, 2] = counts
-        self._zero_rows(rows)
-        self._free_rows(rows)
         return packed
+
+    def _pop_spill(self, rows):
+        """Remove the host-spill cells of ``rows``; returns them as
+        (rows, native dense indices, int64 counts)."""
+        out = ([], [], [])
+        gone = set(int(r) for r in rows)
+        with self._lock:
+            for key in [k for k in self._host_spill if k[0] in gone]:
+                out[0].append(key[0])
+                out[1].append(key[1])
+                out[2].append(self._host_spill.pop(key))
+        return tuple(np.array(a, dtype=np.int64) for a in out)
+
+    def _rehome_spill(self, remap=None) -> None:
+        """Add the spilled cells the last mesh extraction carried under
+        their (remapped) rows; ``_spill_add`` keeps this rank's block."""
+        rows, idx, counts = self._carried
+        self._carried = None
+        if remap is not None and len(rows):
+            rows = np.array([remap[int(x)] for x in rows], dtype=np.int64)
+        if len(rows):
+            self._spill_add(rows, idx, counts)
 
     def apply_permutation(self, perm, m_rows: int) -> None:
         """Survivor repack: row r of the new layout takes old row
         ``perm[r]`` (None or -1 is a hole, left unmapped).  A host table
         permutation: pool pages never move, so compaction costs no
         device traffic.  The host spill follows its rows; the K4f
-        mirrors are rebuilt at the next raw batch."""
+        mirrors are rebuilt at the next raw batch.
+
+        With more than one shard arena, a survivor whose new row lies in
+        another shard cannot keep its old arena's pages: its cells are
+        extracted first (codec kept) and committed under the new id
+        after the permutation, which maps pages in the new shard's arena
+        (the reference's migration).  On a mesh that is a collective of
+        the rank's metric line (``_extract_rows``), made when some
+        survivor changes shard, which every rank sees alike."""
         p = np.array([-1 if x is None else int(x) for x in perm[:m_rows]],
                      dtype=np.int64)
         new = np.nonzero(p >= 0)[0]
         old = p[new]
+        packed = None
+        if self._n_shards > 1:
+            cross = self._shard_of_row(old) != self._shard_of_row(new)
+            movers = old[cross]  # in order of new position, as the JAX loop
+            if len(movers):
+                packed = self._extract_rows(movers, carry=movers)
+                packed[:, 0] = self._remap_ids(packed[:, 0], movers,
+                                               new[cross])
         table = np.full_like(self.page_table, -1)
         codec = np.full_like(self.row_codec, -1)
         table[new] = self.page_table[old]
@@ -938,14 +1209,43 @@ class PagedStore:
                 if nr is not None:
                     spill[(nr, d)] = spill.get((nr, d), 0) + v
             self._host_spill = spill
+        if packed is not None:
+            if self.mesh is not None:
+                self._rehome_spill(remap)
+            if len(packed):
+                self.commit(packed)
+
+    @staticmethod
+    def _remap_ids(ids: np.ndarray, old: np.ndarray,
+                   new: np.ndarray) -> np.ndarray:
+        """``ids`` (each one of ``old``) as the matching ``new`` ids."""
+        order = np.argsort(old)
+        return new[order][np.searchsorted(old[order], ids)].astype(np.int32)
 
     # -- growth and state ------------------------------------------------ #
 
     def grow(self, new_m: int) -> None:
-        """Extend the row space: a host page-table extension, no device
-        data moves (the mirrors are rebuilt at the next K4f launch)."""
+        """Extend the row space: a host page-table extension (the K4f
+        mirrors are rebuilt at the next raw batch).  With more than one
+        shard arena the shard boundaries are redrawn (``new_m //
+        n_shards`` rows a shard): rows whose shard changes migrate, as
+        in ``apply_permutation`` (on a mesh a collective of the rank's
+        metric line), and the overflow row's pages are re-reserved."""
         if new_m <= self.num_metrics:
             return
+        packed = None
+        if self._n_shards > 1:
+            if new_m % self._n_shards:
+                raise ValueError(
+                    f"grown num_metrics={new_m} not divisible by the "
+                    f"{self._n_shards}-way metric axis"
+                )
+            r = np.arange(self.num_metrics, dtype=np.int64)
+            changers = r[r // self.rows_per_shard
+                         != r // (new_m // self._n_shards)]
+            movers = changers[(self.page_table[changers] >= 0).any(axis=1)]
+            if len(movers) or (self.mesh is not None and len(changers)):
+                packed = self._extract_rows(movers, carry=changers)
         extra = new_m - self.num_metrics
         self.page_table = np.concatenate([
             self.page_table,
@@ -955,7 +1255,17 @@ class PagedStore:
             [self.row_codec, np.full(extra, -1, dtype=np.int8)]
         )
         self.num_metrics = new_m
+        self.rows_per_shard = new_m // self._n_shards
         self._drop_mirror()
+        if packed is not None:
+            if self.mesh is not None:
+                self._rehome_spill()
+            if len(packed):
+                self.commit(packed)
+        if self._n_shards > 1 and self.config.overflow_row is not None:
+            # a migrated overflow row gets its reserved pages back
+            # (nothing to do for an unmoved one)
+            self._reserve_overflow_pages(self.config.overflow_row)
 
     def max_cell(self) -> int:
         """Largest single pool count (the restore's headroom check): one
@@ -980,7 +1290,14 @@ class PagedStore:
         self._drop_mirror()
 
     def state(self) -> dict:
-        """Host copies of the store's state (``load_state`` reads it)."""
+        """Host copies of the store's state (``load_state`` reads it).
+        One card only: a mesh's state is a checkpoint's, which waits for
+        ROADMAP Queue 1 item 11c-2."""
+        if self.mesh is not None:
+            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+
+            raise ValueError(f"the store's state unavailable: "
+                             f"{PAGED_MESH_SLICE}")
         with self._lock:
             spill = dict(self._host_spill)
         return {
@@ -993,30 +1310,51 @@ class PagedStore:
         }
 
     def load_state(self, st: dict) -> None:
-        """Replace the store's contents with ``st`` (same pool shape and
-        page size; the row count is the table's)."""
+        """Replace the store's contents with ``st`` (same page size and
+        arena size; the row count is the table's).  ``st`` holds one free
+        list (``free_list``) or one per arena (``free_lists``, a JAX mesh
+        store's, from ``state.paged_state_from_jax``); on a mesh it must
+        hold one per shard of the metric axis, and the rank loads its
+        arena's block of the whole pool and its block's spilled cells
+        (no collective: every rank loads the same state)."""
         pool = np.ascontiguousarray(st["pool"], dtype=np.int32)
-        if pool.shape != tuple(self._pool.shape):
+        frees = st.get("free_lists")
+        if frees is None:
+            frees = [st["free_list"]]
+        if len(frees) != self._n_shards:
+            raise ValueError(
+                f"state holds {len(frees)} page arenas; this store has "
+                f"{self._n_shards}"
+            )
+        want = (self._n_shards * self.shard_pages, self.config.page_size)
+        if pool.shape != want:
             raise ValueError(
                 f"state pool has shape {pool.shape}; this store's is "
-                f"{tuple(self._pool.shape)}"
+                f"{want}"
             )
         table = np.array(st["page_table"], dtype=np.int32, copy=True)
         if table.ndim != 2 or table.shape[1] != self.pages_per_row:
             raise ValueError(f"state page_table has shape {table.shape}")
+        if table.shape[0] % self._n_shards:
+            raise ValueError(
+                f"state page_table of {table.shape[0]} rows does not split "
+                f"over the {self._n_shards}-way metric axis")
         row_codec = np.array(st["row_codec"], dtype=np.int8, copy=True)
         if row_codec.shape != (table.shape[0],):
             raise ValueError(f"state row_codec has shape {row_codec.shape}")
-        free = np.asarray(st["free_list"], dtype=np.int32)
         self.num_metrics = table.shape[0]
+        self.rows_per_shard = self.num_metrics // self._n_shards
         self.page_table, self.row_codec = table, row_codec
-        self._free = free.copy()
-        self._free_n = len(free)
+        self._free = [np.asarray(f, dtype=np.int32).copy() for f in frees]
+        self._free_n = [len(f) for f in self._free]
         self.allocated_pages = int(st["allocated_pages"])
-        self._pool.copy_(torch.from_numpy(pool))
+        base = self._shard * self.shard_pages
+        self._pool.copy_(torch.from_numpy(pool[base:base + self.shard_pages]))
         with self._lock:
-            self._host_spill = {
-                (int(r), int(d)): int(v)
-                for (r, d), v in dict(st["host_spill"]).items()
-            }
+            self._host_spill = {}
+        spill = dict(st["host_spill"])
+        if spill:
+            keys = np.array(list(spill), dtype=np.int64).reshape(-1, 2)
+            self._spill_add(keys[:, 0], keys[:, 1],
+                            np.array(list(spill.values()), dtype=np.int64))
         self._drop_mirror()

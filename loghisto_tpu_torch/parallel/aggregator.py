@@ -122,8 +122,28 @@ them out anew with the accumulator.  The state on a mesh (item 11b-3,
 ROADMAP D11): ``state_dict`` sums the stream partials with their spills
 in int64 and gathers the rows over the metric axis, so it returns the
 single-device state on every rank; ``load_state_dict`` and a checkpoint
-restore put the accumulator's rows on stream index 0 alone.  Still
-waiting: paged storage on a mesh (item 11c).
+restore put the accumulator's rows on stream index 0 alone.
+
+Paged storage on a mesh (item 11c-1, ROADMAP D12): the store is one
+rank's part of the reference's one-controller store (``paging.py``):
+the host half (page table, codecs, free stacks) the same on every rank,
+the pool the rank's metric shard's arena.  Page maps and codec choices
+depend on whole batches, so the transfer worker runs no ingest and no
+collective: it stages the rank's stream row's samples on the host
+(``MeshStage``), and ``merge_packed`` / ``merge_raw`` stage their cell
+batches.  At the next collective entry point (``collect()``, a commit,
+a system query, ``stop()``) the ranks land them (``land_staged``): the
+ranks of a stream row agree on the prefix of its input to take (a MIN),
+cut it into ``batch_size`` batches (folded into cells on the sparse
+transport), agree on the batch counts (a MAX), gather each batch k over
+the stream axis in stream order (the global batch k, the sparse cells
+folded again as the global batch folds), and every rank runs
+``prepare_batch`` / ``translate`` on it and K4f or K4 on its own
+arena.  ``collect()`` then computes the statistics of the rank's
+block from its arena and its block's host spill, and one gather over the
+metric axis gives every rank the set; paged storage needs no stream
+``all_reduce``.  Lifecycle and checkpoints on a paged mesh wait for
+item 11c-2.
 """
 
 from __future__ import annotations
@@ -458,6 +478,96 @@ def make_interval_distributed_step(
     return ingest, collect, make_partial
 
 
+class MeshStage:
+    """ROADMAP D12's host stage of one mesh rank on paged storage: the
+    rank's stream row's input between two collective entry points.
+
+    The transfer worker adds the row's samples in its FIFO order
+    (``add_samples``); ``merge_packed`` / ``merge_raw`` add cell batches
+    (``add_cells``).  ``take(n, c)`` removes the first ``n`` samples,
+    cut into batches of ``batch_size`` (folded into cells with ``fold``,
+    the sparse transport), and the first ``c`` cell batches: a prefix of
+    the row's input, so the ranks of a stream row, which agree on ``n``
+    and ``c`` first, cut the same batches however their flushes fell.
+    Samples are int32 ``[n, 2]`` (id, float32 value bits), cells int64
+    ``[n, 3]`` (id, codec bucket, count).  Nothing here is shed: the
+    stage holds what the rank recorded until an entry point lands it
+    (the aggregator's ``max_staged_samples`` bounds it by refusing new
+    batches instead)."""
+
+    def __init__(self, batch_size: int, fold=None):
+        self.batch_size = int(batch_size)
+        self._fold = fold
+        self._lock = threading.Lock()
+        self._ids: list = []
+        self._values: list = []
+        self._n = 0
+        self._cells: list = []
+        self._cell_counts = 0  # the staged cells' counts summed
+
+    @property
+    def staged_samples(self) -> int:
+        """Samples and cells' counts held (a racy read)."""
+        return self._n + self._cell_counts
+
+    def counts(self) -> tuple:
+        """(staged samples, staged cell batches)."""
+        with self._lock:
+            return self._n, len(self._cells)
+
+    def add_samples(self, ids: np.ndarray, values: np.ndarray) -> None:
+        with self._lock:
+            self._ids.append(ids)
+            self._values.append(values)
+            self._n += len(ids)
+
+    def add_cells(self, cells: np.ndarray) -> None:
+        cells = np.asarray(cells, dtype=np.int64).reshape(-1, 3)
+        with self._lock:
+            self._cells.append(cells)
+            self._cell_counts += int(cells[:, 2].sum())
+
+    def take(self, n: int, c: int):
+        """(sample batches, cell batches): the first ``n`` samples in
+        batches of ``batch_size`` and the first ``c`` cell batches, which
+        leave the stage."""
+        with self._lock:
+            ids = (np.concatenate(self._ids) if self._ids
+                   else np.empty(0, np.int32))
+            values = (np.concatenate(self._values) if self._values
+                      else np.empty(0, np.float32))
+            self._ids, self._values = [ids[n:]], [values[n:]]
+            self._n -= n
+            cells, self._cells = self._cells[:c], self._cells[c:]
+            self._cell_counts -= sum(int(x[:, 2].sum()) for x in cells)
+        batches = []
+        for off in range(0, n, self.batch_size):
+            i = ids[off:min(off + self.batch_size, n)]
+            v = values[off:min(off + self.batch_size, n)]
+            if self._fold is None:
+                batch = np.empty((len(i), 2), dtype=np.int32)
+                batch[:, 0] = i
+                batch[:, 1] = v.astype(np.float32).view(np.int32)
+            else:
+                batch = self._fold(i, v).astype(np.int64)
+            batches.append(batch)
+        return batches, cells
+
+
+def refold_cells(cells: np.ndarray) -> np.ndarray:
+    """int64 ``[n, 3]`` (id, codec bucket, count) cells with the counts of
+    each (id, bucket) summed, one row a cell in key order: the cells a
+    fold of the stream rows' samples together gives."""
+    if not len(cells):
+        return cells
+    keys = (cells[:, 0] << 20) | (cells[:, 1] + (1 << 19))
+    ukeys, inv = np.unique(keys, return_inverse=True)
+    counts = np.zeros(len(ukeys), dtype=np.int64)
+    np.add.at(counts, inv.reshape(-1), cells[:, 2])
+    return np.stack([ukeys >> 20, (ukeys & ((1 << 20) - 1)) - (1 << 19),
+                     counts], axis=1)
+
+
 class TorchAggregator:
     """Device-tier metric engine of the port: record_batch -> transfer
     worker -> K1/K2/K3 into the int32 [M, B] accumulator, or K4f/K4 into
@@ -520,7 +630,13 @@ class TorchAggregator:
         happens at the collective point: the registry grows at once, the
         new rows' samples and cells wait on the host, and ``collect()``
         lays the blocks out anew before its statistics
-        (``_mesh_regrow``).  Dense storage only (paged waits for 11c)."""
+        (``_mesh_regrow``).  On paged storage (ROADMAP D12) the rank's
+        store holds its metric shard's arena and every rank the whole
+        host half; the worker stages the row's samples and cells
+        (``MeshStage``) and ``collect()`` lands them first, each global
+        batch translated on every rank; the ``spill_threshold`` holds
+        for the whole interval, which every rank counts alike.
+        Lifecycle and checkpoints on a paged mesh wait for 11c-2."""
         if mesh is not None and device is None:
             device = mesh.device_type  # a rank aggregates on its mesh device
         self.device = resolve_device(device)
@@ -661,6 +777,9 @@ class TorchAggregator:
         self._requeue_count = 0
         # the host buffer's bound while the device is slow or down
         self.max_pending_samples = 32 * batch_size
+        # D12: what a paged mesh rank holds on the host for its next
+        # collective entry point; record_batch refuses a batch past it
+        self.max_staged_samples = 256 * batch_size
         self.retry_cooldown = 1.0  # seconds between device retries
         self._device_down_until = 0.0
         # samples accepted by the native buffer since its last drain
@@ -727,12 +846,19 @@ class TorchAggregator:
         # real ring
         self.obs_recorder = NULL_RECORDER
 
+        # D12's host stage of a mesh rank on paged storage
+        self._stage: Optional[MeshStage] = None
         if self.storage == "paged":
             self.paged = PagedStore(
                 num_metrics, config.bucket_limit, config.precision,
-                config=self.paged_config, device=self.device,
+                config=self.paged_config, device=self.device, mesh=mesh,
             )
             self._acc = None
+            if mesh is not None:
+                self._stage = MeshStage(
+                    batch_size, None if self.fused_paged else (
+                        lambda i, v: fold_packed(i, v, config.bucket_limit,
+                                                 config.precision)))
         else:
             self._acc = torch.zeros(
                 (self._rows, config.num_buckets), dtype=torch.int32,
@@ -806,8 +932,18 @@ class TorchAggregator:
     def _spill_at(self) -> int:
         """This rank's spill point: the stream ``all_reduce`` sums
         ``n_stream`` partials, so each stays under its share of
-        ``spill_threshold``."""
+        ``spill_threshold``.  Paged storage keeps no partials (every rank
+        lands the global batches, D12): the whole threshold."""
+        if self.paged is not None:
+            return self.spill_threshold
         return max(1, self.spill_threshold // self._n_stream)
+
+    @property
+    def staged_samples(self) -> int:
+        """Samples (and cells' counts) a mesh rank on paged storage holds
+        on the host for the next collective entry point (D12); 0
+        elsewhere."""
+        return 0 if self._stage is None else self._stage.staged_samples
 
     @property
     def kernel_launches(self) -> dict:
@@ -930,6 +1066,8 @@ class TorchAggregator:
         values = np.asarray(values, dtype=np.float32)
         if ids.shape != values.shape:
             raise ValueError("ids and values must have the same shape")
+        if self._stage is not None:
+            self._refuse_past_stage_cap(len(ids))
         if self._cell_store is not None:
             self._preagg_record(ids, values)
             return
@@ -952,6 +1090,24 @@ class TorchAggregator:
             should_flush = self._pending_count >= self.batch_size
         if should_flush:
             self.flush()
+
+    def _refuse_past_stage_cap(self, n: int) -> None:
+        """D12's bound on a paged mesh rank: the stage, the host buffer
+        and the transfer queue together hold at most
+        ``max_staged_samples`` samples (cells count their counts), so a
+        batch that would pass it raises, whole and untaken, until a
+        collective entry point (``collect()``, a commit, a query) lands
+        the stage.  Nothing staged is ever shed."""
+        held = (self._stage.staged_samples + self.pending_samples
+                + self._xfer_queued_samples)
+        if held + n > self.max_staged_samples:
+            raise RuntimeError(
+                f"paged mesh rank stage full: {held} samples held on the "
+                f"host for the next collective entry point, {n} more "
+                f"would pass max_staged_samples="
+                f"{self.max_staged_samples}; call collect() (or commit, "
+                "or query) on every rank to land them"
+            )
 
     @property
     def pending_samples(self) -> int:
@@ -1211,6 +1367,14 @@ class TorchAggregator:
 
     def _process_xfer_item(self, item: tuple) -> None:
         kind, a, b, n, force = item
+        if self._stage is not None:
+            # D12: a paged mesh rank stages; the entry points land
+            if kind == "packed":
+                self._stage.add_cells(a)
+            else:
+                self._stage.add_samples(a, b)
+                self._xfer_samples_shipped += n
+            return
         if kind == "packed":
             self._xfer_uploads += 1
             self._xfer_bytes += a.nbytes
@@ -1399,7 +1563,10 @@ class TorchAggregator:
         exact at any magnitude.  Caller holds _dev_lock.  Paged storage
         keeps its spill as the store's sparse host dict."""
         ids = np.asarray(ids, dtype=np.int64)
-        keep = (ids >= 0) & (ids < self._rows)
+        # paged storage takes global ids (a mesh rank's store keeps its
+        # block's), a dense mesh rank its block's local ones
+        keep = (ids >= 0) & (ids < (self.num_metrics if self.paged is not None
+                                    else self._rows))
         bl = self.config.bucket_limit
         cols = np.clip(np.asarray(buckets, dtype=np.int64)[keep], -bl, bl) + bl
         weights = np.asarray(weights, dtype=np.int64)[keep]
@@ -1433,6 +1600,13 @@ class TorchAggregator:
             weights.append(counts)
         if not ids:
             return
+        if self._stage is not None:
+            # D12: the row's cells wait for the next entry point
+            self._stage.add_cells(np.stack([np.concatenate(ids),
+                                            np.concatenate(bidx),
+                                            np.concatenate(weights)],
+                                           axis=1))
+            return
         with self._dev_lock:
             self._merge_cells_locked(np.concatenate(ids),
                                      np.concatenate(bidx),
@@ -1446,8 +1620,9 @@ class TorchAggregator:
         would reach ``spill_threshold``, or any weight is >= 2^30, the
         cells go to the exact int64 host spill instead.  Caller holds
         _dev_lock (the fused committer's spill fallback enters here).  A
-        mesh rank keeps the cells of its block."""
-        if self.mesh is not None:
+        dense mesh rank keeps the cells of its block; on a paged mesh the
+        cells are a global batch (D12), which every rank translates."""
+        if self.mesh is not None and self.paged is None:
             self._stash_late_cells_locked(ids_np, bidx_np, weights_np)
             lo = self._row0
             keep = (ids_np >= lo) & (ids_np < lo + self._rows)
@@ -1662,6 +1837,14 @@ class TorchAggregator:
 
         with self._dev_lock:
             self.registry.grow(new_m)
+            if self.paged is not None:
+                # the store redraws its shard blocks and migrates the rows
+                # that change shard (a collective of the metric line); the
+                # stage still holds the new rows' samples (D12)
+                self.paged.grow(new_m)
+                self.num_metrics = new_m
+                self.stats_snapshot = None
+                return
             acc = regrown(self._acc).to(self.device)
             if mesh_reduce(self.mesh, [self._spill is not None], max_,
                            (METRIC_AXIS,))[0]:
@@ -1685,6 +1868,134 @@ class TorchAggregator:
         with self._dev_lock:
             for cells in late_cells:
                 self._merge_cells_locked(*cells)
+
+    def land_staged(self) -> None:
+        """ROADMAP D12, at a collective entry point of a mesh rank on
+        paged storage (nothing elsewhere): the stage's batches, gathered
+        over the stream axis, land on every rank's host half and arena.
+        After a forced flush and the registry's growth
+        (``_mesh_regrow``) the ranks of each stream row agree on the
+        prefix of the row's input to take (a MIN over the metric line),
+        cut into ``batch_size`` batches, then on the sample and cell
+        batch counts (a MAX over the mesh; a row with fewer batches adds
+        empty ones); batch
+        k of every stream row, in stream order, is the global batch k:
+        raw samples go through ``prepare_batch`` and K4f in
+        ``batch_size`` chunks, the sparse transport's cells are folded
+        again as the global batch folds and committed (translate, K4),
+        as are the ``merge_packed`` / ``merge_raw`` cell batches after
+        them.  A collective of every rank of the mesh."""
+        if self._stage is None:
+            return
+        import torch.distributed as dist
+
+        self.flush(force=True)
+        # the registry's growth first: the staged ids may name new rows
+        self._mesh_regrow()
+        # a prefix every rank of the stream row holds (MIN over the
+        # metric line), so the row's batches are the same on each
+        n, c = mesh_reduce(self.mesh, list(self._stage.counts()),
+                           dist.ReduceOp.MIN, (METRIC_AXIS,))
+        samples, cells = self._stage.take(n, c)
+        k_s, k_c = mesh_reduce(self.mesh, [len(samples), len(cells)],
+                               dist.ReduceOp.MAX)
+        raw = self.fused_paged
+        for batch in self._gather_batches(samples, k_s, 2 if raw else 3,
+                                          np.int32 if raw else np.int64):
+            with self._dev_lock:
+                if raw:
+                    self._land_raw_locked(
+                        batch[:, 0].copy(),
+                        batch[:, 1].copy().view(np.float32))
+                else:
+                    self._land_cells_locked(refold_cells(batch))
+        for batch in self._gather_batches(cells, k_c, 3, np.int64):
+            with self._dev_lock:
+                self._land_cells_locked(batch)
+
+    def _gather_batches(self, batches: list, k: int, width: int,
+                        dtype) -> list:
+        """The ``k`` global batches of this rank's stream line: batch j of
+        every stream row (an empty one past a row's last), concatenated
+        in stream order.  Two collectives of the line, the batch sizes'
+        gather and one of the data, each row's padded to the longest
+        (none when ``k`` is 0; the second none when every batch is
+        empty)."""
+        if not k:
+            return []
+        sizes = [len(b) for b in batches] + [0] * (k - len(batches))
+        per = gather_parts(self.mesh, torch.tensor(sizes, dtype=torch.int64,
+                                                   device=self.device),
+                           STREAM_AXIS).cpu().numpy().reshape(-1, k)
+        longest = int(per.sum(axis=1).max())
+        if not longest:
+            return [np.empty((0, width), dtype=dtype)] * k
+        part = np.zeros((longest, width), dtype=dtype)
+        if batches:
+            data = np.concatenate(batches)
+            part[:len(data)] = data
+        whole = gather_parts(self.mesh, torch.from_numpy(part).to(
+            self.device), STREAM_AXIS).cpu().numpy()
+        starts = np.arange(len(per)) * longest
+        offs = starts[:, None] + np.concatenate(
+            [np.zeros((len(per), 1), np.int64), np.cumsum(per, axis=1)[:, :-1]],
+            axis=1)
+        return [np.concatenate([whole[offs[r, j]:offs[r, j] + per[r, j]]
+                                for r in range(len(per))])
+                for j in range(k)]
+
+    def _land_raw_locked(self, ids: np.ndarray, values: np.ndarray) -> None:
+        """One global raw batch on a paged mesh rank (caller holds
+        _dev_lock): ``prepare_batch`` on all of it, then K4f on the
+        rank's arena in ``batch_size`` chunks, with the spill check per
+        chunk.  A chunk that fails takes the device-failure handler and
+        raises: ``prepare_batch`` already changed every rank's host half
+        for the whole batch, so neither the one-card route's requeue (a
+        later ``prepare_batch`` on this rank alone) nor a fold of the
+        rest on the host would keep the rank's arena what the reference
+        holds.  The rank's arena then lacks the batch's rest; the mesh
+        has to be rebuilt."""
+        ids, _ = self.paged.prepare_batch(ids, values)
+        bs, n = self.batch_size, len(ids)
+        ring = self._staging_ring
+        if ring is None or ring.slot_samples != bs:
+            ring = self._staging_ring = IngestStagingRing(
+                bs, self.device, depth=self.staging_depth)
+        for off in range(0, n, bs):
+            try:
+                inj = self.fault_injector
+                if inj is not None:
+                    inj.check("agg.ingest")
+                ids_dev, values_dev = ring.stage(ids[off:off + bs],
+                                                 values[off:off + bs])
+                self.paged.ingest_raw(ids_dev, values_dev)
+            except Exception as exc:
+                self._on_device_failure_locked()
+                raise RuntimeError(
+                    f"K4f failed on a paged mesh rank: {n - off} samples "
+                    "of a global batch did not land in its arena"
+                ) from exc
+            self._device_down_until = 0.0
+            self._interval_ingested += min(bs, n - off)
+            if self._interval_ingested >= self._spill_at:
+                self._spill_fold_locked()
+
+    def _land_cells_locked(self, cells: np.ndarray) -> None:
+        """One global cell batch (int64 ``[n, 3]``) on a paged mesh rank
+        (caller holds _dev_lock): ``_merge_cells_locked``'s envelope
+        check, then translate and K4 on the rank's arena."""
+        if len(cells):
+            self._xfer_uploads += 1
+            self._xfer_bytes += len(cells) * 12
+            self._merge_cells_locked(cells[:, 0], cells[:, 1], cells[:, 2])
+
+    def _paged_mesh_stats(self, stats: dict) -> dict:
+        """The statistics of every row on every rank: the block's (from
+        the rank's arena and its block's spill) gathered over the metric
+        axis, three gathers of the metric line."""
+        return {key: gather_parts(self.mesh, torch.as_tensor(
+            stats[key], device=self.device)).cpu().numpy()
+            for key in ("counts", "sums", "percentiles")}
 
     def _mesh_stats(self, acc, spill, ps: list) -> dict:
         """The global statistics of a mesh interval, on every rank: the
@@ -1713,8 +2024,10 @@ class TorchAggregator:
             dist.all_reduce(acc, group=stream)
             block = dense_stats(acc, np.asarray(ps, dtype=np.float32), bl,
                                 prec)
-        return {key: gather_parts(self.mesh, torch.as_tensor(block[key]))
-                .cpu().numpy() for key in ("counts", "sums", "percentiles")}
+        # a host block (the spill route) goes to the card under NCCL
+        return {key: gather_parts(self.mesh, torch.as_tensor(
+            block[key], device=self.device)).cpu().numpy()
+            for key in ("counts", "sums", "percentiles")}
 
     def collect(self, reset: bool = True) -> ProcessedMetricSet:
         """Statistics of every registered metric with the reference's
@@ -1727,6 +2040,7 @@ class TorchAggregator:
             self.flush(force=True)
             if self.mesh is not None:
                 self._mesh_regrow()
+                self.land_staged()
             labels, stats = self._interval_stats(reset)
         return self._named(labels, stats, reset)
 
@@ -1758,7 +2072,9 @@ class TorchAggregator:
                 self._interval_ingested = 0
                 self._spilled_samples = 0
                 self.stats_snapshot = None
-        if self.mesh is not None:
+        if self.mesh is not None and self.paged is not None:
+            stats = self._paged_mesh_stats(stats)
+        elif self.mesh is not None:
             stats = self._mesh_stats(acc, spill, ps)
         elif self.paged is None:
             stats = self._dense_stats(acc, spill, ps)
@@ -1825,8 +2141,9 @@ class TorchAggregator:
         """Register the aggregator's gauges on a MetricSystem, under the
         reference's ``tpu.*`` names so dashboards line up: device memory
         in use (``torch.cuda.memory_allocated``; 0 on the CPU), the last
-        statistics time, sheds, bridge evictions, spills, and on paged
-        storage the pool's occupancy."""
+        statistics time, sheds, bridge evictions, spills, on paged
+        storage the pool's occupancy, and on a paged mesh the host
+        stage (``tpu.MeshStagedSamples``, the port's own)."""
         device = self.device
 
         def hbm_bytes() -> float:
@@ -1848,13 +2165,39 @@ class TorchAggregator:
             gauges["tpu.StagingDropped"] = lambda: float(buf.dropped)
         if self.paged is not None:
             st = self.paged
+
+            def alloc_rate(state={"n": 0, "t": None}):
+                # pages a second since the previous scrape
+                now, n = time.monotonic(), int(st.allocated_pages)
+                last_n, last_t = state["n"], state["t"]
+                state["n"], state["t"] = n, now
+                if last_t is None or now <= last_t:
+                    return 0.0
+                return max(0.0, (n - last_n) / (now - last_t))
+
             gauges.update({
-                "tpu.PagedOccupiedPages": lambda: float(st.allocated_pages),
+                "tpu.PagedOccupiedPages": lambda: float(st.occupied_pages),
+                "tpu.PagedFreePages": lambda: float(st.free_pages),
                 "tpu.PagedHbmBytes": lambda: float(st.hbm_bytes()),
                 "tpu.PagedSpilledCells": lambda: float(st.spilled_cells),
+                "tpu.PagedLastCommitH2DBytes":
+                    lambda: float(st.last_h2d_bytes),
+                "paging.PageAllocRate": alloc_rate,
+                "paging.SpilledCells": lambda: float(st.spilled_cells),
                 "paging.PoolSaturation": lambda: float(st.pool_saturation()),
                 "paging.AllocatedPages": lambda: float(st.allocated_pages),
+                # the per-shard arenas the saturation is the worst of
+                # (host state: the same on every rank of a mesh)
+                "paging.ShardFreePagesMin":
+                    lambda: float(min(st.shard_free_pages())),
             })
+            for k in range(st._n_shards):
+                gauges[f"paging.Shard{k}Occupancy"] = (
+                    lambda k=k: float(st.shard_occupancy()[k]))
+        if self._stage is not None:
+            # the port's own (D12): the paged mesh rank's host stage
+            gauges["tpu.MeshStagedSamples"] = (
+                lambda: float(self.staged_samples))
         for name, fn in gauges.items():
             ms.register_gauge_func(name, fn)
 
@@ -1875,6 +2218,10 @@ class TorchAggregator:
         any rank spilled or a cell passes int32.  With ``first_only``
         (a checkpoint's save) the sum and the gather go to rank (0, 0)
         alone, and every other rank returns None."""
+        if self.mesh is not None and self.paged is not None:
+            raise ValueError(
+                f"the aggregator's state unavailable: "
+                f"{dispatch.PAGED_MESH_SLICE}")
         self.flush(force=True)
         if self.mesh is not None:
             return self._mesh_state_dict(first_only)
@@ -2015,17 +2362,20 @@ class TorchAggregator:
 
     def _load_paged_state(self, state: dict) -> None:
         """The paged half of ``load_state_dict``: a fresh store at the
-        state's pool shape, then its contents."""
+        state's arena shape, then its contents (on a mesh, the rank's
+        arena of a state with one arena per metric shard; no
+        collective)."""
         pst = state["paged"]
         pool_shape = np.shape(pst["pool"])
         m = np.shape(pst["page_table"])[0]
+        arenas = len(pst.get("free_lists") or [None])
         config = dataclasses.replace(
-            self.paged_config, pool_pages=pool_shape[0],
+            self.paged_config, pool_pages=pool_shape[0] // arenas,
             page_size=pool_shape[1],
         )
         store = PagedStore(
             m, self.config.bucket_limit, self.config.precision,
-            config=config, device=self.device,
+            config=config, device=self.device, mesh=self.mesh,
         )
         store.load_state(pst)
         self.flush(force=True)

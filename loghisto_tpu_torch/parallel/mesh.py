@@ -63,6 +63,15 @@ accumulator's rows on stream index 0 alone (``is_stream_lead``).  A
 checkpoint's save gathers to rank (0, 0) alone (``first_only``): the
 other ranks send their parts and receive nothing.
 
+ROADMAP D12, paged storage on a mesh (item 11c-1).  Page maps and codec
+choices follow whole batches, so a rank stages its stream row's input
+and, at a collective entry point, every rank gathers each batch over
+the stream axis (``gather_rows``, ragged) and translates it whole, as
+the reference's one controller does; the committer gathers the rows'
+intervals (``all_gather_objects``) and merges them.  Every rank then
+holds the same host page table, and its pool is its metric shard's
+arena (``pool_sharding``).
+
 ``collective_bytes`` counts the bytes of the inputs this rank hands to
 the collectives of this module over lines of more than one rank, once a
 call (what the backend's algorithm moves in all may differ); the rank
@@ -332,6 +341,43 @@ def gather_objects(mesh, obj, axis: str = STREAM_AXIS):
         _count_sent(group, len(pickle.dumps(obj)))
     out = [None] * axis_size(mesh, axis) if first else None
     dist.gather_object(obj, out, dst=_first_of(group), group=group)
+    return out
+
+
+def gather_rows(mesh, rows: np.ndarray, axis: str = METRIC_AXIS):
+    """The host ``rows`` (dim 0 of any length; the same trailing shape and
+    dtype on every rank) of every rank of this rank's line along
+    ``axis``, concatenated in coordinate order, on the host: the lengths
+    gathered, each part padded to the longest, then one ``all_gather``.
+    Two collectives of that line (one when every part is empty)."""
+    rows = np.ascontiguousarray(rows)
+    dev = mesh_device(mesh)
+    lens = gather_parts(mesh, torch.tensor([len(rows)], dtype=torch.int64,
+                                           device=dev), axis).cpu().numpy()
+    width = int(lens.max())
+    out = rows[:0].copy()
+    if width:
+        part = np.zeros((width, *rows.shape[1:]), dtype=rows.dtype)
+        part[:len(rows)] = rows
+        whole = gather_parts(mesh, torch.from_numpy(part).to(dev),
+                             axis).cpu().numpy()
+        out = np.concatenate([whole[k * width:k * width + int(n)]
+                              for k, n in enumerate(lens)])
+    return out
+
+
+def all_gather_objects(mesh, obj, axis: str = STREAM_AXIS) -> list:
+    """``obj`` (any picklable host value) of every rank of this rank's
+    line along ``axis``, in coordinate order, on every rank of it.  One
+    ``all_gather_object``, a collective of that line."""
+    import pickle
+
+    import torch.distributed as dist
+
+    group = axis_group(mesh, axis)
+    _count_sent(group, len(pickle.dumps(obj)))
+    out = [None] * axis_size(mesh, axis)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -28,7 +28,11 @@ reads off a JAX ``TPUAggregator(storage="paged").paged``:
     allocated_pages = store.allocated_pages
 
 After the load, the port's ``collect()`` equals the JAX aggregator's
-``collect()`` from the same state.
+``collect()`` from the same state.  A JAX store on a mesh has one arena
+per metric shard (``free_lists`` one list each, the pool the arenas in
+shard order): its state loads onto any rank of a port mesh with as many
+metric shards, each rank taking its arena's block of the pool and its
+block's spilled cells (ROADMAP D12).
 
 ``wheel_state_from_jax`` reads a JAX ``loghisto_tpu.window.TimeWheel``
 (duck-typed: its rings through ``np.asarray``, its tier metadata,
@@ -123,9 +127,11 @@ def paged_state_from_jax(
     precision: int = PRECISION,
 ) -> dict:
     """Build a paged ``TorchAggregator`` state dict from a JAX paged
-    store's pool, page table, codecs, host spill, free list and
+    store's pool, page table, codecs, host spill, free lists and
     allocation count, plus the aggregator's names and lifetime store.
-    The port is single-device: ``free_lists`` must hold one arena."""
+    ``free_lists`` holds one list per arena: one for a single-device
+    store, one per metric shard for a mesh store, whose state then loads
+    onto any rank of a port mesh with that many metric shards."""
     pool = np.array(pool, dtype=np.int32, copy=True)
     table = np.array(page_table, dtype=np.int32, copy=True)
     if pool.ndim != 2:
@@ -135,10 +141,15 @@ def paged_state_from_jax(
             f"page_table {table.shape} does not cover {2 * bucket_limit + 1} "
             f"buckets in pages of {pool.shape[1]}"
         )
-    if len(free_lists) != 1:
+    if not len(free_lists) or pool.shape[0] % len(free_lists):
         raise ValueError(
-            f"{len(free_lists)} page arenas: the port's store is "
-            "single-device (one arena)"
+            f"a pool of {pool.shape[0]} pages does not split into "
+            f"{len(free_lists)} page arenas"
+        )
+    if table.shape[0] % len(free_lists):
+        raise ValueError(
+            f"a page table of {table.shape[0]} rows does not split over "
+            f"{len(free_lists)} page arenas"
         )
     names = list(names)
     if len(names) > table.shape[0]:
@@ -158,7 +169,9 @@ def paged_state_from_jax(
             "host_spill": {
                 (int(r), int(d)): int(v) for (r, d), v in host_spill.items()
             },
-            "free_list": [int(x) for x in free_lists[0]],
+            **({"free_list": [int(x) for x in free_lists[0]]}
+               if len(free_lists) == 1 else
+               {"free_lists": [[int(x) for x in f] for f in free_lists]}),
             "allocated_pages": int(allocated_pages),
         },
         "names": names,

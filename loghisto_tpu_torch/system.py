@@ -107,8 +107,17 @@ ResilienceConfig(checkpoint_path=, journal_path=)`` (ROADMAP D11, item
 checkpoint are collectives too; rank (0, 0) writes the checkpoint, each
 stream row's rank at metric index 0 its row's journal
 (``<journal_path>.row<s>of<n>``), and a crash on one mesh shape
-recovers onto any other, or onto one device, with no option.  Paged
-storage on a mesh waits for ROADMAP Queue 1 item 11c.
+recovers onto any other, or onto one device, with no option.
+
+Paged storage on a mesh (``storage="paged"``, or an "auto" that
+resolves to it; ROADMAP D12, item 11c-1): each rank's store holds its
+metric shard's page arena and the whole host page table; the
+aggregator stages the rank's samples on the host, and the collective
+calls above (and ``stop()``) land them first; the committer commits the
+stream rows' merged interval on every rank (K4 into the arena, K3 into
+the ring blocks, K5 views).  ``lifecycle=`` and ``resilience=`` on a
+paged mesh wait for item 11c-2 and raise; ``anomaly=`` keeps the
+reference's dense-only refusal.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions (a mesh's device type is
@@ -228,6 +237,11 @@ class TorchMetricSystem(MetricSystem):
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
+        for what, cfg in (("lifecycle", lifecycle),
+                          ("resilience", resilience)):
+            if mesh is not None and cfg is not None and cfg is not False:
+                self._refuse_paged_mesh(what, num_metrics, config,
+                                        transport, storage, mesh)
         # resilience first, so every component below is built wired
         self.resilience: Optional[ResilienceConfig] = None
         self.fault_injector = None
@@ -349,6 +363,23 @@ class TorchMetricSystem(MetricSystem):
         if observability is not None and observability is not False:
             self._build_observability(observability)
         self._attach_bridges()
+
+    @staticmethod
+    def _refuse_paged_mesh(what, num_metrics, config, transport, storage,
+                           mesh) -> None:
+        """``lifecycle=`` or ``resilience=`` with storage that resolves to
+        paged on a mesh raises the 11c-2 sentence before anything is
+        built (the aggregator's own resolution, with ``device`` the
+        mesh's)."""
+        fused_ok = dispatch.fused_paged_incapability(
+            num_metrics, config.num_buckets, transport=transport,
+            platform=mesh.device_type, mesh=mesh) is None
+        resolved, _ = dispatch.resolve_storage_path(
+            storage, num_metrics, config.num_buckets, mesh.device_type,
+            transport=transport, fused_ok=fused_ok, mesh=mesh)
+        if resolved == "paged":
+            raise ValueError(f"{what} unavailable: "
+                             f"{dispatch.PAGED_MESH_SLICE}")
 
     def _build_observability(self, observability) -> None:
         """One span ring for every site, the ``obs.SpansDropped`` gauge,
@@ -610,6 +641,8 @@ class TorchMetricSystem(MetricSystem):
         queries push its own queue); nothing off a mesh."""
         if self.committer is not None:
             self.committer.drain()
+        # D12: a paged mesh rank's staged batches land (nothing elsewhere)
+        self.aggregator.land_staged()
 
     # -- windowed retention and rules (requires retention=) -------------- #
 
@@ -788,6 +821,8 @@ class TorchMetricSystem(MetricSystem):
                 self.committer.drain(final=True)
             elif self.retention is not None:
                 self.retention.drain(final=True)
+            # D12: a paged mesh rank's staged batches land (a collective)
+            self.aggregator.land_staged()
         self.aggregator.close()
         if self.recovery is not None:
             # after the bridges drained: the final checkpoint holds every

@@ -111,6 +111,7 @@ def save(
     after one full barrier (``flush(force=True)``), the one
     ``state_dict`` takes."""
     mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
+    _refuse_paged_mesh(mesh, metric_system, aggregator)
     if mesh is not None:
         return _mesh_save(path, mesh, metric_system, aggregator, lifecycle,
                           anomaly, seq_watermark, fault_injector)
@@ -288,6 +289,18 @@ def _write(path: str, payload: dict, fault_injector) -> None:
         raise
 
 
+def _refuse_paged_mesh(mesh, metric_system, aggregator) -> None:
+    """A save or restore of paged storage on a mesh raises the sentence
+    of ROADMAP Queue 1 item 11c-2, on every rank alike."""
+    agg = aggregator
+    if agg is None and metric_system is not None:
+        agg = getattr(metric_system, "aggregator", None)
+    if mesh is not None and getattr(agg, "paged", None) is not None:
+        from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+
+        raise ValueError(f"checkpoint unavailable: {PAGED_MESH_SLICE}")
+
+
 def _mesh_of(*parts):
     """The mesh of the first part (a system, an aggregator or a manager)
     that runs on one, else None."""
@@ -340,6 +353,7 @@ def restore(
     file.  On a mesh a collective call (the module docstring has the
     rules)."""
     mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
+    _refuse_paged_mesh(mesh, metric_system, aggregator)
     with np.load(path, allow_pickle=False) as data:
         version = int(data["version"])
         if version > FORMAT_VERSION:

@@ -32,10 +32,10 @@ stream.  Rank (s, m) receives stream row s's slice of each batch:
     the blocks at the next ``collect()`` (8 -> 16 -> 32 rows, rows moving
     between ranks), equal to the JAX mesh aggregator's growth;
   * the refusals: an M the metric axis does not divide, a mesh larger
-    than the world, paged storage explicit or resolved by "auto" (11c),
-    multirow; the state on a mesh round-trips since 11b-3 (ROADMAP
-    D11); the fused commit of a pair on one mesh lands an interval
-    (11b-1).
+    than the world, multirow; paged storage, explicit or resolved by
+    "auto", constructs since 11c-1 (ROADMAP D12); the state on a mesh
+    round-trips since 11b-3 (ROADMAP D11); the fused commit of a pair
+    on one mesh lands an interval (11b-1).
 """
 
 import jax.numpy as jnp
@@ -327,10 +327,10 @@ def test_refusals_in_the_reference_words(shape, ranks):
             for key in ("refuse.step_rows", "refuse.interval_rows",
                         "refuse.agg_rows"):
                 assert str(r[key]) == ""
-        assert "11c" in str(r["refuse.paged"])
-        assert "11c" in str(r["refuse.auto_paged"])
-        assert "storage='auto' resolves to paged" in str(
-            r["refuse.auto_paged"])
+        # paged storage on a mesh since 11c-1 (ROADMAP D12): explicit,
+        # and "auto" at the crossover, construct
+        assert str(r["refuse.paged"]) == ""
+        assert str(r["refuse.auto_paged"]) == ""
         assert "single-device" in str(r["refuse.multirow"])
         # the state on a mesh round-trips since 11b-3 (ROADMAP D11)
         assert str(r["refuse.state"]) == ""

@@ -1,7 +1,8 @@
 """The multi-rank launcher of the port's mesh tests and the scenarios each
 rank runs (``tests/test_torch_mesh.py``, ``test_torch_multihost.py``,
-``test_torch_firehose.py`` and ``test_torch_sketches.py`` hold the
-results against the JAX package in the test process).
+``test_torch_firehose.py``, ``test_torch_sketches.py`` and the mesh
+commit, lifecycle, recovery and paged files hold the results against
+the JAX package in the test process).
 
 ``launch(tmp, world, job, inputs)`` starts ``world`` fresh interpreters
 that rendezvous through a ``FileStore`` in ``tmp`` (gloo on the CPU,
@@ -358,11 +359,11 @@ def _mesh_refusals(out, mesh):
         max_metrics=odd))
     out["refuse.paged"] = _raises(lambda: TorchAggregator(
         num_metrics=MESH_M, config=cfg, device="cpu", mesh=mesh,
-        max_metrics=MESH_M, storage="paged"))
+        max_metrics=MESH_M, storage="paged").close())
     big = 1 << 16
     out["refuse.auto_paged"] = _raises(lambda: TorchAggregator(
         num_metrics=big, config=cfg, device="cpu", mesh=mesh,
-        max_metrics=big, transport="sparse"))
+        max_metrics=big, transport="sparse").close())
     out["refuse.multirow"] = _raises(lambda: TorchAggregator(
         num_metrics=MESH_M, config=cfg, device="cpu", mesh=mesh,
         max_metrics=MESH_M, ingest_path="multirow"))
@@ -1050,7 +1051,7 @@ def _mc_refusals(out, mesh) -> None:
         out["sys_recovery.checkpoints"] = np.array(
             ms.recovery.checkpoints_taken)
     out["refuse.sys_paged"] = _raises(lambda: TorchMetricSystem(
-        storage="paged", **kw))
+        storage="paged", **kw).stop())
     odd = 2 * axis_size(mesh, METRIC_AXIS) + 1
     out["dispatch.reasons"] = np.array([
         str(dispatch.mesh_commit_incapability(mesh, MC_M)),
@@ -1775,6 +1776,494 @@ def _mesh_recovery_job(out, rank, arg, inputs):
                   os.path.join(one, "jl.log"), key="onerow")
 
 
+# -- paged storage on a mesh (tests/test_torch_mesh_paged.py) -----------------
+
+MP_SHAPES = ((2, 1), (1, 2), (2, 2))
+MP_M = 64
+MP_BL = 128
+MP_POOL = 256
+MP_SAT_POOL = 12  # an arena that saturates: cells spill to the host
+MP_BATCH = 512  # a row's share of each global batch (the batch_size)
+MP_BATCHES = 3  # global batches an interval
+MP_CONSERVE = 40  # batches staged before one collect(): past the 32 bound
+MP_CONSERVE_BATCH = 64
+MP_STAGE_CAP = 3  # batches the stage-cap scenario's stage holds
+MP_PS = (0.0, 0.5, 0.9, 0.99, 1.0)
+# the committer and the system: a wide bucket axis, so codecs differ
+MP_C_BL = 512
+MP_C_POOL = 256
+MP_C_SAT_POOL = 24
+MP_C_TIERS = ((4, 1), (2, 3))
+MP_C_CHUNK = 32  # cells a commit step: an interval takes several
+MP_C_INTERVALS = 5
+MP_FLIP_ROW = 5  # first touched in both stream rows (the codec flip)
+MP_C_QUERIES = (("*", None), ("p*", 2.5), ("p5", None))
+MP_STREAM_ROWS = 2  # inputs are made for up to two stream rows
+
+
+def mp_names(m: int = MP_M) -> list:
+    return [f"p{k}" for k in range(m)]
+
+
+def mp_paged_config(cls, pool: int, **kw):
+    """The committer's paged config: one dense page a row at most, a
+    narrow body, so first-touch cells choose among all three codecs."""
+    return cls(pool_pages=pool, dense_page_budget=1, body_halfwidth=256,
+               **kw)
+
+
+def mp_raw(raw_cls, rows, i, names=None):
+    """Interval i holding the merged cells (name index, codec bucket,
+    count) of ``rows`` ((s, cells) pairs), every name in order."""
+    return mc_raw(raw_cls, rows, names or mp_names(), i)
+
+
+def _put_store(out, key, st) -> None:
+    """A store's arena and host half; its block's spilled cells."""
+    out[f"{key}.arena"] = st._pool.cpu().numpy().copy()
+    out[f"{key}.table"] = st.page_table.copy()
+    out[f"{key}.codec"] = st.row_codec.copy()
+    frees = st.free_lists()
+    out[f"{key}.free"] = np.array([x for f in frees for x in f], np.int64)
+    out[f"{key}.free_n"] = np.array([len(f) for f in frees], np.int64)
+    spill = sorted((r, d, v) for (r, d), v in st._host_spill.items())
+    out[f"{key}.spill"] = np.array(spill, np.int64).reshape(-1, 3)
+    out[f"{key}.counters"] = np.array([
+        st.allocated_pages, st.spilled_cells, st.overflowed_cells,
+        st.free_pages, st.occupied_pages, st.hbm_bytes(),
+        st.rows_per_shard, st.num_metrics, st.total_pages])
+    out[f"{key}.occ"] = np.array(st.shard_occupancy() + [
+        st.pool_saturation()])
+
+
+def _mp_store(out, mesh, inputs) -> None:
+    """The store on its own: the commit, a saturated arena with and
+    without the overflow row, the raw route, growth and a cross-shard
+    permutation, each rank's arena and host half after each."""
+    from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
+
+    def store(m, pool, **kw):
+        return PagedStore(m, MP_BL, config=PagedStoreConfig(
+            pool_pages=pool, **kw), mesh=mesh)
+
+    st = store(MP_M, MP_POOL)
+    out["store.applied"] = np.array(st.commit(inputs["mp.packed"]))
+    _put_store(out, "store", st)
+    out["store.dense"] = st.decode_dense()
+    for key, kw in (("sat", {}), ("ov", {"overflow_row": MP_M - 1})):
+        st = store(MP_M, MP_SAT_POOL, **kw)
+        out[f"{key}.applied"] = np.array(st.commit(inputs["mp.packed"]))
+        _put_store(out, key, st)
+        out[f"{key}.dense"] = st.decode_dense()
+    st = store(MP_M, MP_POOL)
+    for k in range(2):
+        ids, spilled = st.prepare_batch(inputs[f"mp.raw.{k}.ids"],
+                                        inputs[f"mp.raw.{k}.values"])
+        out[f"raw.{k}.ids"], out[f"raw.{k}.spilled"] = ids, np.array(spilled)
+        st.ingest_raw(torch.from_numpy(ids).to(st.device),
+                      torch.from_numpy(inputs[f"mp.raw.{k}.values"]).to(
+                          st.device))
+    _put_store(out, "raw", st)
+    st = store(32, 128)
+    st.commit(inputs["mp.g.packed"])
+    _put_store(out, "g0", st)
+    st.grow(64)
+    _put_store(out, "g1", st)
+    out["g1.dense"] = st.decode_dense()
+    st.commit(inputs["mp.g.packed2"])
+    _put_store(out, "g2", st)
+    st.apply_permutation(inputs["mp.g.perm"].tolist(), 64)
+    _put_store(out, "g3", st)
+    out["g3.dense"] = st.decode_dense()
+    out["g3.query"] = np.concatenate([
+        v.reshape(len(inputs["mp.g.perm"]), -1) for v in st.query(
+            inputs["mp.g.perm"], np.array(MP_PS)).values()], axis=1)
+
+
+def _mp_agg(out, mesh, inputs, s, transport) -> None:
+    """TorchAggregator(mesh=, storage="paged") on the raw (K4f) or the
+    sparse (K4) transport: two intervals of MP_BATCHES batches of the
+    row's share, in uneven record pieces; the second (sparse) adds a
+    merge_raw and a merge_packed."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        transport=transport, batch_size=MP_BATCH, max_metrics=MP_M,
+        ingest_path="fused" if transport == "raw" else "auto", mesh=mesh)
+    key = f"agg.{transport}"
+    try:
+        for name in mp_names():
+            agg.registry.id_for(name)
+        for i in range(2):
+            for k in range(MP_BATCHES):
+                ids = inputs[f"mp.agg.{i}.{k}.{s}.ids"]
+                values = inputs[f"mp.agg.{i}.{k}.{s}.values"]
+                step = feed_chunk(s)
+                for off in range(0, len(ids), step):
+                    agg.record_batch(ids[off:off + step],
+                                     values[off:off + step])
+            if i and transport == "sparse":
+                agg.merge_raw(raw_from_cells(inputs[f"mp.cells.{s}"],
+                                             RawMetricSet, mp_names()))
+                agg.merge_packed(inputs[f"mp.packed.{s}"])
+            put_metrics(out, f"{key}.{i}", agg.collect(reset=not i).metrics)
+            if not i:
+                _put_store(out, f"{key}.{i}", agg.paged)
+        out[f"{key}.path"] = np.array([agg.ingest_path, agg.transport,
+                                       agg.storage])
+        out[f"{key}.shed"] = np.array(agg._shed_samples)
+    finally:
+        agg.close()
+
+
+def _mp_conserve(out, mesh, inputs, s) -> None:
+    """More than 32 batches between two collect() calls: the stage holds
+    them all (the F8 bound sheds only the host buffer in front of the
+    worker), and every sample is counted."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        transport="raw", ingest_path="fused", batch_size=MP_CONSERVE_BATCH,
+        max_metrics=MP_M, mesh=mesh)
+    try:
+        for name in mp_names():
+            agg.registry.id_for(name)
+        ids = inputs[f"mp.cons.{s}.ids"]
+        values = inputs[f"mp.cons.{s}.values"]
+        for k in range(MP_CONSERVE):
+            sl = slice(k * MP_CONSERVE_BATCH, (k + 1) * MP_CONSERVE_BATCH)
+            agg.record_batch(ids[sl], values[sl])
+            agg.wait_transfers()
+        out["cons.staged"] = np.array(agg.staged_samples)
+        out["cons.bound"] = np.array(agg.max_pending_samples)
+        put_metrics(out, "cons", agg.collect().metrics)
+        out["cons.shed"] = np.array(agg._shed_samples)
+    finally:
+        agg.close()
+
+
+def _mp_stage_cap(out, mesh, inputs, s) -> None:
+    """The stage's cap (D12): with ``max_staged_samples`` at
+    MP_STAGE_CAP batches, the batch past it raises whole, the gauge and
+    the watchdog see the full stage, and collect() lands every accepted
+    sample, after which the stage takes batches again."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import MetricSystem
+    from loghisto_tpu_torch.obs.health import HealthWatchdog
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    class Com:
+        fanout_intervals = bridge_evictions = intervals_committed = 0
+
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        transport="raw", ingest_path="fused", batch_size=MP_CONSERVE_BATCH,
+        max_metrics=MP_M, mesh=mesh)
+    agg.max_staged_samples = MP_STAGE_CAP * MP_CONSERVE_BATCH
+    ms = MetricSystem(interval=0.05, sys_stats=False)
+    agg.register_device_gauges(ms)
+    wd = HealthWatchdog(Com(), agg, interval=0.05)
+    wd.note_commit(1)
+    try:
+        for name in mp_names():
+            agg.registry.id_for(name)
+        ids = inputs[f"mp.cons.{s}.ids"]
+        values = inputs[f"mp.cons.{s}.values"]
+        accepted, refused = 0, ""
+        for k in range(MP_STAGE_CAP + 1):
+            sl = slice(k * MP_CONSERVE_BATCH, (k + 1) * MP_CONSERVE_BATCH)
+            try:
+                agg.record_batch(ids[sl], values[sl])
+            except RuntimeError as e:
+                refused = str(e)
+                break
+            agg.wait_transfers()
+            accepted += MP_CONSERVE_BATCH
+        out["cap.accepted"] = np.array(accepted)
+        out["cap.refused"] = np.array(refused)
+        out["cap.staged"] = np.array(agg.staged_samples)
+        out["cap.gauge"] = np.array(
+            ms.collect_raw_metrics().gauges["tpu.MeshStagedSamples"])
+        out["cap.codes"] = np.array(",".join(wd.report().reason_codes()))
+        put_metrics(out, "cap", agg.collect().metrics)
+        out["cap.after"] = np.array([agg.staged_samples, ",".join(
+            wd.report().reason_codes())])
+        agg.record_batch(ids[:MP_CONSERVE_BATCH], values[:MP_CONSERVE_BATCH])
+        agg.wait_transfers()
+        out["cap.again"] = np.array(agg.staged_samples)
+    finally:
+        agg.close()
+
+
+def _mp_k4f_failure(out, mesh, inputs, s) -> None:
+    """A K4f chunk that fails while the stage lands (an ``agg.ingest``
+    fault on every rank's second chunk) raises from collect() on every
+    rank, and nothing of the batch's rest is folded on the host."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.resilience.faults import FaultInjector
+
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        transport="raw", ingest_path="fused", batch_size=MP_CONSERVE_BATCH,
+        max_metrics=MP_M, mesh=mesh)
+    agg.fault_injector = FaultInjector().plan("agg.ingest", on_call=2)
+    try:
+        for name in mp_names():
+            agg.registry.id_for(name)
+        n = 2 * MP_CONSERVE_BATCH
+        agg.record_batch(inputs[f"mp.cons.{s}.ids"][:n],
+                         inputs[f"mp.cons.{s}.values"][:n])
+        try:
+            agg.collect()
+            out["k4f.raised"] = np.array("")
+        except RuntimeError as e:
+            out["k4f.raised"] = np.array(str(e))
+        out["k4f.host"] = np.array([agg._spilled_samples,
+                                    agg.paged.spilled_cells,
+                                    len(agg.paged._host_spill),
+                                    agg.paged.fused_dispatches])
+        out["k4f.arena"] = np.array(int(agg.paged._pool.sum()))
+    finally:
+        agg.close()
+
+
+def _mp_pipeline(mesh, pool):
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=MP_C_BL)
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=cfg, storage="paged",
+        paged_config=mp_paged_config(PagedStoreConfig, pool),
+        max_metrics=MP_M, mesh=mesh)
+    wheel = TimeWheel(num_metrics=MP_M, config=cfg, interval=1.0,
+                      tiers=MP_C_TIERS, registry=agg.registry, mesh=mesh)
+    return agg, wheel, IntervalCommitter(agg, wheel, chunk=MP_C_CHUNK)
+
+
+def _mp_commit(out, mesh, inputs, s) -> None:
+    """The committer and the wheel on paged storage: each rank commits
+    its row's intervals, every rank lands the merged ones; then a
+    saturated arena."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    for key, pool in (("commit", MP_C_POOL), ("csat", MP_C_SAT_POOL)):
+        agg, wheel, com = _mp_pipeline(mesh, pool)
+        try:
+            modes, steps = [], []
+            reset_kernel_launches()
+            for i in range(MP_C_INTERVALS):
+                raw = mp_raw(RawMetricSet, [(s, inputs[f"mp.c.{i}.{s}"])], i)
+                modes.append(com.commit(raw))
+                steps.append(com.last_dispatches)
+            out[f"{key}.modes"] = np.array(modes)
+            out[f"{key}.steps"] = np.array(steps)
+            out[f"{key}.launches"] = np.array(
+                [kernel_launches()[k] for k in ("paged_scatter",
+                                                "sparse_ingest")])
+            _put_wheel(out, key, wheel)
+            _put_store(out, key, agg.paged)
+            put_metrics(out, f"{key}.collect",
+                        agg.collect(reset=False).metrics)
+        finally:
+            agg.close()
+
+
+def _mp_system(out, mesh, inputs, s) -> None:
+    """TorchMetricSystem(mesh=, storage="paged", retention=): the row's
+    intervals through backfill_retention, then samples recorded on the
+    row that the first query lands (D12), the served queries and the
+    collected set."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MP_M,
+        config=MetricConfig(bucket_limit=MP_C_BL), storage="paged",
+        paged_config=mp_paged_config(PagedStoreConfig, MP_C_POOL),
+        retention=MP_C_TIERS, mesh=mesh)
+    try:
+        for name in mp_names():
+            ms.metric_id(name)
+        out["system.path"] = np.array([ms.commit_path,
+                                       ms.aggregator.storage])
+        ms.backfill_retention(
+            [mp_raw(RawMetricSet, [(s, inputs[f"mp.c.{i}.{s}"])], i)
+             for i in range(MP_C_INTERVALS)])
+        ms.record_batch(inputs[f"mp.sys.{s}.ids"], inputs[f"mp.sys.{s}.values"])
+        for q, (pattern, window) in enumerate(MP_C_QUERIES):
+            _put_window(out, f"system.q{q}",
+                        ms.query(pattern, window, MP_PS))
+        out["system.staged"] = np.array(ms.aggregator.staged_samples)
+        _put_wheel(out, "system", ms.retention)
+        put_metrics(out, "system.collect",
+                    ms.device_metrics(reset=False).metrics)
+        _put_store(out, "system", ms.aggregator.paged)
+    finally:
+        ms.stop()
+
+
+def _mp_health(out, mesh, inputs) -> None:
+    """The watchdog names the hottest shard; the paging gauges."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.metrics import MetricSystem
+    from loghisto_tpu_torch.obs.health import HealthWatchdog
+    from loghisto_tpu_torch.paging import PagedStore, PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    class Com:
+        fanout_intervals = bridge_evictions = intervals_committed = 0
+
+    class Agg:
+        max_pending_samples = 100
+        pending_samples = _xfer_queued_samples = 0
+        _device_down_until = 0.0
+
+    st = PagedStore(MP_M, MP_BL, config=PagedStoreConfig(pool_pages=128),
+                    mesh=mesh)
+    st.commit(inputs["mp.packed"])
+    sat = st.pool_saturation()
+    fake = Agg()
+    fake.paged = st
+    reports = []
+    for frac in (min(sat + 0.01, 1.0), max(sat - 0.01, 0.0)):
+        wd = HealthWatchdog(Com(), fake, interval=0.05,
+                            pool_saturation_fraction=frac)
+        wd.note_commit(1)
+        reports.append(wd.report())
+    out["health.codes"] = np.array([",".join(r.reason_codes())
+                                    for r in reports])
+    out["health.detail"] = np.array(
+        [r["detail"] for r in reports[1].reasons
+         if r["code"] == "pool_saturation"])
+    st.release_rows(list(range(MP_M)))
+    out["health.released"] = np.array(
+        ",".join(wd.report().reason_codes()))
+    ms = MetricSystem(interval=0.05, sys_stats=False)
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        max_metrics=MP_M, mesh=mesh)
+    agg.paged.commit(inputs["mp.g.packed"])
+    agg.register_device_gauges(ms)
+    gauges = ms.collect_raw_metrics().gauges
+    names = sorted(g for g in gauges if g.startswith(("paging.", "tpu.Paged")))
+    out["gauges.names"] = np.array(names)
+    out["gauges.values"] = np.array(
+        [gauges[g] for g in names if g != "paging.PageAllocRate"])
+    agg.close()
+
+
+def _mp_refusals(out, mesh) -> None:
+    """What item 11c-2 still owes raises its sentence; drift keeps the
+    reference's dense-only refusal."""
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig, LifecycleManager
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+    from loghisto_tpu_torch.utils import checkpoint
+
+    agg, wheel, com = _mp_pipeline(mesh, MP_C_POOL)
+    with tempfile.TemporaryDirectory() as d:
+        out["refuse.lifecycle"] = _raises(lambda: LifecycleManager(
+            agg, wheel, LifecycleConfig()))
+        out["refuse.state"] = _raises(agg.state_dict)
+        out["refuse.save"] = _raises(lambda: checkpoint.save(
+            os.path.join(d, "ck.npz"), aggregator=agg))
+        kw = dict(interval=1.0, sys_stats=False, num_metrics=MP_M,
+                  config=MetricConfig(bucket_limit=MP_C_BL), storage="paged",
+                  paged_config=mp_paged_config(PagedStoreConfig, MP_C_POOL),
+                  retention=MP_C_TIERS, mesh=mesh)
+        out["refuse.sys_lifecycle"] = _raises(lambda: TorchMetricSystem(
+            lifecycle=LifecycleConfig(), **kw))
+        out["refuse.sys_resilience"] = _raises(lambda: TorchMetricSystem(
+            resilience=ResilienceConfig(
+                checkpoint_path=os.path.join(d, "x.npz")), **kw))
+        out["refuse.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
+            anomaly=AnomalyConfig(), **kw))
+    agg.close()
+
+
+def _mp_state(out, mesh, inputs) -> None:
+    """A JAX (2, 4) mesh store's state (``paged_state_from_jax``) on a
+    port mesh of four metric shards: each rank loads its arena, then
+    commits the same batch as the JAX store."""
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.state import paged_state_from_jax
+
+    lens = inputs["mp.js.free_n"]
+    frees = np.split(inputs["mp.js.free"], np.cumsum(lens)[:-1])
+    spill = {(int(r), int(d)): int(v) for r, d, v in inputs["mp.js.spill"]}
+    state = paged_state_from_jax(
+        inputs["mp.js.pool"], inputs["mp.js.table"], inputs["mp.js.codec"],
+        spill, frees, int(inputs["mp.js.allocated"]), mp_names(), {},
+        bucket_limit=MP_BL)
+    agg = TorchAggregator(
+        num_metrics=MP_M, config=MetricConfig(bucket_limit=MP_BL),
+        storage="paged", paged_config=PagedStoreConfig(pool_pages=MP_POOL),
+        max_metrics=MP_M, mesh=mesh)
+    agg.load_state_dict(state)
+    _put_store(out, "state.0", agg.paged)
+    agg.paged.commit(inputs["mp.packed"])
+    _put_store(out, "state.1", agg.paged)
+    put_metrics(out, "state", agg.collect(reset=False).metrics)
+    agg.close()
+
+
+def _mesh_paged_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    stream, metric = map(int, arg.split("x"))
+    mesh = make_mesh(stream, metric, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    s = axis_index(mesh, STREAM_AXIS)
+    _mp_store(out, mesh, inputs)
+    for transport in ("raw", "sparse"):
+        _mp_agg(out, mesh, inputs, s, transport)
+    _mp_conserve(out, mesh, inputs, s)
+    _mp_stage_cap(out, mesh, inputs, s)
+    _mp_k4f_failure(out, mesh, inputs, s)
+    _mp_commit(out, mesh, inputs, s)
+    _mp_system(out, mesh, inputs, s)
+    _mp_health(out, mesh, inputs)
+    _mp_refusals(out, mesh)
+    if stream * metric == 4:
+        four = make_mesh(1, 4, device="cpu")
+        out["coord.four"] = np.array(four.get_coordinate())
+        _mp_state(out, four, inputs)
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
@@ -1784,6 +2273,7 @@ JOBS = {
     "mesh_commit": _mesh_commit_job,
     "mesh_lifecycle": _mesh_lifecycle_job,
     "mesh_recovery": _mesh_recovery_job,
+    "mesh_paged": _mesh_paged_job,
     "selftest": _selftest_job,
 }
 
