@@ -77,7 +77,12 @@ against host oracles:
     conserved, and the mesh's fused commit: TorchMetricSystem(mesh=,
     retention=True) at 1024 rows and the default tiers on (1, 1), (2, 1)
     and (1, 2), every rank's ring blocks and served query against a
-    single-device system on the card, K3 and K5 on every rank;
+    single-device system on the card, K3 and K5 on every rank; then
+    lifecycle and drift (e), checkpoints and recovery (f), paged storage
+    (g) and, part (h), lifecycle, checkpoints and recovery on paged
+    storage (an eviction across the arenas, a compaction with K6 on
+    every rank, a save restored onto another shape and one device, a
+    recovery from a checkpoint and a journal);
   * the firehose (``firehose_main_path``): samples made on the card and
     accumulated by each path's step, conservation and path equality on
     one generator seed, then ``run_firehose`` for 3 s per path with its
@@ -7953,10 +7958,10 @@ def _mf_part(torch, tmp, root):
         entry = RESULTS.setdefault(kernel, {})
         entry["launches"] = (entry.get("launches", 0)
                              + one["replay_launches"].get(kernel, 0))
-        entry["recovery_launches_per_rank"] = {
+        entry.setdefault("recovery_launches_per_rank", {}).update({
             "1x1": [one["replay_launches"].get(kernel, 0)],
             "1x2": [r["replay_launches"].get(kernel, 0)
-                    for r in recovered]}
+                    for r in recovered]})
     return out
 
 
@@ -8324,6 +8329,383 @@ def _mp_check(got, oracle, n_metric, what):
         "occupancy": sys_got["occupancy"]}
 
 
+# (h) lifecycle, checkpoints and recovery on the paged mesh (ROADMAP D13):
+# part (g)'s generator and width (bucket_limit 4096, PL_TIERS) at a quarter
+# of its depth, MH_M rows and an arena scaled with them (two (2, 1) ranks
+# share the one card, and K6 copies a ring block while it repacks), through
+# TorchMetricSystem(mesh=, storage="paged", lifecycle=, resilience=):
+# MH_INTERVALS intervals of MH_SAMPLES Zipf(1.3) / lognormal samples a
+# stream row, after MH_BEFORE of them an eviction across shards into new
+# overflow rows, a compaction and a recorded batch (K4f).  The (2, 1) ranks
+# then save, and their save restores onto (1, 2) and onto one device; the
+# (1, 1) rank checkpoints at MH_EVERY and recovers from that checkpoint and
+# its journal.
+MH_M = 1 << 14
+MH_POOL = PL_POOL >> 2
+MH_NAMES = MH_M - 64  # room for the overflow rows
+MH_SAMPLES = 1 << 18
+MH_INTERVALS = 5
+MH_BEFORE = 2
+MH_EVERY = 3  # the recovering run's cadence: the watermark stands at 3
+MH_RECORD = 1 << 15  # a row's recorded samples: the rows' batch is one
+MH_VICTIMS = (100, 2000, 4000, 6000, 9000, 11000, 13000, 15000)
+MH_WINDOW = 2.0  # the served window the recovered wheel holds whole
+MH_QUERIES = ("mh12*", "mh3")
+MH_SAMPLED = np.unique(np.concatenate([
+    np.arange(128), np.linspace(0, MH_M - 1, 128).astype(np.int64),
+    np.asarray(MH_VICTIMS)]))
+MH_KERNELS = ("paged_scatter", "fused_paged_ingest", "sparse_ingest",
+              "window_merge", "compact_rows")
+
+
+def _mh_raw(k, rows):
+    """Interval k of the stream rows ``rows``: each row's MH_SAMPLES
+    samples, the rows' intervals merged in row order, seq k + 1."""
+    from loghisto_tpu_torch.metrics import RawMetricSet, merge_raw_metric_sets
+    from loghisto_tpu_torch.ops.fold import compress_np_host
+
+    merged = None
+    for s in rows:
+        rng = np.random.default_rng([SEED, 90, k, s])
+        ids = zipf_ids(rng, MH_SAMPLES, MH_NAMES).astype(np.int64)
+        buckets = np.clip(compress_np_host(lognormal_values(
+            rng, MH_SAMPLES)), -BL, BL).astype(np.int64)
+        uniq, first, counts = np.unique(ids * PL_KEY + buckets + BL,
+                                        return_index=True,
+                                        return_counts=True)
+        order = np.argsort(first, kind="stable")
+        hists = {}
+        for key, c in zip(uniq[order].tolist(), counts[order].tolist()):
+            hists.setdefault(f"mh{key // PL_KEY}", {})[
+                key % PL_KEY - BL] = c
+        raw = RawMetricSet(time=_dt.datetime(2026, 1, 1,
+                                             tzinfo=_dt.timezone.utc)
+                           + k * _ONE_SECOND, counters={}, rates={},
+                           histograms=hists, gauges={}, duration=1.0,
+                           seq=k + 1)
+        merged = raw if merged is None else merge_raw_metric_sets(merged,
+                                                                  raw)
+    return merged
+
+
+def _mh_record(rows):
+    """The recorded batch of the stream rows ``rows``, concatenated."""
+    parts = []
+    for s in rows:
+        rng = np.random.default_rng([SEED, 91, s])
+        parts.append((zipf_ids(rng, MH_RECORD, MH_NAMES),
+                      lognormal_values(rng, MH_RECORD)))
+    return (np.concatenate([i for i, _ in parts]),
+            np.concatenate([v for _, v in parts]))
+
+
+def _mh_system(d, mesh=None, every=10 ** 6, names=True):
+    from loghisto_tpu_torch import TorchMetricSystem
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+
+    ms = TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=MH_M, storage="paged",
+        paged_config=PagedStoreConfig(pool_pages=MH_POOL),
+        retention=PL_TIERS, mesh=mesh,
+        lifecycle=LifecycleConfig(check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        resilience=ResilienceConfig(
+            checkpoint_path=os.path.join(d, "ck.npz"),
+            journal_path=os.path.join(d, "jl.log"),
+            checkpoint_every_intervals=every, recover_on_start=False))
+    for i in range(MH_NAMES if names else 0):
+        ms.metric_id(f"mh{i}")
+    # the windowed query is served from the commit's snapshot views
+    ms.retention.pin_window(MH_WINDOW)
+    return ms
+
+
+def _mh_feed(ms, mesh, rows, lo, hi):
+    """Intervals [lo, hi) of ``rows`` broadcast to the system's
+    subscribers (the row's journal, the committer), then committed: by
+    the bridge on one device, by one collective drain on a mesh."""
+    journal = ms.recovery._journal
+    for k in range(lo, hi):
+        with ms._subscribers_lock:
+            ms._broadcast(ms._raw_subscribers, _mh_raw(k, rows))
+    end = time.monotonic() + 120.0
+    while ((ms.committer.intervals_committed if mesh is None
+            else ms.committer.queued_intervals + lo) < hi
+           or (journal is not None and _mf_lines(journal.path) < hi)):
+        if time.monotonic() > end:
+            raise AssertionError("part (h): the intervals were not "
+                                 "committed or queued, and journaled")
+        time.sleep(0.05)
+    if mesh is not None:
+        ms.committer.drain()
+
+
+def _mh_figures(store):
+    """A paged store's host digest, arena digest and the decoded cells
+    of its block's sampled rows."""
+    rows = MH_SAMPLED[store._in_block(MH_SAMPLED)]
+    r, idx, counts = store._row_cells(rows)
+    keys, cnt = _pl_sum_keys(r * B + idx, counts)
+    return {"host": _mp_host_digest(store), "arena": _ms_digest(store._pool),
+            "sampled_keys": keys.tolist(), "sampled_counts": cnt.tolist(),
+            "block": [store._row0, store.rows_per_shard],
+            "occupancy": store.shard_occupancy()}
+
+
+def _mh_served(ms):
+    return {f"{q}@{w}": {n: e for n, e in sorted(ms.query(
+        q, window=w, percentiles=PL_PS).metrics.items())}
+        for q in MH_QUERIES for w in (None, MH_WINDOW)}
+
+
+def _mh_ring_kernels(torch, wheel, rng):
+    """K6 and K5 on the rank's tier-1 ring block against their plain
+    versions on the same input: a permutation with holes, a slot mask.
+    Returns the largest absolute difference (0 required)."""
+    from loghisto_tpu_torch.ops.lifecycle import (
+        compact_rows,
+        compact_rows_kernel,
+    )
+    from loghisto_tpu_torch.ops.window import (
+        window_merge,
+        window_merge_kernel,
+    )
+
+    ring = wheel._tiers[1].ring
+    perm = _holey_perm(rng, ring.shape[1])
+    a = compact_rows_kernel(ring, perm)
+    err = int((a - compact_rows(ring, perm)).abs().max())
+    del a
+    mask = rng.random(ring.shape[0]) < 0.6
+    err = max(err, int((window_merge_kernel(ring, mask)
+                        - window_merge(ring, mask)).abs().max()))
+    torch.cuda.synchronize()
+    return err
+
+
+def _mh_restore(torch, mesh, path):
+    """``checkpoint.restore`` of ``path`` onto a fresh paged aggregator
+    (a collective on a mesh), timed; the store's figures."""
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.utils import checkpoint
+
+    agg = TorchAggregator(num_metrics=MH_M, storage="paged",
+                          paged_config=PagedStoreConfig(pool_pages=MH_POOL),
+                          mesh=mesh)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore(path, aggregator=agg)
+        torch.cuda.synchronize()
+        out = {"restore_s": time.perf_counter() - t0}
+        out.update(_mh_figures(agg.paged))
+    finally:
+        agg.close()
+        agg.paged._pool = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mh_run(torch, mesh, rows, d, save=None, recover=False):
+    """Part (h) on one rank (or one device, ``mesh`` None, ``rows`` the
+    stream rows it takes merged), its files in ``d``: the system's
+    intervals, eviction, compaction and recorded batch with the kernel
+    counts set to 0 before and read after; the store's figures, the
+    served queries, K4 / K4f / K6 / K5 against their plain versions;
+    with ``save`` a save there; the system then dropped with no final
+    checkpoint; with ``recover`` a fresh system recovers from the
+    cadence checkpoint and the journal (launches counted apart)."""
+    from loghisto_tpu_torch import commit as commit_mod
+    from loghisto_tpu_torch.ops.backend import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from loghisto_tpu_torch.parallel import aggregator as agg_mod
+    from loghisto_tpu_torch.parallel.mesh import (
+        collective_bytes,
+        reset_collective_bytes,
+    )
+    from loghisto_tpu_torch.utils import checkpoint
+
+    own = rows if mesh is None else (mesh.get_coordinate()[0],)
+    times: dict = {}
+    wrapped = [(checkpoint, "restore",
+                _mf_counted(checkpoint, "restore", times, "restore"))]
+    failures = []
+    for cls, name in ((commit_mod.IntervalCommitter,
+                       "_on_fused_failure_locked"),
+                      (agg_mod.TorchAggregator, "_on_device_failure_locked")):
+        def failed(self, *a, _orig=getattr(cls, name), _name=name, **kw):
+            failures.append(f"{_name}: {sys.exc_info()[1]!r}")
+            return _orig(self, *a, **kw)
+
+        wrapped.append((cls, name, getattr(cls, name)))
+        setattr(cls, name, failed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rows": list(rows)}
+    try:
+        reset_collective_bytes()
+        ms = _mh_system(d, mesh, MH_EVERY if recover else 10 ** 6)
+        try:
+            lc = ms.lifecycle
+            ms.recovery.start()
+            ms._update_subscribers()
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            _mh_feed(ms, mesh, own, 0, MH_BEFORE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            evicted = lc.evict_ids([ms.aggregator.registry.lookup(f"mh{v}")
+                                    for v in MH_VICTIMS])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if not lc.compact():
+                raise AssertionError("part (h): the compaction did not run")
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ms.record_batch(*_mh_record(own))
+            if mesh is None:  # a mesh rank's next commit lands it
+                ms.aggregator.flush(force=True)
+                ms.aggregator.wait_transfers()
+            _mh_feed(ms, mesh, own, MH_BEFORE, MH_INTERVALS)
+            served = _mh_served(ms)
+            torch.cuda.synchronize()
+            out |= {"system_s": time.perf_counter() - t0,
+                    "evict_s": t2 - t1, "compact_s": t3 - t2,
+                    "evicted": len(evicted),
+                    "evict_bytes": lc.last_evict_bytes,
+                    "compact_bytes": lc.last_compaction_bytes,
+                    "moved": lc.overflowed_samples}
+            launched = kernel_launches()
+            out["launches"] = {k: launched[k] for k in MH_KERNELS}
+            if ms.committer.fused_intervals != MH_INTERVALS:
+                raise AssertionError("part (h) did not commit fused")
+            out["system"] = _mh_figures(ms.aggregator.paged)
+            out["served"] = served
+            out["query_fallbacks"] = ms.retention.query_fallbacks
+            rng = np.random.default_rng([SEED, 92])
+            out["max_abs_err"] = max(
+                _mp_kernels_equal_plain(torch, ms.aggregator.paged, rng),
+                _mh_ring_kernels(torch, ms.retention, rng))
+            if save is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                checkpoint.save(save, aggregator=ms.aggregator,
+                                lifecycle=lc)
+                out["save_s"] = time.perf_counter() - t0
+            if recover:
+                out["checkpoint"] = [ms.recovery.checkpoints_taken,
+                                     ms.recovery.last_checkpoint_seq]
+                out["save_s"] = ms.recovery.checkpoint_last_ms / 1e3
+        finally:
+            ms.recovery.checkpoint_path = None  # a crash: no final save
+            _drop_system(torch, ms)
+        if recover:
+            # the names come back from the checkpoint, in its order
+            ms = _mh_system(d, mesh, MH_EVERY, names=False)
+            try:
+                torch.cuda.synchronize()
+                reset_kernel_launches()
+                t0 = time.perf_counter()
+                rep = ms.recover()
+                torch.cuda.synchronize()
+                out["recover_s"] = time.perf_counter() - t0
+                launched = kernel_launches()
+                out["recovery_launches"] = {k: launched[k]
+                                            for k in MH_KERNELS}
+                if (rep.watermark, rep.replayed_intervals) != (
+                        MH_EVERY, MH_INTERVALS - MH_EVERY):
+                    raise AssertionError(f"part (h): recovered {rep}")
+                out["recovered"] = _mh_figures(ms.aggregator.paged)
+                out["recovered_served"] = {
+                    q: e for q, e in _mh_served(ms).items()
+                    if q.endswith(f"@{MH_WINDOW}")}
+            finally:
+                ms.recovery.checkpoint_path = None
+                _drop_system(torch, ms)
+        out["sent_bytes"] = collective_bytes()
+    finally:
+        for mod, name, orig in wrapped:
+            setattr(mod, name, orig)
+    out.update(times)
+    out["failures"] = failures
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _mh_oracles(torch, tmp):
+    """Part (h)'s single-device runs on the card: for (2, 1) stream rows
+    0 and 1 merged, for (1, 1) and (1, 2) row 0."""
+    out = {}
+    for rows in ((0, 1), (0,)):
+        d = os.path.join(tmp, "h-one-" + "".join(map(str, rows)))
+        os.makedirs(d)
+        out[rows] = _mh_run(torch, None, rows, d)
+    return out
+
+
+def _mh_same_rows(got, want, what):
+    """A block's sampled rows against the oracle's rows of that block."""
+    keys = np.asarray(got["sampled_keys"], np.int64)
+    want_keys = np.asarray(want["sampled_keys"], np.int64)
+    lo, n = got["block"]
+    sel = (want_keys // B >= lo) & (want_keys // B < lo + n)
+    if not (len(keys) and np.array_equal(keys, want_keys[sel])
+            and got["sampled_counts"] == np.asarray(
+                want["sampled_counts"])[sel].tolist()):
+        raise AssertionError(f"{what}: the sampled rows differ")
+
+
+def _mh_check(got, oracle, n_metric, what):
+    """A rank's part (h) against the single-device oracle: the sampled
+    rows of its block and the served queries always, the arena and the
+    host half where the mesh has one metric shard; K4 / K4f / K6 / K5
+    equal their plain versions; no failure handler called, no query
+    fallback; the path's kernels launched; a recovered rank's sampled
+    rows and served window as its uncrashed run's."""
+    if n_metric == 1:
+        for key in ("host", "arena"):
+            if got["system"][key] != oracle["system"][key]:
+                raise AssertionError(f"{what}: the {key} digest differs "
+                                     "from one device's")
+    _mh_same_rows(got["system"], oracle["system"], what)
+    for q, want in oracle["served"].items():
+        _mc_same_served(got["served"][q], want, f"{what} query {q}")
+    if got["max_abs_err"] != 0:
+        raise AssertionError(f"{what}: K4, K4f, K6 or K5 differs from its "
+                             "plain version")
+    if got["failures"] or got["query_fallbacks"]:
+        raise AssertionError(f"{what}: failed steps or launches "
+                             f"{got['failures'][:2]}, query fallbacks "
+                             f"{got['query_fallbacks']}")
+    for kernel in MH_KERNELS:
+        if got["launches"][kernel] <= 0:
+            raise AssertionError(f"{what}: {kernel} was not launched")
+    if (got["evicted"], got["moved"]) != (len(MH_VICTIMS), oracle["moved"]):
+        raise AssertionError(f"{what}: evicted {got['evicted']}, moved "
+                             f"{got['moved']} (one device {oracle['moved']})")
+    if "recovered" in got:
+        _mh_same_rows(got["recovered"], got["system"], f"{what} recovered")
+        for q, want in got["recovered_served"].items():
+            _mc_same_served(want, got["served"][q],
+                            f"{what} recovered query {q}")
+        for kernel in ("paged_scatter", "sparse_ingest", "window_merge"):
+            if got["recovery_launches"][kernel] <= 0:
+                raise AssertionError(f"{what}: {kernel} not launched in "
+                                     "the replay")
+    return {k: got[k] for k in (
+        "launches", "recovery_launches", "system_s", "evict_s", "compact_s",
+        "save_s", "restore_s", "recover_s", "evict_bytes", "compact_bytes",
+        "sent_bytes", "max_abs_err", "peak_gb", "checkpoint") if k in got}
+
+
 def _ms_child(argv):
     """One rank of part (b): both meshes of two ranks, raw and sparse;
     prints one JSON line of digests, times and launches, and writes each
@@ -8403,6 +8785,17 @@ def _ms_child(argv):
                     tmp, f"{shape[0]}x{shape[1]}-paged-{rank}.json"),
                     "w") as f:
                 json.dump(paged, f)
+            d = os.path.join(tmp, f"h-{shape[0]}x{shape[1]}")
+            os.makedirs(d, exist_ok=True)
+            plc = _mh_run(torch, mesh, (s,), d, save=os.path.join(
+                d, "final.npz") if shape == (2, 1) else None)
+            if shape == (1, 2):  # the (2, 1) ranks' save, restored here
+                plc["restored"] = _mh_restore(torch, mesh, os.path.join(
+                    tmp, "h-2x1", "final.npz"))
+            with open(os.path.join(
+                    tmp, f"{shape[0]}x{shape[1]}-plc-{rank}.json"),
+                    "w") as f:
+                json.dump(plc, f)
     finally:
         multihost.shutdown()
     print(json.dumps(out), flush=True)
@@ -8592,6 +8985,13 @@ def phase_mesh(torch):
         out["paged_oracle"] = {
             "s": time.perf_counter() - t_oracle,
             "launches": {str(k): v["launches"] for k, v in mp_oracles.items()}}
+        t_oracle = time.perf_counter()
+        mh_oracles = _mh_oracles(torch, tmp)
+        out["paged_lifecycle_oracle"] = {
+            "s": time.perf_counter() - t_oracle,
+            "launches": {str(k): v["launches"] for k, v in mh_oracles.items()},
+            **{k: mh_oracles[(0,)][k] for k in (
+                "system_s", "evict_s", "compact_s")}}
         multihost.initialize(f"file://{tmp}/rdzv1", 1, 0, timeout_s=120.0)
         try:
             mesh, out["world1"] = _ms_world1(torch, batches, acc16, want16)
@@ -8623,6 +9023,19 @@ def phase_mesh(torch):
                 entry = RESULTS.setdefault(kernel, {})
                 entry.setdefault("mesh_launches_per_rank", {})[
                     "paged 1x1"] = [paged["launches"][kernel]]
+            t_plc = time.perf_counter()
+            d = os.path.join(tmp, "h-1x1")
+            os.makedirs(d)
+            plc = _mh_check(_mh_run(torch, mesh, (0,), d, recover=True),
+                            mh_oracles[(0,)], 1, "1x1 paged lifecycle")
+            out["paged_lifecycle_1x1"] = {**plc,
+                                          "s": time.perf_counter() - t_plc}
+            for kernel in MH_KERNELS:
+                entry = RESULTS.setdefault(kernel, {})
+                entry.setdefault("mesh_launches_per_rank", {})[
+                    "paged lifecycle 1x1"] = [plc["launches"][kernel]]
+                entry.setdefault("recovery_launches_per_rank", {})[
+                    "paged 1x1"] = [plc["recovery_launches"][kernel]]
         finally:
             multihost.shutdown()
         del acc8, acc16, batches
@@ -8712,6 +9125,38 @@ def phase_mesh(torch):
                 RESULTS[kernel]["mesh_launches_per_rank"][f"paged {key}"] = [
                     c["launches"][kernel] for c in checked]
             out[f"paged_{key}"] = checked
+            checked, hosts = [], set()
+            for r in ranks:
+                with open(os.path.join(
+                        tmp, f"{key}-plc-{r['rank']}.json")) as f:
+                    got = json.load(f)
+                hosts.add(got["system"]["host"])
+                one = _mh_check(got, mh_oracles[stream_rows], shape[1],
+                                f"{key} paged lifecycle rank {r['rank']}")
+                if "restored" in got:
+                    _mh_same_rows(got["restored"], mh_oracles[(0, 1)][
+                        "system"], f"{key} restored rank {r['rank']}")
+                    hosts.add(("restored", got["restored"]["host"]))
+                    one["restore_s"] = got["restored"]["restore_s"]
+                checked.append(one)
+            if len(hosts) != (2 if shape == (1, 2) else 1):
+                raise AssertionError(f"{key} paged lifecycle: the ranks' "
+                                     "host halves differ")
+            if shape[1] == 2 and not any(c["evict_bytes"] for c in checked):
+                raise AssertionError(f"{key}: no victim folded across "
+                                     "ranks")
+            for kernel in MH_KERNELS:
+                RESULTS[kernel]["mesh_launches_per_rank"][
+                    f"paged lifecycle {key}"] = [
+                    c["launches"][kernel] for c in checked]
+            out[f"paged_lifecycle_{key}"] = checked
+        t_one = time.perf_counter()
+        one = _mh_restore(torch, None, os.path.join(tmp, "h-2x1",
+                                                    "final.npz"))
+        _mh_same_rows(one, mh_oracles[(0, 1)]["system"],
+                      "the (2, 1) save on one device")
+        out["paged_lifecycle_one_device_restore"] = {
+            "restore_s": one["restore_s"], "s": time.perf_counter() - t_one}
         t_f = time.perf_counter()
         out["recovery"] = _mf_part(torch, tmp, root)
         out["recovery"]["s"] = time.perf_counter() - t_f
@@ -8738,11 +9183,12 @@ def kernels_line():
         if also:
             entry["also_replaces"] = also
         if "mesh_launches_per_rank" in r:
-            # mesh_main_path's parts (e) and (g): launches of each rank,
-            # by mesh
+            # mesh_main_path's parts (e), (g) and (h): launches of each
+            # rank, by mesh
             entry["mesh_launches_per_rank"] = r["mesh_launches_per_rank"]
         if "recovery_launches_per_rank" in r:
-            # part (f): each recovered rank's launches in its replay
+            # parts (f) and (h): each recovered rank's launches in its
+            # replay
             entry["recovery_launches_per_rank"] = r[
                 "recovery_launches_per_rank"]
         out.append(entry)

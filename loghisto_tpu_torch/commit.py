@@ -112,7 +112,10 @@ slots) and its ring blocks' cells (block ids): K4, one K3, K5 views
 last.  The steps make no collective.  A failed step spills the rank's own arena's triples;
 the fan-out (an open breaker on any rank, or the int32 envelope, which
 every rank counts alike) merges the cells on every rank and pushes them
-to the wheel from stream index 0 alone.
+to the wheel from stream index 0 alone.  With lifecycle on (ROADMAP
+D13) each step stamps the rank's activity block with the chunk's ids in
+the aggregator's block, the fan-out with the merged interval's, and a
+rank whose step failed stamps them all, as its peers did.
 
 Resilience, installed by ``TorchMetricSystem(resilience=...)``: an open
 ``breaker`` pins the fan-out path (the aggregator's ``_merge_cells_locked``
@@ -161,6 +164,7 @@ from loghisto_tpu_torch.parallel.mesh import (
     IntervalQueue,
     all_gather_objects,
     axis_size,
+    block_ids,
     gather_triples,
     is_stream_lead,
     mesh_reduce,
@@ -591,6 +595,9 @@ class IntervalCommitter:
         applied = 0
         payloads = acc_payload = None
         paged = self.paged
+        # a paged mesh rank's activity block takes the chunk's ids in the
+        # aggregator's block, whose rows need not be the ring blocks'
+        stamp = None
 
         def landed():
             # the chunk is in the accumulator (K3) or the pool (K4): the
@@ -615,6 +622,10 @@ class IntervalCommitter:
                     cut = (ids[off:off + take], buckets[off:off + take],
                            w32[off:off + take])
                     if paged is not None and self.mesh is not None:
+                        if lc is not None:
+                            stamp = torch.from_numpy(block_ids(
+                                cut[0], agg._row0, agg._rows)).to(
+                                    agg.device)
                         # D12: the chunk's cells of the rank's ring
                         # blocks, block-local (the translate below takes
                         # the whole chunk)
@@ -660,8 +671,9 @@ class IntervalCommitter:
                     if final:
                         args += [bank, an.decay32, an.min_count32]
                 with self.obs_recorder.span("commit.dispatch"):
+                    kw = {} if stamp is None else {"stamp": stamp}
                     out = iter((self._fused_snap if final else self._fused)(
-                        *args, landed=landed))
+                        *args, landed=landed, **kw))
                 if paged is None:
                     agg._acc = next(out)
                 else:
@@ -840,6 +852,10 @@ class IntervalCommitter:
             with agg._dev_lock:
                 agg._merge_cells_locked(*cells)
                 agg.stats_snapshot = None
+                if self.lifecycle is not None:
+                    # the merged interval is every rank's: the rank
+                    # stamps its block's ids of it (D13)
+                    self.lifecycle.touch_locked(cells[0])
             wheel.push_cells(self._dense_cells(cells) if lead else None,
                              raw, dur)
             nchunks = -(-n // self.chunk)
@@ -997,6 +1013,10 @@ class IntervalCommitter:
         if self.lifecycle is not None and self.mesh is None:
             # (a mesh rank stamps every gathered chunk's ids itself)
             self.lifecycle.on_device_failure_locked(ids[:applied])
+        elif self.lifecycle is not None and self.paged is not None:
+            # a paged mesh rank: its peers stamped every chunk of the
+            # merged interval, so it does too (D13)
+            self.lifecycle.on_device_failure_locked(ids)
         if self.anomaly is not None:
             self.anomaly.on_device_failure_locked()
         # the published handle may describe rings the failed commit

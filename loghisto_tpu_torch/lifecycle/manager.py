@@ -41,6 +41,16 @@ entry points); each first lays out the registry's growth
 (``TorchAggregator._mesh_regrow``, which also re-lays the activity
 block).
 
+On paged storage on a mesh (ROADMAP D13) the pool's side runs on every
+rank's host half, as on one card: ``fold_rows_into`` gathers the
+victims' cells over the metric axis and every rank re-commits them into
+the target's arena (K4), ``drop_rows`` and ``apply_permutation`` act on
+the rank's own arena and spill block (a permutation migrates the rows
+that change shard); the ring blocks and the activity block move as on
+dense storage (``with_acc=False``), and the host spill moves with the
+store, so the dense spill's fold is skipped.  An eviction or a
+compaction lands the aggregator's staged batches first.
+
 A failure inside a policy tick is not caught here: it leaves the
 committer's ``commit`` and lands in ``bridge_error`` (ROADMAP D6).
 """
@@ -105,10 +115,6 @@ class LifecycleManager:
                 " eviction ride the fused interval commit"
             )
         self._paged = getattr(aggregator, "paged", None) is not None
-        if self._paged and getattr(aggregator, "mesh", None) is not None:
-            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
-
-            raise ValueError(f"lifecycle unavailable: {PAGED_MESH_SLICE}")
         self.aggregator = aggregator
         self.wheel = wheel
         self.config = config
@@ -117,8 +123,10 @@ class LifecycleManager:
         self._mesh = getattr(aggregator, "mesh", None)
         if self._mesh is not None:
             resolve_compact_path(config.compact_path)
-            self._fold = make_sharded_fold_evict_fn(self._mesh, num_tiers)
-            self._compact = make_sharded_compact_fn(self._mesh, num_tiers)
+            self._fold = make_sharded_fold_evict_fn(
+                self._mesh, num_tiers, with_acc=not self._paged)
+            self._compact = make_sharded_compact_fn(
+                self._mesh, num_tiers, with_acc=not self._paged)
             # growth re-lays the activity block with the accumulator
             aggregator._mesh_carries.append(self._relayout_locked)
         else:
@@ -224,6 +232,19 @@ class LifecycleManager:
         if landed_ids is not None:
             self.touch_locked(landed_ids)
 
+    def _mesh_layout(self) -> None:
+        """A mesh's collective preamble of an eviction or a compaction:
+        the registry's growth laid out (``_mesh_regrow``, which re-lays
+        the activity block too), and on paged storage the staged batches
+        landed first (``land_staged``, which lays the growth out itself),
+        so no staged sample lands under an id the rows' move reassigned
+        (ROADMAP D13)."""
+        agg = self.aggregator
+        if self._paged:
+            agg.land_staged()
+        else:
+            agg._mesh_regrow()
+
     # -- the policy tick -------------------------------------------------- #
 
     def on_interval(self) -> None:
@@ -296,7 +317,7 @@ class LifecycleManager:
         if mesh is not None:
             # an overflow name may have grown the registry: its row must
             # exist before the fold (a collective, as every step below)
-            agg._mesh_regrow()
+            self._mesh_layout()
 
         with agg._dev_lock:
             la = self.ensure_capacity_locked(agg.num_metrics)
@@ -319,8 +340,12 @@ class LifecycleManager:
                                 for omid, vlist in by_target.items())
                     if shed:
                         agg.paged.drop_rows(shed)
-                    rings, la = self._fold(rings, la, vpad, tpad,
-                                           self.epoch)
+                    if mesh is not None:
+                        rings, la, self.last_evict_bytes = self._fold(
+                            rings, la, vpad, tpad, self.epoch)
+                    else:
+                        rings, la = self._fold(rings, la, vpad, tpad,
+                                               self.epoch)
                 elif mesh is not None:
                     acc, rings, la, moved, sent = self._fold(
                         agg._acc, rings, la, vpad, tpad, self.epoch)
@@ -338,7 +363,7 @@ class LifecycleManager:
                 if self.anomaly is not None:
                     # the freed rows' next tenants start cold
                     self.anomaly.on_evicted_locked(vpad)
-                if mesh is not None:
+                if mesh is not None and not self._paged:
                     self._fold_spill_mesh_locked(vpad, tpad)
                 elif agg._spill is not None:
                     for mid, _, omid, _ in pairs:
@@ -417,7 +442,7 @@ class LifecycleManager:
         mesh = self._mesh
         if mesh is not None:
             # the permutation covers the grown rows: lay them out first
-            agg._mesh_regrow()
+            self._mesh_layout()
         with agg._dev_lock:
             names = reg.names()
             live = [m for m, n in enumerate(names) if n is not None]
@@ -449,8 +474,14 @@ class LifecycleManager:
                         agg.paged.apply_permutation(
                             np.where((perm >= 0) & (perm < m_rows), perm,
                                      -1), m_rows)
-                        rings, la = self._compact(rings, la, perm,
-                                                  self.epoch)
+                        if mesh is not None:
+                            rings, la, self.last_compaction_bytes = (
+                                self._compact(rings, la, perm, self.epoch,
+                                              [np.flatnonzero(t.written)
+                                               for t in tiers]))
+                        else:
+                            rings, la = self._compact(rings, la, perm,
+                                                      self.epoch)
                     elif mesh is not None:
                         acc, rings, la, sent = self._compact(
                             agg._acc, rings, la, perm, self.epoch,
@@ -469,7 +500,7 @@ class LifecycleManager:
                     # baselines follow their rows through the repack
                     self.last_compaction_bytes += (
                         self.anomaly.apply_permutation_locked(perm))
-                if mesh is not None:
+                if mesh is not None and not self._paged:
                     spill = self._mesh_spill_locked()
                     if spill is not None:
                         move = RowMove(mesh, perm, agg._rows, agg._rows)

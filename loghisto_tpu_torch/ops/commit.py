@@ -59,7 +59,10 @@ no collective and is the paged pair's: the caller hands it the chunk's
 translated triples of the rank's arena (arena-local slots) and the
 chunk's cells of the rank's ring blocks (block-local ids), so K4 adds
 into the arena, one K3 into every tier's open slot of the ring blocks,
-and the final step's payloads are K5 over the ring blocks.  The
+and the final step's payloads are K5 over the ring blocks.  With
+lifecycle on (ROADMAP D13) the activity block takes the chunk's ids in
+the aggregator's block (``stamp``): the merged chunk is the same on
+every rank of a metric column, so no gather is needed.  The
 reference's program psums the stream shares' deltas instead; the arena
 and the rings are the same bits.
 
@@ -113,11 +116,13 @@ def stamp_activity(last_active: torch.Tensor, ids: torch.Tensor,
 
 
 def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
-                epoch, ifirst, bucket_limit, landed=None):
+                epoch, ifirst, bucket_limit, landed=None, stamp=None):
     """One chunk into every carry (in place): the clears, then one K3
     launch for every target (the accumulator, when there is one, and
     each tier's open slot); ``landed()`` runs right after that launch,
-    before the activity stamp."""
+    before the activity stamp of ``packed``'s ids, or of ``stamp`` where
+    the activity vector's rows are not the rings' (a paged mesh rank:
+    the chunk's ids in the aggregator's block)."""
     targets = [] if acc is None else [acc]
     for ring, slot, keep in zip(rings, slots, keeps):
         view = ring[int(slot)]
@@ -132,7 +137,8 @@ def _fold_chunk(acc, rings, last_active, ihist, slots, keeps, packed,
     if landed is not None:
         landed()
     if last_active is not None:
-        stamp_activity(last_active, packed[:, 0], epoch)
+        stamp_activity(last_active, packed[:, 0] if stamp is None
+                       else stamp, epoch)
 
 
 def _step_fn(fold, num_tiers: int, track_activity: bool,
@@ -394,9 +400,12 @@ def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,
     drop) go into it with one K4 launch; ``packed`` then goes into every
     tier's open slot with one K3 launch, and the activity stamp follows.
     The other operands are ``make_fused_commit_fn``'s; ``landed`` runs
-    right after the K4 launch, once the chunk sits in the pool."""
+    right after the K4 launch, once the chunk sits in the pool.  On a
+    mesh ``packed`` holds the cells of the rank's ring blocks and
+    ``stamp`` the chunk's ids in the aggregator's block (block-local; -1
+    elsewhere), which the activity block takes (ROADMAP D13)."""
 
-    def commit(*args, landed=None):
+    def commit(*args, landed=None, stamp=None):
         it = iter(args)
         pool, rings = next(it), tuple(next(it))
         la = next(it) if track_activity else None
@@ -408,7 +417,7 @@ def make_paged_fused_commit_fn(num_tiers: int, bucket_limit: int,
         if landed is not None:
             landed()
         _fold_chunk(None, rings, la, None, slots, keeps, packed, epoch,
-                    None, bucket_limit)
+                    None, bucket_limit, stamp=stamp)
         out = [pool, rings]
         if track_activity:
             out.append(la)
@@ -432,9 +441,9 @@ def make_paged_fused_commit_snapshot_fn(
     step = make_paged_fused_commit_fn(num_tiers, bucket_limit,
                                       track_activity)
 
-    def commit(*args, landed=None):
+    def commit(*args, landed=None, stamp=None):
         *args, masks = args
-        out = step(*args, landed=landed)
+        out = step(*args, landed=landed, stamp=stamp)
         payloads = tuple(
             window_snapshot(ring, masks[t], bucket_limit, precision)
             for t, ring in enumerate(out[1])

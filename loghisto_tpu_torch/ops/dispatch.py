@@ -39,10 +39,8 @@ its edge admits K1 per rank and declines only a mesh whose axes are not
 ("stream", "metric").  Explicit "scatter", "sort" and "hybrid" run on a
 mesh as in the reference.  Paged storage resolves on a mesh by the
 reference's table, its mesh-shape edges included (ROADMAP D12: per-shard
-arenas, K4 and K4f per rank).  What the second half of that slice has
-not ported raises ``PAGED_MESH_SLICE``, which names ROADMAP Queue 1 item
-11c-2: lifecycle, checkpoints and ``resilience=`` on paged storage on a
-mesh.
+arenas, K4 and K4f per rank), and lifecycle, checkpoints and
+``resilience=`` run there (ROADMAP D13).
 
 Each decline reason is a sentence, as in the JAX table; the shape
 preconditions of the JAX paths keep the JAX package's sentences.
@@ -310,14 +308,6 @@ def _ck_fused_batch(platform, batch_size) -> str | None:
             f"(measured crossover {min_batch})"
         )
     return None
-
-
-PAGED_MESH_SLICE = (
-    "lifecycle, checkpoints and resilience= on paged storage on a mesh "
-    "(eviction and compaction across the ranks' page arenas, saves and "
-    "restores of the arenas) wait for ROADMAP Queue 1 item 11c-2; pass "
-    "storage='dense'"
-)
 
 
 def _ck_paged_mesh(mesh, num_metrics) -> str | None:

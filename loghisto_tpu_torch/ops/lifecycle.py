@@ -46,6 +46,10 @@ its new position may lie on different ranks of the metric line:
     row crosses); for the accumulator block, ``last_active`` (a gather,
     not K6) and every ring block, whose unwritten slots stay home.
 
+On paged storage on a mesh (ROADMAP D13) both take ``with_acc=False``:
+the pool folds and permutes on every rank's host half, and the steps
+move the ring blocks and the activity block only.
+
 JAX's ``take(mode="fill")`` wraps negative indices before its bounds
 check (the reason for the reference's ``_sanitize_perm``); here every
 hole is masked to a zero row explicitly.
@@ -305,7 +309,7 @@ def _activity_rows(epoch):
     return repack
 
 
-def make_sharded_fold_evict_fn(mesh, num_tiers: int):
+def make_sharded_fold_evict_fn(mesh, num_tiers: int, with_acc: bool = True):
     """The evict-fold of one rank of a ("stream", "metric") mesh:
     ``fold(acc, rings, last_active, victims, targets, epoch) -> (acc,
     rings, last_active, moved, bytes_sent)`` on the rank's blocks (acc
@@ -316,32 +320,59 @@ def make_sharded_fold_evict_fn(mesh, num_tiers: int):
     the reference's ``vcounts`` summed), ``bytes_sent`` what this rank
     sent.  A collective of the mesh: every rank calls it with the same
     ids; each structure's exchange runs over the metric line, then one
-    SUM over the mesh."""
+    SUM over the mesh.
 
-    def fold(acc, rings, last_active, victims, targets, epoch):
+    ``with_acc=False`` is the paged mesh's variant (ROADMAP D13): the
+    pool folds on every rank's host half (``PagedStore.fold_rows_into``,
+    whose gathered total stands for ``moved``), so the step folds the
+    ring blocks and stamps the activity block only, a collective of the
+    metric line: ``fold_paged(rings, last_active, victims, targets,
+    epoch) -> (rings, last_active, bytes_sent)``."""
+
+    def fold_rings(rings, last_active, v, t, rows, epoch):
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
+        sent = 0
+        for ring in rings:
+            sent += fold_rows(mesh, ring, 1, v, t, ring.shape[1])
+        lo = axis_index(mesh, METRIC_AXIS) * rows
+        own = v[(v >= lo) & (v < lo + rows)] - lo
+        last_active.index_fill_(0, _index(own, last_active.device),
+                                int(epoch))
+        return sent
+
+    def ids(victims, targets):
+        return (np.asarray(victims, dtype=np.int64),
+                np.asarray(targets, dtype=np.int64))
+
+    if not with_acc:
+
+        def fold_paged(rings, last_active, victims, targets, epoch):
+            v, t = ids(victims, targets)
+            sent = fold_rings(rings, last_active, v, t,
+                              last_active.shape[0], epoch)
+            return rings, last_active, sent
+
+        return fold_paged
+
+    def fold(acc, rings, last_active, victims, targets, epoch):
         import torch.distributed as dist
 
-        v = np.asarray(victims, dtype=np.int64)
-        t = np.asarray(targets, dtype=np.int64)
+        v, t = ids(victims, targets)
         rows = acc.shape[0]
         lo = axis_index(mesh, METRIC_AXIS) * rows
         own = v[(v >= lo) & (v < lo + rows)] - lo
-        own_t = _index(own, acc.device)
-        total = int(acc.index_select(0, own_t).sum(dtype=torch.int64))
+        total = int(acc.index_select(0, _index(own, acc.device)).sum(
+            dtype=torch.int64))
         sent = fold_rows(mesh, acc, 0, v, t, rows)
-        for ring in rings:
-            sent += fold_rows(mesh, ring, 1, v, t, ring.shape[1])
-        last_active.index_fill_(0, _index(own, last_active.device),
-                                int(epoch))
+        ring_sent = fold_rings(rings, last_active, v, t, rows, epoch)
         moved = mesh_reduce(mesh, [total], dist.ReduceOp.SUM)[0]
-        return acc, rings, last_active, moved, sent
+        return acc, rings, last_active, moved, sent + ring_sent
 
     return fold
 
 
-def make_sharded_compact_fn(mesh, num_tiers: int):
+def make_sharded_compact_fn(mesh, num_tiers: int, with_acc: bool = True):
     """The repack of one rank of a ("stream", "metric") mesh:
     ``compact(acc, rings, last_active, perm, epoch, written) -> (acc,
     rings, last_active, bytes_sent)`` on the rank's blocks, with the
@@ -352,16 +383,19 @@ def make_sharded_compact_fn(mesh, num_tiers: int):
     stamped ``epoch``).  ``written[t]`` lists tier t's written slots:
     only they hold counts, so only their crossing rows travel.
     ``rings`` is a list the caller owns, its entries replaced one at a
-    time.  A collective of the metric line."""
+    time.  A collective of the metric line.
 
-    def compact(acc, rings, last_active, perm, epoch, written):
+    ``with_acc=False`` is the paged mesh's variant (ROADMAP D13): the
+    pool permutes on every rank's host half
+    (``PagedStore.apply_permutation``), so the step repacks the ring
+    blocks and the activity block only: ``compact_paged(rings,
+    last_active, perm, epoch, written) -> (rings, last_active,
+    bytes_sent)``."""
+
+    def compact_rings(move, rows, rings, perm, written):
         if len(rings) != num_tiers:
             raise ValueError(f"{len(rings)} rings for {num_tiers} tiers")
-        rows = acc.shape[0]
-        move = RowMove(mesh, perm, rows, rows)
-        acc = move.apply(acc, 0, compact_rows_kernel)
-        la = move.apply(last_active, 0, _activity_rows(epoch))
-        sent = move.bytes_sent
+        sent = 0
         for i in range(num_tiers):
             ring_rows = rings[i].shape[1]
             rmove = move if ring_rows == rows else RowMove(
@@ -370,6 +404,27 @@ def make_sharded_compact_fn(mesh, num_tiers: int):
             rings[i] = rmove.apply(rings[i], 1, compact_rows_kernel,
                                    lead=written[i])
             sent += rmove.bytes_sent - before
+        return sent
+
+    if not with_acc:
+
+        def compact_paged(rings, last_active, perm, epoch, written):
+            rows = last_active.shape[0]
+            move = RowMove(mesh, perm, rows, rows)
+            la = move.apply(last_active, 0, _activity_rows(epoch))
+            sent = move.bytes_sent
+            sent += compact_rings(move, rows, rings, perm, written)
+            return rings, la, sent
+
+        return compact_paged
+
+    def compact(acc, rings, last_active, perm, epoch, written):
+        rows = acc.shape[0]
+        move = RowMove(mesh, perm, rows, rows)
+        acc = move.apply(acc, 0, compact_rows_kernel)
+        la = move.apply(last_active, 0, _activity_rows(epoch))
+        sent = move.bytes_sent
+        sent += compact_rings(move, rows, rings, perm, written)
         return acc, rings, la, sent
 
     return compact

@@ -73,8 +73,15 @@ block.  Rows that change shard (``apply_permutation``, ``grow``) migrate:
 the owning ranks extract their cells and spilled cells
 (``_extract_rows``), one gather over the metric axis hands every rank
 all of them, every rank makes the same host ``commit`` and lands its
-arena's share.  Those, ``decode_cells`` and ``query`` are collectives of
-the rank's metric line; everything else needs no collective.
+arena's share.  The lifecycle's half on a mesh (ROADMAP D13):
+``fold_rows_into`` gathers the victims' cells and spilled cells from
+their owners' blocks over the metric axis, and every rank re-commits
+them under the target's codec and lands its arena's share, the spilled
+cells joining the target's block; ``drop_rows`` zeroes the rank's own
+slots and purges its own block's spill; ``state`` gathers the arenas
+and the blocks' spills into the whole store's state.  Those, the
+migrations, ``decode_cells`` and ``query`` are collectives of the rank's
+metric line; everything else needs no collective.
 """
 
 from __future__ import annotations
@@ -945,25 +952,41 @@ class PagedStore:
         return rows, idx, counts
 
     def decode_cells(
-        self, include_spill: bool = True
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        self, include_spill: bool = True, first_only: bool = False
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(rows, native dense indices, int64 counts) across the pool
         and the host spill.  On a mesh a collective of the rank's metric
-        line: every block's cells, gathered in block order."""
+        line: every block's cells, gathered in block order.  With
+        ``first_only`` (a checkpoint's save) the cells go to rank (0, 0)
+        alone, from the ranks of stream index 0 (each arena is the same
+        on every rank of its metric column, so one column's copy is the
+        whole store); every other rank returns None."""
+        if first_only and self.mesh is not None:
+            from loghisto_tpu_torch.parallel.mesh import is_stream_lead
+
+            if not is_stream_lead(self.mesh):
+                return None
         cells = self._block_cells(include_spill)
         if self.mesh is None:
             return cells
         from loghisto_tpu_torch.parallel.mesh import gather_rows
 
-        whole = gather_rows(self.mesh, np.stack(cells, axis=1))
+        whole = gather_rows(self.mesh, np.stack(cells, axis=1),
+                            first_only=first_only)
+        if whole is None:
+            return None
         return whole[:, 0], whole[:, 1], whole[:, 2]
 
-    def decode_dense(self, include_spill: bool = True) -> np.ndarray:
+    def decode_dense(self, include_spill: bool = True,
+                     first_only: bool = False) -> Optional[np.ndarray]:
         """Dense [M, B] int64 reconstruction (O(M x B) host memory); on a
-        mesh a collective (``decode_cells``)."""
+        mesh a collective (``decode_cells``, whose ``first_only`` leaves
+        None on every rank but rank (0, 0))."""
+        cells = self.decode_cells(include_spill, first_only)
+        if cells is None:
+            return None
         acc = np.zeros((self.num_metrics, self.num_buckets), dtype=np.int64)
-        rows, idx, counts = self.decode_cells(include_spill)
-        np.add.at(acc, (rows, idx), counts)
+        np.add.at(acc, cells[:2], cells[2])
         return acc
 
     def stats(self, ps: np.ndarray, reset: bool = True):
@@ -1031,16 +1054,22 @@ class PagedStore:
         """Count-exact eviction fold: each victim row's cells re-commit
         under the TARGET row's codec and pages (the overflow row), its
         host-spill cells move to the target, and its pages and codec are
-        released.  Returns the total count moved."""
-        if self.mesh is not None:
-            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+        released.  Returns the total count moved.
 
-            raise ValueError(f"fold_rows_into unavailable: {PAGED_MESH_SLICE}")
+        On a mesh a collective of the rank's metric line (ROADMAP D13):
+        each rank decodes the victims of its block from its arena and
+        pops their spilled cells from its block's spill, one gather hands
+        every rank all of both, every rank zeroes its own arena's victim
+        slots and makes the same host ``commit`` under the target's
+        codec (landing its arena's triples with K4), and the spilled
+        cells join the target's block.  ``moved`` is the gathered total,
+        the same on every rank."""
         victims = [int(v) for v in victims if v != target]
         if not victims:
             return 0
-        rows, idx, counts = self._row_cells(victims)
-        moved = int(counts.sum())
+        (rows, idx, counts), spill = self._gather_cells(
+            self._row_cells(victims), self._pop_spill(victims))
+        moved = int(counts.sum()) + int(spill[2].sum())
         # zero the victim pages BEFORE recommitting, so the fold cannot
         # double-count (commit touches only the target's pages)
         self._zero_rows(victims)
@@ -1050,15 +1079,27 @@ class PagedStore:
             packed[:, 1] = idx - self.bucket_limit
             packed[:, 2] = counts
             self.commit(packed)
-        dead = set(victims)
-        with self._lock:
-            for key in [k for k in self._host_spill if k[0] in dead]:
-                v = self._host_spill.pop(key)
-                tkey = (target, key[1])
-                self._host_spill[tkey] = self._host_spill.get(tkey, 0) + v
-                moved += v
+        if len(spill[0]):
+            self._spill_add(np.full(len(spill[0]), target, dtype=np.int64),
+                            spill[1], spill[2])
         self.release_rows(victims)
         return moved
+
+    def _gather_cells(self, pool_cells, spill_cells):
+        """(pool cells, spilled cells), each (rows, native dense indices,
+        int64 counts): on one card as given; on a mesh every rank's of
+        its metric line, in block order (one ``gather_rows``)."""
+        if self.mesh is None:
+            return pool_cells, spill_cells
+        from loghisto_tpu_torch.parallel.mesh import gather_rows
+
+        part = np.concatenate([
+            np.stack([np.zeros_like(pool_cells[0]), *pool_cells], axis=1),
+            np.stack([np.ones_like(spill_cells[0]), *spill_cells], axis=1)])
+        whole = gather_rows(self.mesh, part)
+        pool, spill = whole[whole[:, 0] == 0], whole[whole[:, 0] == 1]
+        return ((pool[:, 1], pool[:, 2], pool[:, 3]),
+                (spill[:, 1], spill[:, 2], spill[:, 3]))
 
     def _zero_rows(self, rows) -> None:
         """Zero the rows' pages in this rank's arena (the whole pool on
@@ -1099,7 +1140,9 @@ class PagedStore:
     def drop_rows(self, rows) -> None:
         """Discard rows entirely (eviction with a shed target): zero and
         release their pages, clear their codecs and purge their
-        host-spill cells.  The caller accounts the shed counts."""
+        host-spill cells.  The caller accounts the shed counts.  On a
+        mesh each rank zeroes its own arena's slots and purges its own
+        block's spill: no collective."""
         rows = [int(r) for r in rows]
         if not rows:
             return
@@ -1125,22 +1168,13 @@ class PagedStore:
         all of both, in block order.  The spilled cells wait in
         ``_carried`` for the caller to re-home."""
         rows = [int(r) for r in rows]
-        r, idx, counts = self._row_cells(rows)
+        cells = self._row_cells(rows)
         self._zero_rows(rows)
         self._free_rows(rows)
         if self.mesh is not None:
-            from loghisto_tpu_torch.parallel.mesh import gather_rows
-
-            s_rows, s_idx, s_cnt = self._pop_spill(
-                [] if carry is None else carry)
-            part = np.concatenate([
-                np.stack([np.zeros_like(r), r, idx, counts], axis=1),
-                np.stack([np.ones_like(s_rows), s_rows, s_idx, s_cnt],
-                         axis=1)])
-            whole = gather_rows(self.mesh, part)
-            pool, spill = whole[whole[:, 0] == 0], whole[whole[:, 0] == 1]
-            r, idx, counts = pool[:, 1], pool[:, 2], pool[:, 3]
-            self._carried = (spill[:, 1], spill[:, 2], spill[:, 3])
+            cells, self._carried = self._gather_cells(
+                cells, self._pop_spill([] if carry is None else carry))
+        r, idx, counts = cells
         packed = np.empty((len(r), 3), dtype=np.int32)
         packed[:, 0] = r
         packed[:, 1] = idx - self.bucket_limit
@@ -1289,23 +1323,45 @@ class PagedStore:
                 self.row_codec[row] = self._codec_ids[name]
         self._drop_mirror()
 
-    def state(self) -> dict:
-        """Host copies of the store's state (``load_state`` reads it).
-        One card only: a mesh's state is a checkpoint's, which waits for
-        ROADMAP Queue 1 item 11c-2."""
-        if self.mesh is not None:
-            from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
+    def state(self, first_only: bool = False) -> Optional[dict]:
+        """Host copies of the store's state (``load_state`` reads it):
+        the pool, the host half, the spill and ``free_list``, or one free
+        list per arena (``free_lists``) where there are several.
 
-            raise ValueError(f"the store's state unavailable: "
-                             f"{PAGED_MESH_SLICE}")
+        On a mesh a collective of the rank's metric line (ROADMAP D13):
+        the whole store's state, as the reference's one controller holds
+        it, with the arenas gathered in shard order into the whole pool
+        and the blocks' spilled cells into one spill; every rank returns
+        the same.  With ``first_only`` rank (0, 0) alone gathers and
+        returns it (the ranks off stream index 0 make no call) and every
+        other rank returns None."""
         with self._lock:
             spill = dict(self._host_spill)
+        if self.mesh is None:
+            pool = self._pool.cpu().numpy().copy()
+        else:
+            from loghisto_tpu_torch.parallel.mesh import (
+                gather_rows,
+                host_gather,
+                pool_sharding,
+            )
+
+            pool = host_gather(self._pool, pool_sharding(self.mesh),
+                               first_only)
+            cells = np.array([(r, d, v) for (r, d), v in spill.items()],
+                             dtype=np.int64).reshape(-1, 3)
+            cells = gather_rows(self.mesh, cells, first_only=first_only)
+            if pool is None or cells is None:
+                return None
+            spill = {(int(r), int(d)): int(v) for r, d, v in cells}
+        frees = self.free_lists()
         return {
-            "pool": self._pool.cpu().numpy().copy(),
+            "pool": pool,
             "page_table": self.page_table.copy(),
             "row_codec": self.row_codec.copy(),
             "host_spill": spill,
-            "free_list": self.free_list(),
+            **({"free_list": frees[0]} if len(frees) == 1
+               else {"free_lists": frees}),
             "allocated_pages": int(self.allocated_pages),
         }
 

@@ -142,8 +142,10 @@ folded again as the global batch folds), and every rank runs
 arena.  ``collect()`` then computes the statistics of the rank's
 block from its arena and its block's host spill, and one gather over the
 metric axis gives every rank the set; paged storage needs no stream
-``all_reduce``.  Lifecycle and checkpoints on a paged mesh wait for
-item 11c-2.
+``all_reduce``.  On a paged mesh (ROADMAP D13) ``state_dict`` is the
+store's state gathered over the metric axis, the arenas summed over
+nothing (each is the same on every rank of its metric column), and the
+lifecycle's eviction and compaction land the stage first.
 """
 
 from __future__ import annotations
@@ -636,7 +638,8 @@ class TorchAggregator:
         (``MeshStage``) and ``collect()`` lands them first, each global
         batch translated on every rank; the ``spill_threshold`` holds
         for the whole interval, which every rank counts alike.
-        Lifecycle and checkpoints on a paged mesh wait for 11c-2."""
+        Lifecycle, checkpoints and ``state_dict`` on a paged mesh follow
+        ROADMAP D13."""
         if mesh is not None and device is None:
             device = mesh.device_type  # a rank aggregates on its mesh device
         self.device = resolve_device(device)
@@ -1840,10 +1843,13 @@ class TorchAggregator:
             if self.paged is not None:
                 # the store redraws its shard blocks and migrates the rows
                 # that change shard (a collective of the metric line); the
-                # stage still holds the new rows' samples (D12)
+                # stage still holds the new rows' samples (D12); then the
+                # lifecycle's activity block (D13)
                 self.paged.grow(new_m)
                 self.num_metrics = new_m
                 self.stats_snapshot = None
+                for relayout in self._mesh_carries:
+                    relayout(regrown)
                 return
             acc = regrown(self._acc).to(self.device)
             if mesh_reduce(self.mesh, [self._spill is not None], max_,
@@ -2217,11 +2223,12 @@ class TorchAggregator:
         whole int32 ``[M, B]``, or zeros with the sum in ``spill`` where
         any rank spilled or a cell passes int32.  With ``first_only``
         (a checkpoint's save) the sum and the gather go to rank (0, 0)
-        alone, and every other rank returns None."""
+        alone, and every other rank returns None.  On a paged mesh
+        (ROADMAP D13) the state is the store's, gathered over the metric
+        axis (``PagedStore.state``): the arenas in shard order, one free
+        list each."""
         if self.mesh is not None and self.paged is not None:
-            raise ValueError(
-                f"the aggregator's state unavailable: "
-                f"{dispatch.PAGED_MESH_SLICE}")
+            return self._paged_mesh_state_dict(first_only)
         self.flush(force=True)
         if self.mesh is not None:
             return self._mesh_state_dict(first_only)
@@ -2238,6 +2245,33 @@ class TorchAggregator:
                 "agg": {mid: list(e) for mid, e in self._agg.items()},
                 "spill": None if self._spill is None else self._spill.copy(),
             }
+
+    def _paged_mesh_state_dict(self, first_only: bool) -> Optional[dict]:
+        """``state_dict`` on a paged mesh (ROADMAP D13): the staged
+        batches land first (``land_staged``: the barrier and the
+        growth's layout), then the store's state is gathered over the
+        metric axis (``PagedStore.state``).  The arenas are the same on
+        every rank of a metric column, so nothing is summed over the
+        stream axis."""
+        self.land_staged()
+        with self._dev_lock:
+            paged = self.paged.state(first_only)
+            if paged is None:
+                return None
+            names = self.registry.names()
+        with self._agg_lock:
+            agg = {mid: list(e) for mid, e in self._agg.items()}
+        return {
+            "format": STATE_FORMAT,
+            "storage": self.storage,
+            "bucket_limit": self.config.bucket_limit,
+            "precision": self.config.precision,
+            "acc": None,
+            "paged": paged,
+            "names": names,
+            "agg": agg,
+            "spill": None,
+        }
 
     def _mesh_state_dict(self, first_only: bool) -> Optional[dict]:
         """``state_dict`` on a mesh (after the barrier)."""

@@ -344,23 +344,34 @@ def gather_objects(mesh, obj, axis: str = STREAM_AXIS):
     return out
 
 
-def gather_rows(mesh, rows: np.ndarray, axis: str = METRIC_AXIS):
+def gather_rows(mesh, rows: np.ndarray, axis: str = METRIC_AXIS,
+                first_only: bool = False):
     """The host ``rows`` (dim 0 of any length; the same trailing shape and
     dtype on every rank) of every rank of this rank's line along
     ``axis``, concatenated in coordinate order, on the host: the lengths
     gathered, each part padded to the longest, then one ``all_gather``.
-    Two collectives of that line (one when every part is empty)."""
+    Two collectives of that line (one when every part is empty).  With
+    ``first_only`` the rows go to rank (0, 0) alone (the data's
+    collective a ``gather``): the ranks off its line along ``axis`` make
+    no call, and every rank but rank (0, 0) returns None."""
+    if first_only and _off_first_lines(mesh, (axis,)):
+        return None
     rows = np.ascontiguousarray(rows)
     dev = mesh_device(mesh)
     lens = gather_parts(mesh, torch.tensor([len(rows)], dtype=torch.int64,
                                            device=dev), axis).cpu().numpy()
     width = int(lens.max())
+    if first_only and axis_index(mesh, axis) and not width:
+        return None
     out = rows[:0].copy()
     if width:
         part = np.zeros((width, *rows.shape[1:]), dtype=rows.dtype)
         part[:len(rows)] = rows
-        whole = gather_parts(mesh, torch.from_numpy(part).to(dev),
-                             axis).cpu().numpy()
+        whole = gather_parts(mesh, torch.from_numpy(part).to(dev), axis,
+                             first_only=first_only)
+        if whole is None:
+            return None
+        whole = whole.cpu().numpy()
         out = np.concatenate([whole[k * width:k * width + int(n)]
                               for k, n in enumerate(lens)])
     return out

@@ -54,7 +54,12 @@ nothing for a seq commits an empty interval of that seq, so every rank
 makes the same collectives.  Int32 adds commute, so any target shape
 holds the sums of the merged intervals; a JAX journal (one file) is
 row 0 of 1, and one device recovers a mesh's crash as row 0 of 1.  The
-seq counter then moves past the most any rank replayed.
+seq counter then moves past the most any rank replayed.  On paged
+storage (ROADMAP D13) the replayed intervals go through the committer's
+merged interval, whose cells come in the order of the live one (the
+saved rows merged in row order, the names in file order), so a replay
+onto another stream axis commits the live interval's cells in the same
+chunks.
 """
 
 from __future__ import annotations

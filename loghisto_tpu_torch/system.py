@@ -115,9 +115,11 @@ metric shard's page arena and the whole host page table; the
 aggregator stages the rank's samples on the host, and the collective
 calls above (and ``stop()``) land them first; the committer commits the
 stream rows' merged interval on every rank (K4 into the arena, K3 into
-the ring blocks, K5 views).  ``lifecycle=`` and ``resilience=`` on a
-paged mesh wait for item 11c-2 and raise; ``anomaly=`` keeps the
-reference's dense-only refusal.
+the ring blocks, K5 views).  ``lifecycle=`` and ``resilience=`` run on
+a paged mesh as on dense storage (ROADMAP D13: eviction and compaction
+across the ranks' arenas, K6 over the ring blocks, saves and restores of
+the arenas, ``recover()`` onto any shape or one device); ``anomaly=``
+keeps the reference's dense-only refusal.
 
 Entry point rule: ``device`` defaults to the card and raises without
 CUDA; ``device="cpu"`` runs the plain versions (a mesh's device type is
@@ -237,11 +239,6 @@ class TorchMetricSystem(MetricSystem):
         self.device = resolve_device(device)
         super().__init__(interval=interval, sys_stats=sys_stats,
                          config=config, fast_ingest=fast_ingest)
-        for what, cfg in (("lifecycle", lifecycle),
-                          ("resilience", resilience)):
-            if mesh is not None and cfg is not None and cfg is not False:
-                self._refuse_paged_mesh(what, num_metrics, config,
-                                        transport, storage, mesh)
         # resilience first, so every component below is built wired
         self.resilience: Optional[ResilienceConfig] = None
         self.fault_injector = None
@@ -363,23 +360,6 @@ class TorchMetricSystem(MetricSystem):
         if observability is not None and observability is not False:
             self._build_observability(observability)
         self._attach_bridges()
-
-    @staticmethod
-    def _refuse_paged_mesh(what, num_metrics, config, transport, storage,
-                           mesh) -> None:
-        """``lifecycle=`` or ``resilience=`` with storage that resolves to
-        paged on a mesh raises the 11c-2 sentence before anything is
-        built (the aggregator's own resolution, with ``device`` the
-        mesh's)."""
-        fused_ok = dispatch.fused_paged_incapability(
-            num_metrics, config.num_buckets, transport=transport,
-            platform=mesh.device_type, mesh=mesh) is None
-        resolved, _ = dispatch.resolve_storage_path(
-            storage, num_metrics, config.num_buckets, mesh.device_type,
-            transport=transport, fused_ok=fused_ok, mesh=mesh)
-        if resolved == "paged":
-            raise ValueError(f"{what} unavailable: "
-                             f"{dispatch.PAGED_MESH_SLICE}")
 
     def _build_observability(self, observability) -> None:
         """One span ring for every site, the ``obs.SpansDropped`` gauge,

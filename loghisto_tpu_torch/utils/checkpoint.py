@@ -54,6 +54,16 @@ lifetime store, the activity vector and the banks on every rank's
 blocks, the host stores on stream index 0's ranks.  A save on any mesh
 shape restores onto any other, onto one device and into the JAX
 package, and the JAX package's saves restore onto any mesh.
+
+Paged storage on a mesh (ROADMAP D13): a save lands the staged batches,
+then each metric shard's cells and its block's spilled cells go to rank
+(0, 0) alone as int64 triples from the ranks of stream index 0 (the
+arenas are the same on every rank of a metric column, never stream
+partials, so nothing is summed over the stream axis), and rank (0, 0)
+writes the canonical dense ``agg_acc`` and ``pg_codec_names`` as one
+device does.  A restore makes the same host commit on every rank, each
+landing its arena's triples; the spill-or-commit choice reads the
+pool's maximum agreed over the mesh.
 """
 
 from __future__ import annotations
@@ -111,7 +121,6 @@ def save(
     after one full barrier (``flush(force=True)``), the one
     ``state_dict`` takes."""
     mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
-    _refuse_paged_mesh(mesh, metric_system, aggregator)
     if mesh is not None:
         return _mesh_save(path, mesh, metric_system, aggregator, lifecycle,
                           anomaly, seq_watermark, fault_injector)
@@ -166,7 +175,9 @@ def _mesh_save(path, mesh, metric_system, aggregator, lifecycle, anomaly,
                             metric_system.config.go_compat)
         if first:
             _put_host_stores(payload, *sums)
-    if aggregator is not None:
+    if aggregator is not None and aggregator.paged is not None:
+        _put_paged_mesh(payload, aggregator, first)
+    elif aggregator is not None:
         # the barrier, growth's layout, the stream sum, the metric gather
         st = aggregator.state_dict(first_only=True)
         if first:
@@ -193,6 +204,30 @@ def _mesh_save(path, mesh, metric_system, aggregator, lifecycle, anomaly,
             raise err
         raise RuntimeError(f"checkpoint to {path} failed on rank (0, 0); "
                            "previous snapshot intact")
+
+
+def _put_paged_mesh(payload: dict, aggregator, first: bool) -> None:
+    """A paged mesh's aggregator into rank (0, 0)'s payload (ROADMAP
+    D13): the staged batches land (the barrier and the growth's layout),
+    then each metric shard's cells and its block's spilled cells, as
+    int64 triples from the ranks of stream index 0, go to rank (0, 0)
+    alone, which decodes them into the canonical dense ``agg_acc``.  The
+    arenas are the same on every rank of a metric column, so the dense
+    path's stream sum would count them ``n_stream`` times; it does not
+    run.  The codecs, the names and the lifetime store are the same on
+    every rank: rank (0, 0)'s own."""
+    aggregator.land_staged()
+    with aggregator._dev_lock:
+        acc = aggregator.paged.decode_dense(include_spill=True,
+                                            first_only=True)
+        if not first:
+            return
+        payload["pg_codec_names"] = _names_arr(
+            aggregator.paged.codec_names())
+        names = aggregator.registry.names()
+    with aggregator._agg_lock:
+        agg_items = sorted(aggregator._agg.items())
+    _put_aggregator(payload, aggregator, acc, names, agg_items)
 
 
 def _host_stores(metric_system) -> tuple:
@@ -289,18 +324,6 @@ def _write(path: str, payload: dict, fault_injector) -> None:
         raise
 
 
-def _refuse_paged_mesh(mesh, metric_system, aggregator) -> None:
-    """A save or restore of paged storage on a mesh raises the sentence
-    of ROADMAP Queue 1 item 11c-2, on every rank alike."""
-    agg = aggregator
-    if agg is None and metric_system is not None:
-        agg = getattr(metric_system, "aggregator", None)
-    if mesh is not None and getattr(agg, "paged", None) is not None:
-        from loghisto_tpu_torch.ops.dispatch import PAGED_MESH_SLICE
-
-        raise ValueError(f"checkpoint unavailable: {PAGED_MESH_SLICE}")
-
-
 def _mesh_of(*parts):
     """The mesh of the first part (a system, an aggregator or a manager)
     that runs on one, else None."""
@@ -353,7 +376,6 @@ def restore(
     file.  On a mesh a collective call (the module docstring has the
     rules)."""
     mesh = _mesh_of(metric_system, aggregator, lifecycle, anomaly)
-    _refuse_paged_mesh(mesh, metric_system, aggregator)
     with np.load(path, allow_pickle=False) as data:
         version = int(data["version"])
         if version > FORMAT_VERSION:
@@ -531,7 +553,10 @@ def _restore_paged_delta(aggregator, remapped: np.ndarray, row_map,
     the by-name row map, then the nonzero cells commit as (row, bucket -
     bucket_limit, count) triples through ``PagedStore.commit`` (translate,
     one K4 launch), or into the store's exact host spill when the
-    headroom check fails."""
+    headroom check fails.  On a paged mesh (ROADMAP D13) every rank makes
+    the same host commit and lands its arena's triples, or spills into
+    its block; restored counts do not join ``_interval_ingested``, as on
+    one card."""
     pg = aggregator.paged
     if codecs is not None:
         for saved_id, new_id in row_map:
@@ -539,8 +564,19 @@ def _restore_paged_delta(aggregator, remapped: np.ndarray, row_map,
                 pg.set_row_codec(new_id, codecs[saved_id])
     rows, cols = np.nonzero(remapped)
     weights = remapped[rows, cols].astype(np.int64)
+    live_max = pg.max_cell()
+    if aggregator.mesh is not None:
+        import torch.distributed as dist
+
+        from loghisto_tpu_torch.parallel.mesh import mesh_reduce
+
+        # each rank's arena holds its own maximum: the spill-or-commit
+        # choice changes every rank's host half, so the ranks agree on
+        # the whole pool's maximum first (one MAX over the mesh)
+        live_max = mesh_reduce(aggregator.mesh, [live_max],
+                               dist.ReduceOp.MAX)[0]
     if _headroom_exceeded(aggregator, int(weights.max(initial=0)),
-                          pg.max_cell()):
+                          live_max):
         pg.spill_cells(rows.astype(np.int64), cols.astype(np.int64), weights)
     elif len(rows):
         packed = np.empty((len(rows), 3), dtype=np.int32)

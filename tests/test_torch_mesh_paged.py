@@ -595,14 +595,22 @@ def test_resolve_full_path_admits_paged_routes_on_a_capable_mesh():
 
 
 @pytest.mark.parametrize("shape", R.MP_SHAPES, ids=SHAPE_IDS)
-def test_what_11c_2_owes_raises_its_sentence(shape, ranks):
-    for r in ranks(shape).values():
+def test_lifecycle_checkpoints_and_resilience_build_on_a_paged_mesh(
+        shape, ranks):
+    """ROADMAP D13: what a paged mesh refused before builds and runs on
+    every rank (a LifecycleManager, ``state_dict``, a save, systems with
+    ``lifecycle=`` and ``resilience=`` built and stopped); ``anomaly=``
+    keeps the reference's dense-only refusal."""
+    for coord, r in ranks(shape).items():
         for key in ("lifecycle", "state", "save", "sys_lifecycle",
                     "sys_resilience"):
-            assert "11c-2" in str(r[f"refuse.{key}"]), key
-            assert dispatch.PAGED_MESH_SLICE in str(r[f"refuse.{key}"])
+            assert str(r[f"lifted.{key}"]) == "", key
+        assert str(r["lifted.state_storage"]) == "paged"
+        # rank (0, 0) alone writes a save (each rank's directory is its own)
+        assert bool(r["lifted.saved"]) == (coord == (0, 0))
+        assert r["lifted.built"].tolist() == ["paged", "paged"]
         assert "drift engine requires the dense accumulator" in str(
-            r["refuse.sys_anomaly"])
+            r["lifted.sys_anomaly"])
 
 
 def test_a_jax_mesh_store_state_loads_on_every_rank(ranks, inputs):

@@ -2177,8 +2177,10 @@ def _mp_health(out, mesh, inputs) -> None:
     agg.close()
 
 
-def _mp_refusals(out, mesh) -> None:
-    """What item 11c-2 still owes raises its sentence; drift keeps the
+def _mp_lifted(out, mesh) -> None:
+    """What a paged mesh refused before ROADMAP D13 builds and
+    runs: a LifecycleManager, the aggregator's state, a checkpoint's
+    save, and systems with lifecycle= and resilience=; drift keeps the
     reference's dense-only refusal."""
     from loghisto_tpu_torch.anomaly import AnomalyConfig
     from loghisto_tpu_torch.config import MetricConfig
@@ -2190,23 +2192,38 @@ def _mp_refusals(out, mesh) -> None:
 
     agg, wheel, com = _mp_pipeline(mesh, MP_C_POOL)
     with tempfile.TemporaryDirectory() as d:
-        out["refuse.lifecycle"] = _raises(lambda: LifecycleManager(
-            agg, wheel, LifecycleConfig()))
-        out["refuse.state"] = _raises(agg.state_dict)
-        out["refuse.save"] = _raises(lambda: checkpoint.save(
-            os.path.join(d, "ck.npz"), aggregator=agg))
+        try:
+            out["lifted.lifecycle"] = _raises(lambda: LifecycleManager(
+                agg, wheel, LifecycleConfig()))
+            states = []
+            out["lifted.state"] = _raises(lambda: states.append(
+                agg.state_dict()))
+            out["lifted.state_storage"] = np.array(states[0]["storage"])
+            out["lifted.save"] = _raises(lambda: checkpoint.save(
+                os.path.join(d, "ck.npz"), aggregator=agg))
+            out["lifted.saved"] = np.array(
+                os.path.exists(os.path.join(d, "ck.npz")))
+        finally:
+            agg.close()
         kw = dict(interval=1.0, sys_stats=False, num_metrics=MP_M,
                   config=MetricConfig(bucket_limit=MP_C_BL), storage="paged",
                   paged_config=mp_paged_config(PagedStoreConfig, MP_C_POOL),
                   retention=MP_C_TIERS, mesh=mesh)
-        out["refuse.sys_lifecycle"] = _raises(lambda: TorchMetricSystem(
-            lifecycle=LifecycleConfig(), **kw))
-        out["refuse.sys_resilience"] = _raises(lambda: TorchMetricSystem(
+        built = []
+
+        def system(**extra):
+            ms = TorchMetricSystem(**kw, **extra)
+            built.append(ms.aggregator.storage)
+            ms.stop()
+
+        out["lifted.sys_lifecycle"] = _raises(lambda: system(
+            lifecycle=LifecycleConfig()))
+        out["lifted.sys_resilience"] = _raises(lambda: system(
             resilience=ResilienceConfig(
-                checkpoint_path=os.path.join(d, "x.npz")), **kw))
-        out["refuse.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
+                checkpoint_path=os.path.join(d, "x.npz"))))
+        out["lifted.built"] = np.array(built)
+        out["lifted.sys_anomaly"] = _raises(lambda: TorchMetricSystem(
             anomaly=AnomalyConfig(), **kw))
-    agg.close()
 
 
 def _mp_state(out, mesh, inputs) -> None:
@@ -2257,11 +2274,450 @@ def _mesh_paged_job(out, rank, arg, inputs):
     _mp_commit(out, mesh, inputs, s)
     _mp_system(out, mesh, inputs, s)
     _mp_health(out, mesh, inputs)
-    _mp_refusals(out, mesh)
+    _mp_lifted(out, mesh)
     if stream * metric == 4:
         four = make_mesh(1, 4, device="cpu")
         out["coord.four"] = np.array(four.get_coordinate())
         _mp_state(out, four, inputs)
+
+
+# -- lifecycle, checkpoints and recovery on a paged mesh
+#    (tests/test_torch_mesh_paged_lifecycle.py) --------------------------------
+
+PL_SHAPES = ((2, 2), (2, 1), (1, 2))  # launched in this order (see PL_SAVER)
+PL_SAVER = (2, 2)  # its launch writes the mesh save the others restore
+PL_CRASHER = (2, 1)  # its launch crashes the system (1, 2) recovers
+PL_M = 64
+PL_MAX = 128
+PL_BL = 128
+PL_POOL = 256
+PL_SAT_POOL = 24  # 32 rows of two pages saturate a shard's arena
+PL_TIERS = ((4, 2), (3, 4))
+PL_CHUNK = 32  # cells a commit step: an interval takes several
+PL_NAMES = 40  # rows 0-39: both blocks of a two-way metric axis
+PL_BEFORE = 3  # intervals before the eviction and the compaction
+PL_AFTER = 3  # intervals after them, each with PL_FRESH fresh names
+PL_FRESH = 10  # 40 - 4 + 4 + 30 names pass 64 rows: growth to 128
+PL_VICTIMS = (20, 25, 33, 35)  # each its own overflow row, codec-less
+PL_SHED_VICTIMS = (5, 40)  # one free row: the first folds, the second sheds
+PL_CK_NAMES = 32
+PL_CK_POOL = 12  # the saved store spills: the save holds spilled cells
+PL_BIG = (1 << 30) - 1024  # a cell that fails a restore's headroom
+PL_BIG_ROW = 40  # in the second block of a two-way metric axis
+PL_SYS_TIERS = ((4, 1),)
+PL_SYS_BEFORE = 4  # the system evicts and compacts after 4 intervals
+PL_SYS_VICTIMS = (2, 34)
+PL_SYS_CRASH = 9  # intervals before the crash
+PL_SYS_EVERY = 6  # the checkpoint cadence: the watermark stands at 6
+PL_SYS_AFTER = 2  # intervals after the recovery
+PL_SYS_QUERIES = (("p*", None), ("p3", 2.0), ("f*", None))
+PL_STREAM_ROWS = 2
+
+
+def pl_names(i: int, before: int = PL_BEFORE,
+             victims=PL_VICTIMS) -> list:
+    """Interval i's names, in order: the PL_NAMES base names (the victims
+    left out from interval ``before`` on, once evicted), then the fresh
+    names of the intervals since ``before``."""
+    base = [f"p{k}" for k in range(PL_NAMES)]
+    if i < before:
+        return base
+    gone = {f"p{v}" for v in victims}
+    return [n for n in base if n not in gone] + [
+        f"f{j}" for j in range(PL_FRESH * (i - before + 1))]
+
+
+def pl_raw(raw_cls, rows, i, names, seq=None):
+    """Interval i of ``names`` holding the merged cells of ``rows`` ((s,
+    cells) pairs), stamped with ``seq`` when given."""
+    import dataclasses
+
+    raw = mc_raw(raw_cls, rows, names, i)
+    return raw if seq is None else dataclasses.replace(raw, seq=seq)
+
+
+def _pl_pipeline(mesh, pool, max_metrics=PL_MAX):
+    """A paged mesh rank's aggregator, wheel, LifecycleManager and
+    committer, the JAX package's ``_run_lifecycle`` pipeline."""
+    from loghisto_tpu_torch.commit import IntervalCommitter
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig, LifecycleManager
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+    from loghisto_tpu_torch.window.store import TimeWheel
+
+    cfg = MetricConfig(bucket_limit=PL_BL)
+    agg = TorchAggregator(
+        num_metrics=PL_M, config=cfg, storage="paged",
+        paged_config=PagedStoreConfig(pool_pages=pool),
+        max_metrics=max_metrics, mesh=mesh)
+    wheel = TimeWheel(num_metrics=PL_M, config=cfg, interval=1.0,
+                      tiers=PL_TIERS, registry=agg.registry, mesh=mesh)
+    lc = LifecycleManager(agg, wheel, LifecycleConfig())
+    return agg, wheel, lc, IntervalCommitter(agg, wheel, lifecycle=lc,
+                                             chunk=PL_CHUNK)
+
+
+def _put_lc(out, key, agg, wheel, lc) -> None:
+    """The rank's arena and host half, ring blocks, activity block,
+    registry and the lifecycle's counters."""
+    _put_store(out, key, agg.paged)
+    _put_wheel(out, key, wheel)
+    out[f"{key}.la"] = lc._la.cpu().numpy().copy()
+    out[f"{key}.names"] = np.array(
+        ["" if n is None else n for n in agg.registry.names()], dtype=str)
+    out[f"{key}.lc_counters"] = np.array(
+        [lc.evicted_series, lc.overflowed_samples, lc.evictions,
+         lc.compactions])
+
+
+def _pl_lifecycle(out, mesh, inputs, s, key, pool) -> None:
+    """JAX ``tests/test_mesh_paged.py:140-171`` on a rank: PL_BEFORE
+    commits, ``evict_ids`` of the victims (each folds into a new,
+    codec-less overflow row, across shards on a two-way metric axis),
+    ``compact()``, then PL_AFTER commits whose fresh names grow the
+    registry past its rows; the carries after each step."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import (
+        collective_bytes,
+        reset_collective_bytes,
+    )
+
+    agg, wheel, lc, com = _pl_pipeline(mesh, pool)
+
+    def land_raw(k):
+        # a raw batch through the store's K4f route: the first builds the
+        # K4f mirrors, the second reads them after the fold, the drop
+        # and the permutation changed the table and the codecs
+        st = agg.paged
+        ids, _ = st.prepare_batch(inputs[f"pl.raw.{k}.ids"],
+                                  inputs[f"pl.raw.{k}.values"])
+        st.ingest_raw(torch.from_numpy(ids).to(st.device), torch.from_numpy(
+            inputs[f"pl.raw.{k}.values"]).to(st.device))
+
+    try:
+        modes = []
+        for i in range(PL_BEFORE + PL_AFTER):
+            if i == 1:
+                land_raw(0)
+            if i == PL_BEFORE:
+                reset_collective_bytes()
+                moved = lc.overflowed_samples
+                evicted = lc.evict_ids([agg.registry.lookup(f"p{v}")
+                                        for v in PL_VICTIMS])
+                out[f"{key}.evicted"] = np.array(evicted)
+                out[f"{key}.moved"] = np.array(lc.overflowed_samples - moved)
+                _put_lc(out, f"{key}.ev", agg, wheel, lc)
+                out[f"{key}.compacted"] = np.array(lc.compact())
+                out[f"{key}.sent"] = np.array(
+                    [lc.last_evict_bytes, lc.last_compaction_bytes,
+                     collective_bytes()])
+                _put_lc(out, f"{key}.cp", agg, wheel, lc)
+                land_raw(1)
+            modes.append(com.commit(pl_raw(
+                RawMetricSet, [(s, inputs[f"pl.{i}.{s}"])], i, pl_names(i))))
+        _put_lc(out, f"{key}.end", agg, wheel, lc)
+        out[f"{key}.m"] = np.array([agg.num_metrics, agg.paged.num_metrics])
+        out[f"{key}.modes"] = np.array(modes)
+        out[f"{key}.fanout"] = np.array(com.fanout_intervals)
+        put_metrics(out, f"{key}.collect", agg.collect(reset=False).metrics)
+    finally:
+        agg.close()
+
+
+def pl_shed_names(i: int) -> list:
+    names = [f"p{k}" for k in range(PL_M - 1)]
+    if i < 2:
+        return names
+    return [n for n in names if int(n[1:]) not in PL_SHED_VICTIMS]
+
+
+def _pl_shed(out, mesh, inputs, s) -> None:
+    """A registry one row short of full at its growth cap: the first
+    victim's overflow row takes the free row, the second's is shed (its
+    victim dropped from the arena and its spill)."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    agg, wheel, lc, com = _pl_pipeline(mesh, PL_SAT_POOL, max_metrics=PL_M)
+    try:
+        for i in range(3):
+            if i == 2:
+                out["shed.evicted"] = np.array(lc.evict_ids(
+                    [agg.registry.lookup(f"p{v}") for v in PL_SHED_VICTIMS]))
+                _put_lc(out, "shed.ev", agg, wheel, lc)
+            com.commit(pl_raw(RawMetricSet, [(s, inputs[f"pls.{i}.{s}"])],
+                              i, pl_shed_names(i)))
+        _put_lc(out, "shed.end", agg, wheel, lc)
+    finally:
+        agg.close()
+
+
+def _pl_agg(mesh, pool=PL_POOL, storage="paged"):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.parallel.aggregator import TorchAggregator
+
+    return TorchAggregator(
+        num_metrics=PL_M, config=MetricConfig(bucket_limit=PL_BL),
+        storage=storage, paged_config=PagedStoreConfig(pool_pages=pool),
+        mesh=mesh, device="cpu")
+
+
+def _put_state(out, key, st) -> None:
+    """A paged aggregator state's store half."""
+    pst = st["paged"]
+    out[f"{key}.pool"] = pst["pool"]
+    out[f"{key}.table"] = pst["page_table"]
+    out[f"{key}.codec"] = pst["row_codec"]
+    frees = pst.get("free_lists") or [pst["free_list"]]
+    out[f"{key}.free"] = np.array([x for f in frees for x in f], np.int64)
+    out[f"{key}.free_n"] = np.array([len(f) for f in frees], np.int64)
+    out[f"{key}.spill"] = np.array(sorted(
+        (r, d, v) for (r, d), v in pst["host_spill"].items()),
+        np.int64).reshape(-1, 3)
+    out[f"{key}.names"] = np.array(
+        ["" if n is None else n for n in st["names"]], dtype=str)
+
+
+def _pl_state(out, key, agg, mesh) -> None:
+    """``state_dict`` on every rank (a collective), its ``first_only``
+    form, and its ``load_state_dict`` onto a fresh aggregator on the same
+    mesh."""
+    st = agg.state_dict()
+    _put_state(out, f"{key}.state", st)
+    first = agg.state_dict(first_only=True)
+    out[f"{key}.first"] = np.array(
+        -1 if first is None else int(np.array_equal(
+            first["paged"]["pool"], st["paged"]["pool"])))
+    fresh = _pl_agg(mesh)
+    try:
+        fresh.load_state_dict(st)
+        _put_store(out, f"{key}.load", fresh.paged)
+        put_metrics(out, f"{key}.load.collect",
+                    fresh.collect(reset=False).metrics)
+    finally:
+        fresh.close()
+
+
+def _pl_save(out, mesh, inputs, path) -> None:
+    """The mesh save the other launches restore: PL_CK_NAMES names and a
+    packed batch into arenas that spill, its state, and ``checkpoint.save``
+    (the cells to rank (0, 0) alone)."""
+    from loghisto_tpu_torch.parallel.mesh import (
+        collective_bytes,
+        reset_collective_bytes,
+    )
+    from loghisto_tpu_torch.utils import checkpoint
+
+    agg = _pl_agg(mesh, PL_CK_POOL)
+    try:
+        for j in range(PL_CK_NAMES):
+            agg._id_for(f"h{j}")
+        agg.paged.commit(inputs["pl.ck.packed"])
+        _put_store(out, "cksrc", agg.paged)
+        _pl_state(out, "cksrc", agg, mesh)
+        reset_collective_bytes()
+        checkpoint.save(path, aggregator=agg)
+        out["cksrc.sent"] = np.array(collective_bytes())
+    finally:
+        agg.close()
+
+
+def _pl_restore(out, mesh, key, path, big=False, resave=None) -> None:
+    """``checkpoint.restore`` of ``path`` onto a fresh paged aggregator on
+    ``mesh`` (with ``big``, one cell near 2^30 in a row of the second
+    block first, so the restore's headroom check fails on the pool's
+    agreed maximum); the rank's arena and host half, the decoded pool
+    and the codecs after it, and with ``resave`` a save of it there."""
+    from loghisto_tpu_torch.utils import checkpoint
+
+    agg = _pl_agg(mesh)
+    try:
+        if big:
+            agg.paged.commit(np.array([[PL_BIG_ROW, 0, PL_BIG]], np.int32))
+        checkpoint.restore(path, aggregator=agg)
+        _put_store(out, key, agg.paged)
+        out[f"{key}.dense"] = agg.paged.decode_dense()
+        out[f"{key}.codecs"] = np.array(
+            ["" if c is None else c for c in agg.paged.codec_names()])
+        put_metrics(out, f"{key}.collect", agg.collect(reset=False).metrics)
+        if resave is not None:
+            _pl_state(out, key, agg, mesh)
+            checkpoint.save(resave, aggregator=agg)
+    finally:
+        agg.close()
+
+
+def _pl_system(mesh, ck, jl):
+    from loghisto_tpu_torch.config import MetricConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.paging import PagedStoreConfig
+    from loghisto_tpu_torch.resilience import ResilienceConfig
+    from loghisto_tpu_torch.system import TorchMetricSystem
+
+    return TorchMetricSystem(
+        interval=1.0, sys_stats=False, num_metrics=PL_M,
+        config=MetricConfig(bucket_limit=PL_BL), storage="paged",
+        paged_config=PagedStoreConfig(pool_pages=PL_POOL),
+        retention=PL_SYS_TIERS, mesh=mesh, device=None if mesh else "cpu",
+        lifecycle=LifecycleConfig(check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        resilience=ResilienceConfig(
+            checkpoint_path=ck, journal_path=jl,
+            checkpoint_every_intervals=PL_SYS_EVERY,
+            recover_on_start=False))
+
+
+def pl_sys_raw(raw_cls, inputs, rows, i):
+    """The system's interval i (seq i + 1): the merged cells of ``rows``."""
+    return pl_raw(raw_cls, [(s, inputs[f"plsys.{i}.{s}"]) for s in rows], i,
+                  pl_names(i, PL_SYS_BEFORE, PL_SYS_VICTIMS), seq=i + 1)
+
+
+def _pl_crash(out, mesh, inputs, s, d) -> None:
+    """TorchMetricSystem(mesh=, storage="paged", lifecycle=, resilience=)
+    takes PL_SYS_BEFORE intervals of row s (broadcast to the row's
+    journal and the committer's queue, committed by one collective
+    drain), evicts and compacts by hand, takes the rest (the cadence
+    checkpointing at PL_SYS_EVERY), then crashes: no stop(), no final
+    checkpoint.  Rank 0 keeps the files as the crash left them in
+    ``<d>/crash``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import agreed
+    from loghisto_tpu_torch.utils.journal import row_journals
+
+    ck, jl = os.path.join(d, "ck.npz"), os.path.join(d, "jl.log")
+    ms = _pl_system(mesh, ck, jl)
+    ms.recovery.start()
+    ms._update_subscribers()
+    journal = ms.recovery._journal
+
+    def feed(lo, hi):
+        for i in range(lo, hi):
+            with ms._subscribers_lock:
+                ms._broadcast(ms._raw_subscribers,
+                              pl_sys_raw(RawMetricSet, inputs, (s,), i))
+        end = time.monotonic() + 30.0
+        while ms.committer.queued_intervals < hi - lo or (
+                journal is not None and _lines(journal.path) < hi):
+            if time.monotonic() > end:
+                raise AssertionError("the intervals were not queued and "
+                                     "journaled")
+            time.sleep(0.01)
+        return ms.committer.drain()
+
+    committed = feed(0, PL_SYS_BEFORE)
+    lc = ms.lifecycle
+    out["crash.evicted"] = np.array(lc.evict_ids(
+        [ms.aggregator.registry.lookup(f"p{v}") for v in PL_SYS_VICTIMS]))
+    out["crash.compacted"] = np.array(lc.compact())
+    committed += feed(PL_SYS_BEFORE, PL_SYS_CRASH)
+    out["crash.committed"] = np.array(committed)
+    out["crash.checkpoints"] = np.array(
+        [ms.recovery.checkpoints_taken, ms.recovery.last_checkpoint_seq,
+         ms.recovery.last_seq])
+    journal.stop()
+    ms.committer.detach()
+    ms.aggregator.close()
+    agreed(mesh, True)  # every row's journal is whole
+    files = row_journals(jl)
+    out["crash.files"] = np.array([os.path.basename(f) for _, _, f in files],
+                                  dtype=str)
+    if dist.get_rank() == 0:
+        keep = os.path.join(d, "crash")
+        os.makedirs(keep)
+        for f in [ck] + [f for _, _, f in files]:
+            shutil.copy(f, keep)
+
+
+def pl_recovered(ms, inputs, rows, out=None, key="recover") -> None:
+    """After ``recover()``: PL_SYS_AFTER more intervals of ``rows``
+    through backfill_retention; with ``out``, the rank's arena and host
+    half, the decoded pool, the served queries and the collected set."""
+    from loghisto_tpu_torch.metrics import RawMetricSet
+
+    ms.backfill_retention([pl_sys_raw(RawMetricSet, inputs, rows, i)
+                           for i in range(PL_SYS_CRASH,
+                                          PL_SYS_CRASH + PL_SYS_AFTER)])
+    if out is None:
+        return
+    _put_store(out, key, ms.aggregator.paged)
+    _put_wheel(out, key, ms.retention)
+    out[f"{key}.dense"] = ms.aggregator.paged.decode_dense()
+    for q, (pattern, window) in enumerate(PL_SYS_QUERIES):
+        _put_window(out, f"{key}.q{q}", ms.query(pattern, window, MP_PS))
+    put_metrics(out, f"{key}.collect",
+                ms.device_metrics(reset=False).metrics)
+
+
+def _pl_recover(out, mesh, inputs, s, d) -> None:
+    """The crashed (PL_CRASHER) system's files, copied, recovered onto
+    this mesh (a collective), then PL_SYS_AFTER more intervals: row s
+    takes the saved rows j with j % rows == s."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_size
+
+    # each rank recovers from its own copy of the files
+    here = os.path.join(d, f"recover{dist.get_rank()}")
+    os.makedirs(here)
+    for f in os.listdir(os.path.join(d, "crash")):
+        shutil.copy(os.path.join(d, "crash", f), here)
+    n = axis_size(mesh, STREAM_AXIS)
+    mine = [j for j in range(PL_CRASHER[0]) if j % n == s]
+    ms = _pl_system(mesh, os.path.join(here, "ck.npz"),
+                    os.path.join(here, "jl.log"))
+    try:
+        rep = ms.recover()
+        out["recover.report"] = np.array(
+            [-1 if rep.watermark is None else rep.watermark,
+             rep.replayed_intervals, rep.skipped_intervals,
+             int(rep.checkpoint_found), int(rep.journal_found)])
+        pl_recovered(ms, inputs, mine, out)
+    finally:
+        ms.recovery.checkpoint_path = None  # leave the files as they are
+        ms.stop()
+
+
+def _mesh_paged_lc_job(out, rank, arg, inputs):
+    """Every scenario of one launch: the lifecycle pipeline with a roomy
+    and a saturated arena, the shed target, the restores of the saving
+    mesh's file, of a JAX (2, 4) file and of a dense file (and the
+    agreed spill), and the system: the saving launch saves, the crashing
+    launch crashes, the (1, 2) launch recovers."""
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    shape = tuple(map(int, arg.split("x")))
+    mesh = make_mesh(*shape, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    s = axis_index(mesh, STREAM_AXIS)
+    d = str(inputs["pl.dir"])
+    _pl_lifecycle(out, mesh, inputs, s, "lc", PL_POOL)
+    _pl_lifecycle(out, mesh, inputs, s, "lcsat", PL_SAT_POOL)
+    _pl_shed(out, mesh, inputs, s)
+    tag = f"{shape[0]}x{shape[1]}"
+    if shape == PL_SAVER:
+        _pl_save(out, mesh, inputs, os.path.join(d, "port_save.npz"))
+    _pl_restore(out, mesh, "ckport", os.path.join(d, "port_save.npz"),
+                resave=os.path.join(d, f"port_{tag}.npz"))
+    _pl_restore(out, mesh, "ckjax", os.path.join(d, "jax_save.npz"))
+    _pl_restore(out, mesh, "ckdense", os.path.join(d, "dense_save.npz"))
+    _pl_restore(out, mesh, "ckbig", os.path.join(d, "port_save.npz"),
+                big=True)
+    if shape == PL_CRASHER:
+        _pl_crash(out, mesh, inputs, s, d)
+    elif shape == (1, 2):
+        _pl_recover(out, mesh, inputs, s, d)
 
 
 JOBS = {
@@ -2274,6 +2730,7 @@ JOBS = {
     "mesh_lifecycle": _mesh_lifecycle_job,
     "mesh_recovery": _mesh_recovery_job,
     "mesh_paged": _mesh_paged_job,
+    "mesh_paged_lc": _mesh_paged_lc_job,
     "selftest": _selftest_job,
 }
 
