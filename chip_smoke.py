@@ -7,6 +7,10 @@ then drives the main paths through ``TorchAggregator`` — record_batch ->
 transfer worker -> kernels -> ``collect()`` — and checks their output
 against host oracles:
 
+  * the port's static analyzer (``analysis``, before any kernel):
+    ``python -m loghisto_tpu_torch.analysis`` in a subprocess, its lazy
+    surfaces resolved under the CUDA build of PyTorch with Triton, no
+    finding past the reviewed baseline;
   * dense storage (``main_path``) at 10,000 metrics x 8193 buckets: K1
     on the raw route, K3 on the sparse route, the default
     transport="auto" (which the card's measured crossover keeps on raw),
@@ -377,6 +381,36 @@ def phase_codec(torch):
     if (k1_edge_mismatch or plain_edge_mismatch or k2_random_mismatch
             or table_mismatch):
         raise AssertionError(f"codec mismatches on the card: {out}")
+    return out
+
+
+ANALYSIS_TIMEOUT_S = 120
+
+
+def phase_analysis(torch):
+    """The port's static analyzer, ``python -m loghisto_tpu_torch.analysis``
+    (the import lint, its lazy surfaces resolved under this host's CUDA
+    build of PyTorch and Triton, and the lock lint), in a subprocess:
+    it must exit 0, with no finding past the reviewed baseline."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "loghisto_tpu_torch.analysis"], cwd=root,
+        capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    summary = [ln for ln in proc.stderr.splitlines()
+               if ln.startswith("analysis: ")]
+    words = summary[-1].split() if summary else []
+    out = {
+        "exit_code": proc.returncode,
+        "findings": int(words[1]) if len(words) > 3 else None,
+        "suppressed": int(words[3]) if len(words) > 3 else None,
+        "analysis_s": seconds,
+    }
+    if proc.returncode != 0 or out["findings"] != 0:
+        raise AssertionError(
+            f"the analyzer failed: {out} {proc.stdout[-3000:]} "
+            f"{proc.stderr[-3000:]}")
     return out
 
 
@@ -4985,11 +5019,15 @@ OB_DUMP_KEYS = {"commit_path", "commit_path_reason", "mesh", "registry",
                 "health"}
 
 
-def _ob_wait(cond, what, limit=60.0):
+def _ob_wait(cond, what, limit=60.0, counters=None):
+    """Poll ``cond`` until ``limit`` s pass; at the deadline the error
+    carries ``counters()`` (a dict) when given."""
     deadline = time.monotonic() + limit
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"{what} did not happen within {limit} s")
+            extra = "" if counters is None else f"; {json.dumps(counters())}"
+            raise AssertionError(
+                f"{what} did not happen within {limit} s{extra}")
         time.sleep(0.02)
 
 
@@ -6405,11 +6443,25 @@ def phase_federation(torch):
         sent = sum(c["samples"] for c in children) + sum(
             len(v) for _, v in parent_sent)
         t_children = time.monotonic()
+
+        def merge_counters():
+            st = rx.stats()
+            return {
+                "frames_received": st["frames_received"],
+                "duplicate_frames": st["duplicate_frames"],
+                "decode_errors": st["decode_errors"],
+                "samples_merged": st["samples_merged"],
+                "samples_shed": st["samples_shed"],
+                "sent": sent,
+                "children_samples": [c["samples"] for c in children],
+                "agg_queued_samples": agg._xfer_queued_samples,
+            }
+
         for what, cond in (
                 ("every sample merged", lambda: rx.samples_merged >= sent),
                 ("the duplicate", lambda: rx.duplicate_frames >= 1),
                 ("the decode error", lambda: rx.decode_errors >= 1)):
-            _ob_wait(cond, what, FED_DEADLINE_S)
+            _ob_wait(cond, what, FED_DEADLINE_S, merge_counters)
         t_applied = time.monotonic()
         if not agg.wait_transfers(60.0):
             raise AssertionError("the merges did not drain")
@@ -9215,6 +9267,7 @@ def main() -> int:
     failed = []
     only = set(sys.argv[1:])
     for name, phase in (("card", phase_card), ("codec", phase_codec),
+                        ("analysis", phase_analysis),
                         ("k1_fused_ingest", phase_k1),
                         ("k2_row_ingest", phase_k2),
                         ("k3_sparse_ingest", phase_k3),

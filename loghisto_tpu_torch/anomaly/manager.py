@@ -308,17 +308,19 @@ class AnomalyManager:
         b = self.wheel.config.num_buckets
         mesh = self._mesh
         with self.aggregator._dev_lock:
-            if self._prof is None:
-                prof = np.zeros((k, 0, b), dtype=np.float32)
-                wsum = np.zeros((k, 0), dtype=np.float32)
-            elif mesh is not None:
-                prof = host_gather(self._prof, ring_sharding(mesh),
-                                   first_only)
-                wsum = host_gather(self._wsum, bank_weight_sharding(mesh),
-                                   first_only)
-            else:
-                prof = self._prof.cpu().numpy().copy()
-                wsum = self._wsum.cpu().numpy().copy()
+            # copies on the device, ordered on the writers' stream: the
+            # gathers and the readback run after the lock is released
+            banks = (None if self._prof is None
+                     else (self._prof.clone(), self._wsum.clone()))
+        if banks is None:
+            prof = np.zeros((k, 0, b), dtype=np.float32)
+            wsum = np.zeros((k, 0), dtype=np.float32)
+        elif mesh is not None:
+            prof = host_gather(banks[0], ring_sharding(mesh), first_only)
+            wsum = host_gather(banks[1], bank_weight_sharding(mesh),
+                               first_only)
+        else:
+            prof, wsum = (t.cpu().numpy() for t in banks)
         if first_only and mesh is not None and not is_first_rank(mesh):
             return None
         return {"prof": prof, "wsum": wsum,

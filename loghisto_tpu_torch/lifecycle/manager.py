@@ -262,13 +262,15 @@ class LifecycleManager:
         with self.aggregator._dev_lock:
             if self._la is None:
                 return []
-            la = self._la
-            if self._mesh is not None:
-                # the same [M] vector on every rank, so the same victims;
-                # grown rows not stamped yet are past it (no row yet)
-                la = gather_parts(self._mesh, la, METRIC_AXIS)
-                la = la[:int((la != _UNSET).sum())]
-            last_active = la.cpu().numpy()
+            # a copy on the device, ordered on the writers' stream: the
+            # gather and the readback run after the lock is released
+            la = self._la.clone()
+        if self._mesh is not None:
+            # the same [M] vector on every rank, so the same victims;
+            # grown rows not stamped yet are past it (no row yet)
+            la = gather_parts(self._mesh, la, METRIC_AXIS)
+            la = la[:int((la != _UNSET).sum())]
+        last_active = la.cpu().numpy()
         victims = decide_victims(
             self.aggregator.registry.names(), last_active, self.epoch,
             self.config,
@@ -542,15 +544,17 @@ class LifecycleManager:
         and returns the state, and every other rank returns None."""
         mesh = self._mesh
         with self.aggregator._dev_lock:
-            if self._la is None:
-                la = np.zeros(0, dtype=np.int32)
-            elif mesh is not None:
-                la = host_gather(self._la, row_vector_sharding(mesh),
-                                 first_only)
-                if la is not None:
-                    la = la[:int((la != _UNSET).sum())].copy()
-            else:
-                la = self._la.cpu().numpy().copy()
+            # a copy on the device, ordered on the writers' stream: the
+            # gather and the readback run after the lock is released
+            la = None if self._la is None else self._la.clone()
+        if la is None:
+            la = np.zeros(0, dtype=np.int32)
+        elif mesh is not None:
+            la = host_gather(la, row_vector_sharding(mesh), first_only)
+            if la is not None:
+                la = la[:int((la != _UNSET).sum())].copy()
+        else:
+            la = la.cpu().numpy()
         if first_only and mesh is not None and not is_first_rank(mesh):
             return None
         with self._metrics_lock:

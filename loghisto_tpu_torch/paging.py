@@ -640,9 +640,11 @@ class PagedStore:
             keep = self._in_block(rows)
             rows, dense_idx, weights = (rows[keep], dense_idx[keep],
                                         weights[keep])
+        # host arrays: listed before the lock, so it guards only the dict
+        cells = list(zip(rows.tolist(), dense_idx.tolist(),
+                         weights.tolist()))
         with self._lock:
-            for r, d, w in zip(rows.tolist(), dense_idx.tolist(),
-                               weights.tolist()):
+            for r, d, w in cells:
                 key = (r, d)
                 self._host_spill[key] = self._host_spill.get(key, 0) + w
 

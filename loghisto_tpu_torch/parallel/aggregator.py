@@ -1265,7 +1265,10 @@ class TorchAggregator:
             self._xfer_cv.notify_all()
 
     def _raise_worker_error(self) -> None:
-        err, self._xfer_error = self._xfer_error, None
+        # the worker stores under the same condition variable, so an
+        # error stored between the read and the clear cannot be lost
+        with self._xfer_cv:
+            err, self._xfer_error = self._xfer_error, None
         if err is not None:
             raise RuntimeError(
                 "the transfer worker failed to apply a batch"
@@ -1329,7 +1332,8 @@ class TorchAggregator:
                 # what reaches here is not a device failure
                 logger.exception("transfer worker failed on a %s item",
                                  item[0])
-                self._xfer_error = e
+                with self._xfer_cv:
+                    self._xfer_error = e
             finally:
                 with self._xfer_cv:
                     self._xfer_queued_samples -= item[3]
@@ -2098,6 +2102,7 @@ class TorchAggregator:
         sums = stats["sums"][nonzero].astype(np.float64).tolist()
         pcts = stats["percentiles"][nonzero].astype(np.float64).tolist()
 
+        mids = nonzero.tolist()
         names = self.registry.names()[: len(stats["counts"])]
         metrics: Dict[str, float] = {}
         with self._agg_lock:
@@ -2110,7 +2115,7 @@ class TorchAggregator:
             # every nonzero row folds into the lifetime store, named or
             # not; reporting stays name-gated (as in the reference)
             for mid, count, total, row_pcts in zip(
-                nonzero.tolist(), counts, sums, pcts
+                mids, counts, sums, pcts
             ):
                 count = int(count)
                 if mid < len(names) and names[mid] is not None:
@@ -2234,17 +2239,23 @@ class TorchAggregator:
             return self._mesh_state_dict(first_only)
         with self._dev_lock, self._agg_lock:
             paged = self.paged is not None
-            return {
+            # a copy on the device, ordered on the writers' stream; the
+            # readback waits for it once the locks are released
+            acc = None if paged else self._acc.clone()
+            state = {
                 "format": STATE_FORMAT,
                 "storage": self.storage,
                 "bucket_limit": self.config.bucket_limit,
                 "precision": self.config.precision,
-                "acc": None if paged else self._acc.cpu().numpy().copy(),
+                "acc": None,
                 "paged": self.paged.state() if paged else None,
                 "names": self.registry.names(),
                 "agg": {mid: list(e) for mid, e in self._agg.items()},
                 "spill": None if self._spill is None else self._spill.copy(),
             }
+        if acc is not None:
+            state["acc"] = acc.cpu().numpy()
+        return state
 
     def _paged_mesh_state_dict(self, first_only: bool) -> Optional[dict]:
         """``state_dict`` on a paged mesh (ROADMAP D13): the staged
@@ -2279,18 +2290,20 @@ class TorchAggregator:
 
         self._mesh_regrow()
         with self._dev_lock:
-            spilled = mesh_reduce(self.mesh, [self._spill is not None],
-                                  dist.ReduceOp.MAX)[0]
+            # the partial is a copy on the device (int64), so the
+            # collectives run after the lock: the transfer worker folds
+            # on meanwhile, past this snapshot
+            spilled = self._spill is not None
             part = self._acc.to(torch.int64)
             if self._spill is not None:
                 part += torch.from_numpy(self._spill).to(part.device)
-            total = reduce_parts(self.mesh, part, STREAM_AXIS, first_only)
-            if total is not None:
-                total = host_gather(total, acc_sharding(self.mesh),
-                                    first_only)
-            if total is None:
-                return None
             names = self.registry.names()
+        spilled = mesh_reduce(self.mesh, [spilled], dist.ReduceOp.MAX)[0]
+        total = reduce_parts(self.mesh, part, STREAM_AXIS, first_only)
+        if total is not None:
+            total = host_gather(total, acc_sharding(self.mesh), first_only)
+        if total is None:
+            return None
         with self._agg_lock:
             agg = {mid: list(e) for mid, e in self._agg.items()}
         exact = not spilled and int(total.max(initial=0)) < 2 ** 31

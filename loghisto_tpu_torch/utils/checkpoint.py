@@ -136,6 +136,7 @@ def save(
         # the full barrier: every buffered and queued sample is in the
         # accumulator (or the pool) before it is read
         aggregator.flush(force=True)
+        spill = None
         with aggregator._dev_lock:
             if aggregator.paged is not None:
                 acc = aggregator.paged.decode_dense(include_spill=True)
@@ -143,11 +144,17 @@ def save(
                     aggregator.paged.codec_names()
                 )
             else:
-                acc = aggregator._acc.to("cpu", copy=True).numpy()
-                # a spilled interval keeps part of its counts in the
-                # host int64 fold; the combined snapshot is int64
+                # a copy on the device, ordered on the writers' stream:
+                # the readback waits for it after the lock is released
+                acc = aggregator._acc.clone()
                 if aggregator._spill is not None:
-                    acc = acc.astype(np.int64) + aggregator._spill
+                    spill = aggregator._spill.copy()
+        if aggregator.paged is None:
+            acc = acc.cpu().numpy()
+            # a spilled interval keeps part of its counts in the host
+            # int64 fold; the combined snapshot is int64
+            if spill is not None:
+                acc = acc.astype(np.int64) + spill
         with aggregator._agg_lock:
             agg_items = sorted(aggregator._agg.items())
         _put_aggregator(payload, aggregator, acc,

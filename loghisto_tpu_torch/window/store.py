@@ -838,18 +838,20 @@ class TimeWheel:
             mask = self._mask_locked(t, window)
             covered = float(t.durations[mask].sum())
             ts = self._last_time or _dt.datetime.now(tz=_dt.timezone.utc)
+            # fresh tensors that no later push writes: the gathers and
+            # the readback run after the lock is released
             stats = window_stats(
                 t.ring, mask, np.asarray(ps, dtype=np.float32),
                 self.config.bucket_limit, self.config.precision,
             )
-            if self.mesh is not None:
-                # every rank's block, in row order (three gathers over
-                # the metric axis)
-                stats = {k: gather_parts(self.mesh, stats[k])
-                         for k in ("counts", "sums", "percentiles")}
-            counts = stats["counts"].cpu().numpy()
-            sums = stats["sums"].cpu().numpy()
-            pcts = stats["percentiles"].cpu().numpy()
+        if self.mesh is not None:
+            # every rank's block, in row order (three gathers over the
+            # metric axis)
+            stats = {k: gather_parts(self.mesh, stats[k])
+                     for k in ("counts", "sums", "percentiles")}
+        counts = stats["counts"].cpu().numpy()
+        sums = stats["sums"].cpu().numpy()
+        pcts = stats["percentiles"].cpu().numpy()
         match = self._match_predicate(pattern)
         matches = [
             (mid, name) for mid, name in enumerate(self.registry.names())
@@ -1065,21 +1067,18 @@ class TimeWheel:
         metric axis (the whole ``[S, M, B]`` through the host under
         gloo), the metadata is every rank's own (the same on each), so
         every rank returns the same single-device state."""
-        rings = None
-        if self.mesh is not None:
-            with self._lock:
-                rings = [host_gather(t.ring, ring_sharding(self.mesh))
-                         for t in self._tiers]
         with self._lock:
-            return {
+            # copies on the device, ordered on the writers' stream: the
+            # gathers and the readbacks run after the lock is released
+            rings = [t.ring.clone() for t in self._tiers]
+            state = {
                 "format": WHEEL_STATE_FORMAT,
                 "bucket_limit": self.config.bucket_limit,
                 "precision": self.config.precision,
                 "interval": self.interval,
                 "num_metrics": self.num_metrics,
                 "tiers": [tuple(t.spec) for t in self._tiers],
-                "rings": rings if rings is not None else [
-                    t.ring.cpu().numpy().copy() for t in self._tiers],
+                "rings": None,
                 "slot": [t.slot for t in self._tiers],
                 "in_slot": [t.in_slot for t in self._tiers],
                 "written": [t.written.copy() for t in self._tiers],
@@ -1092,6 +1091,12 @@ class TimeWheel:
                 "names": self.registry.names(),
                 "last_time": self._last_time,
             }
+        if self.mesh is not None:
+            state["rings"] = [host_gather(r, ring_sharding(self.mesh))
+                              for r in rings]
+        else:
+            state["rings"] = [r.cpu().numpy() for r in rings]
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Replace the wheel's state with ``state`` (from ``state_dict``

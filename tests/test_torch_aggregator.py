@@ -19,6 +19,8 @@ float64 codec agree (their departures are counted in
 test_torch_codec.py), so both packages see the same buckets.
 """
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -290,3 +292,41 @@ def test_worker_failure_surfaces_at_the_next_flush():
     finally:
         jax_agg.close()
         port.close()
+
+
+def test_a_worker_error_is_raised_at_the_next_flush_exactly_once(
+        monkeypatch):
+    """A failure that is not a device failure (``_process_xfer_item``
+    raising) is stored by the transfer worker under ``_xfer_cv`` and
+    raised by the next flush, once; the flush after it does not raise it
+    again.  The reference has no worker error: this is the port's own
+    contract."""
+    agg = TorchAggregator(num_metrics=2, batch_size=8, device="cpu")
+    try:
+        mid = agg.registry.id_for("m")
+        real = agg._process_xfer_item
+
+        def boom(item):
+            raise ValueError("injected worker fault")
+
+        monkeypatch.setattr(agg, "_process_xfer_item", boom)
+        agg.record_batch(np.full(8, mid, np.int32), np.ones(8, np.float32))
+        agg.flush()  # enqueue only: the worker fails on its own thread
+        deadline = time.monotonic() + 30.0
+        while True:
+            with agg._xfer_cv:
+                if not agg._xfer_queue and not agg._xfer_active:
+                    break
+            assert time.monotonic() < deadline, "the worker never finished"
+            time.sleep(0.005)
+        with pytest.raises(RuntimeError, match="the transfer worker "
+                           "failed to apply a batch") as info:
+            agg.flush()
+        assert isinstance(info.value.__cause__, ValueError)
+        monkeypatch.setattr(agg, "_process_xfer_item", real)
+        agg.flush()
+        agg.record_batch(np.full(8, mid, np.int32), np.ones(8, np.float32))
+        agg.flush(force=True)
+        assert agg.collect().metrics["m_count"] == 8.0
+    finally:
+        agg.close()

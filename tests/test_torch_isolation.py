@@ -14,8 +14,9 @@ falls back to the CPU on its own.
 The torch-free frontier: the modules a frontend process imports to
 record and federate (the reference's four, ``federation.emitter``,
 ``labels.model``, ``obs.spans`` and ``metrics``, and ``submitter``,
-which the emitter ships through) load without torch, and an emitter in
-such a process ships a frame to a receiver in this one."""
+which the emitter ships through) and the port's static analyzer with
+its two lints load without torch, and an emitter in such a process
+ships a frame to a receiver in this one."""
 
 import ast
 import subprocess
@@ -35,6 +36,9 @@ TORCH_FREE_FRONTIER = (
     "loghisto_tpu_torch.obs.spans",
     "loghisto_tpu_torch.metrics",
     "loghisto_tpu_torch.submitter",
+    "loghisto_tpu_torch.analysis",
+    "loghisto_tpu_torch.analysis.import_lint",
+    "loghisto_tpu_torch.analysis.lock_lint",
 )
 
 

@@ -2720,6 +2720,134 @@ def _mesh_paged_lc_job(out, rank, arg, inputs):
         _pl_recover(out, mesh, inputs, s, d)
 
 
+# -- the locks narrowed at the mesh's entry points
+#    (tests/test_torch_mesh_locks.py) ---------------------------------------------
+LK_SHAPES = ((2, 1), (1, 2))
+LK_INTERVALS = 3
+LK_ROUNDS = 2
+LK_PROBE = 512  # samples of one probe batch: one raw item a probe
+LK_CELLS = 64
+LK_SEED = 11
+LK_WAIT_S = 30.0
+
+
+def lk_cells(s: int, i: int) -> np.ndarray:
+    """Interval i's cells (name index, codec bucket, count) of stream row
+    s: the same on every rank of the row."""
+    rng = np.random.default_rng((LK_SEED, s, i))
+    return np.stack([rng.integers(0, ML_DRIFT_NAMES, LK_CELLS),
+                     rng.integers(-50, 200, LK_CELLS),
+                     rng.integers(1, 6, LK_CELLS)], axis=1)
+
+
+def _lk_narrowed(out, mesh, s) -> None:
+    """The entry points whose collectives left their locks, driven while
+    the transfer worker records: each collective they make first records
+    one probe batch on this thread and waits (on the worker's counters,
+    LK_WAIT_S) until the worker has folded it into the accumulator under
+    ``_dev_lock``, which only returns in time if the entry point does not
+    hold that lock across the collective.  Then every count: the probes'
+    row, each state's snapshot of it (taken before the probes of its own
+    collectives), and the committed names'."""
+    import torch.distributed as dist
+
+    import loghisto_tpu_torch.anomaly.manager as an_mod
+    import loghisto_tpu_torch.lifecycle.manager as lc_mod
+    import loghisto_tpu_torch.parallel.aggregator as agg_mod
+    import loghisto_tpu_torch.window.store as wheel_mod
+    from loghisto_tpu_torch.anomaly import AnomalyConfig
+    from loghisto_tpu_torch.lifecycle import LifecycleConfig
+    from loghisto_tpu_torch.metrics import RawMetricSet
+    from loghisto_tpu_torch.parallel.mesh import STREAM_AXIS, axis_size
+
+    n_stream = axis_size(mesh, STREAM_AXIS)
+    com, agg, wheel, lc, an = _ml_pipeline(
+        mesh, ML_DRIFT_M, ML_DRIFT_TIERS, batch_size=LK_PROBE,
+        lifecycle=LifecycleConfig(ttl_intervals=100, check_every=1,
+                                  auto_compact_fragmentation=0.0),
+        anomaly=ml_anomaly_config(AnomalyConfig))
+    names = ml_drift_names()
+    probe_id = agg.registry.id_for("probe")
+    armed, applied = [False], []
+
+    def probe():
+        if not armed[0]:
+            return
+        agg.record_batch(np.full(LK_PROBE, probe_id, dtype=np.int32),
+                         np.linspace(1.0, 50.0, LK_PROBE, dtype=np.float32))
+        agg.flush()
+        ok = agg.wait_transfers(LK_WAIT_S)
+        applied.append(ok)
+        armed[0] = ok  # a held lock fails once, not at every collective
+
+    patched = []
+    for mod, name in ((agg_mod, "reduce_parts"), (agg_mod, "host_gather"),
+                      (lc_mod, "gather_parts"), (lc_mod, "host_gather"),
+                      (an_mod, "host_gather"), (wheel_mod, "gather_parts"),
+                      (wheel_mod, "host_gather")):
+        real = getattr(mod, name)
+
+        def wrapped(*a, _real=real, **kw):
+            probe()
+            return _real(*a, **kw)
+
+        setattr(mod, name, wrapped)
+        patched.append((mod, name, real))
+    try:
+        for i in range(LK_INTERVALS):
+            com.commit(mc_raw(RawMetricSet, [(s, lk_cells(s, i))], names,
+                              i))
+        snaps = []
+        for _ in range(LK_ROUNDS):
+            before = len(applied)
+            armed[0] = True
+            st = agg.state_dict()
+            lc.check()
+            la = lc.state_dict()["last_active"]
+            banks = an.state_dict()
+            ws = wheel.state_dict()
+            res = wheel._query_recompute("*", 1.0, (0.5,), 0)
+            armed[0] = False
+            snaps.append([int(st["acc"][probe_id].sum()),
+                          before * LK_PROBE * n_stream])
+            if len(la) < len(names) or banks["prof"].shape[1] < len(names):
+                raise AssertionError("a state lost rows")
+            if len(ws["rings"]) != len(ML_DRIFT_TIERS):
+                raise AssertionError("the wheel's state lost a tier")
+            if sorted(res.metrics) != sorted(names):
+                raise AssertionError(f"recompute served {sorted(res.metrics)}")
+        dist.barrier()
+        m = agg.collect(reset=False).metrics
+    finally:
+        for mod, name, real in patched:
+            setattr(mod, name, real)
+        agg.close()
+    want = np.zeros(len(names), dtype=np.int64)
+    for i in range(LK_INTERVALS):
+        for row in range(n_stream):
+            cells = lk_cells(row, i)
+            np.add.at(want, cells[:, 0], cells[:, 2])
+    out["lk.applied"] = np.array(applied)
+    out["lk.probe"] = np.array([m.get("probe_count", 0.0),
+                                len(applied) * LK_PROBE * n_stream])
+    out["lk.snaps"] = np.array(snaps, dtype=np.int64)
+    out["lk.counts"] = np.array([[m.get(f"{n}_count", 0.0), w]
+                                 for n, w in zip(names, want)])
+
+
+def _mesh_locks_job(out, rank, arg, inputs):
+    from loghisto_tpu_torch.parallel.mesh import (
+        STREAM_AXIS,
+        axis_index,
+        make_mesh,
+    )
+
+    stream, metric = map(int, arg.split("x"))
+    mesh = make_mesh(stream, metric, device="cpu")
+    out["coord"] = np.array(mesh.get_coordinate())
+    _lk_narrowed(out, mesh, axis_index(mesh, STREAM_AXIS))
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
@@ -2731,6 +2859,7 @@ JOBS = {
     "mesh_recovery": _mesh_recovery_job,
     "mesh_paged": _mesh_paged_job,
     "mesh_paged_lc": _mesh_paged_lc_job,
+    "mesh_locks": _mesh_locks_job,
     "selftest": _selftest_job,
 }
 
