@@ -7,10 +7,15 @@ then drives the main paths through ``TorchAggregator`` — record_batch ->
 transfer worker -> kernels -> ``collect()`` — and checks their output
 against host oracles:
 
-  * the port's static analyzer (``analysis``, before any kernel):
-    ``python -m loghisto_tpu_torch.analysis`` in a subprocess, its lazy
-    surfaces resolved under the CUDA build of PyTorch with Triton, no
-    finding past the reviewed baseline;
+  * the port's static analyzer (``analysis``, before the main paths):
+    ``python -m loghisto_tpu_torch.analysis`` in a subprocess (its lazy
+    surfaces resolved under the CUDA build of PyTorch with Triton, the
+    program registry's mesh entries on four gloo ranks), no finding past
+    the reviewed baseline; meanwhile each one-device registry entry on
+    the card (K1, K3, K4, K4f, K5, K6, K7): launches equal to its wrapper
+    entries and its contract, no synchronisation in a warm call under
+    ``torch.cuda.set_sync_debug_mode("error")``, outputs equal to the
+    CPU's;
   * dense storage (``main_path``) at 10,000 metrics x 8193 buckets: K1
     on the raw route, K3 on the sparse route, the default
     transport="auto" (which the card's measured crossover keeps on raw),
@@ -384,33 +389,149 @@ def phase_codec(torch):
     return out
 
 
-ANALYSIS_TIMEOUT_S = 120
+ANALYSIS_TIMEOUT_S = 180
+# the registry's float outputs on the card against the CPU's: the
+# float32 row sums (a matvec whose order the device picks) within the
+# rtol every sums comparison of this script uses, K7's scores within
+# K7_TOL at the registry's 129 buckets; every integer output bit-equal
+REGISTRY_SUMS_TOL = (1e-5, 1e-3)
+REGISTRY_K7_TOL = {"ks": (0.0, 2e-6), "jsd": (0.0, 1e-5),
+                   "emd": (1e-4, 129 * 2.0**-23)}
+
+
+def _registry_outputs_match(torch, name, got, want):
+    """Largest float difference of a registry entry's card outputs
+    against its CPU outputs; raises on any integer difference or a float
+    one past its tolerance."""
+    from loghisto_tpu_torch.analysis.program_audit import tensor_leaves
+
+    got_l, want_l = list(tensor_leaves(got)), list(tensor_leaves(want))
+    if len(got_l) != len(want_l):
+        raise AssertionError(f"{name}: {len(got_l)} card outputs against "
+                             f"{len(want_l)} on the CPU")
+    keys = list(want.keys()) if isinstance(want, dict) else [None] * len(
+        want_l)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        g = g.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} output {i}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if torch.equal(g, w):
+            continue
+        if not g.dtype.is_floating_point:
+            raise AssertionError(f"{name} output {i} differs on the card")
+        key = keys[i] if i < len(keys) else None
+        rtol, atol = REGISTRY_K7_TOL.get(key, REGISTRY_SUMS_TOL)
+        err = (g.double() - w.double()).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= atol + rtol * w.double().abs()).all()):
+            raise AssertionError(f"{name} output {i} ({key}): max error "
+                                 f"{float(err.max())}")
+    return worst
+
+
+def _registry_on_card(torch):
+    """Every one-device entry of the program registry
+    (``analysis/program_audit.PROGRAMS``) built on the card: its contract
+    held by the recorder there, the ``kernel_launches()`` delta equal to
+    the ``wrapper_entries()`` delta and to the contract's ``launches``,
+    a warm second call under ``torch.cuda.set_sync_debug_mode("error")``
+    raising nothing, and both calls' outputs equal to the CPU's."""
+    from loghisto_tpu_torch.analysis import program_audit as pa
+    from loghisto_tpu_torch.ops.backend import (kernel_launches,
+                                                wrapper_entries)
+
+    def delta(before, after):
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    rows, failures = [], []
+    for spec in pa.PROGRAMS:
+        if spec.mesh:
+            continue
+        t0 = time.perf_counter()
+        _, want, _ = pa.run_spec(spec, "cpu")
+        k0, e0 = kernel_launches(), wrapper_entries()
+        findings, cold, _ = pa.run_spec(spec, "cuda")
+        torch.cuda.synchronize()
+        launched = delta(k0, kernel_launches())
+        entered = delta(e0, wrapper_entries())
+        step, args = spec.build("cuda")
+        torch.cuda.synchronize()
+        sync_error = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warm = step(*args)
+        except RuntimeError as e:
+            sync_error, warm = repr(e)[:400], None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        row = {"analysis_entry": spec.name, "launches": launched,
+               "wrapper_entries": entered,
+               "contract": dict(spec.contract.launches),
+               "findings": [f.render() for f in findings],
+               "sync_error": sync_error}
+        try:
+            row["max_float_err"] = max(
+                _registry_outputs_match(torch, spec.name, cold, want),
+                0.0 if warm is None else _registry_outputs_match(
+                    torch, spec.name, warm, want))
+        except AssertionError as e:
+            row["mismatch"] = str(e)
+        row["s"] = round(time.perf_counter() - t0, 3)
+        emit(row)
+        if (findings or sync_error or "mismatch" in row
+                or launched != entered or entered != {
+                    k: v for k, v in spec.contract.launches.items() if v}):
+            failures.append(spec.name)
+        rows.append(row)
+    if failures:
+        raise AssertionError(f"registry entries failed on the card: "
+                             f"{failures}")
+    return {"entries": len(rows),
+            "launches": {r["analysis_entry"]: r["launches"] for r in rows}}
 
 
 def phase_analysis(torch):
     """The port's static analyzer, ``python -m loghisto_tpu_torch.analysis``
     (the import lint, its lazy surfaces resolved under this host's CUDA
-    build of PyTorch and Triton, and the lock lint), in a subprocess:
-    it must exit 0, with no finding past the reviewed baseline."""
+    build of PyTorch and Triton, the lock lint, and the program registry
+    on the CPU with its mesh entries on four gloo ranks), in a
+    subprocess: it must exit 0, with no finding past the reviewed
+    baseline; meanwhile every one-device registry entry on the card
+    (``_registry_on_card``)."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "loghisto_tpu_torch.analysis"], cwd=root,
-        capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t1 = time.perf_counter()
+        registry = _registry_on_card(torch)
+        registry_s = time.perf_counter() - t1
+        stdout, stderr = proc.communicate(timeout=ANALYSIS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - t0
-    summary = [ln for ln in proc.stderr.splitlines()
+    summary = [ln for ln in stderr.splitlines()
                if ln.startswith("analysis: ")]
     words = summary[-1].split() if summary else []
     out = {
         "exit_code": proc.returncode,
         "findings": int(words[1]) if len(words) > 3 else None,
         "suppressed": int(words[3]) if len(words) > 3 else None,
+        "passes": words[-1] if words else None,
         "analysis_s": seconds,
+        "registry": registry,
+        "registry_s": registry_s,
     }
     if proc.returncode != 0 or out["findings"] != 0:
         raise AssertionError(
-            f"the analyzer failed: {out} {proc.stdout[-3000:]} "
-            f"{proc.stderr[-3000:]}")
+            f"the analyzer failed: {out} {stdout[-3000:]} {stderr[-3000:]}")
     return out
 
 

@@ -1,8 +1,8 @@
 """Static contract analyzer of the port (counterpart of
-``loghisto_tpu/analysis``): prove the port's layering and locking
-invariants once, centrally, with no card and no torch in the process.
+``loghisto_tpu/analysis``): prove the port's layering, locking and
+per-step device invariants once, centrally, with no card.
 
-Two passes, one gate:
+Three passes, one gate:
 
   * ``import_lint`` — AST module graph enforcing the port's layering:
     nothing in the package imports the JAX stack (``jax``, ``jaxlib``)
@@ -14,15 +14,22 @@ Two passes, one gate:
   * ``lock_lint``   — AST concurrency discipline: no blocking device
     readback, device sync, collective or socket op while holding a lock,
     and thread entry points must take a lock before writing shared
-    attributes.  Reviewed exceptions are pinned (with reasons) in
-    ``analysis/baseline.py``.
+    attributes.
+  * ``program_audit`` — the program registry: every device step run
+    once at a small seeded geometry under a recorder, its kernel
+    wrapper entries, in-place carries, collectives (on a (2, 2) mesh of
+    four gloo ranks), int32 accumulation, forbidden dense shapes and
+    freedom from host syncs held to its contract.
 
-``python -m loghisto_tpu_torch.analysis`` runs both passes and exits
-nonzero with per-finding ``file:line reason`` output;
-``tests/test_torch_analysis.py`` runs the same passes inside tier-1.
+Reviewed exceptions are pinned (with reasons) in ``analysis/baseline.py``.
+``python -m loghisto_tpu_torch.analysis`` runs the three passes and
+exits nonzero with per-finding ``file:line reason`` output;
+``tests/test_torch_analysis.py`` and ``tests/test_torch_contracts.py``
+run the same passes inside tier-1.
 
-Every module of this package loads without torch; only the lazy-surface
-check imports the surfaces, inside its function.
+Every module of this package loads without torch: the lazy-surface
+check and the program auditor import torch inside their functions, and
+this ``__init__`` does not import ``program_audit``.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ class Finding:
     violating construct) pin the finding, the line is presentation.
     """
 
-    pass_name: str   # "imports" | "locks" | "baseline"
+    pass_name: str   # "imports" | "locks" | "programs" | "baseline"
     path: str        # repo-relative file
     line: int
     scope: str       # qualified function / module

@@ -6,10 +6,12 @@ Each entry pins ONE intentional finding, capability-table style:
 
 The first four fields are the finding's line-number-independent key
 (``Finding.key()``); the fifth is the justification a reviewer signed
-off on: which thread could wait on that lock, and why that is
-acceptable.  A stale entry — one that no longer matches any finding —
-is itself reported as a failure, so the table can only shrink when the
-code actually improves.  ROADMAP.md decision D14 records the review.
+off on: for a locks finding, which thread could wait on that lock, and
+why that is acceptable; for a programs finding (a registry step's
+scope), what the step costs on the card.  A stale entry — one that no
+longer matches any finding — is itself reported as a failure, so the
+table can only shrink when the code actually improves.  ROADMAP.md
+decisions D14 (locks) and D15 (programs) record the review.
 """
 
 BASELINE: tuple[tuple[str, str, str, str, str], ...] = (
@@ -73,5 +75,24 @@ BASELINE: tuple[tuple[str, str, str, str, str], ...] = (
         "appends to the MeshStage, D12) and the committer applies on "
         "this thread (D9); only a writer growing the registry waits, "
         "for the cells' length gather and one gather to rank (0, 0)",
+    ),
+    (
+        "programs", "loghisto_tpu_torch/ops/lifecycle.py",
+        "sharded_fold_evict", "host-sync:_local_scalar_dense",
+        "the dense mesh fold returns `moved`, the victims' total summed "
+        "over the mesh, as a host int for the lifecycle's counters: "
+        "`int()` of the rank's share waits, once an eviction, for the "
+        "stream to finish the victims' row sum and the work queued before "
+        "it, one 8-byte read on the card; under gloo the share goes "
+        "through the host for the SUM anyway",
+    ),
+    (
+        "programs", "loghisto_tpu_torch/ops/lifecycle.py",
+        "sharded_fold_evict", "collective-dtype:all_reduce",
+        "`moved` is a lifetime total of whole rows, which can pass 2^31, "
+        "so its SUM over the mesh (`mesh_reduce`, one all_reduce an axis "
+        "an eviction) carries one int64: 8 bytes a rank an axis; int32 "
+        "would wrap it, and no count the rings or the accumulator hold "
+        "travels in int64",
     ),
 )

@@ -44,7 +44,9 @@ JAX_STACK = ("jax", "jaxlib", "loghisto_tpu")
 # Modules that must stay importable in a process with no accelerator
 # stack: the federation emitter tier, the label data model, the span
 # ring, the host metrics registry, the submitter the emitter ships
-# through, and the analyzer itself (it gates hosts without a card).
+# through, and the analyzer itself (it gates hosts without a card; the
+# program auditor imports torch only inside the functions that run a
+# step).
 TORCH_FREE_FRONTIER = (
     "loghisto_tpu_torch.federation.emitter",
     "loghisto_tpu_torch.labels.model",
@@ -54,6 +56,7 @@ TORCH_FREE_FRONTIER = (
     "loghisto_tpu_torch.analysis",
     "loghisto_tpu_torch.analysis.import_lint",
     "loghisto_tpu_torch.analysis.lock_lint",
+    "loghisto_tpu_torch.analysis.program_audit",
 )
 
 # Top-level distributions the frontier must never reach at import time.

@@ -43,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from loghisto_tpu_torch.ops.backend import is_plain, launch
+from loghisto_tpu_torch.ops.backend import is_plain, launch, to_device
 from loghisto_tpu_torch.ops.lifecycle import compact_rows_kernel
 from loghisto_tpu_torch.parallel.mesh import (
     METRIC_AXIS,
@@ -150,7 +150,7 @@ def divergence_kernel(cdf, counts, prof, w, min_samples):
     tensors (one block per row, the bank rows read in place), the plain
     version on CPU tensors.  Returns {"ks", "jsd", "emd"}, f32 [M]."""
     _check_scores(cdf, counts, prof, w)
-    if is_plain(cdf):
+    if is_plain(cdf, "divergence"):
         return divergence_plain(cdf, counts, prof, w, min_samples)
     for name, t in (("cdf", cdf), ("counts", counts), ("prof", prof),
                     ("w", w)):
@@ -233,10 +233,10 @@ def make_bank_evict_fn():
     def evict(prof, wsum, ihist, victims):
         v = np.asarray(victims, dtype=np.int64)
         dev = prof.device
-        vb = torch.as_tensor(v[(v >= 0) & (v < prof.shape[1])], device=dev)
+        vb = to_device(v[(v >= 0) & (v < prof.shape[1])], dev)
         prof.index_fill_(1, vb, 0.0)
         wsum.index_fill_(1, vb, 0.0)
-        vi = torch.as_tensor(v[(v >= 0) & (v < ihist.shape[0])], device=dev)
+        vi = to_device(v[(v >= 0) & (v < ihist.shape[0])], dev)
         ihist.index_fill_(0, vi, 0)
         return prof, wsum, ihist
 
@@ -251,8 +251,7 @@ def make_bank_compact_fn():
     cold."""
 
     def compact(prof, wsum, ihist, perm):
-        perm_t = torch.as_tensor(np.asarray(perm, dtype=np.int32),
-                                 device=prof.device)
+        perm_t = to_device(np.asarray(perm, dtype=np.int32), prof.device)
         mb, mi = prof.shape[1], ihist.shape[0]
         prof = compact_rows_kernel(prof, perm_t[:mb])
         wsum = compact_rows_kernel(wsum[:, :, None], perm_t[:mb])[:, :, 0]

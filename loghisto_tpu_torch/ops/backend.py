@@ -14,14 +14,24 @@ Pallas in interpret mode when it is not.  The port has no such escape:
 
 ``KERNEL_LAUNCHES`` counts launches per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that
-its main path went through the kernels.  The counters are process-wide
-integers; ``reset_kernel_launches`` sets them to 0.
+its main path went through the kernels.  ``WRAPPER_ENTRIES`` counts the
+entries to each kernel's wrapper (its ``is_plain`` call), on either
+device: on the card an entry launches the kernel, on the CPU it takes
+the plain version, so the entries pin a step's kernels where no launch
+can be seen (``analysis/program_audit.py``).  The counters are
+process-wide integers; ``reset_kernel_launches`` sets both to 0.
+
+``to_device`` uploads a host array without a synchronisation: on the
+card through pinned memory and a non-blocking copy on the current
+stream, so a step that takes host indices does not stall the stream.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 
+import numpy as np
 import torch
 
 KERNELS = ("fused_ingest", "row_ingest", "sparse_ingest", "paged_scatter",
@@ -29,18 +39,37 @@ KERNELS = ("fused_ingest", "row_ingest", "sparse_ingest", "paged_scatter",
            "multirow_ingest")
 
 KERNEL_LAUNCHES = {name: 0 for name in KERNELS}
+WRAPPER_ENTRIES = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
+
+# Called as observer(kernel, plain, caller frame) at every wrapper entry
+# while set (the program auditor's recorder); None otherwise.
+_entry_observer = None
 
 
 def reset_kernel_launches() -> None:
     with _launch_lock:
         for name in KERNELS:
             KERNEL_LAUNCHES[name] = 0
+            WRAPPER_ENTRIES[name] = 0
 
 
 def kernel_launches() -> dict:
     with _launch_lock:
         return dict(KERNEL_LAUNCHES)
+
+
+def wrapper_entries() -> dict:
+    with _launch_lock:
+        return dict(WRAPPER_ENTRIES)
+
+
+def set_entry_observer(observer):
+    """Install ``observer(kernel, plain, frame)`` (None removes it);
+    returns the one it replaces."""
+    global _entry_observer
+    previous, _entry_observer = _entry_observer, observer
+    return previous
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,17 +87,45 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def is_plain(tensor: torch.Tensor) -> bool:
-    """True when a wrapper must take its plain version: the tensor lies
-    on the CPU.  A CUDA tensor launches the kernel; anything else raises."""
-    if tensor.device.type == "cpu":
-        return True
-    if tensor.device.type == "cuda":
-        return False
-    raise ValueError(
-        f"tensor on {tensor.device}: kernels take CUDA tensors, plain "
-        "versions CPU tensors"
-    )
+def is_plain(tensor: torch.Tensor, kernel: str) -> bool:
+    """The entry of ``kernel``'s wrapper (one of ``KERNELS``): True when
+    it must take its plain version, the tensor lying on the CPU.  A CUDA
+    tensor launches the kernel; anything else raises.  Counts the entry
+    in ``WRAPPER_ENTRIES``."""
+    if tensor.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"tensor on {tensor.device}: kernels take CUDA tensors, plain "
+            "versions CPU tensors"
+        )
+    plain = tensor.device.type == "cpu"
+    with _launch_lock:
+        WRAPPER_ENTRIES[kernel] += 1
+    observer = _entry_observer
+    if observer is not None:
+        observer(kernel, plain, sys._getframe(1))
+    return plain
+
+
+def to_device(values, device, dtype=None) -> torch.Tensor:
+    """``values`` (a host array, a sequence or a tensor) as a tensor of
+    ``dtype`` on ``device``.  A host array bound for the card goes
+    through pinned memory with a non-blocking copy on the current
+    stream: no synchronisation, and the caching host allocator keeps the
+    pinned block until the copy has read it.  A tensor already there is
+    returned as it is."""
+    device = torch.device(device)
+    if isinstance(values, torch.Tensor):
+        t = values
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(values))
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    if t.device.type == device.type and (device.index is None
+                                         or t.device == device):
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def launch(name: str, *args) -> None:

@@ -216,7 +216,7 @@ def fused_ingest_batch(
     launch on a CUDA tensor, the plain scatter on a CPU tensor."""
     check_acc(acc, bucket_limit)
     ids, values = check_samples(acc, ids, values)
-    if is_plain(acc):
+    if is_plain(acc, "fused_ingest"):
         return ingest_batch(acc, ids, values, bucket_limit, precision)
     n = ids.shape[0]
     if n:
@@ -318,7 +318,7 @@ def fused_paged_ingest_batch(
     ids, values, row_codec, enc_luts, page_table = check_paged_operands(
         pool, ids, values, row_codec, enc_luts, page_table, bucket_limit
     )
-    if is_plain(pool):
+    if is_plain(pool, "fused_paged_ingest"):
         return fused_paged_ingest_reference(
             pool, ids, values, row_codec, enc_luts, page_table,
             bucket_limit, precision,

@@ -60,7 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from loghisto_tpu_torch.ops.backend import is_plain, launch
+from loghisto_tpu_torch.ops.backend import is_plain, launch, to_device
 from loghisto_tpu_torch.ops.commit import DROP_ID, stamp_activity
 from loghisto_tpu_torch.parallel.mesh import (
     METRIC_AXIS,
@@ -79,7 +79,7 @@ COMPACT_PATH_RULE = (
 
 
 def _index(ids, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    return to_device(np.asarray(ids, dtype=np.int64), device)
 
 
 def make_touch_fn():
@@ -88,8 +88,8 @@ def make_touch_fn():
     outside the vector (DROP_ID pads) change nothing."""
 
     def touch(last_active, ids, epoch):
-        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int32),
-                                device=last_active.device)
+        ids_t = to_device(np.asarray(ids, dtype=np.int32),
+                          last_active.device)
         return stamp_activity(last_active, ids_t, int(epoch))
 
     return touch
@@ -196,7 +196,7 @@ def compact_rows(arr: torch.Tensor, perm) -> torch.Tensor:
     """Plain version: ``out[..., new, :] = arr[..., perm[new], :]`` over
     the row axis (-2), zero rows where ``perm[new]`` is out of range.
     Returns a fresh tensor with ``len(perm)`` rows."""
-    perm = torch.as_tensor(perm, device=arr.device)
+    perm = to_device(perm, arr.device)
     _check_compact(arr, perm)
     sp = _sanitize_perm(perm, arr.shape[-2])
     valid = sp != int(DROP_ID)
@@ -210,9 +210,9 @@ def compact_rows_kernel(arr: torch.Tensor, perm) -> torch.Tensor:
     """Kernel wrapper, same contract as ``compact_rows``: K6 on a CUDA
     array (one launch, out of place), the plain version on a CPU
     array."""
-    perm = torch.as_tensor(perm, device=arr.device)
+    perm = to_device(perm, arr.device)
     _check_compact(arr, perm)
-    if is_plain(arr):
+    if is_plain(arr, "compact_rows"):
         return compact_rows(arr, perm)
     if not arr.is_contiguous():
         raise ValueError("arr must be contiguous (K6 indexes it flat)")
@@ -265,8 +265,7 @@ def make_compact_fn(num_tiers: int, path: str = "auto",
         return rings, _activity_rows(epoch)(last_active, p)
 
     def perm_on(perm, device):
-        return torch.as_tensor(np.asarray(perm, dtype=np.int32),
-                               device=device)
+        return to_device(np.asarray(perm, dtype=np.int32), device)
 
     if not with_acc:
 

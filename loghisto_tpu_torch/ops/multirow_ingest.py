@@ -224,7 +224,7 @@ def multirow_ingest(
             f"{acc.dtype}")
     check_rows_tile(acc.shape[0], rows_tile)
     rows, bidx, tile_block = check_layout(acc, rows, bidx, tile_block)
-    if is_plain(acc):
+    if is_plain(acc, "multirow_ingest"):
         return multirow_ingest_reference(acc, rows, bidx, tile_block,
                                          rows_tile)
     # K8 reads 16 bytes at a time: a view that starts off a 16-byte line

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from loghisto_tpu_torch.config import PRECISION
-from loghisto_tpu_torch.ops.backend import is_plain, launch
+from loghisto_tpu_torch.ops.backend import is_plain, launch, to_device
 
 # Buckets per page: 256 int32 = 1 KiB.  At B = 8193 a dense row is 33
 # pages, so one latency band of a few hundred buckets costs 1-3 pages
@@ -121,7 +121,7 @@ def paged_scatter(pool: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     launch on a CUDA tensor, the plain version on a CPU tensor."""
     check_pool(pool)
     packed = _check_packed(pool, packed)
-    if is_plain(pool):
+    if is_plain(pool, "paged_scatter"):
         return paged_scatter_batch(pool, packed)
     n = packed.shape[0]
     if n:
@@ -160,9 +160,9 @@ def paged_query(
 
     device = pool.device
     num_buckets = 2 * bucket_limit + 1
-    dec = torch.as_tensor(dec_lut, device=device).long()
+    dec = to_device(dec_lut, device).long()
     storage = gather_storage_rows(
-        pool, torch.as_tensor(table_rows, device=device), dec.shape[0]
+        pool, to_device(table_rows, device), dec.shape[0]
     )
     native = torch.zeros(
         (storage.shape[0], num_buckets), dtype=torch.int32, device=device

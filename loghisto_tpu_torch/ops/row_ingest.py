@@ -142,7 +142,7 @@ def histogram_row(
             "split the batch across calls"
         )
     values = check_values(acc_row[None, :], values)
-    if is_plain(acc_row):
+    if is_plain(acc_row, "row_ingest"):
         return histogram_row_reference(acc_row, values, bucket_limit, precision)
     _launch_row(acc_row, None, values, bucket_limit, precision)
     return acc_row
@@ -171,7 +171,7 @@ def row_ingest_batch(
             f"N={n} >= 2^24: the float32 scratch would silently saturate; "
             "split the batch across calls"
         )
-    if is_plain(acc):
+    if is_plain(acc, "row_ingest"):
         histogram_row_reference(acc[0], values, bucket_limit, precision, ids)
         return acc
     _launch_row(acc, ids, values, bucket_limit, precision)

@@ -82,7 +82,7 @@ def sparse_ingest_multi(targets, packed: torch.Tensor, bucket_limit: int):
     for acc in targets:
         check_acc(acc, bucket_limit)
         packed = _check_packed(acc, packed)
-    if is_plain(packed):
+    if is_plain(packed, "sparse_ingest"):
         return sparse_ingest_multi_batch(targets, packed, bucket_limit)
     n = packed.shape[0]
     if n:

@@ -199,11 +199,11 @@ def bucket_representatives(
 
 @functools.lru_cache(maxsize=64)
 def _representatives(bucket_limit, precision, device, dtype):
-    import torch
+    from loghisto_tpu_torch.ops.backend import to_device
 
     idx = np.arange(-bucket_limit, bucket_limit + 1, dtype=np.int64)
-    reps = torch.from_numpy(decompress_np(idx, precision))
-    return reps.to(device=device, dtype=dtype)
+    # the first query of a geometry uploads without a synchronisation
+    return to_device(decompress_np(idx, precision), device, dtype)
 
 
 def dense_stats(
@@ -261,10 +261,11 @@ def dense_cdf(
 def _owned(mesh, rows: int, ids, device):
     """On a mesh: (global row ids as a long tensor, this rank's block
     index of each, whether this rank's block holds it)."""
+    from loghisto_tpu_torch.ops.backend import to_device
     from loghisto_tpu_torch.parallel.mesh import METRIC_AXIS, axis_index
     import torch
 
-    idx = torch.as_tensor(ids, dtype=torch.long, device=device)
+    idx = to_device(ids, device, torch.long)
     lo = axis_index(mesh, METRIC_AXIS) * rows
     own = (idx >= lo) & (idx < lo + rows)
     return idx, torch.where(own, idx - lo, torch.zeros_like(idx)), own
@@ -284,8 +285,10 @@ def make_snapshot_query_fn(bucket_limit: int, precision: int = PRECISION,
     owner, the same ``[n, P]`` results on every rank, bit for bit."""
     import torch
 
+    from loghisto_tpu_torch.ops.backend import to_device
+
     def query(cdf, counts, sums, ids, ps):
-        idx = torch.as_tensor(ids, dtype=torch.long, device=cdf.device)
+        idx = to_device(ids, cdf.device, torch.long)
         return snapshot_row_stats(
             cdf[idx], counts[idx], sums[idx], ps, bucket_limit, precision
         )
@@ -344,6 +347,8 @@ def make_group_query_fn(bucket_limit: int, precision: int = PRECISION,
     rank's metric line."""
     import torch
 
+    from loghisto_tpu_torch.ops.backend import to_device
+
     def partial(cdf, counts, sums, rows_of, seg, num_groups, own=None):
         """The rows ``rows_of`` summed per group (rows not ``own``
         count as zero)."""
@@ -366,9 +371,9 @@ def make_group_query_fn(bucket_limit: int, precision: int = PRECISION,
 
     def group_query(cdf, counts, sums, ids, gids, ps, *, num_groups):
         device = cdf.device
-        seg = torch.as_tensor(gids, dtype=torch.long, device=device)
+        seg = to_device(gids, device, torch.long)
         if mesh is None:
-            idx = torch.as_tensor(ids, dtype=torch.long, device=device)
+            idx = to_device(ids, device, torch.long)
             gcdf, gcounts, gsums = partial(cdf, counts, sums, idx, seg,
                                            num_groups)
         else:
@@ -404,17 +409,19 @@ def snapshot_row_stats(
     ``snapshot_row_stats``)."""
     import torch
 
+    from loghisto_tpu_torch.ops.backend import to_device
+
     num_buckets = cdf_rows.shape[1]
     device = cdf_rows.device
     reps = bucket_representatives(bucket_limit, precision, device)
-    ps = torch.as_tensor(ps, dtype=torch.float32, device=device)
+    ps = to_device(ps, device, torch.float32)
     total_i = torch.clamp(counts, min=1)[:, None]  # [M, 1]
     total_f = total_i.to(torch.float32)
     k0 = torch.ceil(ps[None, :] * total_f)  # [M, P] first candidate
-    window = torch.tensor([-1.0, 0.0, 1.0], device=device)
+    window = torch.arange(-1.0, 2.0, dtype=torch.float32, device=device)
     cands = k0[:, :, None] + window  # [M, P, 3]
     ok = (cands / total_f[:, :, None] >= ps[None, :, None]) & (cands >= 1.0)
-    inf = torch.tensor(float("inf"), device=device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=device)
     best = torch.where(ok, cands, inf).amin(dim=2)
     k_star_f = torch.where(torch.isfinite(best), best, k0)
     # int32-representable float clamp BEFORE the cast, then the exact

@@ -149,7 +149,7 @@ def window_merge_views(ring: torch.Tensor, masks) -> torch.Tensor:
     _check_ring(ring)
     slots, m, b = ring.shape
     masks = _host_masks(masks, slots)
-    if is_plain(ring):
+    if is_plain(ring, "window_merge"):
         if not len(masks):
             return torch.zeros((0, m, b), dtype=torch.int32)
         return torch.stack([window_merge(ring, mask) for mask in masks])

@@ -435,5 +435,5 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_plain():
     """The plain version is taken only for CPU tensors."""
     acc = torch.zeros((2, 129), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="plain versions CPU"):
-        backend.is_plain(acc)
-    assert backend.is_plain(torch.zeros(1)) is True
+        backend.is_plain(acc, "fused_ingest")
+    assert backend.is_plain(torch.zeros(1), "fused_ingest") is True

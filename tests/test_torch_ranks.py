@@ -2,7 +2,9 @@
 rank runs (``tests/test_torch_mesh.py``, ``test_torch_multihost.py``,
 ``test_torch_firehose.py``, ``test_torch_sketches.py`` and the mesh
 commit, lifecycle, recovery and paged files hold the results against
-the JAX package in the test process).
+the JAX package in the test process; ``test_torch_contracts.py`` holds
+the program registry's mesh entries, job ``programs``, against their
+one-device twins).
 
 ``launch(tmp, world, job, inputs)`` starts ``world`` fresh interpreters
 that rendezvous through a ``FileStore`` in ``tmp`` (gloo on the CPU,
@@ -2848,6 +2850,24 @@ def _mesh_locks_job(out, rank, arg, inputs):
     _lk_narrowed(out, mesh, axis_index(mesh, STREAM_AXIS))
 
 
+def _programs_job(out, rank, arg, inputs):
+    """Every mesh entry of the program registry
+    (``analysis/program_audit.py``) on this rank of the (2, 2) mesh: its
+    findings, collective census and payload dtypes, wrapper entries,
+    output shapes, and outputs."""
+    import json
+
+    from loghisto_tpu_torch.analysis import program_audit as pa
+
+    results = pa.mesh_rank_results(pa.mesh_names())
+    out["coord"] = np.array(pa.coordinate())
+    for name, r in results.items():
+        out[f"{name}.report"] = np.array(json.dumps(
+            {k: v for k, v in r.items() if k != "outputs"}))
+        for i, a in enumerate(r["outputs"]):
+            out[f"{name}.out{i}"] = a
+
+
 JOBS = {
     "card": _card_job,
     "mesh": _mesh_job,
@@ -2861,6 +2881,7 @@ JOBS = {
     "mesh_paged_lc": _mesh_paged_lc_job,
     "mesh_locks": _mesh_locks_job,
     "selftest": _selftest_job,
+    "programs": _programs_job,
 }
 
 
